@@ -5,22 +5,43 @@
 Drives the port's main path once at full width and checks it, in phases,
 each printing one JSON line:
 
-1. env     torch and CUDA versions, the card's name and power limit.
-2. build   builds every CUDA kernel of the path from ops/csrc with nvcc
-           (sm_90a), all at once, and prints the build seconds.
-3. kernel  holds each kernel against its plain PyTorch version on the card
-           at the main path's shapes, with the tolerances stated below, and
-           times the kernel, the plain version, a PyTorch library call
-           computing the same function (a yardstick the port never calls)
-           and the card's bound for the same work.
-4. serve   the BERT-base encoder (12 layers, d 768, 12 heads of 64, seq 128,
-           one bucket of 256, random weights from a seed) behind
-           TorchInferenceServer's dynamic batcher and the HTTP front end;
-           a few dozen concurrent JSON and binary-extension requests; every
-           embedding is held against the same weights' forward with the
-           plain attention on the card; the kernels' launch counters,
-           zeroed just before the requests, must show the path went
-           through them (12 flash-attention launches per batch).
+1. env       torch and CUDA versions, the card's name and power limit.
+2. build     builds every CUDA kernel of the paths from ops/csrc with nvcc
+             (sm_90a), one process each, all at once, and prints the build
+             seconds.
+3. kernel    holds flash attention (K1) against its plain PyTorch version
+             on the card at the encoder path's shapes, with the tolerances
+             stated below, and times the kernel, the plain version, a
+             PyTorch library call computing the same function (a yardstick
+             the port never calls) and the card's bound for the same work.
+4. kernel    the same for paged decode attention (K2) at the generation
+             path's shapes: positions 0, 15, 16, mid-context and 191,
+             inactive slots on the scratch block, table widths 1, 4 and 12,
+             one GQA case; no single PyTorch call reads through a block
+             table, so its yardstick is a gather plus
+             scaled_dot_product_attention.
+5. serve     the BERT-base encoder (12 layers, d 768, 12 heads of 64, seq
+             128, one bucket of 256, random weights from a seed) behind
+             TorchInferenceServer's dynamic batcher and the HTTP front end;
+             a few dozen concurrent JSON and binary-extension requests;
+             every embedding is held against the same weights' forward with
+             the plain attention on the card; the flash-attention launch
+             counter, zeroed just before the requests, must show 12
+             launches per batch.
+6. generate  the reference bench.py's generation point at full width
+             (vocab 30528, d 768, 12 layers, 12 heads of 64, d_ff 3072,
+             max_seq 192, bf16, random weights from a seed) served by
+             make_continuous_generator (paged KV, blocks of 16, 16 slots,
+             chunk 16, token-level prefill, K2 attention) through
+             TorchInferenceServer.infer with a response callback: its 32
+             ragged jobs from 32 threads, a quarter of them sampled. Every
+             stream must stream exactly its budget and then the final flag,
+             every token must be in the vocab, the K2 launch counter
+             (zeroed just before) must read 12 x 16 per chunk dispatch, and
+             every greedy stream is teacher-forced through the plain path
+             on the card: each served token must be the plain argmax
+             wherever the plain top-1/top-2 logit gap exceeds a stated bf16
+             tolerance.
 
 Then the kernel table line ``{"kernels": [...]}`` and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure raises and exits
@@ -57,6 +78,21 @@ ATOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 EMBED_ATOL = 3e-2
 N_REQUESTS = 48
 LAYERS = 12
+
+# K2 vs its plain version on the card. f32: the JAX suite's own tolerance
+# for the Pallas kernel (tests/test_paged_attention.py:302); the two sum in
+# other orders. bf16: the output is one bf16 rounding of an O(1) value
+# (~4e-3), and the kernel keeps P in f32 as the plain version does.
+K2_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the generation path: 16 slots, 12 heads of 64, blocks of 16 rows, a
+# table of 12 blocks (max_seq 192), a pool of 16 x 12 + 1 blocks
+GEN_SLOTS, GEN_CHUNK, GEN_BLOCK, GEN_MAX_SEQ = 16, 16, 16, 192
+GEN_POOL = GEN_SLOTS * GEN_MAX_SEQ // GEN_BLOCK + 1
+# teacher forcing: the served path (K2, 16 slots) and the plain one (the
+# plain K2, another batch) round bf16 activations at other places; over
+# 12 layers a logit moves by a few hundredths, so a top-1/top-2 gap above
+# this cannot flip between them
+GREEDY_GAP = 0.1
 
 # published peaks (NVIDIA data sheets, SXM parts): memory bytes/s, dense
 # bf16 tensor-core FLOP/s
@@ -184,6 +220,103 @@ def phase_kernel(peaks: tuple) -> dict:
               "max_abs_err": max(c["max_abs_err"] for c in errs)}
     emit({"phase": "kernel", "name": "flash_attention", "cases": errs,
           **timing})
+    return timing
+
+
+def _paged_inputs(s, h, hkv, dh, n, width, pos, dtype, gen, inactive=()):
+    """q, one layer's K/V slabs as strided views of a 2-layer pool, block
+    tables of distinct non-scratch blocks per slot, positions. Inactive
+    slots sit at position 0 on an all-scratch table."""
+    q = torch.randn((s, h, dh), generator=gen, device="cuda").to(dtype)
+    pool = torch.randn((2, 2, n, GEN_BLOCK, hkv, dh), generator=gen,
+                       device="cuda").to(dtype)
+    perm = torch.randperm(n - 1, generator=gen, device="cuda") + 1
+    tables = perm[:s * width].reshape(s, width).to(torch.int32)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    for i in inactive:
+        tables[i] = 0
+        pos[i] = 0
+    return q, pool[0, 1], pool[1, 1], tables, pos
+
+
+def phase_paged_kernel(peaks: tuple) -> dict:
+    from client_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    s, h, dh, nb = GEN_SLOTS, 12, 64, GEN_MAX_SEQ // GEN_BLOCK
+    spread = [0, 15, 16, 17, 31, 32, 97, 100, 150, 176, 190, 191, 191, 5,
+              0, 0]
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        # the path's shape: positions 0, a block edge, mid-context, 191
+        # and two inactive slots on scratch
+        cases.append(("path", dtype, (s, h, h, dh, GEN_POOL, nb, spread,
+                                      (14, 15))))
+        # narrower tables (the engine's width buckets); positions past the
+        # table attend every row of it
+        cases.append(("width4", dtype, (s, h, h, dh, GEN_POOL, 4,
+                                        [min(p, 70) for p in spread], ())))
+        cases.append(("width1", dtype, (s, h, h, dh, GEN_POOL, 1,
+                                        [p % 20 for p in spread], ())))
+        # grouped queries at the widest head
+        cases.append(("gqa", dtype, (8, 32, 8, 128, 97, nb,
+                                     [0, 15, 16, 63, 100, 191, 191, 7],
+                                     (7,))))
+    errs = []
+    for name, dtype, (cs, ch, chkv, cdh, cn, width, pos, off) in cases:
+        args = _paged_inputs(cs, ch, chkv, cdh, cn, width, pos, dtype, gen,
+                             off)
+        out = pa.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        ref = pa.paged_decode_attention_reference(*args)
+        err = (out.float() - ref.float()).abs().max().item()
+        case = {"case": name, "dtype": str(dtype).split(".")[-1],
+                "shape": [cs, ch, chkv, cdh], "table_width": width,
+                "max_abs_err": err, "atol": K2_ATOL[dtype]}
+        errs.append(case)
+        if not (torch.isfinite(out).all().item() and err <= K2_ATOL[dtype]):
+            fail(f"paged_decode_attention disagrees with its plain "
+                 f"version: {case}")
+
+    # full context: every slot at position 191 over a table of 12 blocks
+    q, kp, vp, tables, pos = _paged_inputs(
+        s, h, h, dh, GEN_POOL, nb, [GEN_MAX_SEQ - 1] * s, torch.bfloat16,
+        gen)
+    ms = time_ms(lambda: pa.paged_decode_attention(q, kp, vp, tables, pos),
+                 iters=50, warmup=5)
+    plain_ms = time_ms(
+        lambda: pa.paged_decode_attention_reference(q, kp, vp, tables, pos),
+        iters=10, warmup=2)
+
+    def gather_sdpa():
+        idx = tables.long()
+        k = kp[idx].reshape(s, nb * GEN_BLOCK, h, dh).transpose(1, 2)
+        v = vp[idx].reshape(s, nb * GEN_BLOCK, h, dh).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k, v)
+
+    yard = gather_sdpa()[:, :, 0].float()
+    want = pa.paged_decode_attention_reference(q, kp, vp, tables,
+                                               pos).float()
+    yard_err = (yard - want).abs().max().item()
+    yard_ms = time_ms(gather_sdpa, iters=50, warmup=5)
+    ctx = GEN_MAX_SEQ
+    nbytes = (2 * s * ctx * h * dh + 2 * s * h * dh) * q.element_size()
+    flops = 2 * 2 * s * h * ctx * dh
+    bw, bf16_peak = peaks
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+              "bound_ms": max(bytes_ms, ops_ms),
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+              "bytes": nbytes, "flops": flops,
+              "max_abs_err": max(c["max_abs_err"] for c in errs)}
+    emit({"phase": "kernel", "name": "paged_decode_attention",
+          "cases": errs, **timing,
+          "library_note": "no single PyTorch call reads K/V through a "
+                          "block table; yardstick: gather + "
+                          "scaled_dot_product_attention",
+          "gather_sdpa_ms": yard_ms, "gather_sdpa_max_abs_err": yard_err})
     return timing
 
 
@@ -316,6 +449,249 @@ def phase_serve() -> dict:
     return result
 
 
+def _teacher_forced(cfg, params, seqs: list, plens: list) -> dict:
+    """Feed every greedy stream (prompt + served tokens) through the plain
+    path on the card, all streams as the slots of one batch:
+    ``paged_decode_steps`` with the plain K2. Counts the served tokens that
+    differ from the plain argmax where the plain top-1/top-2 gap exceeds
+    GREEDY_GAP."""
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_reference,
+    )
+    from client_tpu_torch.server.kv_cache import init_paged_pool
+
+    n, nb = len(seqs), GEN_MAX_SEQ // GEN_BLOCK
+    longest = max(len(x) for x in seqs)
+    grid = np.zeros((n, longest), np.int32)
+    for i, x in enumerate(seqs):
+        grid[i, :len(x)] = x
+    toks = torch.from_numpy(grid).cuda()
+    lens = torch.tensor([len(x) for x in seqs], device="cuda")
+    plen = torch.tensor(plens, device="cuda")
+    pool = init_paged_pool(cfg, n * nb + 1, GEN_BLOCK, "cuda")
+    tables = (1 + torch.arange(n * nb, device="cuda")).reshape(
+        n, nb).to(torch.int32)
+    checked = torch.zeros((), dtype=torch.int64, device="cuda")
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    with torch.inference_mode():
+        for p in range(longest - 1):
+            pos = torch.full((n,), p, dtype=torch.int32, device="cuda")
+            width = p // GEN_BLOCK + 1
+            logits, pool = t.paged_decode_steps(
+                cfg, params, toks[:, p], pos, tables[:, :width], pool,
+                attention=paged_decode_attention_reference)
+            top2 = logits.topk(2, dim=-1).values
+            # logits at p predict token p + 1: a served token when it
+            # lies past the prompt and inside the stream
+            judged = (p + 1 >= plen) & (p + 1 < lens) \
+                & (top2[:, 0] - top2[:, 1] > GREEDY_GAP)
+            wrong = logits.argmax(dim=-1) != toks[:, p + 1]
+            checked += judged.sum()
+            bad += (judged & wrong).sum()
+    served = sum(len(x) - q for x, q in zip(seqs, plens))
+    return {"greedy_streams": n, "served_tokens": served,
+            "judged_tokens": int(checked), "mismatches": int(bad),
+            "gap_tol": GREEDY_GAP}
+
+
+def _dispatch_profile(engine_cfg, params, sample: bool) -> dict:
+    """One chunk dispatch of the generation path outside the engine, at
+    full width (16 active slots mid-context, tables of 12 blocks, the
+    greedy or the sampled variant): its host time, its stream time
+    between CUDA events, and by torch.profiler its device busy time (the
+    sum of its kernels) and its kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from client_tpu_torch.server.generation import paged_chunk_kernel
+    from client_tpu_torch.server.kv_cache import init_paged_pool
+
+    s, c, nb = GEN_SLOTS, GEN_CHUNK, GEN_MAX_SEQ // GEN_BLOCK
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    pool = init_paged_pool(engine_cfg, GEN_POOL, GEN_BLOCK, dev)
+    tables = (1 + torch.arange(s * nb, device=dev)).reshape(s, nb).to(
+        torch.int32)
+    zi = torch.zeros((s,), dtype=torch.int32, device=dev)
+    pos = torch.full((s,), 96, dtype=torch.int32, device=dev)
+    temps = torch.full((s,), 0.8 if sample else 0.0, device=dev)
+    topks = torch.full((s,), 40 if sample else 0, dtype=torch.int32,
+                       device=dev)
+    topps = torch.zeros((s,), device=dev)
+    feed = torch.randint(0, engine_cfg.vocab_size, (s, c), generator=gen,
+                         device=dev, dtype=torch.int32)
+    ones = torch.ones((s,), dtype=torch.bool, device=dev)
+    ring = torch.zeros((4, s, c), dtype=torch.int32, device=dev)
+    cnt = torch.zeros((4, s), dtype=torch.int32, device=dev)
+
+    def dispatch():
+        return paged_chunk_kernel(
+            engine_cfg, params, pool, pos, zi, ring, cnt, 0, tables, feed,
+            zi, ones, ones, pos, zi, temps, topks, topps, sample)
+
+    with torch.inference_mode():
+        dispatch()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        dispatch()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        event_ms = start.elapsed_time(end)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dispatch()
+            torch.cuda.synchronize()
+    busy_us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        busy_us += getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0.0))
+        if evt.key.startswith("cudaLaunchKernel"):
+            launches += evt.count
+    return {"sample": sample, "host_ms": host_ms, "event_ms": event_ms,
+            "device_busy_ms": busy_us / 1e3 if busy_us else None,
+            "kernel_launches": launches}
+
+
+def _stream_request(prompt, budget, sampling):
+    from client_tpu_torch.server.types import InferRequest, InferTensor
+
+    inputs = [InferTensor("PROMPT", "INT32", (len(prompt),), data=prompt),
+              InferTensor("MAX_TOKENS", "INT32", (1,),
+                          data=np.asarray([budget], np.int32))]
+    if sampling is not None:
+        temp, top_k, seed = sampling
+        inputs += [
+            InferTensor("TEMPERATURE", "FP32", (1,),
+                        data=np.asarray([temp], np.float32)),
+            InferTensor("TOP_K", "INT32", (1,),
+                        data=np.asarray([top_k], np.int32)),
+            InferTensor("SEED", "INT32", (1,),
+                        data=np.asarray([seed], np.int32))]
+    return InferRequest(model_name="continuous_lm", inputs=inputs)
+
+
+def phase_generate() -> dict:
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.models.decoder_lm import make_continuous_generator
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.perf.bench_harness import ragged_generation_jobs
+    from client_tpu_torch.server import TorchInferenceServer
+
+    cfg = t.TransformerConfig(
+        vocab_size=30528, d_model=768, n_layers=LAYERS, n_heads=12,
+        head_dim=64, d_ff=3072, max_seq=GEN_MAX_SEQ, causal=True,
+        dtype=torch.bfloat16, attn_impl="flash")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = t.init_params(gen, cfg)
+    model = make_continuous_generator(
+        "continuous_lm", cfg=cfg, params=params, n_slots=GEN_SLOTS,
+        chunk_size=GEN_CHUNK, dispatch_depth=2, kv_block_len=GEN_BLOCK,
+        max_new_tokens=128, eos_id=-1, device="cuda")
+    jobs = ragged_generation_jobs(7, cfg.vocab_size, 32, (8, 64), (16, 128),
+                                  cfg.max_seq)
+    # a quarter of the jobs sampled, each with its own seed
+    sampling = [(0.8, 40, 1000 + i) if i % 4 == 3 else None
+                for i in range(len(jobs))]
+    core = TorchInferenceServer()
+    t0 = time.time()
+    core.register_model(model, warmup=True)
+    register_s = time.time() - t0
+    streams: list = [[] for _ in jobs]
+    finals = [0] * len(jobs)
+    errors: list = []
+    go = threading.Barrier(len(jobs))
+
+    def client(i):
+        prompt, budget = jobs[i]
+
+        def cb(resp, final):
+            if resp.error is not None:
+                errors.append(f"job {i}: {resp.error_status} {resp.error}")
+            elif final:
+                finals[i] += 1
+            else:
+                if finals[i]:
+                    errors.append(f"job {i}: a token after the final flag")
+                streams[i].append(int(resp.output("TOKEN").data[0]))
+
+        try:
+            go.wait(timeout=60)
+            core.infer(_stream_request(prompt, budget, sampling[i]),
+                       response_callback=cb)
+        except Exception as e:  # noqa: BLE001 — failed below
+            errors.append(f"job {i}: {type(e).__name__}: {e}")
+
+    engine = model.engine
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(jobs))]
+    try:
+        before = engine.stats()
+        # the main path: counters at 0 just before, read just after
+        pa.launches = 0
+        t0 = time.time()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall_s = time.time() - t0
+        launches = pa.launches
+        after = engine.stats()
+        snap = engine.gen_stats.snapshot()
+    finally:
+        core.stop()
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"generate: {errors[:3]}")
+    chunks = after["chunks_dispatched"] - before["chunks_dispatched"]
+    if launches != LAYERS * GEN_CHUNK * chunks:
+        fail(f"generate: {launches} paged_decode_attention launches for "
+             f"{chunks} chunk dispatches, expected {LAYERS} x {GEN_CHUNK} "
+             f"per dispatch")
+    for i, ((prompt, budget), got) in enumerate(zip(jobs, streams)):
+        if len(got) != budget or finals[i] != 1:
+            fail(f"generate: job {i} streamed {len(got)} tokens of "
+                 f"{budget} and {finals[i]} final flags")
+        if not all(0 <= x < cfg.vocab_size for x in got):
+            fail(f"generate: job {i} streamed a token outside the vocab")
+    greedy = [i for i in range(len(jobs)) if sampling[i] is None]
+    tf = _teacher_forced(
+        cfg, params, [np.concatenate([jobs[i][0], streams[i]])
+                      for i in greedy], [len(jobs[i][0]) for i in greedy])
+    if tf["mismatches"] or tf["judged_tokens"] < tf["served_tokens"] // 2:
+        fail(f"generate: greedy streams differ from the plain path: {tf}")
+    useful = sum(b for _, b in jobs)
+    dispatch_s = (after["phase_seconds"]["dispatch"]
+                  - before["phase_seconds"]["dispatch"])
+    timed = after["timed_dispatches"] - before["timed_dispatches"]
+    event_ms = after["dispatch_event_ms"] - before["dispatch_event_ms"]
+    standalone = [_dispatch_profile(cfg, params, sample)
+                  for sample in (False, True)]
+    ttft = snap["ttft"]
+    itl = snap["inter_token"]
+    result = {
+        "phase": "generate", "jobs": len(jobs), "useful_tokens": useful,
+        "sampled_jobs": len(jobs) - len(greedy), "wall_s": wall_s,
+        "continuous_batching_ragged_tokens_per_s": useful / wall_s,
+        "chunk_dispatches": chunks,
+        "paged_decode_attention_launches": launches,
+        "host_ms_per_dispatch": dispatch_s / chunks * 1e3,
+        "event_ms_per_dispatch": event_ms / timed if timed else None,
+        "standalone_dispatch": standalone,
+        "phase_seconds": {k: after["phase_seconds"][k]
+                          - before["phase_seconds"][k]
+                          for k in after["phase_seconds"]},
+        "ttft_mean_ms": ttft[1] / max(1, ttft[2]) / 1e6,
+        "itl_mean_ms": itl[1] / max(1, itl[2]) / 1e6,
+        "register_with_warmup_s": register_s, "teacher_forced": tf}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -328,16 +704,27 @@ def main() -> int:
     peaks = card_peaks(env["device"])
     phase_build()
     timing = phase_kernel(peaks)
+    paged_timing = phase_paged_kernel(peaks)
     serve = phase_serve()
-    emit({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "client_tpu_torch/ops/csrc/flash_attention.cu",
-        "replaces": "client_tpu/ops/flash_attention.py:36",
-        "launches": serve["flash_attention_launches"],
-        "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
-    }]})
+    generate = phase_generate()
+
+    def row(name, source, replaces, launches, t):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    emit({"kernels": [
+        row("flash_attention",
+            "client_tpu_torch/ops/csrc/flash_attention.cu",
+            "client_tpu/ops/flash_attention.py:36",
+            serve["flash_attention_launches"], timing),
+        row("paged_decode_attention",
+            "client_tpu_torch/ops/csrc/paged_attention.cu",
+            "client_tpu/ops/paged_attention.py:52",
+            generate["paged_decode_attention_launches"], paged_timing),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

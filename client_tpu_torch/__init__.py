@@ -14,9 +14,12 @@ Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU with ``device="cpu"``; without CUDA they raise instead of
 moving to the CPU (``client_tpu_torch.device.resolve_device``).
 
-Ported so far (the encoder serving slice): the protocol codec, the
+Ported so far: the encoder serving slice (the protocol codec, the
 dynamic batcher, the serving core and its HTTP front end, the forward
-half of the transformer, and the flash-attention kernel.
+half of the transformer, the flash-attention kernel) and the core of the
+generation slice (the continuous-batching engine over the paged KV pool,
+token sampling, the decoupled serving path, the paged decode attention
+kernel).
 """
 
 __version__ = "0.1.0"

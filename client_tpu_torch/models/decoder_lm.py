@@ -1,0 +1,158 @@
+"""Decoder LM served models: the port's counterpart of the continuous
+generator of ``client_tpu/models/decoder_lm.py``.
+
+``make_continuous_generator`` serves autoregressive generation as a
+decoupled (streaming) model: PROMPT [-1] in (plus optional MAX_TOKENS,
+TEMPERATURE, TOP_K, TOP_P and SEED, each [1]), one TOKEN [1] response per
+generated token, every concurrent request multiplexed onto one slot batch
+by the continuous-batching engine (``server/generation.py``). The
+reference's single-stream and static-batch generators, its sequence
+decoder, replica fleets and engine supervision wait for later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from client_tpu_torch.device import resolve_device
+from client_tpu_torch.models import transformer as t
+from client_tpu_torch.models.sampling import MAX_TOP_K
+from client_tpu_torch.server.config import ModelConfig, TensorSpec
+from client_tpu_torch.server.generation import (
+    ContinuousBatchingEngine,
+    reject_unported,
+)
+from client_tpu_torch.server.model import PyModel
+from client_tpu_torch.server.types import ServerError
+
+
+def _read_sampling(inputs) -> tuple:
+    """(temperature, top_k, top_p, seed) from the optional wire inputs;
+    the defaults reproduce the greedy decode exactly. A top_k beyond
+    ``MAX_TOP_K`` is a 400, not a silent clamp."""
+    temp = float(np.asarray(inputs.get("TEMPERATURE", [0.0])).reshape(-1)[0])
+    top_k = int(np.asarray(inputs.get("TOP_K", [0])).reshape(-1)[0])
+    top_p = float(np.asarray(inputs.get("TOP_P", [0.0])).reshape(-1)[0])
+    seed = int(np.asarray(inputs.get("SEED", [0])).reshape(-1)[0])
+    if top_k > MAX_TOP_K:
+        raise ServerError(
+            f"TOP_K={top_k} exceeds this model's sampling width "
+            f"({MAX_TOP_K}); nucleus (TOP_P) sampling is also computed "
+            f"within the top {MAX_TOP_K} candidates", 400)
+    return temp, top_k, top_p, seed
+
+
+_SAMPLING_SPECS = (
+    TensorSpec("TEMPERATURE", "FP32", (1,), optional=True),
+    TensorSpec("TOP_K", "INT32", (1,), optional=True),
+    TensorSpec("TOP_P", "FP32", (1,), optional=True),
+    TensorSpec("SEED", "INT32", (1,), optional=True),
+)
+
+
+def decode_config(vocab_size: int = 1024, d_model: int = 128,
+                  n_layers: int = 2, n_heads: int = 4, head_dim: int = 32,
+                  d_ff: int = 512, max_seq: int = 128,
+                  dtype=torch.bfloat16,
+                  attn_impl: str = "flash") -> t.TransformerConfig:
+    """The reference's default decode model shape (its ``_decode_config``),
+    with the port's default attention, the paged decode kernel."""
+    return t.TransformerConfig(
+        vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
+        n_heads=n_heads, head_dim=head_dim, d_ff=d_ff, max_seq=max_seq,
+        causal=True, dtype=dtype, attn_impl=attn_impl)
+
+
+class ContinuousModel(PyModel):
+    """The served continuous generator: ``engine`` is the live engine.
+    ``unload`` stops it and stages a fresh one (a stopped engine stays
+    stopped); ``warmup`` drives one short stream through it, so the
+    kernels are built and the device state is ready before serving."""
+
+    def __init__(self, config: ModelConfig, stream_fn, fresh_engine):
+        super().__init__(config, fn=None, stream_fn=stream_fn)
+        self._fresh_engine = fresh_engine
+        self.engine = fresh_engine()
+
+    def warmup(self) -> None:
+        list(self.engine.submit(np.zeros(4, np.int32), 2))
+
+    def unload(self) -> None:
+        self.engine.stop()
+        self.engine = self._fresh_engine()
+
+
+def make_continuous_generator(name: str = "continuous_lm", cfg=None,
+                              params=None, seed: int = 0,
+                              n_slots: int = 8, chunk_size: int = 8,
+                              dispatch_depth: int = 2,
+                              fetch_stride: int = 4,
+                              overlap: bool = True,
+                              ring_entries: int = 0,
+                              max_new_tokens: int = 32,
+                              eos_id: int = -1,
+                              instance_count: int = 64,
+                              kv_layout: str = "paged",
+                              prefill_mode: str = "token",
+                              kv_block_len: int = 16,
+                              kv_pool_blocks: int = 0,
+                              kv_max_blocks_per_slot: int = 0,
+                              queue_depth: int = 256,
+                              shed_on_full: bool = False,
+                              device=None, **unported) -> ContinuousModel:
+    """Continuously batched decoupled generation (the reference's
+    ``make_continuous_generator``, limited to the knobs its engine port
+    runs; any other knob raises ``NotImplementedError`` naming its
+    ROADMAP item).
+
+    ``cfg`` defaults to the reference's small decode config; ``params``
+    default to random weights from ``seed``, drawn on ``device`` (CUDA by
+    default, raising without it; the CPU only when asked for). The engine
+    is built now and started by the first request."""
+    reject_unported(unported)
+    dev = resolve_device(device)
+    cfg = cfg or decode_config()
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = t.init_params(gen, cfg)
+
+    def fresh_engine():
+        return ContinuousBatchingEngine(
+            cfg, params, n_slots=n_slots, chunk=chunk_size,
+            dispatch_depth=dispatch_depth, queue_depth=queue_depth,
+            fetch_stride=fetch_stride, overlap=overlap,
+            ring_entries=ring_entries, kv_layout=kv_layout,
+            prefill_mode=prefill_mode, kv_block_len=kv_block_len,
+            kv_pool_blocks=kv_pool_blocks,
+            kv_max_blocks_per_slot=kv_max_blocks_per_slot,
+            shed_on_full=shed_on_full, device=dev, name=name)
+
+    model: ContinuousModel = None  # bound below; stream_fn reads it live
+
+    def stream_fn(inputs):
+        budget = int(np.asarray(
+            inputs.get("MAX_TOKENS", [max_new_tokens])).reshape(-1)[0])
+        temp, top_k, top_p, rng_seed = _read_sampling(inputs)
+        # prompt validation lives in engine.submit: one definition of
+        # the wire contract
+        for tok in model.engine.submit(inputs["PROMPT"], budget,
+                                       eos_id=eos_id, temperature=temp,
+                                       top_k=top_k, top_p=top_p,
+                                       seed=rng_seed):
+            yield {"TOKEN": np.array([tok], np.int32)}
+
+    config = ModelConfig(
+        name=name,
+        decoupled=True,
+        inputs=(TensorSpec("PROMPT", "INT32", (-1,)),
+                TensorSpec("MAX_TOKENS", "INT32", (1,), optional=True))
+        + _SAMPLING_SPECS,
+        outputs=(TensorSpec("TOKEN", "INT32", (1,)),),
+        # streams block in the engine, not on device work: admit more of
+        # them than there are slots so retiring slots refill at once
+        instance_count=max(instance_count, 2 * n_slots),
+    )
+    model = ContinuousModel(config, stream_fn, fresh_engine)
+    return model

@@ -1,0 +1,156 @@
+"""Token selection for the decode paths: the port of
+``client_tpu/models/sampling.py``.
+
+The selection rule is the reference's, branch for branch:
+
+    temperature <= 0     -> greedy argmax;
+    top_k == top_p == 0  -> full-vocab categorical at ``temperature``;
+    top_k >= 1           -> categorical over the top min(top_k, max_top_k)
+                            logits;
+    top_p in (0, 1]      -> nucleus: the smallest prefix of the sorted
+                            candidates (within the top ``max_top_k``) whose
+                            mass reaches top_p, evaluated from the tail so a
+                            float32 cumsum cannot saturate; the first
+                            candidate always survives.
+
+A categorical draw is ``argmax(logits + gumbel_noise)``, exactly what
+``jax.random.categorical`` computes. ``sample_next`` therefore takes its
+noise as arguments: the reference draws a vocab-wide vector for the
+full-vocab branch and a ``max_top_k``-wide one for the truncated branches
+from one key, and a test can hand the port those very draws
+(``jax.random.gumbel``) and hold the selection rule to exact agreement.
+
+``select_token`` derives the noise statelessly from (seed, position) with
+a counter-based integer hash in torch ops, so one (seed, position) pair
+always gives the same draw, on the card or the CPU, with no global RNG
+and no host round trip. The draws are not the reference's (its threefry
+bits are not reproduced); the distribution is the same.
+
+Every branch is computed and ``torch.where`` selects, as the reference's
+``jnp.where`` does: temperature, top_k and top_p are per-slot data, and
+nothing here reads a device value on the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# requests may ask for any 1 <= top_k <= this
+MAX_TOP_K = 64
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finaliser on int64 tensors (every multiplier is
+    below 2^31, so no product leaves the int64 range)."""
+    x = x & _M32
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _M32
+    x = ((x ^ (x >> 15)) * 0x2C1B3C6D) & _M32
+    x = ((x ^ (x >> 16)) * 0x297A2D39) & _M32
+    return x ^ (x >> 16)
+
+
+def step_noise(seed, pos, vocab: int, max_top_k: int = MAX_TOP_K) -> tuple:
+    """The Gumbel noise of one decode step for each row: a pure function of
+    (seed, pos). ``seed``/``pos`` are int tensors of one shape [...]
+    (or Python ints). Returns (gumbel [..., vocab] f32, gumbel_k [...,
+    min(max_top_k, vocab)] f32)."""
+    seed = torch.as_tensor(seed).long()
+    pos = torch.as_tensor(pos, device=seed.device).long()
+    key = _mix32(_mix32(seed) ^ ((pos + 0x632BE5AB) & _M32))[..., None]
+    k = min(max_top_k, vocab)
+    idx = torch.arange(vocab + k, device=seed.device)
+    bits = _mix32(key + idx * 0x61C88647)
+    # 23 random bits + 0.5: exact in f32, strictly inside (0, 1)
+    u = ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
+    g = -torch.log(-torch.log(u))
+    return g[..., :vocab], g[..., vocab:]
+
+
+def sample_next(logits, gumbel, gumbel_k, temperature, top_k, top_p=0.0,
+                max_top_k: int = MAX_TOP_K) -> torch.Tensor:
+    """Select the next token of each row of ``logits`` [..., vocab] (f32).
+
+    ``gumbel`` [..., vocab] feeds the full-vocab categorical and
+    ``gumbel_k`` [..., min(max_top_k, vocab)] the truncated one;
+    ``temperature``/``top_k``/``top_p`` are scalars or [...] tensors on
+    the logits' device. Returns int32 [...]."""
+    logits = logits.float()
+    dev = logits.device
+    vocab = logits.shape[-1]
+    temp = torch.as_tensor(temperature, dtype=torch.float32,
+                           device=dev)[..., None]
+    tk = torch.as_tensor(top_k, device=dev).long()[..., None]
+    tp = torch.as_tensor(top_p, dtype=torch.float32, device=dev)[..., None]
+    neg_inf = torch.full((), float("-inf"), device=dev)
+    greedy = logits.argmax(dim=-1)
+    scaled = logits / temp.clamp(min=1e-6)
+    full = (scaled + gumbel).argmax(dim=-1)
+    k = min(max_top_k, vocab)  # tiny-vocab models
+    vals, idx = torch.topk(scaled, k, dim=-1)      # sorted descending
+    ar = torch.arange(k, device=dev)
+    kk = torch.where(tk > 0, tk.clamp(1, k), k)
+    keep = ar < kk
+    # nucleus from the TAIL: preceding mass < top_p <=> remaining mass >
+    # 1 - top_p, which a reverse cumsum cannot saturate
+    probs = torch.softmax(torch.where(keep, vals, neg_inf), dim=-1)
+    remaining = probs.flip(-1).cumsum(-1).flip(-1)
+    keep = keep & torch.where(tp > 0, remaining > 1.0 - tp, True)
+    # the first candidate always survives (a top_p below f32 epsilon
+    # rounds 1 - top_p up to 1 and would empty the nucleus)
+    keep = keep | (ar == 0)
+    masked = torch.where(keep, vals, neg_inf)
+    choice = (masked + gumbel_k).argmax(dim=-1, keepdim=True)
+    trunc = idx.gather(-1, choice)[..., 0]
+    sampled = torch.where((tk[..., 0] > 0) | (tp[..., 0] > 0), trunc, full)
+    return torch.where(temp[..., 0] > 0, sampled, greedy).to(torch.int32)
+
+
+def select_token(logits, seed, pos, temperature, top_k, top_p=0.0,
+                 max_top_k: int = MAX_TOP_K) -> torch.Tensor:
+    """``sample_next`` with the stateless per-step noise of (seed, pos):
+    the one definition the engine and ``offline_sample`` use."""
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.tensor(seed, device=logits.device)
+    g, gk = step_noise(seed, pos, logits.shape[-1], max_top_k)
+    return sample_next(logits, g, gk, temperature, top_k, top_p, max_top_k)
+
+
+def offline_sample(cfg, params, prompt, n: int, seed: int = 0,
+                   temperature: float = 0.0, top_k: int = 0,
+                   top_p: float = 0.0, max_top_k: int = MAX_TOP_K,
+                   block_len: int = 16, attention=None) -> list:
+    """Reference decode for tests: feed ``prompt`` one token at a time,
+    then generate ``n`` tokens with the engine's selection rule, through
+    ``transformer.paged_decode_steps`` with one slot (S=1) over a pool of
+    its own, on the device of ``params``. ``attention`` is handed to
+    ``paged_decode_steps`` (None follows ``cfg.attn_impl``)."""
+    from client_tpu_torch.models import transformer as t
+
+    dev = params["embed"].device
+    n_blocks = -(-cfg.max_seq // block_len)
+    shape = (cfg.n_layers, n_blocks + 1, block_len, cfg.kv_heads,
+             cfg.head_dim)
+    pool = {name: torch.zeros(shape, dtype=cfg.dtype, device=dev)
+            for name in ("k", "v")}
+    tables = torch.arange(1, n_blocks + 1, dtype=torch.int32,
+                          device=dev)[None]
+    seed_t = torch.tensor([seed], device=dev)
+
+    def step(tok: int, pos: int) -> int:
+        tok_t = torch.tensor([tok], dtype=torch.int32, device=dev)
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+        logits, _ = t.paged_decode_steps(cfg, params, tok_t, pos_t, tables,
+                                         pool, attention=attention)
+        return int(select_token(logits, seed_t, pos_t, temperature, top_k,
+                                top_p, max_top_k)[0])
+
+    nxt = None
+    for i, tok in enumerate(prompt):
+        nxt = step(int(tok), i)
+    out = []
+    for j in range(n):
+        out.append(nxt)
+        nxt = step(nxt, len(prompt) + j)
+    return out

@@ -19,8 +19,14 @@ Activations run in ``cfg.dtype`` with f32 normalisation and softmax, as
 in the reference. Attention goes through the flash kernel
 (``attn_impl="flash"``) or the plain reference (``"ref"``). The
 reference's ``"auto"`` routing rests on a crossover measured on a TPU and
-is not carried over; MoE, mesh sharding, ring attention and the decode
-half wait for later slices.
+is not carried over.
+
+Of the decode half, the paged block-table step the generation engine runs
+is here (``paged_decode_steps``, with ``emit_into_ring`` and the pool
+read/write helpers): ``attn_impl="flash"`` goes through the paged decode
+kernel (``ops.paged_attention``), ``"ref"`` through the gathered einsum.
+The slot layout, prefill, verify and int8-KV paths, MoE, mesh sharding
+and ring attention wait for later slices.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch.nn.functional as F
 
 from client_tpu_torch.ops.attention import mha_attention
 from client_tpu_torch.ops.flash_attention import flash_attention
+from client_tpu_torch.ops.paged_attention import paged_decode_attention
 
 ATTN_IMPLS = ("flash", "ref")
 
@@ -167,8 +174,10 @@ def _rope_angles(pos, head_dim: int, theta: float):
     pos = torch.as_tensor(pos)
     exponent = -torch.arange(half, dtype=torch.float32,
                              device=pos.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=pos.device), exponent)
+    # torch.full, not torch.tensor: a fill on the device, where a host
+    # scalar would be copied in (and the decode loop would wait on it)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=pos.device), exponent)
     angles = pos.float()[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 
@@ -245,3 +254,129 @@ def forward(cfg: TransformerConfig, params: dict, tokens) -> tuple:
     x = _rmsnorm(x, params["final_norm"])
     logits = torch.einsum("bld,vd->blv", x, params["embed"]).float()
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------- token ring
+
+def emit_into_ring(ring, counts, entry: int, toks, n_emitted) -> tuple:
+    """Write one dispatch's emitted tokens into ring entry ``entry`` of the
+    device-resident token ring the generation engine fetches from.
+
+    ring [E, S, W] int32, counts [E, S] int32, toks [S, w] with w <= W
+    (zero-padded to W), n_emitted [S]. The reference returns new arrays;
+    here the ring is updated IN PLACE and returned. A fetch enqueued on
+    the same stream before a later write still reads the earlier values:
+    stream order is what keeps the two apart (the reference had array
+    immutability for that)."""
+    w = toks.shape[-1]
+    ring[entry, :, :w] = toks.to(ring.dtype)
+    if w < ring.shape[-1]:
+        ring[entry, :, w:] = 0
+    counts[entry] = n_emitted.to(counts.dtype)
+    return ring, counts
+
+
+# ---------------------------------------------------------------- paged KV
+#
+# Block-table (PagedAttention) decode: the reference's paged half of
+# transformer.py. KV lives only in a layer-major block pool ({"k", "v"},
+# each [layers, n_blocks, block_len, Hkv, Dh], server/kv_cache.py:
+# init_paged_pool) and each slot addresses its sequence through a block
+# table ([S, B] int32 pool block ids; entry i covers positions
+# [i*block_len, (i+1)*block_len)). Block 0 is scratch: table padding and
+# inactive slots write there, and nothing ever attends it. The int8 pool
+# (cfg.kv_quant) of the reference waits for its own slice.
+
+def init_paged_state(n_slots: int, device=None) -> dict:
+    """Per-slot device state of a paged engine: the positions only; the KV
+    rows live in the pool and the block tables are host cursors."""
+    return {"pos": torch.zeros((n_slots,), dtype=torch.int32, device=device)}
+
+
+def _paged_kv_read(pool_l: dict, tables) -> tuple:
+    """Gather one layer's K/V rows for every slot through its table:
+    [S, B] ids over [N, bl, Hkv, Dh] slabs -> [S, B*bl, Hkv, Dh] in
+    position order."""
+    s, b = tables.shape
+    idx = tables.long()
+
+    def gather(name):
+        g = pool_l[name][idx]                          # [S, B, bl, Hkv, Dh]
+        return g.reshape(s, b * g.shape[2], *g.shape[3:])
+
+    return gather("k"), gather("v")
+
+
+def _paged_write(pool_l: dict, bids, boffs, k, v) -> None:
+    """Write the fed tokens' K/V rows into one layer's pool slabs at
+    (block id, in-block offset), IN PLACE (``index_put_``; the reference
+    returns a new pool). Inactive slots all write row 0 of scratch block
+    0; which of those duplicate writes lands does not matter."""
+    pool_l["k"].index_put_((bids, boffs), k.to(pool_l["k"].dtype))
+    pool_l["v"].index_put_((bids, boffs), v.to(pool_l["v"].dtype))
+
+
+def _paged_attention_ref(cfg: TransformerConfig, q, pool_l, tables, pos):
+    """``attn_impl="ref"``: gather the table's rows, then the grouped
+    einsum attention of the reference's paged path (f32 logits, softmax,
+    probabilities rounded to v's dtype before the PV product)."""
+    s, b = tables.shape
+    k_read, v_read = _paged_kv_read(pool_l, tables)
+    r = cfg.n_heads // cfg.kv_heads
+    qg = q.reshape(s, cfg.kv_heads, r, cfg.head_dim)
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg.float(),
+                          k_read.float()) * cfg.head_dim ** -0.5
+    n = k_read.shape[1]
+    mask = torch.arange(n, device=q.device)[None, :] <= pos[:, None].long()
+    logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    attn = torch.einsum("bgrs,bsgd->bgrd", probs.to(v_read.dtype), v_read)
+    return attn.reshape(s, cfg.n_heads, cfg.head_dim)
+
+
+def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
+                       tables, pool: dict, attention=None) -> tuple:
+    """One decode step for all S slots against the paged block pool.
+
+    toks/pos: [S] int32 (``pos`` is the position being written); tables:
+    [S, B] int32 block tables (positions past B*block_len clamp onto the
+    last entry, as in the reference); pool: ``{"k", "v"}`` layer-major
+    tensors, written IN PLACE. Per layer the fed tokens' K/V rows go into
+    the pool through the tables, then attention reads them back:
+    ``attn_impl="flash"`` through the paged decode kernel (K2), ``"ref"``
+    through the gathered einsum. ``attention`` overrides both with a
+    function of ``(q, k_pool, v_pool, tables, pos)`` (the plain K2, for
+    example). Returns (logits [S, vocab] f32, pool)."""
+    if attention is None and cfg.attn_impl == "flash":
+        attention = paged_decode_attention
+    b = tables.shape[1]
+    bl = pool["k"].shape[2]
+    pos_l = pos.long()
+    x = params["embed"][toks.long()]
+    if not cfg.rope:
+        # an out-of-range position clamps, as the reference's gather does
+        # (a slot decoding past its budget inside its last chunk)
+        x = x + params["pos_embed"][pos_l.clamp(max=cfg.max_seq - 1)]
+    x = x.to(cfg.dtype)                                           # [S, d]
+    bidx = torch.div(pos_l, bl, rounding_mode="floor").clamp(0, b - 1)
+    bids = tables.long().gather(1, bidx[:, None])[:, 0]
+    boffs = pos_l % bl
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        pool_l = {"k": pool["k"][i], "v": pool["v"][i]}
+        y = _rmsnorm(x, lp["ln1"])
+        q, k, v = _qkv_proj(cfg, y, lp, "b")   # q [S,H,Dh], kv [S,Hkv,Dh]
+        if cfg.rope:
+            cos, sin = _rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+            q = _rope_apply(q, cos[:, None], sin[:, None])
+            k = _rope_apply(k, cos[:, None], sin[:, None])
+        _paged_write(pool_l, bids, boffs, k, v)
+        if attention is not None:
+            attn = attention(q, pool_l["k"], pool_l["v"], tables, pos)
+        else:
+            attn = _paged_attention_ref(cfg, q, pool_l, tables, pos)
+        x = x + torch.einsum("bhk,hkd->bd", attn, lp["wo"])
+        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+    x = _rmsnorm(x, params["final_norm"])
+    logits = torch.einsum("bd,vd->bv", x, params["embed"]).float()
+    return logits, pool

@@ -1,7 +1,8 @@
-"""Attention ops: the plain reference (``ops.attention``) and the flash
-kernel written by hand for Hopper (``ops.flash_attention``, CUDA sources
-in ``csrc/``).
+"""Attention ops: the plain reference (``ops.attention``) and the kernels
+written by hand for Hopper, flash attention (``ops.flash_attention``) and
+paged decode attention (``ops.paged_attention``), CUDA sources in
+``csrc/``.
 
-Nothing is re-exported here, so ``client_tpu_torch.ops.flash_attention``
-stays the module whose ``launches`` counter a run reads.
+Nothing is re-exported here, so each kernel's module stays the one whose
+``launches`` counter a run reads.
 """

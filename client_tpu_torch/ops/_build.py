@@ -29,7 +29,7 @@ from pathlib import Path
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # every kernel library of the port, one per ops/csrc/<name>.cu
-KERNELS = ("flash_attention",)
+KERNELS = ("flash_attention", "paged_attention")
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 

@@ -1,6 +1,6 @@
 """The BERT-base-class embedding encoder served behind the dynamic batcher,
-and a pipelined step probe: the port's counterpart of the encoder half of
-``client_tpu/perf/bench_harness.py``.
+a pipelined step probe, and the ragged generation workload: the port's
+counterpart of ``client_tpu/perf/bench_harness.py``.
 
 ``build_bert_encoder`` builds the same model as the reference's (the
 same config, one static batch bucket, mean-pooled f32 embedding) as a
@@ -117,3 +117,69 @@ def probe_step_ms(model: TorchModel, seq: int, max_batch: int,
     outs = [model.execute_on_device(dev_in) for _ in range(iters)]
     finish_host_copies(start_host_copies(outs[-1]))
     return (time.time() - t0) / iters * 1e3
+
+
+def ragged_generation_jobs(seed: int, vocab: int, n_jobs: int,
+                           prompt_range: tuple, budget_range: tuple,
+                           max_seq: int) -> list:
+    """The ragged generation workload of the reference's bench.py
+    generation point: (prompt, budget) pairs, budgets clipped to the
+    context. The same seed gives the reference's jobs."""
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for _ in range(n_jobs):
+        plen = int(rng.integers(*prompt_range))
+        budget = min(int(rng.integers(*budget_range)), max_seq - plen)
+        jobs.append((rng.integers(0, vocab, size=plen).astype(np.int32),
+                     budget))
+    return jobs
+
+
+def run_engine_jobs(engine, jobs, collect: bool = False,
+                    join_timeout_s: float = 1800.0, **submit_kw) -> tuple:
+    """Submit all jobs concurrently to a continuous-batching engine, one
+    thread each; returns (wall_s, per-job time to first token), plus the
+    per-stream token lists with ``collect=True``. A worker's exception is
+    re-raised, a stream still alive ``join_timeout_s`` after the joins
+    began fails the run, and without ``collect`` every stream must have
+    streamed exactly its budget."""
+    import threading
+
+    t0 = time.time()
+    ttft = [None] * len(jobs)
+    tokens: list = [None] * len(jobs)
+    errors: list = []
+
+    def worker(i):
+        prompt, budget = jobs[i]
+        try:
+            out = []
+            for tok in engine.submit(np.asarray(prompt, np.int32), budget,
+                                     **submit_kw):
+                if ttft[i] is None:
+                    ttft[i] = time.time() - t0
+                out.append(tok)
+            tokens[i] = out
+        except Exception as e:  # noqa: BLE001 — re-raised after join
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(jobs))]
+    for th in threads:
+        th.start()
+    deadline = time.time() + join_timeout_s
+    for th in threads:
+        th.join(timeout=max(0.0, deadline - time.time()))
+    dt = time.time() - t0
+    hung = [i for i, th in enumerate(threads) if th.is_alive()]
+    if errors or hung:
+        raise RuntimeError(
+            f"engine stream errors: hung={hung} errors={errors[:3]}")
+    if collect:
+        return dt, ttft, tokens
+    bad = [(i, len(tokens[i]), jobs[i][1]) for i in range(len(jobs))
+           if len(tokens[i]) != jobs[i][1]]
+    if bad:
+        raise RuntimeError(
+            f"streams short of budget (job, got, want): {bad[:5]}")
+    return dt, ttft

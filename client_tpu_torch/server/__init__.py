@@ -3,7 +3,10 @@
 
 Models run on the card with device-resident weights, behind the dynamic
 batcher (static-bucket padding, an in-flight pipeline completed on CUDA
-events) and the v2 HTTP front end.
+events) and the v2 HTTP front end; decoupled models stream their
+responses through ``TorchInferenceServer.infer(request,
+response_callback)``, the continuous-batching engine
+(``server/generation.py``) behind them.
 """
 
 from client_tpu_torch.server.config import (  # noqa: F401

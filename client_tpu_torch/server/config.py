@@ -1,10 +1,10 @@
 """Model configuration: the port's counterpart of
 ``client_tpu/server/config.py``, with the fields an encoder served
-behind the dynamic batcher uses.
+behind the dynamic batcher and a decoupled (streaming) generator use.
 
-The generation, fleet, SLO, sequence, ensemble and sharding blocks of the
-reference wait for the slices that use them. ``platform`` and ``backend``
-read ``"pytorch"``.
+The generation-engine, fleet, SLO, sequence, ensemble and sharding blocks
+of the reference wait for the slices that use them. ``platform`` and
+``backend`` read ``"pytorch"``.
 """
 
 from __future__ import annotations
@@ -103,6 +103,9 @@ class ModelConfig:
     # max_batch_size. A single bucket (max_batch_size,) pads every batch
     # to one shape, so each batch runs the same kernels at the same sizes
     batch_buckets_override: tuple = ()
+    # decoupled transaction policy: the model streams zero or more
+    # responses per request (served only through a response callback)
+    decoupled: bool = False
 
     # ---- derived ----
     def input_spec_maps(self) -> tuple:
@@ -148,7 +151,7 @@ class ModelConfig:
                 "count": self.instance_count,
                 "gpus": list(self.device_ids),
             }],
-            "model_transaction_policy": {"decoupled": False},
+            "model_transaction_policy": {"decoupled": self.decoupled},
             "parameters": dict(self.parameters),
         }
         if self.dynamic_batching is not None:

@@ -170,14 +170,19 @@ class TorchInferenceServer:
               ) -> Optional[InferResponse]:
         """Run one inference. Sync (returns the response, raises
         ServerError on failure) unless ``response_callback`` is given; it
-        is then called once with (response, final=True) and infer returns
-        None."""
+        is then called with (response, final) for each response, the last
+        one with final=True, and infer returns None. A decoupled model
+        needs the callback (400 without it)."""
         request.arrival_ns = now_ns()
         entry = self._entry(request.model_name, request.model_version)
         if entry.state != "READY":
             raise ServerError(
                 f"model '{request.model_name}' is not ready", 400)
         inputs = self._resolve_inputs(entry.model.config, request)
+        if entry.model.config.decoupled and response_callback is None:
+            raise ServerError(
+                f"model '{request.model_name}' is decoupled; use the "
+                "streaming API", 400)
         for o in request.outputs:
             if o.shm_region is not None:
                 raise ServerError(f"output '{o.name}': {SHM_NOT_SUPPORTED}",

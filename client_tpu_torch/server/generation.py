@@ -1,0 +1,1125 @@
+"""Continuous (in-flight) batching engine for autoregressive generation:
+the port of ``client_tpu/server/generation.py``, restricted to its paged,
+token-prefill, non-speculative core.
+
+Ragged concurrent streams share one fixed batch of S slots at token
+granularity: every engine step feeds each active slot exactly one token,
+the next prompt token while it is ingesting its prompt and its own
+selected successor once it is decoding, so prefill and decode are one
+uniform computation (``prefill_mode="token"``). Steps run in CHUNKS of
+``chunk`` tokens per dispatch (``paged_chunk_kernel``), and chunks are
+dispatched ahead (``dispatch_depth``): the next chunk's inputs depend only
+on host cursors, never on the previous chunk's token values, because the
+KV state stays on the card.
+
+The KV data plane is paged (``kv_layout="paged"``): K/V rows live only in
+a layer-major block pool (``kv_cache.init_paged_pool``) and each slot
+addresses its sequence through a host-side block table. A request
+reserves its worst-case block count at admission, grows lazily, and
+frees its blocks on retire; admission and retirement are table edits,
+never device copies. Attention reads the pool through the tables: with
+``attn_impl="flash"`` that is the paged decode kernel (K2,
+``ops/paged_attention.py``), once per layer per step.
+
+Emitted tokens land in a device-resident token ring ([entries, S, chunk]
+int32): each dispatch writes its entry, and the host fetches one ring
+segment per ``fetch_stride`` dispatches with a non-blocking copy into
+pinned memory plus a CUDA event, ENQUEUED ON THE SAME STREAM as the
+kernels. Stream order is what keeps a later in-place ring write from
+racing an outstanding copy (the reference had the ring's immutability for
+that). A fetch is issued early before the ring could wrap an unfetched
+entry. A stream whose every remaining token is already in flight frees
+its slot at dispatch time, not when the fetch lands.
+
+Nothing on the dispatch path reads a device value on the host (no
+``.item()``, ``.cpu()`` or ``.tolist()``): one sync per dispatch would
+undo the dispatch-ahead. Greedy output does not depend on
+``fetch_stride`` or ``overlap``.
+
+Knobs of the reference that this slice does not run (the other prefill
+modes, the slot layout, the prefix cache, the dedicated lanes, the host
+tier, speculation, the SLO scheduler and preemption, meshes and fleets,
+the watchdog, goodput and timeline planes) raise ``NotImplementedError``
+naming the ROADMAP item that ports them; none is silently ignored.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import queue
+import threading
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from client_tpu_torch.device import resolve_device
+from client_tpu_torch.models import transformer as t
+from client_tpu_torch.models.sampling import MAX_TOP_K, select_token
+from client_tpu_torch.server.kv_cache import (
+    RadixBlockIndex,
+    block_count_buckets,
+    init_paged_pool,
+)
+from client_tpu_torch.server.model import (
+    finish_host_copies,
+    start_host_copies,
+)
+from client_tpu_torch.server.stats import GenerationStats
+from client_tpu_torch.server.types import ServerError, now_ns
+
+log = logging.getLogger(__name__)
+
+# the reference engine's knobs this slice leaves out -> the ROADMAP item
+# that ports them
+UNPORTED_KNOBS = {
+    "prefill": "A10b (chunked prefill lane)",
+    "prefill_chunk": "A10b (chunked prefill lane)",
+    "prefill_token_budget": "A10b (chunked prefill lane)",
+    "prefix_cache": "A10c (prefix cache / radix commit)",
+    "prefix_blocks": "A10c (prefix cache / radix commit)",
+    "prefix_block_len": "A10c (prefix cache / radix commit)",
+    "prefix_commit_policy": "A10c (prefix cache / radix commit)",
+    "prefill_slots": "A10e (dedicated lanes)",
+    "prefill_lane_width": "A10e (dedicated lanes)",
+    "prefill_lane_batch": "A10e (dedicated lanes)",
+    "host_tier_bytes": "A10f (host tier)",
+    "scheduler": "A10g (scheduler / preemption)",
+    "slo_classes": "A10g (scheduler / preemption)",
+    "slo_window_s": "A10g (scheduler / preemption)",
+    "slo_max_tenants": "A10g (scheduler / preemption)",
+    "dispatch_duty": "A10g (scheduler / preemption)",
+    "speculative_draft": "A10h (speculation)",
+    "speculative_gamma": "A10h (speculation)",
+    "speculative_min_acceptance": "A10h (speculation)",
+    "speculative_gamma_ladder": "A10h (speculation)",
+    "mesh": "A12 (mesh and fleets)",
+    "engine_devices": "A12 (mesh and fleets)",
+    "watchdog": "A13 (runtime planes)",
+    "watchdog_interval_s": "A13 (runtime planes)",
+    "watchdog_thresholds": "A13 (runtime planes)",
+    "incident_store": "A13 (runtime planes)",
+    "device_time_sample_every": "A13 (runtime planes)",
+}
+
+
+def reject_unported(knobs: dict) -> None:
+    """Raise for the first knob of ``knobs`` this slice does not run."""
+    for name in knobs:
+        if name not in UNPORTED_KNOBS:
+            raise TypeError(f"unknown generation engine knob '{name}'")
+        raise NotImplementedError(
+            f"generation engine knob '{name}' is not ported yet: ROADMAP "
+            f"{UNPORTED_KNOBS[name]}")
+
+
+# ---------------------------------------------------------------- device side
+
+def paged_chunk_kernel(cfg, params: dict, pool: dict, pos, last, ring,
+                       ring_cnt, entry: int, tables, feed, rem, active,
+                       reset, reset_to, seeds, temps, topks, topps,
+                       sample: bool, attention=None) -> tuple:
+    """One engine chunk: C uniform steps over all S slots, every KV write
+    going through the block tables into the pool (the reference's
+    ``paged_chunk_kernel``, a Python loop over the steps here).
+
+    pos [S] int32 device positions; last [S] int32 each slot's pending
+    selected token; tables [S, Bw] int32; feed [S, C] int32 prompt
+    tokens, of which the first rem[s] columns are real; active [S] bool;
+    reset/reset_to [S]: a (re)admitted slot's position is set to
+    reset_to first; seeds/temps/topks/topps [S] per-slot sampling
+    parameters; ``sample`` (host bool) False takes the argmax without the
+    sampling machinery. Writes the consumed tokens [S, C] into ring entry
+    ``entry`` (columns >= rem[s] are generated tokens) and the pool, both
+    in place; returns (new last, new pos). Free slots park at position 0
+    and write scratch."""
+    c = feed.shape[1]
+    pos = torch.where(reset, reset_to, pos)
+    cols = []
+    for i in range(c):
+        prompt_col = rem > i
+        tok = torch.where(prompt_col, feed[:, i], last)
+        logits, pool = t.paged_decode_steps(cfg, params, tok, pos, tables,
+                                            pool, attention=attention)
+        if sample:
+            nxt = select_token(logits, seeds, pos, temps, topks, topps)
+        else:
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+        last = torch.where(active, nxt, last)
+        pos = torch.where(active, pos + 1, torch.zeros_like(pos))
+        cols.append(tok)
+    toks = torch.stack(cols, dim=1)
+    n_emit = torch.where(active, c, 0).to(torch.int32)
+    t.emit_into_ring(ring, ring_cnt, entry, toks, n_emit)
+    return last, pos
+
+
+# ---------------------------------------------------------------- host side
+
+class _Request:
+    __slots__ = ("prompt", "budget", "eos_id", "temperature", "top_k",
+                 "top_p", "seed", "out", "emitted", "finished",
+                 "enqueue_ns", "first_token_ns", "last_emit_ns",
+                 "cap_tokens", "parked")
+
+    def __init__(self, prompt: np.ndarray, budget: int, eos_id: int,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, seed: int = 0):
+        self.prompt = prompt
+        self.budget = budget
+        self.eos_id = eos_id
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.seed = seed
+        self.out: queue.Queue = queue.Queue()
+        self.emitted = 0
+        self.finished = False
+        self.enqueue_ns = 0
+        self.first_token_ns = 0
+        self.last_emit_ns = 0
+        # the stream's worst-case context: the paged reservation bound
+        self.cap_tokens = len(prompt) + budget
+        self.parked = False       # waiting at the queue head for blocks
+
+
+class _Slot:
+    __slots__ = ("req", "cursor", "pos_hi", "decode_dispatched", "blocks",
+                 "reserved_left", "pos_pending")
+
+    def __init__(self):
+        self.req: Optional[_Request] = None
+        self.cursor = 0           # prompt tokens already dispatched
+        # upper bound of the slot's device position over everything
+        # dispatched so far (+chunk per dispatch)
+        self.pos_hi = 0
+        # generated-token columns dispatched: once they cover the budget
+        # every token the stream may still emit is in flight
+        self.decode_dispatched = 0
+        # pool block ids in position order (entry i covers rows
+        # [i*block_len, (i+1)*block_len)), the admission reservation not
+        # yet drawn, and the position the next dispatch resets the slot
+        # to (admission is a table edit; the reset rides the next kernel)
+        self.blocks: list = []
+        self.reserved_left = 0
+        self.pos_pending: Optional[int] = None
+
+
+class PendingQueue:
+    """The engine's FIFO of admitted-but-unslotted requests: the
+    reference's ``FairQueue`` with one flow (no scheduler). ``push_front``
+    re-inserts a request whose block reservation failed at the head, so it
+    keeps its place in line; ``parked`` counts such entries so the idle
+    loop does not block on a queue whose head is waiting for blocks.
+    ``put`` blocks (``put_nowait`` raises ``queue.Full``) while
+    ``maxsize`` fresh entries wait; ``close`` makes every ``get`` return
+    None."""
+
+    def __init__(self, maxsize: int = 0):
+        self._maxsize = int(maxsize)
+        self._items: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+        self._not_empty = threading.Condition(self._lock)
+        self._not_full = threading.Condition(self._lock)
+        self._size = 0            # fresh entries, counted against maxsize
+        self.parked = 0
+        self._closed = False
+
+    def put(self, req, block: bool = True) -> None:
+        with self._lock:
+            while self._maxsize > 0 and self._size >= self._maxsize:
+                if not block:
+                    raise queue.Full
+                self._not_full.wait()
+            self._items.append((req, True))
+            self._size += 1
+            self._not_empty.notify()
+
+    def put_nowait(self, req) -> None:
+        self.put(req, block=False)
+
+    def push_front(self, req, parked: bool = False) -> None:
+        with self._lock:
+            self._items.appendleft((req, False))
+            if parked:
+                self.parked += 1
+            self._not_empty.notify()
+
+    def unpark(self) -> None:
+        with self._lock:
+            self.parked = max(0, self.parked - 1)
+
+    def _pop(self):
+        req, counted = self._items.popleft()
+        if counted:
+            self._size -= 1
+            self._not_full.notify()
+        return req
+
+    def get(self):
+        """Blocking pop; None once :meth:`close` was called."""
+        with self._lock:
+            while True:
+                if self._closed:
+                    return None
+                if self._items:
+                    return self._pop()
+                self._not_empty.wait()
+
+    def get_nowait(self):
+        """Non-blocking pop, ignoring close (the failure path drains the
+        backlog after close); raises queue.Empty."""
+        with self._lock:
+            if not self._items:
+                raise queue.Empty
+            return self._pop()
+
+    def qsize(self) -> int:
+        with self._lock:
+            return len(self._items)
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            self._not_empty.notify_all()
+
+
+class ContinuousBatchingEngine:
+    """Multiplexes ragged generation requests onto a fixed slot batch.
+
+    ``submit`` returns an iterator of generated token ids, greedy by
+    default or sampled per request (temperature / top-k / top-p / seed,
+    ``models/sampling.py``); the stream ends at EOS or after
+    ``max_new_tokens``. Thread-safe: any number of threads may submit.
+
+    ``device`` places the weights, the pool and the ring; None means CUDA
+    and raises without it (the CPU is used only when asked for). The
+    knobs are the reference's: ``n_slots``, ``chunk``, ``dispatch_depth``
+    (fetches issued ahead of delivery), ``queue_depth`` and
+    ``shed_on_full`` (503 instead of blocking when the queue is full),
+    ``fetch_stride``/``overlap``/``ring_entries`` (the ring fetch
+    cadence), ``kv_block_len``/``kv_pool_blocks``/
+    ``kv_max_blocks_per_slot`` (the paged pool). ``kv_layout`` must be
+    ``"paged"`` and ``prefill_mode`` ``"token"`` in this slice."""
+
+    PREFILL_MODES = ("token", "batched", "chunked")
+    KV_LAYOUTS = ("slot", "paged")
+
+    def __init__(self, cfg, params, n_slots: int = 8, chunk: int = 8,
+                 dispatch_depth: int = 2, queue_depth: int = 256,
+                 fetch_stride: int = 4, overlap: bool = True,
+                 ring_entries: int = 0, kv_layout: str = "paged",
+                 prefill_mode: str = "token", kv_block_len: int = 16,
+                 kv_pool_blocks: int = 0, kv_max_blocks_per_slot: int = 0,
+                 shed_on_full: bool = False, device=None,
+                 name: str = "generation-engine", **unported):
+        reject_unported(unported)
+        if chunk < 1 or n_slots < 1:
+            raise ValueError("n_slots and chunk must be >= 1")
+        if fetch_stride < 1:
+            raise ValueError("fetch_stride must be >= 1")
+        if ring_entries < 0:
+            raise ValueError("ring_entries must be >= 0 (0 = auto)")
+        if ring_entries == 1:
+            raise ValueError("ring_entries must be >= 2 (0 = auto)")
+        (self._kv_layout, self._kv_block_len, self._kv_pool_blocks,
+         self._kv_max_blocks) = self.resolve_kv_layout(
+            cfg, n_slots, kv_layout, kv_block_len, kv_pool_blocks,
+            kv_max_blocks_per_slot, prefill_mode)
+        self._device = resolve_device(device)
+        if self._device.type == "cuda" and self._device.index is None:
+            # the engine thread sets its current device, which needs an
+            # index: the caller's current card
+            self._device = torch.device("cuda", torch.cuda.current_device())
+        self._kv_index = RadixBlockIndex(self._kv_pool_blocks,
+                                         self._kv_block_len)
+        self._cfg = cfg
+        self._params_host = params
+        self._n_slots = n_slots
+        self._chunk = chunk
+        self._depth = max(1, dispatch_depth)
+        self._overlap = bool(overlap)
+        # the reference's ladder-less bound: an iteration appends at most
+        # 2 entries there (chunk + verify); here at most 1, so the auto
+        # ring and the wrap backpressure are conservative
+        self._entries_per_iter = 2
+        self._stride, self._ring_entries = self.ring_shape(
+            fetch_stride, overlap, dispatch_depth, ring_entries,
+            self._entries_per_iter)
+        # how many issued (async) fetches may ride ahead of delivery
+        self._fetch_depth = self._depth if self._overlap else 0
+        self._ring_seq = 0        # next ring entry to write
+        self._retired_seq = 0     # first entry not yet delivered
+        # emit stamps: an EWMA of one dispatch's wall time from fetch
+        # arrivals back-dates each delivered entry, so stride-k fetching
+        # does not inflate TTFT/ITL
+        self._chunk_ns_ewma = 0.0
+        self._last_drain: Optional[tuple] = None   # (newest seq, ns)
+        self._deliver_ns = 0
+        # dispatched entries no fetch covers yet / issued fetches
+        self._unfetched: list = []
+        self._fetches: collections.deque = collections.deque()
+        self._held: Optional[_Request] = None   # popped, not yet admitted
+        self._pending = PendingQueue(maxsize=queue_depth)
+        self._queue_depth = queue_depth
+        self._shed_on_full = bool(shed_on_full)
+        self._slots = [_Slot() for _ in range(n_slots)]
+        self._lock = threading.Lock()
+        self._started = False
+        self._stopping = False
+        self._draining = False
+        self._thread: Optional[threading.Thread] = None
+        self._dev: dict = {}
+        # engine-thread wall time by phase (seconds): admit (slot fill),
+        # dispatch (host batch build + kernel enqueue), retire_fetch
+        # (blocking on the ring D2H), retire_deliver (token distribution)
+        self._phase_s = {"admit": 0.0, "dispatch": 0.0,
+                         "retire_fetch": 0.0, "retire_deliver": 0.0}
+        # stream time between CUDA events around each dispatch's kernels
+        # (with a host-bound loop this is the enqueue time, not busy time)
+        self._dispatch_event_ms = 0.0
+        self._timed_dispatches = 0
+        self._chunks_dispatched = 0
+        self._tokens_emitted = 0
+        self._requests_completed = 0
+        # accepted == closed (under _lock) is drain()'s idleness criterion
+        self._requests_accepted = 0
+        self._requests_closed = 0
+        self._failed: Optional[BaseException] = None
+        self.name = name
+        self.gen_stats = GenerationStats()
+
+    # ---------------------------------------------------------- resolution
+
+    @staticmethod
+    def resolve_kv_layout(cfg, n_slots: int, kv_layout: str,
+                          kv_block_len: int, kv_pool_blocks: int,
+                          kv_max_blocks_per_slot: int,
+                          prefill_mode: str) -> tuple:
+        """Validate the KV layout knobs; returns ``(layout, block_len,
+        pool_blocks, max_blocks_per_slot)``. ``kv_block_len`` must divide
+        ``max_seq``; ``kv_pool_blocks`` 0 sizes the pool for n_slots x
+        max_seq tokens plus the scratch block; ``kv_max_blocks_per_slot``
+        0 covers max_seq. The slot layout and the batched and chunked
+        prefill modes are not ported yet and raise."""
+        if kv_layout not in ContinuousBatchingEngine.KV_LAYOUTS:
+            raise ValueError(
+                f"unknown kv_layout {kv_layout!r} (expected one of "
+                f"{ContinuousBatchingEngine.KV_LAYOUTS})")
+        if kv_layout == "slot":
+            raise NotImplementedError(
+                'kv_layout="slot" is not ported yet: ROADMAP A10d (slot '
+                'layout); use kv_layout="paged"')
+        if prefill_mode not in ContinuousBatchingEngine.PREFILL_MODES:
+            raise ValueError(
+                f"unknown prefill_mode {prefill_mode!r} (expected one of "
+                f"{ContinuousBatchingEngine.PREFILL_MODES})")
+        if prefill_mode == "batched":
+            raise ValueError(
+                'prefill_mode="batched" is unsupported under '
+                'kv_layout="paged": the monolithic prefill writes whole '
+                'slot rows and a paged engine has no slot arrays')
+        if prefill_mode != "token":
+            raise NotImplementedError(
+                f'prefill_mode="{prefill_mode}" is not ported yet: ROADMAP '
+                f'A10b (chunked prefill lane); use prefill_mode="token"')
+        bl = int(kv_block_len)
+        if bl < 1 or cfg.max_seq % bl:
+            raise ValueError(
+                f"kv_block_len {bl} must be >= 1 and divide max_seq "
+                f"{cfg.max_seq} (paged block tables must cover the "
+                f"context exactly)")
+        b_max = cfg.max_seq // bl
+        mb = int(kv_max_blocks_per_slot) or b_max
+        if not 0 < mb <= b_max:
+            raise ValueError(
+                f"kv_max_blocks_per_slot {mb} must be in (0, "
+                f"max_seq/kv_block_len={b_max}]")
+        pool = int(kv_pool_blocks) or n_slots * b_max + 1
+        if pool < 2:
+            raise ValueError(
+                "kv_pool_blocks must be >= 2 (block 0 is reserved scratch)")
+        return ("paged", bl, pool, mb)
+
+    @staticmethod
+    def ring_shape(fetch_stride: int, overlap: bool, dispatch_depth: int,
+                   ring_entries: int, entries_per_iter: int = 2) -> tuple:
+        """Effective ``(stride, ring_entries)``: overlap off clamps the
+        stride to 1; an auto (0) ring holds a full stride of unfetched
+        entries plus what one iteration adds plus the dispatch depth; an
+        explicit size below ``entries_per_iter`` would let one iteration
+        wrap its own unfetched entries and raises."""
+        stride = int(fetch_stride) if overlap else 1
+        k = max(2, int(entries_per_iter))
+        if 0 < int(ring_entries) < k:
+            raise ValueError(
+                f"ring_entries {ring_entries} is below the {k} entries one "
+                f"dispatch iteration can append")
+        entries = int(ring_entries) or max(
+            4, k * stride + max(1, dispatch_depth))
+        return stride, entries
+
+    # ---------------------------------------------------------- introspection
+
+    def active_slots(self) -> int:
+        return sum(1 for s in self._slots if s.req is not None)
+
+    def stats(self) -> dict:
+        """Instantaneous engine counters: chunk dispatches, tokens
+        emitted, phase seconds of the engine thread, the ring and the pool
+        occupancy."""
+        occ = self._kv_index.occupancy()
+        return {
+            "n_slots": self._n_slots,
+            "chunk": self._chunk,
+            "slots_active": self.active_slots(),
+            "queue_depth": self._pending.qsize(),
+            "chunks_dispatched": self._chunks_dispatched,
+            "tokens_emitted": self._tokens_emitted,
+            "requests_completed": self._requests_completed,
+            "requests_failed": self.gen_stats.failed,
+            "phase_seconds": dict(self._phase_s),
+            "dispatch_event_ms": self._dispatch_event_ms,
+            "timed_dispatches": self._timed_dispatches,
+            "ring": {"entries": self._ring_entries,
+                     "fetch_stride": self._stride,
+                     "overlap": self._overlap,
+                     "fetch_lag": self._ring_seq - self._retired_seq},
+            "kv_paged": {"block_len": self._kv_block_len,
+                         "max_blocks_per_slot": self._kv_max_blocks,
+                         "blocks": occ["usable"],
+                         "blocks_live": occ["stream"],
+                         "blocks_free": occ["free"],
+                         "blocks_reserved": occ["reserved"],
+                         "blocked_requests": self._pending.parked},
+        }
+
+    # ---------------------------------------------------------- lifecycle
+
+    def start(self) -> "ContinuousBatchingEngine":
+        with self._lock:
+            if self._started or self._stopping:
+                return self
+            self._started = True
+            self._thread = threading.Thread(
+                target=self._run, name="cbatch-engine", daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        with self._lock:
+            already = self._stopping
+            self._stopping = True
+            if not self._started or already:
+                return
+        self._pending.close()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            if self._thread.is_alive():
+                log.error("generation engine '%s' thread did not exit "
+                          "within 30s of stop()", self.name)
+
+    def drain(self, timeout: float = 60.0) -> bool:
+        """Stop admitting (a later submit gets a 503) and wait until every
+        queued and in-flight stream has finished; False on timeout."""
+        with self._lock:
+            self._draining = True
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._lock:
+                if self._requests_accepted == self._requests_closed:
+                    return True
+            time.sleep(0.02)
+        return False
+
+    def _close_request(self, req: _Request, terminal,
+                       outcome: Optional[str] = None) -> None:
+        """Deliver a request's terminal item (None = normal end, or an
+        exception) exactly once."""
+        with self._lock:
+            if req.finished:
+                return
+            req.finished = True
+            self._requests_closed += 1
+        if outcome is None:
+            outcome = "completed" if terminal is None else "failed"
+        if outcome == "completed":
+            self.gen_stats.record_completion(req.emitted, req.first_token_ns,
+                                             req.last_emit_ns)
+        elif outcome == "cancelled":
+            self.gen_stats.record_cancelled()
+        else:
+            self.gen_stats.record_failure()
+        req.out.put(terminal)
+
+    def cancel(self, req: _Request) -> None:
+        """Cancel one stream from any thread (idempotent); its slot and
+        blocks are reclaimed at the next dispatch boundary."""
+        self._close_request(
+            req, ServerError("generation request cancelled by the client",
+                             499), outcome="cancelled")
+
+    # ---------------------------------------------------------- submission
+
+    def submit(self, prompt, max_new_tokens: int, eos_id: int = -1,
+               temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+               seed: int = 0) -> Iterator[int]:
+        """Enqueue one generation request; yields token ids as they are
+        produced. Raises ServerError for invalid requests (400) and when
+        the engine is shutting down or the queue is full (503)."""
+        prompt = np.asarray(prompt)
+        if not (np.issubdtype(prompt.dtype, np.integer)
+                or prompt.dtype == bool):
+            raise ServerError(
+                f"prompt dtype {prompt.dtype} is not an integer token-id "
+                f"dtype", 400)
+        prompt = prompt.reshape(-1).astype(np.int32)
+        if prompt.size == 0:
+            return iter(())
+        if int(max_new_tokens) < 1:
+            raise ServerError(
+                f"max_new_tokens must be >= 1, got {int(max_new_tokens)}",
+                400)
+        if len(prompt) >= self._cfg.max_seq:
+            raise ServerError(
+                f"prompt of {len(prompt)} tokens leaves no room to generate "
+                f"within the model's max context length "
+                f"{self._cfg.max_seq}", 400)
+        if top_k > MAX_TOP_K:
+            raise ServerError(
+                f"top_k={top_k} exceeds the sampling width ({MAX_TOP_K}); a "
+                f"silent clamp would sample a different distribution than "
+                f"requested", 400)
+        if not -2 ** 31 <= int(seed) < 2 ** 31:
+            raise ServerError(f"seed {seed} does not fit in int32", 400)
+        budget = min(int(max_new_tokens), self._cfg.max_seq - len(prompt))
+        cap = self._kv_max_blocks * self._kv_block_len
+        if len(prompt) >= cap:
+            raise ServerError(
+                f"prompt of {len(prompt)} tokens leaves no room to generate "
+                f"within the paged per-stream cap {cap} "
+                f"(kv_max_blocks_per_slot x kv_block_len)", 400)
+        budget = min(budget, cap - len(prompt))
+        need = -(-(len(prompt) + budget) // self._kv_block_len)
+        if need > self._kv_index.usable_blocks:
+            raise ServerError(
+                f"request needs {need} KV blocks (prompt {len(prompt)} + "
+                f"budget {budget} at kv_block_len {self._kv_block_len}) but "
+                f"the pool holds only {self._kv_index.usable_blocks}", 400)
+        req = _Request(prompt, budget, eos_id, temperature=float(temperature),
+                       top_k=int(top_k), top_p=float(top_p), seed=int(seed))
+        req.enqueue_ns = now_ns()
+        with self._lock:
+            shed = self._stopping or self._draining
+            if not shed:
+                self._requests_accepted += 1
+        if shed:
+            self.gen_stats.record_failure()
+            if self._failed is not None:
+                raise ServerError(
+                    "generation engine is down (engine failure); "
+                    "unavailable until a reload", 503)
+            raise ServerError("generation engine is shutting down", 503,
+                              retry_after=1.0)
+        self.start()
+        if self._shed_on_full:
+            try:
+                self._pending.put_nowait(req)
+            except queue.Full:
+                with self._lock:
+                    req.finished = True
+                    self._requests_closed += 1
+                self.gen_stats.record_failure()
+                raise ServerError(
+                    f"generation queue is full ({self._queue_depth} "
+                    f"pending); request shed", 503, retry_after=1.0) from None
+        else:
+            self._pending.put(req)
+        if self._stopping:
+            # the engine may already have drained the queue
+            self._close_request(req, self._failed or ServerError(
+                "generation engine stopped", 503))
+
+        def _drain():
+            try:
+                while True:
+                    item = req.out.get()
+                    if item is None:
+                        return
+                    if isinstance(item, Exception):
+                        raise item
+                    yield from item      # one delivery's worth
+            finally:
+                # an abandoned iterator is a client cancellation: free the
+                # slot instead of decoding to the budget for nobody
+                if not req.finished:
+                    self.cancel(req)
+        return _drain()
+
+    # ---------------------------------------------------------- device side
+
+    def _ensure_ready(self) -> None:
+        """Place the weights, build the pool, positions and ring on the
+        engine's device, and run one all-inactive chunk of each kernel
+        variant (greedy and sampled), so the kernels' libraries are built
+        before the first request. Runs on the engine thread."""
+        if "params" in self._dev:
+            return
+        cfg, s, c, dev = self._cfg, self._n_slots, self._chunk, self._device
+        self._dev["pool"] = init_paged_pool(cfg, self._kv_pool_blocks,
+                                            self._kv_block_len, dev)
+        self._dev["table_buckets"] = block_count_buckets(
+            cfg.max_seq // self._kv_block_len)
+        self._dev["ring"] = torch.zeros((self._ring_entries, s, c),
+                                        dtype=torch.int32, device=dev)
+        self._dev["ring_cnt"] = torch.zeros((self._ring_entries, s),
+                                            dtype=torch.int32, device=dev)
+        self._dev["pos"] = t.init_paged_state(s, dev)["pos"]
+        self._dev["last"] = torch.zeros((s,), dtype=torch.int32, device=dev)
+        params = _to_device(self._params_host, dev)
+        # the engine has no reload path: drop the caller's copy
+        self._params_host = None
+        zi = torch.zeros((s,), dtype=torch.int32, device=dev)
+        zb = torch.zeros((s,), dtype=torch.bool, device=dev)
+        zf = torch.zeros((s,), dtype=torch.float32, device=dev)
+        tab0 = torch.zeros((s, 1), dtype=torch.int32, device=dev)
+        feed0 = torch.zeros((s, c), dtype=torch.int32, device=dev)
+        for sample in (False, True):
+            self._dev["last"], self._dev["pos"] = paged_chunk_kernel(
+                cfg, params, self._dev["pool"], self._dev["pos"],
+                self._dev["last"], self._dev["ring"], self._dev["ring_cnt"],
+                0, tab0, feed0, zi, zb, zb, zi, zi, zf, zi, zf, sample)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self._dev["params"] = params   # set last: its presence means ready
+
+    def _upload(self, arrays: list) -> list:
+        """Copy this dispatch's host inputs to the device in ONE transfer:
+        packed into one int32 buffer (float32 arrays by their bits), from
+        pinned memory with a non-blocking copy on the engine's stream.
+        PyTorch's pinned allocator does not hand the buffer out again
+        until that copy has run."""
+        sizes = [a.size for a in arrays]
+        cuda = self._device.type == "cuda"
+        host = torch.empty(sum(sizes), dtype=torch.int32, pin_memory=cuda)
+        flat = host.numpy()
+        off = 0
+        for a, n in zip(arrays, sizes):
+            src = a.reshape(-1)
+            flat[off:off + n] = (src.view(np.int32)
+                                 if src.dtype == np.float32 else src)
+            off += n
+        dev = host.to(self._device, non_blocking=True) if cuda else host
+        out, off = [], 0
+        for a, n in zip(arrays, sizes):
+            part = dev[off:off + n].view(a.shape)
+            if a.dtype == np.float32:
+                part = part.view(torch.float32)
+            elif a.dtype == np.bool_:
+                part = part != 0
+            out.append(part)
+            off += n
+        return out
+
+    # ---------------------------------------------------- paged admission
+
+    def _try_reserve_paged(self, req: _Request) -> Optional[dict]:
+        """Reserve the stream's worst case (prompt + budget) in blocks;
+        None when the pool cannot cover it yet (the caller parks the
+        request)."""
+        need = min(-(-req.cap_tokens // self._kv_block_len),
+                   self._kv_max_blocks)
+        if not self._kv_index.reserve(need):
+            return None
+        return {"need": need}
+
+    def _bind_paged(self, slot: _Slot, staged: dict) -> None:
+        """Apply a staged admission: an empty table, the reservation to
+        grow into, and a reset to position 0 riding the next dispatch."""
+        slot.reserved_left = staged["need"]
+        slot.blocks = []
+        slot.pos_pending = 0
+
+    def _ensure_blocks(self, slot: _Slot, req: _Request, upto: int) -> None:
+        """Grow a slot's table to cover positions [0, upto), clamped to the
+        stream's worst case and drawn from its reservation (never fails).
+        Positions past the allocated entries resolve to scratch."""
+        upto = min(upto, req.cap_tokens)
+        need = min(-(-upto // self._kv_block_len), self._kv_max_blocks)
+        grow = min(need - len(slot.blocks), slot.reserved_left)
+        if grow > 0:
+            slot.blocks.extend(self._kv_index.alloc(grow))
+            slot.reserved_left -= grow
+
+    def _build_tables(self, width_need: int) -> np.ndarray:
+        """Every slot's block table as one scratch-padded [S, Bw] int32
+        host array; Bw is the smallest bucket covering ``width_need``,
+        every live block and every position this round may write."""
+        buckets = self._dev["table_buckets"]
+        bw = next((b for b in buckets if b >= width_need), buckets[-1])
+        tab = np.zeros((self._n_slots, bw), np.int32)
+        for i, slot in enumerate(self._slots):
+            if slot.req is not None and slot.blocks:
+                n = min(len(slot.blocks), bw)
+                tab[i, :n] = slot.blocks[:n]
+        return tab
+
+    def _free_slot_paged(self, slot: _Slot) -> None:
+        """Return a slot's blocks and unused reservation (idempotent).
+        Kernels already enqueued keep reading their table snapshot; any
+        later writer of a freed block is enqueued behind them."""
+        self._kv_index.free(slot.blocks)
+        if slot.reserved_left:
+            self._kv_index.unreserve(slot.reserved_left)
+        slot.blocks = []
+        slot.reserved_left = 0
+        slot.pos_pending = None
+
+    # ---------------------------------------------------------- engine loop
+
+    def _reap_slots(self) -> None:
+        """Free every slot whose request was closed from outside (a
+        cancelled or abandoned stream) at this dispatch boundary."""
+        for slot in self._slots:
+            if slot.req is not None and slot.req.finished:
+                slot.req = None
+                self._free_slot_paged(slot)
+
+    def _admit(self, held: Optional[_Request] = None) -> bool:
+        """Fill free slots in FIFO order (``held`` first). A request whose
+        reservation fails is parked back at the queue head and stops
+        admission, so a big request is never starved by later small ones.
+        Returns True if any slot is occupied afterwards."""
+        for slot in self._slots:
+            if slot.req is not None:
+                continue
+            req = staged = None
+            while True:
+                if held is not None:
+                    cand, held = held, None
+                else:
+                    try:
+                        cand = self._pending.get_nowait()
+                    except queue.Empty:
+                        break
+                if cand.finished:
+                    if cand.parked:
+                        cand.parked = False
+                        self._pending.unpark()
+                    continue
+                staged = self._try_reserve_paged(cand)
+                if staged is None:
+                    first = not cand.parked
+                    cand.parked = True
+                    self._pending.push_front(cand, parked=first)
+                    break
+                req = cand
+                break
+            if req is None:
+                break
+            if req.parked:
+                req.parked = False
+                self._pending.unpark()
+            slot.req = req
+            slot.cursor = 0
+            slot.pos_hi = 0
+            slot.decode_dispatched = 0
+            self.gen_stats.record_queue_wait(now_ns() - req.enqueue_ns)
+            self._bind_paged(slot, staged)
+        if held is not None:   # no free slot took it
+            self._pending.push_front(held)
+        return any(s.req is not None for s in self._slots)
+
+    def _dispatch(self) -> tuple:
+        """Launch this iteration's chunk over every active slot (async)."""
+        return self._dispatch_chunk(self._prepare_paged_round())
+
+    def _prepare_paged_round(self) -> np.ndarray:
+        """Grow the block tables to cover this round's writes (lazily, out
+        of each stream's reservation) and snapshot them at a width that
+        covers every live block and every position the chunk may write."""
+        width = 1
+        for slot in self._slots:
+            if slot.req is None:
+                continue
+            self._ensure_blocks(slot, slot.req, slot.pos_hi + self._chunk)
+            width = max(width, len(slot.blocks),
+                        (slot.pos_hi + self._chunk) // self._kv_block_len + 1)
+        return self._build_tables(width)
+
+    def _dispatch_chunk(self, tables: np.ndarray) -> tuple:
+        s, c = self._n_slots, self._chunk
+        feed = np.zeros((s, c), np.int32)
+        rem = np.zeros((s,), np.int32)
+        active = np.zeros((s,), np.bool_)
+        reset = np.zeros((s,), np.bool_)
+        reset_to = np.zeros((s,), np.int32)
+        seeds = np.zeros((s,), np.int32)
+        temps = np.zeros((s,), np.float32)
+        topks = np.zeros((s,), np.int32)
+        topps = np.zeros((s,), np.float32)
+        meta = []
+        eager_free = []
+        for i, slot in enumerate(self._slots):
+            req = slot.req
+            if req is None:
+                meta.append((None, 0))
+                continue
+            active[i] = True
+            if slot.pos_pending is not None:
+                reset[i] = True
+                reset_to[i] = slot.pos_pending
+                slot.pos_pending = None
+            seeds[i] = req.seed
+            temps[i] = req.temperature
+            topks[i] = req.top_k
+            topps[i] = req.top_p
+            k = min(len(req.prompt) - slot.cursor, c)
+            if k > 0:
+                feed[i, :k] = req.prompt[slot.cursor:slot.cursor + k]
+                rem[i] = k
+                slot.cursor += k
+            slot.pos_hi += c
+            meta.append((req, k))   # columns >= k are generated tokens
+            if slot.cursor >= len(req.prompt):
+                slot.decode_dispatched += c - k
+                if slot.decode_dispatched >= req.budget:
+                    # every token the stream may still emit is in flight
+                    eager_free.append(slot)
+        sample = bool(temps.max(initial=0.0) > 0)
+        (tab_d, feed_d, rem_d, active_d, reset_d, reset_to_d, seeds_d,
+         temps_d, topks_d, topps_d) = self._upload(
+            [tables, feed, rem, active, reset, reset_to, seeds, temps,
+             topks, topps])
+        seq = self._ring_seq
+        self._ring_seq += 1
+        dev = self._dev
+        timing = None
+        if self._device.type == "cuda":
+            timing = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            timing[0].record()
+        dev["last"], dev["pos"] = paged_chunk_kernel(
+            self._cfg, dev["params"], dev["pool"], dev["pos"], dev["last"],
+            dev["ring"], dev["ring_cnt"], seq % self._ring_entries, tab_d,
+            feed_d, rem_d, active_d, reset_d, reset_to_d, seeds_d, temps_d,
+            topks_d, topps_d, sample)
+        if timing is not None:
+            timing[1].record()
+        for slot in eager_free:
+            slot.req = None
+            self._free_slot_paged(slot)
+        self._chunks_dispatched += 1
+        return ("chunk", seq, meta, timing)
+
+    def _issue_fetch(self, unfetched: list, forced: bool = False) -> tuple:
+        """Start the ring's D2H copy (non-blocking, on the engine's
+        stream, behind every kernel dispatched so far): one transfer
+        delivers every entry in ``unfetched``. On the CPU the ring is
+        cloned, since nothing orders a later in-place write after it."""
+        ring, cnt = self._dev["ring"], self._dev["ring_cnt"]
+        if ring.is_cuda:
+            copies = start_host_copies({"ring": ring, "cnt": cnt})
+        else:
+            copies = ({"ring": ring.clone(), "cnt": cnt.clone()}, None)
+        self.gen_stats.record_ring_fetch(forced=forced)
+        return (copies, list(unfetched))
+
+    def _drain_fetch(self, fetch, cadence: bool = True) -> None:
+        """Deliver one issued fetch: wait for its bytes (retire_fetch),
+        then hand every covered entry's tokens to its streams
+        (retire_deliver). ``cadence`` False marks the 2nd+ drain of a
+        burst, which must not feed the chunk-time EWMA."""
+        copies, entries = fetch
+        t0 = time.perf_counter()
+        host = finish_host_copies(copies)
+        self._phase_s["retire_fetch"] += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        arrival = now_ns()
+        newest = entries[-1][1]
+        last = self._last_drain
+        self._last_drain = (newest, arrival)
+        if cadence and last is not None and newest > last[0]:
+            sample = (arrival - last[1]) / (newest - last[0])
+            if 0 < sample < 5e9:
+                self._chunk_ns_ewma = (
+                    sample if not self._chunk_ns_ewma
+                    else 0.7 * self._chunk_ns_ewma + 0.3 * sample)
+        ring_host = host["ring"]
+        for _kind, seq, meta, timing in entries:
+            if timing is not None:   # both events ran before the copy
+                self._dispatch_event_ms += timing[0].elapsed_time(timing[1])
+                self._timed_dispatches += 1
+            self._deliver_ns = int(arrival
+                                   - (newest - seq) * self._chunk_ns_ewma)
+            self._retire(ring_host[seq % self._ring_entries], meta)
+            self._retired_seq = seq + 1
+        self._phase_s["retire_deliver"] += time.perf_counter() - t1
+
+    def _retire(self, toks: np.ndarray, meta: list) -> None:
+        """Distribute one chunk's tokens: meta[i] = (req, k), columns >= k
+        of row i are that request's generated tokens."""
+        for i, (req, k) in enumerate(meta):
+            if req is None or req.finished:
+                continue
+            self._deliver(i, req, toks[i, k:])
+
+    def _deliver(self, i: int, req: _Request, tok_seq) -> None:
+        """Deliver one chunk's tokens for one request as ONE queue put,
+        truncated at EOS or the budget; close the stream and free its slot
+        when it is done."""
+        deliver = []
+        done = False
+        for tok in tok_seq:
+            tok = int(tok)
+            deliver.append(tok)
+            req.emitted += 1
+            if tok == req.eos_id or req.emitted >= req.budget:
+                done = True
+                break
+        if deliver:
+            emit_ns = max(self._deliver_ns or now_ns(), req.last_emit_ns,
+                          req.first_token_ns, req.enqueue_ns)
+            if req.first_token_ns == 0:
+                req.first_token_ns = emit_ns
+                self.gen_stats.record_ttft(emit_ns - req.enqueue_ns)
+            req.last_emit_ns = emit_ns
+            self.gen_stats.record_tokens(len(deliver))
+            self._tokens_emitted += len(deliver)
+            req.out.put(deliver)
+        if done:
+            self._close_request(req, None)
+            self._requests_completed += 1
+        slot = self._slots[i]
+        if req.finished and slot.req is req:
+            slot.req = None
+            self._free_slot_paged(slot)
+
+    def _run(self) -> None:
+        """Engine thread entry: any failure fails every queued and
+        in-flight request (this thread is their only producer)."""
+        try:
+            # inference mode and the current device are thread-local
+            with torch.inference_mode():
+                if self._device.type == "cuda":
+                    torch.cuda.set_device(self._device)
+                self._run_loop()
+        except BaseException as e:  # noqa: BLE001 — surface to waiters
+            self._fail_all(e)
+            if not isinstance(e, Exception):
+                raise
+
+    def _run_loop(self) -> None:
+        self._ensure_ready()
+        unfetched, fetches = self._unfetched, self._fetches
+        while True:
+            if self._stopping:
+                if self._held is not None:
+                    self._close_request(
+                        self._held,
+                        ServerError("generation engine stopped", 503))
+                    self._held = None
+                break
+            self._reap_slots()
+            t_admit = time.perf_counter()
+            held, self._held = self._held, None
+            admitted = self._admit(held)
+            self._phase_s["admit"] += time.perf_counter() - t_admit
+            if not admitted and not unfetched and not fetches:
+                if self._pending.parked:
+                    # a parked head waits for blocks nothing active will
+                    # free: retry without blocking on the queue
+                    time.sleep(0.001)
+                    continue
+                # idle: block until a request (or the stop sentinel); the
+                # idle gap must not enter the chunk-time EWMA
+                self._last_drain = None
+                self._held = self._pending.get()
+                if self._held is None:
+                    break
+                continue
+            if any(s.req is not None for s in self._slots):
+                t_disp = time.perf_counter()
+                unfetched.append(self._dispatch())
+                self._phase_s["dispatch"] += time.perf_counter() - t_disp
+            active_now = any(s.req is not None for s in self._slots)
+            # issue a fetch at the stride, before the ring could wrap an
+            # unfetched entry, when overlap is off, or to flush the tail
+            forced = len(unfetched) + self._entries_per_iter \
+                > self._ring_entries
+            if unfetched and (len(unfetched) >= self._stride or forced
+                              or not self._overlap or not active_now):
+                fetches.append(self._issue_fetch(unfetched, forced=forced))
+                unfetched.clear()
+            # deliver only fetches older than the in-flight window, or
+            # everything once no slot is active
+            first = True
+            while fetches and (len(fetches) > self._fetch_depth
+                               or not active_now):
+                self._drain_fetch(fetches[0], cadence=first)
+                first = False
+                fetches.popleft()
+                active_now = any(s.req is not None for s in self._slots)
+        # a stop delivers everything already dispatched first
+        if unfetched:
+            fetches.append(self._issue_fetch(unfetched))
+            unfetched.clear()
+        first = True
+        while fetches:
+            self._drain_fetch(fetches[0], cadence=first)
+            first = False
+            fetches.popleft()
+        self._fail_all(ServerError("generation engine stopped", 503))
+
+    def _fail_all(self, err: BaseException) -> None:
+        """Deliver a terminal to every request still held, in a slot, in
+        an undelivered ring entry or queued; marks the engine dead first
+        so no later submit can enqueue a request nothing will consume."""
+        self._stopping = True
+        expected = isinstance(err, ServerError) and err.status == 503
+        if not expected:
+            self._failed = err
+        failed = 0
+        held, self._held = self._held, None
+        if held is not None and not held.finished:
+            self._close_request(held, err)
+            failed += 1
+        for slot in self._slots:
+            if slot.req is not None and not slot.req.finished:
+                self._close_request(slot.req, err)
+                failed += 1
+            self._free_slot_paged(slot)
+            slot.req = None
+        inflight = list(self._unfetched)
+        for _copies, entries in list(self._fetches):
+            inflight.extend(entries)
+        self._unfetched.clear()
+        self._fetches.clear()
+        for _kind, _seq, meta, _timing in inflight:
+            for req, _k in meta:
+                if req is not None and not req.finished:
+                    self._close_request(req, err)
+                    failed += 1
+        while True:
+            try:
+                req = self._pending.get_nowait()
+            except queue.Empty:
+                break
+            if not req.finished:
+                self._close_request(req, err)
+                failed += 1
+        if expected:
+            log.debug("generation engine '%s' stopped; closed %d "
+                      "request(s)", self.name, failed)
+        else:
+            log.error("generation engine '%s' loop failed (%d request(s) "
+                      "answered with the error): %s", self.name, failed, err,
+                      exc_info=err if isinstance(err, Exception) else None)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

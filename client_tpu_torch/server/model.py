@@ -17,7 +17,7 @@ reference's CompileWatch and its pre-split shm-output variant
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -69,7 +69,8 @@ def _host_tensor(arr) -> torch.Tensor:
 
 
 class ServedModel:
-    """Base class: execute() one batch of host arrays."""
+    """Base class: execute() one batch of host arrays; stream() for a
+    decoupled model."""
 
     def __init__(self, config: ModelConfig):
         self.config = config
@@ -87,6 +88,10 @@ class ServedModel:
     def execute(self, inputs: dict) -> dict:
         raise NotImplementedError
 
+    def stream(self, inputs: dict) -> Iterator[dict]:
+        """A decoupled model yields zero or more responses per request."""
+        yield self.execute(inputs)
+
     def warmup(self) -> None:
         """Run every batch bucket once (optional)."""
 
@@ -95,14 +100,24 @@ class ServedModel:
 
 
 class PyModel(ServedModel):
-    """Host (CPU/Python) model — preprocessing steps, test doubles, etc."""
+    """Host (CPU/Python) model — preprocessing steps, test doubles, the
+    generation engine's front (``stream_fn`` yields a decoupled model's
+    responses), etc."""
 
-    def __init__(self, config: ModelConfig, fn: Callable[[dict], dict]):
+    def __init__(self, config: ModelConfig, fn: Callable[[dict], dict],
+                 stream_fn: Optional[Callable[[dict], Iterator[dict]]] = None):
         super().__init__(config)
         self._fn = fn
+        self._stream_fn = stream_fn
 
     def execute(self, inputs: dict) -> dict:
         return self._fn(inputs)
+
+    def stream(self, inputs: dict) -> Iterator[dict]:
+        if self._stream_fn is not None:
+            yield from self._stream_fn(inputs)
+        else:
+            yield self.execute(inputs)
 
 
 class TorchModel(ServedModel):

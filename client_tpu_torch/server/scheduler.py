@@ -9,11 +9,15 @@ extension expects: queue (enqueue -> pickup), compute_input (assembly +
 H2D), compute_infer (dispatch -> outputs in host memory), compute_output
 (split + deliver).
 
+A decoupled model runs on the direct scheduler: ``_execute_one`` sends one
+response per item of ``model.stream`` and then an empty response flagged
+``triton_final_response``.
+
 Two places of the reference are tied to JAX and become torch checks here:
 the device pipeline serves ``TorchModel`` (not ``JaxModel``), and inputs
 already on the card are recognised as CUDA tensors. The sequence
-scheduler, the tracer's spans and the shm-output fast path wait for
-later slices.
+scheduler, the tracer's spans, the streaming context (deadline, cancel
+event, tenant) and the shm-output fast path wait for later slices.
 """
 
 from __future__ import annotations
@@ -128,11 +132,30 @@ class SchedulerBase:
             f"'{self.model.name}'", 503, retry_after=1.0), True)
 
     def _execute_one(self, pending: Pending) -> None:
-        """Unbatched execution of a single request."""
+        """Unbatched execution of a single request (direct / decoupled)."""
         req = pending.request
         pickup = now_ns()
         queue_ns = pickup - pending.enqueue_ns
         try:
+            if self.model.config.decoupled:
+                # one response per streamed item, then the final flag
+                t0 = now_ns()
+                for outputs in self.model.stream(pending.inputs):
+                    pending.send(
+                        _success_response(req, outputs, self.version), False)
+                pending.send(InferResponse(
+                    model_name=req.model_name, model_version=self.version,
+                    id=req.id, parameters={"triton_final_response": True}),
+                    True)
+                t1 = now_ns()
+                self.stats.record_execution(
+                    batch_size=max(1, req.inputs[0].batch_size()
+                                   if req.inputs else 1),
+                    num_requests=1, queue_ns_per_request=[queue_ns],
+                    compute_input_ns=0, compute_infer_ns=t1 - t0,
+                    compute_output_ns=0,
+                    request_total_ns_each=[t1 - pending.enqueue_ns])
+                return
             t0 = now_ns()
             if isinstance(self.model, TorchModel):
                 dev_in = self.model.device_put_inputs(pending.inputs)
@@ -548,6 +571,8 @@ class DynamicBatchScheduler(SchedulerBase):
 def make_scheduler(model: ServedModel, stats: ModelStats,
                    version: str) -> SchedulerBase:
     cfg = model.config
+    if cfg.decoupled:
+        return DirectScheduler(model, stats, version)
     if cfg.max_batch_size > 0 and cfg.dynamic_batching is not None:
         return DynamicBatchScheduler(model, stats, version)
     return DirectScheduler(model, stats, version)

@@ -1,11 +1,12 @@
-"""Per-model statistics: the v2 statistics-extension counters.
+"""Per-model statistics: the v2 statistics-extension counters, and the
+generation engine's token-level counters.
 
-The port's counterpart of ``ModelStats`` in ``client_tpu/server/stats.py``
-(the generation-engine counters wait for the generation slice). Semantics
-follow Triton's: ``inference_count`` counts inferences (sum of request
-batch-1 units), ``execution_count`` counts model executions (batches),
-per-request queue time, per-execution compute times attributed to every
-request in the batch, and per-batch-size execution stats.
+The port's counterpart of ``ModelStats`` and ``GenerationStats`` in
+``client_tpu/server/stats.py``. ``ModelStats`` semantics follow Triton's:
+``inference_count`` counts inferences (sum of request batch-1 units),
+``execution_count`` counts model executions (batches), per-request queue
+time, per-execution compute times attributed to every request in the
+batch, and per-batch-size execution stats.
 """
 
 from __future__ import annotations
@@ -118,4 +119,100 @@ class ModelStats:
                     }
                     for bs, d in sorted(self.batch_stats.items())
                 ],
+            }
+
+
+class _HistNs:
+    """Cumulative ns-valued histogram on the LATENCY_BUCKETS_NS grid (the
+    last bucket is +Inf)."""
+
+    __slots__ = ("counts", "sum_ns", "count")
+
+    def __init__(self):
+        self.counts = [0] * (len(LATENCY_BUCKETS_NS) + 1)
+        self.sum_ns = 0
+        self.count = 0
+
+    def observe(self, ns: int) -> None:
+        self.counts[bisect_right(LATENCY_BUCKETS_NS, ns)] += 1
+        self.sum_ns += ns
+        self.count += 1
+
+    def snapshot(self) -> tuple:
+        return list(self.counts), self.sum_ns, self.count
+
+
+class GenerationStats:
+    """Token-level counters of a generation engine, limited to what the
+    port's engine feeds: time to first token (engine enqueue to the first
+    emitted token), inter-token latency (``(last_emit - first_token) /
+    (tokens - 1)`` per completed stream of >= 2 tokens), queue wait
+    (enqueue to slot admission), tokens emitted, stream outcomes and the
+    batched ring fetches. The reference's prefix, speculation, lane,
+    tier, scheduler and goodput counters wait for their slices. All
+    mutators take ns; the engine thread writes, any thread reads."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.ttft = _HistNs()
+        self.inter_token = _HistNs()
+        self.queue_wait = _HistNs()
+        self.tokens = 0
+        self.completed = 0
+        self.failed = 0
+        self.cancelled = 0
+        self.ring_fetches = 0
+        self.ring_forced_fetches = 0
+
+    def record_queue_wait(self, ns: int) -> None:
+        with self._lock:
+            self.queue_wait.observe(max(0, int(ns)))
+
+    def record_ttft(self, ns: int) -> None:
+        with self._lock:
+            self.ttft.observe(max(0, int(ns)))
+
+    def record_tokens(self, n: int) -> None:
+        with self._lock:
+            self.tokens += n
+
+    def record_completion(self, emitted: int, first_token_ns: int,
+                          last_emit_ns: int) -> None:
+        """A stream closed normally: count it and record its mean
+        inter-token latency (defined only for >= 2 emitted tokens)."""
+        with self._lock:
+            self.completed += 1
+            if emitted >= 2 and last_emit_ns >= first_token_ns:
+                self.inter_token.observe(
+                    (last_emit_ns - first_token_ns) // (emitted - 1))
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self.failed += 1
+
+    def record_cancelled(self) -> None:
+        """A stream was cancelled by its consumer before finishing."""
+        with self._lock:
+            self.cancelled += 1
+
+    def record_ring_fetch(self, forced: bool = False) -> None:
+        """One batched D2H ring fetch was issued; ``forced`` marks fetches
+        issued early so the ring would not wrap an unfetched entry."""
+        with self._lock:
+            self.ring_fetches += 1
+            if forced:
+                self.ring_forced_fetches += 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "ttft": self.ttft.snapshot(),
+                "inter_token": self.inter_token.snapshot(),
+                "queue_wait": self.queue_wait.snapshot(),
+                "tokens": self.tokens,
+                "completed": self.completed,
+                "failed": self.failed,
+                "cancelled": self.cancelled,
+                "ring_fetches": self.ring_fetches,
+                "ring_forced_fetches": self.ring_forced_fetches,
             }

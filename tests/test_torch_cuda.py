@@ -8,15 +8,20 @@ against the JAX package. On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
-The shapes cover what ``chip_smoke.py`` does not: one query row, head
-dims other than 64 (the kernel's 128-wide variant above 64), ragged L
-across several query tiles, and q/k/v views in another layout.
+The shapes cover what ``chip_smoke.py`` does not: for flash attention one
+query row, head dims other than 64 (the kernel's 128-wide variant above
+64), ragged L across several query tiles, and q/k/v views in another
+layout; for paged decode attention head dims 64 and 128, blocks of 8 and
+16 rows, grouped queries, pool slabs read through other strides, and a
+small generation engine whose every decode step goes through the kernel.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from client_tpu_torch.ops import flash_attention as fa
+from client_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
 
@@ -24,6 +29,9 @@ pytestmark = pytest.mark.cuda
 # (the JAX suite's flash tolerance); bf16, one rounding of an O(1) output
 # plus a probability that rounds the other way before PV
 ATOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# paged decode attention vs its plain version: f32, the JAX suite's Pallas
+# tolerance; bf16, one rounding of an O(1) output (P stays f32 in both)
+PAGED_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -139,3 +147,104 @@ def test_card_inputs_ride_the_device_assembly_path(card):
                                            3 * x.cpu(), rtol=0, atol=1e-6)
     finally:
         core.stop()
+
+
+def _paged_case(s, h, hkv, dh, bl, n, width, dtype, seed, layout="plain"):
+    """q, one layer's K/V slabs, tables of distinct blocks, positions from
+    0 to past the table. ``layout`` "layer_major" takes the slabs as views
+    of a [L, N, bl, Hkv, Dh] pool, "heads_outer" as views of a pool stored
+    [N, Hkv, bl, Dh] (another stride for every dim but the last)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((s, h, dh), generator=gen, device="cuda").to(dtype)
+
+    def slab():
+        if layout == "layer_major":
+            return torch.randn((3, n, bl, hkv, dh), generator=gen,
+                               device="cuda").to(dtype)[2]
+        if layout == "heads_outer":
+            return torch.randn((n, hkv, bl, dh), generator=gen,
+                               device="cuda").to(dtype).transpose(1, 2)
+        return torch.randn((n, bl, hkv, dh), generator=gen,
+                           device="cuda").to(dtype)
+
+    kp, vp = slab(), slab()
+    perm = torch.randperm(n - 1, generator=gen, device="cuda") + 1
+    tables = perm[:s * width].reshape(s, width).to(torch.int32)
+    span = width * bl
+    pos = torch.linspace(0, span + bl, s, device="cuda").to(torch.int32)
+    return q, kp, vp, tables, pos
+
+
+@pytest.mark.parametrize("layout", ["plain", "layer_major", "heads_outer"])
+@pytest.mark.parametrize("shape", [
+    # S, H, Hkv, Dh, block_len, N, table width
+    (5, 4, 4, 64, 16, 64, 6), (5, 8, 2, 128, 16, 64, 6),
+    (7, 6, 3, 64, 8, 96, 10), (3, 32, 8, 128, 8, 40, 9),
+    (4, 2, 1, 40, 16, 20, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_matches_plain_version(card, dtype, shape, layout):
+    args = _paged_case(*shape, dtype=dtype, seed=sum(shape), layout=layout)
+    out = pa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = pa.paged_decode_attention_reference(*args)
+    assert out.shape == args[0].shape and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=PAGED_ATOL[dtype])
+
+
+def test_paged_kernel_inactive_slots_read_scratch(card):
+    """Slots at position 0 on an all-scratch table attend row 0 of block 0
+    only: their output is that row's V."""
+    q, kp, vp, tables, pos = _paged_case(4, 4, 2, 64, 16, 32, 4,
+                                         torch.float32, 3)
+    tables[1:3] = 0
+    pos[1:3] = 0
+    out = pa.paged_decode_attention(q, kp, vp, tables, pos)
+    want = vp[0, 0].repeat_interleave(2, dim=0)          # [H, Dh]
+    torch.testing.assert_close(out[1], want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(out[2], want, rtol=0, atol=1e-6)
+
+
+def test_paged_kernel_launch_counter(card):
+    args = _paged_case(2, 2, 2, 64, 16, 8, 2, torch.bfloat16, 0)
+    before = pa.launches
+    pa.paged_decode_attention(*args)
+    pa.paged_decode_attention(*args)
+    assert pa.launches == before + 2
+
+
+def test_small_engine_goes_through_the_paged_kernel(card):
+    """A small f32 engine on the card: K2 launches n_layers x chunk times
+    per chunk dispatch, and its greedy streams equal the same weights'
+    S=1 decode through the plain K2."""
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.models.sampling import offline_sample
+    from client_tpu_torch.perf.bench_harness import (
+        ragged_generation_jobs,
+        run_engine_jobs,
+    )
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = t.TransformerConfig(vocab_size=97, d_model=64, n_layers=2,
+                              n_heads=4, head_dim=16, d_ff=128, max_seq=64,
+                              dtype=torch.float32, attn_impl="flash")
+    params = t.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    jobs = ragged_generation_jobs(3, 97, 6, (1, 20), (3, 30), 64)
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=4, chunk=4,
+                                   kv_block_len=8, device="cuda").start()
+    try:
+        list(eng.submit(np.zeros(3, np.int32), 2))   # engine ready
+        chunks0, before = eng.stats()["chunks_dispatched"], pa.launches
+        _, _, toks = run_engine_jobs(eng, jobs, collect=True,
+                                     join_timeout_s=300)
+        chunks = eng.stats()["chunks_dispatched"] - chunks0
+        assert pa.launches - before == 2 * 4 * chunks
+    finally:
+        eng.stop()
+    for (prompt, budget), got in zip(jobs, toks):
+        want = offline_sample(cfg, params, prompt, budget, block_len=8,
+                              attention=pa.paged_decode_attention_reference)
+        assert got == want

@@ -1,0 +1,284 @@
+"""The port's continuous-batching engine (client_tpu_torch.server.
+generation) end to end on the CPU, held against the JAX package's paged
+engine with the same f32 weights, and its served decoupled path.
+
+Greedy streams must be token-identical to the reference engine's
+(``kv_layout="paged"``, ``attn_impl="ref"``), whatever the port's fetch
+stride and overlap; sampled streams must reproduce on resubmission with
+the same seed. On the CPU the port's ``flash`` attention is K2's plain
+version; the kernel itself runs on the card (tests/test_torch_cuda.py).
+"""
+
+import threading
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from client_tpu.models import transformer as jt
+from client_tpu.perf import bench_harness as jbh
+from client_tpu.server.generation import (
+    ContinuousBatchingEngine as JaxEngine,
+)
+from client_tpu_torch.models import transformer as tt
+from client_tpu_torch.models.decoder_lm import make_continuous_generator
+from client_tpu_torch.perf import bench_harness as tbh
+from client_tpu_torch.server import TorchInferenceServer
+from client_tpu_torch.server.generation import ContinuousBatchingEngine
+from client_tpu_torch.server.types import (
+    InferRequest,
+    InferTensor,
+    ServerError,
+)
+
+KW = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=2, head_dim=16,
+          d_ff=64, max_seq=64, causal=True)
+ENGINE = dict(n_slots=4, chunk=4, kv_block_len=4)
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jt.TransformerConfig(dtype=jnp.float32, attn_impl="ref", **KW)
+    jparams = jt.init_params(jax.random.key(0), jcfg)
+    tparams = tt.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu",
+                                 torch.float32)
+    tcfg = tt.TransformerConfig(dtype=torch.float32, attn_impl="flash", **KW)
+    return jcfg, jparams, tcfg, tparams
+
+
+@pytest.fixture(scope="module")
+def jobs():
+    got = tbh.ragged_generation_jobs(7, 64, 6, (1, 20), (3, 20), 64)
+    want = jbh.ragged_generation_jobs(7, 64, 6, (1, 20), (3, 20), 64)
+    assert all(np.array_equal(a[0], b[0]) and a[1] == b[1]
+               for a, b in zip(got, want))
+    return got
+
+
+@pytest.fixture(scope="module")
+def jax_streams(model, jobs):
+    """The reference's paged engine on the same weights and jobs."""
+    jcfg, jparams, _, _ = model
+    eng = JaxEngine(jcfg, dict(jparams), kv_layout="paged", **ENGINE).start()
+    try:
+        _, _, toks = jbh.run_engine_jobs(eng, jobs, collect=True,
+                                         join_timeout_s=300)
+    finally:
+        eng.stop()
+    return toks
+
+
+def _port_engine(model, **kw):
+    _, _, tcfg, tparams = model
+    return ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+                                    **{**ENGINE, **kw}).start()
+
+
+@pytest.mark.parametrize("stride,overlap", [(4, True), (1, True),
+                                            (4, False)])
+def test_greedy_streams_match_the_jax_engine(model, jobs, jax_streams,
+                                             stride, overlap):
+    eng = _port_engine(model, fetch_stride=stride, overlap=overlap)
+    try:
+        _, _, toks = tbh.run_engine_jobs(eng, jobs, collect=True,
+                                         join_timeout_s=300)
+        assert [len(t) for t in toks] == [b for _, b in jobs]
+        assert toks == jax_streams
+        stats = eng.stats()
+        assert stats["tokens_emitted"] == sum(b for _, b in jobs)
+        assert stats["chunks_dispatched"] > 0
+    finally:
+        eng.stop()
+    # every block and reservation went back to the allocator
+    occ = eng._kv_index.occupancy()
+    assert occ["free"] == occ["usable"] and occ["reserved"] == 0
+
+
+def test_sampled_streams_reproduce_with_their_seed(model, jobs):
+    eng = _port_engine(model)
+    try:
+        kw = dict(temperature=0.8, top_k=8, top_p=0.95, seed=11)
+        first = tbh.run_engine_jobs(eng, jobs, collect=True, **kw)[2]
+        again = tbh.run_engine_jobs(eng, jobs, collect=True, **kw)[2]
+        other = tbh.run_engine_jobs(eng, jobs, collect=True,
+                                    **{**kw, "seed": 12})[2]
+    finally:
+        eng.stop()
+    assert first == again
+    assert first != other
+    assert all(0 <= tok < 64 for s in first for tok in s)
+
+
+def test_a_full_pool_parks_requests_until_blocks_free(model, jobs):
+    """A pool of 9 usable blocks holds one worst-case stream of the jobs
+    at a time: the rest wait at the queue head, and the streams are the
+    same."""
+    eng = _port_engine(model, kv_pool_blocks=10)
+    try:
+        _, _, toks = tbh.run_engine_jobs(eng, jobs, collect=True,
+                                         join_timeout_s=300)
+        one = list(eng.submit(jobs[0][0], jobs[0][1]))
+    finally:
+        eng.stop()
+    assert toks[0] == one
+    assert [len(t) for t in toks] == [b for _, b in jobs]
+
+
+def test_submit_validates_like_the_reference(model):
+    eng = _port_engine(model)
+    try:
+        with pytest.raises(ServerError, match="top_k") as ei:
+            eng.submit([1, 2], 4, top_k=65)
+        assert ei.value.status == 400
+        with pytest.raises(ServerError, match="integer"):
+            eng.submit(np.asarray([1.5]), 4)
+        with pytest.raises(ServerError, match="max context"):
+            eng.submit(np.zeros(64, np.int32), 4)
+        with pytest.raises(ServerError, match="max_new_tokens"):
+            eng.submit([1], 0)
+        assert list(eng.submit(np.zeros(0, np.int32), 4)) == []
+        # a budget past the context is clipped to it
+        assert len(list(eng.submit(np.zeros(60, np.int32), 100))) == 4
+    finally:
+        eng.stop()
+    with pytest.raises(ServerError) as ei:
+        eng.submit([1], 2)
+    assert ei.value.status == 503
+
+
+def test_abandoned_stream_frees_its_slot(model):
+    eng = _port_engine(model, n_slots=1, fetch_stride=1)
+    dispatch = eng._dispatch
+
+    def slow_dispatch():      # ~0.5 s for the whole 40-token budget
+        time.sleep(0.05)
+        return dispatch()
+
+    eng._dispatch = slow_dispatch
+    try:
+        it = eng.submit([3, 4, 5], 40)
+        assert isinstance(next(it), int)
+        it.close()          # the consumer goes away
+        assert len(list(eng.submit([3, 4, 5], 6))) == 6
+        assert eng.gen_stats.cancelled == 1
+        assert eng.stats()["tokens_emitted"] < 40 + 6
+    finally:
+        eng.stop()
+
+
+def test_concurrent_submitters_stress(model):
+    """More submitting threads than cores and slots, with a short switch
+    interval: every stream ends with exactly its budget, the engine counts
+    every accepted stream as closed, and every block comes back."""
+    import sys
+
+    eng = _port_engine(model, n_slots=3, chunk=2, fetch_stride=2,
+                       queue_depth=4)
+    rng = np.random.default_rng(5)
+    jobs = [(rng.integers(0, 64, size=int(rng.integers(1, 6))).astype(
+        np.int32), int(rng.integers(1, 6))) for _ in range(24)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        _, _, toks = tbh.run_engine_jobs(eng, jobs, collect=True,
+                                         join_timeout_s=120)
+        assert eng.drain(timeout=30)
+    finally:
+        sys.setswitchinterval(old)
+        eng.stop()
+    assert [len(t) for t in toks] == [b for _, b in jobs]
+    assert eng._requests_accepted == eng._requests_closed == len(jobs)
+    occ = eng._kv_index.occupancy()
+    assert occ["free"] == occ["usable"] and occ["reserved"] == 0
+
+
+@pytest.mark.parametrize("knob,value,item", [
+    ("prefix_cache", True, "A10c"), ("speculative_draft", object(), "A10h"),
+    ("prefill_slots", 2, "A10e"), ("host_tier_bytes", 1, "A10f"),
+    ("scheduler", True, "A10g"), ("mesh", object(), "A12"),
+    ("kv_layout", "slot", "A10d"), ("prefill_mode", "chunked", "A10b")])
+def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
+                                                        item):
+    _, _, tcfg, tparams = model
+    with pytest.raises(NotImplementedError, match=item):
+        ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+                                 **{knob: value})
+    with pytest.raises(NotImplementedError, match=item):
+        make_continuous_generator(cfg=tcfg, params=tparams, device="cpu",
+                                  **{knob: value})
+    with pytest.raises(TypeError, match="unknown"):
+        ContinuousBatchingEngine(tcfg, tparams, device="cpu", bogus=1)
+
+
+# ---------------------------------------------------------------- serving
+
+def _request(prompt, budget, **sampling):
+    inputs = [InferTensor("PROMPT", "INT32", (len(prompt),),
+                          data=np.asarray(prompt, np.int32)),
+              InferTensor("MAX_TOKENS", "INT32", (1,),
+                          data=np.asarray([budget], np.int32))]
+    for name, dt, val in (("TEMPERATURE", "FP32", "temperature"),
+                          ("TOP_K", "INT32", "top_k"),
+                          ("SEED", "INT32", "seed")):
+        if val in sampling:
+            np_dt = np.float32 if dt == "FP32" else np.int32
+            inputs.append(InferTensor(name, dt, (1,), data=np.asarray(
+                [sampling[val]], np_dt)))
+    return InferRequest(model_name="gen", inputs=inputs)
+
+
+def _stream(core, req):
+    got, done = [], threading.Event()
+
+    def cb(resp, final):
+        got.append((resp, final))
+        if final:
+            done.set()
+
+    core.infer(req, response_callback=cb)
+    assert done.wait(120)
+    return got
+
+
+def test_served_decoupled_path_streams_tokens_then_the_final_flag(
+        model, jobs, jax_streams):
+    _, _, tcfg, tparams = model
+    core = TorchInferenceServer()
+    core.register_model(make_continuous_generator(
+        "gen", cfg=tcfg, params=tparams, device="cpu", n_slots=4,
+        chunk_size=4, kv_block_len=4), warmup=True)
+    try:
+        cfg_json = core.model_config("gen")
+        assert cfg_json["model_transaction_policy"] == {"decoupled": True}
+        prompt, budget = jobs[1]
+        got = _stream(core, _request(prompt, budget))
+        assert len(got) == budget + 1
+        assert all(not final and resp.error is None
+                   for resp, final in got[:-1])
+        toks = [int(resp.output("TOKEN").data[0]) for resp, _ in got[:-1]]
+        assert toks == jax_streams[1]
+        last, final = got[-1]
+        assert final and last.outputs == []
+        assert last.parameters == {"triton_final_response": True}
+        # sampled through the wire inputs, reproducible by seed
+        a = _stream(core, _request(prompt, 5, temperature=0.9, top_k=4,
+                                   seed=3))
+        b = _stream(core, _request(prompt, 5, temperature=0.9, top_k=4,
+                                   seed=3))
+        assert [r.output("TOKEN").data[0] for r, _ in a[:-1]] == \
+            [r.output("TOKEN").data[0] for r, _ in b[:-1]]
+        # a decoupled model answers a call without a callback with 400
+        with pytest.raises(ServerError, match="decoupled") as ei:
+            core.infer(_request(prompt, 2))
+        assert ei.value.status == 400
+        # a top_k past the sampling width is a 400 response, not a clamp
+        bad = _stream(core, _request(prompt, 2, top_k=65))
+        assert len(bad) == 1 and bad[0][1]
+        assert bad[0][0].error_status == 400
+        stats = core.statistics("gen")["model_stats"][0]
+        assert stats["inference_count"] >= 3
+    finally:
+        core.stop()

@@ -39,20 +39,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["banned"] == []
     for expected in ("client_tpu_torch.ops.flash_attention",
+                     "client_tpu_torch.ops.paged_attention",
                      "client_tpu_torch.server.scheduler",
                      "client_tpu_torch.server.http_server",
                      "client_tpu_torch.server.__main__",
+                     "client_tpu_torch.server.generation",
+                     "client_tpu_torch.server.kv_cache",
                      "client_tpu_torch.perf.bench_harness",
-                     "client_tpu_torch.models.transformer"):
+                     "client_tpu_torch.models.transformer",
+                     "client_tpu_torch.models.sampling",
+                     "client_tpu_torch.models.decoder_lm"):
         assert expected in result["modules"]
 
 
 def _entry_points():
     from client_tpu_torch.device import resolve_device
     from client_tpu_torch.models import make_add_sub
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.models.decoder_lm import (
+        decode_config,
+        make_continuous_generator,
+    )
     from client_tpu_torch.perf.bench_harness import build_bert_encoder
     from client_tpu_torch.server.config import ModelConfig
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
     from client_tpu_torch.server.model import TorchModel
+
+    def engine():
+        cfg = decode_config(vocab_size=16, d_model=8, n_layers=1, n_heads=1,
+                            head_dim=8, d_ff=8, max_seq=16)
+        params = t.init_params(torch.Generator().manual_seed(0), cfg)
+        return ContinuousBatchingEngine(cfg, params, n_slots=1, chunk=1)
 
     return {
         "resolve_device": lambda: resolve_device(),
@@ -61,12 +78,16 @@ def _entry_points():
                                          lambda p, x: x),
         "make_add_sub": lambda: make_add_sub(),
         "build_bert_encoder": lambda: build_bert_encoder(8, 2),
+        "ContinuousBatchingEngine": engine,
+        "make_continuous_generator": lambda: make_continuous_generator(),
     }
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "resolve_device_cuda",
                                    "TorchModel", "make_add_sub",
-                                   "build_bert_encoder"])
+                                   "build_bert_encoder",
+                                   "ContinuousBatchingEngine",
+                                   "make_continuous_generator"])
 def test_entry_points_without_a_device_raise_when_cuda_is_absent(
         entry, monkeypatch):
     # the same code path a machine without CUDA takes, on any machine
