@@ -14,6 +14,11 @@ each printing one JSON line:
              stated below, and times the kernel, the plain version, a
              PyTorch library call computing the same function (a yardstick
              the port never calls) and the card's bound for the same work.
+             Three times per kernel: ``ms``, the wall time per call of
+             back-to-back calls between CUDA events; ``device_ms``, the
+             kernel's own duration from torch.profiler's kernel events;
+             ``host_us_per_call``, the wrapper's host time per call. Also
+             times K1 at a long sequence (B 4, L 2048, causal and not).
 4. kernel    the same for paged decode attention (K2) at the generation
              path's shapes: positions 0, 15, 16, mid-context and 191,
              inactive slots on the scratch block, table widths 1, 4 and 12,
@@ -51,6 +56,7 @@ file without the rest of the repository.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -67,6 +73,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # the main path's attention shape: bucket 256, seq 128, 12 heads of 64
 SLICE_SHAPE = (256, 128, 12, 64)
 RAGGED_SHAPE = (4, 100, 12, 64)
+# timing only: a long sequence, where the double-buffered key loop matters
+LONG_SHAPE = (4, 2048, 12, 64)
 # kernel vs plain version, same inputs on the card. f32: the JAX suite's
 # own flash tolerance; the two sum in other orders. bf16: one bf16
 # rounding of an O(1) output is ~4e-3, and a probability that rounds the
@@ -119,7 +127,9 @@ def card_peaks(name: str) -> tuple:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Wall time per call of ``fn`` over ``iters`` back-to-back calls,
+    between two CUDA events: the device time where the device sets the
+    pace, the host's pacing where the host does."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -131,6 +141,56 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Device time per call of ``fn``: the summed durations of the CUDA
+    kernels that torch.profiler records over ``iters`` calls, so gaps
+    between launches and host pacing do not count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # every call launches at least one kernel; a window in which the
+    # profiler recorded fewer kernels than calls lost events: profile again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        if sum(e.count for e in kernels) >= iters:
+            return sum(e.self_device_time_total
+                       for e in kernels) / iters / 1e3
+    fail(f"torch.profiler recorded fewer kernels than the {iters} calls")
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host time per call of ``fn`` (checks, allocation, launch), with the
+    card idle at the start: perf_counter around ``calls`` calls that only
+    enqueue work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s / calls * 1e6
+
+
+def bound(nbytes: int, flops: int, peaks: tuple) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    its memory rate and the operations over its bf16 tensor-core rate."""
+    bw, bf16_peak = peaks
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops}
 
 
 # ---------------------------------------------------------------- phases
@@ -200,26 +260,52 @@ def phase_kernel(peaks: tuple) -> dict:
         if not (torch.isfinite(out).all().item() and err <= tol):
             fail(f"flash_attention disagrees with its plain version: {case}")
 
+    def flash_bound(shape, causal, esize):
+        b, l, h, d = shape
+        pairs = l * (l + 1) // 2 if causal else l * l   # (query, key) pairs
+        # read q, k, v and write o once; QK^T and PV on the pairs kept
+        return bound(4 * b * l * h * d * esize, 2 * 2 * b * h * pairs * d,
+                     peaks)
+
+    def sdpa(q, k, v, causal=False):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+
     # the main path's call: bf16, not causal, q/k/v views of one QKV slab
     q, k, v = _qkv(SLICE_SHAPE, torch.bfloat16, gen, strided=True)
-    ms = time_ms(lambda: fa.flash_attention(q, k, v))
-    plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v),
-                       iters=5, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
-    b, l, h, d = SLICE_SHAPE
-    nbytes = 4 * b * l * h * d * q.element_size()   # read q, k, v; write o
-    flops = 2 * 2 * b * h * l * l * d               # QK^T and PV
-    bw, bf16_peak = peaks
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / bf16_peak * 1e3
-    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-              "bytes": nbytes, "flops": flops,
+    call = functools.partial(fa.flash_attention, q, k, v)
+    timing = {"ms": time_ms(call), "device_ms": device_ms(call),
+              "host_us_per_call": host_us_per_call(call),
+              "plain_ms": time_ms(
+                  lambda: fa.flash_attention_reference(q, k, v), iters=5,
+                  warmup=1),
+              "library_ms": time_ms(sdpa(q, k, v)),
+              "library_device_ms": device_ms(sdpa(q, k, v)),
+              **flash_bound(SLICE_SHAPE, False, q.element_size()),
               "max_abs_err": max(c["max_abs_err"] for c in errs)}
+
+    # timing only, at the length where the reference routes attention to
+    # its flash kernel (AUTO_FLASH_MIN_SEQ = 512): B 4, L 2048
+    long_seq = []
+    for causal in (False, True):
+        q, k, v = _qkv(LONG_SHAPE, torch.bfloat16, gen, strided=True)
+        call = functools.partial(fa.flash_attention, q, k, v, causal=causal)
+        err = (call().float() - fa.flash_attention_reference(
+            q, k, v, causal=causal).float()).abs().max().item()
+        if err > ATOL[torch.bfloat16]:
+            fail(f"flash_attention at {LONG_SHAPE} causal={causal} differs "
+                 f"from its plain version by {err}")
+        long_seq.append({
+            "shape": list(LONG_SHAPE), "causal": causal, "max_abs_err": err,
+            "ms": time_ms(call, iters=10, warmup=2),
+            "device_ms": device_ms(call, iters=10, warmup=1),
+            "library_ms": time_ms(sdpa(q, k, v, causal), iters=10, warmup=2),
+            "library_device_ms": device_ms(sdpa(q, k, v, causal), iters=10,
+                                           warmup=1),
+            **flash_bound(LONG_SHAPE, causal, q.element_size())})
     emit({"phase": "kernel", "name": "flash_attention", "cases": errs,
-          **timing})
+          **timing, "long_sequence": long_seq})
     return timing
 
 
@@ -283,8 +369,11 @@ def phase_paged_kernel(peaks: tuple) -> dict:
     q, kp, vp, tables, pos = _paged_inputs(
         s, h, h, dh, GEN_POOL, nb, [GEN_MAX_SEQ - 1] * s, torch.bfloat16,
         gen)
-    ms = time_ms(lambda: pa.paged_decode_attention(q, kp, vp, tables, pos),
-                 iters=50, warmup=5)
+    call = functools.partial(pa.paged_decode_attention, q, kp, vp, tables,
+                             pos)
+    ms = time_ms(call, iters=50, warmup=5)
+    kernel_ms = device_ms(call)
+    host_us = host_us_per_call(call)
     plain_ms = time_ms(
         lambda: pa.paged_decode_attention_reference(q, kp, vp, tables, pos),
         iters=10, warmup=2)
@@ -301,22 +390,21 @@ def phase_paged_kernel(peaks: tuple) -> dict:
                                                pos).float()
     yard_err = (yard - want).abs().max().item()
     yard_ms = time_ms(gather_sdpa, iters=50, warmup=5)
+    yard_device_ms = device_ms(gather_sdpa)
     ctx = GEN_MAX_SEQ
+    # read the live K and V rows and q, write o
     nbytes = (2 * s * ctx * h * dh + 2 * s * h * dh) * q.element_size()
-    flops = 2 * 2 * s * h * ctx * dh
-    bw, bf16_peak = peaks
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / bf16_peak * 1e3
-    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-              "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-              "bytes": nbytes, "flops": flops,
+    timing = {"ms": ms, "device_ms": kernel_ms, "host_us_per_call": host_us,
+              "plain_ms": plain_ms, "library_ms": None,
+              **bound(nbytes, 2 * 2 * s * h * ctx * dh, peaks),
               "max_abs_err": max(c["max_abs_err"] for c in errs)}
     emit({"phase": "kernel", "name": "paged_decode_attention",
           "cases": errs, **timing,
           "library_note": "no single PyTorch call reads K/V through a "
                           "block table; yardstick: gather + "
                           "scaled_dot_product_attention",
-          "gather_sdpa_ms": yard_ms, "gather_sdpa_max_abs_err": yard_err})
+          "gather_sdpa_ms": yard_ms, "gather_sdpa_device_ms": yard_device_ms,
+          "gather_sdpa_max_abs_err": yard_err})
     return timing
 
 
@@ -712,6 +800,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "device_ms": t["device_ms"],
+                "host_us_per_call": t["host_us_per_call"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 

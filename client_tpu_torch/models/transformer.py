@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from client_tpu_torch.device import resolve_device
 from client_tpu_torch.ops.attention import mha_attention
 from client_tpu_torch.ops.flash_attention import flash_attention
 from client_tpu_torch.ops.paged_attention import paged_decode_attention
@@ -289,8 +290,10 @@ def emit_into_ring(ring, counts, entry: int, toks, n_emitted) -> tuple:
 
 def init_paged_state(n_slots: int, device=None) -> dict:
     """Per-slot device state of a paged engine: the positions only; the KV
-    rows live in the pool and the block tables are host cursors."""
-    return {"pos": torch.zeros((n_slots,), dtype=torch.int32, device=device)}
+    rows live in the pool and the block tables are host cursors. On the
+    card unless ``device`` says otherwise; without CUDA that raises."""
+    return {"pos": torch.zeros((n_slots,), dtype=torch.int32,
+                               device=resolve_device(device))}
 
 
 def _paged_kv_read(pool_l: dict, tables) -> tuple:

@@ -8,8 +8,12 @@ CPU. Anything else raises: there is no fallback on the card.
 
 The kernel reads q, k and v in their ``[B, L, H, D]`` layout through
 strides, takes f32 and bf16, ``causal`` on or off, any L (the ragged edge
-is masked in the kernel) and D <= 128. Its design and its bound on the
-card are noted at the top of the CUDA source.
+is masked in the kernel) and D <= 128. bf16 runs on the tensor cores and
+stages its tiles with 16-byte copies where every base pointer and stride
+allows them; a view that does not (an odd offset, a stride or D that is
+not a multiple of 8) takes a scalar-load instantiation of the same kernel
+and gets the same result. f32 runs on the CUDA cores. The design and the
+bound on the card are noted at the top of the CUDA source.
 
 ``launches`` counts the kernel's launches (and only those), so a run can
 show that its main path went through the kernel.

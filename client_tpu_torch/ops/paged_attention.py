@@ -11,8 +11,12 @@ Each slot's single query row attends the K/V rows its block table names,
 read straight out of one layer's pool slabs (``[N, bl, Hkv, Dh]``, which
 may be strided views of the layer-major pool), with an online softmax in
 f32 over the slot's live blocks. The kernel takes f32 and bf16, grouped
-queries (``H`` a multiple of ``Hkv``) and ``Dh <= 128``. Its design and
-its bound on the card are noted at the top of the CUDA source.
+queries (``H`` a multiple of ``Hkv``) and ``Dh <= 128``. One launch splits
+each slot's table over a thread-block cluster and merges the partial
+softmax states in distributed shared memory. Pools whose base pointers,
+strides or ``Dh`` do not allow 16-byte copies take a scalar-load
+instantiation of the same kernel. Its design and its bound on the card are
+noted at the top of the CUDA source.
 
 ``launches`` counts the kernel's launches (and only those), so a run can
 show that its main path went through the kernel.

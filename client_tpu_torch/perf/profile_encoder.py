@@ -33,7 +33,7 @@ _GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 
 def kernel_group(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in low:
+    if "flash_fwd" in low:
         return "flash_attention"
     if any(mark in low for mark in _GEMM_MARKS):
         return "matmul"

@@ -10,9 +10,12 @@ against the JAX package. On a machine with a card:
 
 The shapes cover what ``chip_smoke.py`` does not: for flash attention one
 query row, head dims other than 64 (the kernel's 128-wide variant above
-64), ragged L across several query tiles, and q/k/v views in another
-layout; for paged decode attention head dims 64 and 128, blocks of 8 and
-16 rows, grouped queries, pool slabs read through other strides, and a
+64), L at and around the 64-key tiles and 128-row CTAs up to 2048, q/k/v
+views in another layout and of the QKV slab, and views that 16-byte
+copies cannot take; for paged decode attention head dims 64 and 128,
+blocks of 8 and 16 rows, table widths that split over clusters of 1 to 8
+CTAs, positions on every split boundary, empty shares, an out-of-pool
+block id, grouped queries, pool slabs read through other strides, and a
 small generation engine whose every decode step goes through the kernel.
 """
 
@@ -49,7 +52,11 @@ def _randn(shape, dtype, seed):
 
 @pytest.mark.parametrize("shape", [(2, 1, 3, 64), (2, 65, 2, 16),
                                    (1, 200, 3, 80), (1, 130, 2, 128),
-                                   (3, 64, 4, 8)])
+                                   (3, 64, 4, 8)] + [
+    # L around the 64-key tiles and 128-row CTAs, and a long sequence
+    # through the double-buffered key loop
+    (2, length, 2, head_dim) for length in (1, 63, 64, 65, 127, 129, 2048)
+    for head_dim in (64, 128)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_version(card, dtype, causal, shape):
@@ -71,6 +78,36 @@ def test_flash_kernel_reads_other_layouts_through_strides(card):
     assert not q.is_contiguous()
     out = fa.flash_attention(q, k, v)
     ref = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=ATOL[torch.bfloat16])
+
+
+def test_flash_kernel_reads_the_qkv_slab_at_the_main_path_shape(card):
+    """q, k, v as views of one [B, L, 3, H, D] tensor (row stride 3 H D),
+    at the encoder's call: B 256, L 128, 12 heads of 64, bf16."""
+    qkv = _randn((256, 128, 3, 12, 64), torch.bfloat16, 7)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out = fa.flash_attention(q, k, v)
+    ref = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=ATOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("view", ["offset", "odd_head_dim"])
+def test_flash_kernel_takes_views_16_byte_copies_cannot(card, view, causal):
+    """The wrapper's documented behaviour for a view that is not 16-byte
+    aligned (a base one element off, or D not a multiple of 8): the
+    scalar-load instantiation of the same kernel, the same result."""
+    b, l, h, d = 2, 100, 3, 64 if view == "offset" else 36
+    flat = _randn((3 * b * l * h * d + 1,), torch.bfloat16, 5)
+    start = 1 if view == "offset" else 0
+    q, k, v = (flat[start + i * b * l * h * d:
+                    start + (i + 1) * b * l * h * d].view(b, l, h, d)
+               for i in range(3))
+    assert view != "offset" or q.data_ptr() % 16
+    out = fa.flash_attention(q, k, v, causal=causal)
+    ref = fa.flash_attention_reference(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=ATOL[torch.bfloat16])
 
@@ -180,7 +217,13 @@ def _paged_case(s, h, hkv, dh, bl, n, width, dtype, seed, layout="plain"):
     # S, H, Hkv, Dh, block_len, N, table width
     (5, 4, 4, 64, 16, 64, 6), (5, 8, 2, 128, 16, 64, 6),
     (7, 6, 3, 64, 8, 96, 10), (3, 32, 8, 128, 8, 40, 9),
-    (4, 2, 1, 40, 16, 20, 3)])
+    (4, 2, 1, 40, 16, 20, 3),
+    # r = 4 query rows per KV head at Dh 128, through a cluster of 4
+    (5, 16, 4, 128, 16, 61, 12)] + [
+    # table widths whose cluster shares are single, uneven (7 over 3
+    # CTAs) and long (64 over 8)
+    (6, 12, 12, 64, 16, 6 * width + 1, width)
+    for width in (1, 2, 3, 7, 12, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_kernel_matches_plain_version(card, dtype, shape, layout):
     args = _paged_case(*shape, dtype=dtype, seed=sum(shape), layout=layout)
@@ -204,6 +247,74 @@ def test_paged_kernel_inactive_slots_read_scratch(card):
     want = vp[0, 0].repeat_interleave(2, dim=0)          # [H, Dh]
     torch.testing.assert_close(out[1], want, rtol=0, atol=1e-6)
     torch.testing.assert_close(out[2], want, rtol=0, atol=1e-6)
+
+
+def _k2_check(args, dtype):
+    out = pa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = pa.paged_decode_attention_reference(*args)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=PAGED_ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_positions_on_every_split_boundary(card, dtype):
+    """Width 12 (a cluster of 4): a slot at each block's last and first
+    row, so every share boundary of every live count is crossed."""
+    width, bl = 12, 16
+    pos = [0] + [p for b in range(1, width + 1) for p in (b * bl - 1, b * bl)]
+    q, kp, vp, tables, _ = _paged_case(len(pos), 12, 12, 64, bl,
+                                       len(pos) * width + 1, width, dtype, 3)
+    _k2_check((q, kp, vp, tables,
+               torch.tensor(pos, dtype=torch.int32, device="cuda")), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_fewer_live_blocks_than_ctas(card, dtype):
+    """Width 12 (a cluster of 4) with 1 to 3 live blocks: some CTAs of
+    the cluster have no share and must add exactly nothing."""
+    q, kp, vp, tables, _ = _paged_case(6, 8, 4, 64, 16, 6 * 12 + 1, 12,
+                                       dtype, 4)
+    pos = torch.tensor([0, 5, 15, 16, 31, 47], dtype=torch.int32,
+                       device="cuda")
+    _k2_check((q, kp, vp, tables, pos), dtype)
+
+
+def test_paged_kernel_out_of_pool_block_gives_nan_in_its_slot_only(card):
+    """A live table entry outside [0, N) makes that slot's output NaN, as
+    the kernel reads nothing out of bounds; the other slots are unharmed,
+    whichever CTA of their clusters holds the entry."""
+    q, kp, vp, tables, pos = _paged_case(4, 4, 4, 64, 16, 4 * 12 + 1, 12,
+                                         torch.float32, 6)
+    n = kp.shape[0]
+    pos[:] = 12 * 16 - 1
+    tables[1, 10] = n            # in the last CTA's share
+    tables[2, 0] = -1            # in the first CTA's share
+    out = pa.paged_decode_attention(q, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1]).all() and torch.isnan(out[2]).all()
+    good = [0, 3]
+    ref = pa.paged_decode_attention_reference(
+        q[good], kp, vp, tables[good], pos[good])
+    torch.testing.assert_close(out[good], ref, rtol=0,
+                               atol=PAGED_ATOL[torch.float32])
+
+
+@pytest.mark.parametrize("view", ["offset", "odd_head_dim"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_takes_pools_16_byte_copies_cannot(card, dtype, view):
+    """Pool slabs one element off a 16-byte boundary, or a head dim that
+    is not a whole number of 16-byte chunks: the scalar-load
+    instantiation of the same kernel, the same result."""
+    dh = 64 if view == "offset" else 36
+    q, kp, vp, tables, pos = _paged_case(4, 8, 2, dh, 16, 4 * 12 + 1, 12,
+                                         dtype, 11)
+    if view == "offset":
+        flat = torch.empty(kp.numel() + 1, dtype=dtype, device="cuda")
+        kp = flat[1:].view(kp.shape).copy_(kp)
+        assert kp.data_ptr() % 16
+    _k2_check((q, kp, vp, tables, pos), dtype)
 
 
 def test_paged_kernel_launch_counter(card):

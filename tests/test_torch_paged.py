@@ -9,6 +9,8 @@ CPU); the CUDA kernel itself is held against that plain version on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,6 +64,77 @@ def test_k2_plain_version_matches_pallas_kernel(case):
     got = pa.paged_decode_attention(*(torch.from_numpy(a) for a in arrays))
     assert got.shape == want.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=K2_ATOL)
+
+
+def _split_merge(q, kp, vp, tables, pos, n_ctas):
+    """K2's split of each slot's table over a cluster of ``n_ctas`` CTAs, in
+    plain PyTorch: CTA c takes the contiguous share
+    [c * per, (c + 1) * per) of the slot's live blocks (per = ceil(live /
+    n_ctas)), scores it in one pass (logits scaled and masked to -1e30
+    past the position, its max starting at -1e30, f32 probabilities) and
+    keeps (m, l, acc); the merge weights each CTA's state by exp(m_c -
+    max m), so a CTA with no live block (m = -1e30, l = 0, acc = 0) adds
+    exactly zero, and divides once."""
+    s, h, dh = q.shape
+    bl, hkv = kp.shape[1], kp.shape[2]
+    r = h // hkv
+    width = tables.shape[1]
+    out = torch.empty((s, hkv, r, dh))
+    for slot in range(s):
+        p = int(pos[slot])
+        live = 0 if p < 0 else min(p // bl + 1, width)
+        per = -(-live // n_ctas)
+        qg = q[slot].float().reshape(hkv, r, dh)
+        states = []
+        for c in range(n_ctas):
+            b0 = min(c * per, live)
+            b1 = min(b0 + per, live)
+            m = torch.full((hkv, r), pa.MASK_VALUE)
+            l = torch.zeros((hkv, r))
+            acc = torch.zeros((hkv, r, dh))
+            if b1 > b0:
+                ids = tables[slot, b0:b1].long()
+                k = kp[ids].float().reshape(-1, hkv, dh)
+                v = vp[ids].float().reshape(-1, hkv, dh)
+                logits = torch.einsum("grd,tgd->grt", qg, k) * dh ** -0.5
+                t_pos = b0 * bl + torch.arange(k.shape[0])
+                logits = torch.where(t_pos <= p, logits,
+                                     torch.full_like(logits, pa.MASK_VALUE))
+                m = torch.maximum(m, logits.amax(dim=-1))
+                prob = torch.exp(logits - m[..., None])
+                l = prob.sum(dim=-1)
+                acc = torch.einsum("grt,tgd->grd", prob, v)
+            states.append((m, l, acc))
+        top = torch.stack([m for m, _, _ in states]).amax(dim=0)
+        num = torch.zeros((hkv, r, dh))
+        den = torch.zeros((hkv, r))
+        for m, l, acc in states:
+            w = torch.exp(m - top)
+            num = num + w[..., None] * acc
+            den = den + w * l
+        out[slot] = num / den[..., None]
+    return out.reshape(s, h, dh)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_k2(case):
+    return np.asarray(jax_k2(*(jnp.asarray(a) for a in _k2_inputs(case)),
+                             interpret=True))
+
+
+@pytest.mark.parametrize("n_ctas", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_cluster_split_merge_matches_pallas_kernel(case, n_ctas):
+    """The algebra of the card kernel's split over a thread-block cluster
+    (shares empty, uneven and whole) equals the Pallas kernel's sequential
+    sweep and the plain version, in f32."""
+    arrays = [torch.from_numpy(a) for a in _k2_inputs(case)]
+    got = _split_merge(*arrays, n_ctas)
+    np.testing.assert_allclose(got.numpy(), _pallas_k2(case), rtol=0,
+                               atol=K2_ATOL)
+    want = pa.paged_decode_attention_reference(*arrays)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=K2_ATOL)
 
 
 def test_k2_reads_strided_views_of_a_layer_major_pool():
@@ -225,7 +298,20 @@ def test_init_paged_pool_matches_jax_layout(variant):
         assert tuple(got[name].shape) == want[name].shape
         assert got[name].dtype == torch.float32
         assert not got[name].any()
-    assert tuple(tt.init_paged_state(5)["pos"].shape) == (5,)
+    assert tuple(tt.init_paged_state(5, "cpu")["pos"].shape) == (5,)
+
+
+def test_init_paged_state_takes_the_card_unless_asked():
+    """Without a device the state goes to the card, so without CUDA the
+    call raises; ``device="cpu"`` puts it on the CPU."""
+    state = tt.init_paged_state(3, device="cpu")
+    assert state["pos"].device.type == "cpu"
+    assert state["pos"].dtype == torch.int32 and not state["pos"].any()
+    if torch.cuda.is_available():
+        assert tt.init_paged_state(3)["pos"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tt.init_paged_state(3)
 
 
 @pytest.mark.parametrize("args", [(12,), (16,), (1,), (5, 2), (64, 8, 8),
