@@ -33,7 +33,23 @@ each printing one JSON line:
              the plain attention on the card; the flash-attention launch
              counter, zeroed just before the requests, must show 12
              launches per batch.
-6. generate  the reference bench.py's generation point at full width
+6. serve_shm bench.py's headline path: the same encoder behind
+             TorchInferenceServer, driven in process (InProcessBackend)
+             over the CUDA shared-memory data plane. First 64 requests
+             sent together, each with its own input region (distinct
+             tokens) and output region: every output region's embedding is
+             held against the plain attention's forward with EMBED_ATOL,
+             the pre-split calls must equal the batches, the flash-attention
+             launches (zeroed just before) 12 per batch, and every batch
+             must have read the registered input tensors themselves (zero
+             copies, by data_ptr). Then the perf analyzer's stabilized point
+             at bench.py's settings (concurrency 2560, 16 worker threads,
+             output region 768 x 4 bytes; window, stability, trials and
+             attempts cut to SHM_POINT) with infer/s, p50/p99, MFU against
+             the card's bf16 peak, batch sizes and mean compute ns per
+             batch, and the latency-bounded point (bucket 128, concurrency
+             768) beside bench.py's 250 ms p50 target. No request may fail.
+7. generate  the reference bench.py's generation point at full width
              (vocab 30528, d 768, 12 layers, 12 heads of 64, d_ff 3072,
              max_seq 192, bf16, random weights from a seed) served by
              make_continuous_generator (paged KV, blocks of 16, 16 slots,
@@ -102,12 +118,15 @@ GEN_POOL = GEN_SLOTS * GEN_MAX_SEQ // GEN_BLOCK + 1
 # this cannot flip between them
 GREEDY_GAP = 0.1
 
-# published peaks (NVIDIA data sheets, SXM parts): memory bytes/s, dense
-# bf16 tensor-core FLOP/s
-CARD_PEAKS = (
-    ("H200", 4.8e12, 989e12),
-    ("H100", 3.35e12, 989e12),
-)
+# the serve_shm phase: requests of the correctness run; bench.py's
+# headline and latency-bounded points with the window (6000 ms), stability
+# (0.07), trials (10) and attempts (5) cut to keep the phase near two
+# minutes
+SHM_REQUESTS = 64
+SHM_POINT = dict(window_ms=2000, stability=0.10, max_trials=6, attempts=2,
+                 max_threads=16)
+HEADLINE_CONCURRENCY = 2560
+LB_BUCKET, LB_CONCURRENCY, LB_TARGET_P50_MS = 128, 768, 250.0
 
 
 def emit(obj) -> None:
@@ -120,10 +139,12 @@ def fail(msg: str) -> None:
 
 
 def card_peaks(name: str) -> tuple:
-    for key, bw, bf16 in CARD_PEAKS:
-        if key in name:
-            return bw, bf16
-    fail(f"no published peaks for card '{name}'")
+    from client_tpu_torch.perf.bench_harness import card_peaks as lookup
+
+    peaks = lookup(name)
+    if peaks is None:
+        fail(f"no published peaks for card '{name}'")
+    return peaks
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -537,6 +558,210 @@ def phase_serve() -> dict:
     return result
 
 
+def _stats(core, name: str) -> dict:
+    return core.statistics(name)["model_stats"][0]
+
+
+def _batch_profile(before: dict, after: dict) -> dict:
+    """What the batcher did between two statistics snapshots: executions,
+    inferences, failures, the batch-size distribution and the mean
+    compute_input / compute_infer / compute_output ns per batch."""
+    execs = after["execution_count"] - before["execution_count"]
+
+    def sizes(stats):
+        return {b["batch_size"]: b["compute_infer"]["count"]
+                for b in stats["batch_stats"]}
+
+    was = sizes(before)
+    dist = {bs: n - was.get(bs, 0) for bs, n in sizes(after).items()
+            if n - was.get(bs, 0)}
+    per_batch = {}
+    for key in ("compute_input", "compute_infer", "compute_output"):
+        ns = sum(b[key]["ns"] for b in after["batch_stats"]) \
+            - sum(b[key]["ns"] for b in before["batch_stats"])
+        per_batch[f"mean_{key}_ns_per_batch"] = ns / execs if execs else None
+    fails = (after["inference_stats"]["fail"]["count"]
+             - before["inference_stats"]["fail"]["count"])
+    return {"executions": execs,
+            "inferences": after["inference_count"]
+            - before["inference_count"],
+            "failed_requests": fails,
+            "batch_size_distribution": dict(sorted(dist.items())),
+            **per_batch}
+
+
+def phase_serve_shm() -> dict:
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.perf.bench_harness import (
+        D_MODEL,
+        VOCAB,
+        bert_flops_per_infer,
+        build_bert_encoder,
+        stabilized_point,
+    )
+    from client_tpu_torch.perf.client_backend import (
+        InProcessBackend,
+        PerfInput,
+        PerfRequestedOutput,
+    )
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    seq, bucket, n = 128, 256, SHM_REQUESTS
+    cache: dict = {}
+    model = build_bert_encoder(seq, bucket, attn_impl="flash",
+                               pipeline_depth=8, params_cache=cache, seed=0)
+    ref_model = build_bert_encoder(seq, bucket, attn_impl="ref",
+                                   params_cache=cache)
+    core = TorchInferenceServer()
+    t0 = time.time()
+    core.register_model(model, warmup=True)
+    register_s = time.time() - t0
+    backend = InProcessBackend(core)
+    toks = np.random.default_rng(1).integers(
+        0, VOCAB, size=(n, 1, seq)).astype(np.int32)
+    out_bytes = D_MODEL * 4
+    regions = []
+    try:
+        for i in range(n):
+            h_in = cudashm.create_shared_memory_region(
+                f"smoke_in_{i}", toks[i].nbytes)
+            regions.append(h_in)
+            cudashm.set_shared_memory_region(h_in, [toks[i]])
+            h_out = cudashm.create_shared_memory_region(
+                f"smoke_out_{i}", out_bytes)
+            regions.append(h_out)
+            for h in (h_in, h_out):
+                backend.register_cuda_shared_memory(
+                    h.name, cudashm.get_raw_handle(h), h.device_id,
+                    h.byte_size)
+        registered = {h.device_tensors[0][0].data_ptr()
+                      for h in regions[0::2]}
+
+        # every input tensor a batch reads, by data_ptr
+        read_ptrs: list = []
+        split = model.execute_parts_fused_split
+
+        def recording(parts, b):
+            read_ptrs.extend(p["input_ids"].data_ptr() for p in parts)
+            return split(parts, b)
+
+        model.execute_parts_fused_split = recording
+        got: list = [None] * n
+        errors: list = []
+        done = threading.Event()
+        lock = threading.Lock()
+
+        def callback(i):
+            def cb(result, error):
+                if error is not None:
+                    errors.append(f"request {i}: {error}")
+                else:
+                    # read right after the response: the row, not stale
+                    # bytes
+                    got[i] = cudashm.get_contents_as_numpy(
+                        regions[2 * i + 1], np.float32, (1, D_MODEL)).copy()
+                with lock:
+                    if sum(x is not None for x in got) + len(errors) == n:
+                        done.set()
+            return cb
+
+        requests = []
+        for i in range(n):
+            x = PerfInput("input_ids", [1, seq], "INT32")
+            x.set_shared_memory(f"smoke_in_{i}", toks[i].nbytes)
+            o = PerfRequestedOutput("embedding")
+            o.set_shared_memory(f"smoke_out_{i}", out_bytes)
+            requests.append(([x], [o]))
+        before = _stats(core, "bert_base")
+        # the main path: counters at 0 just before, read just after
+        fa.launches = 0
+        model.fused_split_calls = 0
+        t0 = time.time()
+        for i, (ins, outs) in enumerate(requests):
+            backend.async_infer(callback(i), "bert_base", ins, outs)
+        if not done.wait(timeout=300):
+            fail("serve_shm: requests did not complete")
+        wall_s = time.time() - t0
+        launches = fa.launches
+        split_calls = model.fused_split_calls
+        after = _stats(core, "bert_base")
+        del model.execute_parts_fused_split
+        if errors:
+            fail(f"serve_shm: {errors[:3]}")
+        correctness = _batch_profile(before, after)
+        execs = correctness["executions"]
+        if split_calls != execs:
+            fail(f"serve_shm: {split_calls} pre-split calls for {execs} "
+                 "batches")
+        if launches != LAYERS * execs:
+            fail(f"serve_shm: {launches} flash_attention launches for "
+                 f"{execs} batches, expected {LAYERS} per batch")
+        input_copies = len(set(read_ptrs) - registered)
+        if input_copies or not registered <= set(read_ptrs):
+            fail(f"serve_shm: batches read {input_copies} input tensors "
+                 "that are not the registered ones")
+        emb = np.concatenate(got)
+        if emb.shape != (n, D_MODEL) or not np.isfinite(emb).all():
+            fail(f"serve_shm: bad embeddings {emb.shape}")
+        padded = np.zeros((bucket, seq), np.int32)
+        padded[:n] = toks[:, 0]
+        want = ref_model.execute({"input_ids": padded})["embedding"][:n]
+        errs = np.abs(emb - want).max(axis=1)
+        within = int((errs <= EMBED_ATOL).sum())
+        if within != n:
+            fail(f"serve_shm: {n - within} of {n} embeddings differ from "
+                 f"the plain attention's by more than {EMBED_ATOL} "
+                 f"(worst {errs.max()})")
+
+        flops = bert_flops_per_infer(seq)
+        before = _stats(core, "bert_base")
+        fa.launches = 0
+        headline = stabilized_point(
+            core, "bert_base", HEADLINE_CONCURRENCY, flops_per_infer=flops,
+            output_shm_size=out_bytes, **SHM_POINT)
+        headline_launches = fa.launches
+        headline_batches = _batch_profile(before, _stats(core, "bert_base"))
+        if headline_launches != LAYERS * headline_batches["executions"]:
+            fail(f"serve_shm: headline point launched flash_attention "
+                 f"{headline_launches} times for "
+                 f"{headline_batches['executions']} batches")
+
+        core.register_model(build_bert_encoder(
+            seq, LB_BUCKET, attn_impl="flash", name="bert_base_lb",
+            pipeline_depth=8, params_cache=cache), warmup=True)
+        before = _stats(core, "bert_base_lb")
+        lb = stabilized_point(
+            core, "bert_base_lb", LB_CONCURRENCY, flops_per_infer=flops,
+            output_shm_size=out_bytes, **SHM_POINT)
+        lb_batches = _batch_profile(before, _stats(core, "bert_base_lb"))
+    finally:
+        core.stop()
+        for h in regions:
+            cudashm.destroy_shared_memory_region(h)
+    lb.update(max_batch=LB_BUCKET, target_p50_ms=LB_TARGET_P50_MS,
+              meets_target=lb["p50_latency_ms"] <= LB_TARGET_P50_MS)
+    for name, point, batches in (("headline", headline, headline_batches),
+                                 ("latency_bounded", lb, lb_batches)):
+        if batches["failed_requests"] or point["client_rejected_count"]:
+            fail(f"serve_shm: the {name} point failed "
+                 f"{batches['failed_requests']} requests and had "
+                 f"{point['client_rejected_count']} rejected")
+    result = {
+        "phase": "serve_shm", "requests": n, "register_with_warmup_s":
+            register_s, "wall_s": wall_s,
+        "embeddings_within_atol": within, "embed_atol": EMBED_ATOL,
+        "embedding_max_abs_err_vs_ref": float(errs.max()),
+        "fused_split_calls": split_calls,
+        "flash_attention_launches": launches, "input_copies": input_copies,
+        "correctness_batches": correctness,
+        "headline": {**headline, "flash_attention_launches":
+                     headline_launches, **headline_batches},
+        "latency_bounded": {**lb, **lb_batches}}
+    emit(result)
+    return result
+
+
 def _teacher_forced(cfg, params, seqs: list, plens: list) -> dict:
     """Feed every greedy stream (prompt + served tokens) through the plain
     path on the card, all streams as the slots of one batch:
@@ -794,11 +1019,13 @@ def main() -> int:
     timing = phase_kernel(peaks)
     paged_timing = phase_paged_kernel(peaks)
     serve = phase_serve()
+    serve_shm = phase_serve_shm()
     generate = phase_generate()
 
-    def row(name, source, replaces, launches, t):
+    def row(name, source, replaces, launches, t, **paths):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
+                "launches_by_path": paths,
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "device_ms": t["device_ms"],
                 "host_us_per_call": t["host_us_per_call"],
@@ -809,11 +1036,16 @@ def main() -> int:
         row("flash_attention",
             "client_tpu_torch/ops/csrc/flash_attention.cu",
             "client_tpu/ops/flash_attention.py:36",
-            serve["flash_attention_launches"], timing),
+            serve_shm["flash_attention_launches"], timing,
+            serve=serve["flash_attention_launches"],
+            serve_shm=serve_shm["flash_attention_launches"],
+            serve_shm_headline=serve_shm["headline"][
+                "flash_attention_launches"]),
         row("paged_decode_attention",
             "client_tpu_torch/ops/csrc/paged_attention.cu",
             "client_tpu/ops/paged_attention.py:52",
-            generate["paged_decode_attention_launches"], paged_timing),
+            generate["paged_decode_attention_launches"], paged_timing,
+            generate=generate["paged_decode_attention_launches"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,18 @@
 """The BERT-base-class embedding encoder served behind the dynamic batcher,
-a pipelined step probe, and the ragged generation workload: the port's
-counterpart of ``client_tpu/perf/bench_harness.py``.
+a pipelined step probe, the ragged generation workload, and one
+stabilized profiling point measured by the port's own perf analyzer:
+the port's counterpart of ``client_tpu/perf/bench_harness.py``.
 
 ``build_bert_encoder`` builds the same model as the reference's (the
 same config, one static batch bucket, mean-pooled f32 embedding) as a
 TorchModel on the card. Its forward, ``encoder_apply``, is factored out
 so the tests can run it at small widths through ``make_encoder_model``.
+
+``run_point`` / ``stabilized_point`` profile a served model over the
+in-process backend and the CUDA shared-memory data plane with the
+window-of-3 stability gate. MFU divides by the card's own dense bf16
+peak, looked up by the card's name; with no known card (or on the CPU)
+it reports none.
 """
 
 from __future__ import annotations
@@ -30,6 +37,32 @@ from client_tpu_torch.server.model import (
 
 # BERT-base-class dims shared by every serving benchmark of the reference
 D_MODEL, N_LAYERS, N_HEADS, HEAD_DIM, D_FF, VOCAB = 768, 12, 12, 64, 3072, 30528
+
+# published peaks (NVIDIA data sheets, SXM parts): memory bytes/s, dense
+# bf16 tensor-core FLOP/s, by a substring of the card's name
+CARD_PEAKS = (
+    ("H200", 4.8e12, 989e12),
+    ("H100", 3.35e12, 989e12),
+)
+
+
+def card_peaks(name: str):
+    """(memory bytes/s, dense bf16 FLOP/s) of a card by its name, or None
+    for a card without published peaks here."""
+    for key, bw, bf16 in CARD_PEAKS:
+        if key in name:
+            return bw, bf16
+    return None
+
+
+def device_bf16_peak(device) -> float | None:
+    """Dense bf16 peak of the card ``device`` names; None on the CPU or an
+    unknown card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    peaks = card_peaks(torch.cuda.get_device_name(dev))
+    return peaks[1] if peaks else None
 
 
 def bert_flops_per_infer(seq: int) -> int:
@@ -183,3 +216,111 @@ def run_engine_jobs(engine, jobs, collect: bool = False,
         raise RuntimeError(
             f"streams short of budget (job, got, want): {bad[:5]}")
     return dt, ttft
+
+
+def run_point(server, model_name: str, concurrency: int, *,
+              flops_per_infer: int, window_ms: int = 6000,
+              stability: float = 0.07, max_trials: int = 10,
+              output_shm_size: int = D_MODEL * 4,
+              max_threads: int = 16, device=None) -> dict:
+    """Profile ONE stabilized operating point of ``model_name`` over the
+    in-process backend + the CUDA shared-memory data plane (regions on
+    ``device``, the card unless the CPU is asked for). Returns infer_per_s,
+    mfu (None without a known card), latency percentiles, the stabilized
+    flag and the client's rejected-request count."""
+    from client_tpu_torch.perf.client_backend import (
+        BackendKind,
+        ClientBackendFactory,
+    )
+    from client_tpu_torch.perf.concurrency_manager import ConcurrencyManager
+    from client_tpu_torch.perf.data_loader import DataLoader
+    from client_tpu_torch.perf.inference_profiler import InferenceProfiler
+    from client_tpu_torch.perf.model_parser import ModelParser
+
+    dev = resolve_device(device)
+    factory = ClientBackendFactory(BackendKind.INPROCESS, server=server)
+    backend = factory.create()
+    parser = ModelParser()
+    parser.init(backend, model_name, "", 1)
+    loader = DataLoader(1)
+    loader.generate_data(parser.inputs)
+    manager = ConcurrencyManager(
+        factory=factory, parser=parser, data_loader=loader,
+        batch_size=1, async_mode=True, streaming=False,
+        shared_memory="cuda", output_shm_size=output_shm_size,
+        max_threads=max_threads, shm_device=dev)
+    profiler = InferenceProfiler(
+        manager, parser, backend,
+        measurement_window_ms=window_ms,
+        stability_threshold=stability, max_trials=max_trials)
+    try:
+        status = profiler.profile_concurrency_range(
+            concurrency, concurrency, 1, "none")[-1]
+    finally:
+        manager.cleanup()
+    ips = status.client_infer_per_sec
+    peak = device_bf16_peak(dev)
+    return {
+        "infer_per_s": round(ips, 2),
+        "mfu": round(ips * flops_per_infer / peak, 4) if peak else None,
+        "p50_latency_ms": round(
+            status.latency.percentiles_us.get(50, 0.0) / 1e3, 2),
+        "p99_latency_ms": round(
+            status.latency.percentiles_us.get(99, 0.0) / 1e3, 2),
+        "stabilized": status.stabilized,
+        "concurrency": concurrency,
+        "client_rejected_count": status.client_rejected_count,
+    }
+
+
+def stabilized_point(server, model_name: str, concurrency: int, *,
+                     flops_per_infer: int, window_ms: int = 6000,
+                     stability: float = 0.07, max_trials: int = 10,
+                     output_shm_size: int = D_MODEL * 4,
+                     max_threads: int = 16, attempts: int = 5,
+                     point_fn=None, device=None) -> dict:
+    """A stabilized operating point, escalating when one profile run fails
+    its window-of-3 gate:
+
+    1. re-run, re-anchoring the measurement (a full fresh run, not more
+       trials on the drifted anchor);
+    2. from the 3rd attempt, relax the stability gate to 10% — the
+       reference CLI's own default;
+    3. from the 4th, also back concurrency off by 25% per attempt — at the
+       saturation corner the closed loop itself oscillates, and a
+       slightly-backed-off point is an honest stabilized measurement where
+       an unstabilized corner reading is not.
+
+    Every attempt is recorded in the returned point's
+    ``stabilization.history``. Returns the first stabilized point; if none
+    stabilizes, the highest-throughput attempt with ``stabilized: false``
+    intact and ``exhausted: true``, so the failure is explicit.
+    """
+    if point_fn is None:
+        def point_fn(conc, stab):
+            return run_point(
+                server, model_name, conc, flops_per_infer=flops_per_infer,
+                window_ms=window_ms, stability=stab, max_trials=max_trials,
+                output_shm_size=output_shm_size, max_threads=max_threads,
+                device=device)
+    history = []
+    best = None
+    conc = concurrency
+    for attempt in range(1, attempts + 1):
+        stab = stability if attempt <= 2 else max(stability, 0.10)
+        if attempt >= 4:
+            conc = max(1, int(conc * 0.75))
+        point = point_fn(conc, stab)
+        history.append({"attempt": attempt, "concurrency": conc,
+                        "stability_gate": stab,
+                        "infer_per_s": point["infer_per_s"],
+                        "stabilized": point["stabilized"]})
+        if best is None or point["infer_per_s"] > best["infer_per_s"]:
+            best = point
+        if point["stabilized"]:
+            point["stabilization"] = {"attempts": attempt,
+                                      "history": history}
+            return point
+    best["stabilization"] = {"attempts": attempts, "history": history,
+                             "exhausted": True}
+    return best

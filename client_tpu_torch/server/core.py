@@ -4,9 +4,14 @@ The port's counterpart of ``client_tpu/server/core.py``: the HTTP front
 end (and in-process callers) call this object; it owns the model
 registry, the schedulers and the statistics.
 
-Waiting for later slices: the shared-memory registries (a request that
-names a region gets a clear 400), the response cache, the tracer,
-ensembles, repository load/unload and the debug surface.
+Tensors may ride the request, or sit in a registered shared-memory
+region (``system_shm``: POSIX regions; ``cuda_shm``: tensors on a
+device, read zero-copy by an in-process producer's server). Outputs a
+request directs into a region are written there instead of riding the
+response.
+
+Waiting for later slices: the response cache, the tracer, ensembles,
+repository load/unload and the debug surface.
 """
 
 from __future__ import annotations
@@ -16,12 +21,24 @@ import time
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 import client_tpu_torch
-from client_tpu_torch.protocol.dtypes import DataType
+from client_tpu_torch.device import canonical_device, tensor_bytes
+from client_tpu_torch.protocol.binary import (
+    deserialize_bytes_tensor,
+    tensor_to_bytes,
+)
+from client_tpu_torch.protocol.dtypes import (
+    DataType,
+    dtype_byte_size,
+    element_count,
+    wire_to_np_dtype,
+)
 from client_tpu_torch.server.config import ModelConfig
 from client_tpu_torch.server.model import ServedModel
 from client_tpu_torch.server.scheduler import Pending, make_scheduler
+from client_tpu_torch.server.shm import CudaShmRegistry, SystemShmRegistry
 from client_tpu_torch.server.stats import ModelStats
 from client_tpu_torch.server.types import (
     InferRequest,
@@ -30,15 +47,16 @@ from client_tpu_torch.server.types import (
     ServerError,
     now_ns,
 )
+from client_tpu_torch.utils import cuda_shared_memory as cudashm
 
 SERVER_EXTENSIONS = [
     "classification",
     "model_configuration",
     "binary_tensor_data",
     "statistics",
+    "system_shared_memory",
+    "cuda_shared_memory",
 ]
-
-SHM_NOT_SUPPORTED = "shared-memory tensors are not supported by this server yet"
 
 
 class _ModelEntry:
@@ -48,6 +66,10 @@ class _ModelEntry:
         self.stats = ModelStats()
         self.scheduler = None
         self.state = "UNAVAILABLE"
+        # where the model's tensor inputs must already live (None: a host
+        # model, which takes CPU tensors only)
+        dev = getattr(model, "device", None)
+        self.device = canonical_device(dev) if dev is not None else None
 
 
 class TorchInferenceServer:
@@ -62,6 +84,8 @@ class TorchInferenceServer:
         self._ready_cache: dict[tuple, _ModelEntry] = {}
         self._start_time = time.time()
         self._live = True
+        self.system_shm = SystemShmRegistry()
+        self.cuda_shm = CudaShmRegistry()
 
     # ------------------------------------------------------------------
     # model lifecycle
@@ -178,15 +202,11 @@ class TorchInferenceServer:
         if entry.state != "READY":
             raise ServerError(
                 f"model '{request.model_name}' is not ready", 400)
-        inputs = self._resolve_inputs(entry.model.config, request)
+        inputs = self._resolve_inputs(entry, request)
         if entry.model.config.decoupled and response_callback is None:
             raise ServerError(
                 f"model '{request.model_name}' is decoupled; use the "
                 "streaming API", 400)
-        for o in request.outputs:
-            if o.shm_region is not None:
-                raise ServerError(f"output '{o.name}': {SHM_NOT_SUPPORTED}",
-                                  400)
 
         if response_callback is not None:
             def sink_cb(resp: InferResponse, final: bool) -> None:
@@ -219,10 +239,13 @@ class TorchInferenceServer:
 
     # -- helpers --
 
-    def _resolve_inputs(self, cfg: ModelConfig, request: InferRequest) -> dict:
+    def _resolve_inputs(self, entry: _ModelEntry,
+                        request: InferRequest) -> dict:
         """Wire tensors -> executable arrays (host numpy or device
         tensors), with the model config's names, datatypes and shapes
-        enforced."""
+        enforced. A tensor input must already live on the model's device:
+        it is never moved between devices (400)."""
+        cfg = entry.model.config
         specs, required = cfg.input_spec_maps()
         inputs: dict = {}
         for t in request.inputs:
@@ -235,22 +258,61 @@ class TorchInferenceServer:
                     f"input '{t.name}' datatype {t.datatype} does not match "
                     f"model config datatype {spec.datatype}", 400)
             if t.device_array is not None:
-                inputs[t.name] = t.device_array
+                v = t.device_array
             elif t.data is not None:
-                inputs[t.name] = t.data
+                v = t.data
             elif t.shm_region is not None:
-                raise ServerError(f"input '{t.name}': {SHM_NOT_SUPPORTED}",
-                                  400)
+                v = self._read_shm_input(t)
             else:
                 raise ServerError(
-                    f"input '{t.name}' has no data or device tensor", 400)
-            self._check_shape(cfg, spec, t, inputs[t.name])
+                    f"input '{t.name}' has no data, shared-memory region, "
+                    "or device tensor", 400)
+            if isinstance(v, torch.Tensor):
+                want = entry.device if entry.device is not None else _CPU
+                if v.device != want:
+                    raise ServerError(
+                        f"input '{t.name}' is a tensor on {v.device}; model "
+                        f"'{cfg.name}' runs on {want} and moves no input "
+                        "between devices", 400)
+            inputs[t.name] = v
+            self._check_shape(cfg, spec, t, v)
         missing = required - set(inputs)
         if missing:
             raise ServerError(
                 f"missing required input(s) {sorted(missing)} for model "
                 f"'{cfg.name}'", 400)
         return inputs
+
+    def _read_shm_input(self, t: InferTensor):
+        byte_size = getattr(t, "_shm_nbytes", None)
+        if byte_size is None:
+            if t.datatype == DataType.BYTES:
+                byte_size = t.shm_byte_size
+            else:
+                byte_size = dtype_byte_size(t.datatype) \
+                    * element_count(t.shape)
+                if t.shm_byte_size and t.shm_byte_size < byte_size:
+                    raise ServerError(
+                        f"input '{t.name}' needs {byte_size} bytes but the "
+                        f"shared-memory mapping is {t.shm_byte_size} bytes",
+                        400)
+            # reused request objects (the in-process perf path) skip the
+            # recomputation per request
+            t._shm_nbytes = byte_size
+        region = t.shm_region
+        cuda_att = self.cuda_shm.try_attachment(region)
+        if cuda_att is not None:
+            try:
+                return cuda_att.read_array(t.shm_offset, byte_size,
+                                           t.datatype, t.shape)
+            except cudashm.CudaSharedMemoryException as e:
+                raise ServerError(f"input '{t.name}': {e}", 500) from e
+        raw = self.system_shm.read(region, t.shm_offset, byte_size)
+        shape = tuple(int(d) for d in t.shape)
+        if t.datatype == DataType.BYTES:
+            return deserialize_bytes_tensor(bytes(raw)).reshape(shape)
+        arr = np.frombuffer(raw, dtype=wire_to_np_dtype(t.datatype))
+        return arr.reshape(shape)
 
     @staticmethod
     def _check_shape(cfg: ModelConfig, spec, t: InferTensor, arr) -> None:
@@ -270,11 +332,15 @@ class TorchInferenceServer:
                     f"input '{t.name}' shape {list(shape)} does not match "
                     f"model dims {list(dims)}", 400)
 
-    @staticmethod
-    def _postprocess(request: InferRequest,
+    def _postprocess(self, request: InferRequest,
                      resp: InferResponse) -> InferResponse:
-        """Requested-output filtering and classification."""
-        requested = {o.name: o for o in request.outputs}
+        """Requested-output filtering, classification, shm output writes."""
+        # cached on the request: frontends that reuse request objects (the
+        # in-process perf path) skip rebuilding the map per request
+        requested = getattr(request, "_requested_map", None)
+        if requested is None:
+            requested = {o.name: o for o in request.outputs}
+            request._requested_map = requested
         outputs = resp.outputs
         if requested:
             missing = set(requested) - {t.name for t in outputs}
@@ -285,13 +351,53 @@ class TorchInferenceServer:
                 return resp
             outputs = [t for t in outputs if t.name in requested]
         final = []
-        for t in outputs:
-            ro = requested.get(t.name)
-            if ro is not None and ro.classification_count > 0:
-                t = _classify(t, ro.classification_count)
-            final.append(t)
+        try:
+            for t in outputs:
+                ro = requested.get(t.name)
+                if ro is not None and ro.classification_count > 0:
+                    t = _classify(t, ro.classification_count)
+                if ro is not None and ro.shm_region is not None:
+                    t = self._write_shm_output(t, ro)
+                elif isinstance(t.data, torch.Tensor):
+                    t = InferTensor(name=t.name, datatype=t.datatype,
+                                    shape=t.shape, data=_host(t.data))
+                final.append(t)
+        except ServerError as e:
+            resp.error = str(e)
+            resp.error_status = e.status
+            return resp
         resp.outputs = final
         return resp
+
+    def _write_shm_output(self, t: InferTensor, ro) -> InferTensor:
+        """Store one output in the region ``ro`` names: a device tensor
+        into a CUDA region stays on the device (no host round trip);
+        anything else is written as bytes."""
+        data = t.data
+        att = self.cuda_shm.try_attachment(ro.shm_region)
+        if att is not None:
+            if isinstance(data, torch.Tensor):
+                nbytes = data.element_size() * data.numel()
+            elif t.datatype == DataType.BYTES:
+                nbytes = len(tensor_to_bytes(data, t.datatype))
+            else:
+                nbytes = np.dtype(data.dtype).itemsize * int(
+                    np.prod(data.shape))
+            _check_output_size(t.name, nbytes, ro.shm_byte_size)
+            try:
+                att.write_array(ro.shm_offset, data)
+            except cudashm.CudaSharedMemoryException as e:
+                raise ServerError(f"output '{t.name}': {e}", 400) from e
+        else:
+            raw = (tensor_bytes(data) if isinstance(data, torch.Tensor)
+                   else tensor_to_bytes(data, t.datatype))
+            nbytes = len(raw)
+            _check_output_size(t.name, nbytes, ro.shm_byte_size)
+            self.system_shm.write(ro.shm_region, ro.shm_offset, raw)
+        return InferTensor(name=t.name, datatype=t.datatype, shape=t.shape,
+                           data=None, shm_region=ro.shm_region,
+                           shm_offset=ro.shm_offset,
+                           shm_byte_size=ro.shm_byte_size or nbytes)
 
     # ------------------------------------------------------------------
 
@@ -303,11 +409,30 @@ class TorchInferenceServer:
             if e.scheduler:
                 e.scheduler.stop()
             e.model.unload()
+        self.system_shm.unregister_all()
+        self.cuda_shm.unregister_all()
+
+
+_CPU = torch.device("cpu")
+
+
+def _host(data) -> np.ndarray:
+    """A response tensor as a host array (device tensors are copied)."""
+    if isinstance(data, torch.Tensor):
+        return data.detach().cpu().numpy()
+    return np.asarray(data)
+
+
+def _check_output_size(name: str, nbytes: int, mapped: int) -> None:
+    if mapped and nbytes > mapped:
+        raise ServerError(
+            f"output '{name}' needs {nbytes} bytes but the shared-memory "
+            f"mapping is {mapped} bytes", 400)
 
 
 def _classify(t: InferTensor, k: int) -> InferTensor:
     """v2 classification extension: top-k '<score>:<index>' BYTES strings."""
-    arr = np.asarray(t.data)
+    arr = _host(t.data)
     k = min(k, arr.shape[-1])
     idx = np.argsort(-arr, axis=-1)[..., :k]
     scores = np.take_along_axis(arr, idx, axis=-1)

@@ -6,13 +6,17 @@ whose wire format (JSON + the binary tensor extension) is parsed and
 produced by ``client_tpu_torch.protocol.rest``.
 
 Routes: health live/ready, model ready, server metadata (``/v2``), model
-metadata, model config, statistics and infer. The shared-memory routes
-answer 400 (not supported by this server yet); the repository, trace,
-metrics and debug routes wait for later slices and answer 404.
+metadata, model config, statistics, infer, and the shared-memory
+extensions: ``/v2/systemsharedmemory`` and ``/v2/cudasharedmemory``
+(status, register, unregister). ``/v2/tpusharedmemory`` answers a clear
+400 naming ``/v2/cudasharedmemory``, as the reference answers the CUDA
+verbs. The repository, trace, metrics and debug routes wait for later
+slices and answer 404.
 """
 
 from __future__ import annotations
 
+import base64
 import gzip
 import json
 import math
@@ -30,7 +34,7 @@ from client_tpu_torch.protocol.rest import (
     tensor_from_json,
     tensor_json_and_blob,
 )
-from client_tpu_torch.server.core import SHM_NOT_SUPPORTED, TorchInferenceServer
+from client_tpu_torch.server.core import TorchInferenceServer
 from client_tpu_torch.server.types import (
     InferRequest,
     InferTensor,
@@ -40,6 +44,9 @@ from client_tpu_torch.server.types import (
 )
 
 _ROUTES = []
+
+TPU_SHM_UNAVAILABLE = ("this server hosts CUDA devices; TPU shared memory is "
+                       "not available — use /v2/cudasharedmemory")
 
 
 def route(method: str, pattern: str):
@@ -176,15 +183,61 @@ class _Handler(BaseHTTPRequestHandler):
     def model_stats(self, name=None, version=None):
         self._send_json(200, self.core.statistics(name or "", version or ""))
 
-    # ---- shared memory (not supported yet) ----
+    # ---- shared memory ----
 
-    @route("GET", r"/v2/(system|cuda|tpu)sharedmemory(/.*)?")
-    def shm_get(self):
-        self._send_error_json(400, SHM_NOT_SUPPORTED)
+    @route("GET", r"/v2/systemsharedmemory(/region/(?P<name>[^/]+))?/status")
+    def sys_shm_status(self, name=None):
+        self._send_json(200, self.core.system_shm.status(name))
 
-    @route("POST", r"/v2/(system|cuda|tpu)sharedmemory(/.*)?")
-    def shm_post(self):
-        self._send_error_json(400, SHM_NOT_SUPPORTED)
+    @route("POST", r"/v2/systemsharedmemory/region/(?P<name>[^/]+)/register")
+    def sys_shm_register(self, name):
+        body = json.loads(self._body or b"{}")
+        self.core.system_shm.register(
+            name, body["key"], int(body.get("offset", 0)),
+            int(body["byte_size"]))
+        self._send_json(200, {})
+
+    @route("POST", r"/v2/systemsharedmemory(/region/(?P<name>[^/]+))?/unregister")
+    def sys_shm_unregister(self, name=None):
+        if name is None:
+            self.core.system_shm.unregister_all()
+        else:
+            self.core.system_shm.unregister(name)
+        self._send_json(200, {})
+
+    @route("GET", r"/v2/cudasharedmemory(/region/(?P<name>[^/]+))?/status")
+    def cuda_shm_status(self, name=None):
+        self._send_json(200, self.core.cuda_shm.status(name))
+
+    @route("POST", r"/v2/cudasharedmemory/region/(?P<name>[^/]+)/register")
+    def cuda_shm_register(self, name):
+        body = json.loads(self._body or b"{}")
+        raw = body.get("raw_handle", {})
+        handle_b64 = raw.get("b64") if isinstance(raw, dict) else raw
+        if not handle_b64:
+            raise ServerError("raw_handle.b64 is required", 400)
+        # the raw handle is itself base64 JSON; the REST field wraps it in
+        # one more base64 layer (as the CUDA raw_handle {b64: ...} does)
+        self.core.cuda_shm.register(name, base64.b64decode(handle_b64),
+                                    int(body.get("device_id", 0)),
+                                    int(body.get("byte_size", 0)))
+        self._send_json(200, {})
+
+    @route("POST", r"/v2/cudasharedmemory(/region/(?P<name>[^/]+))?/unregister")
+    def cuda_shm_unregister(self, name=None):
+        if name is None:
+            self.core.cuda_shm.unregister_all()
+        else:
+            self.core.cuda_shm.unregister(name)
+        self._send_json(200, {})
+
+    @route("GET", r"/v2/tpusharedmemory(/.*)?")
+    def tpu_shm_get(self):
+        self._send_error_json(400, TPU_SHM_UNAVAILABLE)
+
+    @route("POST", r"/v2/tpusharedmemory(/.*)?")
+    def tpu_shm_post(self):
+        self._send_error_json(400, TPU_SHM_UNAVAILABLE)
 
     # ---- infer ----
 
@@ -209,12 +262,16 @@ def _wire_to_request(name: str, version: str, header: dict,
     for tj in header.get("inputs", []):
         params = dict(tj.get("parameters") or {})
         shm_region = params.pop("shared_memory_region", None)
+        shm_offset = int(params.pop("shared_memory_offset", 0) or 0)
+        shm_size = int(params.pop("shared_memory_byte_size", 0) or 0)
         params.pop("binary_data_size", None)
         t = InferTensor(name=tj["name"], datatype=tj.get("datatype", ""),
                         shape=tuple(int(d) for d in tj.get("shape", [])),
                         parameters=params)
         if shm_region is not None:
             t.shm_region = shm_region
+            t.shm_offset = shm_offset
+            t.shm_byte_size = shm_size
         else:
             t.data = tensor_from_json(tj, binmap)
         inputs.append(t)
@@ -227,6 +284,8 @@ def _wire_to_request(name: str, version: str, header: dict,
             binary_data=bool(params.pop("binary_data", default_binary)),
             classification_count=int(params.pop("classification", 0) or 0),
             shm_region=params.pop("shared_memory_region", None),
+            shm_offset=int(params.pop("shared_memory_offset", 0) or 0),
+            shm_byte_size=int(params.pop("shared_memory_byte_size", 0) or 0),
             parameters=params))
     return InferRequest(
         model_name=name, model_version=version,
@@ -244,6 +303,14 @@ def _response_to_wire(request_header: dict, response) -> tuple:
     out_json = []
     blobs = []
     for t in response.outputs:
+        if t.shm_region is not None:
+            out_json.append({
+                "name": t.name, "datatype": t.datatype,
+                "shape": list(t.shape),
+                "parameters": {"shared_memory_region": t.shm_region,
+                               "shared_memory_offset": t.shm_offset,
+                               "shared_memory_byte_size": t.shm_byte_size}})
+            continue
         params = requested.get(t.name)
         binary = bool(params.get("binary_data", default_binary)) \
             if params is not None else default_binary

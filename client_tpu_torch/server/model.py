@@ -8,10 +8,10 @@ models only ever see the bucket shapes the scheduler pads to.
 TorchModel is the device path (the counterpart of the reference's
 JaxModel): parameters become resident on the model's device at load(),
 inputs are copied in per call (or arrive as device tensors), and outputs
-come back through pinned host memory guarded by a CUDA event. PyTorch
-runs eagerly, so there is no jit and no sealed compile set; the
-reference's CompileWatch and its pre-split shm-output variant
-(``execute_parts_fused_split``) wait for later slices.
+come back through pinned host memory guarded by a CUDA event, or, on the
+shm-output path (``execute_parts_fused_split``), stay on the device as
+per-row views. PyTorch runs eagerly, so there is no jit and no sealed
+compile set; the reference's CompileWatch waits for a later slice.
 """
 
 from __future__ import annotations
@@ -138,6 +138,9 @@ class TorchModel(ServedModel):
         self._params = None
         self._loaded = False
         self._load_lock = threading.RLock()
+        # execute_parts_fused_split calls (one per shm-output batch; the
+        # smoke test holds it against the batches the stats count)
+        self.fused_split_calls = 0
 
     def load(self) -> None:
         with self._load_lock:
@@ -176,6 +179,23 @@ class TorchModel(ServedModel):
         batched = {name: torch.cat([p[name] for p in parts], dim=0)
                    for name in parts[0]}
         return self._run(params, batched)
+
+    def execute_parts_fused_split(self, parts: list, bucket: int) -> tuple:
+        """Like execute_parts_fused, but the outputs come back PRE-SPLIT:
+        ``({name: bucket single-row views of the output slab}, event)``.
+        Row i belongs to request i; rows beyond the real batch are
+        padding. The views cost no kernel (``split(1)``), and the CUDA
+        event recorded behind the forward is the batch's completion
+        signal: the outputs never leave the device (None on the CPU,
+        where the forward has completed on return)."""
+        out = self.execute_parts_fused(parts, bucket)
+        self.fused_split_calls += 1
+        split = {name: slab.split(1) for name, slab in out.items()}
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return split, event
 
     def execute_parts_ragged(self, parts: list, bucket: int) -> dict:
         """Ragged per-request batch sizes: concatenate on the device, pad
@@ -236,7 +256,8 @@ class TorchModel(ServedModel):
         self.warmup_serving()
 
     def warmup_serving(self) -> None:
-        """Run the dynamic-batch fused path at every bucket."""
+        """Run the dynamic-batch fused paths (the slab and the pre-split
+        variant) at every bucket."""
         if self.config.max_batch_size <= 0 \
                 or self.config.dynamic_batching is None:
             return
@@ -247,6 +268,9 @@ class TorchModel(ServedModel):
         for b in self.config.batch_buckets():
             finish_host_copies(start_host_copies(
                 self.execute_parts_fused([part], b)))
+            _, event = self.execute_parts_fused_split([part], b)
+            if event is not None:
+                event.synchronize()
 
 
 def _to_device(tree, device):

@@ -15,9 +15,13 @@ response per item of ``model.stream`` and then an empty response flagged
 
 Two places of the reference are tied to JAX and become torch checks here:
 the device pipeline serves ``TorchModel`` (not ``JaxModel``), and inputs
-already on the card are recognised as CUDA tensors. The sequence
-scheduler, the tracer's spans, the streaming context (deadline, cancel
-event, tenant) and the shm-output fast path wait for later slices.
+already on the model's device are recognised as torch tensors (the core
+has checked that a tensor input lives on the model's device). When every
+request of such a batch directs every output into a shared-memory
+region, the batch takes the pre-split path: one forward, per-row views of
+the outputs, one CUDA event for the whole batch, and no output leaves the
+device. The sequence scheduler, the tracer's spans and the streaming
+context (deadline, cancel event, tenant) wait for later slices.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from client_tpu_torch.device import wire_dtype_of
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
 from client_tpu_torch.server.model import (
     ServedModel,
@@ -97,8 +102,8 @@ def _queue_limit_ns(config_timeout_ns: int, qp, pending: Pending) -> int:
     return limit
 
 
-def _is_card_tensor(v) -> bool:
-    return isinstance(v, torch.Tensor) and v.is_cuda
+def _is_device_tensor(v) -> bool:
+    return isinstance(v, torch.Tensor)
 
 
 class SchedulerBase:
@@ -249,8 +254,10 @@ class DynamicBatchScheduler(SchedulerBase):
       have landed in pinned host memory), then splits and delivers.
     - Host inputs are packed row-wise into a preallocated per-bucket
       buffer that travels with the batch and is recycled at completion,
-      then copied to the card at once; inputs already on the card are
+      then copied to the card at once; inputs already on the device are
       concatenated there.
+    - Single-row device inputs whose outputs all go to shared-memory
+      regions take the pre-split path (``_complete_split``).
     """
 
     def __init__(self, model, stats, version):
@@ -342,7 +349,7 @@ class DynamicBatchScheduler(SchedulerBase):
             return str(v.dtype) if hasattr(v, "dtype") else "O"
 
         return tuple(sorted(
-            (k, dt(v), _is_card_tensor(v), tuple(v.shape[1:]))
+            (k, dt(v), _is_device_tensor(v), tuple(v.shape[1:]))
             for k, v in pending.inputs.items()))
 
     def _reject_expired(self, pending: Pending) -> bool:
@@ -485,13 +492,25 @@ class DynamicBatchScheduler(SchedulerBase):
             pickup = now_ns()
             queue_ns = [pickup - p.enqueue_ns for p in batch]
             t0 = pickup
-            if self._on_card and all(_is_card_tensor(v)
+            if self._on_card and all(_is_device_tensor(v)
                                      for v in batch[0].inputs.values()):
-                # inputs already on the card: assembly is a concatenation
-                # there, and no host transfer happens
+                # inputs already on the device (shared-memory regions):
+                # assembly is a concatenation there, and no host transfer
+                # happens
                 parts = [p.inputs for p in batch]
+                all_single = all(s == 1 for s in sizes)
+                if all_single and self._all_outputs_shm(batch):
+                    # outputs never leave the device: pre-split rows and
+                    # one event for the batch instead of a slab fetch
+                    t1 = now_ns()
+                    split, event = self.model.execute_parts_fused_split(
+                        parts, bucket)
+                    self._completion_pool.submit(
+                        self._complete_split, batch, total, queue_ns, t0,
+                        t1, split, event)
+                    return
                 t1 = now_ns()
-                if all(s == 1 for s in sizes):
+                if all_single:
                     dev_out = self.model.execute_parts_fused(parts, bucket)
                 else:
                     dev_out = self.model.execute_parts_ragged(parts, bucket)
@@ -531,7 +550,61 @@ class DynamicBatchScheduler(SchedulerBase):
                 p.send(_error_response(
                     p.request, f"{type(e).__name__}: {e}", 500), True)
 
+    @staticmethod
+    def _all_outputs_shm(batch: list) -> bool:
+        """True when every request directs every requested output into a
+        shared-memory region (so no output data needs to ride a
+        response)."""
+        for p in batch:
+            outs = p.request.outputs
+            if not outs:
+                return False
+            for o in outs:
+                if o.shm_region is None:
+                    return False
+        return True
+
     # -- completion worker (pool) --
+
+    def _complete_split(self, batch, total, queue_ns, t0, t1, split,
+                        event) -> None:
+        """Completion of the shm-output path: the batch's one CUDA event
+        confirms the whole batch; the outputs stay on the device."""
+        try:
+            if event is not None:
+                event.synchronize()
+            # the in-flight slot is held through the delivery below (the
+            # reference's pacing rule): released right after the wait, the
+            # dispatcher runs ahead of the closed-loop client refill and
+            # forms underfilled padded batches
+            t2 = now_ns()
+            # per-output wire metadata is the same for every row: once per
+            # batch, not once per request
+            metas = [(name, wire_dtype_of(rows[0]), tuple(rows[0].shape),
+                      rows) for name, rows in split.items()]
+            version = self.version
+            for i, p in enumerate(batch):
+                req = p.request
+                p.send(InferResponse(
+                    model_name=req.model_name, model_version=version,
+                    id=req.id,
+                    outputs=[InferTensor(name=n, datatype=dt, shape=shp,
+                                         data=rows[i])
+                             for (n, dt, shp, rows) in metas]), True)
+            t3 = now_ns()
+            self.stats.record_execution(
+                batch_size=total, num_requests=len(batch),
+                queue_ns_per_request=queue_ns,
+                compute_input_ns=t1 - t0, compute_infer_ns=t2 - t1,
+                compute_output_ns=t3 - t2,
+                request_total_ns_each=[t3 - p.enqueue_ns for p in batch])
+        except Exception as e:  # noqa: BLE001
+            for p in batch:
+                self.stats.record_failure(now_ns() - p.enqueue_ns)
+                p.send(_error_response(
+                    p.request, f"{type(e).__name__}: {e}", 500), True)
+        finally:
+            self._inflight.release()
 
     def _complete(self, batch, sizes, total, queue_ns, t0, t1, copies,
                   slot_key, slot) -> None:

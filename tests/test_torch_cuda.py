@@ -17,6 +17,9 @@ blocks of 8 and 16 rows, table widths that split over clusters of 1 to 8
 CTAs, positions on every split boundary, empty shares, an out-of-pool
 block id, grouped queries, pool slabs read through other strides, and a
 small generation engine whose every decode step goes through the kernel.
+The CUDA shared-memory data plane: a zero-copy in-process read, output
+rows read back from the response callback of the pre-split path, and the
+cross-process attachment's device copy held until the seqno moves.
 """
 
 import numpy as np
@@ -184,6 +187,123 @@ def test_card_inputs_ride_the_device_assembly_path(card):
                                            3 * x.cpu(), rtol=0, atol=1e-6)
     finally:
         core.stop()
+
+
+def test_cuda_shm_in_process_read_is_zero_copy(card):
+    """An in-process region's registered tensor is what the server reads:
+    the same storage, after the producer's copy has landed."""
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    h = cudashm.create_shared_memory_region("zc", 4096)
+    try:
+        data = np.arange(1024, dtype=np.float32)
+        cudashm.set_shared_memory_region(h, [data])
+        att = cudashm.attach_from_raw_handle(cudashm.get_raw_handle(h))
+        assert isinstance(att, cudashm.InProcessAttachment)
+        got = att.read_array(0, data.nbytes, "FP32", (1024,))
+        assert got.is_cuda
+        assert got.data_ptr() == h.device_tensors[0][0].data_ptr()
+        np.testing.assert_array_equal(got.cpu().numpy(), data)
+    finally:
+        cudashm.destroy_shared_memory_region(h)
+
+
+def test_cuda_shm_output_rows_read_back_right_after_the_response(card):
+    """The pre-split path on the card: each request's output region, read
+    from its response callback, holds its own row, not stale bytes."""
+    import threading
+
+    from client_tpu_torch.models import make_add_sub
+    from client_tpu_torch.perf.client_backend import (
+        InProcessBackend,
+        PerfInput,
+        PerfRequestedOutput,
+    )
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    n, width = 24, 256
+    model = make_add_sub("ab", width, "FP32", max_batch_size=32,
+                         dynamic_batching=True)
+    core = TorchInferenceServer()
+    core.register_model(model, warmup=True)
+    backend = InProcessBackend(core)
+    rng = np.random.default_rng(0)
+    handles, got, errors = [], {}, []
+    done, lock = threading.Event(), threading.Lock()
+    try:
+        calls0 = model.fused_split_calls
+        for rnd in range(3):
+            xs = rng.standard_normal((n, 1, width)).astype(np.float32)
+            reqs = []
+            for i in range(n):
+                h_in = cudashm.create_shared_memory_region(
+                    f"in{rnd}_{i}", 2 * xs[i].nbytes)
+                h_out = cudashm.create_shared_memory_region(
+                    f"out{rnd}_{i}", xs[i].nbytes)
+                handles += [h_in, h_out]
+                cudashm.set_shared_memory_region(h_in, [xs[i], 2 * xs[i]])
+                for h in (h_in, h_out):
+                    backend.register_cuda_shared_memory(
+                        h.name, cudashm.get_raw_handle(h), 0, h.byte_size)
+                a = PerfInput("INPUT0", [1, width], "FP32")
+                a.set_shared_memory(h_in.name, xs[i].nbytes)
+                b = PerfInput("INPUT1", [1, width], "FP32")
+                b.set_shared_memory(h_in.name, xs[i].nbytes, xs[i].nbytes)
+                o = PerfRequestedOutput("OUTPUT0")
+                o.set_shared_memory(h_out.name, xs[i].nbytes)
+                reqs.append(([a, b], [o], h_out))
+            got.clear()
+            done.clear()
+
+            def cb(i, h_out):
+                def f(result, error):
+                    with lock:
+                        if error is not None:
+                            errors.append(error)
+                        got[i] = cudashm.get_contents_as_numpy(
+                            h_out, np.float32, (1, width)).copy()
+                        if len(got) == n:
+                            done.set()
+                return f
+
+            for i, (ins, outs, h_out) in enumerate(reqs):
+                backend.async_infer(cb(i, h_out), "ab", ins, outs)
+            assert done.wait(60) and not errors, errors
+            for i in range(n):
+                np.testing.assert_allclose(got[i], 3 * xs[i], rtol=0,
+                                           atol=1e-6)
+        assert model.fused_split_calls > calls0
+    finally:
+        core.stop()
+        for h in handles:
+            cudashm.destroy_shared_memory_region(h)
+
+
+def test_cuda_shm_cross_process_cache_holds_until_the_seqno_moves(card):
+    """The cross-process attachment copies the staging bytes to the card
+    once and serves that copy until the producer's seqno moves."""
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    h = cudashm.create_shared_memory_region("xp", 256)
+    try:
+        a = np.arange(64, dtype=np.int32)
+        cudashm.set_shared_memory_region(h, [a])
+        att = cudashm.CrossProcessAttachment(
+            cudashm.parse_raw_handle(cudashm.get_raw_handle(h)))
+        try:
+            first = att.read_array(0, a.nbytes, "INT32", (64,))
+            again = att.read_array(0, a.nbytes, "INT32", (64,))
+            assert first.is_cuda and again.data_ptr() == first.data_ptr()
+            np.testing.assert_array_equal(first.cpu().numpy(), a)
+            cudashm.set_shared_memory_region(h, [a + 1])
+            moved = att.read_array(0, a.nbytes, "INT32", (64,))
+            assert moved.data_ptr() != first.data_ptr()
+            np.testing.assert_array_equal(moved.cpu().numpy(), a + 1)
+        finally:
+            att.detach()
+    finally:
+        cudashm.destroy_shared_memory_region(h)
 
 
 def _paged_case(s, h, hkv, dh, bl, n, width, dtype, seed, layout="plain"):

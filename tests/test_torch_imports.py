@@ -48,7 +48,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.perf.bench_harness",
                      "client_tpu_torch.models.transformer",
                      "client_tpu_torch.models.sampling",
-                     "client_tpu_torch.models.decoder_lm"):
+                     "client_tpu_torch.models.decoder_lm",
+                     "client_tpu_torch.utils",
+                     "client_tpu_torch.utils.shared_memory",
+                     "client_tpu_torch.utils.cuda_shared_memory",
+                     "client_tpu_torch.server.shm",
+                     "client_tpu_torch.perf.perf_utils",
+                     "client_tpu_torch.perf.model_parser",
+                     "client_tpu_torch.perf.data_loader",
+                     "client_tpu_torch.perf.client_backend",
+                     "client_tpu_torch.perf.load_manager",
+                     "client_tpu_torch.perf.concurrency_manager",
+                     "client_tpu_torch.perf.inference_profiler"):
         assert expected in result["modules"]
 
 
@@ -64,6 +75,7 @@ def _entry_points():
     from client_tpu_torch.server.config import ModelConfig
     from client_tpu_torch.server.generation import ContinuousBatchingEngine
     from client_tpu_torch.server.model import TorchModel
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
 
     def engine():
         cfg = decode_config(vocab_size=16, d_model=8, n_layers=1, n_heads=1,
@@ -80,6 +92,8 @@ def _entry_points():
         "build_bert_encoder": lambda: build_bert_encoder(8, 2),
         "ContinuousBatchingEngine": engine,
         "make_continuous_generator": lambda: make_continuous_generator(),
+        "cuda_shm_region": lambda: cudashm.create_shared_memory_region(
+            "r", 8),
     }
 
 
@@ -87,7 +101,8 @@ def _entry_points():
                                    "TorchModel", "make_add_sub",
                                    "build_bert_encoder",
                                    "ContinuousBatchingEngine",
-                                   "make_continuous_generator"])
+                                   "make_continuous_generator",
+                                   "cuda_shm_region"])
 def test_entry_points_without_a_device_raise_when_cuda_is_absent(
         entry, monkeypatch):
     # the same code path a machine without CUDA takes, on any machine

@@ -188,7 +188,7 @@ def test_statistics_count_the_requests(stack):
     ("wrong_shape", "400", "shape"),
     ("wrong_dtype", "400", "datatype"),
     ("batch_too_large", "400", "exceeds max_batch_size"),
-    ("shm_input", "400", "not supported by this server yet"),
+    ("shm_input", "400", "is not registered"),
 ])
 def test_errors_carry_the_reference_statuses(stack, case, status, text):
     c = stack["client"]
@@ -204,7 +204,7 @@ def test_errors_carry_the_reference_statuses(stack, case, status, text):
         inp.set_data_from_numpy(tok.astype(np.float32))
     elif case == "batch_too_large":
         inp = _enc_input(_tokens(501, rows=MAX_BATCH + 1), True)
-    else:
+    else:   # a region nobody registered
         inp = httpclient.InferInput("input_ids", tok.shape, "INT32")
         inp.set_shared_memory("region0", tok.nbytes)
     with pytest.raises(InferenceServerException) as ei:
