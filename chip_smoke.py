@@ -49,22 +49,39 @@ each printing one JSON line:
              the card's bf16 peak, batch sizes and mean compute ns per
              batch, and the latency-bounded point (bucket 128, concurrency
              768) beside bench.py's 250 ms p50 target. No request may fail.
-7. generate  the reference bench.py's generation point at full width
+7. generate  the reference bench.py's generation model at full width
              (vocab 30528, d 768, 12 layers, 12 heads of 64, d_ff 3072,
              max_seq 192, bf16, random weights from a seed) served by
-             make_continuous_generator (paged KV, blocks of 16, 16 slots,
-             chunk 16, token-level prefill, K2 attention) through
-             TorchInferenceServer.infer with a response callback: its 32
-             ragged jobs from 32 threads, a quarter of them sampled. Every
-             stream must stream exactly its budget and then the final flag,
-             every token must be in the vocab, the K2 launch counter
+             make_continuous_generator on the paged layout (blocks of 16,
+             16 slots, chunk 16, token-level prefill, K2 attention) through
+             TorchInferenceServer.infer with a response callback: bench.py's
+             32 ragged jobs from 32 threads, a quarter of them sampled.
+             Every stream must stream exactly its budget and then the final
+             flag, every token must be in the vocab, the K2 launch counter
              (zeroed just before) must read 12 x 16 per chunk dispatch, and
              every greedy stream is teacher-forced through the plain path
              on the card: each served token must be the plain argmax
              wherever the plain top-1/top-2 logit gap exceeds a stated bf16
-             tolerance.
+             tolerance. Profiles one greedy chunk dispatch outside the
+             engine (host ms, device busy ms, kernel launches).
+8. generate_slot
+             bench.py's generation point as the reference runs it: the
+             same model and 32 jobs, all greedy, on the engine's defaults
+             (the slot layout, token-level prefill) with the plain
+             attention, served and checked the same way; K2 and K1 must
+             not launch. Then, at the same width on the first PREFILL_JOBS
+             jobs, the chunked prefill lane (prefill_chunk 64, the default
+             budget) on the slot layout and on the paged layout with K2
+             (12 x 16 launches per chunk dispatch: frozen riders still
+             run), and the batched prefill on the slot layout; each
+             checked the same way, each chunked run with lane chunks
+             dispatched. Prints useful tokens/s, TTFT, ITL and host ms per
+             dispatch of every run, and profiles one greedy slot-layout
+             chunk dispatch outside the engine as the generate phase does
+             the paged one.
 
-Then the kernel table line ``{"kernels": [...]}`` and, last, the
+Then a line of each phase's wall seconds, the kernel table line
+``{"kernels": [...]}`` and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure raises and exits
 non-zero; so does a machine without CUDA, and a directory that holds this
 file without the rest of the repository.
@@ -117,6 +134,9 @@ GEN_POOL = GEN_SLOTS * GEN_MAX_SEQ // GEN_BLOCK + 1
 # 12 layers a logit moves by a few hundredths, so a top-1/top-2 gap above
 # this cannot flip between them
 GREEDY_GAP = 0.1
+# generate_slot: the chunked (slot, paged) and batched runs take the first
+# 8 of bench.py's 32 jobs, at full width, to keep the script's time
+PREFILL_JOBS = 8
 
 # the serve_shm phase: requests of the correctness run; bench.py's
 # headline and latency-bounded points with the window (6000 ms), stability
@@ -765,9 +785,9 @@ def phase_serve_shm() -> dict:
 def _teacher_forced(cfg, params, seqs: list, plens: list) -> dict:
     """Feed every greedy stream (prompt + served tokens) through the plain
     path on the card, all streams as the slots of one batch:
-    ``paged_decode_steps`` with the plain K2. Counts the served tokens that
-    differ from the plain argmax where the plain top-1/top-2 gap exceeds
-    GREEDY_GAP."""
+    ``paged_decode_steps`` with the plain K2. Per stream, counts the served
+    tokens, the ones judged (where the plain top-1/top-2 gap exceeds
+    GREEDY_GAP) and the judged ones that differ from the plain argmax."""
     from client_tpu_torch.models import transformer as t
     from client_tpu_torch.ops.paged_attention import (
         paged_decode_attention_reference,
@@ -785,8 +805,8 @@ def _teacher_forced(cfg, params, seqs: list, plens: list) -> dict:
     pool = init_paged_pool(cfg, n * nb + 1, GEN_BLOCK, "cuda")
     tables = (1 + torch.arange(n * nb, device="cuda")).reshape(
         n, nb).to(torch.int32)
-    checked = torch.zeros((), dtype=torch.int64, device="cuda")
-    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    checked = torch.zeros((n,), dtype=torch.int64, device="cuda")
+    bad = torch.zeros((n,), dtype=torch.int64, device="cuda")
     with torch.inference_mode():
         for p in range(longest - 1):
             pos = torch.full((n,), p, dtype=torch.int32, device="cuda")
@@ -800,38 +820,65 @@ def _teacher_forced(cfg, params, seqs: list, plens: list) -> dict:
             judged = (p + 1 >= plen) & (p + 1 < lens) \
                 & (top2[:, 0] - top2[:, 1] > GREEDY_GAP)
             wrong = logits.argmax(dim=-1) != toks[:, p + 1]
-            checked += judged.sum()
-            bad += (judged & wrong).sum()
-    served = sum(len(x) - q for x, q in zip(seqs, plens))
-    return {"greedy_streams": n, "served_tokens": served,
-            "judged_tokens": int(checked), "mismatches": int(bad),
-            "gap_tol": GREEDY_GAP}
+            checked += judged
+            bad += judged & wrong
+    return {"served": [len(x) - q for x, q in zip(seqs, plens)],
+            "judged": checked.tolist(), "bad": bad.tolist()}
 
 
-def _dispatch_profile(engine_cfg, params, sample: bool) -> dict:
-    """One chunk dispatch of the generation path outside the engine, at
-    full width (16 active slots mid-context, tables of 12 blocks, the
-    greedy or the sampled variant): its host time, its stream time
-    between CUDA events, and by torch.profiler its device busy time (the
-    sum of its kernels) and its kernel launches."""
+def _judge_greedy(cfg, params, runs: list) -> None:
+    """Teacher-force the greedy streams of every run of ``runs`` together,
+    as one batch: each run gets its ``teacher_forced`` counts, and any
+    mismatch, or fewer than half of a run's served tokens judged, fails."""
+    seqs, plens, owner = [], [], []
+    for k, run in enumerate(runs):
+        for seq, q in run.pop("greedy_streams"):
+            seqs.append(seq)
+            plens.append(q)
+            owner.append(k)
+    per = _teacher_forced(cfg, params, seqs, plens)
+    for k, run in enumerate(runs):
+        mine = [i for i, o in enumerate(owner) if o == k]
+        tf = {"greedy_streams": len(mine),
+              "served_tokens": sum(per["served"][i] for i in mine),
+              "judged_tokens": sum(per["judged"][i] for i in mine),
+              "mismatches": sum(per["bad"][i] for i in mine),
+              "gap_tol": GREEDY_GAP}
+        run["teacher_forced"] = tf
+        if tf["mismatches"] or tf["judged_tokens"] < tf["served_tokens"] // 2:
+            fail(f"{run['run']}: greedy streams differ from the plain path: "
+                 f"{tf}")
+
+
+def _dispatch_profile(engine_cfg, params, slot: bool = False) -> dict:
+    """One greedy chunk dispatch of the generation path outside the
+    engine, at full width (16 active slots mid-context, none frozen; the
+    paged layout's tables of 12 blocks, or with ``slot`` the slot
+    layout's rows): its host time, its stream time between CUDA events,
+    and by torch.profiler its device busy time (the sum of its kernels)
+    and its kernel launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    from client_tpu_torch.server.generation import paged_chunk_kernel
+    from client_tpu_torch.models.transformer import init_decode_state
+    from client_tpu_torch.server.generation import (
+        chunk_kernel,
+        paged_chunk_kernel,
+    )
     from client_tpu_torch.server.kv_cache import init_paged_pool
 
     s, c, nb = GEN_SLOTS, GEN_CHUNK, GEN_MAX_SEQ // GEN_BLOCK
     dev = "cuda"
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    pool = init_paged_pool(engine_cfg, GEN_POOL, GEN_BLOCK, dev)
-    tables = (1 + torch.arange(s * nb, device=dev)).reshape(s, nb).to(
-        torch.int32)
+    if slot:
+        cache = init_decode_state(engine_cfg, s, dev)
+    else:
+        pool = init_paged_pool(engine_cfg, GEN_POOL, GEN_BLOCK, dev)
+        tables = (1 + torch.arange(s * nb, device=dev)).reshape(s, nb).to(
+            torch.int32)
     zi = torch.zeros((s,), dtype=torch.int32, device=dev)
     pos = torch.full((s,), 96, dtype=torch.int32, device=dev)
-    temps = torch.full((s,), 0.8 if sample else 0.0, device=dev)
-    topks = torch.full((s,), 40 if sample else 0, dtype=torch.int32,
-                       device=dev)
-    topps = torch.zeros((s,), device=dev)
+    zf = torch.zeros((s,), device=dev)
     feed = torch.randint(0, engine_cfg.vocab_size, (s, c), generator=gen,
                          device=dev, dtype=torch.int32)
     ones = torch.ones((s,), dtype=torch.bool, device=dev)
@@ -839,9 +886,13 @@ def _dispatch_profile(engine_cfg, params, sample: bool) -> dict:
     cnt = torch.zeros((4, s), dtype=torch.int32, device=dev)
 
     def dispatch():
+        if slot:
+            return chunk_kernel(
+                engine_cfg, params, cache, pos, zi, ring, cnt, 0, feed, zi,
+                ones, ~ones, None, zi, zf, zi, zf, False)
         return paged_chunk_kernel(
             engine_cfg, params, pool, pos, zi, ring, cnt, 0, tables, feed,
-            zi, ones, ones, pos, zi, temps, topks, topps, sample)
+            zi, ones, ones, pos, None, zi, zf, zi, zf, False)
 
     with torch.inference_mode():
         dispatch()
@@ -865,7 +916,8 @@ def _dispatch_profile(engine_cfg, params, sample: bool) -> dict:
                            getattr(evt, "self_cuda_time_total", 0.0))
         if evt.key.startswith("cudaLaunchKernel"):
             launches += evt.count
-    return {"sample": sample, "host_ms": host_ms, "event_ms": event_ms,
+    return {"layout": "slot" if slot else "paged",
+            "host_ms": host_ms, "event_ms": event_ms,
             "device_busy_ms": busy_us / 1e3 if busy_us else None,
             "kernel_launches": launches}
 
@@ -888,29 +940,41 @@ def _stream_request(prompt, budget, sampling):
     return InferRequest(model_name="continuous_lm", inputs=inputs)
 
 
-def phase_generate() -> dict:
+def _generation_model() -> tuple:
+    """bench.py's generation model at full width (vocab 30528, d 768, 12
+    layers, 12 heads of 64, d_ff 3072, max_seq 192, bf16) with random
+    weights from seed 0 on the card, and bench.py's 32 ragged jobs."""
+    from client_tpu_torch.bench import generation_config
     from client_tpu_torch.models import transformer as t
-    from client_tpu_torch.models.decoder_lm import make_continuous_generator
-    from client_tpu_torch.ops import paged_attention as pa
     from client_tpu_torch.perf.bench_harness import ragged_generation_jobs
-    from client_tpu_torch.server import TorchInferenceServer
 
-    cfg = t.TransformerConfig(
-        vocab_size=30528, d_model=768, n_layers=LAYERS, n_heads=12,
-        head_dim=64, d_ff=3072, max_seq=GEN_MAX_SEQ, causal=True,
-        dtype=torch.bfloat16, attn_impl="flash")
+    cfg = generation_config()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = t.init_params(gen, cfg)
-    model = make_continuous_generator(
-        "continuous_lm", cfg=cfg, params=params, n_slots=GEN_SLOTS,
-        chunk_size=GEN_CHUNK, dispatch_depth=2, kv_block_len=GEN_BLOCK,
-        max_new_tokens=128, eos_id=-1, device="cuda")
     jobs = ragged_generation_jobs(7, cfg.vocab_size, 32, (8, 64), (16, 128),
                                   cfg.max_seq)
-    # a quarter of the jobs sampled, each with its own seed
-    sampling = [(0.8, 40, 1000 + i) if i % 4 == 3 else None
-                for i in range(len(jobs))]
+    return cfg, params, jobs
+
+
+def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
+                      **engine_kw) -> dict:
+    """Serve ``jobs`` through make_continuous_generator and
+    TorchInferenceServer.infer with a response callback, one thread each,
+    all started together; check that every stream streamed exactly its
+    budget of in-vocab tokens and then one final flag (its greedy streams
+    go to ``_judge_greedy``). The K2 and K1 launch counters are
+    set to 0 just before the streams start and read just after they end.
+    Returns the run's counters and latencies."""
+    from client_tpu_torch.models.decoder_lm import make_continuous_generator
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server import TorchInferenceServer
+
+    model = make_continuous_generator(
+        "continuous_lm", cfg=cfg, params=params, n_slots=GEN_SLOTS,
+        chunk_size=GEN_CHUNK, dispatch_depth=2, max_new_tokens=128,
+        eos_id=-1, device="cuda", **engine_kw)
     core = TorchInferenceServer()
     t0 = time.time()
     core.register_model(model, warmup=True)
@@ -947,60 +1011,136 @@ def phase_generate() -> dict:
         before = engine.stats()
         # the main path: counters at 0 just before, read just after
         pa.launches = 0
+        fa.launches = 0
         t0 = time.time()
         for th in threads:
             th.start()
         for th in threads:
             th.join(timeout=600)
         wall_s = time.time() - t0
-        launches = pa.launches
+        k2, k1 = pa.launches, fa.launches
         after = engine.stats()
         snap = engine.gen_stats.snapshot()
     finally:
         core.stop()
     if errors or any(th.is_alive() for th in threads):
-        fail(f"generate: {errors[:3]}")
+        fail(f"{label}: {errors[:3]}")
+    for i, ((prompt, budget), got) in enumerate(zip(jobs, streams)):
+        if len(got) != budget or finals[i] != 1:
+            fail(f"{label}: job {i} streamed {len(got)} tokens of {budget} "
+                 f"and {finals[i]} final flags")
+        if not all(0 <= x < cfg.vocab_size for x in got):
+            fail(f"{label}: job {i} streamed a token outside the vocab")
+    greedy = [i for i in range(len(jobs)) if sampling[i] is None]
     chunks = after["chunks_dispatched"] - before["chunks_dispatched"]
+    useful = sum(b for _, b in jobs)
+    phase_s = {k: after["phase_seconds"][k] - before["phase_seconds"][k]
+               for k in after["phase_seconds"]}
+    timed = after["timed_dispatches"] - before["timed_dispatches"]
+    event_ms = after["dispatch_event_ms"] - before["dispatch_event_ms"]
+    lane = after["prefill_lane"]
+    ttft, itl = snap["ttft"], snap["inter_token"]
+    return {
+        "run": label, "kv_layout": after["kv_layout"],
+        "prefill_mode": after["prefill_mode"], "attn_impl": cfg.attn_impl,
+        "jobs": len(jobs), "useful_tokens": useful,
+        "sampled_jobs": len(jobs) - len(greedy), "wall_s": wall_s,
+        "continuous_batching_ragged_tokens_per_s": useful / wall_s,
+        "chunk_dispatches": chunks,
+        "paged_decode_attention_launches": k2,
+        "flash_attention_launches": k1,
+        "prefill_lane_chunks": None if lane is None else
+        lane["chunks"] - (before["prefill_lane"] or {}).get("chunks", 0),
+        "host_ms_per_dispatch": phase_s["dispatch"] / chunks * 1e3,
+        "event_ms_per_dispatch": event_ms / timed if timed else None,
+        "phase_seconds": phase_s,
+        "ttft_mean_ms": ttft[1] / max(1, ttft[2]) / 1e6,
+        "itl_mean_ms": itl[1] / max(1, itl[2]) / 1e6,
+        "register_with_warmup_s": register_s,
+        # (prompt + served tokens, prompt length) of the greedy streams,
+        # for _judge_greedy
+        "greedy_streams": [(np.concatenate([jobs[i][0], streams[i]]),
+                            len(jobs[i][0])) for i in greedy]}
+
+
+def phase_generate(gen_model: tuple) -> dict:
+    import dataclasses
+
+    cfg, params, jobs = gen_model
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    # a quarter of the jobs sampled, each with its own seed
+    sampling = [(0.8, 40, 1000 + i) if i % 4 == 3 else None
+                for i in range(len(jobs))]
+    t0 = time.time()
+    run = _serve_generation("generate", cfg, params, jobs, sampling,
+                            kv_layout="paged", kv_block_len=GEN_BLOCK)
+    t1 = time.time()
+    _judge_greedy(cfg, params, [run])
+    t2 = time.time()
+    chunks = run["chunk_dispatches"]
+    launches = run["paged_decode_attention_launches"]
     if launches != LAYERS * GEN_CHUNK * chunks:
         fail(f"generate: {launches} paged_decode_attention launches for "
              f"{chunks} chunk dispatches, expected {LAYERS} x {GEN_CHUNK} "
              f"per dispatch")
-    for i, ((prompt, budget), got) in enumerate(zip(jobs, streams)):
-        if len(got) != budget or finals[i] != 1:
-            fail(f"generate: job {i} streamed {len(got)} tokens of "
-                 f"{budget} and {finals[i]} final flags")
-        if not all(0 <= x < cfg.vocab_size for x in got):
-            fail(f"generate: job {i} streamed a token outside the vocab")
-    greedy = [i for i in range(len(jobs)) if sampling[i] is None]
-    tf = _teacher_forced(
-        cfg, params, [np.concatenate([jobs[i][0], streams[i]])
-                      for i in greedy], [len(jobs[i][0]) for i in greedy])
-    if tf["mismatches"] or tf["judged_tokens"] < tf["served_tokens"] // 2:
-        fail(f"generate: greedy streams differ from the plain path: {tf}")
-    useful = sum(b for _, b in jobs)
-    dispatch_s = (after["phase_seconds"]["dispatch"]
-                  - before["phase_seconds"]["dispatch"])
-    timed = after["timed_dispatches"] - before["timed_dispatches"]
-    event_ms = after["dispatch_event_ms"] - before["dispatch_event_ms"]
-    standalone = [_dispatch_profile(cfg, params, sample)
-                  for sample in (False, True)]
-    ttft = snap["ttft"]
-    itl = snap["inter_token"]
-    result = {
-        "phase": "generate", "jobs": len(jobs), "useful_tokens": useful,
-        "sampled_jobs": len(jobs) - len(greedy), "wall_s": wall_s,
-        "continuous_batching_ragged_tokens_per_s": useful / wall_s,
-        "chunk_dispatches": chunks,
-        "paged_decode_attention_launches": launches,
-        "host_ms_per_dispatch": dispatch_s / chunks * 1e3,
-        "event_ms_per_dispatch": event_ms / timed if timed else None,
-        "standalone_dispatch": standalone,
-        "phase_seconds": {k: after["phase_seconds"][k]
-                          - before["phase_seconds"][k]
-                          for k in after["phase_seconds"]},
-        "ttft_mean_ms": ttft[1] / max(1, ttft[2]) / 1e6,
-        "itl_mean_ms": itl[1] / max(1, itl[2]) / 1e6,
-        "register_with_warmup_s": register_s, "teacher_forced": tf}
+    standalone = [_dispatch_profile(cfg, params)]
+    result = {"phase": "generate", **run, "standalone_dispatch": standalone,
+              "seconds": {"serve": t1 - t0, "judge": t2 - t1,
+                          "profile": time.time() - t2}}
+    emit(result)
+    return result
+
+
+def phase_generate_slot(gen_model: tuple) -> dict:
+    """bench.py's generation point as the reference runs it (the slot
+    layout, the plain attention, token-level prefill, bench.py's 32 jobs),
+    then the chunked lane on the slot and on the paged layout (K2) and
+    the batched prefill, at the same width on the first PREFILL_JOBS
+    jobs."""
+    import dataclasses
+
+    cfg, params, jobs = gen_model
+    greedy = [None] * len(jobs)
+    t0 = time.time()
+    runs = [_serve_generation("bench_point", cfg, params, jobs, greedy)]
+    cut = jobs[:PREFILL_JOBS]
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    for label, run_cfg, kw in (
+            ("chunked_slot", cfg, dict(prefill_mode="chunked")),
+            ("chunked_paged", flash, dict(prefill_mode="chunked",
+                                          kv_layout="paged",
+                                          kv_block_len=GEN_BLOCK)),
+            ("batched_slot", cfg, dict(prefill_mode="batched"))):
+        runs.append(_serve_generation(label, run_cfg, params, cut,
+                                      greedy[:len(cut)],
+                                      prefill_chunk=64, **kw))
+    t1 = time.time()
+    # the plain path does not depend on attn_impl: it is given its
+    # attention
+    _judge_greedy(cfg, params, runs)
+    t2 = time.time()
+    runs[0]["standalone_dispatch"] = [
+        _dispatch_profile(cfg, params, slot=True)]
+    seconds = {"serve": t1 - t0, "judge": t2 - t1,
+               "profile": time.time() - t2}
+    for run in runs:
+        paged = run["kv_layout"] == "paged"
+        want = LAYERS * GEN_CHUNK * run["chunk_dispatches"] if paged else 0
+        if run["paged_decode_attention_launches"] != want:
+            fail(f"generate_slot: the {run['run']} run launched "
+                 f"paged_decode_attention "
+                 f"{run['paged_decode_attention_launches']} times in "
+                 f"{run['chunk_dispatches']} chunk dispatches, expected "
+                 f"{want}")
+        if run["flash_attention_launches"]:
+            fail(f"generate_slot: the {run['run']} run launched "
+                 f"flash_attention, which no prefill path of the "
+                 f"reference takes")
+        if run["prefill_mode"] == "chunked" and not run["prefill_lane_chunks"]:
+            fail(f"generate_slot: the {run['run']} run dispatched no lane "
+                 f"chunk")
+    result = {"phase": "generate_slot", "prefill_jobs": PREFILL_JOBS,
+              "runs": runs, "seconds": seconds}
     emit(result)
     return result
 
@@ -1013,14 +1153,25 @@ def main() -> int:
         fail("client_tpu_torch/ops/csrc is missing beside chip_smoke.py: "
              "run it from a checkout of the repository")
     sys.path.insert(0, REPO)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        seconds[name] = time.time() - t0
+        return out
+
     env = phase_env()
     peaks = card_peaks(env["device"])
-    phase_build()
-    timing = phase_kernel(peaks)
-    paged_timing = phase_paged_kernel(peaks)
-    serve = phase_serve()
-    serve_shm = phase_serve_shm()
-    generate = phase_generate()
+    timed("build", phase_build)
+    timing = timed("kernel_flash", phase_kernel, peaks)
+    paged_timing = timed("kernel_paged", phase_paged_kernel, peaks)
+    serve = timed("serve", phase_serve)
+    serve_shm = timed("serve_shm", phase_serve_shm)
+    gen_model = timed("generation_model", _generation_model)
+    generate = timed("generate", phase_generate, gen_model)
+    generate_slot = timed("generate_slot", phase_generate_slot, gen_model)
+    emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
         return {"name": name, "route": "cuda", "source": source,
@@ -1045,7 +1196,9 @@ def main() -> int:
             "client_tpu_torch/ops/csrc/paged_attention.cu",
             "client_tpu/ops/paged_attention.py:52",
             generate["paged_decode_attention_launches"], paged_timing,
-            generate=generate["paged_decode_attention_launches"]),
+            generate=generate["paged_decode_attention_launches"],
+            generate_slot_chunked_paged=generate_slot["runs"][2][
+                "paged_decode_attention_launches"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

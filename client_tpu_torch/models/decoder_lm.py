@@ -12,6 +12,8 @@ decoder, replica fleets and engine supervision wait for later slices.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -56,8 +58,10 @@ def decode_config(vocab_size: int = 1024, d_model: int = 128,
                   d_ff: int = 512, max_seq: int = 128,
                   dtype=torch.bfloat16,
                   attn_impl: str = "flash") -> t.TransformerConfig:
-    """The reference's default decode model shape (its ``_decode_config``),
-    with the port's default attention, the paged decode kernel."""
+    """The reference's default decode model shape (its ``_decode_config``).
+    ``attn_impl`` picks the paged layout's decode attention (``"flash"``,
+    the paged decode kernel, by default); the slot layout's is the einsum
+    whatever it says, as in the reference."""
     return t.TransformerConfig(
         vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
         n_heads=n_heads, head_dim=head_dim, d_ff=d_ff, max_seq=max_seq,
@@ -93,8 +97,11 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               max_new_tokens: int = 32,
                               eos_id: int = -1,
                               instance_count: int = 64,
-                              kv_layout: str = "paged",
-                              prefill_mode: str = "token",
+                              prefill: bool = False,
+                              prefill_mode: Optional[str] = None,
+                              prefill_chunk: int = 64,
+                              prefill_token_budget: int = 0,
+                              kv_layout: str = "slot",
                               kv_block_len: int = 16,
                               kv_pool_blocks: int = 0,
                               kv_max_blocks_per_slot: int = 0,
@@ -109,7 +116,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     ``cfg`` defaults to the reference's small decode config; ``params``
     default to random weights from ``seed``, drawn on ``device`` (CUDA by
     default, raising without it; the CPU only when asked for). The engine
-    is built now and started by the first request."""
+    knobs and their defaults are the reference's (the slot layout,
+    token-level prefill). The engine is built now and started by the
+    first request."""
     reject_unported(unported)
     dev = resolve_device(device)
     cfg = cfg or decode_config()
@@ -124,7 +133,10 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             dispatch_depth=dispatch_depth, queue_depth=queue_depth,
             fetch_stride=fetch_stride, overlap=overlap,
             ring_entries=ring_entries, kv_layout=kv_layout,
-            prefill_mode=prefill_mode, kv_block_len=kv_block_len,
+            prefill=prefill, prefill_mode=prefill_mode,
+            prefill_chunk=prefill_chunk,
+            prefill_token_budget=prefill_token_budget,
+            kv_block_len=kv_block_len,
             kv_pool_blocks=kv_pool_blocks,
             kv_max_blocks_per_slot=kv_max_blocks_per_slot,
             shed_on_full=shed_on_full, device=dev, name=name)

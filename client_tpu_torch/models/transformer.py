@@ -21,12 +21,17 @@ in the reference. Attention goes through the flash kernel
 reference's ``"auto"`` routing rests on a crossover measured on a TPU and
 is not carried over.
 
-Of the decode half, the paged block-table step the generation engine runs
-is here (``paged_decode_steps``, with ``emit_into_ring`` and the pool
-read/write helpers): ``attn_impl="flash"`` goes through the paged decode
-kernel (``ops.paged_attention``), ``"ref"`` through the gathered einsum.
-The slot layout, prefill, verify and int8-KV paths, MoE, mesh sharding
-and ring attention wait for later slices.
+Of the decode half, both KV layouts the generation engine runs are here.
+The slot layout (``init_decode_state``, ``decode_step`` batched over the
+slots, the monolithic ``prefill`` and the resumable ``prefill_chunk``)
+attends each slot's static ``[max_seq]`` rows with the reference's einsum
+attention, whatever ``attn_impl`` says, as the reference does. The paged
+block-table layout (``paged_decode_steps``, ``paged_prefill_chunk``, with
+``emit_into_ring`` and the pool read/write helpers) decodes through the
+paged decode kernel (``ops.paged_attention``) under ``attn_impl="flash"``
+and through the gathered einsum under ``"ref"``; its prefill chunk always
+takes the einsum. The verify and int8-KV paths, MoE, mesh sharding and
+ring attention wait for later slices.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     ffn: str = "gelu"             # gelu | swiglu
     attn_impl: str = "flash"      # flash | ref
+    kv_quant: bool = False        # int8 KV: not ported yet (raises)
 
     @property
     def kv_heads(self) -> int:
@@ -85,6 +91,10 @@ class TransformerConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl '{self.attn_impl}' "
                              f"(expected one of {ATTN_IMPLS})")
+        if self.kv_quant:
+            raise NotImplementedError(
+                "kv_quant (int8 KV cache) is not ported yet: ROADMAP A10i "
+                "(int8 KV)")
 
 
 # ---------------------------------------------------------------- params
@@ -277,6 +287,182 @@ def emit_into_ring(ring, counts, entry: int, toks, n_emitted) -> tuple:
     return ring, counts
 
 
+def _masked_attention(cfg: TransformerConfig, q, k_read, v_read, qpos):
+    """The reference's einsum attention of the decode paths: query rows
+    q [N, H, Dh] at positions qpos [N] over K/V rows, either one set per
+    query row ([N, K, Hkv, Dh]) or one set all rows share ([K, Hkv, Dh]).
+    Key j is visible to a row at position p when j <= p. Grouped queries
+    fold into the einsum (no repeated K/V); logits in f32 scaled by
+    Dh^-0.5, softmax in f32, probabilities rounded to v's dtype before the
+    PV product."""
+    n = q.shape[0]
+    r = cfg.n_heads // cfg.kv_heads
+    qg = q.reshape(n, cfg.kv_heads, r, cfg.head_dim).float()
+    shared = k_read.dim() == 3
+    logits = torch.einsum("tgrd,sgd->tgrs" if shared else "bgrd,bsgd->bgrs",
+                          qg, k_read.float()) * cfg.head_dim ** -0.5
+    keys = torch.arange(k_read.shape[-3], device=q.device)
+    mask = keys[None, :] <= qpos.long()[:, None]                 # [N, K]
+    logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(v_read.dtype)
+    attn = torch.einsum("tgrs,sgd->tgrd" if shared else "bgrs,bsgd->bgrd",
+                        probs, v_read)
+    return attn.reshape(n, cfg.n_heads, cfg.head_dim)
+
+
+# ---------------------------------------------------------------- slot KV
+#
+# The slot layout: every slot owns a static [layers, max_seq, Hkv, Dh] row
+# of K and V, position is data, and attention masks the unwritten tail. The
+# engine's state holds all S slots in the axis order of the reference's
+# vmapped state ([S, layers, max_seq, Hkv, Dh]); a freed slot is recycled
+# by resetting its position, and its stale rows are overwritten before
+# they are attended.
+
+def init_decode_state(cfg: TransformerConfig, n_slots: int,
+                      device=None) -> dict:
+    """Zeroed slot-layout state of ``n_slots`` slots: ``k``/``v``
+    ``[S, layers, max_seq, Hkv, Dh]`` in ``cfg.dtype`` (only the KV heads
+    under GQA) and ``pos [S]`` int32. On the card unless ``device`` says
+    otherwise; without CUDA that raises. (int8 KV raises when its config
+    is built: ROADMAP A10i.)"""
+    dev = resolve_device(device)
+    shape = (n_slots, cfg.n_layers, cfg.max_seq, cfg.kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
+
+
+def decode_step(cfg: TransformerConfig, params: dict, tokens,
+                state: dict) -> tuple:
+    """One autoregressive step of every slot of a slot-layout state: the
+    reference's ``decode_step`` under ``jax.vmap``, as one computation
+    over ``[S, ...]``. tokens [S] int32 are fed at positions
+    ``state["pos"]`` [S]. Per layer each slot's K/V row is written at its
+    own position IN PLACE (``index_put_``), then every slot attends its
+    rows [0, pos]. Returns (logits [S, vocab] f32, the state with
+    ``pos + 1``; ``k``/``v`` are the same tensors).
+
+    A slot decoding past its budget inside its last chunk reaches
+    ``pos >= max_seq``: the write index and the ``pos_embed`` gather clamp
+    to ``max_seq - 1``, as the reference's ``dynamic_update_slice`` and
+    gather do (an out-of-range ``index_put_`` would be a device-side
+    assert on the card)."""
+    pos = state["pos"]
+    wpos = pos.long().clamp(0, cfg.max_seq - 1)
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    x = params["embed"][tokens.long()]
+    if not cfg.rope:
+        x = x + params["pos_embed"][wpos]
+    x = x.to(cfg.dtype)                                           # [S, d]
+    if cfg.rope:
+        cos, sin = _rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+        cos, sin = cos[:, None], sin[:, None]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        k_l, v_l = state["k"][:, i], state["v"][:, i]  # [S, max_seq, Hkv, Dh]
+        y = _rmsnorm(x, lp["ln1"])
+        q, k, v = _qkv_proj(cfg, y, lp, "b")   # q [S,H,Dh], kv [S,Hkv,Dh]
+        if cfg.rope:
+            q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
+        k_l.index_put_((rows, wpos), k.to(k_l.dtype))
+        v_l.index_put_((rows, wpos), v.to(v_l.dtype))
+        attn = _masked_attention(cfg, q, k_l, v_l, pos)
+        x = x + torch.einsum("bhk,hkd->bd", attn, lp["wo"])
+        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+    x = _rmsnorm(x, params["final_norm"])
+    logits = torch.einsum("bd,vd->bv", x, params["embed"]).float()
+    return logits, {**state, "pos": pos + 1}
+
+
+def prefill(cfg: TransformerConfig, params: dict, tokens,
+            length: int = None, pad_to_max: bool = True) -> tuple:
+    """A whole (bucket-padded) prompt tokens [L] in one causal forward
+    through ``ops.attention.mha_attention``: returns (state, logits) with
+    ``state`` = {``k``, ``v`` [layers, L or max_seq, Hkv, Dh], ``pos``}
+    and the f32 logits [vocab] at ``length - 1`` (a host int), the last
+    real token.
+    Rows at and past ``length`` hold padding K/V that decode overwrites
+    before attending. ``pad_to_max=False`` returns only the bucket's L
+    rows (the engine writes them into a slot's rows itself)."""
+    l = tokens.shape[0]
+    length = l if length is None else length
+    x = params["embed"][tokens.long()]
+    if not cfg.rope:
+        x = x + params["pos_embed"][:l]
+    x = x.to(cfg.dtype)                                           # [L, d]
+    if cfg.rope:
+        cos, sin = _rope_angles(torch.arange(l, device=x.device),
+                                cfg.head_dim, cfg.rope_theta)
+        cos, sin = cos[:, None], sin[:, None]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        y = _rmsnorm(x, lp["ln1"])
+        q, k, v = _qkv_proj(cfg, y, lp, "l")   # q [L,H,Dh], kv [L,Hkv,Dh]
+        if cfg.rope:
+            q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
+        ks.append(k.to(cfg.dtype))                  # unexpanded KV heads
+        vs.append(v.to(cfg.dtype))
+        attn = mha_attention(q[None], _expand_kv(cfg, k)[None],
+                             _expand_kv(cfg, v)[None], causal=True)[0]
+        x = x + torch.einsum("lhk,hkd->ld", attn, lp["wo"])
+        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+    x = _rmsnorm(x, params["final_norm"])
+    logits = torch.einsum("d,vd->v", x[length - 1],
+                          params["embed"]).float()
+    state = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    if pad_to_max:
+        state = {name: F.pad(arr, (0, 0, 0, 0, 0, cfg.max_seq - l))
+                 for name, arr in state.items()}
+    # a fill, not torch.tensor: a host scalar copied to the card would wait
+    # for the card's queue
+    state["pos"] = torch.full((), length, dtype=torch.int32, device=x.device)
+    return state, logits
+
+
+def prefill_chunk(cfg: TransformerConfig, params: dict, tokens, cache: dict,
+                  pos0: int, clen: int = None) -> tuple:
+    """Resumable chunked prefill into one slot's rows: tokens [Lc] (bucket
+    padded; ``clen`` real, default Lc; both host ints) consumed at positions
+    pos0..pos0+Lc-1 as Lc ``decode_step`` calls would, in one batched
+    forward. ``cache`` = {``k``, ``v``} [layers, max_seq, Hkv, Dh], the
+    slot's rows: rows < pos0 are the context already ingested, and the
+    chunk's rows are written into it IN PLACE (the reference returns the
+    slab for its caller to write; the engine passes the slot's own rows).
+    The caller keeps pos0 + Lc <= max_seq; beyond it the slab start
+    clamps, as ``dynamic_update_slice`` does. Padding rows past ``clen``
+    write K/V that the next chunk overwrites before it is attended.
+    Returns (slab {``k``, ``v``} [layers, Lc, Hkv, Dh], views of the rows
+    just written, not copies; logits [vocab] f32 after tokens[clen - 1])."""
+    lc = tokens.shape[0]
+    clen = lc if clen is None else clen
+    start = max(0, min(int(pos0), cache["k"].shape[1] - lc))
+    pos_t = int(pos0) + torch.arange(lc, device=tokens.device)
+    x = params["embed"][tokens.long()]
+    if not cfg.rope:
+        x = x + params["pos_embed"][start:start + lc]
+    x = x.to(cfg.dtype)                                          # [Lc, d]
+    if cfg.rope:
+        cos, sin = _rope_angles(pos_t, cfg.head_dim, cfg.rope_theta)
+        cos, sin = cos[:, None], sin[:, None]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        y = _rmsnorm(x, lp["ln1"])
+        q, k, v = _qkv_proj(cfg, y, lp, "l")  # q [Lc,H,Dh], kv [Lc,Hkv,Dh]
+        if cfg.rope:
+            q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
+        cache["k"][i, start:start + lc] = k
+        cache["v"][i, start:start + lc] = v
+        attn = _masked_attention(cfg, q, cache["k"][i], cache["v"][i], pos_t)
+        x = x + torch.einsum("thk,hkd->td", attn, lp["wo"])
+        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+    x = _rmsnorm(x, params["final_norm"])
+    logits = torch.einsum("d,vd->v", x[clen - 1], params["embed"]).float()
+    return {name: cache[name][:, start:start + lc] for name in ("k", "v")}, \
+        logits
+
+
 # ---------------------------------------------------------------- paged KV
 #
 # Block-table (PagedAttention) decode: the reference's paged half of
@@ -321,20 +507,9 @@ def _paged_write(pool_l: dict, bids, boffs, k, v) -> None:
 
 def _paged_attention_ref(cfg: TransformerConfig, q, pool_l, tables, pos):
     """``attn_impl="ref"``: gather the table's rows, then the grouped
-    einsum attention of the reference's paged path (f32 logits, softmax,
-    probabilities rounded to v's dtype before the PV product)."""
-    s, b = tables.shape
+    einsum attention of the reference's paged path."""
     k_read, v_read = _paged_kv_read(pool_l, tables)
-    r = cfg.n_heads // cfg.kv_heads
-    qg = q.reshape(s, cfg.kv_heads, r, cfg.head_dim)
-    logits = torch.einsum("bgrd,bsgd->bgrs", qg.float(),
-                          k_read.float()) * cfg.head_dim ** -0.5
-    n = k_read.shape[1]
-    mask = torch.arange(n, device=q.device)[None, :] <= pos[:, None].long()
-    logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    attn = torch.einsum("bgrs,bsgd->bgrd", probs.to(v_read.dtype), v_read)
-    return attn.reshape(s, cfg.n_heads, cfg.head_dim)
+    return _masked_attention(cfg, q, k_read, v_read, pos)
 
 
 def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
@@ -383,3 +558,47 @@ def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
     x = _rmsnorm(x, params["final_norm"])
     logits = torch.einsum("bd,vd->bv", x, params["embed"]).float()
     return logits, pool
+
+
+def paged_prefill_chunk(cfg: TransformerConfig, params: dict, tokens, table,
+                        pos0: int, pool: dict, clen: int = None) -> tuple:
+    """``prefill_chunk`` through one slot's block table: tokens [Lc]
+    consumed at positions pos0..pos0+Lc-1, their K/V rows written into the
+    pool through ``table`` IN PLACE, and attention over the gathered
+    table. ``table`` [B] int32 is the slot's FULL-width table (B*block_len
+    covers max_seq, so in-prompt positions never clamp); padding rows past
+    ``clen`` land on scratch (unallocated entries are block 0) or on the
+    slot's own future rows, which are written again before they are
+    attended. Always the einsum attention, as in the reference. Returns
+    (pool, logits [vocab] f32 after tokens[clen - 1])."""
+    lc = tokens.shape[0]
+    b = table.shape[0]
+    bl = pool["k"].shape[2]
+    clen = lc if clen is None else clen
+    start = max(0, min(int(pos0), cfg.max_seq - lc))   # the slice clamps
+    pos_t = int(pos0) + torch.arange(lc, device=tokens.device)   # [Lc]
+    x = params["embed"][tokens.long()]
+    if not cfg.rope:
+        x = x + params["pos_embed"][start:start + lc]
+    x = x.to(cfg.dtype)                                          # [Lc, d]
+    if cfg.rope:
+        cos, sin = _rope_angles(pos_t, cfg.head_dim, cfg.rope_theta)
+        cos, sin = cos[:, None], sin[:, None]
+    bids = table.long()[torch.div(pos_t, bl, rounding_mode="floor")
+                        .clamp(0, b - 1)]
+    boffs = pos_t % bl
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        pool_l = {"k": pool["k"][i], "v": pool["v"][i]}
+        y = _rmsnorm(x, lp["ln1"])
+        q, k, v = _qkv_proj(cfg, y, lp, "l")  # q [Lc,H,Dh], kv [Lc,Hkv,Dh]
+        if cfg.rope:
+            q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
+        _paged_write(pool_l, bids, boffs, k, v)
+        k_read, v_read = _paged_kv_read(pool_l, table[None])
+        attn = _masked_attention(cfg, q, k_read[0], v_read[0], pos_t)
+        x = x + torch.einsum("thk,hkd->td", attn, lp["wo"])
+        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+    x = _rmsnorm(x, params["final_norm"])
+    logits = torch.einsum("d,vd->v", x[clen - 1], params["embed"]).float()
+    return pool, logits

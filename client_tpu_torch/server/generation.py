@@ -1,25 +1,38 @@
 """Continuous (in-flight) batching engine for autoregressive generation:
-the port of ``client_tpu/server/generation.py``, restricted to its paged,
-token-prefill, non-speculative core.
+the port of ``client_tpu/server/generation.py``, restricted to its
+non-speculative core without the prefix cache and the dedicated lanes.
 
 Ragged concurrent streams share one fixed batch of S slots at token
 granularity: every engine step feeds each active slot exactly one token,
 the next prompt token while it is ingesting its prompt and its own
 selected successor once it is decoding, so prefill and decode are one
-uniform computation (``prefill_mode="token"``). Steps run in CHUNKS of
-``chunk`` tokens per dispatch (``paged_chunk_kernel``), and chunks are
-dispatched ahead (``dispatch_depth``): the next chunk's inputs depend only
-on host cursors, never on the previous chunk's token values, because the
-KV state stays on the card.
+uniform computation. Steps run in CHUNKS of ``chunk`` tokens per dispatch
+(``chunk_kernel`` / ``paged_chunk_kernel``), and chunks are dispatched
+ahead (``dispatch_depth``): the next chunk's inputs depend only on host
+cursors, never on the previous chunk's token values, because the KV state
+stays on the card.
 
-The KV data plane is paged (``kv_layout="paged"``): K/V rows live only in
-a layer-major block pool (``kv_cache.init_paged_pool``) and each slot
-addresses its sequence through a host-side block table. A request
-reserves its worst-case block count at admission, grows lazily, and
-frees its blocks on retire; admission and retirement are table edits,
-never device copies. Attention reads the pool through the tables: with
-``attn_impl="flash"`` that is the paged decode kernel (K2,
-``ops/paged_attention.py``), once per layer per step.
+Two KV data planes (``kv_layout``). ``"slot"`` (the default, as in the
+reference) backs every slot with static ``[layers, max_seq, Hkv, Dh]``
+rows of one ``[S, ...]`` state; a freed slot is recycled by resetting its
+position, and attention is the einsum over all max_seq rows, masked at
+the position. ``"paged"`` keeps K/V rows only in a layer-major block pool
+(``kv_cache.init_paged_pool``), each slot addressing its sequence through
+a host-side block table. A request reserves its worst-case block count at
+admission, grows lazily, and frees its blocks on retire; admission and
+retirement are table edits, never device copies. Attention reads the pool
+through the tables: with ``attn_impl="flash"`` that is the paged decode
+kernel (K2, ``ops/paged_attention.py``), once per layer per step.
+
+Three ways to take in a prompt (``prefill_mode``). ``"token"`` feeds it
+through the chunk kernel. ``"batched"`` (slot layout only) runs one
+forward over the bucket-padded prompt at admission and writes the slot's
+rows (``prefill_into_slot``). ``"chunked"`` ingests prompts longer than a
+chunk through resumable bucketed chunks (``prefill_chunk_into_slot``,
+``paged_prefill_chunk_into_slot``) dispatched ahead of each decode chunk,
+at most ``prefill_token_budget`` prompt tokens per round, round robin over
+the slots; while a slot's prompt rides that lane it is frozen in the
+decode chunk. Greedy output is the same in all three.
 
 Emitted tokens land in a device-resident token ring ([entries, S, chunk]
 int32): each dispatch writes its entry, and the host fetches one ring
@@ -36,11 +49,11 @@ Nothing on the dispatch path reads a device value on the host (no
 undo the dispatch-ahead. Greedy output does not depend on
 ``fetch_stride`` or ``overlap``.
 
-Knobs of the reference that this slice does not run (the other prefill
-modes, the slot layout, the prefix cache, the dedicated lanes, the host
-tier, speculation, the SLO scheduler and preemption, meshes and fleets,
-the watchdog, goodput and timeline planes) raise ``NotImplementedError``
-naming the ROADMAP item that ports them; none is silently ignored.
+Knobs of the reference that this slice does not run (the prefix cache,
+the dedicated lanes, the host tier, speculation, the SLO scheduler and
+preemption, meshes and fleets, the watchdog, goodput and timeline planes)
+raise ``NotImplementedError`` naming the ROADMAP item that ports them;
+none is silently ignored.
 """
 
 from __future__ import annotations
@@ -75,9 +88,6 @@ log = logging.getLogger(__name__)
 # the reference engine's knobs this slice leaves out -> the ROADMAP item
 # that ports them
 UNPORTED_KNOBS = {
-    "prefill": "A10b (chunked prefill lane)",
-    "prefill_chunk": "A10b (chunked prefill lane)",
-    "prefill_token_budget": "A10b (chunked prefill lane)",
     "prefix_cache": "A10c (prefix cache / radix commit)",
     "prefix_blocks": "A10c (prefix cache / radix commit)",
     "prefix_block_len": "A10c (prefix cache / radix commit)",
@@ -117,43 +127,149 @@ def reject_unported(knobs: dict) -> None:
 
 # ---------------------------------------------------------------- device side
 
-def paged_chunk_kernel(cfg, params: dict, pool: dict, pos, last, ring,
-                       ring_cnt, entry: int, tables, feed, rem, active,
-                       reset, reset_to, seeds, temps, topks, topps,
-                       sample: bool, attention=None) -> tuple:
-    """One engine chunk: C uniform steps over all S slots, every KV write
-    going through the block tables into the pool (the reference's
-    ``paged_chunk_kernel``, a Python loop over the steps here).
-
-    pos [S] int32 device positions; last [S] int32 each slot's pending
-    selected token; tables [S, Bw] int32; feed [S, C] int32 prompt
-    tokens, of which the first rem[s] columns are real; active [S] bool;
-    reset/reset_to [S]: a (re)admitted slot's position is set to
-    reset_to first; seeds/temps/topks/topps [S] per-slot sampling
-    parameters; ``sample`` (host bool) False takes the argmax without the
-    sampling machinery. Writes the consumed tokens [S, C] into ring entry
-    ``entry`` (columns >= rem[s] are generated tokens) and the pool, both
-    in place; returns (new last, new pos). Free slots park at position 0
-    and write scratch."""
+def _chunk_steps(step, pos, last, ring, ring_cnt, entry: int, feed, rem,
+                 active, freeze, seeds, temps, topks, topps,
+                 sample: bool) -> tuple:
+    """The C uniform steps both chunk kernels share (the reference's
+    ``lax.scan`` body, a Python loop here). ``step(tok, pos)`` feeds one
+    token per slot at ``pos`` and returns the logits [S, vocab]. A slot
+    advances (new ``last``, ``pos + 1``) while it is active and either
+    feeds a prompt column or is not frozen; a frozen slot holds ``pos``
+    and ``last`` once its prompt columns are consumed, and free slots park
+    at position 0 (``freeze`` None: no slot is frozen). Writes the
+    consumed tokens [S, C] into ring entry ``entry``; returns (new last,
+    new pos)."""
     c = feed.shape[1]
-    pos = torch.where(reset, reset_to, pos)
     cols = []
     for i in range(c):
         prompt_col = rem > i
         tok = torch.where(prompt_col, feed[:, i], last)
-        logits, pool = t.paged_decode_steps(cfg, params, tok, pos, tables,
-                                            pool, attention=attention)
+        logits = step(tok, pos)
         if sample:
             nxt = select_token(logits, seeds, pos, temps, topks, topps)
         else:
             nxt = logits.argmax(dim=-1).to(torch.int32)
-        last = torch.where(active, nxt, last)
-        pos = torch.where(active, pos + 1, torch.zeros_like(pos))
+        if freeze is None:
+            last = torch.where(active, nxt, last)
+            nxt_pos = pos + 1
+        else:
+            advance = active & (prompt_col | ~freeze)
+            last = torch.where(advance, nxt, last)
+            nxt_pos = torch.where(advance, pos + 1, pos)
+        pos = torch.where(active, nxt_pos, torch.zeros_like(pos))
         cols.append(tok)
     toks = torch.stack(cols, dim=1)
     n_emit = torch.where(active, c, 0).to(torch.int32)
     t.emit_into_ring(ring, ring_cnt, entry, toks, n_emit)
     return last, pos
+
+
+def chunk_kernel(cfg, params: dict, cache: dict, pos, last, ring, ring_cnt,
+                 entry: int, feed, rem, active, reset, freeze, seeds, temps,
+                 topks, topps, sample: bool) -> tuple:
+    """One engine chunk under the slot layout: C uniform steps over all S
+    slots (the reference's ``chunk_kernel``), each a batched
+    ``transformer.decode_step`` over the slots' own KV rows.
+
+    cache {``k``, ``v``} [S, layers, max_seq, Hkv, Dh], written IN PLACE;
+    pos [S] int32 device positions; last [S] int32 each slot's pending
+    selected token; feed [S, C] int32 prompt tokens, of which the first
+    rem[s] columns are real; active [S] bool; reset [S] bool: a
+    (re)admitted slot's position is set to 0 first; freeze [S] bool or
+    None (no slot frozen): a slot whose prompt ingestion rides the
+    chunked-prefill lane holds its pos and last (its frozen steps write
+    K/V at the held position, which its next lane chunk overwrites before
+    attending); seeds/temps/topks/
+    topps [S] per-slot sampling parameters; ``sample`` (host bool) False
+    takes the argmax without the sampling machinery. Returns (new last,
+    new pos)."""
+    pos = torch.where(reset, torch.zeros_like(pos), pos)
+
+    def step(tok, p):
+        return t.decode_step(cfg, params, tok, {**cache, "pos": p})[0]
+
+    return _chunk_steps(step, pos, last, ring, ring_cnt, entry, feed, rem,
+                        active, freeze, seeds, temps, topks, topps, sample)
+
+
+def paged_chunk_kernel(cfg, params: dict, pool: dict, pos, last, ring,
+                       ring_cnt, entry: int, tables, feed, rem, active,
+                       reset, reset_to, freeze, seeds, temps, topks, topps,
+                       sample: bool, attention=None) -> tuple:
+    """One engine chunk under the paged layout (the reference's
+    ``paged_chunk_kernel``): ``chunk_kernel``'s steps with every KV write
+    going through the block tables [S, Bw] int32 into the pool, IN PLACE,
+    and attention reading them back (``transformer.paged_decode_steps``:
+    the paged decode kernel K2 under ``attn_impl="flash"``, once per layer
+    per step for every slot, frozen or free ones included).
+    reset/reset_to [S]: a (re)admitted slot's position is set to reset_to
+    first. ``attention`` overrides the attention function (the plain K2,
+    for example). Free slots write scratch. Returns (new last, new
+    pos)."""
+    pos = torch.where(reset, reset_to, pos)
+
+    def step(tok, p):
+        return t.paged_decode_steps(cfg, params, tok, p, tables, pool,
+                                    attention=attention)[0]
+
+    return _chunk_steps(step, pos, last, ring, ring_cnt, entry, feed, rem,
+                        active, freeze, seeds, temps, topks, topps, sample)
+
+
+def _select_first(logits, pos, idx: int, sampling: tuple):
+    """The first generated token after a prompt, by the engine's rule, at
+    the prompt's last position ``pos[idx] - 1`` (read on the device: a
+    host scalar would be copied to the card with a wait). ``sampling`` =
+    (seed, temperature, top_k, top_p) as 0-d device tensors."""
+    seed, temp, top_k, top_p = sampling
+    return select_token(logits, seed, pos[idx] - 1, temp, top_k, top_p)
+
+
+def prefill_into_slot(cfg, params: dict, cache: dict, pos, last, idx: int,
+                      toks, plen: int, sampling: tuple) -> None:
+    """``prefill_mode="batched"`` admission, one forward: the
+    bucket-padded prompt ``toks`` through ``transformer.prefill``, the
+    first token selected at ``plen - 1`` into ``last[idx]``, the bucket's
+    K/V rows written into slot ``idx`` and its position set to ``plen``,
+    all IN PLACE (the reference donates the state). Rows past the bucket
+    keep stale K/V that decode overwrites before attending."""
+    st, logits = t.prefill(cfg, params, toks, plen, pad_to_max=False)
+    bucket = toks.shape[0]
+    for name in ("k", "v"):
+        cache[name][idx, :, :bucket] = st[name]
+    pos[idx] = plen
+    last[idx] = _select_first(logits, pos, idx, sampling)
+
+
+def prefill_chunk_into_slot(cfg, params: dict, cache: dict, pos, last,
+                            idx: int, toks, pos0: int, clen: int,
+                            final: bool, sampling: tuple) -> None:
+    """One chunked-prefill lane dispatch under the slot layout: slot
+    ``idx`` resumes its prompt at ``pos0`` with ``clen`` real tokens of the
+    bucket-padded chunk ``toks`` (``transformer.prefill_chunk``, writing
+    the chunk's rows into the slot's own rows), and its position becomes
+    ``pos0 + clen``. The prompt's ``final`` chunk also selects the first
+    generated token into ``last[idx]``, which the next decode chunk
+    consumes."""
+    slot_rows = {name: cache[name][idx] for name in ("k", "v")}
+    _, logits = t.prefill_chunk(cfg, params, toks, slot_rows, pos0, clen)
+    pos[idx] = pos0 + clen
+    if final:
+        last[idx] = _select_first(logits, pos, idx, sampling)
+
+
+def paged_prefill_chunk_into_slot(cfg, params: dict, pool: dict, pos, last,
+                                  idx: int, table, toks, pos0: int,
+                                  clen: int, final: bool,
+                                  sampling: tuple) -> None:
+    """``prefill_chunk_into_slot`` under the paged layout: the chunk's
+    rows go through the slot's full-width block table ``table`` [B] into
+    the pool (``transformer.paged_prefill_chunk``)."""
+    _, logits = t.paged_prefill_chunk(cfg, params, toks, table, pos0, pool,
+                                      clen)
+    pos[idx] = pos0 + clen
+    if final:
+        last[idx] = _select_first(logits, pos, idx, sampling)
 
 
 # ---------------------------------------------------------------- host side
@@ -300,19 +416,27 @@ class ContinuousBatchingEngine:
     (fetches issued ahead of delivery), ``queue_depth`` and
     ``shed_on_full`` (503 instead of blocking when the queue is full),
     ``fetch_stride``/``overlap``/``ring_entries`` (the ring fetch
-    cadence), ``kv_block_len``/``kv_pool_blocks``/
-    ``kv_max_blocks_per_slot`` (the paged pool). ``kv_layout`` must be
-    ``"paged"`` and ``prefill_mode`` ``"token"`` in this slice."""
+    cadence), ``kv_layout`` (``"slot"`` or ``"paged"``),
+    ``kv_block_len``/``kv_pool_blocks``/``kv_max_blocks_per_slot`` (the
+    paged pool), ``prefill_mode`` (``"token"``, ``"batched"`` or
+    ``"chunked"``; the legacy ``prefill`` bool maps True to
+    ``"batched"``, and ``prefill_mode`` wins when both are given),
+    ``prefill_chunk`` (the largest lane chunk; buckets of powers of two
+    from 8 up to it) and ``prefill_token_budget`` (lane tokens per round,
+    0 = one ``prefill_chunk``; a budget below the chunk dispatches
+    budget-sized chunks)."""
 
     PREFILL_MODES = ("token", "batched", "chunked")
     KV_LAYOUTS = ("slot", "paged")
 
     def __init__(self, cfg, params, n_slots: int = 8, chunk: int = 8,
                  dispatch_depth: int = 2, queue_depth: int = 256,
+                 prefill: bool = False, prefill_mode: Optional[str] = None,
+                 prefill_chunk: int = 64, prefill_token_budget: int = 0,
                  fetch_stride: int = 4, overlap: bool = True,
-                 ring_entries: int = 0, kv_layout: str = "paged",
-                 prefill_mode: str = "token", kv_block_len: int = 16,
-                 kv_pool_blocks: int = 0, kv_max_blocks_per_slot: int = 0,
+                 ring_entries: int = 0, kv_layout: str = "slot",
+                 kv_block_len: int = 16, kv_pool_blocks: int = 0,
+                 kv_max_blocks_per_slot: int = 0,
                  shed_on_full: bool = False, device=None,
                  name: str = "generation-engine", **unported):
         reject_unported(unported)
@@ -324,17 +448,39 @@ class ContinuousBatchingEngine:
             raise ValueError("ring_entries must be >= 0 (0 = auto)")
         if ring_entries == 1:
             raise ValueError("ring_entries must be >= 2 (0 = auto)")
+        mode = self.resolve_prefill_mode(prefill, prefill_mode)
         (self._kv_layout, self._kv_block_len, self._kv_pool_blocks,
          self._kv_max_blocks) = self.resolve_kv_layout(
             cfg, n_slots, kv_layout, kv_block_len, kv_pool_blocks,
-            kv_max_blocks_per_slot, prefill_mode)
+            kv_max_blocks_per_slot, mode)
+        self._paged = self._kv_layout == "paged"
+        if prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        if prefill_token_budget < 0:
+            raise ValueError("prefill_token_budget must be >= 0 "
+                             "(0 = one prefill_chunk per round)")
+        if mode == "chunked" and prefill_chunk > cfg.max_seq:
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} exceeds max_seq "
+                f"{cfg.max_seq}")
+        self._prefill_mode = mode
+        self._prefill_enabled = mode == "batched"
+        self._chunked_prefill = mode == "chunked"
+        self._prefill_chunk_len = int(prefill_chunk)
+        self._prefill_budget = self.resolve_prefill_budget(
+            mode, prefill_chunk, prefill_token_budget)
+        self._prefill_chunks_dispatched = 0
+        self._prefill_tokens_dispatched = 0
+        self._lane_rr = 0         # rotating lane scan start (engine thread)
         self._device = resolve_device(device)
         if self._device.type == "cuda" and self._device.index is None:
             # the engine thread sets its current device, which needs an
             # index: the caller's current card
             self._device = torch.device("cuda", torch.cuda.current_device())
-        self._kv_index = RadixBlockIndex(self._kv_pool_blocks,
-                                         self._kv_block_len)
+        # the paged layout's block allocator; the slot layout has none
+        self._kv_index = (RadixBlockIndex(self._kv_pool_blocks,
+                                          self._kv_block_len)
+                          if self._paged else None)
         self._cfg = cfg
         self._params_host = params
         self._n_slots = n_slots
@@ -372,10 +518,11 @@ class ContinuousBatchingEngine:
         self._draining = False
         self._thread: Optional[threading.Thread] = None
         self._dev: dict = {}
-        # engine-thread wall time by phase (seconds): admit (slot fill),
-        # dispatch (host batch build + kernel enqueue), retire_fetch
+        # engine-thread wall time by phase (seconds): admit (slot fill,
+        # batched prefill included), dispatch (host batch build + kernel
+        # enqueue), prefill (the chunked lane's dispatches), retire_fetch
         # (blocking on the ring D2H), retire_deliver (token distribution)
-        self._phase_s = {"admit": 0.0, "dispatch": 0.0,
+        self._phase_s = {"admit": 0.0, "dispatch": 0.0, "prefill": 0.0,
                          "retire_fetch": 0.0, "retire_deliver": 0.0}
         # stream time between CUDA events around each dispatch's kernels
         # (with a host-bound loop this is the enqueue time, not busy time)
@@ -399,38 +546,32 @@ class ContinuousBatchingEngine:
                           kv_max_blocks_per_slot: int,
                           prefill_mode: str) -> tuple:
         """Validate the KV layout knobs; returns ``(layout, block_len,
-        pool_blocks, max_blocks_per_slot)``. ``kv_block_len`` must divide
-        ``max_seq``; ``kv_pool_blocks`` 0 sizes the pool for n_slots x
-        max_seq tokens plus the scratch block; ``kv_max_blocks_per_slot``
-        0 covers max_seq. The slot layout and the batched and chunked
-        prefill modes are not ported yet and raise."""
+        pool_blocks, max_blocks_per_slot)``, the paged knobs 0 under the
+        slot layout. ``kv_block_len`` must divide ``max_seq``;
+        ``prefill_mode="batched"`` is refused under the paged layout (the
+        monolithic prefill writes whole slot rows, and a paged engine has
+        none); ``kv_pool_blocks`` 0 sizes the pool for n_slots x max_seq
+        tokens plus the scratch block; ``kv_max_blocks_per_slot`` 0
+        covers max_seq."""
         if kv_layout not in ContinuousBatchingEngine.KV_LAYOUTS:
             raise ValueError(
                 f"unknown kv_layout {kv_layout!r} (expected one of "
                 f"{ContinuousBatchingEngine.KV_LAYOUTS})")
         if kv_layout == "slot":
-            raise NotImplementedError(
-                'kv_layout="slot" is not ported yet: ROADMAP A10d (slot '
-                'layout); use kv_layout="paged"')
-        if prefill_mode not in ContinuousBatchingEngine.PREFILL_MODES:
-            raise ValueError(
-                f"unknown prefill_mode {prefill_mode!r} (expected one of "
-                f"{ContinuousBatchingEngine.PREFILL_MODES})")
-        if prefill_mode == "batched":
-            raise ValueError(
-                'prefill_mode="batched" is unsupported under '
-                'kv_layout="paged": the monolithic prefill writes whole '
-                'slot rows and a paged engine has no slot arrays')
-        if prefill_mode != "token":
-            raise NotImplementedError(
-                f'prefill_mode="{prefill_mode}" is not ported yet: ROADMAP '
-                f'A10b (chunked prefill lane); use prefill_mode="token"')
+            return ("slot", 0, 0, 0)
         bl = int(kv_block_len)
         if bl < 1 or cfg.max_seq % bl:
             raise ValueError(
                 f"kv_block_len {bl} must be >= 1 and divide max_seq "
                 f"{cfg.max_seq} (paged block tables must cover the "
                 f"context exactly)")
+        if prefill_mode == "batched":
+            raise ValueError(
+                'prefill_mode="batched" is unsupported under '
+                'kv_layout="paged": the monolithic prefill writes whole '
+                'slot rows and a paged engine has no slot arrays; use '
+                'prefill_mode="chunked" (the lane writes through the block '
+                'tables) or "token"')
         b_max = cfg.max_seq // bl
         mb = int(kv_max_blocks_per_slot) or b_max
         if not 0 < mb <= b_max:
@@ -442,6 +583,31 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 "kv_pool_blocks must be >= 2 (block 0 is reserved scratch)")
         return ("paged", bl, pool, mb)
+
+    @staticmethod
+    def resolve_prefill_mode(prefill: bool,
+                             prefill_mode: Optional[str]) -> str:
+        """The prompt-ingestion mode from the legacy ``prefill`` bool and
+        ``prefill_mode``: the mode wins when given; the bool maps True to
+        ``"batched"`` and False to ``"token"``."""
+        if prefill_mode is None:
+            return "batched" if prefill else "token"
+        if prefill_mode not in ContinuousBatchingEngine.PREFILL_MODES:
+            raise ValueError(
+                f"unknown prefill_mode {prefill_mode!r} (expected one of "
+                f"{ContinuousBatchingEngine.PREFILL_MODES})")
+        return prefill_mode
+
+    @staticmethod
+    def resolve_prefill_budget(mode: str, prefill_chunk: int,
+                               prefill_token_budget: int) -> int:
+        """The lane's tokens per round: under ``"chunked"`` 0 means one
+        ``prefill_chunk``, and the budget is at least 1, so a waiting lane
+        slot always makes progress; other modes pass the value
+        through."""
+        if mode != "chunked":
+            return int(prefill_token_budget)
+        return max(1, int(prefill_token_budget) or int(prefill_chunk))
 
     @staticmethod
     def ring_shape(fetch_stride: int, overlap: bool, dispatch_depth: int,
@@ -466,14 +632,52 @@ class ContinuousBatchingEngine:
     def active_slots(self) -> int:
         return sum(1 for s in self._slots if s.req is not None)
 
+    def _prefill_backlog(self) -> int:
+        """Prompt tokens of occupied slots not dispatched yet (read from
+        any thread: each slot's request is read once)."""
+        total = 0
+        for slot in self._slots:
+            req = slot.req
+            if req is not None:
+                total += max(0, len(req.prompt) - slot.cursor)
+        return total
+
+    def _prefill_lane_snapshot(self) -> Optional[dict]:
+        """The chunked-prefill lane's state; None unless
+        ``prefill_mode="chunked"``."""
+        if not self._chunked_prefill:
+            return None
+        return {"mode": self._prefill_mode,
+                "chunk": self._prefill_chunk_len,
+                "token_budget": self._prefill_budget,
+                "chunks": self._prefill_chunks_dispatched,
+                "tokens": self._prefill_tokens_dispatched,
+                "backlog_tokens": self._prefill_backlog()}
+
+    def _paged_snapshot(self) -> Optional[dict]:
+        """The paged pool's occupancy; None under the slot layout."""
+        if not self._paged:
+            return None
+        occ = self._kv_index.occupancy()
+        return {"layout": self._kv_layout,
+                "block_len": self._kv_block_len,
+                "max_blocks_per_slot": self._kv_max_blocks,
+                "blocks": occ["usable"],
+                "blocks_live": occ["stream"],
+                "blocks_free": occ["free"],
+                "blocks_reserved": occ["reserved"],
+                "blocked_requests": self._pending.parked}
+
     def stats(self) -> dict:
         """Instantaneous engine counters: chunk dispatches, tokens
-        emitted, phase seconds of the engine thread, the ring and the pool
-        occupancy."""
-        occ = self._kv_index.occupancy()
+        emitted, phase seconds of the engine thread, the ring, the
+        chunked-prefill lane and the pool occupancy (the last two None
+        where the engine has none)."""
         return {
             "n_slots": self._n_slots,
             "chunk": self._chunk,
+            "kv_layout": self._kv_layout,
+            "prefill_mode": self._prefill_mode,
             "slots_active": self.active_slots(),
             "queue_depth": self._pending.qsize(),
             "chunks_dispatched": self._chunks_dispatched,
@@ -487,13 +691,8 @@ class ContinuousBatchingEngine:
                      "fetch_stride": self._stride,
                      "overlap": self._overlap,
                      "fetch_lag": self._ring_seq - self._retired_seq},
-            "kv_paged": {"block_len": self._kv_block_len,
-                         "max_blocks_per_slot": self._kv_max_blocks,
-                         "blocks": occ["usable"],
-                         "blocks_live": occ["stream"],
-                         "blocks_free": occ["free"],
-                         "blocks_reserved": occ["reserved"],
-                         "blocked_requests": self._pending.parked},
+            "prefill_lane": self._prefill_lane_snapshot(),
+            "kv_paged": self._paged_snapshot(),
         }
 
     # ---------------------------------------------------------- lifecycle
@@ -595,19 +794,21 @@ class ContinuousBatchingEngine:
         if not -2 ** 31 <= int(seed) < 2 ** 31:
             raise ServerError(f"seed {seed} does not fit in int32", 400)
         budget = min(int(max_new_tokens), self._cfg.max_seq - len(prompt))
-        cap = self._kv_max_blocks * self._kv_block_len
-        if len(prompt) >= cap:
-            raise ServerError(
-                f"prompt of {len(prompt)} tokens leaves no room to generate "
-                f"within the paged per-stream cap {cap} "
-                f"(kv_max_blocks_per_slot x kv_block_len)", 400)
-        budget = min(budget, cap - len(prompt))
-        need = -(-(len(prompt) + budget) // self._kv_block_len)
-        if need > self._kv_index.usable_blocks:
-            raise ServerError(
-                f"request needs {need} KV blocks (prompt {len(prompt)} + "
-                f"budget {budget} at kv_block_len {self._kv_block_len}) but "
-                f"the pool holds only {self._kv_index.usable_blocks}", 400)
+        if self._paged:
+            cap = self._kv_max_blocks * self._kv_block_len
+            if len(prompt) >= cap:
+                raise ServerError(
+                    f"prompt of {len(prompt)} tokens leaves no room to "
+                    f"generate within the paged per-stream cap {cap} "
+                    f"(kv_max_blocks_per_slot x kv_block_len)", 400)
+            budget = min(budget, cap - len(prompt))
+            need = -(-(len(prompt) + budget) // self._kv_block_len)
+            if need > self._kv_index.usable_blocks:
+                raise ServerError(
+                    f"request needs {need} KV blocks (prompt {len(prompt)} "
+                    f"+ budget {budget} at kv_block_len "
+                    f"{self._kv_block_len}) but the pool holds only "
+                    f"{self._kv_index.usable_blocks}", 400)
         req = _Request(prompt, budget, eos_id, temperature=float(temperature),
                        top_k=int(top_k), top_p=float(top_p), seed=int(seed))
         req.enqueue_ns = now_ns()
@@ -661,24 +862,39 @@ class ContinuousBatchingEngine:
     # ---------------------------------------------------------- device side
 
     def _ensure_ready(self) -> None:
-        """Place the weights, build the pool, positions and ring on the
-        engine's device, and run one all-inactive chunk of each kernel
-        variant (greedy and sampled), so the kernels' libraries are built
-        before the first request. Runs on the engine thread."""
-        if "params" in self._dev:
+        """Place the weights, build the KV state (the slot rows or the
+        pool), positions and ring on the engine's device, and run one
+        all-inactive chunk of each kernel variant (greedy and sampled), so
+        the kernels' libraries are built before the first request. Runs
+        on the engine thread."""
+        if "ready" in self._dev:
             return
         cfg, s, c, dev = self._cfg, self._n_slots, self._chunk, self._device
-        self._dev["pool"] = init_paged_pool(cfg, self._kv_pool_blocks,
-                                            self._kv_block_len, dev)
-        self._dev["table_buckets"] = block_count_buckets(
-            cfg.max_seq // self._kv_block_len)
+        if self._paged:
+            self._dev["pool"] = init_paged_pool(cfg, self._kv_pool_blocks,
+                                                self._kv_block_len, dev)
+            self._dev["table_buckets"] = block_count_buckets(
+                cfg.max_seq // self._kv_block_len)
+            self._dev["pos"] = t.init_paged_state(s, dev)["pos"]
+        else:
+            state = t.init_decode_state(cfg, s, dev)
+            self._dev["cache"] = {"k": state["k"], "v": state["v"]}
+            self._dev["pos"] = state["pos"]
+        if self._prefill_enabled:
+            # prompts of at most one chunk take the token-level path
+            self._dev["prefill_buckets"] = block_count_buckets(
+                cfg.max_seq, start=8, skip_upto=c)
+        if self._chunked_prefill:
+            # power-of-two lane chunks up to prefill_chunk: a tail chunk
+            # pads to the smallest bucket that covers it
+            self._dev["pchunk_buckets"] = block_count_buckets(
+                self._prefill_chunk_len, start=8)
         self._dev["ring"] = torch.zeros((self._ring_entries, s, c),
                                         dtype=torch.int32, device=dev)
         self._dev["ring_cnt"] = torch.zeros((self._ring_entries, s),
                                             dtype=torch.int32, device=dev)
-        self._dev["pos"] = t.init_paged_state(s, dev)["pos"]
         self._dev["last"] = torch.zeros((s,), dtype=torch.int32, device=dev)
-        params = _to_device(self._params_host, dev)
+        self._dev["params"] = _to_device(self._params_host, dev)
         # the engine has no reload path: drop the caller's copy
         self._params_host = None
         zi = torch.zeros((s,), dtype=torch.int32, device=dev)
@@ -687,13 +903,29 @@ class ContinuousBatchingEngine:
         tab0 = torch.zeros((s, 1), dtype=torch.int32, device=dev)
         feed0 = torch.zeros((s, c), dtype=torch.int32, device=dev)
         for sample in (False, True):
-            self._dev["last"], self._dev["pos"] = paged_chunk_kernel(
-                cfg, params, self._dev["pool"], self._dev["pos"],
-                self._dev["last"], self._dev["ring"], self._dev["ring_cnt"],
-                0, tab0, feed0, zi, zb, zb, zi, zi, zf, zi, zf, sample)
+            self._launch_chunk(0, tab0, feed0, zi, zb, zb, zi, zb, zi, zf,
+                               zi, zf, sample)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        self._dev["params"] = params   # set last: its presence means ready
+        self._dev["ready"] = True
+
+    def _launch_chunk(self, entry: int, tables, feed, rem, active, reset,
+                      reset_to, freeze, seeds, temps, topks, topps,
+                      sample: bool) -> None:
+        """Enqueue one chunk kernel of the engine's layout on its device
+        state (``tables`` and ``reset_to`` are the paged layout's)."""
+        dev = self._dev
+        if self._paged:
+            dev["last"], dev["pos"] = paged_chunk_kernel(
+                self._cfg, dev["params"], dev["pool"], dev["pos"],
+                dev["last"], dev["ring"], dev["ring_cnt"], entry, tables,
+                feed, rem, active, reset, reset_to, freeze, seeds, temps,
+                topks, topps, sample)
+        else:
+            dev["last"], dev["pos"] = chunk_kernel(
+                self._cfg, dev["params"], dev["cache"], dev["pos"],
+                dev["last"], dev["ring"], dev["ring_cnt"], entry, feed, rem,
+                active, reset, freeze, seeds, temps, topks, topps, sample)
 
     def _upload(self, arrays: list) -> list:
         """Copy this dispatch's host inputs to the device in ONE transfer:
@@ -767,9 +999,12 @@ class ContinuousBatchingEngine:
         return tab
 
     def _free_slot_paged(self, slot: _Slot) -> None:
-        """Return a slot's blocks and unused reservation (idempotent).
-        Kernels already enqueued keep reading their table snapshot; any
-        later writer of a freed block is enqueued behind them."""
+        """Return a slot's blocks and unused reservation (idempotent; the
+        slot layout has nothing to return). Kernels already enqueued keep
+        reading their table snapshot; any later writer of a freed block is
+        enqueued behind them."""
+        if self._kv_index is None:
+            return
         self._kv_index.free(slot.blocks)
         if slot.reserved_left:
             self._kv_index.unreserve(slot.reserved_left)
@@ -788,11 +1023,15 @@ class ContinuousBatchingEngine:
                 self._free_slot_paged(slot)
 
     def _admit(self, held: Optional[_Request] = None) -> bool:
-        """Fill free slots in FIFO order (``held`` first). A request whose
-        reservation fails is parked back at the queue head and stops
-        admission, so a big request is never starved by later small ones.
-        Returns True if any slot is occupied afterwards."""
-        for slot in self._slots:
+        """Fill free slots in FIFO order (``held`` first). Under the paged
+        layout a request whose reservation fails is parked back at the
+        queue head and stops admission, so a big request is never starved
+        by later small ones; the slot layout admits with no tables (the
+        next chunk resets the slot's position while its cursor is 0).
+        Under ``prefill_mode="batched"`` a prompt longer than one chunk is
+        ingested here, by one forward. Returns True if any slot is
+        occupied afterwards."""
+        for i, slot in enumerate(self._slots):
             if slot.req is not None:
                 continue
             req = staged = None
@@ -809,12 +1048,13 @@ class ContinuousBatchingEngine:
                         cand.parked = False
                         self._pending.unpark()
                     continue
-                staged = self._try_reserve_paged(cand)
-                if staged is None:
-                    first = not cand.parked
-                    cand.parked = True
-                    self._pending.push_front(cand, parked=first)
-                    break
+                if self._paged:
+                    staged = self._try_reserve_paged(cand)
+                    if staged is None:
+                        first = not cand.parked
+                        cand.parked = True
+                        self._pending.push_front(cand, parked=first)
+                        break
                 req = cand
                 break
             if req is None:
@@ -826,36 +1066,184 @@ class ContinuousBatchingEngine:
             slot.cursor = 0
             slot.pos_hi = 0
             slot.decode_dispatched = 0
+            slot.pos_pending = None
             self.gen_stats.record_queue_wait(now_ns() - req.enqueue_ns)
-            self._bind_paged(slot, staged)
+            if self._paged:
+                self._bind_paged(slot, staged)
+            elif self._prefill_enabled and len(req.prompt) > self._chunk:
+                self._prefill_slot(i, req, slot)
         if held is not None:   # no free slot took it
             self._pending.push_front(held)
         return any(s.req is not None for s in self._slots)
 
-    def _dispatch(self) -> tuple:
-        """Launch this iteration's chunk over every active slot (async)."""
-        return self._dispatch_chunk(self._prepare_paged_round())
+    def _sampling(self, req: _Request) -> tuple:
+        """A request's sampling parameters as host arrays for ``_upload``:
+        (int32 [seed, top_k], float32 [temperature, top_p])."""
+        return (np.asarray([req.seed, req.top_k], np.int32),
+                np.asarray([req.temperature, req.top_p], np.float32))
 
-    def _prepare_paged_round(self) -> np.ndarray:
+    def _prefill_slot(self, idx: int, req: _Request, slot: _Slot) -> None:
+        """Admit by batched prefill: one forward over the bucket-padded
+        prompt writes the slot's rows and selects the first token, behind
+        any chunk already enqueued (which saw this slot free). The whole
+        prompt is consumed, so the slot's first chunk decodes (its cursor
+        is not 0, so no reset)."""
+        plen = len(req.prompt)
+        bucket = next(b for b in self._dev["prefill_buckets"] if b >= plen)
+        padded = np.zeros(bucket, np.int32)
+        padded[:plen] = req.prompt
+        toks, ints, floats = self._upload([padded, *self._sampling(req)])
+        dev = self._dev
+        prefill_into_slot(self._cfg, dev["params"], dev["cache"], dev["pos"],
+                          dev["last"], idx, toks, plen,
+                          (ints[0], floats[0], ints[1], floats[1]))
+        slot.cursor = plen
+        slot.pos_hi = plen
+
+    def _in_lane(self, slot: _Slot, req: _Request) -> bool:
+        """True while a slot's prompt belongs to the chunked-prefill lane:
+        more than one chunk of prompt left (a shorter tail feeds through
+        the chunk kernel) and the smallest lane bucket still fits below
+        max_seq (a chunk must never clamp at the end of the rows)."""
+        if not self._chunked_prefill:
+            return False
+        if len(req.prompt) - slot.cursor <= self._chunk:
+            return False
+        return (slot.cursor + self._dev["pchunk_buckets"][0]
+                <= self._cfg.max_seq)
+
+    def _slot_modes(self) -> list:
+        """Each slot's work this round: None (free), "prefill" (a frozen
+        rider whose prompt goes through the lane) or "chunk" (prompt
+        feeding or decode in the chunk kernel)."""
+        return [None if s.req is None
+                else "prefill" if self._in_lane(s, s.req) else "chunk"
+                for s in self._slots]
+
+    def _dispatch_prefill_lane(self) -> int:
+        """This round's lane chunks: up to ``prefill_token_budget`` prompt
+        tokens, one chunk per lane slot per pass, round robin from a start
+        that rotates across rounds (a fixed start would let the lowest
+        slot take a one-chunk budget for its whole prompt); passes repeat
+        while budget remains. Returns the lane tokens dispatched."""
+        budget = self._prefill_budget
+        dispatched = 0
+        progress = True
+        while progress and dispatched < budget:
+            progress = False
+            start = self._lane_rr % self._n_slots
+            for off in range(self._n_slots):
+                i = (start + off) % self._n_slots
+                slot = self._slots[i]
+                req = slot.req
+                if req is None or req.finished \
+                        or not self._in_lane(slot, req):
+                    continue
+                if dispatched >= budget:
+                    break
+                clen, bucket = self._lane_chunk_shape(slot, req,
+                                                      budget - dispatched)
+                if clen <= 0:
+                    continue
+                self._dispatch_prefill_chunk(i, slot, req, clen, bucket)
+                self._lane_rr = i + 1
+                dispatched += clen
+                progress = True
+        return dispatched
+
+    def _lane_chunk_shape(self, slot: _Slot, req: _Request,
+                          budget_left: int) -> tuple:
+        """(clen, bucket) of one lane chunk: min(prefill_chunk, prompt
+        left, budget left) real tokens, in the smallest bucket that covers
+        them and still fits below max_seq."""
+        pos0 = slot.cursor
+        clen = min(self._prefill_chunk_len, len(req.prompt) - pos0,
+                   budget_left)
+        fit = self._cfg.max_seq - pos0
+        usable = [b for b in self._dev["pchunk_buckets"] if b <= fit]
+        if not usable:
+            return 0, 0
+        bucket = next((b for b in usable if b >= clen), usable[-1])
+        return min(clen, bucket), bucket
+
+    def _dispatch_prefill_chunk(self, idx: int, slot: _Slot, req: _Request,
+                                clen: int, bucket: int) -> None:
+        """One lane chunk (async): ``clen`` prompt tokens into slot
+        ``idx`` from its cursor; the prompt's final chunk selects the
+        first generated token into the device ``last``, which the decode
+        chunk of the same round consumes. Under the paged layout the
+        chunk's real rows get their blocks first and the kernel sets the
+        position itself, which takes the place of a pending reset."""
+        pos0 = slot.cursor
+        padded = np.zeros(bucket, np.int32)
+        padded[:clen] = req.prompt[pos0:pos0 + clen]
+        final = pos0 + clen >= len(req.prompt)
+        arrays = [padded, *self._sampling(req)]
+        if self._paged:
+            self._ensure_blocks(slot, req, pos0 + clen)
+            row = np.zeros((self._cfg.max_seq // self._kv_block_len,),
+                           np.int32)
+            row[:len(slot.blocks)] = slot.blocks
+            slot.pos_pending = None
+            arrays.append(row)
+        toks, ints, floats, *table = self._upload(arrays)
+        sampling = (ints[0], floats[0], ints[1], floats[1])
+        dev = self._dev
+        if self._paged:
+            paged_prefill_chunk_into_slot(
+                self._cfg, dev["params"], dev["pool"], dev["pos"],
+                dev["last"], idx, table[0], toks, pos0, clen, final,
+                sampling)
+        else:
+            prefill_chunk_into_slot(
+                self._cfg, dev["params"], dev["cache"], dev["pos"],
+                dev["last"], idx, toks, pos0, clen, final, sampling)
+        slot.cursor += clen
+        slot.pos_hi = max(slot.pos_hi, slot.cursor)
+        self._prefill_chunks_dispatched += 1
+        self._prefill_tokens_dispatched += clen
+        self.gen_stats.record_prefill_chunk(clen)
+
+    def _dispatch(self) -> list:
+        """Launch this round's device work (async): the chunked-prefill
+        lane first, so a prompt whose final chunk lands now decodes in the
+        same round's chunk, then one chunk over the slots that feed a
+        prompt or decode. Returns the ring entries dispatched (none when
+        every occupied slot rides the lane)."""
+        if self._chunked_prefill:
+            t_pf = time.perf_counter()
+            self._dispatch_prefill_lane()
+            self._phase_s["prefill"] += time.perf_counter() - t_pf
+        modes = self._slot_modes()
+        if "chunk" not in modes:
+            return []
+        tables = self._prepare_paged_round(modes) if self._paged else None
+        return [self._dispatch_chunk(modes, tables)]
+
+    def _prepare_paged_round(self, modes: list) -> np.ndarray:
         """Grow the block tables to cover this round's writes (lazily, out
         of each stream's reservation) and snapshot them at a width that
-        covers every live block and every position the chunk may write."""
+        covers every live block and every position the chunk may write
+        (a frozen rider advances nothing)."""
         width = 1
-        for slot in self._slots:
+        for slot, mode in zip(self._slots, modes):
             if slot.req is None:
                 continue
-            self._ensure_blocks(slot, slot.req, slot.pos_hi + self._chunk)
+            adv = self._chunk if mode == "chunk" else 0
+            if adv:
+                self._ensure_blocks(slot, slot.req, slot.pos_hi + adv)
             width = max(width, len(slot.blocks),
-                        (slot.pos_hi + self._chunk) // self._kv_block_len + 1)
+                        (slot.pos_hi + adv) // self._kv_block_len + 1)
         return self._build_tables(width)
 
-    def _dispatch_chunk(self, tables: np.ndarray) -> tuple:
+    def _dispatch_chunk(self, modes: list, tables) -> tuple:
         s, c = self._n_slots, self._chunk
         feed = np.zeros((s, c), np.int32)
         rem = np.zeros((s,), np.int32)
         active = np.zeros((s,), np.bool_)
         reset = np.zeros((s,), np.bool_)
         reset_to = np.zeros((s,), np.int32)
+        freeze = np.zeros((s,), np.bool_)
         seeds = np.zeros((s,), np.int32)
         temps = np.zeros((s,), np.float32)
         topks = np.zeros((s,), np.int32)
@@ -868,10 +1256,22 @@ class ContinuousBatchingEngine:
                 meta.append((None, 0))
                 continue
             active[i] = True
-            if slot.pos_pending is not None:
-                reset[i] = True
-                reset_to[i] = slot.pos_pending
-                slot.pos_pending = None
+            if self._paged:
+                # a paged admission's reset rides the next kernel as data;
+                # a lane chunk sets the position itself and clears it
+                if slot.pos_pending is not None:
+                    reset[i] = True
+                    reset_to[i] = slot.pos_pending
+                    slot.pos_pending = None
+            else:
+                reset[i] = slot.cursor == 0
+            if modes[i] == "prefill":
+                # a lane rider: frozen, feeds and delivers nothing; its
+                # frozen steps' K/V write at the held position is
+                # overwritten by its next lane chunk before it is attended
+                freeze[i] = True
+                meta.append((req, c))
+                continue
             seeds[i] = req.seed
             temps[i] = req.temperature
             topks[i] = req.top_k
@@ -889,23 +1289,25 @@ class ContinuousBatchingEngine:
                     # every token the stream may still emit is in flight
                     eager_free.append(slot)
         sample = bool(temps.max(initial=0.0) > 0)
-        (tab_d, feed_d, rem_d, active_d, reset_d, reset_to_d, seeds_d,
-         temps_d, topks_d, topps_d) = self._upload(
-            [tables, feed, rem, active, reset, reset_to, seeds, temps,
-             topks, topps])
+        arrays = [feed, rem, active, reset, freeze, seeds, temps, topks,
+                  topps]
+        if self._paged:
+            arrays += [tables, reset_to]
+        (feed_d, rem_d, active_d, reset_d, freeze_d, seeds_d, temps_d,
+         topks_d, topps_d, *paged) = self._upload(arrays)
+        tab_d, reset_to_d = paged or (None, None)
         seq = self._ring_seq
         self._ring_seq += 1
-        dev = self._dev
         timing = None
         if self._device.type == "cuda":
             timing = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             timing[0].record()
-        dev["last"], dev["pos"] = paged_chunk_kernel(
-            self._cfg, dev["params"], dev["pool"], dev["pos"], dev["last"],
-            dev["ring"], dev["ring_cnt"], seq % self._ring_entries, tab_d,
-            feed_d, rem_d, active_d, reset_d, reset_to_d, seeds_d, temps_d,
-            topks_d, topps_d, sample)
+        # with no lane rider the steps skip the freeze masking
+        self._launch_chunk(seq % self._ring_entries, tab_d, feed_d, rem_d,
+                           active_d, reset_d, reset_to_d,
+                           freeze_d if freeze.any() else None, seeds_d,
+                           temps_d, topks_d, topps_d, sample)
         if timing is not None:
             timing[1].record()
         for slot in eager_free:
@@ -1042,8 +1444,13 @@ class ContinuousBatchingEngine:
                 continue
             if any(s.req is not None for s in self._slots):
                 t_disp = time.perf_counter()
-                unfetched.append(self._dispatch())
-                self._phase_s["dispatch"] += time.perf_counter() - t_disp
+                pf_before = self._phase_s["prefill"]
+                unfetched.extend(self._dispatch())
+                # the lane's time went to "prefill" inside _dispatch: the
+                # phases partition the thread's time
+                self._phase_s["dispatch"] += (
+                    time.perf_counter() - t_disp
+                    - (self._phase_s["prefill"] - pf_before))
             active_now = any(s.req is not None for s in self._slots)
             # issue a fetch at the stride, before the ring could wrap an
             # unfetched entry, when overlap is off, or to flush the tail

@@ -147,9 +147,10 @@ class GenerationStats:
     port's engine feeds: time to first token (engine enqueue to the first
     emitted token), inter-token latency (``(last_emit - first_token) /
     (tokens - 1)`` per completed stream of >= 2 tokens), queue wait
-    (enqueue to slot admission), tokens emitted, stream outcomes and the
-    batched ring fetches. The reference's prefix, speculation, lane,
-    tier, scheduler and goodput counters wait for their slices. All
+    (enqueue to slot admission), tokens emitted, stream outcomes, the
+    batched ring fetches and the chunked-prefill lane's chunks and tokens.
+    The reference's prefix, speculation, dedicated-lane, tier, scheduler
+    and goodput counters wait for their slices. All
     mutators take ns; the engine thread writes, any thread reads."""
 
     def __init__(self):
@@ -163,6 +164,8 @@ class GenerationStats:
         self.cancelled = 0
         self.ring_fetches = 0
         self.ring_forced_fetches = 0
+        self.prefill_chunks = 0
+        self.prefill_tokens = 0
 
     def record_queue_wait(self, ns: int) -> None:
         with self._lock:
@@ -203,6 +206,13 @@ class GenerationStats:
             if forced:
                 self.ring_forced_fetches += 1
 
+    def record_prefill_chunk(self, tokens: int) -> None:
+        """One chunked-prefill lane dispatch ingested ``tokens`` prompt
+        tokens (the real count, not the bucket's padding)."""
+        with self._lock:
+            self.prefill_chunks += 1
+            self.prefill_tokens += max(0, int(tokens))
+
     def snapshot(self) -> dict:
         with self._lock:
             return {
@@ -215,4 +225,6 @@ class GenerationStats:
                 "cancelled": self.cancelled,
                 "ring_fetches": self.ring_fetches,
                 "ring_forced_fetches": self.ring_forced_fetches,
+                "prefill_chunks": self.prefill_chunks,
+                "prefill_tokens": self.prefill_tokens,
             }

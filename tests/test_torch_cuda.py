@@ -15,8 +15,10 @@ views in another layout and of the QKV slab, and views that 16-byte
 copies cannot take; for paged decode attention head dims 64 and 128,
 blocks of 8 and 16 rows, table widths that split over clusters of 1 to 8
 CTAs, positions on every split boundary, empty shares, an out-of-pool
-block id, grouped queries, pool slabs read through other strides, and a
-small generation engine whose every decode step goes through the kernel.
+block id, grouped queries, pool slabs read through other strides, a
+small generation engine whose every decode step goes through the kernel,
+and the same engine on the slot layout under each prefill mode and on the
+paged layout under the chunked lane.
 The CUDA shared-memory data plane: a zero-copy in-process read, output
 rows read back from the response callback of the pre-split path, and the
 cross-process attachment's device copy held until the seqno moves.
@@ -465,7 +467,8 @@ def test_small_engine_goes_through_the_paged_kernel(card):
                            cfg)
     jobs = ragged_generation_jobs(3, 97, 6, (1, 20), (3, 30), 64)
     eng = ContinuousBatchingEngine(cfg, params, n_slots=4, chunk=4,
-                                   kv_block_len=8, device="cuda").start()
+                                   kv_layout="paged", kv_block_len=8,
+                                   device="cuda").start()
     try:
         list(eng.submit(np.zeros(3, np.int32), 2))   # engine ready
         chunks0, before = eng.stats()["chunks_dispatched"], pa.launches
@@ -475,6 +478,54 @@ def test_small_engine_goes_through_the_paged_kernel(card):
         assert pa.launches - before == 2 * 4 * chunks
     finally:
         eng.stop()
+    for (prompt, budget), got in zip(jobs, toks):
+        want = offline_sample(cfg, params, prompt, budget, block_len=8,
+                              attention=pa.paged_decode_attention_reference)
+        assert got == want
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(prefill_mode="batched"),
+    dict(prefill_mode="chunked", prefill_chunk=16),
+    dict(kv_layout="paged", kv_block_len=8, prefill_mode="chunked",
+         prefill_chunk=16)], ids=["slot_token", "slot_batched",
+                                  "slot_chunked", "paged_chunked"])
+def test_small_engine_layouts_and_prefill_modes_on_the_card(card, kw):
+    """A small f32 engine on the card under the slot layout (each prefill
+    mode) and the paged chunked lane: greedy streams equal the same
+    weights' S=1 decode through the plain K2; K2 launches only on the
+    paged layout, n_layers x chunk per chunk dispatch (lane riders
+    included), and the lane dispatched chunks."""
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.models.sampling import offline_sample
+    from client_tpu_torch.perf.bench_harness import (
+        ragged_generation_jobs,
+        run_engine_jobs,
+    )
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = t.TransformerConfig(vocab_size=97, d_model=64, n_layers=2,
+                              n_heads=4, head_dim=16, d_ff=128, max_seq=64,
+                              dtype=torch.float32, attn_impl="flash")
+    params = t.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    jobs = ragged_generation_jobs(5, 97, 6, (1, 40), (3, 20), 64)
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=4, chunk=4,
+                                   device="cuda", **kw).start()
+    try:
+        list(eng.submit(np.zeros(3, np.int32), 2))   # engine ready
+        stats0, before = eng.stats(), pa.launches
+        _, _, toks = run_engine_jobs(eng, jobs, collect=True,
+                                     join_timeout_s=300)
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    chunks = stats["chunks_dispatched"] - stats0["chunks_dispatched"]
+    paged = kw.get("kv_layout") == "paged"
+    assert pa.launches - before == (2 * 4 * chunks if paged else 0)
+    if "prefill_chunk" in kw:
+        assert stats["prefill_lane"]["chunks"] > 0
     for (prompt, budget), got in zip(jobs, toks):
         want = offline_sample(cfg, params, prompt, budget, block_len=8,
                               attention=pa.paged_decode_attention_reference)

@@ -74,6 +74,7 @@ def jax_streams(model, jobs):
 def _port_engine(model, **kw):
     _, _, tcfg, tparams = model
     return ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+                                    kv_layout="paged",
                                     **{**ENGINE, **kw}).start()
 
 
@@ -199,7 +200,7 @@ def test_concurrent_submitters_stress(model):
     ("prefix_cache", True, "A10c"), ("speculative_draft", object(), "A10h"),
     ("prefill_slots", 2, "A10e"), ("host_tier_bytes", 1, "A10f"),
     ("scheduler", True, "A10g"), ("mesh", object(), "A12"),
-    ("kv_layout", "slot", "A10d"), ("prefill_mode", "chunked", "A10b")])
+    ("prefix_block_len", 8, "A10c"), ("dispatch_duty", 0.5, "A10g")])
 def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                                         item):
     _, _, tcfg, tparams = model
@@ -249,7 +250,7 @@ def test_served_decoupled_path_streams_tokens_then_the_final_flag(
     core = TorchInferenceServer()
     core.register_model(make_continuous_generator(
         "gen", cfg=tcfg, params=tparams, device="cpu", n_slots=4,
-        chunk_size=4, kv_block_len=4), warmup=True)
+        chunk_size=4, kv_layout="paged", kv_block_len=4), warmup=True)
     try:
         cfg_json = core.model_config("gen")
         assert cfg_json["model_transaction_policy"] == {"decoupled": True}

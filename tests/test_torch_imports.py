@@ -59,7 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.perf.client_backend",
                      "client_tpu_torch.perf.load_manager",
                      "client_tpu_torch.perf.concurrency_manager",
-                     "client_tpu_torch.perf.inference_profiler"):
+                     "client_tpu_torch.perf.inference_profiler",
+                     "client_tpu_torch.bench"):
         assert expected in result["modules"]
 
 
