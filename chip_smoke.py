@@ -79,6 +79,24 @@ each printing one JSON line:
              dispatch of every run, and profiles one greedy slot-layout
              chunk dispatch outside the engine as the generate phase does
              the paged one.
+9. generate_prefix
+             the prefix cache at the same width: the reference perf
+             analyzer's shared-prefix workload (16 streams of a 128-token
+             prefix, cut from 256 to fit max_seq 192, and a 32-token suffix,
+             budget 32, from the port's DataLoader), 32 requests from 16
+             threads rotating over the streams, so each thread's second
+             request finds its first one's prompt committed. Three runs:
+             prefix_cache on the slot layout (plain attention, the pool<->slot
+             copies), on the paged layout (K2 over tables whose heads are
+             shared blocks; 12 x 16 launches per chunk dispatch), and off on
+             the slot layout. Each prefix run must show at least 16 hits and
+             16 x 128 saved tokens; after the drain no trie node may hold a
+             ref, and the paged pool must hold no stream block and no
+             reservation (free + prefix = usable). Every greedy stream is
+             teacher-forced as above. Prints each run's tokens/s, TTFT
+             (the engine's, and the client's for the first and second
+             request of every thread), ITL, hits, misses, saved tokens,
+             commits, evictions and host ms per dispatch.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -137,6 +155,12 @@ GREEDY_GAP = 0.1
 # generate_slot: the chunked (slot, paged) and batched runs take the first
 # 8 of bench.py's 32 jobs, at full width, to keep the script's time
 PREFILL_JOBS = 8
+# generate_prefix: the reference perf analyzer's shared-prefix workload
+# (client_tpu/perf/__main__.py: 16 streams, suffix 32, budget 32, vocab
+# 1024) with the prefix cut from 256 to 128 tokens, so that prompt and
+# budget fit max_seq 192; 2 requests per stream from 16 threads
+PREFIX_STREAMS, PREFIX_LEN, PREFIX_SUFFIX, PREFIX_BUDGET = 16, 128, 32, 32
+PREFIX_VOCAB, PREFIX_REQUESTS = 1024, 32
 
 # the serve_shm phase: requests of the correctness run; bench.py's
 # headline and latency-bounded points with the window (6000 ms), stability
@@ -958,14 +982,18 @@ def _generation_model() -> tuple:
 
 
 def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
-                      **engine_kw) -> dict:
+                      n_threads: int = 0, settled=None, **engine_kw) -> dict:
     """Serve ``jobs`` through make_continuous_generator and
     TorchInferenceServer.infer with a response callback, one thread each,
-    all started together; check that every stream streamed exactly its
-    budget of in-vocab tokens and then one final flag (its greedy streams
-    go to ``_judge_greedy``). The K2 and K1 launch counters are
-    set to 0 just before the streams start and read just after they end.
-    Returns the run's counters and latencies."""
+    all started together (with ``n_threads``, thread k sends jobs k,
+    k + n_threads, ... one after another); check that every stream
+    streamed exactly its budget of in-vocab tokens and then one final flag
+    (its greedy streams go to ``_judge_greedy``). The K2 and K1 launch
+    counters are set to 0 just before the streams start and read just
+    after they end. ``settled(engine)``, called once the streams are done
+    and before the server stops, adds its dict to the result. Returns the
+    run's counters and latencies, with each job's TTFT as its client saw
+    it."""
     from client_tpu_torch.models.decoder_lm import make_continuous_generator
     from client_tpu_torch.ops import flash_attention as fa
     from client_tpu_torch.ops import paged_attention as pa
@@ -981,10 +1009,13 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
     register_s = time.time() - t0
     streams: list = [[] for _ in jobs]
     finals = [0] * len(jobs)
+    sent = [0.0] * len(jobs)
+    first = [0.0] * len(jobs)
     errors: list = []
-    go = threading.Barrier(len(jobs))
+    n_threads = n_threads or len(jobs)
+    go = threading.Barrier(n_threads)
 
-    def client(i):
+    def one(i):
         prompt, budget = jobs[i]
 
         def cb(resp, final):
@@ -995,18 +1026,27 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
             else:
                 if finals[i]:
                     errors.append(f"job {i}: a token after the final flag")
+                if not streams[i]:
+                    first[i] = time.perf_counter()
                 streams[i].append(int(resp.output("TOKEN").data[0]))
 
+        # the stream runs on this thread: infer returns after its final
+        # response
+        sent[i] = time.perf_counter()
+        core.infer(_stream_request(prompt, budget, sampling[i]),
+                   response_callback=cb)
+
+    def client(k):
         try:
             go.wait(timeout=60)
-            core.infer(_stream_request(prompt, budget, sampling[i]),
-                       response_callback=cb)
+            for i in range(k, len(jobs), n_threads):
+                one(i)
         except Exception as e:  # noqa: BLE001 — failed below
-            errors.append(f"job {i}: {type(e).__name__}: {e}")
+            errors.append(f"thread {k}: {type(e).__name__}: {e}")
 
     engine = model.engine
-    threads = [threading.Thread(target=client, args=(i,))
-               for i in range(len(jobs))]
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_threads)]
     try:
         before = engine.stats()
         # the main path: counters at 0 just before, read just after
@@ -1021,6 +1061,7 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
         k2, k1 = pa.launches, fa.launches
         after = engine.stats()
         snap = engine.gen_stats.snapshot()
+        extra = settled(engine) if settled is not None else {}
     finally:
         core.stop()
     if errors or any(th.is_alive() for th in threads):
@@ -1056,7 +1097,12 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
         "phase_seconds": phase_s,
         "ttft_mean_ms": ttft[1] / max(1, ttft[2]) / 1e6,
         "itl_mean_ms": itl[1] / max(1, itl[2]) / 1e6,
+        "client_ttft_ms": [(f - s0) * 1e3 for s0, f in zip(sent, first)],
+        "prefix_hits": snap["prefix_hits"],
+        "prefix_misses": snap["prefix_misses"],
+        "prefix_saved_tokens": snap["prefix_saved_tokens"],
         "register_with_warmup_s": register_s,
+        **extra,
         # (prompt + served tokens, prompt length) of the greedy streams,
         # for _judge_greedy
         "greedy_streams": [(np.concatenate([jobs[i][0], streams[i]]),
@@ -1145,6 +1191,108 @@ def phase_generate_slot(gen_model: tuple) -> dict:
     return result
 
 
+def _shared_prefix_jobs() -> list:
+    """The shared-prefix workload as the port's perf DataLoader builds it,
+    PREFIX_REQUESTS (prompt, budget) jobs rotating over its streams."""
+    from client_tpu_torch.perf.data_loader import DataLoader
+    from client_tpu_torch.perf.model_parser import TensorInfo
+
+    loader = DataLoader(1)
+    loader.generate_shared_prefix_data(
+        {"PROMPT": TensorInfo("PROMPT", "INT32", [-1]),
+         "MAX_TOKENS": TensorInfo("MAX_TOKENS", "INT32", [1])},
+        prefix_len=PREFIX_LEN, suffix_len=PREFIX_SUFFIX,
+        n_streams=PREFIX_STREAMS, vocab=PREFIX_VOCAB,
+        max_tokens=PREFIX_BUDGET)
+    return [(loader.get_input_data("PROMPT", r % PREFIX_STREAMS).astype(
+        np.int32), int(loader.get_input_data("MAX_TOKENS", 0)[0]))
+        for r in range(PREFIX_REQUESTS)]
+
+
+def _prefix_settled(engine) -> dict:
+    """The prefix index once the engine thread has freed the last slot:
+    its counters, its occupancy and the trie nodes still holding a ref
+    (None of them for an engine without the cache)."""
+    deadline = time.time() + 30
+    while engine.active_slots() and time.time() < deadline:
+        time.sleep(0.01)
+    index = engine._prefix_index
+    return {"slots_active_after": engine.active_slots(),
+            "prefix_cache": None if index is None else index.snapshot(),
+            "occupancy": None if index is None else index.occupancy(),
+            "pinned_nodes": None if index is None else index.pinned_nodes()}
+
+
+def phase_generate_prefix(gen_model: tuple) -> dict:
+    """The prefix cache at bench.py's generation width: the shared-prefix
+    workload on the slot layout and on the paged layout (K2) with
+    prefix_cache on, and on the slot layout with it off."""
+    import dataclasses
+
+    cfg, params, _ = gen_model
+    jobs = _shared_prefix_jobs()
+    greedy = [None] * len(jobs)
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    t0 = time.time()
+    runs = []
+    for label, run_cfg, kw in (
+            ("prefix_slot", cfg, dict(prefix_cache=True)),
+            ("prefix_paged", flash, dict(prefix_cache=True,
+                                         kv_layout="paged",
+                                         kv_block_len=GEN_BLOCK)),
+            ("no_prefix_slot", cfg, dict(prefix_cache=False))):
+        runs.append(_serve_generation(
+            label, run_cfg, params, jobs, greedy, n_threads=PREFIX_STREAMS,
+            settled=_prefix_settled, prefix_block_len=GEN_BLOCK, **kw))
+    t1 = time.time()
+    _judge_greedy(cfg, params, runs)
+    t2 = time.time()
+    for run in runs:
+        name = run["run"]
+        paged = run["kv_layout"] == "paged"
+        want = LAYERS * GEN_CHUNK * run["chunk_dispatches"] if paged else 0
+        if run["paged_decode_attention_launches"] != want \
+                or run["flash_attention_launches"]:
+            fail(f"generate_prefix: the {name} run launched "
+                 f"paged_decode_attention "
+                 f"{run['paged_decode_attention_launches']} times (expected "
+                 f"{want}) and flash_attention "
+                 f"{run['flash_attention_launches']} times (expected 0)")
+        if run["slots_active_after"]:
+            fail(f"generate_prefix: {name}: {run['slots_active_after']} "
+                 f"slots still held after the drain")
+        # each thread's first request against its second
+        ttft = run.pop("client_ttft_ms")
+        run["client_ttft_first_wave_mean_ms"] = float(
+            np.mean(ttft[:PREFIX_STREAMS]))
+        run["client_ttft_second_wave_mean_ms"] = float(
+            np.mean(ttft[PREFIX_STREAMS:]))
+        if run["prefix_cache"] is None:
+            if run["prefix_hits"] or run["prefix_misses"]:
+                fail(f"generate_prefix: {name} counted prefix lookups "
+                     f"with the cache off")
+            continue
+        if run["prefix_hits"] < PREFIX_STREAMS \
+                or run["prefix_saved_tokens"] < PREFIX_STREAMS * PREFIX_LEN:
+            fail(f"generate_prefix: {name}: {run['prefix_hits']} hits and "
+                 f"{run['prefix_saved_tokens']} saved tokens, expected at "
+                 f"least {PREFIX_STREAMS} and {PREFIX_STREAMS * PREFIX_LEN}")
+        if run["pinned_nodes"]:
+            fail(f"generate_prefix: {name}: {run['pinned_nodes']} trie "
+                 f"nodes still pinned after the drain")
+        occ = run["occupancy"]
+        if paged and (occ["stream"] or occ["reserved"]
+                      or occ["free"] + occ["prefix"] != occ["usable"]):
+            fail(f"generate_prefix: {name}: blocks left behind after the "
+                 f"drain: {occ}")
+    result = {"phase": "generate_prefix", "streams": PREFIX_STREAMS,
+              "prefix_len": PREFIX_LEN, "suffix_len": PREFIX_SUFFIX,
+              "budget": PREFIX_BUDGET, "requests": PREFIX_REQUESTS,
+              "runs": runs, "seconds": {"serve": t1 - t0, "judge": t2 - t1}}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -1171,6 +1319,8 @@ def main() -> int:
     gen_model = timed("generation_model", _generation_model)
     generate = timed("generate", phase_generate, gen_model)
     generate_slot = timed("generate_slot", phase_generate_slot, gen_model)
+    generate_prefix = timed("generate_prefix", phase_generate_prefix,
+                            gen_model)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -1198,6 +1348,8 @@ def main() -> int:
             generate["paged_decode_attention_launches"], paged_timing,
             generate=generate["paged_decode_attention_launches"],
             generate_slot_chunked_paged=generate_slot["runs"][2][
+                "paged_decode_attention_launches"],
+            generate_prefix_paged=generate_prefix["runs"][1][
                 "paged_decode_attention_launches"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

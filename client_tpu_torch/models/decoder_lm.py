@@ -20,7 +20,12 @@ import torch
 from client_tpu_torch.device import resolve_device
 from client_tpu_torch.models import transformer as t
 from client_tpu_torch.models.sampling import MAX_TOP_K
-from client_tpu_torch.server.config import ModelConfig, TensorSpec
+from client_tpu_torch.server.config import (
+    GenerationEngineConfig,
+    ModelConfig,
+    PrefixCacheConfig,
+    TensorSpec,
+)
 from client_tpu_torch.server.generation import (
     ContinuousBatchingEngine,
     reject_unported,
@@ -105,6 +110,10 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               kv_block_len: int = 16,
                               kv_pool_blocks: int = 0,
                               kv_max_blocks_per_slot: int = 0,
+                              prefix_cache: bool = False,
+                              prefix_blocks: int = 256,
+                              prefix_block_len: int = 16,
+                              prefix_commit_policy: str = "all",
                               queue_depth: int = 256,
                               shed_on_full: bool = False,
                               device=None, **unported) -> ContinuousModel:
@@ -117,11 +126,26 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     default to random weights from ``seed``, drawn on ``device`` (CUDA by
     default, raising without it; the CPU only when asked for). The engine
     knobs and their defaults are the reference's (the slot layout,
-    token-level prefill). The engine is built now and started by the
-    first request."""
+    token-level prefill, no prefix cache). The config's
+    ``generation_engine`` and ``prefix_cache`` blocks advertise what the
+    engine runs, resolved by the engine's own rules, so a bad combination
+    raises here. The engine is built now and started by the first
+    request."""
     reject_unported(unported)
-    dev = resolve_device(device)
     cfg = cfg or decode_config()
+    eng = ContinuousBatchingEngine
+    eff_mode = eng.resolve_prefill_mode(prefill, prefill_mode)
+    eff_budget = eng.resolve_prefill_budget(eff_mode, prefill_chunk,
+                                            prefill_token_budget)
+    eff_stride, eff_entries = eng.ring_shape(fetch_stride, overlap,
+                                             dispatch_depth, ring_entries)
+    kv = eng.resolve_kv_layout(
+        cfg, n_slots, kv_layout, kv_block_len,
+        kv_pool_blocks, kv_max_blocks_per_slot, eff_mode, prefix_cache,
+        prefix_block_len)
+    eng.resolve_prefix(cfg, kv[0], prefix_cache,
+                       prefix_block_len, prefix_commit_policy)
+    dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -139,6 +163,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             kv_block_len=kv_block_len,
             kv_pool_blocks=kv_pool_blocks,
             kv_max_blocks_per_slot=kv_max_blocks_per_slot,
+            prefix_cache=prefix_cache, prefix_blocks=prefix_blocks,
+            prefix_block_len=prefix_block_len,
+            prefix_commit_policy=prefix_commit_policy,
             shed_on_full=shed_on_full, device=dev, name=name)
 
     model: ContinuousModel = None  # bound below; stream_fn reads it live
@@ -165,6 +192,19 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
         # streams block in the engine, not on device work: admit more of
         # them than there are slots so retiring slots refill at once
         instance_count=max(instance_count, 2 * n_slots),
+        generation_engine=GenerationEngineConfig(
+            n_slots=n_slots, chunk=chunk_size,
+            dispatch_depth=dispatch_depth, fetch_stride=eff_stride,
+            overlap=overlap, ring_entries=eff_entries,
+            prefill_mode=eff_mode, prefill_chunk=prefill_chunk,
+            prefill_token_budget=eff_budget, kv_layout=kv[0],
+            kv_block_len=kv[1], kv_pool_blocks=kv[2],
+            kv_max_blocks_per_slot=kv[3]),
+        prefix_cache=(PrefixCacheConfig(
+            enabled=True, pool_blocks=prefix_blocks,
+            block_len=prefix_block_len,
+            commit_policy=prefix_commit_policy)
+            if prefix_cache else None),
     )
     model = ContinuousModel(config, stream_fn, fresh_engine)
     return model

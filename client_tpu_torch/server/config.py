@@ -2,14 +2,16 @@
 ``client_tpu/server/config.py``, with the fields an encoder served
 behind the dynamic batcher and a decoupled (streaming) generator use.
 
-The generation-engine, fleet, SLO, sequence, ensemble and sharding blocks
-of the reference wait for the slices that use them. ``platform`` and
-``backend`` read ``"pytorch"``.
+The generator's ``generation_engine`` and ``prefix_cache`` blocks carry
+the engine knobs the port runs; the fleet, SLO, sequence, ensemble,
+speculation and sharding blocks of the reference wait for the slices that
+use them. ``platform`` and ``backend`` read ``"pytorch"`` (the reference's
+generator says ``"python"``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from typing import Optional
 
 
@@ -84,6 +86,52 @@ class DynamicBatchingConfig:
 
 
 @dataclass
+class PrefixCacheConfig:
+    """Prefix-aware KV block reuse of a generation engine
+    (``server/kv_cache.py``): prompt prefixes shared across requests at
+    ``block_len``-token granularity out of a pool of ``pool_blocks``
+    blocks. ``commit_policy``: ``all`` (evict LRU leaves for room),
+    ``no-evict`` (free blocks only) or ``none`` (a read-only pool)."""
+
+    enabled: bool = False
+    pool_blocks: int = 256
+    block_len: int = 16
+    commit_policy: str = "all"
+
+    def to_json(self):
+        return asdict(self)
+
+
+@dataclass
+class GenerationEngineConfig:
+    """The continuous-batching engine's shape (``server/generation.py``),
+    limited to the knobs the port's engine runs: slot count, chunk,
+    dispatch depth, the ring fetch cadence (``fetch_stride``, ``overlap``,
+    ``ring_entries``), the prompt-ingestion mode and its lane, and the KV
+    layout with its pool geometry (0s under ``slot``). Configs built by
+    ``make_continuous_generator`` advertise the EFFECTIVE values the
+    engine's own resolvers give, so introspection agrees with what the
+    engine runs."""
+
+    n_slots: int = 8
+    chunk: int = 8
+    dispatch_depth: int = 2
+    fetch_stride: int = 4
+    overlap: bool = True
+    ring_entries: int = 0
+    prefill_mode: str = "token"
+    prefill_chunk: int = 64
+    prefill_token_budget: int = 0
+    kv_layout: str = "slot"
+    kv_block_len: int = 0
+    kv_pool_blocks: int = 0
+    kv_max_blocks_per_slot: int = 0
+
+    def to_json(self):
+        return asdict(self)
+
+
+@dataclass
 class ModelConfig:
     name: str
     platform: str = "pytorch"
@@ -106,6 +154,8 @@ class ModelConfig:
     # decoupled transaction policy: the model streams zero or more
     # responses per request (served only through a response callback)
     decoupled: bool = False
+    prefix_cache: Optional[PrefixCacheConfig] = None
+    generation_engine: Optional[GenerationEngineConfig] = None
 
     # ---- derived ----
     def input_spec_maps(self) -> tuple:
@@ -158,6 +208,10 @@ class ModelConfig:
             j["dynamic_batching"] = self.dynamic_batching.to_json()
         if self.queue_policy is not None:
             j["queue_policy"] = self.queue_policy.to_json()
+        if self.prefix_cache is not None:
+            j["prefix_cache"] = self.prefix_cache.to_json()
+        if self.generation_engine is not None:
+            j["generation_engine"] = self.generation_engine.to_json()
         return j
 
     def metadata_json(self, versions) -> dict:

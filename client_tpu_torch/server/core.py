@@ -207,6 +207,14 @@ class TorchInferenceServer:
             raise ServerError(
                 f"model '{request.model_name}' is decoupled; use the "
                 "streaming API", 400)
+        if entry.model.config.decoupled and request.timeout_us:
+            # the reference turns the wire timeout into the stream's
+            # deadline; until that context is ported a timeout is refused,
+            # not ignored
+            raise ServerError(
+                f"model '{request.model_name}' is decoupled: a 'timeout' on "
+                "a stream is not supported yet (its deadline arrives with "
+                "the streaming context, ROADMAP A10j)", 400)
 
         if response_callback is not None:
             def sink_cb(resp: InferResponse, final: bool) -> None:

@@ -1,6 +1,7 @@
 """Continuous (in-flight) batching engine for autoregressive generation:
 the port of ``client_tpu/server/generation.py``, restricted to its
-non-speculative core without the prefix cache and the dedicated lanes.
+non-speculative core with the prefix cache and without the dedicated
+lanes.
 
 Ragged concurrent streams share one fixed batch of S slots at token
 granularity: every engine step feeds each active slot exactly one token,
@@ -23,6 +24,16 @@ admission, grows lazily, and frees its blocks on retire; admission and
 retirement are table edits, never device copies. Attention reads the pool
 through the tables: with ``attn_impl="flash"`` that is the paged decode
 kernel (K2, ``ops/paged_attention.py``), once per layer per step.
+
+Prefix cache (``prefix_cache``). A radix index over token-id blocks
+(``kv_cache.RadixBlockIndex``) shares the K/V rows of prompt prefixes
+across requests. On admission the longest full-block match is pinned and
+the prompt resumes from its end; on retire the prompt's full blocks are
+committed. Under the slot layout the committed rows live in a block pool
+in front of the slots, reached through two copies (``pool_to_slot``,
+``slot_to_pool``); under the paged layout the pool already holds them, so
+a hit puts the shared blocks at the head of the slot's table and a commit
+hands the stream's own blocks to the trie, with no copy either way.
 
 Three ways to take in a prompt (``prefill_mode``). ``"token"`` feeds it
 through the chunk kernel. ``"batched"`` (slot layout only) runs one
@@ -49,8 +60,8 @@ Nothing on the dispatch path reads a device value on the host (no
 undo the dispatch-ahead. Greedy output does not depend on
 ``fetch_stride`` or ``overlap``.
 
-Knobs of the reference that this slice does not run (the prefix cache,
-the dedicated lanes, the host tier, speculation, the SLO scheduler and
+Knobs of the reference that this slice does not run (the dedicated
+lanes, the host tier, speculation, the SLO scheduler and
 preemption, meshes and fleets, the watchdog, goodput and timeline planes)
 raise ``NotImplementedError`` naming the ROADMAP item that ports them;
 none is silently ignored.
@@ -72,9 +83,14 @@ from client_tpu_torch.device import resolve_device
 from client_tpu_torch.models import transformer as t
 from client_tpu_torch.models.sampling import MAX_TOP_K, select_token
 from client_tpu_torch.server.kv_cache import (
+    COMMIT_POLICIES,
     RadixBlockIndex,
     block_count_buckets,
+    init_block_pool,
     init_paged_pool,
+    pad_block_ids,
+    pool_to_slot,
+    slot_to_pool,
 )
 from client_tpu_torch.server.model import (
     finish_host_copies,
@@ -88,10 +104,6 @@ log = logging.getLogger(__name__)
 # the reference engine's knobs this slice leaves out -> the ROADMAP item
 # that ports them
 UNPORTED_KNOBS = {
-    "prefix_cache": "A10c (prefix cache / radix commit)",
-    "prefix_blocks": "A10c (prefix cache / radix commit)",
-    "prefix_block_len": "A10c (prefix cache / radix commit)",
-    "prefix_commit_policy": "A10c (prefix cache / radix commit)",
     "prefill_slots": "A10e (dedicated lanes)",
     "prefill_lane_width": "A10e (dedicated lanes)",
     "prefill_lane_batch": "A10e (dedicated lanes)",
@@ -278,7 +290,7 @@ class _Request:
     __slots__ = ("prompt", "budget", "eos_id", "temperature", "top_k",
                  "top_p", "seed", "out", "emitted", "finished",
                  "enqueue_ns", "first_token_ns", "last_emit_ns",
-                 "cap_tokens", "parked")
+                 "cap_tokens", "parked", "prefix")
 
     def __init__(self, prompt: np.ndarray, budget: int, eos_id: int,
                  temperature: float = 0.0, top_k: int = 0,
@@ -299,11 +311,12 @@ class _Request:
         # the stream's worst-case context: the paged reservation bound
         self.cap_tokens = len(prompt) + budget
         self.parked = False       # waiting at the queue head for blocks
+        self.prefix = None        # the pinned PrefixHandle of a cache hit
 
 
 class _Slot:
     __slots__ = ("req", "cursor", "pos_hi", "decode_dispatched", "blocks",
-                 "reserved_left", "pos_pending")
+                 "n_shared", "reserved_left", "pos_pending")
 
     def __init__(self):
         self.req: Optional[_Request] = None
@@ -315,10 +328,13 @@ class _Slot:
         # every token the stream may still emit is in flight
         self.decode_dispatched = 0
         # pool block ids in position order (entry i covers rows
-        # [i*block_len, (i+1)*block_len)), the admission reservation not
-        # yet drawn, and the position the next dispatch resets the slot
-        # to (admission is a table edit; the reset rides the next kernel)
+        # [i*block_len, (i+1)*block_len)), of which the first n_shared are
+        # the trie's (a prefix hit's chain, read-only and pinned through
+        # the request), the admission reservation not yet drawn, and the
+        # position the next dispatch resets the slot to (admission is a
+        # table edit; the reset rides the next kernel)
         self.blocks: list = []
+        self.n_shared = 0
         self.reserved_left = 0
         self.pos_pending: Optional[int] = None
 
@@ -422,9 +438,15 @@ class ContinuousBatchingEngine:
     ``"chunked"``; the legacy ``prefill`` bool maps True to
     ``"batched"``, and ``prefill_mode`` wins when both are given),
     ``prefill_chunk`` (the largest lane chunk; buckets of powers of two
-    from 8 up to it) and ``prefill_token_budget`` (lane tokens per round,
+    from 8 up to it), ``prefill_token_budget`` (lane tokens per round,
     0 = one ``prefill_chunk``; a budget below the chunk dispatches
-    budget-sized chunks)."""
+    budget-sized chunks), and the prefix cache: ``prefix_cache``,
+    ``prefix_blocks`` (the slot layout's pool; the paged pool is the
+    prefix pool), ``prefix_block_len`` (the reuse granularity; under the
+    paged layout it must equal ``kv_block_len``) and
+    ``prefix_commit_policy`` (``"all"`` evicts LRU leaves for room,
+    ``"no-evict"`` takes free blocks only, ``"none"`` keeps the pool
+    read-only)."""
 
     PREFILL_MODES = ("token", "batched", "chunked")
     KV_LAYOUTS = ("slot", "paged")
@@ -437,6 +459,9 @@ class ContinuousBatchingEngine:
                  ring_entries: int = 0, kv_layout: str = "slot",
                  kv_block_len: int = 16, kv_pool_blocks: int = 0,
                  kv_max_blocks_per_slot: int = 0,
+                 prefix_cache: bool = False, prefix_blocks: int = 256,
+                 prefix_block_len: int = 16,
+                 prefix_commit_policy: str = "all",
                  shed_on_full: bool = False, device=None,
                  name: str = "generation-engine", **unported):
         reject_unported(unported)
@@ -452,8 +477,24 @@ class ContinuousBatchingEngine:
         (self._kv_layout, self._kv_block_len, self._kv_pool_blocks,
          self._kv_max_blocks) = self.resolve_kv_layout(
             cfg, n_slots, kv_layout, kv_block_len, kv_pool_blocks,
-            kv_max_blocks_per_slot, mode)
+            kv_max_blocks_per_slot, mode, prefix_cache, prefix_block_len)
         self._paged = self._kv_layout == "paged"
+        self.resolve_prefix(cfg, self._kv_layout, prefix_cache,
+                            prefix_block_len, prefix_commit_policy)
+        # _kv_index is the paged layout's block allocator and the prefix
+        # cache's trie, one object when both are on (they share the paged
+        # pool at kv_block_len); _prefix_index marks prefix matching on
+        if prefix_cache or self._paged:
+            self._kv_index: Optional[RadixBlockIndex] = RadixBlockIndex(
+                self._kv_pool_blocks if self._paged else prefix_blocks,
+                self._kv_block_len if self._paged else prefix_block_len)
+        else:
+            self._kv_index = None
+        self._prefix_index = self._kv_index if prefix_cache else None
+        self._prefix_blocks = prefix_blocks
+        self._prefix_block_len = (self._kv_block_len if self._paged
+                                  else prefix_block_len)
+        self._prefix_policy = prefix_commit_policy
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         if prefill_token_budget < 0:
@@ -477,10 +518,6 @@ class ContinuousBatchingEngine:
             # the engine thread sets its current device, which needs an
             # index: the caller's current card
             self._device = torch.device("cuda", torch.cuda.current_device())
-        # the paged layout's block allocator; the slot layout has none
-        self._kv_index = (RadixBlockIndex(self._kv_pool_blocks,
-                                          self._kv_block_len)
-                          if self._paged else None)
         self._cfg = cfg
         self._params_host = params
         self._n_slots = n_slots
@@ -544,15 +581,18 @@ class ContinuousBatchingEngine:
     def resolve_kv_layout(cfg, n_slots: int, kv_layout: str,
                           kv_block_len: int, kv_pool_blocks: int,
                           kv_max_blocks_per_slot: int,
-                          prefill_mode: str) -> tuple:
+                          prefill_mode: str, prefix_cache: bool = False,
+                          prefix_block_len: int = 16) -> tuple:
         """Validate the KV layout knobs; returns ``(layout, block_len,
         pool_blocks, max_blocks_per_slot)``, the paged knobs 0 under the
         slot layout. ``kv_block_len`` must divide ``max_seq``;
         ``prefill_mode="batched"`` is refused under the paged layout (the
         monolithic prefill writes whole slot rows, and a paged engine has
-        none); ``kv_pool_blocks`` 0 sizes the pool for n_slots x max_seq
-        tokens plus the scratch block; ``kv_max_blocks_per_slot`` 0
-        covers max_seq."""
+        none); with ``prefix_cache`` on, ``prefix_block_len`` must equal
+        ``kv_block_len`` there (decode and the cache share one pool);
+        ``kv_pool_blocks`` 0 sizes the pool for n_slots x max_seq tokens
+        plus the scratch block; ``kv_max_blocks_per_slot`` 0 covers
+        max_seq."""
         if kv_layout not in ContinuousBatchingEngine.KV_LAYOUTS:
             raise ValueError(
                 f"unknown kv_layout {kv_layout!r} (expected one of "
@@ -572,6 +612,11 @@ class ContinuousBatchingEngine:
                 'slot rows and a paged engine has no slot arrays; use '
                 'prefill_mode="chunked" (the lane writes through the block '
                 'tables) or "token"')
+        if prefix_cache and int(prefix_block_len) != bl:
+            raise ValueError(
+                f'kv_layout="paged" shares one block pool between decode '
+                f'and the prefix cache: prefix_block_len {prefix_block_len} '
+                f'must equal kv_block_len {bl}')
         b_max = cfg.max_seq // bl
         mb = int(kv_max_blocks_per_slot) or b_max
         if not 0 < mb <= b_max:
@@ -583,6 +628,26 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 "kv_pool_blocks must be >= 2 (block 0 is reserved scratch)")
         return ("paged", bl, pool, mb)
+
+    @staticmethod
+    def resolve_prefix(cfg, kv_layout: str, prefix_cache: bool,
+                       prefix_block_len: int,
+                       prefix_commit_policy: str) -> None:
+        """Validate the prefix-cache knobs wherever the engine builds an
+        index (``prefix_cache`` on, or the paged layout, whose allocator
+        is the index): the commit policy must be known, and under the
+        slot layout ``0 < prefix_block_len < max_seq`` (the paged rule is
+        ``resolve_kv_layout``'s)."""
+        if not (prefix_cache or kv_layout == "paged"):
+            return
+        if prefix_commit_policy not in COMMIT_POLICIES:
+            raise ValueError(
+                f"unknown prefix_commit_policy {prefix_commit_policy!r} "
+                f"(expected one of {COMMIT_POLICIES})")
+        if kv_layout == "slot" and not 0 < prefix_block_len < cfg.max_seq:
+            raise ValueError(
+                f"prefix_block_len {prefix_block_len} must be in "
+                f"(0, max_seq={cfg.max_seq})")
 
     @staticmethod
     def resolve_prefill_mode(prefill: bool,
@@ -671,8 +736,8 @@ class ContinuousBatchingEngine:
     def stats(self) -> dict:
         """Instantaneous engine counters: chunk dispatches, tokens
         emitted, phase seconds of the engine thread, the ring, the
-        chunked-prefill lane and the pool occupancy (the last two None
-        where the engine has none)."""
+        chunked-prefill lane, the pool occupancy and the prefix index (the
+        last three None where the engine has none)."""
         return {
             "n_slots": self._n_slots,
             "chunk": self._chunk,
@@ -693,6 +758,8 @@ class ContinuousBatchingEngine:
                      "fetch_lag": self._ring_seq - self._retired_seq},
             "prefill_lane": self._prefill_lane_snapshot(),
             "kv_paged": self._paged_snapshot(),
+            "prefix_cache": (None if self._prefix_index is None
+                             else self._prefix_index.snapshot()),
         }
 
     # ---------------------------------------------------------- lifecycle
@@ -733,15 +800,28 @@ class ContinuousBatchingEngine:
             time.sleep(0.02)
         return False
 
+    def _release_prefix(self, req: _Request) -> None:
+        """Unpin a request's matched chain exactly once, from any thread:
+        the take rides the engine lock, since the engine thread may assign
+        ``req.prefix`` while a consumer's cancel closes the request."""
+        if self._prefix_index is None:
+            return
+        with self._lock:
+            handle, req.prefix = req.prefix, None
+        if handle is not None:
+            self._prefix_index.release(handle)
+
     def _close_request(self, req: _Request, terminal,
                        outcome: Optional[str] = None) -> None:
         """Deliver a request's terminal item (None = normal end, or an
-        exception) exactly once."""
+        exception) exactly once, unpinning its matched chain first
+        whatever the outcome."""
         with self._lock:
             if req.finished:
                 return
             req.finished = True
             self._requests_closed += 1
+        self._release_prefix(req)
         if outcome is None:
             outcome = "completed" if terminal is None else "failed"
         if outcome == "completed":
@@ -880,6 +960,15 @@ class ContinuousBatchingEngine:
             state = t.init_decode_state(cfg, s, dev)
             self._dev["cache"] = {"k": state["k"], "v": state["v"]}
             self._dev["pos"] = state["pos"]
+            if self._prefix_index is not None:
+                # the slot layout's prefix pool, in front of the slot rows;
+                # a match or commit covers at most max_seq // bl blocks,
+                # padded to a power-of-two count of them
+                bl = self._prefix_block_len
+                self._dev["prefix_pool"] = init_block_pool(
+                    cfg, self._prefix_blocks, bl, dev)
+                self._dev["prefix_buckets"] = block_count_buckets(
+                    max(1, cfg.max_seq // bl))
         if self._prefill_enabled:
             # prompts of at most one chunk take the token-level path
             self._dev["prefill_buckets"] = block_count_buckets(
@@ -958,21 +1047,44 @@ class ContinuousBatchingEngine:
     # ---------------------------------------------------- paged admission
 
     def _try_reserve_paged(self, req: _Request) -> Optional[dict]:
-        """Reserve the stream's worst case (prompt + budget) in blocks;
-        None when the pool cannot cover it yet (the caller parks the
-        request)."""
-        need = min(-(-req.cap_tokens // self._kv_block_len),
-                   self._kv_max_blocks)
+        """Paged admission, host half: the longest full-block prefix match
+        (its chain pinned) and a reservation of the stream's worst case
+        (prompt + budget) less the shared blocks. None when the pool
+        cannot cover it yet: the match is released and the caller parks
+        the request. A hit needs no device work."""
+        bl = self._kv_block_len
+        handle = None
+        if self._prefix_index is not None and len(req.prompt) > bl:
+            handle = self._prefix_index.acquire(req.prompt)
+        matched = handle.matched_tokens if handle is not None else 0
+        need = min(-(-req.cap_tokens // bl), self._kv_max_blocks) \
+            - matched // bl
         if not self._kv_index.reserve(need):
+            if handle is not None:
+                self._prefix_index.release(handle)
             return None
-        return {"need": need}
+        return {"handle": handle, "matched": matched, "need": need}
 
-    def _bind_paged(self, slot: _Slot, staged: dict) -> None:
-        """Apply a staged admission: an empty table, the reservation to
-        grow into, and a reset to position 0 riding the next dispatch."""
+    def _bind_paged(self, req: _Request, slot: _Slot, staged: dict) -> None:
+        """Apply a staged admission: the shared chain of a hit becomes the
+        head of the slot's table (no copy: its rows are attended where
+        they lie in the pool), the stream grows into its reservation, and
+        its start position (0, or the matched length) rides the next
+        dispatch as data."""
+        handle, matched = staged["handle"], staged["matched"]
         slot.reserved_left = staged["need"]
         slot.blocks = []
+        slot.n_shared = 0
         slot.pos_pending = 0
+        if handle is not None:
+            req.prefix = handle
+            slot.blocks = list(handle.block_ids)
+            slot.n_shared = len(handle.block_ids)
+            slot.cursor = slot.pos_hi = slot.pos_pending = matched
+            self.gen_stats.record_prefix_hit(matched)
+        elif (self._prefix_index is not None
+                and len(req.prompt) > self._kv_block_len):
+            self.gen_stats.record_prefix_miss()
 
     def _ensure_blocks(self, slot: _Slot, req: _Request, upto: int) -> None:
         """Grow a slot's table to cover positions [0, upto), clamped to the
@@ -998,19 +1110,92 @@ class ContinuousBatchingEngine:
                 tab[i, :n] = slot.blocks[:n]
         return tab
 
-    def _free_slot_paged(self, slot: _Slot) -> None:
-        """Return a slot's blocks and unused reservation (idempotent; the
-        slot layout has nothing to return). Kernels already enqueued keep
-        reading their table snapshot; any later writer of a freed block is
-        enqueued behind them."""
-        if self._kv_index is None:
+    def _free_slot_paged(self, slot: _Slot, req: Optional[_Request],
+                         commit: bool) -> None:
+        """Retire a paged slot (idempotent; the slot layout has nothing to
+        return): with ``commit`` and the prefix cache on, the prompt's
+        full blocks are DONATED to the trie (``commit_stream``, no copy:
+        the rows are in the pool already), then every other private block
+        is freed and the unused reservation returned. The shared chain is
+        never freed here: the trie owns it, and its pin is released when
+        the request closes. Kernels already enqueued keep reading their
+        table snapshot; any later writer of a freed or donated block, and
+        any later reader of a donated one, is enqueued behind them."""
+        if not self._paged:
             return
-        self._kv_index.free(slot.blocks)
+        donated: set = set()
+        if (commit and req is not None and self._prefix_index is not None
+                and len(slot.blocks) > slot.n_shared):
+            donated = self._kv_index.commit_stream(
+                req.prompt, slot.blocks, policy=self._prefix_policy)
+        self._kv_index.free([b for j, b in enumerate(slot.blocks)
+                             if j >= slot.n_shared and b not in donated])
         if slot.reserved_left:
             self._kv_index.unreserve(slot.reserved_left)
         slot.blocks = []
+        slot.n_shared = 0
         slot.reserved_left = 0
         slot.pos_pending = None
+
+    # ------------------------------------------- the slot layout's prefix pool
+
+    def _restore_prefix(self, idx: int, req: _Request, slot: _Slot) -> bool:
+        """Prefix-cache admission under the slot layout: the longest
+        full-block match is copied into the slot's rows ``[0, matched)``
+        by one bucketed ``pool_to_slot``, which also sets the slot's
+        position, and the prompt resumes there (a cursor above 0 also
+        keeps the next chunk from resetting the slot). Under
+        ``prefill_mode="batched"`` a match that leaves more than one chunk
+        uncovered is released and counted as a miss: the token-level
+        resume would be slower than the batched forward it replaces.
+        Returns True on a hit."""
+        if len(req.prompt) <= self._prefix_block_len:
+            return False  # sub-block prompts can never match
+        handle = self._prefix_index.acquire(req.prompt)
+        if handle is None:
+            self.gen_stats.record_prefix_miss()
+            return False
+        if (self._prefill_enabled
+                and len(req.prompt) - handle.matched_tokens > self._chunk):
+            self._prefix_index.release(handle)
+            self.gen_stats.record_prefix_miss()
+            return False
+        req.prefix = handle
+        bucket = next(b for b in self._dev["prefix_buckets"]
+                      if b >= len(handle.block_ids))
+        (ids,) = self._upload([pad_block_ids(handle.block_ids, bucket)])
+        dev = self._dev
+        pool_to_slot(dev["prefix_pool"], dev["cache"], dev["pos"], idx, ids,
+                     handle.matched_tokens)
+        slot.cursor = slot.pos_hi = handle.matched_tokens
+        self.gen_stats.record_prefix_hit(handle.matched_tokens)
+        return True
+
+    def _commit_prefix(self, idx: int, req: _Request) -> None:
+        """Commit a request's uncovered full prompt blocks from slot
+        ``idx`` to the prefix pool: one bucketed ``slot_to_pool`` over the
+        plan's contiguous tail run, then the plan's nodes are unpinned.
+
+        Stream order is what makes this right, as device FIFO order is in
+        the reference: the copy is enqueued on the engine's stream while
+        the slot still holds the request, so it runs after every chunk
+        that wrote the prompt's rows and before any later chunk that can
+        see the slot free (a free slot parks at position 0 and writes row
+        0) or a new request in it; a later ``pool_to_slot`` of these
+        blocks is enqueued behind it as well."""
+        plan = self._prefix_index.plan_commit(req.prompt,
+                                              policy=self._prefix_policy)
+        if not plan:
+            return
+        ids = [bid for bid, _off, _node in plan]
+        bucket = next(b for b in self._dev["prefix_buckets"]
+                      if b >= len(ids))
+        offs = np.zeros(bucket, np.int32)  # padding reads rows [0, bl)
+        offs[:len(plan)] = [off for _bid, off, _node in plan]
+        ids_d, offs_d = self._upload([pad_block_ids(ids, bucket), offs])
+        slot_to_pool(self._dev["prefix_pool"], self._dev["cache"], idx,
+                     ids_d, offs_d)
+        self._prefix_index.finish_commit(plan)
 
     # ---------------------------------------------------------- engine loop
 
@@ -1018,9 +1203,13 @@ class ContinuousBatchingEngine:
         """Free every slot whose request was closed from outside (a
         cancelled or abandoned stream) at this dispatch boundary."""
         for slot in self._slots:
-            if slot.req is not None and slot.req.finished:
+            req = slot.req
+            if req is not None and req.finished:
+                # a pin the engine assigned after the consumer's close
+                # settles here; cancelled streams commit nothing
+                self._release_prefix(req)
                 slot.req = None
-                self._free_slot_paged(slot)
+                self._free_slot_paged(slot, req, commit=False)
 
     def _admit(self, held: Optional[_Request] = None) -> bool:
         """Fill free slots in FIFO order (``held`` first). Under the paged
@@ -1028,9 +1217,11 @@ class ContinuousBatchingEngine:
         queue head and stops admission, so a big request is never starved
         by later small ones; the slot layout admits with no tables (the
         next chunk resets the slot's position while its cursor is 0).
-        Under ``prefill_mode="batched"`` a prompt longer than one chunk is
-        ingested here, by one forward. Returns True if any slot is
-        occupied afterwards."""
+        With the prefix cache on, the slot layout restores a match here
+        (``_restore_prefix``) and the paged layout binds it; under
+        ``prefill_mode="batched"`` a prompt longer than one chunk that was
+        not restored is ingested here, by one forward. Returns True if any
+        slot is occupied afterwards."""
         for i, slot in enumerate(self._slots):
             if slot.req is not None:
                 continue
@@ -1069,8 +1260,12 @@ class ContinuousBatchingEngine:
             slot.pos_pending = None
             self.gen_stats.record_queue_wait(now_ns() - req.enqueue_ns)
             if self._paged:
-                self._bind_paged(slot, staged)
-            elif self._prefill_enabled and len(req.prompt) > self._chunk:
+                self._bind_paged(req, slot, staged)
+                continue
+            restored = (self._prefix_index is not None
+                        and self._restore_prefix(i, req, slot))
+            if (not restored and self._prefill_enabled
+                    and len(req.prompt) > self._chunk):
                 self._prefill_slot(i, req, slot)
         if held is not None:   # no free slot took it
             self._pending.push_front(held)
@@ -1286,8 +1481,10 @@ class ContinuousBatchingEngine:
             if slot.cursor >= len(req.prompt):
                 slot.decode_dispatched += c - k
                 if slot.decode_dispatched >= req.budget:
-                    # every token the stream may still emit is in flight
-                    eager_free.append(slot)
+                    # every token the stream may still emit is in flight:
+                    # commit and free after the kernel below, which may
+                    # feed the prompt's final columns
+                    eager_free.append((i, req))
         sample = bool(temps.max(initial=0.0) > 0)
         arrays = [feed, rem, active, reset, freeze, seeds, temps, topks,
                   topps]
@@ -1310,9 +1507,14 @@ class ContinuousBatchingEngine:
                            temps_d, topks_d, topps_d, sample)
         if timing is not None:
             timing[1].record()
-        for slot in eager_free:
-            slot.req = None
-            self._free_slot_paged(slot)
+        for i, req in eager_free:
+            # the slot layout's commit copy is enqueued behind the chunk
+            # above (see _commit_prefix); the paged commit is a donation
+            if self._paged:
+                self._free_slot_paged(self._slots[i], req, commit=True)
+            elif self._prefix_index is not None:
+                self._commit_prefix(i, req)
+            self._slots[i].req = None
         self._chunks_dispatched += 1
         return ("chunk", seq, meta, timing)
 
@@ -1391,13 +1593,22 @@ class ContinuousBatchingEngine:
             self.gen_stats.record_tokens(len(deliver))
             self._tokens_emitted += len(deliver)
             req.out.put(deliver)
+        slot = self._slots[i]
         if done:
+            # commit while the slot still holds the request (a slot freed
+            # at dispatch time committed then, and may hold another
+            # request by now, whose rows must never be committed under
+            # this prompt)
+            if slot.req is req:
+                if self._paged:
+                    self._free_slot_paged(slot, req, commit=True)
+                elif self._prefix_index is not None:
+                    self._commit_prefix(i, req)
             self._close_request(req, None)
             self._requests_completed += 1
-        slot = self._slots[i]
         if req.finished and slot.req is req:
             slot.req = None
-            self._free_slot_paged(slot)
+            self._free_slot_paged(slot, req, commit=False)
 
     def _run(self) -> None:
         """Engine thread entry: any failure fails every queued and
@@ -1497,7 +1708,9 @@ class ContinuousBatchingEngine:
             if slot.req is not None and not slot.req.finished:
                 self._close_request(slot.req, err)
                 failed += 1
-            self._free_slot_paged(slot)
+            # pins were released as each request closed; failed streams
+            # commit nothing
+            self._free_slot_paged(slot, slot.req, commit=False)
             slot.req = None
         inflight = list(self._unfetched)
         for _copies, entries in list(self._fetches):

@@ -36,11 +36,14 @@ from client_tpu_torch.protocol.rest import (
 )
 from client_tpu_torch.server.core import TorchInferenceServer
 from client_tpu_torch.server.types import (
+    DEFAULT_SLO_CLASS,
+    DEFAULT_TENANT,
     InferRequest,
     InferTensor,
     RequestedOutput,
     ServerError,
     parse_int_param,
+    parse_label_param,
 )
 
 _ROUTES = []
@@ -292,7 +295,11 @@ def _wire_to_request(name: str, version: str, header: dict,
         id=str(header.get("id", "")),
         inputs=inputs, outputs=outputs, parameters=req_params,
         priority=parse_int_param(req_params, "priority"),
-        timeout_us=parse_int_param(req_params, "timeout"))
+        timeout_us=parse_int_param(req_params, "timeout"),
+        tenant_id=parse_label_param(req_params, "tenant_id",
+                                    DEFAULT_TENANT),
+        slo_class=parse_label_param(req_params, "slo_class",
+                                    DEFAULT_SLO_CLASS))
 
 
 def _response_to_wire(request_header: dict, response) -> tuple:

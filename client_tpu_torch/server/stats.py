@@ -148,9 +148,12 @@ class GenerationStats:
     emitted token), inter-token latency (``(last_emit - first_token) /
     (tokens - 1)`` per completed stream of >= 2 tokens), queue wait
     (enqueue to slot admission), tokens emitted, stream outcomes, the
-    batched ring fetches and the chunked-prefill lane's chunks and tokens.
-    The reference's prefix, speculation, dedicated-lane, tier, scheduler
-    and goodput counters wait for their slices. All
+    batched ring fetches, the chunked-prefill lane's chunks and tokens, and
+    the prefix-cache lookups: one per admission of a prompt longer than one
+    block with the cache on, a hit adding its matched tokens to
+    ``prefix_saved_tokens`` (the allocator's evictions and commits are the
+    ``RadixBlockIndex``'s). The reference's speculation, dedicated-lane,
+    tier, scheduler and goodput counters wait for their slices. All
     mutators take ns; the engine thread writes, any thread reads."""
 
     def __init__(self):
@@ -166,6 +169,9 @@ class GenerationStats:
         self.ring_forced_fetches = 0
         self.prefill_chunks = 0
         self.prefill_tokens = 0
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_saved_tokens = 0
 
     def record_queue_wait(self, ns: int) -> None:
         with self._lock:
@@ -213,6 +219,17 @@ class GenerationStats:
             self.prefill_chunks += 1
             self.prefill_tokens += max(0, int(tokens))
 
+    def record_prefix_hit(self, matched_tokens: int) -> None:
+        """An admission reused ``matched_tokens`` tokens of cached prefix
+        KV instead of computing them again."""
+        with self._lock:
+            self.prefix_hits += 1
+            self.prefix_saved_tokens += max(0, int(matched_tokens))
+
+    def record_prefix_miss(self) -> None:
+        with self._lock:
+            self.prefix_misses += 1
+
     def snapshot(self) -> dict:
         with self._lock:
             return {
@@ -227,4 +244,7 @@ class GenerationStats:
                 "ring_forced_fetches": self.ring_forced_fetches,
                 "prefill_chunks": self.prefill_chunks,
                 "prefill_tokens": self.prefill_tokens,
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "prefix_saved_tokens": self.prefix_saved_tokens,
             }

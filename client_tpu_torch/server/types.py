@@ -2,17 +2,28 @@
 
 The port's counterpart of ``client_tpu/server/types.py``: transports
 convert wire formats to these; the core and the schedulers only ever see
-these types. The multi-tenant SLO labels and the stateful-sequence
-controls of the reference wait for the slices that use them.
+these types. The front ends parse the multi-tenant SLO labels
+(``tenant_id``, ``slo_class``) as the reference does; nothing reads them
+yet (the SLO scheduler is ROADMAP A10g). The stateful-sequence controls of
+the reference wait for the slice that uses them.
 """
 
 from __future__ import annotations
 
+import re
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
+
+# tenant / SLO-class wire identifiers: label-safe and bounded, starting
+# with an alphanumeric ("__other__" and the like stay the server's own);
+# the reference's ``TENANT_ID_RE``, ``DEFAULT_TENANT`` and
+# ``DEFAULT_SLO_CLASS``
+TENANT_ID_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._:-]{0,63}$")
+DEFAULT_TENANT = "default"
+DEFAULT_SLO_CLASS = "best_effort"
 
 
 def now_ns() -> int:
@@ -42,6 +53,21 @@ def parse_int_param(params: dict, key: str, default: int = 0,
             f"request parameter '{key}' must be >= {minimum}, got "
             f"{value}", 400)
     return value
+
+
+def parse_label_param(params: dict, key: str, default: str) -> str:
+    """Pop a ``tenant_id`` / ``slo_class`` request parameter: a string
+    matching ``TENANT_ID_RE`` (1-64 characters of [A-Za-z0-9._:-],
+    starting with an alphanumeric). A malformed value is a clear 400."""
+    raw = params.pop(key, None)
+    if raw is None or raw == "":
+        return default
+    if not isinstance(raw, str) or not TENANT_ID_RE.match(raw):
+        raise ServerError(
+            f"request parameter '{key}' must be 1-64 characters of "
+            f"[A-Za-z0-9._:-] starting with an alphanumeric, got "
+            f"{raw!r}", 400)
+    return raw
 
 
 @dataclass
@@ -83,6 +109,9 @@ class InferRequest:
     parameters: dict = field(default_factory=dict)
     priority: int = 0
     timeout_us: int = 0
+    # multi-tenant SLO attribution, validated by the front ends
+    tenant_id: str = DEFAULT_TENANT
+    slo_class: str = DEFAULT_SLO_CLASS
     # bookkeeping (filled by the core)
     arrival_ns: int = 0
 

@@ -1,0 +1,215 @@
+"""Faults of the port found against the JAX package, each held by a test
+that sends both packages the same input (ROADMAP, section C):
+
+- C1: a decoupled request that carries the wire ``timeout``. The reference
+  turns it into the stream's deadline and ends the stream with a 504; the
+  port has no streaming context yet (ROADMAP A10j) and refuses the request
+  with a 400 naming A10j. The difference is deliberate: the port refuses a
+  knob it does not run instead of ignoring it.
+- C2: the ``tenant_id`` and ``slo_class`` labels are parsed and validated
+  by both HTTP front ends: the same statuses and the same parsed labels.
+- C3: the continuous generator's model config carries the
+  ``generation_engine`` and ``prefix_cache`` blocks with the effective
+  knobs, equal to the reference's over the ported keys (``backend`` and
+  ``platform`` say ``"pytorch"`` in the port and ``"python"`` in the
+  reference, and the instance kind names the card, by design).
+"""
+
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from client_tpu.models import add_sub as jadd
+from client_tpu.models import decoder_lm as jlm
+from client_tpu.models import transformer as jt
+from client_tpu.server import TpuInferenceServer
+from client_tpu.server import http_server as jhttp
+from client_tpu.server import types as jtypes
+from client_tpu_torch.models import decoder_lm as tlm
+from client_tpu_torch.models import make_add_sub
+from client_tpu_torch.models import transformer as tt
+from client_tpu_torch.server import TorchInferenceServer
+from client_tpu_torch.server import http_server as thttp
+from client_tpu_torch.server import types as ttypes
+
+KW = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=2, head_dim=16,
+          d_ff=64, max_seq=48, causal=True)
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jt.TransformerConfig(dtype=jnp.float32, attn_impl="ref", **KW)
+    jparams = jt.init_params(jax.random.key(0), jcfg)
+    tparams = tt.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu",
+                                 torch.float32)
+    tcfg = tt.TransformerConfig(dtype=torch.float32, attn_impl="flash", **KW)
+    return jcfg, jparams, tcfg, tparams
+
+
+# ---------------------------------------------------------------- C1
+
+def _stream(core, types, timeout_us: int) -> list:
+    """One decoupled request through ``core.infer`` with a callback: the
+    (error status or None, final) of every response, or the status the
+    call itself raised with."""
+    prompt = np.arange(1, 9, dtype=np.int32)
+    req = types.InferRequest(
+        model_name="lm", timeout_us=timeout_us,
+        inputs=[types.InferTensor("PROMPT", "INT32", (8,), data=prompt),
+                types.InferTensor("MAX_TOKENS", "INT32", (1,),
+                                  data=np.asarray([40], np.int32))])
+    got, done = [], threading.Event()
+
+    def cb(resp, final):
+        got.append((resp.error_status if resp.error is not None else None,
+                    final))
+        if final:
+            done.set()
+
+    try:
+        core.infer(req, response_callback=cb)
+    except types.ServerError as e:
+        return [("raised", e.status, str(e))]
+    assert done.wait(timeout=120)
+    return got
+
+
+def test_c1_a_stream_with_a_timeout_is_refused_not_ignored(model):
+    jcfg, jparams, tcfg, tparams = model
+    ref = TpuInferenceServer()
+    ref.register_model(jlm.make_continuous_generator(
+        "lm", cfg=jcfg, params=dict(jparams), n_slots=2, chunk_size=4))
+    port = TorchInferenceServer()
+    port.register_model(tlm.make_continuous_generator(
+        "lm", cfg=tcfg, params=tparams, n_slots=2, chunk_size=4,
+        device="cpu"))
+    try:
+        # 1 us: the reference's deadline has passed before the first token
+        want = _stream(ref, jtypes, 1)
+        got = _stream(port, ttypes, 1)
+        # without a timeout both stream the whole budget
+        assert len(_stream(ref, jtypes, 0)) == len(_stream(port, ttypes, 0))
+    finally:
+        ref.stop()
+        port.stop()
+    assert want[-1] == (504, True)
+    assert got[0][:2] == ("raised", 400) and "A10j" in got[0][2]
+
+
+# ---------------------------------------------------------------- C2
+
+LABELS = {
+    "none": {},
+    "well_formed": {"tenant_id": "acme-1", "slo_class": "gold.tier:2"},
+    "empty_is_default": {"tenant_id": "", "slo_class": ""},
+    "leading_underscore": {"tenant_id": "__other__"},
+    "too_long": {"slo_class": "x" * 65},
+    "not_a_string": {"tenant_id": 7},
+    "space": {"slo_class": "gold tier"},
+}
+
+
+@pytest.fixture(scope="module")
+def http_servers():
+    ref_core = TpuInferenceServer()
+    ref_core.register_model(jadd.make_add_sub("add_sub", 4, "INT32"))
+    port_core = TorchInferenceServer()
+    port_core.register_model(make_add_sub("add_sub", 4, "INT32",
+                                          device="cpu"))
+    ref_http = jhttp.HttpInferenceServer(ref_core, port=0).start()
+    port_http = thttp.HttpInferenceServer(port_core, port=0).start()
+    yield {"ref": ref_http.url, "port": port_http.url}
+    ref_http.stop()
+    port_http.stop()
+    ref_core.stop()
+    port_core.stop()
+
+
+def _header(labels: dict) -> dict:
+    x = [0, 1, 2, 3]
+    return {"inputs": [
+        {"name": "INPUT0", "shape": [4], "datatype": "INT32", "data": x},
+        {"name": "INPUT1", "shape": [4], "datatype": "INT32", "data": x}],
+        "parameters": dict(labels)}
+
+
+def _post(url: str, header: dict) -> int:
+    req = urllib.request.Request(
+        f"http://{url}/v2/models/add_sub/infer", method="POST",
+        data=json.dumps(header).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def _parsed(mod, types, header: dict):
+    try:
+        req = mod._wire_to_request("add_sub", "", header, {})
+    except types.ServerError as e:
+        return ("error", e.status)
+    return (req.tenant_id, req.slo_class)
+
+
+@pytest.mark.parametrize("case", sorted(LABELS))
+def test_c2_labels_are_parsed_like_the_reference(http_servers, case):
+    header = _header(LABELS[case])
+    statuses = {side: _post(url, header)
+                for side, url in http_servers.items()}
+    assert statuses["port"] == statuses["ref"]
+    assert _parsed(thttp, ttypes, header) == _parsed(jhttp, jtypes, header)
+    assert (statuses["port"] == 400) == (
+        case in ("leading_underscore", "too_long", "not_a_string", "space"))
+
+
+# ---------------------------------------------------------------- C3
+
+CONFIGS = {
+    "slot_plain": dict(),
+    "slot_prefix": dict(prefix_cache=True, prefix_blocks=32,
+                        prefix_block_len=8, prefix_commit_policy="no-evict"),
+    "slot_chunked_prefix": dict(prefill_mode="chunked", prefill_chunk=32,
+                                prefill_token_budget=0, prefix_cache=True),
+    "slot_batched_no_overlap": dict(prefill=True, overlap=False,
+                                    ring_entries=0),
+    "paged_plain": dict(kv_layout="paged", kv_block_len=8),
+    "paged_prefix": dict(kv_layout="paged", kv_block_len=8,
+                         kv_pool_blocks=40, prefix_cache=True,
+                         prefix_block_len=8, fetch_stride=2,
+                         ring_entries=9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONFIGS))
+def test_c3_generator_config_matches_the_reference(model, case):
+    jcfg, jparams, tcfg, tparams = model
+    kw = dict(n_slots=3, chunk_size=4, **CONFIGS[case])
+    ref = jlm.make_continuous_generator("lm", cfg=jcfg, params=dict(jparams),
+                                        **kw)
+    port = tlm.make_continuous_generator("lm", cfg=tcfg, params=tparams,
+                                         device="cpu", **kw)
+    want, got = ref.config.to_json(), port.config.to_json()
+    ref.engine.stop()
+    port.engine.stop()
+    assert (got["backend"], got["platform"]) == ("pytorch", "pytorch")
+    assert (want["backend"], want["platform"]) == ("python", "python")
+    engine = got.pop("generation_engine")
+    assert engine == {k: want["generation_engine"][k] for k in engine}
+    assert got.get("prefix_cache") == want.get("prefix_cache")
+    assert ("prefix_cache" in got) == bool(kw.get("prefix_cache"))
+    for key in ("name", "max_batch_size", "input", "output",
+                "model_transaction_policy"):
+        assert got[key] == want[key], key
+    # the instance kind names the card (KIND_GPU, KIND_TPU); the count is
+    # the stream cap
+    assert got["instance_group"][0]["count"] \
+        == want["instance_group"][0]["count"]

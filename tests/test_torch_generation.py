@@ -197,10 +197,11 @@ def test_concurrent_submitters_stress(model):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("prefix_cache", True, "A10c"), ("speculative_draft", object(), "A10h"),
+    ("prefill_lane_width", 8, "A10e"),
+    ("speculative_draft", object(), "A10h"),
     ("prefill_slots", 2, "A10e"), ("host_tier_bytes", 1, "A10f"),
     ("scheduler", True, "A10g"), ("mesh", object(), "A12"),
-    ("prefix_block_len", 8, "A10c"), ("dispatch_duty", 0.5, "A10g")])
+    ("slo_classes", (), "A10g"), ("dispatch_duty", 0.5, "A10g")])
 def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                                         item):
     _, _, tcfg, tparams = model

@@ -45,6 +45,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.server.__main__",
                      "client_tpu_torch.server.generation",
                      "client_tpu_torch.server.kv_cache",
+                     "client_tpu_torch.server.config",
+                     "client_tpu_torch.server.types",
+                     "client_tpu_torch.server.stats",
+                     "client_tpu_torch.server.core",
                      "client_tpu_torch.perf.bench_harness",
                      "client_tpu_torch.models.transformer",
                      "client_tpu_torch.models.sampling",
