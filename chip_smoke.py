@@ -97,6 +97,28 @@ each printing one JSON line:
              (the engine's, and the client's for the first and second
              request of every thread), ITL, hits, misses, saved tokens,
              commits, evictions and host ms per dispatch.
+10. stream_context
+             the streaming context at the same width, through the same
+             core call gRPC's ModelStreamInfer makes (no gRPC here): bench.py's
+             32 jobs on 16 slots, chunk 16, one ring fetch per dispatch. The
+             8 next longest go first, with a cancel Event their callback
+             sets on their 4th token; from their median time to first token
+             the engine's pace is read, and the 8 longest then go with a
+             wire timeout of 4.5 dispatches at that pace, which passes
+             mid-decode; the other 16 are plain. Two
+             runs: the paged layout with the prefix cache (every prompt
+             served once first, so the tables are headed by shared blocks;
+             K2 12 x 16 per chunk dispatch) and the slot layout. Each timed
+             stream must end with one 504 (or complete), at least 4 of 8
+             holding their slot when their deadline passed; each cancelled
+             one with one 499 and no token after it; each plain one with its
+             budget; the engine must count the 504s and 499s, and after the
+             drain hold no slot, have closed every request, pin no trie node
+             and hold the whole paged pool. Every delivered token, partial
+             streams included, is teacher-forced as above. Prints, per trip,
+             the engine's dispatch count at the deadline and at the slot's
+             release and which side tripped it, and the plain streams'
+             tokens/s.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -1293,6 +1315,320 @@ def phase_generate_prefix(gen_model: tuple) -> dict:
     return result
 
 
+# stream_context: bench.py's 32 jobs by budget, longest first: 8 timed
+# streams, 8 cancelled on their CANCEL_AT-th token, 16 plain. One ring fetch
+# per dispatch (dispatch_depth 2 in flight), so a token reaches its callback
+# while its stream still holds its slot; the default stride of 4 delivers a
+# stream's first tokens after its last one was dispatched. The timed
+# streams' wire timeout is TRIP_DISPATCHES dispatches at this run's pace,
+# measured over the cancelled streams' median time to first token. A timed stream decodes from its last prompt chunk
+# (dispatch 1 with the warm cache, at most 4 for a 63-token prompt) to
+# dispatch ceil((prompt + budget) / 16) >= 7 after its admission, so the
+# deadline passes mid-decode, while it holds its slot.
+CTX_TIMED, CTX_CANCELLED, CANCEL_AT, TRIP_DISPATCHES = 8, 8, 4, 4.5
+
+
+def _trace_engine(engine) -> dict:
+    """Record, on the engine thread, the dispatch count after every round
+    (with its time) and, for every request its sweep takes out of a slot,
+    the dispatch count then and the request's outcome, keyed by the
+    request's tenant label (one per stream here)."""
+    log = {"rounds": [], "released": {}}
+    sweep, dispatch = engine._reap_slots, engine._dispatch
+
+    def traced_sweep():
+        held = [s.req for s in engine._slots if s.req is not None]
+        was_open = {id(r): not r.finished for r in held}
+        sweep()
+        still = {id(s.req) for s in engine._slots if s.req is not None}
+        for req in held:
+            if id(req) not in still:
+                log["released"][req.tenant] = {
+                    "dispatches": engine._chunks_dispatched,
+                    "outcome": req.outcome,
+                    "closed_by_sweep": was_open[id(req)]}
+
+    def traced_dispatch():
+        out = dispatch()
+        log["rounds"].append((time.monotonic_ns(),
+                              engine._chunks_dispatched))
+        return out
+
+    engine._reap_slots = traced_sweep
+    engine._dispatch = traced_dispatch
+    return log
+
+
+def _serve_stream_context(label: str, cfg, params, jobs: list,
+                          warm: bool = False, **engine_kw) -> dict:
+    """Serve bench.py's jobs through TorchInferenceServer.infer with a
+    response callback, carrying the streaming context: the longest
+    CTX_TIMED with a wire timeout, the next CTX_CANCELLED with a cancel
+    Event their callback sets on their CANCEL_AT-th token, the rest plain.
+    The cancelled streams go first; once all of them have a first token,
+    the timed streams go with a timeout of TRIP_DISPATCHES dispatches at
+    the engine's pace during that TTFT, then the plain ones. Checks every
+    stream's ending and the engine's counters, slots, pins and pool after
+    the drain; the greedy streams (partial ones included) go to
+    ``_judge_greedy``. With ``warm`` every prompt is served
+    once with a budget of 1 first, so the prefix cache heads each later
+    stream's table with its own committed blocks."""
+    from client_tpu_torch.models.decoder_lm import make_continuous_generator
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server import TorchInferenceServer
+
+    order = sorted(range(len(jobs)), key=lambda i: -jobs[i][1])
+    timed = order[:CTX_TIMED]
+    cancelled = order[CTX_TIMED:CTX_TIMED + CTX_CANCELLED]
+    plain = order[CTX_TIMED + CTX_CANCELLED:]
+    model = make_continuous_generator(
+        "continuous_lm", cfg=cfg, params=params, n_slots=GEN_SLOTS,
+        chunk_size=GEN_CHUNK, dispatch_depth=2, fetch_stride=1,
+        max_new_tokens=128, eos_id=-1, device="cuda", **engine_kw)
+    core = TorchInferenceServer()
+    core.register_model(model, warmup=True)
+    engine = model.engine
+    n = len(jobs)
+    streams = [[] for _ in range(n)]
+    errors = [[] for _ in range(n)]
+    finals = [0] * n
+    after_error = [0] * n
+    sent = [0.0] * n
+    first = [0.0] * n
+    last = [0.0] * n
+    requests = [None] * n
+    events = {i: threading.Event() for i in cancelled}
+    problems: list = []
+
+    def one(i, timeout_us=0):
+        prompt, budget = jobs[i]
+        req = _stream_request(prompt, budget, None)
+        req.tenant_id = f"job{i}"
+        req.timeout_us = timeout_us
+        req.cancel_event = events.get(i)
+        requests[i] = req
+
+        def cb(resp, final):
+            if resp.error is not None:
+                errors[i].append(resp.error_status)
+                if not final:
+                    problems.append(f"job {i}: an error without the final "
+                                    f"flag")
+                return
+            if final:
+                finals[i] += 1
+            else:
+                if errors[i] or finals[i]:
+                    after_error[i] += 1
+                streams[i].append(int(resp.output("TOKEN").data[0]))
+                if len(streams[i]) == 1:
+                    first[i] = time.monotonic_ns()
+                if len(streams[i]) == CANCEL_AT and i in events:
+                    events[i].set()
+            last[i] = time.monotonic_ns()
+
+        sent[i] = time.monotonic_ns()
+        try:
+            core.infer(req, response_callback=cb)
+        except Exception as e:  # noqa: BLE001 — failed below
+            problems.append(f"job {i}: {type(e).__name__}: {e}")
+
+    def start(idx, **kw):
+        ths = [threading.Thread(target=one, args=(i,), kwargs=kw)
+               for i in idx]
+        for th in ths:
+            th.start()
+        return ths
+
+    try:
+        if warm:
+            ths = [threading.Thread(
+                target=lambda p=p: list(engine.submit(p, 1)))
+                for p, _ in jobs]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=300)
+        log = _trace_engine(engine)
+        before = engine.stats()
+        snap0 = engine.gen_stats.snapshot()
+        # the main path: counter at 0 just before, read just after
+        pa.launches = 0
+        t0 = time.time()
+        threads = start(cancelled)
+        deadline = time.time() + 300
+        while not all(first[i] for i in cancelled) \
+                and time.time() < deadline:
+            time.sleep(0.002)
+        if not all(first[i] for i in cancelled):
+            fail(f"{label}: a cancelled stream had no first token")
+        ttft_ns = float(np.median([first[i] - sent[i] for i in cancelled]))
+        t_sent = min(sent[i] for i in cancelled)
+        window = [ns for ns, _ in log["rounds"]
+                  if t_sent <= ns <= t_sent + ttft_ns]
+        # the pace: the median round inside the TTFT (the first round
+        # after an idle engine also carries the admissions), or the TTFT
+        # over its rounds when it holds fewer than three
+        dispatch_ns = (float(np.median(np.diff(window))) if len(window) > 2
+                       else ttft_ns / max(1, len(window)))
+        timeout_us = int(TRIP_DISPATCHES * dispatch_ns / 1e3)
+        t_plain = time.monotonic_ns()
+        threads += start(timed, timeout_us=timeout_us)
+        threads += start(plain)
+        for th in threads:
+            th.join(timeout=600)
+        wall_s = time.time() - t0
+        k2 = pa.launches
+        settle = time.time() + 60
+        while (engine.active_slots()
+               or engine._requests_accepted != engine._requests_closed) \
+                and time.time() < settle:
+            time.sleep(0.005)
+        after = engine.stats()
+        snap = engine.gen_stats.snapshot()
+        index = engine._prefix_index
+        kv = engine._kv_index if engine._paged else None
+        drained = {
+            "slots_active": engine.active_slots(),
+            "accepted": engine._requests_accepted,
+            "closed": engine._requests_closed,
+            "pinned_nodes": None if index is None else index.pinned_nodes(),
+            "occupancy": None if kv is None else kv.occupancy()}
+    finally:
+        core.stop()
+    if problems or any(th.is_alive() for th in threads):
+        fail(f"{label}: {problems[:3]}")
+    base = before["chunks_dispatched"]
+    chunks = after["chunks_dispatched"] - base
+
+    def dispatches_at(t_ns):
+        return max([d for ns, d in log["rounds"] if ns <= t_ns],
+                   default=base) - base
+
+    misses = []
+    trips = []
+    for i in timed:
+        budget = len(streams[i]), jobs[i][1]
+        if errors[i] == [504] and not finals[i] and not after_error[i]:
+            ending = "deadline"
+        elif not errors[i] and finals[i] == 1 and budget[0] == budget[1]:
+            ending = "completed"
+        else:
+            ending = "bad"
+            misses.append(f"timed job {i}: errors {errors[i]}, {finals[i]} "
+                          f"final flags, {budget[0]} of {budget[1]} tokens, "
+                          f"{after_error[i]} after the error")
+        trip = {"job": i, "ending": ending, "tokens": budget[0],
+                "budget": budget[1],
+                "dispatches_at_arrival": dispatches_at(
+                    requests[i].arrival_ns)}
+        if ending == "deadline":
+            rel = log["released"].get(f"job{i}")
+            trip.update({
+                "dispatches_at_trip": dispatches_at(
+                    requests[i].arrival_ns + timeout_us * 1000),
+                # None: the slot was freed at dispatch time, every token
+                # left already in flight, before the deadline passed
+                "dispatches_at_release": None if rel is None
+                else rel["dispatches"] - base,
+                "held_slot_at_trip": rel is not None
+                and rel["outcome"] == "deadline",
+                "tripped_by": None if rel is None
+                else ("engine_sweep" if rel["closed_by_sweep"]
+                      else "consumer")})
+        trips.append(trip)
+    for i in cancelled:
+        if errors[i] != [499] or finals[i] or after_error[i] \
+                or len(streams[i]) < CANCEL_AT:
+            misses.append(f"cancelled job {i}: errors {errors[i]}, "
+                          f"{finals[i]} final flags, {len(streams[i])} "
+                          f"tokens, {after_error[i]} after the 499")
+    for i in plain:
+        if errors[i] or finals[i] != 1 or len(streams[i]) != jobs[i][1]:
+            misses.append(f"plain job {i}: errors {errors[i]}, {finals[i]} "
+                          f"final flags, {len(streams[i])} of {jobs[i][1]} "
+                          f"tokens")
+    n504 = sum(errors[i] == [504] for i in timed)
+    counted = {k: snap[k] - snap0[k] for k in ("deadline_expired",
+                                               "cancelled")}
+    if counted != {"deadline_expired": n504, "cancelled": len(cancelled)}:
+        misses.append(f"the engine counted {counted}, the streams saw {n504} "
+                      f"504s and {len(cancelled)} 499s")
+    in_slot = sum(t.get("held_slot_at_trip", False) for t in trips)
+    if in_slot < CTX_TIMED // 2:
+        misses.append(f"only {in_slot} of {CTX_TIMED} timed streams held "
+                      f"their slot when their deadline passed")
+    occ = drained["occupancy"]
+    if drained["slots_active"] or drained["accepted"] != drained["closed"] \
+            or drained["pinned_nodes"] \
+            or (occ is not None and (occ["stream"] or occ["reserved"]
+                                     or occ["free"] + occ["prefix"]
+                                     != occ["usable"])):
+        misses.append(f"not drained: {drained}")
+    plain_tokens = sum(jobs[i][1] for i in plain)
+    plain_s = (max(last[i] for i in plain) - t_plain) / 1e9
+    result = {
+        "run": label, "kv_layout": after["kv_layout"],
+        "attn_impl": cfg.attn_impl, "jobs": n, "wall_s": wall_s,
+        "ttft_cancelled_median_ms": ttft_ns / 1e6,
+        "ttft_dispatches": len(window),
+        "dispatch_ms_in_ttft": dispatch_ns / 1e6, "timeout_us": timeout_us,
+        "chunk_dispatches": chunks,
+        "paged_decode_attention_launches": k2,
+        "trips": trips, "trips_holding_a_slot": in_slot,
+        "trips_by_engine_sweep": sum(t.get("tripped_by") == "engine_sweep"
+                                     for t in trips),
+        "cancelled_tokens": [len(streams[i]) for i in cancelled],
+        "deadline_expired": counted["deadline_expired"],
+        "cancelled": counted["cancelled"],
+        "plain_tokens": plain_tokens, "plain_s": plain_s,
+        "plain_tokens_per_s": plain_tokens / plain_s,
+        "prefix_hits": snap["prefix_hits"] - snap0["prefix_hits"],
+        "drained": drained}
+    if misses:
+        fail(f"{label}: {misses}; {json.dumps(result)}")
+    # every stream's delivered tokens, partial ones too
+    result["greedy_streams"] = [
+        (np.concatenate([jobs[i][0], streams[i]]), len(jobs[i][0]))
+        for i in range(n) if streams[i]]
+    return result
+
+
+def phase_stream_context(gen_model: tuple) -> dict:
+    """The streaming context at bench.py's generation width: wire
+    deadlines, cancel Events and SLO labels through the core into the
+    engine, on the paged layout with the prefix cache (K2 on tables headed
+    by shared blocks) and on the default slot layout."""
+    import dataclasses
+
+    cfg, params, jobs = gen_model
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    t0 = time.time()
+    runs = [
+        _serve_stream_context("stream_context_paged", flash, params, jobs,
+                              warm=True, kv_layout="paged",
+                              kv_block_len=GEN_BLOCK, prefix_cache=True,
+                              prefix_block_len=GEN_BLOCK),
+        _serve_stream_context("stream_context_slot", cfg, params, jobs)]
+    t1 = time.time()
+    _judge_greedy(cfg, params, runs)
+    paged, slot = runs
+    want = LAYERS * GEN_CHUNK * paged["chunk_dispatches"]
+    if paged["paged_decode_attention_launches"] != want \
+            or slot["paged_decode_attention_launches"]:
+        fail(f"stream_context: paged_decode_attention launched "
+             f"{paged['paged_decode_attention_launches']} times in the paged "
+             f"run (expected {want}) and "
+             f"{slot['paged_decode_attention_launches']} in the slot run "
+             f"(expected 0)")
+    if not paged["prefix_hits"]:
+        fail("stream_context: the paged run's tables had no shared block")
+    result = {"phase": "stream_context", "runs": runs,
+              "seconds": {"serve": t1 - t0, "judge": time.time() - t1}}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -1321,6 +1657,7 @@ def main() -> int:
     generate_slot = timed("generate_slot", phase_generate_slot, gen_model)
     generate_prefix = timed("generate_prefix", phase_generate_prefix,
                             gen_model)
+    stream_context = timed("stream_context", phase_stream_context, gen_model)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -1350,6 +1687,8 @@ def main() -> int:
             generate_slot_chunked_paged=generate_slot["runs"][2][
                 "paged_decode_attention_launches"],
             generate_prefix_paged=generate_prefix["runs"][1][
+                "paged_decode_attention_launches"],
+            stream_context_paged=stream_context["runs"][0][
                 "paged_decode_attention_launches"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,7 +19,11 @@ dynamic batcher, the serving core and its HTTP front end, the forward
 half of the transformer, the flash-attention kernel) and the core of the
 generation slice (the continuous-batching engine over the paged KV pool,
 token sampling, the decoupled serving path, the paged decode attention
-kernel).
+kernel), the prefix cache, the shared-memory data planes, and the gRPC
+front end with the streaming context (deadline, cancel Event, SLO labels).
+The gRPC modules (``protocol.kserve_pb2``, ``protocol.grpc_defs``,
+``protocol.grpc_tensors``, ``server.grpc_server``) also need ``grpcio``
+and ``protobuf``; nothing else imports them.
 """
 
 __version__ = "0.1.0"

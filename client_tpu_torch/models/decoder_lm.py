@@ -170,16 +170,24 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
 
     model: ContinuousModel = None  # bound below; stream_fn reads it live
 
-    def stream_fn(inputs):
+    def stream_fn(inputs, context=None):
         budget = int(np.asarray(
             inputs.get("MAX_TOKENS", [max_new_tokens])).reshape(-1)[0])
         temp, top_k, top_p, rng_seed = _read_sampling(inputs)
         # prompt validation lives in engine.submit: one definition of
-        # the wire contract
+        # the wire contract. The request's deadline (the wire timeout)
+        # and the front end's cancel Event bound the stream's lifetime
+        # inside the engine; the SLO labels ride along.
+        submit_kw = {}
+        if context is not None:
+            submit_kw = {"tenant_id": context.tenant_id,
+                         "slo_class": context.slo_class,
+                         "deadline_ns": context.deadline_ns,
+                         "cancel_event": context.cancel_event}
         for tok in model.engine.submit(inputs["PROMPT"], budget,
                                        eos_id=eos_id, temperature=temp,
                                        top_k=top_k, top_p=top_p,
-                                       seed=rng_seed):
+                                       seed=rng_seed, **submit_kw):
             yield {"TOKEN": np.array([tok], np.int32)}
 
     config = ModelConfig(

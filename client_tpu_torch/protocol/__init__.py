@@ -3,7 +3,9 @@
 Pure-logic layer (L2 in SURVEY.md §1): no sockets, no devices. Everything
 here is unit-testable hermetically.
 
-The port's own copy of ``client_tpu/protocol/__init__.py``.
+The port's own copy of ``client_tpu/protocol/__init__.py``. The gRPC
+messages and stubs (``kserve_pb2``, ``grpc_defs``, ``grpc_tensors``) are
+imported on their own: they need grpcio and protobuf.
 """
 
 from client_tpu_torch.protocol.dtypes import (  # noqa: F401

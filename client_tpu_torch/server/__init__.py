@@ -3,9 +3,11 @@
 
 Models run on the card with device-resident weights, behind the dynamic
 batcher (static-bucket padding, an in-flight pipeline completed on CUDA
-events) and the v2 HTTP front end; decoupled models stream their
-responses through ``TorchInferenceServer.infer(request,
-response_callback)``, the continuous-batching engine
+events) and the v2 HTTP and gRPC front ends (``http_server``,
+``grpc_server``; the latter needs grpcio and is imported on its own);
+decoupled models stream their responses through
+``TorchInferenceServer.infer(request, response_callback)``, which gRPC's
+``ModelStreamInfer`` calls, the continuous-batching engine
 (``server/generation.py``) behind them.
 """
 

@@ -1,7 +1,7 @@
 """TorchInferenceServer — the transport-independent serving core.
 
-The port's counterpart of ``client_tpu/server/core.py``: the HTTP front
-end (and in-process callers) call this object; it owns the model
+The port's counterpart of ``client_tpu/server/core.py``: the HTTP and
+gRPC front ends (and in-process callers) call this object; it owns the model
 registry, the schedulers and the statistics.
 
 Tensors may ride the request, or sit in a registered shared-memory
@@ -196,7 +196,9 @@ class TorchInferenceServer:
         ServerError on failure) unless ``response_callback`` is given; it
         is then called with (response, final) for each response, the last
         one with final=True, and infer returns None. A decoupled model
-        needs the callback (400 without it)."""
+        needs the callback (400 without it); its wire ``timeout`` becomes
+        the stream's deadline (a 504 once it passes) and the request's
+        ``cancel_event``, set by the front end, ends it with a 499."""
         request.arrival_ns = now_ns()
         entry = self._entry(request.model_name, request.model_version)
         if entry.state != "READY":
@@ -207,14 +209,6 @@ class TorchInferenceServer:
             raise ServerError(
                 f"model '{request.model_name}' is decoupled; use the "
                 "streaming API", 400)
-        if entry.model.config.decoupled and request.timeout_us:
-            # the reference turns the wire timeout into the stream's
-            # deadline; until that context is ported a timeout is refused,
-            # not ignored
-            raise ServerError(
-                f"model '{request.model_name}' is decoupled: a 'timeout' on "
-                "a stream is not supported yet (its deadline arrives with "
-                "the streaming context, ROADMAP A10j)", 400)
 
         if response_callback is not None:
             def sink_cb(resp: InferResponse, final: bool) -> None:

@@ -60,6 +60,13 @@ Nothing on the dispatch path reads a device value on the host (no
 undo the dispatch-ahead. Greedy output does not depend on
 ``fetch_stride`` or ``overlap``.
 
+Streaming context: a request may carry SLO labels, a deadline and a
+cancel Event (``submit``). A deadline that passes or an Event that is set
+ends the stream with a 504 or a 499; the slot, its paged blocks and its
+prefix pins are freed at the next dispatch boundary (``_reap_slots``),
+and a queued request is settled where it leaves the queue
+(``_admissible``).
+
 Knobs of the reference that this slice does not run (the dedicated
 lanes, the host tier, speculation, the SLO scheduler and
 preemption, meshes and fleets, the watchdog, goodput and timeline planes)
@@ -97,7 +104,13 @@ from client_tpu_torch.server.model import (
     start_host_copies,
 )
 from client_tpu_torch.server.stats import GenerationStats
-from client_tpu_torch.server.types import ServerError, now_ns
+from client_tpu_torch.server.types import (
+    DEFAULT_SLO_CLASS,
+    DEFAULT_TENANT,
+    TENANT_ID_RE,
+    ServerError,
+    now_ns,
+)
 
 log = logging.getLogger(__name__)
 
@@ -290,11 +303,15 @@ class _Request:
     __slots__ = ("prompt", "budget", "eos_id", "temperature", "top_k",
                  "top_p", "seed", "out", "emitted", "finished",
                  "enqueue_ns", "first_token_ns", "last_emit_ns",
-                 "cap_tokens", "parked", "prefix")
+                 "cap_tokens", "parked", "prefix", "tenant", "slo_class",
+                 "deadline_ns", "cancel_ev", "outcome")
 
     def __init__(self, prompt: np.ndarray, budget: int, eos_id: int,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 0.0, seed: int = 0):
+                 top_p: float = 0.0, seed: int = 0,
+                 tenant: str = DEFAULT_TENANT,
+                 slo_class: str = DEFAULT_SLO_CLASS,
+                 deadline_ns: int = 0, cancel_ev=None):
         self.prompt = prompt
         self.budget = budget
         self.eos_id = eos_id
@@ -312,6 +329,16 @@ class _Request:
         self.cap_tokens = len(prompt) + budget
         self.parked = False       # waiting at the queue head for blocks
         self.prefix = None        # the pinned PrefixHandle of a cache hit
+        # SLO labels (stored for A10g's scheduler and stats)
+        self.tenant = tenant
+        self.slo_class = slo_class
+        # bounded lifetime: the absolute monotonic-ns deadline from the
+        # wire ``timeout`` (0 = none) and an optional Event a front end
+        # sets when the caller goes away; ``outcome`` records how the
+        # stream ended: completed, failed, cancelled or deadline
+        self.deadline_ns = deadline_ns
+        self.cancel_ev = cancel_ev
+        self.outcome = None
 
 
 class _Slot:
@@ -737,7 +764,22 @@ class ContinuousBatchingEngine:
         """Instantaneous engine counters: chunk dispatches, tokens
         emitted, phase seconds of the engine thread, the ring, the
         chunked-prefill lane, the pool occupancy and the prefix index (the
-        last three None where the engine has none)."""
+        last three None where the engine has none), and the slot table
+        (the rows of the reference's ``debug_snapshot``: each held slot's
+        prompt length, tokens emitted, budget, SLO labels and cursors).
+        The table is read while the engine thread runs: a best-effort
+        view, not a consistency point."""
+        slots = []
+        for i, slot in enumerate(self._slots):
+            req = slot.req
+            row = {"slot": i, "active": req is not None}
+            if req is not None:
+                row.update({"prompt_tokens": int(len(req.prompt)),
+                            "emitted": req.emitted, "budget": req.budget,
+                            "tenant": req.tenant,
+                            "slo_class": req.slo_class,
+                            "cursor": slot.cursor, "pos_hi": slot.pos_hi})
+            slots.append(row)
         return {
             "n_slots": self._n_slots,
             "chunk": self._chunk,
@@ -760,6 +802,7 @@ class ContinuousBatchingEngine:
             "kv_paged": self._paged_snapshot(),
             "prefix_cache": (None if self._prefix_index is None
                              else self._prefix_index.snapshot()),
+            "slots": slots,
         }
 
     # ---------------------------------------------------------- lifecycle
@@ -815,7 +858,10 @@ class ContinuousBatchingEngine:
                        outcome: Optional[str] = None) -> None:
         """Deliver a request's terminal item (None = normal end, or an
         exception) exactly once, unpinning its matched chain first
-        whatever the outcome."""
+        whatever the outcome. ``outcome`` overrides the completed/failed
+        attribution for the two bounded-lifetime endings, "cancelled"
+        (the client went away) and "deadline" (the wire timeout passed),
+        which are counted apart from failures."""
         with self._lock:
             if req.finished:
                 return
@@ -824,11 +870,14 @@ class ContinuousBatchingEngine:
         self._release_prefix(req)
         if outcome is None:
             outcome = "completed" if terminal is None else "failed"
+        req.outcome = outcome
         if outcome == "completed":
             self.gen_stats.record_completion(req.emitted, req.first_token_ns,
                                              req.last_emit_ns)
         elif outcome == "cancelled":
             self.gen_stats.record_cancelled()
+        elif outcome == "deadline":
+            self.gen_stats.record_deadline_expired()
         else:
             self.gen_stats.record_failure()
         req.out.put(terminal)
@@ -844,10 +893,31 @@ class ContinuousBatchingEngine:
 
     def submit(self, prompt, max_new_tokens: int, eos_id: int = -1,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-               seed: int = 0) -> Iterator[int]:
+               seed: int = 0, tenant_id: str = DEFAULT_TENANT,
+               slo_class: str = DEFAULT_SLO_CLASS, deadline_ns: int = 0,
+               cancel_event=None) -> Iterator[int]:
         """Enqueue one generation request; yields token ids as they are
         produced. Raises ServerError for invalid requests (400) and when
-        the engine is shutting down or the queue is full (503)."""
+        the engine is shutting down or the queue is full (503).
+
+        ``tenant_id`` / ``slo_class`` label the stream (validated here as
+        the front ends validate them: the engine is itself a public
+        submission surface). ``deadline_ns`` is an absolute monotonic-ns
+        deadline (``now_ns() + timeout``, 0 = none): once it passes the
+        stream ends with a 504, settles as the ``deadline`` outcome and
+        frees its slot, blocks and prefix pins at the next dispatch
+        boundary. It is enforced on both sides: the engine thread sweeps
+        the slots every iteration, and the returned iterator bounds its
+        waits, so a wedged engine cannot hold a caller past it.
+        ``cancel_event`` is an optional ``threading.Event`` a front end
+        sets when the caller goes away (the stream then ends with a 499);
+        abandoning the returned iterator cancels too."""
+        for key, val in (("tenant_id", tenant_id),
+                         ("slo_class", slo_class)):
+            if not isinstance(val, str) or not TENANT_ID_RE.match(val):
+                raise ServerError(
+                    f"{key} must be 1-64 characters of [A-Za-z0-9._:-] "
+                    f"starting with an alphanumeric, got {val!r}", 400)
         prompt = np.asarray(prompt)
         if not (np.issubdtype(prompt.dtype, np.integer)
                 or prompt.dtype == bool):
@@ -873,6 +943,9 @@ class ContinuousBatchingEngine:
                 f"requested", 400)
         if not -2 ** 31 <= int(seed) < 2 ** 31:
             raise ServerError(f"seed {seed} does not fit in int32", 400)
+        if int(deadline_ns) < 0:
+            raise ServerError(
+                f"deadline_ns must be >= 0, got {int(deadline_ns)}", 400)
         budget = min(int(max_new_tokens), self._cfg.max_seq - len(prompt))
         if self._paged:
             cap = self._kv_max_blocks * self._kv_block_len
@@ -890,7 +963,9 @@ class ContinuousBatchingEngine:
                     f"{self._kv_block_len}) but the pool holds only "
                     f"{self._kv_index.usable_blocks}", 400)
         req = _Request(prompt, budget, eos_id, temperature=float(temperature),
-                       top_k=int(top_k), top_p=float(top_p), seed=int(seed))
+                       top_k=int(top_k), top_p=float(top_p), seed=int(seed),
+                       tenant=tenant_id, slo_class=slo_class,
+                       deadline_ns=int(deadline_ns), cancel_ev=cancel_event)
         req.enqueue_ns = now_ns()
         with self._lock:
             shed = self._stopping or self._draining
@@ -923,10 +998,28 @@ class ContinuousBatchingEngine:
             self._close_request(req, self._failed or ServerError(
                 "generation engine stopped", 503))
 
+        def _expire():
+            """The consumer side's deadline trip: settle the stream as the
+            ``deadline`` outcome (the engine's sweep then only frees its
+            slot) and hand the caller its 504. The pins go now, the slot
+            when the engine next reaches a dispatch boundary."""
+            err = ServerError("generation request deadline exceeded", 504)
+            self._close_request(req, err, outcome="deadline")
+            return err
+
         def _drain():
             try:
                 while True:
-                    item = req.out.get()
+                    if req.deadline_ns:
+                        remaining_s = (req.deadline_ns - now_ns()) / 1e9
+                        if remaining_s <= 0:
+                            raise _expire()
+                        try:
+                            item = req.out.get(timeout=remaining_s)
+                        except queue.Empty:
+                            raise _expire() from None
+                    else:
+                        item = req.out.get()
                     if item is None:
                         return
                     if isinstance(item, Exception):
@@ -1199,17 +1292,51 @@ class ContinuousBatchingEngine:
 
     # ---------------------------------------------------------- engine loop
 
+    def _admissible(self, req: _Request) -> bool:
+        """The deadline and cancel gate where a request leaves the queue:
+        one that expired or was cancelled while queued is settled here
+        (504 / 499) instead of taking a slot."""
+        if req.finished:
+            # closed while queued (the consumer's cancel or deadline)
+            return False
+        if req.deadline_ns and now_ns() >= req.deadline_ns:
+            self._close_request(
+                req, ServerError(
+                    "generation request deadline expired before a slot "
+                    "was available", 504), outcome="deadline")
+            return False
+        if req.cancel_ev is not None and req.cancel_ev.is_set():
+            self.cancel(req)
+            return False
+        return True
+
     def _reap_slots(self) -> None:
-        """Free every slot whose request was closed from outside (a
-        cancelled or abandoned stream) at this dispatch boundary."""
+        """The dispatch-boundary sweep: settle and free every slot whose
+        request's deadline passed, whose cancel Event is set, or which was
+        closed from outside (a consumer's cancel or deadline). It runs
+        once per engine iteration, so such a stream holds its slot for at
+        most one more dispatch, never to its budget. Nothing is
+        committed: its blocks are freed, its pins released."""
+        now = now_ns()
         for slot in self._slots:
             req = slot.req
-            if req is not None and req.finished:
+            if req is None:
+                continue
+            if req.finished:
                 # a pin the engine assigned after the consumer's close
-                # settles here; cancelled streams commit nothing
+                # settles here
                 self._release_prefix(req)
-                slot.req = None
-                self._free_slot_paged(slot, req, commit=False)
+            elif req.deadline_ns and now >= req.deadline_ns:
+                self._close_request(
+                    req, ServerError("generation request deadline exceeded "
+                                     "while decoding", 504),
+                    outcome="deadline")
+            elif req.cancel_ev is not None and req.cancel_ev.is_set():
+                self.cancel(req)
+            else:
+                continue
+            slot.req = None
+            self._free_slot_paged(slot, req, commit=False)
 
     def _admit(self, held: Optional[_Request] = None) -> bool:
         """Fill free slots in FIFO order (``held`` first). Under the paged
@@ -1234,7 +1361,9 @@ class ContinuousBatchingEngine:
                         cand = self._pending.get_nowait()
                     except queue.Empty:
                         break
-                if cand.finished:
+                if not self._admissible(cand):
+                    # settled while queued; a parked entry leaving the
+                    # queue drops its marker
                     if cand.parked:
                         cand.parked = False
                         self._pending.unpark()

@@ -1,0 +1,480 @@
+"""gRPC front end: inference.GRPCInferenceService over grpcio.
+
+The port's counterpart of ``client_tpu/server/grpc_server.py``, serving a
+``TorchInferenceServer``. The service handlers are registered through
+grpc's generic-handler machinery from the method table of
+``client_tpu_torch.protocol.grpc_defs`` (no protoc gRPC plugin). The unary
+RPCs map one to one onto the core; ``ModelStreamInfer`` is the
+bidirectional streaming data plane that carries decoupled (generation)
+streams, each request with the RPC's cancel Event.
+
+The port's differences from the reference:
+- ``CudaSharedMemory*`` serve the core's CUDA shm registry; a
+  ``TpuSharedMemory*`` call answers INVALID_ARGUMENT naming
+  ``CudaSharedMemory``, as the HTTP front end answers
+  ``/v2/tpusharedmemory`` with 400.
+- ``RepositoryIndex``, ``RepositoryModelLoad``, ``RepositoryModelUnload``
+  and ``TraceSetting`` answer UNIMPLEMENTED naming their ROADMAP items,
+  as the HTTP front end answers those routes with 404.
+- Left out until the runtime planes (ROADMAP A13) are ported: the fault
+  injector's transport reset before ``ModelInfer``, the trace-id echo
+  (trailer and stream parameter), and the metrics and debug trailers of
+  ``ServerMetadata``. TLS is left out as the port's HTTP front end leaves
+  it out.
+
+Importing this module imports ``grpc`` and ``google.protobuf``; nothing on
+the card's serving path imports it.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent import futures
+
+import grpc
+import numpy as np
+
+from client_tpu_torch.protocol import kserve_pb2 as pb
+from client_tpu_torch.protocol.grpc_defs import (
+    DEFAULT_CHANNEL_OPTIONS,
+    METHODS,
+    SERVICE,
+)
+from client_tpu_torch.protocol.grpc_tensors import (
+    contents_to_numpy,
+    numpy_to_raw,
+    params_to_dict,
+    raw_to_numpy,
+    set_param,
+)
+from client_tpu_torch.server.core import TorchInferenceServer
+from client_tpu_torch.server.types import (
+    DEFAULT_SLO_CLASS,
+    DEFAULT_TENANT,
+    InferRequest,
+    InferTensor,
+    RequestedOutput,
+    ServerError,
+    parse_int_param,
+    parse_label_param,
+)
+
+_STATUS_OF = {
+    400: grpc.StatusCode.INVALID_ARGUMENT,
+    404: grpc.StatusCode.NOT_FOUND,
+    409: grpc.StatusCode.ALREADY_EXISTS,
+    499: grpc.StatusCode.CANCELLED,  # client went away (nginx idiom)
+    500: grpc.StatusCode.INTERNAL,
+    503: grpc.StatusCode.UNAVAILABLE,
+    504: grpc.StatusCode.DEADLINE_EXCEEDED,
+}
+
+# status codes whose aborts carry a ``retry-after`` trailing-metadata key
+# (seconds): the gRPC twin of the HTTP Retry-After header
+_RETRYABLE_CODES = (grpc.StatusCode.UNAVAILABLE,
+                    grpc.StatusCode.RESOURCE_EXHAUSTED)
+
+TPU_SHM_UNAVAILABLE = ("this server hosts CUDA devices; TPU shared memory is "
+                       "not available — use CudaSharedMemory")
+
+# the reference's RPCs whose server side is not ported yet -> the ROADMAP
+# item that ports it
+_UNPORTED_RPCS = {
+    "RepositoryIndex": "queue: the serving core's remaining surface",
+    "RepositoryModelLoad": "queue: the serving core's remaining surface",
+    "RepositoryModelUnload": "queue: the serving core's remaining surface",
+    "TraceSetting": "A13, the tracer",
+}
+_TPU_SHM_RPCS = ("TpuSharedMemoryStatus", "TpuSharedMemoryRegister",
+                 "TpuSharedMemoryUnregister")
+
+
+def request_to_internal(req: pb.ModelInferRequest) -> InferRequest:
+    """ModelInferRequest proto -> internal InferRequest."""
+    params = params_to_dict(req.parameters)
+    inputs = []
+    # raw_input_contents is an ordered subsequence covering the inputs
+    # that carry neither shm parameters nor typed contents
+    raw_idx = 0
+    for t in req.inputs:
+        tp = params_to_dict(t.parameters)
+        shape = tuple(int(d) for d in t.shape)
+        tensor = InferTensor(name=t.name, datatype=t.datatype, shape=shape,
+                             parameters=tp)
+        region = tp.pop("shared_memory_region", None)
+        if region is not None:
+            tensor.shm_region = region
+            tensor.shm_offset = int(tp.pop("shared_memory_offset", 0) or 0)
+            tensor.shm_byte_size = int(
+                tp.pop("shared_memory_byte_size", 0) or 0)
+        elif t.HasField("contents"):
+            if req.raw_input_contents:
+                # mixing the typed and raw planes is a spec violation;
+                # the reference's wording, so its example clients interop
+                raise ServerError(
+                    "contents field must not be specified when using "
+                    f"raw_input_contents for '{t.name}' for model "
+                    f"'{req.model_name}'", 400)
+            try:
+                tensor.data = contents_to_numpy(t.contents, t.datatype, shape)
+            except ValueError as e:
+                raise ServerError(
+                    f"typed contents for input '{t.name}' do not match "
+                    f"shape {list(shape)}/{t.datatype}: {e}", 400) from e
+        elif raw_idx < len(req.raw_input_contents):
+            raw = req.raw_input_contents[raw_idx]
+            raw_idx += 1
+            try:
+                tensor.data = raw_to_numpy(raw, t.datatype, shape)
+            except ValueError as e:
+                raise ServerError(
+                    f"raw content for input '{t.name}' does not match "
+                    f"shape {list(shape)}/{t.datatype}: {e}", 400) from e
+        else:
+            tensor.data = None
+        inputs.append(tensor)
+    outputs = []
+    for o in req.outputs:
+        op = params_to_dict(o.parameters)
+        outputs.append(RequestedOutput(
+            name=o.name,
+            binary_data=True,
+            classification_count=int(op.pop("classification", 0) or 0),
+            shm_region=op.pop("shared_memory_region", None),
+            shm_offset=int(op.pop("shared_memory_offset", 0) or 0),
+            shm_byte_size=int(op.pop("shared_memory_byte_size", 0) or 0),
+            parameters=op))
+    return InferRequest(
+        model_name=req.model_name, model_version=req.model_version,
+        id=req.id, inputs=inputs, outputs=outputs, parameters=params,
+        priority=parse_int_param(params, "priority"),
+        timeout_us=parse_int_param(params, "timeout"),
+        tenant_id=parse_label_param(params, "tenant_id", DEFAULT_TENANT),
+        slo_class=parse_label_param(params, "slo_class",
+                                    DEFAULT_SLO_CLASS))
+
+
+def response_to_proto(resp) -> pb.ModelInferResponse:
+    out = pb.ModelInferResponse(model_name=resp.model_name,
+                                model_version=resp.model_version,
+                                id=resp.id)
+    for k, v in (resp.parameters or {}).items():
+        set_param(out.parameters, k, v)
+    for t in resp.outputs:
+        ot = out.outputs.add()
+        ot.name = t.name
+        ot.datatype = t.datatype
+        ot.shape.extend(int(d) for d in t.shape)
+        if t.shm_region is not None:
+            set_param(ot.parameters, "shared_memory_region", t.shm_region)
+            set_param(ot.parameters, "shared_memory_offset", t.shm_offset)
+            set_param(ot.parameters, "shared_memory_byte_size",
+                      t.shm_byte_size)
+            out.raw_output_contents.append(b"")
+        else:
+            out.raw_output_contents.append(
+                numpy_to_raw(np.asarray(t.data), t.datatype))
+    return out
+
+
+class _Handlers:
+    def __init__(self, core: TorchInferenceServer):
+        self.core = core
+
+    def _abort(self, context, e: ServerError):
+        code = _STATUS_OF.get(e.status, grpc.StatusCode.INTERNAL)
+        hint = getattr(e, "retry_after", None)
+        if code in _RETRYABLE_CODES and hint is not None:
+            context.set_trailing_metadata((("retry-after", f"{hint:g}"),))
+        context.abort(code, str(e))
+
+    # ---- unary handlers ----
+
+    def ServerLive(self, req, context):
+        return pb.ServerLiveResponse(live=self.core.live())
+
+    def ServerReady(self, req, context):
+        return pb.ServerReadyResponse(ready=self.core.ready())
+
+    def ModelReady(self, req, context):
+        return pb.ModelReadyResponse(
+            ready=self.core.model_ready(req.name, req.version))
+
+    def ServerMetadata(self, req, context):
+        md = self.core.metadata()
+        return pb.ServerMetadataResponse(name=md["name"],
+                                         version=md["version"],
+                                         extensions=md["extensions"])
+
+    def ModelMetadata(self, req, context):
+        try:
+            md = self.core.model_metadata(req.name, req.version)
+        except ServerError as e:
+            self._abort(context, e)
+        out = pb.ModelMetadataResponse(
+            name=md["name"], versions=md["versions"], platform=md["platform"])
+        for io, dst in ((md["inputs"], out.inputs),
+                        (md["outputs"], out.outputs)):
+            for t in io:
+                tm = dst.add()
+                tm.name = t["name"]
+                tm.datatype = t["datatype"]
+                tm.shape.extend(t["shape"])
+        return out
+
+    def ModelConfig(self, req, context):
+        try:
+            cfg = self.core._entry(req.name, req.version).model.config
+        except ServerError as e:
+            self._abort(context, e)
+        out = pb.ModelConfigResponse()
+        c = out.config
+        c.name = cfg.name
+        c.platform = cfg.platform
+        c.backend = cfg.backend
+        c.max_batch_size = cfg.max_batch_size
+        for spec, dst in ((cfg.inputs, c.input), (cfg.outputs, c.output)):
+            for s in spec:
+                ts = dst.add()
+                ts.name = s.name
+                ts.datatype = s.datatype
+                ts.dims.extend(int(d) for d in s.dims)
+                ts.is_shape_tensor = s.is_shape_tensor
+                ts.optional = s.optional
+        if cfg.dynamic_batching is not None:
+            c.dynamic_batching.preferred_batch_size.extend(
+                cfg.dynamic_batching.preferred_batch_size)
+            c.dynamic_batching.max_queue_delay_microseconds = \
+                cfg.dynamic_batching.max_queue_delay_microseconds
+            c.dynamic_batching.preserve_ordering = \
+                cfg.dynamic_batching.preserve_ordering
+        c.model_transaction_policy.decoupled = cfg.decoupled
+        ig = c.instance_group.add()
+        ig.kind = "KIND_GPU"
+        ig.count = cfg.instance_count
+        ig.device_ids.extend(cfg.device_ids)
+        for k, v in cfg.parameters.items():
+            c.parameters[k] = str(v)
+        return out
+
+    def ModelStatistics(self, req, context):
+        try:
+            stats = self.core.statistics(req.name, req.version)
+        except ServerError as e:
+            self._abort(context, e)
+        out = pb.ModelStatisticsResponse()
+        for ms in stats["model_stats"]:
+            m = out.model_stats.add()
+            m.name = ms["name"]
+            m.version = ms["version"]
+            m.last_inference = ms["last_inference"]
+            m.inference_count = ms["inference_count"]
+            m.execution_count = ms["execution_count"]
+            ist = ms["inference_stats"]
+            # the response cache's hit/miss rows stay 0 until it is
+            # ported (ROADMAP queue 8)
+            for field in ("success", "fail", "queue", "compute_input",
+                          "compute_infer", "compute_output"):
+                d = getattr(m.inference_stats, field)
+                d.count = ist[field]["count"]
+                d.ns = ist[field]["ns"]
+            for bs in ms["batch_stats"]:
+                b = m.batch_stats.add()
+                b.batch_size = bs["batch_size"]
+                for field in ("compute_input", "compute_infer",
+                              "compute_output"):
+                    d = getattr(b, field)
+                    d.count = bs[field]["count"]
+                    d.ns = bs[field]["ns"]
+        return out
+
+    def SystemSharedMemoryStatus(self, req, context):
+        out = pb.SystemSharedMemoryStatusResponse()
+        for r in self.core.system_shm.status(req.name or None):
+            rs = out.regions[r["name"]]
+            rs.name = r["name"]
+            rs.key = r["key"]
+            rs.offset = r["offset"]
+            rs.byte_size = r["byte_size"]
+        return out
+
+    def SystemSharedMemoryRegister(self, req, context):
+        try:
+            self.core.system_shm.register(req.name, req.key, req.offset,
+                                          req.byte_size)
+        except ServerError as e:
+            self._abort(context, e)
+        return pb.SystemSharedMemoryRegisterResponse()
+
+    def SystemSharedMemoryUnregister(self, req, context):
+        if req.name:
+            self.core.system_shm.unregister(req.name)
+        else:
+            self.core.system_shm.unregister_all()
+        return pb.SystemSharedMemoryUnregisterResponse()
+
+    def CudaSharedMemoryStatus(self, req, context):
+        out = pb.CudaSharedMemoryStatusResponse()
+        for r in self.core.cuda_shm.status(req.name or None):
+            rs = out.regions[r["name"]]
+            rs.name = r["name"]
+            rs.device_id = r["device_id"]
+            rs.byte_size = r["byte_size"]
+        return out
+
+    def CudaSharedMemoryRegister(self, req, context):
+        try:
+            self.core.cuda_shm.register(req.name, req.raw_handle,
+                                        req.device_id, req.byte_size)
+        except ServerError as e:
+            self._abort(context, e)
+        return pb.CudaSharedMemoryRegisterResponse()
+
+    def CudaSharedMemoryUnregister(self, req, context):
+        if req.name:
+            self.core.cuda_shm.unregister(req.name)
+        else:
+            self.core.cuda_shm.unregister_all()
+        return pb.CudaSharedMemoryUnregisterResponse()
+
+    def ModelInfer(self, req, context):
+        try:
+            resp = self.core.infer(request_to_internal(req))
+        except ServerError as e:
+            self._abort(context, e)
+        except ValueError as e:
+            self._abort(context, ServerError(str(e), 400))
+        return response_to_proto(resp)
+
+    # ---- streaming ----
+
+    def ModelStreamInfer(self, request_iterator, context):
+        """Bidirectional stream: requests in, responses out as they
+        complete. A decoupled model sends N responses per request."""
+        out_q: queue.Queue = queue.Queue()  # (msg | None, is_final) items
+        state = {"submitted": 0, "reader_done": False}
+        state_lock = threading.Lock()
+        # RPC-scoped cancellation: when the caller cancels (or the
+        # connection dies) grpc fires the context callback; every request
+        # submitted on this stream carries the Event, so the generation
+        # engine frees its slots and prefix pins at the next dispatch
+        # boundary instead of decoding for nobody
+        cancel_ev = threading.Event()
+        context.add_callback(cancel_ev.set)
+
+        def on_response(resp, final):
+            msg = pb.ModelStreamInferResponse()
+            if resp.error is not None:
+                msg.error_message = resp.error
+                msg.infer_response.id = resp.id
+                if resp.retry_after_s is not None:
+                    # a streamed error cannot carry per-RPC trailing
+                    # metadata: the retry hint rides the parameters
+                    set_param(msg.infer_response.parameters,
+                              "retry_after", f"{resp.retry_after_s:g}")
+            else:
+                msg.infer_response.CopyFrom(response_to_proto(resp))
+            out_q.put((msg, final))
+
+        def reader():
+            try:
+                for req in request_iterator:
+                    with state_lock:
+                        state["submitted"] += 1
+                    try:
+                        internal = request_to_internal(req)
+                        internal.cancel_event = cancel_ev
+                        self.core.infer(internal,
+                                        response_callback=on_response)
+                    except Exception as e:  # noqa: BLE001 — every
+                        # submitted request must be answered, or the
+                        # writer never ends
+                        text = (str(e) if isinstance(e, ServerError)
+                                else f"{type(e).__name__}: {e}")
+                        msg = pb.ModelStreamInferResponse(error_message=text)
+                        msg.infer_response.id = req.id
+                        out_q.put((msg, True))
+            except grpc.RpcError:
+                # the caller cancelled the RPC (or the connection died)
+                # mid-stream: the context callback already set cancel_ev,
+                # so the in-flight streams are being reclaimed
+                pass
+            finally:
+                with state_lock:
+                    state["reader_done"] = True
+                out_q.put((None, False))  # wake the writer
+
+        threading.Thread(target=reader, daemon=True,
+                         name="grpc-stream-reader").start()
+
+        completed = 0
+        while True:
+            msg, final = out_q.get()
+            if msg is not None:
+                yield msg
+                if final:
+                    completed += 1
+            with state_lock:
+                if state["reader_done"] and completed >= state["submitted"]:
+                    return
+
+
+def _unported(name: str, item: str):
+    def handler(req, context):
+        context.abort(grpc.StatusCode.UNIMPLEMENTED,
+                      f"{name} is not ported to this server yet (ROADMAP "
+                      f"{item})")
+    return handler
+
+
+def _tpu_shm(req, context):
+    context.abort(grpc.StatusCode.INVALID_ARGUMENT, TPU_SHM_UNAVAILABLE)
+
+
+class GrpcInferenceServer:
+    # max_workers sizes the RPC thread pool; every live bidi stream holds
+    # one worker for its whole lifetime, so the pool must exceed the
+    # expected stream count or the unary RPCs (health, statistics) starve
+    def __init__(self, core: TorchInferenceServer, host: str = "127.0.0.1",
+                 port: int = 8001, max_workers: int = 48):
+        self.core = core
+        self._server = grpc.server(
+            futures.ThreadPoolExecutor(max_workers=max_workers),
+            options=list(DEFAULT_CHANNEL_OPTIONS) + [
+                # a serving front end tolerates aggressive client keepalive;
+                # the defaults would GOAWAY with too_many_pings
+                ("grpc.keepalive_permit_without_calls", 1),
+                ("grpc.http2.min_ping_interval_without_data_ms", 100),
+                ("grpc.http2.max_ping_strikes", 0),
+            ])
+        handlers = _Handlers(core)
+        method_handlers = {}
+        for name, (kind, req_cls, resp_cls) in METHODS.items():
+            fn = (_unported(name, _UNPORTED_RPCS[name])
+                  if name in _UNPORTED_RPCS else getattr(handlers, name))
+            make = (grpc.unary_unary_rpc_method_handler if kind == "unary"
+                    else grpc.stream_stream_rpc_method_handler)
+            method_handlers[name] = make(
+                fn, request_deserializer=req_cls.FromString,
+                response_serializer=resp_cls.SerializeToString)
+        for name in _TPU_SHM_RPCS:
+            # the port defines no Tpu messages: the request stays raw bytes
+            method_handlers[name] = grpc.unary_unary_rpc_method_handler(
+                _tpu_shm, request_deserializer=None,
+                response_serializer=None)
+        self._server.add_generic_rpc_handlers(
+            (grpc.method_handlers_generic_handler(SERVICE, method_handlers),))
+        self.port = self._server.add_insecure_port(f"{host}:{port}")
+        self.host = host
+
+    @property
+    def address(self) -> str:
+        return f"{self.host}:{self.port}"
+
+    def start(self) -> "GrpcInferenceServer":
+        self._server.start()
+        return self
+
+    def stop(self, grace: float = 1.0) -> None:
+        self._server.stop(grace)

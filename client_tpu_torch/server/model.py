@@ -16,6 +16,7 @@ compile set; the reference's CompileWatch waits for a later slice.
 
 from __future__ import annotations
 
+import inspect
 import threading
 from typing import Any, Callable, Iterator, Optional
 
@@ -25,6 +26,7 @@ import torch
 from client_tpu_torch.device import resolve_device
 from client_tpu_torch.protocol.dtypes import wire_to_np_dtype
 from client_tpu_torch.server.config import ModelConfig
+from client_tpu_torch.server.types import DEFAULT_SLO_CLASS, DEFAULT_TENANT
 
 
 def start_host_copies(dev_out: dict) -> tuple:
@@ -68,6 +70,51 @@ def _host_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def accepts_stream_context(fn) -> bool:
+    """True when ``fn`` can be called as ``fn(inputs, context=...)``: it
+    declares a ``context`` parameter passable by keyword, or a
+    ``**kwargs`` catch-all. The one definition PyModel and the scheduler
+    use, so a one-argument stream callable keeps its calling convention
+    everywhere."""
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+    ctx = params.get("context")
+    if ctx is not None and ctx.kind in (ctx.POSITIONAL_OR_KEYWORD,
+                                        ctx.KEYWORD_ONLY):
+        return True
+    return any(p.kind == p.VAR_KEYWORD for p in params.values())
+
+
+class StreamContext:
+    """Per-request serving context handed down to a decoupled model (the
+    reference's ``StreamContext``).
+
+    ``tenant_id`` / ``slo_class`` carry the request's SLO labels, as the
+    front end validated them. ``deadline_ns`` / ``cancel_event`` bound the
+    request's lifetime: the absolute monotonic-ns deadline made from the
+    wire ``timeout`` parameter (0 = none), and an optional Event a front
+    end sets when the caller goes away (gRPC context cancellation). The
+    continuous-batching engine frees the stream's slot and prefix pins
+    when either fires instead of decoding to the budget. ``trace`` is
+    always None: the tracer is ROADMAP A13."""
+
+    __slots__ = ("trace", "enqueue_ns", "tenant_id", "slo_class",
+                 "deadline_ns", "cancel_event")
+
+    def __init__(self, trace=None, enqueue_ns: int = 0,
+                 tenant_id: str = DEFAULT_TENANT,
+                 slo_class: str = DEFAULT_SLO_CLASS,
+                 deadline_ns: int = 0, cancel_event=None):
+        self.trace = trace
+        self.enqueue_ns = enqueue_ns
+        self.tenant_id = tenant_id
+        self.slo_class = slo_class
+        self.deadline_ns = deadline_ns
+        self.cancel_event = cancel_event
+
+
 class ServedModel:
     """Base class: execute() one batch of host arrays; stream() for a
     decoupled model."""
@@ -88,8 +135,11 @@ class ServedModel:
     def execute(self, inputs: dict) -> dict:
         raise NotImplementedError
 
-    def stream(self, inputs: dict) -> Iterator[dict]:
-        """A decoupled model yields zero or more responses per request."""
+    def stream(self, inputs: dict,
+               context: Optional[StreamContext] = None) -> Iterator[dict]:
+        """A decoupled model yields zero or more responses per request.
+        ``context`` (given by the scheduler) carries the request's
+        deadline, cancel Event and SLO labels."""
         yield self.execute(inputs)
 
     def warmup(self) -> None:
@@ -109,13 +159,21 @@ class PyModel(ServedModel):
         super().__init__(config)
         self._fn = fn
         self._stream_fn = stream_fn
+        # a stream_fn opts into the serving context by declaring a
+        # `context` keyword (decided once here, not per request)
+        self._stream_takes_context = (stream_fn is not None
+                                      and accepts_stream_context(stream_fn))
 
     def execute(self, inputs: dict) -> dict:
         return self._fn(inputs)
 
-    def stream(self, inputs: dict) -> Iterator[dict]:
+    def stream(self, inputs: dict,
+               context: Optional[StreamContext] = None) -> Iterator[dict]:
         if self._stream_fn is not None:
-            yield from self._stream_fn(inputs)
+            if self._stream_takes_context:
+                yield from self._stream_fn(inputs, context=context)
+            else:
+                yield from self._stream_fn(inputs)
         else:
             yield self.execute(inputs)
 

@@ -11,7 +11,9 @@ H2D), compute_infer (dispatch -> outputs in host memory), compute_output
 
 A decoupled model runs on the direct scheduler: ``_execute_one`` sends one
 response per item of ``model.stream`` and then an empty response flagged
-``triton_final_response``.
+``triton_final_response``. A model whose ``stream`` takes a ``context``
+gets the request's ``StreamContext``: the wire ``timeout`` as an absolute
+deadline, the front end's cancel Event and the SLO labels.
 
 Two places of the reference are tied to JAX and become torch checks here:
 the device pipeline serves ``TorchModel`` (not ``JaxModel``), and inputs
@@ -20,8 +22,8 @@ has checked that a tensor input lives on the model's device). When every
 request of such a batch directs every output into a shared-memory
 region, the batch takes the pre-split path: one forward, per-row views of
 the outputs, one CUDA event for the whole batch, and no output leaves the
-device. The sequence scheduler, the tracer's spans and the streaming
-context (deadline, cancel event, tenant) wait for later slices.
+device. The sequence scheduler and the tracer's spans wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ from client_tpu_torch.device import wire_dtype_of
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
 from client_tpu_torch.server.model import (
     ServedModel,
+    StreamContext,
     TorchModel,
+    accepts_stream_context,
     finish_host_copies,
     start_host_copies,
 )
@@ -112,6 +116,10 @@ class SchedulerBase:
         self.stats = stats
         self.version = version
         self._stopped = False
+        # decided once: a model whose stream() takes one argument keeps
+        # working
+        self._stream_takes_context = (model.config.decoupled
+                                      and accepts_stream_context(model.stream))
 
     def submit(self, pending: Pending) -> None:
         raise NotImplementedError
@@ -145,7 +153,23 @@ class SchedulerBase:
             if self.model.config.decoupled:
                 # one response per streamed item, then the final flag
                 t0 = now_ns()
-                for outputs in self.model.stream(pending.inputs):
+                if self._stream_takes_context:
+                    # the wire timeout becomes the stream's absolute
+                    # deadline, which the engine enforces per dispatch; the
+                    # cancel Event is set by the front end
+                    deadline_ns = (req.arrival_ns + req.timeout_us * 1000
+                                   if req.timeout_us else 0)
+                    stream = self.model.stream(
+                        pending.inputs,
+                        context=StreamContext(
+                            enqueue_ns=pending.enqueue_ns,
+                            tenant_id=req.tenant_id,
+                            slo_class=req.slo_class,
+                            deadline_ns=deadline_ns,
+                            cancel_event=req.cancel_event))
+                else:
+                    stream = self.model.stream(pending.inputs)
+                for outputs in stream:
                     pending.send(
                         _success_response(req, outputs, self.version), False)
                 pending.send(InferResponse(

@@ -164,7 +164,11 @@ class GenerationStats:
         self.tokens = 0
         self.completed = 0
         self.failed = 0
+        # distinct stream endings, not failures: a stream its client
+        # cancelled and one whose deadline passed freed their slot and
+        # prefix pins on purpose
         self.cancelled = 0
+        self.deadline_expired = 0
         self.ring_fetches = 0
         self.ring_forced_fetches = 0
         self.prefill_chunks = 0
@@ -200,9 +204,16 @@ class GenerationStats:
             self.failed += 1
 
     def record_cancelled(self) -> None:
-        """A stream was cancelled by its consumer before finishing."""
+        """A stream was cancelled by its client (an abandoned consumer or
+        a set cancel Event) before finishing."""
         with self._lock:
             self.cancelled += 1
+
+    def record_deadline_expired(self) -> None:
+        """A stream reached its deadline (the wire ``timeout``) and was
+        ended with a 504."""
+        with self._lock:
+            self.deadline_expired += 1
 
     def record_ring_fetch(self, forced: bool = False) -> None:
         """One batched D2H ring fetch was issued; ``forced`` marks fetches
@@ -240,6 +251,7 @@ class GenerationStats:
                 "completed": self.completed,
                 "failed": self.failed,
                 "cancelled": self.cancelled,
+                "deadline_expired": self.deadline_expired,
                 "ring_fetches": self.ring_fetches,
                 "ring_forced_fetches": self.ring_forced_fetches,
                 "prefill_chunks": self.prefill_chunks,

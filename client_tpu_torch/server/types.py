@@ -3,9 +3,12 @@
 The port's counterpart of ``client_tpu/server/types.py``: transports
 convert wire formats to these; the core and the schedulers only ever see
 these types. The front ends parse the multi-tenant SLO labels
-(``tenant_id``, ``slo_class``) as the reference does; nothing reads them
-yet (the SLO scheduler is ROADMAP A10g). The stateful-sequence controls of
-the reference wait for the slice that uses them.
+(``tenant_id``, ``slo_class``) as the reference does, and the scheduler
+hands them, the wire ``timeout`` as a deadline and the ``cancel_event``
+to a decoupled model's stream (``server/model.py:StreamContext``); the
+SLO scheduler that reads the labels is ROADMAP A10g. The
+stateful-sequence controls and the tracer's fields of the reference wait
+for the slices that use them.
 """
 
 from __future__ import annotations
@@ -114,6 +117,11 @@ class InferRequest:
     slo_class: str = DEFAULT_SLO_CLASS
     # bookkeeping (filled by the core)
     arrival_ns: int = 0
+    # client-cancellation signal (a threading.Event or None): a front end
+    # that sees the caller go away (the gRPC context callback) sets it, so
+    # a decoupled stream frees its engine slot and prefix pins instead of
+    # decoding to its budget for nobody
+    cancel_event: Any = None
 
 
 @dataclass

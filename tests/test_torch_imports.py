@@ -64,8 +64,40 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.perf.load_manager",
                      "client_tpu_torch.perf.concurrency_manager",
                      "client_tpu_torch.perf.inference_profiler",
-                     "client_tpu_torch.bench"):
+                     "client_tpu_torch.bench",
+                     "client_tpu_torch.protocol.kserve_pb2",
+                     "client_tpu_torch.protocol.grpc_defs",
+                     "client_tpu_torch.protocol.grpc_tensors",
+                     "client_tpu_torch.server.grpc_server",
+                     "client_tpu_torch.server.model"):
         assert expected in result["modules"]
+
+
+_GRPC_PROBE = r"""
+import json, sys
+sys.path.insert(0, {repo!r})
+import client_tpu_torch, client_tpu_torch.server, client_tpu_torch.models
+import client_tpu_torch.server.generation, client_tpu_torch.models.decoder_lm
+import client_tpu_torch.server.__main__
+import chip_smoke
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "grpc" or m.startswith("grpc.")
+                        or m == "google.protobuf"
+                        or m.startswith("google.protobuf."))))
+"""
+
+
+def test_the_card_path_imports_neither_grpc_nor_protobuf():
+    """The card's host has no grpcio and no protobuf: only the protocol
+    and gRPC modules import them, never the package, the server, the
+    models, the engine or chip_smoke.py."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _GRPC_PROBE.format(repo=REPO)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import json
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def _entry_points():
