@@ -120,6 +120,34 @@ each printing one JSON line:
              release and which side tripped it, and the plain streams'
              tokens/s.
 
+11. speculate
+             speculative decoding at the same width with the reference
+             speculative A/B's settings (benchmarks/bench_generation_grpc.py):
+             a high-agreement draft that keeps the target's first layer
+             while the target's wo and w2 of layers 1-11 are scaled by
+             0.005, gamma 12, batched prefill admission where the layout
+             allows it, bench.py's 32 jobs on 16 slots, chunk 16. Four runs
+             on the same target weights: spec_off (no draft, the plain
+             arm), spec_slot (slot layout, 8 streams sampled at
+             temperature 0.8, top-k 40: the rejection sampler), spec_paged
+             (paged layout, K2 on the chunk dispatches, 12 x 16 per chunk
+             dispatch, none in the verify rounds) and spec_ladder_floor
+             (the first 8 jobs, an adversarial draft of the same shape
+             with its own weights, the gamma ladder and an acceptance
+             floor of 0.5: every stream with 4 rounds must have latched to
+             plain decode and still stream its budget). Every greedy token
+             is teacher-forced as above; the high-agreement runs must
+             verify more than one token per round at an acceptance above
+             the adversarial run's; after the drain no slot may be held and
+             the paged pool must be whole. Prints per run tokens/s (and
+             against spec_off), rounds, verify and chunk dispatches,
+             acceptance, tokens per round, rounds per rung, host ms per
+             dispatch by kind, TTFT and ITL, and the streams latched to
+             plain decode (the floor or the max_seq edge); a fifth run,
+             spec_slot_stride1, repeats spec_slot with one ring fetch per
+             dispatch. Profiles one greedy gamma-12 round outside the
+             engine (launches, host ms, device busy ms).
+
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure raises and exits
@@ -1071,6 +1099,7 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
                for k in range(n_threads)]
     try:
         before = engine.stats()
+        snap0 = engine.gen_stats.snapshot()
         # the main path: counters at 0 just before, read just after
         pa.launches = 0
         fa.launches = 0
@@ -1095,7 +1124,25 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
         if not all(0 <= x < cfg.vocab_size for x in got):
             fail(f"{label}: job {i} streamed a token outside the vocab")
     greedy = [i for i in range(len(jobs)) if sampling[i] is None]
-    chunks = after["chunks_dispatched"] - before["chunks_dispatched"]
+    # every dispatch, and by kind: chunks, verify rounds, draft catch-ups
+    dispatches = after["chunks_dispatched"] - before["chunks_dispatched"]
+    kinds = {k: {f: v[f] - before["dispatch_by_kind"][k][f] for f in v}
+             for k, v in after["dispatch_by_kind"].items()}
+    chunks = kinds["chunk"]["dispatches"]
+    spec = None
+    if after["speculation"] is not None:
+        s0, s1 = before["speculation"], after["speculation"]
+        d = {k: s1[k] - s0[k] for k in ("proposed", "accepted", "rounds")}
+        r0, r1 = snap0["spec_rung_rounds"], snap["spec_rung_rounds"]
+        spec = {**d, "verify_dispatches": kinds["spec"]["dispatches"],
+                "acceptance": d["accepted"] / max(1, d["proposed"]),
+                # verified tokens (accepted + the one every round emits)
+                "tokens_per_round": (d["accepted"] + d["rounds"])
+                / max(1, d["rounds"]),
+                "rounds_by_rung": {str(g): r1[g] - r0.get(g, 0)
+                                   for g in sorted(r1)},
+                "gamma": s1["gamma"], "ladder": s1["ladder"],
+                "min_acceptance": s1["min_acceptance"]}
     useful = sum(b for _, b in jobs)
     phase_s = {k: after["phase_seconds"][k] - before["phase_seconds"][k]
                for k in after["phase_seconds"]}
@@ -1109,12 +1156,16 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
         "jobs": len(jobs), "useful_tokens": useful,
         "sampled_jobs": len(jobs) - len(greedy), "wall_s": wall_s,
         "continuous_batching_ragged_tokens_per_s": useful / wall_s,
-        "chunk_dispatches": chunks,
+        "chunk_dispatches": chunks, "dispatches": dispatches,
+        "speculation": spec,
+        "host_ms_per_dispatch_by_kind": {
+            k: v["host_s"] / v["dispatches"] * 1e3
+            for k, v in kinds.items() if v["dispatches"]},
         "paged_decode_attention_launches": k2,
         "flash_attention_launches": k1,
         "prefill_lane_chunks": None if lane is None else
         lane["chunks"] - (before["prefill_lane"] or {}).get("chunks", 0),
-        "host_ms_per_dispatch": phase_s["dispatch"] / chunks * 1e3,
+        "host_ms_per_dispatch": phase_s["dispatch"] / dispatches * 1e3,
         "event_ms_per_dispatch": event_ms / timed if timed else None,
         "phase_seconds": phase_s,
         "ttft_mean_ms": ttft[1] / max(1, ttft[2]) / 1e6,
@@ -1629,6 +1680,247 @@ def phase_stream_context(gen_model: tuple) -> dict:
     return result
 
 
+# speculate: the reference speculative A/B's settings
+# (benchmarks/bench_generation_grpc.py: gamma 12, the draft keeps the
+# target's first layer, wo and w2 of the later layers damped by 0.005,
+# batched prefill admission)
+SPEC_GAMMA, SPEC_DRAFT_LAYERS, SPEC_DAMP = 12, 1, 0.005
+# run 4 (adversarial draft, ladder, floor 0.5) takes the first 8 jobs
+SPEC_FLOOR_JOBS, SPEC_FLOOR = 8, 0.5
+
+
+def _high_agreement_pair(cfg, params) -> tuple:
+    """The reference A/B's synthetic high-agreement pair
+    (make_high_agreement_pair): the target's wo and w2 of every layer past
+    the draft's depth scaled by SPEC_DAMP, so the target's forward nearly
+    equals its first SPEC_DRAFT_LAYERS layers; the draft is those layers
+    with the target's embeddings and norm. Returns (target params,
+    DraftModel)."""
+    import dataclasses
+
+    from client_tpu_torch.server.speculation import DraftModel
+
+    k = SPEC_DRAFT_LAYERS
+    layers = dict(params["layers"])
+    for name in ("wo", "w2"):
+        w = layers[name].clone()
+        w[k:] *= SPEC_DAMP
+        layers[name] = w
+    target = dict(params, layers=layers)
+    dparams = {"embed": target["embed"], "final_norm": target["final_norm"],
+               "pos_embed": target["pos_embed"],
+               "layers": {name: w[:k] for name, w in layers.items()}}
+    return target, DraftModel(dataclasses.replace(cfg, n_layers=k), dparams)
+
+
+def _spec_settled(engine) -> dict:
+    """Slots and, on the paged layout, the pool once the engine thread has
+    freed the last slot."""
+    deadline = time.time() + 30
+    while engine.active_slots() and time.time() < deadline:
+        time.sleep(0.01)
+    return {"slots_active_after": engine.active_slots(),
+            "occupancy": (engine._kv_index.occupancy()
+                          if engine._paged else None)}
+
+
+def _spec_round_profile(cfg, params, draft) -> dict:
+    """One greedy gamma-12 verify round of the slot layout outside the
+    engine, at full width (16 slots mid-context): its host time, its
+    stream time between CUDA events, and by torch.profiler its device busy
+    time and kernel launches, as _dispatch_profile takes a chunk's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from client_tpu_torch.models.transformer import init_decode_state
+    from client_tpu_torch.server.generation import spec_round
+
+    s, dev = GEN_SLOTS, "cuda"
+    cache = init_decode_state(cfg, s, dev)
+    dstate = init_decode_state(draft.cfg, s, dev)
+    dcache = {"k": dstate["k"], "v": dstate["v"]}
+    pos = torch.full((s,), 96, dtype=torch.int32, device=dev)
+    last = torch.randint(0, cfg.vocab_size, (s,), dtype=torch.int32,
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    zi = torch.zeros((s,), dtype=torch.int32, device=dev)
+    zf = torch.zeros((s,), device=dev)
+    ring = torch.zeros((4, s, GEN_CHUNK), dtype=torch.int32, device=dev)
+    cnt = torch.zeros((4, s), dtype=torch.int32, device=dev)
+
+    def round_():
+        return spec_round(cfg, draft.cfg, params, draft.params, cache, pos,
+                          dcache, pos.clone(), last, ring, cnt, 0, None,
+                          (zi, zf, zi, zf), SPEC_GAMMA, False)
+
+    with torch.inference_mode():
+        round_()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        round_()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        event_ms = start.elapsed_time(end)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            round_()
+            torch.cuda.synchronize()
+    busy_us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        busy_us += getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0.0))
+        if evt.key.startswith("cudaLaunchKernel"):
+            launches += evt.count
+    return {"layout": "slot", "gamma": SPEC_GAMMA, "host_ms": host_ms,
+            "event_ms": event_ms,
+            "device_busy_ms": busy_us / 1e3 if busy_us else None,
+            "kernel_launches": launches}
+
+
+class _RecordingSpeculation:
+    """Collects every stream's RequestSpeculation the engine makes (the
+    floor run checks each stream's latch after the streams are gone)."""
+
+    def __init__(self):
+        from client_tpu_torch.server import generation, speculation
+
+        self.made: list = []
+        self._module = generation
+        made = self.made
+
+        class Recorded(speculation.RequestSpeculation):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+
+        self._cls = Recorded
+
+    def __enter__(self):
+        self._orig = self._module.RequestSpeculation
+        self._module.RequestSpeculation = self._cls
+        return self.made
+
+    def __exit__(self, *exc):
+        self._module.RequestSpeculation = self._orig
+
+
+def phase_speculate(gen_model: tuple) -> dict:
+    """Speculative decoding at bench.py's generation width with the
+    reference A/B's high-agreement draft: the plain arm, gamma 12 on the
+    slot layout (a quarter of the streams sampled) and on the paged layout
+    (K2 on its chunk dispatches), and an adversarial draft under the
+    ladder and the acceptance floor."""
+    import dataclasses
+
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.server.speculation import (
+        FALLBACK_WARMUP_ROUNDS,
+        DraftModel,
+    )
+
+    cfg, params, jobs = gen_model
+    target, draft = _high_agreement_pair(cfg, params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    adversarial = DraftModel(draft.cfg, t.init_params(gen, draft.cfg))
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    greedy = [None] * len(jobs)
+    sampled = [(0.8, 40, 2000 + i) if i % 4 == 3 else None
+               for i in range(len(jobs))]
+    spec = dict(speculative_draft=draft, speculative_gamma=SPEC_GAMMA)
+    cut = jobs[:SPEC_FLOOR_JOBS]
+    plan = [
+        # the plain arm serves the same target weights without a draft
+        ("spec_off", cfg, jobs, greedy, dict(prefill_mode="batched")),
+        ("spec_slot", cfg, jobs, sampled,
+         dict(prefill_mode="batched", **spec)),
+        # batched admission is refused on the paged layout: prompts feed
+        # through the chunk kernel, K2 included
+        ("spec_paged", flash, jobs, greedy,
+         dict(kv_layout="paged", kv_block_len=GEN_BLOCK, **spec)),
+        ("spec_ladder_floor", cfg, cut, greedy[:len(cut)],
+         dict(prefill_mode="batched", speculative_draft=adversarial,
+              speculative_gamma=SPEC_GAMMA, speculative_gamma_ladder=True,
+              speculative_min_acceptance=SPEC_FLOOR)),
+        # a diagnostic beside spec_slot: one fetch per dispatch, so a
+        # round's real advance corrects pos_hi sooner (fewer rounds past a
+        # stream's end, fewer streams latched at the max_seq edge)
+        ("spec_slot_stride1", cfg, jobs, sampled,
+         dict(prefill_mode="batched", fetch_stride=1, **spec))]
+    t0 = time.time()
+    runs, records = [], []
+    for label, run_cfg, run_jobs, sampling, kw in plan:
+        with _RecordingSpeculation() as made:
+            run = _serve_generation(label, run_cfg, target, run_jobs,
+                                    sampling, settled=_spec_settled, **kw)
+        # every stream's record, the warmup stream's included
+        run["latched_streams"] = sum(r.fallback for r in made)
+        runs.append(run)
+        records.append(made)
+    streams = records[3]
+    t1 = time.time()
+    _judge_greedy(cfg, target, runs)
+    t2 = time.time()
+    off, slot, paged, floor = runs[:4]
+    for run in runs:
+        name = run["run"]
+        want = (LAYERS * GEN_CHUNK * run["chunk_dispatches"]
+                if run["kv_layout"] == "paged" else 0)
+        if run["paged_decode_attention_launches"] != want \
+                or run["flash_attention_launches"]:
+            fail(f"speculate: the {name} run launched paged_decode_attention "
+                 f"{run['paged_decode_attention_launches']} times in "
+                 f"{run['chunk_dispatches']} chunk dispatches (expected "
+                 f"{want}) and flash_attention "
+                 f"{run['flash_attention_launches']} times (expected 0)")
+        if run["slots_active_after"]:
+            fail(f"speculate: {name}: {run['slots_active_after']} slots "
+                 f"still held after the drain")
+        occ = run["occupancy"]
+        if occ is not None and (occ["stream"] or occ["reserved"]
+                                or occ["free"] != occ["usable"]):
+            fail(f"speculate: {name}: blocks left behind: {occ}")
+        sp = run["speculation"]
+        if name == "spec_off":
+            if sp is not None:
+                fail("speculate: the plain arm speculated")
+            continue
+        if not sp or sp["rounds"] <= 0 or sp["accepted"] > sp["proposed"]:
+            fail(f"speculate: {name}: speculation counters {sp}")
+    for run in (slot, paged, runs[4]):
+        sp = run["speculation"]
+        if sp["tokens_per_round"] <= 1.0 \
+                or sp["acceptance"] <= floor["speculation"]["acceptance"]:
+            fail(f"speculate: {run['run']}: {sp['tokens_per_round']} tokens "
+                 f"per round at acceptance {sp['acceptance']}, against the "
+                 f"adversarial run's {floor['speculation']['acceptance']}")
+    warm = [r for r in streams if r.rounds >= FALLBACK_WARMUP_ROUNDS]
+    latched = sum(r.fallback for r in warm)
+    # the cut's streams and the warmup's
+    if len(streams) != len(cut) + 1 or not warm or latched != len(warm):
+        fail(f"speculate: spec_ladder_floor: {latched} of {len(warm)} "
+             f"streams with {FALLBACK_WARMUP_ROUNDS}+ rounds latched to "
+             f"plain decode ({len(streams)} streams recorded)")
+    floor["floor_latch"] = {"streams": len(streams),
+                            "warm_streams": len(warm), "latched": latched,
+                            "rounds": [r.rounds for r in streams]}
+    for run in runs:
+        run["tokens_per_s_vs_spec_off"] = (
+            run["continuous_batching_ragged_tokens_per_s"]
+            / off["continuous_batching_ragged_tokens_per_s"])
+    profile = _spec_round_profile(cfg, target, draft)
+    result = {"phase": "speculate", "gamma": SPEC_GAMMA,
+              "draft_layers": SPEC_DRAFT_LAYERS, "damp": SPEC_DAMP,
+              "runs": runs, "standalone_round": profile,
+              "seconds": {"serve": t1 - t0, "judge": t2 - t1,
+                          "profile": time.time() - t2}}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -1658,6 +1950,7 @@ def main() -> int:
     generate_prefix = timed("generate_prefix", phase_generate_prefix,
                             gen_model)
     stream_context = timed("stream_context", phase_stream_context, gen_model)
+    speculate = timed("speculate", phase_speculate, gen_model)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -1689,6 +1982,8 @@ def main() -> int:
             generate_prefix_paged=generate_prefix["runs"][1][
                 "paged_decode_attention_launches"],
             stream_context_paged=stream_context["runs"][0][
+                "paged_decode_attention_launches"],
+            speculate_paged=speculate["runs"][2][
                 "paged_decode_attention_launches"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

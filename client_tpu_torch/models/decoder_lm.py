@@ -8,6 +8,7 @@ generated token, every concurrent request multiplexed onto one slot batch
 by the continuous-batching engine (``server/generation.py``). The
 reference's single-stream and static-batch generators, its sequence
 decoder, replica fleets and engine supervision wait for later slices.
+Speculative decoding runs through ``speculative_draft``.
 """
 
 from __future__ import annotations
@@ -24,13 +25,16 @@ from client_tpu_torch.server.config import (
     GenerationEngineConfig,
     ModelConfig,
     PrefixCacheConfig,
+    SpeculativeConfig,
     TensorSpec,
+    config_from_dict,
 )
 from client_tpu_torch.server.generation import (
     ContinuousBatchingEngine,
     reject_unported,
 )
 from client_tpu_torch.server.model import PyModel
+from client_tpu_torch.server.speculation import DraftModel, build_draft_model
 from client_tpu_torch.server.types import ServerError
 
 
@@ -114,6 +118,10 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               prefix_blocks: int = 256,
                               prefix_block_len: int = 16,
                               prefix_commit_policy: str = "all",
+                              speculative_draft=None,
+                              speculative_gamma: int = 4,
+                              speculative_min_acceptance: float = 0.0,
+                              speculative_gamma_ladder: bool = False,
                               queue_depth: int = 256,
                               shed_on_full: bool = False,
                               device=None, **unported) -> ContinuousModel:
@@ -126,26 +134,62 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     default to random weights from ``seed``, drawn on ``device`` (CUDA by
     default, raising without it; the CPU only when asked for). The engine
     knobs and their defaults are the reference's (the slot layout,
-    token-level prefill, no prefix cache). The config's
-    ``generation_engine`` and ``prefix_cache`` blocks advertise what the
-    engine runs, resolved by the engine's own rules, so a bad combination
-    raises here. The engine is built now and started by the first
-    request."""
+    token-level prefill, no prefix cache, no speculation). The config's
+    ``generation_engine``, ``prefix_cache`` and ``speculative`` blocks
+    advertise what the engine runs, resolved by the engine's own rules, so
+    a bad combination raises here. The engine is built now and started by
+    the first request.
+
+    ``speculative_draft`` turns on speculative decoding: a
+    ``speculation.DraftModel``, a ``(cfg, params)`` pair, or a
+    ``SpeculativeConfig`` (or its dict form, the config JSON block) from
+    which the draft is built on ``device``. A config block is
+    authoritative: its gamma, floor and ladder override the
+    ``speculative_*`` arguments. An engine that never speculates (no
+    draft, gamma 0, a disabled block) advertises no ``speculative``
+    block."""
     reject_unported(unported)
     cfg = cfg or decode_config()
+    dev = resolve_device(device)
+    draft, spec_json = speculative_draft, None
+    if isinstance(draft, dict):
+        draft = config_from_dict(SpeculativeConfig, draft)
+    if isinstance(draft, SpeculativeConfig):
+        # the block is authoritative: the engine runs what the config
+        # JSON advertises
+        spec_json = draft
+        speculative_gamma = draft.gamma
+        speculative_min_acceptance = draft.min_acceptance
+        speculative_gamma_ladder = bool(draft.gamma_ladder)
+        draft = (build_draft_model(cfg, spec_json, dev)
+                 if spec_json.enabled and spec_json.gamma > 0 else None)
+    elif isinstance(draft, tuple):
+        draft = DraftModel(*draft)
+    if draft is not None and speculative_gamma > 0:
+        spec_json = spec_json or SpeculativeConfig(
+            enabled=True, gamma=speculative_gamma,
+            min_acceptance=speculative_min_acceptance,
+            gamma_ladder=speculative_gamma_ladder)
+    else:
+        draft = spec_json = None
     eng = ContinuousBatchingEngine
     eff_mode = eng.resolve_prefill_mode(prefill, prefill_mode)
     eff_budget = eng.resolve_prefill_budget(eff_mode, prefill_chunk,
                                             prefill_token_budget)
-    eff_stride, eff_entries = eng.ring_shape(fetch_stride, overlap,
-                                             dispatch_depth, ring_entries)
+    # the ring is sized with the entries a speculating iteration appends,
+    # as the engine sizes it
+    eff_ladder = eng.resolve_gamma_ladder(
+        speculative_gamma if draft is not None else 0,
+        speculative_gamma_ladder)
+    eff_stride, eff_entries = eng.ring_shape(
+        fetch_stride, overlap, dispatch_depth, ring_entries,
+        eng.ring_entries_per_iter(eff_ladder))
     kv = eng.resolve_kv_layout(
         cfg, n_slots, kv_layout, kv_block_len,
         kv_pool_blocks, kv_max_blocks_per_slot, eff_mode, prefix_cache,
         prefix_block_len)
     eng.resolve_prefix(cfg, kv[0], prefix_cache,
                        prefix_block_len, prefix_commit_policy)
-    dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -166,6 +210,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             prefix_cache=prefix_cache, prefix_blocks=prefix_blocks,
             prefix_block_len=prefix_block_len,
             prefix_commit_policy=prefix_commit_policy,
+            speculative_draft=draft, speculative_gamma=speculative_gamma,
+            speculative_min_acceptance=speculative_min_acceptance,
+            speculative_gamma_ladder=speculative_gamma_ladder,
             shed_on_full=shed_on_full, device=dev, name=name)
 
     model: ContinuousModel = None  # bound below; stream_fn reads it live
@@ -213,6 +260,7 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             block_len=prefix_block_len,
             commit_policy=prefix_commit_policy)
             if prefix_cache else None),
+        speculative=spec_json,
     )
     model = ContinuousModel(config, stream_fn, fresh_engine)
     return model

@@ -24,7 +24,11 @@ from one key, and a test can hand the port those very draws
 a counter-based integer hash in torch ops, so one (seed, position) pair
 always gives the same draw, on the card or the CPU, with no global RNG
 and no host round trip. The draws are not the reference's (its threefry
-bits are not reproduced); the distribution is the same.
+bits are not reproduced); the distribution is the same. A salt separates
+the independent streams speculative decoding draws at one position
+(``step_noise(..., salt=)``, ``step_uniform``), and ``filtered_probs``
+gives the probabilities ``sample_next`` draws from, the basis of its
+modified rejection sampling.
 
 Every branch is computed and ``torch.where`` selects, as the reference's
 ``jnp.where`` does: temperature, top_k and top_p are per-slot data, and
@@ -51,21 +55,56 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def step_noise(seed, pos, vocab: int, max_top_k: int = MAX_TOP_K) -> tuple:
-    """The Gumbel noise of one decode step for each row: a pure function of
-    (seed, pos). ``seed``/``pos`` are int tensors of one shape [...]
-    (or Python ints). Returns (gumbel [..., vocab] f32, gumbel_k [...,
-    min(max_top_k, vocab)] f32)."""
+def _salt_key(salt: int) -> int:
+    """A salt as the 32-bit word the step key is mixed with (a host
+    int; 0 is never used, so salt 0 leaves the key as it was)."""
+    x = (int(salt) * 0x9E3779B1 + 0x7F4A7C15) & _M32
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _M32
+    x = ((x ^ (x >> 15)) * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def _step_bits(seed, pos, n: int, salt: int = 0) -> torch.Tensor:
+    """n 32-bit words of the stream of (seed, pos, salt), [..., n] int64:
+    the port's stand-in for ``fold_in(step_key(seed, pos), salt)``. Salt 0
+    is the unsalted stream the selection draw uses."""
     seed = torch.as_tensor(seed).long()
     pos = torch.as_tensor(pos, device=seed.device).long()
-    key = _mix32(_mix32(seed) ^ ((pos + 0x632BE5AB) & _M32))[..., None]
-    k = min(max_top_k, vocab)
-    idx = torch.arange(vocab + k, device=seed.device)
-    bits = _mix32(key + idx * 0x61C88647)
+    key = _mix32(_mix32(seed) ^ ((pos + 0x632BE5AB) & _M32))
+    if salt:
+        key = _mix32(key ^ _salt_key(salt))
+    idx = torch.arange(n, device=seed.device)
+    return _mix32(key[..., None] + idx * 0x61C88647)
+
+
+def _uniform(bits: torch.Tensor) -> torch.Tensor:
     # 23 random bits + 0.5: exact in f32, strictly inside (0, 1)
-    u = ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
-    g = -torch.log(-torch.log(u))
+    return ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
+def step_gumbel(seed, pos, n: int, salt: int = 0) -> torch.Tensor:
+    """n Gumbel draws per row of (seed, pos, salt), f32 [..., n]: the
+    first n of the stream ``step_noise`` cuts in two."""
+    return -torch.log(-torch.log(_uniform(_step_bits(seed, pos, n, salt))))
+
+
+def step_noise(seed, pos, vocab: int, max_top_k: int = MAX_TOP_K,
+               salt: int = 0) -> tuple:
+    """The Gumbel noise of one decode step for each row: a pure function of
+    (seed, pos, salt). ``seed``/``pos`` are int tensors of one shape [...]
+    (or Python ints); ``salt`` (a host int) separates the independent
+    streams speculation draws at one position (``server/speculation.py``).
+    Returns (gumbel [..., vocab] f32, gumbel_k [..., min(max_top_k,
+    vocab)] f32)."""
+    g = step_gumbel(seed, pos, vocab + min(max_top_k, vocab), salt)
     return g[..., :vocab], g[..., vocab:]
+
+
+def step_uniform(seed, pos, salt: int = 0) -> torch.Tensor:
+    """One uniform in (0, 1) per row of (seed, pos, salt), f32 [...]: the
+    port's stand-in for ``jax.random.uniform(fold_in(step_key(seed, pos),
+    salt))``."""
+    return _uniform(_step_bits(seed, pos, 1, salt))[..., 0]
 
 
 def sample_next(logits, gumbel, gumbel_k, temperature, top_k, top_p=0.0,
@@ -115,6 +154,46 @@ def select_token(logits, seed, pos, temperature, top_k, top_p=0.0,
         seed = torch.tensor(seed, device=logits.device)
     g, gk = step_noise(seed, pos, logits.shape[-1], max_top_k)
     return sample_next(logits, g, gk, temperature, top_k, top_p, max_top_k)
+
+
+def filtered_probs(logits, temperature, top_k, top_p=0.0,
+                   max_top_k: int = MAX_TOP_K) -> torch.Tensor:
+    """The full-vocab probabilities of the distribution ``sample_next``
+    draws from, for each row of ``logits`` [..., vocab]: the p and q of
+    speculative decoding's modified rejection sampling. Branch for branch
+    the reference's ``filtered_probs``: a one-hot at the argmax for
+    temperature <= 0; the softmax at the temperature; with top-k or
+    nucleus truncation, the softmax over ``sample_next``'s kept candidates
+    (the same ``topk`` set, tie order, tail-mass nucleus and
+    first-candidate guard), renormalised and scattered back to vocab
+    positions. ``temperature``/``top_k``/``top_p`` are scalars or [...]
+    tensors. Returns f32 [..., vocab]."""
+    logits = logits.float()
+    dev = logits.device
+    vocab = logits.shape[-1]
+    temp = torch.as_tensor(temperature, dtype=torch.float32,
+                           device=dev)[..., None]
+    tk = torch.as_tensor(top_k, device=dev).long()[..., None]
+    tp = torch.as_tensor(top_p, dtype=torch.float32, device=dev)[..., None]
+    neg_inf = torch.full((), float("-inf"), device=dev)
+    greedy = torch.zeros_like(logits).scatter_(
+        -1, logits.argmax(dim=-1, keepdim=True), 1.0)
+    scaled = logits / temp.clamp(min=1e-6)
+    full = torch.softmax(scaled, dim=-1)
+    k = min(max_top_k, vocab)
+    vals, idx = torch.topk(scaled, k, dim=-1)      # sorted descending
+    ar = torch.arange(k, device=dev)
+    kk = torch.where(tk > 0, tk.clamp(1, k), k)
+    keep = ar < kk
+    probs = torch.softmax(torch.where(keep, vals, neg_inf), dim=-1)
+    remaining = probs.flip(-1).cumsum(-1).flip(-1)
+    keep = keep & torch.where(tp > 0, remaining > 1.0 - tp, True)
+    keep = keep | (ar == 0)
+    trunc = torch.softmax(torch.where(keep, vals, neg_inf), dim=-1)
+    trunc_full = torch.zeros_like(logits).scatter_(
+        -1, idx, torch.where(keep, trunc, 0.0))
+    sampled = torch.where((tk > 0) | (tp > 0), trunc_full, full)
+    return torch.where(temp > 0, sampled, greedy)
 
 
 def offline_sample(cfg, params, prompt, n: int, seed: int = 0,

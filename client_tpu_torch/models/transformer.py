@@ -30,8 +30,10 @@ block-table layout (``paged_decode_steps``, ``paged_prefill_chunk``, with
 ``emit_into_ring`` and the pool read/write helpers) decodes through the
 paged decode kernel (``ops.paged_attention``) under ``attn_impl="flash"``
 and through the gathered einsum under ``"ref"``; its prefill chunk always
-takes the einsum. The verify and int8-KV paths, MoE, mesh sharding and
-ring attention wait for later slices.
+takes the einsum. The speculative verify passes (``verify_steps``,
+``paged_verify_steps``) score T tokens per slot in one forward with the
+einsum attention on both layouts, as the reference's do. The int8-KV
+paths, MoE, mesh sharding and ring attention wait for later slices.
 """
 
 from __future__ import annotations
@@ -290,24 +292,28 @@ def emit_into_ring(ring, counts, entry: int, toks, n_emitted) -> tuple:
 def _masked_attention(cfg: TransformerConfig, q, k_read, v_read, qpos):
     """The reference's einsum attention of the decode paths: query rows
     q [N, H, Dh] at positions qpos [N] over K/V rows, either one set per
-    query row ([N, K, Hkv, Dh]) or one set all rows share ([K, Hkv, Dh]).
-    Key j is visible to a row at position p when j <= p. Grouped queries
-    fold into the einsum (no repeated K/V); logits in f32 scaled by
-    Dh^-0.5, softmax in f32, probabilities rounded to v's dtype before the
-    PV product."""
-    n = q.shape[0]
+    query row ([N, K, Hkv, Dh]) or one set all rows share ([K, Hkv, Dh]);
+    or, for the verify paths, T query rows per slot, q [N, T, H, Dh] at
+    qpos [N, T] over each slot's rows [N, K, Hkv, Dh]. Key j is visible to
+    a row at position p when j <= p. Grouped queries fold into the einsum
+    (no repeated K/V); logits in f32 scaled by Dh^-0.5, softmax in f32,
+    probabilities rounded to v's dtype before the PV product."""
+    lead = q.shape[:-2]
     r = cfg.n_heads // cfg.kv_heads
-    qg = q.reshape(n, cfg.kv_heads, r, cfg.head_dim).float()
-    shared = k_read.dim() == 3
-    logits = torch.einsum("tgrd,sgd->tgrs" if shared else "bgrd,bsgd->bgrs",
-                          qg, k_read.float()) * cfg.head_dim ** -0.5
+    qg = q.reshape(*lead, cfg.kv_heads, r, cfg.head_dim).float()
+    if q.dim() == 4:
+        qk, pv = "btgrd,bsgd->btgrs", "btgrs,bsgd->btgrd"
+    elif k_read.dim() == 3:
+        qk, pv = "tgrd,sgd->tgrs", "tgrs,sgd->tgrd"
+    else:
+        qk, pv = "bgrd,bsgd->bgrs", "bgrs,bsgd->bgrd"
+    logits = torch.einsum(qk, qg, k_read.float()) * cfg.head_dim ** -0.5
     keys = torch.arange(k_read.shape[-3], device=q.device)
-    mask = keys[None, :] <= qpos.long()[:, None]                 # [N, K]
-    logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
+    mask = keys <= qpos.long()[..., None]                  # [..., K]
+    logits = logits.masked_fill(~mask[..., None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(v_read.dtype)
-    attn = torch.einsum("tgrs,sgd->tgrd" if shared else "bgrs,bsgd->bgrd",
-                        probs, v_read)
-    return attn.reshape(n, cfg.n_heads, cfg.head_dim)
+    attn = torch.einsum(pv, probs, v_read)
+    return attn.reshape(*lead, cfg.n_heads, cfg.head_dim)
 
 
 # ---------------------------------------------------------------- slot KV
@@ -334,7 +340,7 @@ def init_decode_state(cfg: TransformerConfig, n_slots: int,
 
 
 def decode_step(cfg: TransformerConfig, params: dict, tokens,
-                state: dict) -> tuple:
+                state: dict, rows=None) -> tuple:
     """One autoregressive step of every slot of a slot-layout state: the
     reference's ``decode_step`` under ``jax.vmap``, as one computation
     over ``[S, ...]``. tokens [S] int32 are fed at positions
@@ -343,14 +349,21 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens,
     rows [0, pos]. Returns (logits [S, vocab] f32, the state with
     ``pos + 1``; ``k``/``v`` are the same tensors).
 
+    ``rows`` [N] (int64 slot indices) steps only those slots: tokens [N],
+    logits [N, vocab], only their rows written and only their positions
+    advanced; every other slot's K/V and position stay bit-unchanged (the
+    speculation draft steps the slots of a verify round this way).
+
     A slot decoding past its budget inside its last chunk reaches
     ``pos >= max_seq``: the write index and the ``pos_embed`` gather clamp
     to ``max_seq - 1``, as the reference's ``dynamic_update_slice`` and
     gather do (an out-of-range ``index_put_`` would be a device-side
     assert on the card)."""
-    pos = state["pos"]
+    pos_all = state["pos"]
+    pos = pos_all if rows is None else pos_all[rows]
     wpos = pos.long().clamp(0, cfg.max_seq - 1)
-    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    idx = (torch.arange(tokens.shape[0], device=tokens.device)
+           if rows is None else rows)
     x = params["embed"][tokens.long()]
     if not cfg.rope:
         x = x + params["pos_embed"][wpos]
@@ -365,14 +378,73 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens,
         q, k, v = _qkv_proj(cfg, y, lp, "b")   # q [S,H,Dh], kv [S,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
-        k_l.index_put_((rows, wpos), k.to(k_l.dtype))
-        v_l.index_put_((rows, wpos), v.to(v_l.dtype))
+        k_l.index_put_((idx, wpos), k.to(k_l.dtype))
+        v_l.index_put_((idx, wpos), v.to(v_l.dtype))
+        if rows is not None:
+            k_l, v_l = k_l[rows], v_l[rows]
         attn = _masked_attention(cfg, q, k_l, v_l, pos)
         x = x + torch.einsum("bhk,hkd->bd", attn, lp["wo"])
         x = _dense_ffn(x, lp, ffn=cfg.ffn)
     x = _rmsnorm(x, params["final_norm"])
     logits = torch.einsum("bd,vd->bv", x, params["embed"]).float()
-    return logits, {**state, "pos": pos + 1}
+    new_pos = pos + 1 if rows is None else pos_all.index_put((rows,),
+                                                             pos + 1)
+    return logits, {**state, "pos": new_pos}
+
+
+def verify_steps(cfg: TransformerConfig, params: dict, tokens, state: dict,
+                 rows=None) -> tuple:
+    """Score T tokens per slot against a slot-layout state in ONE forward:
+    the speculative verify pass, the reference's ``verify_steps`` under
+    ``jax.vmap``. tokens [S, T] int32 are consumed at positions
+    pos..pos+T-1 of each slot as T ``decode_step`` calls would consume
+    them: per layer the slot's T K/V rows are written IN PLACE as one slab
+    (its start clamped so the slab fits in max_seq, as
+    ``dynamic_update_slice`` clamps), and each query row attends the
+    slot's rows under its own causal position. ``rows`` [N] (int64 slot
+    indices) verifies only those slots (tokens [N, T]); every other
+    slot's K/V and position stay bit-unchanged. Returns (logits [N, T,
+    vocab] f32, logits[:, i] the next-token distribution after
+    tokens[:, :i+1]; the state with the verified slots' pos advanced by
+    T). Rollback is the caller's: position is data, so rewinding ``pos``
+    un-attends the rejected rows, and the next write overwrites them.
+    Plain torch ops, as the reference's einsums are."""
+    n, t_len = tokens.shape
+    pos_all = state["pos"]
+    pos = (pos_all if rows is None else pos_all[rows]).long()
+    idx = (torch.arange(n, device=tokens.device)
+           if rows is None else rows)
+    steps = torch.arange(t_len, device=tokens.device)
+    start = pos.clamp(0, cfg.max_seq - t_len)
+    wpos = start[:, None] + steps                                # [N, T]
+    qpos = pos[:, None] + steps
+    x = params["embed"][tokens.long()]
+    if not cfg.rope:
+        x = x + params["pos_embed"][wpos]
+    x = x.to(cfg.dtype)                                          # [N, T, d]
+    if cfg.rope:
+        cos, sin = _rope_angles(qpos, cfg.head_dim, cfg.rope_theta)
+        cos, sin = cos[:, :, None], sin[:, :, None]
+    slot_idx = idx[:, None].expand(n, t_len)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        k_l, v_l = state["k"][:, i], state["v"][:, i]
+        y = _rmsnorm(x, lp["ln1"])
+        q, k, v = _qkv_proj(cfg, y, lp, "bt")  # q [N,T,H,Dh], kv [N,T,Hkv,Dh]
+        if cfg.rope:
+            q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
+        k_l.index_put_((slot_idx, wpos), k.to(k_l.dtype))
+        v_l.index_put_((slot_idx, wpos), v.to(v_l.dtype))
+        if rows is not None:
+            k_l, v_l = k_l[rows], v_l[rows]
+        attn = _masked_attention(cfg, q, k_l, v_l, qpos)
+        x = x + torch.einsum("bthk,hkd->btd", attn, lp["wo"])
+        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+    x = _rmsnorm(x, params["final_norm"])
+    logits = torch.einsum("btd,vd->btv", x, params["embed"]).float()
+    new_pos = pos_all + t_len if rows is None else pos_all.index_put(
+        (rows,), pos_all[rows] + t_len)
+    return logits, {**state, "pos": new_pos}
 
 
 def prefill(cfg: TransformerConfig, params: dict, tokens,
@@ -557,6 +629,52 @@ def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
         x = _dense_ffn(x, lp, ffn=cfg.ffn)
     x = _rmsnorm(x, params["final_norm"])
     logits = torch.einsum("bd,vd->bv", x, params["embed"]).float()
+    return logits, pool
+
+
+def paged_verify_steps(cfg: TransformerConfig, params: dict, toks, pos0,
+                       tables, pool: dict, write=None) -> tuple:
+    """Score T tokens per slot against the paged pool in ONE forward: the
+    reference's ``paged_verify_steps``, ``verify_steps`` through block
+    tables. toks [S, T] int32; pos0 [S] the first position of each slot's
+    slab; tables [S, B]; pool written IN PLACE. ``write`` [S] bool (None:
+    all) routes the slab writes of slots that are not verifying to
+    scratch block 0, so their pool rows hold. Attention gathers each
+    slot's table (``_paged_kv_read``) for the einsum attention, never the
+    paged decode kernel, as in the reference. Positions past B*block_len
+    clamp onto the last table entry and ``pos_embed`` rows past max_seq
+    onto its last row, as the reference's gathers clamp. Returns (logits
+    [S, T, vocab] f32, pool); position rollback is the caller's."""
+    s_len, t_len = toks.shape
+    b = tables.shape[1]
+    bl = pool["k"].shape[2]
+    pos_t = pos0.long()[:, None] + torch.arange(t_len, device=toks.device)
+    x = params["embed"][toks.long()]
+    if not cfg.rope:
+        x = x + params["pos_embed"][pos_t.clamp(max=cfg.max_seq - 1)]
+    x = x.to(cfg.dtype)                                          # [S, T, d]
+    if cfg.rope:
+        cos, sin = _rope_angles(pos_t, cfg.head_dim, cfg.rope_theta)
+        cos, sin = cos[:, :, None], sin[:, :, None]
+    bidx = torch.div(pos_t, bl, rounding_mode="floor").clamp(0, b - 1)
+    bids = tables.long().gather(1, bidx)                         # [S, T]
+    if write is not None:
+        bids = torch.where(write[:, None], bids, 0)              # scratch
+    boffs = pos_t % bl
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        pool_l = {"k": pool["k"][i], "v": pool["v"][i]}
+        y = _rmsnorm(x, lp["ln1"])
+        q, k, v = _qkv_proj(cfg, y, lp, "bt")  # q [S,T,H,Dh], kv [S,T,Hkv,Dh]
+        if cfg.rope:
+            q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
+        _paged_write(pool_l, bids, boffs, k, v)
+        k_read, v_read = _paged_kv_read(pool_l, tables)
+        attn = _masked_attention(cfg, q, k_read, v_read, pos_t)
+        x = x + torch.einsum("bthk,hkd->btd", attn, lp["wo"])
+        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+    x = _rmsnorm(x, params["final_norm"])
+    logits = torch.einsum("btd,vd->btv", x, params["embed"]).float()
     return logits, pool
 
 

@@ -2,11 +2,11 @@
 ``client_tpu/server/config.py``, with the fields an encoder served
 behind the dynamic batcher and a decoupled (streaming) generator use.
 
-The generator's ``generation_engine`` and ``prefix_cache`` blocks carry
-the engine knobs the port runs; the fleet, SLO, sequence, ensemble,
-speculation and sharding blocks of the reference wait for the slices that
-use them. ``platform`` and ``backend`` read ``"pytorch"`` (the reference's
-generator says ``"python"``).
+The generator's ``generation_engine``, ``prefix_cache`` and
+``speculative`` blocks carry the engine knobs the port runs; the fleet,
+SLO, sequence, ensemble and sharding blocks of the reference wait for the
+slices that use them. ``platform`` and ``backend`` read ``"pytorch"``
+(the reference's generator says ``"python"``).
 """
 
 from __future__ import annotations
@@ -103,6 +103,33 @@ class PrefixCacheConfig:
 
 
 @dataclass
+class SpeculativeConfig:
+    """Speculative decoding of a generation engine
+    (``server/speculation.py``): a small draft decoder LM proposes
+    ``gamma`` tokens per round and the target scores them in one verify
+    forward. ``draft`` holds TransformerConfig overrides of the derived
+    draft (its vocab and max_seq stay the target's), ``draft_seed`` its
+    weights, ``min_acceptance`` the rolling per-stream acceptance below
+    which a stream falls back to plain decode, and ``gamma_ladder`` runs
+    each stream at a rung of {1, 2, 4, 8} up to ``gamma`` (plus ``gamma``)
+    picked from its acceptance. The reference's block, field for field."""
+
+    enabled: bool = False
+    gamma: int = 4
+    min_acceptance: float = 0.0
+    draft: dict = field(default_factory=dict)
+    draft_seed: int = 0
+    gamma_ladder: bool = False
+
+    def to_json(self):
+        return {"enabled": self.enabled, "gamma": self.gamma,
+                "min_acceptance": self.min_acceptance,
+                "draft": dict(self.draft),
+                "draft_seed": self.draft_seed,
+                "gamma_ladder": self.gamma_ladder}
+
+
+@dataclass
 class GenerationEngineConfig:
     """The continuous-batching engine's shape (``server/generation.py``),
     limited to the knobs the port's engine runs: slot count, chunk,
@@ -155,6 +182,7 @@ class ModelConfig:
     # responses per request (served only through a response callback)
     decoupled: bool = False
     prefix_cache: Optional[PrefixCacheConfig] = None
+    speculative: Optional[SpeculativeConfig] = None
     generation_engine: Optional[GenerationEngineConfig] = None
 
     # ---- derived ----
@@ -210,6 +238,8 @@ class ModelConfig:
             j["queue_policy"] = self.queue_policy.to_json()
         if self.prefix_cache is not None:
             j["prefix_cache"] = self.prefix_cache.to_json()
+        if self.speculative is not None:
+            j["speculative"] = self.speculative.to_json()
         if self.generation_engine is not None:
             j["generation_engine"] = self.generation_engine.to_json()
         return j

@@ -1,7 +1,6 @@
 """Continuous (in-flight) batching engine for autoregressive generation:
-the port of ``client_tpu/server/generation.py``, restricted to its
-non-speculative core with the prefix cache and without the dedicated
-lanes.
+the port of ``client_tpu/server/generation.py``: its core, the prefix
+cache and speculative decoding, without the dedicated lanes.
 
 Ragged concurrent streams share one fixed batch of S slots at token
 granularity: every engine step feeds each active slot exactly one token,
@@ -60,6 +59,20 @@ Nothing on the dispatch path reads a device value on the host (no
 undo the dispatch-ahead. Greedy output does not depend on
 ``fetch_stride`` or ``overlap``.
 
+Speculative decoding (``speculative_draft``): once a slot's prompt is fully
+dispatched it decodes in verify rounds (``spec_round``,
+``paged_spec_round``) instead of chunk steps. A small draft model, with
+slot-layout rows of its own on both layouts, proposes gamma tokens; ONE
+target forward (``transformer.verify_steps`` / ``paged_verify_steps``,
+the einsum attention, never K2) scores them; the accepted prefix plus one
+token lands in a ring entry of its own with its count, and position
+rollback is a rewrite of ``pos``. A round runs behind the same
+iteration's chunk, in which its slot rides frozen, and touches no other
+slot's rows. The host learns each advance only from the fetched counts
+(``_retire_spec``), where it also corrects ``pos_hi``. A stream whose
+rolling acceptance falls below ``speculative_min_acceptance``, or that
+nears max_seq, latches to plain chunk decode.
+
 Streaming context: a request may carry SLO labels, a deadline and a
 cancel Event (``submit``). A deadline that passes or an Event that is set
 ends the stream with a 504 or a 499; the slot, its paged blocks and its
@@ -68,8 +81,8 @@ and a queued request is settled where it leaves the queue
 (``_admissible``).
 
 Knobs of the reference that this slice does not run (the dedicated
-lanes, the host tier, speculation, the SLO scheduler and
-preemption, meshes and fleets, the watchdog, goodput and timeline planes)
+lanes, the host tier, the SLO scheduler and preemption, meshes and
+fleets, the watchdog, goodput and timeline planes)
 raise ``NotImplementedError`` naming the ROADMAP item that ports them;
 none is silently ignored.
 """
@@ -88,7 +101,13 @@ import torch
 
 from client_tpu_torch.device import resolve_device
 from client_tpu_torch.models import transformer as t
-from client_tpu_torch.models.sampling import MAX_TOP_K, select_token
+from client_tpu_torch.models.sampling import (
+    MAX_TOP_K,
+    filtered_probs,
+    select_token,
+    step_gumbel,
+    step_uniform,
+)
 from client_tpu_torch.server.kv_cache import (
     COMMIT_POLICIES,
     RadixBlockIndex,
@@ -102,6 +121,14 @@ from client_tpu_torch.server.kv_cache import (
 from client_tpu_torch.server.model import (
     finish_host_copies,
     start_host_copies,
+)
+from client_tpu_torch.server.speculation import (
+    ACCEPT_SALT,
+    DRAFT_SALT,
+    RESIDUAL_SALT,
+    RequestSpeculation,
+    SpeculationController,
+    spec_select,
 )
 from client_tpu_torch.server.stats import GenerationStats
 from client_tpu_torch.server.types import (
@@ -126,10 +153,6 @@ UNPORTED_KNOBS = {
     "slo_window_s": "A10g (scheduler / preemption)",
     "slo_max_tenants": "A10g (scheduler / preemption)",
     "dispatch_duty": "A10g (scheduler / preemption)",
-    "speculative_draft": "A10h (speculation)",
-    "speculative_gamma": "A10h (speculation)",
-    "speculative_min_acceptance": "A10h (speculation)",
-    "speculative_gamma_ladder": "A10h (speculation)",
     "mesh": "A12 (mesh and fleets)",
     "engine_devices": "A12 (mesh and fleets)",
     "watchdog": "A13 (runtime planes)",
@@ -297,14 +320,165 @@ def paged_prefill_chunk_into_slot(cfg, params: dict, pool: dict, pos, last,
         last[idx] = _select_first(logits, pos, idx, sampling)
 
 
+def draft_prefill(dcfg, dparams: dict, dcache: dict, dpos, idx: int, toks,
+                  plen: int) -> None:
+    """The draft's catch-up on slot ``idx`` (the reference's
+    ``draft_prefill``): the bucket-padded prompt ``toks`` through the
+    draft's ``transformer.prefill``, the bucket's K/V rows written into the
+    draft's slot rows and its position set to ``plen``, IN PLACE. Rows past
+    ``plen`` keep K/V the position mask never attends."""
+    st, _ = t.prefill(dcfg, dparams, toks, plen, pad_to_max=False)
+    bucket = toks.shape[0]
+    for name in ("k", "v"):
+        dcache[name][idx, :, :bucket] = st[name]
+    dpos[idx] = plen
+
+
+def _propose(dcfg, dparams: dict, dstate: dict, rows, last, pos0,
+             sampling: tuple, g: int, sample: bool) -> tuple:
+    """The draft's G + 1 serial steps over the round's slots (the last one
+    ingests the last proposal, so the draft's rows stay complete when every
+    proposal is accepted), from each slot's pending token ``last``.
+    Greedy proposals are the draft's argmax; sampled ones are drawn from
+    its ``filtered_probs`` q with the noise of (seed, pos0 + i,
+    DRAFT_SALT). Returns (proposals [N, G+1] int32, q [N, G+1, vocab] or
+    None when greedy)."""
+    seeds, temps, topks, topps = sampling
+    tok, props, qs = last, [], []
+    for i in range(g + 1):
+        logits, dstate = t.decode_step(dcfg, dparams, tok, dstate, rows)
+        if sample:
+            q = filtered_probs(logits, temps, topks, topps)
+            noise = step_gumbel(seeds, pos0 + i, q.shape[-1], DRAFT_SALT)
+            logq = torch.where(q > 0, q.log(),
+                               torch.full((), float("-inf"),
+                                          device=q.device))
+            tok = (logq + noise).argmax(dim=-1).to(torch.int32)
+            qs.append(q)
+        else:
+            tok = logits.argmax(dim=-1).to(torch.int32)
+        props.append(tok)
+    return torch.stack(props, dim=1), (torch.stack(qs, dim=1) if sample
+                                       else None)
+
+
+def _accept(logits, props, qdist, pos0, sampling: tuple, g: int,
+            sample: bool) -> tuple:
+    """The round's acceptance over its N slots: greedy by exact argmax
+    agreement of the leading proposals (the bonus or corrected token is
+    the target's argmax after them); sampled by ``spec_select`` on the
+    target's ``filtered_probs`` with the uniforms of (seed, pos0 + 1 + i,
+    ACCEPT_SALT) and the residual noise of (seed, pos0, RESIDUAL_SALT).
+    Returns (n_accepted [N] int64, next token [N] int32)."""
+    if not sample:
+        tgt = logits.argmax(dim=-1)                            # [N, G+1]
+        match = (props[:, :g].long() == tgt[:, :g]).long()
+        n_acc = match.cumprod(dim=-1).sum(dim=-1)
+        return n_acc, tgt.gather(1, n_acc[:, None])[:, 0].to(torch.int32)
+    seeds, temps, topks, topps = sampling
+    pdist = filtered_probs(logits, temps[:, None], topks[:, None],
+                           topps[:, None])
+    steps = torch.arange(g, device=logits.device)
+    accept_u = step_uniform(seeds[:, None], pos0[:, None] + 1 + steps,
+                            ACCEPT_SALT)
+    residual = step_gumbel(seeds, pos0, logits.shape[-1], RESIDUAL_SALT)
+    return spec_select(pdist, qdist[:, :g], props[:, :g], accept_u,
+                       residual)
+
+
+def _finish_round(pos, dpos, last, ring, ring_cnt, entry: int, rows, pos0,
+                  toks_in, n_acc, nxt) -> tuple:
+    """Rollback and emission: the round's slots move to pos0 + 1 + n_acc
+    (target and draft alike; the rejected rows beyond are un-attended and
+    overwritten before they are read), take ``nxt`` as their pending
+    token, and ring entry ``entry`` gets each slot's [pending, proposals]
+    row with 1 + n_acc tokens counted (0 for the other slots, whose pos,
+    last and draft pos are left as they were). Returns (last, pos, draft
+    pos), new tensors: none aliases another, since the admission paths
+    write them in place."""
+    new_pos = (pos0 + 1 + n_acc).to(torch.int32)
+    n_out = (1 + n_acc).to(torch.int32)
+    if rows is None:
+        toks, counts = toks_in, n_out
+        pos, dpos, last = new_pos, new_pos.clone(), nxt
+    else:
+        toks = torch.zeros((pos.shape[0], toks_in.shape[1]),
+                           dtype=torch.int32, device=pos.device)
+        toks[rows] = toks_in
+        counts = torch.zeros_like(pos).index_put((rows,), n_out)
+        pos = pos.index_put((rows,), new_pos)
+        dpos = dpos.index_put((rows,), new_pos)
+        last = last.index_put((rows,), nxt)
+    t.emit_into_ring(ring, ring_cnt, entry, toks, counts)
+    return last, pos, dpos
+
+
+def _round(verify, dcfg, dparams: dict, pos, dcache: dict, dpos, last,
+           ring, ring_cnt, entry: int, rows, sampling: tuple, g: int,
+           sample: bool) -> tuple:
+    """The round both layouts share: the draft proposes G tokens per slot
+    (``_propose``), ``verify(toks [N, G+1], pos0 [N])`` scores the G + 1
+    tokens [pending, proposals] in ONE target forward, and ``_accept`` and
+    ``_finish_round`` keep the accepted prefix plus one token."""
+    pos0 = pos if rows is None else pos[rows]
+    lst = last if rows is None else last[rows]
+    props, qdist = _propose(dcfg, dparams, {**dcache, "pos": dpos}, rows,
+                            lst, pos0, sampling, g, sample)
+    toks_in = torch.cat([lst[:, None], props[:, :g]], dim=1)
+    logits = verify(toks_in, pos0)
+    n_acc, nxt = _accept(logits, props, qdist, pos0, sampling, g, sample)
+    return _finish_round(pos, dpos, last, ring, ring_cnt, entry, rows, pos0,
+                         toks_in, n_acc, nxt)
+
+
+def spec_round(cfg, dcfg, params: dict, dparams: dict, cache: dict, pos,
+               dcache: dict, dpos, last, ring, ring_cnt, entry: int, rows,
+               sampling: tuple, g: int, sample: bool) -> tuple:
+    """One speculative round at verify depth ``g`` under the slot layout
+    (the reference's ``spec_round``): ``_round`` with the verify
+    ``transformer.verify_steps`` against the slots' own rows.
+
+    ``rows`` [N] int64 the round's slots (None: all S); every other slot's
+    target and draft K/V rows, pos and last stay bit-unchanged, including
+    rows the same iteration's chunk just wrote. ``sampling`` = (seeds,
+    temps, top_ks, top_ps) [N] of the round's slots; ``sample`` (a host
+    bool) False takes the greedy rule with no distribution machinery.
+    cache/dcache {k, v} and the ring are written IN PLACE. Returns (last,
+    pos, draft pos)."""
+    def verify(toks, _pos0):
+        return t.verify_steps(cfg, params, toks, {**cache, "pos": pos},
+                              rows)[0]
+
+    return _round(verify, dcfg, dparams, pos, dcache, dpos, last, ring,
+                  ring_cnt, entry, rows, sampling, g, sample)
+
+
+def paged_spec_round(cfg, dcfg, params: dict, dparams: dict, pool: dict,
+                     pos, dcache: dict, dpos, last, ring, ring_cnt,
+                     entry: int, tables, rows, sampling: tuple, g: int,
+                     sample: bool) -> tuple:
+    """``spec_round`` under the paged layout (the reference's
+    ``paged_spec_round``): the draft is a slot-layout pool as there, and
+    the verify is ONE ``transformer.paged_verify_steps`` of the round's
+    slots through their tables [N, Bw] (``rows`` None: all S) into the
+    pool, IN PLACE; no other slot writes. Returns (last, pos, draft
+    pos)."""
+    def verify(toks, pos0):
+        return t.paged_verify_steps(cfg, params, toks, pos0, tables,
+                                    pool)[0]
+
+    return _round(verify, dcfg, dparams, pos, dcache, dpos, last, ring,
+                  ring_cnt, entry, rows, sampling, g, sample)
+
+
 # ---------------------------------------------------------------- host side
 
 class _Request:
     __slots__ = ("prompt", "budget", "eos_id", "temperature", "top_k",
                  "top_p", "seed", "out", "emitted", "finished",
                  "enqueue_ns", "first_token_ns", "last_emit_ns",
-                 "cap_tokens", "parked", "prefix", "tenant", "slo_class",
-                 "deadline_ns", "cancel_ev", "outcome")
+                 "cap_tokens", "parked", "prefix", "spec", "tenant",
+                 "slo_class", "deadline_ns", "cancel_ev", "outcome")
 
     def __init__(self, prompt: np.ndarray, budget: int, eos_id: int,
                  temperature: float = 0.0, top_k: int = 0,
@@ -329,6 +503,7 @@ class _Request:
         self.cap_tokens = len(prompt) + budget
         self.parked = False       # waiting at the queue head for blocks
         self.prefix = None        # the pinned PrefixHandle of a cache hit
+        self.spec = None          # RequestSpeculation when speculating
         # SLO labels (stored for A10g's scheduler and stats)
         self.tenant = tenant
         self.slo_class = slo_class
@@ -343,14 +518,19 @@ class _Request:
 
 class _Slot:
     __slots__ = ("req", "cursor", "pos_hi", "decode_dispatched", "blocks",
-                 "n_shared", "reserved_left", "pos_pending")
+                 "n_shared", "reserved_left", "pos_pending", "draft_ready")
 
     def __init__(self):
         self.req: Optional[_Request] = None
         self.cursor = 0           # prompt tokens already dispatched
         # upper bound of the slot's device position over everything
-        # dispatched so far (+chunk per dispatch)
+        # dispatched so far (+chunk per dispatch, +rung + 1 per verify
+        # round, corrected to the real advance when the round retires);
+        # it gates speculation near max_seq
         self.pos_hi = 0
+        # the draft model's rows hold this request's prompt (its catch-up
+        # was dispatched)
+        self.draft_ready = False
         # generated-token columns dispatched: once they cover the budget
         # every token the stream may still emit is in flight
         self.decode_dispatched = 0
@@ -473,7 +653,20 @@ class ContinuousBatchingEngine:
     paged layout it must equal ``kv_block_len``) and
     ``prefix_commit_policy`` (``"all"`` evicts LRU leaves for room,
     ``"no-evict"`` takes free blocks only, ``"none"`` keeps the pool
-    read-only)."""
+    read-only).
+
+    Speculative decoding: with a ``speculative_draft``
+    (``speculation.DraftModel``) and ``speculative_gamma`` >= 1, a slot
+    whose prompt is fully dispatched runs verify rounds instead of chunk
+    steps: the draft proposes gamma tokens, one target forward scores
+    them, and the accepted prefix plus one token is emitted (greedy
+    streams are token-identical; sampled ones keep the target
+    distribution). ``speculative_min_acceptance`` latches a stream whose
+    rolling acceptance falls below it to plain decode (0: never), as is a
+    stream within gamma + 1 positions of max_seq;
+    ``speculative_gamma_ladder`` runs each stream at a rung of {1, 2, 4,
+    8} up to gamma (plus gamma) picked from its acceptance. Gamma 0 or no
+    draft is plain decode."""
 
     PREFILL_MODES = ("token", "batched", "chunked")
     KV_LAYOUTS = ("slot", "paged")
@@ -489,6 +682,9 @@ class ContinuousBatchingEngine:
                  prefix_cache: bool = False, prefix_blocks: int = 256,
                  prefix_block_len: int = 16,
                  prefix_commit_policy: str = "all",
+                 speculative_draft=None, speculative_gamma: int = 4,
+                 speculative_min_acceptance: float = 0.0,
+                 speculative_gamma_ladder: bool = False,
                  shed_on_full: bool = False, device=None,
                  name: str = "generation-engine", **unported):
         reject_unported(unported)
@@ -500,6 +696,34 @@ class ContinuousBatchingEngine:
             raise ValueError("ring_entries must be >= 0 (0 = auto)")
         if ring_entries == 1:
             raise ValueError("ring_entries must be >= 2 (0 = auto)")
+        if speculative_draft is not None and speculative_gamma > 0:
+            speculative_draft.assert_compatible(cfg)
+            if speculative_gamma + 1 >= cfg.max_seq:
+                raise ValueError(
+                    f"speculative_gamma {speculative_gamma} leaves no "
+                    f"room for a verify round within max_seq "
+                    f"{cfg.max_seq}")
+            self._draft = speculative_draft
+            self._spec: Optional[SpeculationController] = \
+                SpeculationController(speculative_gamma,
+                                      speculative_min_acceptance)
+            self._gamma = int(speculative_gamma)
+        else:
+            # gamma 0 or no draft: plain decode (the knobs still validate)
+            SpeculationController(speculative_gamma,
+                                  speculative_min_acceptance)
+            self._draft = None
+            self._spec = None
+            self._gamma = 0
+        # the verify depths rounds may run at; the live ceiling bounds the
+        # rungs a stream may pick (0: speculation off), and a re-enable
+        # restores the last nonzero one
+        self._spec_ladder = self.resolve_gamma_ladder(
+            self._gamma, speculative_gamma_ladder)
+        self._gamma_ceiling = self._gamma
+        self._gamma_restore = self._gamma
+        # the boolean gate of a draftless engine (nothing to ladder)
+        self._spec_enabled_flag = True
         mode = self.resolve_prefill_mode(prefill, prefill_mode)
         (self._kv_layout, self._kv_block_len, self._kv_pool_blocks,
          self._kv_max_blocks) = self.resolve_kv_layout(
@@ -551,10 +775,11 @@ class ContinuousBatchingEngine:
         self._chunk = chunk
         self._depth = max(1, dispatch_depth)
         self._overlap = bool(overlap)
-        # the reference's ladder-less bound: an iteration appends at most
-        # 2 entries there (chunk + verify); here at most 1, so the auto
-        # ring and the wrap backpressure are conservative
-        self._entries_per_iter = 2
+        # an iteration appends a chunk entry and one verify entry per
+        # ladder rung; a verify entry is gamma + 1 tokens wide
+        self._entries_per_iter = self.ring_entries_per_iter(
+            self._spec_ladder)
+        self._ring_width = max(chunk, self._gamma + 1)
         self._stride, self._ring_entries = self.ring_shape(
             fetch_stride, overlap, dispatch_depth, ring_entries,
             self._entries_per_iter)
@@ -592,7 +817,11 @@ class ContinuousBatchingEngine:
         # (with a host-bound loop this is the enqueue time, not busy time)
         self._dispatch_event_ms = 0.0
         self._timed_dispatches = 0
+        # every dispatch (chunk and verify round), as the reference counts
         self._chunks_dispatched = 0
+        # engine-thread host seconds and count of each dispatch kind
+        self._kind_s = {"chunk": 0.0, "spec": 0.0, "draft_prefill": 0.0}
+        self._kind_n = {"chunk": 0, "spec": 0, "draft_prefill": 0}
         self._tokens_emitted = 0
         self._requests_completed = 0
         # accepted == closed (under _lock) is drain()'s idleness criterion
@@ -719,6 +948,25 @@ class ContinuousBatchingEngine:
             4, k * stride + max(1, dispatch_depth))
         return stride, entries
 
+    @staticmethod
+    def resolve_gamma_ladder(gamma: int, gamma_ladder: bool) -> tuple:
+        """The verify depths rounds run at: () without speculation (gamma
+        0); (gamma,) with the ladder off; with it on, the rungs {1, 2, 4,
+        8} below gamma and gamma itself."""
+        g = int(gamma)
+        if g <= 0:
+            return ()
+        if not gamma_ladder:
+            return (g,)
+        return tuple(sorted({r for r in (1, 2, 4, 8) if r < g} | {g}))
+
+    @staticmethod
+    def ring_entries_per_iter(spec_ladder: tuple) -> int:
+        """The ring entries one dispatch iteration may append: a chunk
+        entry and one verify entry per ladder rung (at least 2, the
+        reference's ladder-less bound)."""
+        return max(2, 1 + len(spec_ladder))
+
     # ---------------------------------------------------------- introspection
 
     def active_slots(self) -> int:
@@ -760,11 +1008,23 @@ class ContinuousBatchingEngine:
                 "blocks_reserved": occ["reserved"],
                 "blocked_requests": self._pending.parked}
 
+    def _speculation_snapshot(self) -> Optional[dict]:
+        """The speculation counters with the ladder and the live gamma
+        ceiling; None on an engine without a draft."""
+        if self._spec is None:
+            return None
+        snap = self._spec.snapshot()
+        snap["ladder"] = list(self._spec_ladder)
+        snap["gamma_ceiling"] = self._gamma_ceiling
+        return snap
+
     def stats(self) -> dict:
-        """Instantaneous engine counters: chunk dispatches, tokens
-        emitted, phase seconds of the engine thread, the ring, the
-        chunked-prefill lane, the pool occupancy and the prefix index (the
-        last three None where the engine has none), and the slot table
+        """Instantaneous engine counters: dispatches (chunks and verify
+        rounds; ``dispatch_by_kind`` splits them, with the engine thread's
+        host seconds per kind), tokens emitted, phase seconds of the
+        engine thread, the ring, the chunked-prefill lane, the pool
+        occupancy, the prefix index and speculation (the last four None
+        where the engine has none), and the slot table
         (the rows of the reference's ``debug_snapshot``: each held slot's
         prompt length, tokens emitted, budget, SLO labels and cursors).
         The table is read while the engine thread runs: a best-effort
@@ -780,6 +1040,7 @@ class ContinuousBatchingEngine:
                             "slo_class": req.slo_class,
                             "cursor": slot.cursor, "pos_hi": slot.pos_hi})
             slots.append(row)
+        spec = self._speculation_snapshot()
         return {
             "n_slots": self._n_slots,
             "chunk": self._chunk,
@@ -802,8 +1063,59 @@ class ContinuousBatchingEngine:
             "kv_paged": self._paged_snapshot(),
             "prefix_cache": (None if self._prefix_index is None
                              else self._prefix_index.snapshot()),
+            "speculation": spec,
+            "spec_acceptance": (None if spec is None
+                                else spec["acceptance_rate"]),
+            "spec_rounds": None if spec is None else spec["rounds"],
+            "dispatch_by_kind": {
+                kind: {"dispatches": self._kind_n[kind],
+                       "host_s": self._kind_s[kind]}
+                for kind in self._kind_n},
             "slots": slots,
         }
+
+    # ---------------------------------------------------- speculation knobs
+
+    @property
+    def speculation_enabled(self) -> bool:
+        """True while verify rounds may run: the gamma ceiling is nonzero
+        (or, on an engine without a draft, the boolean gate is set)."""
+        if self._spec is None:
+            return self._spec_enabled_flag
+        return self._gamma_ceiling > 0
+
+    @property
+    def speculation_gamma(self) -> int:
+        """The live verify-depth ceiling, always a ladder rung or 0
+        (speculation off)."""
+        return self._gamma_ceiling if self._spec is not None else 0
+
+    def set_speculation_gamma(self, gamma: int) -> None:
+        """Steer the verify-depth ceiling: the value snaps down to the
+        largest ladder rung at or below it, and below the smallest rung
+        to 0, which puts every slot back on plain decode at the next
+        round. Greedy output is the same at any ceiling. Without a draft
+        it sets the boolean gate (> 0: enabled)."""
+        g = int(gamma)
+        if g < 0:
+            raise ValueError("speculation gamma ceiling must be >= 0")
+        if self._spec is None:
+            self._spec_enabled_flag = g > 0
+            return
+        g = max((r for r in self._spec_ladder if r <= g), default=0)
+        if g > 0:
+            self._gamma_restore = g
+        self._gamma_ceiling = g
+
+    def set_speculation_enabled(self, enabled: bool) -> None:
+        """The boolean view of the ceiling: off sets it to 0, on restores
+        the last nonzero one. A re-enabled slot verifies with whatever
+        draft rows it has: a stale draft lowers acceptance, never
+        correctness."""
+        if self._spec is None:
+            self._spec_enabled_flag = bool(enabled)
+            return
+        self.set_speculation_gamma(self._gamma_restore if enabled else 0)
 
     # ---------------------------------------------------------- lifecycle
 
@@ -966,6 +1278,8 @@ class ContinuousBatchingEngine:
                        top_k=int(top_k), top_p=float(top_p), seed=int(seed),
                        tenant=tenant_id, slo_class=slo_class,
                        deadline_ns=int(deadline_ns), cancel_ev=cancel_event)
+        if self._spec is not None:
+            req.spec = RequestSpeculation()
         req.enqueue_ns = now_ns()
         with self._lock:
             shed = self._stopping or self._draining
@@ -1036,10 +1350,11 @@ class ContinuousBatchingEngine:
 
     def _ensure_ready(self) -> None:
         """Place the weights, build the KV state (the slot rows or the
-        pool), positions and ring on the engine's device, and run one
-        all-inactive chunk of each kernel variant (greedy and sampled), so
-        the kernels' libraries are built before the first request. Runs
-        on the engine thread."""
+        pool), positions and ring on the engine's device, with a draft the
+        draft's weights and its own slot-layout state (on both layouts, as
+        in the reference), and run one all-inactive chunk of each kernel
+        variant (greedy and sampled), so the kernels' libraries are built
+        before the first request. Runs on the engine thread."""
         if "ready" in self._dev:
             return
         cfg, s, c, dev = self._cfg, self._n_slots, self._chunk, self._device
@@ -1071,8 +1386,17 @@ class ContinuousBatchingEngine:
             # pads to the smallest bucket that covers it
             self._dev["pchunk_buckets"] = block_count_buckets(
                 self._prefill_chunk_len, start=8)
-        self._dev["ring"] = torch.zeros((self._ring_entries, s, c),
-                                        dtype=torch.int32, device=dev)
+        if self._spec is not None:
+            dstate = t.init_decode_state(self._draft.cfg, s, dev)
+            self._dev["dcache"] = {"k": dstate["k"], "v": dstate["v"]}
+            self._dev["dpos"] = dstate["pos"]
+            self._dev["dparams"] = _to_device(self._draft.params, dev)
+            # the draft's catch-up covers whole prompts
+            self._dev["draft_buckets"] = block_count_buckets(cfg.max_seq,
+                                                             start=8)
+        self._dev["ring"] = torch.zeros(
+            (self._ring_entries, s, self._ring_width), dtype=torch.int32,
+            device=dev)
         self._dev["ring_cnt"] = torch.zeros((self._ring_entries, s),
                                             dtype=torch.int32, device=dev)
         self._dev["last"] = torch.zeros((s,), dtype=torch.int32, device=dev)
@@ -1261,6 +1585,7 @@ class ContinuousBatchingEngine:
         pool_to_slot(dev["prefix_pool"], dev["cache"], dev["pos"], idx, ids,
                      handle.matched_tokens)
         slot.cursor = slot.pos_hi = handle.matched_tokens
+        slot.draft_ready = False
         self.gen_stats.record_prefix_hit(handle.matched_tokens)
         return True
 
@@ -1336,6 +1661,7 @@ class ContinuousBatchingEngine:
             else:
                 continue
             slot.req = None
+            slot.draft_ready = False
             self._free_slot_paged(slot, req, commit=False)
 
     def _admit(self, held: Optional[_Request] = None) -> bool:
@@ -1387,6 +1713,7 @@ class ContinuousBatchingEngine:
             slot.pos_hi = 0
             slot.decode_dispatched = 0
             slot.pos_pending = None
+            slot.draft_ready = False
             self.gen_stats.record_queue_wait(now_ns() - req.enqueue_ns)
             if self._paged:
                 self._bind_paged(req, slot, staged)
@@ -1436,13 +1763,69 @@ class ContinuousBatchingEngine:
         return (slot.cursor + self._dev["pchunk_buckets"][0]
                 <= self._cfg.max_seq)
 
-    def _slot_modes(self) -> list:
+    def _on_spec_track(self, req: _Request, ceiling: int) -> bool:
+        """True while a stream's decode belongs to verify rounds: the
+        engine has a draft, the ceiling is nonzero and the stream has not
+        latched to plain decode."""
+        return (self._spec is not None and ceiling > 0
+                and req.spec is not None and not req.spec.fallback)
+
+    def _slot_modes(self) -> tuple:
         """Each slot's work this round: None (free), "prefill" (a frozen
-        rider whose prompt goes through the lane) or "chunk" (prompt
-        feeding or decode in the chunk kernel)."""
-        return [None if s.req is None
-                else "prefill" if self._in_lane(s, s.req) else "chunk"
-                for s in self._slots]
+        rider whose prompt goes through the lane), "chunk" (prompt
+        feeding or plain decode in the chunk kernel) or "spec" (a verify
+        round). A slot speculates once its prompt is fully dispatched,
+        while its stream is on the speculation track and a full round at
+        the configured gamma fits below max_seq (else the stream latches
+        to plain decode: positions only grow). The draft's catch-up is
+        dispatched here the first time a slot qualifies, on the stream
+        behind the slot's final prompt chunk, whichever path took the
+        prompt in. Returns ``(modes, rungs)``: each "spec" slot's verify
+        depth for this round, 0 for the others."""
+        modes, rungs = [], []
+        # one read of the live ceiling per pass: a cross-thread flip to 0
+        # between the gate and the rung pick would select rung 0
+        ceiling = self._gamma_ceiling
+        for i, slot in enumerate(self._slots):
+            req = slot.req
+            if req is None:
+                modes.append(None)
+                rungs.append(0)
+                continue
+            if self._in_lane(slot, req):
+                modes.append("prefill")
+                rungs.append(0)
+                continue
+            on_track = self._on_spec_track(req, ceiling)
+            fed = slot.cursor >= len(req.prompt)
+            if (on_track and fed
+                    and slot.pos_hi + self._gamma + 1 > self._cfg.max_seq):
+                # the verify slab would clamp at the end of the rows
+                req.spec.fallback = True
+                on_track = False
+            spec_ok = on_track and fed
+            if spec_ok and not slot.draft_ready:
+                self._draft_prefill_slot(i, req)
+                slot.draft_ready = True
+            modes.append("spec" if spec_ok else "chunk")
+            rungs.append(req.spec.select_rung(self._spec_ladder, ceiling)
+                         if spec_ok else 0)
+        return modes, rungs
+
+    def _draft_prefill_slot(self, idx: int, req: _Request) -> None:
+        """The draft's catch-up on a request's whole prompt: one bucketed
+        forward into the draft's rows of slot ``idx`` (async)."""
+        t0 = time.perf_counter()
+        plen = len(req.prompt)
+        bucket = next(b for b in self._dev["draft_buckets"] if b >= plen)
+        padded = np.zeros(bucket, np.int32)
+        padded[:plen] = req.prompt
+        (toks,) = self._upload([padded])
+        dev = self._dev
+        draft_prefill(self._draft.cfg, dev["dparams"], dev["dcache"],
+                      dev["dpos"], idx, toks, plen)
+        self._kind_s["draft_prefill"] += time.perf_counter() - t0
+        self._kind_n["draft_prefill"] += 1
 
     def _dispatch_prefill_lane(self) -> int:
         """This round's lane chunks: up to ``prefill_token_budget`` prompt
@@ -1531,29 +1914,40 @@ class ContinuousBatchingEngine:
     def _dispatch(self) -> list:
         """Launch this round's device work (async): the chunked-prefill
         lane first, so a prompt whose final chunk lands now decodes in the
-        same round's chunk, then one chunk over the slots that feed a
-        prompt or decode. Returns the ring entries dispatched (none when
-        every occupied slot rides the lane)."""
+        same round; then one chunk over the slots that feed a prompt or
+        decode plainly (the speculating ones ride it frozen); then one
+        verify round per distinct rung over the speculating slots, behind
+        the chunk on the stream. Returns the ring entries dispatched
+        (none when every occupied slot rides the lane)."""
         if self._chunked_prefill:
             t_pf = time.perf_counter()
             self._dispatch_prefill_lane()
             self._phase_s["prefill"] += time.perf_counter() - t_pf
-        modes = self._slot_modes()
-        if "chunk" not in modes:
-            return []
-        tables = self._prepare_paged_round(modes) if self._paged else None
-        return [self._dispatch_chunk(modes, tables)]
+        modes, rungs = self._slot_modes()
+        any_chunk = "chunk" in modes
+        spec_rungs = sorted({r for m, r in zip(modes, rungs) if m == "spec"})
+        tables = None
+        if self._paged and (any_chunk or spec_rungs):
+            tables = self._prepare_paged_round(modes, rungs)
+        entries = []
+        if any_chunk:
+            entries.append(self._dispatch_chunk(modes, tables))
+        for rung in spec_rungs:
+            entries.append(self._dispatch_spec(modes, rungs, rung, tables))
+        return entries
 
-    def _prepare_paged_round(self, modes: list) -> np.ndarray:
+    def _prepare_paged_round(self, modes: list, rungs: list) -> np.ndarray:
         """Grow the block tables to cover this round's writes (lazily, out
         of each stream's reservation) and snapshot them at a width that
-        covers every live block and every position the chunk may write
-        (a frozen rider advances nothing)."""
+        covers every live block and every position a kernel may write: a
+        chunk's C steps, a verify round's rung + 1 (a frozen rider
+        advances nothing)."""
         width = 1
-        for slot, mode in zip(self._slots, modes):
+        for slot, mode, rung in zip(self._slots, modes, rungs):
             if slot.req is None:
                 continue
-            adv = self._chunk if mode == "chunk" else 0
+            adv = (self._chunk if mode == "chunk"
+                   else rung + 1 if mode == "spec" else 0)
             if adv:
                 self._ensure_blocks(slot, slot.req, slot.pos_hi + adv)
             width = max(width, len(slot.blocks),
@@ -1561,6 +1955,7 @@ class ContinuousBatchingEngine:
         return self._build_tables(width)
 
     def _dispatch_chunk(self, modes: list, tables) -> tuple:
+        t0 = time.perf_counter()
         s, c = self._n_slots, self._chunk
         feed = np.zeros((s, c), np.int32)
         rem = np.zeros((s,), np.int32)
@@ -1574,6 +1969,7 @@ class ContinuousBatchingEngine:
         topps = np.zeros((s,), np.float32)
         meta = []
         eager_free = []
+        ceiling = self._gamma_ceiling
         for i, slot in enumerate(self._slots):
             req = slot.req
             if req is None:
@@ -1596,18 +1992,35 @@ class ContinuousBatchingEngine:
                 freeze[i] = True
                 meta.append((req, c))
                 continue
-            seeds[i] = req.seed
-            temps[i] = req.temperature
-            topks[i] = req.top_k
-            topps[i] = req.top_p
+            if modes[i] != "spec":
+                # a verify slot keeps the zero defaults: a sampled one must
+                # not force the sampling variant onto a greedy chunk
+                seeds[i] = req.seed
+                temps[i] = req.temperature
+                topks[i] = req.top_k
+                topps[i] = req.top_p
             k = min(len(req.prompt) - slot.cursor, c)
+            # a slot on the speculation track must not decode here: a
+            # verify slot (its K/V write at the held position is the first
+            # row its round writes again), and a prompt feeder that will
+            # speculate once its prompt is in (else this chunk would
+            # decode past the prompt). A plain-decode slot is never
+            # frozen: with no prompt left it would stall
+            freeze[i] = modes[i] == "spec" or (
+                self._on_spec_track(req, ceiling)
+                and slot.cursor < len(req.prompt)
+                and len(req.prompt) + self._gamma + 1 <= self._cfg.max_seq)
+            if modes[i] == "spec":
+                meta.append((req, c))
+                continue
             if k > 0:
                 feed[i, :k] = req.prompt[slot.cursor:slot.cursor + k]
                 rem[i] = k
                 slot.cursor += k
-            slot.pos_hi += c
-            meta.append((req, k))   # columns >= k are generated tokens
-            if slot.cursor >= len(req.prompt):
+            slot.pos_hi += k if freeze[i] else c
+            # columns >= this are generated tokens (none when frozen)
+            meta.append((req, c if freeze[i] else k))
+            if not freeze[i] and slot.cursor >= len(req.prompt):
                 slot.decode_dispatched += c - k
                 if slot.decode_dispatched >= req.budget:
                     # every token the stream may still emit is in flight:
@@ -1624,12 +2037,8 @@ class ContinuousBatchingEngine:
         tab_d, reset_to_d = paged or (None, None)
         seq = self._ring_seq
         self._ring_seq += 1
-        timing = None
-        if self._device.type == "cuda":
-            timing = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-            timing[0].record()
-        # with no lane rider the steps skip the freeze masking
+        timing = self._start_timing()
+        # with no frozen slot the steps skip the freeze masking
         self._launch_chunk(seq % self._ring_entries, tab_d, feed_d, rem_d,
                            active_d, reset_d, reset_to_d,
                            freeze_d if freeze.any() else None, seeds_d,
@@ -1644,8 +2053,85 @@ class ContinuousBatchingEngine:
             elif self._prefix_index is not None:
                 self._commit_prefix(i, req)
             self._slots[i].req = None
+            self._slots[i].draft_ready = False
         self._chunks_dispatched += 1
-        return ("chunk", seq, meta, timing)
+        self._kind_s["chunk"] += time.perf_counter() - t0
+        self._kind_n["chunk"] += 1
+        return ("chunk", seq, meta, timing, 0)
+
+    def _start_timing(self):
+        """A pair of CUDA events, the first recorded now (None on the
+        CPU): the stream time of one dispatch's kernels."""
+        if self._device.type != "cuda":
+            return None
+        timing = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        timing[0].record()
+        return timing
+
+    def _dispatch_spec(self, modes: list, rungs: list, rung: int,
+                       tables) -> tuple:
+        """Launch one verify round (async) at depth ``rung`` over the
+        slots in "spec" mode that picked it. Each slot's ``pos_hi`` grows
+        by the bound rung + 1, corrected to the real advance at retire.
+        Only these slots' rows go to the device; with every slot in the
+        round the kernels index nothing."""
+        t0 = time.perf_counter()
+        rows, meta = [], []
+        for i, slot in enumerate(self._slots):
+            req = slot.req
+            if req is None or modes[i] != "spec" or rungs[i] != rung:
+                meta.append(None)
+                continue
+            rows.append(i)
+            slot.pos_hi += rung + 1
+            meta.append(req)
+        reqs = [self._slots[i].req for i in rows]
+        seeds = np.asarray([r.seed for r in reqs], np.int32)
+        temps = np.asarray([r.temperature for r in reqs], np.float32)
+        topks = np.asarray([r.top_k for r in reqs], np.int32)
+        topps = np.asarray([r.top_p for r in reqs], np.float32)
+        every = len(rows) == self._n_slots
+        arrays = [seeds, temps, topks, topps]
+        if not every:
+            arrays.append(np.asarray(rows, np.int32))
+        if self._paged:
+            arrays.append(np.ascontiguousarray(tables if every
+                                               else tables[rows]))
+        seeds_d, temps_d, topks_d, topps_d, *rest = self._upload(arrays)
+        rows_d = None if every else rest.pop(0).long()
+        tab_d = rest[0] if self._paged else None
+        sample = bool(temps.max(initial=0.0) > 0)
+        seq = self._ring_seq
+        self._ring_seq += 1
+        timing = self._start_timing()
+        self._launch_spec(seq % self._ring_entries, tab_d, rows_d,
+                          (seeds_d, temps_d, topks_d, topps_d), rung,
+                          sample)
+        if timing is not None:
+            timing[1].record()
+        self._chunks_dispatched += 1
+        self._kind_s["spec"] += time.perf_counter() - t0
+        self._kind_n["spec"] += 1
+        return ("spec", seq, meta, timing, rung)
+
+    def _launch_spec(self, entry: int, tables, rows, sampling: tuple,
+                     rung: int, sample: bool) -> None:
+        """Enqueue one verify round of the engine's layout on its device
+        state (``tables`` are the round's slots' rows, paged only)."""
+        dev = self._dev
+        common = (dev["dcache"], dev["dpos"], dev["last"], dev["ring"],
+                  dev["ring_cnt"], entry)
+        if self._paged:
+            dev["last"], dev["pos"], dev["dpos"] = paged_spec_round(
+                self._cfg, self._draft.cfg, dev["params"], dev["dparams"],
+                dev["pool"], dev["pos"], *common, tables, rows, sampling,
+                rung, sample)
+        else:
+            dev["last"], dev["pos"], dev["dpos"] = spec_round(
+                self._cfg, self._draft.cfg, dev["params"], dev["dparams"],
+                dev["cache"], dev["pos"], *common, rows, sampling, rung,
+                sample)
 
     def _issue_fetch(self, unfetched: list, forced: bool = False) -> tuple:
         """Start the ring's D2H copy (non-blocking, on the engine's
@@ -1680,14 +2166,19 @@ class ContinuousBatchingEngine:
                 self._chunk_ns_ewma = (
                     sample if not self._chunk_ns_ewma
                     else 0.7 * self._chunk_ns_ewma + 0.3 * sample)
-        ring_host = host["ring"]
-        for _kind, seq, meta, timing in entries:
+        ring_host, cnt_host = host["ring"], host["cnt"]
+        for kind, seq, meta, timing, rung in entries:
             if timing is not None:   # both events ran before the copy
                 self._dispatch_event_ms += timing[0].elapsed_time(timing[1])
                 self._timed_dispatches += 1
             self._deliver_ns = int(arrival
                                    - (newest - seq) * self._chunk_ns_ewma)
-            self._retire(ring_host[seq % self._ring_entries], meta)
+            e = seq % self._ring_entries
+            if kind == "chunk":
+                self._retire(ring_host[e][:, :self._chunk], meta)
+            else:
+                self._retire_spec(ring_host[e][:, :rung + 1], cnt_host[e],
+                                  meta, rung)
             self._retired_seq = seq + 1
         self._phase_s["retire_deliver"] += time.perf_counter() - t1
 
@@ -1698,6 +2189,29 @@ class ContinuousBatchingEngine:
             if req is None or req.finished:
                 continue
             self._deliver(i, req, toks[i, k:])
+
+    def _retire_spec(self, toks: np.ndarray, n_out: np.ndarray, meta: list,
+                     rung: int) -> None:
+        """Distribute one verify round at depth ``rung``: the first
+        n_out[i] columns of row i are its verified tokens (the pending
+        token and the accepted proposals). Corrects the slot's ``pos_hi``
+        from the bound rung + 1 to the real advance, and records the round
+        in the engine's counters and in the stream's rolling acceptance,
+        which drives its fallback latch and its next rung."""
+        for i, req in enumerate(meta):
+            if req is None:
+                continue
+            k = int(n_out[i])
+            slot = self._slots[i]
+            if slot.req is req:
+                slot.pos_hi -= (rung + 1) - k
+            if req.finished:
+                continue
+            accepted = k - 1
+            self._spec.record_round(rung, accepted)
+            req.spec.record(rung, accepted, self._spec.min_acceptance)
+            self.gen_stats.record_spec_round(rung, accepted)
+            self._deliver(i, req, toks[i, :k])
 
     def _deliver(self, i: int, req: _Request, tok_seq) -> None:
         """Deliver one chunk's tokens for one request as ONE queue put,
@@ -1737,6 +2251,7 @@ class ContinuousBatchingEngine:
             self._requests_completed += 1
         if req.finished and slot.req is req:
             slot.req = None
+            slot.draft_ready = False
             self._free_slot_paged(slot, req, commit=False)
 
     def _run(self) -> None:
@@ -1841,13 +2356,16 @@ class ContinuousBatchingEngine:
             # commit nothing
             self._free_slot_paged(slot, slot.req, commit=False)
             slot.req = None
+            slot.draft_ready = False
         inflight = list(self._unfetched)
         for _copies, entries in list(self._fetches):
             inflight.extend(entries)
         self._unfetched.clear()
         self._fetches.clear()
-        for _kind, _seq, meta, _timing in inflight:
-            for req, _k in meta:
+        for kind, _seq, meta, _timing, _rung in inflight:
+            for item in meta:
+                # a chunk's meta holds (req, k), a verify round's req
+                req = item[0] if kind == "chunk" else item
                 if req is not None and not req.finished:
                     self._close_request(req, err)
                     failed += 1

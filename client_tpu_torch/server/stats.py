@@ -152,8 +152,10 @@ class GenerationStats:
     the prefix-cache lookups: one per admission of a prompt longer than one
     block with the cache on, a hit adding its matched tokens to
     ``prefix_saved_tokens`` (the allocator's evictions and commits are the
-    ``RadixBlockIndex``'s). The reference's speculation, dedicated-lane,
-    tier, scheduler and goodput counters wait for their slices. All
+    ``RadixBlockIndex``'s), and the speculative verify rounds: draft
+    tokens proposed, accepted and rejected, rounds, and rounds by
+    gamma-ladder rung. The reference's dedicated-lane, tier, scheduler and
+    goodput counters wait for their slices. All
     mutators take ns; the engine thread writes, any thread reads."""
 
     def __init__(self):
@@ -176,6 +178,13 @@ class GenerationStats:
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.prefix_saved_tokens = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rejected = 0
+        self.spec_rounds = 0
+        # verify rounds by ladder rung ({gamma: rounds}; a rung-g round
+        # scores g + 1 rows)
+        self.spec_rung_rounds: dict = {}
 
     def record_queue_wait(self, ns: int) -> None:
         with self._lock:
@@ -241,6 +250,18 @@ class GenerationStats:
         with self._lock:
             self.prefix_misses += 1
 
+    def record_spec_round(self, proposed: int, accepted: int) -> None:
+        """One verify round of one slot: ``proposed`` draft tokens scored
+        (the round's ladder rung), ``accepted`` of them kept; the stream
+        advanced ``accepted + 1`` tokens."""
+        with self._lock:
+            self.spec_proposed += proposed
+            self.spec_accepted += accepted
+            self.spec_rejected += proposed - accepted
+            self.spec_rounds += 1
+            self.spec_rung_rounds[proposed] = \
+                self.spec_rung_rounds.get(proposed, 0) + 1
+
     def snapshot(self) -> dict:
         with self._lock:
             return {
@@ -259,4 +280,9 @@ class GenerationStats:
                 "prefix_hits": self.prefix_hits,
                 "prefix_misses": self.prefix_misses,
                 "prefix_saved_tokens": self.prefix_saved_tokens,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "spec_rejected": self.spec_rejected,
+                "spec_rounds": self.spec_rounds,
+                "spec_rung_rounds": dict(self.spec_rung_rounds),
             }

@@ -18,11 +18,17 @@ CTAs, positions on every split boundary, empty shares, an out-of-pool
 block id, grouped queries, pool slabs read through other strides, a
 small generation engine whose every decode step goes through the kernel,
 and the same engine on the slot layout under each prefill mode and on the
-paged layout under the chunked lane.
+paged layout under the chunked lane. Speculative decoding: both verify
+passes against serial decode steps in f32 and bf16 with the slots outside
+the round bit-unchanged, the salted noise repeating (and its integer
+stream equal to the CPU's), and a small speculating engine on both
+layouts.
 The CUDA shared-memory data plane: a zero-copy in-process read, output
 rows read back from the response callback of the pre-split path, and the
 cross-process attachment's device copy held until the seqno moves.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -526,6 +532,172 @@ def test_small_engine_layouts_and_prefill_modes_on_the_card(card, kw):
     assert pa.launches - before == (2 * 4 * chunks if paged else 0)
     if "prefill_chunk" in kw:
         assert stats["prefill_lane"]["chunks"] > 0
+    for (prompt, budget), got in zip(jobs, toks):
+        want = offline_sample(cfg, params, prompt, budget, block_len=8,
+                              attention=pa.paged_decode_attention_reference)
+        assert got == want
+
+
+# speculative verify vs serial decode on the card. f32 (TF32 off): the
+# batched and serial forwards sum in other orders, 1e-4 on logits of O(1).
+# bf16: every activation is rounded to bf16 (~4e-3 relative) at other
+# places by the T-row and one-row products; over 2 layers a K/V row moves
+# by a few bf16 roundings and a logit by a few hundredths
+VERIFY_ATOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 8e-2)}
+
+
+def _verify_model(dtype):
+    from client_tpu_torch.models import transformer as t
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = t.TransformerConfig(vocab_size=97, d_model=64, n_layers=2,
+                              n_heads=4, head_dim=16, d_ff=128, max_seq=64,
+                              dtype=dtype, attn_impl="ref")
+    params = t.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    return t, cfg, params
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_steps_match_serial_decode_on_the_card(card, dtype):
+    """verify_steps of 5 tokens on 2 of 3 slots from mid-sequence: the
+    logits and rows of 5 serial decode_step calls, and the third slot
+    bit-unchanged."""
+    t, cfg, params = _verify_model(dtype)
+    kv_atol, logit_atol = VERIFY_ATOL[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pre = torch.randint(0, 97, (3, 9), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    toks = torch.randint(0, 97, (2, 5), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    st = t.init_decode_state(cfg, 3, "cuda")
+    for c in range(9):
+        _, st = t.decode_step(cfg, params, pre[:, c], st)
+    serial = {k: v.clone() for k, v in st.items()}
+    rows = torch.tensor([2, 0], device="cuda")
+    logits, st = t.verify_steps(cfg, params, toks, st, rows=rows)
+    torch.cuda.synchronize()
+    assert st["pos"].tolist() == [14, 9, 14]
+    assert torch.equal(st["k"][1], serial["k"][1])
+    assert torch.equal(st["v"][1], serial["v"][1])
+    for c in range(5):
+        want, serial = t.decode_step(cfg, params, toks[:, c], serial,
+                                     rows=rows)
+        torch.testing.assert_close(logits[:, c], want, rtol=0,
+                                   atol=logit_atol)
+    for name in ("k", "v"):
+        torch.testing.assert_close(st[name].float(), serial[name].float(),
+                                   rtol=0, atol=kv_atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_verify_steps_match_serial_paged_decode_on_the_card(card,
+                                                                 dtype):
+    """paged_verify_steps of 4 tokens per slot with one slot outside the
+    write mask: the verifying slots' logits and pool rows are those of 4
+    serial paged_decode_steps (the einsum attention), and the other slot's
+    blocks are bit-unchanged."""
+    from client_tpu_torch.server.kv_cache import init_paged_pool
+
+    t, cfg, params = _verify_model(dtype)
+    kv_atol, logit_atol = VERIFY_ATOL[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    pre = torch.randint(0, 97, (3, 11), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    toks = torch.randint(0, 97, (3, 4), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    nb = cfg.max_seq // 8
+    pool = init_paged_pool(cfg, 3 * nb + 1, 8, "cuda")
+    tables = (1 + torch.arange(3 * nb, device="cuda")).reshape(3, nb).to(
+        torch.int32)
+    for c in range(11):
+        t.paged_decode_steps(cfg, params, pre[:, c],
+                             torch.full((3,), c, dtype=torch.int32,
+                                        device="cuda"), tables, pool)
+    serial = {k: v.clone() for k, v in pool.items()}
+    write = torch.tensor([True, False, True], device="cuda")
+    logits, pool = t.paged_verify_steps(
+        cfg, params, toks, torch.full((3,), 11, dtype=torch.int32,
+                                      device="cuda"), tables, pool, write)
+    torch.cuda.synchronize()
+    mine = tables[1].long()
+    for name in ("k", "v"):
+        assert torch.equal(pool[name][:, mine], serial[name][:, mine])
+    for c in range(4):
+        want, serial = t.paged_decode_steps(
+            cfg, params, toks[:, c],
+            torch.full((3,), 11 + c, dtype=torch.int32, device="cuda"),
+            tables, serial)
+        torch.testing.assert_close(logits[[0, 2], c], want[[0, 2]], rtol=0,
+                                   atol=logit_atol)
+    for name in ("k", "v"):
+        for s in (0, 2):
+            blocks = tables[s].long()
+            torch.testing.assert_close(pool[name][:, blocks].float(),
+                                       serial[name][:, blocks].float(),
+                                       rtol=0, atol=kv_atol)
+
+
+def test_salted_noise_repeats_on_the_card(card):
+    """The speculation draws are pure functions of (seed, position, salt)
+    on the card too: equal across two calls, and the integer stream equal
+    to the CPU's."""
+    from client_tpu_torch.models import sampling as s
+    from client_tpu_torch.server.speculation import (
+        ACCEPT_SALT,
+        DRAFT_SALT,
+        RESIDUAL_SALT,
+    )
+
+    seeds = torch.arange(16, device="cuda")
+    pos = torch.arange(16, device="cuda") * 7
+    for salt in (0, DRAFT_SALT, ACCEPT_SALT, RESIDUAL_SALT):
+        a = s.step_gumbel(seeds, pos, 97, salt)
+        b = s.step_gumbel(seeds, pos, 97, salt)
+        assert torch.equal(a, b) and torch.isfinite(a).all()
+        assert torch.equal(s.step_uniform(seeds, pos, salt),
+                           s.step_uniform(seeds, pos, salt))
+        assert torch.equal(s._step_bits(seeds, pos, 97, salt).cpu(),
+                           s._step_bits(seeds.cpu(), pos.cpu(), 97, salt))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_layout="paged",
+                                             kv_block_len=8)],
+                         ids=["slot", "paged"])
+def test_small_speculating_engine_on_the_card(card, kw):
+    """A small f32 engine with a self-draft on the card: greedy streams
+    equal the S=1 decode through the plain K2, rounds ran and accepted
+    every proposal, and K2 launches n_layers x chunk per chunk dispatch
+    only (verify rounds read through the einsum)."""
+    from client_tpu_torch.models.sampling import offline_sample
+    from client_tpu_torch.perf.bench_harness import (
+        ragged_generation_jobs,
+        run_engine_jobs,
+    )
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+    from client_tpu_torch.server.speculation import DraftModel
+
+    t, cfg, params = _verify_model(torch.float32)
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    jobs = ragged_generation_jobs(5, 97, 6, (1, 30), (3, 20), 64)
+    eng = ContinuousBatchingEngine(
+        cfg, params, n_slots=4, chunk=4, device="cuda",
+        speculative_draft=DraftModel(cfg, params), speculative_gamma=4,
+        **kw).start()
+    try:
+        list(eng.submit(np.zeros(3, np.int32), 2))   # engine ready
+        stats0, before = eng.stats(), pa.launches
+        _, _, toks = run_engine_jobs(eng, jobs, collect=True,
+                                     join_timeout_s=300)
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    kinds, kinds0 = stats["dispatch_by_kind"], stats0["dispatch_by_kind"]
+    chunks = kinds["chunk"]["dispatches"] - kinds0["chunk"]["dispatches"]
+    paged = kw.get("kv_layout") == "paged"
+    assert pa.launches - before == (2 * 4 * chunks if paged else 0)
+    spec = stats["speculation"]
+    assert spec["rounds"] > 0 and spec["accepted"] == spec["proposed"]
     for (prompt, budget), got in zip(jobs, toks):
         want = offline_sample(cfg, params, prompt, budget, block_len=8,
                               attention=pa.paged_decode_attention_reference)

@@ -198,7 +198,7 @@ def test_concurrent_submitters_stress(model):
 
 @pytest.mark.parametrize("knob,value,item", [
     ("prefill_lane_width", 8, "A10e"),
-    ("speculative_draft", object(), "A10h"),
+    ("watchdog", True, "A13"),
     ("prefill_slots", 2, "A10e"), ("host_tier_bytes", 1, "A10f"),
     ("scheduler", True, "A10g"), ("mesh", object(), "A12"),
     ("slo_classes", (), "A10g"), ("dispatch_duty", 0.5, "A10g")])
@@ -213,6 +213,33 @@ def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                   **{knob: value})
     with pytest.raises(TypeError, match="unknown"):
         ContinuousBatchingEngine(tcfg, tparams, device="cpu", bogus=1)
+
+
+
+@pytest.mark.parametrize("kv_layout", ["slot", "paged"])
+def test_speculative_knobs_construct_a_speculating_engine(model, kv_layout):
+    """The four speculative knobs, no longer refused, build an engine and
+    a generator that speculate (a self-draft: every proposal accepted)."""
+    from client_tpu_torch.server.speculation import DraftModel
+
+    _, _, tcfg, tparams = model
+    knobs = dict(speculative_draft=DraftModel(tcfg, tparams),
+                 speculative_gamma=2, speculative_min_acceptance=0.25,
+                 speculative_gamma_ladder=True)
+    eng = ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+                                   kv_layout=kv_layout, **knobs)
+    gen = make_continuous_generator(cfg=tcfg, params=tparams, device="cpu",
+                                    kv_layout=kv_layout, **knobs)
+    try:
+        toks = list(eng.submit(np.asarray([3, 17, 42], np.int32), 6))
+        snap = eng.stats()["speculation"]
+    finally:
+        eng.stop()
+        gen.engine.stop()
+    assert len(toks) == 6
+    assert snap["ladder"] == [1, 2] and snap["min_acceptance"] == 0.25
+    assert snap["rounds"] > 0 and snap["accepted"] == snap["proposed"]
+    assert gen.config.to_json()["speculative"]["gamma_ladder"] is True
 
 
 # ---------------------------------------------------------------- serving

@@ -44,6 +44,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.server.http_server",
                      "client_tpu_torch.server.__main__",
                      "client_tpu_torch.server.generation",
+                     "client_tpu_torch.server.speculation",
                      "client_tpu_torch.server.kv_cache",
                      "client_tpu_torch.server.config",
                      "client_tpu_torch.server.types",
@@ -111,14 +112,26 @@ def _entry_points():
     from client_tpu_torch.perf.bench_harness import build_bert_encoder
     from client_tpu_torch.server.config import ModelConfig
     from client_tpu_torch.server.generation import ContinuousBatchingEngine
+    from client_tpu_torch.server.config import SpeculativeConfig
     from client_tpu_torch.server.model import TorchModel
+    from client_tpu_torch.server.speculation import (
+        DraftModel,
+        build_draft_model,
+    )
     from client_tpu_torch.utils import cuda_shared_memory as cudashm
 
-    def engine():
-        cfg = decode_config(vocab_size=16, d_model=8, n_layers=1, n_heads=1,
-                            head_dim=8, d_ff=8, max_seq=16)
+    cfg = decode_config(vocab_size=16, d_model=8, n_layers=1, n_heads=1,
+                        head_dim=8, d_ff=8, max_seq=16)
+
+    def engine(**kw):
         params = t.init_params(torch.Generator().manual_seed(0), cfg)
-        return ContinuousBatchingEngine(cfg, params, n_slots=1, chunk=1)
+        return ContinuousBatchingEngine(cfg, params, n_slots=1, chunk=1,
+                                        **kw)
+
+    def speculating_engine():
+        params = t.init_params(torch.Generator().manual_seed(0), cfg)
+        return engine(speculative_draft=DraftModel(cfg, params),
+                      speculative_gamma=2)
 
     return {
         "resolve_device": lambda: resolve_device(),
@@ -128,6 +141,9 @@ def _entry_points():
         "make_add_sub": lambda: make_add_sub(),
         "build_bert_encoder": lambda: build_bert_encoder(8, 2),
         "ContinuousBatchingEngine": engine,
+        "speculating_engine": speculating_engine,
+        "build_draft_model": lambda: build_draft_model(
+            cfg, SpeculativeConfig(enabled=True, gamma=2)),
         "make_continuous_generator": lambda: make_continuous_generator(),
         "cuda_shm_region": lambda: cudashm.create_shared_memory_region(
             "r", 8),
@@ -138,6 +154,8 @@ def _entry_points():
                                    "TorchModel", "make_add_sub",
                                    "build_bert_encoder",
                                    "ContinuousBatchingEngine",
+                                   "speculating_engine",
+                                   "build_draft_model",
                                    "make_continuous_generator",
                                    "cuda_shm_region"])
 def test_entry_points_without_a_device_raise_when_cuda_is_absent(
