@@ -996,7 +996,7 @@ def _dispatch_profile(engine_cfg, params, slot: bool = False) -> dict:
             "kernel_launches": launches}
 
 
-def _stream_request(prompt, budget, sampling):
+def _stream_request(prompt, budget, sampling, labels=None):
     from client_tpu_torch.server.types import InferRequest, InferTensor
 
     inputs = [InferTensor("PROMPT", "INT32", (len(prompt),), data=prompt),
@@ -1011,7 +1011,9 @@ def _stream_request(prompt, budget, sampling):
                         data=np.asarray([top_k], np.int32)),
             InferTensor("SEED", "INT32", (1,),
                         data=np.asarray([seed], np.int32))]
-    return InferRequest(model_name="continuous_lm", inputs=inputs)
+    tenant, slo_class = labels or ("default", "best_effort")
+    return InferRequest(model_name="continuous_lm", inputs=inputs,
+                        tenant_id=tenant, slo_class=slo_class)
 
 
 def _generation_model() -> tuple:
@@ -1032,11 +1034,15 @@ def _generation_model() -> tuple:
 
 
 def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
-                      n_threads: int = 0, settled=None, **engine_kw) -> dict:
+                      n_threads: int = 0, settled=None, labels=None,
+                      late=None, instrument=None, **engine_kw) -> dict:
     """Serve ``jobs`` through make_continuous_generator and
     TorchInferenceServer.infer with a response callback, one thread each,
     all started together (with ``n_threads``, thread k sends jobs k,
-    k + n_threads, ... one after another); check that every stream
+    k + n_threads, ... one after another; ``labels`` gives each job its
+    (tenant, slo_class); with ``late`` = (k, cond), jobs k and later are
+    sent once ``cond(engine)`` holds; ``instrument(engine)`` runs on the
+    built engine before the warmup stream); check that every stream
     streamed exactly its budget of in-vocab tokens and then one final flag
     (its greedy streams go to ``_judge_greedy``). The K2 and K1 launch
     counters are set to 0 just before the streams start and read just
@@ -1053,6 +1059,8 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
         "continuous_lm", cfg=cfg, params=params, n_slots=GEN_SLOTS,
         chunk_size=GEN_CHUNK, dispatch_depth=2, max_new_tokens=128,
         eos_id=-1, device="cuda", **engine_kw)
+    if instrument is not None:
+        instrument(model.engine)
     core = TorchInferenceServer()
     t0 = time.time()
     core.register_model(model, warmup=True)
@@ -1080,10 +1088,18 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
                     first[i] = time.perf_counter()
                 streams[i].append(int(resp.output("TOKEN").data[0]))
 
+        if late is not None and i >= late[0]:
+            end = time.time() + 120
+            while not late[1](model.engine):
+                if time.time() > end:
+                    raise TimeoutError(f"job {i}: its arrival condition "
+                                       f"never held")
+                time.sleep(0.002)
         # the stream runs on this thread: infer returns after its final
         # response
         sent[i] = time.perf_counter()
-        core.infer(_stream_request(prompt, budget, sampling[i]),
+        core.infer(_stream_request(prompt, budget, sampling[i],
+                                   None if labels is None else labels[i]),
                    response_callback=cb)
 
     def client(k):
@@ -1921,6 +1937,283 @@ def phase_speculate(gen_model: tuple) -> dict:
     return result
 
 
+# schedule: bench.py's 32 jobs as bronze and 8 gold arrivals (prompts
+# 8-63, budgets 16-127, from another seed) once every slot is held; gold
+# weighs 4, bronze 1, preemption on weight alone (threshold 0)
+SCHED_GOLD_JOBS, SCHED_GOLD_SEED = 8, 11
+SCHEDULER = {"class_weights": {"gold": 4.0, "bronze": 1.0},
+             "preemption": True, "preempt_burn_threshold": 0.0}
+SLO_CLASSES = [{"name": "gold", "ttft_ms": 2000.0},
+               {"name": "bronze", "ttft_ms": 10000.0}]
+# tier_paged: three shared-prefix families (prefix 128, suffix 32, budget
+# 32, 4 streams per wave) cycled A B C A B A through a pool that holds the
+# 4 active streams' worst case (4 x 12 blocks) and 1.5 families of
+# committed blocks (a family commits 8 prefix + 4 x 2 suffix blocks),
+# beside the scratch block; the host tier holds 64 MiB (113 blocks)
+TIER_PREFIX, TIER_SUFFIX, TIER_BUDGET, TIER_WAVE = 128, 32, 32, 4
+TIER_CYCLE = "ABCABA"
+TIER_POOL = TIER_WAVE * GEN_MAX_SEQ // GEN_BLOCK + 24 + 1
+TIER_BYTES = 64 << 20
+# controller: an objective no gold stream meets, a short window, and a
+# baseline duty below the 1.0 latency mode sets
+CTL_WINDOW_S, CTL_BASE_DUTY = 2.0, 0.8
+
+
+class _ResumeProbe:
+    """Wraps an engine's preemption and prefix acquire: each preemption
+    records the match its resume must get (the full blocks of the rows it
+    committed, capped one token short of the extended prompt), and each
+    resume's acquire records what it got."""
+
+    def __init__(self):
+        self.expected: dict = {}
+        self.resumes: list = []   # (expected, matched) tokens
+
+    def __call__(self, engine):
+        bl = engine._prefix_block_len
+        preempt, acquire = engine._preempt_slot, engine._acquire_prefix
+
+        def preempt_slot(idx):
+            slot = engine._slots[idx]
+            req = slot.req
+            ext = len(req.prompt) + len(req.gen_tokens or ())
+            want = min(min(slot.pos_hi, ext) // bl, (ext - 1) // bl) * bl
+            preempt(idx)
+            self.expected[id(req.prompt)] = want
+
+        def acquire_prefix(tokens):
+            handle = acquire(tokens)
+            want = self.expected.pop(id(tokens), None)
+            if want is not None:
+                self.resumes.append(
+                    (want, 0 if handle is None else handle.matched_tokens))
+            return handle
+
+        engine._preempt_slot = preempt_slot
+        engine._acquire_prefix = acquire_prefix
+
+
+class _ControllerProbe:
+    """Stands in for an engine's EngineController (whose slots forbid
+    wrapping a method): steps it, and records the fetch stride and duty
+    the engine reads in every round the controller is in latency mode."""
+
+    def __init__(self, ctl):
+        self.ctl = ctl
+        self.latency_reads: list = []
+
+    def step(self, engine, burn):
+        self.ctl.step(engine, burn)
+        if self.ctl.latency_mode:
+            self.latency_reads.append((engine.fetch_stride,
+                                       engine.dispatch_duty))
+
+    def __getattr__(self, name):
+        return getattr(self.ctl, name)
+
+
+def _sched_settled(engine) -> dict:
+    """``_prefix_settled`` with the host tier, the scheduler and the SLO
+    statistics."""
+    snap = engine.gen_stats.snapshot()
+    return {**_prefix_settled(engine),
+            "kv_tier": engine.stats()["kv_tier"],
+            "scheduler": engine.scheduler_snapshot(),
+            "slo": engine.slo_snapshot(),
+            "preemptions": snap["preemptions"], "resumes": snap["resumes"],
+            "tier_hits": snap["tier_hits"]}
+
+
+def _drained(run: dict, name: str) -> None:
+    """No slot, pin, stream block or reservation may be left."""
+    occ = run["occupancy"]
+    if run["slots_active_after"] or run["pinned_nodes"] or (
+            occ is not None and (occ["reserved"] or occ["stream"])):
+        fail(f"schedule: {name}: left behind: slots "
+             f"{run['slots_active_after']}, pins {run['pinned_nodes']}, "
+             f"{occ}")
+
+
+def _tier_jobs(vocab: int) -> list:
+    """The tier cycle's jobs, wave after wave: each family's prefix and
+    its 4 streams' suffixes from seed 5."""
+    rng = np.random.default_rng(5)
+    fams = {f: (rng.integers(0, vocab, TIER_PREFIX),
+                [rng.integers(0, vocab, TIER_SUFFIX)
+                 for _ in range(TIER_WAVE)]) for f in "ABC"}
+    return [(np.concatenate([fams[f][0], suffix]).astype(np.int32),
+             TIER_BUDGET) for f in TIER_CYCLE for suffix in fams[f][1]]
+
+
+def _tier_mover_ms(cfg) -> dict:
+    """One spill and one restore of a block of the engine's paged pool,
+    outside the engine: ms per move between CUDA events (the spill's until
+    its event), over 20 moves each, and the rate for one block's bytes."""
+    from client_tpu_torch.server.kv_cache import (
+        init_paged_pool,
+        pool_block_nbytes,
+        tier_restore,
+        tier_spill,
+    )
+
+    pool = init_paged_pool(cfg, TIER_POOL, GEN_BLOCK, "cuda")
+    for p in pool.values():
+        p.normal_()
+    nbytes = pool_block_nbytes(pool, True)
+    rows, ready = tier_spill(pool, 3, True)
+    ready.synchronize()
+    out = {"block_bytes": nbytes}
+    for name, fn in (("spill", lambda: tier_spill(pool, 3, True)[1]),
+                     ("restore", lambda: tier_restore(pool, 4, rows, True))):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            fn()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / 20
+        out[f"{name}_device_ms"] = ms
+        out[f"{name}_gb_per_s"] = nbytes / (ms * 1e-3) / 1e9
+    return out
+
+
+def phase_schedule(gen_model: tuple) -> dict:
+    """The closed-loop SLO scheduler and the host tier at bench.py's
+    generation width: preemption on both layouts (schedule_paged with K2,
+    schedule_slot), the host tier on the paged layout with the chunked
+    lane (tier_paged, a tier-less run and a one-block tier beside it), the
+    burn controller, and the duty's pacing."""
+    import dataclasses
+
+    from client_tpu_torch.perf.bench_harness import ragged_generation_jobs
+
+    cfg, params, jobs = gen_model
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    gold = ragged_generation_jobs(SCHED_GOLD_SEED, cfg.vocab_size,
+                                  SCHED_GOLD_JOBS, (8, 64), (16, 128),
+                                  cfg.max_seq)
+    mixed = jobs + gold
+    labels = ([("batch", "bronze")] * len(jobs)
+              + [("vip", "gold")] * len(gold))
+    greedy = [None] * len(mixed)
+
+    def all_held(engine):
+        return engine.active_slots() == GEN_SLOTS
+
+    t0 = time.time()
+    runs, probes = [], []
+    for name, run_cfg, kw in (
+            ("schedule_paged", flash, dict(kv_layout="paged",
+                                           kv_block_len=GEN_BLOCK)),
+            ("schedule_slot", cfg, dict())):
+        probe = _ResumeProbe()
+        run = _serve_generation(
+            name, run_cfg, params, mixed, greedy, labels=labels,
+            late=(len(jobs), all_held), settled=_sched_settled,
+            instrument=probe, prefix_cache=True, prefix_block_len=GEN_BLOCK,
+            scheduler=SCHEDULER, slo_classes=SLO_CLASSES, **kw)
+        ttft = run["client_ttft_ms"]
+        run["ttft_mean_ms_by_class"] = {
+            "bronze": float(np.mean(ttft[:len(jobs)])),
+            "gold": float(np.mean(ttft[len(jobs):]))}
+        hits = [m for w, m in probe.resumes if m == w]
+        run["resumes_on_own_chain"] = len(hits)
+        run["resume_saved_tokens"] = sum(hits)
+        runs.append(run)
+        probes.append(probe)
+    tier_jobs = _tier_jobs(cfg.vocab_size)
+    tier_kw = dict(kv_layout="paged", kv_block_len=GEN_BLOCK,
+                   kv_pool_blocks=TIER_POOL, prefix_cache=True,
+                   prefix_block_len=GEN_BLOCK, prefill_mode="chunked",
+                   prefill_chunk=64)
+    for name, tier_bytes in (("tier_paged", TIER_BYTES),
+                             ("tier_off", 0), ("tier_one_block", 1)):
+        runs.append(_serve_generation(
+            name, flash, params, tier_jobs, [None] * len(tier_jobs),
+            n_threads=TIER_WAVE, settled=_sched_settled,
+            host_tier_bytes=tier_bytes, **tier_kw))
+    ctl_probe = []
+
+    def probe_controller(engine):
+        ctl_probe.append(_ControllerProbe(engine._controller))
+        engine._controller = ctl_probe[0]
+
+    # the gold jobs beside bench.py's 32: a first completion reaches the
+    # host (stride 4, depth 2) while most streams still decode
+    gold_greedy = [None] * len(gold)
+    runs.append(_serve_generation(
+        "controller", cfg, params, mixed, greedy, labels=labels,
+        settled=_sched_settled, instrument=probe_controller,
+        dispatch_duty=CTL_BASE_DUTY,
+        slo_classes=[{"name": "gold", "ttft_ms": 1.0}],
+        slo_window_s=CTL_WINDOW_S, scheduler={"controller": True}))
+    for duty in (0.5, 1.0):
+        runs.append(_serve_generation(
+            f"duty_{duty}", cfg, params, gold, gold_greedy,
+            settled=_sched_settled, dispatch_duty=duty))
+    t1 = time.time()
+    by = {run["run"]: run for run in runs}
+    # restored rows are the spilled bits, recomputed ones may round
+    # otherwise in bf16: counted, and both runs are judged
+    by["tier_paged"]["streams_equal_to_tier_off"] = sum(
+        np.array_equal(a, b) for (a, _), (b, _) in zip(
+            by["tier_paged"]["greedy_streams"],
+            by["tier_off"]["greedy_streams"]))
+    _judge_greedy(cfg, params, runs)
+    t2 = time.time()
+    movers = _tier_mover_ms(cfg)
+    for name, probe in zip(("schedule_paged", "schedule_slot"), probes):
+        run = by[name]
+        sched = run["scheduler"]
+        if run["preemptions"] < 1 \
+                or sched["preemptions_total"] != run["preemptions"] \
+                or run["resumes"] != run["preemptions"] \
+                or len(probe.resumes) != run["resumes"] \
+                or run["resumes_on_own_chain"] != run["resumes"]:
+            fail(f"schedule: {name}: {run['preemptions']} preemptions, "
+                 f"{run['resumes']} resumes, matches (expected, got) "
+                 f"{probe.resumes}")
+    for name, run in by.items():
+        _drained(run, name)
+        paged = run["kv_layout"] == "paged"
+        want = LAYERS * GEN_CHUNK * run["chunk_dispatches"] if paged else 0
+        if run["paged_decode_attention_launches"] != want \
+                or run["flash_attention_launches"]:
+            fail(f"schedule: the {name} run launched paged_decode_attention "
+                 f"{run['paged_decode_attention_launches']} times in "
+                 f"{run['chunk_dispatches']} chunk dispatches (expected "
+                 f"{want}) and flash_attention "
+                 f"{run['flash_attention_launches']} times (expected 0)")
+    tier, one = by["tier_paged"]["kv_tier"], by["tier_one_block"]["kv_tier"]
+    if tier["spills"] < 1 or tier["restores"] < 1 \
+            or by["tier_paged"]["tier_hits"] < 1 or one["dropped"] < 1 \
+            or by["tier_off"]["kv_tier"] is not None:
+        fail(f"schedule: tier: {tier}, one block: {one}")
+    moves = tier["spills"] + tier["restores"]
+    by["tier_paged"]["tier_host_ms_per_move"] = (
+        by["tier_paged"]["phase_seconds"]["tier"] * 1e3 / moves)
+    by["tier_paged"]["standalone_movers"] = movers
+    ctl = ctl_probe[0]
+    reads = ctl.latency_reads
+    if ctl.flips < 1 or not reads or set(reads) != {(1, 1.0)}:
+        fail(f"schedule: controller: {ctl.flips} flips, latency-mode reads "
+             f"{sorted(set(reads))[:4]}")
+    by["controller"]["controller"] = {
+        "flips": ctl.flips, "exited": ctl.flips >= 2,
+        "latency_rounds": len(reads)}
+    if by["duty_0.5"]["phase_seconds"]["pace"] <= 0 \
+            or by["duty_1.0"]["phase_seconds"]["pace"] != 0:
+        fail("schedule: duty 0.5 did not pace, or duty 1.0 did")
+    result = {"phase": "schedule", "runs": runs,
+              "seconds": {"serve": t1 - t0, "judge": t2 - t1,
+                          "movers": time.time() - t2}}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -1951,6 +2244,7 @@ def main() -> int:
                             gen_model)
     stream_context = timed("stream_context", phase_stream_context, gen_model)
     speculate = timed("speculate", phase_speculate, gen_model)
+    schedule = timed("schedule", phase_schedule, gen_model)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -1984,6 +2278,10 @@ def main() -> int:
             stream_context_paged=stream_context["runs"][0][
                 "paged_decode_attention_launches"],
             speculate_paged=speculate["runs"][2][
+                "paged_decode_attention_launches"],
+            schedule_paged=schedule["runs"][0][
+                "paged_decode_attention_launches"],
+            tier_paged=schedule["runs"][2][
                 "paged_decode_attention_launches"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

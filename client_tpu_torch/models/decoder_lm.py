@@ -8,7 +8,9 @@ generated token, every concurrent request multiplexed onto one slot batch
 by the continuous-batching engine (``server/generation.py``). The
 reference's single-stream and static-batch generators, its sequence
 decoder, replica fleets and engine supervision wait for later slices.
-Speculative decoding runs through ``speculative_draft``.
+Speculative decoding runs through ``speculative_draft``, the SLO
+scheduler through ``scheduler`` and ``slo_classes``, the host tier
+through ``host_tier_bytes``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from client_tpu_torch.server.config import (
     GenerationEngineConfig,
     ModelConfig,
     PrefixCacheConfig,
+    SloClassConfig,
     SpeculativeConfig,
     TensorSpec,
     config_from_dict,
@@ -34,6 +37,7 @@ from client_tpu_torch.server.generation import (
     reject_unported,
 )
 from client_tpu_torch.server.model import PyModel
+from client_tpu_torch.server.scheduling import resolve_scheduler
 from client_tpu_torch.server.speculation import DraftModel, build_draft_model
 from client_tpu_torch.server.types import ServerError
 
@@ -95,6 +99,16 @@ class ContinuousModel(PyModel):
         self.engine.stop()
         self.engine = self._fresh_engine()
 
+    def slo_snapshot(self) -> dict:
+        """Per-(tenant, slo_class) windowed quantiles and burn
+        (``core.debug_slo``)."""
+        return self.engine.slo_snapshot()
+
+    def scheduler_snapshot(self):
+        """The scheduler's state (``core.debug_scheduler``); None without
+        a scheduler."""
+        return self.engine.scheduler_snapshot()
+
 
 def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               params=None, seed: int = 0,
@@ -122,6 +136,12 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               speculative_gamma: int = 4,
                               speculative_min_acceptance: float = 0.0,
                               speculative_gamma_ladder: bool = False,
+                              host_tier_bytes: int = 0,
+                              dispatch_duty: float = 1.0,
+                              slo_classes=None,
+                              slo_window_s: float = 30.0,
+                              slo_max_tenants: int = 32,
+                              scheduler=None,
                               queue_depth: int = 256,
                               shed_on_full: bool = False,
                               device=None, **unported) -> ContinuousModel:
@@ -134,11 +154,13 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     default to random weights from ``seed``, drawn on ``device`` (CUDA by
     default, raising without it; the CPU only when asked for). The engine
     knobs and their defaults are the reference's (the slot layout,
-    token-level prefill, no prefix cache, no speculation). The config's
-    ``generation_engine``, ``prefix_cache`` and ``speculative`` blocks
-    advertise what the engine runs, resolved by the engine's own rules, so
-    a bad combination raises here. The engine is built now and started by
-    the first request.
+    token-level prefill, no prefix cache, no speculation, no scheduler, no
+    host tier, duty 1). The config's ``generation_engine`` (with the
+    tier's ``host_tier_bytes``), ``prefix_cache``, ``speculative``,
+    ``scheduler`` and ``slo_classes`` blocks advertise what the engine
+    runs, resolved by the engine's own rules, so a bad combination raises
+    here. ``slo_classes`` rows may be ``SloClassConfig`` or their dicts.
+    The engine is built now and started by the first request.
 
     ``speculative_draft`` turns on speculative decoding: a
     ``speculation.DraftModel``, a ``(cfg, params)`` pair, or a
@@ -190,6 +212,13 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
         prefix_block_len)
     eng.resolve_prefix(cfg, kv[0], prefix_cache,
                        prefix_block_len, prefix_commit_policy)
+    eff_tier = eng.resolve_host_tier(host_tier_bytes, prefix_cache)
+    eff_sched = resolve_scheduler(scheduler, prefix_cache,
+                                  prefix_commit_policy)
+    # one normalisation of the declared classes feeds the engine's
+    # objectives and the config block
+    slo_cfgs = tuple(SloClassConfig(**c) if isinstance(c, dict) else c
+                     for c in (slo_classes or ()))
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -213,6 +242,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             speculative_draft=draft, speculative_gamma=speculative_gamma,
             speculative_min_acceptance=speculative_min_acceptance,
             speculative_gamma_ladder=speculative_gamma_ladder,
+            host_tier_bytes=host_tier_bytes, dispatch_duty=dispatch_duty,
+            slo_classes=slo_cfgs, slo_window_s=slo_window_s,
+            slo_max_tenants=slo_max_tenants, scheduler=eff_sched,
             shed_on_full=shed_on_full, device=dev, name=name)
 
     model: ContinuousModel = None  # bound below; stream_fn reads it live
@@ -252,7 +284,8 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             dispatch_depth=dispatch_depth, fetch_stride=eff_stride,
             overlap=overlap, ring_entries=eff_entries,
             prefill_mode=eff_mode, prefill_chunk=prefill_chunk,
-            prefill_token_budget=eff_budget, kv_layout=kv[0],
+            prefill_token_budget=eff_budget, host_tier_bytes=eff_tier,
+            kv_layout=kv[0],
             kv_block_len=kv[1], kv_pool_blocks=kv[2],
             kv_max_blocks_per_slot=kv[3]),
         prefix_cache=(PrefixCacheConfig(
@@ -261,6 +294,8 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             commit_policy=prefix_commit_policy)
             if prefix_cache else None),
         speculative=spec_json,
+        scheduler=eff_sched,
+        slo_classes=slo_cfgs,
     )
     model = ContinuousModel(config, stream_fn, fresh_engine)
     return model

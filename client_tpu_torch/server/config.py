@@ -2,10 +2,10 @@
 ``client_tpu/server/config.py``, with the fields an encoder served
 behind the dynamic batcher and a decoupled (streaming) generator use.
 
-The generator's ``generation_engine``, ``prefix_cache`` and
-``speculative`` blocks carry the engine knobs the port runs; the fleet,
-SLO, sequence, ensemble and sharding blocks of the reference wait for the
-slices that use them. ``platform`` and ``backend`` read ``"pytorch"``
+The generator's ``generation_engine``, ``prefix_cache``,
+``speculative``, ``scheduler`` and ``slo_classes`` blocks carry the
+engine knobs the port runs; the fleet, sequence, ensemble and sharding
+blocks of the reference wait for the slices that use them. ``platform`` and ``backend`` read ``"pytorch"``
 (the reference's generator says ``"python"``).
 """
 
@@ -130,12 +130,69 @@ class SpeculativeConfig:
 
 
 @dataclass
+class SloClassConfig:
+    """One SLO class's declared latency objectives, the model config's
+    ``slo_classes`` block (``server/slo_stats.py``): requests name a class
+    with the ``slo_class`` parameter, and a completed request that misses
+    any nonzero target burns the class's error budget
+    (``1 - target_percentile / 100``). The reference's block, field for
+    field."""
+
+    name: str
+    ttft_ms: float = 0.0
+    itl_ms: float = 0.0
+    queue_wait_ms: float = 0.0
+    target_percentile: float = 99.0
+
+    def to_json(self):
+        return asdict(self)
+
+
+@dataclass
+class SchedulerConfig:
+    """Closed-loop SLO scheduling of a generation engine
+    (``server/scheduling.py``); disabled keeps the engine's FIFO, with no
+    preemption and static knobs. ``class_weights`` maps slo_class names to
+    fair-queue weights (others take ``default_weight``; every weight must
+    be > 0). ``preemption`` lets a burning higher-weight class reclaim a
+    running slot (it needs ``prefix_cache`` with a writable commit
+    policy: the resume is a prefix restore); ``preempt_burn_threshold`` is
+    the burn at which the fair-order head may preempt (0: on weight alone)
+    and ``max_preemptions`` bounds preemptions per stream.
+    ``park_bypass_limit`` bounds how often a parked paged reservation may
+    be bypassed by other flows. ``controller`` runs the hysteresis
+    controller between ``burn_low`` and ``burn_high`` with a dwell of
+    ``controller_hold_rounds`` rounds, shrinking the lane budget to
+    ``min_prefill_token_budget`` (0: one chunk) in latency mode. The
+    reference's block, field for field."""
+
+    enabled: bool = False
+    class_weights: dict = field(default_factory=dict)
+    default_weight: float = 1.0
+    preemption: bool = False
+    preempt_burn_threshold: float = 1.0
+    max_preemptions: int = 2
+    park_bypass_limit: int = 32
+    controller: bool = False
+    burn_high: float = 1.0
+    burn_low: float = 0.25
+    controller_hold_rounds: int = 50
+    min_prefill_token_budget: int = 0
+
+    def to_json(self):
+        j = asdict(self)
+        j["class_weights"] = dict(self.class_weights)
+        return j
+
+
+@dataclass
 class GenerationEngineConfig:
     """The continuous-batching engine's shape (``server/generation.py``),
     limited to the knobs the port's engine runs: slot count, chunk,
     dispatch depth, the ring fetch cadence (``fetch_stride``, ``overlap``,
-    ``ring_entries``), the prompt-ingestion mode and its lane, and the KV
-    layout with its pool geometry (0s under ``slot``). Configs built by
+    ``ring_entries``), the prompt-ingestion mode and its lane, the
+    host-RAM prefix tier's budget (``host_tier_bytes``, 0 = none) and the
+    KV layout with its pool geometry (0s under ``slot``). Configs built by
     ``make_continuous_generator`` advertise the EFFECTIVE values the
     engine's own resolvers give, so introspection agrees with what the
     engine runs."""
@@ -149,6 +206,7 @@ class GenerationEngineConfig:
     prefill_mode: str = "token"
     prefill_chunk: int = 64
     prefill_token_budget: int = 0
+    host_tier_bytes: int = 0
     kv_layout: str = "slot"
     kv_block_len: int = 0
     kv_pool_blocks: int = 0
@@ -184,6 +242,8 @@ class ModelConfig:
     prefix_cache: Optional[PrefixCacheConfig] = None
     speculative: Optional[SpeculativeConfig] = None
     generation_engine: Optional[GenerationEngineConfig] = None
+    scheduler: Optional[SchedulerConfig] = None
+    slo_classes: tuple = ()   # [SloClassConfig]; advertised objectives
 
     # ---- derived ----
     def input_spec_maps(self) -> tuple:
@@ -242,6 +302,10 @@ class ModelConfig:
             j["speculative"] = self.speculative.to_json()
         if self.generation_engine is not None:
             j["generation_engine"] = self.generation_engine.to_json()
+        if self.scheduler is not None:
+            j["scheduler"] = self.scheduler.to_json()
+        if self.slo_classes:
+            j["slo_classes"] = [c.to_json() for c in self.slo_classes]
         return j
 
     def metadata_json(self, versions) -> dict:

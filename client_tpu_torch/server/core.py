@@ -10,8 +10,10 @@ device, read zero-copy by an in-process producer's server). Outputs a
 request directs into a region are written there instead of riding the
 response.
 
-Waiting for later slices: the response cache, the tracer, ensembles,
-repository load/unload and the debug surface.
+The debug surface has ``debug_slo`` and ``debug_scheduler`` (the HTTP
+routes that serve them come with the runtime planes). Waiting for later
+slices: the response cache, the tracer, ensembles, repository
+load/unload and the rest of the debug surface.
 """
 
 from __future__ import annotations
@@ -184,6 +186,42 @@ class TorchInferenceServer:
         if name and not stats:
             raise ServerError(f"unknown model '{name}'", 404)
         return {"model_stats": stats}
+
+    def _model_snapshots(self, hook: str, key: str) -> dict:
+        """``{"models": [...]}`` with one row per served model version
+        whose model has the ``hook`` method and gives a snapshot (None:
+        the feature is off there); a snapshot that raises is left out
+        (introspection is best effort)."""
+        with self._lock:
+            entries = [(name, str(e.version), e)
+                       for name, versions in self._models.items()
+                       for e in versions.values()]
+        models = []
+        for name, version, entry in sorted(entries, key=lambda x: x[:2]):
+            fn = getattr(entry.model, hook, None)
+            if not callable(fn):
+                continue
+            try:
+                snap = fn()
+            except Exception:  # noqa: BLE001 — introspection best-effort
+                continue
+            if snap is None:
+                continue
+            models.append({"model": name, "version": version,
+                           "state": entry.state, key: snap})
+        return {"models": models}
+
+    def debug_slo(self) -> dict:
+        """Per-(tenant, slo_class) SLO state of every engine-backed model:
+        windowed TTFT, ITL and queue-wait quantiles, error-budget burn and
+        outcome counts."""
+        return self._model_snapshots("slo_snapshot", "slo")
+
+    def debug_scheduler(self) -> dict:
+        """The scheduler state of every model that runs one: fair-queue
+        depths, parked reservations, controller mode and knobs,
+        preemptions and resumes."""
+        return self._model_snapshots("scheduler_snapshot", "scheduler")
 
     # ------------------------------------------------------------------
     # data plane

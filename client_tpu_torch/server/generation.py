@@ -1,6 +1,7 @@
 """Continuous (in-flight) batching engine for autoregressive generation:
 the port of ``client_tpu/server/generation.py``: its core, the prefix
-cache and speculative decoding, without the dedicated lanes.
+cache with its host-RAM tier, speculative decoding and the closed-loop
+SLO scheduler, without the dedicated lanes.
 
 Ragged concurrent streams share one fixed batch of S slots at token
 granularity: every engine step feeds each active slot exactly one token,
@@ -80,9 +81,25 @@ prefix pins are freed at the next dispatch boundary (``_reap_slots``),
 and a queued request is settled where it leaves the queue
 (``_admissible``).
 
+SLO statistics and scheduling: every engine resolves each request's
+(tenant, slo_class) labels through its ``SloStats`` cardinality cap and
+records its lifecycle per label (``server/slo_stats.py``). The pending
+queue is a ``FairQueue``: one FIFO flow without a ``scheduler``, weighted
+fair queuing across flows with one. A scheduler may preempt a running
+lower-weight stream for a burning higher-weight head (``_maybe_preempt``:
+every in-flight fetch is delivered first, the stream's extended context
+is committed to the prefix cache and pinned, and it re-queues with its
+generated tokens folded into its prompt), and its ``EngineController``
+steers the live knobs (lane budget, fetch stride, duty, speculation) from
+the classes' burn. ``dispatch_duty`` < 1 sleeps after each dispatch round
+to cede the card ("pace").
+
+Host tier (``host_tier_bytes``): evicted prefix blocks spill to pinned host
+memory and a hit restores them (``kv_cache.HostTierStore``), both copies
+enqueued on the engine's stream.
+
 Knobs of the reference that this slice does not run (the dedicated
-lanes, the host tier, the SLO scheduler and preemption, meshes and
-fleets, the watchdog, goodput and timeline planes)
+lanes, meshes and fleets, the watchdog, goodput and timeline planes)
 raise ``NotImplementedError`` naming the ROADMAP item that ports them;
 none is silently ignored.
 """
@@ -110,17 +127,31 @@ from client_tpu_torch.models.sampling import (
 )
 from client_tpu_torch.server.kv_cache import (
     COMMIT_POLICIES,
+    HostTierStore,
     RadixBlockIndex,
     block_count_buckets,
     init_block_pool,
     init_paged_pool,
     pad_block_ids,
+    pool_block_nbytes,
     pool_to_slot,
     slot_to_pool,
+    tier_restore,
+    tier_spill,
 )
 from client_tpu_torch.server.model import (
     finish_host_copies,
     start_host_copies,
+)
+from client_tpu_torch.server.scheduling import (
+    EngineController,
+    FairQueue,
+    SchedStats,
+    resolve_scheduler,
+)
+from client_tpu_torch.server.slo_stats import (
+    SloStats,
+    objectives_from_configs,
 )
 from client_tpu_torch.server.speculation import (
     ACCEPT_SALT,
@@ -147,12 +178,6 @@ UNPORTED_KNOBS = {
     "prefill_slots": "A10e (dedicated lanes)",
     "prefill_lane_width": "A10e (dedicated lanes)",
     "prefill_lane_batch": "A10e (dedicated lanes)",
-    "host_tier_bytes": "A10f (host tier)",
-    "scheduler": "A10g (scheduler / preemption)",
-    "slo_classes": "A10g (scheduler / preemption)",
-    "slo_window_s": "A10g (scheduler / preemption)",
-    "slo_max_tenants": "A10g (scheduler / preemption)",
-    "dispatch_duty": "A10g (scheduler / preemption)",
     "mesh": "A12 (mesh and fleets)",
     "engine_devices": "A12 (mesh and fleets)",
     "watchdog": "A13 (runtime planes)",
@@ -477,7 +502,9 @@ class _Request:
     __slots__ = ("prompt", "budget", "eos_id", "temperature", "top_k",
                  "top_p", "seed", "out", "emitted", "finished",
                  "enqueue_ns", "first_token_ns", "last_emit_ns",
-                 "cap_tokens", "parked", "prefix", "spec", "tenant",
+                 "queue_wait_ns", "base_plen", "cap_tokens", "gen_tokens",
+                 "preempt_count", "resume_pending", "resume_pin",
+                 "park_bypasses", "parked", "prefix", "spec", "tenant",
                  "slo_class", "deadline_ns", "cancel_ev", "outcome")
 
     def __init__(self, prompt: np.ndarray, budget: int, eos_id: int,
@@ -499,12 +526,29 @@ class _Request:
         self.enqueue_ns = 0
         self.first_token_ns = 0
         self.last_emit_ns = 0
-        # the stream's worst-case context: the paged reservation bound
+        self.queue_wait_ns = 0    # set at slot admission
+        # a preemption folds the generated tokens into ``prompt``:
+        # base_plen keeps the wire prompt's length for the budget, and
+        # cap_tokens (the paged reservation bound) stays the stream's
+        # worst case, the wire prompt plus the budget
+        self.base_plen = len(prompt)
         self.cap_tokens = len(prompt) + budget
-        self.parked = False       # waiting at the queue head for blocks
+        # emitted token values not folded yet (kept only on engines that
+        # preempt), the preemptions so far (bounded by max_preemptions),
+        # whether the next admission resumes, and the pin on the chain
+        # the preemption committed (released at that admission or close)
+        self.gen_tokens = None
+        self.preempt_count = 0
+        self.resume_pending = False
+        self.resume_pin = None
+        # a parked paged reservation (waiting at its flow's head for
+        # blocks) and how many admissions of other flows passed it
+        self.parked = False
+        self.park_bypasses = 0
         self.prefix = None        # the pinned PrefixHandle of a cache hit
         self.spec = None          # RequestSpeculation when speculating
-        # SLO labels (stored for A10g's scheduler and stats)
+        # the RESOLVED SLO labels (after the SloStats cardinality cap), so
+        # every record of this stream lands under one key
         self.tenant = tenant
         self.slo_class = slo_class
         # bounded lifetime: the absolute monotonic-ns deadline from the
@@ -544,85 +588,6 @@ class _Slot:
         self.n_shared = 0
         self.reserved_left = 0
         self.pos_pending: Optional[int] = None
-
-
-class PendingQueue:
-    """The engine's FIFO of admitted-but-unslotted requests: the
-    reference's ``FairQueue`` with one flow (no scheduler). ``push_front``
-    re-inserts a request whose block reservation failed at the head, so it
-    keeps its place in line; ``parked`` counts such entries so the idle
-    loop does not block on a queue whose head is waiting for blocks.
-    ``put`` blocks (``put_nowait`` raises ``queue.Full``) while
-    ``maxsize`` fresh entries wait; ``close`` makes every ``get`` return
-    None."""
-
-    def __init__(self, maxsize: int = 0):
-        self._maxsize = int(maxsize)
-        self._items: collections.deque = collections.deque()
-        self._lock = threading.Lock()
-        self._not_empty = threading.Condition(self._lock)
-        self._not_full = threading.Condition(self._lock)
-        self._size = 0            # fresh entries, counted against maxsize
-        self.parked = 0
-        self._closed = False
-
-    def put(self, req, block: bool = True) -> None:
-        with self._lock:
-            while self._maxsize > 0 and self._size >= self._maxsize:
-                if not block:
-                    raise queue.Full
-                self._not_full.wait()
-            self._items.append((req, True))
-            self._size += 1
-            self._not_empty.notify()
-
-    def put_nowait(self, req) -> None:
-        self.put(req, block=False)
-
-    def push_front(self, req, parked: bool = False) -> None:
-        with self._lock:
-            self._items.appendleft((req, False))
-            if parked:
-                self.parked += 1
-            self._not_empty.notify()
-
-    def unpark(self) -> None:
-        with self._lock:
-            self.parked = max(0, self.parked - 1)
-
-    def _pop(self):
-        req, counted = self._items.popleft()
-        if counted:
-            self._size -= 1
-            self._not_full.notify()
-        return req
-
-    def get(self):
-        """Blocking pop; None once :meth:`close` was called."""
-        with self._lock:
-            while True:
-                if self._closed:
-                    return None
-                if self._items:
-                    return self._pop()
-                self._not_empty.wait()
-
-    def get_nowait(self):
-        """Non-blocking pop, ignoring close (the failure path drains the
-        backlog after close); raises queue.Empty."""
-        with self._lock:
-            if not self._items:
-                raise queue.Empty
-            return self._pop()
-
-    def qsize(self) -> int:
-        with self._lock:
-            return len(self._items)
-
-    def close(self) -> None:
-        with self._lock:
-            self._closed = True
-            self._not_empty.notify_all()
 
 
 class ContinuousBatchingEngine:
@@ -666,7 +631,24 @@ class ContinuousBatchingEngine:
     stream within gamma + 1 positions of max_seq;
     ``speculative_gamma_ladder`` runs each stream at a rung of {1, 2, 4,
     8} up to gamma (plus gamma) picked from its acceptance. Gamma 0 or no
-    draft is plain decode."""
+    draft is plain decode.
+
+    SLO statistics and scheduling: ``slo_classes`` (a {name:
+    ``SloObjective``} dict or a list of ``SloClassConfig``/dicts) declares
+    the objectives each class's windowed burn is judged against,
+    ``slo_window_s`` sizes the window and ``slo_max_tenants`` caps the
+    distinct tenant labels (later ones collapse into ``__other__``).
+    ``scheduler`` (a ``SchedulerConfig``, its dict form or True; None is
+    the FIFO engine) orders admission by weighted fair queuing, sheds the
+    lowest-weight newest queued request before a higher-weight arrival
+    when ``shed_on_full`` finds the queue full, may preempt running
+    streams (``preemption``, which needs ``prefix_cache`` with a writable
+    commit policy) and runs the burn controller (``controller``).
+    ``dispatch_duty`` in (0, 1] is the share of wall time the engine may
+    keep the card busy: below 1 it sleeps ``(1/duty - 1)`` of a round's
+    time after each round. ``host_tier_bytes`` > 0 (with ``prefix_cache``)
+    spills evicted prefix blocks to a host-RAM store of that size and
+    restores them on a hit."""
 
     PREFILL_MODES = ("token", "batched", "chunked")
     KV_LAYOUTS = ("slot", "paged")
@@ -685,6 +667,9 @@ class ContinuousBatchingEngine:
                  speculative_draft=None, speculative_gamma: int = 4,
                  speculative_min_acceptance: float = 0.0,
                  speculative_gamma_ladder: bool = False,
+                 host_tier_bytes: int = 0, dispatch_duty: float = 1.0,
+                 slo_classes=None, slo_window_s: float = 30.0,
+                 slo_max_tenants: int = 32, scheduler=None,
                  shed_on_full: bool = False, device=None,
                  name: str = "generation-engine", **unported):
         reject_unported(unported)
@@ -696,6 +681,8 @@ class ContinuousBatchingEngine:
             raise ValueError("ring_entries must be >= 0 (0 = auto)")
         if ring_entries == 1:
             raise ValueError("ring_entries must be >= 2 (0 = auto)")
+        if not 0.0 < dispatch_duty <= 1.0:
+            raise ValueError("dispatch_duty must be in (0, 1]")
         if speculative_draft is not None and speculative_gamma > 0:
             speculative_draft.assert_compatible(cfg)
             if speculative_gamma + 1 >= cfg.max_seq:
@@ -746,6 +733,25 @@ class ContinuousBatchingEngine:
         self._prefix_block_len = (self._kv_block_len if self._paged
                                   else prefix_block_len)
         self._prefix_policy = prefix_commit_policy
+        # the scheduler (None: the FIFO engine), resolved by the rule the
+        # generator's config block uses
+        self._sched = resolve_scheduler(scheduler, prefix_cache,
+                                        prefix_commit_policy)
+        self._preempt_on = bool(self._sched and self._sched.preemption)
+        # a live override of the configured preempt threshold (None: the
+        # configured value)
+        self._preempt_threshold_override: Optional[float] = None
+        self._sched_stats = SchedStats() if self._sched else None
+        self._controller = (
+            EngineController(self._sched.burn_high, self._sched.burn_low,
+                             self._sched.controller_hold_rounds,
+                             self._sched.min_prefill_token_budget)
+            if self._sched is not None and self._sched.controller
+            else None)
+        # the host tier's budget (0: none); the store is built with the
+        # pool in _ensure_ready
+        self._host_tier_bytes = self.resolve_host_tier(host_tier_bytes,
+                                                       prefix_cache)
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         if prefill_token_budget < 0:
@@ -783,6 +789,9 @@ class ContinuousBatchingEngine:
         self._stride, self._ring_entries = self.ring_shape(
             fetch_stride, overlap, dispatch_depth, ring_entries,
             self._entries_per_iter)
+        # the ring is sized for the configured stride; the live stride
+        # (set_fetch_stride, the controller) may only go below it
+        self._stride_cfg = self._stride
         # how many issued (async) fetches may ride ahead of delivery
         self._fetch_depth = self._depth if self._overlap else 0
         self._ring_seq = 0        # next ring entry to write
@@ -797,7 +806,11 @@ class ContinuousBatchingEngine:
         self._unfetched: list = []
         self._fetches: collections.deque = collections.deque()
         self._held: Optional[_Request] = None   # popped, not yet admitted
-        self._pending = PendingQueue(maxsize=queue_depth)
+        # one FIFO flow without a scheduler; weighted fair queuing across
+        # (tenant, slo_class) flows with one
+        self._pending = FairQueue(
+            maxsize=queue_depth, fair=self._sched is not None,
+            weight_fn=lambda key: self._class_weight(key[1]))
         self._queue_depth = queue_depth
         self._shed_on_full = bool(shed_on_full)
         self._slots = [_Slot() for _ in range(n_slots)]
@@ -807,12 +820,19 @@ class ContinuousBatchingEngine:
         self._draining = False
         self._thread: Optional[threading.Thread] = None
         self._dev: dict = {}
+        self._duty = float(dispatch_duty)
+        self._loop_ewma_s = 0.0   # EWMA of a busy loop iteration
         # engine-thread wall time by phase (seconds): admit (slot fill,
         # batched prefill included), dispatch (host batch build + kernel
         # enqueue), prefill (the chunked lane's dispatches), retire_fetch
-        # (blocking on the ring D2H), retire_deliver (token distribution)
+        # (blocking on the ring D2H), retire_deliver (token distribution),
+        # pace (duty sleeps) and, on tier-armed engines only, tier (the
+        # host time of enqueuing spills and restores)
         self._phase_s = {"admit": 0.0, "dispatch": 0.0, "prefill": 0.0,
-                         "retire_fetch": 0.0, "retire_deliver": 0.0}
+                         "retire_fetch": 0.0, "retire_deliver": 0.0,
+                         "pace": 0.0}
+        if self._host_tier_bytes:
+            self._phase_s["tier"] = 0.0
         # stream time between CUDA events around each dispatch's kernels
         # (with a host-bound loop this is the enqueue time, not busy time)
         self._dispatch_event_ms = 0.0
@@ -830,6 +850,12 @@ class ContinuousBatchingEngine:
         self._failed: Optional[BaseException] = None
         self.name = name
         self.gen_stats = GenerationStats()
+        # per-(tenant, slo_class) windowed quantiles, burn and outcome
+        # counts, fed from the same lifecycle stamps as gen_stats
+        objectives = (dict(slo_classes) if isinstance(slo_classes, dict)
+                      else objectives_from_configs(slo_classes))
+        self.slo_stats = SloStats(objectives, window_s=slo_window_s,
+                                  max_tenants=slo_max_tenants)
 
     # ---------------------------------------------------------- resolution
 
@@ -904,6 +930,21 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prefix_block_len {prefix_block_len} must be in "
                 f"(0, max_seq={cfg.max_seq})")
+
+    @staticmethod
+    def resolve_host_tier(host_tier_bytes: int, prefix_cache: bool) -> int:
+        """Validate the host tier's budget in bytes (0: no tier): > 0 needs
+        ``prefix_cache``, whose blocks are what the tier holds."""
+        b = int(host_tier_bytes)
+        if b < 0:
+            raise ValueError("host_tier_bytes must be >= 0 (0 = no "
+                             "host tier)")
+        if b and not prefix_cache:
+            raise ValueError(
+                "host_tier_bytes requires prefix_cache: the tier "
+                "spills radix-indexed prefix blocks, which only "
+                "exist when the prefix cache is enabled")
+        return b
 
     @staticmethod
     def resolve_prefill_mode(prefill: bool,
@@ -1018,17 +1059,29 @@ class ContinuousBatchingEngine:
         snap["gamma_ceiling"] = self._gamma_ceiling
         return snap
 
+    def _tier_snapshot(self) -> Optional[dict]:
+        """The host tier's state and counts; None without a tier."""
+        if self._kv_index is None:
+            return None
+        return self._kv_index.tier_snapshot()
+
+    def slo_snapshot(self) -> dict:
+        """Per-(tenant, slo_class) windowed quantiles, error-budget burn
+        and outcome counts (``core.debug_slo``)."""
+        return self.slo_stats.snapshot()
+
     def stats(self) -> dict:
         """Instantaneous engine counters: dispatches (chunks and verify
         rounds; ``dispatch_by_kind`` splits them, with the engine thread's
-        host seconds per kind), tokens emitted, phase seconds of the
-        engine thread, the ring, the chunked-prefill lane, the pool
-        occupancy, the prefix index and speculation (the last four None
-        where the engine has none), and the slot table
-        (the rows of the reference's ``debug_snapshot``: each held slot's
-        prompt length, tokens emitted, budget, SLO labels and cursors).
-        The table is read while the engine thread runs: a best-effort
-        view, not a consistency point."""
+        host seconds per kind), tokens emitted, the duty, phase seconds of
+        the engine thread, the ring, the chunked-prefill lane, the pool
+        occupancy, the host tier, the scheduler, the prefix index and
+        speculation (each None where the engine has none), the SLO
+        statistics, and the slot table (the rows of the reference's
+        ``debug_snapshot``: each held slot's prompt length, tokens
+        emitted, budget, SLO labels and cursors). The table is read while
+        the engine thread runs: a best-effort view, not a consistency
+        point."""
         slots = []
         for i, slot in enumerate(self._slots):
             req = slot.req
@@ -1052,6 +1105,7 @@ class ContinuousBatchingEngine:
             "tokens_emitted": self._tokens_emitted,
             "requests_completed": self._requests_completed,
             "requests_failed": self.gen_stats.failed,
+            "dispatch_duty": self._duty,
             "phase_seconds": dict(self._phase_s),
             "dispatch_event_ms": self._dispatch_event_ms,
             "timed_dispatches": self._timed_dispatches,
@@ -1061,6 +1115,8 @@ class ContinuousBatchingEngine:
                      "fetch_lag": self._ring_seq - self._retired_seq},
             "prefill_lane": self._prefill_lane_snapshot(),
             "kv_paged": self._paged_snapshot(),
+            "kv_tier": self._tier_snapshot(),
+            "scheduler": self.scheduler_snapshot(),
             "prefix_cache": (None if self._prefix_index is None
                              else self._prefix_index.snapshot()),
             "speculation": spec,
@@ -1072,7 +1128,104 @@ class ContinuousBatchingEngine:
                        "host_s": self._kind_s[kind]}
                 for kind in self._kind_n},
             "slots": slots,
+            "slo": self.slo_stats.snapshot(),
         }
+
+    # ------------------------------------------------------------ live knobs
+    #
+    # The controller's actuators and an operator surface: each setter
+    # changes host state the loop reads once per round.
+
+    @property
+    def dispatch_duty(self) -> float:
+        return self._duty
+
+    def set_dispatch_duty(self, duty: float) -> None:
+        """Live pacing: the share of wall time the engine may keep the
+        card busy (1.0: no pause between rounds)."""
+        if not 0.0 < duty <= 1.0:
+            raise ValueError("dispatch_duty must be in (0, 1]")
+        self._duty = duty
+
+    @property
+    def prefill_token_budget(self) -> int:
+        """The chunked lane's live per-round token budget."""
+        return self._prefill_budget
+
+    def set_prefill_token_budget(self, budget: int) -> None:
+        """Live lane budget, resolved as at construction (under
+        ``"chunked"`` 0 is one ``prefill_chunk`` and the floor is one
+        token); engines without the lane only record it."""
+        if int(budget) < 0:
+            raise ValueError("prefill_token_budget must be >= 0")
+        self._prefill_budget = self.resolve_prefill_budget(
+            self._prefill_mode, self._prefill_chunk_len, int(budget))
+
+    @property
+    def fetch_stride(self) -> int:
+        """Live dispatches per ring fetch (<= the configured stride)."""
+        return self._stride
+
+    def set_fetch_stride(self, stride: int) -> None:
+        """Live fetch cadence, clamped to [1, the configured stride]: the
+        ring was sized for the configured one, so a larger stride would
+        wrap it."""
+        if int(stride) < 1:
+            raise ValueError("fetch_stride must be >= 1")
+        self._stride = min(int(stride), self._stride_cfg)
+
+    @property
+    def preempt_burn_threshold(self) -> float:
+        """The effective preempt threshold: the live override when set,
+        else the configured one (0.0 without a scheduler)."""
+        if self._preempt_threshold_override is not None:
+            return self._preempt_threshold_override
+        return (self._sched.preempt_burn_threshold
+                if self._sched is not None else 0.0)
+
+    def set_preempt_burn_threshold(self, threshold=None) -> None:
+        """Override the preempt threshold live (None restores the
+        configured one)."""
+        if threshold is not None and float(threshold) < 0:
+            raise ValueError(
+                f"preempt_burn_threshold must be >= 0, got {threshold}")
+        self._preempt_threshold_override = (
+            None if threshold is None else float(threshold))
+
+    def _class_weight(self, slo_class: str) -> float:
+        return self._sched.class_weights.get(slo_class,
+                                             self._sched.default_weight)
+
+    def scheduler_snapshot(self) -> Optional[dict]:
+        """The scheduler's effective config, live knobs, per-flow queue
+        depths, parked reservations, controller mode and preemption and
+        resume counts; None without a scheduler."""
+        if self._sched is None:
+            return None
+        s = self._sched
+        snap = {
+            "enabled": True,
+            "class_weights": dict(s.class_weights),
+            "default_weight": s.default_weight,
+            "preemption": s.preemption,
+            "preempt_burn_threshold": self.preempt_burn_threshold,
+            "max_preemptions": s.max_preemptions,
+            "park_bypass_limit": s.park_bypass_limit,
+            "controller": (None if self._controller is None
+                           else self._controller.snapshot()),
+            "knobs": {
+                "prefill_token_budget": self._prefill_budget,
+                "fetch_stride": self._stride,
+                "dispatch_duty": self._duty,
+                "speculation_enabled": self.speculation_enabled,
+                "speculation_gamma": self.speculation_gamma,
+            },
+            "queue_depths": {f"{t}/{c}": n for (t, c), n
+                             in sorted(self._pending.depths().items())},
+            "parked_requests": self._pending.parked,
+        }
+        snap.update(self._sched_stats.snapshot())
+        return snap
 
     # ---------------------------------------------------- speculation knobs
 
@@ -1166,33 +1319,80 @@ class ContinuousBatchingEngine:
         if handle is not None:
             self._prefix_index.release(handle)
 
+    def _release_resume_pin(self, req: _Request) -> None:
+        """Unpin the chain a preemption committed, exactly once (the same
+        atomic take as ``_release_prefix``): at the resume's admission,
+        or when the request closes while queued."""
+        if self._prefix_index is None:
+            return
+        with self._lock:
+            handle, req.resume_pin = req.resume_pin, None
+        if handle is not None:
+            self._prefix_index.release(handle)
+
     def _close_request(self, req: _Request, terminal,
                        outcome: Optional[str] = None) -> None:
         """Deliver a request's terminal item (None = normal end, or an
-        exception) exactly once, unpinning its matched chain first
-        whatever the outcome. ``outcome`` overrides the completed/failed
-        attribution for the two bounded-lifetime endings, "cancelled"
-        (the client went away) and "deadline" (the wire timeout passed),
-        which are counted apart from failures."""
+        exception) exactly once, unpinning its matched chain and its
+        resume pin first whatever the outcome, and record it in the
+        token-level and the per-label statistics. ``outcome`` overrides
+        the completed/failed attribution for the two bounded-lifetime
+        endings, "cancelled" (the client went away) and "deadline" (the
+        wire timeout passed), which are counted apart from failures."""
         with self._lock:
             if req.finished:
                 return
             req.finished = True
             self._requests_closed += 1
         self._release_prefix(req)
+        self._release_resume_pin(req)
         if outcome is None:
             outcome = "completed" if terminal is None else "failed"
         req.outcome = outcome
         if outcome == "completed":
             self.gen_stats.record_completion(req.emitted, req.first_token_ns,
                                              req.last_emit_ns)
+            # settle the stream against its class's objective: its mean
+            # ITL (none below 2 tokens), TTFT and queue wait
+            itl_ns = None
+            if req.emitted >= 2 and req.last_emit_ns >= req.first_token_ns:
+                itl_ns = ((req.last_emit_ns - req.first_token_ns)
+                          // (req.emitted - 1))
+            ttft_ns = (max(0, req.first_token_ns - req.enqueue_ns)
+                       if req.first_token_ns else 0)
+            self.slo_stats.record_completion(req.tenant, req.slo_class,
+                                             ttft_ns, itl_ns,
+                                             req.queue_wait_ns)
         elif outcome == "cancelled":
             self.gen_stats.record_cancelled()
+            self.slo_stats.record_cancelled(req.tenant, req.slo_class)
         elif outcome == "deadline":
             self.gen_stats.record_deadline_expired()
+            self.slo_stats.record_deadline(req.tenant, req.slo_class)
         else:
             self.gen_stats.record_failure()
+            self.slo_stats.record_failure(req.tenant, req.slo_class)
         req.out.put(terminal)
+
+    def _shed_queued(self, victim: _Request) -> None:
+        """Close a queued request the weight-aware shed door evicted: a
+        per-label shed (and a failed stream), answered with the retryable
+        503 of the queue-mouth shed. A concurrent close of the same
+        request wins; its queue space is freed either way."""
+        with self._lock:
+            if victim.finished:
+                return
+            victim.finished = True
+            self._requests_closed += 1
+        self._release_prefix(victim)
+        self._release_resume_pin(victim)
+        victim.outcome = "failed"
+        self.gen_stats.record_failure()
+        self.slo_stats.record_shed(victim.tenant, victim.slo_class)
+        victim.out.put(ServerError(
+            "generation request shed from the queue: a higher-weight "
+            "flow's request arrived while the queue was full", 503,
+            retry_after=1.0))
 
     def cancel(self, req: _Request) -> None:
         """Cancel one stream from any thread (idempotent); its slot and
@@ -1274,12 +1474,20 @@ class ContinuousBatchingEngine:
                     f"+ budget {budget} at kv_block_len "
                     f"{self._kv_block_len}) but the pool holds only "
                     f"{self._kv_index.usable_blocks}", 400)
+        # the labels go through the cardinality cap once, and only after the
+        # 400 checks: a refused request must not take one of the tenant
+        # slots. Every later record uses the resolved labels.
+        tenant, slo_class = self.slo_stats.resolve(tenant_id, slo_class)
+        key = (tenant, slo_class)
         req = _Request(prompt, budget, eos_id, temperature=float(temperature),
                        top_k=int(top_k), top_p=float(top_p), seed=int(seed),
-                       tenant=tenant_id, slo_class=slo_class,
+                       tenant=tenant, slo_class=slo_class,
                        deadline_ns=int(deadline_ns), cancel_ev=cancel_event)
         if self._spec is not None:
             req.spec = RequestSpeculation()
+        if self._preempt_on:
+            # a preemption folds the emitted token values into the prompt
+            req.gen_tokens = []
         req.enqueue_ns = now_ns()
         with self._lock:
             shed = self._stopping or self._draining
@@ -1287,6 +1495,7 @@ class ContinuousBatchingEngine:
                 self._requests_accepted += 1
         if shed:
             self.gen_stats.record_failure()
+            self.slo_stats.record_shed(tenant, slo_class)
             if self._failed is not None:
                 raise ServerError(
                     "generation engine is down (engine failure); "
@@ -1296,17 +1505,33 @@ class ContinuousBatchingEngine:
         self.start()
         if self._shed_on_full:
             try:
-                self._pending.put_nowait(req)
+                self._pending.put_nowait(req, key)
             except queue.Full:
-                with self._lock:
-                    req.finished = True
-                    self._requests_closed += 1
-                self.gen_stats.record_failure()
-                raise ServerError(
-                    f"generation queue is full ({self._queue_depth} "
-                    f"pending); request shed", 503, retry_after=1.0) from None
+                # under a scheduler a full queue first sheds the newest
+                # queued entry of a strictly lower-weight flow, and this
+                # request takes its place; the FIFO door sheds the arrival
+                victim = (self._pending.shed_lowest(key)
+                          if self._sched is not None else None)
+                if victim is not None:
+                    self._shed_queued(victim)
+                    try:
+                        self._pending.put_nowait(req, key)
+                    except queue.Full:
+                        # refilled between the pop and the put
+                        victim = None
+                if victim is None:
+                    with self._lock:
+                        req.finished = True
+                        self._requests_closed += 1
+                    self.gen_stats.record_failure()
+                    self.slo_stats.record_shed(tenant, slo_class)
+                    raise ServerError(
+                        f"generation queue is full ({self._queue_depth} "
+                        f"pending); request shed", 503,
+                        retry_after=1.0) from None
         else:
-            self._pending.put(req)
+            self._pending.put(req, key)
+        self.slo_stats.record_admitted(tenant, slo_class)
         if self._stopping:
             # the engine may already have drained the queue
             self._close_request(req, self._failed or ServerError(
@@ -1411,9 +1636,36 @@ class ContinuousBatchingEngine:
         for sample in (False, True):
             self._launch_chunk(0, tab0, feed0, zi, zb, zb, zi, zb, zi, zf,
                                zi, zf, sample)
+        if self._host_tier_bytes:
+            self._attach_tier()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self._dev["ready"] = True
+
+    def _attach_tier(self) -> None:
+        """Arm the host tier on the prefix pool (the paged pool, layer-
+        major, or the slot layout's block-major one): the index spills a
+        block through ``tier_spill`` before its id returns to the free
+        list, and restores one through ``tier_restore`` inside the
+        ``acquire`` of the admission that reads it, both on the engine's
+        stream; their host time goes to the "tier" phase."""
+        layer_major = self._paged
+        pool = self._dev["pool"] if layer_major else self._dev["prefix_pool"]
+        tier = HostTierStore(self._host_tier_bytes,
+                             pool_block_nbytes(pool, layer_major))
+
+        def spill(bid: int) -> tuple:
+            t0 = time.perf_counter()
+            out = tier_spill(pool, bid, layer_major)
+            self._phase_s["tier"] += time.perf_counter() - t0
+            return out
+
+        def restore(bid: int, rows: dict) -> None:
+            t0 = time.perf_counter()
+            tier_restore(pool, bid, rows, layer_major)
+            self._phase_s["tier"] += time.perf_counter() - t0
+
+        self._kv_index.attach_tier(tier, spill, restore)
 
     def _launch_chunk(self, entry: int, tables, feed, rem, active, reset,
                       reset_to, freeze, seeds, temps, topks, topps,
@@ -1472,8 +1724,10 @@ class ContinuousBatchingEngine:
         bl = self._kv_block_len
         handle = None
         if self._prefix_index is not None and len(req.prompt) > bl:
-            handle = self._prefix_index.acquire(req.prompt)
+            handle = self._acquire_prefix(req.prompt)
         matched = handle.matched_tokens if handle is not None else 0
+        # the worst case is the wire prompt plus the budget: a resumed
+        # stream's folded prompt must not inflate it
         need = min(-(-req.cap_tokens // bl), self._kv_max_blocks) \
             - matched // bl
         if not self._kv_index.reserve(need):
@@ -1481,6 +1735,14 @@ class ContinuousBatchingEngine:
                 self._prefix_index.release(handle)
             return None
         return {"handle": handle, "matched": matched, "need": need}
+
+    def _acquire_prefix(self, tokens):
+        """The prefix match of an admission; a chain that crossed blocks
+        restored from the host tier counts as a tier hit."""
+        handle = self._prefix_index.acquire(tokens)
+        if handle is not None and handle.restored_blocks:
+            self.gen_stats.record_tier_hit()
+        return handle
 
     def _bind_paged(self, req: _Request, slot: _Slot, staged: dict) -> None:
         """Apply a staged admission: the shared chain of a hit becomes the
@@ -1528,12 +1790,14 @@ class ContinuousBatchingEngine:
         return tab
 
     def _free_slot_paged(self, slot: _Slot, req: Optional[_Request],
-                         commit: bool) -> None:
+                         commit: bool, tokens=None) -> None:
         """Retire a paged slot (idempotent; the slot layout has nothing to
-        return): with ``commit`` and the prefix cache on, the prompt's
-        full blocks are DONATED to the trie (``commit_stream``, no copy:
-        the rows are in the pool already), then every other private block
-        is freed and the unused reservation returned. The shared chain is
+        return): with ``commit`` and the prefix cache on, the full blocks
+        of the prompt (or of ``tokens``: a preemption commits the
+        extended context and pins it for the resume,
+        ``commit_stream_pinned``) are DONATED to the trie (no copy: the
+        rows are in the pool already), then every other private block is
+        freed and the unused reservation returned. The shared chain is
         never freed here: the trie owns it, and its pin is released when
         the request closes. Kernels already enqueued keep reading their
         table snapshot; any later writer of a freed or donated block, and
@@ -1543,8 +1807,14 @@ class ContinuousBatchingEngine:
         donated: set = set()
         if (commit and req is not None and self._prefix_index is not None
                 and len(slot.blocks) > slot.n_shared):
-            donated = self._kv_index.commit_stream(
-                req.prompt, slot.blocks, policy=self._prefix_policy)
+            toks = tokens if tokens is not None else req.prompt
+            if self._preempt_on and req.resume_pending:
+                donated, req.resume_pin = \
+                    self._kv_index.commit_stream_pinned(
+                        toks, slot.blocks, policy=self._prefix_policy)
+            else:
+                donated = self._kv_index.commit_stream(
+                    toks, slot.blocks, policy=self._prefix_policy)
         self._kv_index.free([b for j, b in enumerate(slot.blocks)
                              if j >= slot.n_shared and b not in donated])
         if slot.reserved_left:
@@ -1568,7 +1838,7 @@ class ContinuousBatchingEngine:
         Returns True on a hit."""
         if len(req.prompt) <= self._prefix_block_len:
             return False  # sub-block prompts can never match
-        handle = self._prefix_index.acquire(req.prompt)
+        handle = self._acquire_prefix(req.prompt)
         if handle is None:
             self.gen_stats.record_prefix_miss()
             return False
@@ -1589,10 +1859,12 @@ class ContinuousBatchingEngine:
         self.gen_stats.record_prefix_hit(handle.matched_tokens)
         return True
 
-    def _commit_prefix(self, idx: int, req: _Request) -> None:
-        """Commit a request's uncovered full prompt blocks from slot
-        ``idx`` to the prefix pool: one bucketed ``slot_to_pool`` over the
-        plan's contiguous tail run, then the plan's nodes are unpinned.
+    def _commit_prefix(self, idx: int, req: _Request, tokens=None) -> None:
+        """Commit a request's uncovered full prompt blocks (or those of
+        ``tokens``: a preemption commits the prompt and the generated
+        tokens, whose rows the slot holds too) from slot ``idx`` to the
+        prefix pool: one bucketed ``slot_to_pool`` over the plan's
+        contiguous tail run, then the plan's nodes are unpinned.
 
         Stream order is what makes this right, as device FIFO order is in
         the reference: the copy is enqueued on the engine's stream while
@@ -1601,8 +1873,9 @@ class ContinuousBatchingEngine:
         see the slot free (a free slot parks at position 0 and writes row
         0) or a new request in it; a later ``pool_to_slot`` of these
         blocks is enqueued behind it as well."""
-        plan = self._prefix_index.plan_commit(req.prompt,
-                                              policy=self._prefix_policy)
+        plan = self._prefix_index.plan_commit(
+            tokens if tokens is not None else req.prompt,
+            policy=self._prefix_policy)
         if not plan:
             return
         ids = [bid for bid, _off, _node in plan]
@@ -1664,28 +1937,156 @@ class ContinuousBatchingEngine:
             slot.draft_ready = False
             self._free_slot_paged(slot, req, commit=False)
 
-    def _admit(self, held: Optional[_Request] = None) -> bool:
-        """Fill free slots in FIFO order (``held`` first). Under the paged
-        layout a request whose reservation fails is parked back at the
-        queue head and stops admission, so a big request is never starved
-        by later small ones; the slot layout admits with no tables (the
-        next chunk resets the slot's position while its cursor is 0).
-        With the prefix cache on, the slot layout restores a match here
-        (``_restore_prefix``) and the paged layout binds it; under
-        ``prefill_mode="batched"`` a prompt longer than one chunk that was
-        not restored is ingested here, by one forward. Returns True if any
-        slot is occupied afterwards."""
+    # ------------------------------------------------------ slot preemption
+
+    def _quiesce(self) -> None:
+        """Deliver everything in flight: issue the pending ring fetch and
+        drain every outstanding one, so each slot's emitted tokens and
+        ``pos_hi`` (speculation's correction included) are exact before a
+        preemption folds the tokens into the prompt and commits the rows
+        below ``pos_hi``."""
+        if self._unfetched:
+            self._fetches.append(self._issue_fetch(self._unfetched))
+            self._unfetched.clear()
+        first = True
+        while self._fetches:
+            self._drain_fetch(self._fetches[0], cadence=first)
+            first = False
+            self._fetches.popleft()
+
+    def _maybe_preempt(self) -> None:
+        """The preemption trigger, once per iteration: when no slot is
+        free, the fair-order head's class burns at or above the preempt
+        threshold (0: on weight alone) and a running stream's class
+        weight is STRICTLY below the head's, the lowest-weight such
+        stream under ``max_preemptions`` is preempted."""
+        if not self._preempt_on:
+            return
+        if any(s.req is None for s in self._slots):
+            return
+        head_key = self._pending.peek_key()
+        if head_key is None:
+            return
+        w_head = self._class_weight(head_key[1])
+        if self.slo_stats.class_burn(head_key[1]) \
+                < self.preempt_burn_threshold:
+            return
+        victim, victim_w = None, w_head
         for i, slot in enumerate(self._slots):
+            req = slot.req
+            if req is None or req.finished:
+                continue
+            w = self._class_weight(req.slo_class)
+            if w < victim_w \
+                    and req.preempt_count < self._sched.max_preemptions:
+                victim, victim_w = i, w
+        if victim is None:
+            return
+        # the fold needs the victim's exact tokens; the drain may itself
+        # end streams or free slots, so look again before acting
+        self._quiesce()
+        req = self._slots[victim].req
+        if req is None or req.finished \
+                or any(s.req is None for s in self._slots):
+            return
+        self._preempt_slot(victim)
+
+    def _preempt_slot(self, idx: int) -> None:
+        """Preempt one running stream (after ``_quiesce``): commit its
+        extended context, the prompt and every token it generated, whose
+        rows its kernels have written (a block donation under the paged
+        layout, one ``slot_to_pool`` under the slot layout) and pin the
+        chain; free the slot; and re-queue the request behind its flow's
+        siblings with the generated tokens folded into its prompt and
+        its queue clock restamped. Its resume matches the committed chain
+        and re-ingests the tail, token for token what an uninterrupted
+        greedy run emits."""
+        slot = self._slots[idx]
+        req = slot.req
+        gen = list(req.gen_tokens or ())
+        extended = (np.concatenate([req.prompt, np.asarray(gen, np.int32)])
+                    if gen else req.prompt)
+        # the rows written on the card: exact after the quiesce (a victim
+        # still taking in its prompt commits what it took in)
+        commit_toks = extended[:min(slot.pos_hi, len(extended))]
+        req.resume_pending = True   # the paged commit pins for the resume
+        if self._paged:
+            self._free_slot_paged(slot, req, commit=True, tokens=commit_toks)
+        elif self._prefix_index is not None:
+            self._commit_prefix(idx, req, tokens=commit_toks)
+            if len(commit_toks) > self._prefix_block_len:
+                self._release_resume_pin(req)
+                req.resume_pin = self._prefix_index.acquire(commit_toks)
+        # the resume acquires its own, longer match
+        self._release_prefix(req)
+        slot.req = None
+        slot.draft_ready = False
+        req.prompt = extended
+        if req.gen_tokens is not None:
+            req.gen_tokens = []
+        req.preempt_count += 1
+        # the resume's queue wait measures the requeue (its TTFT is set)
+        req.enqueue_ns = now_ns()
+        self.gen_stats.record_preemption()
+        self._sched_stats.record_preemption(req.tenant, req.slo_class)
+        self._pending.requeue(req, (req.tenant, req.slo_class))
+
+    def _record_admission(self, req: _Request) -> None:
+        """A request took a slot: drop its parked marker, record its queue
+        wait, and, for a resume, release the preemption's pin (the
+        admission holds its own match by now on the paged layout, and
+        takes it next on the slot layout) and count the resume."""
+        if req.parked:
+            req.parked = False
+            req.park_bypasses = 0
+            self._pending.unpark()
+        req.queue_wait_ns = max(0, now_ns() - req.enqueue_ns)
+        self.gen_stats.record_queue_wait(req.queue_wait_ns)
+        self.slo_stats.record_queue_wait(req.tenant, req.slo_class,
+                                         req.queue_wait_ns)
+        if req.resume_pending:
+            req.resume_pending = False
+            self._release_resume_pin(req)
+            self.gen_stats.record_resume()
+            if self._sched_stats is not None:
+                self._sched_stats.record_resume(req.tenant, req.slo_class)
+
+    def _admit(self, held: Optional[_Request] = None) -> bool:
+        """Fill free slots from the queue in its order (``held`` first).
+        Under the paged layout a request whose reservation fails is PARKED
+        at its flow's head (it keeps its place). Without a scheduler that
+        stops admission, so a big request is never starved by later small
+        ones; with one, admission skips to the next flow's head, at most
+        ``park_bypass_limit`` admissions past each parked request and
+        ``2 * n_slots`` reservation tries per pass, and a parked flow's
+        later entries stay behind it. The slot layout admits with no
+        tables (the next chunk resets the slot's position while its
+        cursor is 0). With the prefix cache on, the slot layout restores a
+        match here (``_restore_prefix``) and the paged layout binds it;
+        under ``prefill_mode="batched"`` a prompt longer than one chunk
+        that was not restored is ingested here, by one forward. Returns
+        True if any slot is occupied afterwards."""
+        exhausted = False
+        admitted_n = 0          # slots filled this pass
+        # (req, parked, first park, admissions before it): parked heads
+        # and their flows' later entries, re-inserted after the pass
+        deferred: list = []
+        parked_flows: set = set()
+        tries_left = 2 * self._n_slots
+        for i, slot in enumerate(self._slots):
+            if exhausted:
+                break
             if slot.req is not None:
                 continue
             req = staged = None
-            while True:
+            while not exhausted:
                 if held is not None:
                     cand, held = held, None
                 else:
                     try:
                         cand = self._pending.get_nowait()
                     except queue.Empty:
+                        exhausted = True
                         break
                 if not self._admissible(cand):
                     # settled while queued; a parked entry leaving the
@@ -1694,27 +2095,35 @@ class ContinuousBatchingEngine:
                         cand.parked = False
                         self._pending.unpark()
                     continue
+                if (cand.tenant, cand.slo_class) in parked_flows:
+                    deferred.append((cand, False, False, 0))
+                    continue
                 if self._paged:
+                    tries_left -= 1
                     staged = self._try_reserve_paged(cand)
                     if staged is None:
                         first = not cand.parked
                         cand.parked = True
-                        self._pending.push_front(cand, parked=first)
+                        parked_flows.add((cand.tenant, cand.slo_class))
+                        deferred.append((cand, True, first, admitted_n))
+                        if self._sched is not None and tries_left > 0 \
+                                and cand.park_bypasses \
+                                < self._sched.park_bypass_limit:
+                            continue    # the next flow's head
+                        exhausted = True
                         break
                 req = cand
                 break
             if req is None:
                 break
-            if req.parked:
-                req.parked = False
-                self._pending.unpark()
             slot.req = req
             slot.cursor = 0
             slot.pos_hi = 0
             slot.decode_dispatched = 0
             slot.pos_pending = None
             slot.draft_ready = False
-            self.gen_stats.record_queue_wait(now_ns() - req.enqueue_ns)
+            self._record_admission(req)
+            admitted_n += 1
             if self._paged:
                 self._bind_paged(req, slot, staged)
                 continue
@@ -1723,8 +2132,15 @@ class ContinuousBatchingEngine:
             if (not restored and self._prefill_enabled
                     and len(req.prompt) > self._chunk):
                 self._prefill_slot(i, req, slot)
+        # re-insert in reverse pop order, which restores the order; an
+        # admission made after a park counts against its bypass bound
+        for req, is_parked, first, before in reversed(deferred):
+            if is_parked and admitted_n > before:
+                req.park_bypasses += 1
+            self._pending.push_front(req, (req.tenant, req.slo_class),
+                                     parked=is_parked and first)
         if held is not None:   # no free slot took it
-            self._pending.push_front(held)
+            self._pending.push_front(held, (held.tenant, held.slo_class))
         return any(s.req is not None for s in self._slots)
 
     def _sampling(self, req: _Request) -> tuple:
@@ -2022,7 +2438,10 @@ class ContinuousBatchingEngine:
             meta.append((req, c if freeze[i] else k))
             if not freeze[i] and slot.cursor >= len(req.prompt):
                 slot.decode_dispatched += c - k
-                if slot.decode_dispatched >= req.budget:
+                # the budget this admission still owes: a resumed stream's
+                # prompt holds its earlier tokens, counted in emitted
+                if slot.decode_dispatched >= \
+                        req.budget - (len(req.prompt) - req.base_plen):
                     # every token the stream may still emit is in flight:
                     # commit and free after the kernel below, which may
                     # feed the prompt's final columns
@@ -2226,12 +2645,17 @@ class ContinuousBatchingEngine:
             if tok == req.eos_id or req.emitted >= req.budget:
                 done = True
                 break
+        if req.gen_tokens is not None and deliver:
+            # kept for a preemption to fold into the prompt
+            req.gen_tokens.extend(deliver)
         if deliver:
             emit_ns = max(self._deliver_ns or now_ns(), req.last_emit_ns,
                           req.first_token_ns, req.enqueue_ns)
             if req.first_token_ns == 0:
                 req.first_token_ns = emit_ns
                 self.gen_stats.record_ttft(emit_ns - req.enqueue_ns)
+                self.slo_stats.record_ttft(req.tenant, req.slo_class,
+                                           emit_ns - req.enqueue_ns)
             req.last_emit_ns = emit_ns
             self.gen_stats.record_tokens(len(deliver))
             self._tokens_emitted += len(deliver)
@@ -2279,6 +2703,12 @@ class ContinuousBatchingEngine:
                         ServerError("generation engine stopped", 503))
                     self._held = None
                 break
+            # the closed loop, once per round (host code only): the
+            # controller steers the live knobs from the burn, and a
+            # burning higher-weight head may take a running slot
+            if self._controller is not None:
+                self._controller.step(self, self.slo_stats.max_class_burn())
+            self._maybe_preempt()
             self._reap_slots()
             t_admit = time.perf_counter()
             held, self._held = self._held, None
@@ -2297,7 +2727,12 @@ class ContinuousBatchingEngine:
                 if self._held is None:
                     break
                 continue
+            if self._kv_index is not None and self._kv_index.tier is not None:
+                self._kv_index.drain_tier()
+            iter_t0 = time.perf_counter()
+            dispatched = False
             if any(s.req is not None for s in self._slots):
+                dispatched = True
                 t_disp = time.perf_counter()
                 pf_before = self._phase_s["prefill"]
                 unfetched.extend(self._dispatch())
@@ -2324,6 +2759,17 @@ class ContinuousBatchingEngine:
                 first = False
                 fetches.popleft()
                 active_now = any(s.req is not None for s in self._slots)
+            duty = self._duty
+            if dispatched and duty < 1.0:
+                # pacing: a round's wall time tracks its device cost (the
+                # delivery blocks on the fetch), so sleeping (1/duty - 1)
+                # of it cedes that share of the card
+                busy = time.perf_counter() - iter_t0
+                self._loop_ewma_s = (busy if not self._loop_ewma_s else
+                                     0.8 * self._loop_ewma_s + 0.2 * busy)
+                pause = min(0.5, self._loop_ewma_s * (1.0 / duty - 1.0))
+                self._phase_s["pace"] += pause
+                time.sleep(pause)
         # a stop delivers everything already dispatched first
         if unfetched:
             fetches.append(self._issue_fetch(unfetched))

@@ -1,5 +1,5 @@
 """Prefix-aware KV block pool of the continuous-batching engine: the port
-of ``client_tpu/server/kv_cache.py`` without its host-RAM tier.
+of ``client_tpu/server/kv_cache.py``.
 
 A host-side radix index over token-id prefixes at block granularity
 (``RadixBlockIndex``): a trie whose edges are ``block_len``-token tuples,
@@ -25,10 +25,24 @@ The engine uses the index in two ways:
   prompt blocks to the trie with no copy (``commit_stream``) and FREES
   the rest. A hit is a block-table edit.
 
+The pool can be tiered below the card (``HostTierStore``): an LRU-evicted
+prefix block SPILLS its rows to a bounded store in pinned host memory
+instead of being dropped, its trie node staying in place as a
+``SPILLED`` marker, and a later hit whose chain crosses spilled nodes
+re-provisions device blocks and RESTORES the rows (``acquire`` counts them
+on the handle). The index owns the bookkeeping; the engine supplies the
+two movers (``attach_tier``), built on :func:`tier_spill` and
+:func:`tier_restore`. The pool is written in place, so order is explicit:
+both movers enqueue their copies on the engine's stream, a spill before
+its block id returns to the free list (every later writer of that block
+is enqueued behind it) and a restore before the first kernel that reads
+the block.
+
+A preempted stream commits its extended context and pins the chain until
+its resume re-acquires it (``commit_stream_pinned``).
+
 Every host-side structure is under one lock (the engine thread and a
-consumer's cancel both reach it). The reference's host tier and
-preemption pins (``attach_tier``, ``commit_stream_pinned``) wait for
-their slices (ROADMAP A10f, A10g).
+consumer's cancel both reach it).
 """
 
 from __future__ import annotations
@@ -41,10 +55,110 @@ import torch
 
 COMMIT_POLICIES = ("all", "no-evict", "none")
 
+# block_id of a trie node whose rows live in the host tier, not the
+# device pool (the node stays matchable; a hit restores it to a freshly
+# provisioned block)
+SPILLED = -1
+
+
+# ----------------------------------------------------------------- host tier
+
+class HostTierStore:
+    """Bounded host-RAM store of spilled prefix blocks.
+
+    One entry per spilled trie node: the block's rows as ``{tensor name:
+    host tensor}`` in the layout-free ``[layers, block_len, ...]`` shape
+    (both pool layouts slice to it). A spill's device-to-host copy may
+    still be in flight when its entry arrives: ``put`` takes the copy's
+    CUDA event as ``ready``, and :meth:`drain` (once per engine
+    iteration) retires the events that have completed, without waiting on
+    any: an entry whose event is still pending must not be read on the
+    host. A restore needs no wait: its host-to-device copy is enqueued on
+    the stream that carries the spill's copy. Capacity is
+    ``budget_bytes`` worth of blocks; :meth:`put` makes room by dropping
+    the least recently spilled CHILDLESS, unpinned entries (dropping one
+    that still anchors children would orphan their prefixes) and refuses
+    when it cannot, and the caller then evicts the block outright. The
+    owning index's lock is held by every caller."""
+
+    def __init__(self, budget_bytes: int, block_nbytes: int):
+        if budget_bytes < 1:
+            raise ValueError("host tier budget must be >= 1 byte")
+        if block_nbytes < 1:
+            raise ValueError("block_nbytes must be >= 1")
+        self.budget_bytes = int(budget_bytes)
+        self.block_nbytes = int(block_nbytes)
+        self.capacity_blocks = max(1, self.budget_bytes
+                                   // self.block_nbytes)
+        self._entries: dict = {}      # node -> rows (insertion = LRU)
+        self._pending: dict = {}      # node -> event of its copy
+        self.dropped = 0              # entries LRU-dropped to make room
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def used_bytes(self) -> int:
+        return len(self._entries) * self.block_nbytes
+
+    def put(self, node, arrays: dict, protect=frozenset(),
+            ready=None) -> bool:
+        """Admit one spilled block; False when no room can be made (every
+        droppable entry is pinned, anchors children or is protected).
+        ``protect`` holds the nodes an in-flight restore depends on (the
+        eviction a restore triggers must not drop the entry being
+        restored). ``ready`` is the event of the entry's copy (None: the
+        rows are already on the host)."""
+        while len(self._entries) >= self.capacity_blocks:
+            victim = next(
+                (n for n in self._entries
+                 if not n.children and n.refs == 0 and n is not node
+                 and n not in protect),
+                None)
+            if victim is None:
+                return False
+            del self._entries[victim]
+            self._pending.pop(victim, None)
+            self.dropped += 1
+            # the victim's rows are gone from every tier: the caller
+            # unlinks it from the trie (see RadixBlockIndex._evict_one)
+            victim.block_id = None
+        self._entries[node] = arrays
+        if ready is not None:
+            self._pending[node] = ready
+        return True
+
+    def take(self, node) -> Optional[dict]:
+        """Remove and return one entry's rows (the restore path)."""
+        self._pending.pop(node, None)
+        return self._entries.pop(node, None)
+
+    def drop(self, node) -> None:
+        """Discard one entry without restoring it (node deletion)."""
+        self._pending.pop(node, None)
+        self._entries.pop(node, None)
+
+    def drain(self) -> None:
+        """Retire the events of the copies that have landed (never
+        waits)."""
+        for node, ev in list(self._pending.items()):
+            if ev.query():
+                del self._pending[node]
+
+    def snapshot(self) -> dict:
+        return {
+            "blocks": len(self._entries),
+            "capacity_blocks": self.capacity_blocks,
+            "used_bytes": self.used_bytes,
+            "budget_bytes": self.budget_bytes,
+            "dropped": self.dropped,
+        }
+
 
 class _Node:
     """One radix-trie edge: ``key`` (a block_len token tuple) maps the
-    parent's prefix to this node's pool block ``block_id``."""
+    parent's prefix to this node's pool block ``block_id`` (``SPILLED``
+    while its rows live in the host tier, None once it is detached)."""
 
     __slots__ = ("key", "block_id", "parent", "children", "refs",
                  "last_used")
@@ -60,15 +174,20 @@ class _Node:
 
 class PrefixHandle:
     """A request's pinned match: the node chain whose refs it holds.
-    ``matched_tokens`` is the prefix length covered by ``block_ids``."""
+    ``matched_tokens`` is the prefix length covered by ``block_ids``;
+    ``restored_blocks`` counts the chain's blocks this acquire restored
+    from the host tier (nonzero: a tier hit)."""
 
-    __slots__ = ("chain", "block_ids", "matched_tokens", "released")
+    __slots__ = ("chain", "block_ids", "matched_tokens", "released",
+                 "restored_blocks")
 
-    def __init__(self, chain: list, block_len: int):
+    def __init__(self, chain: list, block_len: int,
+                 restored_blocks: int = 0):
         self.chain = chain
         self.block_ids = [n.block_id for n in chain]
         self.matched_tokens = len(chain) * block_len
         self.released = False
+        self.restored_blocks = restored_blocks
 
 
 class RadixBlockIndex:
@@ -92,10 +211,19 @@ class RadixBlockIndex:
         # blocks promised to admitted streams but not yet popped from the
         # free list: growth within a reservation never fails
         self._reserved = 0
+        # the host tier (attach_tier): spilled nodes stay in the trie with
+        # block_id SPILLED; _spilled counts them, apart from _nodes (the
+        # device-resident prefix blocks)
+        self.tier: Optional[HostTierStore] = None
+        self._spill_fn = None
+        self._restore_fn = None
+        self._spilled = 0
         # the allocator's own counters; hits, misses and saved tokens are
         # the engine's (GenerationStats)
         self.evictions = 0
         self.commits = 0
+        self.tier_spills = 0
+        self.tier_restores = 0
 
     @property
     def usable_blocks(self) -> int:
@@ -114,47 +242,133 @@ class RadixBlockIndex:
         return [tuple(toks[i:i + bl])
                 for i in range(0, len(toks) - bl + 1, bl)]
 
+    def attach_tier(self, tier: HostTierStore, spill_fn,
+                    restore_fn) -> None:
+        """Arm the host tier. ``spill_fn(block_id) -> (rows, ready)``
+        enqueues one block's device-to-host copy (called BEFORE the id
+        returns to the free list, so every later writer of the block is
+        enqueued behind it) and returns the host rows and the copy's
+        event; ``restore_fn(block_id, rows)`` enqueues the copy back into
+        a freshly provisioned block. Both run on the engine thread: every
+        eviction and acquire that can spill or restore starts there."""
+        self.tier = tier
+        self._spill_fn = spill_fn
+        self._restore_fn = restore_fn
+
     def _evict_one(self, exclude=frozenset()) -> Optional[int]:
-        """Free the least recently used unpinned leaf. ``exclude`` holds
-        the nodes a commit is walking: evicting the node it is about to
-        insert under would hang the new child off a detached subtree and
-        leak its block. An O(n) walk, n bounded by the pool; eviction is
-        off the per-token path."""
+        """Free the least recently used unpinned node with no
+        device-resident children (already spilled children are fine:
+        leaf-first order spills a subtree bottom up, and a hit restores it
+        top down). ``exclude`` holds the nodes a caller is walking:
+        evicting the node a commit is about to insert under would hang
+        the new child off a detached subtree and leak its block. With a
+        tier attached the victim's rows SPILL to it (the node stays
+        matchable) instead of being dropped. An O(n) walk, n bounded by
+        the pool; eviction is off the per-token path."""
         victim = None
         stack = [self._root]
         while stack:
             node = stack.pop()
             stack.extend(node.children.values())
-            if node is self._root or node.refs > 0 or node.children \
-                    or node in exclude:
+            if node is self._root or node.refs > 0 \
+                    or node.block_id == SPILLED or node in exclude \
+                    or any(c.block_id != SPILLED
+                           for c in node.children.values()):
                 continue
             if victim is None or node.last_used < victim.last_used:
                 victim = node
         if victim is None:
             return None
-        del victim.parent.children[victim.key]
+        bid = victim.block_id
         self._nodes -= 1
         self.evictions += 1
-        self._free.append(victim.block_id)
-        return victim.block_id
+        spilled = False
+        if self.tier is not None and self._spill_fn is not None:
+            rows, ready = self._spill_fn(bid)
+            spilled = self.tier.put(victim, rows, protect=exclude,
+                                    ready=ready)
+        if spilled:
+            # the rows live on in the tier and the node stays matchable;
+            # entries the tier dropped for room (block_id None) leave
+            victim.block_id = SPILLED
+            self._spilled += 1
+            self.tier_spills += 1
+            self._unlink_dropped(self._root)
+        else:
+            # a hard eviction: the victim leaves the trie, and its spilled
+            # descendants with it, so their tier entries go too
+            del victim.parent.children[victim.key]
+            if victim.children and self.tier is not None:
+                stack = list(victim.children.values())
+                while stack:
+                    child = stack.pop()
+                    stack.extend(child.children.values())
+                    if child.block_id == SPILLED:
+                        self.tier.drop(child)
+                        self._spilled -= 1
+        self._free.append(bid)
+        return bid
+
+    def _unlink_dropped(self, node) -> None:
+        """Detach the trie nodes whose tier entry was dropped (block_id
+        None; childless by the tier's drop rule)."""
+        for key, child in list(node.children.items()):
+            if child.block_id is None:
+                del node.children[key]
+                self._spilled -= 1
+            else:
+                self._unlink_dropped(child)
+
+    def _restore_node(self, node, exclude) -> bool:
+        """Provision a device block for one spilled node and enqueue its
+        restore (the caller holds the lock). False when no block can be
+        freed: the caller's match stops there."""
+        if self._restore_fn is None or self.tier is None:
+            return False
+        while len(self._free) - self._reserved < 1:
+            if self._evict_one(exclude) is None:
+                return False
+        arrays = self.tier.take(node)
+        if arrays is None:
+            return False
+        bid = self._free.pop()
+        self._restore_fn(bid, arrays)
+        node.block_id = bid
+        self._nodes += 1
+        self._spilled -= 1
+        self.tier_restores += 1
+        return True
 
     # ---- prefix matching and commits ----
 
     def acquire(self, tokens) -> Optional[PrefixHandle]:
         """Longest full-block match over ``tokens``, capped one token short
         of the prompt (one real token must run to give the next-token
-        logits); pins the chain so eviction cannot take its blocks. None
-        when nothing matches (the caller counts the hit or miss)."""
+        logits); pins the chain so eviction cannot take its blocks. A
+        chain that crosses SPILLED nodes restores them onto freshly
+        provisioned blocks (enqueued ahead of any kernel that reads
+        them); where no block can be freed the match stops. None when
+        nothing matches (the caller counts the hit or miss)."""
         with self._lock:
             blocks = self._blocks_of(tokens)
             if blocks and len(blocks) * self.block_len == len(tokens):
                 blocks = blocks[:-1]
             chain = []
+            restored = 0
             node = self._root
             for key in blocks:
                 child = node.children.get(key)
                 if child is None:
                     break
+                if child.block_id == SPILLED:
+                    # the walk's path, the chain so far and the node being
+                    # restored are not pinned yet: the eviction a restore
+                    # may trigger must not take them
+                    if not self._restore_node(
+                            child,
+                            frozenset(chain) | {node, child, self._root}):
+                        break
+                    restored += 1
                 chain.append(child)
                 node = child
             if not chain:
@@ -163,7 +377,7 @@ class RadixBlockIndex:
             for n in chain:
                 n.refs += 1
                 n.last_used = now
-            return PrefixHandle(chain, self.block_len)
+            return PrefixHandle(chain, self.block_len, restored)
 
     def release(self, handle: Optional[PrefixHandle]) -> None:
         """Unpin a handle's chain (idempotent; survives nodes evicted after
@@ -307,12 +521,27 @@ class RadixBlockIndex:
                 self.commits += 1
         return donated
 
+    def commit_stream_pinned(self, tokens, block_ids,
+                             policy: str = "all") -> tuple:
+        """The preemption's commit: donate a preempted stream's blocks as
+        :meth:`commit_stream` does (``tokens`` is its extended context,
+        the prompt and the tokens it generated, whose rows it has
+        written) and PIN the matched chain, so pool pressure (a spill
+        included) cannot take the rows its resume counts on. Returns
+        ``(donated_ids, PrefixHandle or None)``; the engine releases the
+        handle when the resume has acquired its own match or the request
+        closes."""
+        donated = self.commit_stream(tokens, block_ids, policy=policy)
+        return donated, self.acquire(tokens)
+
     # ---- introspection ----
 
     def occupancy(self) -> dict:
         """Block occupancy: ``prefix`` blocks are trie-owned (evictable
         unless pinned), ``stream`` blocks are held by live streams,
-        ``free`` includes the outstanding ``reserved`` promises."""
+        ``free`` includes the outstanding ``reserved`` promises;
+        ``spilled`` counts the trie nodes whose rows are in the host
+        tier."""
         with self._lock:
             free = len(self._free)
             return {
@@ -321,7 +550,29 @@ class RadixBlockIndex:
                 "prefix": self._nodes,
                 "stream": self.n_blocks - 1 - free - self._nodes,
                 "reserved": self._reserved,
+                "spilled": self._spilled,
             }
+
+    def tier_snapshot(self) -> Optional[dict]:
+        """The host tier's state with the spill and restore counts; None
+        without a tier."""
+        with self._lock:
+            if self.tier is None:
+                return None
+            snap = self.tier.snapshot()
+            snap.update({
+                "spilled_nodes": self._spilled,
+                "spills": self.tier_spills,
+                "restores": self.tier_restores,
+            })
+            return snap
+
+    def drain_tier(self) -> None:
+        """Retire the tier's landed copies (once per engine
+        iteration)."""
+        with self._lock:
+            if self.tier is not None:
+                self.tier.drain()
 
     def pinned_nodes(self) -> int:
         """Trie nodes that hold a ref (0 once every request is closed)."""
@@ -342,6 +593,7 @@ class RadixBlockIndex:
                 "blocks": self.n_blocks - 1,     # usable (block 0 scratch)
                 "blocks_used": self.n_blocks - 1 - len(self._free),
                 "nodes": self._nodes,
+                "spilled": self._spilled,
             }
 
 
@@ -409,6 +661,52 @@ def block_count_buckets(max_blocks: int, start: int = 1,
         b *= 2
     buckets.append(max_blocks)
     return tuple(buckets)
+
+
+def pool_block_nbytes(pool: dict, layer_major: bool) -> int:
+    """Bytes of one block's rows across every pool tensor: the host cost
+    of one spilled block (the tier's sizing)."""
+    total = 0
+    for arr in pool.values():
+        n_blocks = arr.shape[1] if layer_major else arr.shape[0]
+        total += arr.numel() * arr.element_size() // max(1, n_blocks)
+    return total
+
+
+def tier_spill(pool: dict, bid: int, layer_major: bool) -> tuple:
+    """Copy block ``bid`` of every pool tensor to the host: the rows
+    ``[layers, block_len, Hkv, Dh]`` (``pool[name][:, bid]`` of the
+    layer-major paged pool, ``pool[name][bid]`` of the block-major slot
+    prefix pool). On the card into pinned memory with a non-blocking copy
+    on the current stream, returning ``(rows, event)``: the event is
+    recorded behind the copy, and the host reads the rows only once it
+    has completed. On the CPU a plain copy, ``(rows, None)``."""
+    rows, cuda = {}, False
+    for name, parr in pool.items():
+        src = parr[:, bid] if layer_major else parr[bid]
+        if parr.is_cuda:
+            cuda = True
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            host.copy_(src, non_blocking=True)
+        else:
+            host = src.clone()
+        rows[name] = host
+    if not cuda:
+        return rows, None
+    ready = torch.cuda.Event()
+    ready.record()
+    return rows, ready
+
+
+def tier_restore(pool: dict, bid: int, rows: dict,
+                 layer_major: bool) -> None:
+    """Copy a tier entry's rows back into pool block ``bid``, IN PLACE: on
+    the card a non-blocking host-to-device copy on the current stream,
+    behind the spill's copy of the same rows and ahead of every kernel
+    enqueued later."""
+    for name, parr in pool.items():
+        dst = parr[:, bid] if layer_major else parr[bid]
+        dst.copy_(rows[name], non_blocking=parr.is_cuda)
 
 
 def pad_block_ids(block_ids: list, bucket: int) -> np.ndarray:

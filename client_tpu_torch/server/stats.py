@@ -154,8 +154,9 @@ class GenerationStats:
     ``prefix_saved_tokens`` (the allocator's evictions and commits are the
     ``RadixBlockIndex``'s), and the speculative verify rounds: draft
     tokens proposed, accepted and rejected, rounds, and rounds by
-    gamma-ladder rung. The reference's dedicated-lane, tier, scheduler and
-    goodput counters wait for their slices. All
+    gamma-ladder rung, host-tier hits, and preemptions and resumes. The
+    reference's dedicated-lane and goodput counters wait for their
+    slices. All
     mutators take ns; the engine thread writes, any thread reads."""
 
     def __init__(self):
@@ -185,6 +186,14 @@ class GenerationStats:
         # verify rounds by ladder rung ({gamma: rounds}; a rung-g round
         # scores g + 1 rows)
         self.spec_rung_rounds: dict = {}
+        # host-RAM prefix tier: admissions whose matched chain crossed
+        # spilled blocks (their spill and restore counts are the
+        # RadixBlockIndex's)
+        self.tier_hits = 0
+        # the scheduler's engine-wide totals (the per-(tenant, class)
+        # split is its SchedStats')
+        self.preemptions = 0
+        self.resumes = 0
 
     def record_queue_wait(self, ns: int) -> None:
         with self._lock:
@@ -262,6 +271,26 @@ class GenerationStats:
             self.spec_rung_rounds[proposed] = \
                 self.spec_rung_rounds.get(proposed, 0) + 1
 
+    def record_tier_hit(self) -> None:
+        """An admission's matched chain crossed blocks spilled to the
+        host-RAM tier; their restores were enqueued ahead of the
+        stream's first chunk."""
+        with self._lock:
+            self.tier_hits += 1
+
+    def record_preemption(self) -> None:
+        """A running stream was preempted: its K/V committed to the
+        prefix cache, its slot released, the request re-queued with its
+        generated tokens folded into its prompt."""
+        with self._lock:
+            self.preemptions += 1
+
+    def record_resume(self) -> None:
+        """A preempted stream was admitted again (its prefix restored,
+        the tail re-ingested)."""
+        with self._lock:
+            self.resumes += 1
+
     def snapshot(self) -> dict:
         with self._lock:
             return {
@@ -285,4 +314,7 @@ class GenerationStats:
                 "spec_rejected": self.spec_rejected,
                 "spec_rounds": self.spec_rounds,
                 "spec_rung_rounds": dict(self.spec_rung_rounds),
+                "tier_hits": self.tier_hits,
+                "preemptions": self.preemptions,
+                "resumes": self.resumes,
             }

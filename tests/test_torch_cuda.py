@@ -702,3 +702,165 @@ def test_small_speculating_engine_on_the_card(card, kw):
         want = offline_sample(cfg, params, prompt, budget, block_len=8,
                               attention=pa.paged_decode_attention_reference)
         assert got == want
+
+
+# the host tier's movers and preemption on the card
+
+def _tier_pool(layer_major: bool, dtype, seed: int) -> dict:
+    """A random pool of 9 blocks of 8 rows, 2 layers, 2 KV heads of 64:
+    layer-major as the paged layout keeps it, block-major as the slot
+    layout's prefix pool."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (2, 9, 8, 2, 64) if layer_major else (9, 2, 8, 2, 64)
+    return {name: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for name in ("k", "v")}
+
+
+def _block(pool: dict, bid: int, layer_major: bool) -> dict:
+    return {name: (p[:, bid] if layer_major else p[bid]).clone()
+            for name, p in pool.items()}
+
+
+@pytest.mark.parametrize("layer_major", [True, False],
+                         ids=["paged", "slot_prefix_pool"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tier_spill_and_restore_round_trip_bit_exact(card, layer_major,
+                                                     dtype):
+    """A block spilled to pinned host memory and restored into another
+    block holds the same bits; the rows land on the host once the spill's
+    event has completed; no other block changes."""
+    from client_tpu_torch.server import kv_cache as kvc
+
+    pool = _tier_pool(layer_major, dtype, 0)
+    want = _block(pool, 3, layer_major)
+    rows, ready = kvc.tier_spill(pool, 3, layer_major)
+    assert ready is not None
+    ready.synchronize()
+    for name in pool:
+        assert rows[name].is_pinned() and rows[name].device.type == "cpu"
+        assert torch.equal(rows[name], want[name].cpu())
+    before = {name: p.clone() for name, p in pool.items()}
+    kvc.tier_restore(pool, 6, rows, layer_major)
+    torch.cuda.synchronize()
+    for name, p in pool.items():
+        got = p[:, 6] if layer_major else p[6]
+        assert torch.equal(got, want[name])
+        keep = torch.ones(9, dtype=torch.bool, device="cuda")
+        keep[6] = False
+        if layer_major:
+            assert torch.equal(p[:, keep], before[name][:, keep])
+        else:
+            assert torch.equal(p[keep], before[name][keep])
+    assert kvc.pool_block_nbytes(pool, layer_major) \
+        == 2 * 2 * 8 * 2 * 64 * pool["k"].element_size()
+
+
+@pytest.mark.parametrize("layer_major", [True, False],
+                         ids=["paged", "slot_prefix_pool"])
+def test_tier_spill_then_overwrite_keeps_the_old_rows(card, layer_major):
+    """The pool is written in place: a kernel that overwrites the block
+    right after its spill was enqueued (as a reuse of the freed id does)
+    must not reach the rows the spill copies."""
+    from client_tpu_torch.server import kv_cache as kvc
+
+    pool = _tier_pool(layer_major, torch.bfloat16, 1)
+    want = _block(pool, 2, layer_major)
+    rows, ready = kvc.tier_spill(pool, 2, layer_major)
+    for p in pool.values():
+        (p[:, 2] if layer_major else p[2]).fill_(7.0)
+    ready.synchronize()
+    for name in pool:
+        assert torch.equal(rows[name], want[name].cpu())
+    kvc.tier_restore(pool, 2, rows, layer_major)
+    torch.cuda.synchronize()
+    for name, p in pool.items():
+        assert torch.equal(p[:, 2] if layer_major else p[2], want[name])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_over_a_restored_block_equals_the_unspilled_pool(card, dtype):
+    """Spill a block that a slot's table names, overwrite it, restore it
+    into a fresh block, point the table there, and launch K2 at once: the
+    output equals K2 over the pool that never spilled."""
+    from client_tpu_torch.server import kv_cache as kvc
+
+    q, kp, vp, tables, pos = _paged_case(4, 4, 2, 64, 16, 24, 3, dtype, 5)
+    want = pa.paged_decode_attention(q, kp, vp, tables, pos)
+    pool = {"k": kp[None], "v": vp[None]}      # one layer, layer-major
+    victim = int(tables[1, 1])
+    fresh = next(b for b in range(1, 24)
+                 if b not in set(tables.flatten().tolist()))
+    rows, _ = kvc.tier_spill(pool, victim, True)
+    for p in pool.values():
+        p[:, victim].zero_()
+    kvc.tier_restore(pool, fresh, rows, True)
+    moved = tables.clone()
+    moved[1, 1] = fresh
+    got = pa.paged_decode_attention(q, kp, vp, moved, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_paged_preempt_and_resume_through_k2(card):
+    """A small f32 engine on the paged layout with one slot: a gold
+    request arrives while a best-effort stream decodes, preempts it (its
+    extended context donated to the trie and pinned), and the stream
+    resumes through a table headed by its own committed chain, read by
+    K2. Both streams equal their uninterrupted runs; one preemption, one
+    resume; no pin, stream block or reservation is left."""
+    import threading
+
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = t.TransformerConfig(vocab_size=97, d_model=64, n_layers=2,
+                              n_heads=4, head_dim=16, d_ff=128, max_seq=64,
+                              dtype=torch.float32, attn_impl="flash")
+    params = t.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    eng = ContinuousBatchingEngine(
+        cfg, params, n_slots=1, chunk=4, fetch_stride=1, device="cuda",
+        kv_layout="paged", kv_block_len=8, prefix_cache=True,
+        prefix_block_len=8, prefill_mode="chunked", prefill_chunk=16,
+        slo_classes=[{"name": "gold", "ttft_ms": 1000.0}],
+        scheduler={"class_weights": {"gold": 8.0}, "preemption": True,
+                   "preempt_burn_threshold": 0.0}).start()
+    be_prompt = np.arange(1, 21, dtype=np.int32)
+    gold_prompt = np.asarray([40, 41, 42, 43, 44], np.int32)
+    held, go = threading.Event(), threading.Event()
+    sweep = eng._reap_slots
+
+    def reap():
+        if not go.is_set() and any(
+                s.req is not None and s.req.tenant == "flood"
+                and s.req.emitted >= 4 for s in eng._slots):
+            held.set()
+            go.wait(120)
+        sweep()
+
+    try:
+        plain_be = list(eng.submit(be_prompt, 36))
+        plain_gold = list(eng.submit(gold_prompt, 8))
+        eng._reap_slots = reap
+        before = pa.launches
+        out = {}
+        th = threading.Thread(target=lambda: out.__setitem__(
+            "be", list(eng.submit(be_prompt, 36, tenant_id="flood"))))
+        th.start()
+        assert held.wait(120)
+        gold_it = eng.submit(gold_prompt, 8, tenant_id="vip",
+                             slo_class="gold")
+        go.set()
+        out["gold"] = list(gold_it)
+        th.join(120)
+        assert eng.drain(timeout=60)
+        sched = eng.scheduler_snapshot()
+        occ = eng._kv_index.occupancy()
+        pins = eng._kv_index.pinned_nodes()
+    finally:
+        eng.stop()
+    assert out == {"be": plain_be, "gold": plain_gold}
+    assert sched["preemptions_total"] == sched["resumes_total"] == 1
+    assert pa.launches > before
+    assert pins == 0 and occ["stream"] == 0 and occ["reserved"] == 0

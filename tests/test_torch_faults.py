@@ -14,10 +14,16 @@ that sends both packages the same input (ROADMAP, section C):
   knobs, equal to the reference's over the ported keys (``backend`` and
   ``platform`` say ``"pytorch"`` in the port and ``"python"`` in the
   reference, and the instance kind names the card, by design).
+- C4: the tenant and class labels a request carries are resolved through
+  the SLO statistics' cardinality cap before the request is built (past
+  32 distinct tenants later ones become ``__other__``), so both default
+  engines' slot tables show the same labels, and both report the same
+  per-label counts and overflow counters.
 """
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -33,12 +39,16 @@ from client_tpu.models import transformer as jt
 from client_tpu.server import TpuInferenceServer
 from client_tpu.server import http_server as jhttp
 from client_tpu.server import types as jtypes
+from client_tpu.server.generation import (
+    ContinuousBatchingEngine as JaxEngine,
+)
 from client_tpu_torch.models import decoder_lm as tlm
 from client_tpu_torch.models import make_add_sub
 from client_tpu_torch.models import transformer as tt
 from client_tpu_torch.server import TorchInferenceServer
 from client_tpu_torch.server import http_server as thttp
 from client_tpu_torch.server import types as ttypes
+from client_tpu_torch.server.generation import ContinuousBatchingEngine
 
 KW = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=2, head_dim=16,
           d_ff=64, max_seq=48, causal=True)
@@ -217,3 +227,108 @@ def test_c3_generator_config_matches_the_reference(model, case):
     # the stream cap
     assert got["instance_group"][0]["count"] \
         == want["instance_group"][0]["count"]
+
+
+# ---------------------------------------------------------------- C4
+
+def _held_slot_table(engine, table) -> list:
+    """Submit four long streams for tenants t36-t39 and read the slot
+    table while all four hold a slot. The engine is held at its sweep
+    twice: once the first request reached it (until the other three are
+    queued), then once every slot is held (while the table is read)."""
+    held = [threading.Event(), threading.Event()]
+    go = [threading.Event(), threading.Event()]
+    sweep = engine._reap_slots
+
+    def reap():
+        if not go[0].is_set() and (
+                engine._held is not None or engine._pending.qsize()
+                or any(s.req is not None for s in engine._slots)):
+            held[0].set()
+            go[0].wait(60)
+        elif go[0].is_set() and not go[1].is_set() and all(
+                s.req is not None for s in engine._slots):
+            held[1].set()
+            go[1].wait(60)
+        sweep()
+
+    engine._reap_slots = reap
+    outs = [[] for _ in range(4)]
+
+    def submit(i):
+        return engine.submit(np.asarray([3, 1 + i, 7], np.int32), 20,
+                             tenant_id=f"t{36 + i}",
+                             slo_class=f"c{(36 + i) % 10}")
+
+    its = [submit(0)]
+    assert held[0].wait(60)
+    its += [submit(i) for i in range(1, 4)]
+    go[0].set()
+    threads = [threading.Thread(target=lambda it=it, o=o: o.extend(it))
+               for it, o in zip(its, outs)]
+    for th in threads:
+        th.start()
+    assert held[1].wait(60)
+    rows = sorted(({k: r.get(k) for k in ("slot", "active", "tenant",
+                                          "slo_class", "prompt_tokens")}
+                   for r in table()), key=lambda r: r["slot"])
+    go[1].set()
+    for th in threads:
+        th.join(60)
+    assert [len(o) for o in outs] == [20] * 4
+    return rows
+
+
+def _slo_counts(snap: dict) -> dict:
+    rows = [{k: r[k] for k in ("tenant", "slo_class", "admitted",
+                               "completed", "failed", "shed", "cancelled",
+                               "deadline", "violations")}
+            | {"requests": r["window"]["requests"]}
+            for r in snap["tenant_classes"]]
+    return {k: snap[k] for k in ("max_tenants", "max_classes",
+                                 "tenants_tracked", "tenant_overflow",
+                                 "class_overflow")} | {"rows": rows}
+
+
+def test_c4_tenant_labels_are_capped_like_the_reference(model):
+    """40 distinct tenants (and 10 undeclared classes) reach both default
+    engines: the first 32 tenants keep their labels, later ones are
+    ``__other__`` in the slot table and the SLO statistics, classes past
+    the 8 undeclared ones collapse too, and every count is equal."""
+    jcfg, jparams, tcfg, tparams = model
+    kw = dict(n_slots=4, chunk=4)
+    ref = JaxEngine(jcfg, dict(jparams), **kw).start()
+    port = ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+                                    **kw).start()
+    got = {}
+    try:
+        for name, eng, table in (
+                ("ref", ref, lambda: ref.debug_snapshot()["slots"]),
+                ("port", port, lambda: port.stats()["slots"])):
+            for i in range(36):
+                toks = list(eng.submit(np.asarray([5, i % 60 + 1], np.int32),
+                                       2, tenant_id=f"t{i}",
+                                       slo_class=f"c{i % 10}"))
+                assert len(toks) == 2
+            slots = _held_slot_table(eng, table)
+            assert _wait_idle(eng)
+            got[name] = (slots, _slo_counts(eng.slo_snapshot()))
+    finally:
+        ref.stop()
+        port.stop()
+    assert got["port"] == got["ref"]
+    slots, counts = got["port"]
+    assert [r["tenant"] for r in slots] == ["__other__"] * 4
+    assert counts["tenants_tracked"] == 32
+    assert counts["tenant_overflow"] == 8
+    assert counts["class_overflow"] > 0
+
+
+def _wait_idle(engine, timeout: float = 60.0) -> bool:
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        with engine._lock:
+            if engine._requests_accepted == engine._requests_closed:
+                return True
+        time.sleep(0.005)
+    return False

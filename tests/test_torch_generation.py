@@ -199,9 +199,10 @@ def test_concurrent_submitters_stress(model):
 @pytest.mark.parametrize("knob,value,item", [
     ("prefill_lane_width", 8, "A10e"),
     ("watchdog", True, "A13"),
-    ("prefill_slots", 2, "A10e"), ("host_tier_bytes", 1, "A10f"),
-    ("scheduler", True, "A10g"), ("mesh", object(), "A12"),
-    ("slo_classes", (), "A10g"), ("dispatch_duty", 0.5, "A10g")])
+    ("prefill_slots", 2, "A10e"), ("engine_devices", (0,), "A12"),
+    ("watchdog_interval_s", 0.5, "A13"), ("mesh", object(), "A12"),
+    ("incident_store", object(), "A13"),
+    ("device_time_sample_every", 4, "A13")])
 def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                                         item):
     _, _, tcfg, tparams = model
@@ -213,6 +214,30 @@ def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                   **{knob: value})
     with pytest.raises(TypeError, match="unknown"):
         ContinuousBatchingEngine(tcfg, tparams, device="cpu", bogus=1)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("host_tier_bytes", 1 << 20), ("scheduler", True),
+    ("slo_classes", [{"name": "gold", "ttft_ms": 500.0}]),
+    ("slo_window_s", 5.0), ("slo_max_tenants", 4), ("dispatch_duty", 0.5)])
+def test_ported_scheduler_and_tier_knobs_build_engines(model, knob, value):
+    """The six knobs of the scheduler and the host tier, no longer
+    refused, build an engine and a generator that serve a stream (the
+    tier needs the prefix cache it spills)."""
+    _, _, tcfg, tparams = model
+    kw = {knob: value, "prefix_cache": knob == "host_tier_bytes"}
+    eng = ContinuousBatchingEngine(tcfg, tparams, device="cpu", **kw)
+    gen = make_continuous_generator(cfg=tcfg, params=tparams, device="cpu",
+                                    **kw)
+    try:
+        toks = list(eng.submit(np.asarray([3, 17, 42], np.int32), 4))
+        gen_toks = list(gen.engine.submit(np.asarray([3, 17, 42], np.int32),
+                                          4))
+    finally:
+        eng.stop()
+        gen.engine.stop()
+    assert toks == gen_toks and len(toks) == 4
+    assert eng.stats()["slo"]["tenant_classes"][0]["completed"] == 1
 
 
 

@@ -4,10 +4,10 @@ integration) on the CPU, held against the JAX package's.
 - The radix index is pure host code in both packages: a seeded random
   sequence of the index operations each KV layout makes drives both side
   by side, and the returned ids, matches, occupancy and counters must be
-  equal after every step (the reference's host tier is not ported, so
-  its ``spilled`` counts, always 0 here, are left out of the
-  comparison). The reference's own index cases
-  (tests/test_prefix_cache.py) run on both.
+  equal after every step (their ``spilled`` counts included, 0 without a
+  host tier; ``tests/test_torch_host_tier.py`` drives the tier). The
+  reference's own index cases (tests/test_prefix_cache.py) run on
+  both.
 - ``pool_to_slot`` and ``slot_to_pool`` must be bit-equal to the
   reference's copy kernels, scratch padding and per-block offsets
   included.
@@ -53,11 +53,6 @@ CASES = {
                           prefill_mode="chunked", prefill_chunk=16),
 }
 SHARED = [3, 17, 42, 9, 8, 7, 6, 5, 30, 31, 32, 33]  # 3 blocks of 4
-
-
-def _strip(d: dict) -> dict:
-    """A reference occupancy or snapshot without its host-tier count."""
-    return {k: v for k, v in d.items() if k != "spilled"}
 
 
 def _refs(index) -> list:
@@ -158,8 +153,8 @@ def test_index_op_sequence_matches_the_reference(layout):
         else:
             continue
         counts[op] += 1
-        assert port.occupancy() == _strip(ref.occupancy()), (step, op)
-        assert port.snapshot() == _strip(ref.snapshot()), (step, op)
+        assert port.occupancy() == ref.occupancy(), (step, op)
+        assert port.snapshot() == ref.snapshot(), (step, op)
         assert sorted(_refs(port)) == sorted(_refs(ref)), (step, op)
     # every operation ran, and the pool was pressed into evicting
     assert min(counts.values()) > 10, counts
@@ -277,8 +272,8 @@ def test_reference_index_cases(case):
         jkv.RadixBlockIndex(n_blocks, BL)
     fn(port)
     fn(ref)
-    assert port.snapshot() == _strip(ref.snapshot())
-    assert port.occupancy() == _strip(ref.occupancy())
+    assert port.snapshot() == ref.snapshot()
+    assert port.occupancy() == ref.occupancy()
 
 
 # ---------------------------------------------------------------- (b) copies
