@@ -147,6 +147,36 @@ each printing one JSON line:
              spec_slot_stride1, repeats spec_slot with one ring fetch per
              dispatch. Profiles one greedy gamma-12 round outside the
              engine (launches, host ms, device busy ms).
+12. schedule
+             the SLO scheduler and the host tier at the same width:
+             preemption on both layouts (bench.py's 32 jobs as bronze, 8
+             gold arrivals once every slot is held), three shared-prefix
+             families cycled through a small paged pool with a host tier,
+             none, and a one-block tier, the burn controller, and the
+             duty's pacing.
+13. lanes    the dedicated prefill lanes and the int8 KV cache at the same
+             width (16 slots, chunk 16): piggyback_paged (the comparison
+             arm: bench.py's 32 jobs, paged with K2, the chunked lane of
+             prefill_chunk 64 riding the decode chunk), lane_paged (the
+             same jobs and budget through 4 lane slots of width 32),
+             lane_paged_batch
+             (the same with 4 lane slots per dispatch), lane_slot (the
+             first 16 jobs on the slot layout, the handoff through the
+             prefix cache, policy all), kv8_slot (bench.py's point, slot
+             layout and token prefill, under kv_quant, its tokens/s beside
+             generate_slot's bench point) and kv8_paged (the first 16 jobs,
+             paged, chunked prefill, attn_impl flash under kv_quant). The
+             lane runs must hand off exactly the prompts longer than a
+             chunk, the paged ones with no pool<->slot copy and K2 at 12 x
+             16 per chunk dispatch, the batched one with batched lane
+             dispatches; kv8_paged must launch K2 0 times; every greedy
+             stream is teacher-forced (the int8 runs through the int8
+             plain path); after each drain no slot, lane slot, pin, stream
+             block or reservation may be left. Prints the state's and the
+             pool's bytes in bf16 and in int8, and moves one int8 block
+             through the host tier and back, bit for bit. The slot layout's
+             lane run and the int8 paged run are cut from 32 jobs to 16 to
+             keep the phase near a minute; the width is bench.py's.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -859,9 +889,13 @@ def phase_serve_shm() -> dict:
 def _teacher_forced(cfg, params, seqs: list, plens: list) -> dict:
     """Feed every greedy stream (prompt + served tokens) through the plain
     path on the card, all streams as the slots of one batch:
-    ``paged_decode_steps`` with the plain K2. Per stream, counts the served
-    tokens, the ones judged (where the plain top-1/top-2 gap exceeds
-    GREEDY_GAP) and the judged ones that differ from the plain argmax."""
+    ``paged_decode_steps`` with the plain K2, or, under ``cfg.kv_quant``,
+    with the dequantising einsum over an int8 pool (K2 never reads int8,
+    as in the reference). Per stream, counts the served tokens, the ones
+    judged (where the plain top-1/top-2 gap exceeds GREEDY_GAP) and the
+    judged ones that differ from the plain argmax."""
+    import dataclasses
+
     from client_tpu_torch.models import transformer as t
     from client_tpu_torch.ops.paged_attention import (
         paged_decode_attention_reference,
@@ -876,6 +910,10 @@ def _teacher_forced(cfg, params, seqs: list, plens: list) -> dict:
     toks = torch.from_numpy(grid).cuda()
     lens = torch.tensor([len(x) for x in seqs], device="cuda")
     plen = torch.tensor(plens, device="cuda")
+    attention = paged_decode_attention_reference
+    if cfg.kv_quant:
+        attention = None
+        cfg = dataclasses.replace(cfg, attn_impl="ref")
     pool = init_paged_pool(cfg, n * nb + 1, GEN_BLOCK, "cuda")
     tables = (1 + torch.arange(n * nb, device="cuda")).reshape(
         n, nb).to(torch.int32)
@@ -887,7 +925,7 @@ def _teacher_forced(cfg, params, seqs: list, plens: list) -> dict:
             width = p // GEN_BLOCK + 1
             logits, pool = t.paged_decode_steps(
                 cfg, params, toks[:, p], pos, tables[:, :width], pool,
-                attention=paged_decode_attention_reference)
+                attention=attention)
             top2 = logits.topk(2, dim=-1).values
             # logits at p predict token p + 1: a served token when it
             # lies past the prompt and inside the stream
@@ -1173,6 +1211,8 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
         "sampled_jobs": len(jobs) - len(greedy), "wall_s": wall_s,
         "continuous_batching_ragged_tokens_per_s": useful / wall_s,
         "chunk_dispatches": chunks, "dispatches": dispatches,
+        "dispatches_by_kind": {k: v["dispatches"] for k, v in kinds.items()
+                               if v["dispatches"]},
         "speculation": spec,
         "host_ms_per_dispatch_by_kind": {
             k: v["host_s"] / v["dispatches"] * 1e3
@@ -1533,11 +1573,13 @@ def _serve_stream_context(label: str, cfg, params, jobs: list,
         t_sent = min(sent[i] for i in cancelled)
         window = [ns for ns, _ in log["rounds"]
                   if t_sent <= ns <= t_sent + ttft_ns]
-        # the pace: the median round inside the TTFT (the first round
-        # after an idle engine also carries the admissions), or the TTFT
-        # over its rounds when it holds fewer than three
-        dispatch_ns = (float(np.median(np.diff(window))) if len(window) > 2
-                       else ttft_ns / max(1, len(window)))
+        # the pace: the median interval between the rounds inside the
+        # TTFT (from the send to the first round's end the idle engine's
+        # admissions ride along, and the TTFT also holds the fetch wait,
+        # so neither measures a round), or the TTFT when it holds one
+        # round only
+        dispatch_ns = (float(np.median(np.diff(window))) if len(window) > 1
+                       else ttft_ns)
         timeout_us = int(TRIP_DISPATCHES * dispatch_ns / 1e3)
         t_plain = time.monotonic_ns()
         threads += start(timed, timeout_us=timeout_us)
@@ -2214,6 +2256,216 @@ def phase_schedule(gen_model: tuple) -> dict:
     return result
 
 
+# lanes: the dedicated prefill lane (4 lane slots of width 32, the chunked
+# lane's prefill_chunk 64 as the round's budget; batched 4 rows per
+# dispatch) and the int8 KV cache at bench.py's generation width. The slot
+# layout's lane run and the int8 paged run take the first 16 of bench.py's
+# 32 jobs (cut to keep the phase near a minute); the lane's handoff on the
+# slot layout rides the prefix cache (policy all)
+LANE_SLOTS, LANE_WIDTH, LANE_BATCH, LANE_CUT = 4, 32, 4, 16
+
+
+class _CopyCount:
+    """Counts the engine's pool<->slot copies (the module functions
+    ``pool_to_slot`` / ``slot_to_pool`` its methods call) while active."""
+
+    def __enter__(self):
+        from client_tpu_torch.server import generation
+
+        self._mod = generation
+        self.n = {"pool_to_slot": 0, "slot_to_pool": 0}
+        self._orig = {}
+        for name in self.n:
+            real = getattr(generation, name)
+            self._orig[name] = real
+
+            def counted(*a, _real=real, _name=name, **k):
+                self.n[_name] += 1
+                return _real(*a, **k)
+
+            setattr(generation, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._orig.items():
+            setattr(self._mod, name, real)
+
+
+def _lane_settled(engine) -> dict:
+    """``_prefix_settled`` once both slot kinds are free, with the lane's
+    snapshot, the batched lane's counters, the paged pool's occupancy and
+    the dispatches by kind."""
+    deadline = time.time() + 30
+    while (engine.active_slots() or engine.active_lane_slots()) \
+            and time.time() < deadline:
+        time.sleep(0.01)
+    snap = engine.gen_stats.snapshot()
+    index = engine._kv_index
+    return {**_prefix_settled(engine),
+            "lane_slots_active_after": engine.active_lane_slots(),
+            "occupancy": None if index is None else index.occupancy(),
+            "prefill_lane": engine.stats()["prefill_lane"],
+            "lane_handoffs": snap["lane_handoffs"],
+            "lane_batch_dispatches": snap["lane_batch_dispatches"],
+            "lane_batch_slots": snap["lane_batch_slots"]}
+
+
+def _kv_bytes(cfg) -> dict:
+    """Bytes of the generation path's slot-layout state (16 slots) and
+    paged pool (GEN_POOL blocks of 16) under ``cfg``."""
+    from client_tpu_torch.models.transformer import init_decode_state
+    from client_tpu_torch.server.kv_cache import init_paged_pool
+
+    out = {}
+    for name, tree in (("state", init_decode_state(cfg, GEN_SLOTS, "cuda")),
+                       ("pool", init_paged_pool(cfg, GEN_POOL, GEN_BLOCK,
+                                                "cuda"))):
+        out[name] = sum(v.numel() * v.element_size()
+                        for k, v in tree.items() if k != "pos")
+        del tree
+    return out
+
+
+def _int8_tier_round_trip(cfg) -> dict:
+    """One block of an int8 paged pool (random values and scales) through
+    the host tier and back into another block: every tensor bit for
+    bit."""
+    from client_tpu_torch.server.kv_cache import (
+        init_paged_pool,
+        pool_block_nbytes,
+        tier_restore,
+        tier_spill,
+    )
+
+    pool = init_paged_pool(cfg, 8, GEN_BLOCK, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    for name, arr in pool.items():
+        if arr.dtype == torch.int8:
+            arr.copy_(torch.randint(-127, 128, arr.shape, generator=gen,
+                                    device="cuda", dtype=torch.int8))
+        else:
+            arr.uniform_(1e-3, 5e-2, generator=gen)
+    rows, ready = tier_spill(pool, 3, True)
+    ready.synchronize()
+    tier_restore(pool, 5, rows, True)
+    torch.cuda.synchronize()
+    same = {name: bool(torch.equal(arr[:, 5], arr[:, 3]))
+            for name, arr in pool.items()}
+    if sorted(same) != ["k", "k_scale", "v", "v_scale"] \
+            or not all(same.values()):
+        fail(f"lanes: an int8 block's tier round trip changed it: {same}")
+    return {"block_bytes": pool_block_nbytes(pool, True), "bit_exact": same}
+
+
+def phase_lanes(gen_model: tuple, bench_point: dict) -> dict:
+    """The dedicated prefill lanes and the int8 KV cache at bench.py's
+    generation width: piggyback_paged (the comparison arm: the chunked
+    lane riding the decode chunk), lane_paged (paged with K2, the lane per
+    slot),
+    lane_paged_batch (the same, 4 lane slots per dispatch), lane_slot (the
+    slot layout, the handoff through the prefix pool), kv8_slot (bench.py's
+    point under kv_quant, beside ``bench_point``, generate_slot's run from
+    this call) and kv8_paged (paged, chunked, attn_impl flash under
+    kv_quant: no K2 launch)."""
+    import dataclasses
+
+    cfg, params, jobs = gen_model
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    kv8 = dataclasses.replace(cfg, kv_quant=True)
+    kv8_flash = dataclasses.replace(flash, kv_quant=True)
+    lane = dict(prefill_mode="chunked", prefill_chunk=64,
+                prefill_slots=LANE_SLOTS, prefill_lane_width=LANE_WIDTH)
+    paged = dict(kv_layout="paged", kv_block_len=GEN_BLOCK)
+    cut = jobs[:LANE_CUT]
+    plan = [
+        # the comparison arm: the piggyback chunked lane, same jobs
+        ("piggyback_paged", flash, jobs, dict(prefill_mode="chunked",
+                                              prefill_chunk=64, **paged)),
+        ("lane_paged", flash, jobs, dict(**lane, **paged)),
+        ("lane_paged_batch", flash, jobs,
+         dict(**lane, **paged, prefill_lane_batch=LANE_BATCH)),
+        ("lane_slot", cfg, cut, dict(**lane, prefix_cache=True,
+                                     prefix_block_len=GEN_BLOCK,
+                                     prefix_commit_policy="all")),
+        ("kv8_slot", kv8, jobs, dict()),
+        ("kv8_paged", kv8_flash, cut, dict(**paged, prefill_mode="chunked",
+                                           prefill_chunk=64))]
+    t0 = time.time()
+    runs = []
+    for label, run_cfg, run_jobs, kw in plan:
+        with _CopyCount() as copies:
+            run = _serve_generation(label, run_cfg, params, run_jobs,
+                                    [None] * len(run_jobs),
+                                    settled=_lane_settled, **kw)
+        run["pool_slot_copies"] = dict(copies.n)
+        run["long_prompt_jobs"] = sum(len(p) > GEN_CHUNK
+                                      for p, _ in run_jobs)
+        runs.append(run)
+    t1 = time.time()
+    _judge_greedy(cfg, params, runs[:4])
+    _judge_greedy(kv8, params, runs[4:])
+    t2 = time.time()
+    by = {run["run"]: run for run in runs}
+    for run in runs:
+        name, occ = run["run"], run["occupancy"]
+        want = (LAYERS * GEN_CHUNK * run["chunk_dispatches"]
+                if run["kv_layout"] == "paged" and not name.startswith("kv8")
+                else 0)
+        if run["paged_decode_attention_launches"] != want \
+                or run["flash_attention_launches"]:
+            fail(f"lanes: the {name} run launched paged_decode_attention "
+                 f"{run['paged_decode_attention_launches']} times in "
+                 f"{run['chunk_dispatches']} chunk dispatches (expected "
+                 f"{want}) and flash_attention "
+                 f"{run['flash_attention_launches']} times (expected 0)")
+        if run["slots_active_after"] or run["lane_slots_active_after"] \
+                or run["pinned_nodes"] or (occ is not None and (
+                    occ["stream"] or occ["reserved"])):
+            fail(f"lanes: {name}: left behind: slots "
+                 f"{run['slots_active_after']}, lane slots "
+                 f"{run['lane_slots_active_after']}, pins "
+                 f"{run['pinned_nodes']}, {occ}")
+        if name.startswith("lane"):
+            if run["lane_handoffs"] != run["long_prompt_jobs"] \
+                    or run["prefill_lane"]["handoffs"] \
+                    != run["lane_handoffs"]:
+                fail(f"lanes: {name}: {run['lane_handoffs']} handoffs for "
+                     f"{run['long_prompt_jobs']} prompts longer than a "
+                     f"chunk")
+    for name in ("lane_paged", "lane_paged_batch"):
+        if any(by[name]["pool_slot_copies"].values()):
+            fail(f"lanes: {name}: the paged handoff copied KV: "
+                 f"{by[name]['pool_slot_copies']}")
+    batch = by["lane_paged_batch"]
+    if batch["lane_batch_dispatches"] < 1:
+        fail("lanes: lane_paged_batch dispatched no batched lane chunk")
+    batch["lane_batch_slots_per_dispatch"] = (
+        batch["lane_batch_slots"] / batch["lane_batch_dispatches"])
+    if by["lane_slot"]["pool_slot_copies"]["slot_to_pool"] \
+            < by["lane_slot"]["lane_handoffs"]:
+        fail(f"lanes: lane_slot: {by['lane_slot']['pool_slot_copies']} "
+             f"copies for {by['lane_slot']['lane_handoffs']} handoffs")
+    rate = "continuous_batching_ragged_tokens_per_s"
+    for name in ("lane_paged", "lane_paged_batch"):
+        by[name]["tokens_per_s_vs_piggyback"] = (
+            by[name][rate] / by["piggyback_paged"][rate])
+    by["kv8_slot"]["tokens_per_s_vs_bench_point"] = (
+        by["kv8_slot"][rate] / bench_point[rate])
+    kv_bytes = {"bf16": _kv_bytes(cfg), "int8": _kv_bytes(kv8)}
+    kv_bytes["int8_share"] = {k: kv_bytes["int8"][k] / kv_bytes["bf16"][k]
+                              for k in ("state", "pool")}
+    tier = _int8_tier_round_trip(kv8)
+    result = {"phase": "lanes", "lane_slots": LANE_SLOTS,
+              "lane_width": LANE_WIDTH, "lane_batch": LANE_BATCH,
+              "cut_jobs": LANE_CUT, "runs": runs, "kv_bytes": kv_bytes,
+              "int8_tier_round_trip": tier,
+              "seconds": {"serve": t1 - t0, "judge": t2 - t1,
+                          "bytes_and_tier": time.time() - t2}}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -2245,6 +2497,7 @@ def main() -> int:
     stream_context = timed("stream_context", phase_stream_context, gen_model)
     speculate = timed("speculate", phase_speculate, gen_model)
     schedule = timed("schedule", phase_schedule, gen_model)
+    lanes = timed("lanes", phase_lanes, gen_model, generate_slot["runs"][0])
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -2282,6 +2535,9 @@ def main() -> int:
             schedule_paged=schedule["runs"][0][
                 "paged_decode_attention_launches"],
             tier_paged=schedule["runs"][2][
+                "paged_decode_attention_launches"],
+            lane_paged=lanes["runs"][1]["paged_decode_attention_launches"],
+            lane_paged_batch=lanes["runs"][2][
                 "paged_decode_attention_launches"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

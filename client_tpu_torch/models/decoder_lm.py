@@ -124,6 +124,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               prefill_mode: Optional[str] = None,
                               prefill_chunk: int = 64,
                               prefill_token_budget: int = 0,
+                              prefill_slots: int = 0,
+                              prefill_lane_width: int = 0,
+                              prefill_lane_batch: int = 0,
                               kv_layout: str = "slot",
                               kv_block_len: int = 16,
                               kv_pool_blocks: int = 0,
@@ -154,13 +157,16 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     default to random weights from ``seed``, drawn on ``device`` (CUDA by
     default, raising without it; the CPU only when asked for). The engine
     knobs and their defaults are the reference's (the slot layout,
-    token-level prefill, no prefix cache, no speculation, no scheduler, no
-    host tier, duty 1). The config's ``generation_engine`` (with the
-    tier's ``host_tier_bytes``), ``prefix_cache``, ``speculative``,
-    ``scheduler`` and ``slo_classes`` blocks advertise what the engine
-    runs, resolved by the engine's own rules, so a bad combination raises
-    here. ``slo_classes`` rows may be ``SloClassConfig`` or their dicts.
-    The engine is built now and started by the first request.
+    token-level prefill, no dedicated lane, no prefix cache, no
+    speculation, no scheduler, no host tier, duty 1; int8 KV with
+    ``cfg.kv_quant``). The config's ``generation_engine`` (with the
+    dedicated lane's ``prefill_slots``, ``prefill_lane_width`` and
+    ``prefill_lane_batch`` and the tier's ``host_tier_bytes``),
+    ``prefix_cache``, ``speculative``, ``scheduler`` and ``slo_classes``
+    blocks advertise what the engine runs, resolved by the engine's own
+    rules, so a bad combination raises here. ``slo_classes`` rows may be
+    ``SloClassConfig`` or their dicts. The engine is built now and
+    started by the first request.
 
     ``speculative_draft`` turns on speculative decoding: a
     ``speculation.DraftModel``, a ``(cfg, params)`` pair, or a
@@ -206,6 +212,12 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     eff_stride, eff_entries = eng.ring_shape(
         fetch_stride, overlap, dispatch_depth, ring_entries,
         eng.ring_entries_per_iter(eff_ladder))
+    # the dedicated lane by the engine's own rules: a bad combination
+    # raises here, and the config advertises the lane the engine runs
+    eff_lane_n, eff_lane_width = eng.resolve_disagg(
+        cfg, eff_mode, prefill_slots, prefill_lane_width, prefill_chunk,
+        kv_layout, prefix_cache, prefix_commit_policy)
+    eff_lane_batch = eng.resolve_lane_batch(eff_lane_n, prefill_lane_batch)
     kv = eng.resolve_kv_layout(
         cfg, n_slots, kv_layout, kv_block_len,
         kv_pool_blocks, kv_max_blocks_per_slot, eff_mode, prefix_cache,
@@ -233,6 +245,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             prefill=prefill, prefill_mode=prefill_mode,
             prefill_chunk=prefill_chunk,
             prefill_token_budget=prefill_token_budget,
+            prefill_slots=prefill_slots,
+            prefill_lane_width=prefill_lane_width,
+            prefill_lane_batch=prefill_lane_batch,
             kv_block_len=kv_block_len,
             kv_pool_blocks=kv_pool_blocks,
             kv_max_blocks_per_slot=kv_max_blocks_per_slot,
@@ -284,7 +299,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             dispatch_depth=dispatch_depth, fetch_stride=eff_stride,
             overlap=overlap, ring_entries=eff_entries,
             prefill_mode=eff_mode, prefill_chunk=prefill_chunk,
-            prefill_token_budget=eff_budget, host_tier_bytes=eff_tier,
+            prefill_token_budget=eff_budget, prefill_slots=eff_lane_n,
+            prefill_lane_width=eff_lane_width,
+            prefill_lane_batch=eff_lane_batch, host_tier_bytes=eff_tier,
             kv_layout=kv[0],
             kv_block_len=kv[1], kv_pool_blocks=kv[2],
             kv_max_blocks_per_slot=kv[3]),

@@ -32,8 +32,20 @@ paged decode kernel (``ops.paged_attention``) under ``attn_impl="flash"``
 and through the gathered einsum under ``"ref"``; its prefill chunk always
 takes the einsum. The speculative verify passes (``verify_steps``,
 ``paged_verify_steps``) score T tokens per slot in one forward with the
-einsum attention on both layouts, as the reference's do. The int8-KV
-paths, MoE, mesh sharding and ring attention wait for later slices.
+einsum attention on both layouts, as the reference's do, and the
+dedicated prefill lane's batched chunks (``prefill_chunk_batch``,
+``paged_prefill_chunk_batch``) ingest B prompts' chunks in one forward
+the same way.
+
+int8 KV (``kv_quant``): every KV tensor gains an f32 scale table over
+(position, KV head); each written row is quantised on write
+(``_kv_quantize``: the scale is max(|x| over Dh, 1e-8) / 127, the values
+rounded half to even and clipped to +-127) and every read dequantises to
+``cfg.dtype`` (``_kv_dequantize``) before the einsum attention, whose
+products accumulate in f32. The paged decode kernel reads only
+unquantised pools: under ``kv_quant`` the paged decode step takes the
+dequantising einsum, as the reference's does. MoE, mesh sharding and
+ring attention wait for later slices.
 """
 
 from __future__ import annotations
@@ -71,7 +83,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     ffn: str = "gelu"             # gelu | swiglu
     attn_impl: str = "flash"      # flash | ref
-    kv_quant: bool = False        # int8 KV: not ported yet (raises)
+    kv_quant: bool = False        # int8 KV rows + f32 scales per (pos, head)
 
     @property
     def kv_heads(self) -> int:
@@ -93,10 +105,6 @@ class TransformerConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl '{self.attn_impl}' "
                              f"(expected one of {ATTN_IMPLS})")
-        if self.kv_quant:
-            raise NotImplementedError(
-                "kv_quant (int8 KV cache) is not ported yet: ROADMAP A10i "
-                "(int8 KV)")
 
 
 # ---------------------------------------------------------------- params
@@ -316,6 +324,60 @@ def _masked_attention(cfg: TransformerConfig, q, k_read, v_read, qpos):
     return attn.reshape(*lead, cfg.n_heads, cfg.head_dim)
 
 
+
+
+# ---------------------------------------------------------------- int8 KV
+
+def _kv_quantize(x):
+    """[..., Dh] -> (int8 values, f32 scale [...] over the last dim): the
+    reference's ``_kv_quantize``. The scale is max(|x|, 1e-8) / 127 in
+    f32; x / scale is computed in f32, rounded half to even
+    (``torch.round``, as ``jnp.round``) and clipped to +-127."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _kv_dequantize(q, scale, dtype):
+    """The reference's ``_kv_dequantize``: values times scale in f32,
+    rounded to ``dtype`` (``cfg.dtype``, so attention sees the same
+    rounding step the reference's einsum operands carry)."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def kv_names(cfg: TransformerConfig) -> tuple:
+    """The KV tensors of a state or pool: ``k``, ``v`` and, under
+    ``kv_quant``, their f32 scale tables ``k_scale``, ``v_scale``."""
+    if cfg.kv_quant:
+        return ("k", "v", "k_scale", "v_scale")
+    return ("k", "v")
+
+
+def _kv_write(cfg: TransformerConfig, kv: dict, index: tuple, k, v) -> None:
+    """Write fed K/V rows into one layer's KV tensors at ``index`` (a
+    tuple of index tensors over their leading axes), IN PLACE
+    (``index_put_``): quantised with their scales under ``kv_quant``,
+    rounded to the tensors' dtype otherwise."""
+    if cfg.kv_quant:
+        for name, x in (("k", k), ("v", v)):
+            q, scale = _kv_quantize(x)
+            kv[name].index_put_(index, q)
+            kv[f"{name}_scale"].index_put_(index, scale)
+        return
+    kv["k"].index_put_(index, k.to(kv["k"].dtype))
+    kv["v"].index_put_(index, v.to(kv["v"].dtype))
+
+
+def _kv_read(cfg: TransformerConfig, kv: dict) -> tuple:
+    """(K, V) of one layer's KV tensors as attention reads them:
+    dequantised to ``cfg.dtype`` under ``kv_quant``."""
+    if cfg.kv_quant:
+        return (_kv_dequantize(kv["k"], kv["k_scale"], cfg.dtype),
+                _kv_dequantize(kv["v"], kv["v_scale"], cfg.dtype))
+    return kv["k"], kv["v"]
+
+
 # ---------------------------------------------------------------- slot KV
 #
 # The slot layout: every slot owns a static [layers, max_seq, Hkv, Dh] row
@@ -329,14 +391,20 @@ def init_decode_state(cfg: TransformerConfig, n_slots: int,
                       device=None) -> dict:
     """Zeroed slot-layout state of ``n_slots`` slots: ``k``/``v``
     ``[S, layers, max_seq, Hkv, Dh]`` in ``cfg.dtype`` (only the KV heads
-    under GQA) and ``pos [S]`` int32. On the card unless ``device`` says
-    otherwise; without CUDA that raises. (int8 KV raises when its config
-    is built: ROADMAP A10i.)"""
+    under GQA), int8 under ``kv_quant`` with f32 ``k_scale``/``v_scale``
+    ``[S, layers, max_seq, Hkv]`` beside them, and ``pos [S]`` int32. On
+    the card unless ``device`` says otherwise; without CUDA that raises."""
     dev = resolve_device(device)
     shape = (n_slots, cfg.n_layers, cfg.max_seq, cfg.kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
+    kv_dtype = torch.int8 if cfg.kv_quant else cfg.dtype
+    state = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=dev)}
+    if cfg.kv_quant:
+        for name in ("k_scale", "v_scale"):
+            state[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=dev)
+    state["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+    return state
 
 
 def decode_step(cfg: TransformerConfig, params: dict, tokens,
@@ -345,9 +413,10 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens,
     reference's ``decode_step`` under ``jax.vmap``, as one computation
     over ``[S, ...]``. tokens [S] int32 are fed at positions
     ``state["pos"]`` [S]. Per layer each slot's K/V row is written at its
-    own position IN PLACE (``index_put_``), then every slot attends its
-    rows [0, pos]. Returns (logits [S, vocab] f32, the state with
-    ``pos + 1``; ``k``/``v`` are the same tensors).
+    own position IN PLACE (``index_put_``; quantised under ``kv_quant``),
+    then every slot attends its rows [0, pos] (dequantised). Returns
+    (logits [S, vocab] f32, the state with ``pos + 1``; the KV tensors
+    are the same tensors).
 
     ``rows`` [N] (int64 slot indices) steps only those slots: tokens [N],
     logits [N, vocab], only their rows written and only their positions
@@ -371,18 +440,19 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens,
     if cfg.rope:
         cos, sin = _rope_angles(pos, cfg.head_dim, cfg.rope_theta)
         cos, sin = cos[:, None], sin[:, None]
+    names = kv_names(cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        k_l, v_l = state["k"][:, i], state["v"][:, i]  # [S, max_seq, Hkv, Dh]
+        kv = {name: state[name][:, i] for name in names}  # [S, max_seq, ...]
         y = _rmsnorm(x, lp["ln1"])
         q, k, v = _qkv_proj(cfg, y, lp, "b")   # q [S,H,Dh], kv [S,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
-        k_l.index_put_((idx, wpos), k.to(k_l.dtype))
-        v_l.index_put_((idx, wpos), v.to(v_l.dtype))
+        _kv_write(cfg, kv, (idx, wpos), k, v)
         if rows is not None:
-            k_l, v_l = k_l[rows], v_l[rows]
-        attn = _masked_attention(cfg, q, k_l, v_l, pos)
+            kv = {name: arr[rows] for name, arr in kv.items()}
+        k_read, v_read = _kv_read(cfg, kv)
+        attn = _masked_attention(cfg, q, k_read, v_read, pos)
         x = x + torch.einsum("bhk,hkd->bd", attn, lp["wo"])
         x = _dense_ffn(x, lp, ffn=cfg.ffn)
     x = _rmsnorm(x, params["final_norm"])
@@ -392,28 +462,19 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens,
     return logits, {**state, "pos": new_pos}
 
 
-def verify_steps(cfg: TransformerConfig, params: dict, tokens, state: dict,
-                 rows=None) -> tuple:
-    """Score T tokens per slot against a slot-layout state in ONE forward:
-    the speculative verify pass, the reference's ``verify_steps`` under
-    ``jax.vmap``. tokens [S, T] int32 are consumed at positions
-    pos..pos+T-1 of each slot as T ``decode_step`` calls would consume
-    them: per layer the slot's T K/V rows are written IN PLACE as one slab
-    (its start clamped so the slab fits in max_seq, as
-    ``dynamic_update_slice`` clamps), and each query row attends the
-    slot's rows under its own causal position. ``rows`` [N] (int64 slot
-    indices) verifies only those slots (tokens [N, T]); every other
-    slot's K/V and position stay bit-unchanged. Returns (logits [N, T,
-    vocab] f32, logits[:, i] the next-token distribution after
-    tokens[:, :i+1]; the state with the verified slots' pos advanced by
-    T). Rollback is the caller's: position is data, so rewinding ``pos``
-    un-attends the rejected rows, and the next write overwrites them.
-    Plain torch ops, as the reference's einsums are."""
+def _slot_slab(cfg: TransformerConfig, params: dict, tokens, cache: dict,
+               pos, rows) -> torch.Tensor:
+    """The forward the slot layout's slab passes share (the reference's
+    ``verify_steps`` and ``prefill_chunk_batch``, both ``jax.vmap`` over
+    rows): tokens [N, T] consumed at positions pos..pos+T-1 (pos [N]
+    int64) of the cache rows ``rows`` [N] (int64 row indices; None: all,
+    N = S), as T ``decode_step`` calls would consume them. Per layer each
+    row's T K/V rows are written IN PLACE as one slab, its start clamped
+    so the slab fits in max_seq (as ``dynamic_update_slice`` clamps), and
+    each query row attends its cache row under its own causal position.
+    Returns the final-normed activations [N, T, d]."""
     n, t_len = tokens.shape
-    pos_all = state["pos"]
-    pos = (pos_all if rows is None else pos_all[rows]).long()
-    idx = (torch.arange(n, device=tokens.device)
-           if rows is None else rows)
+    idx = (torch.arange(n, device=tokens.device) if rows is None else rows)
     steps = torch.arange(t_len, device=tokens.device)
     start = pos.clamp(0, cfg.max_seq - t_len)
     wpos = start[:, None] + steps                                # [N, T]
@@ -426,21 +487,43 @@ def verify_steps(cfg: TransformerConfig, params: dict, tokens, state: dict,
         cos, sin = _rope_angles(qpos, cfg.head_dim, cfg.rope_theta)
         cos, sin = cos[:, :, None], sin[:, :, None]
     slot_idx = idx[:, None].expand(n, t_len)
+    names = kv_names(cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        k_l, v_l = state["k"][:, i], state["v"][:, i]
+        kv = {name: cache[name][:, i] for name in names}
         y = _rmsnorm(x, lp["ln1"])
         q, k, v = _qkv_proj(cfg, y, lp, "bt")  # q [N,T,H,Dh], kv [N,T,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
-        k_l.index_put_((slot_idx, wpos), k.to(k_l.dtype))
-        v_l.index_put_((slot_idx, wpos), v.to(v_l.dtype))
+        _kv_write(cfg, kv, (slot_idx, wpos), k, v)
         if rows is not None:
-            k_l, v_l = k_l[rows], v_l[rows]
-        attn = _masked_attention(cfg, q, k_l, v_l, qpos)
+            kv = {name: arr[rows] for name, arr in kv.items()}
+        k_read, v_read = _kv_read(cfg, kv)
+        attn = _masked_attention(cfg, q, k_read, v_read, qpos)
         x = x + torch.einsum("bthk,hkd->btd", attn, lp["wo"])
         x = _dense_ffn(x, lp, ffn=cfg.ffn)
-    x = _rmsnorm(x, params["final_norm"])
+    return _rmsnorm(x, params["final_norm"])
+
+
+def verify_steps(cfg: TransformerConfig, params: dict, tokens, state: dict,
+                 rows=None) -> tuple:
+    """Score T tokens per slot against a slot-layout state in ONE forward:
+    the speculative verify pass, the reference's ``verify_steps`` under
+    ``jax.vmap``. tokens [S, T] int32 are consumed at positions
+    pos..pos+T-1 of each slot as T ``decode_step`` calls would consume
+    them (``_slot_slab``; quantised writes and dequantised reads under
+    ``kv_quant``). ``rows`` [N] (int64 slot indices) verifies only those
+    slots (tokens [N, T]); every other slot's K/V and position stay
+    bit-unchanged. Returns (logits [N, T, vocab] f32, logits[:, i] the
+    next-token distribution after tokens[:, :i+1]; the state with the
+    verified slots' pos advanced by T). Rollback is the caller's: position
+    is data, so rewinding ``pos`` un-attends the rejected rows, and the
+    next write overwrites them. Plain torch ops, as the reference's
+    einsums are."""
+    t_len = tokens.shape[1]
+    pos_all = state["pos"]
+    pos = (pos_all if rows is None else pos_all[rows]).long()
+    x = _slot_slab(cfg, params, tokens, state, pos, rows)
     logits = torch.einsum("btd,vd->btv", x, params["embed"]).float()
     new_pos = pos_all + t_len if rows is None else pos_all.index_put(
         (rows,), pos_all[rows] + t_len)
@@ -451,9 +534,12 @@ def prefill(cfg: TransformerConfig, params: dict, tokens,
             length: int = None, pad_to_max: bool = True) -> tuple:
     """A whole (bucket-padded) prompt tokens [L] in one causal forward
     through ``ops.attention.mha_attention``: returns (state, logits) with
-    ``state`` = {``k``, ``v`` [layers, L or max_seq, Hkv, Dh], ``pos``}
-    and the f32 logits [vocab] at ``length - 1`` (a host int), the last
-    real token.
+    ``state`` = {``k``, ``v`` [layers, L or max_seq, Hkv, Dh] (int8 with
+    ``k_scale``/``v_scale`` [layers, L or max_seq, Hkv] under
+    ``kv_quant``), ``pos``} and the f32 logits [vocab] at ``length - 1``
+    (a host int), the last real token. Under ``kv_quant`` each layer's
+    K/V are quantised and dequantised BEFORE the prompt's own attention,
+    so prefill sees the rows decode will read, as in the reference.
     Rows at and past ``length`` hold padding K/V that decode overwrites
     before attending. ``pad_to_max=False`` returns only the bucket's L
     rows (the engine writes them into a slot's rows itself)."""
@@ -467,15 +553,24 @@ def prefill(cfg: TransformerConfig, params: dict, tokens,
         cos, sin = _rope_angles(torch.arange(l, device=x.device),
                                 cfg.head_dim, cfg.rope_theta)
         cos, sin = cos[:, None], sin[:, None]
-    ks, vs = [], []
+    layers = {name: [] for name in kv_names(cfg)}
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         y = _rmsnorm(x, lp["ln1"])
         q, k, v = _qkv_proj(cfg, y, lp, "l")   # q [L,H,Dh], kv [L,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
-        ks.append(k.to(cfg.dtype))                  # unexpanded KV heads
-        vs.append(v.to(cfg.dtype))
+        if cfg.kv_quant:
+            kq, ks = _kv_quantize(k)
+            vq, vs = _kv_quantize(v)
+            for name, arr in (("k", kq), ("v", vq), ("k_scale", ks),
+                              ("v_scale", vs)):
+                layers[name].append(arr)
+            k = _kv_dequantize(kq, ks, cfg.dtype)
+            v = _kv_dequantize(vq, vs, cfg.dtype)
+        else:
+            layers["k"].append(k.to(cfg.dtype))     # unexpanded KV heads
+            layers["v"].append(v.to(cfg.dtype))
         attn = mha_attention(q[None], _expand_kv(cfg, k)[None],
                              _expand_kv(cfg, v)[None], causal=True)[0]
         x = x + torch.einsum("lhk,hkd->ld", attn, lp["wo"])
@@ -483,9 +578,11 @@ def prefill(cfg: TransformerConfig, params: dict, tokens,
     x = _rmsnorm(x, params["final_norm"])
     logits = torch.einsum("d,vd->v", x[length - 1],
                           params["embed"]).float()
-    state = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    state = {name: torch.stack(arrs) for name, arrs in layers.items()}
     if pad_to_max:
-        state = {name: F.pad(arr, (0, 0, 0, 0, 0, cfg.max_seq - l))
+        # [layers, L, ...] -> [layers, max_seq, ...]
+        state = {name: F.pad(arr, (0, 0) * (arr.dim() - 2)
+                             + (0, cfg.max_seq - l))
                  for name, arr in state.items()}
     # a fill, not torch.tensor: a host scalar copied to the card would wait
     # for the card's queue
@@ -498,19 +595,22 @@ def prefill_chunk(cfg: TransformerConfig, params: dict, tokens, cache: dict,
     """Resumable chunked prefill into one slot's rows: tokens [Lc] (bucket
     padded; ``clen`` real, default Lc; both host ints) consumed at positions
     pos0..pos0+Lc-1 as Lc ``decode_step`` calls would, in one batched
-    forward. ``cache`` = {``k``, ``v``} [layers, max_seq, Hkv, Dh], the
-    slot's rows: rows < pos0 are the context already ingested, and the
-    chunk's rows are written into it IN PLACE (the reference returns the
-    slab for its caller to write; the engine passes the slot's own rows).
-    The caller keeps pos0 + Lc <= max_seq; beyond it the slab start
-    clamps, as ``dynamic_update_slice`` does. Padding rows past ``clen``
-    write K/V that the next chunk overwrites before it is attended.
-    Returns (slab {``k``, ``v``} [layers, Lc, Hkv, Dh], views of the rows
-    just written, not copies; logits [vocab] f32 after tokens[clen - 1])."""
+    forward. ``cache`` holds the slot's KV tensors (``k``, ``v``
+    [layers, max_seq, Hkv, Dh], and the scale tables under ``kv_quant``):
+    rows < pos0 are the context already ingested, and the chunk's rows are
+    written into it IN PLACE, quantised under ``kv_quant`` (the reference
+    returns the slab for its caller to write; the engine passes the slot's
+    own rows). The caller keeps pos0 + Lc <= max_seq; beyond it the slab
+    start clamps, as ``dynamic_update_slice`` does. Padding rows past
+    ``clen`` write K/V that the next chunk overwrites before it is
+    attended. Returns (slab {name: [layers, Lc, ...]}, views of the rows
+    just written, not copies; logits [vocab] f32 after tokens[clen -
+    1])."""
     lc = tokens.shape[0]
     clen = lc if clen is None else clen
     start = max(0, min(int(pos0), cache["k"].shape[1] - lc))
     pos_t = int(pos0) + torch.arange(lc, device=tokens.device)
+    wrows = start + torch.arange(lc, device=tokens.device)
     x = params["embed"][tokens.long()]
     if not cfg.rope:
         x = x + params["pos_embed"][start:start + lc]
@@ -518,33 +618,63 @@ def prefill_chunk(cfg: TransformerConfig, params: dict, tokens, cache: dict,
     if cfg.rope:
         cos, sin = _rope_angles(pos_t, cfg.head_dim, cfg.rope_theta)
         cos, sin = cos[:, None], sin[:, None]
+    names = kv_names(cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
+        kv = {name: cache[name][i] for name in names}   # [max_seq, ...]
         y = _rmsnorm(x, lp["ln1"])
         q, k, v = _qkv_proj(cfg, y, lp, "l")  # q [Lc,H,Dh], kv [Lc,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
-        cache["k"][i, start:start + lc] = k
-        cache["v"][i, start:start + lc] = v
-        attn = _masked_attention(cfg, q, cache["k"][i], cache["v"][i], pos_t)
+        _kv_write(cfg, kv, (wrows,), k, v)
+        k_read, v_read = _kv_read(cfg, kv)
+        attn = _masked_attention(cfg, q, k_read, v_read, pos_t)
         x = x + torch.einsum("thk,hkd->td", attn, lp["wo"])
         x = _dense_ffn(x, lp, ffn=cfg.ffn)
     x = _rmsnorm(x, params["final_norm"])
     logits = torch.einsum("d,vd->v", x[clen - 1], params["embed"]).float()
-    return {name: cache[name][:, start:start + lc] for name in ("k", "v")}, \
+    return {name: cache[name][:, start:start + lc] for name in names}, \
         logits
+
+
+def _last_rows(x, clen):
+    """Each row's activations after its last real token: x [B, Lc, d] at
+    column clen[b] - 1 (clipped into the chunk, as the reference's gathers
+    clamp) -> [B, d]."""
+    col = (clen.long() - 1).clamp(0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), col]
+
+
+def prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
+                        cache: dict, pos0, clen, rows=None):
+    """The dedicated prefill lane's batched chunk (the reference's
+    ``prefill_chunk_batch``, ``prefill_chunk`` under ``jax.vmap``): B
+    independent bucket-padded chunks tokens [B, Lc], row b consumed at
+    positions pos0[b]..pos0[b]+Lc-1 of cache row ``rows[b]`` (int64 [B];
+    None: rows 0..B-1), with clen[b] real tokens. ``cache`` holds the
+    lane state's KV tensors ([N, layers, max_seq, ...] each) and the
+    chunks' rows are written into it IN PLACE (the reference returns the
+    slabs for its caller to scatter); ``pos0``/``clen`` are [B] integer
+    tensors on the cache's device. Padding rows (the caller's bucket
+    padding of B) point at a scratch row nobody reads. Per-row numerics
+    are ``prefill_chunk``'s einsum shapes with a leading B axis. The
+    caller keeps pos0[b] + Lc <= max_seq for every real row. Returns
+    logits [B, vocab] f32 after each row's tokens[clen[b] - 1]."""
+    x = _slot_slab(cfg, params, tokens, cache, pos0.long(), rows)
+    return torch.einsum("bd,vd->bv", _last_rows(x, clen),
+                        params["embed"]).float()
 
 
 # ---------------------------------------------------------------- paged KV
 #
 # Block-table (PagedAttention) decode: the reference's paged half of
-# transformer.py. KV lives only in a layer-major block pool ({"k", "v"},
-# each [layers, n_blocks, block_len, Hkv, Dh], server/kv_cache.py:
+# transformer.py. KV lives only in a layer-major block pool (``k``, ``v``,
+# each [layers, n_blocks, block_len, Hkv, Dh], and under ``kv_quant`` their
+# scale tables [layers, n_blocks, block_len, Hkv]; server/kv_cache.py:
 # init_paged_pool) and each slot addresses its sequence through a block
 # table ([S, B] int32 pool block ids; entry i covers positions
 # [i*block_len, (i+1)*block_len)). Block 0 is scratch: table padding and
-# inactive slots write there, and nothing ever attends it. The int8 pool
-# (cfg.kv_quant) of the reference waits for its own slice.
+# inactive slots write there, and nothing ever attends it.
 
 def init_paged_state(n_slots: int, device=None) -> dict:
     """Per-slot device state of a paged engine: the positions only; the KV
@@ -554,33 +684,35 @@ def init_paged_state(n_slots: int, device=None) -> dict:
                                device=resolve_device(device))}
 
 
-def _paged_kv_read(pool_l: dict, tables) -> tuple:
+def _paged_kv_read(cfg: TransformerConfig, pool_l: dict, tables) -> tuple:
     """Gather one layer's K/V rows for every slot through its table:
-    [S, B] ids over [N, bl, Hkv, Dh] slabs -> [S, B*bl, Hkv, Dh] in
-    position order."""
+    [S, B] ids over [N, bl, ...] slabs -> [S, B*bl, Hkv, Dh] in position
+    order, dequantised to ``cfg.dtype`` under ``kv_quant``."""
     s, b = tables.shape
     idx = tables.long()
 
-    def gather(name):
-        g = pool_l[name][idx]                          # [S, B, bl, Hkv, Dh]
+    def gather(arr):
+        g = arr[idx]                                   # [S, B, bl, ...]
         return g.reshape(s, b * g.shape[2], *g.shape[3:])
 
-    return gather("k"), gather("v")
+    return _kv_read(cfg, {name: gather(arr) for name, arr in pool_l.items()})
 
 
-def _paged_write(pool_l: dict, bids, boffs, k, v) -> None:
+def _paged_write(cfg: TransformerConfig, pool_l: dict, bids, boffs, k,
+                 v) -> None:
     """Write the fed tokens' K/V rows into one layer's pool slabs at
     (block id, in-block offset), IN PLACE (``index_put_``; the reference
-    returns a new pool). Inactive slots all write row 0 of scratch block
-    0; which of those duplicate writes lands does not matter."""
-    pool_l["k"].index_put_((bids, boffs), k.to(pool_l["k"].dtype))
-    pool_l["v"].index_put_((bids, boffs), v.to(pool_l["v"].dtype))
+    returns a new pool), quantised under ``kv_quant``. Inactive slots all
+    write row 0 of scratch block 0; which of those duplicate writes lands
+    does not matter."""
+    _kv_write(cfg, pool_l, (bids, boffs), k, v)
 
 
 def _paged_attention_ref(cfg: TransformerConfig, q, pool_l, tables, pos):
-    """``attn_impl="ref"``: gather the table's rows, then the grouped
-    einsum attention of the reference's paged path."""
-    k_read, v_read = _paged_kv_read(pool_l, tables)
+    """``attn_impl="ref"`` (and every step under ``kv_quant``): gather the
+    table's rows, then the grouped einsum attention of the reference's
+    paged path."""
+    k_read, v_read = _paged_kv_read(cfg, pool_l, tables)
     return _masked_attention(cfg, q, k_read, v_read, pos)
 
 
@@ -590,14 +722,24 @@ def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
 
     toks/pos: [S] int32 (``pos`` is the position being written); tables:
     [S, B] int32 block tables (positions past B*block_len clamp onto the
-    last entry, as in the reference); pool: ``{"k", "v"}`` layer-major
-    tensors, written IN PLACE. Per layer the fed tokens' K/V rows go into
-    the pool through the tables, then attention reads them back:
-    ``attn_impl="flash"`` through the paged decode kernel (K2), ``"ref"``
-    through the gathered einsum. ``attention`` overrides both with a
-    function of ``(q, k_pool, v_pool, tables, pos)`` (the plain K2, for
-    example). Returns (logits [S, vocab] f32, pool)."""
-    if attention is None and cfg.attn_impl == "flash":
+    last entry, as in the reference); pool: layer-major KV tensors, written
+    IN PLACE. Per layer the fed tokens' K/V rows go into the pool through
+    the tables, then attention reads them back: ``attn_impl="flash"``
+    through the paged decode kernel (K2), ``"ref"`` through the gathered
+    einsum. ``attention`` overrides both with a function of ``(q, k_pool,
+    v_pool, tables, pos)`` (the plain K2, for example). Under ``kv_quant``
+    the step always takes the dequantising einsum, as the reference's
+    ``use_flash = attn_impl == "flash" and not kv_quant`` does: K2 reads
+    bf16 or f32 slabs, never int8, and an ``attention`` override raises
+    rather than be handed int8 slabs. Returns (logits [S, vocab] f32,
+    pool)."""
+    if cfg.kv_quant:
+        if attention is not None:
+            raise ValueError(
+                "paged_decode_steps: an attention override reads the raw "
+                "pool slabs, which are int8 under kv_quant; the int8 pool "
+                "is read by the dequantising einsum (attention=None)")
+    elif attention is None and cfg.attn_impl == "flash":
         attention = paged_decode_attention
     b = tables.shape[1]
     bl = pool["k"].shape[2]
@@ -613,14 +755,14 @@ def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
     boffs = pos_l % bl
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        pool_l = {"k": pool["k"][i], "v": pool["v"][i]}
+        pool_l = {name: arr[i] for name, arr in pool.items()}
         y = _rmsnorm(x, lp["ln1"])
         q, k, v = _qkv_proj(cfg, y, lp, "b")   # q [S,H,Dh], kv [S,Hkv,Dh]
         if cfg.rope:
             cos, sin = _rope_angles(pos, cfg.head_dim, cfg.rope_theta)
             q = _rope_apply(q, cos[:, None], sin[:, None])
             k = _rope_apply(k, cos[:, None], sin[:, None])
-        _paged_write(pool_l, bids, boffs, k, v)
+        _paged_write(cfg, pool_l, bids, boffs, k, v)
         if attention is not None:
             attn = attention(q, pool_l["k"], pool_l["v"], tables, pos)
         else:
@@ -632,20 +774,19 @@ def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
     return logits, pool
 
 
-def paged_verify_steps(cfg: TransformerConfig, params: dict, toks, pos0,
-                       tables, pool: dict, write=None) -> tuple:
-    """Score T tokens per slot against the paged pool in ONE forward: the
-    reference's ``paged_verify_steps``, ``verify_steps`` through block
-    tables. toks [S, T] int32; pos0 [S] the first position of each slot's
-    slab; tables [S, B]; pool written IN PLACE. ``write`` [S] bool (None:
-    all) routes the slab writes of slots that are not verifying to
-    scratch block 0, so their pool rows hold. Attention gathers each
-    slot's table (``_paged_kv_read``) for the einsum attention, never the
-    paged decode kernel, as in the reference. Positions past B*block_len
-    clamp onto the last table entry and ``pos_embed`` rows past max_seq
-    onto its last row, as the reference's gathers clamp. Returns (logits
-    [S, T, vocab] f32, pool); position rollback is the caller's."""
-    s_len, t_len = toks.shape
+def _paged_slab(cfg: TransformerConfig, params: dict, toks, pos0, tables,
+                pool: dict, write=None) -> torch.Tensor:
+    """The forward the paged slab passes share (the reference's
+    ``paged_verify_steps`` and ``paged_prefill_chunk_batch``): toks [S, T]
+    consumed at positions pos0[s]..pos0[s]+T-1, their K/V rows written
+    into the pool through each row's table [S, B] IN PLACE, and each
+    query row attending its gathered table under its own causal position.
+    ``write`` [S] bool (None: all) routes the writes of the other rows to
+    scratch block 0. Positions past B*block_len clamp onto the last table
+    entry and ``pos_embed`` rows past max_seq onto its last row, as the
+    reference's gathers clamp. Returns the final-normed activations
+    [S, T, d]."""
+    t_len = toks.shape[1]
     b = tables.shape[1]
     bl = pool["k"].shape[2]
     pos_t = pos0.long()[:, None] + torch.arange(t_len, device=toks.device)
@@ -663,17 +804,31 @@ def paged_verify_steps(cfg: TransformerConfig, params: dict, toks, pos0,
     boffs = pos_t % bl
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        pool_l = {"k": pool["k"][i], "v": pool["v"][i]}
+        pool_l = {name: arr[i] for name, arr in pool.items()}
         y = _rmsnorm(x, lp["ln1"])
         q, k, v = _qkv_proj(cfg, y, lp, "bt")  # q [S,T,H,Dh], kv [S,T,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
-        _paged_write(pool_l, bids, boffs, k, v)
-        k_read, v_read = _paged_kv_read(pool_l, tables)
+        _paged_write(cfg, pool_l, bids, boffs, k, v)
+        k_read, v_read = _paged_kv_read(cfg, pool_l, tables)
         attn = _masked_attention(cfg, q, k_read, v_read, pos_t)
         x = x + torch.einsum("bthk,hkd->btd", attn, lp["wo"])
         x = _dense_ffn(x, lp, ffn=cfg.ffn)
-    x = _rmsnorm(x, params["final_norm"])
+    return _rmsnorm(x, params["final_norm"])
+
+
+def paged_verify_steps(cfg: TransformerConfig, params: dict, toks, pos0,
+                       tables, pool: dict, write=None) -> tuple:
+    """Score T tokens per slot against the paged pool in ONE forward: the
+    reference's ``paged_verify_steps``, ``verify_steps`` through block
+    tables (``_paged_slab``). toks [S, T] int32; pos0 [S] the first
+    position of each slot's slab; tables [S, B]; pool written IN PLACE.
+    ``write`` [S] bool (None: all) routes the slab writes of slots that
+    are not verifying to scratch block 0, so their pool rows hold.
+    Attention gathers each slot's table for the einsum attention, never
+    the paged decode kernel, as in the reference. Returns (logits
+    [S, T, vocab] f32, pool); position rollback is the caller's."""
+    x = _paged_slab(cfg, params, toks, pos0, tables, pool, write)
     logits = torch.einsum("btd,vd->btv", x, params["embed"]).float()
     return logits, pool
 
@@ -682,13 +837,14 @@ def paged_prefill_chunk(cfg: TransformerConfig, params: dict, tokens, table,
                         pos0: int, pool: dict, clen: int = None) -> tuple:
     """``prefill_chunk`` through one slot's block table: tokens [Lc]
     consumed at positions pos0..pos0+Lc-1, their K/V rows written into the
-    pool through ``table`` IN PLACE, and attention over the gathered
-    table. ``table`` [B] int32 is the slot's FULL-width table (B*block_len
-    covers max_seq, so in-prompt positions never clamp); padding rows past
-    ``clen`` land on scratch (unallocated entries are block 0) or on the
-    slot's own future rows, which are written again before they are
-    attended. Always the einsum attention, as in the reference. Returns
-    (pool, logits [vocab] f32 after tokens[clen - 1])."""
+    pool through ``table`` IN PLACE (quantised under ``kv_quant``), and
+    attention over the gathered table. ``table`` [B] int32 is the slot's
+    FULL-width table (B*block_len covers max_seq, so in-prompt positions
+    never clamp); padding rows past ``clen`` land on scratch (unallocated
+    entries are block 0) or on the slot's own future rows, which are
+    written again before they are attended. Always the einsum attention,
+    as in the reference. Returns (pool, logits [vocab] f32 after
+    tokens[clen - 1])."""
     lc = tokens.shape[0]
     b = table.shape[0]
     bl = pool["k"].shape[2]
@@ -707,16 +863,34 @@ def paged_prefill_chunk(cfg: TransformerConfig, params: dict, tokens, table,
     boffs = pos_t % bl
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        pool_l = {"k": pool["k"][i], "v": pool["v"][i]}
+        pool_l = {name: arr[i] for name, arr in pool.items()}
         y = _rmsnorm(x, lp["ln1"])
         q, k, v = _qkv_proj(cfg, y, lp, "l")  # q [Lc,H,Dh], kv [Lc,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
-        _paged_write(pool_l, bids, boffs, k, v)
-        k_read, v_read = _paged_kv_read(pool_l, table[None])
+        _paged_write(cfg, pool_l, bids, boffs, k, v)
+        k_read, v_read = _paged_kv_read(cfg, pool_l, table[None])
         attn = _masked_attention(cfg, q, k_read[0], v_read[0], pos_t)
         x = x + torch.einsum("thk,hkd->td", attn, lp["wo"])
         x = _dense_ffn(x, lp, ffn=cfg.ffn)
     x = _rmsnorm(x, params["final_norm"])
     logits = torch.einsum("d,vd->v", x[clen - 1], params["embed"]).float()
+    return pool, logits
+
+
+def paged_prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
+                              tables, pos0, pool: dict, clen) -> tuple:
+    """The dedicated prefill lane's batched chunk under the paged layout
+    (the reference's ``paged_prefill_chunk_batch``): B rows' chunks tokens
+    [B, Lc] consumed at positions pos0[b]..pos0[b]+Lc-1, their K/V rows
+    written into the pool through each row's FULL-width table [B, Bf] IN
+    PLACE (``_paged_slab``, the ``paged_verify_steps`` execution shape),
+    with clen[b] real tokens per row. Rows write disjoint blocks (each lane
+    slot owns its table); bucket padding rows carry all-zero tables, so
+    their writes go to scratch block 0, which nothing attends. Returns
+    (pool, logits [B, vocab] f32 after each row's tokens[clen[b] -
+    1])."""
+    x = _paged_slab(cfg, params, tokens, pos0, tables, pool)
+    logits = torch.einsum("bd,vd->bv", _last_rows(x, clen),
+                          params["embed"]).float()
     return pool, logits

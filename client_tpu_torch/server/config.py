@@ -191,8 +191,10 @@ class GenerationEngineConfig:
     limited to the knobs the port's engine runs: slot count, chunk,
     dispatch depth, the ring fetch cadence (``fetch_stride``, ``overlap``,
     ``ring_entries``), the prompt-ingestion mode and its lane, the
-    host-RAM prefix tier's budget (``host_tier_bytes``, 0 = none) and the
-    KV layout with its pool geometry (0s under ``slot``). Configs built by
+    dedicated prefill lane (``prefill_slots``, ``prefill_lane_width`` and
+    ``prefill_lane_batch``, all 0 without it), the host-RAM prefix tier's
+    budget (``host_tier_bytes``, 0 = none) and the KV layout with its pool
+    geometry (0s under ``slot``). Configs built by
     ``make_continuous_generator`` advertise the EFFECTIVE values the
     engine's own resolvers give, so introspection agrees with what the
     engine runs."""
@@ -206,6 +208,9 @@ class GenerationEngineConfig:
     prefill_mode: str = "token"
     prefill_chunk: int = 64
     prefill_token_budget: int = 0
+    prefill_slots: int = 0
+    prefill_lane_width: int = 0
+    prefill_lane_batch: int = 0
     host_tier_bytes: int = 0
     kv_layout: str = "slot"
     kv_block_len: int = 0

@@ -1,7 +1,7 @@
 """Continuous (in-flight) batching engine for autoregressive generation:
 the port of ``client_tpu/server/generation.py``: its core, the prefix
-cache with its host-RAM tier, speculative decoding and the closed-loop
-SLO scheduler, without the dedicated lanes.
+cache with its host-RAM tier, speculative decoding, the closed-loop SLO
+scheduler, the dedicated prefill lanes and the int8 KV cache.
 
 Ragged concurrent streams share one fixed batch of S slots at token
 granularity: every engine step feeds each active slot exactly one token,
@@ -98,10 +98,28 @@ Host tier (``host_tier_bytes``): evicted prefix blocks spill to pinned host
 memory and a hit restores them (``kv_cache.HostTierStore``), both copies
 enqueued on the engine's stream.
 
-Knobs of the reference that this slice does not run (the dedicated
-lanes, meshes and fleets, the watchdog, goodput and timeline planes)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them;
-none is silently ignored.
+Dedicated prefill lanes (``prefill_slots`` > 0, chunked prefill only): a
+second set of slots with its own device state (positions and pending first
+tokens; under the slot layout its own KV rows) ingests prompts longer than
+one decode chunk in ``prefill_lane_width``-token resumable chunks
+(``prefill_lane_batch`` >= 2 packs several lane slots' chunks into one
+``[B, Lc]`` dispatch, ``lane_batch_kernel`` / ``paged_lane_batch``), so the
+decode chunk never carries a frozen prompt. A finished prompt hands off to
+a free decode slot at the next admission pass: under the paged layout its
+block table moves on the host and ``lane_handoff`` copies the position and
+the first token on the engine's stream (no KV copy); under the slot layout
+its full blocks commit from the lane's rows to the prefix pool, the chain
+is acquired pinned, the lane's handle released, and ``pool_to_slot``
+restores it into the decode slot, whose sub-block tail feeds token by
+token.
+
+int8 KV (``cfg.kv_quant``): every state, pool and tier entry carries the
+scale tables beside the int8 rows; the paged decode step then takes the
+dequantising einsum, never K2, as in the reference.
+
+Knobs of the reference that this slice does not run (meshes and fleets,
+the watchdog, goodput and timeline planes) raise ``NotImplementedError``
+naming the ROADMAP item that ports them; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -175,9 +193,6 @@ log = logging.getLogger(__name__)
 # the reference engine's knobs this slice leaves out -> the ROADMAP item
 # that ports them
 UNPORTED_KNOBS = {
-    "prefill_slots": "A10e (dedicated lanes)",
-    "prefill_lane_width": "A10e (dedicated lanes)",
-    "prefill_lane_batch": "A10e (dedicated lanes)",
     "mesh": "A12 (mesh and fleets)",
     "engine_devices": "A12 (mesh and fleets)",
     "watchdog": "A13 (runtime planes)",
@@ -308,7 +323,7 @@ def prefill_into_slot(cfg, params: dict, cache: dict, pos, last, idx: int,
     keep stale K/V that decode overwrites before attending."""
     st, logits = t.prefill(cfg, params, toks, plen, pad_to_max=False)
     bucket = toks.shape[0]
-    for name in ("k", "v"):
+    for name in cache:
         cache[name][idx, :, :bucket] = st[name]
     pos[idx] = plen
     last[idx] = _select_first(logits, pos, idx, sampling)
@@ -324,7 +339,7 @@ def prefill_chunk_into_slot(cfg, params: dict, cache: dict, pos, last,
     ``pos0 + clen``. The prompt's ``final`` chunk also selects the first
     generated token into ``last[idx]``, which the next decode chunk
     consumes."""
-    slot_rows = {name: cache[name][idx] for name in ("k", "v")}
+    slot_rows = {name: arr[idx] for name, arr in cache.items()}
     _, logits = t.prefill_chunk(cfg, params, toks, slot_rows, pos0, clen)
     pos[idx] = pos0 + clen
     if final:
@@ -345,6 +360,64 @@ def paged_prefill_chunk_into_slot(cfg, params: dict, pool: dict, pos, last,
         last[idx] = _select_first(logits, pos, idx, sampling)
 
 
+def _lane_batch_finish(logits, pos, last, rows, pos0s, clens, finals,
+                       sampling: tuple) -> None:
+    """The batched lane's bookkeeping on its state, IN PLACE: each row's
+    lane slot ``rows[b]`` moves to position pos0s[b] + clens[b], and a
+    row whose chunk ends its prompt (``finals``) selects the first
+    generated token at its last position into ``last``. Padding rows
+    point at the lane state's scratch entry."""
+    seeds, temps, topks, topps = sampling
+    end = pos0s + clens
+    tok = select_token(logits, seeds, end - 1, temps, topks, topps)
+    pos.index_put_((rows,), end.to(pos.dtype))
+    last.index_put_((rows,), torch.where(finals, tok.to(last.dtype),
+                                         last[rows]))
+
+
+def lane_batch_kernel(cfg, params: dict, cache: dict, pos, last, rows, toks,
+                      pos0s, clens, finals, sampling: tuple) -> None:
+    """One batched dedicated-lane dispatch under the slot layout (the
+    reference's ``lane_batch_kernel``): B lane slots' next chunks toks
+    [B, Lc] through ``transformer.prefill_chunk_batch`` into their rows
+    ``rows`` [B] of the lane state ``cache``, IN PLACE, at per-row
+    offsets pos0s and real lengths clens, each final row selecting its
+    stream's first token (``_lane_batch_finish``). Bucket padding rows
+    carry the lane state's scratch row, whose writes nothing reads (the
+    reference drops them with ``mode="drop"``; torch has no dropping
+    scatter, and an out-of-range index is a device-side assert on the
+    card)."""
+    logits = t.prefill_chunk_batch(cfg, params, toks, cache, pos0s, clens,
+                                   rows)
+    _lane_batch_finish(logits, pos, last, rows, pos0s, clens, finals,
+                       sampling)
+
+
+def paged_lane_batch(cfg, params: dict, pool: dict, pos, last, rows, tables,
+                     toks, pos0s, clens, finals, sampling: tuple) -> None:
+    """``lane_batch_kernel`` under the paged layout (the reference's
+    ``paged_lane_batch``): the rows' chunks go through their full-width
+    block tables [B, b_max] into the shared pool
+    (``transformer.paged_prefill_chunk_batch``), IN PLACE. Padding rows
+    carry all-zero tables, so their writes land on scratch block 0, and
+    the lane state's scratch entry for their position and token."""
+    _, logits = t.paged_prefill_chunk_batch(cfg, params, toks, tables,
+                                            pos0s, pool, clens)
+    _lane_batch_finish(logits, pos, last, rows, pos0s, clens, finals,
+                       sampling)
+
+
+def lane_handoff(pos, last, lane_pos, lane_last, d: int, p: int) -> None:
+    """The paged handoff's only device work (the reference's
+    ``lane_handoff``): the finished prompt's position and selected first
+    token move from lane slot ``p`` to decode slot ``d``, IN PLACE, on the
+    engine's stream, behind the lane chunk that selected the token and
+    ahead of the decode chunk that consumes it. The KV stays where it is
+    in the pool; the block table moves on the host."""
+    pos[d] = lane_pos[p]
+    last[d] = lane_last[p]
+
+
 def draft_prefill(dcfg, dparams: dict, dcache: dict, dpos, idx: int, toks,
                   plen: int) -> None:
     """The draft's catch-up on slot ``idx`` (the reference's
@@ -354,7 +427,7 @@ def draft_prefill(dcfg, dparams: dict, dcache: dict, dpos, idx: int, toks,
     ``plen`` keep K/V the position mask never attends."""
     st, _ = t.prefill(dcfg, dparams, toks, plen, pad_to_max=False)
     bucket = toks.shape[0]
-    for name in ("k", "v"):
+    for name in dcache:
         dcache[name][idx, :, :bucket] = st[name]
     dpos[idx] = plen
 
@@ -562,10 +635,13 @@ class _Request:
 
 class _Slot:
     __slots__ = ("req", "cursor", "pos_hi", "decode_dispatched", "blocks",
-                 "n_shared", "reserved_left", "pos_pending", "draft_ready")
+                 "n_shared", "reserved_left", "pos_pending", "draft_ready",
+                 "adm_seq")
 
     def __init__(self):
         self.req: Optional[_Request] = None
+        # a lane slot's admission order: handoffs go oldest first
+        self.adm_seq = 0
         self.cursor = 0           # prompt tokens already dispatched
         # upper bound of the slot's device position over everything
         # dispatched so far (+chunk per dispatch, +rung + 1 per verify
@@ -648,7 +724,17 @@ class ContinuousBatchingEngine:
     keep the card busy: below 1 it sleeps ``(1/duty - 1)`` of a round's
     time after each round. ``host_tier_bytes`` > 0 (with ``prefix_cache``)
     spills evicted prefix blocks to a host-RAM store of that size and
-    restores them on a hit."""
+    restores them on a hit.
+
+    Dedicated prefill lanes: ``prefill_slots`` > 0 (with
+    ``prefill_mode="chunked"``; under the slot layout also the prefix cache
+    with a writable commit policy, whose pool carries the handoff) adds
+    that many lane slots, which ingest prompts longer than one chunk in
+    ``prefill_lane_width``-token chunks (0: ``prefill_chunk``) within the
+    round's ``prefill_token_budget`` and hand them to decode slots;
+    ``prefill_lane_batch`` >= 2 packs up to that many lane slots' chunks
+    into one dispatch. Greedy output is the same as the piggyback lane's.
+    int8 KV comes with the config (``cfg.kv_quant``)."""
 
     PREFILL_MODES = ("token", "batched", "chunked")
     KV_LAYOUTS = ("slot", "paged")
@@ -657,8 +743,10 @@ class ContinuousBatchingEngine:
                  dispatch_depth: int = 2, queue_depth: int = 256,
                  prefill: bool = False, prefill_mode: Optional[str] = None,
                  prefill_chunk: int = 64, prefill_token_budget: int = 0,
-                 fetch_stride: int = 4, overlap: bool = True,
-                 ring_entries: int = 0, kv_layout: str = "slot",
+                 prefill_slots: int = 0, prefill_lane_width: int = 0,
+                 prefill_lane_batch: int = 0, fetch_stride: int = 4,
+                 overlap: bool = True, ring_entries: int = 0,
+                 kv_layout: str = "slot",
                  kv_block_len: int = 16, kv_pool_blocks: int = 0,
                  kv_max_blocks_per_slot: int = 0,
                  prefix_cache: bool = False, prefix_blocks: int = 256,
@@ -770,6 +858,18 @@ class ContinuousBatchingEngine:
         self._prefill_chunks_dispatched = 0
         self._prefill_tokens_dispatched = 0
         self._lane_rr = 0         # rotating lane scan start (engine thread)
+        # the dedicated prefill lane (0 slots: the piggyback lane): its own
+        # slots and device state, its own chunk ladder, and the batched
+        # dispatch width (0: one lane slot per dispatch)
+        self._lane_n, self._lane_width = self.resolve_disagg(
+            cfg, mode, prefill_slots, prefill_lane_width, prefill_chunk,
+            self._kv_layout, prefix_cache, prefix_commit_policy)
+        self._lane_on = self._lane_n > 0
+        self._lane_slots = [_Slot() for _ in range(self._lane_n)]
+        self._lane_adm_seq = 0
+        self._lane_handoffs = 0
+        self._lane_batch = self.resolve_lane_batch(self._lane_n,
+                                                   prefill_lane_batch)
         self._device = resolve_device(device)
         if self._device.type == "cuda" and self._device.index is None:
             # the engine thread sets its current device, which needs an
@@ -839,9 +939,13 @@ class ContinuousBatchingEngine:
         self._timed_dispatches = 0
         # every dispatch (chunk and verify round), as the reference counts
         self._chunks_dispatched = 0
-        # engine-thread host seconds and count of each dispatch kind
-        self._kind_s = {"chunk": 0.0, "spec": 0.0, "draft_prefill": 0.0}
-        self._kind_n = {"chunk": 0, "spec": 0, "draft_prefill": 0}
+        # engine-thread host seconds and count of each dispatch kind (the
+        # dedicated lane's per-slot and batched chunks and its handoffs
+        # beside the chunks, verify rounds and draft catch-ups)
+        kinds = ("chunk", "spec", "draft_prefill", "lane", "lane_batch",
+                 "handoff")
+        self._kind_s = dict.fromkeys(kinds, 0.0)
+        self._kind_n = dict.fromkeys(kinds, 0)
         self._tokens_emitted = 0
         self._requests_completed = 0
         # accepted == closed (under _lock) is drain()'s idleness criterion
@@ -972,6 +1076,65 @@ class ContinuousBatchingEngine:
         return max(1, int(prefill_token_budget) or int(prefill_chunk))
 
     @staticmethod
+    def resolve_disagg(cfg, prefill_mode: str, prefill_slots: int,
+                       prefill_lane_width: int, prefill_chunk: int,
+                       kv_layout: str, prefix_cache: bool,
+                       prefix_commit_policy: str) -> tuple:
+        """Validate the dedicated-lane knobs; returns ``(prefill_slots,
+        prefill_lane_width)``, both 0 with the lane off. A lane needs
+        ``prefill_mode="chunked"``; under the slot layout its handoff
+        rides the prefix pool's commit and restore, so ``prefix_cache``
+        must be on with a writable commit policy (the paged handoff is a
+        table move and needs neither); the width defaults to
+        ``prefill_chunk`` (0) and must lie in [1, max_seq]."""
+        n = int(prefill_slots)
+        if n < 0:
+            raise ValueError("prefill_slots must be >= 0 (0 = the "
+                             "piggyback lane)")
+        if n == 0:
+            return 0, 0
+        if prefill_mode != "chunked":
+            raise ValueError(
+                f'prefill_slots {n} requires prefill_mode="chunked" '
+                f'(the dedicated lane is resumable chunked prompt '
+                f'ingestion in its own slot set), got '
+                f'{prefill_mode!r}')
+        width = int(prefill_lane_width) or int(prefill_chunk)
+        if width < 1 or width > cfg.max_seq:
+            raise ValueError(
+                f"prefill_lane_width {width} must be in [1, max_seq="
+                f"{cfg.max_seq}]")
+        if kv_layout != "paged" and (
+                not prefix_cache or prefix_commit_policy == "none"):
+            raise ValueError(
+                'prefill_slots under kv_layout="slot" hands finished '
+                'KV to the decode lane through the prefix pool: '
+                'prefix_cache must be enabled with a writable '
+                'prefix_commit_policy ("all"/"no-evict"), or use '
+                'kv_layout="paged" (zero-copy block-table handoff)')
+        return n, width
+
+    @staticmethod
+    def resolve_lane_batch(prefill_slots: int,
+                           prefill_lane_batch: int) -> int:
+        """The batched lane's width: 0 and 1 resolve to 0 (one lane slot
+        per dispatch); >= 2 needs a dedicated lane and clamps to its slot
+        count."""
+        b = int(prefill_lane_batch)
+        if b < 0:
+            raise ValueError("prefill_lane_batch must be >= 0 (0 = "
+                             "one lane slot per dispatch)")
+        if b <= 1:
+            return 0
+        if prefill_slots <= 0:
+            raise ValueError(
+                f"prefill_lane_batch {b} requires a dedicated prefill "
+                f"lane (prefill_slots > 0): batched lane dispatch "
+                f"packs prefill-lane slots, and the piggyback lane "
+                f"has none")
+        return min(b, int(prefill_slots))
+
+    @staticmethod
     def ring_shape(fetch_stride: int, overlap: bool, dispatch_depth: int,
                    ring_entries: int, entries_per_iter: int = 2) -> tuple:
         """Effective ``(stride, ring_entries)``: overlap off clamps the
@@ -1011,29 +1174,45 @@ class ContinuousBatchingEngine:
     # ---------------------------------------------------------- introspection
 
     def active_slots(self) -> int:
+        """Occupied decode slots."""
         return sum(1 for s in self._slots if s.req is not None)
 
+    def active_lane_slots(self) -> int:
+        """Occupied dedicated-lane slots (0 without the lane)."""
+        return sum(1 for s in self._lane_slots if s.req is not None)
+
     def _prefill_backlog(self) -> int:
-        """Prompt tokens of occupied slots not dispatched yet (read from
-        any thread: each slot's request is read once)."""
+        """Prompt tokens of occupied decode and lane slots not dispatched
+        yet (read from any thread: each slot's request is read once)."""
         total = 0
-        for slot in self._slots:
+        for slot in self._slots + self._lane_slots:
             req = slot.req
             if req is not None:
                 total += max(0, len(req.prompt) - slot.cursor)
         return total
 
     def _prefill_lane_snapshot(self) -> Optional[dict]:
-        """The chunked-prefill lane's state; None unless
-        ``prefill_mode="chunked"``."""
+        """The chunked-prefill lane's state, with the dedicated lane's
+        slots, width, occupancy, handoffs and batch width when it has one;
+        None unless ``prefill_mode="chunked"``."""
         if not self._chunked_prefill:
             return None
-        return {"mode": self._prefill_mode,
+        snap = {"mode": self._prefill_mode,
                 "chunk": self._prefill_chunk_len,
                 "token_budget": self._prefill_budget,
                 "chunks": self._prefill_chunks_dispatched,
                 "tokens": self._prefill_tokens_dispatched,
-                "backlog_tokens": self._prefill_backlog()}
+                "backlog_tokens": self._prefill_backlog(),
+                "dedicated": self._lane_on}
+        if self._lane_on:
+            # the batched dispatches and the slots they packed are
+            # gen_stats' lane_batch pair
+            snap.update({"slots": self._lane_n,
+                         "lane_width": self._lane_width,
+                         "active": self.active_lane_slots(),
+                         "handoffs": self._lane_handoffs,
+                         "lane_batch": self._lane_batch})
+        return snap
 
     def _paged_snapshot(self) -> Optional[dict]:
         """The paged pool's occupancy; None under the slot layout."""
@@ -1077,22 +1256,27 @@ class ContinuousBatchingEngine:
         the engine thread, the ring, the chunked-prefill lane, the pool
         occupancy, the host tier, the scheduler, the prefix index and
         speculation (each None where the engine has none), the SLO
-        statistics, and the slot table (the rows of the reference's
+        statistics, and the slot tables (the rows of the reference's
         ``debug_snapshot``: each held slot's prompt length, tokens
-        emitted, budget, SLO labels and cursors). The table is read while
-        the engine thread runs: a best-effort view, not a consistency
-        point."""
-        slots = []
-        for i, slot in enumerate(self._slots):
-            req = slot.req
-            row = {"slot": i, "active": req is not None}
-            if req is not None:
-                row.update({"prompt_tokens": int(len(req.prompt)),
-                            "emitted": req.emitted, "budget": req.budget,
-                            "tenant": req.tenant,
-                            "slo_class": req.slo_class,
-                            "cursor": slot.cursor, "pos_hi": slot.pos_hi})
-            slots.append(row)
+        emitted, budget, SLO labels and cursors; ``lane_slots`` None
+        without the dedicated lane). The tables are read while the engine
+        thread runs: a best-effort view, not a consistency point."""
+        def rows(table):
+            out = []
+            for i, slot in enumerate(table):
+                req = slot.req
+                row = {"slot": i, "active": req is not None}
+                if req is not None:
+                    row.update({"prompt_tokens": int(len(req.prompt)),
+                                "emitted": req.emitted,
+                                "budget": req.budget, "tenant": req.tenant,
+                                "slo_class": req.slo_class,
+                                "cursor": slot.cursor,
+                                "pos_hi": slot.pos_hi})
+                out.append(row)
+            return out
+
+        slots = rows(self._slots)
         spec = self._speculation_snapshot()
         return {
             "n_slots": self._n_slots,
@@ -1128,6 +1312,7 @@ class ContinuousBatchingEngine:
                        "host_s": self._kind_s[kind]}
                 for kind in self._kind_n},
             "slots": slots,
+            "lane_slots": rows(self._lane_slots) if self._lane_on else None,
             "slo": self.slo_stats.snapshot(),
         }
 
@@ -1590,9 +1775,11 @@ class ContinuousBatchingEngine:
                 cfg.max_seq // self._kv_block_len)
             self._dev["pos"] = t.init_paged_state(s, dev)["pos"]
         else:
+            # the KV tensors (int8 ones with their scale tables under
+            # kv_quant) and the positions
             state = t.init_decode_state(cfg, s, dev)
-            self._dev["cache"] = {"k": state["k"], "v": state["v"]}
-            self._dev["pos"] = state["pos"]
+            self._dev["pos"] = state.pop("pos")
+            self._dev["cache"] = state
             if self._prefix_index is not None:
                 # the slot layout's prefix pool, in front of the slot rows;
                 # a match or commit covers at most max_seq // bl blocks,
@@ -1611,10 +1798,12 @@ class ContinuousBatchingEngine:
             # pads to the smallest bucket that covers it
             self._dev["pchunk_buckets"] = block_count_buckets(
                 self._prefill_chunk_len, start=8)
+        if self._lane_on:
+            self._init_lane_state()
         if self._spec is not None:
             dstate = t.init_decode_state(self._draft.cfg, s, dev)
-            self._dev["dcache"] = {"k": dstate["k"], "v": dstate["v"]}
-            self._dev["dpos"] = dstate["pos"]
+            self._dev["dpos"] = dstate.pop("pos")
+            self._dev["dcache"] = dstate
             self._dev["dparams"] = _to_device(self._draft.params, dev)
             # the draft's catch-up covers whole prompts
             self._dev["draft_buckets"] = block_count_buckets(cfg.max_seq,
@@ -1641,6 +1830,27 @@ class ContinuousBatchingEngine:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self._dev["ready"] = True
+
+    def _init_lane_state(self) -> None:
+        """The dedicated lane's device state: positions and pending first
+        tokens (and under the slot layout its own KV rows) for its slots
+        plus one scratch row, where the batched lane's padding rows write
+        what nothing reads; its chunk ladder of powers of two up to
+        ``prefill_lane_width``, and the batched lane's row-count ladder."""
+        cfg, dev, n = self._cfg, self._device, self._lane_n + 1
+        if self._paged:
+            self._dev["lane_pos"] = t.init_paged_state(n, dev)["pos"]
+        else:
+            state = t.init_decode_state(cfg, n, dev)
+            self._dev["lane_pos"] = state.pop("pos")
+            self._dev["lane_cache"] = state
+        self._dev["lane_last"] = torch.zeros((n,), dtype=torch.int32,
+                                             device=dev)
+        self._dev["lane_buckets"] = block_count_buckets(self._lane_width,
+                                                        start=8)
+        if self._lane_batch:
+            self._dev["lane_b_buckets"] = block_count_buckets(
+                self._lane_batch)
 
     def _attach_tier(self) -> None:
         """Arm the host tier on the prefix pool (the paged pool, layer-
@@ -1744,22 +1954,25 @@ class ContinuousBatchingEngine:
             self.gen_stats.record_tier_hit()
         return handle
 
-    def _bind_paged(self, req: _Request, slot: _Slot, staged: dict) -> None:
+    def _bind_paged(self, req: _Request, slot: _Slot, staged: dict,
+                    lane: bool = False) -> None:
         """Apply a staged admission: the shared chain of a hit becomes the
         head of the slot's table (no copy: its rows are attended where
         they lie in the pool), the stream grows into its reservation, and
         its start position (0, or the matched length) rides the next
-        dispatch as data."""
+        dispatch as data. A ``lane`` slot needs no pending position: its
+        chunks set the position from the host cursor."""
         handle, matched = staged["handle"], staged["matched"]
         slot.reserved_left = staged["need"]
         slot.blocks = []
         slot.n_shared = 0
-        slot.pos_pending = 0
+        slot.pos_pending = None if lane else 0
         if handle is not None:
             req.prefix = handle
             slot.blocks = list(handle.block_ids)
             slot.n_shared = len(handle.block_ids)
-            slot.cursor = slot.pos_hi = slot.pos_pending = matched
+            slot.cursor = slot.pos_hi = matched
+            slot.pos_pending = None if lane else matched
             self.gen_stats.record_prefix_hit(matched)
         elif (self._prefix_index is not None
                 and len(req.prompt) > self._kv_block_len):
@@ -1826,12 +2039,15 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------- the slot layout's prefix pool
 
-    def _restore_prefix(self, idx: int, req: _Request, slot: _Slot) -> bool:
+    def _restore_prefix(self, idx: int, req: _Request, slot: _Slot,
+                        lane: bool = False) -> bool:
         """Prefix-cache admission under the slot layout: the longest
         full-block match is copied into the slot's rows ``[0, matched)``
         by one bucketed ``pool_to_slot``, which also sets the slot's
         position, and the prompt resumes there (a cursor above 0 also
-        keeps the next chunk from resetting the slot). Under
+        keeps the next chunk from resetting the slot). ``lane`` acts on
+        the dedicated lane's state (the reference's
+        ``state_key="lane_state"``) instead of the decode slots'. Under
         ``prefill_mode="batched"`` a match that leaves more than one chunk
         uncovered is released and counted as a miss: the token-level
         resume would be slower than the batched forward it replaces.
@@ -1851,20 +2067,30 @@ class ContinuousBatchingEngine:
         bucket = next(b for b in self._dev["prefix_buckets"]
                       if b >= len(handle.block_ids))
         (ids,) = self._upload([pad_block_ids(handle.block_ids, bucket)])
-        dev = self._dev
-        pool_to_slot(dev["prefix_pool"], dev["cache"], dev["pos"], idx, ids,
+        cache, pos = self._slot_state(lane)
+        pool_to_slot(self._dev["prefix_pool"], cache, pos, idx, ids,
                      handle.matched_tokens)
         slot.cursor = slot.pos_hi = handle.matched_tokens
         slot.draft_ready = False
         self.gen_stats.record_prefix_hit(handle.matched_tokens)
         return True
 
-    def _commit_prefix(self, idx: int, req: _Request, tokens=None) -> None:
+    def _slot_state(self, lane: bool) -> tuple:
+        """(KV tensors, positions) of the slot layout's decode slots, or
+        of the dedicated lane's with ``lane``."""
+        if lane:
+            return self._dev["lane_cache"], self._dev["lane_pos"]
+        return self._dev["cache"], self._dev["pos"]
+
+    def _commit_prefix(self, idx: int, req: _Request, tokens=None,
+                       lane: bool = False) -> None:
         """Commit a request's uncovered full prompt blocks (or those of
         ``tokens``: a preemption commits the prompt and the generated
-        tokens, whose rows the slot holds too) from slot ``idx`` to the
-        prefix pool: one bucketed ``slot_to_pool`` over the plan's
-        contiguous tail run, then the plan's nodes are unpinned.
+        tokens, whose rows the slot holds too; a lane handoff the prompt
+        ingested so far) from slot ``idx`` (of the dedicated lane's state
+        with ``lane``) to the prefix pool: one bucketed ``slot_to_pool``
+        over the plan's contiguous tail run, then the plan's nodes are
+        unpinned.
 
         Stream order is what makes this right, as device FIFO order is in
         the reference: the copy is enqueued on the engine's stream while
@@ -1884,8 +2110,8 @@ class ContinuousBatchingEngine:
         offs = np.zeros(bucket, np.int32)  # padding reads rows [0, bl)
         offs[:len(plan)] = [off for _bid, off, _node in plan]
         ids_d, offs_d = self._upload([pad_block_ids(ids, bucket), offs])
-        slot_to_pool(self._dev["prefix_pool"], self._dev["cache"], idx,
-                     ids_d, offs_d)
+        slot_to_pool(self._dev["prefix_pool"], self._slot_state(lane)[0],
+                     idx, ids_d, offs_d)
         self._prefix_index.finish_commit(plan)
 
     # ---------------------------------------------------------- engine loop
@@ -1909,14 +2135,15 @@ class ContinuousBatchingEngine:
         return True
 
     def _reap_slots(self) -> None:
-        """The dispatch-boundary sweep: settle and free every slot whose
-        request's deadline passed, whose cancel Event is set, or which was
-        closed from outside (a consumer's cancel or deadline). It runs
-        once per engine iteration, so such a stream holds its slot for at
-        most one more dispatch, never to its budget. Nothing is
-        committed: its blocks are freed, its pins released."""
+        """The dispatch-boundary sweep: settle and free every decode or
+        lane slot whose request's deadline passed, whose cancel Event is
+        set, or which was closed from outside (a consumer's cancel or
+        deadline). It runs once per engine iteration, so such a stream
+        holds its slot for at most one more dispatch, never to its
+        budget. Nothing is committed: its blocks are freed, its pins
+        released."""
         now = now_ns()
-        for slot in self._slots:
+        for slot in self._slots + self._lane_slots:
             req = slot.req
             if req is None:
                 continue
@@ -2064,8 +2291,11 @@ class ContinuousBatchingEngine:
         cursor is 0). With the prefix cache on, the slot layout restores a
         match here (``_restore_prefix``) and the paged layout binds it;
         under ``prefill_mode="batched"`` a prompt longer than one chunk
-        that was not restored is ingested here, by one forward. Returns
-        True if any slot is occupied afterwards."""
+        that was not restored is ingested here, by one forward. With a
+        dedicated lane, ``_admit_disagg`` admits instead. Returns True if
+        any slot is occupied afterwards."""
+        if self._lane_on:
+            return self._admit_disagg(held)
         exhausted = False
         admitted_n = 0          # slots filled this pass
         # (req, parked, first park, admissions before it): parked heads
@@ -2116,13 +2346,7 @@ class ContinuousBatchingEngine:
                 break
             if req is None:
                 break
-            slot.req = req
-            slot.cursor = 0
-            slot.pos_hi = 0
-            slot.decode_dispatched = 0
-            slot.pos_pending = None
-            slot.draft_ready = False
-            self._record_admission(req)
+            self._fill_slot(slot, req)
             admitted_n += 1
             if self._paged:
                 self._bind_paged(req, slot, staged)
@@ -2142,6 +2366,396 @@ class ContinuousBatchingEngine:
         if held is not None:   # no free slot took it
             self._pending.push_front(held, (held.tenant, held.slo_class))
         return any(s.req is not None for s in self._slots)
+
+    # ------------------------------------------- the dedicated prefill lane
+
+    def _needs_lane(self, req: _Request) -> bool:
+        """Whether a candidate goes through the lane: a prompt longer than
+        one decode chunk (a shorter one feeds within one chunk dispatch),
+        and under the slot layout one with at least one full block to
+        hand off through the pool."""
+        plen = len(req.prompt)
+        if plen <= self._chunk:
+            return False
+        if not self._paged:
+            return (plen - 1) // self._prefix_block_len > 0
+        return True
+
+    def _lane_target(self, req: _Request) -> int:
+        """Where lane ingestion ends: the whole prompt under the paged
+        layout (its final chunk selects the first token), the last full
+        block below the prompt's last token under the slot layout (the
+        pool carries full blocks only, a match stops one token short, and
+        the tail feeds token by token in the decode slot)."""
+        plen = len(req.prompt)
+        if self._paged:
+            return plen
+        bl = self._prefix_block_len
+        return ((plen - 1) // bl) * bl
+
+    def _lane_done(self, slot: _Slot, req: _Request) -> bool:
+        """A lane slot is ready to hand off once its cursor reached the
+        lane target, or once no lane bucket fits below max_seq (the few
+        tokens left feed token by token on the decode side)."""
+        if slot.cursor >= self._lane_target(req):
+            return True
+        return slot.cursor + self._dev["lane_buckets"][0] > self._cfg.max_seq
+
+    def _admit_disagg(self, held: Optional[_Request] = None) -> bool:
+        """Admission with a dedicated lane: ready lane slots hand off to
+        free decode slots first (oldest lane admission first), then free
+        slots of both kinds fill from the queue in its order, each
+        candidate routed by ``_needs_lane``. A candidate whose slot kind is
+        full goes back to its flow's head, and its flow's later entries
+        behind it (strict order within a flow), so a backlog of long
+        prompts cannot block short ones from free decode slots, nor the
+        other way round. A failed paged reservation parks the request and
+        ends the pass (no bypass). Fresh arrivals keep their standing
+        against ``queue_depth`` when they go back. Returns True if any
+        decode or lane slot is occupied afterwards."""
+        self._do_handoffs()
+        deferred: list = []      # (req, first park, counted)
+        deferred_flows: set = set()
+        bound = 2 * (self._n_slots + self._lane_n)
+        tries_left = bound
+        while True:
+            if not any(s.req is None for s in self._slots) \
+                    and not any(s.req is None for s in self._lane_slots):
+                break
+            if len(deferred) > bound:
+                # a deep queue of the other kind's candidates must not
+                # turn one pass into a scan of the queue
+                break
+            if held is not None:
+                cand, held = held, None
+                counted = False
+            else:
+                try:
+                    cand, counted = self._pending.get_entry_nowait()
+                except queue.Empty:
+                    break
+            if not self._admissible(cand):
+                if cand.parked:
+                    cand.parked = False
+                    self._pending.unpark()
+                continue
+            key = (cand.tenant, cand.slo_class)
+            if key in deferred_flows:
+                deferred.append((cand, False, counted))
+                continue
+            lane = self._needs_lane(cand)
+            table = self._lane_slots if lane else self._slots
+            idx = next((i for i, s in enumerate(table) if s.req is None),
+                       None)
+            if idx is None:
+                deferred.append((cand, False, counted))
+                deferred_flows.add(key)
+                continue
+            staged = None
+            if self._paged:
+                if tries_left <= 0:
+                    deferred.append((cand, False, counted))
+                    break
+                tries_left -= 1
+                staged = self._try_reserve_paged(cand)
+                if staged is None:
+                    first = not cand.parked
+                    cand.parked = True
+                    deferred.append((cand, first, counted))
+                    break
+            if lane:
+                self._bind_lane_slot(idx, cand, staged)
+            else:
+                self._bind_decode_direct(idx, cand, staged)
+        if held is not None:
+            # both kinds filled before the idle path's request was placed
+            deferred.insert(0, (held, False, False))
+        for cand, first_park, counted in reversed(deferred):
+            self._pending.push_front(cand, (cand.tenant, cand.slo_class),
+                                     parked=first_park, counted=counted)
+        return (any(s.req is not None for s in self._slots)
+                or any(s.req is not None for s in self._lane_slots))
+
+    def _fill_slot(self, slot: _Slot, req: _Request) -> None:
+        """A request takes a free slot: fresh cursors, then the admission
+        record."""
+        slot.req = req
+        slot.cursor = 0
+        slot.pos_hi = 0
+        slot.decode_dispatched = 0
+        slot.pos_pending = None
+        slot.draft_ready = False
+        self._record_admission(req)
+
+    def _bind_lane_slot(self, idx: int, req: _Request,
+                        staged: Optional[dict]) -> None:
+        """Admit a candidate into lane slot ``idx``: the staged paged
+        reservation (a hit's chain heads the table, no copy) or, under
+        the slot layout, a prefix restore into the lane's rows, and the
+        admission order the handoffs follow."""
+        slot = self._lane_slots[idx]
+        self._fill_slot(slot, req)
+        slot.adm_seq = self._lane_adm_seq
+        self._lane_adm_seq += 1
+        if staged is not None:
+            self._bind_paged(req, slot, staged, lane=True)
+        elif self._prefix_index is not None:
+            self._restore_prefix(idx, req, slot, lane=True)
+
+    def _bind_decode_direct(self, idx: int, req: _Request,
+                            staged: Optional[dict]) -> None:
+        """Admit a short-prompt candidate straight into decode slot
+        ``idx`` (its prompt feeds within one chunk)."""
+        slot = self._slots[idx]
+        self._fill_slot(slot, req)
+        if staged is not None:
+            self._bind_paged(req, slot, staged)
+        elif self._prefix_index is not None:
+            self._restore_prefix(idx, req, slot)
+
+    def _do_handoffs(self) -> None:
+        """Move every ready lane slot onto a free decode slot, oldest lane
+        admission first. Runs at the top of each admission pass, so a
+        prompt whose final lane chunk was dispatched last round decodes
+        this round."""
+        while True:
+            d_idx = next((i for i, s in enumerate(self._slots)
+                          if s.req is None), None)
+            if d_idx is None:
+                return
+            ready = [(s.adm_seq, i) for i, s in enumerate(self._lane_slots)
+                     if s.req is not None and not s.req.finished
+                     and self._lane_done(s, s.req)]
+            if not ready:
+                return
+            self._handoff(min(ready)[1], d_idx)
+
+    def _handoff(self, l_idx: int, d_idx: int) -> None:
+        """Hand one prompt from lane slot ``l_idx`` to decode slot
+        ``d_idx``.
+
+        Paged: the block table moves on the host (the KV stays in the
+        pool: no copy) and ``lane_handoff`` moves the position and the
+        first token on the engine's stream; the decode slot starts at
+        the lane's cursor, so its first chunk consumes the first token
+        like any slot whose prompt is in.
+
+        Slot layout: the lane slot's full blocks commit from the lane's
+        rows to the prefix pool, the prompt's chain is acquired pinned
+        BEFORE the lane's own handle is released (in the other order the
+        LRU could evict the rows between the two), and ``pool_to_slot``
+        restores it into the decode slot; the tail feeds token by token.
+        Every copy is enqueued on the engine's stream behind the lane
+        chunks that wrote the rows and ahead of any later lane chunk in
+        the lane slot."""
+        t0 = time.perf_counter()
+        lane = self._lane_slots[l_idx]
+        d = self._slots[d_idx]
+        req = lane.req
+        d.req = req
+        d.draft_ready = False
+        d.decode_dispatched = 0
+        d.pos_pending = None
+        dev = self._dev
+        if self._paged:
+            d.blocks, lane.blocks = lane.blocks, []
+            d.n_shared, lane.n_shared = lane.n_shared, 0
+            d.reserved_left, lane.reserved_left = lane.reserved_left, 0
+            d.cursor = d.pos_hi = lane.cursor
+            lane_handoff(dev["pos"], dev["last"], dev["lane_pos"],
+                         dev["lane_last"], d_idx, l_idx)
+        else:
+            self._commit_prefix(l_idx, req, tokens=req.prompt[:lane.cursor],
+                                lane=True)
+            handle = self._acquire_prefix(req.prompt)
+            self._release_prefix(req)
+            d.cursor = d.pos_hi = 0
+            if handle is not None:
+                req.prefix = handle
+                bucket = next(b for b in dev["prefix_buckets"]
+                              if b >= len(handle.block_ids))
+                (ids,) = self._upload([pad_block_ids(handle.block_ids,
+                                                     bucket)])
+                pool_to_slot(dev["prefix_pool"], dev["cache"], dev["pos"],
+                             d_idx, ids, handle.matched_tokens)
+                d.cursor = d.pos_hi = handle.matched_tokens
+        lane.req = None
+        lane.cursor = 0
+        lane.pos_hi = 0
+        lane.pos_pending = None
+        self._lane_handoffs += 1
+        self.gen_stats.record_lane_handoff()
+        self._kind_s["handoff"] += time.perf_counter() - t0
+        self._kind_n["handoff"] += 1
+
+    def _dispatch_lane_dedicated(self) -> int:
+        """The dedicated lane's pass of a round: up to
+        ``prefill_token_budget`` prompt tokens across the lane slots, one
+        bucketed chunk of at most ``prefill_lane_width`` tokens per slot
+        per pass, round robin from a rotating start, into the lane's own
+        state (decode slots are never touched). With ``prefill_lane_batch``
+        the pass packs its chunks into batched dispatches instead
+        (``_dispatch_lane_batched``). Returns the lane tokens
+        dispatched."""
+        if self._lane_batch:
+            return self._dispatch_lane_batched()
+        budget = self._prefill_budget
+        dispatched = 0
+        progress = True
+        while progress and dispatched < budget:
+            progress = False
+            start = self._lane_rr % self._lane_n
+            for off in range(self._lane_n):
+                i = (start + off) % self._lane_n
+                slot = self._lane_slots[i]
+                req = slot.req
+                if req is None or req.finished \
+                        or self._lane_done(slot, req):
+                    continue
+                if dispatched >= budget:
+                    break
+                assigned = self._lane_assignment(slot, req,
+                                                 budget - dispatched)
+                if assigned is None:
+                    continue
+                _pos0, clen, _cap = assigned
+                bucket = next(b for b in self._dev["lane_buckets"]
+                              if b >= clen)
+                self._dispatch_prefill_chunk(i, slot, req, clen, bucket,
+                                             lane=True)
+                self._lane_rr = i + 1
+                dispatched += clen
+                progress = True
+        return dispatched
+
+    def _lane_assignment(self, slot: _Slot, req: _Request,
+                         budget_left: int) -> Optional[tuple]:
+        """One lane slot's next chunk, the one sizing rule of the per-slot
+        and the batched passes: min(lane width, target left, budget left)
+        real tokens, clamped to ``cap``, the largest lane bucket that
+        still fits below max_seq at the cursor. Returns ``(pos0, clen,
+        cap)``, or None when nothing can go (no budget, or no bucket
+        fits)."""
+        pos0 = slot.cursor
+        clen = min(self._lane_width, self._lane_target(req) - pos0,
+                   budget_left)
+        fit = self._cfg.max_seq - pos0
+        usable = [b for b in self._dev["lane_buckets"] if b <= fit]
+        if clen <= 0 or not usable:
+            return None
+        cap = usable[-1]
+        return pos0, min(clen, cap), cap
+
+    def _dispatch_lane_batched(self) -> int:
+        """The batched lane's pass: the per-slot pass's order and sizing
+        rule, with up to ``prefill_lane_batch`` chunks packed into one
+        ``[B, Lc]`` dispatch, Lc the smallest lane bucket covering the
+        longest chunk; rows whose slab would not fit below max_seq at
+        that width go in narrower groups within the same pass (the
+        longest chunk's row always fits its bucket, so the groups
+        shrink). Token-identical to the per-slot pass: ingestion resumes
+        at any offset and rows are independent. Returns the lane tokens
+        dispatched."""
+        budget = self._prefill_budget
+        dispatched = 0
+        progress = True
+        while progress and dispatched < budget:
+            progress = False
+            rows = []            # (idx, slot, req, pos0, clen, cap)
+            taken = 0
+            start = self._lane_rr % self._lane_n
+            for off in range(self._lane_n):
+                if len(rows) >= self._lane_batch \
+                        or dispatched + taken >= budget:
+                    break
+                i = (start + off) % self._lane_n
+                slot = self._lane_slots[i]
+                req = slot.req
+                if req is None or req.finished \
+                        or self._lane_done(slot, req):
+                    continue
+                assigned = self._lane_assignment(
+                    slot, req, budget - dispatched - taken)
+                if assigned is None:
+                    continue
+                pos0, clen, cap = assigned
+                rows.append((i, slot, req, pos0, clen, cap))
+                taken += clen
+                self._lane_rr = i + 1
+            if not rows:
+                break
+            while rows:
+                bucket = next(b for b in self._dev["lane_buckets"]
+                              if b >= max(r[4] for r in rows))
+                group = [r for r in rows if r[5] >= bucket]
+                rows = [r for r in rows if r[5] < bucket]
+                self._dispatch_lane_batch_rows(group, bucket)
+                dispatched += sum(r[4] for r in group)
+            progress = True
+        return dispatched
+
+    def _dispatch_lane_batch_rows(self, rows: list, bucket: int) -> None:
+        """One batched lane dispatch (async) of ``rows``' chunks at width
+        ``bucket``, padded to the smallest row-count bucket. Padding rows
+        carry the lane state's scratch row ``prefill_slots`` (and, paged,
+        all-zero tables: scratch block 0), so they write only what
+        nothing reads."""
+        t0 = time.perf_counter()
+        n = len(rows)
+        bb = next(b for b in self._dev["lane_b_buckets"] if b >= n)
+        idxs = np.full((bb,), self._lane_n, np.int32)
+        toks = np.zeros((bb, bucket), np.int32)
+        pos0s = np.zeros((bb,), np.int32)
+        clens = np.ones((bb,), np.int32)
+        finals = np.zeros((bb,), np.bool_)
+        seeds = np.zeros((bb,), np.int32)
+        temps = np.zeros((bb,), np.float32)
+        topks = np.zeros((bb,), np.int32)
+        topps = np.zeros((bb,), np.float32)
+        for r, (i, _slot, req, pos0, clen, _cap) in enumerate(rows):
+            idxs[r] = i
+            toks[r, :clen] = req.prompt[pos0:pos0 + clen]
+            pos0s[r] = pos0
+            clens[r] = clen
+            finals[r] = pos0 + clen >= len(req.prompt)
+            seeds[r] = req.seed
+            temps[r] = req.temperature
+            topks[r] = req.top_k
+            topps[r] = req.top_p
+        arrays = [idxs, toks, pos0s, clens, finals, seeds, temps, topks,
+                  topps]
+        if self._paged:
+            tabs = np.zeros((bb, self._cfg.max_seq // self._kv_block_len),
+                            np.int32)
+            for r, (_i, slot, req, pos0, clen, _cap) in enumerate(rows):
+                self._ensure_blocks(slot, req, pos0 + clen)
+                tabs[r, :len(slot.blocks)] = slot.blocks
+            arrays.append(tabs)
+        (idxs_d, toks_d, pos0s_d, clens_d, finals_d, seeds_d, temps_d,
+         topks_d, topps_d, *tabs_d) = self._upload(arrays)
+        sampling = (seeds_d, temps_d, topks_d, topps_d)
+        dev = self._dev
+        if self._paged:
+            paged_lane_batch(self._cfg, dev["params"], dev["pool"],
+                             dev["lane_pos"], dev["lane_last"],
+                             idxs_d.long(), tabs_d[0], toks_d, pos0s_d,
+                             clens_d, finals_d, sampling)
+        else:
+            lane_batch_kernel(self._cfg, dev["params"], dev["lane_cache"],
+                              dev["lane_pos"], dev["lane_last"],
+                              idxs_d.long(), toks_d, pos0s_d, clens_d,
+                              finals_d, sampling)
+        total = 0
+        for _i, slot, _req, _pos0, clen, _cap in rows:
+            slot.cursor += clen
+            slot.pos_hi = max(slot.pos_hi, slot.cursor)
+            total += clen
+        # one dispatch: one lane chunk, and the pair that gives its fill
+        self._prefill_chunks_dispatched += 1
+        self._prefill_tokens_dispatched += total
+        self.gen_stats.record_lane_batch(n, total)
+        self._kind_s["lane_batch"] += time.perf_counter() - t0
+        self._kind_n["lane_batch"] += 1
 
     def _sampling(self, req: _Request) -> tuple:
         """A request's sampling parameters as host arrays for ``_upload``:
@@ -2168,11 +2782,14 @@ class ContinuousBatchingEngine:
         slot.pos_hi = plen
 
     def _in_lane(self, slot: _Slot, req: _Request) -> bool:
-        """True while a slot's prompt belongs to the chunked-prefill lane:
-        more than one chunk of prompt left (a shorter tail feeds through
-        the chunk kernel) and the smallest lane bucket still fits below
-        max_seq (a chunk must never clamp at the end of the rows)."""
-        if not self._chunked_prefill:
+        """True while a decode slot's prompt belongs to the piggyback
+        chunked-prefill lane: more than one chunk of prompt left (a
+        shorter tail feeds through the chunk kernel) and the smallest lane
+        bucket still fits below max_seq (a chunk must never clamp at the
+        end of the rows). Never with a dedicated lane: prompts ingest in
+        the lane's own slots, so a decode chunk carries no prefill
+        rider."""
+        if not self._chunked_prefill or self._lane_on:
             return False
         if len(req.prompt) - slot.cursor <= self._chunk:
             return False
@@ -2290,13 +2907,17 @@ class ContinuousBatchingEngine:
         return min(clen, bucket), bucket
 
     def _dispatch_prefill_chunk(self, idx: int, slot: _Slot, req: _Request,
-                                clen: int, bucket: int) -> None:
+                                clen: int, bucket: int,
+                                lane: bool = False) -> None:
         """One lane chunk (async): ``clen`` prompt tokens into slot
         ``idx`` from its cursor; the prompt's final chunk selects the
         first generated token into the device ``last``, which the decode
         chunk of the same round consumes. Under the paged layout the
         chunk's real rows get their blocks first and the kernel sets the
-        position itself, which takes the place of a pending reset."""
+        position itself, which takes the place of a pending reset. With
+        ``lane`` the chunk goes into dedicated lane slot ``idx`` and its
+        state (its ``last`` moves to the decode slot at the handoff)."""
+        t0 = time.perf_counter()
         pos0 = slot.cursor
         padded = np.zeros(bucket, np.int32)
         padded[:clen] = req.prompt[pos0:pos0 + clen]
@@ -2312,32 +2933,42 @@ class ContinuousBatchingEngine:
         toks, ints, floats, *table = self._upload(arrays)
         sampling = (ints[0], floats[0], ints[1], floats[1])
         dev = self._dev
+        pos, last = ((dev["lane_pos"], dev["lane_last"]) if lane
+                     else (dev["pos"], dev["last"]))
         if self._paged:
             paged_prefill_chunk_into_slot(
-                self._cfg, dev["params"], dev["pool"], dev["pos"],
-                dev["last"], idx, table[0], toks, pos0, clen, final,
-                sampling)
+                self._cfg, dev["params"], dev["pool"], pos, last, idx,
+                table[0], toks, pos0, clen, final, sampling)
         else:
             prefill_chunk_into_slot(
-                self._cfg, dev["params"], dev["cache"], dev["pos"],
-                dev["last"], idx, toks, pos0, clen, final, sampling)
+                self._cfg, dev["params"], self._slot_state(lane)[0], pos,
+                last, idx, toks, pos0, clen, final, sampling)
         slot.cursor += clen
         slot.pos_hi = max(slot.pos_hi, slot.cursor)
         self._prefill_chunks_dispatched += 1
         self._prefill_tokens_dispatched += clen
         self.gen_stats.record_prefill_chunk(clen)
+        if lane:
+            self._kind_s["lane"] += time.perf_counter() - t0
+            self._kind_n["lane"] += 1
 
     def _dispatch(self) -> list:
         """Launch this round's device work (async): the chunked-prefill
-        lane first, so a prompt whose final chunk lands now decodes in the
-        same round; then one chunk over the slots that feed a prompt or
-        decode plainly (the speculating ones ride it frozen); then one
-        verify round per distinct rung over the speculating slots, behind
-        the chunk on the stream. Returns the ring entries dispatched
-        (none when every occupied slot rides the lane)."""
+        lane first (the piggyback lane or the dedicated one), so a prompt
+        whose final piggyback chunk lands now decodes in the same round;
+        then one chunk over the slots that feed a prompt or decode plainly
+        (the speculating ones ride it frozen); then one verify round per
+        distinct rung over the speculating slots, behind the chunk on the
+        stream. Returns the ring entries dispatched (none when every
+        occupied slot rides a lane)."""
         if self._chunked_prefill:
+            # with a dedicated lane the prompts ingest in its own slots
+            # (handed off at the next admission pass)
             t_pf = time.perf_counter()
-            self._dispatch_prefill_lane()
+            if self._lane_on:
+                self._dispatch_lane_dedicated()
+            else:
+                self._dispatch_prefill_lane()
             self._phase_s["prefill"] += time.perf_counter() - t_pf
         modes, rungs = self._slot_modes()
         any_chunk = "chunk" in modes
@@ -2731,7 +3362,8 @@ class ContinuousBatchingEngine:
                 self._kv_index.drain_tier()
             iter_t0 = time.perf_counter()
             dispatched = False
-            if any(s.req is not None for s in self._slots):
+            if any(s.req is not None for s in self._slots) \
+                    or any(s.req is not None for s in self._lane_slots):
                 dispatched = True
                 t_disp = time.perf_counter()
                 pf_before = self._phase_s["prefill"]
@@ -2782,9 +3414,10 @@ class ContinuousBatchingEngine:
         self._fail_all(ServerError("generation engine stopped", 503))
 
     def _fail_all(self, err: BaseException) -> None:
-        """Deliver a terminal to every request still held, in a slot, in
-        an undelivered ring entry or queued; marks the engine dead first
-        so no later submit can enqueue a request nothing will consume."""
+        """Deliver a terminal to every request still held, in a decode or
+        lane slot, in an undelivered ring entry or queued; marks the
+        engine dead first so no later submit can enqueue a request nothing
+        will consume."""
         self._stopping = True
         expected = isinstance(err, ServerError) and err.status == 503
         if not expected:
@@ -2794,7 +3427,9 @@ class ContinuousBatchingEngine:
         if held is not None and not held.finished:
             self._close_request(held, err)
             failed += 1
-        for slot in self._slots:
+        # lane slots hold requests mid-ingestion: they fail like decode
+        # slots' requests
+        for slot in self._slots + self._lane_slots:
             if slot.req is not None and not slot.req.finished:
                 self._close_request(slot.req, err)
                 failed += 1

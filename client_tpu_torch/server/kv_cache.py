@@ -599,31 +599,47 @@ class RadixBlockIndex:
 
 # ----------------------------------------------------------- device pools
 
+def _slot_proto(cfg, device) -> dict:
+    """Every KV tensor of ``transformer.init_decode_state`` (``pos``
+    left out) for zero slots: each ``[0, layers, max_seq] + tail`` in its
+    dtype (k/v 5-D, the int8 scale tables 4-D), which the pools mirror."""
+    from client_tpu_torch.models import transformer as t
+
+    proto = t.init_decode_state(cfg, 0, device)
+    return {name: arr for name, arr in proto.items() if name != "pos"}
+
+
 def init_block_pool(cfg, n_blocks: int, block_len: int, device) -> dict:
-    """The slot layout's prefix pool: block-major ``{"k", "v"}``, each
-    ``[n_blocks, layers, block_len, Hkv, Dh]`` in ``cfg.dtype``, zeroed on
-    ``device``."""
-    shape = (n_blocks, cfg.n_layers, block_len, cfg.kv_heads, cfg.head_dim)
-    return {name: torch.zeros(shape, dtype=cfg.dtype, device=device)
-            for name in ("k", "v")}
+    """The slot layout's prefix pool, block-major: every KV tensor of
+    ``transformer.init_decode_state`` becomes ``[n_blocks, layers,
+    block_len] + tail`` in its dtype (``k``/``v`` 5-D, and under
+    ``kv_quant`` int8 with 4-D f32 scale tables), zeroed on ``device``."""
+    return {name: torch.zeros((n_blocks, arr.shape[1], block_len)
+                              + arr.shape[3:], dtype=arr.dtype,
+                              device=device)
+            for name, arr in _slot_proto(cfg, device).items()}
 
 
 def init_paged_pool(cfg, n_blocks: int, block_len: int, device) -> dict:
-    """Layer-major pool tensors ``{"k", "v"}``, each
-    ``[layers, n_blocks, block_len, Hkv, Dh]`` in ``cfg.dtype``, zeroed on
-    ``device`` (named explicitly: the engine places it)."""
-    shape = (cfg.n_layers, n_blocks, block_len, cfg.kv_heads, cfg.head_dim)
-    return {name: torch.zeros(shape, dtype=cfg.dtype, device=device)
-            for name in ("k", "v")}
+    """Layer-major pool tensors: every KV tensor of
+    ``transformer.init_decode_state`` becomes ``[layers, n_blocks,
+    block_len] + tail`` in its dtype (``k``/``v`` 5-D, and under
+    ``kv_quant`` int8 with 4-D f32 scale tables), zeroed on ``device``
+    (named explicitly: the engine places it)."""
+    return {name: torch.zeros((arr.shape[1], n_blocks, block_len)
+                              + arr.shape[3:], dtype=arr.dtype,
+                              device=device)
+            for name, arr in _slot_proto(cfg, device).items()}
 
 
 def pool_to_slot(pool: dict, cache: dict, pos, idx: int, ids,
                  n_tok: int) -> None:
     """Gather blocks ``ids`` ([B] integer tensor on the pool's device,
-    scratch-padded) into rows ``[0, B*block_len)`` of slot ``idx`` of the
-    slot-layout ``cache`` and set ``pos[idx] = n_tok`` (the real matched
-    length: padded rows past it are never attended), IN PLACE. The
-    reference's ``pool_to_slot`` copy kernel (an XLA gather)."""
+    scratch-padded) of every pool tensor (the scale tables too) into rows
+    ``[0, B*block_len)`` of slot ``idx`` of the slot-layout ``cache`` and
+    set ``pos[idx] = n_tok`` (the real matched length: padded rows past
+    it are never attended), IN PLACE. The reference's ``pool_to_slot``
+    copy kernel (an XLA gather)."""
     for name, parr in pool.items():
         blocks = parr[ids.long()]                 # [B, L, bl, Hkv, Dh]
         b, layers, bl = blocks.shape[:3]
@@ -634,11 +650,12 @@ def pool_to_slot(pool: dict, cache: dict, pos, idx: int, ids,
 
 def slot_to_pool(pool: dict, cache: dict, idx: int, ids, offs) -> None:
     """For each block ``j`` copy rows ``[offs[j], offs[j] + block_len)`` of
-    slot ``idx`` into pool block ``ids[j]``, IN PLACE (``ids``/``offs``
-    [B] integer tensors on the pool's device; padded entries copy rows
-    from offset 0 into the scratch block). Per-block offsets, as the
-    reference's ``slot_to_pool`` copy kernel keeps them: one contiguous
-    run padded to the bucket could pass ``max_seq``."""
+    slot ``idx`` into pool block ``ids[j]`` for every pool tensor, IN
+    PLACE (``ids``/``offs`` [B] integer tensors on the pool's device;
+    padded entries copy rows from offset 0 into the scratch block).
+    Per-block offsets, as the reference's ``slot_to_pool`` copy kernel
+    keeps them: one contiguous run padded to the bucket could pass
+    ``max_seq``."""
     for name, parr in pool.items():
         bl = parr.shape[2]
         rows = offs.long()[:, None] + torch.arange(bl, device=offs.device)

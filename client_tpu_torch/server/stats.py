@@ -148,16 +148,16 @@ class GenerationStats:
     emitted token), inter-token latency (``(last_emit - first_token) /
     (tokens - 1)`` per completed stream of >= 2 tokens), queue wait
     (enqueue to slot admission), tokens emitted, stream outcomes, the
-    batched ring fetches, the chunked-prefill lane's chunks and tokens, and
-    the prefix-cache lookups: one per admission of a prompt longer than one
+    batched ring fetches, the chunked-prefill lane's chunks and tokens, the
+    dedicated lane's handoffs and batched dispatches, and the prefix-cache
+    lookups: one per admission of a prompt longer than one
     block with the cache on, a hit adding its matched tokens to
     ``prefix_saved_tokens`` (the allocator's evictions and commits are the
     ``RadixBlockIndex``'s), and the speculative verify rounds: draft
     tokens proposed, accepted and rejected, rounds, and rounds by
     gamma-ladder rung, host-tier hits, and preemptions and resumes. The
-    reference's dedicated-lane and goodput counters wait for their
-    slices. All
-    mutators take ns; the engine thread writes, any thread reads."""
+    reference's goodput counters wait for their slice. All mutators take
+    ns; the engine thread writes, any thread reads."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -176,6 +176,11 @@ class GenerationStats:
         self.ring_forced_fetches = 0
         self.prefill_chunks = 0
         self.prefill_tokens = 0
+        # the dedicated prefill lane: prompts handed to a decode slot, and
+        # the batched lane dispatches with the lane slots they packed
+        self.lane_handoffs = 0
+        self.lane_batch_dispatches = 0
+        self.lane_batch_slots = 0
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.prefix_saved_tokens = 0
@@ -248,6 +253,23 @@ class GenerationStats:
             self.prefill_chunks += 1
             self.prefill_tokens += max(0, int(tokens))
 
+    def record_lane_handoff(self) -> None:
+        """A dedicated-lane prompt finished ingesting and moved to a
+        decode slot (paged: its block table; slot layout: through the
+        prefix pool's commit and restore)."""
+        with self._lock:
+            self.lane_handoffs += 1
+
+    def record_lane_batch(self, slots: int, tokens: int) -> None:
+        """One batched lane dispatch ingested ``tokens`` real prompt tokens
+        across ``slots`` lane slots: one lane chunk (the dispatch) and the
+        lane-batch pair (slots / dispatches is the mean fill)."""
+        with self._lock:
+            self.prefill_chunks += 1
+            self.prefill_tokens += max(0, int(tokens))
+            self.lane_batch_dispatches += 1
+            self.lane_batch_slots += max(0, int(slots))
+
     def record_prefix_hit(self, matched_tokens: int) -> None:
         """An admission reused ``matched_tokens`` tokens of cached prefix
         KV instead of computing them again."""
@@ -306,6 +328,9 @@ class GenerationStats:
                 "ring_forced_fetches": self.ring_forced_fetches,
                 "prefill_chunks": self.prefill_chunks,
                 "prefill_tokens": self.prefill_tokens,
+                "lane_handoffs": self.lane_handoffs,
+                "lane_batch_dispatches": self.lane_batch_dispatches,
+                "lane_batch_slots": self.lane_batch_slots,
                 "prefix_hits": self.prefix_hits,
                 "prefix_misses": self.prefix_misses,
                 "prefix_saved_tokens": self.prefix_saved_tokens,

@@ -18,11 +18,14 @@ CTAs, positions on every split boundary, empty shares, an out-of-pool
 block id, grouped queries, pool slabs read through other strides, a
 small generation engine whose every decode step goes through the kernel,
 and the same engine on the slot layout under each prefill mode and on the
-paged layout under the chunked lane. Speculative decoding: both verify
-passes against serial decode steps in f32 and bf16 with the slots outside
-the round bit-unchanged, the salted noise repeating (and its integer
-stream equal to the CPU's), and a small speculating engine on both
-layouts.
+paged layout under the chunked lane. The dedicated lane's batched
+kernels with padding rows on the scratch row and block (no device-side
+assert, live rows untouched), an int8 paged engine that never launches
+the paged kernel, and an int8 block's host-tier round trip. Speculative
+decoding: both verify passes against serial decode steps in f32 and bf16
+with the slots outside the round bit-unchanged, the salted noise
+repeating (and its integer stream equal to the CPU's), and a small
+speculating engine on both layouts.
 The CUDA shared-memory data plane: a zero-copy in-process read, output
 rows read back from the response callback of the pre-split path, and the
 cross-process attachment's device copy held until the seqno moves.
@@ -864,3 +867,158 @@ def test_paged_preempt_and_resume_through_k2(card):
     assert sched["preemptions_total"] == sched["resumes_total"] == 1
     assert pa.launches > before
     assert pins == 0 and occ["stream"] == 0 and occ["reserved"] == 0
+
+
+# ------------------------------------------- dedicated lanes and int8 KV
+
+def _lane_model(kv_quant=False):
+    from client_tpu_torch.models import transformer as t
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = t.TransformerConfig(vocab_size=97, d_model=64, n_layers=2,
+                              n_heads=4, head_dim=16, d_ff=128, max_seq=64,
+                              dtype=torch.float32, attn_impl="flash",
+                              kv_quant=kv_quant)
+    params = t.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    return cfg, params
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_batched_lane_with_padding_rows_on_the_card(card, layout):
+    """The batched lane kernels with two real rows and two padding rows
+    (the lane state's scratch row; paged: all-zero tables): no device-side
+    assert, the first tokens, positions and written rows equal the same
+    call on the CPU, and the live lane row outside the batch, the rows of
+    the real slots outside their chunks and (paged) every block no row
+    owns stay bit-unchanged."""
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.server import generation as g
+    from client_tpu_torch.server import kv_cache as kvc
+
+    cfg, params = _lane_model()
+    n_lane, bl = 3, 8
+    toks = torch.randint(0, 97, (4, 16), generator=torch.Generator()
+                         .manual_seed(1), dtype=torch.int32)
+    rows = torch.tensor([0, 2, n_lane, n_lane])
+    pos0 = torch.tensor([0, 16, 0, 0], dtype=torch.int32)
+    clen = torch.tensor([16, 9, 1, 1], dtype=torch.int32)
+    finals = torch.tensor([False, True, False, False])
+    sampling = (torch.zeros(4, dtype=torch.int32), torch.zeros(4),
+                torch.zeros(4, dtype=torch.int32), torch.zeros(4))
+    tables = torch.zeros((4, cfg.max_seq // bl), dtype=torch.int32)
+    tables[0] = torch.arange(1, 9)
+    tables[1] = torch.arange(9, 17)
+    if layout == "slot":
+        init = t.init_decode_state(cfg, n_lane + 1, "cpu")
+        init.pop("pos")
+    else:
+        init = kvc.init_paged_pool(cfg, 20, bl, "cpu")
+    gen = torch.Generator().manual_seed(2)
+    for arr in init.values():
+        arr.normal_(generator=gen)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: (v.to(dev) if not isinstance(v, dict)
+                 else {n: w.to(dev) for n, w in v.items()})
+             for k, v in params.items()}
+        pos = torch.zeros(n_lane + 1, dtype=torch.int32, device=dev)
+        last = torch.full((n_lane + 1,), 7, dtype=torch.int32, device=dev)
+        args = [x.to(dev) for x in (rows, toks, pos0, clen, finals)]
+        samp = tuple(x.to(dev) for x in sampling)
+        state = {n: a.to(dev) for n, a in init.items()}
+        before = {n: a.clone() for n, a in state.items()}
+        if layout == "slot":
+            g.lane_batch_kernel(cfg, p, state, pos, last, *args, samp)
+        else:
+            r, tk, p0, cl, fi = args
+            g.paged_lane_batch(cfg, p, state, pos, last, r, tables.to(dev),
+                               tk, p0, cl, fi, samp)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        outs[dev] = (pos.cpu(), last.cpu(),
+                     {n: a.cpu() for n, a in state.items()},
+                     {n: a.cpu() for n, a in before.items()})
+    (cpos, clast, cstate, _), (gpos, glast, gstate, gbefore) = \
+        outs["cpu"], outs["cuda"]
+    assert gpos[:n_lane].tolist() == cpos[:n_lane].tolist() == [16, 0, 25]
+    assert glast[:n_lane].tolist() == clast[:n_lane].tolist()
+    assert glast[0] == 7 and glast[1] == 7
+    for name in gstate:
+        if layout == "slot":
+            assert torch.equal(gstate[name][1], gbefore[name][1])
+            assert torch.equal(gstate[name][2][:, :16],
+                               gbefore[name][2][:, :16])
+            torch.testing.assert_close(gstate[name][[0, 2]],
+                                       cstate[name][[0, 2]], rtol=0,
+                                       atol=1e-4)
+        else:
+            assert torch.equal(gstate[name][:, 17:], gbefore[name][:, 17:])
+            torch.testing.assert_close(gstate[name][:, 1:17],
+                                       cstate[name][:, 1:17], rtol=0,
+                                       atol=1e-4)
+
+
+def test_int8_paged_engine_never_launches_k2(card):
+    """A small paged engine with attn_impl="flash" under kv_quant serves
+    its streams through the dequantising einsum (0 K2 launches, as in the
+    reference), equal to the same engine on the CPU; its twin without
+    kv_quant launches K2 on every chunk step."""
+    from client_tpu_torch.perf.bench_harness import (
+        ragged_generation_jobs,
+        run_engine_jobs,
+    )
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+
+    jobs = ragged_generation_jobs(3, 97, 6, (1, 40), (3, 20), 64)
+    launched, streams = {}, {}
+    for quant, dev in ((True, "cuda"), (True, "cpu"), (False, "cuda")):
+        cfg, params = _lane_model(kv_quant=quant)
+        if dev == "cpu":
+            params = {k: (v.cpu() if not isinstance(v, dict)
+                          else {n: w.cpu() for n, w in v.items()})
+                      for k, v in params.items()}
+        eng = ContinuousBatchingEngine(
+            cfg, params, n_slots=4, chunk=4, kv_layout="paged",
+            kv_block_len=8, prefill_mode="chunked", prefill_chunk=16,
+            device=dev).start()
+        try:
+            before = pa.launches
+            _, _, toks = run_engine_jobs(eng, jobs, collect=True,
+                                         join_timeout_s=300)
+            launched[(quant, dev)] = pa.launches - before
+            streams[(quant, dev)] = toks
+        finally:
+            eng.stop()
+    assert launched[(True, "cuda")] == 0
+    assert launched[(False, "cuda")] > 0
+    assert streams[(True, "cuda")] == streams[(True, "cpu")]
+
+
+@pytest.mark.parametrize("layer_major", [True, False],
+                         ids=["paged", "slot_prefix_pool"])
+def test_int8_block_tier_round_trip_on_the_card(card, layer_major):
+    """An int8 block and its scale tables spilled to pinned host memory
+    and restored into another block hold the same bits."""
+    from client_tpu_torch.server import kv_cache as kvc
+
+    cfg, _ = _lane_model(kv_quant=True)
+    init = kvc.init_paged_pool if layer_major else kvc.init_block_pool
+    pool = init(cfg, 9, 8, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for arr in pool.values():
+        if arr.dtype == torch.int8:
+            arr.copy_(torch.randint(-127, 128, arr.shape, generator=gen,
+                                    device="cuda", dtype=torch.int8))
+        else:
+            arr.uniform_(1e-3, 5e-2, generator=gen)
+    assert sorted(pool) == ["k", "k_scale", "v", "v_scale"]
+    rows, ready = kvc.tier_spill(pool, 3, layer_major)
+    ready.synchronize()
+    kvc.tier_restore(pool, 6, rows, layer_major)
+    torch.cuda.synchronize()
+    for name, p in pool.items():
+        src, dst = (p[:, 3], p[:, 6]) if layer_major else (p[3], p[6])
+        assert torch.equal(dst, src), name
+    assert kvc.pool_block_nbytes(pool, layer_major) \
+        == 2 * 2 * 8 * 4 * (16 + 4)

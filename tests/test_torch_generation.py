@@ -197,9 +197,8 @@ def test_concurrent_submitters_stress(model):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("prefill_lane_width", 8, "A10e"),
-    ("watchdog", True, "A13"),
-    ("prefill_slots", 2, "A10e"), ("engine_devices", (0,), "A12"),
+    ("watchdog_thresholds", {"ring_lag": 4}, "A13"),
+    ("watchdog", True, "A13"), ("engine_devices", (0,), "A12"),
     ("watchdog_interval_s", 0.5, "A13"), ("mesh", object(), "A12"),
     ("incident_store", object(), "A13"),
     ("device_time_sample_every", 4, "A13")])
@@ -239,6 +238,40 @@ def test_ported_scheduler_and_tier_knobs_build_engines(model, knob, value):
     assert toks == gen_toks and len(toks) == 4
     assert eng.stats()["slo"]["tenant_classes"][0]["completed"] == 1
 
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("prefill_slots", 2), ("prefill_lane_width", 8),
+    ("prefill_lane_batch", 2)])
+def test_ported_lane_knobs_build_engines(model, knob, value):
+    """The three dedicated-lane knobs, no longer refused, build an engine
+    and a generator on the paged layout with the chunked lane that serve
+    a prompt longer than a chunk through a lane slot (width and batch
+    ride a two-slot lane); the generator's config advertises the lane the
+    engine runs."""
+    _, _, tcfg, tparams = model
+    kw = {"prefill_slots": 2, knob: value}
+    kw.update(prefill_mode="chunked", prefill_chunk=16, kv_layout="paged",
+              kv_block_len=4, n_slots=2, chunk=4)
+    eng = ContinuousBatchingEngine(tcfg, tparams, device="cpu", **kw)
+    kw["chunk_size"] = kw.pop("chunk")
+    gen = make_continuous_generator(cfg=tcfg, params=tparams, device="cpu",
+                                    **kw)
+    prompt = np.arange(1, 23, dtype=np.int32)
+    try:
+        toks = list(eng.submit(prompt, 4))
+        gen_toks = list(gen.engine.submit(prompt, 4))
+    finally:
+        eng.stop()
+        gen.engine.stop()
+    assert toks == gen_toks and len(toks) == 4
+    lane = eng.stats()["prefill_lane"]
+    assert lane["dedicated"] and lane["handoffs"] == 1
+    ge = gen.config.to_json()["generation_engine"]
+    assert (ge["prefill_slots"], ge["prefill_lane_width"]) == (
+        2, value if knob == "prefill_lane_width" else 16)
+    assert ge["prefill_lane_batch"] == (2 if knob == "prefill_lane_batch"
+                                        else 0)
 
 
 @pytest.mark.parametrize("kv_layout", ["slot", "paged"])

@@ -186,8 +186,25 @@ def test_defaults_build_the_slot_layout_like_the_reference(model):
 
 
 def test_int8_kv_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A10i"):
-        tt.TransformerConfig(kv_quant=True, **KW)
+    """Named when int8 KV still raised; int8 KV (ROADMAP A10i) is ported
+    now, so ``kv_quant`` builds the int8 state: int8 K/V with f32 scale
+    tables of the reference's shapes, and an engine on it."""
+    cfg = tt.TransformerConfig(kv_quant=True, dtype=torch.float32, **KW)
+    st = tt.init_decode_state(cfg, 2, "cpu")
+    want = jax.vmap(lambda _: jt.init_decode_state(jt.TransformerConfig(
+        kv_quant=True, dtype=jnp.float32, **KW)))(jnp.arange(2))
+    assert set(st) == set(want)
+    for name, arr in st.items():
+        assert tuple(arr.shape) == want[name].shape
+        assert str(arr.dtype) == f"torch.{want[name].dtype}"
+    eng = ContinuousBatchingEngine(cfg, tt.init_params(
+        torch.Generator().manual_seed(0), cfg), device="cpu", **ENGINE)
+    try:
+        assert len(list(eng.submit(np.asarray([3, 17], np.int32), 3))) == 3
+        assert eng._dev["cache"]["k"].dtype == torch.int8
+        assert eng._dev["cache"]["k_scale"].dtype == torch.float32
+    finally:
+        eng.stop()
 
 
 def test_served_decoupled_path_on_the_slot_default(model, jobs,

@@ -12,10 +12,12 @@ engine integration) on the CPU, held against the JAX package's.
   on the same f32 weights (the reference's tiny config): a best-effort
   stream holds the only slot, a gold request arrives, the best-effort one
   is preempted, committed and re-queued, and resumes after the gold one.
-  On the slot layout, on the paged layout with the chunked lane, and with
-  a self-draft speculating, both engines give identical tokens (equal to
-  an uninterrupted run), preemption and resume counts, completion order
-  and statuses, and end leak-free (no slot held, no pin, the paged pool
+  On the slot layout, on the paged layout with the chunked lane, with a
+  self-draft speculating, and through a dedicated prefill lane on both
+  layouts (the victim and its resume come through the lane), both
+  engines give identical tokens (equal to an uninterrupted run),
+  preemption and resume counts, completion order and statuses, and end
+  leak-free (no slot held, no pin, the paged pool
   whole). A cancel and a deadline that land on the preempted request
   while it is queued settle it as the reference does (499, 504).
   Deterministic: each engine is held at a dispatch boundary (its deadline
@@ -68,6 +70,14 @@ COMBOS = {
                           prefill_mode="chunked", prefill_chunk=8),
     "slot_speculating": dict(prefix_cache=True, prefix_block_len=4,
                              speculative_gamma=3),
+    # the victim came through a dedicated prefill lane (its 8-token prompt
+    # is longer than the chunk), and so does its resume
+    "paged_lane": dict(kv_layout="paged", kv_block_len=4, prefix_cache=True,
+                       prefix_block_len=4, prefill_mode="chunked",
+                       prefill_chunk=8, prefill_slots=1),
+    "slot_lane": dict(prefix_cache=True, prefix_block_len=4,
+                      prefill_mode="chunked", prefill_chunk=8,
+                      prefill_slots=1),
 }
 
 
@@ -507,6 +517,10 @@ def test_preemption_matches_the_jax_engine(engines, combo):
     assert port["order"] == ["gold", "be"]
     assert port["preemptions"] == port["resumes"] == 1
     assert port["settled"]["pins"] == 0
+    if combo.endswith("lane"):
+        # the plain run's, the victim's and its resume's prompts
+        eng = built[(combo, "port")][0]
+        assert eng.gen_stats.snapshot()["lane_handoffs"] >= 3
     if combo.startswith("paged"):
         assert port["settled"]["stream_blocks"] == 0
         assert port["settled"]["reserved"] == 0
