@@ -177,6 +177,25 @@ each printing one JSON line:
              through the host tier and back, bit for bit. The slot layout's
              lane run and the int8 paged run are cut from 32 jobs to 16 to
              keep the phase near a minute; the width is bench.py's.
+14. observe  the observability plane at the same widths: the BERT-base
+             encoder (K1, 12 launches per batch, embeddings held against
+             the plain attention's forward) over HTTP with every request
+             traced (trace_level TIMESTAMPS, trace_rate 1) to a file,
+             each trace holding REQUEST_START through REQUEST_END in
+             serving order; bench.py's 32 jobs, paged with K2, through the
+             decoupled path twice, tracing off (observe_off) and every
+             request traced (observe_paged) while /metrics is scraped over
+             HTTP every 250 ms and once after: both arms K2 12 x 16 per
+             chunk dispatch and every greedy stream teacher-forced, the
+             scrapes parsed by the port's parser with the token counter
+             never going down, the last scrape's token and completion
+             counters equal to the engine's and client_tpu_engine_up 1,
+             one trace per stream; then an engine on the card whose
+             dispatch raises: the model, the server and /v2/health/ready
+             read not ready and client_tpu_engine_up 0 until an unload
+             and a load. Prints both arms' tokens/s (and their ratio), the
+             median and largest scrape's host ms, spans per trace and the
+             number of families.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -187,6 +206,7 @@ file without the rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -194,6 +214,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -589,29 +610,37 @@ def _infer_binary(url: str, tok: np.ndarray) -> np.ndarray:
     return np.frombuffer(raw[json_len:], np.float32).reshape(out["shape"])
 
 
-def phase_serve() -> dict:
+def _encoder_over_http(label: str, seed: int, trace_file: str = "") -> dict:
+    """The BERT-base encoder (random weights from ``seed``) behind
+    TorchInferenceServer's dynamic batcher and the HTTP front end,
+    N_REQUESTS concurrent JSON and binary requests, with every request
+    traced to ``trace_file`` when one is given. The K1 launch counter is
+    set to 0 just before the requests and read just after: 12 per batch.
+    Every embedding is held against the same weights' forward with the
+    plain attention on the card, at the served (padded) shape."""
     from client_tpu_torch.ops import flash_attention as fa
-    from client_tpu_torch.perf.bench_harness import (
-        build_bert_encoder,
-        probe_step_ms,
-    )
+    from client_tpu_torch.perf.bench_harness import build_bert_encoder
     from client_tpu_torch.server import TorchInferenceServer
     from client_tpu_torch.server.http_server import HttpInferenceServer
 
     seq, bucket = 128, 256
     cache: dict = {}
     model = build_bert_encoder(seq, bucket, attn_impl="flash",
-                               params_cache=cache, seed=0)
+                               params_cache=cache, seed=seed)
     ref_model = build_bert_encoder(seq, bucket, attn_impl="ref",
                                    params_cache=cache)
     core = TorchInferenceServer()
     t0 = time.time()
     core.register_model(model, warmup=True)
     register_s = time.time() - t0
+    if trace_file:
+        core.update_trace_settings(settings={
+            "trace_level": ["TIMESTAMPS"], "trace_rate": ["1"],
+            "trace_file": [trace_file]})
     http = HttpInferenceServer(core, port=0).start()
     try:
         url = f"http://{http.url}/v2/models/bert_base/infer"
-        rng = np.random.default_rng(0)
+        rng = np.random.default_rng(seed)
         toks = [rng.integers(0, 30528, size=(1, seq)).astype(np.int32)
                 for _ in range(N_REQUESTS)]
         got: list = [None] * N_REQUESTS
@@ -638,42 +667,54 @@ def phase_serve() -> dict:
         wall_s = time.time() - t0
         launches = fa.launches
         if errors or any(t.is_alive() for t in threads):
-            fail(f"serve: {errors[:3]}")
+            fail(f"{label}: {errors[:3]}")
         stats = core.statistics("bert_base")["model_stats"][0]
     finally:
         http.stop()
-        core.stop()
+        core.stop()      # and flushes the trace file
 
     batches = stats["execution_count"]
     if stats["inference_count"] != N_REQUESTS:
-        fail(f"serve: stats count {stats['inference_count']} inferences")
+        fail(f"{label}: stats count {stats['inference_count']} inferences")
     if launches != LAYERS * batches:
-        fail(f"serve: {launches} flash_attention launches for {batches} "
+        fail(f"{label}: {launches} flash_attention launches for {batches} "
              f"batches, expected {LAYERS} per batch")
+    padded = np.zeros((bucket, seq), np.int32)
+    padded[:N_REQUESTS] = np.concatenate(toks)
+    want = ref_model.execute({"input_ids": padded})["embedding"][:N_REQUESTS]
+    for out in got:
+        if out.shape != (1,) + want.shape[1:] or out.dtype != np.float32 \
+                or not np.isfinite(out).all():
+            fail(f"{label}: bad embedding {out.shape} {out.dtype}")
+    err = float(np.abs(np.concatenate(got) - want).max())
+    if err > EMBED_ATOL:
+        fail(f"{label}: embeddings differ from the plain attention's by "
+             f"{err} > {EMBED_ATOL}")
+    return {"model": model, "ref_model": ref_model, "stats": stats,
+            "batches": batches, "flash_attention_launches": launches,
+            "embedding_max_abs_err_vs_ref": err, "wall_s": wall_s,
+            "register_with_warmup_s": register_s}
+
+
+def phase_serve() -> dict:
+    from client_tpu_torch.perf.bench_harness import probe_step_ms
+
+    seq, bucket = 128, 256
+    run = _encoder_over_http("serve", 0)
+    stats = run["stats"]
     sizes = [b["batch_size"] for b in stats["batch_stats"]]
     if max(sizes) < 2:
         fail(f"serve: the batcher formed no batch of more than one "
              f"request (batch sizes {sizes})")
-
-    # the same weights' forward with the plain attention, on the card, at
-    # the served (padded) shape
-    for out in got:
-        if out.shape != (1, 768) or out.dtype != np.float32 \
-                or not np.isfinite(out).all():
-            fail(f"serve: bad embedding {out.shape} {out.dtype}")
-    padded = np.zeros((bucket, seq), np.int32)
-    padded[:N_REQUESTS] = np.concatenate(toks)
-    want = ref_model.execute({"input_ids": padded})["embedding"][:N_REQUESTS]
-    err = float(np.abs(np.concatenate(got) - want).max())
-    if err > EMBED_ATOL:
-        fail(f"serve: embeddings differ from the plain attention's by "
-             f"{err} > {EMBED_ATOL}")
-    step_ms = probe_step_ms(model, seq, bucket)
-    ref_step_ms = probe_step_ms(ref_model, seq, bucket)
-    result = {"phase": "serve", "requests": N_REQUESTS, "batches": batches,
-              "batch_sizes": sizes, "flash_attention_launches": launches,
-              "embedding_max_abs_err_vs_ref": err, "embed_atol": EMBED_ATOL,
-              "wall_s": wall_s, "register_with_warmup_s": register_s,
+    step_ms = probe_step_ms(run["model"], seq, bucket)
+    ref_step_ms = probe_step_ms(run["ref_model"], seq, bucket)
+    result = {"phase": "serve", "requests": N_REQUESTS,
+              "batches": run["batches"], "batch_sizes": sizes,
+              "flash_attention_launches": run["flash_attention_launches"],
+              "embedding_max_abs_err_vs_ref":
+                  run["embedding_max_abs_err_vs_ref"],
+              "embed_atol": EMBED_ATOL, "wall_s": run["wall_s"],
+              "register_with_warmup_s": run["register_with_warmup_s"],
               "step_ms_flash": step_ms, "step_ms_ref": ref_step_ms,
               "queue_ns": stats["inference_stats"]["queue"]["ns"],
               "compute_infer_ns":
@@ -1073,14 +1114,17 @@ def _generation_model() -> tuple:
 
 def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
                       n_threads: int = 0, settled=None, labels=None,
-                      late=None, instrument=None, **engine_kw) -> dict:
+                      late=None, instrument=None, around=None,
+                      **engine_kw) -> dict:
     """Serve ``jobs`` through make_continuous_generator and
     TorchInferenceServer.infer with a response callback, one thread each,
     all started together (with ``n_threads``, thread k sends jobs k,
     k + n_threads, ... one after another; ``labels`` gives each job its
     (tenant, slo_class); with ``late`` = (k, cond), jobs k and later are
     sent once ``cond(engine)`` holds; ``instrument(engine)`` runs on the
-    built engine before the warmup stream); check that every stream
+    built engine before the warmup stream; ``around(core)``, a context
+    manager, is entered just before the counters are set to 0 and left
+    once the streams end); check that every stream
     streamed exactly its budget of in-vocab tokens and then one final flag
     (its greedy streams go to ``_judge_greedy``). The K2 and K1 launch
     counters are set to 0 just before the streams start and read just
@@ -1154,16 +1198,18 @@ def _serve_generation(label: str, cfg, params, jobs: list, sampling: list,
     try:
         before = engine.stats()
         snap0 = engine.gen_stats.snapshot()
-        # the main path: counters at 0 just before, read just after
-        pa.launches = 0
-        fa.launches = 0
-        t0 = time.time()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
-        wall_s = time.time() - t0
-        k2, k1 = pa.launches, fa.launches
+        with (around(core) if around is not None
+              else contextlib.nullcontext()):
+            # the main path: counters at 0 just before, read just after
+            pa.launches = 0
+            fa.launches = 0
+            t0 = time.time()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall_s = time.time() - t0
+            k2, k1 = pa.launches, fa.launches
         after = engine.stats()
         snap = engine.gen_stats.snapshot()
         extra = settled(engine) if settled is not None else {}
@@ -2466,6 +2512,260 @@ def phase_lanes(gen_model: tuple, bench_point: dict) -> dict:
     return result
 
 
+OBSERVE_SPANS = ["REQUEST_START", "QUEUE_START", "COMPUTE_START",
+                 "COMPUTE_INPUT_END", "COMPUTE_OUTPUT_START", "REQUEST_END"]
+SCRAPE_EVERY_S = 0.25
+
+
+def _get(url: str) -> tuple:
+    """(status, body) of one GET, a 4xx/5xx included."""
+    try:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _read_traces(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _observe_encoder(trace_dir: str) -> dict:
+    """The encoder over HTTP (``_encoder_over_http``) with every request
+    traced to a file: one trace per request, each with its spans in
+    serving order."""
+    trace_file = os.path.join(trace_dir, "encoder.jsonl")
+    run = _encoder_over_http("observe", 1, trace_file)
+    traces = _read_traces(trace_file)
+    if len(traces) != N_REQUESTS:
+        fail(f"observe: {len(traces)} encoder traces for {N_REQUESTS} "
+             f"requests")
+    for tr in traces:
+        names = [s["name"] for s in tr["timestamps"]]
+        stamps = [s["ns"] for s in tr["timestamps"]]
+        if names != OBSERVE_SPANS or stamps != sorted(stamps):
+            fail(f"observe: encoder trace {tr['id']} spans {names}")
+    return {"requests": N_REQUESTS, "batches": run["batches"],
+            "flash_attention_launches": run["flash_attention_launches"],
+            "embedding_max_abs_err_vs_ref":
+                run["embedding_max_abs_err_vs_ref"],
+            "traces": len(traces), "spans_per_trace": len(OBSERVE_SPANS)}
+
+
+def _scraper(url: str, samples: list):
+    """A context manager that GETs ``url`` every SCRAPE_EVERY_S from a
+    thread while it is entered, and once more as it leaves; each scrape
+    is parsed with the port's parser into ``samples`` as (host ms,
+    parsed)."""
+    from client_tpu_torch.server.metrics import parse_prometheus_text
+
+    def scrape():
+        t0 = time.perf_counter()
+        status, body = _get(url)
+        ms = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            raise RuntimeError(f"GET /metrics answered {status}")
+        samples.append((ms, parse_prometheus_text(body.decode())))
+
+    @contextlib.contextmanager
+    def run():
+        stop = threading.Event()
+        errors: list = []
+
+        def loop():
+            while not stop.wait(SCRAPE_EVERY_S):
+                try:
+                    scrape()
+                except Exception as e:  # noqa: BLE001 — failed below
+                    errors.append(f"{type(e).__name__}: {e}")
+                    return
+
+        th = threading.Thread(target=loop)
+        th.start()
+        try:
+            yield
+        finally:
+            stop.set()
+            th.join(timeout=60)
+        if errors:
+            fail(f"observe: a scrape failed: {errors[0]}")
+        scrape()
+
+    return run()
+
+
+def _observe_generation(gen_model: tuple, trace_dir: str) -> tuple:
+    """bench.py's 32 jobs, paged with K2, through the decoupled path twice:
+    tracing off, then every request traced to a file while /metrics is
+    scraped over HTTP."""
+    import dataclasses
+
+    from client_tpu_torch.server.http_server import HttpInferenceServer
+    from client_tpu_torch.server.metrics import sample_value
+
+    cfg, params, jobs = gen_model
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    greedy = [None] * len(jobs)
+    kw = dict(kv_layout="paged", kv_block_len=GEN_BLOCK)
+    off = _serve_generation("observe_off", cfg, params, jobs, greedy, **kw)
+    trace_file = os.path.join(trace_dir, "generation.jsonl")
+    scrapes: list = []
+    final: dict = {}
+
+    @contextlib.contextmanager
+    def traced(core):
+        core.update_trace_settings(settings={
+            "trace_level": ["TIMESTAMPS"], "trace_rate": ["1"],
+            "trace_file": [trace_file]})
+        http = HttpInferenceServer(core, port=0).start()
+        try:
+            with _scraper(f"http://{http.url}/metrics", scrapes):
+                yield
+            engine = core._entry("continuous_lm").model.engine
+            final["stats"] = engine.stats()
+        finally:
+            http.stop()
+
+    on = _serve_generation("observe_paged", cfg, params, jobs, greedy,
+                           around=traced, **kw)
+    _judge_greedy(cfg, params, [off, on])
+    for run in (off, on):
+        want = LAYERS * GEN_CHUNK * run["chunk_dispatches"]
+        if run["paged_decode_attention_launches"] != want:
+            fail(f"observe: the {run['run']} run launched "
+                 f"paged_decode_attention "
+                 f"{run['paged_decode_attention_launches']} times in "
+                 f"{run['chunk_dispatches']} chunk dispatches, expected "
+                 f"{want}")
+    lab = {"model": "continuous_lm", "version": "1"}
+    last = scrapes[-1][1]
+    stats = final["stats"]
+    for name, key in (("client_tpu_generation_tokens_total",
+                       "tokens_emitted"),
+                      ("client_tpu_generation_requests_total",
+                       "requests_completed")):
+        if sample_value(last, name, lab) != stats[key]:
+            fail(f"observe: {name} reads {sample_value(last, name, lab)}, "
+                 f"the engine's {key} {stats[key]}")
+    tokens = [sample_value(p, "client_tpu_generation_tokens_total", lab)
+              for _ms, p in scrapes]
+    if tokens != sorted(tokens):
+        fail(f"observe: the token counter went down between scrapes")
+    if sample_value(last, "client_tpu_engine_up", lab) != 1:
+        fail("observe: client_tpu_engine_up does not read 1")
+    traces = _read_traces(trace_file)
+    if len(traces) != len(jobs):
+        fail(f"observe: {len(traces)} generation traces for {len(jobs)} "
+             f"streams")
+    for tr in traces:
+        names = [s["name"] for s in tr["timestamps"]]
+        if names[0] != "REQUEST_START" or names[-1] != "REQUEST_END" \
+                or not {"GENERATION_ENQUEUE", "QUEUE_WAIT", "FIRST_TOKEN",
+                        "DECODE"} <= set(names):
+            fail(f"observe: generation trace {tr['id']} spans {names}")
+    ms = sorted(m for m, _p in scrapes)
+    spans = [len(tr["timestamps"]) for tr in traces]
+    scrape = {"scrapes": len(scrapes), "scrape_ms_median": ms[len(ms) // 2],
+              "scrape_ms_max": ms[-1], "families": len(last["families"]),
+              "traces": len(traces), "spans_per_trace_mean":
+                  sum(spans) / len(spans),
+              "spans_per_trace_min": min(spans),
+              "spans_per_trace_max": max(spans)}
+    return off, on, scrape
+
+
+def _observe_dead_engine(gen_model: tuple) -> dict:
+    """An engine on the card whose dispatch raises: the model and the
+    server read not ready (also over HTTP) and client_tpu_engine_up 0,
+    until an unload and a load stage a fresh engine."""
+    import dataclasses
+
+    from client_tpu_torch.models.decoder_lm import make_continuous_generator
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server.http_server import HttpInferenceServer
+    from client_tpu_torch.server.metrics import (
+        parse_prometheus_text,
+        sample_value,
+    )
+
+    cfg, params, jobs = gen_model
+    model = make_continuous_generator(
+        "dead", cfg=dataclasses.replace(cfg, attn_impl="flash"),
+        params=params, n_slots=2, chunk_size=GEN_CHUNK, kv_layout="paged",
+        kv_block_len=GEN_BLOCK, device="cuda")
+    core = TorchInferenceServer()
+    core.register_model(model, warmup=True)
+    http = HttpInferenceServer(core, port=0).start()
+    prompt = jobs[0][0]
+
+    def readiness():
+        return (core.model_ready("dead"), core.ready(),
+                _get(f"http://{http.url}/v2/health/ready")[0])
+
+    try:
+        healthy = readiness()
+        engine = model.engine
+
+        def boom(*a, **k):
+            raise RuntimeError("injected dispatch failure")
+
+        engine._dispatch = boom
+        try:
+            list(engine.submit(prompt, 4))
+            fail("observe: a stream on a dead engine did not fail")
+        except RuntimeError:
+            pass
+        engine._thread.join(timeout=60)
+        dead = readiness()
+        up = sample_value(parse_prometheus_text(core.metrics_text()),
+                          "client_tpu_engine_up", {"model": "dead"})
+        model.unload()
+        model.load()
+        served = len(list(model.engine.submit(prompt, 4)))
+        restored = readiness()
+    finally:
+        http.stop()
+        core.stop()
+    if (healthy, dead, up, restored, served) != \
+            ((True, True, 200), (False, False, 400), 0, (True, True, 200),
+             4):
+        fail(f"observe: readiness {healthy} -> {dead} (engine_up {up}) "
+             f"-> {restored}, {served} tokens after the reload")
+    return {"ready": healthy, "dead": dead, "engine_up_dead": up,
+            "reloaded": restored}
+
+
+def phase_observe(gen_model: tuple) -> dict:
+    """The observability plane at full width: the encoder traced over
+    HTTP (K1), bench.py's 32 paged jobs with tracing off and on while
+    /metrics is scraped (K2), and a dead engine's readiness."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as trace_dir:
+        t0 = time.time()
+        encoder = _observe_encoder(trace_dir)
+        t1 = time.time()
+        off, on, scrape = _observe_generation(gen_model, trace_dir)
+        t2 = time.time()
+        dead = _observe_dead_engine(gen_model)
+    runs = []
+    for run in (off, on):
+        runs.append({k: run[k] for k in (
+            "run", "continuous_batching_ragged_tokens_per_s",
+            "chunk_dispatches", "paged_decode_attention_launches",
+            "host_ms_per_dispatch", "ttft_mean_ms", "itl_mean_ms",
+            "teacher_forced", "wall_s")})
+    result = {"phase": "observe", "encoder": encoder, "runs": runs,
+              "traced_vs_off": on["continuous_batching_ragged_tokens_per_s"]
+              / off["continuous_batching_ragged_tokens_per_s"],
+              "scrape": scrape, "dead_engine": dead,
+              "seconds": {"encoder": t1 - t0, "generation": t2 - t1,
+                          "dead_engine": time.time() - t2}}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -2498,6 +2798,7 @@ def main() -> int:
     speculate = timed("speculate", phase_speculate, gen_model)
     schedule = timed("schedule", phase_schedule, gen_model)
     lanes = timed("lanes", phase_lanes, gen_model, generate_slot["runs"][0])
+    observe = timed("observe", phase_observe, gen_model)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -2518,7 +2819,8 @@ def main() -> int:
             serve=serve["flash_attention_launches"],
             serve_shm=serve_shm["flash_attention_launches"],
             serve_shm_headline=serve_shm["headline"][
-                "flash_attention_launches"]),
+                "flash_attention_launches"],
+            observe=observe["encoder"]["flash_attention_launches"]),
         row("paged_decode_attention",
             "client_tpu_torch/ops/csrc/paged_attention.cu",
             "client_tpu/ops/paged_attention.py:52",
@@ -2538,6 +2840,10 @@ def main() -> int:
                 "paged_decode_attention_launches"],
             lane_paged=lanes["runs"][1]["paged_decode_attention_launches"],
             lane_paged_batch=lanes["runs"][2][
+                "paged_decode_attention_launches"],
+            observe_off=observe["runs"][0][
+                "paged_decode_attention_launches"],
+            observe_paged=observe["runs"][1][
                 "paged_decode_attention_launches"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

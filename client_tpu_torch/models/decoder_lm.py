@@ -84,8 +84,12 @@ def decode_config(vocab_size: int = 1024, d_model: int = 128,
 class ContinuousModel(PyModel):
     """The served continuous generator: ``engine`` is the live engine.
     ``unload`` stops it and stages a fresh one (a stopped engine stays
-    stopped); ``warmup`` drives one short stream through it, so the
-    kernels are built and the device state is ready before serving."""
+    stopped); ``shutdown``, the server's terminal stop, stops it and
+    stages nothing; ``warmup`` drives one short stream through it, so the
+    kernels are built and the device state is ready before serving.
+    ``engine_healthy`` gates the model's readiness on the engine thread;
+    ``runtime_stats`` (the statistics' ``runtime`` block) and
+    ``generation_stats`` (the /metrics feed) read the live engine."""
 
     def __init__(self, config: ModelConfig, stream_fn, fresh_engine):
         super().__init__(config, fn=None, stream_fn=stream_fn)
@@ -98,6 +102,21 @@ class ContinuousModel(PyModel):
     def unload(self) -> None:
         self.engine.stop()
         self.engine = self._fresh_engine()
+
+    def shutdown(self) -> None:
+        self.engine.stop()
+
+    def engine_healthy(self) -> bool:
+        """False once the engine thread died on an unexpected error, until
+        an unload stages a fresh engine."""
+        return self.engine.healthy()
+
+    def runtime_stats(self) -> dict:
+        return self.engine.stats()
+
+    def generation_stats(self) -> dict:
+        """The token-level snapshot the /metrics collector reads."""
+        return self.engine.generation_snapshot()
 
     def slo_snapshot(self) -> dict:
         """Per-(tenant, slo_class) windowed quantiles and burn
@@ -271,10 +290,12 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
         # prompt validation lives in engine.submit: one definition of
         # the wire contract. The request's deadline (the wire timeout)
         # and the front end's cancel Event bound the stream's lifetime
-        # inside the engine; the SLO labels ride along.
+        # inside the engine; the SLO labels and the sampled trace, which
+        # the engine stamps with its spans, ride along.
         submit_kw = {}
         if context is not None:
-            submit_kw = {"tenant_id": context.tenant_id,
+            submit_kw = {"trace": context.trace,
+                         "tenant_id": context.tenant_id,
                          "slo_class": context.slo_class,
                          "deadline_ns": context.deadline_ns,
                          "cancel_event": context.cancel_event}

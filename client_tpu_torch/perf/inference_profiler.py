@@ -13,8 +13,9 @@ port's copy of ``client_tpu/perf/inference_profiler.py``.
 
 The reference's metrics-plane parts (``ServerMetricsStats``, the
 per-window metric deltas, the window-violation gates that read them,
-traces and incidents) wait for the port's metrics endpoint (ROADMAP
-A13). Where the backend has no metrics plane they report nothing: a
+traces and incidents) wait for ROADMAP A13c; the server's ``/metrics``
+they read is ported. Where the backend has no metrics plane they report
+nothing: a
 status carries no metrics field rather than zeros. The request-rate
 search waits with the request-rate manager.
 """

@@ -4,7 +4,8 @@ behind the dynamic batcher and a decoupled (streaming) generator use.
 
 The generator's ``generation_engine``, ``prefix_cache``,
 ``speculative``, ``scheduler`` and ``slo_classes`` blocks carry the
-engine knobs the port runs; the fleet, sequence, ensemble and sharding
+engine knobs the port runs; ``response_cache`` turns on the v2 response
+cache; the fleet, sequence, ensemble and sharding
 blocks of the reference wait for the slices that use them. ``platform`` and ``backend`` read ``"pytorch"``
 (the reference's generator says ``"python"``).
 """
@@ -244,6 +245,9 @@ class ModelConfig:
     # decoupled transaction policy: the model streams zero or more
     # responses per request (served only through a response callback)
     decoupled: bool = False
+    # the v2 response cache: identical host-resident requests are
+    # answered from it (core.infer)
+    response_cache: bool = False
     prefix_cache: Optional[PrefixCacheConfig] = None
     speculative: Optional[SpeculativeConfig] = None
     generation_engine: Optional[GenerationEngineConfig] = None
@@ -299,6 +303,8 @@ class ModelConfig:
         }
         if self.dynamic_batching is not None:
             j["dynamic_batching"] = self.dynamic_batching.to_json()
+        if self.response_cache:
+            j["response_cache"] = {"enable": True}
         if self.queue_policy is not None:
             j["queue_policy"] = self.queue_policy.to_json()
         if self.prefix_cache is not None:

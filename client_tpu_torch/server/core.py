@@ -2,7 +2,8 @@
 
 The port's counterpart of ``client_tpu/server/core.py``: the HTTP and
 gRPC front ends (and in-process callers) call this object; it owns the model
-registry, the schedulers and the statistics.
+registry, the schedulers, the shared-memory registries, the response cache,
+the statistics and the trace settings.
 
 Tensors may ride the request, or sit in a registered shared-memory
 region (``system_shm``: POSIX regions; ``cuda_shm``: tensors on a
@@ -10,14 +11,25 @@ device, read zero-copy by an in-process producer's server). Outputs a
 request directs into a region are written there instead of riding the
 response.
 
+A request is sampled by the tracer (``trace_level``, ``trace_rate``,
+``trace_count``, ``log_frequency``, ``trace_file``, global or per model; a
+propagated trace id forces sampling), and its spans are stamped from
+arrival through the scheduler and, for a generation stream, inside the
+engine. ``metrics_text`` renders the Prometheus exposition
+(``server/metrics.py``). A model with ``response_cache`` answers a
+repeated request whose inputs are all host arrays from the cache.
+Readiness follows a model's engine: a model whose engine thread died is
+not ready.
+
 The debug surface has ``debug_slo`` and ``debug_scheduler`` (the HTTP
 routes that serve them come with the runtime planes). Waiting for later
-slices: the response cache, the tracer, ensembles, repository
-load/unload and the rest of the debug surface.
+slices: ensembles, repository load/unload and the rest of the debug
+surface.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Callable, Optional
@@ -35,13 +47,18 @@ from client_tpu_torch.protocol.dtypes import (
     DataType,
     dtype_byte_size,
     element_count,
+    np_to_wire_dtype,
     wire_to_np_dtype,
 )
+from client_tpu_torch.server import trace as trace_mod
+from client_tpu_torch.server.cache import ResponseCache
 from client_tpu_torch.server.config import ModelConfig
+from client_tpu_torch.server.metrics import render_server_metrics
 from client_tpu_torch.server.model import ServedModel
 from client_tpu_torch.server.scheduler import Pending, make_scheduler
 from client_tpu_torch.server.shm import CudaShmRegistry, SystemShmRegistry
 from client_tpu_torch.server.stats import ModelStats
+from client_tpu_torch.server.trace import Tracer
 from client_tpu_torch.server.types import (
     InferRequest,
     InferResponse,
@@ -51,6 +68,8 @@ from client_tpu_torch.server.types import (
 )
 from client_tpu_torch.utils import cuda_shared_memory as cudashm
 
+log = logging.getLogger(__name__)
+
 SERVER_EXTENSIONS = [
     "classification",
     "model_configuration",
@@ -58,6 +77,9 @@ SERVER_EXTENSIONS = [
     "statistics",
     "system_shared_memory",
     "cuda_shared_memory",
+    "trace",
+    "metrics",
+    "response_cache",
 ]
 
 
@@ -75,7 +97,8 @@ class _ModelEntry:
 
 
 class TorchInferenceServer:
-    def __init__(self, name: str = "client-tpu-torch-server"):
+    def __init__(self, name: str = "client-tpu-torch-server",
+                 cache_bytes: int = 256 * 1024 * 1024):
         self.name = name
         self.version = client_tpu_torch.__version__
         self._lock = threading.Lock()
@@ -88,6 +111,8 @@ class TorchInferenceServer:
         self._live = True
         self.system_shm = SystemShmRegistry()
         self.cuda_shm = CudaShmRegistry()
+        self.cache = ResponseCache(max_bytes=cache_bytes)
+        self.tracer = Tracer()
 
     # ------------------------------------------------------------------
     # model lifecycle
@@ -150,14 +175,16 @@ class TorchInferenceServer:
     def ready(self) -> bool:
         with self._lock:
             entries = [e for vs in self._models.values() for e in vs.values()]
-        return self._live and all(e.state == "READY" for e in entries)
+        return self._live and all(e.state == "READY"
+                                  and _engine_healthy(e.model)
+                                  for e in entries)
 
     def model_ready(self, name: str, version: str = "") -> bool:
         try:
             entry = self._entry(name, version)
         except ServerError:
             return False
-        return entry.state == "READY"
+        return entry.state == "READY" and _engine_healthy(entry.model)
 
     def metadata(self) -> dict:
         return {"name": self.name, "version": self.version,
@@ -182,10 +209,35 @@ class TorchInferenceServer:
             for v, entry in sorted(versions.items()):
                 if version and str(v) != version:
                     continue
-                stats.append(entry.stats.to_json(model_name, str(v)))
+                j = entry.stats.to_json(model_name, str(v))
+                # a model with its own runtime (the generation engine)
+                # adds its live counters; the HTTP JSON carries them, the
+                # gRPC proto keeps the KServe field set
+                extra = getattr(entry.model, "runtime_stats", None)
+                if callable(extra):
+                    try:
+                        j["runtime"] = extra()
+                    except Exception:  # noqa: BLE001 — stats best-effort
+                        pass
+                stats.append(j)
         if name and not stats:
             raise ServerError(f"unknown model '{name}'", 404)
         return {"model_stats": stats}
+
+    # ---- trace settings ----
+
+    def get_trace_settings(self, model_name: str = "") -> dict:
+        return self.tracer.get_settings(model_name)
+
+    def update_trace_settings(self, model_name: str = "",
+                              settings: Optional[dict] = None) -> dict:
+        return self.tracer.update_settings(model_name, settings)
+
+    # ---- metrics ----
+
+    def metrics_text(self) -> str:
+        """The Prometheus exposition served at GET /metrics."""
+        return render_server_metrics(self)
 
     def _model_snapshots(self, hook: str, key: str) -> dict:
         """``{"models": [...]}`` with one row per served model version
@@ -237,24 +289,77 @@ class TorchInferenceServer:
         needs the callback (400 without it); its wire ``timeout`` becomes
         the stream's deadline (a 504 once it passes) and the request's
         ``cancel_event``, set by the front end, ends it with a 499."""
-        request.arrival_ns = now_ns()
+        # arrival and the trace ride locals: an in-process caller may
+        # reuse one request object across concurrent calls
+        arrival_ns = now_ns()
+        request.arrival_ns = arrival_ns
         entry = self._entry(request.model_name, request.model_version)
         if entry.state != "READY":
             raise ServerError(
                 f"model '{request.model_name}' is not ready", 400)
-        inputs = self._resolve_inputs(entry, request)
-        if entry.model.config.decoupled and response_callback is None:
-            raise ServerError(
-                f"model '{request.model_name}' is decoupled; use the "
-                "streaming API", 400)
+        cfg = entry.model.config
+        # request.trace mirrors it for the front ends' trace-id echo
+        trace = self.tracer.sample(request.model_name, str(entry.version),
+                                   propagated_id=request.trace_id)
+        request.trace = trace
+        if trace is not None:
+            trace.event(trace_mod.REQUEST_START, arrival_ns,
+                        tenant=request.tenant_id,
+                        slo_class=request.slo_class)
+            trace.add_tensors("input", request.inputs)
+        try:
+            inputs = self._resolve_inputs(entry, request)
+            if cfg.decoupled and response_callback is None:
+                raise ServerError(
+                    f"model '{request.model_name}' is decoupled; use the "
+                    "streaming API", 400)
+        except Exception:
+            # the request ends before a sink exists: close its trace here,
+            # or it is never exported
+            if trace is not None:
+                trace.event(trace_mod.REQUEST_END)
+                self.tracer.release(trace)
+            raise
+
+        # the response cache keys host-resident requests only: an input
+        # on the device (a CUDA region, an in-process tensor) or an output
+        # directed into a region is never cached
+        cache_key = None
+        if cfg.response_cache and not cfg.decoupled \
+                and all(isinstance(v, np.ndarray) for v in inputs.values()) \
+                and all(o.shm_region is None for o in request.outputs):
+            t0 = now_ns()
+            cache_key = ResponseCache.key(request.model_name,
+                                          str(entry.version), inputs)
+            hit = self.cache.lookup(cache_key)
+            if hit is not None:
+                entry.stats.record_cache_hit(now_ns() - t0)
+                resp = self._postprocess(request, _response_from_outputs(
+                    request, hit, str(entry.version)))
+                if trace is not None:
+                    trace.event(trace_mod.CACHE_HIT)
+                    trace.event(trace_mod.REQUEST_END)
+                    trace.add_tensors("output", resp.outputs)
+                    self.tracer.release(trace)
+                if response_callback is not None:
+                    response_callback(resp, True)
+                    return None
+                return resp
 
         if response_callback is not None:
             def sink_cb(resp: InferResponse, final: bool) -> None:
                 if resp.error is None and resp.outputs:
                     resp = self._postprocess(request, resp)
+                if final and trace is not None:
+                    trace.event(trace_mod.REQUEST_END)
+                    if resp.error is None:
+                        trace.add_tensors("output", resp.outputs)
+                    self.tracer.release(trace)
                 response_callback(resp, final)
 
-            entry.scheduler.submit(Pending(request, sink_cb, inputs))
+            if trace is not None:
+                trace.event(trace_mod.QUEUE_START)
+            entry.scheduler.submit(Pending(request, sink_cb, inputs, trace))
             return None
 
         done = threading.Event()
@@ -263,15 +368,27 @@ class TorchInferenceServer:
         def sink(resp: InferResponse, final: bool) -> None:
             if resp.error is None and resp.outputs:
                 resp = self._postprocess(request, resp)
+            if final and trace is not None:
+                trace.event(trace_mod.REQUEST_END)
+                if resp.error is None:
+                    trace.add_tensors("output", resp.outputs)
+                self.tracer.release(trace)
             holder.append(resp)
             if final:
                 done.set()
 
-        entry.scheduler.submit(Pending(request, sink, inputs))
+        if trace is not None:
+            trace.event(trace_mod.QUEUE_START)
+        entry.scheduler.submit(Pending(request, sink, inputs, trace))
         timeout = request.timeout_us / 1e6 if request.timeout_us else None
         if not done.wait(timeout=timeout):
             raise ServerError("inference request timed out", 504)
         resp = holder[-1]
+        if resp.error is None and cache_key is not None:
+            t0 = now_ns()
+            self.cache.insert(cache_key,
+                              {t.name: t.data for t in resp.outputs})
+            entry.stats.record_cache_miss(now_ns() - t0)
         if resp.error is not None:
             raise ServerError(resp.error, resp.error_status,
                               retry_after=resp.retry_after_s)
@@ -442,15 +559,56 @@ class TorchInferenceServer:
     # ------------------------------------------------------------------
 
     def stop(self) -> None:
+        """Stop serving: every scheduler and model, then the shm
+        registries, then flush the buffered trace lines. A model with a
+        terminal ``shutdown`` gets it instead of ``unload`` (which stages
+        a fresh engine for a reload); one that raises does not keep the
+        others or the shm cleanup from running."""
         self._live = False
         with self._lock:
             entries = [e for vs in self._models.values() for e in vs.values()]
         for e in entries:
             if e.scheduler:
                 e.scheduler.stop()
-            e.model.unload()
+            try:
+                term = getattr(e.model, "shutdown", None)
+                if callable(term):
+                    term()
+                else:
+                    e.model.unload()
+            except Exception:  # noqa: BLE001 — shutdown is best-effort
+                log.exception("model '%s' failed to stop", e.model.name)
         self.system_shm.unregister_all()
         self.cuda_shm.unregister_all()
+        # with log_frequency buffering, the file's tail is still in memory
+        self.tracer.flush()
+
+
+def _engine_healthy(model) -> bool:
+    """True unless the model has an engine-liveness probe that says its
+    engine thread died (a model without an engine is ready by its entry
+    state alone); a probe that raises reads as down."""
+    probe = getattr(model, "engine_healthy", None)
+    if not callable(probe):
+        return True
+    try:
+        return bool(probe())
+    except Exception:  # noqa: BLE001 — a broken probe reads as down
+        return False
+
+
+def _response_from_outputs(request: InferRequest, outputs: dict,
+                           version: str) -> InferResponse:
+    """A response built from cached host outputs."""
+    tensors = []
+    for name, arr in outputs.items():
+        arr = np.asarray(arr)
+        tensors.append(InferTensor(name=name,
+                                   datatype=np_to_wire_dtype(arr.dtype),
+                                   shape=tuple(arr.shape), data=arr))
+    return InferResponse(model_name=request.model_name,
+                         model_version=version, id=request.id,
+                         outputs=tensors)
 
 
 _CPU = torch.device("cpu")

@@ -117,6 +117,15 @@ int8 KV (``cfg.kv_quant``): every state, pool and tier entry carries the
 scale tables beside the int8 rows; the paged decode step then takes the
 dequantising einsum, never K2, as in the reference.
 
+Observability: a request submitted with a sampled ``Trace`` gets the
+reference's engine spans where the reference stamps them (enqueue, queue
+wait, prefix hit, lane chunks and handoff, prefill end, verify rounds,
+preemption, sampled ring deliveries, decode); an untraced request costs
+one ``is None`` test at each site. ``generation_snapshot`` is the
+``/metrics`` feed (the counters, with the slot-busy integral and the
+traced observations' exemplars, and the live gauges), and ``healthy``
+reads False once the engine thread died on an unexpected error.
+
 Knobs of the reference that this slice does not run (meshes and fleets,
 the watchdog, goodput and timeline planes) raise ``NotImplementedError``
 naming the ROADMAP item that ports them; none is silently ignored.
@@ -143,6 +152,7 @@ from client_tpu_torch.models.sampling import (
     step_gumbel,
     step_uniform,
 )
+from client_tpu_torch.server import trace as trace_mod
 from client_tpu_torch.server.kv_cache import (
     COMMIT_POLICIES,
     HostTierStore,
@@ -578,11 +588,12 @@ class _Request:
                  "queue_wait_ns", "base_plen", "cap_tokens", "gen_tokens",
                  "preempt_count", "resume_pending", "resume_pin",
                  "park_bypasses", "parked", "prefix", "spec", "tenant",
-                 "slo_class", "deadline_ns", "cancel_ev", "outcome")
+                 "slo_class", "deadline_ns", "cancel_ev", "outcome",
+                 "trace")
 
     def __init__(self, prompt: np.ndarray, budget: int, eos_id: int,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 0.0, seed: int = 0,
+                 top_p: float = 0.0, seed: int = 0, trace=None,
                  tenant: str = DEFAULT_TENANT,
                  slo_class: str = DEFAULT_SLO_CLASS,
                  deadline_ns: int = 0, cancel_ev=None):
@@ -593,6 +604,7 @@ class _Request:
         self.top_k = top_k
         self.top_p = top_p
         self.seed = seed
+        self.trace = trace          # the sampled Trace or None (the core's)
         self.out: queue.Queue = queue.Queue()
         self.emitted = 0
         self.finished = False
@@ -1214,8 +1226,21 @@ class ContinuousBatchingEngine:
                          "lane_batch": self._lane_batch})
         return snap
 
+    def _live_tokens(self) -> int:
+        """KV rows resident for live streams: per occupied decode or lane
+        slot, its dispatched position bound clamped to the stream's worst
+        case (each slot's request is read once: any thread reads this)."""
+        total = 0
+        for slot in self._slots + self._lane_slots:
+            req = slot.req
+            if req is not None:
+                total += min(slot.pos_hi, req.cap_tokens)
+        return total
+
     def _paged_snapshot(self) -> Optional[dict]:
-        """The paged pool's occupancy; None under the slot layout."""
+        """The paged pool's occupancy (blocks of live streams, of the
+        prefix index and free, and the live rows); None under the slot
+        layout."""
         if not self._paged:
             return None
         occ = self._kv_index.occupancy()
@@ -1224,9 +1249,22 @@ class ContinuousBatchingEngine:
                 "max_blocks_per_slot": self._kv_max_blocks,
                 "blocks": occ["usable"],
                 "blocks_live": occ["stream"],
+                "blocks_pinned": occ["prefix"],
                 "blocks_free": occ["free"],
                 "blocks_reserved": occ["reserved"],
+                "live_tokens": self._live_tokens(),
                 "blocked_requests": self._pending.parked}
+
+    def _ring_snapshot(self) -> dict:
+        """The token ring: its entries, the live fetch stride, overlap,
+        the dispatches enqueued ahead of the last retired fetch, and the
+        fetch counts."""
+        return {"entries": self._ring_entries,
+                "fetch_stride": self._stride,
+                "overlap": self._overlap,
+                "lag_chunks": self._ring_seq - self._retired_seq,
+                "fetches": self.gen_stats.ring_fetches,
+                "forced_fetches": self.gen_stats.ring_forced_fetches}
 
     def _speculation_snapshot(self) -> Optional[dict]:
         """The speculation counters with the ladder and the live gamma
@@ -1248,6 +1286,44 @@ class ContinuousBatchingEngine:
         """Per-(tenant, slo_class) windowed quantiles, error-budget burn
         and outcome counts (``core.debug_slo``)."""
         return self.slo_stats.snapshot()
+
+    def healthy(self) -> bool:
+        """False once the engine thread died on an unexpected error:
+        model readiness and the ``client_tpu_engine_up`` gauge read it. A
+        cleanly stopped engine stays healthy (an unload stages a fresh
+        one)."""
+        return self._failed is None
+
+    def generation_snapshot(self) -> dict:
+        """The token-level counters with the live gauges the
+        ``client_tpu_generation_*``, ``client_tpu_slo_*`` and
+        ``client_tpu_sched_*`` families export (``server/metrics.py``).
+        ``goodput``, ``watchdog`` and ``supervisor`` are None until their
+        planes are ported (ROADMAP A13b, A13c): the collector then
+        registers none of their families."""
+        snap = self.gen_stats.snapshot()
+        snap.update({
+            "slo": self.slo_stats.snapshot(),
+            "engine_up": self.healthy(),
+            "supervisor": None,
+            "n_slots": self._n_slots,
+            "slots_active": self.active_slots(),
+            "queue_depth": self._pending.qsize(),
+            "chunks_dispatched": self._chunks_dispatched,
+            "dispatch_duty": self._duty,
+            "phase_seconds": dict(self._phase_s),
+            "ring": self._ring_snapshot(),
+            "prefill_lane": self._prefill_lane_snapshot(),
+            "kv_paged": self._paged_snapshot(),
+            "kv_tier": self._tier_snapshot(),
+            "scheduler": self.scheduler_snapshot(),
+            "prefix_cache": (None if self._prefix_index is None
+                             else self._prefix_index.snapshot()),
+            "speculation": self._speculation_snapshot(),
+            "goodput": None,
+            "watchdog": None,
+        })
+        return snap
 
     def stats(self) -> dict:
         """Instantaneous engine counters: dispatches (chunks and verify
@@ -1293,10 +1369,7 @@ class ContinuousBatchingEngine:
             "phase_seconds": dict(self._phase_s),
             "dispatch_event_ms": self._dispatch_event_ms,
             "timed_dispatches": self._timed_dispatches,
-            "ring": {"entries": self._ring_entries,
-                     "fetch_stride": self._stride,
-                     "overlap": self._overlap,
-                     "fetch_lag": self._ring_seq - self._retired_seq},
+            "ring": self._ring_snapshot(),
             "prefill_lane": self._prefill_lane_snapshot(),
             "kv_paged": self._paged_snapshot(),
             "kv_tier": self._tier_snapshot(),
@@ -1535,8 +1608,14 @@ class ContinuousBatchingEngine:
             outcome = "completed" if terminal is None else "failed"
         req.outcome = outcome
         if outcome == "completed":
-            self.gen_stats.record_completion(req.emitted, req.first_token_ns,
-                                             req.last_emit_ns)
+            self.gen_stats.record_completion(
+                req.emitted, req.first_token_ns, req.last_emit_ns,
+                trace_id=req.trace.id if req.trace is not None else "")
+            if req.trace is not None and req.first_token_ns \
+                    and req.last_emit_ns >= req.first_token_ns:
+                # the steady-state token loop on device-cadence stamps
+                req.trace.span(trace_mod.DECODE, req.first_token_ns,
+                               req.last_emit_ns, emitted=req.emitted)
             # settle the stream against its class's objective: its mean
             # ITL (none below 2 tokens), TTFT and queue wait
             itl_ns = None
@@ -1590,7 +1669,7 @@ class ContinuousBatchingEngine:
 
     def submit(self, prompt, max_new_tokens: int, eos_id: int = -1,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-               seed: int = 0, tenant_id: str = DEFAULT_TENANT,
+               seed: int = 0, trace=None, tenant_id: str = DEFAULT_TENANT,
                slo_class: str = DEFAULT_SLO_CLASS, deadline_ns: int = 0,
                cancel_event=None) -> Iterator[int]:
         """Enqueue one generation request; yields token ids as they are
@@ -1608,7 +1687,9 @@ class ContinuousBatchingEngine:
         waits, so a wedged engine cannot hold a caller past it.
         ``cancel_event`` is an optional ``threading.Event`` a front end
         sets when the caller goes away (the stream then ends with a 499);
-        abandoning the returned iterator cancels too."""
+        abandoning the returned iterator cancels too. ``trace`` is the
+        request's sampled ``Trace`` (None: untraced), which the engine
+        stamps with its spans."""
         for key, val in (("tenant_id", tenant_id),
                          ("slo_class", slo_class)):
             if not isinstance(val, str) or not TENANT_ID_RE.match(val):
@@ -1666,7 +1747,7 @@ class ContinuousBatchingEngine:
         key = (tenant, slo_class)
         req = _Request(prompt, budget, eos_id, temperature=float(temperature),
                        top_k=int(top_k), top_p=float(top_p), seed=int(seed),
-                       tenant=tenant, slo_class=slo_class,
+                       trace=trace, tenant=tenant, slo_class=slo_class,
                        deadline_ns=int(deadline_ns), cancel_ev=cancel_event)
         if self._spec is not None:
             req.spec = RequestSpeculation()
@@ -1674,6 +1755,9 @@ class ContinuousBatchingEngine:
             # a preemption folds the emitted token values into the prompt
             req.gen_tokens = []
         req.enqueue_ns = now_ns()
+        if trace is not None:
+            trace.event(trace_mod.GENERATION_ENQUEUE, req.enqueue_ns,
+                        tenant=tenant, slo_class=slo_class)
         with self._lock:
             shed = self._stopping or self._draining
             if not shed:
@@ -1974,6 +2058,8 @@ class ContinuousBatchingEngine:
             slot.cursor = slot.pos_hi = matched
             slot.pos_pending = None if lane else matched
             self.gen_stats.record_prefix_hit(matched)
+            if req.trace is not None:
+                req.trace.event(trace_mod.PREFIX_HIT, matched_tokens=matched)
         elif (self._prefix_index is not None
                 and len(req.prompt) > self._kv_block_len):
             self.gen_stats.record_prefix_miss()
@@ -2073,6 +2159,9 @@ class ContinuousBatchingEngine:
         slot.cursor = slot.pos_hi = handle.matched_tokens
         slot.draft_ready = False
         self.gen_stats.record_prefix_hit(handle.matched_tokens)
+        if req.trace is not None:
+            req.trace.event(trace_mod.PREFIX_HIT,
+                            matched_tokens=handle.matched_tokens)
         return True
 
     def _slot_state(self, lane: bool) -> tuple:
@@ -2256,6 +2345,9 @@ class ContinuousBatchingEngine:
         req.enqueue_ns = now_ns()
         self.gen_stats.record_preemption()
         self._sched_stats.record_preemption(req.tenant, req.slo_class)
+        if req.trace is not None:
+            req.trace.event(trace_mod.SCHED_PREEMPT, generated=len(gen),
+                            preempt_count=req.preempt_count)
         self._pending.requeue(req, (req.tenant, req.slo_class))
 
     def _record_admission(self, req: _Request) -> None:
@@ -2267,8 +2359,14 @@ class ContinuousBatchingEngine:
             req.parked = False
             req.park_bypasses = 0
             self._pending.unpark()
-        req.queue_wait_ns = max(0, now_ns() - req.enqueue_ns)
-        self.gen_stats.record_queue_wait(req.queue_wait_ns)
+        admit_ns = now_ns()
+        req.queue_wait_ns = max(0, admit_ns - req.enqueue_ns)
+        self.gen_stats.record_queue_wait(
+            req.queue_wait_ns,
+            trace_id=req.trace.id if req.trace is not None else "")
+        if req.trace is not None:
+            req.trace.span(trace_mod.QUEUE_WAIT, req.enqueue_ns, admit_ns,
+                           tenant=req.tenant, slo_class=req.slo_class)
         self.slo_stats.record_queue_wait(req.tenant, req.slo_class,
                                          req.queue_wait_ns)
         if req.resume_pending:
@@ -2552,6 +2650,7 @@ class ContinuousBatchingEngine:
         lane = self._lane_slots[l_idx]
         d = self._slots[d_idx]
         req = lane.req
+        start_ns = now_ns() if req.trace is not None else 0
         d.req = req
         d.draft_ready = False
         d.decode_dispatched = 0
@@ -2585,6 +2684,12 @@ class ContinuousBatchingEngine:
         lane.pos_pending = None
         self._lane_handoffs += 1
         self.gen_stats.record_lane_handoff()
+        if req.trace is not None:
+            # the host side of the move: the table edit (paged) or the
+            # commit, acquire and restore (slot layout)
+            req.trace.span(trace_mod.LANE_HANDOFF, start_ns, now_ns(),
+                           prompt_tokens=int(len(req.prompt)),
+                           decode_slot=d_idx)
         self._kind_s["handoff"] += time.perf_counter() - t0
         self._kind_n["handoff"] += 1
 
@@ -2701,6 +2806,7 @@ class ContinuousBatchingEngine:
         all-zero tables: scratch block 0), so they write only what
         nothing reads."""
         t0 = time.perf_counter()
+        start_ns = now_ns()
         n = len(rows)
         bb = next(b for b in self._dev["lane_b_buckets"] if b >= n)
         idxs = np.full((bb,), self._lane_n, np.int32)
@@ -2746,10 +2852,19 @@ class ContinuousBatchingEngine:
                               idxs_d.long(), toks_d, pos0s_d, clens_d,
                               finals_d, sampling)
         total = 0
-        for _i, slot, _req, _pos0, clen, _cap in rows:
+        end_ns = now_ns()
+        for r, (i, slot, req, pos0, clen, _cap) in enumerate(rows):
             slot.cursor += clen
             slot.pos_hi = max(slot.pos_hi, slot.cursor)
             total += clen
+            if req.trace is not None:
+                # every packed row spans the one shared dispatch window
+                req.trace.span(trace_mod.PREFILL_CHUNK, start_ns, end_ns,
+                               chunk_tokens=int(clen),
+                               chunk_index=int(pos0 // max(1, clen)),
+                               lane_slot=int(i), batched=True)
+                if finals[r]:
+                    req.trace.event(trace_mod.PREFILL_END)
         # one dispatch: one lane chunk, and the pair that gives its fill
         self._prefill_chunks_dispatched += 1
         self._prefill_tokens_dispatched += total
@@ -2780,6 +2895,9 @@ class ContinuousBatchingEngine:
                           (ints[0], floats[0], ints[1], floats[1]))
         slot.cursor = plen
         slot.pos_hi = plen
+        if req.trace is not None:
+            # the forward is enqueued: the host side of the admission ends
+            req.trace.event(trace_mod.PREFILL_END)
 
     def _in_lane(self, slot: _Slot, req: _Request) -> bool:
         """True while a decode slot's prompt belongs to the piggyback
@@ -2918,6 +3036,7 @@ class ContinuousBatchingEngine:
         ``lane`` the chunk goes into dedicated lane slot ``idx`` and its
         state (its ``last`` moves to the decode slot at the handoff)."""
         t0 = time.perf_counter()
+        start_ns = now_ns() if lane and req.trace is not None else 0
         pos0 = slot.cursor
         padded = np.zeros(bucket, np.int32)
         padded[:clen] = req.prompt[pos0:pos0 + clen]
@@ -2948,6 +3067,16 @@ class ContinuousBatchingEngine:
         self._prefill_chunks_dispatched += 1
         self._prefill_tokens_dispatched += clen
         self.gen_stats.record_prefill_chunk(clen)
+        if req.trace is not None:
+            if lane:
+                # the host side of one lane resume (the card's work
+                # overlaps the next pass)
+                req.trace.span(trace_mod.PREFILL_CHUNK, start_ns, now_ns(),
+                               chunk_tokens=int(clen),
+                               chunk_index=int(pos0 // max(1, clen)),
+                               lane_slot=idx)
+            if final:
+                req.trace.event(trace_mod.PREFILL_END)
         if lane:
             self._kind_s["lane"] += time.perf_counter() - t0
             self._kind_n["lane"] += 1
@@ -3064,6 +3193,11 @@ class ContinuousBatchingEngine:
                 feed[i, :k] = req.prompt[slot.cursor:slot.cursor + k]
                 rem[i] = k
                 slot.cursor += k
+                if (self._chunked_prefill and req.trace is not None
+                        and slot.cursor >= len(req.prompt)):
+                    # a lane prompt whose sub-chunk tail feeds here ends
+                    # its ingestion with this chunk
+                    req.trace.event(trace_mod.PREFILL_END)
             slot.pos_hi += k if freeze[i] else c
             # columns >= this are generated tokens (none when frozen)
             meta.append((req, c if freeze[i] else k))
@@ -3261,6 +3395,9 @@ class ContinuousBatchingEngine:
             self._spec.record_round(rung, accepted)
             req.spec.record(rung, accepted, self._spec.min_acceptance)
             self.gen_stats.record_spec_round(rung, accepted)
+            if req.trace is not None:
+                req.trace.event(trace_mod.SPEC_VERIFY, proposed=rung,
+                                accepted=accepted)
             self._deliver(i, req, toks[i, :k])
 
     def _deliver(self, i: int, req: _Request, tok_seq) -> None:
@@ -3282,11 +3419,25 @@ class ContinuousBatchingEngine:
         if deliver:
             emit_ns = max(self._deliver_ns or now_ns(), req.last_emit_ns,
                           req.first_token_ns, req.enqueue_ns)
-            if req.first_token_ns == 0:
+            first = req.first_token_ns == 0
+            if first:
                 req.first_token_ns = emit_ns
-                self.gen_stats.record_ttft(emit_ns - req.enqueue_ns)
+                self.gen_stats.record_ttft(
+                    emit_ns - req.enqueue_ns,
+                    trace_id=req.trace.id if req.trace is not None else "")
                 self.slo_stats.record_ttft(req.tenant, req.slo_class,
                                            emit_ns - req.enqueue_ns)
+            if req.trace is not None and (
+                    first or req.emitted % trace_mod.TOKEN_EMIT_SAMPLE_EVERY
+                    < len(deliver)):
+                # the device-cadence emit stamp -> the fetch's arrival on
+                # the host: the fetch stride's delivery lag, sampled at the
+                # TOKEN_EMIT cadence
+                arrival_ns = (self._last_drain[1]
+                              if self._last_drain is not None else now_ns())
+                req.trace.span(trace_mod.RING_DELIVER, emit_ns,
+                               max(arrival_ns, emit_ns), tokens=len(deliver),
+                               emitted=req.emitted)
             req.last_emit_ns = emit_ns
             self.gen_stats.record_tokens(len(deliver))
             self._tokens_emitted += len(deliver)
@@ -3326,7 +3477,16 @@ class ContinuousBatchingEngine:
     def _run_loop(self) -> None:
         self._ensure_ready()
         unfetched, fetches = self._unfetched, self._fetches
+        # the occupied-slot count integrated over wall time (slot-busy
+        # seconds; over n_slots x a window it is the occupancy)
+        occ_last = time.perf_counter()
+        occ_active = 0
         while True:
+            occ_now = time.perf_counter()
+            if occ_active:
+                self.gen_stats.add_slot_busy(
+                    int(occ_active * (occ_now - occ_last) * 1e9))
+            occ_last = occ_now
             if self._stopping:
                 if self._held is not None:
                     self._close_request(
@@ -3391,6 +3551,7 @@ class ContinuousBatchingEngine:
                 first = False
                 fetches.popleft()
                 active_now = any(s.req is not None for s in self._slots)
+            occ_active = self.active_slots()
             duty = self._duty
             if dispatched and duty < 1.0:
                 # pacing: a round's wall time tracks its device cost (the

@@ -13,14 +13,21 @@ The port's differences from the reference:
   ``TpuSharedMemory*`` call answers INVALID_ARGUMENT naming
   ``CudaSharedMemory``, as the HTTP front end answers
   ``/v2/tpusharedmemory`` with 400.
-- ``RepositoryIndex``, ``RepositoryModelLoad``, ``RepositoryModelUnload``
-  and ``TraceSetting`` answer UNIMPLEMENTED naming their ROADMAP items,
-  as the HTTP front end answers those routes with 404.
-- Left out until the runtime planes (ROADMAP A13) are ported: the fault
-  injector's transport reset before ``ModelInfer``, the trace-id echo
-  (trailer and stream parameter), and the metrics and debug trailers of
-  ``ServerMetadata``. TLS is left out as the port's HTTP front end leaves
-  it out.
+- ``RepositoryIndex``, ``RepositoryModelLoad`` and
+  ``RepositoryModelUnload`` answer UNIMPLEMENTED naming their ROADMAP
+  item, as the HTTP front end answers those routes with 404.
+- Left out until the runtime planes (ROADMAP A13b, A13c) are ported: the
+  fault injector's transport reset before ``ModelInfer`` and the debug
+  trailers of ``ServerMetadata``. TLS is left out as the port's HTTP front
+  end leaves it out.
+
+As in the reference: ``TraceSetting`` reads and updates the trace
+settings; a request's ``triton_trace_id`` parameter propagates the
+caller's trace id, and a traced request's id comes back as the
+``triton-trace-id`` trailer of ``ModelInfer`` and as the
+``triton_trace_id`` parameter of every ``ModelStreamInfer`` response; a
+``ServerMetadata`` call with the ``client-tpu-metrics: request`` key gets
+the Prometheus text back in the ``client-tpu-metrics-bin`` trailer.
 
 Importing this module imports ``grpc`` and ``google.protobuf``; nothing on
 the card's serving path imports it.
@@ -84,7 +91,6 @@ _UNPORTED_RPCS = {
     "RepositoryIndex": "queue: the serving core's remaining surface",
     "RepositoryModelLoad": "queue: the serving core's remaining surface",
     "RepositoryModelUnload": "queue: the serving core's remaining surface",
-    "TraceSetting": "A13, the tracer",
 }
 _TPU_SHM_RPCS = ("TpuSharedMemoryStatus", "TpuSharedMemoryRegister",
                  "TpuSharedMemoryUnregister")
@@ -152,7 +158,8 @@ def request_to_internal(req: pb.ModelInferRequest) -> InferRequest:
         timeout_us=parse_int_param(params, "timeout"),
         tenant_id=parse_label_param(params, "tenant_id", DEFAULT_TENANT),
         slo_class=parse_label_param(params, "slo_class",
-                                    DEFAULT_SLO_CLASS))
+                                    DEFAULT_SLO_CLASS),
+        trace_id=str(params.pop("triton_trace_id", "") or ""))
 
 
 def response_to_proto(resp) -> pb.ModelInferResponse:
@@ -203,6 +210,17 @@ class _Handlers:
 
     def ServerMetadata(self, req, context):
         md = self.core.metadata()
+        # the metrics mirror: a caller that sends the client-tpu-metrics
+        # key gets the Prometheus text in trailing metadata (the gRPC twin
+        # of GET /metrics)
+        inv = dict(context.invocation_metadata() or ())
+        if inv.get("client-tpu-metrics") == "request":
+            try:
+                context.set_trailing_metadata((
+                    ("client-tpu-metrics-bin",
+                     self.core.metrics_text().encode()),))
+            except Exception:  # noqa: BLE001 — metrics are best-effort
+                pass
         return pb.ServerMetadataResponse(name=md["name"],
                                          version=md["version"],
                                          extensions=md["extensions"])
@@ -272,10 +290,9 @@ class _Handlers:
             m.inference_count = ms["inference_count"]
             m.execution_count = ms["execution_count"]
             ist = ms["inference_stats"]
-            # the response cache's hit/miss rows stay 0 until it is
-            # ported (ROADMAP queue 8)
             for field in ("success", "fail", "queue", "compute_input",
-                          "compute_infer", "compute_output"):
+                          "compute_infer", "compute_output", "cache_hit",
+                          "cache_miss"):
                 d = getattr(m.inference_stats, field)
                 d.count = ist[field]["count"]
                 d.ns = ist[field]["ns"]
@@ -338,13 +355,32 @@ class _Handlers:
             self.core.cuda_shm.unregister_all()
         return pb.CudaSharedMemoryUnregisterResponse()
 
+    def TraceSetting(self, req, context):
+        if req.settings:
+            # an empty value list clears the key (a client's None)
+            settings = {k: (list(v.value) or None)
+                        for k, v in req.settings.items()}
+            merged = self.core.update_trace_settings(req.model_name, settings)
+        else:
+            merged = self.core.get_trace_settings(req.model_name)
+        out = pb.TraceSettingResponse()
+        for k, v in merged.items():
+            out.settings[k].value.extend(v)
+        return out
+
     def ModelInfer(self, req, context):
         try:
-            resp = self.core.infer(request_to_internal(req))
+            internal = request_to_internal(req)
+            resp = self.core.infer(internal)
         except ServerError as e:
             self._abort(context, e)
         except ValueError as e:
             self._abort(context, ServerError(str(e), 400))
+        if internal.trace is not None:
+            # the sampled or propagated id, so the caller can join its
+            # spans with the server's trace export
+            context.set_trailing_metadata(
+                (("triton-trace-id", internal.trace.id),))
         return response_to_proto(resp)
 
     # ---- streaming ----
@@ -363,19 +399,26 @@ class _Handlers:
         cancel_ev = threading.Event()
         context.add_callback(cancel_ev.set)
 
-        def on_response(resp, final):
-            msg = pb.ModelStreamInferResponse()
-            if resp.error is not None:
-                msg.error_message = resp.error
-                msg.infer_response.id = resp.id
-                if resp.retry_after_s is not None:
-                    # a streamed error cannot carry per-RPC trailing
-                    # metadata: the retry hint rides the parameters
+        def make_on_response(internal):
+            def on_response(resp, final):
+                msg = pb.ModelStreamInferResponse()
+                if resp.error is not None:
+                    msg.error_message = resp.error
+                    msg.infer_response.id = resp.id
+                    if resp.retry_after_s is not None:
+                        # a streamed error cannot carry per-RPC trailing
+                        # metadata: the retry hint rides the parameters
+                        set_param(msg.infer_response.parameters,
+                                  "retry_after", f"{resp.retry_after_s:g}")
+                else:
+                    msg.infer_response.CopyFrom(response_to_proto(resp))
+                if internal.trace is not None:
+                    # trailing metadata is per RPC: on a stream the trace
+                    # id rides every response as a parameter
                     set_param(msg.infer_response.parameters,
-                              "retry_after", f"{resp.retry_after_s:g}")
-            else:
-                msg.infer_response.CopyFrom(response_to_proto(resp))
-            out_q.put((msg, final))
+                              "triton_trace_id", internal.trace.id)
+                out_q.put((msg, final))
+            return on_response
 
         def reader():
             try:
@@ -385,8 +428,9 @@ class _Handlers:
                     try:
                         internal = request_to_internal(req)
                         internal.cancel_event = cancel_ev
-                        self.core.infer(internal,
-                                        response_callback=on_response)
+                        self.core.infer(
+                            internal,
+                            response_callback=make_on_response(internal))
                     except Exception as e:  # noqa: BLE001 — every
                         # submitted request must be answered, or the
                         # writer never ends

@@ -6,12 +6,16 @@ whose wire format (JSON + the binary tensor extension) is parsed and
 produced by ``client_tpu_torch.protocol.rest``.
 
 Routes: health live/ready, model ready, server metadata (``/v2``), model
-metadata, model config, statistics, infer, and the shared-memory
-extensions: ``/v2/systemsharedmemory`` and ``/v2/cudasharedmemory``
-(status, register, unregister). ``/v2/tpusharedmemory`` answers a clear
-400 naming ``/v2/cudasharedmemory``, as the reference answers the CUDA
-verbs. The repository, trace, metrics and debug routes wait for later
-slices and answer 404.
+metadata, model config, statistics, infer, the Prometheus scrape
+(``/metrics``), the trace settings (``/v2[/models/{name}]/trace/setting``,
+GET and POST), and the shared-memory extensions: ``/v2/systemsharedmemory``
+and ``/v2/cudasharedmemory`` (status, register, unregister).
+``/v2/tpusharedmemory`` answers a clear 400 naming
+``/v2/cudasharedmemory``, as the reference answers the CUDA verbs. An
+infer request's ``triton-trace-id`` header propagates the caller's trace
+id, and a traced request's id comes back in the same header.
+``access_log=True`` logs one structured INFO record per request. The
+repository and debug routes wait for later slices and answer 404.
 """
 
 from __future__ import annotations
@@ -19,9 +23,11 @@ from __future__ import annotations
 import base64
 import gzip
 import json
+import logging
 import math
 import re
 import threading
+import time
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import unquote
@@ -47,6 +53,13 @@ from client_tpu_torch.server.types import (
 )
 
 _ROUTES = []
+
+# the opt-in structured access log (HttpInferenceServer(access_log=True)):
+# one INFO record per request with its method, path, status and latency,
+# in place of BaseHTTPRequestHandler's stderr line, which stays off
+_ACCESS_LOG = logging.getLogger("client_tpu_torch.server.http.access")
+
+TRACE_ID_HEADER = "triton-trace-id"
 
 TPU_SHM_UNAVAILABLE = ("this server hosts CUDA devices; TPU shared memory is "
                        "not available — use /v2/cudasharedmemory")
@@ -101,6 +114,7 @@ class _Handler(BaseHTTPRequestHandler):
             elif "deflate" in accept:
                 body = zlib.compress(body, level=1)
                 headers["Content-Encoding"] = "deflate"
+        self._status = status
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
@@ -128,6 +142,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _dispatch(self, method: str) -> None:
         path = unquote(self.path.split("?", 1)[0]).rstrip("/") or "/"
+        access_log = self.server.access_log  # type: ignore[attr-defined]
+        t0 = time.monotonic_ns() if access_log else 0
+        self._status = 0
         try:
             self._consume_body()
             for m, rx, fn in _ROUTES:
@@ -149,6 +166,12 @@ class _Handler(BaseHTTPRequestHandler):
             self.close_connection = True
         except Exception as e:  # noqa: BLE001 — surface as 500, keep serving
             self._send_error_json(500, f"{type(e).__name__}: {e}")
+        finally:
+            if access_log:
+                _ACCESS_LOG.info(
+                    "method=%s path=%s status=%d latency_us=%d",
+                    method, path, self._status,
+                    (time.monotonic_ns() - t0) // 1000)
 
     def do_GET(self):  # noqa: N802
         self._dispatch("GET")
@@ -185,6 +208,24 @@ class _Handler(BaseHTTPRequestHandler):
     @route("GET", r"/v2/models(/(?P<name>[^/]+)(/versions/(?P<version>[^/]+))?)?/stats")
     def model_stats(self, name=None, version=None):
         self._send_json(200, self.core.statistics(name or "", version or ""))
+
+    # ---- metrics (the Prometheus scrape) ----
+
+    @route("GET", r"/metrics")
+    def metrics(self):
+        self._send(200, self.core.metrics_text().encode(),
+                   content_type="text/plain; version=0.0.4; charset=utf-8")
+
+    # ---- trace ----
+
+    @route("GET", r"/v2(/models/(?P<name>[^/]+))?/trace/setting")
+    def trace_get(self, name=None):
+        self._send_json(200, self.core.get_trace_settings(name or ""))
+
+    @route("POST", r"/v2(/models/(?P<name>[^/]+))?/trace/setting")
+    def trace_post(self, name=None):
+        body = json.loads(self._body or b"{}")
+        self._send_json(200, self.core.update_trace_settings(name or "", body))
 
     # ---- shared memory ----
 
@@ -251,11 +292,15 @@ class _Handler(BaseHTTPRequestHandler):
             self._body, int(hdr_len) if hdr_len else None)
         binmap = slice_binary_tensors(header.get("inputs", []), tail)
         request = _wire_to_request(name, version or "", header, binmap)
+        request.trace_id = self.headers.get(TRACE_ID_HEADER, "") or ""
         response = self.core.infer(request)
         body_out, json_size = _response_to_wire(header, response)
+        extra = {INFERENCE_HEADER_CONTENT_LENGTH: json_size}
+        if request.trace is not None:
+            extra[TRACE_ID_HEADER] = request.trace.id
         self._send(200, body_out,
                    content_type="application/octet-stream",
-                   extra_headers={INFERENCE_HEADER_CONTENT_LENGTH: json_size})
+                   extra_headers=extra)
 
 
 def _wire_to_request(name: str, version: str, header: dict,
@@ -342,7 +387,8 @@ class HttpInferenceServer:
     """Bind + serve a TorchInferenceServer core over HTTP."""
 
     def __init__(self, core: TorchInferenceServer, host: str = "127.0.0.1",
-                 port: int = 8000, verbose: bool = False):
+                 port: int = 8000, verbose: bool = False,
+                 access_log: bool = False):
         self.core = core
 
         # a burst of concurrent clients opens its connections at once;
@@ -354,6 +400,7 @@ class HttpInferenceServer:
         self._httpd.daemon_threads = True
         self._httpd.core = core  # type: ignore[attr-defined]
         self._httpd.verbose = verbose  # type: ignore[attr-defined]
+        self._httpd.access_log = access_log  # type: ignore[attr-defined]
         self.host, self.port = self._httpd.server_address[:2]
         self._thread = None
 

@@ -97,8 +97,9 @@ class StreamContext:
     wire ``timeout`` parameter (0 = none), and an optional Event a front
     end sets when the caller goes away (gRPC context cancellation). The
     continuous-batching engine frees the stream's slot and prefix pins
-    when either fires instead of decoding to the budget. ``trace`` is
-    always None: the tracer is ROADMAP A13."""
+    when either fires instead of decoding to the budget. ``trace`` is the
+    request's sampled ``Trace`` (None: untraced), which the engine stamps
+    with its spans."""
 
     __slots__ = ("trace", "enqueue_ns", "tenant_id", "slo_class",
                  "deadline_ns", "cancel_event")

@@ -22,8 +22,11 @@ has checked that a tensor input lives on the model's device). When every
 request of such a batch directs every output into a shared-memory
 region, the batch takes the pre-split path: one forward, per-row views of
 the outputs, one CUDA event for the whole batch, and no output leaves the
-device. The sequence scheduler and the tracer's spans wait for later
-slices.
+device. A traced request (``Pending.trace``) gets the compute spans on
+every path (COMPUTE_START, COMPUTE_INPUT_END, COMPUTE_OUTPUT_START), and a
+decoupled one FIRST_TOKEN at its first response and TOKEN_EMIT every
+``TOKEN_EMIT_SAMPLE_EVERY``-th. The sequence scheduler waits for a later
+slice.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 
 from client_tpu_torch.device import wire_dtype_of
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
+from client_tpu_torch.server import trace as trace_mod
 from client_tpu_torch.server.model import (
     ServedModel,
     StreamContext,
@@ -62,16 +66,18 @@ log = logging.getLogger(__name__)
 
 
 class Pending:
-    __slots__ = ("request", "send", "enqueue_ns", "inputs", "bs", "sig")
+    __slots__ = ("request", "send", "enqueue_ns", "inputs", "bs", "sig",
+                 "trace")
 
     def __init__(self, request: InferRequest, send: ResponseCallback,
-                 inputs: dict):
+                 inputs: dict, trace=None):
         self.request = request
         self.send = send
         self.enqueue_ns = now_ns()
         self.inputs = inputs  # name -> np.ndarray or torch.Tensor
         self.bs = (request.inputs[0].batch_size() if request.inputs else 1)
         self.sig = None       # batch-compat signature, set at submit
+        self.trace = trace    # the sampled Trace or None (the core's)
 
 
 def _error_response(req: InferRequest, msg: str, status: int = 400,
@@ -149,10 +155,14 @@ class SchedulerBase:
         req = pending.request
         pickup = now_ns()
         queue_ns = pickup - pending.enqueue_ns
+        tr = pending.trace
         try:
             if self.model.config.decoupled:
                 # one response per streamed item, then the final flag
                 t0 = now_ns()
+                if tr is not None:
+                    tr.event(trace_mod.COMPUTE_START, pickup)
+                    tr.event(trace_mod.COMPUTE_INPUT_END, t0)
                 if self._stream_takes_context:
                     # the wire timeout becomes the stream's absolute
                     # deadline, which the engine enforces per dispatch; the
@@ -162,16 +172,28 @@ class SchedulerBase:
                     stream = self.model.stream(
                         pending.inputs,
                         context=StreamContext(
-                            enqueue_ns=pending.enqueue_ns,
+                            trace=tr, enqueue_ns=pending.enqueue_ns,
                             tenant_id=req.tenant_id,
                             slo_class=req.slo_class,
                             deadline_ns=deadline_ns,
                             cancel_event=req.cancel_event))
                 else:
                     stream = self.model.stream(pending.inputs)
+                n = 0
                 for outputs in stream:
+                    n += 1
+                    if tr is not None:
+                        # the first response is the TTFT boundary; later
+                        # ones are sampled, so a trace's cost does not grow
+                        # with the stream
+                        if n == 1:
+                            tr.event(trace_mod.FIRST_TOKEN)
+                        elif n % trace_mod.TOKEN_EMIT_SAMPLE_EVERY == 0:
+                            tr.event(trace_mod.TOKEN_EMIT)
                     pending.send(
                         _success_response(req, outputs, self.version), False)
+                if tr is not None:
+                    tr.event(trace_mod.COMPUTE_OUTPUT_START)
                 pending.send(InferResponse(
                     model_name=req.model_name, model_version=self.version,
                     id=req.id, parameters={"triton_final_response": True}),
@@ -186,15 +208,23 @@ class SchedulerBase:
                     request_total_ns_each=[t1 - pending.enqueue_ns])
                 return
             t0 = now_ns()
+            if tr is not None:
+                tr.event(trace_mod.COMPUTE_START, pickup)
             if isinstance(self.model, TorchModel):
                 dev_in = self.model.device_put_inputs(pending.inputs)
                 t1 = now_ns()
+                if tr is not None:
+                    tr.event(trace_mod.COMPUTE_INPUT_END, t1)
                 outputs = finish_host_copies(start_host_copies(
                     self.model.execute_on_device(dev_in)))
             else:
                 t1 = t0
+                if tr is not None:
+                    tr.event(trace_mod.COMPUTE_INPUT_END, t0)
                 outputs = self.model.execute(pending.inputs)
             t2 = now_ns()
+            if tr is not None:
+                tr.event(trace_mod.COMPUTE_OUTPUT_START, t2)
             pending.send(_success_response(req, outputs, self.version), True)
             bs = req.inputs[0].batch_size() if (
                 req.inputs and self.model.config.max_batch_size > 0) else 1
@@ -575,6 +605,19 @@ class DynamicBatchScheduler(SchedulerBase):
                     p.request, f"{type(e).__name__}: {e}", 500), True)
 
     @staticmethod
+    def _stamp_compute_spans(batch: list, t0: int, t1: int, t2: int) -> None:
+        """The compute spans of a batch's traced requests: pickup
+        (COMPUTE_START), batch assembly and H2D done (COMPUTE_INPUT_END),
+        the outputs ready and their delivery starting
+        (COMPUTE_OUTPUT_START)."""
+        for p in batch:
+            tr = p.trace
+            if tr is not None:
+                tr.event(trace_mod.COMPUTE_START, t0)
+                tr.event(trace_mod.COMPUTE_INPUT_END, t1)
+                tr.event(trace_mod.COMPUTE_OUTPUT_START, t2)
+
+    @staticmethod
     def _all_outputs_shm(batch: list) -> bool:
         """True when every request directs every requested output into a
         shared-memory region (so no output data needs to ride a
@@ -602,6 +645,7 @@ class DynamicBatchScheduler(SchedulerBase):
             # dispatcher runs ahead of the closed-loop client refill and
             # forms underfilled padded batches
             t2 = now_ns()
+            self._stamp_compute_spans(batch, t0, t1, t2)
             # per-output wire metadata is the same for every row: once per
             # batch, not once per request
             metas = [(name, wire_dtype_of(rows[0]), tuple(rows[0].shape),
@@ -650,6 +694,7 @@ class DynamicBatchScheduler(SchedulerBase):
 
     def _deliver(self, batch, sizes, total, queue_ns, t0, t1, t2,
                  outputs) -> None:
+        self._stamp_compute_spans(batch, t0, t1, t2)
         # compute_output: split rows back per request + deliver
         off = 0
         for p, bs in zip(batch, sizes):

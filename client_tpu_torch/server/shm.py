@@ -67,6 +67,12 @@ class SystemShmRegistry:
                 return [self._meta[name]] if name in self._meta else []
             return list(self._meta.values())
 
+    def metrics(self) -> tuple:
+        """(region_count, total_bytes) for the /metrics gauges."""
+        with self._lock:
+            return len(self._meta), sum(m["byte_size"]
+                                        for m in self._meta.values())
+
     def read(self, name: str, offset: int, byte_size: int) -> memoryview:
         with self._lock:
             region = self._regions.get(name)
@@ -138,6 +144,12 @@ class CudaShmRegistry:
             self._attachments = {}
         for e in entries:
             e["attachment"].detach()
+
+    def metrics(self) -> tuple:
+        """(region_count, total_bytes) for the /metrics gauges."""
+        with self._lock:
+            return len(self._regions), sum(e["byte_size"]
+                                           for e in self._regions.values())
 
     def status(self, name: str = None):
         with self._lock:

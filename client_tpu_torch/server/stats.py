@@ -6,7 +6,7 @@ The port's counterpart of ``ModelStats`` and ``GenerationStats`` in
 ``inference_count`` counts inferences (sum of request batch-1 units),
 ``execution_count`` counts model executions (batches), per-request queue
 time, per-execution compute times attributed to every request in the
-batch, and per-batch-size execution stats.
+batch, response-cache hits and misses, and per-batch-size execution stats.
 """
 
 from __future__ import annotations
@@ -15,12 +15,10 @@ import threading
 import time
 from bisect import bisect_right
 
-# Request-latency histogram bucket upper bounds, in seconds: the
-# reference's ``client_tpu/server/metrics.py`` DEFAULT_BUCKETS_S, copied
-# here because the port imports nothing of the reference package.
-DEFAULT_BUCKETS_S = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
-                     0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+from client_tpu_torch.server.metrics import DEFAULT_BUCKETS_S
 
+# latency histogram bounds in ns (the /metrics feed), on the exposition's
+# buckets so a scrape needs no re-binning
 LATENCY_BUCKETS_NS = tuple(int(b * 1e9) for b in DEFAULT_BUCKETS_S)
 
 
@@ -51,9 +49,12 @@ class ModelStats:
         self.compute_input = Duration()
         self.compute_infer = Duration()
         self.compute_output = Duration()
+        self.cache_hit = Duration()
+        self.cache_miss = Duration()
         self.rejected = Duration()   # admission-control sheds
         self.batch_stats: dict[int, dict] = {}
-        # per-request end-to-end latency histogram; last bucket is +Inf
+        # per-request end-to-end latency histogram (the success and
+        # cache-hit paths, as ``success``); last bucket is +Inf
         self.latency_counts = [0] * (len(LATENCY_BUCKETS_NS) + 1)
 
     def record_execution(self, batch_size: int, num_requests: int,
@@ -86,12 +87,50 @@ class ModelStats:
         with self._lock:
             self.fail.add(total_ns)
 
+    def record_cache_hit(self, lookup_ns: int) -> None:
+        """A request answered from the response cache: a success, an
+        inference, and its lookup time as its latency."""
+        with self._lock:
+            self.cache_hit.add(lookup_ns)
+            self.success.add(lookup_ns)
+            self.latency_counts[
+                bisect_right(LATENCY_BUCKETS_NS, lookup_ns)] += 1
+            self.inference_count += 1
+            self.last_inference_ms = int(time.time() * 1000)
+
+    def record_cache_miss(self, insert_ns: int) -> None:
+        with self._lock:
+            self.cache_miss.add(insert_ns)
+
     def record_rejection(self, waited_ns: int = 0) -> None:
         """A request shed by admission control (counted separately from
         execution failures so overload is visible in the stats report)."""
         with self._lock:
             self.rejected.add(waited_ns)
             self.fail.add(waited_ns)
+
+    def snapshot(self) -> dict:
+        """Flat counter snapshot for the /metrics collector."""
+        with self._lock:
+            return {
+                "inference_count": self.inference_count,
+                "execution_count": self.execution_count,
+                "success_count": self.success.count,
+                "fail_count": self.fail.count,
+                "rejected_count": self.rejected.count,
+                "queue_ns": self.queue.ns,
+                "compute_input_ns": self.compute_input.ns,
+                "compute_infer_ns": self.compute_infer.ns,
+                "compute_output_ns": self.compute_output.ns,
+                "cache_hit_count": self.cache_hit.count,
+                "cache_miss_count": self.cache_miss.count,
+            }
+
+    def latency_histogram(self) -> tuple:
+        """(bucket_counts, sum_ns, count) on LATENCY_BUCKETS_NS."""
+        with self._lock:
+            return list(self.latency_counts), self.success.ns, \
+                self.success.count
 
     def to_json(self, name: str, version: str) -> dict:
         with self._lock:
@@ -108,6 +147,8 @@ class ModelStats:
                     "compute_input": self.compute_input.to_json(),
                     "compute_infer": self.compute_infer.to_json(),
                     "compute_output": self.compute_output.to_json(),
+                    "cache_hit": self.cache_hit.to_json(),
+                    "cache_miss": self.cache_miss.to_json(),
                     "rejected": self.rejected.to_json(),
                 },
                 "batch_stats": [
@@ -124,22 +165,34 @@ class ModelStats:
 
 class _HistNs:
     """Cumulative ns-valued histogram on the LATENCY_BUCKETS_NS grid (the
-    last bucket is +Inf)."""
+    last bucket is +Inf).
 
-    __slots__ = ("counts", "sum_ns", "count")
+    Exemplars: an observation of a traced request keeps its trace id as
+    its bucket's newest exemplar (trace_id, value_ns, unix_ts), the
+    OpenMetrics link from a bucket to a trace. One per bucket, so the
+    storage is bounded by the grid; untraced observations store none."""
+
+    __slots__ = ("counts", "sum_ns", "count", "exemplars")
 
     def __init__(self):
         self.counts = [0] * (len(LATENCY_BUCKETS_NS) + 1)
         self.sum_ns = 0
         self.count = 0
+        self.exemplars: dict = {}   # bucket idx -> (trace_id, ns, unix_ts)
 
-    def observe(self, ns: int) -> None:
-        self.counts[bisect_right(LATENCY_BUCKETS_NS, ns)] += 1
-        self.sum_ns += ns
-        self.count += 1
+    def observe(self, ns: int, count: int = 1, trace_id: str = "") -> None:
+        idx = bisect_right(LATENCY_BUCKETS_NS, ns)
+        self.counts[idx] += count
+        self.sum_ns += ns * count
+        self.count += count
+        if trace_id:
+            self.exemplars[idx] = (trace_id, ns, time.time())
 
     def snapshot(self) -> tuple:
         return list(self.counts), self.sum_ns, self.count
+
+    def exemplar_snapshot(self) -> dict:
+        return dict(self.exemplars)
 
 
 class GenerationStats:
@@ -148,6 +201,7 @@ class GenerationStats:
     emitted token), inter-token latency (``(last_emit - first_token) /
     (tokens - 1)`` per completed stream of >= 2 tokens), queue wait
     (enqueue to slot admission), tokens emitted, stream outcomes, the
+    time-weighted occupied-slot integral (``slot_busy_ns``), the
     batched ring fetches, the chunked-prefill lane's chunks and tokens, the
     dedicated lane's handoffs and batched dispatches, and the prefix-cache
     lookups: one per admission of a prompt longer than one
@@ -172,6 +226,7 @@ class GenerationStats:
         # prefix pins on purpose
         self.cancelled = 0
         self.deadline_expired = 0
+        self.slot_busy_ns = 0
         self.ring_fetches = 0
         self.ring_forced_fetches = 0
         self.prefill_chunks = 0
@@ -200,27 +255,28 @@ class GenerationStats:
         self.preemptions = 0
         self.resumes = 0
 
-    def record_queue_wait(self, ns: int) -> None:
+    def record_queue_wait(self, ns: int, trace_id: str = "") -> None:
         with self._lock:
-            self.queue_wait.observe(max(0, int(ns)))
+            self.queue_wait.observe(max(0, int(ns)), trace_id=trace_id)
 
-    def record_ttft(self, ns: int) -> None:
+    def record_ttft(self, ns: int, trace_id: str = "") -> None:
         with self._lock:
-            self.ttft.observe(max(0, int(ns)))
+            self.ttft.observe(max(0, int(ns)), trace_id=trace_id)
 
     def record_tokens(self, n: int) -> None:
         with self._lock:
             self.tokens += n
 
     def record_completion(self, emitted: int, first_token_ns: int,
-                          last_emit_ns: int) -> None:
+                          last_emit_ns: int, trace_id: str = "") -> None:
         """A stream closed normally: count it and record its mean
         inter-token latency (defined only for >= 2 emitted tokens)."""
         with self._lock:
             self.completed += 1
             if emitted >= 2 and last_emit_ns >= first_token_ns:
                 self.inter_token.observe(
-                    (last_emit_ns - first_token_ns) // (emitted - 1))
+                    (last_emit_ns - first_token_ns) // (emitted - 1),
+                    trace_id=trace_id)
 
     def record_failure(self) -> None:
         with self._lock:
@@ -237,6 +293,10 @@ class GenerationStats:
         ended with a 504."""
         with self._lock:
             self.deadline_expired += 1
+
+    def add_slot_busy(self, ns: int) -> None:
+        with self._lock:
+            self.slot_busy_ns += max(0, int(ns))
 
     def record_ring_fetch(self, forced: bool = False) -> None:
         """One batched D2H ring fetch was issued; ``forced`` marks fetches
@@ -319,11 +379,19 @@ class GenerationStats:
                 "ttft": self.ttft.snapshot(),
                 "inter_token": self.inter_token.snapshot(),
                 "queue_wait": self.queue_wait.snapshot(),
+                # bucket idx -> (trace_id, ns, unix_ts); empty unless
+                # tracing is on: the /metrics exemplar feed
+                "exemplars": {
+                    "ttft": self.ttft.exemplar_snapshot(),
+                    "inter_token": self.inter_token.exemplar_snapshot(),
+                    "queue_wait": self.queue_wait.exemplar_snapshot(),
+                },
                 "tokens": self.tokens,
                 "completed": self.completed,
                 "failed": self.failed,
                 "cancelled": self.cancelled,
                 "deadline_expired": self.deadline_expired,
+                "slot_busy_ns": self.slot_busy_ns,
                 "ring_fetches": self.ring_fetches,
                 "ring_forced_fetches": self.ring_forced_fetches,
                 "prefill_chunks": self.prefill_chunks,

@@ -6,9 +6,10 @@ these types. The front ends parse the multi-tenant SLO labels
 (``tenant_id``, ``slo_class``) as the reference does, and the scheduler
 hands them, the wire ``timeout`` as a deadline and the ``cancel_event``
 to a decoupled model's stream (``server/model.py:StreamContext``); the
-SLO scheduler that reads the labels is ROADMAP A10g. The
-stateful-sequence controls and the tracer's fields of the reference wait
-for the slices that use them.
+SLO scheduler reads the labels. A request carries the caller's
+propagated trace id and the core's sampled trace. The stateful-sequence
+controls and the ensemble's parent trace of the reference wait for the
+slices that use them.
 """
 
 from __future__ import annotations
@@ -117,6 +118,11 @@ class InferRequest:
     slo_class: str = DEFAULT_SLO_CLASS
     # bookkeeping (filled by the core)
     arrival_ns: int = 0
+    # tracing: trace_id is the caller's propagated id (the HTTP
+    # triton-trace-id header, the gRPC triton_trace_id parameter); trace
+    # is the sampled Trace the core set (the front ends echo its id)
+    trace_id: str = ""
+    trace: Any = None
     # client-cancellation signal (a threading.Event or None): a front end
     # that sees the caller go away (the gRPC context callback) sets it, so
     # a decoupled stream frees its engine slot and prefix pins instead of

@@ -28,7 +28,9 @@ repeating (and its integer stream equal to the CPU's), and a small
 speculating engine on both layouts.
 The CUDA shared-memory data plane: a zero-copy in-process read, output
 rows read back from the response callback of the pre-split path, and the
-cross-process attachment's device copy held until the seqno moves.
+cross-process attachment's device copy held until the seqno moves. The
+observability plane: a paged round scraped over HTTP with tracing off and
+on, the same tokens and K2 launches in both.
 """
 
 import dataclasses
@@ -1022,3 +1024,80 @@ def test_int8_block_tier_round_trip_on_the_card(card, layer_major):
         assert torch.equal(dst, src), name
     assert kvc.pool_block_nbytes(pool, layer_major) \
         == 2 * 2 * 8 * 4 * (16 + 4)
+
+
+def test_traced_paged_round_scraped_over_http(card):
+    """A small paged generator (K2 on every chunk step) behind the HTTP
+    front end serves the same greedy jobs with tracing off and with
+    ``trace_rate`` 1: the same tokens, the same K2 launches, one trace per
+    stream from REQUEST_START to REQUEST_END, and ``/metrics`` over HTTP
+    whose token and completion counters equal the engine's."""
+    import urllib.request
+
+    from client_tpu_torch.models.decoder_lm import make_continuous_generator
+    from client_tpu_torch.perf.bench_harness import ragged_generation_jobs
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server.http_server import HttpInferenceServer
+    from client_tpu_torch.server.metrics import (
+        parse_prometheus_text,
+        sample_value,
+    )
+    from client_tpu_torch.server.types import InferRequest, InferTensor
+
+    cfg, params = _lane_model()
+    jobs = ragged_generation_jobs(3, 97, 6, (1, 40), (3, 20), 64)
+    runs = {}
+    for traced in (False, True):
+        core = TorchInferenceServer()
+        core.register_model(make_continuous_generator(
+            "lm", cfg=cfg, params=params, n_slots=4, chunk_size=4,
+            kv_layout="paged", kv_block_len=8, device="cuda"), warmup=True)
+        engine = core._entry("lm").model.engine
+        http = HttpInferenceServer(core, port=0).start()
+        if traced:
+            core.update_trace_settings(settings={
+                "trace_level": ["TIMESTAMPS"], "trace_rate": "1"})
+        streams = [[] for _ in jobs]
+
+        def one(i):
+            prompt, budget = jobs[i]
+            req = InferRequest(model_name="lm", inputs=[
+                InferTensor("PROMPT", "INT32", (len(prompt),), data=prompt),
+                InferTensor("MAX_TOKENS", "INT32", (1,),
+                            data=np.asarray([budget], np.int32))])
+            core.infer(req, response_callback=lambda r, f: r.outputs and
+                       streams[i].append(int(r.outputs[0].data[0])))
+
+        try:
+            # one after another: the dispatch count, and so K2's launches,
+            # do not depend on when the streams arrive
+            before = pa.launches
+            chunks0 = engine.stats()["chunks_dispatched"]
+            for i in range(len(jobs)):
+                one(i)
+            launches = pa.launches - before
+            with urllib.request.urlopen(f"http://{http.url}/metrics",
+                                        timeout=60) as r:
+                parsed = parse_prometheus_text(r.read().decode())
+            stats = engine.stats()
+            traces = list(core.tracer.completed)
+        finally:
+            http.stop()
+            core.stop()
+        lab = {"model": "lm"}
+        assert sample_value(parsed, "client_tpu_generation_tokens_total",
+                            lab) == stats["tokens_emitted"]
+        assert sample_value(parsed, "client_tpu_generation_requests_total",
+                            lab) == stats["requests_completed"] \
+            == len(jobs) + 1   # and the warmup stream
+        assert sample_value(parsed, "client_tpu_engine_up", lab) == 1
+        # 2 layers x 4 steps per chunk dispatch
+        assert launches == 2 * 4 * (stats["chunks_dispatched"] - chunks0)
+        runs[traced] = (streams, launches, traces)
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1] == runs[False][1] > 0
+    assert runs[False][2] == []
+    assert len(runs[True][2]) == len(jobs)
+    for tr in runs[True][2]:
+        names = [s[0] for s in tr.timestamps]
+        assert names[0] == "REQUEST_START" and names[-1] == "REQUEST_END"

@@ -19,6 +19,15 @@ that sends both packages the same input (ROADMAP, section C):
   32 distinct tenants later ones become ``__other__``), so both default
   engines' slot tables show the same labels, and both report the same
   per-label counts and overflow counters.
+- C5: a generator whose engine thread died is not ready: ``model_ready``,
+  ``ready`` and ``/v2/health/ready`` say so in both packages, the port's
+  ``client_tpu_engine_up`` reads 0, and an unload and reload of the model
+  makes it ready again.
+- C6: the HTTP statistics of a generator carry the engine's counters
+  under ``runtime``, as the reference's do.
+- C7: ``core.stop()`` stops a generator's engine and stages no fresh one,
+  and a model whose ``unload`` raises keeps neither the other models nor
+  the shared-memory cleanup from running.
 """
 
 import json
@@ -332,3 +341,177 @@ def _wait_idle(engine, timeout: float = 60.0) -> bool:
                 return True
         time.sleep(0.005)
     return False
+
+
+# ---------------------------------------------------------------- C5
+
+def _lm_core(pkg: str, model, http: bool = False):
+    """A core serving one small generator ``lm`` (2 slots, chunk 4) of
+    either package with the same weights, optionally behind its HTTP front
+    end."""
+    jcfg, jparams, tcfg, tparams = model
+    if pkg == "ref":
+        core = TpuInferenceServer()
+        lm = jlm.make_continuous_generator(
+            "lm", cfg=jcfg, params=dict(jparams), n_slots=2, chunk_size=4)
+        mod = jhttp
+    else:
+        core = TorchInferenceServer()
+        lm = tlm.make_continuous_generator(
+            "lm", cfg=tcfg, params=tparams, n_slots=2, chunk_size=4,
+            device="cpu")
+        mod = thttp
+    core.register_model(lm)
+    srv = mod.HttpInferenceServer(core, port=0).start() if http else None
+    return core, lm, srv
+
+
+def _get_status(url: str, path: str) -> int:
+    try:
+        with urllib.request.urlopen(f"http://{url}{path}", timeout=60) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def _readiness(core, srv) -> tuple:
+    return (core.model_ready("lm"), core.ready(),
+            _get_status(srv.url, "/v2/health/ready"),
+            _get_status(srv.url, "/v2/models/lm/ready"))
+
+
+def test_c5_a_dead_engine_reads_as_not_ready(model):
+    """An engine whose dispatch raises dies with its error; from then on
+    both packages answer not ready, everywhere readiness is read."""
+    from client_tpu_torch.server.metrics import (
+        parse_prometheus_text,
+        sample_value,
+    )
+
+    got = {}
+    for pkg in ("ref", "port"):
+        core, lm, srv = _lm_core(pkg, model, http=True)
+        try:
+            _stream(core, jtypes if pkg == "ref" else ttypes, 0)
+            before = _readiness(core, srv)
+            engine = lm.engine
+
+            def boom(*a, **k):
+                raise RuntimeError("injected dispatch failure")
+
+            engine._dispatch = boom
+            with pytest.raises(RuntimeError, match="injected"):
+                list(engine.submit(np.asarray([1, 2, 3], np.int32), 4))
+            engine._thread.join(timeout=30)
+            assert not engine._thread.is_alive()
+            got[pkg] = (before, engine.healthy(), _readiness(core, srv))
+            if pkg == "port":
+                parsed = parse_prometheus_text(core.metrics_text())
+                assert sample_value(
+                    parsed, "client_tpu_engine_up",
+                    {"model": "lm", "version": "1"}) == 0
+        finally:
+            srv.stop()
+            core.stop()
+    assert got["port"] == got["ref"]
+    assert got["port"] == ((True, True, 200, 200), False,
+                           (False, False, 400, 400))
+
+
+def test_c5_unload_and_reload_restore_readiness(model):
+    """The model's unload stages a fresh engine: after an unload and a
+    load the dead model is ready again and serves."""
+    got = {}
+    for pkg in ("ref", "port"):
+        core, lm, srv = _lm_core(pkg, model, http=True)
+        types = jtypes if pkg == "ref" else ttypes
+        try:
+            lm.engine._fail_all(RuntimeError("dead"))
+            dead = _readiness(core, srv)
+            lm.unload()
+            lm.load()
+            got[pkg] = (dead, _readiness(core, srv),
+                        _stream(core, types, 0)[-1])
+        finally:
+            srv.stop()
+            core.stop()
+    assert got["port"] == got["ref"]
+    assert got["port"] == ((False, False, 400, 400), (True, True, 200, 200),
+                           (None, True))
+
+
+# ---------------------------------------------------------------- C6
+
+def test_c6_http_statistics_carry_the_engine_block(model):
+    """The reference's ``test_engine_runtime_stats``, read over HTTP: the
+    same greedy stream through both packages, and the same engine counters
+    under ``runtime``."""
+    keys = ("n_slots", "chunk", "slots_active", "queue_depth",
+            "tokens_emitted", "requests_completed", "requests_failed")
+    got = {}
+    for pkg in ("ref", "port"):
+        core, _lm, srv = _lm_core(pkg, model, http=True)
+        try:
+            assert _stream(core, jtypes if pkg == "ref" else ttypes, 0) \
+                == [(None, False)] * 40 + [(None, True)]
+            with urllib.request.urlopen(
+                    f"http://{srv.url}/v2/models/lm/stats",
+                    timeout=60) as r:
+                rt = json.loads(r.read())["model_stats"][0]["runtime"]
+        finally:
+            srv.stop()
+            core.stop()
+        assert rt["chunks_dispatched"] >= 1
+        got[pkg] = {k: rt[k] for k in keys}
+    assert got["port"] == got["ref"]
+    assert got["port"]["tokens_emitted"] == 40
+    assert got["port"]["requests_completed"] == 1
+
+
+# ---------------------------------------------------------------- C7
+
+def test_c7_stop_stages_no_fresh_engine(model, monkeypatch):
+    """``core.stop()`` ends the generator's engine: one engine built in
+    all, the one serving, and it is stopped."""
+    built = []
+
+    class Counting(tlm.ContinuousBatchingEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            built.append(self)
+
+    monkeypatch.setattr(tlm, "ContinuousBatchingEngine", Counting)
+    core, lm, _ = _lm_core("port", model)
+    assert _stream(core, ttypes, 0)[-1] == (None, True)
+    assert len(built) == 1
+    core.stop()
+    assert len(built) == 1
+    assert built[0]._stopping and not built[0]._thread.is_alive()
+
+
+def test_c7_a_failing_unload_keeps_stop_going(model, tmp_path):
+    """A model whose ``unload`` raises: the models after it still stop
+    and every shared-memory region is still unregistered."""
+    from client_tpu_torch.utils import shared_memory as shm
+
+    def fail():
+        raise RuntimeError("unload failed")
+
+    broken = make_add_sub("broken", 4, "INT32", device="cpu")
+    broken.unload = fail
+    other = make_add_sub("add_sub", 4, "INT32", device="cpu")
+    stopped = []
+    other.unload = lambda: stopped.append(1)
+    core = TorchInferenceServer()
+    core.register_model(broken)
+    core.register_model(other)
+    region = shm.create_shared_memory_region("c7", "/c7_region", 64)
+    try:
+        core.system_shm.register("c7", "/c7_region", 0, 64)
+        assert core.system_shm.metrics() == (1, 64)
+        core.stop()
+        assert stopped == [1]
+        assert core.system_shm.metrics() == (0, 0)
+        assert core.system_shm.status() == []
+    finally:
+        shm.destroy_shared_memory_region(region)

@@ -384,15 +384,125 @@ def test_tpu_shm_verbs_name_cuda_shm_on_the_port(clients):
     assert status == "INVALID_ARGUMENT" and "CudaSharedMemory" in msg
 
 
-@pytest.mark.parametrize("call", ["index", "load", "unload", "trace"])
+@pytest.mark.parametrize("call", ["index", "load", "unload"])
 def test_unported_rpcs_are_unimplemented_with_their_item(clients, call):
     c = clients["port"]
     fn = {"index": c.get_model_repository_index,
           "load": lambda: c.load_model("add_sub"),
-          "unload": lambda: c.unload_model("add_sub"),
-          "trace": c.get_trace_settings}[call]
+          "unload": lambda: c.unload_model("add_sub")}[call]
     status, msg = _status(fn)
     assert status == "UNIMPLEMENTED" and "ROADMAP" in msg
+
+
+# ------------------------------------------------- trace and metrics
+
+def _trace_calls(c) -> list:
+    """Reads and updates of the trace settings through the JAX package's
+    client, ending with every setting back at its default."""
+    out = [c.get_trace_settings(as_json=True),
+           c.update_trace_settings(settings={
+               "trace_level": ["TIMESTAMPS"], "trace_rate": "3"},
+               as_json=True),
+           c.update_trace_settings("add_sub", {"trace_count": "4"},
+                                   as_json=True),
+           c.get_trace_settings("add_sub", as_json=True),
+           c.update_trace_settings("add_sub", {"trace_count": None},
+                                   as_json=True),
+           c.update_trace_settings(settings={"trace_level": None,
+                                             "trace_rate": None},
+                                   as_json=True)]
+    return out
+
+
+def test_trace_setting_answers_like_the_reference(clients):
+    got = {side: _trace_calls(clients[side]) for side in SIDES}
+    assert got["port"] == got["ref"]
+    assert got["port"][3]["settings"]["trace_count"]["value"] == ["4"]
+    assert got["port"][-1]["settings"]["trace_level"]["value"] == ["OFF"]
+
+
+def test_trace_id_trailer_and_stream_parameter(servers):
+    """A propagated ``triton_trace_id`` comes back as the ModelInfer
+    trailer and as a parameter of every streamed response; untraced
+    requests carry neither."""
+    a = np.arange(16, dtype=np.int32)
+    req = tpb.ModelInferRequest(model_name="add_sub")
+    for name in ("INPUT0", "INPUT1"):
+        req.inputs.add(name=name, datatype="INT32", shape=[16])
+        req.raw_input_contents.append(a.tobytes())
+    got = {}
+    for side in SIDES:
+        core, srv = servers[side]
+        core.update_trace_settings(settings={"trace_level": ["TIMESTAMPS"],
+                                             "trace_rate": "1000000"})
+        try:
+            with grpc.insecure_channel(srv.address) as ch:
+                call = _stub(ch, "ModelInfer")
+                tagged = tpb.ModelInferRequest()
+                tagged.CopyFrom(req)
+                tagged.parameters["triton_trace_id"].string_param = "beef01"
+                _resp, c1 = call.with_call(tagged)
+                _resp, c2 = call.with_call(req)
+            stream = _trace_ids_on_stream(srv.address)
+        finally:
+            core.update_trace_settings(settings={"trace_level": None,
+                                                 "trace_rate": None})
+        got[side] = (dict(c1.trailing_metadata()).get("triton-trace-id"),
+                     dict(c2.trailing_metadata()).get("triton-trace-id"),
+                     stream)
+    assert got["port"] == got["ref"]
+    assert got["port"][:2] == ("beef01", None)
+    assert got["port"][2] == ["feed02"] * 5
+
+
+def _trace_ids_on_stream(address) -> list:
+    """The ``triton_trace_id`` of each response of one traced stream (4
+    tokens and the final flag)."""
+    c = grpcclient.InferenceServerClient(address)
+    results: queue.Queue = queue.Queue()
+    c.start_stream(lambda r, e: results.put((r, e)))
+    ids = []
+    try:
+        p = grpcclient.InferInput("PROMPT", [3], "INT32")
+        p.set_data_from_numpy(np.array([7, 8, 9], np.int32))
+        m = grpcclient.InferInput("MAX_TOKENS", [1], "INT32")
+        m.set_data_from_numpy(np.array([4], np.int32))
+        c.async_stream_infer("lm", [p, m], request_id="t",
+                             parameters={"triton_trace_id": "feed02"})
+        while True:
+            r, e = results.get(timeout=120)
+            assert e is None, e
+            resp = r.get_response()
+            ids.append(resp.parameters["triton_trace_id"].string_param)
+            if resp.parameters["triton_final_response"].bool_param:
+                break
+    finally:
+        c.stop_stream()
+        c.close()
+    return ids
+
+
+def test_server_metadata_returns_the_metrics_trailer(servers):
+    from client_tpu_torch.server.metrics import parse_prometheus_text
+
+    got = {}
+    for side in SIDES:
+        with grpc.insecure_channel(servers[side][1].address,
+                                   options=CLIENT_CHANNEL_OPTIONS) as ch:
+            call = _stub(ch, "ServerMetadata")
+            _r, asked = call.with_call(
+                tpb.ServerMetadataRequest(),
+                metadata=(("client-tpu-metrics", "request"),))
+            _r, plain = call.with_call(tpb.ServerMetadataRequest())
+        text = dict(asked.trailing_metadata())["client-tpu-metrics-bin"]
+        fams = set(parse_prometheus_text(text.decode())["families"])
+        got[side] = ("client-tpu-metrics-bin" in dict(
+            plain.trailing_metadata()),
+            {f for f in fams if f.startswith("client_tpu_generation_")
+             or f.startswith("client_tpu_inference_")})
+    assert got["port"] == got["ref"]
+    assert got["port"][0] is False
+    assert "client_tpu_generation_tokens_total" in got["port"][1]
 
 
 def test_kserve_messages_of_both_packages_share_one_process():

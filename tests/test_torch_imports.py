@@ -70,7 +70,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.protocol.grpc_defs",
                      "client_tpu_torch.protocol.grpc_tensors",
                      "client_tpu_torch.server.grpc_server",
-                     "client_tpu_torch.server.model"):
+                     "client_tpu_torch.server.model",
+                     "client_tpu_torch.server.trace",
+                     "client_tpu_torch.server.metrics",
+                     "client_tpu_torch.server.cache"):
         assert expected in result["modules"]
 
 

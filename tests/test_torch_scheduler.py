@@ -567,6 +567,44 @@ def test_preemption_records_slo_and_gen_stats_like_the_reference(engines):
         assert stats["port"] == stats["ref"], combo
 
 
+def _render_engine(mod, eng) -> dict:
+    """One engine's generation, SLO and scheduler families rendered by a
+    package's collectors (as /metrics renders a served model's) and
+    parsed back."""
+    snap = eng.generation_snapshot()
+    reg = mod.MetricsRegistry()
+    mod._collect_generation(reg, [("lm", "1", snap)])
+    mod._collect_slo(reg, [("lm", "1", snap["slo"])])
+    mod._collect_sched(reg, [("lm", "1", snap)])
+    return mod.parse_prometheus_text(reg.render())
+
+
+def test_preemption_counters_render_like_the_reference(engines):
+    """After the scenarios, both packages' renders of the engines agree on
+    the preemption, resume, token and completion counters, per label."""
+    from client_tpu.server import metrics as jm
+    from client_tpu_torch.server import metrics as tm
+
+    names = ("client_tpu_sched_preemptions_total",
+             "client_tpu_sched_resumes_total",
+             "client_tpu_generation_tokens_total",
+             "client_tpu_generation_requests_total",
+             "client_tpu_generation_prefix_cache_hits_total",
+             "client_tpu_slo_requests_total")
+    built, _ = engines
+    for combo in COMBOS:
+        got = {}
+        for side, mod in (("ref", jm), ("port", tm)):
+            parsed = _render_engine(mod, built[(combo, side)][0])
+            got[side] = sorted((n, sorted(lab.items()), v)
+                               for n, lab, v in parsed["samples"]
+                               if n in names)
+        assert got["port"] == got["ref"], combo
+        preempted = [v for n, _lab, v in got["port"]
+                     if n == "client_tpu_sched_preemptions_total"]
+        assert sum(preempted) >= 1, combo
+
+
 # ------------------------------------------------------------- shed door
 
 def test_shed_door_sheds_the_same_victim(weights):
