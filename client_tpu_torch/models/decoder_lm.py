@@ -7,10 +7,11 @@ TEMPERATURE, TOP_K, TOP_P and SEED, each [1]), one TOKEN [1] response per
 generated token, every concurrent request multiplexed onto one slot batch
 by the continuous-batching engine (``server/generation.py``). The
 reference's single-stream and static-batch generators, its sequence
-decoder, replica fleets and engine supervision wait for later slices.
-Speculative decoding runs through ``speculative_draft``, the SLO
-scheduler through ``scheduler`` and ``slo_classes``, the host tier
-through ``host_tier_bytes``.
+decoder and replica fleets wait for later slices. Speculative decoding
+runs through ``speculative_draft``, the SLO scheduler through
+``scheduler`` and ``slo_classes``, the host tier through
+``host_tier_bytes``, engine supervision through ``supervision`` and the
+watchdog through ``watchdog`` (on by default, as in the reference).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from client_tpu_torch.device import resolve_device
+from client_tpu_torch.device import canonical_device, resolve_device
 from client_tpu_torch.models import transformer as t
 from client_tpu_torch.models.sampling import MAX_TOP_K
 from client_tpu_torch.server.config import (
@@ -29,6 +30,7 @@ from client_tpu_torch.server.config import (
     PrefixCacheConfig,
     SloClassConfig,
     SpeculativeConfig,
+    SupervisionConfig,
     TensorSpec,
     config_from_dict,
 )
@@ -39,7 +41,9 @@ from client_tpu_torch.server.generation import (
 from client_tpu_torch.server.model import PyModel
 from client_tpu_torch.server.scheduling import resolve_scheduler
 from client_tpu_torch.server.speculation import DraftModel, build_draft_model
+from client_tpu_torch.server.supervision import EngineSupervisor, RestartPolicy
 from client_tpu_torch.server.types import ServerError
+from client_tpu_torch.server.watchdog import IncidentStore
 
 
 def _read_sampling(inputs) -> tuple:
@@ -82,40 +86,68 @@ def decode_config(vocab_size: int = 1024, d_model: int = 128,
 
 
 class ContinuousModel(PyModel):
-    """The served continuous generator: ``engine`` is the live engine.
-    ``unload`` stops it and stages a fresh one (a stopped engine stays
-    stopped); ``shutdown``, the server's terminal stop, stops it and
-    stages nothing; ``warmup`` drives one short stream through it, so the
-    kernels are built and the device state is ready before serving.
-    ``engine_healthy`` gates the model's readiness on the engine thread;
-    ``runtime_stats`` (the statistics' ``runtime`` block) and
-    ``generation_stats`` (the /metrics feed) read the live engine."""
+    """The served continuous generator. ``engine`` is the live engine:
+    under supervision the ``engine_supervisor``'s current one (it swaps in
+    a rebuilt engine after a crash), else the model's own. ``unload``
+    stops it and stages a fresh one (a stopped engine stays stopped; under
+    supervision ``replace_clean`` also resets the failure window and the
+    breaker); ``shutdown``, the server's terminal stop, stops it, stages
+    nothing and cancels a pending restart; ``warmup`` drives one short
+    stream through it, so the kernels are built and the device state is
+    ready before serving. ``engine_healthy`` gates the model's readiness
+    on the engine thread (and on the breaker); ``runtime_stats`` (the
+    statistics' ``runtime`` block), ``generation_stats`` (the /metrics
+    feed), ``runtime_observability``, ``engine_debug``,
+    ``incident_snapshot`` and ``timeline_snapshot`` read the live
+    engine."""
 
-    def __init__(self, config: ModelConfig, stream_fn, fresh_engine):
+    def __init__(self, config: ModelConfig, stream_fn, fresh_engine,
+                 policy: Optional[RestartPolicy] = None):
         super().__init__(config, fn=None, stream_fn=stream_fn)
         self._fresh_engine = fresh_engine
-        self.engine = fresh_engine()
+        self.engine_supervisor: Optional[EngineSupervisor] = (
+            EngineSupervisor(fresh_engine, policy, name=config.name)
+            if policy is not None else None)
+        self._engine = (fresh_engine() if self.engine_supervisor is None
+                        else None)
+
+    @property
+    def engine(self):
+        """The live engine (read anew each time: a supervised restart and
+        an unload both swap it)."""
+        sup = self.engine_supervisor
+        return sup.engine if sup is not None else self._engine
 
     def warmup(self) -> None:
         list(self.engine.submit(np.zeros(4, np.int32), 2))
 
     def unload(self) -> None:
-        self.engine.stop()
-        self.engine = self._fresh_engine()
+        if self.engine_supervisor is not None:
+            self.engine_supervisor.replace_clean()
+        else:
+            self._engine.stop()
+            self._engine = self._fresh_engine()
 
     def shutdown(self) -> None:
-        self.engine.stop()
+        if self.engine_supervisor is not None:
+            self.engine_supervisor.shutdown()
+        else:
+            self._engine.stop()
 
     def engine_healthy(self) -> bool:
-        """False once the engine thread died on an unexpected error, until
-        an unload stages a fresh engine."""
-        return self.engine.healthy()
+        """False once the engine thread died on an unexpected error: under
+        supervision until the rebuilt engine is live, and for good once
+        the breaker trips; unsupervised until an unload stages a fresh
+        engine."""
+        sup = self.engine_supervisor
+        return sup.healthy() if sup is not None else self._engine.healthy()
 
     def runtime_stats(self) -> dict:
         return self.engine.stats()
 
     def generation_stats(self) -> dict:
-        """The token-level snapshot the /metrics collector reads."""
+        """The token-level snapshot the /metrics collector reads (with the
+        supervisor block the restart families read)."""
         return self.engine.generation_snapshot()
 
     def slo_snapshot(self) -> dict:
@@ -127,6 +159,33 @@ class ContinuousModel(PyModel):
         """The scheduler's state (``core.debug_scheduler``); None without
         a scheduler."""
         return self.engine.scheduler_snapshot()
+
+    def runtime_observability(self) -> dict:
+        """The runtime block (memory ledger, liveness) for
+        ``GET /v2/debug/runtime``."""
+        return self.engine.runtime_snapshot()
+
+    def engine_debug(self) -> dict:
+        """Slot tables, queue, pool and flight-recorder tail for
+        ``GET /v2/debug/models/{name}/engine``."""
+        return self.engine.debug_snapshot()
+
+    def timeline_snapshot(self) -> dict:
+        """The engine's whole flight-recorder ring, with the incident
+        store (the timeline export's input)."""
+        return {
+            "replicas": [{"replica": 0, "name": self.config.name,
+                          "flight": self.engine.flight.dump()}],
+            "fleet": None,
+            "incidents": self.incident_snapshot(),
+        }
+
+    def incident_snapshot(self):
+        """The incident store and watchdog state
+        (``core.debug_incidents``); the store is the model's, so a
+        crashed engine's death bundle stays after a restart. None with
+        the watchdog off."""
+        return self.engine.incident_snapshot()
 
 
 def make_continuous_generator(name: str = "continuous_lm", cfg=None,
@@ -166,6 +225,11 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               scheduler=None,
                               queue_depth: int = 256,
                               shed_on_full: bool = False,
+                              supervision=None,
+                              watchdog: bool = True,
+                              watchdog_interval_s: float = 0.25,
+                              watchdog_thresholds=None,
+                              incident_file: Optional[str] = None,
                               device=None, **unported) -> ContinuousModel:
     """Continuously batched decoupled generation (the reference's
     ``make_continuous_generator``, limited to the knobs its engine port
@@ -187,6 +251,16 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     ``SloClassConfig`` or their dicts. The engine is built now and
     started by the first request.
 
+    ``supervision`` (a ``SupervisionConfig``, its dict form, or True for
+    the defaults) rebuilds the engine after its thread dies, with the
+    reference's backoff and crash-loop breaker (``server/supervision.py``);
+    without it a dead engine stays dead until an unload. ``watchdog`` (on
+    by default), ``watchdog_interval_s`` and ``watchdog_thresholds`` set up
+    each engine's detectors; one ``IncidentStore`` serves every engine the
+    model builds, spilled as JSONL to ``incident_file`` when given (which
+    needs the watchdog). The config's ``supervision`` block and the
+    ``generation_engine`` block's ``watchdog`` fields advertise them.
+
     ``speculative_draft`` turns on speculative decoding: a
     ``speculation.DraftModel``, a ``(cfg, params)`` pair, or a
     ``SpeculativeConfig`` (or its dict form, the config JSON block) from
@@ -197,7 +271,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     block."""
     reject_unported(unported)
     cfg = cfg or decode_config()
-    dev = resolve_device(device)
+    # an indexed device: a supervised rebuild runs on another thread, whose
+    # current card need not be the caller's
+    dev = canonical_device(resolve_device(device))
     draft, spec_json = speculative_draft, None
     if isinstance(draft, dict):
         draft = config_from_dict(SpeculativeConfig, draft)
@@ -250,6 +326,26 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     # objectives and the config block
     slo_cfgs = tuple(SloClassConfig(**c) if isinstance(c, dict) else c
                      for c in (slo_classes or ()))
+    if incident_file is not None and not watchdog:
+        raise ValueError(
+            "incident_file requires watchdog=True — nothing records "
+            "incidents with the watchdog off")
+    # one incident store per model, handed to every engine it builds, so
+    # a crashed engine's bundles stay readable after a restart
+    incidents = IncidentStore(spill_path=incident_file) if watchdog else None
+    sup_cfg = supervision
+    if isinstance(sup_cfg, dict):
+        sup_cfg = config_from_dict(SupervisionConfig, sup_cfg,
+                                   defaults={"enabled": True})
+    elif sup_cfg is True:
+        sup_cfg = SupervisionConfig(enabled=True)
+    if isinstance(sup_cfg, SupervisionConfig) and not sup_cfg.enabled:
+        sup_cfg = None
+    policy = None if sup_cfg is None else RestartPolicy(
+        backoff_base_s=sup_cfg.backoff_base_s,
+        backoff_mult=sup_cfg.backoff_mult,
+        backoff_max_s=sup_cfg.backoff_max_s,
+        max_failures=sup_cfg.max_failures, window_s=sup_cfg.window_s)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -279,7 +375,10 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             host_tier_bytes=host_tier_bytes, dispatch_duty=dispatch_duty,
             slo_classes=slo_cfgs, slo_window_s=slo_window_s,
             slo_max_tenants=slo_max_tenants, scheduler=eff_sched,
-            shed_on_full=shed_on_full, device=dev, name=name)
+            shed_on_full=shed_on_full, watchdog=watchdog,
+            watchdog_interval_s=watchdog_interval_s,
+            watchdog_thresholds=watchdog_thresholds,
+            incident_store=incidents, device=dev, name=name)
 
     model: ContinuousModel = None  # bound below; stream_fn reads it live
 
@@ -325,15 +424,17 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             prefill_lane_batch=eff_lane_batch, host_tier_bytes=eff_tier,
             kv_layout=kv[0],
             kv_block_len=kv[1], kv_pool_blocks=kv[2],
-            kv_max_blocks_per_slot=kv[3]),
+            kv_max_blocks_per_slot=kv[3], watchdog=watchdog,
+            watchdog_interval_s=watchdog_interval_s),
         prefix_cache=(PrefixCacheConfig(
             enabled=True, pool_blocks=prefix_blocks,
             block_len=prefix_block_len,
             commit_policy=prefix_commit_policy)
             if prefix_cache else None),
         speculative=spec_json,
+        supervision=sup_cfg,
         scheduler=eff_sched,
         slo_classes=slo_cfgs,
     )
-    model = ContinuousModel(config, stream_fn, fresh_engine)
+    model = ContinuousModel(config, stream_fn, fresh_engine, policy)
     return model

@@ -3,7 +3,10 @@
 Serves the demo models (add_sub / add_sub_fp32 / identity), and with
 ``--lm-models`` the continuous-batching generator ``continuous_lm``, over
 HTTP and, with ``--grpc-port``, gRPC; on the card, or on the CPU with
-``--device cpu``.
+``--device cpu``. ``--debug-endpoints`` serves the ``/v2/debug/*`` routes
+(and the gRPC incidents trailer); without it they answer 404. Faults are
+armed through ``POST /v2/debug/faults`` or, at start, the
+``CLIENT_TPU_FAULTS`` / ``CLIENT_TPU_FAULT_SEED`` environment.
 """
 
 from __future__ import annotations
@@ -31,6 +34,13 @@ def main(argv=None) -> int:
                          "engine, on --device); the reference's decoder_lm "
                          "and generator_lm are not ported yet (ROADMAP A12, "
                          "A14)")
+    ap.add_argument("--debug-endpoints", action="store_true",
+                    help="serve the runtime introspection surface "
+                         "(GET /v2/debug/runtime, GET /v2/debug/models/"
+                         "{name}/engine, GET /v2/debug/incidents, "
+                         "GET/POST /v2/debug/faults, POST "
+                         "/v2/debug/profile, ...); off by default — those "
+                         "paths 404 without the flag")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -53,15 +63,18 @@ def main(argv=None) -> int:
         core.register_model(make_continuous_generator(device=args.device))
 
     http_srv = HttpInferenceServer(core, host=args.host, port=args.http_port,
-                                   verbose=args.verbose).start()
+                                   verbose=args.verbose,
+                                   debug_endpoints=args.debug_endpoints
+                                   ).start()
     print(f"HTTP server listening on {http_srv.url}", flush=True)
 
     grpc_srv = None
     if args.grpc_port is not None:
         from client_tpu_torch.server.grpc_server import GrpcInferenceServer
 
-        grpc_srv = GrpcInferenceServer(core, host=args.host,
-                                       port=args.grpc_port).start()
+        grpc_srv = GrpcInferenceServer(
+            core, host=args.host, port=args.grpc_port,
+            debug_endpoints=args.debug_endpoints).start()
         print(f"gRPC server listening on {grpc_srv.address}", flush=True)
 
     stop = []

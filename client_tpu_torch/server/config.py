@@ -194,8 +194,9 @@ class GenerationEngineConfig:
     ``ring_entries``), the prompt-ingestion mode and its lane, the
     dedicated prefill lane (``prefill_slots``, ``prefill_lane_width`` and
     ``prefill_lane_batch``, all 0 without it), the host-RAM prefix tier's
-    budget (``host_tier_bytes``, 0 = none) and the KV layout with its pool
-    geometry (0s under ``slot``). Configs built by
+    budget (``host_tier_bytes``, 0 = none), the KV layout with its pool
+    geometry (0s under ``slot``) and whether the watchdog runs, at what
+    sampling interval. Configs built by
     ``make_continuous_generator`` advertise the EFFECTIVE values the
     engine's own resolvers give, so introspection agrees with what the
     engine runs."""
@@ -217,6 +218,31 @@ class GenerationEngineConfig:
     kv_block_len: int = 0
     kv_pool_blocks: int = 0
     kv_max_blocks_per_slot: int = 0
+    watchdog: bool = True
+    watchdog_interval_s: float = 0.25
+
+    def to_json(self):
+        return asdict(self)
+
+
+@dataclass
+class SupervisionConfig:
+    """Engine supervision for generation models
+    (``server/supervision.py``): when the continuous-batching engine's
+    thread dies, in-flight streams fail with a retryable 503 +
+    ``Retry-After`` and the supervisor rebuilds the engine (fresh device
+    state) after an exponential backoff — ``backoff_base_s`` growing by
+    ``backoff_mult`` per failure up to ``backoff_max_s``.
+    ``max_failures`` failures within ``window_s`` seconds trip the
+    crash-loop breaker: no further restarts, readiness stays false. The
+    reference's block, field for field."""
+
+    enabled: bool = False
+    backoff_base_s: float = 0.5
+    backoff_mult: float = 2.0
+    backoff_max_s: float = 30.0
+    max_failures: int = 5
+    window_s: float = 300.0
 
     def to_json(self):
         return asdict(self)
@@ -251,6 +277,7 @@ class ModelConfig:
     prefix_cache: Optional[PrefixCacheConfig] = None
     speculative: Optional[SpeculativeConfig] = None
     generation_engine: Optional[GenerationEngineConfig] = None
+    supervision: Optional[SupervisionConfig] = None
     scheduler: Optional[SchedulerConfig] = None
     slo_classes: tuple = ()   # [SloClassConfig]; advertised objectives
 
@@ -313,6 +340,8 @@ class ModelConfig:
             j["speculative"] = self.speculative.to_json()
         if self.generation_engine is not None:
             j["generation_engine"] = self.generation_engine.to_json()
+        if self.supervision is not None:
+            j["supervision"] = self.supervision.to_json()
         if self.scheduler is not None:
             j["scheduler"] = self.scheduler.to_json()
         if self.slo_classes:

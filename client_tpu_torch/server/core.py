@@ -19,17 +19,23 @@ engine. ``metrics_text`` renders the Prometheus exposition
 (``server/metrics.py``). A model with ``response_cache`` answers a
 repeated request whose inputs are all host arrays from the cache.
 Readiness follows a model's engine: a model whose engine thread died is
-not ready.
+not ready (under supervision until the rebuilt engine is live, for good
+once the crash-loop breaker trips).
 
-The debug surface has ``debug_slo`` and ``debug_scheduler`` (the HTTP
-routes that serve them come with the runtime planes). Waiting for later
-slices: ensembles, repository load/unload and the rest of the debug
-surface.
+The debug surface (served by the front ends behind their opt-in flag):
+``debug_runtime`` (card memory and each model's memory ledger),
+``debug_engine`` (one engine's slot tables and flight tail),
+``debug_slo``, ``debug_scheduler``, ``debug_incidents`` (the watchdog's
+bundles), ``debug_faults`` / ``debug_faults_update`` (the fault-injection
+schedule) and ``debug_profile`` (a ``torch.profiler`` capture). Waiting
+for later slices: ensembles, repository load/unload, and the fleet,
+timeline and traces views.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from typing import Callable, Optional
@@ -50,11 +56,13 @@ from client_tpu_torch.protocol.dtypes import (
     np_to_wire_dtype,
     wire_to_np_dtype,
 )
+from client_tpu_torch.server import faultinject
 from client_tpu_torch.server import trace as trace_mod
 from client_tpu_torch.server.cache import ResponseCache
 from client_tpu_torch.server.config import ModelConfig
 from client_tpu_torch.server.metrics import render_server_metrics
 from client_tpu_torch.server.model import ServedModel
+from client_tpu_torch.server.runtime_stats import device_memory_stats
 from client_tpu_torch.server.scheduler import Pending, make_scheduler
 from client_tpu_torch.server.shm import CudaShmRegistry, SystemShmRegistry
 from client_tpu_torch.server.stats import ModelStats
@@ -113,6 +121,8 @@ class TorchInferenceServer:
         self.cuda_shm = CudaShmRegistry()
         self.cache = ResponseCache(max_bytes=cache_bytes)
         self.tracer = Tracer()
+        # one profiler capture at a time (debug_profile)
+        self._profile_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     # model lifecycle
@@ -263,6 +273,43 @@ class TorchInferenceServer:
                            "state": entry.state, key: snap})
         return {"models": models}
 
+    def debug_runtime(self) -> dict:
+        """The runtime plane: the card's memory from the caching
+        allocator (empty without CUDA) and, for every model with a
+        runtime block, its memory ledger and engine liveness."""
+        with self._lock:
+            entries = [(name, str(e.version), e)
+                       for name, versions in self._models.items()
+                       for e in versions.values()]
+        models = []
+        for name, version, entry in sorted(entries, key=lambda x: x[:2]):
+            rt = getattr(entry.model, "runtime_observability", None)
+            if not callable(rt):
+                continue
+            try:
+                snap = rt()
+            except Exception:  # noqa: BLE001 — introspection best-effort
+                continue
+            snap.update({"model": name, "version": version,
+                         "state": entry.state})
+            models.append(snap)
+        return {"devices": device_memory_stats(), "models": models}
+
+    def debug_engine(self, name: str, version: str = "") -> dict:
+        """One model's live engine snapshot (slot tables, queue, pool and
+        speculation state, flight-recorder tail); 404 for a model with no
+        engine."""
+        entry = self._entry(name, version)
+        dbg = getattr(entry.model, "engine_debug", None)
+        if not callable(dbg):
+            raise ServerError(
+                f"model '{name}' has no generation engine to introspect",
+                404)
+        snap = dbg()
+        snap["model"] = name
+        snap["version"] = str(entry.version)
+        return snap
+
     def debug_slo(self) -> dict:
         """Per-(tenant, slo_class) SLO state of every engine-backed model:
         windowed TTFT, ITL and queue-wait quantiles, error-budget burn and
@@ -274,6 +321,81 @@ class TorchInferenceServer:
         depths, parked reservations, controller mode and knobs,
         preemptions and resumes."""
         return self._model_snapshots("scheduler_snapshot", "scheduler")
+
+    def debug_incidents(self) -> dict:
+        """The watchdog's incident bundles of every model that runs it
+        (detector, breach, the triggering history, the flight tail and
+        the plane snapshots) with the live detector state. The store
+        outlives an engine restart, so a crashed engine's death bundle is
+        here after the fresh engine serves."""
+        return self._model_snapshots("incident_snapshot", "incidents")
+
+    def debug_faults(self) -> dict:
+        """The process-global fault-injection schedule (armed specs,
+        per-point hit counts)."""
+        return faultinject.get_injector().snapshot()
+
+    def debug_faults_update(self, body: dict) -> dict:
+        """Arm (``{"faults": [spec...], "seed": n}``) or clear
+        (``{"clear": true}``) the fault-injection schedule; a malformed
+        spec is a 400."""
+        inj = faultinject.get_injector()
+        if body.get("clear"):
+            inj.clear()
+            return inj.snapshot()
+        faults = body.get("faults")
+        if not isinstance(faults, list) or not faults:
+            raise ServerError(
+                "body must carry 'faults' (a non-empty list of fault "
+                "specs) or 'clear': true", 400)
+        try:
+            inj.arm(faults, seed=body.get("seed"))
+        except (TypeError, ValueError) as e:
+            raise ServerError(f"invalid fault spec: {e}", 400) from e
+        return inj.snapshot()
+
+    def debug_profile(self, log_dir: str, duration_s: float = 1.0) -> dict:
+        """A ``torch.profiler`` capture of ``duration_s`` seconds (the
+        host's ops and, once CUDA is in use, every kernel on the card)
+        written into ``log_dir`` as a Chrome trace
+        (``*.pt.trace.json``, TensorBoard's layout). One capture at a
+        time (409 while one runs), at most 60 s."""
+        if not log_dir:
+            raise ServerError("log_dir is required", 400)
+        duration_s = float(duration_s)
+        if not 0.0 < duration_s <= 60.0:
+            raise ServerError(
+                f"duration_s must be in (0, 60], got {duration_s}", 400)
+        if not self._profile_lock.acquire(blocking=False):
+            raise ServerError(
+                "a profiler capture is already running", 409)
+        try:
+            from torch._C._profiler import _ExperimentalConfig
+            from torch.profiler import (
+                ProfilerActivity,
+                profile,
+                tensorboard_trace_handler,
+            )
+
+            os.makedirs(log_dir, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available() and torch.cuda.is_initialized():
+                activities.append(ProfilerActivity.CUDA)
+            try:
+                # the serving threads' host ops, not only this one's
+                config = _ExperimentalConfig(profile_all_threads=True)
+            except TypeError:
+                # a torch without the option records this thread's host
+                # ops; the card's kernels are recorded from every thread
+                config = None
+            t0 = time.monotonic()
+            with profile(activities=activities, experimental_config=config,
+                         on_trace_ready=tensorboard_trace_handler(log_dir)):
+                time.sleep(duration_s)
+            return {"log_dir": log_dir,
+                    "duration_s": round(time.monotonic() - t0, 3)}
+        finally:
+            self._profile_lock.release()
 
     # ------------------------------------------------------------------
     # data plane

@@ -120,20 +120,39 @@ dequantising einsum, never K2, as in the reference.
 Observability: a request submitted with a sampled ``Trace`` gets the
 reference's engine spans where the reference stamps them (enqueue, queue
 wait, prefix hit, lane chunks and handoff, prefill end, verify rounds,
-preemption, sampled ring deliveries, decode); an untraced request costs
+preemption, sampled ring deliveries, decode, a watchdog INCIDENT, an
+ENGINE_RESTART when the engine dies under it); an untraced request costs
 one ``is None`` test at each site. ``generation_snapshot`` is the
 ``/metrics`` feed (the counters, with the slot-busy integral and the
-traced observations' exemplars, and the live gauges), and ``healthy``
-reads False once the engine thread died on an unexpected error.
+traced observations' exemplars, the live gauges, and the supervisor and
+watchdog blocks), and ``healthy`` reads False once the engine thread died
+on an unexpected error.
+
+Runtime planes: every loop iteration records one host-counter snapshot in
+the flight recorder (``server/runtime_stats.py``), dumped into the
+failure log when the thread dies, and the watchdog (``server/watchdog.py``,
+on by default as in the reference) evaluates its detectors over the same
+host counters, recording evidence bundles into an incident store that a
+supervised restart hands to the next engine. Neither reads a tensor: the
+loop gains no synchronisation with the card. The reference's fault points
+(``server/faultinject.py``) sit at its sites: ``engine_loop`` in the
+loop, ``kernel_delay`` before a dispatch, ``ring_fetch`` at the ring's
+D2H collect and ``queue_full`` at the submit door. A dead engine answers
+a submit with the reference's three 503s (restarting, with
+``Retry-After``; breaker tripped; unsupervised), and notifies its
+``EngineSupervisor`` (``server/supervision.py``) last. Signals the port
+cannot read yet are None: ``unexpected_compiles`` (no compile set) and
+the goodput shares.
 
 Knobs of the reference that this slice does not run (meshes and fleets,
-the watchdog, goodput and timeline planes) raise ``NotImplementedError``
-naming the ROADMAP item that ports them; none is silently ignored.
+the goodput sampling) raise ``NotImplementedError`` naming the ROADMAP
+item that ports them; none is silently ignored.
 """
 
 from __future__ import annotations
 
 import collections
+import json
 import logging
 import queue
 import threading
@@ -152,6 +171,7 @@ from client_tpu_torch.models.sampling import (
     step_gumbel,
     step_uniform,
 )
+from client_tpu_torch.server import faultinject
 from client_tpu_torch.server import trace as trace_mod
 from client_tpu_torch.server.kv_cache import (
     COMMIT_POLICIES,
@@ -170,6 +190,10 @@ from client_tpu_torch.server.kv_cache import (
 from client_tpu_torch.server.model import (
     finish_host_copies,
     start_host_copies,
+)
+from client_tpu_torch.server.runtime_stats import (
+    FlightRecorder,
+    pytree_nbytes,
 )
 from client_tpu_torch.server.scheduling import (
     EngineController,
@@ -197,6 +221,11 @@ from client_tpu_torch.server.types import (
     ServerError,
     now_ns,
 )
+from client_tpu_torch.server.watchdog import (
+    EVIDENCE_FLIGHT_TAIL,
+    IncidentStore,
+    Watchdog,
+)
 
 log = logging.getLogger(__name__)
 
@@ -205,11 +234,7 @@ log = logging.getLogger(__name__)
 UNPORTED_KNOBS = {
     "mesh": "A12 (mesh and fleets)",
     "engine_devices": "A12 (mesh and fleets)",
-    "watchdog": "A13 (runtime planes)",
-    "watchdog_interval_s": "A13 (runtime planes)",
-    "watchdog_thresholds": "A13 (runtime planes)",
-    "incident_store": "A13 (runtime planes)",
-    "device_time_sample_every": "A13 (runtime planes)",
+    "device_time_sample_every": "A13c (goodput and the timeline)",
 }
 
 
@@ -746,7 +771,13 @@ class ContinuousBatchingEngine:
     round's ``prefill_token_budget`` and hand them to decode slots;
     ``prefill_lane_batch`` >= 2 packs up to that many lane slots' chunks
     into one dispatch. Greedy output is the same as the piggyback lane's.
-    int8 KV comes with the config (``cfg.kv_quant``)."""
+    int8 KV comes with the config (``cfg.kv_quant``).
+
+    The watchdog: ``watchdog`` (on by default) samples the loop's host
+    counters every ``watchdog_interval_s`` and runs the reference's
+    detectors with ``watchdog_thresholds`` over the defaults, recording
+    into ``incident_store`` (a fresh store when None; the generator
+    passes one store shared across restarts)."""
 
     PREFILL_MODES = ("token", "batched", "chunked")
     KV_LAYOUTS = ("slot", "paged")
@@ -770,8 +801,11 @@ class ContinuousBatchingEngine:
                  host_tier_bytes: int = 0, dispatch_duty: float = 1.0,
                  slo_classes=None, slo_window_s: float = 30.0,
                  slo_max_tenants: int = 32, scheduler=None,
-                 shed_on_full: bool = False, device=None,
-                 name: str = "generation-engine", **unported):
+                 shed_on_full: bool = False, watchdog: bool = True,
+                 watchdog_interval_s: float = 0.25,
+                 watchdog_thresholds: Optional[dict] = None,
+                 incident_store: Optional[IncidentStore] = None,
+                 device=None, name: str = "generation-engine", **unported):
         reject_unported(unported)
         if chunk < 1 or n_slots < 1:
             raise ValueError("n_slots and chunk must be >= 1")
@@ -972,6 +1006,30 @@ class ContinuousBatchingEngine:
                       else objectives_from_configs(slo_classes))
         self.slo_stats = SloStats(objectives, window_s=slo_window_s,
                                   max_tenants=slo_max_tenants)
+        # slot admissions (a watchdog signal) and the verify depths the
+        # last round dispatched (a flight-record field)
+        self._admissions = 0
+        self._rungs_last: list = []
+        # the runtime plane: the last iterations' host counters, dumped
+        # when the thread dies, and the card-memory ledger of what this
+        # engine placed (filled once its state is built)
+        self.flight = FlightRecorder()
+        self._mem_attr: dict = {}
+        # set by an EngineSupervisor that owns this engine: a dying
+        # engine notifies it last (server/supervision.py)
+        self.supervisor = None
+        # the watchdog: detectors over the loop's host counters, firing
+        # evidence bundles into a store that outlives this engine (the
+        # generator hands one store to every engine it builds)
+        self.incidents = incident_store
+        self._watchdog: Optional[Watchdog] = None
+        if watchdog:
+            if self.incidents is None:
+                self.incidents = IncidentStore()
+            self._watchdog = Watchdog(
+                engine=name, store=self.incidents,
+                interval_s=watchdog_interval_s,
+                thresholds=watchdog_thresholds)
 
     # ---------------------------------------------------------- resolution
 
@@ -1294,18 +1352,204 @@ class ContinuousBatchingEngine:
         one)."""
         return self._failed is None
 
+    # ------------------------------------------------------ watchdog plane
+
+    def _watchdog_signals(self) -> dict:
+        """One watchdog history sample: host counters the loop already
+        keeps (dict reads and one walk of the slot tables), so a sample
+        reads no tensor and adds no synchronisation with the card. Runs
+        on the engine thread at an iteration boundary, where the slot
+        tables are consistent. ``unexpected_compiles`` and the goodput
+        shares are None: the port has no compile set and no goodput
+        plane yet (a None signal never breaches)."""
+        pool_orphan = None
+        if self._paged and self._kv_index is not None:
+            # blocks the allocator says live streams own, minus the blocks
+            # every live slot table (decode and lane) accounts for: a
+            # positive, non-decreasing residue is a leak
+            expected = sum(len(s.blocks) for s in self._slots
+                           if s.req is not None)
+            expected += sum(len(s.blocks) for s in self._lane_slots
+                            if s.req is not None)
+            pool_orphan = self._kv_index.occupancy()["stream"] - expected
+        tier = self._tier_snapshot()
+        spec = None if self._spec is None else self._spec.snapshot()
+        return {
+            "slots_active": self.active_slots(),
+            "queue_depth": self._pending.qsize(),
+            "admissions": self._admissions,
+            "chunks_dispatched": self._chunks_dispatched,
+            "tokens_emitted": self._tokens_emitted,
+            "requests_completed": self._requests_completed,
+            "ring_lag": self._ring_seq - self._retired_seq,
+            "pool_orphan_blocks": pool_orphan,
+            "max_class_burn": self.slo_stats.max_class_burn(),
+            "unexpected_compiles": None,
+            "spec_acceptance": (None if spec is None
+                                else spec["acceptance_rate"]),
+            "spec_rounds": None if spec is None else spec["rounds"],
+            "tier_spills": None if tier is None else tier["spills"],
+            "tier_restores": None if tier is None else tier["restores"],
+            "device_time_share": None,
+            "wasted_flop_share": None,
+        }
+
+    def _incident_evidence(self, detector: str, breach: dict) -> dict:
+        """The bundle a firing detector records: the flight-recorder tail
+        and the scheduler, SLO, paged-pool, tier, ring, lane and
+        speculation snapshots — host values only, so a bundle pins no
+        device memory of this engine in the store that outlives it.
+        ``goodput`` and ``compile`` are None (not ported)."""
+        return {
+            "flight_tail": self.flight.tail(EVIDENCE_FLIGHT_TAIL),
+            "scheduler": self.scheduler_snapshot(),
+            "goodput": None,
+            "slo": self.slo_stats.snapshot(),
+            "kv_paged": self._paged_snapshot(),
+            "kv_tier": self._tier_snapshot(),
+            "ring": self._ring_snapshot(),
+            "prefill_lane": self._prefill_lane_snapshot(),
+            "speculation": self._speculation_snapshot(),
+            "compile": None,
+        }
+
+    def _watchdog_tick(self) -> None:
+        """One detector evaluation per loop iteration (downsampled to the
+        history interval inside ``observe``); a fired incident is stamped
+        as an INCIDENT span on every traced request holding a slot."""
+        fired = self._watchdog.observe(
+            now_ns(), self._watchdog_signals(),
+            evidence_fn=self._incident_evidence)
+        for f in fired:
+            for s in self._slots + self._lane_slots:
+                req = s.req
+                if req is not None and req.trace is not None:
+                    req.trace.event(
+                        trace_mod.INCIDENT, detector=f["detector"],
+                        incident_id=f["id"])
+
+    def watchdog_snapshot(self) -> Optional[dict]:
+        """The watchdog block (detector episodes, history depth, store
+        counters); None with the watchdog off."""
+        return (None if self._watchdog is None
+                else self._watchdog.snapshot())
+
+    def watchdog_suppress(self, detector: str, on: bool = True) -> None:
+        """Gate one detector from outside (a no-op with the watchdog
+        off)."""
+        if self._watchdog is not None:
+            self._watchdog.suppress(detector, on)
+
+    def incident_snapshot(self) -> Optional[dict]:
+        """The incident store's ring and counters with the watchdog block
+        (``GET /v2/debug/incidents``); None with the watchdog off. The
+        store outlives this engine: a supervised restart hands it to the
+        fresh one."""
+        if self.incidents is None:
+            return None
+        snap = self.incidents.snapshot()
+        snap["watchdog"] = self.watchdog_snapshot()
+        return snap
+
+    def runtime_snapshot(self) -> dict:
+        """The runtime plane's block (``GET /v2/debug/runtime``): the
+        card-memory ledger of what this engine placed, by component, and
+        liveness. A paged engine's pool
+        row is split at read time into the live-stream, pinned-prefix and
+        free shares of the allocator's occupancy. There is no compile
+        table, and ``goodput`` is None (not ported)."""
+        mem = dict(self._mem_attr)
+        if self._paged and self._kv_index is not None and "kv_pool" in mem:
+            occ = self._kv_index.occupancy()
+            per_block = mem["kv_pool"] / max(1, self._kv_pool_blocks)
+            mem["kv_pool_live"] = int(per_block * occ["stream"])
+            mem["kv_pool_prefix"] = int(per_block * occ["prefix"])
+            mem["kv_pool_free"] = int(per_block * occ["free"])
+        return {"memory": mem, "engine_up": self.healthy(),
+                "goodput": None}
+
+    def debug_snapshot(self, flight_tail: int = 64) -> dict:
+        """Live engine introspection (``GET
+        /v2/debug/models/{name}/engine``): the slot tables, queue, pool,
+        speculation and supervision state and the flight-recorder tail.
+        Read while the engine thread runs: each slot's request is read
+        once, and the view is best effort, not a consistency point."""
+        slots = []
+        for i, slot in enumerate(self._slots):
+            req = slot.req
+            row = {"slot": i, "active": req is not None}
+            if req is not None:
+                row.update({
+                    "prompt_tokens": int(len(req.prompt)),
+                    "emitted": req.emitted,
+                    "budget": req.budget,
+                    "tenant": req.tenant,
+                    "slo_class": req.slo_class,
+                    "cursor": slot.cursor,
+                    "pos_hi": slot.pos_hi,
+                    "draft_ready": slot.draft_ready,
+                    "traced": req.trace is not None,
+                })
+            slots.append(row)
+        lane_slots = []
+        for i, slot in enumerate(self._lane_slots):
+            req = slot.req
+            row = {"slot": i, "active": req is not None}
+            if req is not None:
+                row.update({
+                    "prompt_tokens": int(len(req.prompt)),
+                    "tenant": req.tenant,
+                    "slo_class": req.slo_class,
+                    "cursor": slot.cursor,
+                    "ready": self._lane_done(slot, req)
+                    if "lane_buckets" in self._dev else False,
+                })
+            lane_slots.append(row)
+        return {
+            "name": self.name,
+            "engine_up": self.healthy(),
+            "supervision": (None if self.supervisor is None
+                            else self.supervisor.snapshot()),
+            "failure": (None if self._failed is None else str(self._failed)),
+            "n_slots": self._n_slots,
+            "chunk": self._chunk,
+            "queue_depth": self._pending.qsize(),
+            "tokens_emitted": self._tokens_emitted,
+            "requests_completed": self._requests_completed,
+            "dispatch_duty": self._duty,
+            "phase_seconds": {k: round(v, 6)
+                              for k, v in self._phase_s.items()},
+            "ring": self._ring_snapshot(),
+            "prefill_lane": self._prefill_lane_snapshot(),
+            "kv_paged": self._paged_snapshot(),
+            "kv_tier": self._tier_snapshot(),
+            "scheduler": self.scheduler_snapshot(),
+            "slots": slots,
+            "lane_slots": lane_slots if self._lane_on else None,
+            "slo": self.slo_stats.snapshot(),
+            "prefix_cache": (None if self._prefix_index is None
+                             else self._prefix_index.snapshot()),
+            "speculation": self._speculation_snapshot(),
+            "runtime": self.runtime_snapshot(),
+            "watchdog": self.watchdog_snapshot(),
+            "flight_recorder": self.flight.tail(flight_tail),
+        }
+
     def generation_snapshot(self) -> dict:
         """The token-level counters with the live gauges the
-        ``client_tpu_generation_*``, ``client_tpu_slo_*`` and
-        ``client_tpu_sched_*`` families export (``server/metrics.py``).
-        ``goodput``, ``watchdog`` and ``supervisor`` are None until their
-        planes are ported (ROADMAP A13b, A13c): the collector then
-        registers none of their families."""
+        ``client_tpu_generation_*``, ``client_tpu_slo_*``,
+        ``client_tpu_sched_*`` and ``client_tpu_watchdog_*`` families and
+        the supervision pair export (``server/metrics.py``); the
+        ``supervisor`` block is None on an unsupervised engine and the
+        ``watchdog`` block None with the watchdog off. ``goodput`` is None
+        until its plane is ported (ROADMAP A13c): the collector then
+        registers none of its families."""
         snap = self.gen_stats.snapshot()
         snap.update({
             "slo": self.slo_stats.snapshot(),
             "engine_up": self.healthy(),
-            "supervisor": None,
+            "supervisor": (None if self.supervisor is None
+                           else self.supervisor.snapshot()),
             "n_slots": self._n_slots,
             "slots_active": self.active_slots(),
             "queue_depth": self._pending.qsize(),
@@ -1321,7 +1565,7 @@ class ContinuousBatchingEngine:
                              else self._prefix_index.snapshot()),
             "speculation": self._speculation_snapshot(),
             "goodput": None,
-            "watchdog": None,
+            "watchdog": self.watchdog_snapshot(),
         })
         return snap
 
@@ -1550,8 +1794,17 @@ class ContinuousBatchingEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             if self._thread.is_alive():
-                log.error("generation engine '%s' thread did not exit "
-                          "within 30s of stop()", self.name)
+                # a wedged thread leaks its device state, slots and pins:
+                # report it with the flight tail, which shows where it
+                # wedged
+                tail = self.flight.tail(16)
+                log.error(
+                    "generation engine '%s' thread did not exit within "
+                    "30s of stop(); its device state (%d slots, chunk "
+                    "%d) is leaked. Flight recorder tail (%d "
+                    "iteration(s), newest last): %s",
+                    self.name, self._n_slots, self._chunk, len(tail),
+                    json.dumps(tail, default=str))
 
     def drain(self, timeout: float = 60.0) -> bool:
         """Stop admitting (a later submit gets a 503) and wait until every
@@ -1765,22 +2018,45 @@ class ContinuousBatchingEngine:
         if shed:
             self.gen_stats.record_failure()
             self.slo_stats.record_shed(tenant, slo_class)
-            if self._failed is not None:
+            sup = self.supervisor
+            if sup is not None and self._failed is not None:
+                if sup.crash_looped:
+                    # no restart is coming: no Retry-After, or retrying
+                    # clients would spend their budget on a dead model
+                    raise ServerError(
+                        "generation engine is down (crash-loop breaker "
+                        "tripped); unavailable until an operator "
+                        "reload", 503)
+                # mid-restart: the backoff tells the client when the
+                # fresh engine is due
                 raise ServerError(
-                    "generation engine is down (engine failure); "
-                    "unavailable until a reload", 503)
+                    "generation engine is restarting", 503,
+                    retry_after=sup.retry_after_hint())
+            if self._failed is not None:
+                # unsupervised: dead until an operator reload, no hint
+                raise ServerError(
+                    "generation engine is down (engine failure, no "
+                    "supervisor); unavailable until an operator "
+                    "reload", 503)
+            # plain drain or stop: a reload stages a fresh engine
             raise ServerError("generation engine is shutting down", 503,
                               retry_after=1.0)
         self.start()
-        if self._shed_on_full:
+        forced_full = faultinject.fire("queue_full",
+                                       engine=self.name) is not None
+        if self._shed_on_full or forced_full:
             try:
+                if forced_full:
+                    raise queue.Full
                 self._pending.put_nowait(req, key)
             except queue.Full:
                 # under a scheduler a full queue first sheds the newest
                 # queued entry of a strictly lower-weight flow, and this
-                # request takes its place; the FIFO door sheds the arrival
+                # request takes its place; the FIFO door sheds the arrival,
+                # as does an injected queue_full
                 victim = (self._pending.shed_lowest(key)
-                          if self._sched is not None else None)
+                          if self._sched is not None and not forced_full
+                          else None)
                 if victim is not None:
                     self._shed_queued(victim)
                     try:
@@ -1911,6 +2187,26 @@ class ContinuousBatchingEngine:
                                zi, zf, sample)
         if self._host_tier_bytes:
             self._attach_tier()
+        # the memory ledger: the big device residents this engine placed,
+        # by component (the reference's rows; a paged engine has no slot
+        # rows, its pool is the one KV residence)
+        self._mem_attr = {"weights": pytree_nbytes(self._dev["params"])}
+        if self._paged:
+            self._mem_attr["kv_pool"] = pytree_nbytes(self._dev["pool"])
+        else:
+            self._mem_attr["kv_slots"] = pytree_nbytes(
+                (self._dev["cache"], self._dev["pos"]))
+            if self._prefix_index is not None:
+                self._mem_attr["kv_pool"] = pytree_nbytes(
+                    self._dev["prefix_pool"])
+            if self._lane_on:
+                self._mem_attr["kv_lane_slots"] = pytree_nbytes(
+                    (self._dev["lane_cache"], self._dev["lane_pos"]))
+        if self._spec is not None:
+            self._mem_attr["draft_weights"] = pytree_nbytes(
+                self._dev["dparams"])
+            self._mem_attr["draft_kv"] = pytree_nbytes(
+                (self._dev["dcache"], self._dev["dpos"]))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self._dev["ready"] = True
@@ -2359,6 +2655,7 @@ class ContinuousBatchingEngine:
             req.parked = False
             req.park_bypasses = 0
             self._pending.unpark()
+        self._admissions += 1
         admit_ns = now_ns()
         req.queue_wait_ns = max(0, admit_ns - req.enqueue_ns)
         self.gen_stats.record_queue_wait(
@@ -3090,6 +3387,8 @@ class ContinuousBatchingEngine:
         distinct rung over the speculating slots, behind the chunk on the
         stream. Returns the ring entries dispatched (none when every
         occupied slot rides a lane)."""
+        # fault point: a slow or wedged kernel in front of the dispatch
+        faultinject.fire("kernel_delay", engine=self.name)
         if self._chunked_prefill:
             # with a dedicated lane the prompts ingest in its own slots
             # (handed off at the next admission pass)
@@ -3102,6 +3401,7 @@ class ContinuousBatchingEngine:
         modes, rungs = self._slot_modes()
         any_chunk = "chunk" in modes
         spec_rungs = sorted({r for m, r in zip(modes, rungs) if m == "spec"})
+        self._rungs_last = spec_rungs
         tables = None
         if self._paged and (any_chunk or spec_rungs):
             tables = self._prepare_paged_round(modes, rungs)
@@ -3337,6 +3637,9 @@ class ContinuousBatchingEngine:
         burst, which must not feed the chunk-time EWMA."""
         copies, entries = fetch
         t0 = time.perf_counter()
+        # fault point: where a deferred device error surfaces, at the
+        # blocking collect of the ring's D2H copy
+        faultinject.fire_or_raise("ring_fetch", engine=self.name)
         host = finish_host_copies(copies)
         self._phase_s["retire_fetch"] += time.perf_counter() - t0
         t1 = time.perf_counter()
@@ -3460,9 +3763,64 @@ class ContinuousBatchingEngine:
             slot.draft_ready = False
             self._free_slot_paged(slot, req, commit=False)
 
+    def _record_flight(self, dispatched: bool, occ_active: int,
+                       slot_tenants: dict) -> None:
+        """One flight-recorder entry per loop iteration, with the
+        reference's keys, from host counters only (no tensor is read):
+        the context a crash takes with it. ``slot_tenants`` is this
+        iteration's per-(tenant, slo_class) slot occupancy; the goodput
+        shares are None (not ported)."""
+        spec = self._spec
+        self.flight.record(
+            ns=now_ns(),
+            phase="dispatch" if dispatched else "drain",
+            slots_active=occ_active,
+            device_time_share=None,
+            wasted_flop_share=None,
+            slot_tenants=slot_tenants,
+            queue_depth=self._pending.qsize(),
+            tokens_emitted=self._tokens_emitted,
+            ring_lag=self._ring_seq - self._retired_seq,
+            chunks_dispatched=self._chunks_dispatched,
+            prefill_backlog=(self._prefill_backlog()
+                             if self._chunked_prefill else None),
+            lane=(None if not self._lane_on else {
+                "active": self.active_lane_slots(),
+                "handoffs": self._lane_handoffs,
+                "batch": (None if not self._lane_batch else {
+                    "dispatches": self.gen_stats.lane_batch_dispatches,
+                    "slots": self.gen_stats.lane_batch_slots,
+                }),
+            }),
+            requests_completed=self._requests_completed,
+            spec_acceptance=(
+                None if spec is None
+                else round(spec.snapshot()["acceptance_rate"], 4)),
+            spec_rungs=None if spec is None else list(self._rungs_last),
+            spec_gamma=None if spec is None else self._gamma_ceiling,
+            pool_blocks_used=(
+                None if self._kv_index is None
+                else self._kv_index.snapshot()["blocks_used"]),
+            sched=(None if self._sched is None else {
+                "mode": ("throughput" if self._controller is None
+                         else ("latency" if self._controller.latency_mode
+                               else "throughput")),
+                "preemptions": self._sched_stats.preemptions_total,
+                "parked": self._pending.parked,
+                "fetch_stride": self._stride,
+                "prefill_budget": self._prefill_budget,
+                "spec_enabled": self.speculation_enabled,
+                "spec_gamma": self.speculation_gamma,
+            }))
+
     def _run(self) -> None:
-        """Engine thread entry: any failure fails every queued and
-        in-flight request (this thread is their only producer)."""
+        """Engine thread entry: any failure (the build, a dispatch, a
+        deferred device error at the ring fetch, an injected fault) fails
+        every queued and in-flight request, since this thread is their
+        only producer. The BaseException catch is deliberate and
+        allowlisted by name in the reference's failure-path lint: even a
+        SystemExit raised into this thread answers the waiters before it
+        propagates."""
         try:
             # inference mode and the current device are thread-local
             with torch.inference_mode():
@@ -3494,6 +3852,10 @@ class ContinuousBatchingEngine:
                         ServerError("generation engine stopped", 503))
                     self._held = None
                 break
+            # fault point: an armed engine_loop fault kills this thread
+            # here, as a device or host fault between dispatches would
+            faultinject.fire_or_raise("engine_loop", engine=self.name,
+                                      iteration=self._chunks_dispatched)
             # the closed loop, once per round (host code only): the
             # controller steers the live knobs from the burn, and a
             # burning higher-weight head may take a running slot
@@ -3512,8 +3874,13 @@ class ContinuousBatchingEngine:
                     time.sleep(0.001)
                     continue
                 # idle: block until a request (or the stop sentinel); the
-                # idle gap must not enter the chunk-time EWMA
+                # idle gap must not enter the chunk-time EWMA, nor read as
+                # a stall: one forced slots-idle watchdog sample starts
+                # the next request's wall-gap pair from an idle sample
                 self._last_drain = None
+                if self._watchdog is not None:
+                    self._watchdog.mark_idle(now_ns(),
+                                             self._watchdog_signals())
                 self._held = self._pending.get()
                 if self._held is None:
                     break
@@ -3551,7 +3918,18 @@ class ContinuousBatchingEngine:
                 first = False
                 fetches.popleft()
                 active_now = any(s.req is not None for s in self._slots)
-            occ_active = self.active_slots()
+            occ_active = 0
+            slot_tenants: dict = {}
+            for s in self._slots:
+                req = s.req
+                if req is None:
+                    continue
+                occ_active += 1
+                key = f"{req.tenant}/{req.slo_class}"
+                slot_tenants[key] = slot_tenants.get(key, 0) + 1
+            self._record_flight(dispatched, occ_active, slot_tenants)
+            if self._watchdog is not None:
+                self._watchdog_tick()
             duty = self._duty
             if dispatched and duty < 1.0:
                 # pacing: a round's wall time tracks its device cost (the
@@ -3578,22 +3956,52 @@ class ContinuousBatchingEngine:
         """Deliver a terminal to every request still held, in a decode or
         lane slot, in an undelivered ring entry or queued; marks the
         engine dead first so no later submit can enqueue a request nothing
-        will consume."""
+        will consume. An expected stop (a 503) logs at DEBUG; anything
+        else is a death: logged at ERROR with the flight recorder's dump,
+        recorded as an ``engine_death`` incident, and, under an
+        ``EngineSupervisor``, answered with a retryable 503 carrying the
+        next backoff as ``Retry-After`` (or a 503 with no hint when this
+        death trips the crash-loop breaker) before the supervisor is
+        notified, last. A traced request gets an ENGINE_RESTART span. The
+        dead engine drops its device state: nothing runs on it again, and
+        the supervisor's rebuild must not sit beside it on the card."""
         self._stopping = True
         expected = isinstance(err, ServerError) and err.status == 503
+        sup = self.supervisor
+        terminal: BaseException = err
         if not expected:
+            # liveness flips before any waiter is answered: a client
+            # retrying the instant its stream fails sees not-ready
             self._failed = err
-        failed = 0
+            if sup is not None and sup.would_restart():
+                terminal = ServerError(
+                    f"generation engine failed and is restarting "
+                    f"({err}); retry after the backoff", 503,
+                    retry_after=sup.retry_after_hint())
+            elif sup is not None:
+                terminal = ServerError(
+                    f"generation engine failed ({err}); crash-loop "
+                    f"breaker tripped — not restarting, the model "
+                    f"stays unavailable until an operator reload", 503)
+
+        def close(req) -> int:
+            if req is None or req.finished:
+                return 0
+            if not expected and req.trace is not None:
+                hint = getattr(terminal, "retry_after", None)
+                req.trace.event(
+                    trace_mod.ENGINE_RESTART, failure=str(err),
+                    retryable=sup is not None and hint is not None,
+                    retry_after_s=hint)
+            self._close_request(req, terminal)
+            return 1
+
         held, self._held = self._held, None
-        if held is not None and not held.finished:
-            self._close_request(held, err)
-            failed += 1
+        failed = close(held)
         # lane slots hold requests mid-ingestion: they fail like decode
         # slots' requests
         for slot in self._slots + self._lane_slots:
-            if slot.req is not None and not slot.req.finished:
-                self._close_request(slot.req, err)
-                failed += 1
+            failed += close(slot.req)
             # pins were released as each request closed; failed streams
             # commit nothing
             self._free_slot_paged(slot, slot.req, commit=False)
@@ -3607,25 +4015,48 @@ class ContinuousBatchingEngine:
         for kind, _seq, meta, _timing, _rung in inflight:
             for item in meta:
                 # a chunk's meta holds (req, k), a verify round's req
-                req = item[0] if kind == "chunk" else item
-                if req is not None and not req.finished:
-                    self._close_request(req, err)
-                    failed += 1
+                failed += close(item[0] if kind == "chunk" else item)
         while True:
             try:
                 req = self._pending.get_nowait()
             except queue.Empty:
                 break
-            if not req.finished:
-                self._close_request(req, err)
-                failed += 1
+            failed += close(req)
         if expected:
             log.debug("generation engine '%s' stopped; closed %d "
                       "request(s)", self.name, failed)
-        else:
-            log.error("generation engine '%s' loop failed (%d request(s) "
-                      "answered with the error): %s", self.name, failed, err,
-                      exc_info=err if isinstance(err, Exception) else None)
+            return
+        # a death: free the device state (the supervisor's rebuild places
+        # its own), then log the failure and the flight dump
+        self._dev.clear()
+        log.error(
+            "generation engine '%s' loop failed (%d slots, chunk %d, %d "
+            "request(s) answered with %s): %s", self.name, self._n_slots,
+            self._chunk, failed,
+            "retryable 503s" if sup is not None else "errors", err,
+            exc_info=err if isinstance(err, Exception) else None)
+        dump = self.flight.dump()
+        log.error(
+            "generation engine '%s' flight recorder (%d iteration(s), "
+            "newest last): %s", self.name, len(dump),
+            json.dumps(dump, default=str))
+        # the death bundle lands in the store the next engine shares, so
+        # it stays readable after a supervised restart; capture is best
+        # effort and must not mask the failure
+        if self._watchdog is not None:
+            try:
+                self._watchdog.record_death(
+                    err, ns=now_ns(),
+                    evidence=self._incident_evidence(
+                        "engine_death", {"error": str(err)}))
+            except Exception:  # noqa: BLE001 — see above
+                log.exception(
+                    "generation engine '%s': death-incident capture "
+                    "failed (flight dump already logged)", self.name)
+        if sup is not None:
+            # last: the supervisor may swap in a fresh engine the moment
+            # this returns, and every waiter above is answered
+            sup.notify_failure(self, err)
 
 
 def _to_device(tree, device):

@@ -16,10 +16,9 @@ The port's differences from the reference:
 - ``RepositoryIndex``, ``RepositoryModelLoad`` and
   ``RepositoryModelUnload`` answer UNIMPLEMENTED naming their ROADMAP
   item, as the HTTP front end answers those routes with 404.
-- Left out until the runtime planes (ROADMAP A13b, A13c) are ported: the
-  fault injector's transport reset before ``ModelInfer`` and the debug
-  trailers of ``ServerMetadata``. TLS is left out as the port's HTTP front
-  end leaves it out.
+- Left out until the goodput and timeline plane (ROADMAP A13c) is
+  ported: the ``client-tpu-debug-traces`` trailer of ``ServerMetadata``.
+  TLS is left out as the port's HTTP front end leaves it out.
 
 As in the reference: ``TraceSetting`` reads and updates the trace
 settings; a request's ``triton_trace_id`` parameter propagates the
@@ -27,7 +26,12 @@ caller's trace id, and a traced request's id comes back as the
 ``triton-trace-id`` trailer of ``ModelInfer`` and as the
 ``triton_trace_id`` parameter of every ``ModelStreamInfer`` response; a
 ``ServerMetadata`` call with the ``client-tpu-metrics: request`` key gets
-the Prometheus text back in the ``client-tpu-metrics-bin`` trailer.
+the Prometheus text back in the ``client-tpu-metrics-bin`` trailer, and,
+on a server built with ``debug_endpoints=True``, one with the
+``client-tpu-debug-incidents`` key gets the incident JSON in the
+``client-tpu-debug-incidents-bin`` trailer (absent without the flag, the
+twin of the HTTP 404). An armed ``transport_reset`` fault aborts
+``ModelInfer`` with UNAVAILABLE before it is served.
 
 Importing this module imports ``grpc`` and ``google.protobuf``; nothing on
 the card's serving path imports it.
@@ -35,6 +39,7 @@ the card's serving path imports it.
 
 from __future__ import annotations
 
+import json
 import queue
 import threading
 from concurrent import futures
@@ -55,6 +60,7 @@ from client_tpu_torch.protocol.grpc_tensors import (
     raw_to_numpy,
     set_param,
 )
+from client_tpu_torch.server import faultinject
 from client_tpu_torch.server.core import TorchInferenceServer
 from client_tpu_torch.server.types import (
     DEFAULT_SLO_CLASS,
@@ -186,8 +192,10 @@ def response_to_proto(resp) -> pb.ModelInferResponse:
 
 
 class _Handlers:
-    def __init__(self, core: TorchInferenceServer):
+    def __init__(self, core: TorchInferenceServer,
+                 debug_endpoints: bool = False):
         self.core = core
+        self.debug_endpoints = debug_endpoints
 
     def _abort(self, context, e: ServerError):
         code = _STATUS_OF.get(e.status, grpc.StatusCode.INTERNAL)
@@ -214,13 +222,24 @@ class _Handlers:
         # key gets the Prometheus text in trailing metadata (the gRPC twin
         # of GET /metrics)
         inv = dict(context.invocation_metadata() or ())
+        trailers = []
         if inv.get("client-tpu-metrics") == "request":
             try:
-                context.set_trailing_metadata((
-                    ("client-tpu-metrics-bin",
-                     self.core.metrics_text().encode()),))
+                trailers.append(("client-tpu-metrics-bin",
+                                 self.core.metrics_text().encode()))
             except Exception:  # noqa: BLE001 — metrics are best-effort
                 pass
+        # the incidents mirror (GET /v2/debug/incidents), only on a server
+        # that opted into the debug surface
+        if "client-tpu-debug-incidents" in inv and self.debug_endpoints:
+            try:
+                trailers.append((
+                    "client-tpu-debug-incidents-bin",
+                    json.dumps(self.core.debug_incidents()).encode()))
+            except Exception:  # noqa: BLE001 — debug is best-effort
+                pass
+        if trailers:
+            context.set_trailing_metadata(tuple(trailers))
         return pb.ServerMetadataResponse(name=md["name"],
                                          version=md["version"],
                                          extensions=md["extensions"])
@@ -369,6 +388,13 @@ class _Handlers:
         return out
 
     def ModelInfer(self, req, context):
+        if faultinject.fire("transport_reset",
+                            transport="grpc") is not None:
+            # fault point: abort before serving, the RPC-level fault a
+            # client's retry policy handles as UNAVAILABLE
+            context.set_trailing_metadata((("retry-after", "1"),))
+            context.abort(grpc.StatusCode.UNAVAILABLE,
+                          "injected transport reset")
         try:
             internal = request_to_internal(req)
             resp = self.core.infer(internal)
@@ -481,7 +507,8 @@ class GrpcInferenceServer:
     # one worker for its whole lifetime, so the pool must exceed the
     # expected stream count or the unary RPCs (health, statistics) starve
     def __init__(self, core: TorchInferenceServer, host: str = "127.0.0.1",
-                 port: int = 8001, max_workers: int = 48):
+                 port: int = 8001, max_workers: int = 48,
+                 debug_endpoints: bool = False):
         self.core = core
         self._server = grpc.server(
             futures.ThreadPoolExecutor(max_workers=max_workers),
@@ -492,7 +519,7 @@ class GrpcInferenceServer:
                 ("grpc.http2.min_ping_interval_without_data_ms", 100),
                 ("grpc.http2.max_ping_strikes", 0),
             ])
-        handlers = _Handlers(core)
+        handlers = _Handlers(core, debug_endpoints=debug_endpoints)
         method_handlers = {}
         for name, (kind, req_cls, resp_cls) in METHODS.items():
             fn = (_unported(name, _UNPORTED_RPCS[name])

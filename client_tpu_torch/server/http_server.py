@@ -14,8 +14,15 @@ and ``/v2/cudasharedmemory`` (status, register, unregister).
 ``/v2/cudasharedmemory``, as the reference answers the CUDA verbs. An
 infer request's ``triton-trace-id`` header propagates the caller's trace
 id, and a traced request's id comes back in the same header.
-``access_log=True`` logs one structured INFO record per request. The
-repository and debug routes wait for later slices and answer 404.
+``access_log=True`` logs one structured INFO record per request.
+``debug_endpoints=True`` opts into the debug surface: GET
+``/v2/debug/runtime``, ``/v2/debug/models/{name}[/versions/{v}]/engine``,
+``/v2/debug/slo``, ``/v2/debug/scheduler``, ``/v2/debug/incidents``, GET
+and POST ``/v2/debug/faults`` and POST ``/v2/debug/profile``; with the
+flag off they answer 404 like any unknown path. An armed
+``transport_reset`` fault drops the connection before any response byte.
+The repository routes and the fleet, timeline and traces views wait for
+later slices and answer 404.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from client_tpu_torch.protocol.rest import (
     tensor_from_json,
     tensor_json_and_blob,
 )
+from client_tpu_torch.server import faultinject
 from client_tpu_torch.server.core import TorchInferenceServer
 from client_tpu_torch.server.types import (
     DEFAULT_SLO_CLASS,
@@ -147,6 +155,12 @@ class _Handler(BaseHTTPRequestHandler):
         self._status = 0
         try:
             self._consume_body()
+            # fault point: an armed transport_reset drops the connection
+            # before any response byte (the client sees a reset)
+            if faultinject.fire("transport_reset",
+                                transport="http") is not None:
+                self.close_connection = True
+                return
             for m, rx, fn in _ROUTES:
                 if m != method:
                     continue
@@ -215,6 +229,60 @@ class _Handler(BaseHTTPRequestHandler):
     def metrics(self):
         self._send(200, self.core.metrics_text().encode(),
                    content_type="text/plain; version=0.0.4; charset=utf-8")
+
+    # ---- debug introspection (opt-in: HttpInferenceServer(
+    #      debug_endpoints=True) / --debug-endpoints) ----
+
+    def _require_debug(self) -> None:
+        if not self.server.debug_endpoints:  # type: ignore[attr-defined]
+            # 404, not 403: with the flag off this surface does not exist
+            raise ServerError(
+                f"no handler for {self.command} {self.path}", 404)
+
+    @route("GET", r"/v2/debug/runtime")
+    def debug_runtime(self):
+        self._require_debug()
+        self._send_json(200, self.core.debug_runtime())
+
+    @route("GET", r"/v2/debug/models/(?P<name>[^/]+)(/versions/(?P<version>[^/]+))?/engine")
+    def debug_engine(self, name, version=None):
+        self._require_debug()
+        self._send_json(200, self.core.debug_engine(name, version or ""))
+
+    @route("GET", r"/v2/debug/slo")
+    def debug_slo(self):
+        self._require_debug()
+        self._send_json(200, self.core.debug_slo())
+
+    @route("GET", r"/v2/debug/scheduler")
+    def debug_scheduler(self):
+        self._require_debug()
+        self._send_json(200, self.core.debug_scheduler())
+
+    @route("GET", r"/v2/debug/incidents")
+    def debug_incidents(self):
+        self._require_debug()
+        self._send_json(200, self.core.debug_incidents())
+
+    @route("GET", r"/v2/debug/faults")
+    def debug_faults_get(self):
+        self._require_debug()
+        self._send_json(200, self.core.debug_faults())
+
+    @route("POST", r"/v2/debug/faults")
+    def debug_faults_post(self):
+        # gated like the rest of /v2/debug/*: a production server exposes
+        # no crash button
+        self._require_debug()
+        body = json.loads(self._body or b"{}")
+        self._send_json(200, self.core.debug_faults_update(body))
+
+    @route("POST", r"/v2/debug/profile")
+    def debug_profile(self):
+        self._require_debug()
+        body = json.loads(self._body or b"{}")
+        self._send_json(200, self.core.debug_profile(
+            body.get("log_dir", ""), float(body.get("duration_s", 1.0))))
 
     # ---- trace ----
 
@@ -388,7 +456,9 @@ class HttpInferenceServer:
 
     def __init__(self, core: TorchInferenceServer, host: str = "127.0.0.1",
                  port: int = 8000, verbose: bool = False,
-                 access_log: bool = False):
+                 access_log: bool = False, debug_endpoints: bool = False):
+        """``debug_endpoints`` opts into the ``/v2/debug/*`` routes; with
+        the flag off they answer 404 like any unknown path."""
         self.core = core
 
         # a burst of concurrent clients opens its connections at once;
@@ -401,6 +471,7 @@ class HttpInferenceServer:
         self._httpd.core = core  # type: ignore[attr-defined]
         self._httpd.verbose = verbose  # type: ignore[attr-defined]
         self._httpd.access_log = access_log  # type: ignore[attr-defined]
+        self._httpd.debug_endpoints = debug_endpoints  # type: ignore[attr-defined]
         self.host, self.port = self._httpd.server_address[:2]
         self._thread = None
 

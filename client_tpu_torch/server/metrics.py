@@ -3,11 +3,15 @@
 The port's own copy of ``client_tpu/server/metrics.py`` (framework-free
 there; the port imports nothing of the reference package), with the same
 naming contract, families, labels and help text. The reference's
-goodput, watchdog, runtime (compile and device memory), fleet and
-autoscale collectors are not here: their planes are not ported yet
-(ROADMAP A13b, A13c, A12), so their families are absent, not zero. The
-shared-memory gauges label the device plane ``kind="cuda"`` where the
-reference says ``"tpu"``.
+goodput, fleet and autoscale collectors are not here: their planes are
+not ported yet (ROADMAP A13c, A12), so their families are absent, not
+zero. Nor are the runtime families (``client_tpu_runtime_*``): the
+naming contract makes that namespace all or nothing — any of its
+families requires the whole compile set beside the memory gauges — and
+the port, which runs eagerly, has no compile set yet; the memory ledger
+is served at ``GET /v2/debug/runtime`` instead. The shared-memory gauges
+label the device plane ``kind="cuda"`` where the reference says
+``"tpu"``.
 
 Mirrors Triton's metrics extension (``GET /metrics`` in the Prometheus
 text format 0.0.4): per-model inference counters and duration counters
@@ -394,6 +398,10 @@ def collect_server_metrics(core) -> MetricsRegistry:
                          if s.get("scheduler") is not None]
         if sched_entries:
             _collect_sched(reg, sched_entries)
+        wd_entries = [(n, v, s["watchdog"]) for n, v, s in gen_entries
+                      if s.get("watchdog") is not None]
+        if wd_entries:
+            _collect_watchdog(reg, wd_entries)
 
     cache = core.cache.stats()
     reg.counter("client_tpu_cache_hits_total",
@@ -479,6 +487,23 @@ def _collect_generation(reg: MetricsRegistry, gen_entries: list) -> None:
         "1 while the model's generation-engine thread is healthy; 0 "
         "after it died on an unexpected error (model readiness flips "
         "with it)", ml)
+    # supervision families: present only for engines running under an
+    # EngineSupervisor (advertise only what can move)
+    sv_entries = [(n, v, s) for n, v, s in gen_entries
+                  if s.get("supervisor") is not None]
+    sv = {}
+    if sv_entries:
+        sv["restarts"] = reg.counter(
+            "client_tpu_engine_restarts_total",
+            "Supervised engine rebuilds completed after an engine-"
+            "thread death (each one rebuilt the engine's device state)",
+            ml)
+        sv["crash_looped"] = reg.gauge(
+            "client_tpu_engine_crash_looped",
+            "1 once the crash-loop breaker tripped (max_failures "
+            "engine deaths within window_s): the supervisor gave up "
+            "and the model stays not-ready until an operator reload",
+            ml)
     slots = reg.gauge("client_tpu_generation_slots",
                       "Configured engine slot-pool size", ml)
     active = reg.gauge("client_tpu_generation_active_slots",
@@ -716,6 +741,11 @@ def _collect_generation(reg: MetricsRegistry, gen_entries: list) -> None:
         cancelled.labels(name, version).set(snap.get("cancelled", 0))
         deadline.labels(name, version).set(
             snap.get("deadline_expired", 0))
+        sup = snap.get("supervisor")
+        if sup is not None:
+            sv["restarts"].labels(name, version).set(sup["restarts"])
+            sv["crash_looped"].labels(name, version).set(
+                1 if sup["crash_looped"] else 0)
         chunks.labels(name, version).set(snap["chunks_dispatched"])
         busy.labels(name, version).set(snap["slot_busy_ns"] / 1e9)
         for ph, secs in snap["phase_seconds"].items():
@@ -977,6 +1007,58 @@ def _collect_sched(reg: MetricsRegistry, sched_entries: list) -> None:
         knob_spec.labels(name, version).set(
             1 if knobs.get("speculation_enabled", True) else 0)
 
+
+
+def _collect_watchdog(reg: MetricsRegistry, wd_entries: list) -> None:
+    """Watchdog / incident-plane families (``client_tpu_watchdog_*``),
+    registered only when at least one engine runs the watchdog
+    (server/watchdog.py) — an engine built with ``watchdog=False`` must
+    not advertise incident counters that can never move.
+
+    Source: the ``watchdog`` block of the generation snapshot. Every
+    detector row is seeded at zero, so "no incidents yet" differs from
+    "watchdog off" on the scrape side. The per-detector counts come from
+    the incident store, which outlives supervised engine restarts, so the
+    counter stays monotone across a crash."""
+    from client_tpu_torch.server.watchdog import DETECTORS, INCIDENT_KINDS
+
+    ml = ("model", "version")
+    dl = ml + ("detector",)
+    samples = reg.counter(
+        "client_tpu_watchdog_samples_total",
+        "Watchdog detector evaluations (accepted metric-history "
+        "samples) across the model's engines", ml)
+    incidents = reg.counter(
+        "client_tpu_watchdog_incidents_total",
+        "Incident bundles recorded per detector (anomaly detectors "
+        "plus the promoted engine_death bundle); counts live on the "
+        "restart-surviving incident store", dl)
+    active = reg.gauge(
+        "client_tpu_watchdog_detector_active",
+        "1 while the detector's episode is open (it fired and has "
+        "not yet seen enough consecutive healthy samples to clear)",
+        dl)
+    depth = reg.gauge(
+        "client_tpu_watchdog_incident_ring_depth",
+        "Incident bundles resident in the bounded in-process ring "
+        "(capacity-bounded; evictions count as drops)", ml)
+    dropped = reg.counter(
+        "client_tpu_watchdog_incidents_dropped_total",
+        "Incident bundles evicted from the full in-process ring "
+        "(still in the spill file when one is configured)", ml)
+    for name, version, wd in wd_entries:
+        samples.labels(name, version).set(wd.get("samples", 0))
+        store = wd.get("store") or {}
+        counts = store.get("counts") or {}
+        for det in INCIDENT_KINDS:
+            incidents.labels(name, version, det).set(counts.get(det, 0))
+        dets = wd.get("detectors") or {}
+        for det in DETECTORS:
+            st = dets.get(det) or {}
+            active.labels(name, version, det).set(
+                1 if st.get("active") else 0)
+        depth.labels(name, version).set(store.get("depth", 0))
+        dropped.labels(name, version).set(store.get("dropped_total", 0))
 
 
 def render_server_metrics(core) -> str:

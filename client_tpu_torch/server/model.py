@@ -12,6 +12,8 @@ come back through pinned host memory guarded by a CUDA event, or, on the
 shm-output path (``execute_parts_fused_split``), stay on the device as
 per-row views. PyTorch runs eagerly, so there is no jit and no sealed
 compile set; the reference's CompileWatch waits for a later slice.
+``runtime_observability`` gives the memory half of the reference's
+runtime block: the weights' bytes.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from client_tpu_torch.device import resolve_device
 from client_tpu_torch.protocol.dtypes import wire_to_np_dtype
 from client_tpu_torch.server.config import ModelConfig
+from client_tpu_torch.server.runtime_stats import pytree_nbytes
 from client_tpu_torch.server.types import DEFAULT_SLO_CLASS, DEFAULT_TENANT
 
 
@@ -212,6 +215,16 @@ class TorchModel(ServedModel):
         with self._load_lock:
             self._params = None
             self._loaded = False
+
+    def runtime_observability(self) -> dict:
+        """The runtime block (``GET /v2/debug/runtime``): the weights'
+        bytes, resident or not yet loaded, as the reference's
+        ``JaxModel`` reports them, without its compile table; no engine
+        thread (``engine_up`` None)."""
+        params = self._params if self._params is not None \
+            else self._params_host
+        return {"memory": {"weights": pytree_nbytes(params)},
+                "engine_up": None}
 
     def _snapshot(self):
         """The params to run with, loading first if needed (an unload()

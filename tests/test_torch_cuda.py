@@ -30,7 +30,9 @@ The CUDA shared-memory data plane: a zero-copy in-process read, output
 rows read back from the response callback of the pre-split path, and the
 cross-process attachment's device copy held until the seqno moves. The
 observability plane: a paged round scraped over HTTP with tracing off and
-on, the same tokens and K2 launches in both.
+on, the same tokens and K2 launches in both. Supervision: a supervised
+paged engine killed mid-stream and rebuilt on the card serves the same
+tokens through K2, and the dead engine's device state is freed.
 """
 
 import dataclasses
@@ -1101,3 +1103,63 @@ def test_traced_paged_round_scraped_over_http(card):
     for tr in runs[True][2]:
         names = [s[0] for s in tr.timestamps]
         assert names[0] == "REQUEST_START" and names[-1] == "REQUEST_END"
+
+
+def test_supervised_restart_on_the_card_frees_the_dead_engine(card):
+    """A small supervised paged generator (K2 on every chunk step) killed
+    by an ``engine_loop`` fault mid-stream: the stream gets a 503 with
+    ``Retry-After``, the supervisor rebuilds the engine on the card, the
+    same greedy stream comes back token for token with K2 at 2 x 4
+    launches per chunk dispatch on the rebuilt engine, and
+    ``memory_allocated`` comes back to one engine's state (the dead
+    engine's pool is freed, not held beside the new one)."""
+    import gc
+    import time
+
+    from client_tpu_torch.models.decoder_lm import make_continuous_generator
+    from client_tpu_torch.server import faultinject
+    from client_tpu_torch.server.types import ServerError
+
+    cfg, params = _lane_model()
+    model = make_continuous_generator(
+        "lm", cfg=cfg, params=params, n_slots=4, chunk_size=4,
+        kv_layout="paged", kv_block_len=8, kv_pool_blocks=2049,
+        device="cuda", supervision={"backoff_base_s": 0.05,
+                                    "max_failures": 5})
+    sup = model.engine_supervisor
+    prompt = np.arange(1, 20, dtype=np.int32)
+    inj = faultinject.get_injector()
+    try:
+        baseline = list(model.engine.submit(prompt, 30))
+        gc.collect()
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        pool = model.engine.runtime_snapshot()["memory"]["kv_pool"]
+        dead = model.engine
+        inj.arm([{"point": "engine_loop", "after": 2, "times": 1}])
+        with pytest.raises(ServerError) as ei:
+            list(dead.submit(prompt, 30))
+        inj.clear()
+        assert ei.value.status == 503 and ei.value.retry_after == 0.05
+        end = time.time() + 60
+        while not (sup.healthy() and sup.restarts == 1):
+            assert time.time() < end, "no restart"
+            time.sleep(0.01)
+        rebuilt = model.engine
+        # the rebuilt engine builds its state and warm chunks on its own
+        # thread as soon as it starts: count K2 once that is done
+        while "ready" not in rebuilt._dev:
+            assert time.time() < end, "the rebuilt engine never got ready"
+            time.sleep(0.01)
+        before, chunks0 = pa.launches, rebuilt.stats()["chunks_dispatched"]
+        assert list(rebuilt.submit(prompt, 30)) == baseline
+        chunks = rebuilt.stats()["chunks_dispatched"] - chunks0
+        assert chunks > 0 and pa.launches - before == 2 * 4 * chunks
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        assert dead._dev == {}
+        assert abs(after - live) < pool // 2, (live, after, pool)
+    finally:
+        inj.clear()
+        model.shutdown()

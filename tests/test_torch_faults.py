@@ -28,6 +28,11 @@ that sends both packages the same input (ROADMAP, section C):
 - C7: ``core.stop()`` stops a generator's engine and stages no fresh one,
   and a model whose ``unload`` raises keeps neither the other models nor
   the shared-memory cleanup from running.
+- The dead engine's gate (repaired with the supervision slice): a submit
+  to an engine whose thread died gets the reference's answer in each
+  state — restarting (503 with ``Retry-After``), crash-loop breaker
+  tripped (503, no hint), unsupervised (503, no hint, the reference's
+  text) — where the port had one message for all three.
 """
 
 import json
@@ -515,3 +520,79 @@ def test_c7_a_failing_unload_keeps_stop_going(model, tmp_path):
         assert core.system_shm.status() == []
     finally:
         shm.destroy_shared_memory_region(region)
+
+
+# ------------------------------------------------ the dead engine's gate
+
+GATES = {
+    # a restart is pending (a long backoff keeps the engine dead while the
+    # gate is asked): 503 with the next backoff as Retry-After
+    "restarting": {"supervision": {"backoff_base_s": 5.0,
+                                   "max_failures": 5}},
+    # this death trips the breaker: 503 with no hint
+    "breaker": {"supervision": {"backoff_base_s": 5.0, "max_failures": 1}},
+    # no supervisor: the raw terminal, then a 503 with no hint
+    "unsupervised": {},
+}
+
+
+def _answer(call) -> tuple:
+    try:
+        call()
+    except Exception as e:  # noqa: BLE001 — the answer is the datum
+        return (type(e).__name__, getattr(e, "status", None),
+                getattr(e, "retry_after", None), str(e))
+    return None
+
+
+@pytest.mark.parametrize("case", sorted(GATES))
+def test_a_dead_engine_answers_a_submit_like_the_reference(model, case):
+    """An engine killed by an ``engine_loop`` fault answers its in-flight
+    stream and then a new submit as the reference does, in each of the
+    three states: restarting (503 with ``Retry-After``), the crash-loop
+    breaker tripped (503, no hint) and unsupervised (the raw error, then
+    the reference's 503 with no hint). Each package's own fault injector
+    is armed for its run."""
+    from client_tpu.server import faultinject as jfi
+    from client_tpu_torch.server import faultinject as tfi
+
+    jcfg, jparams, tcfg, tparams = model
+    prompt = np.arange(1, 9, dtype=np.int32)
+    got = {}
+    for pkg, lm, fi, kw in (
+            ("ref", jlm, jfi, dict(cfg=jcfg, params=dict(jparams))),
+            ("port", tlm, tfi, dict(cfg=tcfg, params=tparams,
+                                    device="cpu"))):
+        gen = lm.make_continuous_generator("lm", n_slots=2, chunk_size=4,
+                                           **kw, **GATES[case])
+        try:
+            fi.get_injector().arm([{"point": "engine_loop", "after": 1,
+                                    "times": 1}])
+            dead = gen.engine
+            stream = _answer(lambda: list(dead.submit(prompt, 30)))
+            fi.get_injector().clear()
+            # the thread's last act notifies the supervisor: ask the gate
+            # once that happened
+            dead._thread.join(timeout=30)
+            gate = _answer(lambda: list(dead.submit(prompt, 4)))
+            got[pkg] = (stream, gate, gen.engine_healthy())
+        finally:
+            fi.get_injector().clear()
+            gen.shutdown()
+    assert got["port"] == got["ref"]
+    stream, gate, healthy = got["port"]
+    assert not healthy
+    if case == "restarting":
+        assert stream[:3] == ("ServerError", 503, 5.0)
+        assert gate == ("ServerError", 503, 5.0,
+                        "generation engine is restarting")
+    elif case == "breaker":
+        assert stream[:3] == ("ServerError", 503, None)
+        assert "crash-loop breaker" in stream[3]
+        assert gate[:3] == ("ServerError", 503, None)
+        assert "crash-loop breaker tripped" in gate[3]
+    else:
+        assert stream[0] == "InjectedFault"
+        assert gate == ("ServerError", 503, None,
+                        "generation engine is down (engine failure, no "
+                        "supervisor); unavailable until an operator reload")

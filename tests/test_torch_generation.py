@@ -197,10 +197,7 @@ def test_concurrent_submitters_stress(model):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("watchdog_thresholds", {"ring_lag": 4}, "A13"),
-    ("watchdog", True, "A13"), ("engine_devices", (0,), "A12"),
-    ("watchdog_interval_s", 0.5, "A13"), ("mesh", object(), "A12"),
-    ("incident_store", object(), "A13"),
+    ("engine_devices", (0,), "A12"), ("mesh", object(), "A12"),
     ("device_time_sample_every", 4, "A13")])
 def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                                         item):
@@ -213,6 +210,52 @@ def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                   **{knob: value})
     with pytest.raises(TypeError, match="unknown"):
         ContinuousBatchingEngine(tcfg, tparams, device="cpu", bogus=1)
+
+
+@pytest.mark.parametrize("knob", [
+    "watchdog_thresholds", "watchdog", "watchdog_interval_s",
+    "incident_store"])
+def test_ported_watchdog_knobs_build_engines(model, knob, tmp_path):
+    """The four watchdog knobs, no longer refused, build an engine and a
+    generator that serve a stream (the generator's store is its own, so
+    its ``incident_store`` case spills the store to ``incident_file``);
+    each knob lands where the reference puts it."""
+    from client_tpu_torch.server.watchdog import IncidentStore
+
+    _, _, tcfg, tparams = model
+    store = IncidentStore()
+    value = {"watchdog_thresholds": {"stall_wall_s": 9.0},
+             "watchdog": False, "watchdog_interval_s": 0.5,
+             "incident_store": store}[knob]
+    gen_kw = ({"incident_file": str(tmp_path / "inc.jsonl")}
+              if knob == "incident_store" else {knob: value})
+    eng = ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+                                   **{knob: value})
+    gen = make_continuous_generator(cfg=tcfg, params=tparams, device="cpu",
+                                    **gen_kw)
+    try:
+        toks = list(eng.submit(np.asarray([3, 17, 42], np.int32), 4))
+        gen_toks = list(gen.engine.submit(np.asarray([3, 17, 42], np.int32),
+                                          4))
+    finally:
+        eng.stop()
+        gen.engine.stop()
+    assert toks == gen_toks and len(toks) == 4
+    for e in (eng, gen.engine):
+        wd = e.watchdog_snapshot()
+        if knob == "watchdog":
+            assert wd is None and e.incident_snapshot() is None
+        elif knob == "watchdog_thresholds":
+            assert e._watchdog.thresholds["stall_wall_s"] == 9.0
+        elif knob == "watchdog_interval_s":
+            assert wd["interval_s"] == 0.5
+    if knob == "incident_store":
+        assert eng.incidents is store
+        assert gen.engine.incidents.spill_path == gen_kw["incident_file"]
+    engine_json = gen.config.to_json()["generation_engine"]
+    assert engine_json["watchdog"] is (knob != "watchdog")
+    assert engine_json["watchdog_interval_s"] == (
+        0.5 if knob == "watchdog_interval_s" else 0.25)
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -73,7 +73,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.server.model",
                      "client_tpu_torch.server.trace",
                      "client_tpu_torch.server.metrics",
-                     "client_tpu_torch.server.cache"):
+                     "client_tpu_torch.server.cache",
+                     "client_tpu_torch.server.runtime_stats",
+                     "client_tpu_torch.server.faultinject",
+                     "client_tpu_torch.server.watchdog",
+                     "client_tpu_torch.server.supervision"):
         assert expected in result["modules"]
 
 

@@ -20,6 +20,7 @@
 
 import json
 import logging
+import time
 import urllib.error
 import urllib.request
 
@@ -453,6 +454,11 @@ def test_trace_id_header_propagates_and_echoes(http_servers):
     assert got["port"] == ("cafe01", None, 16, None)
 
 
+def _access(caplog) -> list:
+    return [r.getMessage() for r in caplog.records
+            if r.name == "client_tpu_torch.server.http.access"]
+
+
 def test_access_log_records_each_request(caplog):
     core = _add_sub_core("port")
     srv = thttp.HttpInferenceServer(core, port=0, access_log=True).start()
@@ -462,11 +468,15 @@ def test_access_log_records_each_request(caplog):
             _call(srv.url, "/v2/health/live")
             _call(srv.url, "/v2/models/nope/ready")
             _call(srv.url, "/v2/models/add_sub/infer", _infer_body())
+            # the handler writes its record once the response is sent, so
+            # the client can return first: wait for it while INFO is on
+            end = time.monotonic() + 10
+            while time.monotonic() < end and len(_access(caplog)) < 3:
+                time.sleep(0.01)
     finally:
         srv.stop()
         core.stop()
-    lines = [r.getMessage() for r in caplog.records
-             if r.name == "client_tpu_torch.server.http.access"]
+    lines = _access(caplog)
     assert [line.split(" latency_us=")[0] for line in lines] == [
         "method=GET path=/v2/health/live status=200",
         "method=GET path=/v2/models/nope/ready status=400",
