@@ -223,6 +223,7 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               slo_window_s: float = 30.0,
                               slo_max_tenants: int = 32,
                               scheduler=None,
+                              device_time_sample_every: int = 0,
                               queue_depth: int = 256,
                               shed_on_full: bool = False,
                               supervision=None,
@@ -260,6 +261,10 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     model builds, spilled as JSONL to ``incident_file`` when given (which
     needs the watchdog). The config's ``supervision`` block and the
     ``generation_engine`` block's ``watchdog`` fields advertise them.
+    ``device_time_sample_every=N`` makes every Nth dispatch of a kind
+    wait for its own work on the card and time it (the goodput plane's
+    synchronous sample, ``server/goodput.py``); as in the reference, the
+    config advertises no field for it.
 
     ``speculative_draft`` turns on speculative decoding: a
     ``speculation.DraftModel``, a ``(cfg, params)`` pair, or a
@@ -375,7 +380,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             host_tier_bytes=host_tier_bytes, dispatch_duty=dispatch_duty,
             slo_classes=slo_cfgs, slo_window_s=slo_window_s,
             slo_max_tenants=slo_max_tenants, scheduler=eff_sched,
-            shed_on_full=shed_on_full, watchdog=watchdog,
+            shed_on_full=shed_on_full,
+            device_time_sample_every=device_time_sample_every,
+            watchdog=watchdog,
             watchdog_interval_s=watchdog_interval_s,
             watchdog_thresholds=watchdog_thresholds,
             incident_store=incidents, device=dev, name=name)

@@ -46,6 +46,11 @@ products accumulate in f32. The paged decode kernel reads only
 unquantised pools: under ``kv_quant`` the paged decode step takes the
 dequantising einsum, as the reference's does. MoE, mesh sharding and
 ring attention wait for later slices.
+
+The analytical FLOP and byte model (``layer_flops_per_token`` through
+``token_bytes``) is the reference's closed forms, plain integer
+arithmetic on the config: the generation engine's goodput plane
+(``server/goodput.py``) attributes every dispatch with them.
 """
 
 from __future__ import annotations
@@ -894,3 +899,85 @@ def paged_prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
     logits = torch.einsum("bd,vd->bv", _last_rows(x, clen),
                           params["embed"]).float()
     return pool, logits
+
+
+# ------------------------------------------------- analytical FLOP model
+#
+# The reference's closed forms. A matmul of [m, k] x [k, n] costs 2*m*k*n
+# FLOPs; every row of one dispatch runs the same kernel, so per-row FLOPs
+# are equal and row-count waste shares (bucket padding, rejected verify
+# rows) are exact. ``ctx`` counts attended positions, the token's own
+# included. The port has no MoE FFN yet, so the reference's router and
+# routed-expert term has no branch here.
+
+
+def layer_flops_per_token(cfg: TransformerConfig) -> int:
+    """Context-independent matmul FLOPs one token pays per layer: the QKV
+    and output projections and the FFN (swiglu's third matmul included)."""
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    qkv = 2 * d * dh * (h + 2 * cfg.kv_heads)
+    out = 2 * h * dh * d
+    ffn = (6 if cfg.ffn == "swiglu" else 4) * d * cfg.d_ff
+    return qkv + out + ffn
+
+
+def attn_flops_per_pos(cfg: TransformerConfig) -> int:
+    """Attention FLOPs one token pays per layer per attended position: the
+    QK^T score and the value reduction."""
+    return 4 * cfg.n_heads * cfg.head_dim
+
+
+def logit_flops(cfg: TransformerConfig) -> int:
+    """Vocabulary projection FLOPs for one sampled position."""
+    return 2 * cfg.d_model * cfg.vocab_size
+
+
+def token_flops(cfg: TransformerConfig, ctx: int,
+                logits: bool = True) -> int:
+    """Forward FLOPs of ONE token attending ``ctx`` positions: a decode
+    step, a verify row and a prefill position all cost this, at their
+    own ``ctx``."""
+    ctx = max(1, int(ctx))
+    per_layer = layer_flops_per_token(cfg) + attn_flops_per_pos(cfg) * ctx
+    total = cfg.n_layers * per_layer
+    if logits:
+        total += logit_flops(cfg)
+    return total
+
+
+def span_flops(cfg: TransformerConfig, pos0: int, n: int,
+               logits: bool = True) -> int:
+    """FLOPs of ``n`` consecutive positions from ``pos0``: the closed form
+    of ``sum(token_flops(cfg, p + 1) for p in range(pos0, pos0 + n))``
+    (the attention term is linear in the context, so the sum
+    telescopes)."""
+    n = int(n)
+    if n <= 0:
+        return 0
+    pos0 = max(0, int(pos0))
+    ctx_sum = n * pos0 + n * (n + 1) // 2
+    total = cfg.n_layers * (layer_flops_per_token(cfg) * n
+                            + attn_flops_per_pos(cfg) * ctx_sum)
+    if logits:
+        total += logit_flops(cfg) * n
+    return total
+
+
+def kv_bytes_per_token(cfg: TransformerConfig) -> int:
+    """KV bytes ONE position holds across all layers, K and V: int8 halves
+    the payload and adds one f32 scale per (position, KV head)."""
+    per_elem = 1 if cfg.kv_quant else 2
+    payload = 2 * cfg.n_layers * cfg.kv_heads * cfg.head_dim * per_elem
+    scales = 2 * cfg.n_layers * cfg.kv_heads * 4 if cfg.kv_quant else 0
+    return payload + scales
+
+
+def token_bytes(cfg: TransformerConfig, ctx: int) -> int:
+    """Memory traffic one decode token pays: every weight read once, the
+    KV read over ``ctx`` positions and its own KV write."""
+    d, h, dh, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    w_elems = d * dh * (h + 2 * cfg.kv_heads) + h * dh * d
+    w_elems += (3 if cfg.ffn == "swiglu" else 2) * d * f
+    weight_bytes = cfg.n_layers * w_elems * 2 + cfg.vocab_size * d * 2
+    kv = kv_bytes_per_token(cfg)
+    return weight_bytes + kv * max(1, int(ctx)) + kv

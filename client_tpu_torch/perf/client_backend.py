@@ -118,6 +118,24 @@ class ClientBackend:
                                    version: str = "") -> dict:
         raise NotImplementedError
 
+    def server_metrics(self):
+        """Parsed /metrics scrape (``metrics.parse_prometheus_text``) or
+        None when the service exposes no Prometheus plane."""
+        return None
+
+    def server_traces(self):
+        """Completed server-side request traces (``Trace.to_json`` dicts)
+        or None when the service exposes no trace plane: the spans the
+        profiler joins by trace id with its client-observed window for the
+        slowest-request breakdown."""
+        return None
+
+    def server_incidents(self):
+        """Watchdog incident bundles (the ``core.debug_incidents()``
+        document) or None when the service exposes no incident plane: the
+        evidence the profiler's ``fail_on_incident`` gate names."""
+        return None
+
     # shared-memory verbs
     def register_system_shared_memory(self, name, key, byte_size) -> None:
         raise NotImplementedError("system shm not supported by this backend")
@@ -161,6 +179,17 @@ class InProcessBackend(ClientBackend):
     def model_inference_statistics(self, name: str = "",
                                    version: str = "") -> dict:
         return self._server.statistics(name, version)
+
+    def server_metrics(self):
+        from client_tpu_torch.server.metrics import parse_prometheus_text
+
+        return parse_prometheus_text(self._server.metrics_text())
+
+    def server_traces(self):
+        return self._server.debug_traces().get("traces")
+
+    def server_incidents(self):
+        return self._server.debug_incidents()
 
     def _build_request(self, model_name, inputs, outputs, options):
         cache_key = fp = None

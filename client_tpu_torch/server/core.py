@@ -330,6 +330,55 @@ class TorchInferenceServer:
         here after the fresh engine serves."""
         return self._model_snapshots("incident_snapshot", "incidents")
 
+    def debug_timeline(self, name: str = "") -> dict:
+        """The Chrome-trace / Perfetto timeline (``GET
+        /v2/debug/timeline``): every timeline-capable model's
+        flight-recorder ring merged with the tracer's completed request
+        traces (``server/timeline.build_timeline``), one process per
+        replica, the engine-plane tracks and a thread track per traced
+        request. ``name`` restricts it to one model (404 when that model
+        has no timeline); models without ``timeline_snapshot`` are left
+        out."""
+        from client_tpu_torch.server import timeline as timeline_mod
+
+        with self._lock:
+            entries = [(mname, str(e.version), e)
+                       for mname, versions in self._models.items()
+                       for e in versions.values()]
+        traces_by_model: dict = {}
+        for tr in list(self.tracer.completed):
+            traces_by_model.setdefault(tr.model_name, []).append(
+                tr.to_json())
+        models = []
+        for mname, version, entry in sorted(entries, key=lambda x: x[:2]):
+            if name and mname != name:
+                continue
+            fn = getattr(entry.model, "timeline_snapshot", None)
+            if not callable(fn):
+                continue
+            try:
+                snap = fn()
+            except Exception:  # noqa: BLE001 — introspection best-effort
+                continue
+            models.append({"model": mname, "version": version,
+                           "traces": traces_by_model.get(mname, []),
+                           "replicas": snap.get("replicas"),
+                           "fleet": snap.get("fleet"),
+                           "incidents": snap.get("incidents")})
+        if name and not models:
+            raise ServerError(
+                f"model '{name}' has no timeline to export", 404)
+        return timeline_mod.build_timeline(models)
+
+    def debug_traces(self, name: str = "") -> dict:
+        """Completed request traces (``Trace.to_json`` dicts, oldest
+        first) from the tracer's bounded completion ring, ``name``'s only
+        when given: the raw spans of ``GET /v2/debug/timeline``, which the
+        perf analyzer joins by trace id with what its client measured for
+        the slowest-request breakdown."""
+        return {"traces": [tr.to_json() for tr in list(self.tracer.completed)
+                           if not name or tr.model_name == name]}
+
     def debug_faults(self) -> dict:
         """The process-global fault-injection schedule (armed specs,
         per-point hit counts)."""

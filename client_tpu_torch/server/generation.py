@@ -140,13 +140,23 @@ loop, ``kernel_delay`` before a dispatch, ``ring_fetch`` at the ring's
 D2H collect and ``queue_full`` at the submit door. A dead engine answers
 a submit with the reference's three 503s (restarting, with
 ``Retry-After``; breaker tripped; unsupervised), and notifies its
-``EngineSupervisor`` (``server/supervision.py``) last. Signals the port
-cannot read yet are None: ``unexpected_compiles`` (no compile set) and
-the goodput shares.
+``EngineSupervisor`` (``server/supervision.py``) last. The one signal the
+port cannot read yet is None: ``unexpected_compiles`` (no compile set).
 
-Knobs of the reference that this slice does not run (meshes and fleets,
-the goodput sampling) raise ``NotImplementedError`` naming the ROADMAP
-item that ports them; none is silently ignored.
+Goodput plane (``server/goodput.py``): every dispatch site notes its kind
+and its useful and wasted FLOPs (the closed forms of
+``models/transformer.py``) with the reference's kind labels and waste
+reasons, a verify round's accepted and rejected rows at its retire; each
+ring drain splits the wall since the previous one over the dispatches
+issued in between, and an idle loop drops the mark. With
+``device_time_sample_every=N`` every Nth dispatch of a kind also waits on
+a CUDA event recorded behind its kernels. The tracker's snapshot is the
+``goodput`` block of the snapshots, and its two shares are watchdog
+signals and flight-record fields.
+
+Knobs of the reference that this slice does not run (meshes and fleets)
+raise ``NotImplementedError`` naming the ROADMAP item that ports them;
+none is silently ignored.
 """
 
 from __future__ import annotations
@@ -173,6 +183,11 @@ from client_tpu_torch.models.sampling import (
 )
 from client_tpu_torch.server import faultinject
 from client_tpu_torch.server import trace as trace_mod
+from client_tpu_torch.server.goodput import (
+    FlopModel,
+    GoodputTracker,
+    device_peak_flops,
+)
 from client_tpu_torch.server.kv_cache import (
     COMMIT_POLICIES,
     HostTierStore,
@@ -234,7 +249,6 @@ log = logging.getLogger(__name__)
 UNPORTED_KNOBS = {
     "mesh": "A12 (mesh and fleets)",
     "engine_devices": "A12 (mesh and fleets)",
-    "device_time_sample_every": "A13c (goodput and the timeline)",
 }
 
 
@@ -805,6 +819,7 @@ class ContinuousBatchingEngine:
                  watchdog_interval_s: float = 0.25,
                  watchdog_thresholds: Optional[dict] = None,
                  incident_store: Optional[IncidentStore] = None,
+                 device_time_sample_every: int = 0,
                  device=None, name: str = "generation-engine", **unported):
         reject_unported(unported)
         if chunk < 1 or n_slots < 1:
@@ -1015,6 +1030,21 @@ class ContinuousBatchingEngine:
         # engine placed (filled once its state is built)
         self.flight = FlightRecorder()
         self._mem_attr: dict = {}
+        # the goodput plane: per-kind device time by the ring-fetch
+        # cadence (plus the opt-in synchronous sample every Nth dispatch)
+        # and the useful-against-wasted FLOPs of every dispatch; the MFU
+        # denominator is this engine's card's peak (None on the CPU, and
+        # the MFU pair stays unregistered)
+        self.goodput = GoodputTracker(
+            sample_every=device_time_sample_every,
+            peak_flops=device_peak_flops(self._device))
+        self._flop_model = FlopModel(cfg)
+        self._draft_flop_model = (FlopModel(speculative_draft.cfg)
+                                  if speculative_draft is not None else None)
+        # in-flight verify rounds' FLOP context (engine thread only): ring
+        # seq -> (kind, [(slot, pos0)]); the useful and rejected rows are
+        # known at the retire, when the accepted counts arrive
+        self._spec_gp: dict = {}
         # set by an EngineSupervisor that owns this engine: a dying
         # engine notifies it last (server/supervision.py)
         self.supervisor = None
@@ -1359,9 +1389,8 @@ class ContinuousBatchingEngine:
         keeps (dict reads and one walk of the slot tables), so a sample
         reads no tensor and adds no synchronisation with the card. Runs
         on the engine thread at an iteration boundary, where the slot
-        tables are consistent. ``unexpected_compiles`` and the goodput
-        shares are None: the port has no compile set and no goodput
-        plane yet (a None signal never breaches)."""
+        tables are consistent. ``unexpected_compiles`` is None: the port
+        has no compile set yet (a None signal never breaches)."""
         pool_orphan = None
         if self._paged and self._kv_index is not None:
             # blocks the allocator says live streams own, minus the blocks
@@ -1374,6 +1403,7 @@ class ContinuousBatchingEngine:
             pool_orphan = self._kv_index.occupancy()["stream"] - expected
         tier = self._tier_snapshot()
         spec = None if self._spec is None else self._spec.snapshot()
+        gp_device_share, gp_waste_share = self.goodput.shares()
         return {
             "slots_active": self.active_slots(),
             "queue_depth": self._pending.qsize(),
@@ -1390,20 +1420,20 @@ class ContinuousBatchingEngine:
             "spec_rounds": None if spec is None else spec["rounds"],
             "tier_spills": None if tier is None else tier["spills"],
             "tier_restores": None if tier is None else tier["restores"],
-            "device_time_share": None,
-            "wasted_flop_share": None,
+            "device_time_share": round(gp_device_share, 4),
+            "wasted_flop_share": round(gp_waste_share, 4),
         }
 
     def _incident_evidence(self, detector: str, breach: dict) -> dict:
         """The bundle a firing detector records: the flight-recorder tail
-        and the scheduler, SLO, paged-pool, tier, ring, lane and
+        and the scheduler, goodput, SLO, paged-pool, tier, ring, lane and
         speculation snapshots — host values only, so a bundle pins no
         device memory of this engine in the store that outlives it.
-        ``goodput`` and ``compile`` are None (not ported)."""
+        ``compile`` is None (no compile set)."""
         return {
             "flight_tail": self.flight.tail(EVIDENCE_FLIGHT_TAIL),
             "scheduler": self.scheduler_snapshot(),
-            "goodput": None,
+            "goodput": self.goodput.snapshot(),
             "slo": self.slo_stats.snapshot(),
             "kv_paged": self._paged_snapshot(),
             "kv_tier": self._tier_snapshot(),
@@ -1456,8 +1486,8 @@ class ContinuousBatchingEngine:
         card-memory ledger of what this engine placed, by component, and
         liveness. A paged engine's pool
         row is split at read time into the live-stream, pinned-prefix and
-        free shares of the allocator's occupancy. There is no compile
-        table, and ``goodput`` is None (not ported)."""
+        free shares of the allocator's occupancy, and the goodput
+        tracker's snapshot. There is no compile table."""
         mem = dict(self._mem_attr)
         if self._paged and self._kv_index is not None and "kv_pool" in mem:
             occ = self._kv_index.occupancy()
@@ -1466,7 +1496,7 @@ class ContinuousBatchingEngine:
             mem["kv_pool_prefix"] = int(per_block * occ["prefix"])
             mem["kv_pool_free"] = int(per_block * occ["free"])
         return {"memory": mem, "engine_up": self.healthy(),
-                "goodput": None}
+                "goodput": self.goodput.snapshot()}
 
     def debug_snapshot(self, flight_tail: int = 64) -> dict:
         """Live engine introspection (``GET
@@ -1541,9 +1571,8 @@ class ContinuousBatchingEngine:
         ``client_tpu_sched_*`` and ``client_tpu_watchdog_*`` families and
         the supervision pair export (``server/metrics.py``); the
         ``supervisor`` block is None on an unsupervised engine and the
-        ``watchdog`` block None with the watchdog off. ``goodput`` is None
-        until its plane is ported (ROADMAP A13c): the collector then
-        registers none of its families."""
+        ``watchdog`` block None with the watchdog off. ``goodput`` is the
+        tracker's snapshot, the ``client_tpu_goodput_*`` feed."""
         snap = self.gen_stats.snapshot()
         snap.update({
             "slo": self.slo_stats.snapshot(),
@@ -1564,7 +1593,7 @@ class ContinuousBatchingEngine:
             "prefix_cache": (None if self._prefix_index is None
                              else self._prefix_index.snapshot()),
             "speculation": self._speculation_snapshot(),
-            "goodput": None,
+            "goodput": self.goodput.snapshot(),
             "watchdog": self.watchdog_snapshot(),
         })
         return snap
@@ -1631,6 +1660,7 @@ class ContinuousBatchingEngine:
             "slots": slots,
             "lane_slots": rows(self._lane_slots) if self._lane_on else None,
             "slo": self.slo_stats.snapshot(),
+            "goodput": self.goodput.snapshot(),
         }
 
     # ------------------------------------------------------------ live knobs
@@ -2452,6 +2482,8 @@ class ContinuousBatchingEngine:
         cache, pos = self._slot_state(lane)
         pool_to_slot(self._dev["prefix_pool"], cache, pos, idx, ids,
                      handle.matched_tokens)
+        # pool->slot KV gather: device time, no model FLOPs
+        self._note_dispatch("gather", outputs=pos)
         slot.cursor = slot.pos_hi = handle.matched_tokens
         slot.draft_ready = False
         self.gen_stats.record_prefix_hit(handle.matched_tokens)
@@ -2497,6 +2529,8 @@ class ContinuousBatchingEngine:
         ids_d, offs_d = self._upload([pad_block_ids(ids, bucket), offs])
         slot_to_pool(self._dev["prefix_pool"], self._slot_state(lane)[0],
                      idx, ids_d, offs_d)
+        # slot->pool KV scatter: device time, no model FLOPs
+        self._note_dispatch("scatter", outputs=self._dev["prefix_pool"])
         self._prefix_index.finish_commit(plan)
 
     # ---------------------------------------------------------- engine loop
@@ -2960,6 +2994,8 @@ class ContinuousBatchingEngine:
             d.cursor = d.pos_hi = lane.cursor
             lane_handoff(dev["pos"], dev["last"], dev["lane_pos"],
                          dev["lane_last"], d_idx, l_idx)
+            # a position and token move: device time, no FLOPs
+            self._note_dispatch("handoff", outputs=dev["last"])
         else:
             self._commit_prefix(l_idx, req, tokens=req.prompt[:lane.cursor],
                                 lane=True)
@@ -2974,6 +3010,8 @@ class ContinuousBatchingEngine:
                                                      bucket)])
                 pool_to_slot(dev["prefix_pool"], dev["cache"], dev["pos"],
                              d_idx, ids, handle.matched_tokens)
+                # pool->slot KV gather: device time, no model FLOPs
+                self._note_dispatch("gather", outputs=dev["pos"])
                 d.cursor = d.pos_hi = handle.matched_tokens
         lane.req = None
         lane.cursor = 0
@@ -3166,6 +3204,18 @@ class ContinuousBatchingEngine:
         self._prefill_chunks_dispatched += 1
         self._prefill_tokens_dispatched += total
         self.gen_stats.record_lane_batch(n, total)
+        # the [bb, bucket] batch's FLOPs: real rows' real columns are
+        # useful (with a logit pass on final chunks); their bucket-padding
+        # columns and the bb - n padding rows are waste
+        fm = self._flop_model
+        useful = 0
+        w_pad = (bb - n) * fm.span(0, bucket, logits=False)
+        for r, (_i, _slot, _req, pos0, clen, _cap) in enumerate(rows):
+            useful += (fm.span(pos0, clen, logits=False)
+                       + (fm.logits if finals[r] else 0))
+            w_pad += fm.span(pos0 + clen, bucket - clen, logits=False)
+        self._note_dispatch(f"lane_batch{bb}", useful, {"padding": w_pad},
+                            outputs=dev["lane_last"])
         self._kind_s["lane_batch"] += time.perf_counter() - t0
         self._kind_n["lane_batch"] += 1
 
@@ -3192,6 +3242,11 @@ class ContinuousBatchingEngine:
                           (ints[0], floats[0], ints[1], floats[1]))
         slot.cursor = plen
         slot.pos_hi = plen
+        fm = self._flop_model
+        self._note_dispatch(
+            "prefill", fm.span(0, plen, logits=False) + fm.logits,
+            {"padding": fm.span(plen, bucket - plen, logits=False)},
+            outputs=dev["last"])
         if req.trace is not None:
             # the forward is enqueued: the host side of the admission ends
             req.trace.event(trace_mod.PREFILL_END)
@@ -3272,6 +3327,11 @@ class ContinuousBatchingEngine:
         dev = self._dev
         draft_prefill(self._draft.cfg, dev["dparams"], dev["dcache"],
                       dev["dpos"], idx, toks, plen)
+        dfm = self._draft_flop_model
+        self._note_dispatch(
+            "draft_prefill", dfm.span(0, plen, logits=False),
+            {"padding": dfm.span(plen, bucket - plen, logits=False)},
+            outputs=dev["dpos"])
         self._kind_s["draft_prefill"] += time.perf_counter() - t0
         self._kind_n["draft_prefill"] += 1
 
@@ -3364,6 +3424,12 @@ class ContinuousBatchingEngine:
         self._prefill_chunks_dispatched += 1
         self._prefill_tokens_dispatched += clen
         self.gen_stats.record_prefill_chunk(clen)
+        fm = self._flop_model
+        self._note_dispatch(
+            "lane_chunk" if lane else "prefill_chunk",
+            fm.span(pos0, clen, logits=False) + (fm.logits if final else 0),
+            {"padding": fm.span(pos0 + clen, bucket - clen, logits=False)},
+            outputs=last)
         if req.trace is not None:
             if lane:
                 # the host side of one lane resume (the card's work
@@ -3445,11 +3511,14 @@ class ContinuousBatchingEngine:
         topps = np.zeros((s,), np.float32)
         meta = []
         eager_free = []
+        gp_rows = []   # (pos0, useful columns, frozen): the FLOP ledger
+        gp_pad = 0     # free slot rows: pure padding
         ceiling = self._gamma_ceiling
         for i, slot in enumerate(self._slots):
             req = slot.req
             if req is None:
                 meta.append((None, 0))
+                gp_pad += 1
                 continue
             active[i] = True
             if self._paged:
@@ -3467,6 +3536,7 @@ class ContinuousBatchingEngine:
                 # overwritten by its next lane chunk before it is attended
                 freeze[i] = True
                 meta.append((req, c))
+                gp_rows.append((slot.pos_hi, 0, True))
                 continue
             if modes[i] != "spec":
                 # a verify slot keeps the zero defaults: a sampled one must
@@ -3488,6 +3558,7 @@ class ContinuousBatchingEngine:
                 and len(req.prompt) + self._gamma + 1 <= self._cfg.max_seq)
             if modes[i] == "spec":
                 meta.append((req, c))
+                gp_rows.append((slot.pos_hi, 0, True))
                 continue
             if k > 0:
                 feed[i, :k] = req.prompt[slot.cursor:slot.cursor + k]
@@ -3498,6 +3569,8 @@ class ContinuousBatchingEngine:
                     # a lane prompt whose sub-chunk tail feeds here ends
                     # its ingestion with this chunk
                     req.trace.event(trace_mod.PREFILL_END)
+            gp_rows.append((slot.pos_hi, k if freeze[i] else c,
+                            bool(freeze[i])))
             slot.pos_hi += k if freeze[i] else c
             # columns >= this are generated tokens (none when frozen)
             meta.append((req, c if freeze[i] else k))
@@ -3539,9 +3612,52 @@ class ContinuousBatchingEngine:
             self._slots[i].req = None
             self._slots[i].draft_ready = False
         self._chunks_dispatched += 1
+        # the FLOPs: every row runs the same [S, C] steps; useful work is
+        # the fed columns at their real contexts, and the waste splits into
+        # free-row padding, frozen rider columns and (paged) the attention
+        # slack of the bucketed table width beyond the real context
+        fm = self._flop_model
+        useful = 0
+        w_pad = gp_pad * fm.span(0, c)
+        w_frozen = 0
+        w_slack = 0
+        tw = (int(tables.shape[1]) * self._kv_block_len
+              if self._paged and tables is not None else 0)
+        for pos0, used, frozen in gp_rows:
+            useful += fm.span(pos0, used)
+            if frozen:
+                if used < c:
+                    w_frozen += fm.span(pos0 + used, c - used)
+            elif tw:
+                ctx_sum = c * pos0 + c * (c + 1) // 2
+                w_slack += fm.attn * max(0, c * tw - ctx_sum)
+        self._note_dispatch(
+            "paged_decode" if self._paged else "chunk", useful,
+            {"padding": w_pad, "frozen": w_frozen, "table_slack": w_slack},
+            outputs=self._dev["ring_cnt"])
         self._kind_s["chunk"] += time.perf_counter() - t0
         self._kind_n["chunk"] += 1
         return ("chunk", seq, meta, timing, 0)
+
+    def _note_dispatch(self, kind: str, useful: int = 0,
+                       wasted: Optional[dict] = None,
+                       outputs=None) -> None:
+        """The goodput hook of one dispatch: the per-kind cadence (and the
+        opt-in synchronous sample) in the tracker, the useful and wasted
+        FLOP roll-up in gen_stats."""
+        self.goodput.note_dispatch(kind, useful, wasted, outputs=outputs)
+        w = sum(wasted.values()) if wasted else 0
+        if useful or w:
+            self.gen_stats.record_flops(useful, w)
+
+    def _note_flops(self, kind: str, useful: int = 0,
+                    wasted: Optional[dict] = None) -> None:
+        """Deferred FLOP attribution with no dispatch: the verify round's
+        retire, where the accepted counts arrive."""
+        self.goodput.note_flops(kind, useful, wasted)
+        w = sum(wasted.values()) if wasted else 0
+        if useful or w:
+            self.gen_stats.record_flops(useful, w)
 
     def _start_timing(self):
         """A pair of CUDA events, the first recorded now (None on the
@@ -3562,12 +3678,14 @@ class ContinuousBatchingEngine:
         round the kernels index nothing."""
         t0 = time.perf_counter()
         rows, meta = [], []
+        gp_part = []   # (slot, pos0): the FLOP ledger for the retire
         for i, slot in enumerate(self._slots):
             req = slot.req
             if req is None or modes[i] != "spec" or rungs[i] != rung:
                 meta.append(None)
                 continue
             rows.append(i)
+            gp_part.append((i, slot.pos_hi))
             slot.pos_hi += rung + 1
             meta.append(req)
         reqs = [self._slots[i].req for i in rows]
@@ -3595,6 +3713,19 @@ class ContinuousBatchingEngine:
         if timing is not None:
             timing[1].record()
         self._chunks_dispatched += 1
+        # timing is noted now; the useful-against-rejected row split waits
+        # for the retire, keyed by ring seq. The slots outside the round
+        # are the reference's masked padding rows of its [S, rung + 1]
+        # shape (the port indexes only the round's rows, and counts them
+        # as the reference does, so the two ledgers agree)
+        fm = self._flop_model
+        gkind = f"spec_g{rung}"
+        self._spec_gp[seq] = (gkind, gp_part)
+        self._note_dispatch(
+            gkind, 0,
+            {"padding": (self._n_slots - len(gp_part))
+             * fm.span(0, rung + 1)},
+            outputs=self._dev["ring_cnt"])
         self._kind_s["spec"] += time.perf_counter() - t0
         self._kind_n["spec"] += 1
         return ("spec", seq, meta, timing, rung)
@@ -3647,6 +3778,9 @@ class ContinuousBatchingEngine:
         newest = entries[-1][1]
         last = self._last_drain
         self._last_drain = (newest, arrival)
+        # the goodput cadence: the wall since the previous mark covers the
+        # dispatches issued in between (a burst drain carries ~0)
+        self.goodput.drain_mark(arrival)
         if cadence and last is not None and newest > last[0]:
             sample = (arrival - last[1]) / (newest - last[0])
             if 0 < sample < 5e9:
@@ -3665,7 +3799,7 @@ class ContinuousBatchingEngine:
                 self._retire(ring_host[e][:, :self._chunk], meta)
             else:
                 self._retire_spec(ring_host[e][:, :rung + 1], cnt_host[e],
-                                  meta, rung)
+                                  meta, rung, seq)
             self._retired_seq = seq + 1
         self._phase_s["retire_deliver"] += time.perf_counter() - t1
 
@@ -3678,13 +3812,17 @@ class ContinuousBatchingEngine:
             self._deliver(i, req, toks[i, k:])
 
     def _retire_spec(self, toks: np.ndarray, n_out: np.ndarray, meta: list,
-                     rung: int) -> None:
+                     rung: int, seq: Optional[int] = None) -> None:
         """Distribute one verify round at depth ``rung``: the first
         n_out[i] columns of row i are its verified tokens (the pending
         token and the accepted proposals). Corrects the slot's ``pos_hi``
         from the bound rung + 1 to the real advance, and records the round
         in the engine's counters and in the stream's rolling acceptance,
-        which drives its fallback latch and its next rung."""
+        which drives its fallback latch and its next rung; attributes the
+        round's rows of entry ``seq``: k useful (the accepted prefix and
+        the bonus token), rung + 1 - k rejected."""
+        gp = self._spec_gp.pop(seq, None)
+        gp_pos = dict(gp[1]) if gp is not None else {}
         for i, req in enumerate(meta):
             if req is None:
                 continue
@@ -3692,6 +3830,12 @@ class ContinuousBatchingEngine:
             slot = self._slots[i]
             if slot.req is req:
                 slot.pos_hi -= (rung + 1) - k
+            pos0 = gp_pos.get(i)
+            if pos0 is not None:
+                self._note_flops(
+                    gp[0], self._flop_model.span(pos0, k),
+                    {"spec_reject":
+                     self._flop_model.span(pos0 + k, rung + 1 - k)})
             if req.finished:
                 continue
             accepted = k - 1
@@ -3768,15 +3912,15 @@ class ContinuousBatchingEngine:
         """One flight-recorder entry per loop iteration, with the
         reference's keys, from host counters only (no tensor is read):
         the context a crash takes with it. ``slot_tenants`` is this
-        iteration's per-(tenant, slo_class) slot occupancy; the goodput
-        shares are None (not ported)."""
+        iteration's per-(tenant, slo_class) slot occupancy."""
         spec = self._spec
+        gp_device_share, gp_waste_share = self.goodput.shares()
         self.flight.record(
             ns=now_ns(),
             phase="dispatch" if dispatched else "drain",
             slots_active=occ_active,
-            device_time_share=None,
-            wasted_flop_share=None,
+            device_time_share=round(gp_device_share, 4),
+            wasted_flop_share=round(gp_waste_share, 4),
             slot_tenants=slot_tenants,
             queue_depth=self._pending.qsize(),
             tokens_emitted=self._tokens_emitted,
@@ -3878,6 +4022,9 @@ class ContinuousBatchingEngine:
                 # a stall: one forced slots-idle watchdog sample starts
                 # the next request's wall-gap pair from an idle sample
                 self._last_drain = None
+                # idle wall must not count as device time: attribute the
+                # tail and drop the goodput mark with the EWMA's
+                self.goodput.reset_cadence()
                 if self._watchdog is not None:
                     self._watchdog.mark_idle(now_ns(),
                                              self._watchdog_signals())
@@ -4012,6 +4159,7 @@ class ContinuousBatchingEngine:
             inflight.extend(entries)
         self._unfetched.clear()
         self._fetches.clear()
+        self._spec_gp.clear()   # the in-flight rounds' FLOP context too
         for kind, _seq, meta, _timing, _rung in inflight:
             for item in meta:
                 # a chunk's meta holds (req, k), a verify round's req
@@ -4040,6 +4188,21 @@ class ContinuousBatchingEngine:
             "generation engine '%s' flight recorder (%d iteration(s), "
             "newest last): %s", self.name, len(dump),
             json.dumps(dump, default=str))
+        # the goodput tail: was the card starved (a low device-time share)
+        # or saturated when the loop died
+        gp = self.goodput.snapshot()
+        log.error(
+            "generation engine '%s' goodput tail: %s", self.name,
+            json.dumps({
+                "device_time_share": round(gp["device_time_share"], 4),
+                "useful_flop_share": round(gp["useful_flop_share"], 4),
+                "idle_seconds": round(gp["idle_seconds"], 3),
+                "device_seconds_total":
+                    round(gp["device_seconds_total"], 3),
+                "mfu": (None if gp["mfu"] is None
+                        else round(gp["mfu"], 4)),
+                "dispatches": gp["dispatches"],
+            }, default=str))
         # the death bundle lands in the store the next engine shares, so
         # it stays readable after a supervised restart; capture is best
         # effort and must not mask the failure

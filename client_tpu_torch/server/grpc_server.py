@@ -16,9 +16,7 @@ The port's differences from the reference:
 - ``RepositoryIndex``, ``RepositoryModelLoad`` and
   ``RepositoryModelUnload`` answer UNIMPLEMENTED naming their ROADMAP
   item, as the HTTP front end answers those routes with 404.
-- Left out until the goodput and timeline plane (ROADMAP A13c) is
-  ported: the ``client-tpu-debug-traces`` trailer of ``ServerMetadata``.
-  TLS is left out as the port's HTTP front end leaves it out.
+- TLS is left out as the port's HTTP front end leaves it out.
 
 As in the reference: ``TraceSetting`` reads and updates the trace
 settings; a request's ``triton_trace_id`` parameter propagates the
@@ -28,9 +26,11 @@ caller's trace id, and a traced request's id comes back as the
 ``ServerMetadata`` call with the ``client-tpu-metrics: request`` key gets
 the Prometheus text back in the ``client-tpu-metrics-bin`` trailer, and,
 on a server built with ``debug_endpoints=True``, one with the
-``client-tpu-debug-incidents`` key gets the incident JSON in the
-``client-tpu-debug-incidents-bin`` trailer (absent without the flag, the
-twin of the HTTP 404). An armed ``transport_reset`` fault aborts
+``client-tpu-debug-traces`` key (its value a model name, "" for all) gets
+the completed traces' JSON in the ``client-tpu-debug-traces-bin`` trailer
+and one with the ``client-tpu-debug-incidents`` key the incident JSON in
+the ``client-tpu-debug-incidents-bin`` trailer (each absent without the
+flag, the twin of the HTTP 404). An armed ``transport_reset`` fault aborts
 ``ModelInfer`` with UNAVAILABLE before it is served.
 
 Importing this module imports ``grpc`` and ``google.protobuf``; nothing on
@@ -229,8 +229,17 @@ class _Handlers:
                                  self.core.metrics_text().encode()))
             except Exception:  # noqa: BLE001 — metrics are best-effort
                 pass
-        # the incidents mirror (GET /v2/debug/incidents), only on a server
-        # that opted into the debug surface
+        # the traces and incidents mirrors (GET /v2/debug/traces and
+        # /v2/debug/incidents), only on a server that opted into the debug
+        # surface; otherwise the trailer is absent
+        if "client-tpu-debug-traces" in inv and self.debug_endpoints:
+            try:
+                trailers.append((
+                    "client-tpu-debug-traces-bin",
+                    json.dumps(self.core.debug_traces(
+                        inv["client-tpu-debug-traces"])).encode()))
+            except Exception:  # noqa: BLE001 — debug is best-effort
+                pass
         if "client-tpu-debug-incidents" in inv and self.debug_endpoints:
             try:
                 trailers.append((

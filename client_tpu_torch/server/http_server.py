@@ -17,12 +17,14 @@ id, and a traced request's id comes back in the same header.
 ``access_log=True`` logs one structured INFO record per request.
 ``debug_endpoints=True`` opts into the debug surface: GET
 ``/v2/debug/runtime``, ``/v2/debug/models/{name}[/versions/{v}]/engine``,
-``/v2/debug/slo``, ``/v2/debug/scheduler``, ``/v2/debug/incidents``, GET
+``/v2/debug/slo``, ``/v2/debug/scheduler``, ``/v2/debug/incidents``,
+``/v2/debug/timeline`` (the Chrome-trace document) and
+``/v2/debug/traces`` (the completed traces; both take ``?model=``), GET
 and POST ``/v2/debug/faults`` and POST ``/v2/debug/profile``; with the
 flag off they answer 404 like any unknown path. An armed
 ``transport_reset`` fault drops the connection before any response byte.
-The repository routes and the fleet, timeline and traces views wait for
-later slices and answer 404.
+The repository routes and the fleet view wait for later slices and
+answer 404.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import threading
 import time
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import unquote
+from urllib.parse import parse_qs, unquote, urlparse
 
 from client_tpu_torch.protocol.rest import (
     INFERENCE_HEADER_CONTENT_LENGTH,
@@ -263,6 +265,18 @@ class _Handler(BaseHTTPRequestHandler):
     def debug_incidents(self):
         self._require_debug()
         self._send_json(200, self.core.debug_incidents())
+
+    @route("GET", r"/v2/debug/timeline")
+    def debug_timeline(self):
+        self._require_debug()
+        name = parse_qs(urlparse(self.path).query).get("model", [""])[0]
+        self._send_json(200, self.core.debug_timeline(name))
+
+    @route("GET", r"/v2/debug/traces")
+    def debug_traces(self):
+        self._require_debug()
+        name = parse_qs(urlparse(self.path).query).get("model", [""])[0]
+        self._send_json(200, self.core.debug_traces(name))
 
     @route("GET", r"/v2/debug/faults")
     def debug_faults_get(self):

@@ -2,10 +2,12 @@
 
 The port's own copy of ``client_tpu/server/metrics.py`` (framework-free
 there; the port imports nothing of the reference package), with the same
-naming contract, families, labels and help text. The reference's
-goodput, fleet and autoscale collectors are not here: their planes are
-not ported yet (ROADMAP A13c, A12), so their families are absent, not
-zero. Nor are the runtime families (``client_tpu_runtime_*``): the
+naming contract, families, labels and help text. The reference's fleet
+and autoscale collectors are not here: their planes are not ported yet
+(ROADMAP A12), so their families are absent, not zero. The goodput
+families are registered as the reference registers them; their MFU pair
+only where the engine's card has a known peak (the H100; never on the
+CPU). Nor are the runtime families (``client_tpu_runtime_*``): the
 naming contract makes that namespace all or nothing — any of its
 families requires the whole compile set beside the memory gauges — and
 the port, which runs eagerly, has no compile set yet; the memory ledger
@@ -36,6 +38,8 @@ import re
 import threading
 import time
 from bisect import bisect_right
+
+from client_tpu_torch.server.runtime_stats import COMPILE_BUCKETS_S
 
 # The naming contract, single source of truth for MetricFamily's
 # registration check and the scripts/check_metrics_names.py lint.
@@ -398,6 +402,10 @@ def collect_server_metrics(core) -> MetricsRegistry:
                          if s.get("scheduler") is not None]
         if sched_entries:
             _collect_sched(reg, sched_entries)
+        gp_entries = [(n, v, s["goodput"]) for n, v, s in gen_entries
+                      if s.get("goodput") is not None]
+        if gp_entries:
+            _collect_goodput(reg, gp_entries)
         wd_entries = [(n, v, s["watchdog"]) for n, v, s in gen_entries
                       if s.get("watchdog") is not None]
         if wd_entries:
@@ -822,6 +830,95 @@ def _collect_generation(reg: MetricsRegistry, gen_entries: list) -> None:
             pc["blocks"].labels(name, version).set(pool["blocks"])
             pc["used"].labels(name, version).set(pool["blocks_used"])
 
+
+def _collect_goodput(reg: MetricsRegistry, gp_entries: list) -> None:
+    """Goodput and device-time attribution families
+    (``client_tpu_goodput_*``), registered only when at least one engine
+    carries a GoodputTracker snapshot (server/goodput.py): per-kind
+    cadence-attributed device seconds, the opt-in synchronous sample, and
+    the analytical useful/wasted FLOP decomposition. The MFU and peak
+    gauges are registered only when some engine knows its card's peak (a
+    card of the port's peak table); on the CPU they stay absent: an MFU
+    against an unknown denominator would be a made-up number."""
+    ml = ("model", "version")
+    dispatches = reg.counter(
+        "client_tpu_goodput_dispatches_total",
+        "Sealed device dispatches per kernel kind (chunk / "
+        "paged_decode / spec_g<rung> / lane_chunk / lane_batch<B> / "
+        "prefill / handoff / gather / scatter)", ml + ("kernel",))
+    dev_s = reg.counter(
+        "client_tpu_goodput_device_seconds_total",
+        "Device time attributed per kernel kind by the ring-fetch "
+        "cadence (wall between drains split over the dispatches "
+        "issued in between; sums to busy wall by construction)",
+        ml + ("kernel",))
+    dev_h = reg.histogram(
+        "client_tpu_goodput_device_time_seconds",
+        "Per-dispatch attributed device time per kernel kind (same "
+        "bucket grid as the compile histogram so the two planes "
+        "overlay)", ml + ("kernel",), buckets=COMPILE_BUCKETS_S)
+    useful = reg.counter(
+        "client_tpu_goodput_useful_flops_total",
+        "Analytical-model FLOPs spent on live tokens at their real "
+        "context length, per kernel kind", ml + ("kernel",))
+    wasted = reg.counter(
+        "client_tpu_goodput_wasted_flops_total",
+        "Analytical-model FLOPs spent on rows/columns that produced "
+        "nothing (reason = padding | frozen | table_slack | "
+        "spec_reject)", ml + ("kernel", "reason"))
+    sampled = reg.counter(
+        "client_tpu_goodput_sampled_dispatches_total",
+        "Dispatches additionally timed by the opt-in synchronous "
+        "sampling mode (a CUDA event recorded behind the dispatch's "
+        "kernels, waited on)", ml)
+    sampling_share = reg.gauge(
+        "client_tpu_goodput_sampling_share",
+        "Fraction of dispatches synchronously sampled (bounded by "
+        "1/sample_every; 0 when sampling is off)", ml)
+    useful_share = reg.gauge(
+        "client_tpu_goodput_useful_flop_share",
+        "useful / (useful + wasted) FLOPs over the engine lifetime — "
+        "the goodput ratio the profiler gate watches", ml)
+    device_share = reg.gauge(
+        "client_tpu_goodput_device_time_share",
+        "Attributed device seconds over engine wall seconds "
+        "(1 - idle share)", ml)
+    # advertise only what can move: MFU needs a known peak denominator
+    has_peak = any(s.get("peak_flops") for _, _, s in gp_entries)
+    mfu = peak_g = None
+    if has_peak:
+        mfu = reg.gauge(
+            "client_tpu_goodput_mfu",
+            "Live model FLOP utilization: useful FLOPs/s over the "
+            "sliding rate window divided by the card's dense peak "
+            "FLOPs (absent on the CPU / unknown cards)", ml)
+        peak_g = reg.gauge(
+            "client_tpu_goodput_device_peak_flops",
+            "Dense bf16 peak FLOP/s of the engine's card (the MFU "
+            "denominator)", ml)
+    for name, version, snap in gp_entries:
+        for kind, n in (snap.get("dispatches") or {}).items():
+            dispatches.labels(name, version, kind).set(n)
+        for kind, ns in (snap.get("device_ns") or {}).items():
+            dev_s.labels(name, version, kind).set(ns / 1e9)
+        for kind, (counts, sum_s, count) in \
+                (snap.get("device_time_hist") or {}).items():
+            dev_h.labels(name, version, kind).load(counts, sum_s, count)
+        for kind, flops in (snap.get("useful_flops") or {}).items():
+            useful.labels(name, version, kind).set(flops)
+        for kind, reasons in (snap.get("wasted_flops") or {}).items():
+            for reason, flops in reasons.items():
+                wasted.labels(name, version, kind, reason).set(flops)
+        sampled.labels(name, version).set(snap.get("sampled_total", 0))
+        sampling_share.labels(name, version) \
+            .set(snap.get("sampling_share", 0.0))
+        useful_share.labels(name, version) \
+            .set(snap.get("useful_flop_share", 1.0))
+        device_share.labels(name, version) \
+            .set(snap.get("device_time_share", 0.0))
+        if has_peak and snap.get("peak_flops"):
+            peak_g.labels(name, version).set(snap["peak_flops"])
+            mfu.labels(name, version).set(snap.get("mfu") or 0.0)
 
 
 def _collect_slo(reg: MetricsRegistry, slo_entries: list) -> None:

@@ -29,6 +29,12 @@ from collections import deque
 
 import torch
 
+# the reference's compile-duration grid (seconds), shared by the goodput
+# plane's per-kind device-time histogram (server/goodput.py); the compile
+# histogram that will render on it comes with the CUDA-graph compile set
+COMPILE_BUCKETS_S = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                     10.0, 30.0, 60.0)
+
 # the flight recorder keeps the last N engine iterations — enough to
 # reconstruct the seconds before a crash
 FLIGHT_RECORDER_CAP = 256

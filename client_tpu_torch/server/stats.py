@@ -209,9 +209,10 @@ class GenerationStats:
     ``prefix_saved_tokens`` (the allocator's evictions and commits are the
     ``RadixBlockIndex``'s), and the speculative verify rounds: draft
     tokens proposed, accepted and rejected, rounds, and rounds by
-    gamma-ladder rung, host-tier hits, and preemptions and resumes. The
-    reference's goodput counters wait for their slice. All mutators take
-    ns; the engine thread writes, any thread reads."""
+    gamma-ladder rung, host-tier hits, preemptions and resumes, and the
+    goodput plane's roll-up of attributed model FLOPs, useful against
+    wasted (``server/goodput.py`` keeps the per-kind split). All mutators
+    take ns; the engine thread writes, any thread reads."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -254,6 +255,10 @@ class GenerationStats:
         # split is its SchedStats')
         self.preemptions = 0
         self.resumes = 0
+        # the goodput plane's engine-level roll-up of its per-(kind,
+        # reason) FLOP decomposition
+        self.useful_flops = 0
+        self.wasted_flops = 0
 
     def record_queue_wait(self, ns: int, trace_id: str = "") -> None:
         with self._lock:
@@ -373,6 +378,14 @@ class GenerationStats:
         with self._lock:
             self.resumes += 1
 
+    def record_flops(self, useful: int, wasted: int = 0) -> None:
+        """Attribute one dispatch's (or one deferred retire's) model
+        FLOPs: ``useful`` advanced real streams, ``wasted`` went to
+        padding rows, rejected proposals, table slack or frozen riders."""
+        with self._lock:
+            self.useful_flops += max(0, int(useful))
+            self.wasted_flops += max(0, int(wasted))
+
     def snapshot(self) -> dict:
         with self._lock:
             return {
@@ -410,4 +423,6 @@ class GenerationStats:
                 "tier_hits": self.tier_hits,
                 "preemptions": self.preemptions,
                 "resumes": self.resumes,
+                "useful_flops": self.useful_flops,
+                "wasted_flops": self.wasted_flops,
             }

@@ -32,7 +32,10 @@ cross-process attachment's device copy held until the seqno moves. The
 observability plane: a paged round scraped over HTTP with tracing off and
 on, the same tokens and K2 launches in both. Supervision: a supervised
 paged engine killed mid-stream and rebuilt on the card serves the same
-tokens through K2, and the dead engine's device state is freed.
+tokens through K2, and the dead engine's device state is freed. The
+goodput plane: a sampled dispatch waits on a CUDA event recorded on its
+own stream, never on ``torch.cuda.synchronize()``, and a generator on the
+card registers the MFU pair with the card's peak.
 """
 
 import dataclasses
@@ -1163,3 +1166,94 @@ def test_supervised_restart_on_the_card_frees_the_dead_engine(card):
     finally:
         inj.clear()
         model.shutdown()
+
+
+def test_a_sampled_dispatch_waits_on_its_own_cuda_event(card, monkeypatch):
+    """The goodput plane's synchronous sample on the card: it waits for
+    the work enqueued on the dispatching stream (a chain of bf16 matmuls,
+    tens of ms) through a CUDA event recorded on that stream (here a side
+    stream, the dispatching thread's current one), and never calls
+    ``torch.cuda.synchronize()``, which would wait for every stream."""
+    import time
+
+    from client_tpu_torch.server.goodput import GoodputTracker
+
+    a = torch.randn(8192, 8192, device=card, dtype=torch.bfloat16)
+
+    def busy(n):
+        x = a
+        for _ in range(n):
+            x = (x @ a) * 1e-3
+        return x
+
+    busy(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    busy(20)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    recorded = []
+    record = torch.cuda.Event.record
+
+    def spy(self, stream=None):
+        recorded.append(stream)
+        return record(self, stream)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the sample called torch.cuda.synchronize()")
+
+    monkeypatch.setattr(torch.cuda.Event, "record", spy)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    tracker = GoodputTracker(sample_every=1)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        t0 = time.perf_counter()
+        out = busy(20)
+        enqueued = time.perf_counter() - t0
+        tracker.note_dispatch("chunk", outputs={"ring_cnt": out})
+        waited = time.perf_counter() - t0
+    assert side.query()
+    snap = tracker.snapshot()
+    assert tracker.event_blocks == 1 and snap["sampled_total"] == 1
+    assert recorded == [side]
+    assert enqueued < chain_s / 2 < waited
+    assert snap["sampled_ewma_ns"]["chunk"] > (chain_s / 2 - enqueued) * 1e9
+
+
+def test_goodput_on_the_card_registers_the_mfu_pair(card):
+    """A small paged generator on the card sampling every 2nd dispatch:
+    the tokens equal an unsampled engine's, every sample waited on a CUDA
+    event, and ``/metrics`` carries the MFU pair with the card's peak."""
+    from client_tpu_torch.models.decoder_lm import make_continuous_generator
+    from client_tpu_torch.perf.bench_harness import card_peaks
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server import metrics as tm
+
+    cfg, params = _lane_model()
+    prompt = np.arange(1, 20, dtype=np.int32)
+    streams, engines = [], []
+    core = TorchInferenceServer()
+    for every in (0, 2):
+        model = make_continuous_generator(
+            f"lm{every}", cfg=cfg, params=params, n_slots=4, chunk_size=4,
+            kv_layout="paged", kv_block_len=8, device="cuda",
+            device_time_sample_every=every)
+        core.register_model(model)
+        streams.append(list(model.engine.submit(prompt, 30)))
+        engines.append(model.engine)
+    try:
+        text = core.metrics_text()
+    finally:
+        core.stop()
+    assert streams[0] == streams[1] and len(streams[0]) == 30
+    snap = engines[1].goodput.snapshot()
+    assert snap["sampled_total"] > 0
+    assert engines[1].goodput.event_blocks == snap["sampled_total"]
+    assert engines[0].goodput.snapshot()["sampled_total"] == 0
+    peak = card_peaks(torch.cuda.get_device_name(0))[1]
+    parsed = tm.parse_prometheus_text(text)
+    for name in ("lm0", "lm2"):
+        assert tm.sample_value(parsed, "client_tpu_goodput_device_peak_"
+                               "flops", {"model": name}) == peak
+        assert tm.sample_value(parsed, "client_tpu_goodput_mfu",
+                               {"model": name}) > 0

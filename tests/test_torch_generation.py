@@ -197,8 +197,7 @@ def test_concurrent_submitters_stress(model):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("engine_devices", (0,), "A12"), ("mesh", object(), "A12"),
-    ("device_time_sample_every", 4, "A13")])
+    ("engine_devices", (0,), "A12"), ("mesh", object(), "A12")])
 def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                                         item):
     _, _, tcfg, tparams = model
@@ -210,6 +209,37 @@ def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                   **{knob: value})
     with pytest.raises(TypeError, match="unknown"):
         ContinuousBatchingEngine(tcfg, tparams, device="cpu", bogus=1)
+
+
+def test_ported_goodput_knob_builds_engines(model):
+    """``device_time_sample_every``, no longer refused, builds an engine
+    and a generator that serve a stream; every 4th dispatch of a kind is
+    sampled (on the CPU the wait is a no-op), and the tokens are those of
+    an engine that samples nothing."""
+    _, _, tcfg, tparams = model
+    prompt = np.asarray([3, 17, 42], np.int32)
+    eng = ContinuousBatchingEngine(tcfg, tparams, device="cpu",
+                                   device_time_sample_every=4)
+    gen = make_continuous_generator(cfg=tcfg, params=tparams, device="cpu",
+                                    device_time_sample_every=4)
+    plain = ContinuousBatchingEngine(tcfg, tparams, device="cpu")
+    try:
+        toks = list(eng.submit(prompt, 40))
+        gen_toks = list(gen.engine.submit(prompt, 40))
+        plain_toks = list(plain.submit(prompt, 40))
+    finally:
+        for e in (eng, gen.engine, plain):
+            e.stop()
+    assert toks == gen_toks == plain_toks and len(toks) == 40
+    for e in (eng, gen.engine):
+        gp = e.goodput.snapshot()
+        assert gp["sample_every"] == 4
+        assert gp["sampled"] == {
+            k: n // 4 for k, n in gp["dispatches"].items() if n >= 4}
+        assert gp["sampled_total"] >= 1 and e.goodput.event_blocks == 0
+    assert plain.goodput.snapshot()["sampled_total"] == 0
+    assert "device_time_sample_every" not in gen.config.to_json()[
+        "generation_engine"]
 
 
 @pytest.mark.parametrize("knob", [

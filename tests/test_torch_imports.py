@@ -77,7 +77,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.server.runtime_stats",
                      "client_tpu_torch.server.faultinject",
                      "client_tpu_torch.server.watchdog",
-                     "client_tpu_torch.server.supervision"):
+                     "client_tpu_torch.server.supervision",
+                     "client_tpu_torch.server.goodput",
+                     "client_tpu_torch.server.timeline"):
         assert expected in result["modules"]
 
 

@@ -9,11 +9,10 @@
   package's core. The reference's naming lint
   (``scripts/check_metrics_names.py:check``, imported, not edited) finds
   nothing in the port's text; the port's family set equals the reference's
-  (the watchdog and, under supervision, the restart families included)
-  less the families of the planes the port has not ported yet (goodput,
-  and the runtime namespace, which the lint makes all or nothing: the
-  memory gauges need the compile set the port does not have), which are
-  absent, not zero; and the counters the
+  (the watchdog, the goodput families and, under supervision, the
+  restart families included) less the runtime namespace, which the lint
+  makes all or nothing (the memory gauges need the compile set the port
+  does not have), and which is absent, not zero; and the counters the
   parity tests hold equal (tokens, completions, prefix hits and saved
   tokens, handoffs, speculation rounds and accepted tokens, request
   successes) render equal.
@@ -48,9 +47,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir,
 import check_metrics_names  # noqa: E402  (the reference's lint)
 
 MODS = {"ref": jm, "port": tm}
-# the families of planes the port has not ported yet (ROADMAP A13c, and the
-# runtime namespace with the compile set)
-ABSENT = ("client_tpu_goodput_", "client_tpu_runtime_")
+# the families of the plane the port has not ported yet (the runtime
+# namespace, which comes with the compile set)
+ABSENT = ("client_tpu_runtime_",)
 COUNTERS = (
     "client_tpu_generation_tokens_total",
     "client_tpu_generation_requests_total",
