@@ -150,7 +150,10 @@ each printing one JSON line:
              plain decode (the floor or the max_seq edge); a fifth run,
              spec_slot_stride1, repeats spec_slot with one ring fetch per
              dispatch. Profiles one greedy gamma-12 round outside the
-             engine (launches, host ms, device busy ms).
+             engine (launches, host ms, device busy ms), on the slot layout
+             and on the paged layout with 8 of the 16 slots in the round
+             (the verify runs all 16 rows, the others into the scratch
+             block), and prints spec_paged's host ms per verify dispatch.
 12. schedule
              the SLO scheduler and the host tier at the same width:
              preemption on both layouts (bench.py's 32 jobs as bronze, 8
@@ -232,8 +235,9 @@ each printing one JSON line:
              unload and a load restore readiness. (d) a kernel_delay fault
              holds one dispatch 5.5 s, past the default stall wall:
              engine_stall fires once, its bundle has a flight tail, and
-             every traced stream carries the INCIDENT span. (h) POST
-             /v2/debug/profile captures 1 s while bench.py's jobs run
+             every traced stream carries the INCIDENT span. (h) in a
+             process of its own (``chip_smoke.py --profile-process``),
+             POST /v2/debug/profile captures 1 s while bench.py's jobs run
              round after round, and the trace names K2. (e) the same 32 jobs unsupervised, the
              watchdog on and off alternately, twice each, with tokens/s,
              host ms per dispatch and the host µs of each watchdog tick
@@ -262,6 +266,30 @@ each printing one JSON line:
              streaming mode (16 streams) over the shared-prefix workload on
              the paged layout with the prefix cache: its goodput deltas
              (more than 0) and the goodput floor's verdict (0.5).
+17. client   the client library and the perf analyzer's network side:
+             the BERT-base encoder (seed 0, K1) and add_sub behind
+             TorchInferenceServer and the HTTP front end in this process,
+             driven from a separate process (``chip_smoke.py
+             --client-process``, which imports only client_tpu_torch):
+             24 binary requests through urllib (a connection each, the
+             bare socket), 24 binary (8 through async_infer) and 24 JSON
+             requests through client_tpu_torch.client.http, 24 requests
+             whose input and output are CUDA shm regions the process
+             created and registered (each output read back with
+             get_contents_as_numpy after its seqno moved), and the control
+             plane (health, metadata, config, statistics, the regions'
+             status and unregister, a TPU verb's 400); then ``python -m
+             client_tpu_torch.perf`` over HTTP with CUDA shm regions at
+             concurrency 8 and at half its measured rate, each exiting 0
+             with no failed request; then simple_http_cudashm_client's
+             flow on add_sub with regions of this process. Every embedding
+             is held against the plain attention's forward (embed_bound),
+             K1 must launch 12 times per batch over the phase, the server
+             must count the client process's successes, the client's
+             regions must resolve cross-process and the example's in
+             process. Prints, per arm, client-side infer/s, p50/p99 ms, the
+             server's completions/s and mean batch size over the same
+             window, and the client's host µs per request.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -277,6 +305,7 @@ import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1990,18 +2019,32 @@ def _spec_settled(engine) -> dict:
                           if engine._paged else None)}
 
 
-def _spec_round_profile(cfg, params, draft) -> dict:
-    """One greedy gamma-12 verify round of the slot layout outside the
-    engine, at full width (16 slots mid-context): its host time, its
-    stream time between CUDA events, and by torch.profiler its device busy
-    time and kernel launches, as _dispatch_profile takes a chunk's."""
+def _spec_round_profile(cfg, params, draft, paged: bool = False) -> dict:
+    """One greedy gamma-12 verify round outside the engine, at full width
+    (16 slots mid-context): on the slot layout with every slot in the
+    round, or with ``paged`` on the paged layout (tables of 12 blocks)
+    with every other slot in the round, so the verify also runs the 8
+    slots outside it into the scratch block (ROADMAP C8). Its host time,
+    its stream time between CUDA events, and by torch.profiler its device
+    busy time and kernel launches, as _dispatch_profile takes a chunk's."""
     from torch.profiler import ProfilerActivity, profile
 
     from client_tpu_torch.models.transformer import init_decode_state
-    from client_tpu_torch.server.generation import spec_round
+    from client_tpu_torch.server.generation import (
+        paged_spec_round,
+        spec_round,
+    )
+    from client_tpu_torch.server.kv_cache import init_paged_pool
 
     s, dev = GEN_SLOTS, "cuda"
-    cache = init_decode_state(cfg, s, dev)
+    nb = GEN_MAX_SEQ // GEN_BLOCK
+    if paged:
+        pool = init_paged_pool(cfg, GEN_POOL, GEN_BLOCK, dev)
+        tables = (1 + torch.arange(s * nb, device=dev)).reshape(s, nb).to(
+            torch.int32)
+        rows = torch.arange(0, s, 2, device=dev)
+    else:
+        cache = init_decode_state(cfg, s, dev)
     dstate = init_decode_state(draft.cfg, s, dev)
     dcache = {"k": dstate["k"], "v": dstate["v"]}
     pos = torch.full((s,), 96, dtype=torch.int32, device=dev)
@@ -2014,6 +2057,12 @@ def _spec_round_profile(cfg, params, draft) -> dict:
     cnt = torch.zeros((4, s), dtype=torch.int32, device=dev)
 
     def round_():
+        if paged:
+            n = rows.shape[0]
+            return paged_spec_round(
+                cfg, draft.cfg, params, draft.params, pool, pos, dcache,
+                pos.clone(), last, ring, cnt, 0, tables, rows,
+                (zi[:n], zf[:n], zi[:n], zf[:n]), SPEC_GAMMA, False)
         return spec_round(cfg, draft.cfg, params, draft.params, cache, pos,
                           dcache, pos.clone(), last, ring, cnt, 0, None,
                           (zi, zf, zi, zf), SPEC_GAMMA, False)
@@ -2040,7 +2089,9 @@ def _spec_round_profile(cfg, params, draft) -> dict:
                            getattr(evt, "self_cuda_time_total", 0.0))
         if evt.key.startswith("cudaLaunchKernel"):
             launches += evt.count
-    return {"layout": "slot", "gamma": SPEC_GAMMA, "host_ms": host_ms,
+    return {"layout": "paged" if paged else "slot",
+            "slots_in_round": s // 2 if paged else s,
+            "gamma": SPEC_GAMMA, "host_ms": host_ms,
             "event_ms": event_ms,
             "device_busy_ms": busy_us / 1e3 if busy_us else None,
             "kernel_launches": launches}
@@ -2178,9 +2229,14 @@ def phase_speculate(gen_model: tuple) -> dict:
             run["continuous_batching_ragged_tokens_per_s"]
             / off["continuous_batching_ragged_tokens_per_s"])
     profile = _spec_round_profile(cfg, target, draft)
+    paged_profile = _spec_round_profile(flash, target, draft, paged=True)
     result = {"phase": "speculate", "gamma": SPEC_GAMMA,
               "draft_layers": SPEC_DRAFT_LAYERS, "damp": SPEC_DAMP,
               "runs": runs, "standalone_round": profile,
+              "standalone_paged_round": paged_profile,
+              # the paged run's verify rounds run all 16 rows (C8)
+              "spec_paged_host_ms_per_verify_dispatch":
+                  paged["host_ms_per_dispatch_by_kind"].get("spec"),
               "seconds": {"serve": t1 - t0, "judge": t2 - t1,
                           "profile": time.time() - t2}}
     emit(result)
@@ -2934,7 +2990,9 @@ def phase_observe(gen_model: tuple) -> dict:
 # 5 s stall wall), the streams that must be decoding before the crash, the
 # encoder requests read beside the LM, the profile's capture
 SUP_BACKOFF_S, SUP_MAX_FAILURES, STALL_DELAY_S = 0.05, 3, 5.5
-SUP_DECODING, SUP_ENCODER_REQUESTS, PROFILE_S = 8, 24, 1.0
+SUP_DECODING, SUP_ENCODER_REQUESTS, PROFILE_S, PROFILE_TRIES = 8, 24, 1.0, 3
+# the profile process's limit: CUDA start, the model, warmup, the captures
+PROFILE_PROCESS_S = 300
 # the stalled streams' budget: with a prompt of 8 to 63 tokens each takes
 # 8 to 12 chunk dispatches, so each still holds its slot when the delay
 # lands, one or two dispatches after the STALL_AFTER-th (80 ms or more of
@@ -3036,7 +3094,8 @@ def _supervise_serve(gen_model: tuple, tmp: str) -> dict:
     """The supervised paged LM beside the encoder in one server with the
     debug endpoints: (g) the runtime ledger after 24 encoder requests, (a)
     the clean run, (b) one crash and the retries, (c) the breaker and (f)
-    its /metrics, an unload and a load, (d) a stall, (h) a profile."""
+    its /metrics, an unload and a load, (d) a stall, (h) a profile (by a
+    server in a process of its own)."""
     import dataclasses
 
     from client_tpu_torch.models.decoder_lm import make_continuous_generator
@@ -3329,10 +3388,62 @@ def _supervise_serve(gen_model: tuple, tmp: str) -> dict:
                         "traces_with_incident": len(marked),
                         "counts": counts}
 
-        # (h) a profile of PROFILE_S while bench.py's jobs run, round after
-        # round from before the capture starts until it has returned (the
-        # profiler takes a while to start on a busy host): it names K2
-        log_dir = os.path.join(tmp, "profile")
+        # (h) a profile naming K2, taken by a server in a process of its
+        # own (see _profile_process)
+        out["profile"] = _profile_in_own_process(os.path.join(tmp,
+                                                              "profile"))
+    finally:
+        inj.clear()
+        http.stop()
+        core.stop()
+    return out
+
+
+def _profile_in_own_process(log_dir: str) -> dict:
+    """Run supervise's (h) as ``chip_smoke.py --profile-process`` and
+    return its captures; a non-zero exit or a timeout fails the phase."""
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--profile-process", json.dumps({"log_dir": log_dir})],
+            cwd=REPO, capture_output=True, text=True,
+            timeout=PROFILE_PROCESS_S)
+    except subprocess.TimeoutExpired:
+        fail(f"supervise: the profile process ran past {PROFILE_PROCESS_S} s")
+    if proc.returncode != 0:
+        fail(f"supervise: the profile process exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _profile_process(args: dict) -> int:
+    """Supervise's (h) in a process of its own (``chip_smoke.py
+    --profile-process <json>``): the paged LM with K2 behind a server with
+    the debug endpoints, bench.py's jobs run round after round from before
+    the capture starts until it has returned (the profiler takes a while
+    to start on a busy host), and POST /v2/debug/profile captures
+    PROFILE_S: the trace names K2. A process of its own, since under
+    torch.profiler CUPTI can stop delivering kernel records for the rest of
+    a process that has taken captures while other threads launched
+    kernels (the host's launches are still recorded), and this script
+    profiles much before this phase. Prints one JSON line."""
+    import dataclasses
+
+    from client_tpu_torch.models.decoder_lm import make_continuous_generator
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server.http_server import HttpInferenceServer
+
+    cfg, params, jobs = _generation_model()
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    model = make_continuous_generator(
+        "continuous_lm", cfg=cfg, params=params, n_slots=GEN_SLOTS,
+        chunk_size=GEN_CHUNK, dispatch_depth=2, max_new_tokens=128,
+        kv_layout="paged", kv_block_len=GEN_BLOCK, device="cuda")
+    core = TorchInferenceServer()
+    core.register_model(model, warmup=True)
+    http = HttpInferenceServer(core, port=0, debug_endpoints=True).start()
+    base = f"http://{http.url}"
+    try:
         engine = model.engine
         c0 = engine._chunks_dispatched
         stop, rounds = threading.Event(), []
@@ -3341,31 +3452,36 @@ def _supervise_serve(gen_model: tuple, tmp: str) -> dict:
             while not stop.is_set():
                 rounds.append(_retrying_jobs(core, jobs, "supervise_prof"))
 
-        runner = threading.Thread(target=load)
+        runner = threading.Thread(target=load, daemon=True)
         runner.start()
         if not _wait_for(lambda: engine._chunks_dispatched > c0, 120):
             fail("supervise: no stream started before the profile")
         # torch.profiler may record no kernel in a capture (device_ms
-        # above meets the same and profiles again): up to 3 captures,
-        # each counted
+        # meets the same and profiles again): up to PROFILE_TRIES
+        # captures, each counted with the engine's dispatches over its
+        # request and its events by category, so a capture that lost the
+        # card's activity (host launches, no kernel) shows as such
         captures = []
-        for k in range(3):
-            cap_dir = os.path.join(log_dir, str(k))
-            t0 = time.time()
+        for k in range(PROFILE_TRIES):
+            cap_dir = os.path.join(args["log_dir"], str(k))
+            d0, t0 = engine._chunks_dispatched, time.time()
             _post(base + "/v2/debug/profile", json.dumps(
                 {"log_dir": cap_dir, "duration_s": PROFILE_S}).encode(),
                 {"Content-Type": "application/json"})
             files = [os.path.join(r, f) for r, _d, fs in os.walk(cap_dir)
                      for f in fs if f.endswith(".pt.trace.json")]
-            named = kernels = 0
+            named, cats = 0, {}
             for path in files:
                 with open(path) as fh:
                     text = fh.read()
                 named += text.count(K2_KERNEL)
-                kernels += text.count('"cat": "kernel"')
+                for cat in re.findall(r'"cat": "([^"]+)"', text):
+                    cats[cat] = cats.get(cat, 0) + 1
             captures.append({
                 "files": len(files), "k2_events": named,
-                "kernel_events": kernels, "request_s": time.time() - t0,
+                "kernel_events": cats.get("kernel", 0),
+                "dispatches": engine._chunks_dispatched - d0,
+                "events_by_cat": cats, "request_s": time.time() - t0,
                 "bytes": sum(os.path.getsize(f) for f in files)})
             if named:
                 break
@@ -3376,12 +3492,12 @@ def _supervise_serve(gen_model: tuple, tmp: str) -> dict:
         if not captures[-1]["k2_events"]:
             fail(f"supervise: no profile named K2: {captures}, over "
                  f"{len(rounds)} rounds of jobs")
-        out["profile"] = {"captures": captures, "job_rounds": len(rounds)}
+        result = {"captures": captures, "job_rounds": len(rounds)}
     finally:
-        inj.clear()
         http.stop()
         core.stop()
-    return out
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def _wait_for(predicate, timeout_s: float) -> bool:
@@ -3818,6 +3934,383 @@ def phase_goodput(gen_model: tuple) -> dict:
     return result
 
 
+# client: the encoder requests each arm of the separate client process
+# sends (bare socket, client library binary of which ASYNC_CALLS through
+# async_infer, client library JSON, CUDA shm), and the perf CLI's window,
+# concurrency and trial cap
+CLIENT_CALLS, CLIENT_ASYNC_CALLS = 24, 8
+CLIENT_PERF_MS, CLIENT_PERF_CONCURRENCY, CLIENT_PERF_TRIALS = 2000, 8, 5
+CLIENT_SEED = 5
+# the device of every CUDA shm region the phase makes (None: the card)
+CLIENT_DEVICE = None
+CLIENT_EMBED_BYTES = 768 * 4      # one pooled FP32 embedding
+
+
+def _client_tokens(seed: int, n: int) -> np.ndarray:
+    """The client phase's token rows [n, 1, 128], made alike in the
+    client process and in this one."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 30528, size=(n, 1, 128)).astype(np.int32)
+
+
+def _lat_summary(lat_s: list) -> dict:
+    ms = np.asarray(lat_s) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def _client_process(args: dict) -> int:
+    """The client phase's separate process (``chip_smoke.py
+    --client-process <json>``), which imports only client_tpu_torch: the
+    bare-socket arm (urllib, one request per connection), the client
+    library over HTTP (binary, async_infer, JSON), the client library over
+    two CUDA shm regions it creates and registers (input tokens, output
+    embeddings, read back with get_contents_as_numpy after a seqno check),
+    and the control plane. Writes every embedding to ``out_dir`` and
+    prints one JSON line of per-arm numbers; any failed check raises."""
+    from client_tpu_torch.client import http as httpclient
+    from client_tpu_torch.utils import InferenceServerException
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    url, n = args["url"], CLIENT_CALLS
+    toks = _client_tokens(args["seed"], 4 * n)
+    bare_t, bin_t, json_t, shm_t = (toks[i * n:(i + 1) * n]
+                                    for i in range(4))
+    client = httpclient.InferenceServerClient(url, concurrency=8)
+
+    def stats():
+        return client.get_inference_statistics(
+            "bert_base")["model_stats"][0]
+
+    def arm(fn) -> tuple:
+        """fn() -> per-request latencies; the arm's client-side rate and
+        latency, the server's completions/s and mean batch size over the
+        same window (the statistics extension), and the client's host
+        (CPU) µs per request."""
+        s0, c0, t0 = stats(), time.process_time(), time.perf_counter()
+        lat = fn()
+        wall, cpu = time.perf_counter() - t0, time.process_time() - c0
+        s1 = stats()
+        inf = s1["inference_count"] - s0["inference_count"]
+        execs = s1["execution_count"] - s0["execution_count"]
+        return {"requests": len(lat), "client_infer_per_s": len(lat) / wall,
+                **_lat_summary(lat), "server_inferences": inf,
+                "server_completions_per_s": inf / wall,
+                "mean_batch_size": inf / execs if execs else None,
+                "client_host_us_per_request": cpu / len(lat) * 1e6,
+                "wall_s": wall}
+
+    def timed(call) -> float:
+        t = time.perf_counter()
+        call()
+        return time.perf_counter() - t
+
+    got = {"bare": [], "binary": [None] * n, "json": [], "shm": []}
+    infer_url = f"http://{url}/v2/models/bert_base/infer"
+
+    def bare():
+        return [timed(lambda i=i: got["bare"].append(
+            _infer_binary(infer_url, bare_t[i]))) for i in range(n)]
+
+    def library():
+        lat = []
+        for i in range(n - CLIENT_ASYNC_CALLS):
+            x = httpclient.InferInput("input_ids", [1, 128], "INT32")
+            x.set_data_from_numpy(bin_t[i])
+            lat.append(timed(lambda: got["binary"].__setitem__(
+                i, client.infer("bert_base", [x]).as_numpy("embedding"))))
+        done = {}
+        pending = []
+        for i in range(n - CLIENT_ASYNC_CALLS, n):
+            x = httpclient.InferInput("input_ids", [1, 128], "INT32")
+            x.set_data_from_numpy(bin_t[i])
+            pending.append((i, time.perf_counter(), client.async_infer(
+                "bert_base", [x], callback=lambda r, e, i=i: done.setdefault(
+                    i, (time.perf_counter(), e)))))
+        for i, t, req in pending:
+            got["binary"][i] = req.get_result(timeout=120).as_numpy(
+                "embedding")
+            end, err = done[i]
+            if err is not None:
+                raise err
+            lat.append(end - t)
+        out = httpclient.InferRequestedOutput("embedding", binary_data=False)
+        for i in range(n):
+            x = httpclient.InferInput("input_ids", [1, 128], "INT32")
+            x.set_data_from_numpy(json_t[i], binary_data=False)
+            lat.append(timed(lambda: got["json"].append(client.infer(
+                "bert_base", [x], outputs=[out]).as_numpy("embedding"))))
+        return lat
+
+    in_h = cudashm.create_shared_memory_region("client_in", n * 512, 0,
+                                               device=args["device"])
+    out_h = cudashm.create_shared_memory_region(
+        "client_out", n * CLIENT_EMBED_BYTES, 0, device=args["device"])
+    seqnos = []
+    # the regions' set-up (this process's first device copy) stays out
+    # of the timed arm
+    cudashm.set_shared_memory_region(in_h, [shm_t])
+    client.register_cuda_shared_memory(
+        "client_in", cudashm.get_raw_handle(in_h), in_h.device_id, n * 512)
+    client.register_cuda_shared_memory(
+        "client_out", cudashm.get_raw_handle(out_h), out_h.device_id,
+        n * CLIENT_EMBED_BYTES)
+
+    def shm():
+        lat = []
+        for i in range(n):
+            x = httpclient.InferInput("input_ids", [1, 128], "INT32")
+            x.set_shared_memory("client_in", 512, i * 512)
+            y = httpclient.InferRequestedOutput("embedding")
+            y.set_shared_memory("client_out", CLIENT_EMBED_BYTES,
+                                i * CLIENT_EMBED_BYTES)
+            before = out_h.seqno()
+            lat.append(timed(lambda: client.infer("bert_base", [x],
+                                                  outputs=[y])))
+            after = out_h.seqno()
+            if after <= before:
+                raise RuntimeError(f"shm request {i}: the output region's "
+                                   f"seqno read {after} after the server's "
+                                   f"write (before it: {before})")
+            seqnos.append(after)
+            got["shm"].append(np.array(cudashm.get_contents_as_numpy(
+                out_h, np.float32, (1, 768),
+                offset=i * CLIENT_EMBED_BYTES)))
+        return lat
+
+    result = {"bare_socket": arm(bare), "library": arm(library),
+              "shm": arm(shm)}
+    # (d) the control plane
+    status = client.get_cuda_shared_memory_status()
+    names = sorted(r["name"] for r in status)
+    meta = client.get_model_metadata("bert_base")
+    config = client.get_model_config("bert_base")
+    control = {"live": client.is_server_live(),
+               "ready": client.is_server_ready(),
+               "model_ready": client.is_model_ready("bert_base"),
+               "metadata_inputs": [i["name"] for i in meta["inputs"]],
+               "config_max_batch_size": config.get("max_batch_size"),
+               # (the all-models form, /v2/models/stats, reads as a model
+               # named "stats" on both packages' servers)
+               "statistics_inferences": stats()["inference_count"],
+               "cuda_shm_regions": names}
+    client.unregister_cuda_shared_memory("client_in")
+    client.unregister_cuda_shared_memory("client_out")
+    control["cuda_shm_regions_after_unregister"] = sorted(
+        r["name"] for r in client.get_cuda_shared_memory_status())
+    try:
+        client.get_tpu_shared_memory_status()
+        control["tpu_verb_status"] = "200"
+    except InferenceServerException as e:
+        control["tpu_verb_status"] = e.status()
+        control["tpu_verb_error"] = e.message()
+    result["control"] = control
+    result["shm"]["output_seqnos"] = seqnos
+    cudashm.destroy_shared_memory_region(in_h)
+    cudashm.destroy_shared_memory_region(out_h)
+    client.close()
+    np.savez(os.path.join(args["out_dir"], "embeddings.npz"),
+             **{k: np.concatenate(v) for k, v in got.items()})
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+_PERF_PATTERNS = {
+    "client_infer_per_s": r"Throughput: ([\d.]+) infer/sec",
+    "request_count": r"Request count: (\d+)",
+    "p50_us": r"p50 latency: (\d+) usec",
+    "p99_us": r"p99 latency: (\d+) usec",
+    "server_inference_count": r"Inference count: (\d+)",
+    "server_execution_count": r"Execution count: (\d+)",
+    "server_completions_per_s": r"Inferences/sec: ([\d.]+)",
+    "client_rejected": r"Rejected count \(client\): (\d+)",
+}
+
+
+def _perf_cli(core, url: str, extra: list) -> dict:
+    """One ``python -m client_tpu_torch.perf`` run against the encoder
+    over HTTP with CUDA shm regions, in its own process: the report's
+    numbers, the server's inferences and failures over the whole run, and
+    the CLI process's host (CPU) µs per server inference over the whole
+    run, its start (imports, the CUDA context, the regions) included."""
+    import re
+    import resource
+
+    cmd = [sys.executable, "-m", "client_tpu_torch.perf", "-m", "bert_base",
+           "-u", url, "-i", "http", "--shared-memory", "cuda",
+           "-p", str(CLIENT_PERF_MS), "-r", str(CLIENT_PERF_TRIALS),
+           *(["--device", CLIENT_DEVICE] if CLIENT_DEVICE else []), *extra]
+    s0 = _stats(core, "bert_base")
+    r0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.time()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    wall = time.time() - t0
+    r1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    s1 = _stats(core, "bert_base")
+    if out.returncode != 0:
+        fail(f"client: {' '.join(cmd[1:])} exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    nums = {}
+    for key, pat in _PERF_PATTERNS.items():
+        m = re.search(pat, out.stdout)
+        nums[key] = float(m.group(1)) if m else None
+    if nums["client_infer_per_s"] is None or nums["p99_us"] is None:
+        fail(f"client: no report from the perf CLI: {out.stdout[-2000:]}")
+    inferences = s1["inference_count"] - s0["inference_count"]
+    failed = (s1["inference_stats"]["fail"]["count"]
+              - s0["inference_stats"]["fail"]["count"])
+    cpu = (r1.ru_utime + r1.ru_stime) - (r0.ru_utime + r0.ru_stime)
+    return {"args": cmd[4:], **nums,
+            "p50_ms": nums["p50_us"] / 1e3, "p99_ms": nums["p99_us"] / 1e3,
+            "mean_batch_size": (nums["server_inference_count"]
+                                / nums["server_execution_count"]
+                                if nums["server_execution_count"] else None),
+            "stabilized": "did not stabilize" not in out.stdout,
+            "run_server_inferences": inferences,
+            "run_failed_requests": failed,
+            "client_host_us_per_request_with_start":
+                cpu / max(1, inferences) * 1e6,
+            "wall_s": wall}
+
+
+def phase_client() -> dict:
+    """The client library and the perf analyzer's network side, from a
+    separate process, against the BERT-base encoder (seed 0, K1) behind
+    TorchInferenceServer and the HTTP front end; add_sub's CUDA shm
+    example in this process."""
+    import contextlib
+    import io
+    import tempfile
+
+    from client_tpu_torch.examples import simple_http_cudashm_client
+    from client_tpu_torch.models import make_add_sub
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.perf.bench_harness import build_bert_encoder
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server.http_server import HttpInferenceServer
+
+    seq, bucket, n = 128, 256, CLIENT_CALLS
+    cache: dict = {}
+    model = build_bert_encoder(seq, bucket, attn_impl="flash",
+                               params_cache=cache, seed=0)
+    ref_model = build_bert_encoder(seq, bucket, attn_impl="ref",
+                                   params_cache=cache)
+    core = TorchInferenceServer()
+    core.register_model(model, warmup=True)
+    core.register_model(make_add_sub())
+    # which attachment each registration resolved to, read as it lands
+    kinds: dict = {}
+    register = core.cuda_shm.register
+
+    def recording(name, raw_handle, device_id, byte_size):
+        register(name, raw_handle, device_id, byte_size)
+        kinds[name] = type(core.cuda_shm.try_attachment(name)).__name__
+
+    core.cuda_shm.register = recording
+    http = HttpInferenceServer(core, port=0).start()
+    url = http.url
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            # the main path: the K1 counter at 0 just before, read after
+            s0 = _stats(core, "bert_base")
+            fa.launches = 0
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                 "--client-process", json.dumps(
+                     {"url": url, "seed": CLIENT_SEED,
+                      "out_dir": out_dir, "device": CLIENT_DEVICE})],
+                cwd=REPO, capture_output=True, text=True, timeout=180)
+            process_s = time.time() - t0
+            s1 = _stats(core, "bert_base")
+            if proc.returncode != 0:
+                fail(f"client: the client process exited "
+                     f"{proc.returncode}: {proc.stderr[-3000:]}")
+            arms = json.loads(proc.stdout.strip().splitlines()[-1])
+            with np.load(os.path.join(out_dir, "embeddings.npz")) as z:
+                got = {k: z[k] for k in z.files}
+        # (c) the perf CLI, closed loop, then open loop at half its rate
+        perf = _perf_cli(core, url, ["--concurrency-range",
+                                     str(CLIENT_PERF_CONCURRENCY)])
+        rate = perf["client_infer_per_s"] / 2
+        perf_rate = _perf_cli(core, url,
+                              ["--request-rate-range", f"{rate:.1f}"])
+        s2 = _stats(core, "bert_base")
+        launches = fa.launches
+        # (e) the example's flow on add_sub, regions of this process
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            simple_http_cudashm_client.main(
+                ["-u", url]
+                + (["--device", CLIENT_DEVICE] if CLIENT_DEVICE else []))
+    finally:
+        http.stop()
+        core.stop()
+    execs = s2["execution_count"] - s0["execution_count"]
+    if launches != LAYERS * execs:
+        fail(f"client: {launches} flash_attention launches for {execs} "
+             f"batches, expected {LAYERS} per batch")
+    successes = sum(arms[a]["requests"] for a in
+                    ("bare_socket", "library", "shm"))
+    served = s1["inference_count"] - s0["inference_count"]
+    if served != successes or successes != 4 * n:
+        fail(f"client: the server counted {served} inferences for the "
+             f"client process's {successes} successes")
+    failed = (s2["inference_stats"]["fail"]["count"]
+              - s0["inference_stats"]["fail"]["count"])
+    for label, run in (("perf concurrency", perf), ("perf rate", perf_rate)):
+        if run["run_failed_requests"] or run["client_rejected"] \
+                or not run["request_count"]:
+            fail(f"client: {label}: {run}")
+    if failed:
+        fail(f"client: {failed} failed requests in the phase")
+    for name, want in (("client_in", "CrossProcessAttachment"),
+                       ("client_out", "CrossProcessAttachment"),
+                       ("example_cudashm", "InProcessAttachment"),
+                       ("example_cudashm_out", "InProcessAttachment")):
+        if kinds.get(name) != want:
+            fail(f"client: region {name} resolved to {kinds.get(name)}, "
+                 f"expected {want}")
+    if "PASS" not in printed.getvalue():
+        fail(f"client: the cudashm example said {printed.getvalue()!r}")
+    ctl = arms["control"]
+    if not (ctl["live"] and ctl["ready"] and ctl["model_ready"]) \
+            or ctl["metadata_inputs"] != ["input_ids"] \
+            or ctl["cuda_shm_regions"] != ["client_in", "client_out"] \
+            or ctl["cuda_shm_regions_after_unregister"] \
+            or ctl["tpu_verb_status"] != "400":
+        fail(f"client: the control plane read {ctl}")
+    # every embedding against the plain attention's forward
+    order = ("bare", "binary", "json", "shm")
+    toks = _client_tokens(CLIENT_SEED, 4 * n)
+    padded = np.zeros((bucket, seq), np.int32)
+    padded[:4 * n] = toks[:, 0]
+    want = ref_model.execute({"input_ids": padded})["embedding"][:4 * n]
+    served_embeds = np.concatenate([got[k] for k in order])
+    if served_embeds.shape != want.shape \
+            or not np.isfinite(served_embeds).all():
+        fail(f"client: embeddings of shape {served_embeds.shape}, "
+             f"expected {want.shape}")
+    check = embed_check(served_embeds, want)
+    if not check["rows_within"].all():
+        bad = [f"{order[i // n]} {i % n}"
+               for i in np.flatnonzero(~check["rows_within"])]
+        fail(f"client: embeddings {bad[:5]} differ from the plain "
+             f"attention's by {check['worst_err_over_bound']} of the bound")
+    result = {"phase": "client", "bare_socket": arms["bare_socket"],
+              "library": arms["library"], "shm": arms["shm"],
+              "perf_concurrency": perf, "perf_request_rate": perf_rate,
+              "control": ctl, "attachments": kinds,
+              "batches": execs, "flash_attention_launches": launches,
+              "embedding_max_abs_err_vs_ref": check["max_abs_err"],
+              "embedding_worst_err_over_bound":
+                  check["worst_err_over_bound"],
+              "client_process_s": process_s}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -3853,6 +4346,7 @@ def main() -> int:
     observe = timed("observe", phase_observe, gen_model)
     supervise = timed("supervise", phase_supervise, gen_model)
     goodput = timed("goodput", phase_goodput, gen_model)
+    client = timed("client", phase_client)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -3876,7 +4370,8 @@ def main() -> int:
                 "flash_attention_launches"],
             observe=observe["encoder"]["flash_attention_launches"],
             supervise_encoder=supervise["runtime"][
-                "flash_attention_launches"]),
+                "flash_attention_launches"],
+            client=client["flash_attention_launches"]),
         row("paged_decode_attention",
             "client_tpu_torch/ops/csrc/paged_attention.cu",
             "client_tpu/ops/paged_attention.py:52",
@@ -3919,4 +4414,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--client-process"]:
+        sys.path.insert(0, REPO)
+        sys.exit(_client_process(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--profile-process"]:
+        sys.path.insert(0, REPO)
+        sys.exit(_profile_process(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -2,14 +2,16 @@
 copy of ``client_tpu/perf/client_backend.py``.
 
 Load managers and the profiler consume only this interface; each service
-protocol plugs in underneath. The port has one backend so far:
+protocol plugs in underneath:
 
+- ``http`` / ``grpc``: the port's v2 protocol clients
+  (``client_tpu_torch.client``) over the network; ``grpc`` needs grpcio.
 - ``inprocess``: drives a ``TorchInferenceServer`` object directly — the
   no-RPC measurement path ``bench.py``'s headline point runs on.
 
-The network (``http``, ``grpc``) and foreign (``tfserve``,
-``torchserve``) kinds need the port's client library and raise
-``NotImplementedError`` naming its ROADMAP item (A17).
+The foreign kinds (``tfserve``, ``torchserve``) raise
+``NotImplementedError``: their backends (the reference's
+``perf/foreign/``) are still queued with the rest of ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ from client_tpu_torch.server.types import (
 )
 from client_tpu_torch.utils import InferenceServerException
 
-UNPORTED_KIND = ("the {kind} backend needs the port's client library, "
-                 "which is not ported yet (ROADMAP A17)")
+UNPORTED_KIND = ("the {kind} backend is a foreign service's (the "
+                 "reference's perf/foreign/), which is not ported yet "
+                 "(ROADMAP A5, foreign backends)")
 
 
 class BackendKind(enum.Enum):
@@ -149,6 +152,219 @@ class ClientBackend:
 
     def close(self) -> None:
         pass
+
+
+
+def _infer_kwargs(options: dict) -> dict:
+    out = {}
+    for k in ("model_version", "request_id", "sequence_id", "sequence_start",
+              "sequence_end", "priority", "timeout", "parameters"):
+        if k in options:
+            out[k] = options[k]
+    return out
+
+
+class _NetBackendBase(ClientBackend):
+    """Common code for the HTTP/GRPC network backends."""
+
+    def __init__(self, client, headers: Optional[dict] = None):
+        self._client = client
+        self._headers = headers or None
+
+    def _kwargs(self, options: dict) -> dict:
+        """Per-call kwargs: standard options + the client-scoped -H
+        headers (subclasses extend, e.g. HTTP compression)."""
+        kw = _infer_kwargs(options)
+        if self._headers:
+            kw["headers"] = self._headers
+        return kw
+
+    def _hdr(self) -> dict:
+        return {"headers": self._headers} if self._headers else {}
+
+    def _convert(self, inputs, outputs):
+        ins = []
+        for i in inputs:
+            x = self._mod.InferInput(i.name, i.shape, i.datatype)
+            if i.shm:
+                x.set_shared_memory(*i.shm)
+            elif i.data is not None:
+                x.set_data_from_numpy(i.data)
+            ins.append(x)
+        outs = None
+        if outputs:
+            outs = []
+            for o in outputs:
+                y = self._mod.InferRequestedOutput(
+                    o.name, class_count=o.class_count)
+                if o.shm:
+                    y.set_shared_memory(*o.shm)
+                outs.append(y)
+        return ins, outs
+
+    def server_extensions(self) -> list:
+        return self._client.get_server_metadata(
+            **self._hdr()).get("extensions", [])
+
+    def model_metadata(self, name: str, version: str = "") -> dict:
+        return self._client.get_model_metadata(name, version,
+                                               **self._hdr())
+
+    def model_config(self, name: str, version: str = "") -> dict:
+        return self._client.get_model_config(name, version, **self._hdr())
+
+    def model_inference_statistics(self, name: str = "",
+                                   version: str = "") -> dict:
+        return self._client.get_inference_statistics(name, version,
+                                                     **self._hdr())
+
+    def register_system_shared_memory(self, name, key, byte_size) -> None:
+        self._client.register_system_shared_memory(name, key, byte_size)
+
+    def register_cuda_shared_memory(self, name, raw_handle, device_id,
+                                    byte_size) -> None:
+        self._client.register_cuda_shared_memory(name, raw_handle,
+                                                 device_id, byte_size)
+
+    def unregister_all_shared_memory(self) -> None:
+        self._client.unregister_system_shared_memory()
+        self._client.unregister_cuda_shared_memory()
+
+    def infer(self, model_name: str, inputs, outputs=None, **options):
+        ins, outs = self._convert(inputs, outputs)
+        return self._client.infer(model_name, ins, outputs=outs,
+                                  **self._kwargs(options))
+
+    def async_infer(self, callback, model_name: str, inputs, outputs=None,
+                    **options) -> None:
+        ins, outs = self._convert(inputs, outputs)
+        self._client.async_infer(model_name, ins, callback, outputs=outs,
+                                 **self._kwargs(options))
+
+    def close(self) -> None:
+        self._client.close()
+
+
+class HttpBackend(_NetBackendBase):
+    kind = BackendKind.HTTP
+
+    def __init__(self, url: str, verbose: bool = False, concurrency: int = 8,
+                 compression: Optional[str] = None,
+                 headers: Optional[dict] = None,
+                 retry_policy=None):
+        from client_tpu_torch.client import http as httpclient
+
+        self._mod = httpclient
+        self._compression = compression
+        super().__init__(httpclient.InferenceServerClient(
+            url, verbose=verbose, concurrency=concurrency,
+            retry_policy=retry_policy),
+            headers=headers)
+
+    def _kwargs(self, options: dict) -> dict:
+        kw = super()._kwargs(options)
+        if self._compression:
+            kw["request_compression_algorithm"] = self._compression
+            kw["response_compression_algorithm"] = self._compression
+        return kw
+
+    def server_metrics(self):
+        from client_tpu_torch.server.metrics import parse_prometheus_text
+
+        return parse_prometheus_text(
+            self._client.get_server_metrics(**self._hdr()))
+
+    def server_traces(self):
+        # debug surface: absent (404) unless the server runs with
+        # --debug-endpoints — the plane is optional, never an error
+        try:
+            return self._client.get_debug_traces(
+                **self._hdr()).get("traces")
+        except Exception:  # noqa: BLE001
+            return None
+
+    def server_incidents(self):
+        # same opt-in gating as the trace plane
+        try:
+            return self._client.get_debug_incidents(**self._hdr())
+        except Exception:  # noqa: BLE001
+            return None
+
+
+class GrpcBackend(_NetBackendBase):
+    kind = BackendKind.GRPC
+
+    def __init__(self, url: str, verbose: bool = False,
+                 headers: Optional[dict] = None,
+                 retry_policy=None):
+        from client_tpu_torch.client import grpc as grpcclient
+
+        self._mod = grpcclient
+        super().__init__(grpcclient.InferenceServerClient(
+            url, verbose=verbose, retry_policy=retry_policy),
+            headers=headers)
+
+    # the profiler consumes dicts; the gRPC client returns typed protos
+    # unless asked for JSON
+    def model_metadata(self, name: str, version: str = "") -> dict:
+        return self._client.get_model_metadata(name, version, as_json=True,
+                                               **self._hdr())
+
+    def model_config(self, name: str, version: str = "") -> dict:
+        # unwrap ModelConfigResponse {"config": {...}} so the parser sees
+        # the same shape the HTTP endpoint returns
+        cfg = self._client.get_model_config(name, version, as_json=True,
+                                            **self._hdr())
+        return cfg.get("config", cfg)
+
+    def model_inference_statistics(self, name: str = "",
+                                   version: str = "") -> dict:
+        # bounded: a stats snapshot must never stall the measurement loop
+        # (a worker-starved server turns a hang into a missing snapshot)
+        return self._client.get_inference_statistics(name, version,
+                                                     as_json=True,
+                                                     timeout=30,
+                                                     **self._hdr())
+
+    def server_extensions(self) -> list:
+        meta = self._client.get_server_metadata(as_json=True,
+                                                **self._hdr())
+        return meta.get("extensions", [])
+
+    def server_metrics(self):
+        from client_tpu_torch.server.metrics import parse_prometheus_text
+
+        text = self._client.get_server_metrics(**self._hdr())
+        return parse_prometheus_text(text) if text else None
+
+    def server_traces(self):
+        # mirrored through ServerMetadata trailing metadata; None when
+        # the server runs without --debug-endpoints
+        try:
+            doc = self._client.get_debug_traces(**self._hdr())
+        except Exception:  # noqa: BLE001
+            return None
+        return doc.get("traces") if doc else None
+
+    def server_incidents(self):
+        # mirrored through ServerMetadata trailing metadata; None when
+        # the server runs without --debug-endpoints
+        try:
+            return self._client.get_debug_incidents(**self._hdr())
+        except Exception:  # noqa: BLE001
+            return None
+
+    def start_stream(self, callback) -> None:
+        self._client.start_stream(callback, **self._hdr())
+
+    def async_stream_infer(self, model_name: str, inputs, outputs=None,
+                           **options) -> None:
+        ins, outs = self._convert(inputs, outputs)
+        self._client.async_stream_infer(model_name, ins, outputs=outs,
+                                        **_infer_kwargs(options))
+
+    def stop_stream(self) -> None:
+        self._client.stop_stream()
 
 
 class InProcessBackend(ClientBackend):
@@ -274,14 +490,34 @@ class InProcessBackend(ClientBackend):
 class ClientBackendFactory:
     """Creates one backend per load worker."""
 
-    def __init__(self, kind: BackendKind, server=None):
+    def __init__(self, kind: BackendKind, url: str = "",
+                 verbose: bool = False, server=None,
+                 compression: Optional[str] = None,
+                 http_concurrency: int = 8,
+                 headers: Optional[dict] = None,
+                 retry_policy=None):
         self.kind = kind
+        self._url = url
+        self._verbose = verbose
         self._server = server
-        # no retry policy without the client library; the load manager
-        # reads this attribute for the retried-request column
-        self.retry_policy = None
+        self._compression = compression
+        self._http_concurrency = http_concurrency
+        self._headers = headers
+        # ONE shared policy instance across every worker backend: its
+        # thread-safe counters aggregate harness-wide, so the load
+        # manager reads one number for the retried-request column
+        self.retry_policy = retry_policy
 
     def create(self) -> ClientBackend:
+        if self.kind == BackendKind.HTTP:
+            return HttpBackend(self._url, self._verbose,
+                               self._http_concurrency, self._compression,
+                               headers=self._headers,
+                               retry_policy=self.retry_policy)
+        if self.kind == BackendKind.GRPC:
+            return GrpcBackend(self._url, self._verbose,
+                               headers=self._headers,
+                               retry_policy=self.retry_policy)
         if self.kind == BackendKind.INPROCESS:
             if self._server is None:
                 raise ValueError(
@@ -289,8 +525,7 @@ class ClientBackendFactory:
                     "(server=); loading a model repository is not ported "
                     "yet")
             return InProcessBackend(self._server)
-        if self.kind in (BackendKind.HTTP, BackendKind.GRPC,
-                         BackendKind.TFSERVE, BackendKind.TORCHSERVE):
+        if self.kind in (BackendKind.TFSERVE, BackendKind.TORCHSERVE):
             raise NotImplementedError(UNPORTED_KIND.format(
                 kind=self.kind.value))
         raise ValueError(f"unknown backend kind {self.kind}")

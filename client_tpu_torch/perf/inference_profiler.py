@@ -1,7 +1,8 @@
 """InferenceProfiler — search driver + measurement + stabilization: the
 port's copy of ``client_tpu/perf/inference_profiler.py``.
 
-- Linear/binary/none search over concurrency.
+- Linear/binary/none search over concurrency or request rate, and one
+  profile at a custom intervals file's rate.
 - A sliding stability window of 3 measurements: BOTH infer/sec and
   latency within ±stability of the window average, an optional latency
   threshold early-break, a max_trials cap.
@@ -20,9 +21,6 @@ port's copy of ``client_tpu/perf/inference_profiler.py``.
   requests' phase split joined with the scraped exemplars. Where the
   backend has no metrics plane the status carries no scraped metrics
   rather than zeros.
-
-The request-rate search waits with the request-rate manager, and the
-report's roofline block with the report (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -466,6 +464,50 @@ class InferenceProfiler:
                     break
         return results
 
+    def profile_request_rate_range(self, start: float, end: float,
+                                   step: float,
+                                   search_mode: str = "linear") -> list:
+        results = []
+        if search_mode == "none":
+            status = self._profile_rate(start)
+            if status.error is not None:
+                raise RuntimeError(status.error)
+            results.append(status)
+        elif search_mode == "binary":
+            lo, hi = start, end
+            while lo <= hi + 1e-9 and not early_exit.is_set():
+                mid = (lo + hi) / 2
+                status = self._profile_rate(mid)
+                if self._failed(status, mid):
+                    hi = mid - step
+                    continue
+                results.append(status)
+                if self._meets_threshold(status):
+                    lo = mid + step
+                else:
+                    hi = mid - step
+        else:
+            r = start
+            while r <= end + 1e-9:
+                status = self._profile_rate(r)
+                if self._failed(status, r):
+                    break  # a stalled rate level ends the ramp
+                results.append(status)
+                if early_exit.is_set() or not self._meets_threshold(status):
+                    break
+                r += step
+        return results
+
+    def profile_custom(self) -> list:
+        """--request-intervals mode: single profile at the file's rate."""
+        rate = self.manager.custom_request_rate()
+        self.manager.start()
+        status = self._stabilize()
+        if status.error is not None:
+            raise RuntimeError(status.error)
+        status.request_rate = rate
+        return [status]
+
     def _meets_threshold(self, status: PerfStatus) -> bool:
         if self.latency_threshold_us <= 0:
             return True
@@ -476,6 +518,12 @@ class InferenceProfiler:
         self.manager.change_concurrency_level(concurrency)
         status = self._stabilize()
         status.concurrency = concurrency
+        return status
+
+    def _profile_rate(self, rate: float) -> PerfStatus:
+        self.manager.change_request_rate(rate, self.window_ms / 1e3)
+        status = self._stabilize()
+        status.request_rate = rate
         return status
 
     # ---- stabilization ----

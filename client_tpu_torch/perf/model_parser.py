@@ -2,9 +2,10 @@
 needs: the port's copy of ``client_tpu/perf/model_parser.py``.
 
 Scheduler-type detection (with the recursive ensemble walk),
-max_batch_size, the decoupled policy, the response cache. The
-TF-Serving and TorchServe initialisers wait for the port's foreign
-backends (ROADMAP A17).
+max_batch_size, the decoupled policy, the response cache, read through
+any backend (in process, HTTP, or gRPC, whose backend unwraps the
+config response). The TF-Serving and TorchServe initialisers wait for
+the port's foreign backends (ROADMAP A5, the foreign backends).
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ class TensorInfo:
         # protobuf JSON renders int64 dims as strings — normalize
         self.dims = [int(d) for d in dims]
         self.optional = optional
+
+    def is_dynamic(self) -> bool:
+        return any(d < 0 for d in self.dims)
 
 
 class ModelParser:

@@ -606,13 +606,35 @@ def paged_spec_round(cfg, dcfg, params: dict, dparams: dict, pool: dict,
                      sample: bool) -> tuple:
     """``spec_round`` under the paged layout (the reference's
     ``paged_spec_round``): the draft is a slot-layout pool as there, and
-    the verify is ONE ``transformer.paged_verify_steps`` of the round's
-    slots through their tables [N, Bw] (``rows`` None: all S) into the
-    pool, IN PLACE; no other slot writes. Returns (last, pos, draft
-    pos)."""
+    the verify is ONE ``transformer.paged_verify_steps`` of ALL S slots
+    through their tables [S, Bw] into the pool, IN PLACE, with ``write``
+    the round's mask. As in the reference, the slots outside the round
+    (``rows`` [N] the round's, None: all S) feed [pending, the draft's
+    greedy proposals] and send their slab writes to scratch block 0:
+    their proposals come from a gathered copy of their draft rows (the
+    reference's vmapped draft runs them and keeps nothing), so their own
+    rows stay bit-unchanged, and a round that runs past its stream's
+    reservation reads the scratch rows the reference's reads. Returns
+    (last, pos, draft pos)."""
     def verify(toks, pos0):
-        return t.paged_verify_steps(cfg, params, toks, pos0, tables,
-                                    pool)[0]
+        if rows is None:
+            return t.paged_verify_steps(cfg, params, toks, pos0, tables,
+                                        pool)[0]
+        write = torch.zeros_like(pos, dtype=torch.bool)
+        write[rows] = True
+        # the outside slots in ascending order, with no host sync
+        other = torch.argsort(write.to(torch.int8), stable=True)[
+            :pos.shape[0] - toks.shape[0]]
+        dcopy = {name: arr[other] for name, arr in dcache.items()}
+        props, _ = _propose(dcfg, dparams, {**dcopy, "pos": dpos[other]},
+                            None, last[other], pos[other], sampling, g,
+                            False)
+        full = torch.empty((pos.shape[0], toks.shape[1]), dtype=toks.dtype,
+                           device=toks.device)
+        full[other] = torch.cat([last[other, None], props[:, :g]], dim=1)
+        full[rows] = toks
+        return t.paged_verify_steps(cfg, params, full, pos, tables, pool,
+                                    write)[0][rows]
 
     return _round(verify, dcfg, dparams, pos, dcache, dpos, last, ring,
                   ring_cnt, entry, rows, sampling, g, sample)
@@ -3674,8 +3696,9 @@ class ContinuousBatchingEngine:
         """Launch one verify round (async) at depth ``rung`` over the
         slots in "spec" mode that picked it. Each slot's ``pos_hi`` grows
         by the bound rung + 1, corrected to the real advance at retire.
-        Only these slots' rows go to the device; with every slot in the
-        round the kernels index nothing."""
+        Only these slots' sampling rows go to the device, with every
+        slot's table under the paged layout (its verify runs all S rows);
+        with every slot in the round the kernels index nothing."""
         t0 = time.perf_counter()
         rows, meta = [], []
         gp_part = []   # (slot, pos0): the FLOP ledger for the retire
@@ -3698,8 +3721,7 @@ class ContinuousBatchingEngine:
         if not every:
             arrays.append(np.asarray(rows, np.int32))
         if self._paged:
-            arrays.append(np.ascontiguousarray(tables if every
-                                               else tables[rows]))
+            arrays.append(np.ascontiguousarray(tables))
         seeds_d, temps_d, topks_d, topps_d, *rest = self._upload(arrays)
         rows_d = None if every else rest.pop(0).long()
         tab_d = rest[0] if self._paged else None
@@ -3716,8 +3738,8 @@ class ContinuousBatchingEngine:
         # timing is noted now; the useful-against-rejected row split waits
         # for the retire, keyed by ring seq. The slots outside the round
         # are the reference's masked padding rows of its [S, rung + 1]
-        # shape (the port indexes only the round's rows, and counts them
-        # as the reference does, so the two ledgers agree)
+        # shape (the slot layout's round indexes only its own rows; both
+        # layouts count the others as the reference does)
         fm = self._flop_model
         gkind = f"spec_g{rung}"
         self._spec_gp[seq] = (gkind, gp_part)

@@ -1,10 +1,29 @@
-"""Shared client/server utilities: the exception clients raise.
+"""Shared client/server utilities: the exception clients raise and the
+dtype and serialization helpers, under the reference's names
+(``np_to_triton_dtype``, ``triton_to_np_dtype``,
+``serialize_byte_tensor``, ``deserialize_bytes_tensor``) and the
+package's own.
 
-The port's own copy of ``client_tpu/utils/__init__.py``'s
-``InferenceServerException``, the name the perf analyzer imports.
+The port's own copy of ``client_tpu/utils/__init__.py``, on the port's
+``protocol`` copies.
 """
 
 from __future__ import annotations
+
+from client_tpu_torch.protocol.binary import (  # noqa: F401
+    deserialize_bytes_tensor,
+    serialize_byte_tensor,
+    serialized_byte_size,
+)
+from client_tpu_torch.protocol.dtypes import (  # noqa: F401
+    DataType,
+    np_to_wire_dtype,
+    wire_to_np_dtype,
+)
+
+# the tritonclient.utils names
+np_to_triton_dtype = np_to_wire_dtype
+triton_to_np_dtype = wire_to_np_dtype
 
 
 class InferenceServerException(Exception):
@@ -30,3 +49,7 @@ class InferenceServerException(Exception):
 
     def debug_details(self):
         return self._debug_details
+
+
+def raise_error(msg):
+    raise InferenceServerException(msg=msg) from None

@@ -79,7 +79,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.server.watchdog",
                      "client_tpu_torch.server.supervision",
                      "client_tpu_torch.server.goodput",
-                     "client_tpu_torch.server.timeline"):
+                     "client_tpu_torch.server.timeline",
+                     "client_tpu_torch.client",
+                     "client_tpu_torch.client.http",
+                     "client_tpu_torch.client.grpc",
+                     "client_tpu_torch.client.retry",
+                     "client_tpu_torch.compat",
+                     "client_tpu_torch.perf.request_rate_manager",
+                     "client_tpu_torch.perf.report",
+                     "client_tpu_torch.perf.__main__",
+                     "client_tpu_torch.examples.simple_http_cudashm_client",
+                     "client_tpu_torch.examples.simple_grpc_cudashm_client"):
         assert expected in result["modules"]
 
 
@@ -89,6 +99,14 @@ sys.path.insert(0, {repo!r})
 import client_tpu_torch, client_tpu_torch.server, client_tpu_torch.models
 import client_tpu_torch.server.generation, client_tpu_torch.models.decoder_lm
 import client_tpu_torch.server.__main__
+import client_tpu_torch.client.http, client_tpu_torch.client.retry
+import client_tpu_torch.perf.__main__, client_tpu_torch.perf.report
+import client_tpu_torch.perf.request_rate_manager
+import client_tpu_torch.examples.simple_http_cudashm_client
+from client_tpu_torch.compat import httpclient, cuda_shared_memory, utils
+from client_tpu_torch.perf.client_backend import ClientBackendFactory
+ClientBackendFactory(client_tpu_torch.perf.client_backend.BackendKind.HTTP,
+                     url="localhost:1").create().close()
 import chip_smoke
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "grpc" or m.startswith("grpc.")
@@ -99,8 +117,11 @@ print(json.dumps(sorted(m for m in sys.modules
 
 def test_the_card_path_imports_neither_grpc_nor_protobuf():
     """The card's host has no grpcio and no protobuf: only the protocol
-    and gRPC modules import them, never the package, the server, the
-    models, the engine or chip_smoke.py."""
+    and gRPC modules (the gRPC client, its example and the perf
+    analyzer's GrpcBackend, on use) import them, never the package, the
+    server, the models, the engine, the HTTP client, the compat names, the
+    perf CLI, its HTTP backend, the report, the cudashm HTTP example or
+    chip_smoke.py."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _GRPC_PROBE.format(repo=REPO)], cwd=REPO,
@@ -108,6 +129,48 @@ def test_the_card_path_imports_neither_grpc_nor_protobuf():
     assert out.returncode == 0, out.stderr
     import json
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_GRPC_ALLOWED = ("client_tpu_torch.protocol.kserve_pb2",
+                 "client_tpu_torch.protocol.grpc_defs",
+                 "client_tpu_torch.protocol.grpc_tensors",
+                 "client_tpu_torch.server.grpc_server",
+                 "client_tpu_torch.client.grpc",
+                 "client_tpu_torch.examples.simple_grpc_cudashm_client")
+
+_ALLOW_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, {repo!r})
+import client_tpu_torch
+allowed = {allowed!r}
+names = [info.name for info in pkgutil.walk_packages(
+    client_tpu_torch.__path__, "client_tpu_torch.")]
+for name in names:
+    if name not in allowed:
+        importlib.import_module(name)
+loaded = sorted(m for m in sys.modules
+                if m == "grpc" or m.startswith("grpc.")
+                or m == "google.protobuf"
+                or m.startswith("google.protobuf."))
+for name in allowed:
+    importlib.import_module(name)
+print(json.dumps({{"names": names, "loaded": loaded}}))
+"""
+
+
+def test_only_the_grpc_modules_import_grpc_or_protobuf():
+    """Every module of the port but the gRPC ones, imported together,
+    loads neither grpc nor protobuf; the allowed ones exist and import."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _ALLOW_PROBE.format(
+            repo=REPO, allowed=_GRPC_ALLOWED)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import json
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["loaded"] == []
+    assert set(_GRPC_ALLOWED) <= set(result["names"])
 
 
 def _entry_points():
