@@ -290,6 +290,40 @@ each printing one JSON line:
              process. Prints, per arm, client-side infer/s, p50/p99 ms, the
              server's completions/s and mean batch size over the same
              window, and the client's host µs per request.
+18. models   the serving core's repository, ensembles and sequences and
+             the image models, through one TorchInferenceServer over HTTP
+             with the port's client. (a) ResNet-50 (seed 0, bf16, channels
+             last, the dynamic batcher at preferred batch 8): the logits
+             of 8 FP32 [224, 224, 3] images sent as one binary request,
+             held against the same weights' f32 forward on the card (TF32
+             off) within MODELS_RTOL of the largest logit, top-1 equal
+             wherever the f32 top-1/top-2 gap exceeds that tolerance; the
+             same request over CUDA shm regions gives the same logits bit
+             for bit; ms per batch-8 forward between CUDA events, images/s
+             through the server over one window of single-image requests
+             from 16 threads, and the weights' memory_allocated. (b) the
+             ensemble preprocess_resnet50 on 8 PNG images made here: its
+             logits bit-equal to preprocess then resnet50 called one after
+             the other, one execution of each composing model per request.
+             The phase fails where Pillow is missing.
+             (c) the repository: unloading the ensemble with
+             unload_dependents drops memory_allocated by at least the
+             weights' bytes and the index reads resnet50
+             UNAVAILABLE/unloaded; a load gives (a)'s logits again, bit for
+             bit; a model loads from a temporary repository directory's
+             model.py; ms per load and unload. (d) sequences: the
+             accumulator (its state on the card) over 4 interleaved
+             correlation ids gives the running sums; decoder_lm (the
+             reference's default decode model, seed 0, bf16) over a
+             16-token prompt and 32 further steps equals the port's
+             decode_step loop on the same weights, token for token, and
+             the guard refuses the step at max_seq; ``python -m
+             client_tpu_torch.perf -m decoder_lm`` in sequence mode
+             (sync, concurrency 4, sequence length 20) over HTTP fails no
+             request, and every sequence the server saw start also ended;
+             host and CUDA-event ms per decode step. K1 and K2 must not
+             launch in the phase. Every time is printed beside the card's
+             name and power limit.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -4311,6 +4345,480 @@ def phase_client() -> dict:
     return result
 
 
+MODELS_IMAGES = 8
+# bf16 logits against the same weights' f32 forward, relative to the
+# largest |logit|: a few bf16 ulps of it (tests/test_torch_resnet.py
+# measures 5.5e-3 between the two packages' bf16 forwards at 64x64)
+MODELS_RTOL = 2e-2
+MODELS_WINDOW_S = 3.0
+MODELS_THREADS = 16
+LM_PROMPT, LM_STEPS = 16, 32
+
+_REPO_MODEL_PY = """\
+from client_tpu_torch.models import make_add_sub
+
+
+def create_model():
+    return make_add_sub("repo_add_sub", 16, "INT32", device={device!r})
+"""
+
+
+def _allocated() -> int:
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _png_images(n: int, seed: int) -> list:
+    """``n`` random 224x224 RGB images as PNG bytes (Pillow, which
+    ``preprocess`` decodes with, is on the card's host)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        fail("models: Pillow is not installed: preprocess_resnet50 needs it")
+    import io
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (224, 224, 3),
+                                     dtype=np.uint8)).save(buf, format="PNG")
+        out.append(buf.getvalue())
+    return out
+
+
+def _f32_forward(params: dict, images: np.ndarray, device) -> np.ndarray:
+    """The same weights' ResNet-50 forward in f32 on ``device``, TF32 off
+    in convolutions and matmuls."""
+    from client_tpu_torch.models import resnet
+
+    p32 = resnet.to_channels_last(_tree_map(lambda t: t.float(), params))
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    mm_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            out = resnet.forward(p32, torch.from_numpy(images).to(device))
+        return out.cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+        torch.backends.cuda.matmul.allow_tf32 = mm_tf32
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _resnet_http(client, mod, images: np.ndarray) -> np.ndarray:
+    x = mod.InferInput("image", list(images.shape), "FP32")
+    x.set_data_from_numpy(images, binary_data=True)
+    out = mod.InferRequestedOutput("logits", binary_data=True)
+    return client.infer("resnet50", [x], outputs=[out]).as_numpy("logits")
+
+
+def _resnet_shm(client, mod, images: np.ndarray, n_classes: int,
+                device) -> np.ndarray:
+    """The same request with its input and output in CUDA shm regions of
+    this process (read by the server with no copy)."""
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    in_bytes = images.nbytes
+    out_bytes = images.shape[0] * n_classes * 4
+    h_in = cudashm.create_shared_memory_region("models_in", in_bytes, 0,
+                                               device=device)
+    h_out = cudashm.create_shared_memory_region("models_out", out_bytes, 0,
+                                                device=device)
+    try:
+        cudashm.set_shared_memory_region(h_in, [images])
+        client.register_cuda_shared_memory(
+            "models_in", cudashm.get_raw_handle(h_in), h_in.device_id,
+            in_bytes)
+        client.register_cuda_shared_memory(
+            "models_out", cudashm.get_raw_handle(h_out), h_out.device_id,
+            out_bytes)
+        x = mod.InferInput("image", list(images.shape), "FP32")
+        x.set_shared_memory("models_in", in_bytes)
+        out = mod.InferRequestedOutput("logits")
+        out.set_shared_memory("models_out", out_bytes)
+        client.infer("resnet50", [x], outputs=[out])
+        return cudashm.get_contents_as_numpy(
+            h_out, np.float32, (images.shape[0], n_classes))
+    finally:
+        client.unregister_cuda_shared_memory()
+        cudashm.destroy_shared_memory_region(h_in)
+        cudashm.destroy_shared_memory_region(h_out)
+
+
+def _images_per_s(url: str, image: np.ndarray) -> dict:
+    """Single-image binary requests from MODELS_THREADS threads, each with
+    its own client, for one MODELS_WINDOW_S window: images/s through the
+    server and the requests' p50 ms."""
+    from client_tpu_torch.client import http as httpclient
+
+    stop = time.time() + MODELS_WINDOW_S
+    lat, errors, lock = [], [], threading.Lock()
+
+    def worker():
+        c = httpclient.InferenceServerClient(url)
+        try:
+            while time.time() < stop:
+                t0 = time.perf_counter()
+                try:
+                    _resnet_http(c, httpclient, image)
+                except Exception as e:  # noqa: BLE001 — counted
+                    with lock:
+                        errors.append(str(e))
+                    return
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+        finally:
+            c.close()
+
+    t0 = time.time()
+    threads = [threading.Thread(target=worker)
+               for _ in range(MODELS_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.time() - t0
+    if errors or not lat:
+        fail(f"models: the images/s window failed: {errors[:3]}")
+    return {"images_per_s": len(lat) / wall, "requests": len(lat),
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "threads": MODELS_THREADS, "window_s": wall}
+
+
+def _seq_step(client, mod, model: str, name: str, value, sid, start=False,
+              end=False):
+    x = mod.InferInput(name, [1], "INT32")
+    x.set_data_from_numpy(np.asarray([value], np.int32))
+    return client.infer(model, [x], sequence_id=sid, sequence_start=start,
+                        sequence_end=end)
+
+
+def _decode_loop(cfg, params, prompt: list, steps: int, device) -> list:
+    """The greedy tokens of the port's decode_step loop over a one-slot
+    state: the prompt fed token by token, then each token fed back."""
+    from client_tpu_torch.models import transformer as t
+
+    state = t.init_decode_state(cfg, 1, device)
+    out, tok = [], None
+    with torch.inference_mode():
+        for i in range(len(prompt) + steps):
+            feed = prompt[i] if i < len(prompt) else tok
+            logits, state = t.decode_step(
+                cfg, params, torch.tensor([feed], dtype=torch.int32,
+                                          device=device), state)
+            tok = int(logits.argmax(-1)[0])
+            out.append(tok)
+    return out
+
+
+def _decode_step_ms(model, cfg, device) -> dict:
+    """One decoder_lm step (the served model's own ``step``, inputs on the
+    host as the scheduler hands them) timed on the host, and the device
+    work of ``decode_step`` between CUDA events."""
+    from client_tpu_torch.models import transformer as t
+
+    state = model.init_state()
+    tok = {"TOKEN": np.asarray([3], np.int32)}
+    for _ in range(3):
+        _, state = model.step(tok, state)
+    n = 32
+    t0 = time.perf_counter()
+    for _ in range(n):
+        _, state = model.step(tok, state)
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    dev_state = t.init_decode_state(cfg, 1, device)
+    token = torch.tensor([3], dtype=torch.int32, device=device)
+    params = model._params
+
+    def step():
+        nonlocal dev_state
+        with torch.inference_mode():
+            _, dev_state = t.decode_step(cfg, params, token, dev_state)
+
+    return {"host_ms_per_step": host_ms, "event_ms_per_step":
+            time_ms(step)}
+
+
+def _perf_sequences(core, url: str) -> dict:
+    """``python -m client_tpu_torch.perf -m decoder_lm`` in sequence mode
+    over HTTP in its own process, the server counting every START and END
+    it is sent."""
+    sched = core._entry("decoder_lm").scheduler
+    seen = {"start": 0, "end": 0}
+    submit = sched.submit
+
+    def counting(pending):
+        seen["start"] += bool(pending.request.sequence_start)
+        seen["end"] += bool(pending.request.sequence_end)
+        submit(pending)
+
+    sched.submit = counting
+    s0 = _stats(core, "decoder_lm")
+    # --sync: a sync worker keeps its own sequence slot; the async
+    # workers of both packages' perf analyzers share the slots, so a
+    # sequence's next request can reach the server before its START
+    cmd = [sys.executable, "-m", "client_tpu_torch.perf", "-m", "decoder_lm",
+           "-u", url, "-i", "http", "--sync", "--concurrency-range", "4",
+           "--sequence-length", "20", "-p", "1000", "-r", "3"]
+    try:
+        out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=180)
+    finally:
+        del sched.submit
+    s1 = _stats(core, "decoder_lm")
+    if out.returncode != 0:
+        fail(f"models: {' '.join(cmd[1:])} exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    nums = {}
+    for key, pat in _PERF_PATTERNS.items():
+        m = re.search(pat, out.stdout)
+        nums[key] = float(m.group(1)) if m else None
+    m = re.search(r"Sequence Throughput: ([\d.]+) seq/sec", out.stdout)
+    return {"args": cmd[4:], **nums,
+            "client_sequences_per_s": float(m.group(1)) if m else None,
+            "sequences_started": seen["start"],
+            "sequences_ended": seen["end"],
+            "live_sequences_after": sched.live_sequences(),
+            "run_server_inferences": s1["inference_count"]
+            - s0["inference_count"],
+            "run_failed_requests": s1["inference_stats"]["fail"]["count"]
+            - s0["inference_stats"]["fail"]["count"]}
+
+
+def phase_models(env: dict) -> dict:
+    """The repository, ensembles and sequences and the image models on
+    the card, through TorchInferenceServer over HTTP with the port's
+    client (docstring, item 18)."""
+    import tempfile
+
+    from client_tpu_torch.client import http as httpclient
+    from client_tpu_torch.device import resolve_device
+    from client_tpu_torch.models import (
+        make_accumulator,
+        make_decoder_lm,
+        make_image_ensemble,
+        make_preprocess,
+        make_resnet50,
+    )
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.models.decoder_lm import decode_config
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server.http_server import HttpInferenceServer
+    from client_tpu_torch.server.runtime_stats import pytree_nbytes
+
+    device = resolve_device(None)
+    card = env["nvidia_smi"]
+    n_img, n_cls = MODELS_IMAGES, 1000
+    images = np.random.default_rng(0).uniform(
+        -1.0, 1.0, (n_img, 224, 224, 3)).astype(np.float32)
+    pngs = _png_images(n_img, 1)
+    fa.launches = 0
+    pa.launches = 0
+    repo_dir = tempfile.mkdtemp(prefix="models_repo_")
+    os.makedirs(os.path.join(repo_dir, "repo_add_sub"))
+    with open(os.path.join(repo_dir, "repo_add_sub", "model.py"), "w") as f:
+        f.write(_REPO_MODEL_PY.format(device=str(device)))
+    core = TorchInferenceServer(model_repository=repo_dir)
+    # (a) ResNet-50: the weights' bytes are what loading it allocates
+    mem0 = _allocated()
+    rn = make_resnet50(seed=0, device=device)
+    core.register_model(rn, warmup=True)
+    mem_loaded = _allocated()
+    weight_bytes = pytree_nbytes(rn._params)
+    core.register_model(make_preprocess())
+    core.register_model(make_image_ensemble())
+    ens_name = "preprocess_resnet50"
+    cfg = decode_config(attn_impl="ref")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    lm_params = t.init_params(gen, cfg)
+    lm = make_decoder_lm(cfg=cfg, params=lm_params, device=device)
+    core.register_model(lm)
+    core.register_model(make_accumulator("accumulator", 1, "INT32",
+                                         device=device))
+    http = HttpInferenceServer(core, port=0).start()
+    url = http.url
+    client = httpclient.InferenceServerClient(url)
+    try:
+        served = _resnet_http(client, httpclient, images)
+        want = _f32_forward(rn._params, images, device)
+        via_shm = _resnet_shm(client, httpclient, images, n_cls, device)
+        x_dev = {"image": torch.from_numpy(images).to(device)}
+        forward_ms = time_ms(lambda: rn.execute_on_device(x_dev))
+        window = _images_per_s(url, images[:1])
+        # (b) the ensemble against its steps called one after the other
+        e0 = {n: _stats(core, n) for n in
+              (ens_name, "resnet50", "preprocess")}
+        raw = np.array([[b] for b in pngs], dtype=np.object_)
+        r_in = httpclient.InferInput("raw_image", [n_img, 1], "BYTES")
+        r_in.set_data_from_numpy(raw)
+        ens_out = client.infer(ens_name, [r_in]).as_numpy("logits")
+        e1 = {n: _stats(core, n) for n in e0}
+        pre = client.infer("preprocess", [r_in]).as_numpy("image")
+        steps_out = _resnet_http(client, httpclient, pre)
+        ens_equal = bool(np.array_equal(ens_out, steps_out))
+        ens_execs = {n: (e1[n]["inference_count"] - e0[n]["inference_count"],
+                         e1[n]["execution_count"] - e0[n]["execution_count"])
+                     for n in e0}
+        # (c) the repository through the client
+        del x_dev
+        gc.collect()
+        mem_before_unload = _allocated()
+        t0 = time.perf_counter()
+        client.unload_model(ens_name, unload_dependents=True)
+        unload_ms = (time.perf_counter() - t0) * 1e3
+        gc.collect()
+        mem_unloaded = _allocated()
+        index = {r["name"]: r for r in client.get_model_repository_index()}
+        t0 = time.perf_counter()
+        client.load_model("resnet50")
+        load_ms = (time.perf_counter() - t0) * 1e3
+        mem_reloaded = _allocated()
+        again = _resnet_http(client, httpclient, images)
+        for name in ("preprocess", ens_name):
+            client.load_model(name)
+        t0 = time.perf_counter()
+        client.load_model("repo_add_sub")
+        repo_load_ms = (time.perf_counter() - t0) * 1e3
+        a = np.arange(16, dtype=np.int32)
+        i0 = httpclient.InferInput("INPUT0", [16], "INT32")
+        i0.set_data_from_numpy(a)
+        i1 = httpclient.InferInput("INPUT1", [16], "INT32")
+        i1.set_data_from_numpy(a)
+        repo_out = client.infer("repo_add_sub", [i0, i1]).as_numpy("OUTPUT0")
+        t0 = time.perf_counter()
+        client.unload_model("repo_add_sub")
+        repo_unload_ms = (time.perf_counter() - t0) * 1e3
+        repo_index = {r["name"]: r
+                      for r in client.get_model_repository_index()}
+        # (d) sequences
+        rng = np.random.default_rng(4)
+        vals = rng.integers(-50, 50, (4, 6)).astype(np.int32)
+        sums = np.zeros_like(vals)
+        for step in range(vals.shape[1]):
+            for sid in range(4):
+                sums[sid, step] = _seq_step(
+                    client, httpclient, "accumulator", "INPUT",
+                    vals[sid, step], 1000 + sid, start=step == 0,
+                    end=step == vals.shape[1] - 1).as_numpy("OUTPUT")[0]
+        prompt = [int(v) for v in np.random.default_rng(5).integers(
+            1, cfg.vocab_size, LM_PROMPT)]
+        lm_tokens, tok = [], None
+        for i in range(LM_PROMPT + LM_STEPS):
+            feed = prompt[i] if i < LM_PROMPT else tok
+            tok = int(_seq_step(client, httpclient, "decoder_lm", "TOKEN",
+                                feed, 77, start=i == 0).as_numpy(
+                "NEXT_TOKEN")[0])
+            lm_tokens.append(tok)
+        lm_want = _decode_loop(cfg, lm_params, prompt, LM_STEPS, device)
+        for _ in range(cfg.max_seq - LM_PROMPT - LM_STEPS):
+            _seq_step(client, httpclient, "decoder_lm", "TOKEN", 1, 77)
+        try:
+            _seq_step(client, httpclient, "decoder_lm", "TOKEN", 1, 77)
+            guard = None
+        except Exception as e:  # noqa: BLE001 — the guard's answer
+            guard = (e.status(), str(e))
+        _seq_step(client, httpclient, "decoder_lm", "TOKEN", 1, 77,
+                  start=True, end=True)
+        perf = _perf_sequences(core, url)
+        step_ms = _decode_step_ms(lm, cfg, device)
+    finally:
+        client.close()
+        http.stop()
+        core.stop()
+        import shutil
+
+        shutil.rmtree(repo_dir, ignore_errors=True)
+    launches = {"flash_attention": fa.launches,
+                "paged_decode_attention": pa.launches}
+    # -------------------------------------------------------- the checks
+    tol = MODELS_RTOL * float(np.abs(want).max())
+    err = float(np.abs(served.astype(np.float64) - want).max())
+    if served.shape != (n_img, n_cls) or not np.isfinite(served).all() \
+            or err > tol:
+        fail(f"models: resnet50 logits {served.shape}, max |err| {err} "
+             f"against the f32 forward, tolerance {tol}")
+    top = np.argsort(-want, axis=-1)
+    gap = want[np.arange(n_img), top[:, 0]] - want[np.arange(n_img),
+                                                   top[:, 1]]
+    decided = gap > tol
+    if (served.argmax(-1)[decided] != top[decided, 0]).any():
+        fail("models: resnet50 top-1 differs from the f32 forward's where "
+             "the gap exceeds the tolerance")
+    if not np.array_equal(via_shm, served):
+        fail("models: the logits over CUDA shm differ from HTTP binary's")
+    if not ens_equal:
+        fail(f"models: the ensemble {ens_name} differs from its steps "
+             "called one after the other")
+    for name, (n, execs) in ens_execs.items():
+        if n != n_img or execs != 1:
+            fail(f"models: {name} counted {n} inferences in {execs} "
+                 f"executions for one ensemble request of {n_img}")
+    freed = mem_before_unload - mem_unloaded
+    if freed < weight_bytes:
+        fail(f"models: unloading freed {freed} bytes, less than the "
+             f"weights' {weight_bytes}")
+    if (index["resnet50"]["state"], index["resnet50"]["reason"]) != (
+            "UNAVAILABLE", "unloaded"):
+        fail(f"models: the index read resnet50 as {index['resnet50']}")
+    if not np.array_equal(again, served):
+        fail("models: the reloaded resnet50's logits differ")
+    if not np.array_equal(repo_out, a + a) \
+            or repo_index["repo_add_sub"]["state"] != "UNAVAILABLE":
+        fail(f"models: the repository model answered {repo_out}, index "
+             f"{repo_index.get('repo_add_sub')}")
+    if not np.array_equal(sums, np.cumsum(vals, axis=1)):
+        fail(f"models: accumulator sums {sums.tolist()}")
+    if lm_tokens != lm_want:
+        first = next(i for i, (x, y) in enumerate(zip(lm_tokens, lm_want))
+                     if x != y)
+        fail(f"models: decoder_lm differs from the decode_step loop at "
+             f"step {first}")
+    if guard is None or "max context length" not in guard[1]:
+        fail(f"models: the guard at max_seq answered {guard}")
+    if perf["run_failed_requests"] or perf["client_rejected"] \
+            or not perf["sequences_started"] \
+            or perf["sequences_started"] != perf["sequences_ended"] \
+            or perf["live_sequences_after"]:
+        fail(f"models: the perf analyzer's sequence mode: {perf}")
+    if any(launches.values()):
+        fail(f"models: K1/K2 launched in the phase: {launches}")
+    result = {
+        "phase": "models", "card": card,
+        "resnet50": {
+            "images": n_img, "max_abs_err_vs_f32": err, "tolerance": tol,
+            "top1_decided": int(decided.sum()),
+            "shm_bit_equal": True, "forward_ms_batch8": forward_ms,
+            "server_window": window, "weights_bytes": weight_bytes,
+            "memory_allocated_for_weights": mem_loaded - mem0},
+        "ensemble": {"name": ens_name, "bit_equal_to_steps": ens_equal,
+                     "inferences_and_executions": ens_execs},
+        "repository": {"unload_ms": unload_ms, "load_ms": load_ms,
+                       "freed_bytes": freed,
+                       "reload_allocated_bytes":
+                           mem_reloaded - mem_unloaded,
+                       "repo_load_ms": repo_load_ms,
+                       "repo_unload_ms": repo_unload_ms},
+        "sequences": {"accumulator_ids": 4, "decoder_lm_tokens":
+                      len(lm_tokens), "guard": {"status": guard[0],
+                                                "error": guard[1]},
+                      "perf": perf, **step_ms},
+        "launches": launches}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -4347,6 +4855,7 @@ def main() -> int:
     supervise = timed("supervise", phase_supervise, gen_model)
     goodput = timed("goodput", phase_goodput, gen_model)
     client = timed("client", phase_client)
+    timed("models", phase_models, env)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):

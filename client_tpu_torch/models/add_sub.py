@@ -3,7 +3,8 @@ counterparts of ``client_tpu/models/add_sub.py``.
 
 ``make_add_sub`` serves INPUT0+INPUT1 / INPUT0-INPUT1 and
 ``make_identity`` passes INPUT0 through, both as TorchModels on the
-card unless ``device="cpu"`` is asked for.
+card unless ``device="cpu"`` is asked for; ``make_add_sub_string`` is
+their BYTES variant (numeric strings in and out), a host model.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ from client_tpu_torch.server.config import (
     ModelConfig,
     TensorSpec,
 )
-from client_tpu_torch.server.model import TorchModel
+import numpy as np
+
+from client_tpu_torch.server.model import PyModel, TorchModel
 
 
 def make_add_sub(name: str = "add_sub", size: int = 16,
@@ -38,6 +41,32 @@ def make_add_sub(name: str = "add_sub", size: int = 16,
             if dynamic_batching else None),
     )
     return TorchModel(config, apply_fn, device=device)
+
+
+def make_add_sub_string(name: str = "add_sub_string",
+                        size: int = 16) -> PyModel:
+    """BYTES variant: numeric strings in, sum/difference strings out."""
+
+    def fn(inputs):
+        a = np.array([int(x) for x in inputs["INPUT0"].reshape(-1)],
+                     dtype=np.int64)
+        b = np.array([int(x) for x in inputs["INPUT1"].reshape(-1)],
+                     dtype=np.int64)
+        shape = inputs["INPUT0"].shape
+        out0 = np.array([str(v).encode() for v in a + b],
+                        dtype=np.object_).reshape(shape)
+        out1 = np.array([str(v).encode() for v in a - b],
+                        dtype=np.object_).reshape(shape)
+        return {"OUTPUT0": out0, "OUTPUT1": out1}
+
+    config = ModelConfig(
+        name=name,
+        inputs=(TensorSpec("INPUT0", "BYTES", (size,)),
+                TensorSpec("INPUT1", "BYTES", (size,))),
+        outputs=(TensorSpec("OUTPUT0", "BYTES", (size,)),
+                 TensorSpec("OUTPUT1", "BYTES", (size,))),
+    )
+    return PyModel(config, fn)
 
 
 def make_identity(name: str = "identity", size: int = 16,

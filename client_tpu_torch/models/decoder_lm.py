@@ -5,9 +5,12 @@ generator of ``client_tpu/models/decoder_lm.py``.
 decoupled (streaming) model: PROMPT [-1] in (plus optional MAX_TOKENS,
 TEMPERATURE, TOP_K, TOP_P and SEED, each [1]), one TOKEN [1] response per
 generated token, every concurrent request multiplexed onto one slot batch
-by the continuous-batching engine (``server/generation.py``). The
-reference's single-stream and static-batch generators, its sequence
-decoder and replica fleets wait for later slices. Speculative decoding
+by the continuous-batching engine (``server/generation.py``).
+``make_decoder_lm`` serves one decode step per request behind the
+sequence scheduler: TOKEN in, the greedy NEXT_TOKEN out, the KV cache of
+each correlation id kept on the device. The reference's single-stream
+and static-batch generators and its replica fleets wait for ROADMAP
+A12. Speculative decoding
 runs through ``speculative_draft``, the SLO scheduler through
 ``scheduler`` and ``slo_classes``, the host tier through
 ``host_tier_bytes``, engine supervision through ``supervision`` and the
@@ -28,6 +31,7 @@ from client_tpu_torch.server.config import (
     GenerationEngineConfig,
     ModelConfig,
     PrefixCacheConfig,
+    SequenceBatchingConfig,
     SloClassConfig,
     SpeculativeConfig,
     SupervisionConfig,
@@ -38,7 +42,7 @@ from client_tpu_torch.server.generation import (
     ContinuousBatchingEngine,
     reject_unported,
 )
-from client_tpu_torch.server.model import PyModel
+from client_tpu_torch.server.model import PyModel, SequenceModel
 from client_tpu_torch.server.scheduling import resolve_scheduler
 from client_tpu_torch.server.speculation import DraftModel, build_draft_model
 from client_tpu_torch.server.supervision import EngineSupervisor, RestartPolicy
@@ -83,6 +87,66 @@ def decode_config(vocab_size: int = 1024, d_model: int = 128,
         vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
         n_heads=n_heads, head_dim=head_dim, d_ff=d_ff, max_seq=max_seq,
         causal=True, dtype=dtype, attn_impl=attn_impl)
+
+
+class _DecoderLm(SequenceModel):
+    """A SequenceModel with a host-side context guard: the decode step
+    clamps its writes at ``max_seq``, so a step at ``pos >= max_seq`` is
+    refused before it runs, and the sequence's state stays as it was."""
+
+    def __init__(self, config, step_fn, init_state_fn, params, max_seq,
+                 device):
+        super().__init__(config, step_fn, init_state_fn, params=params,
+                         device=device)
+        self._max_seq = max_seq
+
+    def step(self, inputs: dict, state):
+        # every step pays a host sync for its outputs anyway
+        if state is not None and int(state["pos"][0]) >= self._max_seq:
+            raise ServerError(
+                f"sequence exceeds the model's max context length "
+                f"{self._max_seq}; send sequence_start to reset", 400)
+        return super().step(inputs, state)
+
+
+def make_decoder_lm(name: str = "decoder_lm", cfg=None, params=None,
+                    seed: int = 0, max_candidate_sequences: int = 64,
+                    instance_count: int = 4, device=None) -> SequenceModel:
+    """Stateful decode-step model: TOKEN -> NEXT_TOKEN (greedy), the KV
+    cache carried per correlation id. Feed the prompt token by token (the
+    outputs during it are next-token predictions too), then feed each
+    token back. A step is the slot layout's ``transformer.decode_step``
+    over a one-slot state (``init_decode_state(cfg, 1)``), on the card
+    unless ``device="cpu"`` is asked for; ``decode_step`` writes K/V in
+    place, and every START builds a fresh state."""
+    dev = resolve_device(device)
+    cfg = cfg or decode_config(attn_impl="ref")
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = t.init_params(gen, cfg)
+
+    def step_fn(p, inputs, state):
+        token = inputs["TOKEN"].reshape(-1)[:1].to(torch.int32)
+        logits, new_state = t.decode_step(cfg, p, token, state)
+        return {"NEXT_TOKEN": logits.argmax(dim=-1).to(torch.int32)}, \
+            new_state
+
+    def init_state_fn():
+        return t.init_decode_state(cfg, 1, dev)
+
+    config = ModelConfig(
+        name=name,
+        inputs=(TensorSpec("TOKEN", "INT32", (1,)),),
+        outputs=(TensorSpec("NEXT_TOKEN", "INT32", (1,)),),
+        sequence_batching=SequenceBatchingConfig(
+            max_candidate_sequences=max_candidate_sequences),
+        # distinct correlation ids decode concurrently; each sequence's
+        # lock serialises its own steps
+        instance_count=instance_count,
+    )
+    return _DecoderLm(config, step_fn, init_state_fn, params=params,
+                      max_seq=cfg.max_seq, device=dev)
 
 
 class ContinuousModel(PyModel):

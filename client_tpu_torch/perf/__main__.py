@@ -11,11 +11,11 @@ Usage examples:
         100:500:100 --request-distribution poisson --shared-memory system
 
 ``--service-kind`` is ``cuda_serve`` (a network client, the default) or
-``cuda_direct`` (an in-process server, given as ``main(server=...)``);
+``cuda_direct`` (an in-process server, given as ``main(server=...)`` or
+built from ``--model-repository`` with every entry loaded);
 ``--shared-memory cuda`` puts the regions on the card (``--device cpu``
-asks for the CPU). Loading a model repository in process and the foreign
-services (``tfserve``, ``torchserve``) are not ported yet: they name
-their ROADMAP items.
+asks for the CPU). The foreign services (``tfserve``, ``torchserve``)
+are not ported yet: they name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,8 +51,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "in-process server, no RPC; tfserve / "
                         "torchserve = foreign services (not ported yet)")
     p.add_argument("--model-repository", default=None,
-                   help="model repository for --service-kind=cuda_direct "
-                        "(not ported yet)")
+                   help="model repository for --service-kind=cuda_direct")
     p.add_argument("--retries", type=int, default=0,
                    help="opt-in client RetryPolicy: total attempts per "
                         "non-streaming infer (0/1 = fail fast). Retries "
@@ -188,16 +187,11 @@ def main(argv=None, server=None) -> int:
                            or args.service_kind == "cuda_direct"):
         print("error: --streaming requires -i grpc", file=sys.stderr)
         return 2
-    if args.service_kind == "cuda_direct" and server is None:
-        if not args.model_repository:
-            print("error: --service-kind cuda_direct requires "
-                  "--model-repository", file=sys.stderr)
-            return 2
-        raise NotImplementedError(
-            "--service-kind cuda_direct with --model-repository: loading "
-            "a model repository in process is not ported yet (ROADMAP "
-            "queue A, item 6: the serving core's repository); pass "
-            "main(server=...)")
+    if args.service_kind == "cuda_direct" and server is None \
+            and not args.model_repository:
+        print("error: --service-kind cuda_direct requires "
+              "--model-repository", file=sys.stderr)
+        return 2
     if args.service_kind in ("tfserve", "torchserve"):
         print(f"error: --service-kind {args.service_kind}: "
               + UNPORTED_KIND.format(kind=args.service_kind),
@@ -236,6 +230,12 @@ def main(argv=None, server=None) -> int:
 
         retry_policy = RetryPolicy(max_attempts=args.retries,
                                    backoff_s=args.retry_backoff)
+    owned_server = None
+    if kind == BackendKind.INPROCESS and server is None:
+        # one server in this process, every repository model loaded
+        from client_tpu_torch.perf.client_backend import repository_server
+
+        server = owned_server = repository_server(args.model_repository)
     factory = ClientBackendFactory(
         kind, url=args.url, verbose=args.verbose, server=server,
         headers=headers or None,
@@ -371,6 +371,8 @@ def main(argv=None, server=None) -> int:
             backend.close()
         except Exception:  # noqa: BLE001
             pass
+        if owned_server is not None:
+            owned_server.stop()
 
     if early_exit.is_set():
         print("[perf] interrupted — reporting partial results")

@@ -435,17 +435,14 @@ class InProcessBackend(ClientBackend):
                 r.shm_region, r.shm_byte_size, r.shm_offset = (
                     o.shm[0], o.shm[1], o.shm[2])
             outs.append(r)
-        unported = sorted(k for k in options
-                          if k.startswith("sequence_") and options[k])
-        if unported:
-            raise NotImplementedError(
-                f"sequence options {unported}: the port's server has no "
-                "sequence batcher yet")
         req = InferRequest(
             model_name=model_name,
             model_version=options.get("model_version", ""),
             id=options.get("request_id", ""),
             inputs=ins, outputs=outs,
+            sequence_id=options.get("sequence_id", 0),
+            sequence_start=options.get("sequence_start", False),
+            sequence_end=options.get("sequence_end", False),
             priority=options.get("priority", 0),
             timeout_us=options.get("timeout", 0))
         if cache_key is not None:
@@ -487,6 +484,19 @@ class InProcessBackend(ClientBackend):
         self._server.cuda_shm.unregister_all()
 
 
+def repository_server(model_repository: str):
+    """A TorchInferenceServer over ``model_repository`` with every entry
+    of its index loaded: the in-process backend's server when the CLI is
+    given ``--service-kind cuda_direct --model-repository``."""
+    from client_tpu_torch.server.core import TorchInferenceServer
+
+    server = TorchInferenceServer(model_repository=model_repository)
+    for entry in server.repository_index():
+        if entry.get("state") != "READY":
+            server.load_model(entry["name"])
+    return server
+
+
 class ClientBackendFactory:
     """Creates one backend per load worker."""
 
@@ -522,8 +532,8 @@ class ClientBackendFactory:
             if self._server is None:
                 raise ValueError(
                     "the in-process backend needs a TorchInferenceServer "
-                    "(server=); loading a model repository is not ported "
-                    "yet")
+                    "(server=; repository_server builds one from a model "
+                    "repository)")
             return InProcessBackend(self._server)
         if self.kind in (BackendKind.TFSERVE, BackendKind.TORCHSERVE):
             raise NotImplementedError(UNPORTED_KIND.format(

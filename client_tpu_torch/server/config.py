@@ -1,13 +1,16 @@
 """Model configuration: the port's counterpart of
-``client_tpu/server/config.py``, with the fields an encoder served
-behind the dynamic batcher and a decoupled (streaming) generator use.
+``client_tpu/server/config.py``, with the fields an encoder or an image
+model served behind the dynamic batcher, a decoupled (streaming)
+generator, a stateful sequence model and an ensemble use.
 
 The generator's ``generation_engine``, ``prefix_cache``,
 ``speculative``, ``scheduler`` and ``slo_classes`` blocks carry the
 engine knobs the port runs; ``response_cache`` turns on the v2 response
-cache; the fleet, sequence, ensemble and sharding
-blocks of the reference wait for the slices that use them. ``platform`` and ``backend`` read ``"pytorch"``
-(the reference's generator says ``"python"``).
+cache; ``sequence_batching`` puts a model behind the sequence scheduler
+and ``ensemble_steps`` makes it an ensemble of other served models. The
+fleet and sharding blocks of the reference wait for the slices that use
+them. ``platform`` and ``backend`` read ``"pytorch"`` (the reference's
+generator says ``"python"``).
 """
 
 from __future__ import annotations
@@ -84,6 +87,29 @@ class DynamicBatchingConfig:
         if self.default_queue_policy is not None:
             j["default_queue_policy"] = self.default_queue_policy.to_json()
         return j
+
+
+@dataclass
+class SequenceBatchingConfig:
+    max_sequence_idle_microseconds: int = 1_000_000_000
+    max_candidate_sequences: int = 1024
+
+    def to_json(self):
+        return asdict(self)
+
+
+@dataclass
+class EnsembleStep:
+    model_name: str
+    model_version: int = -1
+    input_map: dict = field(default_factory=dict)   # step input -> ensemble tensor
+    output_map: dict = field(default_factory=dict)  # step output -> ensemble tensor
+
+    def to_json(self):
+        return {"model_name": self.model_name,
+                "model_version": self.model_version,
+                "input_map": dict(self.input_map),
+                "output_map": dict(self.output_map)}
 
 
 @dataclass
@@ -257,6 +283,8 @@ class ModelConfig:
     inputs: tuple = ()            # [TensorSpec]
     outputs: tuple = ()           # [TensorSpec]
     dynamic_batching: Optional[DynamicBatchingConfig] = None
+    sequence_batching: Optional[SequenceBatchingConfig] = None
+    ensemble_steps: tuple = ()    # [EnsembleStep]; non-empty => ensemble
     # admission control for non-batched (direct) scheduling; batched
     # models use dynamic_batching.default_queue_policy (this one applies
     # as a fallback there too)
@@ -282,6 +310,9 @@ class ModelConfig:
     slo_classes: tuple = ()   # [SloClassConfig]; advertised objectives
 
     # ---- derived ----
+    def is_ensemble(self) -> bool:
+        return len(self.ensemble_steps) > 0
+
     def input_spec_maps(self) -> tuple:
         """({name: TensorSpec}, frozenset(required names)) — computed once;
         the per-request resolve path is too hot to rebuild these dicts."""
@@ -330,6 +361,12 @@ class ModelConfig:
         }
         if self.dynamic_batching is not None:
             j["dynamic_batching"] = self.dynamic_batching.to_json()
+        if self.sequence_batching is not None:
+            j["sequence_batching"] = self.sequence_batching.to_json()
+        if self.ensemble_steps:
+            j["ensemble_scheduling"] = {
+                "step": [s.to_json() for s in self.ensemble_steps]}
+            j["platform"] = "ensemble"
         if self.response_cache:
             j["response_cache"] = {"enable": True}
         if self.queue_policy is not None:
@@ -358,7 +395,7 @@ class ModelConfig:
         return {
             "name": self.name,
             "versions": [str(v) for v in versions],
-            "platform": self.platform,
+            "platform": "ensemble" if self.is_ensemble() else self.platform,
             "inputs": [{"name": t.name, "datatype": t.datatype,
                         "shape": shape_of(t)} for t in self.inputs],
             "outputs": [{"name": t.name, "datatype": t.datatype,

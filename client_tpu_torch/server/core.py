@@ -5,6 +5,20 @@ gRPC front ends (and in-process callers) call this object; it owns the model
 registry, the schedulers, the shared-memory registries, the response cache,
 the statistics and the trace settings.
 
+The model repository: a model is registered programmatically
+(``register_model``), through a factory loaded on demand
+(``register_model_factory``; a factory that takes an argument gets the
+load's config override), or from a repository directory
+(``model_repository``: ``<repo>/<name>/model.py`` with
+``create_model()``, executed anew at every load, so edits take effect on
+reload). ``load_model``, ``unload_model`` (with ``unload_dependents``
+for an ensemble's composing models) and ``repository_index`` serve the
+v2 repository extension. An ensemble (a config with ``ensemble_steps``)
+runs its steps in order through ``infer``, tensors flowing through each
+step's input and output maps, and a traced ensemble's steps are child
+traces of its own. A request of a sequence is never answered from the
+response cache.
+
 Tensors may ride the request, or sit in a registered shared-memory
 region (``system_shm``: POSIX regions; ``cuda_shm``: tensors on a
 device, read zero-copy by an in-process producer's server). Outputs a
@@ -28,12 +42,13 @@ The debug surface (served by the front ends behind their opt-in flag):
 ``debug_slo``, ``debug_scheduler``, ``debug_incidents`` (the watchdog's
 bundles), ``debug_faults`` / ``debug_faults_update`` (the fault-injection
 schedule) and ``debug_profile`` (a ``torch.profiler`` capture). Waiting
-for later slices: ensembles, repository load/unload, and the fleet,
-timeline and traces views.
+for a later slice: the fleet view.
 """
 
 from __future__ import annotations
 
+import importlib.util
+import inspect
 import logging
 import os
 import threading
@@ -80,6 +95,8 @@ log = logging.getLogger(__name__)
 
 SERVER_EXTENSIONS = [
     "classification",
+    "sequence",
+    "model_repository",
     "model_configuration",
     "binary_tensor_data",
     "statistics",
@@ -98,6 +115,8 @@ class _ModelEntry:
         self.stats = ModelStats()
         self.scheduler = None
         self.state = "UNAVAILABLE"
+        self.reason = ""
+        self.origin = "programmatic"  # programmatic | factory | repository
         # where the model's tensor inputs must already live (None: a host
         # model, which takes CPU tensors only)
         dev = getattr(model, "device", None)
@@ -106,6 +125,7 @@ class _ModelEntry:
 
 class TorchInferenceServer:
     def __init__(self, name: str = "client-tpu-torch-server",
+                 model_repository: Optional[str] = None,
                  cache_bytes: int = 256 * 1024 * 1024):
         self.name = name
         self.version = client_tpu_torch.__version__
@@ -115,6 +135,8 @@ class TorchInferenceServer:
         # lookups read it without the registry mutex (dict reads are
         # GIL-atomic; mutations rebuild it under the lock)
         self._ready_cache: dict[tuple, _ModelEntry] = {}
+        self._repository = model_repository
+        self._factories: dict[str, Callable] = {}
         self._start_time = time.time()
         self._live = True
         self.system_shm = SystemShmRegistry()
@@ -129,9 +151,11 @@ class TorchInferenceServer:
     # ------------------------------------------------------------------
 
     def register_model(self, model: ServedModel, version: int = 1,
-                       warmup: bool = False) -> None:
+                       warmup: bool = False,
+                       origin: str = "programmatic") -> None:
         """Programmatic model registration (loads immediately)."""
         entry = _ModelEntry(model, version)
+        entry.origin = origin
         model.load()
         if warmup:
             model.warmup()
@@ -140,6 +164,111 @@ class TorchInferenceServer:
         with self._lock:
             self._models.setdefault(model.name, {})[version] = entry
             self._rebuild_ready_cache()
+
+    def register_model_factory(self, name: str, factory: Callable) -> None:
+        """Register a factory for explicit load/unload control."""
+        self._factories[name] = factory
+
+    def load_model(self, name: str,
+                   config_override: Optional[dict] = None) -> None:
+        """Load ``name`` from its factory (which gets ``config_override``
+        when it takes an argument), else from the repository directory's
+        ``<name>/model.py``, else reload a programmatically registered
+        model (an override is then a 400); anything else is a 400."""
+        factory = self._factories.get(name)
+        if factory is not None:
+            model = (factory(config_override) if _accepts_arg(factory)
+                     else factory())
+            self.register_model(model, origin="factory")
+            return
+        if self._repository:
+            model_py = os.path.join(self._repository, name, "model.py")
+            if os.path.isfile(model_py):
+                # executed anew at every load, so edits take effect
+                spec = importlib.util.spec_from_file_location(
+                    f"client_tpu_torch_repo_{name}", model_py)
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+                self.register_model(mod.create_model(), origin="repository")
+                return
+        # a programmatically registered model keeps its entry across an
+        # unload, and a load reloads the same object (a no-op when it is
+        # READY). Entries are claimed under the lock (LOADING), so that
+        # concurrent loads build one scheduler, and loaded outside it:
+        # a device load can take seconds, and every infer needs the lock
+        to_load = []
+        with self._lock:
+            versions = self._models.get(name)
+            if versions and all(
+                    e.origin == "programmatic" for e in versions.values()):
+                if config_override:
+                    raise ServerError(
+                        f"model '{name}' was registered programmatically; "
+                        "config override on load is not supported", 400)
+                for entry in versions.values():
+                    if entry.state in ("READY", "LOADING"):
+                        continue
+                    entry.state = "LOADING"
+                    to_load.append(entry)
+            else:
+                versions = None
+        if versions is None:
+            raise ServerError(
+                f"no factory or repository entry for model '{name}'", 400)
+        for i, entry in enumerate(to_load):
+            try:
+                entry.model.load()
+                scheduler = make_scheduler(entry.model, entry.stats,
+                                           str(entry.version))
+            except Exception as e:
+                # release every claimed entry left, or a LOADING entry
+                # could never be loaded again
+                with self._lock:
+                    for stuck in to_load[i:]:
+                        stuck.state = "UNAVAILABLE"
+                        stuck.reason = str(e)
+                    self._rebuild_ready_cache()
+                raise
+            with self._lock:
+                entry.scheduler = scheduler
+                entry.state = "READY"
+                entry.reason = ""
+                self._rebuild_ready_cache()
+
+    def unload_model(self, name: str, unload_dependents: bool = False) -> None:
+        """Unload every version of ``name`` (its scheduler drains, then
+        the model releases its device memory); ``unload_dependents``
+        also unloads an ensemble's composing models. Unknown models are a
+        400."""
+        # entries are claimed under the lock; the scheduler stop and the
+        # device unload (seconds, draining batches) run outside it
+        to_stop = []
+        with self._lock:
+            versions = self._models.get(name)
+            if not versions:
+                raise ServerError(f"model '{name}' is not loaded", 400)
+            dependents = []
+            if unload_dependents:
+                for entry in versions.values():
+                    for step in entry.model.config.ensemble_steps:
+                        dependents.append(step.model_name)
+            for entry in versions.values():
+                entry.state = "UNAVAILABLE"
+                entry.reason = "unloaded"
+                to_stop.append(entry)
+            self._rebuild_ready_cache()
+        for entry in to_stop:
+            if entry.scheduler:
+                entry.scheduler.stop()
+            entry.model.unload()
+        # the unloaded model's last spans may wait in the tracer's
+        # log_frequency buffer
+        self.tracer.flush()
+        for dep in dependents:
+            try:
+                self.unload_model(dep)
+            except ServerError:
+                pass
 
     def _rebuild_ready_cache(self) -> None:
         """Rebuild the lock-free entry mirror. Caller holds self._lock."""
@@ -208,6 +337,34 @@ class TorchInferenceServer:
 
     def model_config(self, name: str, version: str = "") -> dict:
         return self._entry(name, version).model.config.to_json()
+
+    def repository_index(self, ready_only: bool = False) -> list:
+        """Every registered model version with its state and reason, then
+        the factories and repository directories not loaded yet
+        (``UNAVAILABLE``/``unloaded``); ``ready_only`` keeps READY ones."""
+        out = []
+        with self._lock:
+            loaded = dict(self._models)
+        for name, versions in sorted(loaded.items()):
+            for v, entry in sorted(versions.items()):
+                if ready_only and entry.state != "READY":
+                    continue
+                out.append({"name": name, "version": str(v),
+                            "state": entry.state, "reason": entry.reason})
+        for name in sorted(self._factories):
+            if name not in loaded:
+                out.append({"name": name, "version": "",
+                            "state": "UNAVAILABLE", "reason": "unloaded"})
+        if self._repository and os.path.isdir(self._repository):
+            for name in sorted(os.listdir(self._repository)):
+                if name.startswith((".", "_")):
+                    continue
+                if os.path.isdir(os.path.join(self._repository, name)) \
+                        and name not in loaded \
+                        and name not in self._factories:
+                    out.append({"name": name, "version": "",
+                                "state": "UNAVAILABLE", "reason": "unloaded"})
+        return out
 
     def statistics(self, name: str = "", version: str = "") -> dict:
         stats = []
@@ -471,13 +628,17 @@ class TorchInferenceServer:
         cfg = entry.model.config
         # request.trace mirrors it for the front ends' trace-id echo
         trace = self.tracer.sample(request.model_name, str(entry.version),
-                                   propagated_id=request.trace_id)
+                                   propagated_id=request.trace_id,
+                                   parent=request.trace_parent)
         request.trace = trace
         if trace is not None:
             trace.event(trace_mod.REQUEST_START, arrival_ns,
                         tenant=request.tenant_id,
                         slo_class=request.slo_class)
             trace.add_tensors("input", request.inputs)
+        if cfg.is_ensemble():
+            return self._infer_ensemble(entry, request, response_callback,
+                                        arrival_ns, trace)
         try:
             inputs = self._resolve_inputs(entry, request)
             if cfg.decoupled and response_callback is None:
@@ -494,9 +655,11 @@ class TorchInferenceServer:
 
         # the response cache keys host-resident requests only: an input
         # on the device (a CUDA region, an in-process tensor) or an output
-        # directed into a region is never cached
+        # directed into a region is never cached, nor is a request of a
+        # sequence (its answer depends on the sequence's state)
         cache_key = None
         if cfg.response_cache and not cfg.decoupled \
+                and not request.has_sequence() \
                 and all(isinstance(v, np.ndarray) for v in inputs.values()) \
                 and all(o.shm_region is None for o in request.outputs):
             t0 = now_ns()
@@ -727,6 +890,100 @@ class TorchInferenceServer:
                            shm_offset=ro.shm_offset,
                            shm_byte_size=ro.shm_byte_size or nbytes)
 
+    def _infer_ensemble(self, entry: _ModelEntry, request: InferRequest,
+                        response_callback, arrival_ns: int,
+                        trace=None) -> Optional[InferResponse]:
+        """Run an ensemble's steps in config order, each an ``infer`` of
+        its composing model; tensors flow through each step's
+        ``input_map`` and ``output_map``. A traced ensemble's steps are
+        child traces linked by ``parent_id``; an untraced one's are never
+        sampled. The ensemble's own statistics row counts one execution:
+        routing as compute_input, the steps as compute_infer, the output
+        assembly as compute_output."""
+        t_start = now_ns()
+        if trace is not None:
+            trace.event(trace_mod.QUEUE_START, t_start)
+        cfg = entry.model.config
+        pool: dict[str, InferTensor] = {t.name: t for t in request.inputs}
+        queue_ns = now_ns() - arrival_ns
+        prep_ns = 0
+        infer_ns = 0
+        try:
+            for step in cfg.ensemble_steps:
+                t_prep = now_ns()
+                step_inputs = []
+                for step_input, ensemble_name in step.input_map.items():
+                    src = pool.get(ensemble_name)
+                    if src is None:
+                        raise ServerError(
+                            f"ensemble tensor '{ensemble_name}' is not "
+                            f"available for step '{step.model_name}'", 400)
+                    step_inputs.append(InferTensor(
+                        name=step_input, datatype=src.datatype,
+                        shape=src.shape, data=src.data,
+                        device_array=src.device_array,
+                        shm_region=src.shm_region, shm_offset=src.shm_offset,
+                        shm_byte_size=src.shm_byte_size))
+                sub = InferRequest(
+                    model_name=step.model_name,
+                    model_version=(str(step.model_version)
+                                   if step.model_version > 0 else ""),
+                    id=request.id, inputs=step_inputs,
+                    outputs=[], parameters=request.parameters,
+                    sequence_id=request.sequence_id,
+                    sequence_start=request.sequence_start,
+                    sequence_end=request.sequence_end,
+                    trace_parent=(trace if trace is not None
+                                  else trace_mod.UNSAMPLED_PARENT))
+                t_infer = now_ns()
+                prep_ns += t_infer - t_prep
+                sub_resp = self.infer(sub)
+                infer_ns += now_ns() - t_infer
+                for out in sub_resp.outputs:
+                    mapped = step.output_map.get(out.name)
+                    if mapped:
+                        pool[mapped] = InferTensor(
+                            name=mapped, datatype=out.datatype,
+                            shape=out.shape, data=out.data)
+            t_collect = now_ns()
+            out_tensors = []
+            for spec in cfg.outputs:
+                t = pool.get(spec.name)
+                if t is None:
+                    raise ServerError(
+                        f"ensemble did not produce output '{spec.name}'", 500)
+                out_tensors.append(t)
+            resp = InferResponse(model_name=request.model_name,
+                                 model_version=str(entry.version),
+                                 id=request.id, outputs=out_tensors)
+            resp = self._postprocess(request, resp)
+            collect_ns = now_ns() - t_collect
+            total = now_ns() - arrival_ns
+            entry.stats.record_execution(
+                batch_size=(request.inputs[0].batch_size()
+                            if request.inputs and cfg.max_batch_size > 0
+                            else 1),
+                num_requests=1, queue_ns_per_request=[queue_ns],
+                compute_input_ns=prep_ns, compute_infer_ns=infer_ns,
+                compute_output_ns=collect_ns,
+                request_total_ns_each=[total])
+            if trace is not None:
+                trace.event(trace_mod.REQUEST_END)
+                trace.add_tensors("output", resp.outputs)
+                self.tracer.release(trace)
+                trace = None  # released: the handler below must not
+            if response_callback is not None:
+                response_callback(resp, True)
+                return None
+            return resp
+        except Exception as e:
+            if isinstance(e, ServerError):
+                entry.stats.record_failure(now_ns() - arrival_ns)
+            if trace is not None:
+                trace.event(trace_mod.REQUEST_END)
+                self.tracer.release(trace)
+            raise
+
     # ------------------------------------------------------------------
 
     def stop(self) -> None:
@@ -765,6 +1022,15 @@ def _engine_healthy(model) -> bool:
     try:
         return bool(probe())
     except Exception:  # noqa: BLE001 — a broken probe reads as down
+        return False
+
+
+def _accepts_arg(fn) -> bool:
+    """True when ``fn`` takes at least one parameter (a factory that
+    takes the load's config override)."""
+    try:
+        return len(inspect.signature(fn).parameters) >= 1
+    except (TypeError, ValueError):
         return False
 
 

@@ -13,9 +13,6 @@ The port's differences from the reference:
   ``TpuSharedMemory*`` call answers INVALID_ARGUMENT naming
   ``CudaSharedMemory``, as the HTTP front end answers
   ``/v2/tpusharedmemory`` with 400.
-- ``RepositoryIndex``, ``RepositoryModelLoad`` and
-  ``RepositoryModelUnload`` answer UNIMPLEMENTED naming their ROADMAP
-  item, as the HTTP front end answers those routes with 404.
 - TLS is left out as the port's HTTP front end leaves it out.
 
 As in the reference: ``TraceSetting`` reads and updates the trace
@@ -91,13 +88,6 @@ _RETRYABLE_CODES = (grpc.StatusCode.UNAVAILABLE,
 TPU_SHM_UNAVAILABLE = ("this server hosts CUDA devices; TPU shared memory is "
                        "not available — use CudaSharedMemory")
 
-# the reference's RPCs whose server side is not ported yet -> the ROADMAP
-# item that ports it
-_UNPORTED_RPCS = {
-    "RepositoryIndex": "queue: the serving core's remaining surface",
-    "RepositoryModelLoad": "queue: the serving core's remaining surface",
-    "RepositoryModelUnload": "queue: the serving core's remaining surface",
-}
 _TPU_SHM_RPCS = ("TpuSharedMemoryStatus", "TpuSharedMemoryRegister",
                  "TpuSharedMemoryUnregister")
 
@@ -165,6 +155,9 @@ def request_to_internal(req: pb.ModelInferRequest) -> InferRequest:
         tenant_id=parse_label_param(params, "tenant_id", DEFAULT_TENANT),
         slo_class=parse_label_param(params, "slo_class",
                                     DEFAULT_SLO_CLASS),
+        sequence_id=params.pop("sequence_id", 0),
+        sequence_start=bool(params.pop("sequence_start", False)),
+        sequence_end=bool(params.pop("sequence_end", False)),
         trace_id=str(params.pop("triton_trace_id", "") or ""))
 
 
@@ -277,7 +270,7 @@ class _Handlers:
         out = pb.ModelConfigResponse()
         c = out.config
         c.name = cfg.name
-        c.platform = cfg.platform
+        c.platform = "ensemble" if cfg.is_ensemble() else cfg.platform
         c.backend = cfg.backend
         c.max_batch_size = cfg.max_batch_size
         for spec, dst in ((cfg.inputs, c.input), (cfg.outputs, c.output)):
@@ -295,7 +288,21 @@ class _Handlers:
                 cfg.dynamic_batching.max_queue_delay_microseconds
             c.dynamic_batching.preserve_ordering = \
                 cfg.dynamic_batching.preserve_ordering
+        if cfg.sequence_batching is not None:
+            c.sequence_batching.max_sequence_idle_microseconds = \
+                cfg.sequence_batching.max_sequence_idle_microseconds
+            c.sequence_batching.max_candidate_sequences = \
+                cfg.sequence_batching.max_candidate_sequences
+        for step in cfg.ensemble_steps:
+            s = c.ensemble_scheduling.step.add()
+            s.model_name = step.model_name
+            s.model_version = step.model_version
+            for k, v in step.input_map.items():
+                s.input_map[k] = v
+            for k, v in step.output_map.items():
+                s.output_map[k] = v
         c.model_transaction_policy.decoupled = cfg.decoupled
+        c.response_cache.enable = cfg.response_cache
         ig = c.instance_group.add()
         ig.kind = "KIND_GPU"
         ig.count = cfg.instance_count
@@ -333,6 +340,37 @@ class _Handlers:
                     d.count = bs[field]["count"]
                     d.ns = bs[field]["ns"]
         return out
+
+    def RepositoryIndex(self, req, context):
+        out = pb.RepositoryIndexResponse()
+        for m in self.core.repository_index(req.ready):
+            mi = out.models.add()
+            mi.name = m["name"]
+            mi.version = m["version"]
+            mi.state = m["state"]
+            mi.reason = m["reason"]
+        return out
+
+    def RepositoryModelLoad(self, req, context):
+        override = None
+        params = params_to_dict(req.parameters)
+        if "config" in params:
+            override = json.loads(params["config"])
+        try:
+            self.core.load_model(req.model_name, override)
+        except ServerError as e:
+            self._abort(context, e)
+        return pb.RepositoryModelLoadResponse()
+
+    def RepositoryModelUnload(self, req, context):
+        params = params_to_dict(req.parameters)
+        try:
+            self.core.unload_model(req.model_name,
+                                   bool(params.get("unload_dependents",
+                                                   False)))
+        except ServerError as e:
+            self._abort(context, e)
+        return pb.RepositoryModelUnloadResponse()
 
     def SystemSharedMemoryStatus(self, req, context):
         out = pb.SystemSharedMemoryStatusResponse()
@@ -499,14 +537,6 @@ class _Handlers:
                     return
 
 
-def _unported(name: str, item: str):
-    def handler(req, context):
-        context.abort(grpc.StatusCode.UNIMPLEMENTED,
-                      f"{name} is not ported to this server yet (ROADMAP "
-                      f"{item})")
-    return handler
-
-
 def _tpu_shm(req, context):
     context.abort(grpc.StatusCode.INVALID_ARGUMENT, TPU_SHM_UNAVAILABLE)
 
@@ -531,8 +561,7 @@ class GrpcInferenceServer:
         handlers = _Handlers(core, debug_endpoints=debug_endpoints)
         method_handlers = {}
         for name, (kind, req_cls, resp_cls) in METHODS.items():
-            fn = (_unported(name, _UNPORTED_RPCS[name])
-                  if name in _UNPORTED_RPCS else getattr(handlers, name))
+            fn = getattr(handlers, name)
             make = (grpc.unary_unary_rpc_method_handler if kind == "unary"
                     else grpc.stream_stream_rpc_method_handler)
             method_handlers[name] = make(

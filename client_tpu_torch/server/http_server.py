@@ -14,6 +14,11 @@ and ``/v2/cudasharedmemory`` (status, register, unregister).
 ``/v2/cudasharedmemory``, as the reference answers the CUDA verbs. An
 infer request's ``triton-trace-id`` header propagates the caller's trace
 id, and a traced request's id comes back in the same header.
+The repository extension: ``POST /v2/repository/index``,
+``/v2/repository/models/{name}/load`` (a ``config`` override in its
+parameters) and ``.../unload`` (``unload_dependents``); an infer
+request's ``sequence_id``, ``sequence_start`` and ``sequence_end``
+parameters drive a stateful model's sequence.
 ``access_log=True`` logs one structured INFO record per request.
 ``debug_endpoints=True`` opts into the debug surface: GET
 ``/v2/debug/runtime``, ``/v2/debug/models/{name}[/versions/{v}]/engine``,
@@ -23,8 +28,7 @@ id, and a traced request's id comes back in the same header.
 and POST ``/v2/debug/faults`` and POST ``/v2/debug/profile``; with the
 flag off they answer 404 like any unknown path. An armed
 ``transport_reset`` fault drops the connection before any response byte.
-The repository routes and the fleet view wait for later slices and
-answer 404.
+The fleet view waits for a later slice and answers 404.
 """
 
 from __future__ import annotations
@@ -309,6 +313,38 @@ class _Handler(BaseHTTPRequestHandler):
         body = json.loads(self._body or b"{}")
         self._send_json(200, self.core.update_trace_settings(name or "", body))
 
+    # ---- repository ----
+
+    @route("POST", r"/v2/repository/index")
+    def repo_index(self):
+        body = self._body
+        ready = False
+        if body:
+            ready = bool(json.loads(body or b"{}").get("ready", False))
+        self._send_json(200, self.core.repository_index(ready))
+
+    @route("POST", r"/v2/repository/models/(?P<name>[^/]+)/load")
+    def repo_load(self, name):
+        body = self._body
+        override = None
+        if body:
+            params = json.loads(body).get("parameters", {})
+            cfg = params.get("config")
+            if cfg:
+                override = json.loads(cfg) if isinstance(cfg, str) else cfg
+        self.core.load_model(name, override)
+        self._send_json(200, {})
+
+    @route("POST", r"/v2/repository/models/(?P<name>[^/]+)/unload")
+    def repo_unload(self, name):
+        body = self._body
+        unload_dependents = False
+        if body:
+            params = json.loads(body).get("parameters", {})
+            unload_dependents = bool(params.get("unload_dependents", False))
+        self.core.unload_model(name, unload_dependents)
+        self._send_json(200, {})
+
     # ---- shared memory ----
 
     @route("GET", r"/v2/systemsharedmemory(/region/(?P<name>[^/]+))?/status")
@@ -426,7 +462,10 @@ def _wire_to_request(name: str, version: str, header: dict,
         tenant_id=parse_label_param(req_params, "tenant_id",
                                     DEFAULT_TENANT),
         slo_class=parse_label_param(req_params, "slo_class",
-                                    DEFAULT_SLO_CLASS))
+                                    DEFAULT_SLO_CLASS),
+        sequence_id=req_params.pop("sequence_id", 0),
+        sequence_start=bool(req_params.pop("sequence_start", False)),
+        sequence_end=bool(req_params.pop("sequence_end", False)))
 
 
 def _response_to_wire(request_header: dict, response) -> tuple:

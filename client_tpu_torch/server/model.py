@@ -11,9 +11,13 @@ inputs are copied in per call (or arrive as device tensors), and outputs
 come back through pinned host memory guarded by a CUDA event, or, on the
 shm-output path (``execute_parts_fused_split``), stay on the device as
 per-row views. PyTorch runs eagerly, so there is no jit and no sealed
-compile set; the reference's CompileWatch waits for a later slice.
-``runtime_observability`` gives the memory half of the reference's
-runtime block: the weights' bytes.
+compile set; the reference's CompileWatch waits for the CUDA-graph work
+(ROADMAP "Performance"). ``runtime_observability`` gives the memory half
+of the reference's runtime block: the weights' bytes.
+
+SequenceModel, a TorchModel, is the stateful model the sequence scheduler
+drives: an explicit state (``init_state()``, ``step(inputs, state) -> (outputs,
+state)``) that stays on the model's device between requests.
 """
 
 from __future__ import annotations
@@ -350,4 +354,47 @@ def _to_device(tree, device):
         return None
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
     return tree.to(device)
+
+
+class SequenceModel(TorchModel):
+    """A stateful model: per-correlation-id state carried across requests
+    (the reference's ``SequenceModel``). It reuses TorchModel's
+    load/unload of the params onto ``device`` and its runtime block.
+
+    ``init_state_fn()`` builds a fresh state (any nesting of tensors on
+    the model's device) and ``step_fn(params, inputs, state) -> (outputs,
+    state)`` runs one request; the sequence scheduler threads the state
+    through a sequence, and it stays on the device between requests.
+    Inputs move to the device per step; outputs come back as host
+    arrays. A step may write its state in place: the scheduler builds a
+    fresh state at every START, never reusing a state's tensors."""
+
+    def __init__(self, config: ModelConfig,
+                 step_fn: Callable[[Any, dict, Any], tuple],
+                 init_state_fn: Callable[[], Any],
+                 params: Any = None, device=None):
+        super().__init__(config, apply_fn=None, params=params, device=device)
+        self._step_fn = step_fn
+        self._init_state_fn = init_state_fn
+
+    def warmup(self) -> None:
+        """No batch buckets to warm (the reference's SequenceModel warms
+        nothing either)."""
+
+    def init_state(self):
+        with torch.inference_mode():
+            return self._init_state_fn()
+
+    def step(self, inputs: dict, state):
+        params = self._snapshot()
+        dev_in = self.device_put_inputs(inputs)
+        with torch.inference_mode():
+            outputs, new_state = self._step_fn(params, dev_in, state)
+        return finish_host_copies(start_host_copies(outputs)), new_state
+
+    def execute(self, inputs: dict) -> dict:
+        out, _ = self.step(inputs, self.init_state())
+        return out

@@ -1,4 +1,4 @@
-"""Request schedulers: direct and dynamic-batching.
+"""Request schedulers: direct, dynamic-batching and sequence.
 
 The port's counterpart of ``client_tpu/server/scheduler.py``. The dynamic
 batcher pads every batch to a static bucket size
@@ -25,8 +25,12 @@ the outputs, one CUDA event for the whole batch, and no output leaves the
 device. A traced request (``Pending.trace``) gets the compute spans on
 every path (COMPUTE_START, COMPUTE_INPUT_END, COMPUTE_OUTPUT_START), and a
 decoupled one FIRST_TOKEN at its first response and TOKEN_EMIT every
-``TOKEN_EMIT_SAMPLE_EVERY``-th. The sequence scheduler waits for a later
-slice.
+``TOKEN_EMIT_SAMPLE_EVERY``-th.
+
+The sequence scheduler keys a stateful model's requests by correlation
+id: each live sequence holds its state (a ``SequenceModel``'s tensors on
+the model's device) and a lock that serialises its requests, and up to
+``instance_count`` sequences run at once.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from client_tpu_torch.device import wire_dtype_of
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
 from client_tpu_torch.server import trace as trace_mod
 from client_tpu_torch.server.model import (
+    SequenceModel,
     ServedModel,
     StreamContext,
     TorchModel,
@@ -710,9 +715,121 @@ class DynamicBatchScheduler(SchedulerBase):
             request_total_ns_each=[t3 - p.enqueue_ns for p in batch])
 
 
+class SequenceScheduler(SchedulerBase):
+    """Correlation-id-keyed stateful execution (the reference's
+    ``SequenceScheduler``).
+
+    Each live sequence owns a state (a ``SequenceModel``'s, on its
+    device) and a lock serialising its requests; distinct sequences run
+    concurrently up to ``instance_count``. A request without a
+    correlation id, or opening an unknown id without START, is a 400; a
+    START past ``max_candidate_sequences`` live ones is a 503 with a
+    Retry-After hint; a START on a live id gives it a fresh state; END
+    releases it; a sequence idle longer than
+    ``max_sequence_idle_microseconds`` is dropped at the next submit."""
+
+    class _Seq:
+        __slots__ = ("state", "lock", "last_ns")
+
+        def __init__(self, state):
+            self.state = state
+            self.lock = threading.Lock()
+            self.last_ns = now_ns()
+
+    def __init__(self, model, stats, version):
+        super().__init__(model, stats, version)
+        self._instances = max(1, model.config.instance_count)
+        self._sem = threading.Semaphore(self._instances)
+        self._sequences: dict = {}
+        self._map_lock = threading.Lock()
+        sb = model.config.sequence_batching
+        self.max_idle_ns = (sb.max_sequence_idle_microseconds * 1000
+                            if sb else 10**15)
+        self.max_candidates = sb.max_candidate_sequences if sb else 1024
+
+    def live_sequences(self) -> int:
+        with self._map_lock:
+            return len(self._sequences)
+
+    def inflight(self) -> int:
+        return max(0, self._instances - self._sem._value)
+
+    def _evict_idle(self) -> None:
+        cutoff = now_ns() - self.max_idle_ns
+        with self._map_lock:
+            dead = [k for k, s in self._sequences.items() if s.last_ns < cutoff]
+            for k in dead:
+                del self._sequences[k]
+
+    def _init_state(self):
+        return (self.model.init_state()
+                if isinstance(self.model, SequenceModel) else None)
+
+    def submit(self, pending: Pending) -> None:
+        req = pending.request
+        corr = req.sequence_id
+        if not corr:
+            pending.send(_error_response(
+                req, "sequence model requires a correlation id"), True)
+            return
+        self._evict_idle()
+        with self._map_lock:
+            seq = self._sequences.get(corr)
+            if seq is None:
+                if not req.sequence_start:
+                    pending.send(_error_response(
+                        req, f"sequence {corr} has no START request"), True)
+                    return
+                if len(self._sequences) >= self.max_candidates:
+                    pending.send(_error_response(
+                        req, "max_candidate_sequences exceeded", 503,
+                        retry_after=1.0), True)
+                    return
+                seq = self._Seq(self._init_state())
+                self._sequences[corr] = seq
+            elif req.sequence_start:
+                # fresh tensors: a step writes its state in place, so the
+                # old ones are never reused
+                seq.state = self._init_state()
+        with seq.lock, self._sem:
+            pickup = now_ns()
+            queue_ns = pickup - pending.enqueue_ns
+            tr = pending.trace
+            try:
+                if tr is not None:
+                    tr.event(trace_mod.COMPUTE_START, pickup)
+                    tr.event(trace_mod.COMPUTE_INPUT_END, pickup)
+                if isinstance(self.model, SequenceModel):
+                    outputs, new_state = self.model.step(pending.inputs,
+                                                         seq.state)
+                    seq.state = new_state
+                else:
+                    outputs = self.model.execute(pending.inputs)
+                seq.last_ns = now_ns()
+                if tr is not None:
+                    tr.event(trace_mod.COMPUTE_OUTPUT_START, seq.last_ns)
+                pending.send(_success_response(req, outputs, self.version),
+                             True)
+                total = now_ns() - pending.enqueue_ns
+                self.stats.record_execution(
+                    batch_size=1, num_requests=1,
+                    queue_ns_per_request=[queue_ns], compute_input_ns=0,
+                    compute_infer_ns=total - queue_ns, compute_output_ns=0,
+                    request_total_ns_each=[total])
+            except Exception as e:  # noqa: BLE001
+                self.stats.record_failure(now_ns() - pending.enqueue_ns)
+                pending.send(_error_response(
+                    req, f"{type(e).__name__}: {e}", 500), True)
+        if req.sequence_end:
+            with self._map_lock:
+                self._sequences.pop(corr, None)
+
+
 def make_scheduler(model: ServedModel, stats: ModelStats,
                    version: str) -> SchedulerBase:
     cfg = model.config
+    if cfg.sequence_batching is not None or isinstance(model, SequenceModel):
+        return SequenceScheduler(model, stats, version)
     if cfg.decoupled:
         return DirectScheduler(model, stats, version)
     if cfg.max_batch_size > 0 and cfg.dynamic_batching is not None:

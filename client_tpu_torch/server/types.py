@@ -7,9 +7,9 @@ these types. The front ends parse the multi-tenant SLO labels
 hands them, the wire ``timeout`` as a deadline and the ``cancel_event``
 to a decoupled model's stream (``server/model.py:StreamContext``); the
 SLO scheduler reads the labels. A request carries the caller's
-propagated trace id and the core's sampled trace. The stateful-sequence
-controls and the ensemble's parent trace of the reference wait for the
-slices that use them.
+propagated trace id, the core's sampled trace, the stateful-sequence
+controls (the sequence scheduler reads them) and, for an ensemble's
+step, its parent's trace.
 """
 
 from __future__ import annotations
@@ -116,18 +116,28 @@ class InferRequest:
     # multi-tenant SLO attribution, validated by the front ends
     tenant_id: str = DEFAULT_TENANT
     slo_class: str = DEFAULT_SLO_CLASS
+    # stateful-sequence controls: an int or str correlation id (0 or ""
+    # for none) and the START / END flags
+    sequence_id: Any = 0
+    sequence_start: bool = False
+    sequence_end: bool = False
     # bookkeeping (filled by the core)
     arrival_ns: int = 0
     # tracing: trace_id is the caller's propagated id (the HTTP
-    # triton-trace-id header, the gRPC triton_trace_id parameter); trace
+    # triton-trace-id header, the gRPC triton_trace_id parameter);
+    # trace_parent links an ensemble's step to its parent's trace; trace
     # is the sampled Trace the core set (the front ends echo its id)
     trace_id: str = ""
+    trace_parent: Any = None
     trace: Any = None
     # client-cancellation signal (a threading.Event or None): a front end
     # that sees the caller go away (the gRPC context callback) sets it, so
     # a decoupled stream frees its engine slot and prefix pins instead of
     # decoding to its budget for nobody
     cancel_event: Any = None
+
+    def has_sequence(self) -> bool:
+        return bool(self.sequence_id)
 
 
 @dataclass

@@ -6,9 +6,8 @@ server, port server} over HTTP, on ``add_sub``, ``identity`` and a tiny
 encoder with the same weights in both packages, and holds the port's
 client to what the reference's gets from the same server: outputs,
 statuses and error texts. What differs between the two servers by design
-(their names, platforms and device shared-memory verbs, the port's
-missing repository routes) is asserted per server, the same for both
-clients.
+(their names, platforms and device shared-memory verbs) is asserted per
+server, the same for both clients.
 
 Also: ``generate_request_body`` byte for byte and the JSON header's size
 against the reference's for binary, JSON, BYTES, BF16, shared-memory,
@@ -266,16 +265,18 @@ def test_device_shared_memory_verbs(clients, side):
 
 @pytest.mark.parametrize("side", SIDES)
 def test_repository_routes(clients, side):
-    """The reference's server has the repository; the port's answers its
-    routes with 404 until the repository is ported (ROADMAP queue A, item
-    6)."""
+    """Both servers have the repository: the index, a reload of a
+    programmatic model and an unknown model's unload read the same from
+    each server through each client (tests/test_torch_repository.py holds
+    the rest of the extension)."""
     for fn in (lambda c, m: c.get_model_repository_index(),
                lambda c, m: c.load_model("add_sub"),
                lambda c, m: c.unload_model("no_such_model")):
         ref, port = _both(clients, side, fn)
         assert port == ref
-        if side == "port":
-            assert port[0] == "error" and port[1] == "404"
+        assert _both(clients, "ref", fn) == [ref, port]
+    assert _both(clients, side, lambda c, m: c.unload_model(
+        "no_such_model"))[0][1] == "400"
 
 
 # ----------------------------------------------------------------- infer

@@ -54,6 +54,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.models.transformer",
                      "client_tpu_torch.models.sampling",
                      "client_tpu_torch.models.decoder_lm",
+                     "client_tpu_torch.models.resnet",
+                     "client_tpu_torch.models.streaming",
+                     "client_tpu_torch.models.add_sub",
                      "client_tpu_torch.utils",
                      "client_tpu_torch.utils.shared_memory",
                      "client_tpu_torch.utils.cuda_shared_memory",
@@ -177,15 +180,20 @@ def _entry_points():
     from client_tpu_torch.device import resolve_device
     from client_tpu_torch.models import make_add_sub
     from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.models import (
+        make_accumulator,
+        make_resnet50,
+    )
     from client_tpu_torch.models.decoder_lm import (
         decode_config,
         make_continuous_generator,
+        make_decoder_lm,
     )
     from client_tpu_torch.perf.bench_harness import build_bert_encoder
     from client_tpu_torch.server.config import ModelConfig
     from client_tpu_torch.server.generation import ContinuousBatchingEngine
     from client_tpu_torch.server.config import SpeculativeConfig
-    from client_tpu_torch.server.model import TorchModel
+    from client_tpu_torch.server.model import SequenceModel, TorchModel
     from client_tpu_torch.server.speculation import (
         DraftModel,
         build_draft_model,
@@ -219,6 +227,11 @@ def _entry_points():
         "make_continuous_generator": lambda: make_continuous_generator(),
         "cuda_shm_region": lambda: cudashm.create_shared_memory_region(
             "r", 8),
+        "SequenceModel": lambda: SequenceModel(
+            ModelConfig(name="s"), lambda p, x, s: (x, s), lambda: None),
+        "make_accumulator": lambda: make_accumulator(),
+        "make_decoder_lm": lambda: make_decoder_lm(cfg=cfg),
+        "make_resnet50": lambda: make_resnet50(),
     }
 
 
@@ -229,7 +242,9 @@ def _entry_points():
                                    "speculating_engine",
                                    "build_draft_model",
                                    "make_continuous_generator",
-                                   "cuda_shm_region"])
+                                   "cuda_shm_region", "SequenceModel",
+                                   "make_accumulator", "make_decoder_lm",
+                                   "make_resnet50"])
 def test_entry_points_without_a_device_raise_when_cuda_is_absent(
         entry, monkeypatch):
     # the same code path a machine without CUDA takes, on any machine

@@ -308,7 +308,9 @@ def test_cli_flag_errors(server, capsys):
     for kind in ("tfserve", "torchserve"):
         assert main(["-m", "add_sub", "--service-kind", kind]) == 2
         assert "ROADMAP A5, foreign backends" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # the repository is ported: an empty one serves no add_sub, as in
+    # the reference (whose parser reads the unknown model's metadata)
+    with pytest.raises(ServerError, match="unknown model 'add_sub'"):
         main(["-m", "add_sub", "--service-kind", "cuda_direct",
               "--model-repository", "/nonexistent"])
     with pytest.raises(SystemExit) as ei:

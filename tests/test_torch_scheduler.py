@@ -16,7 +16,9 @@ engine integration) on the CPU, held against the JAX package's.
   self-draft speculating, and through a dedicated prefill lane on both
   layouts (the victim and its resume come through the lane), both
   engines give identical tokens (equal to an uninterrupted run),
-  preemption and resume counts, completion order and statuses, and end
+  preemption and resume counts, the order in which the engine closed
+  the two streams (its ``_close_request``, not the consumers'), statuses,
+  and end
   leak-free (no slot held, no pin, the paged pool
   whole). A cancel and a deadline that land on the preempted request
   while it is queued settle it as the reference does (499, 504).
@@ -374,6 +376,25 @@ class Gate:
             old[2].set()
 
 
+class CloseOrder:
+    """Records the tenant of every stream an engine closes, in the order
+    the engine closes them (its ``_close_request``, the one place both
+    engines deliver a stream's terminal item), whatever order the
+    consumers then read them in."""
+
+    def __init__(self, engine):
+        self.tenants = []
+        close = engine._close_request
+
+        def record(req, terminal, outcome=None):
+            first = not req.finished
+            close(req, terminal, outcome)
+            if first:
+                self.tenants.append(req.tenant)
+
+        engine._close_request = record
+
+
 def _build(side: str, weights, combo: str, **extra):
     jcfg, jparams, tcfg, tparams = weights
     kw = dict(BASE, **COMBOS[combo], **extra, scheduler=dict(SCHED),
@@ -390,9 +411,9 @@ def _build(side: str, weights, combo: str, **extra):
 
 @pytest.fixture(scope="module")
 def engines(weights):
-    """Per combo and side, a started engine with its gate, the shared
-    clock patched into both generation modules, and the uninterrupted
-    streams of the scenario's two requests."""
+    """Per combo and side, a started engine with its gate, the
+    uninterrupted streams of the scenario's two requests and its close
+    order, and the shared clock patched into both generation modules."""
     clock = Clock()
     built = {}
     with pytest.MonkeyPatch.context() as mp:
@@ -403,13 +424,14 @@ def engines(weights):
                 for side in ("ref", "port"):
                     eng = _build(side, weights, combo).start()
                     gate = Gate(eng)
+                    closes = CloseOrder(eng)
                     plain = {
                         "be": list(eng.submit(BE_PROMPT, BE_BUDGET)),
                         "gold": list(eng.submit(GOLD_PROMPT, GOLD_BUDGET))}
-                    built[(combo, side)] = (eng, gate, plain)
+                    built[(combo, side)] = (eng, gate, plain, closes)
             yield built, clock
         finally:
-            for eng, _, _ in built.values():
+            for eng, *_ in built.values():
                 eng.stop()
 
 
@@ -423,12 +445,11 @@ def _gold_holds_slot(eng):
                        for s in eng._slots)
 
 
-def _consume(it, name, out, order):
+def _consume(it, name, out):
     try:
         out[name] = list(it)
     except (ServerError, JaxServerError) as e:
         out[name] = ("error", e.status, str(e))
-    order.append(name)
 
 
 def _pins(eng) -> int:
@@ -453,13 +474,19 @@ def _settled(eng) -> dict:
             "reserved": None if occ is None else occ["reserved"]}
 
 
-def _scenario(eng, gate, clock, ending: str) -> dict:
+_STREAM_OF = {"flood": "be", "gold": "gold"}
+
+
+def _scenario(eng, gate, clock, ending: str, closes: CloseOrder) -> dict:
     """The best-effort stream decodes in the only slot; the engine is held
     while a gold request queues; at the next boundary the gold head
     preempts it. ``ending`` "cancel" / "deadline" then holds the engine
     while the gold stream runs and sets the queued victim's cancel Event
-    or moves the engine's clock past its deadline."""
-    out, order = {}, []
+    or moves the engine's clock past its deadline. ``order`` is the order
+    in which the engine closed the two streams (not the order their
+    consumer threads finished reading them)."""
+    out = {}
+    mark = len(closes.tenants)
     cancel = threading.Event() if ending == "cancel" else None
     deadline = (time.monotonic_ns() + int(300e9)
                 if ending == "deadline" else 0)
@@ -468,7 +495,7 @@ def _scenario(eng, gate, clock, ending: str) -> dict:
     be = threading.Thread(target=_consume, args=(
         eng.submit(BE_PROMPT, BE_BUDGET, tenant_id="flood",
                    slo_class="best_effort", cancel_event=cancel,
-                   deadline_ns=deadline), "be", out, order))
+                   deadline_ns=deadline), "be", out))
     be.start()
     assert gate.held.wait(WAIT_S)
     gold_it = eng.submit(GOLD_PROMPT, GOLD_BUDGET, tenant_id="gold",
@@ -479,7 +506,7 @@ def _scenario(eng, gate, clock, ending: str) -> dict:
     else:
         gate.release()
     gold = threading.Thread(target=_consume,
-                            args=(gold_it, "gold", out, order))
+                            args=(gold_it, "gold", out))
     gold.start()
     if ending:
         assert gate.held.wait(WAIT_S)
@@ -495,6 +522,7 @@ def _scenario(eng, gate, clock, ending: str) -> dict:
         assert not th.is_alive()
     clock.engine_s = 0.0
     after = eng.scheduler_snapshot()
+    order = [_STREAM_OF[t] for t in closes.tenants[mark:]]
     return {"out": out, "order": order,
             "preemptions": after["preemptions_total"]
             - before["preemptions_total"],
@@ -506,7 +534,8 @@ def _scenario(eng, gate, clock, ending: str) -> dict:
 @pytest.mark.parametrize("combo", sorted(COMBOS))
 def test_preemption_matches_the_jax_engine(engines, combo):
     built, clock = engines
-    runs = {side: _scenario(*built[(combo, side)][:2], clock, "")
+    runs = {side: _scenario(*built[(combo, side)][:2], clock, "",
+                            built[(combo, side)][3])
             for side in ("ref", "port")}
     port, ref = runs["port"], runs["ref"]
     plain = built[(combo, "port")][2]
@@ -531,7 +560,8 @@ def test_preemption_matches_the_jax_engine(engines, combo):
 def test_cancel_and_deadline_on_a_preempted_queued_request(engines, ending,
                                                            status):
     built, clock = engines
-    runs = {side: _scenario(*built[("slot_token", side)][:2], clock, ending)
+    runs = {side: _scenario(*built[("slot_token", side)][:2], clock, ending,
+                            built[("slot_token", side)][3])
             for side in ("ref", "port")}
     # the victim closes at its admission while the gold stream's last
     # tokens may still be in flight: the two consumers' finishing order
@@ -622,23 +652,23 @@ def test_shed_door_sheds_the_same_victim(weights):
                tgen.ContinuousBatchingEngine(tcfg, tparams, device="cpu",
                                              **kw)).start()
         gate = Gate(eng)
-        out, order, threads = {}, [], []
+        out, threads = {}, []
         try:
             gate.hold(lambda e=eng: any(s.req is not None
                                         for s in e._slots))
             threads.append(threading.Thread(target=_consume, args=(
                 eng.submit(prompts[0], 8, tenant_id="flood",
-                           slo_class="batch"), "hold", out, order)))
+                           slo_class="batch"), "hold", out)))
             threads[-1].start()
             assert gate.held.wait(WAIT_S)
             for name, p in (("q1", prompts[1]), ("q2", prompts[2])):
                 threads.append(threading.Thread(target=_consume, args=(
                     eng.submit(p, 2, tenant_id="flood", slo_class="batch"),
-                    name, out, order)))
+                    name, out)))
                 threads[-1].start()
             threads.append(threading.Thread(target=_consume, args=(
                 eng.submit(prompts[3], 2, tenant_id="vip",
-                           slo_class="gold"), "gold", out, order)))
+                           slo_class="gold"), "gold", out)))
             threads[-1].start()
             try:
                 eng.submit(prompts[4], 2, tenant_id="flood",
