@@ -22,7 +22,10 @@ each printing one JSON line:
 4. kernel    the same for paged decode attention (K2) at the generation
              path's shapes: positions 0, 15, 16, mid-context and 191,
              inactive slots on the scratch block, table widths 1, 4 and 12,
-             one GQA case; no single PyTorch call reads through a block
+             one GQA case; width_invariance: one slot's output launched
+             alone and padded to every wider table width beside co-runners
+             must be bit-equal (bf16 and f32, r = 1 and 4), or the phase
+             fails; no single PyTorch call reads through a block
              table, so its yardstick is a gather plus
              scaled_dot_product_attention.
 5. serve     the BERT-base encoder (12 layers, d 768, 12 heads of 64, seq
@@ -218,10 +221,8 @@ each printing one JSON line:
              with an engine_loop fault armed once 8 streams have their
              first token: every stream the death caught gets a 503 with
              Retry-After and is sent again after it, as a retrying client
-             does; every job completes and is teacher-forced (the
-             streams equal to the clean run's are counted: a resubmitted
-             stream shares its rounds with others, and K2's bf16 sums
-             follow the round's table width), one restart,
+             does; every job completes, is teacher-forced and equals
+             the clean run's stream token for token, one restart,
              the engine_death bundle readable at /v2/debug/incidents, K2
              12 x 16 per chunk dispatch of the dead and the rebuilt engine
              plus the rebuilt engine's two warm chunks, and
@@ -324,6 +325,43 @@ each printing one JSON line:
              host and CUDA-event ms per decode step. K1 and K2 must not
              launch in the phase. Every time is printed beside the card's
              name and power limit.
+19. generators
+             the single-stream and static-batch generators (ROADMAP 7a)
+             at the reference's default decode config (vocab 1024, d 128,
+             2 layers, max_seq 128, bf16, seed 0): generator_lm and
+             batch_generator_lm (chunk 8) through TorchInferenceServer.infer
+             with a response callback, as gRPC's ModelStreamInfer calls
+             it. Prompts of 1, 8, 9, 33 and 100 tokens (the step path and
+             every prefill bucket) with a budget of 21 (two chunks and a
+             tail of 5), and a batch of 8 rows of 16 tokens with a budget
+             of 64. Every greedy stream and row is teacher-forced as
+             above; the same seed gives the same sampled stream twice;
+             TOP_K = 1 equals greedy; K1 and K2 launch 0 times. Prints TTFT
+             per prompt, ms per token in a chunk and in the tail, host ms
+             and kernel launches per chunk, and the batch generator's
+             tokens/s at B = 8 and B = 1.
+20. fleet    the replica fleet router (ROADMAP 7b's fleet half): two
+             replicas of bench.py's generation model on the one card, each
+             paged with K2, at the reference fleet benchmark's settings
+             (4 slots, chunk 4, prefix cache at blocks of 16, chunked
+             prefill at 32, affinity blocks of 16) and its full-scale
+             workload (8 tenants x 4 requests of a 64-token tenant prefix
+             and an 8-token suffix, budget 8; tenants concurrent, each
+             tenant's requests one after another) through
+             TorchInferenceServer.infer. Four runs: affinity, random
+             (seeded), one replica, and affinity with replica 0 drained
+             once 16 tokens have streamed. The affinity run's prefix hit
+             rate must beat the random run's; the drain must complete with
+             zero failed streams and every stream its budget; every greedy
+             stream is teacher-forced and equal, token for token, to the
+             one-replica run's; K2 must launch 12 x 4 per chunk dispatch
+             on every replica (a tally by engine thread beside the
+             wrapper's count; a drained replica's fresh engine adds its
+             two warm chunks); /v2/debug/fleet and client_tpu_fleet_* on
+             /metrics must read the fleet's routed counts; a traced stream
+             must carry FLEET_ROUTE. Prints each run's tokens/s (the two
+             replicas share the card: the number is the router's cost, not
+             a scaling), the drain's ms and the host µs per route call.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -657,6 +695,53 @@ def _paged_inputs(s, h, hkv, dh, n, width, pos, dtype, gen, inactive=()):
     return q, pool[0, 1], pool[1, 1], tables, pos
 
 
+# (position, table widths): one slot at live 1, 3, 7 and 12 padded to every
+# width up to 12, and at live 25 (clusters of 8, shares of 4 blocks) at
+# widths 26, 32 and 48
+K2_WIDTH_CASES = [(5, range(1, 13)), (37, range(3, 13)), (100, range(7, 13)),
+                  (191, range(12, 13)), (390, (25, 26, 32, 48))]
+
+
+def _k2_width_invariance(pa, gen) -> list:
+    """One slot's K2 output launched alone at its own table width and
+    padded to every wider width beside 3 co-runners at longer positions
+    (which set the launch's cluster size): it must be bit-equal in every
+    launch, in bf16 and f32, at r = 1 and r = 4."""
+    runners, n = 3, 1 + 48 * 4
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, hkv in ((12, 12), (16, 4)):
+            q = torch.randn((runners + 1, h, 64), generator=gen,
+                            device="cuda").to(dtype)
+            kp, vp = (torch.randn((n, GEN_BLOCK, hkv, 64), generator=gen,
+                                  device="cuda").to(dtype) for _ in range(2))
+            blocks = (torch.randperm(n - 1, generator=gen, device="cuda")
+                      + 1).to(torch.int32).reshape(runners + 1, 48)
+            launches = 0
+            for p, widths in K2_WIDTH_CASES:
+                live = p // GEN_BLOCK + 1
+                own = pa.paged_decode_attention(
+                    q[:1], kp, vp, blocks[:1, :live].contiguous(),
+                    torch.tensor([p], dtype=torch.int32, device="cuda"))
+                for w in widths:
+                    tables = blocks[:, :w].clone()
+                    tables[0, live:] = 0
+                    pos = torch.tensor(
+                        [p] + [w * GEN_BLOCK - 1 - i for i in range(runners)],
+                        dtype=torch.int32, device="cuda")
+                    got = pa.paged_decode_attention(q, kp, vp, tables, pos)
+                    launches += 1
+                    if not torch.equal(got[0], own[0]):
+                        diff = (got[0].float() - own[0].float()).abs().max()
+                        fail(f"paged_decode_attention's output for one slot "
+                             f"changed with the table width: {dtype}, "
+                             f"H {h}/{hkv}, position {p}, width {w}, max "
+                             f"|diff| {diff.item()}")
+            out.append({"dtype": str(dtype).split(".")[-1], "heads": [h, hkv],
+                        "launches_compared": launches, "bit_equal": True})
+    return out
+
+
 def phase_paged_kernel(peaks: tuple) -> dict:
     from client_tpu_torch.ops import paged_attention as pa
 
@@ -697,6 +782,8 @@ def phase_paged_kernel(peaks: tuple) -> dict:
             fail(f"paged_decode_attention disagrees with its plain "
                  f"version: {case}")
 
+    width_invariance = _k2_width_invariance(pa, gen)
+
     # full context: every slot at position 191 over a table of 12 blocks
     q, kp, vp, tables, pos = _paged_inputs(
         s, h, h, dh, GEN_POOL, nb, [GEN_MAX_SEQ - 1] * s, torch.bfloat16,
@@ -731,7 +818,7 @@ def phase_paged_kernel(peaks: tuple) -> dict:
               **bound(nbytes, 2 * 2 * s * h * ctx * dh, peaks),
               "max_abs_err": max(c["max_abs_err"] for c in errs)}
     emit({"phase": "kernel", "name": "paged_decode_attention",
-          "cases": errs, **timing,
+          "cases": errs, "width_invariance": width_invariance, **timing,
           "library_note": "no single PyTorch call reads K/V through a "
                           "block table; yardstick: gather + "
                           "scaled_dot_product_attention",
@@ -2303,7 +2390,10 @@ class _ResumeProbe:
     """Wraps an engine's preemption and prefix acquire: each preemption
     records the match its resume must get (the full blocks of the rows it
     committed, capped one token short of the extended prompt), and each
-    resume's acquire records what it got."""
+    resume's acquire records what it got. A victim whose extended prompt
+    fits in one block resumes without a lookup (the engine never matches
+    a sub-block prompt): its resume is recorded at the preemption as
+    matching the nothing it must match."""
 
     def __init__(self):
         self.expected: dict = {}
@@ -2319,7 +2409,10 @@ class _ResumeProbe:
             ext = len(req.prompt) + len(req.gen_tokens or ())
             want = min(min(slot.pos_hi, ext) // bl, (ext - 1) // bl) * bl
             preempt(idx)
-            self.expected[id(req.prompt)] = want
+            if ext <= bl:
+                self.resumes.append((0, 0))
+            else:
+                self.expected[id(req.prompt)] = want
 
         def acquire_prefix(tokens):
             handle = acquire(tokens)
@@ -3262,15 +3355,17 @@ def _supervise_serve(gen_model: tuple, tmp: str) -> dict:
                  f"for {dead_chunks} + {new_chunks} + {WARM_CHUNKS} chunk "
                  f"dispatches, marks {marks}")
         # a resubmitted stream shares its rounds with other streams than
-        # in the clean run: K2 splits a slot's table over the round's
-        # width bucket, so its bf16 sums run in another order and a
-        # near-tie may flip; the streams are teacher-forced (below) and
-        # the identical ones counted
+        # in the clean run; a slot's K2 output follows its own blocks
+        # only, so every stream must equal the clean run's
         same = [a == b for a, b in zip(crash["tokens"], clean["tokens"])]
         first_diff = [next(k for k, (x, y) in enumerate(zip(a, b))
                            if x != y)
                       for a, b, eq in zip(crash["tokens"], clean["tokens"],
                                           same) if not eq]
+        if not all(same):
+            fail(f"supervise: {sum(same)} of {len(same)} resubmitted "
+                 f"streams equal the clean run's (first differing tokens "
+                 f"{first_diff})")
         # the crash: the liveness flip, the first act of the death, read
         # on this host's clock by the watcher
         t_crash = marks["down"]
@@ -3299,7 +3394,6 @@ def _supervise_serve(gen_model: tuple, tmp: str) -> dict:
             "rebuilt_engine_chunk_dispatches": new_chunks,
             "paged_decode_attention_launches": crash["k2"],
             "streams_equal_clean": sum(same),
-            "first_differing_token": first_diff,
             "crash_to_healthy_ms": (marks["healthy"] - t_crash) * 1e3,
             "crash_to_first_token_ms": (min(after_restart) - t_crash) * 1e3
             if after_restart else None,
@@ -4819,6 +4913,524 @@ def phase_models(env: dict) -> dict:
     return result
 
 
+# ------------------------------------------------- generators (ROADMAP 7a)
+
+# prompt lengths covering the step path (1) and every prefill bucket (8,
+# 16, 64, 128); chunk 8 and a budget of 21: two chunks and a tail of 5
+GENLM_PROMPTS = (1, 8, 9, 33, 100)
+GENLM_CHUNK, GENLM_BUDGET = 8, 21
+GENLM_BATCH, GENLM_BATCH_PROMPT, GENLM_BATCH_BUDGET = 8, 16, 64
+# where the generators and the fleet run: the card (a CPU rehearsal sets
+# "cpu"; nothing here falls back to it)
+LM_DEVICE = "cuda"
+
+
+def _lm_request(name: str, inputs: dict, tenant: str = "default"):
+    """An InferRequest of host tensors (INT32, or FP32 for floats)."""
+    from client_tpu_torch.server.types import InferRequest, InferTensor
+
+    return InferRequest(model_name=name, tenant_id=tenant, inputs=[
+        InferTensor(k, "FP32" if v.dtype.kind == "f" else "INT32",
+                    tuple(v.shape), data=v) for k, v in inputs.items()])
+
+
+def _stream_rows(core, name: str, inputs: dict, label: str,
+                 tenant: str = "default") -> tuple:
+    """Serve one decoupled request through ``core.infer`` with a response
+    callback: (the output rows in order, the seconds from the call to the
+    first row, to the final flag). Fails on an error or a row after the
+    final flag."""
+    rows, stamps, errors, finals = [], [], [], []
+
+    def cb(resp, final):
+        if resp.error is not None:
+            errors.append(f"{resp.error_status} {resp.error}")
+        elif final:
+            finals.append(time.perf_counter())
+        else:
+            if finals:
+                errors.append("a row after the final flag")
+            stamps.append(time.perf_counter())
+            rows.append(np.asarray(resp.outputs[0].data).reshape(-1))
+
+    t0 = time.perf_counter()
+    core.infer(_lm_request(name, inputs, tenant), response_callback=cb)
+    if errors or len(finals) != 1:
+        fail(f"{label}: {errors[:3]}, {len(finals)} final flags")
+    return rows, (stamps[0] - t0 if stamps else None), finals[0] - t0
+
+
+def _loop_profile(cfg, params, knobs) -> dict:
+    """One chunk of ``sample_loop`` (GENLM_CHUNK eager steps on a one-slot
+    state at position 64) and one tail of 5 ``sample_step``s, the way the
+    single-stream generator runs them: wall ms per token (host clock
+    around the work and its one fetch), the host ms to enqueue a chunk,
+    and by torch.profiler the chunk's kernel launches and busy ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from client_tpu_torch.models import sampling as sm
+    from client_tpu_torch.models import transformer as t
+
+    def state():
+        st = t.init_decode_state(cfg, 1, LM_DEVICE)
+        st["pos"].fill_(64)
+        return st
+
+    tok = torch.full((1,), 7, dtype=torch.int32, device=LM_DEVICE)
+
+    def chunk():
+        return sm.sample_loop(cfg, params, tok, state(), GENLM_CHUNK,
+                              *knobs)[0]
+
+    def tail():
+        st, nxt, cols = state(), tok, []
+        for i in range(5):
+            cols.append(nxt)
+            if i < 4:
+                nxt, st = sm.sample_step(cfg, params, nxt, st, *knobs)
+        return torch.stack(cols, dim=-1)
+
+    with torch.inference_mode():
+        for fn in (chunk, tail):
+            fn().cpu()
+        torch.cuda.synchronize()
+        per_tok = {}
+        for key, fn, n in (("chunk", chunk, GENLM_CHUNK), ("tail", tail, 5)):
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn().cpu()
+            per_tok[key] = (time.perf_counter() - t0) / 10 / n * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = chunk()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        out.cpu()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            chunk().cpu()
+            torch.cuda.synchronize()
+    busy_us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        busy_us += getattr(evt, "self_device_time_total", 0.0)
+        if evt.key.startswith("cudaLaunchKernel"):
+            launches += evt.count
+    return {"ms_per_token_in_chunk": per_tok["chunk"],
+            "ms_per_token_in_tail": per_tok["tail"],
+            "host_ms_per_chunk": host_ms,
+            "kernel_launches_per_chunk": launches,
+            "device_busy_ms_per_chunk": busy_us / 1e3 if busy_us else None}
+
+
+def phase_generators(env: dict) -> dict:
+    """The single-stream and static-batch generators (ROADMAP 7a) at the
+    reference's default decode config, served through
+    TorchInferenceServer.infer with a response callback."""
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.models.decoder_lm import (
+        _sampling_tensors,
+        decode_config,
+        make_batch_generator,
+        make_generator,
+    )
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server import TorchInferenceServer
+
+    cfg = decode_config(attn_impl="ref")
+    gen = torch.Generator(device=LM_DEVICE)
+    gen.manual_seed(0)
+    params = t.init_params(gen, cfg)
+    core = TorchInferenceServer()
+    core.register_model(make_generator(cfg=cfg, params=params,
+                                       chunk_size=GENLM_CHUNK,
+                                       device=LM_DEVICE))
+    core.register_model(make_batch_generator(
+        cfg=cfg, params=params, max_batch=GENLM_BATCH,
+        chunk_size=GENLM_CHUNK, device=LM_DEVICE))
+    rng = np.random.default_rng(11)
+    prompts = {n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in GENLM_PROMPTS}
+    budget = np.asarray([GENLM_BUDGET], np.int32)
+    batch = rng.integers(0, cfg.vocab_size,
+                         (GENLM_BATCH, GENLM_BATCH_PROMPT)).astype(np.int32)
+
+    def single(prompt, label, **extra):
+        rows, ttft, total = _stream_rows(
+            core, "generator_lm", {"PROMPT": prompt, "MAX_TOKENS": budget,
+                                   **extra}, label)
+        return [int(r[0]) for r in rows], ttft, total
+
+    def batched(b, label):
+        rows, ttft, total = _stream_rows(core, "batch_generator_lm", {
+            "PROMPTS": batch[:b],
+            "MAX_TOKENS": np.full((b, 1), GENLM_BATCH_BUDGET, np.int32)},
+            label)
+        return np.stack(rows, axis=1), total
+
+    try:
+        # warm: parameters on the card, cuBLAS handles, every bucket
+        for n in GENLM_PROMPTS:
+            single(prompts[n], "generators warmup")
+        batched(GENLM_BATCH, "generators warmup")
+        # the main path: counters at 0 just before, read just after
+        pa.launches = fa.launches = 0
+        greedy, ttft = {}, {}
+        for n in GENLM_PROMPTS:
+            greedy[n], ttft[n], _ = single(prompts[n], f"prompt {n}")
+        rows8, wall8 = batched(GENLM_BATCH, "batch 8")
+        rows1, wall1 = batched(1, "batch 1")
+        sampled = [single(prompts[33], f"sampled {k}",
+                          TEMPERATURE=np.asarray([0.8], np.float32),
+                          TOP_K=np.asarray([40], np.int32),
+                          SEED=np.asarray([5], np.int32))[0]
+                   for k in range(2)]
+        top1 = single(prompts[33], "top_k 1",
+                      TEMPERATURE=np.asarray([0.8], np.float32),
+                      TOP_K=np.asarray([1], np.int32),
+                      SEED=np.asarray([3], np.int32))[0]
+        k2, k1 = pa.launches, fa.launches
+    finally:
+        core.stop()
+    for n, toks in greedy.items():
+        if len(toks) != GENLM_BUDGET or not all(
+                0 <= x < cfg.vocab_size for x in toks):
+            fail(f"generators: prompt {n} streamed {len(toks)} tokens of "
+                 f"{GENLM_BUDGET} or a token outside the vocab")
+    if rows8.shape != (GENLM_BATCH, GENLM_BATCH_BUDGET) \
+            or rows1.shape != (1, GENLM_BATCH_BUDGET):
+        fail(f"generators: batch rows {rows8.shape}, {rows1.shape}")
+    if sampled[0] != sampled[1]:
+        fail("generators: one seed gave two sampled streams")
+    if sampled[0] == greedy[33]:
+        fail("generators: the sampled stream equals the greedy one")
+    if top1 != greedy[33]:
+        fail("generators: TOP_K = 1 differs from greedy")
+    if k2 or k1:
+        fail(f"generators: K2 launched {k2} and K1 {k1} times (the "
+             f"generators run the einsum attention)")
+    runs = [{"run": "generator_lm", "greedy_streams": [
+        (np.concatenate([prompts[n], np.asarray(greedy[n], np.int32)]),
+         n) for n in GENLM_PROMPTS]},
+        {"run": "batch_generator_lm", "greedy_streams": [
+            (np.concatenate([batch[i], rows8[i]]), GENLM_BATCH_PROMPT)
+            for i in range(GENLM_BATCH)]}]
+    _judge_greedy(cfg, params, runs)
+    knobs = _sampling_tensors(LM_DEVICE, 0, 0.0, 0, 0.0)
+    result = {
+        "phase": "generators", "card": env["nvidia_smi"],
+        "config": {"vocab": cfg.vocab_size, "d_model": cfg.d_model,
+                   "n_layers": cfg.n_layers, "max_seq": cfg.max_seq,
+                   "dtype": "bfloat16", "chunk": GENLM_CHUNK,
+                   "budget": GENLM_BUDGET},
+        "ttft_ms_by_prompt": {str(n): v * 1e3 for n, v in ttft.items()},
+        **_loop_profile(cfg, params, knobs),
+        "batch_tokens_per_s": {
+            "B8": GENLM_BATCH * GENLM_BATCH_BUDGET / wall8,
+            "B1": GENLM_BATCH_BUDGET / wall1},
+        "batch_speedup_B8_over_B1": GENLM_BATCH * wall1 / wall8,
+        "same_seed_same_stream": True, "top_k1_equals_greedy": True,
+        "teacher_forced": {r["run"]: r["teacher_forced"] for r in runs},
+        "launches": {"paged_decode_attention": k2, "flash_attention": k1}}
+    emit(result)
+    return result
+
+
+# ------------------------------------------- replica fleet (ROADMAP 7b)
+
+# the reference fleet benchmark's settings and full-scale workload
+# (benchmarks/bench_fleet_router.py): 8 tenants x 4 requests of a
+# 64-token tenant prefix and an 8-token suffix, budget 8
+FLEET_TENANTS, FLEET_REQS, FLEET_PREFIX, FLEET_SUFFIX, FLEET_BUDGET = \
+    8, 4, 64, 8, 8
+FLEET_KNOBS = dict(n_slots=4, chunk_size=4, prefix_cache=True,
+                   prefix_block_len=16, prefill_mode="chunked",
+                   prefill_chunk=32, kv_layout="paged",
+                   kv_block_len=16, max_new_tokens=FLEET_BUDGET)
+FLEET_CHUNK = 4
+FLEET_ROUTE_CALLS = 2000
+
+
+def _fleet_workload(vocab: int, seed: int = 7) -> dict:
+    """The benchmark's build_workload: tenant t's requests share its
+    prefix and differ in the suffix."""
+    rng = np.random.default_rng(seed)
+    work = {}
+    for t in range(FLEET_TENANTS):
+        prefix = rng.integers(1, vocab, size=FLEET_PREFIX).astype(np.int32)
+        work[f"tenant{t}"] = [np.concatenate([prefix, rng.integers(
+            1, vocab, size=FLEET_SUFFIX).astype(np.int32)])
+            for _ in range(FLEET_REQS)]
+    return work
+
+
+@contextlib.contextmanager
+def _k2_by_thread(tally: dict):
+    """Tally K2 calls by the calling thread (each replica's engine runs on
+    its own): the transformer's reference to the wrapper is wrapped for
+    the block, and the wrapper itself still counts every launch."""
+    from client_tpu_torch.models import transformer as t
+
+    real = t.paged_decode_attention
+    lock = threading.Lock()
+
+    def counted(*args, **kw):
+        out = real(*args, **kw)
+        with lock:
+            key = threading.get_ident()
+            tally[key] = tally.get(key, 0) + 1
+        return out
+
+    t.paged_decode_attention = counted
+    try:
+        yield
+    finally:
+        t.paged_decode_attention = real
+
+
+def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
+               policy: str, drain: bool = False) -> dict:
+    """Serve the workload through a replica fleet behind
+    TorchInferenceServer.infer (one thread per tenant, its requests one
+    after another), the HTTP front end up with the debug endpoints. With
+    ``drain``, replica 0 is drained once 16 tokens have streamed."""
+    from client_tpu_torch.models.decoder_lm import make_replica_fleet
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server import trace as trace_mod
+    from client_tpu_torch.server.http_server import HttpInferenceServer
+    from client_tpu_torch.server.metrics import (
+        parse_prometheus_text,
+        sample_value,
+    )
+
+    name = f"fleet_{label}"
+    model = make_replica_fleet(
+        name, replicas=replicas,
+        fleet={"replicas": replicas, "policy": policy,
+               "affinity_block_len": 16, "random_seed": 0},
+        cfg=cfg, params=params, device=LM_DEVICE, **FLEET_KNOBS)
+    fleet = model.fleet
+    core = TorchInferenceServer()
+    core.register_model(model, warmup=True)   # one stream per replica
+    srv = HttpInferenceServer(core, port=0, debug_endpoints=True).start()
+    streams, errors, tally = {}, [], {}
+    started = threading.Event()
+    delivered = [0]
+    lock = threading.Lock()
+
+    def tenant(t, reqs):
+        for i, prompt in enumerate(reqs):
+            toks, finals = [], []
+
+            def cb(resp, final):
+                if resp.error is not None:
+                    errors.append(f"{t}/{i}: {resp.error_status} "
+                                  f"{resp.error}")
+                elif final:
+                    finals.append(1)
+                else:
+                    toks.append(int(resp.output("TOKEN").data[0]))
+                    with lock:
+                        delivered[0] += 1
+                        if delivered[0] >= 16:
+                            started.set()
+
+            try:
+                core.infer(_lm_request(name, {
+                    "PROMPT": prompt,
+                    "MAX_TOKENS": np.asarray([FLEET_BUDGET], np.int32)},
+                    tenant=t), response_callback=cb)
+            except Exception as e:  # noqa: BLE001 — failed below
+                errors.append(f"{t}/{i}: {type(e).__name__}: {e}")
+            streams[(t, i)] = (toks, len(finals))
+
+    engines = {}   # engine thread ident -> replica, old engines included
+
+    def note_engines():
+        for r in fleet.replicas:
+            th = getattr(r.engine, "_thread", None)
+            if th is not None:
+                engines[th.ident] = r.idx
+
+    note_engines()
+    seen = {id(r.engine): r.engine for r in fleet.replicas}
+    before = {id(e): e.stats()["dispatch_by_kind"]["chunk"]["dispatches"]
+              for e in seen.values()}
+    owner = {id(r.engine): r.idx for r in fleet.replicas}
+    drain_ms = None
+    threads = [threading.Thread(target=tenant, args=(t, reqs))
+               for t, reqs in work.items()]
+    try:
+        with _k2_by_thread(tally):
+            # the main path: the K2 counter at 0 just before, read after
+            pa.launches = 0
+            t0 = time.time()
+            for th in threads:
+                th.start()
+            if drain:
+                if not started.wait(120):
+                    fail(f"{label}: no stream started")
+                old = fleet.replicas[0].engine
+                d0 = time.perf_counter()
+                ok = fleet.drain(0, timeout=120)
+                drain_ms = (time.perf_counter() - d0) * 1e3
+                if not ok or fleet.replicas[0].engine is old:
+                    fail(f"{label}: the drain of replica 0 did not "
+                         f"complete ({ok})")
+                new = fleet.replicas[0].engine
+                seen[id(new)] = new
+                # the fresh engine's first submit readies it with its two
+                # warm chunk launches, which no dispatch counts
+                before[id(new)] = -WARM_CHUNKS
+                owner[id(new)] = 0
+            for th in threads:
+                th.join(timeout=600)
+            wall_s = time.time() - t0
+            k2 = pa.launches
+        note_engines()
+        chunks = {}
+        for key, eng in seen.items():
+            n = eng.stats()["dispatch_by_kind"]["chunk"]["dispatches"] \
+                - before[key]
+            chunks[owner[key]] = chunks.get(owner[key], 0) + n
+        gen = model.generation_stats()
+        snap = model.fleet_snapshot()
+        url = f"http://{srv.url}"
+        status, body = _get(f"{url}/v2/debug/fleet")
+        debug = json.loads(body) if status == 200 else None
+        status_m, text = _get(f"{url}/metrics")
+        parsed = parse_prometheus_text(text.decode())
+        # one traced stream: its trace must carry the routing decision
+        core.tracer.update_settings("", {"trace_level": ["TIMESTAMPS"],
+                                         "trace_rate": "1"})
+        probe = work["tenant0"][0]
+        _stream_rows(core, name, {"PROMPT": probe, "MAX_TOKENS":
+                                  np.asarray([2], np.int32)},
+                     f"{label} traced", tenant="tenant0")
+        traced = [tr for tr in list(core.tracer.completed)
+                  if tr.model_name == name]
+        route_spans = [e for tr in traced for e in tr.timestamps
+                       if e[0] == trace_mod.FLEET_ROUTE]
+        core.tracer.update_settings("", {"trace_level": ["OFF"]})
+        route_us = None
+        if replicas > 1:
+            t1 = time.perf_counter()
+            for k in range(FLEET_ROUTE_CALLS):
+                fleet.route(work[f"tenant{k % FLEET_TENANTS}"][0],
+                            f"tenant{k % FLEET_TENANTS}")
+            route_us = ((time.perf_counter() - t1) / FLEET_ROUTE_CALLS
+                        * 1e6)
+    finally:
+        srv.stop()
+        core.stop()
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"{label}: {errors[:3]}")
+    short = {f"{t}/{i}": (len(v[0]), v[1]) for (t, i), v in streams.items()
+             if len(v[0]) != FLEET_BUDGET or v[1] != 1}
+    if short or len(streams) != FLEET_TENANTS * FLEET_REQS:
+        fail(f"{label}: streams short of their budget: {short}")
+    by_replica = {}
+    for ident, n in tally.items():
+        if ident not in engines:
+            fail(f"{label}: K2 launched from a thread of no replica")
+        by_replica[engines[ident]] = by_replica.get(engines[ident], 0) + n
+    # the drained replica's chunks include its fresh engine's warm chunks
+    per = LAYERS * FLEET_CHUNK
+    if sum(by_replica.values()) != k2 or any(
+            by_replica.get(r, 0) != per * chunks.get(r, 0)
+            for r in set(chunks) | set(by_replica)):
+        fail(f"{label}: K2 launches {k2}, by replica {by_replica}, for "
+             f"chunk dispatches {chunks}: expected {per} per dispatch")
+    rows = {r["replica"]: r for r in snap["rows"]}
+    routed = {r: rows[r]["routed"] for r in sorted(rows)}
+    if sum(routed.values()) != FLEET_TENANTS * FLEET_REQS:
+        fail(f"{label}: routed {routed}")
+    # the snapshot, /v2/debug/fleet and /metrics were read together,
+    # before the traced stream and the timed route calls
+    debug_routed = None if debug is None else {
+        r["replica"]: r["routed"]
+        for r in debug["models"][0]["fleet"]["rows"]}
+    if debug_routed != routed:
+        fail(f"{label}: /v2/debug/fleet reads {debug_routed}, the fleet "
+             f"{routed}")
+    metric_routed = {r: sample_value(parsed, "client_tpu_fleet_routed_total",
+                                     {"model": name, "replica": str(r)})
+                     for r in routed}
+    if status_m != 200 or metric_routed != routed:
+        fail(f"{label}: /metrics routed {metric_routed}, fleet {routed}")
+    if len(route_spans) != 1:
+        fail(f"{label}: {len(route_spans)} FLEET_ROUTE spans on the "
+             f"traced stream")
+    lookups = gen["prefix_hits"] + gen["prefix_misses"]
+    return {
+        "run": label, "replicas": replicas, "policy": policy,
+        "streams": len(streams), "wall_s": wall_s,
+        "tokens_per_s": FLEET_TENANTS * FLEET_REQS * FLEET_BUDGET / wall_s,
+        "prefix_hits": gen["prefix_hits"],
+        "prefix_misses": gen["prefix_misses"],
+        "prefix_hit_rate": gen["prefix_hits"] / lookups if lookups else 0.0,
+        "routed": routed,
+        "affinity_hits": sum(r["affinity_hits"] for r in rows.values()),
+        "rerouted": sum(r["rerouted"] for r in rows.values()),
+        "drains": {r: rows[r]["drains"] for r in rows},
+        "drain_ms": drain_ms, "failed_streams": 0,
+        "chunk_dispatches_by_replica": chunks,
+        "paged_decode_attention_launches": k2,
+        "paged_decode_attention_launches_by_replica": by_replica,
+        "host_us_per_route": route_us,
+        "fleet_route_span": route_spans[0][2]["leg"],
+        "tokens": {f"{t}/{i}": v[0] for (t, i), v in streams.items()},
+        "greedy_streams": [
+            (np.concatenate([work[t][i], np.asarray(v[0], np.int32)]),
+             len(work[t][i])) for (t, i), v in sorted(streams.items())]}
+
+
+def phase_fleet(gen_model: tuple, env: dict) -> dict:
+    """The replica fleet router (ROADMAP 7b's fleet half): two replicas of
+    bench.py's generation model on one card, paged with K2."""
+    import dataclasses
+
+    cfg, params, _ = gen_model
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    work = _fleet_workload(cfg.vocab_size)
+    t0 = time.time()
+    arms = [_fleet_arm("affinity", cfg, params, work, 2, "affinity"),
+            _fleet_arm("random", cfg, params, work, 2, "random"),
+            _fleet_arm("one_replica", cfg, params, work, 1, "affinity"),
+            _fleet_arm("drain", cfg, params, work, 2, "affinity",
+                       drain=True)]
+    t1 = time.time()
+    by = {a["run"]: a for a in arms}
+    if not by["affinity"]["prefix_hit_rate"] \
+            > by["random"]["prefix_hit_rate"]:
+        fail(f"fleet: affinity's hit rate "
+             f"{by['affinity']['prefix_hit_rate']} does not beat random's "
+             f"{by['random']['prefix_hit_rate']}")
+    if by["drain"]["drains"][0] != 1:
+        fail(f"fleet: replica 0 drained {by['drain']['drains']} times")
+    ref = by["one_replica"].pop("tokens")
+    differ = {}
+    for arm in ("affinity", "random", "drain"):
+        toks = by[arm].pop("tokens")
+        differ[arm] = sorted(k for k in ref if toks[k] != ref[k])
+    _judge_greedy(cfg, params, arms)
+    if any(differ.values()):
+        fail(f"fleet: greedy streams differ from the one-replica arm's: "
+             f"{ {k: v[:4] for k, v in differ.items()} }")
+    result = {"phase": "fleet", "card": env["nvidia_smi"],
+              "workload": {"tenants": FLEET_TENANTS,
+                           "requests_per_tenant": FLEET_REQS,
+                           "prefix": FLEET_PREFIX, "suffix": FLEET_SUFFIX,
+                           "budget": FLEET_BUDGET},
+              "runs": arms,
+              "greedy_streams_equal_to_one_replica": {
+                  k: FLEET_TENANTS * FLEET_REQS - len(v)
+                  for k, v in differ.items()},
+              "seconds": {"serve": t1 - t0, "judge": time.time() - t1}}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -4856,6 +5468,8 @@ def main() -> int:
     goodput = timed("goodput", phase_goodput, gen_model)
     client = timed("client", phase_client)
     timed("models", phase_models, env)
+    timed("generators", phase_generators, env)
+    fleet = timed("fleet", phase_fleet, gen_model, env)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -4914,7 +5528,10 @@ def main() -> int:
             **{r["run"]: r["paged_decode_attention_launches"]
                for r in goodput["runs"]},
             goodput_window=goodput["window"][
-                "paged_decode_attention_launches"]),
+                "paged_decode_attention_launches"],
+            **{f"fleet_{r['run']}_r{rep}": n for r in fleet["runs"]
+               for rep, n in sorted(r[
+                   "paged_decode_attention_launches_by_replica"].items())}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Served models on PyTorch: the transformer (``transformer``), token
-selection (``sampling``), the sequence decoder and the continuous
-generator (``decoder_lm``), ResNet-50 with its preprocess step and image
+selection (``sampling``), the sequence decoder, the single-stream,
+static-batch and continuous generators and the replica fleet
+(``decoder_lm``), ResNet-50 with its preprocess step and image
 ensemble (``resnet``), the decoupled and stateful demo models
 (``streaming``) and the add_sub / identity protocol-test models
 (``add_sub``)."""
@@ -20,6 +21,9 @@ from client_tpu_torch.models.streaming import (  # noqa: F401
     make_repeat,
 )
 from client_tpu_torch.models.decoder_lm import (  # noqa: F401
+    make_batch_generator,
     make_continuous_generator,
     make_decoder_lm,
+    make_generator,
+    make_replica_fleet,
 )

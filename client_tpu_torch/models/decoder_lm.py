@@ -8,9 +8,13 @@ generated token, every concurrent request multiplexed onto one slot batch
 by the continuous-batching engine (``server/generation.py``).
 ``make_decoder_lm`` serves one decode step per request behind the
 sequence scheduler: TOKEN in, the greedy NEXT_TOKEN out, the KV cache of
-each correlation id kept on the device. The reference's single-stream
-and static-batch generators and its replica fleets wait for ROADMAP
-A12. Speculative decoding
+each correlation id kept on the device. ``make_generator`` (one stream a
+request, prompt ingested by one bucketed prefill) and
+``make_batch_generator`` (PROMPTS [B, L] advancing together) generate in
+chunks of eager steps with one host fetch a chunk.
+``make_replica_fleet`` (or ``make_continuous_generator(fleet=...)``)
+serves N engines behind the fleet router (``server/fleet.py``).
+Speculative decoding
 runs through ``speculative_draft``, the SLO scheduler through
 ``scheduler`` and ``slo_classes``, the host tier through
 ``host_tier_bytes``, engine supervision through ``supervision`` and the
@@ -19,6 +23,7 @@ watchdog through ``watchdog`` (on by default, as in the reference).
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -28,6 +33,7 @@ from client_tpu_torch.device import canonical_device, resolve_device
 from client_tpu_torch.models import transformer as t
 from client_tpu_torch.models.sampling import MAX_TOP_K
 from client_tpu_torch.server.config import (
+    FleetConfig,
     GenerationEngineConfig,
     ModelConfig,
     PrefixCacheConfig,
@@ -38,16 +44,17 @@ from client_tpu_torch.server.config import (
     TensorSpec,
     config_from_dict,
 )
+from client_tpu_torch.server.fleet import ReplicaFleet, resolve_fleet
 from client_tpu_torch.server.generation import (
     ContinuousBatchingEngine,
-    reject_unported,
+    reject_unknown_knobs,
 )
-from client_tpu_torch.server.model import PyModel, SequenceModel
+from client_tpu_torch.server.model import PyModel, SequenceModel, _to_device
 from client_tpu_torch.server.scheduling import resolve_scheduler
 from client_tpu_torch.server.speculation import DraftModel, build_draft_model
 from client_tpu_torch.server.supervision import EngineSupervisor, RestartPolicy
 from client_tpu_torch.server.types import ServerError
-from client_tpu_torch.server.watchdog import IncidentStore
+from client_tpu_torch.server.watchdog import IncidentStore, merge_watchdog
 
 
 def _read_sampling(inputs) -> tuple:
@@ -121,10 +128,7 @@ def make_decoder_lm(name: str = "decoder_lm", cfg=None, params=None,
     place, and every START builds a fresh state."""
     dev = resolve_device(device)
     cfg = cfg or decode_config(attn_impl="ref")
-    if params is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        params = t.init_params(gen, cfg)
+    params = _default_params(cfg, params, seed, dev)
 
     def step_fn(p, inputs, state):
         token = inputs["TOKEN"].reshape(-1)[:1].to(torch.int32)
@@ -147,6 +151,258 @@ def make_decoder_lm(name: str = "decoder_lm", cfg=None, params=None,
     )
     return _DecoderLm(config, step_fn, init_state_fn, params=params,
                       max_seq=cfg.max_seq, device=dev)
+
+
+def _params_once(host_params, dev, warm=None):
+    """A getter of ``host_params`` on ``dev``: moved there at the first
+    call, under a lock, after which ``warm(params)`` runs once."""
+    box, lock = {}, threading.Lock()
+
+    def get() -> dict:
+        with lock:
+            if "params" not in box:
+                params = _to_device(host_params, dev)
+                if warm is not None:
+                    warm(params)
+                box["params"] = params
+            return box["params"]
+
+    return get
+
+
+def _default_params(cfg, params, seed: int, dev):
+    """``params``, or random weights from ``seed`` drawn on ``dev``."""
+    if params is not None:
+        return params
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return t.init_params(gen, cfg)
+
+
+def _sampling_tensors(dev, seed, temp: float, top_k: int,
+                      top_p: float) -> tuple:
+    """One request's sampling knobs as device tensors, made once per
+    request by fills (a host scalar copied to the card would wait for
+    its queue): ``seed`` a host int (a [1] seed) or an int array (one
+    seed per row)."""
+    if isinstance(seed, np.ndarray):
+        seed_t = torch.from_numpy(seed.astype(np.int64)).to(dev)
+    else:
+        seed_t = torch.full((1,), int(seed), dtype=torch.int64, device=dev)
+    return (seed_t,
+            torch.full((), float(temp), dtype=torch.float32, device=dev),
+            torch.full((), int(top_k), dtype=torch.int64, device=dev),
+            torch.full((), float(top_p), dtype=torch.float32, device=dev))
+
+
+def make_generator(name: str = "generator_lm", cfg=None, params=None,
+                   seed: int = 0, max_new_tokens: int = 32,
+                   eos_id: int = -1, chunk_size: int = 8,
+                   device=None) -> PyModel:
+    """Decoupled single-stream generation (the reference's
+    ``make_generator``): PROMPT [-1] (plus optional MAX_TOKENS,
+    TEMPERATURE, TOP_K, TOP_P and SEED, each [1]) in, one TOKEN [1]
+    response per generated token.
+
+    Each request owns its KV state on the device for its whole life. A
+    prompt of more than one token is ingested by one ``prefill`` at its
+    power-of-two bucket, whose ``[layers, max_seq, ...]`` state becomes a
+    one-slot state by views; a one-token prompt takes one
+    ``sample_step`` on a fresh one-slot state. Generation runs in chunks
+    of ``chunk_size`` eager ``sample_step``s whose tokens stay on the
+    device, one host fetch per chunk (``_chunk_driver``); responses still
+    stream one token each. ``decode_step`` writes K/V in place, so every
+    request builds its own state and two requests share no tensor.
+    ``PREFILL_END`` is stamped on a sampled trace once the prompt is
+    ingested. The parameters go to the device once, at the first request,
+    with one prefill at the smallest bucket to warm the GEMMs; nothing is
+    compiled. On the card unless ``device="cpu"`` is asked for."""
+    from client_tpu_torch.models import sampling as sm
+    from client_tpu_torch.server import trace as trace_mod
+
+    dev = canonical_device(resolve_device(device))
+    cfg = cfg or decode_config(attn_impl="ref")
+    bucket = _prefill_bucket(2, cfg.max_seq)
+    get_params = _params_once(
+        _default_params(cfg, params, seed, dev), dev,
+        warm=lambda p: t.prefill(cfg, p, torch.zeros(
+            bucket, dtype=torch.int32, device=dev), 1))
+
+    def stream_fn(inputs, context=None):
+        p = get_params()
+        prompt = np.asarray(inputs["PROMPT"]).reshape(-1).astype(np.int32)
+        if prompt.size == 0:
+            return
+        if len(prompt) >= cfg.max_seq:
+            raise ServerError(
+                f"prompt of {len(prompt)} tokens leaves no room to "
+                f"generate within the model's max context length "
+                f"{cfg.max_seq}", 400)
+        budget = int(np.asarray(
+            inputs.get("MAX_TOKENS", [max_new_tokens])).reshape(-1)[0])
+        budget = max(0, min(budget, cfg.max_seq - len(prompt)))
+        temp, top_k, top_p, rng_seed = _read_sampling(inputs)
+        knobs = _sampling_tensors(dev, rng_seed, temp, top_k, top_p)
+        plen = len(prompt)
+        if plen > 1:
+            padded = np.zeros(_prefill_bucket(plen, cfg.max_seq), np.int32)
+            padded[:plen] = prompt
+            nxt, state = _prefill_select(
+                cfg, p, torch.from_numpy(padded).to(dev), plen, *knobs)
+        else:
+            state = t.init_decode_state(cfg, 1, dev)
+            nxt, state = sm.sample_step(
+                cfg, p, torch.from_numpy(prompt).to(dev), state, *knobs)
+        trace = context.trace if context is not None else None
+        if trace is not None:
+            trace.event(trace_mod.PREFILL_END)  # prompt ingestion dispatched
+        loop = {"step": lambda tok, st: sm.sample_step(cfg, p, tok, st,
+                                                       *knobs),
+                "loop": lambda tok, st: sm.sample_loop(cfg, p, tok, st,
+                                                       chunk_size, *knobs)}
+        for toks in _chunk_driver(loop, nxt, state, budget, chunk_size):
+            for tok in toks.reshape(-1):
+                tok = int(tok)
+                yield {"TOKEN": np.array([tok], np.int32)}
+                if tok == eos_id:
+                    return
+
+    config = ModelConfig(
+        name=name,
+        decoupled=True,
+        inputs=(TensorSpec("PROMPT", "INT32", (-1,)),
+                TensorSpec("MAX_TOKENS", "INT32", (1,), optional=True))
+        + _SAMPLING_SPECS,
+        outputs=(TensorSpec("TOKEN", "INT32", (1,)),),
+    )
+    return PyModel(config, fn=None, stream_fn=stream_fn)
+
+
+def make_batch_generator(name: str = "batch_generator_lm", cfg=None,
+                         params=None, seed: int = 0,
+                         max_new_tokens: int = 32, max_batch: int = 8,
+                         chunk_size: int = 8, device=None) -> PyModel:
+    """Batched decoupled generation (the reference's
+    ``make_batch_generator``): PROMPTS [B, L] in (equal-length rows), one
+    TOKENS [B, 1] response per generation step.
+
+    The B rows are the slots of one ``[B]`` slot-layout state, so B
+    sequences advance in one step (the reference's ``vmap``); the prompt
+    is ingested one column per ``sample_step``, and generation runs in
+    the same chunks as ``make_generator``. Rows run to the shared budget
+    (the first MAX_TOKENS value applies to all). SEEDS (one per row)
+    wins over a scalar SEED, which seeds every row. On the card unless
+    ``device="cpu"`` is asked for."""
+    from client_tpu_torch.models import sampling as sm
+
+    dev = canonical_device(resolve_device(device))
+    cfg = cfg or decode_config(attn_impl="ref")
+    get_params = _params_once(_default_params(cfg, params, seed, dev), dev)
+
+    def stream_fn(inputs):
+        p = get_params()
+        prompts = np.asarray(inputs["PROMPTS"]).astype(np.int32)
+        if prompts.ndim != 2 or prompts.size == 0:
+            raise ServerError("PROMPTS must be a [batch, len] tensor", 400)
+        b, plen = prompts.shape
+        if b > max_batch:
+            raise ServerError(
+                f"batch {b} exceeds max_batch {max_batch}", 400)
+        if plen >= cfg.max_seq:
+            raise ServerError(
+                f"prompt of {plen} tokens leaves no room to generate "
+                f"within the model's max context length {cfg.max_seq}",
+                400)
+        budget = int(np.asarray(
+            inputs.get("MAX_TOKENS", [max_new_tokens])).reshape(-1)[0])
+        budget = max(0, min(budget, cfg.max_seq - plen))
+        temp, top_k, top_p, shared_seed = _read_sampling(inputs)
+        seeds = np.asarray(
+            inputs.get("SEEDS",
+                       np.full(b, shared_seed, np.int32))).reshape(-1)
+        if len(seeds) != b:
+            raise ServerError(f"SEEDS must have one entry per row "
+                              f"({len(seeds)} != {b})", 400)
+        knobs = _sampling_tensors(dev, seeds, temp, top_k, top_p)
+        state = t.init_decode_state(cfg, b, dev)
+        cols = torch.from_numpy(np.ascontiguousarray(prompts.T)).to(dev)
+        nxt = None
+        for i in range(plen):  # ingestion: eager steps, no host read
+            nxt, state = sm.sample_step(cfg, p, cols[i], state, *knobs)
+        loop = {"step": lambda tok, st: sm.sample_step(cfg, p, tok, st,
+                                                       *knobs),
+                "loop": lambda tok, st: sm.sample_loop(cfg, p, tok, st,
+                                                       chunk_size, *knobs)}
+        for block in _chunk_driver(loop, nxt, state, budget, chunk_size):
+            block = block.reshape(b, -1)
+            for j in range(block.shape[1]):
+                yield {"TOKENS": block[:, j:j + 1]}  # [B, 1] per step
+
+    config = ModelConfig(
+        name=name,
+        decoupled=True,
+        max_batch_size=max_batch,
+        inputs=(TensorSpec("PROMPTS", "INT32", (-1,)),
+                TensorSpec("MAX_TOKENS", "INT32", (1,), optional=True),
+                # one seed per row, [B, 1] on the wire like MAX_TOKENS
+                TensorSpec("SEEDS", "INT32", (1,), optional=True))
+        + _SAMPLING_SPECS,
+        outputs=(TensorSpec("TOKENS", "INT32", (1,)),),
+    )
+    return PyModel(config, fn=None, stream_fn=stream_fn)
+
+
+def _prefill_bucket(plen: int, max_seq: int) -> int:
+    """The smallest power-of-two bucket >= plen from 8 (capped at
+    max_seq): the reference's prompt buckets."""
+    b = 8
+    while b < plen:
+        b *= 2
+    return min(b, max_seq)
+
+
+def _prefill_select(cfg, params, toks, plen: int, seed, temp, top_k,
+                    top_p) -> tuple:
+    """Prefill a bucket-padded prompt toks [L] and select its first
+    token at position ``plen - 1``: (next [1] int32, a one-slot state).
+    The state's K/V are views of prefill's ``[layers, max_seq, ...]``
+    tensors (no copy) and its ``pos`` a [1] fill on the device."""
+    from client_tpu_torch.models.sampling import select_token
+
+    state, logits = t.prefill(cfg, params, toks, plen)
+    nxt = select_token(logits[None], seed, plen - 1, temp, top_k, top_p)
+    slot = {name: arr[None] for name, arr in state.items() if name != "pos"}
+    slot["pos"] = torch.full((1,), plen, dtype=torch.int32,
+                             device=logits.device)
+    return nxt, slot
+
+
+def _greedy_step(cfg, params, tokens, state) -> tuple:
+    """One greedy decode step of a slot-layout state: (argmax [S] int32,
+    the new state)."""
+    logits, new_state = t.decode_step(cfg, params, tokens, state)
+    return logits.argmax(dim=-1).to(torch.int32), new_state
+
+
+def _chunk_driver(loop: dict, nxt, state, budget: int, chunk_size: int):
+    """The generators' driver: yields host token blocks [S, n] using one
+    ``loop["loop"]`` (``chunk_size`` steps on the device) and one host
+    fetch per full chunk, then single ``loop["step"]``s for the tail,
+    fetched together, with no dispatch after the final token."""
+    remaining = budget
+    while remaining > 0:
+        if remaining >= chunk_size:
+            toks, nxt, state = loop["loop"](nxt, state)
+            yield toks.cpu().numpy()  # one fetch per chunk
+            remaining -= chunk_size
+        else:
+            cols = []
+            for i in range(remaining):
+                cols.append(nxt)
+                if i < remaining - 1:
+                    nxt, state = loop["step"](nxt, state)
+            yield torch.stack(cols, dim=-1).cpu().numpy()
+            remaining = 0
 
 
 class ContinuousModel(PyModel):
@@ -252,6 +508,82 @@ class ContinuousModel(PyModel):
         return self.engine.incident_snapshot()
 
 
+class FleetModel(PyModel):
+    """The served replica fleet: every engine-facing hook fans out through
+    the ``ReplicaFleet`` (``fleet``). The generation and runtime planes
+    are fleet-merged; per-replica routing, health and occupancy are in
+    ``fleet_snapshot`` (the ``client_tpu_fleet_*`` families and ``GET
+    /v2/debug/fleet``). Readiness holds while any replica is healthy.
+    ``unload`` stages a fresh engine on every replica and colds the
+    affinity sketch; ``shutdown`` stops every replica for good;
+    ``warmup`` drives one short stream through each replica outside the
+    router."""
+
+    def __init__(self, config: ModelConfig, stream_fn, fleet: ReplicaFleet,
+                 incidents: Optional[IncidentStore]):
+        super().__init__(config, fn=None, stream_fn=stream_fn)
+        self.fleet = fleet
+        self._incidents = incidents
+
+    def warmup(self) -> None:
+        for rep in self.fleet.replicas:
+            list(rep.engine.submit(np.zeros(4, np.int32), 2))
+
+    def unload(self) -> None:
+        self.fleet.replace_all()
+
+    def shutdown(self) -> None:
+        self.fleet.shutdown()
+
+    def runtime_stats(self) -> dict:
+        return self.fleet.stats()
+
+    def generation_stats(self) -> dict:
+        return self.fleet.generation_snapshot()
+
+    def engine_healthy(self) -> bool:
+        return self.fleet.healthy()
+
+    def fleet_snapshot(self) -> dict:
+        return self.fleet.fleet_snapshot()
+
+    def runtime_observability(self) -> dict:
+        return self.fleet.runtime_snapshot()
+
+    def engine_debug(self) -> dict:
+        """The fleet snapshot and every replica's full engine snapshot
+        (``GET /v2/debug/models/{name}/engine``)."""
+        return {"fleet": self.fleet.fleet_snapshot(),
+                "replicas": [{"replica": r.idx,
+                              "engine": r.engine.debug_snapshot()}
+                             for r in self.fleet.replicas]}
+
+    def timeline_snapshot(self) -> dict:
+        """Every replica's flight-recorder ring and the fleet's routing
+        state (one timeline process per replica)."""
+        return {"replicas": [{"replica": r.idx, "name": r.name,
+                              "flight": r.engine.flight.dump()}
+                             for r in self.fleet.replicas],
+                "fleet": self.fleet.fleet_snapshot(),
+                "incidents": self.incident_snapshot()}
+
+    def incident_snapshot(self):
+        """The model's one incident store (every replica records into
+        it, each bundle named by its engine, ``name/rN``), the merged
+        watchdog block and the recent routing decisions; None with the
+        watchdog off."""
+        if self._incidents is None:
+            return None
+        snap = self._incidents.snapshot()
+        snap["watchdog"] = merge_watchdog(
+            [r.engine.watchdog_snapshot() for r in self.fleet.replicas])
+        fs = self.fleet.fleet_snapshot()
+        snap["fleet"] = {"replicas": fs["replicas"],
+                         "healthy_replicas": fs["healthy_replicas"],
+                         "recent_decisions": fs["recent_decisions"]}
+        return snap
+
+
 def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               params=None, seed: int = 0,
                               n_slots: int = 8, chunk_size: int = 8,
@@ -295,11 +627,14 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               watchdog_interval_s: float = 0.25,
                               watchdog_thresholds=None,
                               incident_file: Optional[str] = None,
-                              device=None, **unported) -> ContinuousModel:
+                              engine_devices=None, mesh=None,
+                              fleet=None, replica_devices=None,
+                              autoscale=None, canary=None,
+                              device=None, **unknown) -> PyModel:
     """Continuously batched decoupled generation (the reference's
-    ``make_continuous_generator``, limited to the knobs its engine port
-    runs; any other knob raises ``NotImplementedError`` naming its
-    ROADMAP item).
+    ``make_continuous_generator``, knob for knob; ``mesh``, ``autoscale``
+    and ``canary`` raise ``NotImplementedError`` naming their ROADMAP
+    item, and an unknown knob ``TypeError``).
 
     ``cfg`` defaults to the reference's small decode config; ``params``
     default to random weights from ``seed``, drawn on ``device`` (CUDA by
@@ -337,12 +672,52 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     authoritative: its gamma, floor and ladder override the
     ``speculative_*`` arguments. An engine that never speculates (no
     draft, gamma 0, a disabled block) advertises no ``speculative``
-    block."""
-    reject_unported(unported)
+    block.
+
+    ``engine_devices`` pins the engine to one device (a CUDA index or a
+    ``torch.device``; ``ContinuousBatchingEngine.resolve_engine_devices``).
+    ``fleet`` (a ``FleetConfig``, its dict form or a replica count) builds
+    a replica fleet (``server/fleet.py``): N engines of this config behind
+    the same wire surface, each with its own device state, prefix pool and
+    supervisor, every submit routed by prefix affinity, load and health,
+    and every stream pinned to its replica; the model exposes the live
+    fleet at ``model.fleet``. ``replica_devices`` pins each replica to a
+    device subset (one entry per replica). ``mesh`` and the fleet's
+    ``autoscale`` and ``canary`` controllers raise ``NotImplementedError``
+    naming ROADMAP 7b's remainder."""
+    reject_unknown_knobs(unknown)
     cfg = cfg or decode_config()
+    eff_fleet = resolve_fleet(fleet)
+    if replica_devices is not None:
+        if eff_fleet is None:
+            raise ValueError(
+                "replica_devices requires a fleet (it pins each "
+                "replica's engine to a device subset); use "
+                "engine_devices for a single engine")
+        if engine_devices is not None:
+            raise ValueError(
+                "engine_devices and replica_devices are mutually "
+                "exclusive — per-replica subsets already cover the "
+                "single-engine knob")
+        if len(replica_devices) != eff_fleet.replicas:
+            raise ValueError(
+                f"replica_devices has {len(replica_devices)} entries "
+                f"for {eff_fleet.replicas} replicas (one device "
+                f"subset per replica)")
+        for devices in replica_devices:
+            ContinuousBatchingEngine.resolve_engine_devices(devices)
+    for knob, value in (("autoscale", autoscale), ("canary", canary)):
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                f"generator knob '{knob}' is not ported yet: ROADMAP "
+                f"7b (A12), its remainder (the fleet autoscaler and the "
+                f"canary judge, server/autoscale.py)")
+    pinned = ContinuousBatchingEngine.resolve_engine_devices(engine_devices,
+                                                             mesh)
     # an indexed device: a supervised rebuild runs on another thread, whose
     # current card need not be the caller's
-    dev = canonical_device(resolve_device(device))
+    dev = (pinned if pinned is not None
+           else canonical_device(resolve_device(device)))
     draft, spec_json = speculative_draft, None
     if isinstance(draft, dict):
         draft = config_from_dict(SpeculativeConfig, draft)
@@ -415,12 +790,17 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
         backoff_mult=sup_cfg.backoff_mult,
         backoff_max_s=sup_cfg.backoff_max_s,
         max_failures=sup_cfg.max_failures, window_s=sup_cfg.window_s)
-    if params is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        params = t.init_params(gen, cfg)
+    params = _default_params(cfg, params, seed, dev)
 
-    def fresh_engine():
+    def fresh_engine(replica=None):
+        devices, ename = engine_devices, name
+        if replica is not None:
+            ename = f"{name}/r{replica}"
+            if replica_devices is not None:
+                # replicas attached past the declared subsets take the
+                # default placement
+                devices = (replica_devices[replica]
+                           if replica < len(replica_devices) else None)
         return ContinuousBatchingEngine(
             cfg, params, n_slots=n_slots, chunk=chunk_size,
             dispatch_depth=dispatch_depth, queue_depth=queue_depth,
@@ -449,9 +829,10 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             watchdog=watchdog,
             watchdog_interval_s=watchdog_interval_s,
             watchdog_thresholds=watchdog_thresholds,
-            incident_store=incidents, device=dev, name=name)
+            incident_store=incidents, device=dev, name=ename,
+            engine_devices=devices)
 
-    model: ContinuousModel = None  # bound below; stream_fn reads it live
+    model = None  # bound below; stream_fn reads it live
 
     def stream_fn(inputs, context=None):
         budget = int(np.asarray(
@@ -469,10 +850,13 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                          "slo_class": context.slo_class,
                          "deadline_ns": context.deadline_ns,
                          "cancel_event": context.cancel_event}
-        for tok in model.engine.submit(inputs["PROMPT"], budget,
-                                       eos_id=eos_id, temperature=temp,
-                                       top_k=top_k, top_p=top_p,
-                                       seed=rng_seed, **submit_kw):
+        # a fleet routes at submit, and the stream stays pinned to the
+        # replica whose engine admitted it
+        submit = (model.fleet.submit if eff_fleet is not None
+                  else model.engine.submit)
+        for tok in submit(inputs["PROMPT"], budget, eos_id=eos_id,
+                          temperature=temp, top_k=top_k, top_p=top_p,
+                          seed=rng_seed, **submit_kw):
             yield {"TOKEN": np.array([tok], np.int32)}
 
     config = ModelConfig(
@@ -483,8 +867,10 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
         + _SAMPLING_SPECS,
         outputs=(TensorSpec("TOKEN", "INT32", (1,)),),
         # streams block in the engine, not on device work: admit more of
-        # them than there are slots so retiring slots refill at once
-        instance_count=max(instance_count, 2 * n_slots),
+        # them than there are slots so retiring slots refill at once (a
+        # fleet twice more per replica, headroom for attached replicas)
+        instance_count=max(instance_count, 2 * n_slots * (
+            2 * eff_fleet.replicas if eff_fleet is not None else 1)),
         generation_engine=GenerationEngineConfig(
             n_slots=n_slots, chunk=chunk_size,
             dispatch_depth=dispatch_depth, fetch_stride=eff_stride,
@@ -505,7 +891,44 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
         speculative=spec_json,
         supervision=sup_cfg,
         scheduler=eff_sched,
+        fleet=eff_fleet,
         slo_classes=slo_cfgs,
     )
-    model = ContinuousModel(config, stream_fn, fresh_engine, policy)
+    if eff_fleet is not None:
+        model = FleetModel(config, stream_fn, ReplicaFleet(
+            fresh_engine, eff_fleet, supervision=policy, name=name,
+            version_factory=lambda i, v: fresh_engine(i)), incidents)
+    else:
+        model = ContinuousModel(config, stream_fn, fresh_engine, policy)
     return model
+
+
+def make_replica_fleet(name: str = "fleet_lm", replicas=None, fleet=None,
+                       **kw) -> PyModel:
+    """N continuous-batching engine replicas of one model config behind
+    the /v2 surface (``server/fleet.ReplicaFleet``): the wire contract of
+    ``make_continuous_generator``, every submit routed by the prefix
+    affinity -> load -> health chain and every stream pinned to its
+    replica. ``fleet`` (a ``FleetConfig``, its dict form, or None for the
+    defaults at ``replicas``) carries the routing knobs; every other
+    keyword is ``make_continuous_generator``'s, applied to each replica.
+    ``model.fleet`` is the live fleet (``drain``, ``rolling_restart``,
+    ``attach_replica``). ``replicas`` (2 when neither names a count) and
+    an explicit ``fleet.replicas`` must agree: a disagreement is a loud
+    error, never a silent pick."""
+    if fleet is None:
+        return make_continuous_generator(
+            name=name,
+            fleet=FleetConfig(replicas=2 if replicas is None
+                              else replicas), **kw)
+    # a dict that leaves the count to this function takes ``replicas``;
+    # an explicit count must match it
+    if isinstance(fleet, dict) and "replicas" not in fleet \
+            and replicas is not None:
+        fleet = {**fleet, "replicas": replicas}
+    fleet = resolve_fleet(fleet)
+    if replicas is not None and fleet.replicas != replicas:
+        raise ValueError(
+            f"replicas={replicas} conflicts with "
+            f"fleet.replicas={fleet.replicas} — set one of them")
+    return make_continuous_generator(name=name, fleet=fleet, **kw)

@@ -20,6 +20,10 @@ full-vocab branch and a ``max_top_k``-wide one for the truncated branches
 from one key, and a test can hand the port those very draws
 (``jax.random.gumbel``) and hold the selection rule to exact agreement.
 
+``sample_step`` and ``sample_loop`` decode and select in one step, or
+in ``k`` steps kept on the device, for the single-stream and static-batch
+generators (``models/decoder_lm.py``).
+
 ``select_token`` derives the noise statelessly from (seed, position) with
 a counter-based integer hash in torch ops, so one (seed, position) pair
 always gives the same draw, on the card or the CPU, with no global RNG
@@ -154,6 +158,38 @@ def select_token(logits, seed, pos, temperature, top_k, top_p=0.0,
         seed = torch.tensor(seed, device=logits.device)
     g, gk = step_noise(seed, pos, logits.shape[-1], max_top_k)
     return sample_next(logits, g, gk, temperature, top_k, top_p, max_top_k)
+
+
+def sample_step(cfg, params, tokens, state, seed, temperature, top_k,
+                top_p=0.0, max_top_k: int = MAX_TOP_K) -> tuple:
+    """One decode step of every slot of a slot-layout state and the
+    selection of each slot's next token: the reference's ``sample_step``
+    (and, over ``[S]`` slots, its ``vmap``). tokens [S] int32; ``seed``
+    a scalar or [S]; each selection draws at the slot's position BEFORE
+    the step. ``decode_step`` writes K/V in place. Returns (next [S]
+    int32, the state with ``pos + 1``)."""
+    from client_tpu_torch.models import transformer as t
+
+    pos = state["pos"]
+    logits, new_state = t.decode_step(cfg, params, tokens, state)
+    nxt = select_token(logits, seed, pos, temperature, top_k, top_p,
+                       max_top_k)
+    return nxt, new_state
+
+
+def sample_loop(cfg, params, tokens, state, k: int, seed, temperature,
+                top_k, top_p=0.0, max_top_k: int = MAX_TOP_K) -> tuple:
+    """``k`` eager ``sample_step``s: the reference's ``sample_loop`` (its
+    ``lax.scan``) as a Python loop that keeps every token on the device
+    and reads nothing back. tokens [S] is the next token to feed (and the
+    first one emitted). Returns (toks [S, k] int32, the tokens fed; next
+    [S], the successor to feed a following chunk; the state)."""
+    toks = []
+    for _ in range(k):
+        toks.append(tokens)
+        tokens, state = sample_step(cfg, params, tokens, state, seed,
+                                    temperature, top_k, top_p, max_top_k)
+    return torch.stack(toks, dim=1), tokens, state
 
 
 def filtered_probs(logits, temperature, top_k, top_p=0.0,

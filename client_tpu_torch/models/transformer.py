@@ -23,7 +23,8 @@ is not carried over.
 
 Of the decode half, both KV layouts the generation engine runs are here.
 The slot layout (``init_decode_state``, ``decode_step`` batched over the
-slots, the monolithic ``prefill`` and the resumable ``prefill_chunk``)
+slots, its greedy loop ``decode_loop``, the monolithic ``prefill`` and the
+resumable ``prefill_chunk``)
 attends each slot's static ``[max_seq]`` rows with the reference's einsum
 attention, whatever ``attn_impl`` says, as the reference does. The paged
 block-table layout (``paged_decode_steps``, ``paged_prefill_chunk``, with
@@ -35,7 +36,9 @@ takes the einsum. The speculative verify passes (``verify_steps``,
 einsum attention on both layouts, as the reference's do, and the
 dedicated prefill lane's batched chunks (``prefill_chunk_batch``,
 ``paged_prefill_chunk_batch``) ingest B prompts' chunks in one forward
-the same way.
+the same way. The reference's per-layer scan body ``_decode_layer`` has
+no copy here: ``decode_step`` computes it layer by layer, and
+``decode_loop`` steps it.
 
 int8 KV (``kv_quant``): every KV tensor gains an f32 scale table over
 (position, KV head); each written row is quantised on write
@@ -465,6 +468,22 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens,
     new_pos = pos + 1 if rows is None else pos_all.index_put((rows,),
                                                              pos + 1)
     return logits, {**state, "pos": new_pos}
+
+
+def decode_loop(cfg: TransformerConfig, params: dict, tokens, state: dict,
+                k: int) -> tuple:
+    """``k`` greedy ``decode_step``s of every slot: the reference's
+    ``decode_loop`` (its ``lax.scan``) as an eager loop that keeps the
+    tokens on the device. tokens [S] int32 is the next token to feed (and
+    the first one emitted). Returns (toks [S, k] int32, the tokens fed;
+    next [S] int32, the greedy successor; the state, whose K/V tensors
+    were written in place)."""
+    toks = []
+    for _ in range(k):
+        toks.append(tokens)
+        logits, state = decode_step(cfg, params, tokens, state)
+        tokens = logits.argmax(dim=-1).to(torch.int32)
+    return torch.stack(toks, dim=1), tokens, state
 
 
 def _slot_slab(cfg: TransformerConfig, params: dict, tokens, cache: dict,

@@ -29,14 +29,21 @@
 // Design: split-K over the table inside one launch. Each (slot, KV head)
 // gets a thread-block cluster of C CTAs (C <= 8, from the table width:
 // about 3 table entries a CTA, so C = 4 at width 12, 768 CTAs). CTA c
-// scores its contiguous share of the slot's live blocks and keeps a
-// partial state (running max m, sum l, f32 accumulator); the cluster then
+// scores the contiguous share [c * per, (c + 1) * per) of the slot's live
+// blocks, per = max(3, ceil(live / 8)), and keeps a partial state (running
+// max m, sum l, f32 accumulator); the cluster then
 // merges the C states through distributed shared memory
 // (cooperative_groups::this_cluster, map_shared_rank, cluster.sync), each
 // weighted by exp(m_c - max m). A CTA with no live block keeps m = -1e30,
 // l = 0, acc = 0, which the merge weights to exactly zero. One launch per
 // layer, no second merge kernel: the engine that calls this is host-bound,
 // and a merge launch would double its K2 launches.
+// Every quantity that orders a slot's f32 sums (its share size, its stage
+// boundaries every kPasses * rpc rows of a share, the row -> thread map and
+// the reductions) follows from the slot's own live count and compile-time
+// constants, never from the table width B or the cluster size C: the
+// shares past a slot's last one are empty and merge to exactly nothing, so
+// a slot's output is bit-equal whichever co-runners set the launch's B.
 // Inside a CTA (128 threads): a row of Dh elements is lpr lanes x 16 bytes
 // (8 lanes at bf16 Dh 64, so a warp covers 4 rows per load); each thread
 // issues the 16-byte cp.async copies of every K and V chunk it will read
@@ -141,15 +148,16 @@ __device__ __forceinline__ void stage_chunk(unsigned char* dst,
 }
 
 // One CTA of the cluster for (slot s, KV head g); RQ query rows at a time.
-// Dynamic shared memory: [n_bufs][K, V][stage_rows][lpr x 16 bytes], then
-// the slot's table row (B ints).
+// Dynamic shared memory: [n_bufs][K, V][buf_rows][lpr x 16 bytes], then
+// the slot's table row (B ints). buf_rows holds a stage of the widest share
+// that the launch's B allows (stage_rows, or the whole share if shorter).
 template <typename T, int RQ, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ tables,
                     const int* __restrict__ pos, T* __restrict__ o, int H,
                     int Hkv, int D, int N, int bl, int B, int lpr,
-                    int stage_rows, int n_bufs, long long sq_s,
+                    int stage_rows, int buf_rows, int n_bufs, long long sq_s,
                     long long sq_h, PoolStrides sk, PoolStrides sv,
                     long long stab_s, long long so_s, long long so_h,
                     float scale) {
@@ -166,7 +174,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int ch = tid % lpr;         // ... and its 16-byte chunk of the row
   const bool has_chunk = ch * EPC < D;
   const int slot_bytes = lpr * 16;  // one staged row
-  const int buf_bytes = 2 * stage_rows * slot_bytes;
+  const int buf_bytes = 2 * buf_rows * slot_bytes;
 
   extern __shared__ __align__(16) unsigned char smem[];
   int* tab = reinterpret_cast<int*>(smem + n_bufs * buf_bytes);
@@ -186,7 +194,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   // live blocks hold positions <= p (the reference's pos // bl + 1, capped
   // at the table width; a negative position attends nothing)
   const int live = p < 0 ? 0 : min(p / bl + 1, B);
-  const int per = (live + C - 1) / C;
+  // ceil(live / per) <= C for every live <= B (see launch)
+  const int per = max(kBlocksPerCta, (live + kMaxCluster - 1) / kMaxCluster);
   const int b0 = min(rank * per, live), b1 = min(b0 + per, live);
   const int n_rows = (b1 - b0) * bl;
   bool bad = false;
@@ -196,7 +205,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   // issues the copies of stage st: each thread the chunks it reads later
   auto stage = [&](int st) {
     unsigned char* kb = smem + (st % n_bufs) * buf_bytes;
-    unsigned char* vb = kb + stage_rows * slot_bytes;
+    unsigned char* vb = kb + buf_rows * slot_bytes;
     const int row0 = st * stage_rows;
     const int rows = min(stage_rows, n_rows - row0);
     if (has_chunk) {
@@ -253,7 +262,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       }
       // every chunk read below was copied by this thread: no CTA barrier
       const unsigned char* kb = smem + (st % n_bufs) * buf_bytes;
-      const unsigned char* vb = kb + stage_rows * slot_bytes;
+      const unsigned char* vb = kb + buf_rows * slot_bytes;
       const int row0 = st * stage_rows;
       const int rows = min(stage_rows, n_rows - row0);
 
@@ -421,13 +430,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   int lpr = 1;
   while (lpr < chunks) lpr *= 2;
   const int rpc = kThreads / lpr;
+  // C covers every slot's shares: for live <= 24 a share is 3 blocks and
+  // ceil(live / 3) <= ceil(B / 3); past 24, B > 24 gives C = 8
   const int C =
       min(kMaxCluster, max(1, (B + kBlocksPerCta - 1) / kBlocksPerCta));
-  const int max_rows = (B + C - 1) / C * bl;  // the longest share
-  const int stage_rows = min(kPasses * rpc, (max_rows + rpc - 1) / rpc * rpc);
+  // the widest share any slot of this launch can have (per of live = B)
+  const int max_rows =
+      max(kBlocksPerCta, (B + kMaxCluster - 1) / kMaxCluster) * bl;
+  // stage boundaries at fixed row counts of a share, whatever B is
+  const int stage_rows = kPasses * rpc;
+  const int buf_rows = min(stage_rows, (max_rows + rpc - 1) / rpc * rpc);
   const int n_bufs = max_rows > stage_rows ? 2 : 1;
   const int smem =
-      n_bufs * 2 * stage_rows * lpr * 16 + ((B * 4 + 15) / 16) * 16;
+      n_bufs * 2 * buf_rows * lpr * 16 + ((B * 4 + 15) / 16) * 16;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if ((long long)S * C > 0x7fffffffLL || Hkv > 65535)
     return cudaErrorInvalidValue;
@@ -471,8 +486,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), tables, pos, static_cast<T*>(o), H, Hkv, D, N,
-      bl, B, lpr, stage_rows, n_bufs, sq_s, sq_h, sk, sv, stab_s, so_s, so_h,
-      scale);
+      bl, B, lpr, stage_rows, buf_rows, n_bufs, sq_s, sq_h, sk, sv, stab_s,
+      so_s, so_h, scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

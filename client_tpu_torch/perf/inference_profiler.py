@@ -64,10 +64,10 @@ class ServerSideStats:
 @dataclasses.dataclass
 class ServerMetricsStats:
     """Deltas scraped from the server's Prometheus /metrics plane around
-    the measurement window. The fields of families the port does not
-    export yet (the fleet's, ROADMAP A12; the runtime namespace with its
-    compile set) stay at their defaults with their ``*_scraped`` flag
-    False."""
+    the measurement window. The fleet families are read when the model
+    runs a replica fleet; the fields of the namespace the port does not
+    export yet (the runtime one, with its compile set) stay at their
+    defaults with their ``*_scraped`` flag False."""
 
     scraped: bool = False
     queue_depth_p50: float = 0.0

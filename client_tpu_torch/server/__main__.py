@@ -43,11 +43,11 @@ def main(argv=None) -> int:
                     help="also register preprocess/resnet50 (bf16, on "
                          "--device)/preprocess_resnet50 (the ensemble)")
     ap.add_argument("--lm-models", action="store_true",
-                    help="also register decoder_lm (sequence decode) and "
-                         "continuous_lm (decoupled streaming generation "
-                         "through the continuous-batching engine), on "
-                         "--device; the reference's generator_lm is not "
-                         "ported yet (ROADMAP A12)")
+                    help="also register decoder_lm (sequence decode), "
+                         "generator_lm (decoupled single-stream "
+                         "generation) and continuous_lm (decoupled "
+                         "streaming generation through the "
+                         "continuous-batching engine), on --device")
     ap.add_argument("--debug-endpoints", action="store_true",
                     help="serve the runtime introspection surface "
                          "(GET /v2/debug/runtime, GET /v2/debug/models/"
@@ -95,9 +95,11 @@ def main(argv=None) -> int:
         from client_tpu_torch.models import (
             make_continuous_generator,
             make_decoder_lm,
+            make_generator,
         )
 
         core.register_model(make_decoder_lm(device=args.device))
+        core.register_model(make_generator(device=args.device))
         core.register_model(make_continuous_generator(device=args.device))
 
     http_srv = HttpInferenceServer(core, host=args.host, port=args.http_port,

@@ -5,11 +5,12 @@ generator, a stateful sequence model and an ensemble use.
 
 The generator's ``generation_engine``, ``prefix_cache``,
 ``speculative``, ``scheduler`` and ``slo_classes`` blocks carry the
-engine knobs the port runs; ``response_cache`` turns on the v2 response
-cache; ``sequence_batching`` puts a model behind the sequence scheduler
-and ``ensemble_steps`` makes it an ensemble of other served models. The
-fleet and sharding blocks of the reference wait for the slices that use
-them. ``platform`` and ``backend`` read ``"pytorch"`` (the reference's
+engine knobs the port runs, and a replica fleet's ``fleet`` block its
+router's; ``response_cache`` turns on the v2 response cache;
+``sequence_batching`` puts a model behind the sequence scheduler and
+``ensemble_steps`` makes it an ensemble of other served models. The
+reference's sharding, autoscale and canary blocks wait for ROADMAP 7b's
+remainder. ``platform`` and ``backend`` read ``"pytorch"`` (the reference's
 generator says ``"python"``).
 """
 
@@ -275,6 +276,35 @@ class SupervisionConfig:
 
 
 @dataclass
+class FleetConfig:
+    """The replica fleet router for generation models
+    (``server/fleet.py``): ``replicas`` independent continuous-batching
+    engines of one model config behind the same /v2 surface, routed by
+    the policy chain prefix affinity (a host-side sketch of rolling CRC
+    chains at ``affinity_block_len``-token blocks, up to
+    ``affinity_max_blocks`` leading blocks, ``affinity_capacity`` LRU
+    entries per replica, a tenant hash as tiebreak) -> load (the least
+    queue depth plus occupied slots among healthy replicas, the affinity
+    winner honoured within ``affinity_tolerance`` of it) -> health
+    (dead, crash-looped and draining replicas excluded).
+    ``policy="random"`` is a seeded uniform pick, the A/B baseline.
+    ``drain_timeout_s`` bounds ``drain(replica)``. The reference's block,
+    field for field."""
+
+    replicas: int = 2
+    affinity_block_len: int = 16
+    affinity_max_blocks: int = 8
+    affinity_capacity: int = 4096
+    affinity_tolerance: int = 4
+    drain_timeout_s: float = 30.0
+    policy: str = "affinity"
+    random_seed: int = 0
+
+    def to_json(self):
+        return asdict(self)
+
+
+@dataclass
 class ModelConfig:
     name: str
     platform: str = "pytorch"
@@ -307,6 +337,7 @@ class ModelConfig:
     generation_engine: Optional[GenerationEngineConfig] = None
     supervision: Optional[SupervisionConfig] = None
     scheduler: Optional[SchedulerConfig] = None
+    fleet: Optional[FleetConfig] = None
     slo_classes: tuple = ()   # [SloClassConfig]; advertised objectives
 
     # ---- derived ----
@@ -381,6 +412,8 @@ class ModelConfig:
             j["supervision"] = self.supervision.to_json()
         if self.scheduler is not None:
             j["scheduler"] = self.scheduler.to_json()
+        if self.fleet is not None:
+            j["fleet"] = self.fleet.to_json()
         if self.slo_classes:
             j["slo_classes"] = [c.to_json() for c in self.slo_classes]
         return j

@@ -479,6 +479,14 @@ class TorchInferenceServer:
         preemptions and resumes."""
         return self._model_snapshots("scheduler_snapshot", "scheduler")
 
+    def debug_fleet(self) -> dict:
+        """The replica-fleet router state of every model that runs a
+        fleet (``fleet_snapshot``): per-replica health, affinity,
+        occupancy, routing counters and drain state, with the recent
+        decisions and lifecycle events. Models without a fleet are left
+        out."""
+        return self._model_snapshots("fleet_snapshot", "fleet")
+
     def debug_incidents(self) -> dict:
         """The watchdog's incident bundles of every model that runs it
         (detector, breach, the triggering history, the flight tail and

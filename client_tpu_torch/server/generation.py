@@ -154,9 +154,13 @@ a CUDA event recorded behind its kernels. The tracker's snapshot is the
 ``goodput`` block of the snapshots, and its two shares are watchdog
 signals and flight-record fields.
 
-Knobs of the reference that this slice does not run (meshes and fleets)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them;
-none is silently ignored.
+Placement: ``engine_devices`` (the reference's explicit-placement knob)
+pins every tensor of the engine to one device, named by a CUDA index or a
+``torch.device``; a replica fleet (``server/fleet.py``) builds one engine
+per replica and reads ``load_depth`` to route. A subset of more than one
+device, and ``mesh``, shard one engine over devices: they raise
+``NotImplementedError`` naming ROADMAP 7b's mesh remainder. An unknown
+knob raises ``TypeError``; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -244,22 +248,16 @@ from client_tpu_torch.server.watchdog import (
 
 log = logging.getLogger(__name__)
 
-# the reference engine's knobs this slice leaves out -> the ROADMAP item
-# that ports them
-UNPORTED_KNOBS = {
-    "mesh": "A12 (mesh and fleets)",
-    "engine_devices": "A12 (mesh and fleets)",
-}
+# the ROADMAP item that shards one engine over devices (``mesh``, an
+# ``engine_devices`` subset of more than one device)
+MESH_REMAINDER = "7b (A12), its mesh remainder: sharding one engine over " \
+    "devices"
 
 
-def reject_unported(knobs: dict) -> None:
-    """Raise for the first knob of ``knobs`` this slice does not run."""
+def reject_unknown_knobs(knobs: dict) -> None:
+    """Raise for the first knob of ``knobs``: none is the reference's."""
     for name in knobs:
-        if name not in UNPORTED_KNOBS:
-            raise TypeError(f"unknown generation engine knob '{name}'")
-        raise NotImplementedError(
-            f"generation engine knob '{name}' is not ported yet: ROADMAP "
-            f"{UNPORTED_KNOBS[name]}")
+        raise TypeError(f"unknown generation engine knob '{name}'")
 
 
 # ---------------------------------------------------------------- device side
@@ -842,8 +840,10 @@ class ContinuousBatchingEngine:
                  watchdog_thresholds: Optional[dict] = None,
                  incident_store: Optional[IncidentStore] = None,
                  device_time_sample_every: int = 0,
-                 device=None, name: str = "generation-engine", **unported):
-        reject_unported(unported)
+                 device=None, name: str = "generation-engine",
+                 engine_devices=None, mesh=None, **unknown):
+        reject_unknown_knobs(unknown)
+        pinned = self.resolve_engine_devices(engine_devices, mesh)
         if chunk < 1 or n_slots < 1:
             raise ValueError("n_slots and chunk must be >= 1")
         if fetch_stride < 1:
@@ -953,7 +953,8 @@ class ContinuousBatchingEngine:
         self._lane_handoffs = 0
         self._lane_batch = self.resolve_lane_batch(self._lane_n,
                                                    prefill_lane_batch)
-        self._device = resolve_device(device)
+        self._device = (pinned if pinned is not None
+                        else resolve_device(device))
         if self._device.type == "cuda" and self._device.index is None:
             # the engine thread sets its current device, which needs an
             # index: the caller's current card
@@ -1293,11 +1294,65 @@ class ContinuousBatchingEngine:
         reference's ladder-less bound)."""
         return max(2, 1 + len(spec_ladder))
 
+    @staticmethod
+    def resolve_engine_devices(engine_devices, mesh=None):
+        """The reference's explicit-placement rule, for one device:
+        ``engine_devices`` is a sequence of CUDA device indices or
+        ``torch.device``s; a one-device subset is the device every tensor
+        of the engine lives on (returned), None the default placement.
+        Loud errors, never silent fallbacks: an index out of range, a
+        device listed twice, an empty subset and a conflict with
+        ``mesh`` raise ``ValueError``; ``mesh`` alone and a subset of more
+        than one device shard one engine over devices, which raises
+        ``NotImplementedError`` naming ROADMAP 7b's mesh remainder."""
+        if engine_devices is None:
+            if mesh is not None:
+                raise NotImplementedError(
+                    f"generation engine knob 'mesh' is not ported yet: "
+                    f"ROADMAP {MESH_REMAINDER}")
+            return None
+        if mesh is not None:
+            raise ValueError(
+                "engine_devices and mesh are mutually exclusive — an "
+                "explicit mesh already IS a device placement")
+        n_cuda = torch.cuda.device_count()
+        devs, seen = [], set()
+        for d in engine_devices:
+            if isinstance(d, (int, np.integer)):
+                idx = int(d)
+                if not 0 <= idx < n_cuda:
+                    raise ValueError(
+                        f"engine_devices index {idx} out of range "
+                        f"(backend has {n_cuda} devices)")
+                d = torch.device("cuda", idx)
+            else:
+                d = torch.device(d)
+            if d in seen:
+                raise ValueError(f"engine_devices lists device {d} twice")
+            seen.add(d)
+            devs.append(d)
+        if not devs:
+            raise ValueError(
+                "engine_devices must name at least one device "
+                "(None = default placement)")
+        if len(devs) > 1:
+            raise NotImplementedError(
+                f"engine_devices over {len(devs)} devices shards one "
+                f"engine: not ported yet, ROADMAP {MESH_REMAINDER}")
+        return devs[0]
+
     # ---------------------------------------------------------- introspection
 
     def active_slots(self) -> int:
         """Occupied decode slots."""
         return sum(1 for s in self._slots if s.req is not None)
+
+    def load_depth(self) -> int:
+        """The fleet router's load signal: queued requests plus occupied
+        decode and dedicated-lane slots, everything this engine has
+        committed to serve and not finished."""
+        return (self._pending.qsize() + self.active_slots()
+                + self.active_lane_slots())
 
     def active_lane_slots(self) -> int:
         """Occupied dedicated-lane slots (0 without the lane)."""

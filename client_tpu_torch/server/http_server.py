@@ -22,13 +22,13 @@ parameters drive a stateful model's sequence.
 ``access_log=True`` logs one structured INFO record per request.
 ``debug_endpoints=True`` opts into the debug surface: GET
 ``/v2/debug/runtime``, ``/v2/debug/models/{name}[/versions/{v}]/engine``,
-``/v2/debug/slo``, ``/v2/debug/scheduler``, ``/v2/debug/incidents``,
+``/v2/debug/slo``, ``/v2/debug/scheduler``, ``/v2/debug/fleet`` (every
+replica fleet's routing rows), ``/v2/debug/incidents``,
 ``/v2/debug/timeline`` (the Chrome-trace document) and
 ``/v2/debug/traces`` (the completed traces; both take ``?model=``), GET
 and POST ``/v2/debug/faults`` and POST ``/v2/debug/profile``; with the
 flag off they answer 404 like any unknown path. An armed
 ``transport_reset`` fault drops the connection before any response byte.
-The fleet view waits for a later slice and answers 404.
 """
 
 from __future__ import annotations
@@ -264,6 +264,11 @@ class _Handler(BaseHTTPRequestHandler):
     def debug_scheduler(self):
         self._require_debug()
         self._send_json(200, self.core.debug_scheduler())
+
+    @route("GET", r"/v2/debug/fleet")
+    def debug_fleet(self):
+        self._require_debug()
+        self._send_json(200, self.core.debug_fleet())
 
     @route("GET", r"/v2/debug/incidents")
     def debug_incidents(self):

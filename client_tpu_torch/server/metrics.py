@@ -2,9 +2,10 @@
 
 The port's own copy of ``client_tpu/server/metrics.py`` (framework-free
 there; the port imports nothing of the reference package), with the same
-naming contract, families, labels and help text. The reference's fleet
-and autoscale collectors are not here: their planes are not ported yet
-(ROADMAP A12), so their families are absent, not zero. The goodput
+naming contract, families, labels and help text. The fleet
+families (``client_tpu_fleet_*``) are registered when a model runs a
+replica fleet; the reference's autoscale collector is not here: its plane
+waits for ROADMAP 7b's remainder, so its families are absent, not zero. The goodput
 families are registered as the reference registers them; their MFU pair
 only where the engine's card has a known peak (the H100; never on the
 CPU). Nor are the runtime families (``client_tpu_runtime_*``): the
@@ -364,11 +365,18 @@ def collect_server_metrics(core) -> MetricsRegistry:
                    for name, versions in core._models.items()
                    for v, e in versions.items()]
     gen_entries = []  # (name, version, generation snapshot)
+    fleet_entries = []  # (name, version, fleet snapshot)
     for name, version, entry in sorted(entries):
         gen = getattr(entry.model, "generation_stats", None)
         if callable(gen):
             try:
                 gen_entries.append((name, version, gen()))
+            except Exception:  # noqa: BLE001 — metrics are best-effort
+                pass
+        fl = getattr(entry.model, "fleet_snapshot", None)
+        if callable(fl):
+            try:
+                fleet_entries.append((name, version, fl()))
             except Exception:  # noqa: BLE001 — metrics are best-effort
                 pass
         st = entry.stats
@@ -410,6 +418,8 @@ def collect_server_metrics(core) -> MetricsRegistry:
                       if s.get("watchdog") is not None]
         if wd_entries:
             _collect_watchdog(reg, wd_entries)
+    if fleet_entries:
+        _collect_fleet(reg, fleet_entries)
 
     cache = core.cache.stats()
     reg.counter("client_tpu_cache_hits_total",
@@ -1104,6 +1114,86 @@ def _collect_sched(reg: MetricsRegistry, sched_entries: list) -> None:
         knob_spec.labels(name, version).set(
             1 if knobs.get("speculation_enabled", True) else 0)
 
+
+
+def _collect_fleet(reg: MetricsRegistry, fleet_entries: list) -> None:
+    """Replica-fleet router families (``client_tpu_fleet_*``),
+    registered only when at least one model runs a ReplicaFleet
+    (server/fleet.py) — a single-engine model must not advertise
+    routing counters that can never move.
+
+    Source: the model's ``fleet_snapshot()``. Every per-replica
+    family goes through the capped-cardinality ``replica`` label path
+    (cap = configured replicas + scale-up headroom); the
+    ``client_tpu_fleet_replicas`` gauge is the cap's observable, the
+    same contract the tenant-labeled namespaces keep with
+    ``client_tpu_slo_tenants``."""
+    ml = ("model", "version")
+    rl = ml + ("replica",)
+    # scale-up attaches replicas at runtime: cap at the live count
+    # plus headroom so a runaway attach loop cannot mint unbounded
+    # exposition rows (later replicas collapse into the overflow
+    # label like overflowing tenants do)
+    cap = max(s.get("replicas", 1) for _n, _v, s in fleet_entries) + 8
+    replicas = reg.gauge(
+        "client_tpu_fleet_replicas",
+        "Engine replicas configured in the fleet (the replica-label "
+        "cardinality cap's observable)", ml)
+    healthy = reg.gauge(
+        "client_tpu_fleet_healthy",
+        "1 while the replica's engine (and supervisor) report "
+        "healthy; 0 once its engine thread died or its crash-loop "
+        "breaker tripped (the router excludes it)", rl,
+        replica_cap=cap)
+    draining = reg.gauge(
+        "client_tpu_fleet_draining",
+        "1 while the replica is draining (router excluded, in-flight "
+        "streams finishing ahead of the engine swap)", rl,
+        replica_cap=cap)
+    qdepth = reg.gauge(
+        "client_tpu_fleet_queue_depth",
+        "Requests queued on the replica's engine awaiting a slot",
+        rl, replica_cap=cap)
+    active = reg.gauge(
+        "client_tpu_fleet_active_slots",
+        "Slots currently holding a live stream on the replica", rl,
+        replica_cap=cap)
+    routed = reg.counter(
+        "client_tpu_fleet_routed_total",
+        "Generation submits the router admitted to this replica", rl,
+        replica_cap=cap)
+    rerouted = reg.counter(
+        "client_tpu_fleet_rerouted_total",
+        "Submits re-routed AWAY from this replica (its 503 gate "
+        "bounced the submit, or it held the warm prefix while "
+        "unhealthy/draining)", rl, replica_cap=cap)
+    affinity = reg.counter(
+        "client_tpu_fleet_affinity_hits_total",
+        "Routing decisions this replica won on prefix affinity (its "
+        "sketch held the prompt's longest warm leading-block chain)",
+        rl, replica_cap=cap)
+    drains = reg.counter(
+        "client_tpu_fleet_drains_total",
+        "Completed drain-swaps of this replica (admission stopped, "
+        "streams finished, fresh engine staged)", rl, replica_cap=cap)
+    for name, version, snap in fleet_entries:
+        replicas.labels(name, version).set(snap.get("replicas", 0))
+        for row in snap.get("rows", ()):
+            r = str(row["replica"])
+            healthy.labels(name, version, r).set(
+                1 if row.get("healthy") else 0)
+            draining.labels(name, version, r).set(
+                1 if row.get("draining") else 0)
+            qdepth.labels(name, version, r).set(
+                row.get("queue_depth", 0))
+            active.labels(name, version, r).set(
+                row.get("active_slots", 0))
+            routed.labels(name, version, r).set(row.get("routed", 0))
+            rerouted.labels(name, version, r).set(
+                row.get("rerouted", 0))
+            affinity.labels(name, version, r).set(
+                row.get("affinity_hits", 0))
+            drains.labels(name, version, r).set(row.get("drains", 0))
 
 
 def _collect_watchdog(reg: MetricsRegistry, wd_entries: list) -> None:

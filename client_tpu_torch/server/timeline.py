@@ -11,8 +11,7 @@ Merges two sources the serving stack already keeps:
   (GENERATION_ENQUEUE, PREFILL_END, ...) become thread-scoped instants
   ("i"). Each traced request gets its own thread track inside the replica
   process its FLEET_ROUTE span named, or the model's first replica when
-  unrouted (a single-engine model; the fleet's routing spans come with
-  ROADMAP A12).
+  unrouted (a single-engine model).
 - **FlightRecorder iteration rings** (server/runtime_stats.py): the
   engine-loop log. Iterations become back-to-back "X" events on the
   decode-lane track (named by phase, duration = gap to the next

@@ -14,11 +14,14 @@ query row, head dims other than 64 (the kernel's 128-wide variant above
 views in another layout and of the QKV slab, and views that 16-byte
 copies cannot take; for paged decode attention head dims 64 and 128,
 blocks of 8 and 16 rows, table widths that split over clusters of 1 to 8
-CTAs, positions on every split boundary, empty shares, an out-of-pool
+CTAs, positions on every split boundary, empty shares, one slot's output
+bit-equal at every table width beside any co-runners, an out-of-pool
 block id, grouped queries, pool slabs read through other strides, a
 small generation engine whose every decode step goes through the kernel,
-and the same engine on the slot layout under each prefill mode and on the
-paged layout under the chunked lane. The dedicated lane's batched
+the same engine on the slot layout under each prefill mode and on the
+paged layout under the chunked lane, and one pinned with
+``engine_devices=[0]`` decoding as the unpinned one. The dedicated lane's
+batched
 kernels with padding rows on the scratch row and block (no device-side
 assert, live rows untouched), an int8 paged engine that never launches
 the paged kernel, and an int8 block's host-tier round trip. Speculative
@@ -439,6 +442,49 @@ def test_paged_kernel_out_of_pool_block_gives_nan_in_its_slot_only(card):
                                atol=PAGED_ATOL[torch.float32])
 
 
+# (position, table widths): live 1, 3, 7 and 12 padded to every width up
+# to 12 (clusters of 1 to 4 CTAs); live 25 (C = 8, shares of 4 blocks) at
+# widths 26, 32 and 48
+_WIDTH_CASES = [(5, range(1, 13)), (37, range(3, 13)), (100, range(7, 13)),
+                (191, range(12, 13)), (390, (25, 26, 32, 48))]
+
+
+@pytest.mark.parametrize("heads", [(12, 12), (16, 4)], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_slot_output_is_bit_equal_at_every_table_width(
+        card, dtype, heads):
+    """One slot's output depends on its own q, blocks and position only:
+    launched alone at its own table width, and padded to every wider width
+    beside co-runners at longer positions (which set the launch's cluster
+    size), it is bit-equal in every launch."""
+    h, hkv = heads
+    dh, bl, runners = 64, 16, 3
+    n = 1 + 48 * (runners + 1)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    q = torch.randn((runners + 1, h, dh), generator=gen,
+                    device="cuda").to(dtype)
+    kp = torch.randn((n, bl, hkv, dh), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((n, bl, hkv, dh), generator=gen, device="cuda").to(dtype)
+    blocks = (torch.randperm(n - 1, generator=gen, device="cuda") + 1).to(
+        torch.int32).reshape(runners + 1, 48)
+    for p, widths in _WIDTH_CASES:
+        live = p // bl + 1
+        own = pa.paged_decode_attention(
+            q[:1], kp, vp, blocks[:1, :live].contiguous(),
+            torch.tensor([p], dtype=torch.int32, device="cuda"))
+        for w in widths:
+            tables = blocks[:, :w].clone()
+            tables[0, live:] = 0                     # padding: scratch block
+            pos = torch.tensor([p] + [w * bl - 1 - i for i in range(runners)],
+                               dtype=torch.int32, device="cuda")
+            out = pa.paged_decode_attention(q, kp, vp, tables, pos)
+            torch.cuda.synchronize()
+            assert torch.equal(out[0], own[0]), (p, w)
+        _k2_check((q[:1], kp, vp, blocks[:1, :live].contiguous(),
+                   torch.tensor([p], dtype=torch.int32, device="cuda")),
+                  dtype)
+
+
 @pytest.mark.parametrize("view", ["offset", "odd_head_dim"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_kernel_takes_pools_16_byte_copies_cannot(card, dtype, view):
@@ -461,6 +507,35 @@ def test_paged_kernel_launch_counter(card):
     pa.paged_decode_attention(*args)
     pa.paged_decode_attention(*args)
     assert pa.launches == before + 2
+
+
+def test_pinned_engine_on_the_card_decodes_as_the_unpinned_one(card):
+    """``engine_devices=[0]`` puts every tensor of a paged engine on
+    cuda:0, and its greedy streams (through K2) equal the unpinned
+    engine's token for token."""
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+
+    cfg = t.TransformerConfig(vocab_size=97, d_model=64, n_layers=2,
+                              n_heads=4, head_dim=16, d_ff=128, max_seq=64,
+                              dtype=torch.bfloat16, attn_impl="flash")
+    params = t.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    kw = dict(n_slots=2, chunk=4, kv_layout="paged", kv_block_len=8)
+    free = ContinuousBatchingEngine(cfg, params, device="cuda", **kw)
+    pinned = ContinuousBatchingEngine(cfg, params, engine_devices=[0], **kw)
+    try:
+        prompt = np.arange(1, 20, dtype=np.int32)
+        want = list(free.submit(prompt, 12))
+        before = pa.launches
+        assert list(pinned.submit(prompt, 12)) == want
+        assert pa.launches > before
+        assert pinned._device == torch.device("cuda", 0)
+        assert {p.device for p in pinned._dev["params"]["layers"].values()} \
+            == {torch.device("cuda", 0)}
+    finally:
+        free.stop()
+        pinned.stop()
 
 
 def test_small_engine_goes_through_the_paged_kernel(card):

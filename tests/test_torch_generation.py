@@ -197,7 +197,8 @@ def test_concurrent_submitters_stress(model):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("engine_devices", (0,), "A12"), ("mesh", object(), "A12")])
+    ("engine_devices", (torch.device("cpu"), torch.device("cuda", 0)),
+     "A12"), ("mesh", object(), "A12")])
 def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                                         item):
     _, _, tcfg, tparams = model

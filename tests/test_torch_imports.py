@@ -83,6 +83,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.server.supervision",
                      "client_tpu_torch.server.goodput",
                      "client_tpu_torch.server.timeline",
+                     "client_tpu_torch.server.fleet",
                      "client_tpu_torch.client",
                      "client_tpu_torch.client.http",
                      "client_tpu_torch.client.grpc",
@@ -128,6 +129,33 @@ def test_the_card_path_imports_neither_grpc_nor_protobuf():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _GRPC_PROBE.format(repo=REPO)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import json
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_FLEET_PROBE = r"""
+import json, sys
+sys.path.insert(0, {repo!r})
+import client_tpu_torch.server.fleet
+from client_tpu_torch.models.decoder_lm import (
+    make_batch_generator, make_generator, make_replica_fleet)
+from client_tpu_torch.models.sampling import sample_loop, sample_step
+from client_tpu_torch.models.transformer import decode_loop
+print(json.dumps(sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "client_tpu", "grpc")
+    or m == "google.protobuf" or m.startswith("google.protobuf."))))
+"""
+
+
+def test_the_fleet_and_the_generators_import_no_jax_grpc_or_protobuf():
+    """The fleet router, the generators and their loops import neither
+    JAX, the JAX package, grpc nor protobuf."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _FLEET_PROBE.format(repo=REPO)], cwd=REPO,
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     import json
@@ -186,8 +214,11 @@ def _entry_points():
     )
     from client_tpu_torch.models.decoder_lm import (
         decode_config,
+        make_batch_generator,
         make_continuous_generator,
         make_decoder_lm,
+        make_generator,
+        make_replica_fleet,
     )
     from client_tpu_torch.perf.bench_harness import build_bert_encoder
     from client_tpu_torch.server.config import ModelConfig
@@ -232,6 +263,9 @@ def _entry_points():
         "make_accumulator": lambda: make_accumulator(),
         "make_decoder_lm": lambda: make_decoder_lm(cfg=cfg),
         "make_resnet50": lambda: make_resnet50(),
+        "make_generator": lambda: make_generator(cfg=cfg),
+        "make_batch_generator": lambda: make_batch_generator(cfg=cfg),
+        "make_replica_fleet": lambda: make_replica_fleet(cfg=cfg),
     }
 
 
@@ -244,7 +278,9 @@ def _entry_points():
                                    "make_continuous_generator",
                                    "cuda_shm_region", "SequenceModel",
                                    "make_accumulator", "make_decoder_lm",
-                                   "make_resnet50"])
+                                   "make_resnet50", "make_generator",
+                                   "make_batch_generator",
+                                   "make_replica_fleet"])
 def test_entry_points_without_a_device_raise_when_cuda_is_absent(
         entry, monkeypatch):
     # the same code path a machine without CUDA takes, on any machine

@@ -456,8 +456,8 @@ def _wait_ready(url, grpc_url, proc, timeout_s=240):
 def test_both_entry_points_serve_the_same_models():
     """``python -m client_tpu.server --image-models --lm-models`` and
     ``python -m client_tpu_torch.server --device cpu`` with the same
-    flags, each in a process of its own: the same index (the reference's
-    ``generator_lm`` aside, ROADMAP A12), and for every model the same
+    flags, each in a process of its own: the same index, and for every
+    model the same
     metadata and HTTP config and the same gRPC config apart from the
     by-design fields (platform and backend, "pytorch" in the port, and
     the instance kind)."""
@@ -487,14 +487,14 @@ def test_both_entry_points_serve_the_same_models():
         http = {s: thttp.InferenceServerClient(urls[s]) for s in SIDES}
         grpcc = {s: tgrpc.InferenceServerClient(grpc_urls[s]) for s in SIDES}
         try:
-            index = {s: [r for r in http[s].get_model_repository_index()
-                         if r["name"] != "generator_lm"] for s in SIDES}
+            index = {s: http[s].get_model_repository_index() for s in SIDES}
             assert index["port"] == index["ref"]
             names = [r["name"] for r in index["port"]]
             assert names == sorted([
                 "accumulator", "add_sub", "add_sub_fp32", "add_sub_string",
                 "identity", "repeat_int32", "preprocess", "resnet50",
-                "preprocess_resnet50", "decoder_lm", "continuous_lm"])
+                "preprocess_resnet50", "decoder_lm", "generator_lm",
+                "continuous_lm"])
             for name in names:
                 got = {}
                 for s in SIDES:
