@@ -288,9 +288,15 @@ each printing one JSON line:
              K1 must launch 12 times per batch over the phase, the server
              must count the client process's successes, the client's
              regions must resolve cross-process and the example's in
-             process. Prints, per arm, client-side infer/s, p50/p99 ms, the
-             server's completions/s and mean batch size over the same
-             window, and the client's host µs per request.
+             process. Then the perf CLI's foreign ``--service-kind
+             torchserve`` in this process against a stdlib stub of
+             TorchServe's multipart upload API: exit 0 with a report,
+             every upload's bytes intact; the kind imports neither grpcio
+             nor protobuf, and the phase prints whether the host has
+             them. Prints, per
+             arm, client-side infer/s, p50/p99 ms, the server's
+             completions/s and mean batch size over the same window, and
+             the client's host µs per request.
 18. models   the serving core's repository, ensembles and sequences and
              the image models, through one TorchInferenceServer over HTTP
              with the port's client. (a) ResNet-50 (seed 0, bf16, channels
@@ -362,6 +368,38 @@ each printing one JSON line:
              must carry FLEET_ROUTE. Prints each run's tokens/s (the two
              replicas share the card: the number is the router's cost, not
              a scaling), the drain's ms and the host µs per route call.
+21. autoscale
+             the fleet autoscaler and the canary judge (ROADMAP 7b's
+             remainder): replicas of the same model on the one card, the
+             fleet phase's knobs (paged with K2), at the reference autoscale
+             benchmark's settings (benchmarks/bench_autoscale.py: SLO
+             classes gold, generous, and flood, 1 ms TTFT; a 3 s SLO
+             window; prompts of a 24-token tenant prefix and an 8-token
+             suffix, budget 8), the controller stepped on this thread
+             every 50 ms. (a) overload: one replica, bands {1..3 replicas,
+             burn 1.0/0.2, queue 6/1, hold 2, idle 4, cooldown 0.25 s},
+             16 flood and 2 gold tenants resubmitting their 4 requests
+             until the fleet holds 3 replicas and the flood's burn crossed
+             1.0, then idle until it is back at 1: 1 -> 3 -> 1, the gold
+             burn at most 0.05 throughout, scale_up and scale_down in the
+             decision ring and as FLEET_SCALE events. (b) canary: two
+             replicas pinned, a 50 % tenant split, gates {soak 1.5 s, 4
+             requests, burn 1.0 / 1.5x, TTFT p95 3x, MFU 0.5x}: a 0.4 s
+             kernel_delay matched to the canary's engine name must roll
+             back, and the rollout with the fault cleared must promote
+             (every replica on the new version), each verdict in the ring
+             and as a CANARY_* event. Both arms: zero failed streams,
+             every budget full, every stream of one prompt the same
+             tokens, one stream per prompt teacher-forced; K2 12 x 4 per
+             chunk dispatch on every replica (tallied by engine thread,
+             detached and swapped-out engines included) and on every
+             replica that served; memory_allocated after each detach and
+             after the arm back within a quarter of one replica's
+             footprint. Prints replicas over time, each control round's
+             ms and the ring's decisions, ms per attach, detach and
+             drain, each verdict's burn, TTFT p95 and MFU on both sides,
+             memory_allocated before, at its peak and after, and tokens/s
+             per arm.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -384,6 +422,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import weakref
 
 import numpy as np
 import torch
@@ -4302,6 +4341,101 @@ def _perf_cli(core, url: str, extra: list) -> dict:
             "wall_s": wall}
 
 
+TORCHSERVE_BYTES = 4096
+
+
+def _torchserve_cli() -> dict:
+    """The perf CLI's foreign ``torchserve`` kind in this process, against
+    a stdlib stub of TorchServe's inference API (a multipart upload to
+    ``POST /predictions/{model}``): the CLI must exit 0 with a report, the
+    stub must receive the uploaded file's bytes in every request's
+    ``data`` part, and the kind must need neither grpcio nor protobuf."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+    import tempfile
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from client_tpu_torch.perf.__main__ import main as perf_main
+
+    payload = np.random.default_rng(CLIENT_SEED).integers(
+        0, 256, TORCHSERVE_BYTES, dtype=np.uint8).tobytes()
+    seen = {"requests": 0, "bad": 0}
+    lock = threading.Lock()
+
+    class Stub(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):
+            pass
+
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers["Content-Length"]))
+            m = re.search(r"boundary=(\S+)", self.headers["Content-Type"])
+            ok = m is not None and self.path == "/predictions/densenet"
+            if ok:
+                parts = body.split(b"--" + m.group(1).encode())
+                data = [p for p in parts if b'name="data"' in p]
+                ok = len(data) == 1 and data[0].split(
+                    b"\r\n\r\n", 1)[1][:-2] == payload
+            with lock:
+                seen["requests"] += 1
+                seen["bad"] += 0 if ok else 1
+            reply = json.dumps({"class": "ok" if ok else "bad"}).encode()
+            self.send_response(200 if ok else 400)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(reply)))
+            self.end_headers()
+            self.wfile.write(reply)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Stub)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    printed = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            upload = os.path.join(tmp, "upload.bin")
+            with open(upload, "wb") as f:
+                f.write(payload)
+            data = os.path.join(tmp, "data.json")
+            with open(data, "w") as f:
+                json.dump({"data": [{"TORCHSERVE_INPUT": [upload]}]}, f)
+            t0 = time.time()
+            with contextlib.redirect_stdout(printed):
+                rc = perf_main(["-m", "densenet", "--service-kind",
+                                "torchserve", "-u",
+                                f"127.0.0.1:{httpd.server_address[1]}",
+                                "--input-data", data, "--sync",
+                                "--concurrency-range", "2", "-p",
+                                str(CLIENT_PERF_MS), "-r",
+                                str(CLIENT_PERF_TRIALS)])
+            wall = time.time() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=10)
+    out = printed.getvalue()
+    m = re.search(_PERF_PATTERNS["client_infer_per_s"], out)
+    n = re.search(_PERF_PATTERNS["request_count"], out)
+    result = {"rc": rc, "wall_s": wall,
+              "client_infer_per_s": float(m.group(1)) if m else None,
+              "request_count": int(n.group(1)) if n else None,
+              "stub_requests": seen["requests"],
+              "stub_bad_requests": seen["bad"],
+              "upload_bytes": TORCHSERVE_BYTES,
+              "grpc_installed":
+                  importlib.util.find_spec("grpc") is not None,
+              "protobuf_installed":
+                  importlib.util.find_spec("google") is not None
+                  and importlib.util.find_spec("google.protobuf") is not None}
+    if rc != 0 or m is None or not result["request_count"] \
+            or seen["bad"] or seen["requests"] < result["request_count"]:
+        fail(f"client: the perf CLI's torchserve kind read {result}: "
+             f"{out[-1500:]}")
+    return result
+
+
 def phase_client() -> dict:
     """The client library and the perf analyzer's network side, from a
     separate process, against the BERT-base encoder (seed 0, K1) behind
@@ -4366,6 +4500,8 @@ def phase_client() -> dict:
                               ["--request-rate-range", f"{rate:.1f}"])
         s2 = _stats(core, "bert_base")
         launches = fa.launches
+        # (f) the perf CLI's foreign torchserve kind against a stub
+        torchserve = _torchserve_cli()
         # (e) the example's flow on add_sub, regions of this process
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
@@ -4429,7 +4565,7 @@ def phase_client() -> dict:
     result = {"phase": "client", "bare_socket": arms["bare_socket"],
               "library": arms["library"], "shm": arms["shm"],
               "perf_concurrency": perf, "perf_request_rate": perf_rate,
-              "control": ctl, "attachments": kinds,
+              "perf_torchserve": torchserve, "control": ctl, "attachments": kinds,
               "batches": execs, "flash_attention_launches": launches,
               "embedding_max_abs_err_vs_ref": check["max_abs_err"],
               "embedding_worst_err_over_bound":
@@ -5166,8 +5302,10 @@ def _fleet_workload(vocab: int, seed: int = 7) -> dict:
 @contextlib.contextmanager
 def _k2_by_thread(tally: dict):
     """Tally K2 calls by the calling thread (each replica's engine runs on
-    its own): the transformer's reference to the wrapper is wrapped for
-    the block, and the wrapper itself still counts every launch."""
+    its own; keyed by the Thread object, whose identity, unlike an ident,
+    is never reused): the transformer's reference to the wrapper is
+    wrapped for the block, and the wrapper itself still counts every
+    launch."""
     from client_tpu_torch.models import transformer as t
 
     real = t.paged_decode_attention
@@ -5176,7 +5314,7 @@ def _k2_by_thread(tally: dict):
     def counted(*args, **kw):
         out = real(*args, **kw)
         with lock:
-            key = threading.get_ident()
+            key = threading.current_thread()
             tally[key] = tally.get(key, 0) + 1
         return out
 
@@ -5244,13 +5382,13 @@ def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
                 errors.append(f"{t}/{i}: {type(e).__name__}: {e}")
             streams[(t, i)] = (toks, len(finals))
 
-    engines = {}   # engine thread ident -> replica, old engines included
+    engines = {}   # engine thread -> replica, old engines included
 
     def note_engines():
         for r in fleet.replicas:
             th = getattr(r.engine, "_thread", None)
             if th is not None:
-                engines[th.ident] = r.idx
+                engines[th] = r.idx
 
     note_engines()
     seen = {id(r.engine): r.engine for r in fleet.replicas}
@@ -5330,10 +5468,10 @@ def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
     if short or len(streams) != FLEET_TENANTS * FLEET_REQS:
         fail(f"{label}: streams short of their budget: {short}")
     by_replica = {}
-    for ident, n in tally.items():
-        if ident not in engines:
+    for th, n in tally.items():
+        if th not in engines:
             fail(f"{label}: K2 launched from a thread of no replica")
-        by_replica[engines[ident]] = by_replica.get(engines[ident], 0) + n
+        by_replica[engines[th]] = by_replica.get(engines[th], 0) + n
     # the drained replica's chunks include its fresh engine's warm chunks
     per = LAYERS * FLEET_CHUNK
     if sum(by_replica.values()) != k2 or any(
@@ -5431,6 +5569,621 @@ def phase_fleet(gen_model: tuple, env: dict) -> dict:
     return result
 
 
+
+# the reference autoscale benchmark's settings (benchmarks/bench_autoscale.py):
+# gold holds objectives it always meets, flood an unmeetable 1 ms TTFT, so
+# the flood burns its own budget (the scale signal) and gold's stays 0
+AUTOSCALE_SLO_CLASSES = [
+    {"name": "gold", "ttft_ms": 60000.0, "itl_ms": 60000.0,
+     "queue_wait_ms": 60000.0},
+    {"name": "flood", "ttft_ms": 1.0},
+]
+AUTOSCALE_WINDOW_S = 3.0
+AUTOSCALE_PREFIX, AUTOSCALE_SUFFIX, AUTOSCALE_REQS = 24, 8, 4
+AUTOSCALE_BANDS = {"min_replicas": 1, "max_replicas": 3,
+                   "burn_high": 1.0, "burn_low": 0.2,
+                   "queue_high": 6, "queue_low": 1,
+                   "hold_rounds": 2, "idle_rounds": 4,
+                   "cooldown_s": 0.25, "warm_tokens": 2, "interval_s": 0}
+AUTOSCALE_PINNED = {"min_replicas": 2, "max_replicas": 2,
+                    "hold_rounds": 10_000, "idle_rounds": 10_000,
+                    "cooldown_s": 0.0, "warm_tokens": 2, "interval_s": 0}
+CANARY_GATES = {"split_pct": 50, "soak_s": 1.5, "min_requests": 4,
+                "burn_abs_max": 1.0, "burn_ratio_max": 1.5,
+                "ttft_p95_ratio_max": 3.0, "mfu_ratio_min": 0.5}
+CANARY_DELAY_S = 0.4
+AUTOSCALE_STEP_S = 0.05
+AUTOSCALE_TIMEOUT_S = 150.0
+# a detached or swapped-out engine must give its memory back: what stays
+# allocated after an arm may exceed the level before by at most this
+# share of one replica's footprint
+AUTOSCALE_MEM_SLACK = 0.25
+
+
+def _quiet_allocated() -> int:
+    """memory_allocated with no engine running, less PyTorch's cuBLAS
+    workspaces: each thread's cuBLAS handle keeps one (32 MiB on the
+    H100) for the life of the process, whatever engine ran on it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return _allocated()
+
+
+def _autoscale_workload(vocab: int, tenants: list, seed: int = 7) -> dict:
+    """The benchmark's build_workload: tenant t's requests share its
+    24-token prefix and differ in the 8-token suffix."""
+    rng = np.random.default_rng(seed)
+    work = {}
+    for t in tenants:
+        prefix = rng.integers(1, vocab, size=AUTOSCALE_PREFIX).astype(
+            np.int32)
+        work[t] = [np.concatenate([prefix, rng.integers(
+            1, vocab, size=AUTOSCALE_SUFFIX).astype(np.int32)])
+            for _ in range(AUTOSCALE_REQS)]
+    return work
+
+
+def _split_tenants(split_pct: int, n_canary: int, n_stable: int) -> tuple:
+    """Tenant names on each side of the router's tenant-hash split
+    (crc32(tenant) % 100 < split_pct routes to the canary)."""
+    import zlib
+
+    canary, stable, i = [], [], 0
+    while len(canary) < n_canary or len(stable) < n_stable:
+        name = f"tenant{i}"
+        i += 1
+        if zlib.crc32(name.encode()) % 100 < split_pct:
+            if len(canary) < n_canary:
+                canary.append(name)
+        elif len(stable) < n_stable:
+            stable.append(name)
+    return canary, stable
+
+
+class _FleetWatch:
+    """Watches one autoscaled fleet through an arm: times every attach,
+    detach and drain (the verbs are wrapped on the fleet object, which the
+    controller calls), maps each engine thread to its replica for the K2
+    tally, keeps each replica's routed count, counts each engine's chunk
+    dispatches inside the window (an engine started inside it adds its two
+    warm chunks), samples the replica count, and after each round that
+    took an engine out (a detach, a drain-swap) requires that engine to be
+    collected and reads memory_allocated."""
+
+    def __init__(self, fleet):
+        self.fleet = fleet
+        self.threads = {}     # engine thread -> replica
+        self.base = {}        # id(engine) -> dispatches at the window start
+        self.live = {}        # id(engine) -> (replica, engine)
+        self.chunks = {}      # replica -> chunk dispatches in the window
+        self.routed = {}      # replica -> streams the router admitted
+        self.ms = {"attach": [], "detach": [], "drain": []}
+        self.after_detach = []
+        self.left = []        # weak references to the engines taken out
+        self.freed = 0
+        self.detached = False
+        self.timeline = []
+        self.t0 = time.time()
+        attach, detach, drain = (fleet.attach_replica, fleet.detach_replica,
+                                 fleet.drain)
+
+        def attach_timed(*args, **kw):
+            t = time.perf_counter()
+            out = attach(*args, **kw)
+            self.ms["attach"].append((time.perf_counter() - t) * 1e3)
+            self.note()
+            return out
+
+        def leaving(verb, real):
+            def call(replica, *args, **kw):
+                self.note()
+                old = next(r.engine for r in fleet.replicas
+                           if r.idx == replica)
+                t = time.perf_counter()
+                out = real(replica, *args, **kw)
+                self.ms[verb].append((time.perf_counter() - t) * 1e3)
+                self.retire(old)
+                self.left.append(weakref.ref(old))
+                del old
+                # read memory once the caller's frame (the controller's
+                # round holds the victim) has let the engine go
+                self.detached |= verb == "detach"
+                self.note()
+                return out
+            return call
+
+        fleet.attach_replica = attach_timed
+        fleet.detach_replica = leaving("detach", detach)
+        fleet.drain = leaving("drain", drain)
+
+    @staticmethod
+    def _dispatches(engine) -> int:
+        return engine.stats()["dispatch_by_kind"]["chunk"]["dispatches"]
+
+    def start(self) -> None:
+        """The window starts: every engine now in the fleet has warmed."""
+        for r in self.fleet.replicas:
+            self.base[id(r.engine)] = self._dispatches(r.engine)
+        self.note()
+
+    def note(self) -> None:
+        for r in self.fleet.replicas:
+            eng = r.engine
+            self.live.setdefault(id(eng), (r.idx, eng))
+            self.base.setdefault(id(eng), -WARM_CHUNKS)
+            self.routed[r.idx] = r.routed
+            th = getattr(eng, "_thread", None)
+            if th is not None:
+                self.threads[th] = r.idx
+        n = len(self.fleet.replicas)
+        if not self.timeline or self.timeline[-1][1] != n:
+            self.timeline.append((round(time.time() - self.t0, 3), n))
+
+    def retire(self, engine) -> None:
+        """Count a leaving engine's dispatches and drop the reference, so
+        its pool can be freed (an engine never started dispatched
+        nothing)."""
+        idx, eng = self.live.pop(id(engine), (None, None))
+        if eng is not None and getattr(eng, "_thread", None) is not None:
+            self.chunks[idx] = (self.chunks.get(idx, 0)
+                                + self._dispatches(eng) - self.base[id(eng)])
+
+    def settle(self) -> None:
+        """After a control round (whose frame held the victim): every
+        engine it took out must be collected, its pool with it; read
+        memory_allocated if it detached a replica."""
+        self.note()
+        if not self.left:
+            return
+        gc.collect()
+        alive = [r() for r in self.left if r() is not None]
+        if alive:
+            fail(f"autoscale: {len(alive)} engine(s) taken out of the fleet "
+                 f"are still referenced: {[e.name for e in alive]}")
+        self.freed += len(self.left)
+        self.left = []
+        if self.detached:
+            self.detached = False
+            self.after_detach.append(_allocated())
+
+    def close(self) -> None:
+        """The arm is over: count the engines still in the fleet and let
+        the fleet go."""
+        self.note()
+        for _idx, eng in list(self.live.values()):
+            self.retire(eng)
+        self.fleet = None
+
+
+def _warm_fleet(model, sample) -> None:
+    """One warm stream per replica outside the window, and the
+    controller's warm prompt pointed at the workload's shape (an attached
+    or canary replica warms on it)."""
+    for rep in model.fleet.replicas:
+        list(rep.engine.submit(sample, 2))
+    model.autoscaler.warm_prompt = sample
+
+
+def _autoscale_model(name: str, cfg, params, replicas: int, autoscale: dict,
+                     canary=None):
+    from client_tpu_torch.models.decoder_lm import make_replica_fleet
+
+    return make_replica_fleet(
+        name, replicas=replicas,
+        fleet={"replicas": replicas, "policy": "affinity",
+               "affinity_block_len": 16},
+        cfg=cfg, params=params, device=LM_DEVICE,
+        slo_classes=AUTOSCALE_SLO_CLASSES, slo_window_s=AUTOSCALE_WINDOW_S,
+        autoscale=autoscale, canary=canary, **FLEET_KNOBS)
+
+
+def _tenant_threads(fleet, work: dict, slo_for, streams: dict, errors: list,
+                    stop=None) -> list:
+    """One thread per tenant, its requests one after another (with
+    ``stop``, resubmitted round and round until it is set); every stream's
+    tokens land in ``streams[(tenant, k)]``."""
+    lock = threading.Lock()
+
+    def worker(tenant, reqs):
+        k = 0
+        while k < len(reqs) or (stop is not None and not stop.is_set()):
+            prompt = reqs[k % len(reqs)]
+            try:
+                toks = list(fleet.submit(prompt, FLEET_BUDGET,
+                                         tenant_id=tenant,
+                                         slo_class=slo_for(tenant)))
+                with lock:
+                    streams[(tenant, k)] = (k % len(reqs), toks)
+            except Exception as e:  # noqa: BLE001 — failed below
+                with lock:
+                    errors.append(f"{tenant}/{k}: {type(e).__name__}: {e}")
+            k += 1
+            if stop is None and k >= len(reqs):
+                break
+
+    return [threading.Thread(target=worker, args=(t, reqs), daemon=True)
+            for t, reqs in work.items()]
+
+
+def _step_rounds(ctl, watch, rounds: list, until, observe=None,
+                 label: str = "") -> None:
+    """Step the controller on this thread until ``until()``: every round's
+    wall ms and its decisions are kept."""
+    t_end = time.time() + AUTOSCALE_TIMEOUT_S
+    while not until():
+        if time.time() > t_end:
+            fail(f"autoscale {label}: the control loop did not converge "
+                 f"within {AUTOSCALE_TIMEOUT_S} s (replicas "
+                 f"{len(watch.fleet.replicas)})")
+        t = time.perf_counter()
+        out = ctl.step()
+        rounds.append(((time.perf_counter() - t) * 1e3,
+                       [d["action"] for d in out]))
+        watch.settle()
+        if observe is not None:
+            observe()
+        time.sleep(AUTOSCALE_STEP_S)
+
+
+def _rounds_summary(rounds: list, ring: list) -> dict:
+    ms = sorted(r[0] for r in rounds)
+    first = ring[0]["ns"] if ring else 0
+    return {"rounds": len(rounds),
+            "round_ms_p50": ms[len(ms) // 2] if ms else None,
+            "round_ms_max": ms[-1] if ms else None,
+            "acting_rounds": [{"ms": r[0], "actions": r[1]}
+                              for r in rounds if r[1]],
+            "ring": [{"at_ms": (d["ns"] - first) / 1e6,
+                      "action": d["action"], "replica": d.get("replica"),
+                      "replicas": d["replicas"]} for d in ring]}
+
+
+def _arm_k2(label: str, watch, tally: dict, k2: int) -> dict:
+    by_replica = {}
+    for th, n in tally.items():
+        if th not in watch.threads:
+            fail(f"{label}: K2 launched from a thread of no replica")
+        r = watch.threads[th]
+        by_replica[r] = by_replica.get(r, 0) + n
+    per = LAYERS * FLEET_CHUNK
+    if sum(by_replica.values()) != k2 or any(
+            by_replica.get(r, 0) != per * watch.chunks.get(r, 0)
+            for r in set(watch.chunks) | set(by_replica)):
+        fail(f"{label}: K2 launches {k2}, by replica {by_replica}, for "
+             f"chunk dispatches {watch.chunks}: expected {per} per dispatch")
+    return by_replica
+
+
+def _arm_streams(label: str, streams: dict, errors: list, work: dict,
+                 routed: dict, by_replica: dict) -> list:
+    """Zero failed streams, every budget full, every replica that served
+    launched K2, and every stream of one prompt the same tokens; returns
+    one greedy stream per prompt for the teacher-forced judge."""
+    if errors:
+        fail(f"{label}: failed streams {errors[:3]}")
+    short = [k for k, (_, toks) in streams.items()
+             if len(toks) != FLEET_BUDGET]
+    if short:
+        fail(f"{label}: streams short of their budget: {short[:5]}")
+    idle = [r for r, n in routed.items() if n and not by_replica.get(r)]
+    if idle:
+        fail(f"{label}: replicas {idle} served without a K2 launch")
+    first, differ = {}, []
+    for (tenant, k), (i, toks) in sorted(streams.items()):
+        key = (tenant, i)
+        if key in first and first[key] != toks:
+            differ.append(f"{tenant}/{k}")
+        first.setdefault(key, toks)
+    if differ:
+        fail(f"{label}: streams of one prompt differ: {differ[:5]}")
+    return [(np.concatenate([work[t][i], np.asarray(toks, np.int32)]),
+             len(work[t][i])) for (t, i), toks in sorted(first.items())]
+
+
+def _autoscale_overload(cfg, params) -> dict:
+    """(a) the overload arm: one replica, 16 flood tenants and 2 gold
+    tenants resubmitting until the fleet holds 3 replicas and the flood's
+    burn crossed 1.0; then idle until it is back at 1."""
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server import trace as trace_mod
+
+    bands = AUTOSCALE_BANDS
+    flood = [f"flood{i}" for i in range(16)]
+    gold = ["gold0", "gold1"]
+    work = _autoscale_workload(cfg.vocab_size, flood + gold)
+    mem_before = _quiet_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = _autoscale_model("autoscale_lm", cfg, params, 1, bands)
+    fleet, ctl = model.fleet, model.autoscaler
+    sample = work["flood0"][0]
+    peak = {"replicas": 1, "gold_burn": 0.0, "flood_burn": 0.0}
+    streams, errors, tally, rounds = {}, [], {}, []
+    stop = threading.Event()
+
+    def observe():
+        reps = fleet.replicas
+        peak["replicas"] = max(peak["replicas"], len(reps))
+        for cls in ("gold", "flood"):
+            b = max((r.engine.slo_stats.class_burn(cls) for r in reps),
+                    default=0.0)
+            peak[f"{cls}_burn"] = max(peak[f"{cls}_burn"], b)
+
+    try:
+        _warm_fleet(model, sample)
+        mem_one = _allocated()
+        watch = _FleetWatch(fleet)
+        threads = _tenant_threads(
+            fleet, work, lambda t: "gold" if t.startswith("gold")
+            else "flood", streams, errors, stop=stop)
+        with _k2_by_thread(tally):
+            # the main path: the K2 counter at 0 just before, read after
+            pa.launches = 0
+            watch.start()
+            t0 = time.time()
+            for th in threads:
+                th.start()
+            _step_rounds(ctl, watch, rounds,
+                         lambda: peak["replicas"] >= bands["max_replicas"]
+                         and peak["flood_burn"] >= bands["burn_high"],
+                         observe, "overload")
+            stop.set()
+            for th in threads:
+                th.join(timeout=300)
+            flood_s = time.time() - t0
+            _step_rounds(ctl, watch, rounds,
+                         lambda: len(fleet.replicas) <= bands["min_replicas"],
+                         observe, "overload idle")
+            wall_s = time.time() - t0
+            k2 = pa.launches
+        snap = model.fleet_snapshot()
+        ctl_snap = ctl.snapshot()
+        routed = {r["replica"]: r["routed"] for r in snap["rows"]}
+        events = snap["lifecycle_events"]
+        watch.close()
+    finally:
+        stop.set()
+        model.shutdown()
+    mem_peak = torch.cuda.max_memory_allocated()
+    del model, fleet, ctl, observe
+    gc.collect()
+    mem_after_raw = _allocated()
+    mem_after = _quiet_allocated()
+    label = "autoscale overload"
+    if any(th.is_alive() for th in threads):
+        fail(f"{label}: tenant threads still running")
+    by_replica = _arm_k2(label, watch, tally, k2)
+    greedy = _arm_streams(label, streams, errors, work, watch.routed,
+                          by_replica)
+    acts = [d["action"] for d in ctl_snap["decisions"]]
+    scale_events = [e["verb"] for e in events
+                    if e["event"] == trace_mod.FLEET_SCALE]
+    per_replica = mem_one - mem_before
+    checks = {
+        "peak_replicas": peak["replicas"], "final_replicas": len(routed),
+        "gold_burn_peak": peak["gold_burn"],
+        "flood_burn_peak": peak["flood_burn"],
+        "scale_ups": ctl_snap["scale_ups"],
+        "scale_downs": ctl_snap["scale_downs"]}
+    if peak["replicas"] != bands["max_replicas"] or len(routed) != 1 \
+            or ctl_snap["scale_ups"] < 2 or ctl_snap["scale_downs"] < 2:
+        fail(f"{label}: expected 1 -> 3 -> 1 replicas: {checks}")
+    if peak["gold_burn"] > 0.05 or peak["flood_burn"] < bands["burn_high"]:
+        fail(f"{label}: the burns read {checks}")
+    if "scale_up" not in acts or "scale_down" not in acts \
+            or "attach_replica" not in scale_events \
+            or "detach_replica" not in scale_events:
+        fail(f"{label}: ring {acts}, FLEET_SCALE events {scale_events}")
+    if watch.freed != ctl_snap["scale_downs"] \
+            or mem_after - mem_before > AUTOSCALE_MEM_SLACK * per_replica:
+        fail(f"{label}: memory not given back: {watch.freed} engines "
+             f"collected for {ctl_snap['scale_downs']} detaches; before "
+             f"{mem_before}, one replica {mem_one}, after each detach "
+             f"{watch.after_detach}, after the arm {mem_after} "
+             f"({mem_after_raw} with the cuBLAS workspaces)")
+    tokens = len(streams) * FLEET_BUDGET
+    return {
+        "run": "autoscale_overload", "bands": bands,
+        "tenants": {"flood": len(flood), "gold": len(gold)},
+        "streams": len(streams), "failed_streams": 0,
+        "flood_s": flood_s, "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+        **checks, "pressure_events": ctl_snap["pressure_events"],
+        "steer_flips": ctl_snap["steer_flips"],
+        "replicas_over_time": watch.timeline,
+        "attach_ms": watch.ms["attach"], "detach_ms": watch.ms["detach"],
+        "unexpected_compiles": [d.get("unexpected_compiles")
+                                for d in ctl_snap["decisions"]
+                                if d["action"] == "scale_down"],
+        **_rounds_summary(rounds, ctl_snap["decisions"]),
+        "memory_allocated": {"before": mem_before, "one_replica": mem_one,
+                             "peak": mem_peak,
+                             "after_each_detach": watch.after_detach,
+                             "after_with_cublas_workspaces": mem_after_raw,
+                             "after": mem_after},
+        "engines_collected": watch.freed,
+        "routed_final": routed, "routed_by_replica": watch.routed,
+        "chunk_dispatches_by_replica": watch.chunks,
+        "paged_decode_attention_launches": k2,
+        "paged_decode_attention_launches_by_replica": by_replica,
+        "greedy_streams": greedy}
+
+
+def _verdict(d: dict) -> dict:
+    keys = ("canary_routed", "reasons", "canary_burn", "stable_burn",
+            "canary_ttft_p95_s", "stable_ttft_p95_s", "canary_mfu",
+            "stable_mfu", "soak_elapsed_s")
+    out = {k: d.get(k) for k in keys}
+    c, s = d.get("canary_ttft_p95_s"), d.get("stable_ttft_p95_s")
+    out["ttft_p95_ratio"] = c / s if c and s else None
+    c, s = d.get("canary_mfu"), d.get("stable_mfu")
+    out["mfu_ratio"] = c / s if c is not None and s else None
+    return out
+
+
+def _autoscale_canary(cfg, params) -> dict:
+    """(b) the canary arm: two replicas pinned, a 50 % tenant split; a
+    kernel_delay on the next replica's engine must roll back, and the same
+    rollout with the fault cleared must promote."""
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server import trace as trace_mod
+    from client_tpu_torch.server.faultinject import get_injector
+
+    canary_tenants, stable_tenants = _split_tenants(
+        CANARY_GATES["split_pct"], 4, 4)
+    work = _autoscale_workload(cfg.vocab_size,
+                               canary_tenants + stable_tenants)
+    mem_before = _quiet_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = _autoscale_model("canary_lm", cfg, params, 2, AUTOSCALE_PINNED,
+                             canary=CANARY_GATES)
+    fleet, ctl = model.fleet, model.autoscaler
+    inj = get_injector()
+    streams, errors, tally, rounds = {}, [], {}, []
+    phases = {}
+    try:
+        _warm_fleet(model, work[canary_tenants[0]][0])
+        mem_two = _allocated()
+        watch = _FleetWatch(fleet)
+        with _k2_by_thread(tally):
+            pa.launches = 0
+            watch.start()
+            t0 = time.time()
+            for phase, version in (("regressed", "v2"), ("clean", "v3")):
+                next_idx = max(r.idx for r in fleet.replicas) + 1
+                if phase == "regressed":
+                    inj.arm([{"point": "kernel_delay",
+                              "delay_s": CANARY_DELAY_S, "times": 0,
+                              "match": {"engine": f"canary_lm/r{next_idx}"}}])
+                p0 = time.time()
+                cidx = ctl.rolling_restart(version)
+                watch.note()
+                if phase == "regressed" and cidx != next_idx:
+                    fail(f"canary: the canary is replica {cidx}, expected "
+                         f"{next_idx}, whose engine the fault names")
+                mine, errs = {}, []
+                threads = _tenant_threads(fleet, work, lambda t: "gold",
+                                          mine, errs)
+                for th in threads:
+                    th.start()
+                _step_rounds(ctl, watch, rounds,
+                             lambda: fleet.canary is None
+                             and not any(th.is_alive() for th in threads),
+                             label=f"canary {phase}")
+                inj.clear()
+                streams.update({(phase, t, k): v
+                                for (t, k), v in mine.items()})
+                errors.extend(errs)
+                gc.collect()
+                ring = ctl.snapshot()["decisions"]
+                verdict = [d for d in ring if d["action"] in (
+                    "canary_rollback", "canary_promote")][-1]
+                phases[phase] = {
+                    "canary_replica": cidx, "verdict": verdict["action"],
+                    **_verdict(verdict), "streams": len(mine),
+                    "wall_s": time.time() - p0,
+                    "tokens_per_s": len(mine) * FLEET_BUDGET
+                    / (time.time() - p0),
+                    "memory_allocated_after": _allocated(),
+                    "fleet_version": fleet.fleet_snapshot()["version"]}
+            wall_s = time.time() - t0
+            k2 = pa.launches
+        snap = model.fleet_snapshot()
+        ctl_snap = ctl.snapshot()
+        routed = {r["replica"]: r["routed"] for r in snap["rows"]}
+        watch.close()
+    finally:
+        inj.clear()
+        model.shutdown()
+    mem_peak = torch.cuda.max_memory_allocated()
+    del model, fleet, ctl
+    gc.collect()
+    mem_after_raw = _allocated()
+    mem_after = _quiet_allocated()
+    label = "autoscale canary"
+    by_replica = _arm_k2(label, watch, tally, k2)
+    flat = {(f"{p}:{t}", k): v for (p, t, k), v in streams.items()}
+    flat_work = {f"{p}:{t}": work[t] for p in phases for t in work}
+    greedy = _arm_streams(label, flat, errors, flat_work, watch.routed,
+                          by_replica)
+    acts = [d["action"] for d in ctl_snap["decisions"]]
+    kinds = [e["event"] for e in snap["lifecycle_events"]]
+    if phases["regressed"]["verdict"] != "canary_rollback" \
+            or phases["regressed"]["fleet_version"] == "v2":
+        fail(f"{label}: the regressed canary was not rolled back: "
+             f"{phases['regressed']}")
+    if phases["clean"]["verdict"] != "canary_promote" \
+            or snap["version"] != "v3" \
+            or any(r["version"] != "v3" for r in snap["rows"]):
+        fail(f"{label}: the clean canary was not promoted: "
+             f"{phases['clean']}, rows {snap['rows']}")
+    if "canary_rollback" not in acts or "canary_promote" not in acts \
+            or trace_mod.CANARY_ROLLBACK not in kinds \
+            or trace_mod.CANARY_PROMOTE not in kinds:
+        fail(f"{label}: ring {acts}, lifecycle {kinds}")
+    per_replica = (mem_two - mem_before) / 2
+    after_rollback = phases["regressed"]["memory_allocated_after"]
+    # the rollback detached the canary, the promote swapped out both
+    # stable engines
+    if watch.freed != 3 \
+            or mem_after - mem_before > AUTOSCALE_MEM_SLACK * per_replica:
+        fail(f"{label}: memory not given back: {watch.freed} engines "
+             f"collected of 3 taken out; before {mem_before}, two replicas "
+             f"{mem_two}, after the rollback {after_rollback}, after the "
+             f"arm {mem_after} ({mem_after_raw} with the cuBLAS "
+             f"workspaces)")
+    return {
+        "run": "autoscale_canary", "bands": AUTOSCALE_PINNED,
+        "gates": CANARY_GATES, "injected_delay_s": CANARY_DELAY_S,
+        "tenants": {"canary_side": canary_tenants,
+                    "stable_side": stable_tenants},
+        "phases": phases, "streams": len(streams), "failed_streams": 0,
+        "wall_s": wall_s,
+        "tokens_per_s": len(streams) * FLEET_BUDGET / wall_s,
+        "replicas_over_time": watch.timeline,
+        "attach_ms": watch.ms["attach"], "detach_ms": watch.ms["detach"],
+        "drain_ms": watch.ms["drain"],
+        **_rounds_summary(rounds, ctl_snap["decisions"]),
+        "memory_allocated": {"before": mem_before, "two_replicas": mem_two,
+                             "peak": mem_peak,
+                             "after_rollback": after_rollback,
+                             "after_each_detach": watch.after_detach,
+                             "after_with_cublas_workspaces": mem_after_raw,
+                             "after": mem_after},
+        "engines_collected": watch.freed,
+        "routed_final": routed, "routed_by_replica": watch.routed,
+        "chunk_dispatches_by_replica": watch.chunks,
+        "paged_decode_attention_launches": k2,
+        "paged_decode_attention_launches_by_replica": by_replica,
+        "greedy_streams": greedy}
+
+
+def phase_autoscale(gen_model: tuple, env: dict) -> dict:
+    """The fleet autoscaler and the canary judge (ROADMAP 7b's remainder):
+    bench.py's generation model at full width, paged with K2, replicas
+    sharing the one card, at the reference autoscale benchmark's
+    settings."""
+    import dataclasses
+
+    cfg, params, _ = gen_model
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    t0 = time.time()
+    arms = [_autoscale_overload(cfg, params),
+            _autoscale_canary(cfg, params)]
+    t1 = time.time()
+    _judge_greedy(cfg, params, arms)
+    result = {"phase": "autoscale", "card": env["nvidia_smi"],
+              "workload": {"prefix": AUTOSCALE_PREFIX,
+                           "suffix": AUTOSCALE_SUFFIX,
+                           "requests_per_tenant": AUTOSCALE_REQS,
+                           "budget": FLEET_BUDGET,
+                           "slo_classes": AUTOSCALE_SLO_CLASSES,
+                           "slo_window_s": AUTOSCALE_WINDOW_S},
+              "runs": arms,
+              "seconds": {"serve": t1 - t0, "judge": time.time() - t1}}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -5470,6 +6223,7 @@ def main() -> int:
     timed("models", phase_models, env)
     timed("generators", phase_generators, env)
     fleet = timed("fleet", phase_fleet, gen_model, env)
+    autoscale = timed("autoscale", phase_autoscale, gen_model, env)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -5530,6 +6284,9 @@ def main() -> int:
             goodput_window=goodput["window"][
                 "paged_decode_attention_launches"],
             **{f"fleet_{r['run']}_r{rep}": n for r in fleet["runs"]
+               for rep, n in sorted(r[
+                   "paged_decode_attention_launches_by_replica"].items())},
+            **{f"{r['run']}_r{rep}": n for r in autoscale["runs"]
                for rep, n in sorted(r[
                    "paged_decode_attention_launches_by_replica"].items())}),
     ]})

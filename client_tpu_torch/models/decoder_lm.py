@@ -44,6 +44,11 @@ from client_tpu_torch.server.config import (
     TensorSpec,
     config_from_dict,
 )
+from client_tpu_torch.server.autoscale import (
+    FleetController,
+    resolve_autoscale,
+    resolve_canary,
+)
 from client_tpu_torch.server.fleet import ReplicaFleet, resolve_fleet
 from client_tpu_torch.server.generation import (
     ContinuousBatchingEngine,
@@ -515,15 +520,26 @@ class FleetModel(PyModel):
     ``fleet_snapshot`` (the ``client_tpu_fleet_*`` families and ``GET
     /v2/debug/fleet``). Readiness holds while any replica is healthy.
     ``unload`` stages a fresh engine on every replica and colds the
-    affinity sketch; ``shutdown`` stops every replica for good;
+    affinity sketch; ``shutdown`` stops the autoscaler and then every
+    replica for good;
     ``warmup`` drives one short stream through each replica outside the
     router."""
 
     def __init__(self, config: ModelConfig, stream_fn, fleet: ReplicaFleet,
-                 incidents: Optional[IncidentStore]):
+                 incidents: Optional[IncidentStore],
+                 autoscaler: Optional[FleetController] = None):
         super().__init__(config, fn=None, stream_fn=stream_fn)
         self.fleet = fleet
         self._incidents = incidents
+        # the fleet's controller (``server/autoscale.py``), None without
+        # ``autoscale``: ``step()`` runs a round by hand and
+        # ``rolling_restart(version)`` opens a judged canary rollout
+        self.autoscaler = autoscaler
+
+    def autoscale_snapshot(self) -> Optional[dict]:
+        """The controller's state (None without ``autoscale``)."""
+        return (self.autoscaler.snapshot()
+                if self.autoscaler is not None else None)
 
     def warmup(self) -> None:
         for rep in self.fleet.replicas:
@@ -533,6 +549,9 @@ class FleetModel(PyModel):
         self.fleet.replace_all()
 
     def shutdown(self) -> None:
+        # the control loop first: no actuation on a stopping fleet
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
         self.fleet.shutdown()
 
     def runtime_stats(self) -> dict:
@@ -545,7 +564,12 @@ class FleetModel(PyModel):
         return self.fleet.healthy()
 
     def fleet_snapshot(self) -> dict:
-        return self.fleet.fleet_snapshot()
+        """The fleet's routing state, with the controller's ``autoscale``
+        block when it runs."""
+        snap = self.fleet.fleet_snapshot()
+        if self.autoscaler is not None:
+            snap["autoscale"] = self.autoscaler.snapshot()
+        return snap
 
     def runtime_observability(self) -> dict:
         return self.fleet.runtime_snapshot()
@@ -632,9 +656,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               autoscale=None, canary=None,
                               device=None, **unknown) -> PyModel:
     """Continuously batched decoupled generation (the reference's
-    ``make_continuous_generator``, knob for knob; ``mesh``, ``autoscale``
-    and ``canary`` raise ``NotImplementedError`` naming their ROADMAP
-    item, and an unknown knob ``TypeError``).
+    ``make_continuous_generator``, knob for knob; ``mesh`` raises
+    ``NotImplementedError`` naming its ROADMAP item, and an unknown knob
+    ``TypeError``).
 
     ``cfg`` defaults to the reference's small decode config; ``params``
     default to random weights from ``seed``, drawn on ``device`` (CUDA by
@@ -682,9 +706,14 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     supervisor, every submit routed by prefix affinity, load and health,
     and every stream pinned to its replica; the model exposes the live
     fleet at ``model.fleet``. ``replica_devices`` pins each replica to a
-    device subset (one entry per replica). ``mesh`` and the fleet's
-    ``autoscale`` and ``canary`` controllers raise ``NotImplementedError``
-    naming ROADMAP 7b's remainder."""
+    device subset (one entry per replica). ``autoscale`` (an
+    ``AutoscaleConfig``, its dict form or True; it needs a fleet whose
+    replica count lies within its bounds) puts the fleet under a
+    ``server/autoscale.FleetController`` at ``model.autoscaler``, and
+    ``canary`` (a ``CanaryConfig``, its dict form or True; it needs
+    ``autoscale``) makes its ``rolling_restart`` a judged canary rollout.
+    ``mesh``, and ``engine_devices`` over more than one device, raise
+    ``NotImplementedError`` naming ROADMAP item 9 (A15)."""
     reject_unknown_knobs(unknown)
     cfg = cfg or decode_config()
     eff_fleet = resolve_fleet(fleet)
@@ -706,12 +735,29 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                 f"subset per replica)")
         for devices in replica_devices:
             ContinuousBatchingEngine.resolve_engine_devices(devices)
-    for knob, value in (("autoscale", autoscale), ("canary", canary)):
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"generator knob '{knob}' is not ported yet: ROADMAP "
-                f"7b (A12), its remainder (the fleet autoscaler and the "
-                f"canary judge, server/autoscale.py)")
+    # the controller's knobs by their own rules
+    eff_autoscale = resolve_autoscale(autoscale)
+    eff_canary = resolve_canary(canary)
+    if eff_autoscale is not None and eff_fleet is None:
+        raise ValueError(
+            "autoscale requires a fleet (the controller actuates the "
+            "fleet's attach/drain verbs) — pass fleet=N or a "
+            "FleetConfig")
+    if eff_canary is not None and eff_autoscale is None:
+        raise ValueError(
+            "canary requires autoscale (the FleetController owns the "
+            "canary judge) — pass autoscale=True or an "
+            "AutoscaleConfig; pin min_replicas == max_replicas == "
+            "fleet.replicas if you want judged rollouts without "
+            "capacity scaling")
+    if eff_autoscale is not None and not (
+            eff_autoscale.min_replicas <= eff_fleet.replicas
+            <= eff_autoscale.max_replicas):
+        raise ValueError(
+            f"fleet.replicas={eff_fleet.replicas} must start inside "
+            f"the autoscale bounds [{eff_autoscale.min_replicas}, "
+            f"{eff_autoscale.max_replicas}] — the controller only "
+            f"scales within them")
     pinned = ContinuousBatchingEngine.resolve_engine_devices(engine_devices,
                                                              mesh)
     # an indexed device: a supervised rebuild runs on another thread, whose
@@ -892,12 +938,24 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
         supervision=sup_cfg,
         scheduler=eff_sched,
         fleet=eff_fleet,
+        autoscale=eff_autoscale,
+        canary=eff_canary,
         slo_classes=slo_cfgs,
     )
     if eff_fleet is not None:
-        model = FleetModel(config, stream_fn, ReplicaFleet(
+        fleet_obj = ReplicaFleet(
             fresh_engine, eff_fleet, supervision=policy, name=name,
-            version_factory=lambda i, v: fresh_engine(i)), incidents)
+            version_factory=lambda i, v: fresh_engine(i))
+        ctl = None
+        if eff_autoscale is not None:
+            # an attached or canary replica warms on a short stream
+            # before the router sees it; interval_s 0 leaves step() to
+            # the caller, > 0 starts the control thread now
+            ctl = FleetController(fleet_obj, eff_autoscale,
+                                  canary=eff_canary,
+                                  warm_prompt=np.zeros(4, dtype=np.int32))
+            ctl.start()
+        model = FleetModel(config, stream_fn, fleet_obj, incidents, ctl)
     else:
         model = ContinuousModel(config, stream_fn, fresh_engine, policy)
     return model

@@ -91,10 +91,11 @@ def init_params(seed: int = 0, num_classes: int = 1000,
     return params
 
 
-def params_from_jax(tree, device="cpu", dtype: torch.dtype = None):
+def params_from_jax(tree, device, dtype: torch.dtype = None):
     """The reference's ResNet tree (numpy or jax arrays) as the port's:
     4-d kernels HWIO -> OIHW, every other leaf as it is; each leaf in
-    ``dtype`` (default: its own, bf16 kept) on ``device``."""
+    ``dtype`` (default: its own, bf16 kept) on ``device``, which the
+    caller names (``transformer.params_from_jax``'s rule)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

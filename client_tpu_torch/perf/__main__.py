@@ -9,13 +9,18 @@ Usage examples:
         --shared-memory cuda --concurrency-range 8
     python -m client_tpu_torch.perf -m add_sub --request-rate-range \
         100:500:100 --request-distribution poisson --shared-memory system
+    python -m client_tpu_torch.perf -m densenet --service-kind torchserve \
+        -u localhost:8080 --input-data upload.json
 
-``--service-kind`` is ``cuda_serve`` (a network client, the default) or
+``--service-kind`` is ``cuda_serve`` (a network client, the default),
 ``cuda_direct`` (an in-process server, given as ``main(server=...)`` or
-built from ``--model-repository`` with every entry loaded);
-``--shared-memory cuda`` puts the regions on the card (``--device cpu``
-asks for the CPU). The foreign services (``tfserve``, ``torchserve``)
-are not ported yet: they name their ROADMAP item.
+built from ``--model-repository`` with every entry loaded), ``tfserve``
+(TF-Serving's ``Predict`` over gRPC, signature
+``--model-signature-name``) or ``torchserve`` (TorchServe's multipart
+upload; ``--input-data`` JSON names the file to upload as
+``TORCHSERVE_INPUT``). ``--shared-memory cuda`` puts the regions on the
+card (``--device cpu`` asks for the CPU); the foreign services take no
+shared memory, no streaming and no ``-H``.
 """
 
 from __future__ import annotations
@@ -48,8 +53,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                             "torchserve"],
                    default="cuda_serve",
                    help="cuda_serve = network client; cuda_direct = "
-                        "in-process server, no RPC; tfserve / "
-                        "torchserve = foreign services (not ported yet)")
+                        "in-process server, no RPC; tfserve = "
+                        "TF-Serving Predict over gRPC; torchserve = "
+                        "TorchServe HTTP")
+    p.add_argument("--model-signature-name", default="serving_default",
+                   help="TF-Serving signature name (--service-kind "
+                        "tfserve)")
     p.add_argument("--model-repository", default=None,
                    help="model repository for --service-kind=cuda_direct")
     p.add_argument("--retries", type=int, default=0,
@@ -173,7 +182,7 @@ def main(argv=None, server=None) -> int:
     args = build_arg_parser().parse_args(argv)
 
     from client_tpu_torch.perf.client_backend import (
-        UNPORTED_KIND, BackendKind, ClientBackendFactory)
+        BackendKind, ClientBackendFactory)
     from client_tpu_torch.perf.concurrency_manager import ConcurrencyManager
     from client_tpu_torch.perf.data_loader import DataLoader
     from client_tpu_torch.perf.inference_profiler import InferenceProfiler
@@ -192,14 +201,23 @@ def main(argv=None, server=None) -> int:
         print("error: --service-kind cuda_direct requires "
               "--model-repository", file=sys.stderr)
         return 2
-    if args.service_kind in ("tfserve", "torchserve"):
-        print(f"error: --service-kind {args.service_kind}: "
-              + UNPORTED_KIND.format(kind=args.service_kind),
+    if args.service_kind in ("tfserve", "torchserve") \
+            and args.shared_memory != "none":
+        print(f"error: --shared-memory is not supported by "
+              f"--service-kind {args.service_kind} (ref parity)",
               file=sys.stderr)
+        return 2
+    if args.service_kind in ("tfserve", "torchserve") and args.streaming:
+        print(f"error: --streaming is not supported by "
+              f"--service-kind {args.service_kind}", file=sys.stderr)
         return 2
 
     if args.service_kind == "cuda_direct":
         kind = BackendKind.INPROCESS
+    elif args.service_kind == "tfserve":
+        kind = BackendKind.TFSERVE
+    elif args.service_kind == "torchserve":
+        kind = BackendKind.TORCHSERVE
     else:
         kind = BackendKind(args.protocol)
     headers = {}
@@ -216,7 +234,8 @@ def main(argv=None, server=None) -> int:
                   file=sys.stderr)
             return 2
         headers[name.strip()] = value.strip()
-    if headers and args.service_kind == "cuda_direct":
+    if headers and args.service_kind in ("tfserve", "torchserve",
+                                         "cuda_direct"):
         print(f"error: -H is not supported by --service-kind "
               f"{args.service_kind}", file=sys.stderr)
         return 2
@@ -238,13 +257,26 @@ def main(argv=None, server=None) -> int:
         server = owned_server = repository_server(args.model_repository)
     factory = ClientBackendFactory(
         kind, url=args.url, verbose=args.verbose, server=server,
+        signature_name=args.model_signature_name,
         headers=headers or None,
         retry_policy=retry_policy)
     backend = factory.create()
 
     parser = ModelParser()
-    parser.init(backend, args.model_name, args.model_version,
-                args.batch_size)
+    if kind == BackendKind.TFSERVE:
+        parser.init_tfserve(backend, args.model_name, args.model_version,
+                            args.model_signature_name, args.batch_size)
+    elif kind == BackendKind.TORCHSERVE:
+        if args.input_data in ("random", "zero"):
+            print("error: --service-kind torchserve requires --input-data "
+                  "JSON naming the upload file path "
+                  "(input TORCHSERVE_INPUT)", file=sys.stderr)
+            return 2
+        parser.init_torchserve(args.model_name, args.model_version,
+                               args.batch_size)
+    else:
+        parser.init(backend, args.model_name, args.model_version,
+                    args.batch_size)
     # --shape overrides for dynamic dims
     for spec in args.shape:
         name, _, dims = spec.partition(":")

@@ -8,15 +8,15 @@ protocol plugs in underneath:
   (``client_tpu_torch.client``) over the network; ``grpc`` needs grpcio.
 - ``inprocess``: drives a ``TorchInferenceServer`` object directly — the
   no-RPC measurement path ``bench.py``'s headline point runs on.
-
-The foreign kinds (``tfserve``, ``torchserve``) raise
-``NotImplementedError``: their backends (the reference's
-``perf/foreign/``) are still queued with the rest of ROADMAP A5.
+- ``tfserve`` / ``torchserve``: foreign services (``perf/foreign/``),
+  TF-Serving's ``Predict`` over gRPC (needs grpcio and protobuf) and
+  TorchServe's multipart upload over HTTP (the standard library only).
 """
 
 from __future__ import annotations
 
 import enum
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -27,11 +27,6 @@ from client_tpu_torch.server.types import (
     RequestedOutput,
 )
 from client_tpu_torch.utils import InferenceServerException
-
-UNPORTED_KIND = ("the {kind} backend is a foreign service's (the "
-                 "reference's perf/foreign/), which is not ported yet "
-                 "(ROADMAP A5, foreign backends)")
-
 
 class BackendKind(enum.Enum):
     HTTP = "http"
@@ -85,11 +80,19 @@ class ClientInferStat:
         # (kept separate from rejects)
         self.retried_request_count = 0
 
+    def copy(self) -> "ClientInferStat":
+        c = ClientInferStat()
+        c.__dict__.update(self.__dict__)
+        return c
+
 
 class ClientBackend:
     """Virtual interface (subset-by-default: unsupported verbs raise)."""
 
     kind: BackendKind
+    # the backend's own count of successful inferences, kept by the
+    # foreign backends (``_init_stat``); the load manager counts for all
+    _stat: Optional["ClientInferStat"] = None
 
     def server_extensions(self) -> list:
         raise NotImplementedError
@@ -153,6 +156,22 @@ class ClientBackend:
     def close(self) -> None:
         pass
 
+    def client_infer_stat(self) -> "ClientInferStat":
+        """A copy of the backend's own count (empty where it keeps
+        none)."""
+        if self._stat is None:
+            return ClientInferStat()
+        with self._stat_lock:
+            return self._stat.copy()
+
+    def _record(self, start_ns: int, end_ns: int) -> None:
+        with self._stat_lock:
+            self._stat.completed_request_count += 1
+            self._stat.cumulative_total_request_time_ns += end_ns - start_ns
+
+    def _init_stat(self) -> None:
+        self._stat = ClientInferStat()
+        self._stat_lock = threading.Lock()
 
 
 def _infer_kwargs(options: dict) -> dict:
@@ -504,6 +523,7 @@ class ClientBackendFactory:
                  verbose: bool = False, server=None,
                  compression: Optional[str] = None,
                  http_concurrency: int = 8,
+                 signature_name: str = "serving_default",
                  headers: Optional[dict] = None,
                  retry_policy=None):
         self.kind = kind
@@ -512,6 +532,7 @@ class ClientBackendFactory:
         self._server = server
         self._compression = compression
         self._http_concurrency = http_concurrency
+        self._signature_name = signature_name
         self._headers = headers
         # ONE shared policy instance across every worker backend: its
         # thread-safe counters aggregate harness-wide, so the load
@@ -535,7 +556,13 @@ class ClientBackendFactory:
                     "(server=; repository_server builds one from a model "
                     "repository)")
             return InProcessBackend(self._server)
-        if self.kind in (BackendKind.TFSERVE, BackendKind.TORCHSERVE):
-            raise NotImplementedError(UNPORTED_KIND.format(
-                kind=self.kind.value))
+        if self.kind == BackendKind.TFSERVE:
+            from client_tpu_torch.perf.foreign import TfServeBackend
+
+            return TfServeBackend(self._url, self._verbose,
+                                  signature_name=self._signature_name)
+        if self.kind == BackendKind.TORCHSERVE:
+            from client_tpu_torch.perf.foreign import TorchServeBackend
+
+            return TorchServeBackend(self._url, self._verbose)
         raise ValueError(f"unknown backend kind {self.kind}")

@@ -4,8 +4,9 @@ needs: the port's copy of ``client_tpu/perf/model_parser.py``.
 Scheduler-type detection (with the recursive ensemble walk),
 max_batch_size, the decoupled policy, the response cache, read through
 any backend (in process, HTTP, or gRPC, whose backend unwraps the
-config response). The TF-Serving and TorchServe initialisers wait for
-the port's foreign backends (ROADMAP A5, the foreign backends).
+config response); ``init_tfserve`` reads a TF-Serving signature through
+``perf/foreign/tfserve.py``, and ``init_torchserve`` sets TorchServe's one
+upload input (the service has no model metadata).
 """
 
 from __future__ import annotations
@@ -98,6 +99,72 @@ class ModelParser:
             self.scheduler_type = SchedulerType.DYNAMIC
         else:
             self.scheduler_type = SchedulerType.NONE
+
+    # -- foreign services --
+
+    _TFS_DTYPES = {
+        "DT_FLOAT": "FP32", "DT_DOUBLE": "FP64", "DT_INT32": "INT32",
+        "DT_INT64": "INT64", "DT_INT16": "INT16", "DT_INT8": "INT8",
+        "DT_UINT8": "UINT8", "DT_UINT32": "UINT32", "DT_UINT64": "UINT64",
+        "DT_BOOL": "BOOL", "DT_STRING": "BYTES", "DT_HALF": "FP16",
+        "DT_BFLOAT16": "BF16",
+    }
+
+    def init_tfserve(self, backend, model_name: str, model_version: str = "",
+                     signature_name: str = "serving_default",
+                     batch_size: int = 1) -> None:
+        """TF-Serving: inputs/outputs from GetModelMetadata's signature_def;
+        the user-supplied batch size is trusted as the max (the service
+        errors if unsupported)."""
+        self.model_name = model_name
+        self.model_version = model_version
+        self.scheduler_type = SchedulerType.NONE
+        self.max_batch_size = batch_size if batch_size > 1 else 0
+        metadata = backend.model_metadata(model_name, model_version)
+        sigs = (metadata.get("metadata", {}).get("signature_def", {})
+                .get("signature_def", {}))
+        if signature_name not in sigs:
+            raise ValueError(
+                f"signature_name '{signature_name}' not found in TF-Serving "
+                f"metadata (have: {sorted(sigs)})")
+        sig = sigs[signature_name]
+        for section, table in (("inputs", self.inputs),
+                               ("outputs", self.outputs)):
+            for name, info in sig.get(section, {}).items():
+                dtype = self._TFS_DTYPES.get(info.get("dtype", ""), "")
+                if not dtype:
+                    raise ValueError(
+                        f"unsupported TF-Serving dtype "
+                        f"{info.get('dtype')} for tensor '{name}'")
+                shape = info.get("tensor_shape", {})
+                if shape.get("unknown_rank"):
+                    if self.max_batch_size:
+                        raise ValueError(
+                            "batching requires a known rank in the "
+                            "signature (parity: ref model_parser.cc:255)")
+                    dims = []
+                else:
+                    dims = [int(d["size"]) for d in shape.get("dim", [])]
+                    if self.max_batch_size and dims:
+                        dims = dims[1:]  # leading dim carries the batch
+                table[name] = TensorInfo(name, dtype, dims)
+
+    def init_torchserve(self, model_name: str, model_version: str = "",
+                        batch_size: int = 1) -> None:
+        """TorchServe returns no model metadata; the single input holds the
+        upload file path."""
+        if batch_size > 1:
+            # one file -> one server-side inference; a stacked batch would
+            # inflate reported throughput by batch_size
+            raise ValueError(
+                "torchserve supports batch size 1 only (one file upload "
+                "per request)")
+        self.model_name = model_name
+        self.model_version = model_version
+        self.scheduler_type = SchedulerType.NONE
+        self.max_batch_size = 0
+        self.inputs["TORCHSERVE_INPUT"] = TensorInfo(
+            "TORCHSERVE_INPUT", "BYTES", [1])
 
     def _ensemble_walk(self, config: dict, backend) -> bool:
         """Recursively collect composing models; returns True if any

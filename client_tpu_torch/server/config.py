@@ -5,12 +5,13 @@ generator, a stateful sequence model and an ensemble use.
 
 The generator's ``generation_engine``, ``prefix_cache``,
 ``speculative``, ``scheduler`` and ``slo_classes`` blocks carry the
-engine knobs the port runs, and a replica fleet's ``fleet`` block its
-router's; ``response_cache`` turns on the v2 response cache;
-``sequence_batching`` puts a model behind the sequence scheduler and
-``ensemble_steps`` makes it an ensemble of other served models. The
-reference's sharding, autoscale and canary blocks wait for ROADMAP 7b's
-remainder. ``platform`` and ``backend`` read ``"pytorch"`` (the reference's
+engine knobs the port runs, a replica fleet's ``fleet`` block its
+router's and its ``autoscale`` and ``canary`` blocks the policy of its
+controller (``server/autoscale.py``); ``response_cache`` turns on the v2
+response cache; ``sequence_batching`` puts a model behind the sequence
+scheduler and ``ensemble_steps`` makes it an ensemble of other served
+models. The reference's sharding block waits for ROADMAP item 9 (A15),
+which shards one engine over several cards. ``platform`` and ``backend`` read ``"pytorch"`` (the reference's
 generator says ``"python"``).
 """
 
@@ -305,6 +306,69 @@ class FleetConfig:
 
 
 @dataclass
+class AutoscaleConfig:
+    """The fleet autoscaler (``server/autoscale.py``), the outer control
+    loop over a replica fleet. Each ``FleetController.step()`` reads the
+    largest windowed per-class error-budget burn across replicas
+    (``server/slo_stats.py``) and the mean queue depth of the admitting
+    replicas, and walks a ladder: one ``scheduling.EngineController``
+    per replica steers its knobs, a burning replica's preempt threshold
+    drops to ``pressure_preempt_threshold``, ``attach_replica`` runs
+    after ``hold_rounds`` hot rounds in a row (warmed before the router
+    sees it) and ``detach_replica`` after ``idle_rounds`` idle rounds in
+    a row, within ``min_replicas`` and ``max_replicas`` and at least
+    ``cooldown_s`` apart. ``burn_high``/``burn_low`` and
+    ``queue_high``/``queue_low`` are the hysteresis bands (hot above the
+    highs, idle below the lows). ``interval_s`` 0 means no background
+    thread: ``step()`` is called by hand. The reference's block, field
+    for field."""
+
+    enabled: bool = False
+    burn_high: float = 1.0
+    burn_low: float = 0.25
+    queue_high: int = 8
+    queue_low: int = 1
+    min_replicas: int = 1
+    max_replicas: int = 4
+    hold_rounds: int = 3
+    idle_rounds: int = 6
+    cooldown_s: float = 5.0
+    pressure_preempt_threshold: float = 0.5
+    warm_tokens: int = 2
+    interval_s: float = 1.0
+
+    def to_json(self):
+        return asdict(self)
+
+
+@dataclass
+class CanaryConfig:
+    """The canary rollout policy (``server/autoscale.py``): a judged
+    ``rolling_restart`` attaches one canary replica at the new version,
+    routes ``split_pct`` % of tenants to it by tenant hash, and has the
+    ``CanaryJudge`` compare it with the stable set over ``soak_s`` (and
+    at least ``min_requests`` canary streams): burn under
+    ``burn_abs_max`` and within ``burn_ratio_max`` x the stable set's,
+    TTFT p95 within ``ttft_p95_ratio_max`` x, and goodput MFU at least
+    ``mfu_ratio_min`` x where both sides measure one. Inside every gate
+    the stable set drain-swaps onto the new version (promote); a breached
+    gate drains and detaches the canary (rollback). The reference's
+    block, field for field."""
+
+    enabled: bool = False
+    split_pct: int = 10
+    soak_s: float = 5.0
+    min_requests: int = 8
+    burn_ratio_max: float = 1.5
+    burn_abs_max: float = 1.0
+    ttft_p95_ratio_max: float = 2.0
+    mfu_ratio_min: float = 0.5
+
+    def to_json(self):
+        return asdict(self)
+
+
+@dataclass
 class ModelConfig:
     name: str
     platform: str = "pytorch"
@@ -338,6 +402,8 @@ class ModelConfig:
     supervision: Optional[SupervisionConfig] = None
     scheduler: Optional[SchedulerConfig] = None
     fleet: Optional[FleetConfig] = None
+    autoscale: Optional[AutoscaleConfig] = None
+    canary: Optional[CanaryConfig] = None
     slo_classes: tuple = ()   # [SloClassConfig]; advertised objectives
 
     # ---- derived ----
@@ -414,6 +480,10 @@ class ModelConfig:
             j["scheduler"] = self.scheduler.to_json()
         if self.fleet is not None:
             j["fleet"] = self.fleet.to_json()
+        if self.autoscale is not None:
+            j["autoscale"] = self.autoscale.to_json()
+        if self.canary is not None:
+            j["canary"] = self.canary.to_json()
         if self.slo_classes:
             j["slo_classes"] = [c.to_json() for c in self.slo_classes]
         return j

@@ -483,8 +483,9 @@ class TorchInferenceServer:
         """The replica-fleet router state of every model that runs a
         fleet (``fleet_snapshot``): per-replica health, affinity,
         occupancy, routing counters and drain state, with the recent
-        decisions and lifecycle events. Models without a fleet are left
-        out."""
+        decisions and lifecycle events, and the ``autoscale`` block
+        (policy, signals, decision ring, canary judge) where the fleet
+        runs the autoscaler. Models without a fleet are left out."""
         return self._model_snapshots("fleet_snapshot", "fleet")
 
     def debug_incidents(self) -> dict:

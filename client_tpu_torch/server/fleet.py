@@ -28,8 +28,8 @@ Lifecycle verbs: ``drain`` (stop routing to one replica, let its streams
 finish, swap in a fresh engine: zero failed requests), ``rolling_restart``,
 ``attach_replica`` and ``detach_replica``, ``replace_all`` (an unload),
 and the canary verbs ``begin_canary``, ``promote_canary`` and
-``rollback_canary`` (the judge that calls them, ``autoscale.py``, waits
-for ROADMAP 7b's remainder).
+``rollback_canary``. The fleet autoscaler and the canary judge that call
+these verbs are ``server/autoscale.py``.
 
 Observability: ``fleet_snapshot`` feeds the ``client_tpu_fleet_*``
 families (``server/metrics.py``) and ``GET /v2/debug/fleet``;

@@ -159,7 +159,7 @@ pins every tensor of the engine to one device, named by a CUDA index or a
 ``torch.device``; a replica fleet (``server/fleet.py``) builds one engine
 per replica and reads ``load_depth`` to route. A subset of more than one
 device, and ``mesh``, shard one engine over devices: they raise
-``NotImplementedError`` naming ROADMAP 7b's mesh remainder. An unknown
+``NotImplementedError`` naming ROADMAP item 9 (A15). An unknown
 knob raises ``TypeError``; none is silently ignored.
 """
 
@@ -250,7 +250,7 @@ log = logging.getLogger(__name__)
 
 # the ROADMAP item that shards one engine over devices (``mesh``, an
 # ``engine_devices`` subset of more than one device)
-MESH_REMAINDER = "7b (A12), its mesh remainder: sharding one engine over " \
+MESH_REMAINDER = "item 9 (A15), parallelism: sharding one engine over " \
     "devices"
 
 
@@ -1304,7 +1304,7 @@ class ContinuousBatchingEngine:
         device listed twice, an empty subset and a conflict with
         ``mesh`` raise ``ValueError``; ``mesh`` alone and a subset of more
         than one device shard one engine over devices, which raises
-        ``NotImplementedError`` naming ROADMAP 7b's mesh remainder."""
+        ``NotImplementedError`` naming ROADMAP item 9 (A15)."""
         if engine_devices is None:
             if mesh is not None:
                 raise NotImplementedError(

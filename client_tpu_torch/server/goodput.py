@@ -336,8 +336,8 @@ def merge_goodput(snaps: list) -> Optional[dict]:
     """Merge per-replica goodput snapshots: counters and histograms sum,
     shares and rates recompute from the sums. MFU merges as the FLOP-rate
     sum over the summed peak (fleet MFU, not a mean of replica MFUs).
-    The replica fleet (``server/fleet.py``) calls it; the autoscaler waits
-    for ROADMAP 7b's remainder."""
+    The replica fleet (``server/fleet.py``) calls it; the canary judge
+    (``server/autoscale.py``) reads each replica's own MFU."""
     snaps = [s for s in snaps if s]
     if not snaps:
         return None

@@ -33,6 +33,10 @@ that sends both packages the same input (ROADMAP, section C):
   state — restarting (503 with ``Retry-After``), crash-loop breaker
   tripped (503, no hint), unsupervised (503, no hint, the reference's
   text) — where the port had one message for all three.
+- C10: ``models/resnet.params_from_jax`` defaulted to the CPU; like
+  ``transformer.params_from_jax`` it now takes ``device`` with no
+  default, so a caller that names no device gets a ``TypeError`` instead
+  of host tensors.
 """
 
 import json
@@ -596,3 +600,18 @@ def test_a_dead_engine_answers_a_submit_like_the_reference(model, case):
         assert gate == ("ServerError", 503, None,
                         "generation engine is down (engine failure, no "
                         "supervisor); unavailable until an operator reload")
+
+
+def test_c10_resnet_params_from_jax_names_no_default_device():
+    from client_tpu.models import resnet as jr
+    from client_tpu_torch.models import resnet as tr
+
+    tree = jr.init_params(0, 10, jnp.float32)
+    with pytest.raises(TypeError):
+        tr.params_from_jax(tree)
+    with pytest.raises(TypeError):
+        tt.params_from_jax(jt.init_params(jt.TransformerConfig(
+            vocab=16, d_model=8, n_heads=2, n_layers=1, d_ff=16,
+            max_seq=8), jax.random.PRNGKey(0)))
+    carried = tr.params_from_jax(tree, device="cpu")
+    assert carried["fc"]["w"].device.type == "cpu"

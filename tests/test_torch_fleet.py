@@ -143,11 +143,12 @@ def _port_fleet(tiny, name="fleet_lm", replicas=2, **kw):
     (dict(fleet=2, engine_devices=("cpu",),
           replica_devices=[("cpu",), ("cpu",)]), ValueError,
      "mutually exclusive"),
-    (dict(fleet=2, autoscale=True), NotImplementedError, "7b"),
-    (dict(fleet=2, canary={"split_pct": 10}), NotImplementedError, "7b"),
+    (dict(autoscale=True), ValueError, "autoscale requires a fleet"),
+    (dict(fleet=2, canary={"split_pct": 10}), ValueError,
+     "canary requires autoscale"),
     (dict(engine_devices=(), device="cpu"), ValueError,
      "at least one device"),
-    (dict(mesh=object(), device="cpu"), NotImplementedError, "7b"),
+    (dict(mesh=object(), device="cpu"), NotImplementedError, "A15"),
 ])
 def test_generator_fleet_knobs_refuse_loudly(tiny, kw, exc, match):
     _, _, tcfg, tparams = tiny
@@ -178,7 +179,7 @@ def test_replicas_argument_and_fleet_block(tiny):
     ((99,), ValueError, "out of range"),
     (("cpu", "cpu"), ValueError, "twice"),
     ((), ValueError, "at least one device"),
-    (("cpu", "meta"), NotImplementedError, "mesh remainder")])
+    (("cpu", "meta"), NotImplementedError, "A15")])
 def test_engine_devices_refusals(devices, exc, match):
     with pytest.raises(exc, match=match):
         TEngine.resolve_engine_devices(devices)

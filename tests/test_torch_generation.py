@@ -198,7 +198,7 @@ def test_concurrent_submitters_stress(model):
 
 @pytest.mark.parametrize("knob,value,item", [
     ("engine_devices", (torch.device("cpu"), torch.device("cuda", 0)),
-     "A12"), ("mesh", object(), "A12")])
+     "A15"), ("mesh", object(), "A15")])
 def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                                         item):
     _, _, tcfg, tparams = model

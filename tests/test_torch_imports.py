@@ -84,6 +84,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.server.goodput",
                      "client_tpu_torch.server.timeline",
                      "client_tpu_torch.server.fleet",
+                     "client_tpu_torch.server.autoscale",
+                     "client_tpu_torch.perf.foreign",
+                     "client_tpu_torch.perf.foreign.tfs_pb2",
+                     "client_tpu_torch.perf.foreign.tfserve",
+                     "client_tpu_torch.perf.foreign.torchserve",
                      "client_tpu_torch.client",
                      "client_tpu_torch.client.http",
                      "client_tpu_torch.client.grpc",
@@ -111,6 +116,12 @@ from client_tpu_torch.compat import httpclient, cuda_shared_memory, utils
 from client_tpu_torch.perf.client_backend import ClientBackendFactory
 ClientBackendFactory(client_tpu_torch.perf.client_backend.BackendKind.HTTP,
                      url="localhost:1").create().close()
+import client_tpu_torch.perf.foreign
+from client_tpu_torch.perf.foreign import TorchServeBackend
+ClientBackendFactory(
+    client_tpu_torch.perf.client_backend.BackendKind.TORCHSERVE,
+    url="localhost:1").create().close()
+import client_tpu_torch.server.autoscale
 import chip_smoke
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "grpc" or m.startswith("grpc.")
@@ -122,10 +133,11 @@ print(json.dumps(sorted(m for m in sys.modules
 def test_the_card_path_imports_neither_grpc_nor_protobuf():
     """The card's host has no grpcio and no protobuf: only the protocol
     and gRPC modules (the gRPC client, its example and the perf
-    analyzer's GrpcBackend, on use) import them, never the package, the
-    server, the models, the engine, the HTTP client, the compat names, the
-    perf CLI, its HTTP backend, the report, the cudashm HTTP example or
-    chip_smoke.py."""
+    analyzer's GrpcBackend and TF-Serving backend, on use) import them,
+    never the package, the server, the models, the engine, the autoscaler,
+    the HTTP client, the compat names, the perf CLI, its HTTP and
+    TorchServe backends, the foreign package, the report, the cudashm HTTP
+    example or chip_smoke.py."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _GRPC_PROBE.format(repo=REPO)], cwd=REPO,
@@ -139,6 +151,7 @@ _FLEET_PROBE = r"""
 import json, sys
 sys.path.insert(0, {repo!r})
 import client_tpu_torch.server.fleet
+import client_tpu_torch.server.autoscale
 from client_tpu_torch.models.decoder_lm import (
     make_batch_generator, make_generator, make_replica_fleet)
 from client_tpu_torch.models.sampling import sample_loop, sample_step
@@ -151,8 +164,8 @@ print(json.dumps(sorted(
 
 
 def test_the_fleet_and_the_generators_import_no_jax_grpc_or_protobuf():
-    """The fleet router, the generators and their loops import neither
-    JAX, the JAX package, grpc nor protobuf."""
+    """The fleet router, its autoscaler, the generators and their loops
+    import neither JAX, the JAX package, grpc nor protobuf."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _FLEET_PROBE.format(repo=REPO)], cwd=REPO,
@@ -167,7 +180,9 @@ _GRPC_ALLOWED = ("client_tpu_torch.protocol.kserve_pb2",
                  "client_tpu_torch.protocol.grpc_tensors",
                  "client_tpu_torch.server.grpc_server",
                  "client_tpu_torch.client.grpc",
-                 "client_tpu_torch.examples.simple_grpc_cudashm_client")
+                 "client_tpu_torch.examples.simple_grpc_cudashm_client",
+                 "client_tpu_torch.perf.foreign.tfs_pb2",
+                 "client_tpu_torch.perf.foreign.tfserve")
 
 _ALLOW_PROBE = r"""
 import importlib, json, pkgutil, sys

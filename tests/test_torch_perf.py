@@ -561,22 +561,22 @@ def test_streaming_worker_records_the_token_series(servers):
 
 @pytest.mark.parametrize("kind", ["http", "grpc", "tfserve", "torchserve"])
 def test_network_backends_name_their_roadmap_item(kind):
-    """The network kinds build the port's backends (the client library,
-    ROADMAP A17, is ported); the foreign ones still raise, naming the
-    foreign backends of ROADMAP A5."""
+    """Every network kind builds the port's backend: the client library's
+    (ROADMAP A17) and the foreign services' (ROADMAP A5, whose TF-Serving
+    backend needs grpcio); none connects before its first call."""
+    from client_tpu_torch.perf import foreign
+
     factory = tcb.ClientBackendFactory(tcb.BackendKind(kind),
                                        url="localhost:1")
-    if kind in ("http", "grpc"):
-        if kind == "grpc":
-            pytest.importorskip("grpc")
-        backend = factory.create()
-        assert backend.kind == tcb.BackendKind(kind)
-        assert isinstance(backend, {"http": tcb.HttpBackend,
-                                    "grpc": tcb.GrpcBackend}[kind])
-        backend.close()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A5, foreign"):
-        factory.create()
+    if kind in ("grpc", "tfserve"):
+        pytest.importorskip("grpc")
+    backend = factory.create()
+    assert backend.kind in (tcb.BackendKind(kind), kind)
+    assert isinstance(backend, {
+        "http": tcb.HttpBackend, "grpc": tcb.GrpcBackend,
+        "tfserve": foreign.TfServeBackend,
+        "torchserve": foreign.TorchServeBackend}[kind])
+    backend.close()
 
 
 def test_tpu_shared_memory_is_refused_by_name(servers):

@@ -11,7 +11,9 @@ lacked, on the port's server.
   (``cuda_direct``), over HTTP with system and CUDA shared memory (regions
   on the CPU), at a request rate and from an intervals file with a CSV,
   over gRPC; ``-H`` headers on every request on the wire; the flag errors
-  and the foreign kinds' exit 2; ``--retries`` against a shedding model.
+  and the foreign kinds' refusals (their services are driven in
+  ``tests/test_torch_foreign.py``); ``--retries`` against a shedding
+  model.
 - The HTTP and gRPC backends: the gRPC config unwrapping feeds the parser
   what the HTTP config does, in both packages against both servers.
 - The report: the same statistics render the same text and the same CSV
@@ -305,9 +307,15 @@ def test_cli_flag_errors(server, capsys):
     err = capsys.readouterr().err
     assert "-H expects NAME:VALUE" in err and "duplicate -H" in err
     assert "--model-repository" in err
+    # the foreign kinds refuse what their services cannot take, as the
+    # reference's CLI does (tests/test_torch_foreign.py drives them)
     for kind in ("tfserve", "torchserve"):
-        assert main(["-m", "add_sub", "--service-kind", kind]) == 2
-        assert "ROADMAP A5, foreign backends" in capsys.readouterr().err
+        assert main(["-m", "add_sub", "--service-kind", kind,
+                     "--shared-memory", "system"]) == 2
+        assert "--shared-memory is not supported" in \
+            capsys.readouterr().err
+    assert main(["-m", "add_sub", "--service-kind", "torchserve"]) == 2
+    assert "requires --input-data" in capsys.readouterr().err
     # the repository is ported: an empty one serves no add_sub, as in
     # the reference (whose parser reads the unknown model's metadata)
     with pytest.raises(ServerError, match="unknown model 'add_sub'"):

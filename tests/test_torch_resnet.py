@@ -82,7 +82,8 @@ def test_init_params_draw_the_reference_values(dtype):
         if w.ndim == 4:
             w = w.transpose(3, 2, 0, 1)       # HWIO -> OIHW
         np.testing.assert_array_equal(_as_f32(p), w, err_msg=name)
-    carried = dict(_leaves(tr.params_from_jax(jr.init_params(3, 10, jd))))
+    carried = dict(_leaves(tr.params_from_jax(jr.init_params(3, 10, jd),
+                                               device="cpu")))
     for name, p in port.items():
         assert carried[name].dtype == td
         np.testing.assert_array_equal(_as_f32(carried[name]), _as_f32(p))
@@ -117,7 +118,7 @@ def _with_random_affine(tree, rng):
 def test_forward_f32_at_224_matches_the_reference():
     jp = _with_random_affine(jr.init_params(0, 1000, jnp.float32),
                              np.random.default_rng(10))
-    tp = tr.params_from_jax(jp)
+    tp = tr.params_from_jax(jp, device="cpu")
     x = np.random.default_rng(1).standard_normal((2, 224, 224, 3)).astype(
         np.float32)
     want = np.asarray(jax.jit(jr.forward)(jp, x))
@@ -130,7 +131,7 @@ def test_forward_f32_at_224_matches_the_reference():
 def test_forward_bf16_at_64_matches_the_reference():
     jp = _with_random_affine(jr.init_params(0, 1000),
                              np.random.default_rng(11))
-    tp = tr.params_from_jax(jp)
+    tp = tr.params_from_jax(jp, device="cpu")
     x = np.random.default_rng(2).standard_normal((2, 64, 64, 3)).astype(
         np.float32)
     want = np.asarray(jax.jit(jr.forward)(jp, x))

@@ -20,7 +20,8 @@ the CPU.
   metrics tests did not cover): present, capped and resolvable to real
   traces while tracing, absent when it is off, and never rendered outside
   the exemplar registry, past the cap or with a malformed trace id.
-  The fleet cases wait for ROADMAP A12.
+  The reference's routed-fleet timeline case
+  (``TestFleetTimelineExport``) is not held here yet.
 """
 
 import json
