@@ -400,6 +400,28 @@ each printing one JSON line:
              drain, each verdict's burn, TTFT p95 and MFU on both sides,
              memory_allocated before, at its peak and after, and tokens/s
              per arm.
+22. train    training on the card (ROADMAP 9a): (a) TINY (vocab 64, d 32,
+             2 layers, f32, the plain attention) from one set of weights,
+             three AdamW steps at lr 1e-2 on the card and on the CPU: the
+             losses within rtol 1e-4, the parameters within 1e-4 (an
+             element whose first gradient lies in (0, 1e-6), where Adam's
+             step turns on the gradient's last bits, within the most three
+             steps can move it, on under 1 % of a leaf); (b) bench.py's
+             generation model at full width (vocab 30528, d 768, 12
+             layers, 12 heads of 64, d_ff 3072, max_seq 192, bf16, the
+             plain attention), TRAIN_STEPS AdamW steps (lr TRAIN_LR) on
+             one seeded 16 x 193 batch: every loss finite, the last below
+             the first;
+             (c) its Switch-MoE variant with 4 experts, the same and the
+             aux loss > 0; (d) (b) with remat: the losses within 1e-3
+             relative of (b)'s; (e) in a child process through run_ranks,
+             one NCCL rank: make_mesh() over the card, TINY's step with
+             the mesh equal to the step without it within rtol 1e-6, and
+             the dry run's steps 1-3 at one rank. Prints per arm the ms
+             per step between CUDA events, tokens/s, max_memory_allocated,
+             the model FLOPs per step and MFU against the card's bf16
+             peak, with the card's name and power limit; K1 and K2 must
+             not launch.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -6184,6 +6206,244 @@ def phase_autoscale(gen_model: tuple, env: dict) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- train (9a)
+
+TRAIN_STEPS = 5
+TRAIN_BATCH = 16
+# the full-width arms' AdamW learning rate: BERT-base's (Devlin et al.
+# 2019, Adam at 1e-4). At make_train_step's default 1e-3, with no warmup,
+# this model's loss on one batch rises at the fifth step (10.80, 10.18,
+# 9.24, 8.54, 13.67 in bf16; 13.45 in f32, so the dynamics and not bf16)
+# before falling again; 1e-4 falls at every step.
+TRAIN_LR = 1e-4
+TRAIN_TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4,
+                  head_dim=8, d_ff=64, max_seq=32)
+TRAIN_TINY_LR = 1e-2
+# Adam's first step is g / (|g| + 1e-8): an element whose first gradient
+# lies in (0, TRAIN_TINY_GRAD) moves by a step that turns on the
+# gradient's last f32 bits, which the card's and the CPU's summation
+# orders do not share; such elements are held to the most the steps can
+# move them (two learning rates a step) and must stay under 1 % of a leaf
+TRAIN_PARAM_ATOL, TRAIN_TINY_GRAD, TRAIN_TINY_SHARE = 1e-4, 1e-6, 0.01
+TRAIN_REMAT_RTOL = 1e-3
+TRAIN_MESH_RTOL = 1e-6
+TRAIN_MESH_TIMEOUT_S = 300
+# where the train phase runs: the card (a CPU rehearsal sets "cpu")
+TRAIN_DEVICE = "cuda"
+
+
+def _train_tokens(cfg, batch: int, seed: int, device):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq + 1),
+                         generator=gen).to(device)
+
+
+def _tree_np(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()
+
+
+def _param_check(card: dict, cpu: dict, grads: dict, steps: int) -> dict:
+    """(a)'s parameter rule, leaf by leaf: the largest difference where the
+    first gradient is 0 or at least TRAIN_TINY_GRAD (<= TRAIN_PARAM_ATOL)
+    and where it is not (<= 2 lr steps, on under TRAIN_TINY_SHARE)."""
+    worst = {"well": 0.0, "tiny": 0.0, "tiny_share": 0.0}
+
+    def walk(a, b, g, name):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], g[k], f"{name}.{k}")
+            return
+        err = np.abs(a.astype(np.float64) - b.astype(np.float64))
+        mag = np.abs(g)
+        tiny = (mag > 0) & (mag < TRAIN_TINY_GRAD)
+        well = float(err[~tiny].max(initial=0.0))
+        bad = float(err[tiny].max(initial=0.0))
+        share = float(tiny.mean())
+        if well > TRAIN_PARAM_ATOL or bad > 2 * TRAIN_TINY_LR * steps \
+                or share >= TRAIN_TINY_SHARE:
+            fail(f"train (a): {name} differs between the card and the CPU "
+                 f"(well-conditioned {well}, tiny-gradient {bad} on "
+                 f"{share:.4f} of the leaf)")
+        worst["well"] = max(worst["well"], well)
+        worst["tiny"] = max(worst["tiny"], bad)
+        worst["tiny_share"] = max(worst["tiny_share"], share)
+
+    walk(card, cpu, grads, "params")
+    return worst
+
+
+def _train_tiny_card_vs_cpu() -> dict:
+    """(a): three steps of TINY from one set of weights, on the card and on
+    the CPU."""
+    from client_tpu_torch.models import transformer as t
+
+    cfg = t.TransformerConfig(dtype=torch.float32, attn_impl="ref",
+                              **TRAIN_TINY)
+    params = t.init_params(torch.Generator().manual_seed(3), cfg)
+    tokens = _train_tokens(cfg, 4, 4, "cpu")
+    _, first = t.value_and_grad(cfg, params, tokens)
+    out = {}
+    for device in (TRAIN_DEVICE, "cpu"):
+        _, step = t.make_train_step(cfg, learning_rate=TRAIN_TINY_LR)
+        state = t.init_state_from_params(cfg, t._tree_map(
+            lambda p: p.to(device), params))
+        losses = []
+        for _ in range(3):
+            state, metrics = step(state, tokens.to(device))
+            losses.append(metrics["loss"])
+        out[device] = ([float(x) for x in losses], _tree_np(state["params"]))
+    card, cpu = out[TRAIN_DEVICE], out["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    if rel > 1e-4:
+        fail(f"train (a): card losses {card[0]} against the CPU's {cpu[0]}")
+    worst = _param_check(card[1], cpu[1], _tree_np(first), 3)
+    return {"arm": "tiny_card_vs_cpu", "losses_card": card[0],
+            "losses_cpu": cpu[0], "loss_max_rel_err": rel,
+            "param_max_abs_err": worst["well"],
+            "tiny_grad_param_max_abs_err": worst["tiny"],
+            "tiny_grad_share": worst["tiny_share"]}
+
+
+def _train_arm(label: str, cfg, tokens, peak: float) -> dict:
+    """TRAIN_STEPS steps of ``cfg`` from seed-0 weights on ``tokens``: the
+    losses (finite, the last below the first), ms per step between CUDA
+    events, tokens/s, the peak allocation, model FLOPs and MFU."""
+    from client_tpu_torch.models import transformer as t
+
+    init_state, step = t.make_train_step(cfg, learning_rate=TRAIN_LR)
+    gen = torch.Generator(device=TRAIN_DEVICE)
+    gen.manual_seed(0)
+    state = init_state(gen)
+    with torch.no_grad():
+        _, aux = t.forward(cfg, state["params"], tokens[:, :-1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, tokens)
+        end.record()
+        events.append((start, end))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(x) for x in losses]
+    peak_bytes = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train {label}: losses {losses} (finite, falling expected)")
+    b, l = tokens.shape[0], tokens.shape[1] - 1
+    # fwd + bwd (twice the forward) of the model's useful FLOPs: the causal
+    # attention counts its attended positions, remat's recompute is not
+    flops = 3 * b * t.span_flops(cfg, 0, l)
+    steady = float(np.mean(ms[1:]))
+    del state
+    return {"arm": label, "losses": losses, "aux_loss": float(aux),
+            "ms_per_step": ms, "steady_ms_per_step": steady,
+            "tokens_per_s": b * l / (steady / 1e3),
+            "max_memory_allocated": peak_bytes,
+            "model_flops_per_step": flops,
+            "mfu": flops / (steady / 1e3) / peak}
+
+
+def _train_mesh_rank(rank: int, world: int, device: str) -> dict:
+    """(e), in a process of its own started by run_ranks (one NCCL rank):
+    make_mesh() over the card, TINY's step with the mesh against the step
+    without it, three steps each, and the dry run's steps 1-3."""
+    import torch.distributed as dist
+
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.parallel.dryrun import dryrun_steps
+    from client_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device=device)
+    cfg = t.TransformerConfig(dtype=torch.float32, attn_impl="ref",
+                              **TRAIN_TINY)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    params = t.init_params(gen, cfg)
+    tokens = _train_tokens(cfg, 4, 4, device)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        _, step = t.make_train_step(cfg, mesh=m,
+                                    learning_rate=TRAIN_TINY_LR)
+        state = t.init_state_from_params(cfg, params, m)
+        losses = []
+        for _ in range(3):
+            state, metrics = step(state, tokens)
+            losses.append(float(metrics["loss"]))
+        runs[name] = (losses, state["params"])
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        t._tree_leaves(runs["plain"][1]), t._tree_leaves(runs["mesh"][1])))
+    return {"backend": str(dist.get_backend()),
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "device": (torch.cuda.get_device_name(0) if device == "cuda"
+                       else device),
+            "losses": runs["plain"][0], "mesh_losses": runs["mesh"][0],
+            "param_max_abs_diff": diff,
+            "dryrun": dryrun_steps(1, device)}
+
+
+def phase_train(env: dict, peaks: tuple) -> dict:
+    """Training on the card (ROADMAP 9a), arms (a)-(e): see the module
+    docstring."""
+    import dataclasses
+
+    from client_tpu_torch.bench import generation_config
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.parallel.collectives import run_ranks
+
+    peak = peaks[1]
+    fa.launches = pa.launches = 0
+    arms = [_train_tiny_card_vs_cpu()]
+    emit({"phase": "train", **arms[0]})
+    cfg = generation_config()
+    tokens = _train_tokens(cfg, TRAIN_BATCH, 11, TRAIN_DEVICE)
+    dense = _train_arm("dense_bf16", cfg, tokens, peak)
+    moe = _train_arm("moe_bf16", dataclasses.replace(cfg, n_experts=4),
+                     tokens, peak)
+    if not moe["aux_loss"] > 0:
+        fail(f"train moe_bf16: aux loss {moe['aux_loss']} (> 0 expected)")
+    remat = _train_arm("dense_bf16_remat",
+                       dataclasses.replace(cfg, remat=True), tokens, peak)
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(remat["losses"], dense["losses"]))
+    remat["loss_max_rel_err_vs_dense"] = rel
+    if rel > TRAIN_REMAT_RTOL:
+        fail(f"train remat: losses {remat['losses']} against "
+             f"{dense['losses']} (rtol {TRAIN_REMAT_RTOL})")
+    for arm in (dense, moe, remat):
+        emit({"phase": "train", "card": env["nvidia_smi"], **arm})
+        arms.append(arm)
+    backend = "nccl" if TRAIN_DEVICE == "cuda" else "gloo"
+    (mesh,) = run_ranks(_train_mesh_rank, 1, backend, TRAIN_MESH_TIMEOUT_S,
+                        args=(TRAIN_DEVICE,))
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(mesh["mesh_losses"], mesh["losses"]))
+    if mesh["backend"] != backend or rel > TRAIN_MESH_RTOL \
+            or set(mesh["dryrun"]) != {"dp_sp_tp", "dp_ep", "pp"}:
+        fail(f"train (e): {mesh}")
+    mesh.update({"arm": "mesh_one_rank", "loss_max_rel_err": rel})
+    emit({"phase": "train", **mesh})
+    arms.append(mesh)
+    k1, k2 = fa.launches, pa.launches
+    if k1 or k2:
+        fail(f"train: K1 launched {k1} and K2 {k2} times (0 expected)")
+    result = {"phase": "train", "card": env["nvidia_smi"],
+              "flash_attention_launches": k1,
+              "paged_decode_attention_launches": k2,
+              "summary": {a["arm"]: {k: a[k] for k in (
+                  "steady_ms_per_step", "tokens_per_s",
+                  "max_memory_allocated", "mfu") if k in a}
+                  for a in arms}}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -6224,6 +6484,7 @@ def main() -> int:
     timed("generators", phase_generators, env)
     fleet = timed("fleet", phase_fleet, gen_model, env)
     autoscale = timed("autoscale", phase_autoscale, gen_model, env)
+    train = timed("train", phase_train, env, peaks)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -6248,7 +6509,8 @@ def main() -> int:
             observe=observe["encoder"]["flash_attention_launches"],
             supervise_encoder=supervise["runtime"][
                 "flash_attention_launches"],
-            client=client["flash_attention_launches"]),
+            client=client["flash_attention_launches"],
+            train=train["flash_attention_launches"]),
         row("paged_decode_attention",
             "client_tpu_torch/ops/csrc/paged_attention.cu",
             "client_tpu/ops/paged_attention.py:52",
@@ -6288,7 +6550,8 @@ def main() -> int:
                    "paged_decode_attention_launches_by_replica"].items())},
             **{f"{r['run']}_r{rep}": n for r in autoscale["runs"]
                for rep, n in sorted(r[
-                   "paged_decode_attention_launches_by_replica"].items())}),
+                   "paged_decode_attention_launches_by_replica"].items())},
+            train=train["paged_decode_attention_launches"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

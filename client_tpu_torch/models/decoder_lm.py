@@ -713,7 +713,7 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     ``canary`` (a ``CanaryConfig``, its dict form or True; it needs
     ``autoscale``) makes its ``rolling_restart`` a judged canary rollout.
     ``mesh``, and ``engine_devices`` over more than one device, raise
-    ``NotImplementedError`` naming ROADMAP item 9 (A15)."""
+    ``NotImplementedError`` naming ROADMAP item 9b (A15)."""
     reject_unknown_knobs(unknown)
     cfg = cfg or decode_config()
     eff_fleet = resolve_fleet(fleet)

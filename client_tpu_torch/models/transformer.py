@@ -47,8 +47,25 @@ rounded half to even and clipped to +-127) and every read dequantises to
 ``cfg.dtype`` (``_kv_dequantize``) before the einsum attention, whose
 products accumulate in f32. The paged decode kernel reads only
 unquantised pools: under ``kv_quant`` the paged decode step takes the
-dequantising einsum, as the reference's does. MoE, mesh sharding and
-ring attention wait for later slices.
+dequantising einsum, as the reference's does.
+
+Switch-MoE (``n_experts`` > 0: ``router``, ``we1``, ``we2`` in place of
+``w1``/``w2``) runs in the batch forward only; every decode, prefill and
+verify entry raises for it, as the reference's do. ``remat`` recomputes
+each layer in the backward (``torch.utils.checkpoint``).
+
+Training (``loss_fn``, ``value_and_grad``, ``make_train_step`` with a
+functional AdamW matching ``optax.adamw``'s defaults) runs on one device
+or inside a mesh (``parallel/mesh.py``). Under a mesh each rank holds its
+dp×sp block of the tokens and its tp (heads, ff, vocab) and ep (experts)
+block of the parameters (``shard_params``, by ``param_logical_axes`` and
+the mesh's rules), and the forward does by hand what GSPMD inserts for the
+reference: the wo and w2 partials are summed over tp, the embedding is
+looked up vocab-parallel, the positions are offset by the rank's sp block,
+K/V are all-gathered over sp under ``"ref"`` (or go round the ring under
+``"ring"``), the MoE layer is ``ops.moe.moe_ffn_sharded``, and the
+log-softmax is vocab-parallel. The flash kernel has no backward (nor has
+the reference's Pallas kernel), so a train step refuses ``"flash"``.
 
 The analytical FLOP and byte model (``layer_flops_per_token`` through
 ``token_bytes``) is the reference's closed forms, plain integer
@@ -63,13 +80,27 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from client_tpu_torch.device import resolve_device
 from client_tpu_torch.ops.attention import mha_attention
 from client_tpu_torch.ops.flash_attention import flash_attention
+from client_tpu_torch.ops.moe import moe_ffn, moe_ffn_sharded
 from client_tpu_torch.ops.paged_attention import paged_decode_attention
+from client_tpu_torch.ops.ring_attention import ring_attention
+from client_tpu_torch.parallel import collectives as col
+from client_tpu_torch.parallel.mesh import (
+    axis_group,
+    axis_index,
+    axis_size,
+    logical_to_physical,
+)
 
-ATTN_IMPLS = ("flash", "ref")
+# "ring" takes ring attention under a mesh and the plain attention without
+# one, as in the reference; the reference's "auto" rests on a crossover
+# measured on a TPU and is not carried over
+ATTN_IMPLS = ("flash", "ref", "ring")
+DENSE_ONLY = "KV-cache decode supports dense FFN only"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +121,16 @@ class TransformerConfig:
     rope: bool = False
     rope_theta: float = 10000.0
     ffn: str = "gelu"             # gelu | swiglu
-    attn_impl: str = "flash"      # flash | ref
+    attn_impl: str = "flash"      # flash | ref | ring
     kv_quant: bool = False        # int8 KV rows + f32 scales per (pos, head)
+    n_experts: int = 0            # 0 => dense FFN; > 0: Switch-MoE
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    remat: bool = False           # recompute each layer in the backward
+
+    @property
+    def moe(self) -> bool:
+        return self.n_experts > 0
 
     @property
     def kv_heads(self) -> int:
@@ -108,6 +147,9 @@ class TransformerConfig:
                 f"n_kv_heads {self.n_kv_heads}")
         if self.ffn not in ("gelu", "swiglu"):
             raise ValueError(f"unknown ffn '{self.ffn}'")
+        if self.ffn == "swiglu" and self.n_experts > 0:
+            raise ValueError("swiglu is the dense-FFN gate; Switch-MoE "
+                             "experts keep their own gelu FFN")
         if self.rope and self.head_dim % 2:
             raise ValueError("rope needs an even head_dim")
         if self.attn_impl not in ATTN_IMPLS:
@@ -118,18 +160,76 @@ class TransformerConfig:
 # ---------------------------------------------------------------- params
 
 def _layer_shapes(cfg: TransformerConfig) -> dict:
+    """Per-layer weights: name -> (shape, logical axis names)."""
     d, h, dh, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
-    shapes = {"ln1": (d,), "wo": (h, dh, d), "ln2": (d,)}
+    shapes = {
+        "ln1": ((d,), ("model",)),
+        "wo": ((h, dh, d), ("heads", "head_dim", "model")),
+        "ln2": ((d,), ("model",)),
+    }
     if cfg.gqa:
-        shapes["wq"] = (d, h, dh)
-        shapes["wkv"] = (d, 2, cfg.kv_heads, dh)
+        shapes["wq"] = ((d, h, dh), ("model", "heads", "head_dim"))
+        shapes["wkv"] = ((d, 2, cfg.kv_heads, dh),
+                         ("model", None, "heads", "head_dim"))
     else:
-        shapes["wqkv"] = (d, 3, h, dh)
-    if cfg.ffn == "swiglu":
-        shapes["w3"] = (d, f)
-    shapes["w1"] = (d, f)
-    shapes["w2"] = (f, d)
+        shapes["wqkv"] = ((d, 3, h, dh),
+                          ("model", None, "heads", "head_dim"))
+    if cfg.ffn == "swiglu" and not cfg.moe:
+        shapes["w3"] = ((d, f), ("model", "ff"))
+    if cfg.moe:
+        e = cfg.n_experts
+        shapes.update({
+            "router": ((d, e), ("model", None)),
+            "we1": ((e, d, f), ("expert", "model", "ff")),
+            "we2": ((e, f, d), ("expert", "ff", "model")),
+        })
+    else:
+        shapes.update({
+            "w1": ((d, f), ("model", "ff")),
+            "w2": ((f, d), ("ff", "model")),
+        })
     return shapes
+
+
+def param_logical_axes(cfg: TransformerConfig) -> dict:
+    """Logical axis names of every parameter, in ``init_params``' tree."""
+    layers = {k: ("layers",) + ax for k, (_, ax) in _layer_shapes(cfg).items()}
+    out = {
+        "embed": ("vocab", "model"),
+        "layers": layers,
+        "final_norm": ("model",),
+    }
+    if not cfg.rope:
+        out["pos_embed"] = ("seq_kv", "model")
+    return out
+
+
+def param_specs(cfg: TransformerConfig, rules: dict = None) -> dict:
+    """The mesh axis each parameter dim is split over (None: whole), in
+    ``init_params``' tree: the reference's ``PartitionSpec`` entries."""
+    return _tree_map(lambda ax: logical_to_physical(ax, rules),
+                     param_logical_axes(cfg))
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (``rest``: trees of the same
+    structure, passed alongside)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
+    return [tree]
+
+
+def _tree_unflatten(tree, leaves):
+    """Leaves (in ``_tree_leaves`` order) back into ``tree``'s structure."""
+    it = iter(leaves)
+    return _tree_map(lambda _: next(it), tree)
 
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig) -> dict:
@@ -145,12 +245,16 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> dict:
         return (w * fan_in ** -0.5).to(cfg.dtype)
 
     layers = {}
-    for name, shape in _layer_shapes(cfg).items():
+    for name, (shape, _) in _layer_shapes(cfg).items():
         full = (cfg.n_layers,) + shape
         if name.startswith("ln"):
             layers[name] = torch.ones(full, dtype=cfg.dtype, device=device)
+        elif name == "router":
+            layers[name] = dense(full, shape[0])
         else:
-            fan_in = shape[0] * shape[1] if name == "wo" else shape[0]
+            fan_in = shape[0] if name != "wo" else shape[0] * shape[1]
+            if name in ("we1", "we2"):
+                fan_in = shape[1]
             layers[name] = dense(full, fan_in)
     out = {
         "embed": dense((cfg.vocab_size, cfg.d_model), cfg.d_model),
@@ -161,6 +265,48 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> dict:
     if not cfg.rope:  # rope configs carry no learned position table
         out["pos_embed"] = dense((cfg.max_seq, cfg.d_model), cfg.d_model)
     return out
+
+
+def shard_params(cfg: TransformerConfig, params: dict, mesh) -> dict:
+    """This rank's block of every parameter of ``params`` (the whole
+    tree, as ``init_params`` makes it): each dim that ``param_specs``
+    splits over a mesh axis of more than one rank is cut to the rank's
+    contiguous block along it. Raises ``ValueError`` when an axis does
+    not divide its dim."""
+    def shard(x, spec, name):
+        for dim, axis in enumerate(spec):
+            n = axis_size(mesh, axis) if axis else 1
+            if n == 1:
+                continue
+            if x.shape[dim] % n:
+                raise ValueError(f"{name}: dim {dim} of size {x.shape[dim]} "
+                                 f"does not split over {axis}={n}")
+            w = x.shape[dim] // n
+            x = x.narrow(dim, axis_index(mesh, axis) * w, w)
+        return x.contiguous()
+
+    def walk(tree, specs, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, specs[k], f"{path}{k}.")
+                    for k, v in tree.items()}
+        return shard(tree, specs, path.rstrip("."))
+
+    return walk(params, param_specs(cfg), "")
+
+
+def unshard_params(cfg: TransformerConfig, shard: dict, mesh) -> dict:
+    """The whole parameters from every rank's block (``shard_params``'
+    inverse): all-gathers each split dim over its axis, on every rank.
+    No gradient."""
+    specs = param_specs(cfg)
+
+    def gather(x, spec):
+        for dim, axis in enumerate(spec):
+            if axis and axis_size(mesh, axis) > 1:
+                x = col.all_gather(x.detach(), axis_group(mesh, axis), dim)
+        return x
+
+    return _tree_map(gather, shard, specs)
 
 
 def params_from_jax(tree: dict, device, dtype: torch.dtype) -> dict:
@@ -184,17 +330,20 @@ def _rmsnorm(x, w):
     return (x.float() * torch.rsqrt(var + 1e-6)).to(x.dtype) * w
 
 
-def _dense_ffn(x, lp, ffn: str = "gelu"):
+def _dense_ffn(x, lp, ffn: str = "gelu", tp=None):
     """Residual dense FFN block. ``ffn`` picks gelu (the tanh form, as
-    ``jax.nn.gelu`` defaults to) or the swiglu gate (w3)."""
-    y = _rmsnorm(x, lp["ln2"])
+    ``jax.nn.gelu`` defaults to) or the swiglu gate (w3). ``tp``: the
+    tensor-parallel group under a mesh, over which w1/w3 are split by
+    columns and w2 by rows (the partial output is summed over it)."""
+    y = col.copy_to(_rmsnorm(x, lp["ln2"]), tp)
     if ffn == "swiglu":
         hmid = (F.silu(torch.einsum("...d,df->...f", y, lp["w1"]))
                 * torch.einsum("...d,df->...f", y, lp["w3"]))
     else:
         hmid = F.gelu(torch.einsum("...d,df->...f", y, lp["w1"]),
                       approximate="tanh")
-    return x + torch.einsum("...f,fd->...d", hmid, lp["w2"])
+    return x + col.reduce_from(torch.einsum("...f,fd->...d", hmid, lp["w2"]),
+                               tp)
 
 
 def _rope_angles(pos, head_dim: int, theta: float):
@@ -239,26 +388,59 @@ def _expand_kv(cfg: TransformerConfig, x):
     return torch.repeat_interleave(x, cfg.n_heads // cfg.kv_heads, dim=-2)
 
 
-def _attention(cfg: TransformerConfig, q, k, v):
+def _attention(cfg: TransformerConfig, q, k, v, mesh=None):
+    """q [B, L, H, Dh] against k/v [B, L, Hkv, Dh] (this rank's sequence
+    block under a mesh), the KV heads expanded here. Under a mesh
+    ``"ring"`` is ring attention over the sp group; ``"ref"`` with sp > 1
+    all-gathers K and V over sp (what GSPMD does to the reference's
+    einsum) and masks causally from the rank's offset."""
+    sp = axis_size(mesh, "sp")
+    if cfg.attn_impl == "ring" and mesh is not None:
+        return ring_attention(q, _expand_kv(cfg, k), _expand_kv(cfg, v),
+                              mesh, causal=cfg.causal)
     if cfg.attn_impl == "flash":
-        return flash_attention(q, k, v, causal=cfg.causal)
-    return mha_attention(q, k, v, causal=cfg.causal)
+        if sp > 1:
+            raise ValueError("attn_impl='flash' attends one sequence block; "
+                             "under sp > 1 use 'ref' or 'ring'")
+        return flash_attention(q, _expand_kv(cfg, k), _expand_kv(cfg, v),
+                               causal=cfg.causal)
+    q_offset = 0
+    if sp > 1:
+        group = axis_group(mesh, "sp")
+        k, v = col.all_gather(k, group, 1), col.all_gather(v, group, 1)
+        q_offset = axis_index(mesh, "sp") * q.shape[1]
+    return mha_attention(q, _expand_kv(cfg, k), _expand_kv(cfg, v),
+                         causal=cfg.causal, q_offset=q_offset)
 
 
-def _layer(cfg: TransformerConfig, x, lp):
-    """One transformer block. x: [B, L, d]."""
-    l = x.shape[1]
-    y = _rmsnorm(x, lp["ln1"])
+def _layer(cfg: TransformerConfig, x, lp, mesh=None) -> tuple:
+    """One transformer block, x: [B, L, d] -> (x, aux loss f32; zero for a
+    dense FFN). Under a mesh x is this rank's dp×sp block and ``lp`` its
+    tp/ep block of the layer."""
+    b, l, d = x.shape
+    tp = axis_group(mesh, "tp")
+    y = col.copy_to(_rmsnorm(x, lp["ln1"]), tp)
     q, k, v = _qkv_proj(cfg, y, lp, "bl")              # kv: [B, L, Hkv, Dh]
     if cfg.rope:
-        cos, sin = _rope_angles(torch.arange(l, device=x.device),
+        pos0 = axis_index(mesh, "sp") * l
+        cos, sin = _rope_angles(torch.arange(pos0, pos0 + l, device=x.device),
                                 cfg.head_dim, cfg.rope_theta)  # [L, half]
         q = _rope_apply(q, cos[None, :, None], sin[None, :, None])
         k = _rope_apply(k, cos[None, :, None], sin[None, :, None])
-    k, v = _expand_kv(cfg, k), _expand_kv(cfg, v)      # [B, L, H, Dh]
-    attn = _attention(cfg, q, k, v)
-    x = x + torch.einsum("blhk,hkd->bld", attn, lp["wo"])
-    return _dense_ffn(x, lp, ffn=cfg.ffn)
+    attn = _attention(cfg, q, k, v, mesh)              # [B, L, H, Dh]
+    x = x + col.reduce_from(torch.einsum("blhk,hkd->bld", attn, lp["wo"]),
+                            tp)
+    if not cfg.moe:
+        return (_dense_ffn(x, lp, ffn=cfg.ffn, tp=tp),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+    y = _rmsnorm(x, lp["ln2"])
+    if mesh is None:
+        out, aux = moe_ffn(y.reshape(b * l, d), lp["router"], lp["we1"],
+                           lp["we2"], cfg.capacity_factor)
+        return x + out.reshape(b, l, d), aux
+    out, aux = moe_ffn_sharded(y, lp["router"], lp["we1"], lp["we2"],
+                               cfg.capacity_factor, mesh)
+    return x + out, aux
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -266,23 +448,52 @@ def layer_params(params: dict, i: int) -> dict:
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-def embed_tokens(cfg: TransformerConfig, params: dict, tokens):
-    """tokens [B, L] -> input activations [B, L, d] in cfg.dtype."""
-    x = params["embed"][tokens.long()]
+def embed_tokens(cfg: TransformerConfig, params: dict, tokens, mesh=None):
+    """tokens [B, L] -> input activations [B, L, d] in cfg.dtype. Under a
+    mesh tokens are the rank's dp×sp block: the lookup is vocab-parallel
+    over tp (each rank's rows for its own slice of the vocab, zero for the
+    rest, summed over tp) and the positions start at the block's
+    offset."""
+    tokens = tokens.long()
+    tp = axis_group(mesh, "tp")
+    if tp is None:
+        x = params["embed"][tokens]
+    else:
+        v_loc = params["embed"].shape[0]
+        local = tokens - axis_index(mesh, "tp") * v_loc
+        inside = (local >= 0) & (local < v_loc)
+        rows = params["embed"][local.clamp(0, v_loc - 1)]
+        x = col.reduce_from(torch.where(inside[..., None], rows, 0.0), tp)
     if not cfg.rope:
-        x = x + params["pos_embed"][:tokens.shape[1]][None]
+        l = tokens.shape[1]
+        pos0 = axis_index(mesh, "sp") * l
+        x = x + params["pos_embed"][pos0:pos0 + l][None]
     return x.to(cfg.dtype)
 
 
-def forward(cfg: TransformerConfig, params: dict, tokens) -> tuple:
-    """tokens: [B, L] int -> (logits [B, L, vocab] f32, aux_loss). The
-    aux loss is zero: the port's FFN is dense (MoE waits)."""
-    x = embed_tokens(cfg, params, tokens)
+def forward(cfg: TransformerConfig, params: dict, tokens, mesh=None) -> tuple:
+    """tokens: [B, L] int -> (logits [B, L, vocab] f32, aux loss: the sum
+    of the layers' MoE load-balancing terms, zero for a dense FFN).
+
+    Under ``mesh`` (``parallel.mesh.make_mesh``), on every rank: params
+    are the rank's block (``shard_params``), tokens its dp×sp block
+    [B/dp, L/sp], and the logits come back as the rank's block
+    [B/dp, L/sp, vocab/tp]; the aux loss is the global one. With
+    ``cfg.remat`` each layer is recomputed in the backward."""
+    x = embed_tokens(cfg, params, tokens, mesh)
+    auxes = []
     for i in range(cfg.n_layers):
-        x = _layer(cfg, x, layer_params(params, i))
+        lp = layer_params(params, i)
+        if cfg.remat:
+            x, aux = checkpoint(_layer, cfg, x, lp, mesh,
+                                use_reentrant=False)
+        else:
+            x, aux = _layer(cfg, x, lp, mesh)
+        auxes.append(aux)
     x = _rmsnorm(x, params["final_norm"])
+    x = col.copy_to(x, axis_group(mesh, "tp"))
     logits = torch.einsum("bld,vd->blv", x, params["embed"]).float()
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, torch.stack(auxes).sum()
 
 
 # ---------------------------------------------------------------- token ring
@@ -436,6 +647,8 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens,
     to ``max_seq - 1``, as the reference's ``dynamic_update_slice`` and
     gather do (an out-of-range ``index_put_`` would be a device-side
     assert on the card)."""
+    if cfg.moe:
+        raise NotImplementedError(DENSE_ONLY)
     pos_all = state["pos"]
     pos = pos_all if rows is None else pos_all[rows]
     wpos = pos.long().clamp(0, cfg.max_seq - 1)
@@ -544,6 +757,8 @@ def verify_steps(cfg: TransformerConfig, params: dict, tokens, state: dict,
     is data, so rewinding ``pos`` un-attends the rejected rows, and the
     next write overwrites them. Plain torch ops, as the reference's
     einsums are."""
+    if cfg.moe:
+        raise NotImplementedError(DENSE_ONLY)
     t_len = tokens.shape[1]
     pos_all = state["pos"]
     pos = (pos_all if rows is None else pos_all[rows]).long()
@@ -567,6 +782,8 @@ def prefill(cfg: TransformerConfig, params: dict, tokens,
     Rows at and past ``length`` hold padding K/V that decode overwrites
     before attending. ``pad_to_max=False`` returns only the bucket's L
     rows (the engine writes them into a slot's rows itself)."""
+    if cfg.moe:
+        raise NotImplementedError(DENSE_ONLY)
     l = tokens.shape[0]
     length = l if length is None else length
     x = params["embed"][tokens.long()]
@@ -630,6 +847,8 @@ def prefill_chunk(cfg: TransformerConfig, params: dict, tokens, cache: dict,
     attended. Returns (slab {name: [layers, Lc, ...]}, views of the rows
     just written, not copies; logits [vocab] f32 after tokens[clen -
     1])."""
+    if cfg.moe:
+        raise NotImplementedError(DENSE_ONLY)
     lc = tokens.shape[0]
     clen = lc if clen is None else clen
     start = max(0, min(int(pos0), cache["k"].shape[1] - lc))
@@ -684,6 +903,8 @@ def prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
     are ``prefill_chunk``'s einsum shapes with a leading B axis. The
     caller keeps pos0[b] + Lc <= max_seq for every real row. Returns
     logits [B, vocab] f32 after each row's tokens[clen[b] - 1]."""
+    if cfg.moe:
+        raise NotImplementedError(DENSE_ONLY)
     x = _slot_slab(cfg, params, tokens, cache, pos0.long(), rows)
     return torch.einsum("bd,vd->bv", _last_rows(x, clen),
                         params["embed"]).float()
@@ -757,6 +978,8 @@ def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
     bf16 or f32 slabs, never int8, and an ``attention`` override raises
     rather than be handed int8 slabs. Returns (logits [S, vocab] f32,
     pool)."""
+    if cfg.moe:
+        raise NotImplementedError(DENSE_ONLY)
     if cfg.kv_quant:
         if attention is not None:
             raise ValueError(
@@ -852,6 +1075,8 @@ def paged_verify_steps(cfg: TransformerConfig, params: dict, toks, pos0,
     Attention gathers each slot's table for the einsum attention, never
     the paged decode kernel, as in the reference. Returns (logits
     [S, T, vocab] f32, pool); position rollback is the caller's."""
+    if cfg.moe:
+        raise NotImplementedError(DENSE_ONLY)
     x = _paged_slab(cfg, params, toks, pos0, tables, pool, write)
     logits = torch.einsum("btd,vd->btv", x, params["embed"]).float()
     return logits, pool
@@ -869,6 +1094,8 @@ def paged_prefill_chunk(cfg: TransformerConfig, params: dict, tokens, table,
     written again before they are attended. Always the einsum attention,
     as in the reference. Returns (pool, logits [vocab] f32 after
     tokens[clen - 1])."""
+    if cfg.moe:
+        raise NotImplementedError(DENSE_ONLY)
     lc = tokens.shape[0]
     b = table.shape[0]
     bl = pool["k"].shape[2]
@@ -914,6 +1141,8 @@ def paged_prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
     their writes go to scratch block 0, which nothing attends. Returns
     (pool, logits [B, vocab] f32 after each row's tokens[clen[b] -
     1])."""
+    if cfg.moe:
+        raise NotImplementedError(DENSE_ONLY)
     x = _paged_slab(cfg, params, tokens, pos0, tables, pool)
     logits = torch.einsum("bd,vd->bv", _last_rows(x, clen),
                           params["embed"]).float()
@@ -926,17 +1155,22 @@ def paged_prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
 # FLOPs; every row of one dispatch runs the same kernel, so per-row FLOPs
 # are equal and row-count waste shares (bucket padding, rejected verify
 # rows) are exact. ``ctx`` counts attended positions, the token's own
-# included. The port has no MoE FFN yet, so the reference's router and
-# routed-expert term has no branch here.
+# included.
 
 
 def layer_flops_per_token(cfg: TransformerConfig) -> int:
     """Context-independent matmul FLOPs one token pays per layer: the QKV
-    and output projections and the FFN (swiglu's third matmul included)."""
+    and output projections and the FFN (swiglu's third matmul, and
+    Switch-MoE's router and single routed expert, included)."""
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     qkv = 2 * d * dh * (h + 2 * cfg.kv_heads)
     out = 2 * h * dh * d
-    ffn = (6 if cfg.ffn == "swiglu" else 4) * d * cfg.d_ff
+    if cfg.moe:
+        ffn = 2 * d * cfg.n_experts + 4 * d * cfg.d_ff  # router + top-1
+    elif cfg.ffn == "swiglu":
+        ffn = 6 * d * cfg.d_ff
+    else:
+        ffn = 4 * d * cfg.d_ff
     return qkv + out + ffn
 
 
@@ -996,7 +1230,197 @@ def token_bytes(cfg: TransformerConfig, ctx: int) -> int:
     KV read over ``ctx`` positions and its own KV write."""
     d, h, dh, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
     w_elems = d * dh * (h + 2 * cfg.kv_heads) + h * dh * d
-    w_elems += (3 if cfg.ffn == "swiglu" else 2) * d * f
+    if cfg.moe:
+        w_elems += d * cfg.n_experts + 2 * d * f
+    elif cfg.ffn == "swiglu":
+        w_elems += 3 * d * f
+    else:
+        w_elems += 2 * d * f
     weight_bytes = cfg.n_layers * w_elems * 2 + cfg.vocab_size * d * 2
     kv = kv_bytes_per_token(cfg)
     return weight_bytes + kv * max(1, int(ctx)) + kv
+
+
+# ---------------------------------------------------------------- training
+
+def _vocab_parallel_nll(logits, targets, mesh):
+    """-log softmax(logits)[target] per token. logits: this rank's block
+    [..., vocab/tp] (f32) of the tp-split vocabulary; the max and the sum
+    of exponentials are reduced over tp and each rank contributes its
+    target logit when the target lies in its slice."""
+    group = axis_group(mesh, "tp")
+    if group is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, targets.long()[..., None])[..., 0]
+    v0 = axis_index(mesh, "tp") * logits.shape[-1]
+    return _VocabParallelNLL.apply(logits, targets.long() - v0, group)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, local_targets, group):
+        v_loc = logits.shape[-1]
+        m = col.all_reduce_max(logits.amax(dim=-1), group)
+        shifted = logits - m[..., None]
+        ex = shifted.exp()
+        total = col.all_reduce_sum(ex.sum(dim=-1), group)
+        inside = (local_targets >= 0) & (local_targets < v_loc)
+        idx = local_targets.clamp(0, v_loc - 1)
+        picked = shifted.gather(-1, idx[..., None])[..., 0]
+        picked = col.all_reduce_sum(torch.where(inside, picked, 0.0), group)
+        ctx.save_for_backward(ex / total[..., None], idx, inside)
+        return torch.log(total) - picked
+
+    @staticmethod
+    def backward(ctx, grad):
+        probs, idx, inside = ctx.saved_tensors
+        g = probs.clone()
+        g.scatter_add_(-1, idx[..., None], -inside[..., None].to(g.dtype))
+        return g * grad[..., None], None, None
+
+
+def loss_fn(cfg: TransformerConfig, params: dict, tokens, mesh=None):
+    """Next-token cross-entropy over tokens[:, :-1] -> tokens[:, 1:], the
+    mean over tokens, plus ``aux_loss_weight`` times the aux loss.
+
+    Under ``mesh``: params are the rank's block, tokens the rank's dp
+    block of the batch [B/dp, L+1] (a length like 2^k + 1 need not divide
+    sp; each rank takes its sp block of the L inputs and targets). The
+    returned value is the global loss on every rank; its gradient is the
+    rank's own share (its block's mean plus the aux term), so averaging
+    the gradients over dp and sp gives the global loss's gradient."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if mesh is not None:
+        sp = axis_size(mesh, "sp")
+        if inputs.shape[1] % sp:
+            raise ValueError(f"sequence {inputs.shape[1]} does not split "
+                             f"over sp={sp}")
+        l = inputs.shape[1] // sp
+        at = axis_index(mesh, "sp") * l
+        inputs, targets = inputs[:, at:at + l], targets[:, at:at + l]
+    logits, aux = forward(cfg, params, inputs, mesh=mesh)
+    nll = _vocab_parallel_nll(logits, targets, mesh)
+    loss = nll.mean() + cfg.aux_loss_weight * aux
+    if mesh is None:
+        return loss
+    groups = [axis_group(mesh, "dp"), axis_group(mesh, "sp")]
+    total = loss.detach().clone()
+    col.average_([total], groups)
+    return loss + (total - loss.detach())
+
+
+def value_and_grad(cfg: TransformerConfig, params: dict, tokens,
+                   mesh=None) -> tuple:
+    """(loss, grads): ``loss_fn`` and its gradient with respect to every
+    parameter, in ``params``' tree (detached). Under a mesh the gradients
+    of the rank's block are averaged over dp and sp."""
+    leaves = [p.detach().requires_grad_(True) for p in _tree_leaves(params)]
+    loss = loss_fn(cfg, _tree_unflatten(params, leaves), tokens, mesh=mesh)
+    grads = list(torch.autograd.grad(loss, leaves))
+    if mesh is not None:
+        col.average_(grads, [axis_group(mesh, "dp"), axis_group(mesh, "sp")])
+    return loss.detach(), _tree_unflatten(params, grads)
+
+
+class AdamW:
+    """Functional AdamW with ``optax.adamw``'s defaults and order of
+    operations: Adam's moments (``mu``, ``nu``; b1 0.9, b2 0.999) with
+    bias correction and eps 1e-8 (eps_root 0), then decoupled weight decay
+    1e-4 on every leaf, then the step scaled by ``-learning_rate``. The
+    moments keep each parameter's dtype (optax's ``mu_dtype`` None). Note
+    the weight decay: ``torch.optim.AdamW`` takes 0.01."""
+
+    B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-4
+
+    def __init__(self, learning_rate: float = 1e-3):
+        self.learning_rate = learning_rate
+
+    def init(self, params: dict) -> dict:
+        device = _tree_leaves(params)[0].device
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
+                "mu": _tree_map(torch.zeros_like, params),
+                "nu": _tree_map(torch.zeros_like, params)}
+
+    def update(self, grads: dict, state: dict, params: dict) -> tuple:
+        """(updates, new state), as ``optax.GradientTransformation``."""
+        b1, b2, eps, wd = self.B1, self.B2, self.EPS, self.WEIGHT_DECAY
+        lr = self.learning_rate
+        mu = _tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
+        nu = _tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
+                       state["nu"])
+        count = state["count"] + 1
+        c = count.float()
+        bc1 = 1 - torch.full_like(c, b1) ** c
+        bc2 = 1 - torch.full_like(c, b2) ** c
+
+        def step(m, v, p):
+            u = (m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype)) + eps)
+            return -lr * (u + wd * p)
+
+        updates = _tree_map(step, mu, nu, params)
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+
+def apply_updates(params: dict, updates: dict) -> dict:
+    """``optax.apply_updates``: p + u in each parameter's dtype."""
+    return _tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def init_state_from_params(cfg: TransformerConfig, params: dict, mesh=None,
+                           optimizer=None) -> dict:
+    """A train state from whole parameters (carried weights, for example):
+    ``{"params", "opt", "step"}``, the params cut to the rank's block under
+    ``mesh``. ``optimizer`` as ``make_train_step``'s (AdamW's state does
+    not depend on its learning rate)."""
+    optimizer = optimizer or AdamW()
+    if mesh is not None:
+        params = shard_params(cfg, params, mesh)
+    params = _tree_map(torch.Tensor.detach, params)
+    device = _tree_leaves(params)[0].device
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def make_train_step(cfg: TransformerConfig, mesh=None, optimizer=None,
+                    learning_rate: float = 1e-3):
+    """(init_state, train_step), the reference's pair.
+
+    ``init_state(generator)`` draws the whole parameters from the
+    ``torch.Generator`` (on its device: the card unless the caller makes
+    it on the CPU) and returns ``{"params", "opt", "step"}``; under
+    ``mesh`` every rank draws the same whole parameters and keeps its
+    block. ``train_step(state, tokens)`` takes the global batch [B, L+1]
+    (each rank of a mesh takes its dp block) and returns (new state,
+    ``{"loss"}``). ``optimizer``: an object with ``init(params)`` and
+    ``update(grads, state, params) -> (updates, state)`` (default
+    ``AdamW(learning_rate)``).
+
+    ``attn_impl="flash"`` raises ``ValueError``: the flash kernel has no
+    backward, on the card as in the reference."""
+    if cfg.attn_impl == "flash":
+        raise ValueError(
+            "attn_impl='flash' cannot train: the flash attention kernel "
+            "(ops/flash_attention.py, as the reference's Pallas kernel) has "
+            "no backward; use 'ref' or 'ring'")
+    if optimizer is None:
+        optimizer = AdamW(learning_rate)
+    dp, dp_idx = axis_size(mesh, "dp"), axis_index(mesh, "dp")
+
+    def init_state(generator: torch.Generator) -> dict:
+        return init_state_from_params(cfg, init_params(generator, cfg), mesh,
+                                      optimizer)
+
+    def train_step(state: dict, tokens) -> tuple:
+        if mesh is not None:
+            if tokens.shape[0] % dp:
+                raise ValueError(f"batch {tokens.shape[0]} does not split "
+                                 f"over dp={dp}")
+            b = tokens.shape[0] // dp
+            tokens = tokens[dp_idx * b:(dp_idx + 1) * b]
+        loss, grads = value_and_grad(cfg, state["params"], tokens, mesh)
+        updates, opt = optimizer.update(grads, state["opt"], state["params"])
+        return ({"params": apply_updates(state["params"], updates),
+                 "opt": opt, "step": state["step"] + 1},
+                {"loss": loss})
+
+    return init_state, train_step

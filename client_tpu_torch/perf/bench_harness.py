@@ -85,7 +85,7 @@ def encoder_apply(cfg: t.TransformerConfig, params: dict, inputs: dict) -> dict:
     the layers, the final RMSNorm, then a mean over the sequence."""
     x = t.embed_tokens(cfg, params, inputs["input_ids"])
     for i in range(cfg.n_layers):
-        x = t._layer(cfg, x, t.layer_params(params, i))
+        x, _ = t._layer(cfg, x, t.layer_params(params, i))
     x = t._rmsnorm(x, params["final_norm"])
     return {"embedding": x.mean(dim=1).float()}
 

@@ -10,7 +10,7 @@ router's and its ``autoscale`` and ``canary`` blocks the policy of its
 controller (``server/autoscale.py``); ``response_cache`` turns on the v2
 response cache; ``sequence_batching`` puts a model behind the sequence
 scheduler and ``ensemble_steps`` makes it an ensemble of other served
-models. The reference's sharding block waits for ROADMAP item 9 (A15),
+models. The reference's sharding block waits for ROADMAP item 9b (A15),
 which shards one engine over several cards. ``platform`` and ``backend`` read ``"pytorch"`` (the reference's
 generator says ``"python"``).
 """

@@ -159,7 +159,7 @@ pins every tensor of the engine to one device, named by a CUDA index or a
 ``torch.device``; a replica fleet (``server/fleet.py``) builds one engine
 per replica and reads ``load_depth`` to route. A subset of more than one
 device, and ``mesh``, shard one engine over devices: they raise
-``NotImplementedError`` naming ROADMAP item 9 (A15). An unknown
+``NotImplementedError`` naming ROADMAP item 9b (A15). An unknown
 knob raises ``TypeError``; none is silently ignored.
 """
 
@@ -249,9 +249,10 @@ from client_tpu_torch.server.watchdog import (
 log = logging.getLogger(__name__)
 
 # the ROADMAP item that shards one engine over devices (``mesh``, an
-# ``engine_devices`` subset of more than one device)
-MESH_REMAINDER = "item 9 (A15), parallelism: sharding one engine over " \
-    "devices"
+# ``engine_devices`` subset of more than one device); the mesh itself, the
+# tensor-parallel layers and training are item 9a
+MESH_REMAINDER = "item 9b (A15), the engine's mesh: sharding one engine " \
+    "over devices"
 
 
 def reject_unknown_knobs(knobs: dict) -> None:
@@ -1304,7 +1305,7 @@ class ContinuousBatchingEngine:
         device listed twice, an empty subset and a conflict with
         ``mesh`` raise ``ValueError``; ``mesh`` alone and a subset of more
         than one device shard one engine over devices, which raises
-        ``NotImplementedError`` naming ROADMAP item 9 (A15)."""
+        ``NotImplementedError`` naming ROADMAP item 9b (A15)."""
         if engine_devices is None:
             if mesh is not None:
                 raise NotImplementedError(

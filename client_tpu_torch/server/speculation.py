@@ -77,6 +77,8 @@ class DraftModel:
                 f"draft max_seq {self.cfg.max_seq} < target max_seq "
                 f"{target_cfg.max_seq} — the draft KV cache must cover "
                 f"every position the target can reach")
+        if self.cfg.moe:
+            raise ValueError("a MoE draft has no KV-cache decode path")
 
 
 def build_draft_model(target_cfg, spec, device=None) -> DraftModel:

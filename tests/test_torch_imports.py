@@ -98,7 +98,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.perf.report",
                      "client_tpu_torch.perf.__main__",
                      "client_tpu_torch.examples.simple_http_cudashm_client",
-                     "client_tpu_torch.examples.simple_grpc_cudashm_client"):
+                     "client_tpu_torch.examples.simple_grpc_cudashm_client",
+                     "client_tpu_torch.ops.moe",
+                     "client_tpu_torch.ops.ring_attention",
+                     "client_tpu_torch.parallel",
+                     "client_tpu_torch.parallel.mesh",
+                     "client_tpu_torch.parallel.collectives",
+                     "client_tpu_torch.parallel.pipeline",
+                     "client_tpu_torch.parallel.dryrun"):
         assert expected in result["modules"]
 
 
@@ -245,6 +252,8 @@ def _entry_points():
         build_draft_model,
     )
     from client_tpu_torch.utils import cuda_shared_memory as cudashm
+    from client_tpu_torch.parallel.dryrun import dryrun_multichip
+    from client_tpu_torch.parallel.mesh import make_mesh
 
     cfg = decode_config(vocab_size=16, d_model=8, n_layers=1, n_heads=1,
                         head_dim=8, d_ff=8, max_seq=16)
@@ -281,6 +290,8 @@ def _entry_points():
         "make_generator": lambda: make_generator(cfg=cfg),
         "make_batch_generator": lambda: make_batch_generator(cfg=cfg),
         "make_replica_fleet": lambda: make_replica_fleet(cfg=cfg),
+        "make_mesh": lambda: make_mesh(),
+        "dryrun_multichip": lambda: dryrun_multichip(1),
     }
 
 
@@ -295,7 +306,8 @@ def _entry_points():
                                    "make_accumulator", "make_decoder_lm",
                                    "make_resnet50", "make_generator",
                                    "make_batch_generator",
-                                   "make_replica_fleet"])
+                                   "make_replica_fleet", "make_mesh",
+                                   "dryrun_multichip"])
 def test_entry_points_without_a_device_raise_when_cuda_is_absent(
         entry, monkeypatch):
     # the same code path a machine without CUDA takes, on any machine

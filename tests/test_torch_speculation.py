@@ -310,10 +310,19 @@ def test_build_draft_model_derives_the_reference_shape(tiny):
         assert mine.params["embed"].shape == ref.params["embed"].shape
     again = tspec.build_draft_model(tcfg, spec, "cpu")
     assert torch.equal(again.params["embed"], mine.params["embed"])
-    for bad in ({"bogus": 1}, {"n_experts": 4}):
-        with pytest.raises(ValueError, match="unknown draft"):
-            tspec.build_draft_model(tcfg, SpeculativeConfig(draft=bad),
-                                    "cpu")
+    with pytest.raises(ValueError, match="unknown draft"):
+        tspec.build_draft_model(tcfg, SpeculativeConfig(draft={"bogus": 1}),
+                                "cpu")
+    # n_experts is a TransformerConfig field in both packages, so it is a
+    # known knob; a Switch-MoE draft has no KV-cache decode path, and both
+    # packages refuse it when the draft is checked against the target
+    moe = {"n_experts": 4}
+    with pytest.raises(ValueError, match="a MoE draft has no KV-cache "
+                                         "decode path"):
+        jspec.build_draft_model(jcfg, JaxSpecConfig(draft=moe))
+    with pytest.raises(ValueError, match="a MoE draft has no KV-cache "
+                                         "decode path"):
+        tspec.build_draft_model(tcfg, SpeculativeConfig(draft=moe), "cpu")
     small = tt.TransformerConfig(**{**KW, "max_seq": 16,
                                     "dtype": torch.float32})
     with pytest.raises(ValueError, match="max_seq"):

@@ -20,8 +20,12 @@ the CPU.
   metrics tests did not cover): present, capped and resolvable to real
   traces while tracing, absent when it is off, and never rendered outside
   the exemplar registry, past the cap or with a malformed trace id.
-  The reference's routed-fleet timeline case
-  (``TestFleetTimelineExport``) is not held here yet.
+- A routed fleet (the reference's ``TestFleetTimelineExport``): two
+  traced tenants' requests through a two-replica fleet with the dedicated
+  lane and the prefix cache on each package's server; both exports are
+  valid under both validators and carry the same processes, the same
+  span names, FLEET_ROUTE decisions, handoff aggregates and request
+  tracks inside the replica processes.
 """
 
 import json
@@ -522,3 +526,106 @@ def test_exemplars_never_render_outside_the_contract():
            "client_tpu_generation_ttft_seconds_sum 1\n"
            "client_tpu_generation_ttft_seconds_count 1\n")
     assert any("trace_id" in e for e in check_metrics_names.check(bad))
+
+
+# ---------------------------------------------------------------- routed fleet
+
+FLEET_TL = dict(n_slots=2, chunk_size=4, prefill_mode="chunked",
+                prefill_chunk=8, prefill_slots=1, prefill_lane_width=8,
+                kv_layout="paged", kv_block_len=8, prefix_cache=True,
+                prefix_block_len=8)
+
+
+def _routed_fleet_export(core, make_fleet, cfg_vocab: int) -> tuple:
+    """The reference test's scenario on one package: a traced two-replica
+    affinity fleet, two tenants each sending two prompts of their own
+    16-token prefix and 4 random tokens, budget 6, from two threads.
+    Returns (timeline document, completed traces)."""
+    core.tracer.update_settings(
+        "", {"trace_rate": "1", "trace_level": "TIMESTAMPS"})
+    model = make_fleet("tl_fleet", replicas=2,
+                       fleet={"replicas": 2, "policy": "affinity",
+                              "affinity_block_len": 8}, **FLEET_TL)
+    core.register_model(model)
+    rng = np.random.default_rng(7)
+    budget, errors, lock = 6, [], threading.Lock()
+
+    def tenant_worker(tenant, prefix):
+        for _ in range(2):
+            prompt = np.concatenate(
+                [prefix, rng.integers(0, cfg_vocab, 4)]).astype(np.int32)
+            try:
+                trace = core.tracer.sample("tl_fleet", "1")
+                toks = list(model.fleet.submit(
+                    prompt, budget, tenant_id=tenant, trace=trace))
+                assert len(toks) == budget
+                core.tracer.release(trace)
+            except Exception as e:  # noqa: BLE001 — asserted below
+                with lock:
+                    errors.append((tenant, repr(e)))
+
+    try:
+        prefixes = {f"t{i}": rng.integers(0, cfg_vocab, 16)
+                    for i in range(2)}
+        threads = [threading.Thread(target=tenant_worker, args=(t, p))
+                   for t, p in prefixes.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors
+        return core.debug_timeline("tl_fleet"), \
+            core.debug_traces("tl_fleet")["traces"]
+    finally:
+        model.shutdown()
+
+
+def _fleet_shape(doc: dict, traces: list, tl) -> dict:
+    """The reference test's checks on one export; returns what the two
+    packages' exports must share."""
+    assert len(traces) == 4
+    for tj in traces:
+        (route,) = [s for s in tj["timestamps"]
+                    if s["name"] == "FLEET_ROUTE"]
+        assert route["replica"] in (0, 1)
+        assert route["leg"] in ("affinity", "load", "fallback")
+    assert tl.validate_chrome_trace(doc) == []
+    evs = doc["traceEvents"]
+    procs = [e["args"]["name"] for e in evs if e["ph"] == "M"
+             and e["name"] == "process_name"]
+    names = {e["name"] for e in evs if e["ph"] != "M"}
+    assert {"QUEUE_WAIT", "PREFILL_CHUNK", "DECODE"} <= names
+    assert [e for e in evs if e.get("tid") == tl.TID_HANDOFFS
+            and e["ph"] != "M"]
+    req = [e for e in evs if e.get("tid", 0) >= tl.REQUEST_TID_BASE
+           and e["ph"] != "M"]
+    assert req and {e["pid"] for e in req} <= {1, 2}
+    return {"processes": procs, "names": names}
+
+
+def test_a_routed_fleet_exports_a_valid_document_like_the_reference():
+    from client_tpu.models.decoder_lm import make_replica_fleet as j_fleet
+    from client_tpu.server.core import TpuInferenceServer
+    from client_tpu_torch.models.decoder_lm import make_replica_fleet
+
+    jcfg = jt.TransformerConfig(dtype=jnp.float32, attn_impl="ref", **KW)
+    jparams = jt.init_params(jax.random.key(0), jcfg)
+    tparams = tt.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu",
+                                 torch.float32)
+    tcfg = tt.TransformerConfig(dtype=torch.float32, attn_impl="ref", **KW)
+    ref = _routed_fleet_export(
+        TpuInferenceServer(),
+        lambda *a, **k: j_fleet(*a, cfg=jcfg, params=jparams, **k),
+        KW["vocab_size"])
+    mine = _routed_fleet_export(
+        TorchInferenceServer(),
+        lambda *a, **k: make_replica_fleet(*a, cfg=tcfg, params=tparams,
+                                           device="cpu", **k),
+        KW["vocab_size"])
+    assert jtl.validate_chrome_trace(mine[0]) == []
+    want = _fleet_shape(*ref, jtl)
+    got = _fleet_shape(*mine, ttl)
+    assert got["processes"] == want["processes"] == \
+        ["tl_fleet/r0", "tl_fleet/r1"]
+    assert got["names"] == want["names"]
