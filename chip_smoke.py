@@ -25,7 +25,10 @@ each printing one JSON line:
              one GQA case; width_invariance: one slot's output launched
              alone and padded to every wider table width beside co-runners
              must be bit-equal (bf16 and f32, r = 1 and 4), or the phase
-             fails; no single PyTorch call reads through a block
+             fails; the heads one tp rank of a mesh holds (MESH_K2_CASES:
+             the path's model at tp 2 and 4, dp 2 x tp 4, a GQA model at
+             tp 8 with one KV head a rank), checked and timed at full
+             context; no single PyTorch call reads through a block
              table, so its yardstick is a gather plus
              scaled_dot_product_attention.
 5. serve     the BERT-base encoder (12 layers, d 768, 12 heads of 64, seq
@@ -422,6 +425,24 @@ each printing one JSON line:
              the model FLOPs per step and MFU against the card's bf16
              peak, with the card's name and power limit; K1 and K2 must
              not launch.
+23. mesh     the engine's mesh (ROADMAP 9b) in a child process through
+             run_ranks, one NCCL rank (the machine has one card, and NCCL
+             takes one rank per card): (a) the BERT-base encoder (seq
+             128, bf16, K1 on each rank's tp-local heads) as a TorchModel
+             with mesh, param_sharding and input_sharding beside the plain
+             TorchModel behind one core at bench.py's bucket of 256,
+             MESH_REQUESTS full-bucket requests each: the embeddings
+             bit-equal, K1 12 launches per forward, the median ms per
+             request of both arms; (b)
+             bench.py's generation model at full width (paged, K2, the
+             prefix cache on, 16 slots, chunk 16) as an engine over the
+             mesh beside the unsharded engine, bench.py's 32 jobs all
+             greedy: every stream identical, K2 exactly 12 x 16 launches
+             per chunk dispatch, tokens/s, host ms per dispatch and plans
+             sent of both arms (the plan channel's cost at world 1); (c)
+             the dry run's steps 1-4 at one rank. The mesh must be NCCL
+             (its plans ride a gloo group, parallel/spmd.py).
+             Phase 4 holds K2 at the tp-local shapes (MESH_K2_CASES).
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -756,6 +777,15 @@ def _paged_inputs(s, h, hkv, dh, n, width, pos, dtype, gen, inactive=()):
     return q, pool[0, 1], pool[1, 1], tables, pos
 
 
+# K2 at the heads one tp rank holds: (S/dp, H/tp, Hkv/tp, Dh, pool blocks,
+# positions from the path's spread, inactive slots)
+MESH_K2_CASES = [
+    ("tp2", (16, 6, 6, 64, 193, lambda p: p, (14, 15))),
+    ("tp4", (16, 3, 3, 64, 193, lambda p: p, (14, 15))),
+    ("dp2_tp4", (8, 3, 3, 64, 193, lambda p: p[8:], (6, 7))),
+    ("gqa_tp8", (8, 4, 1, 128, 97, lambda p: p[:8], (7,)))]
+
+
 # (position, table widths): one slot at live 1, 3, 7 and 12 padded to every
 # width up to 12, and at live 25 (clusters of 8, shares of 4 blocks) at
 # widths 26, 32 and 48
@@ -827,6 +857,13 @@ def phase_paged_kernel(peaks: tuple) -> dict:
         cases.append(("gqa", dtype, (8, 32, 8, 128, 97, nb,
                                      [0, 15, 16, 63, 100, 191, 191, 7],
                                      (7,))))
+        # the heads one tp rank of a mesh holds (the sharded engine's
+        # paged_decode_steps): the path's model at tp 2 and 4 (H = Hkv =
+        # 6 and 3), its dp 2 x tp 4 slot block, and the GQA case at tp 8,
+        # one KV head a rank
+        for name, (ts, th, thkv, tdh, tn, tpos, toff) in MESH_K2_CASES:
+            cases.append((name, dtype, (ts, th, thkv, tdh, tn, nb,
+                                        tpos(spread), toff)))
     errs = []
     for name, dtype, (cs, ch, chkv, cdh, cn, width, pos, off) in cases:
         args = _paged_inputs(cs, ch, chkv, cdh, cn, width, pos, dtype, gen,
@@ -865,6 +902,20 @@ def phase_paged_kernel(peaks: tuple) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             q[:, :, None], k, v)
 
+    # the tp-local shapes at full context, as the main path's call
+    tp_local = []
+    for name, (ts, th, thkv, tdh, tn, _pos, _off) in MESH_K2_CASES:
+        args = _paged_inputs(ts, th, thkv, tdh, tn, nb,
+                             [GEN_MAX_SEQ - 1] * ts, torch.bfloat16, gen)
+        tcall = functools.partial(pa.paged_decode_attention, *args)
+        tbytes = (2 * ts * GEN_MAX_SEQ * thkv * tdh + 2 * ts * th * tdh) \
+            * args[0].element_size()
+        tp_local.append({
+            "case": name, "shape": [ts, th, thkv, tdh],
+            "ms": time_ms(tcall, iters=50, warmup=5),
+            "device_ms": device_ms(tcall),
+            **bound(tbytes, 2 * 2 * ts * th * GEN_MAX_SEQ * tdh, peaks)})
+
     yard = gather_sdpa()[:, :, 0].float()
     want = pa.paged_decode_attention_reference(q, kp, vp, tables,
                                                pos).float()
@@ -878,6 +929,7 @@ def phase_paged_kernel(peaks: tuple) -> dict:
               "plain_ms": plain_ms, "library_ms": None,
               **bound(nbytes, 2 * 2 * s * h * ctx * dh, peaks),
               "max_abs_err": max(c["max_abs_err"] for c in errs)}
+    timing["tp_local"] = tp_local
     emit({"phase": "kernel", "name": "paged_decode_attention",
           "cases": errs, "width_invariance": width_invariance, **timing,
           "library_note": "no single PyTorch call reads K/V through a "
@@ -6384,7 +6436,7 @@ def _train_mesh_rank(rank: int, world: int, device: str) -> dict:
                        else device),
             "losses": runs["plain"][0], "mesh_losses": runs["mesh"][0],
             "param_max_abs_diff": diff,
-            "dryrun": dryrun_steps(1, device)}
+            "dryrun": dryrun_steps(1, device, steps=(1, 2, 3))}
 
 
 def phase_train(env: dict, peaks: tuple) -> dict:
@@ -6444,6 +6496,191 @@ def phase_train(env: dict, peaks: tuple) -> dict:
     return result
 
 
+MESH_TIMEOUT_S = 600
+MESH_DEVICE = "cuda"
+MESH_SEQ = 128
+# the encoder's static bucket in the mesh phase (bench.py's), and its
+# requests: each a full batch of MESH_BATCH rows, so every forward is one
+# whole bucket on both models
+MESH_BATCH = 256
+MESH_REQUESTS = 8
+
+
+def _mesh_encoder(mesh, device: str) -> dict:
+    """(a): the BERT-base encoder at bench.py's width and bucket (seq 128,
+    bf16, K1, 256 rows) as a TorchModel over the one-rank mesh
+    (param_sharding, input_sharding) and as the plain TorchModel, both
+    behind one core: MESH_REQUESTS full-bucket requests of distinct
+    tokens, one at a time, to the plain model and then to the mesh model.
+    The embeddings must be bit-equal (a one-rank mesh's collectives are
+    identities, so the two run the same kernels on the same inputs); K1's
+    counter, zeroed just before the mesh model's requests, must read 12
+    per forward. The ms per request are the median of each arm's
+    requests, each a whole 256-row forward with its plan, broadcast and
+    gather under the mesh."""
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.perf import bench_harness as bh
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server.types import InferRequest, InferTensor
+
+    cfg = bh.bert_config(MESH_SEQ)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = t.init_params(gen, cfg)
+    core = TorchInferenceServer()
+    core.register_model(bh.make_encoder_model(
+        cfg, params, MESH_SEQ, MESH_BATCH, name="bert_plain", device=device))
+    core.register_model(bh.make_encoder_model(
+        cfg, params, MESH_SEQ, MESH_BATCH, name="bert_mesh", mesh=mesh))
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (MESH_REQUESTS, MESH_BATCH, MESH_SEQ),
+                          dtype=np.int32)
+
+    def serve(name):
+        out, ms = [], []
+        for batch in tokens:
+            t0 = time.perf_counter()
+            resp = core.infer(InferRequest(model_name=name, inputs=[
+                InferTensor("input_ids", "INT32", batch.shape,
+                            data=batch)]))
+            out.append(np.asarray(resp.output("embedding").data))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return np.concatenate(out), float(np.median(ms))
+
+    try:
+        serve("bert_plain")              # the kernels' first launches
+        serve("bert_mesh")
+        plain, plain_ms = serve("bert_plain")
+        fa.launches = 0
+        sharded, mesh_ms = serve("bert_mesh")
+        k1 = fa.launches
+    finally:
+        core.stop()
+    equal = bool(np.array_equal(plain, sharded))
+    return {"requests": MESH_REQUESTS, "bucket": MESH_BATCH,
+            "shape_ok": list(plain.shape) == [MESH_REQUESTS * MESH_BATCH,
+                                              cfg.d_model],
+            "bit_equal": equal,
+            "max_abs_diff": float(np.abs(plain - sharded).max()),
+            "finite": bool(np.isfinite(sharded).all()),
+            "flash_attention_launches": k1,
+            "median_ms_per_request": {"plain": plain_ms, "mesh": mesh_ms},
+            "rows_per_s": {"plain": MESH_BATCH / plain_ms * 1e3,
+                           "mesh": MESH_BATCH / mesh_ms * 1e3}}
+
+
+def _mesh_engine_arm(cfg, params, jobs: list, mesh, device: str) -> dict:
+    """One arm of (b): the engine (paged, K2, prefix cache on, 16 slots,
+    chunk 16) over ``mesh`` or unsharded, warmed on one short stream, then
+    the jobs submitted together and read to their ends: streams, K2
+    launches and chunk dispatches (counters at 0 just before), tokens/s,
+    host ms per dispatch and the plans the channel sent."""
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        cfg, params, n_slots=GEN_SLOTS, chunk=GEN_CHUNK, kv_layout="paged",
+        kv_block_len=GEN_BLOCK, prefix_cache=True,
+        **({"mesh": mesh} if mesh is not None else {"device": device}))
+    try:
+        list(eng.submit(np.zeros(4, np.int32), 2))
+        before = eng.stats()
+        sent0 = eng._chan.sent if eng._chan is not None else 0
+        pa.launches = 0
+        t0 = time.perf_counter()
+        its = [eng.submit(p, b) for p, b in jobs]
+        streams = [list(it) for it in its]
+        wall = time.perf_counter() - t0
+        k2 = pa.launches
+        after = eng.stats()
+        plans = (eng._chan.sent - sent0) if eng._chan is not None else 0
+    finally:
+        eng.stop()
+    kind = {f: after["dispatch_by_kind"]["chunk"][f]
+            - before["dispatch_by_kind"]["chunk"][f]
+            for f in ("dispatches", "host_s")}
+    dispatches = after["chunks_dispatched"] - before["chunks_dispatched"]
+    disp_s = after["phase_seconds"]["dispatch"] \
+        - before["phase_seconds"]["dispatch"]
+    return {"streams": streams, "wall_s": wall,
+            "tokens_per_s": sum(b for _, b in jobs) / wall,
+            "chunk_dispatches": kind["dispatches"],
+            "host_ms_per_chunk_dispatch":
+                kind["host_s"] / max(1, kind["dispatches"]) * 1e3,
+            "host_ms_per_dispatch": disp_s / max(1, dispatches) * 1e3,
+            "paged_decode_attention_launches": k2, "plans_sent": plans}
+
+
+def _mesh_rank(rank: int, world: int, layers: int, device: str) -> dict:
+    """The mesh phase in a process of its own started by run_ranks (one
+    NCCL rank on the card): (a) the sharded encoder, (b) the sharded
+    engine beside the unsharded one, (c) the dry run's steps 1-4 at one
+    rank."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from client_tpu_torch.bench import generation_config
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.parallel.dryrun import dryrun_steps
+    from client_tpu_torch.parallel.mesh import make_mesh
+    from client_tpu_torch.perf.bench_harness import ragged_generation_jobs
+
+    mesh = make_mesh({"dp": 1, "tp": 1}, device=device)
+    out = {"backend": str(dist.get_backend()),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "encoder": _mesh_encoder(mesh, device)}
+    cfg = dataclasses.replace(generation_config(), attn_impl="flash",
+                              n_layers=layers)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = t.init_params(gen, cfg)
+    jobs = ragged_generation_jobs(7, cfg.vocab_size, 32, (8, 64), (16, 128),
+                                  cfg.max_seq)
+    out["engine"] = {
+        "plain": _mesh_engine_arm(cfg, params, jobs, None, device),
+        "mesh": _mesh_engine_arm(cfg, params, jobs, mesh, device)}
+    out["dryrun"] = dryrun_steps(1, device)
+    return out
+
+
+def phase_mesh(env: dict) -> dict:
+    """The engine's mesh (ROADMAP 9b) on the card, in a run_ranks child
+    with one NCCL rank: see the module docstring."""
+    from client_tpu_torch.parallel.collectives import run_ranks
+
+    backend = "nccl" if MESH_DEVICE == "cuda" else "gloo"
+    (r,) = run_ranks(_mesh_rank, 1, backend, MESH_TIMEOUT_S,
+                     args=(LAYERS, MESH_DEVICE))
+    enc, arms = r["encoder"], r["engine"]
+    plain, mesh = arms["plain"], arms["mesh"]
+    checks = {
+        "backend": r["backend"] == backend,
+        "encoder_bit_equal": enc["bit_equal"] and enc["finite"]
+        and enc["shape_ok"],
+        "encoder_k1": enc["flash_attention_launches"]
+        == LAYERS * MESH_REQUESTS,
+        "streams_equal": mesh["streams"] == plain["streams"],
+        "k2_per_chunk": mesh["paged_decode_attention_launches"]
+        == LAYERS * GEN_CHUNK * mesh["chunk_dispatches"] > 0,
+        "dryrun": set(r["dryrun"]) == {"dp_sp_tp", "dp_ep", "pp", "engine"}
+        and r["dryrun"]["engine"] == 5}
+    for arm in (plain, mesh):
+        arm["streamed_tokens"] = sum(len(x) for x in arm.pop("streams"))
+    result = {"phase": "mesh", "card": env["nvidia_smi"],
+              "backend": r["backend"], "mesh": r["mesh"], "encoder": enc,
+              "engine": arms, "dryrun": r["dryrun"], "checks": checks,
+              "paged_decode_attention_launches":
+                  mesh["paged_decode_attention_launches"],
+              "flash_attention_launches": enc["flash_attention_launches"]}
+    emit(result)
+    if not all(checks.values()):
+        fail(f"mesh: {checks}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -6485,6 +6722,7 @@ def main() -> int:
     fleet = timed("fleet", phase_fleet, gen_model, env)
     autoscale = timed("autoscale", phase_autoscale, gen_model, env)
     train = timed("train", phase_train, env, peaks)
+    mesh = timed("mesh", phase_mesh, env)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -6510,7 +6748,8 @@ def main() -> int:
             supervise_encoder=supervise["runtime"][
                 "flash_attention_launches"],
             client=client["flash_attention_launches"],
-            train=train["flash_attention_launches"]),
+            train=train["flash_attention_launches"],
+            mesh=mesh["flash_attention_launches"]),
         row("paged_decode_attention",
             "client_tpu_torch/ops/csrc/paged_attention.cu",
             "client_tpu/ops/paged_attention.py:52",
@@ -6551,7 +6790,8 @@ def main() -> int:
             **{f"{r['run']}_r{rep}": n for r in autoscale["runs"]
                for rep, n in sorted(r[
                    "paged_decode_attention_launches_by_replica"].items())},
-            train=train["paged_decode_attention_launches"]),
+            train=train["paged_decode_attention_launches"],
+            mesh=mesh["paged_decode_attention_launches"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,7 @@ from client_tpu_torch.server.config import (
     ModelConfig,
     PrefixCacheConfig,
     SequenceBatchingConfig,
+    ShardingSpec,
     SloClassConfig,
     SpeculativeConfig,
     SupervisionConfig,
@@ -50,7 +51,9 @@ from client_tpu_torch.server.autoscale import (
     resolve_canary,
 )
 from client_tpu_torch.server.fleet import ReplicaFleet, resolve_fleet
+from client_tpu_torch.parallel.spmd import mesh_device
 from client_tpu_torch.server.generation import (
+    MESH_REMAINDER,
     ContinuousBatchingEngine,
     reject_unknown_knobs,
 )
@@ -427,9 +430,14 @@ class ContinuousModel(PyModel):
     engine."""
 
     def __init__(self, config: ModelConfig, stream_fn, fresh_engine,
-                 policy: Optional[RestartPolicy] = None):
+                 policy: Optional[RestartPolicy] = None,
+                 restage: bool = True):
         super().__init__(config, fn=None, stream_fn=stream_fn)
         self._fresh_engine = fresh_engine
+        # an engine over a mesh is built by every rank together: an
+        # unload on rank 0 alone ends it (its followers return) and
+        # stages nothing
+        self._restage = restage
         self.engine_supervisor: Optional[EngineSupervisor] = (
             EngineSupervisor(fresh_engine, policy, name=config.name)
             if policy is not None else None)
@@ -451,7 +459,8 @@ class ContinuousModel(PyModel):
             self.engine_supervisor.replace_clean()
         else:
             self._engine.stop()
-            self._engine = self._fresh_engine()
+            if self._restage:
+                self._engine = self._fresh_engine()
 
     def shutdown(self) -> None:
         if self.engine_supervisor is not None:
@@ -712,8 +721,18 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     ``server/autoscale.FleetController`` at ``model.autoscaler``, and
     ``canary`` (a ``CanaryConfig``, its dict form or True; it needs
     ``autoscale``) makes its ``rolling_restart`` a judged canary rollout.
-    ``mesh``, and ``engine_devices`` over more than one device, raise
-    ``NotImplementedError`` naming ROADMAP item 9b (A15)."""
+
+    ``mesh`` (a dp×tp ``DeviceMesh``), or ``engine_devices`` over k > 1
+    devices (a k×1 dp mesh over a live group of exactly those ranks),
+    shards the engine over one process per device
+    (``server/generation.py``, ``parallel/spmd.py``): every rank calls
+    this with the same arguments; rank 0 registers and serves the model,
+    every other rank runs ``model.engine.start()``, which follows rank 0
+    until the model is unloaded there (a mesh model stages no fresh
+    engine). The config's ``sharding`` block advertises the mesh. Under a
+    mesh a fleet, ``replica_devices`` entries of more than one device,
+    supervision and the engine's speculation, dedicated lanes, host tier
+    and int8 KV raise ``NotImplementedError`` naming ROADMAP item 9c."""
     reject_unknown_knobs(unknown)
     cfg = cfg or decode_config()
     eff_fleet = resolve_fleet(fleet)
@@ -734,6 +753,11 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                 f"for {eff_fleet.replicas} replicas (one device "
                 f"subset per replica)")
         for devices in replica_devices:
+            if devices is not None and len(devices) > 1:
+                raise NotImplementedError(
+                    f"replica_devices entry {tuple(devices)} spans "
+                    f"{len(devices)} devices: a sharded replica is not "
+                    f"ported yet, ROADMAP {MESH_REMAINDER}")
             ContinuousBatchingEngine.resolve_engine_devices(devices)
     # the controller's knobs by their own rules
     eff_autoscale = resolve_autoscale(autoscale)
@@ -760,6 +784,19 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             f"scales within them")
     pinned = ContinuousBatchingEngine.resolve_engine_devices(engine_devices,
                                                              mesh)
+    if pinned is not None and not isinstance(pinned, torch.device):
+        # a subset of k > 1 devices, resolved once: its k x 1 dp mesh
+        mesh, pinned, engine_devices = pinned, None, None
+    sharding = None
+    if mesh is not None:
+        dp, tp = ContinuousBatchingEngine.resolve_mesh(cfg, mesh, n_slots)
+        if eff_fleet is not None:
+            raise NotImplementedError(
+                f"make_continuous_generator knob 'fleet' under a mesh is "
+                f"not ported yet: ROADMAP {MESH_REMAINDER}")
+        sharding = ShardingSpec(mesh_axes=("dp", "tp"), mesh_shape=(dp, tp),
+                                batch_axis="dp")
+        pinned = mesh_device(mesh)
     # an indexed device: a supervised rebuild runs on another thread, whose
     # current card need not be the caller's
     dev = (pinned if pinned is not None
@@ -836,6 +873,10 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
         backoff_mult=sup_cfg.backoff_mult,
         backoff_max_s=sup_cfg.backoff_max_s,
         max_failures=sup_cfg.max_failures, window_s=sup_cfg.window_s)
+    if mesh is not None and policy is not None:
+        raise NotImplementedError(
+            f"make_continuous_generator knob 'supervision' under a mesh is "
+            f"not ported yet: ROADMAP {MESH_REMAINDER}")
     params = _default_params(cfg, params, seed, dev)
 
     def fresh_engine(replica=None):
@@ -875,8 +916,9 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             watchdog=watchdog,
             watchdog_interval_s=watchdog_interval_s,
             watchdog_thresholds=watchdog_thresholds,
-            incident_store=incidents, device=dev, name=ename,
-            engine_devices=devices)
+            incident_store=incidents,
+            device=dev if mesh is None else None, name=ename,
+            engine_devices=devices, mesh=mesh)
 
     model = None  # bound below; stream_fn reads it live
 
@@ -938,6 +980,7 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
         supervision=sup_cfg,
         scheduler=eff_sched,
         fleet=eff_fleet,
+        sharding=sharding,
         autoscale=eff_autoscale,
         canary=eff_canary,
         slo_classes=slo_cfgs,
@@ -957,7 +1000,8 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             ctl.start()
         model = FleetModel(config, stream_fn, fleet_obj, incidents, ctl)
     else:
-        model = ContinuousModel(config, stream_fn, fresh_engine, policy)
+        model = ContinuousModel(config, stream_fn, fresh_engine, policy,
+                                restage=mesh is None)
     return model
 
 

@@ -28,7 +28,10 @@ generators (``models/decoder_lm.py``).
 a counter-based integer hash in torch ops, so one (seed, position) pair
 always gives the same draw, on the card or the CPU, with no global RNG
 and no host round trip. The draws are not the reference's (its threefry
-bits are not reproduced); the distribution is the same. A salt separates
+bits are not reproduced); the distribution is the same. Under an engine's
+mesh each dp rank draws the noise of its own slots from their (seed,
+position), and every rank of a tp group the same, so a sharded engine's
+sampled streams equal the unsharded engine's. A salt separates
 the independent streams speculative decoding draws at one position
 (``step_noise(..., salt=)``, ``step_uniform``), and ``filtered_probs``
 gives the probabilities ``sample_next`` draws from, the basis of its

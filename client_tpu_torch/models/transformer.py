@@ -67,6 +67,15 @@ K/V are all-gathered over sp under ``"ref"`` (or go round the ring under
 log-softmax is vocab-parallel. The flash kernel has no backward (nor has
 the reference's Pallas kernel), so a train step refuses ``"flash"``.
 
+The decode entries the engine's mesh runs (``init_decode_state``,
+``init_paged_state``, ``decode_step``, ``prefill``, ``prefill_chunk``,
+``paged_decode_steps``, ``paged_prefill_chunk``) take ``mesh`` too: the
+state is the rank's block (slots over dp, KV heads over tp), the heads,
+ffn and vocab split over tp with the wo and w2 partials summed over tp,
+the embedding vocab-parallel and the logits gathered over tp before
+selection. The reference lets GSPMD propagate all this from its state's
+sharding constraints; here it is written out, as for ``forward``.
+
 The analytical FLOP and byte model (``layer_flops_per_token`` through
 ``token_bytes``) is the reference's closed forms, plain integer
 arithmetic on the config: the generation engine's goodput plane
@@ -94,6 +103,7 @@ from client_tpu_torch.parallel.mesh import (
     axis_index,
     axis_size,
     logical_to_physical,
+    shard_tree,
 )
 
 # "ring" takes ring attention under a mesh and the plain attention without
@@ -271,27 +281,9 @@ def shard_params(cfg: TransformerConfig, params: dict, mesh) -> dict:
     """This rank's block of every parameter of ``params`` (the whole
     tree, as ``init_params`` makes it): each dim that ``param_specs``
     splits over a mesh axis of more than one rank is cut to the rank's
-    contiguous block along it. Raises ``ValueError`` when an axis does
-    not divide its dim."""
-    def shard(x, spec, name):
-        for dim, axis in enumerate(spec):
-            n = axis_size(mesh, axis) if axis else 1
-            if n == 1:
-                continue
-            if x.shape[dim] % n:
-                raise ValueError(f"{name}: dim {dim} of size {x.shape[dim]} "
-                                 f"does not split over {axis}={n}")
-            w = x.shape[dim] // n
-            x = x.narrow(dim, axis_index(mesh, axis) * w, w)
-        return x.contiguous()
-
-    def walk(tree, specs, path):
-        if isinstance(tree, dict):
-            return {k: walk(v, specs[k], f"{path}{k}.")
-                    for k, v in tree.items()}
-        return shard(tree, specs, path.rstrip("."))
-
-    return walk(params, param_specs(cfg), "")
+    contiguous block along it (``parallel.mesh.shard_tree``). Raises
+    ``ValueError`` when an axis does not divide its dim."""
+    return shard_tree(params, param_specs(cfg), mesh)
 
 
 def unshard_params(cfg: TransformerConfig, shard: dict, mesh) -> dict:
@@ -448,22 +440,51 @@ def layer_params(params: dict, i: int) -> dict:
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-def embed_tokens(cfg: TransformerConfig, params: dict, tokens, mesh=None):
-    """tokens [B, L] -> input activations [B, L, d] in cfg.dtype. Under a
-    mesh tokens are the rank's dp×sp block: the lookup is vocab-parallel
-    over tp (each rank's rows for its own slice of the vocab, zero for the
-    rest, summed over tp) and the positions start at the block's
-    offset."""
+def _embed_rows(params: dict, tokens, mesh=None):
+    """The embedding rows of ``tokens`` (any shape): under a mesh the
+    lookup is vocab-parallel over tp (each rank's rows for its own slice
+    of the vocab, zero for the rest, summed over tp)."""
     tokens = tokens.long()
     tp = axis_group(mesh, "tp")
     if tp is None:
-        x = params["embed"][tokens]
-    else:
-        v_loc = params["embed"].shape[0]
-        local = tokens - axis_index(mesh, "tp") * v_loc
-        inside = (local >= 0) & (local < v_loc)
-        rows = params["embed"][local.clamp(0, v_loc - 1)]
-        x = col.reduce_from(torch.where(inside[..., None], rows, 0.0), tp)
+        return params["embed"][tokens]
+    v_loc = params["embed"].shape[0]
+    local = tokens - axis_index(mesh, "tp") * v_loc
+    inside = (local >= 0) & (local < v_loc)
+    rows = params["embed"][local.clamp(0, v_loc - 1)]
+    return col.reduce_from(torch.where(inside[..., None], rows, 0.0), tp)
+
+
+def _vocab_logits(spec: str, x, params: dict, mesh=None):
+    """The f32 logits ``einsum(spec, x, embed)``: under a mesh each tp
+    rank projects onto its slice of the vocab, and the slices are
+    gathered over tp, so every rank of a tp group holds the whole
+    vocabulary before selection."""
+    logits = torch.einsum(spec, x, params["embed"]).float()
+    return col.all_gather(logits, axis_group(mesh, "tp"), logits.dim() - 1)
+
+
+def _tp_local(cfg: TransformerConfig, mesh) -> TransformerConfig:
+    """The config as one tp rank's shard sees it: ``n_heads`` and the KV
+    heads divided by tp (the GQA ratio is kept). Raises ``ValueError``
+    when tp does not divide them."""
+    tp = axis_size(mesh, "tp")
+    if tp == 1:
+        return cfg
+    if cfg.n_heads % tp or cfg.kv_heads % tp:
+        raise ValueError(f"n_heads {cfg.n_heads} and KV heads "
+                         f"{cfg.kv_heads} must divide by tp={tp}")
+    return dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // tp,
+        n_kv_heads=cfg.n_kv_heads // tp if cfg.n_kv_heads else 0)
+
+
+def embed_tokens(cfg: TransformerConfig, params: dict, tokens, mesh=None):
+    """tokens [B, L] -> input activations [B, L, d] in cfg.dtype. Under a
+    mesh tokens are the rank's dp×sp block: the lookup is vocab-parallel
+    over tp (``_embed_rows``) and the positions start at the block's
+    offset."""
+    x = _embed_rows(params, tokens, mesh)
     if not cfg.rope:
         l = tokens.shape[1]
         pos0 = axis_index(mesh, "sp") * l
@@ -607,14 +628,19 @@ def _kv_read(cfg: TransformerConfig, kv: dict) -> tuple:
 # they are attended.
 
 def init_decode_state(cfg: TransformerConfig, n_slots: int,
-                      device=None) -> dict:
+                      device=None, mesh=None) -> dict:
     """Zeroed slot-layout state of ``n_slots`` slots: ``k``/``v``
     ``[S, layers, max_seq, Hkv, Dh]`` in ``cfg.dtype`` (only the KV heads
     under GQA), int8 under ``kv_quant`` with f32 ``k_scale``/``v_scale``
     ``[S, layers, max_seq, Hkv]`` beside them, and ``pos [S]`` int32. On
-    the card unless ``device`` says otherwise; without CUDA that raises."""
+    the card unless ``device`` says otherwise; without CUDA that raises.
+    Under ``mesh`` the state is this rank's block: the slots split over dp
+    and the KV heads over tp, ``[S/dp, layers, max_seq, Hkv/tp, Dh]``
+    (the reference's ``P("dp", None, None, "tp", None)``)."""
     dev = resolve_device(device)
-    shape = (n_slots, cfg.n_layers, cfg.max_seq, cfg.kv_heads, cfg.head_dim)
+    n_slots //= axis_size(mesh, "dp")
+    shape = (n_slots, cfg.n_layers, cfg.max_seq,
+             _tp_local(cfg, mesh).kv_heads, cfg.head_dim)
     kv_dtype = torch.int8 if cfg.kv_quant else cfg.dtype
     state = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
              "v": torch.zeros(shape, dtype=kv_dtype, device=dev)}
@@ -627,7 +653,7 @@ def init_decode_state(cfg: TransformerConfig, n_slots: int,
 
 
 def decode_step(cfg: TransformerConfig, params: dict, tokens,
-                state: dict, rows=None) -> tuple:
+                state: dict, rows=None, mesh=None) -> tuple:
     """One autoregressive step of every slot of a slot-layout state: the
     reference's ``decode_step`` under ``jax.vmap``, as one computation
     over ``[S, ...]``. tokens [S] int32 are fed at positions
@@ -646,15 +672,23 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens,
     ``pos >= max_seq``: the write index and the ``pos_embed`` gather clamp
     to ``max_seq - 1``, as the reference's ``dynamic_update_slice`` and
     gather do (an out-of-range ``index_put_`` would be a device-side
-    assert on the card)."""
+    assert on the card).
+
+    Under ``mesh`` (a dp×tp mesh): tokens and the state are this rank's
+    block (``init_decode_state(..., mesh=)``), params its tp block
+    (``shard_params``); the heads, the ffn and the vocab split over tp
+    (the wo and w2 partials summed over tp, the embedding vocab-parallel)
+    and the logits are gathered over tp, [S/dp, vocab]."""
     if cfg.moe:
         raise NotImplementedError(DENSE_ONLY)
+    tp = axis_group(mesh, "tp")
+    lcfg = _tp_local(cfg, mesh)
     pos_all = state["pos"]
     pos = pos_all if rows is None else pos_all[rows]
     wpos = pos.long().clamp(0, cfg.max_seq - 1)
     idx = (torch.arange(tokens.shape[0], device=tokens.device)
            if rows is None else rows)
-    x = params["embed"][tokens.long()]
+    x = _embed_rows(params, tokens, mesh)
     if not cfg.rope:
         x = x + params["pos_embed"][wpos]
     x = x.to(cfg.dtype)                                           # [S, d]
@@ -666,18 +700,19 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens,
         lp = layer_params(params, i)
         kv = {name: state[name][:, i] for name in names}  # [S, max_seq, ...]
         y = _rmsnorm(x, lp["ln1"])
-        q, k, v = _qkv_proj(cfg, y, lp, "b")   # q [S,H,Dh], kv [S,Hkv,Dh]
+        q, k, v = _qkv_proj(lcfg, y, lp, "b")  # q [S,H,Dh], kv [S,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
         _kv_write(cfg, kv, (idx, wpos), k, v)
         if rows is not None:
             kv = {name: arr[rows] for name, arr in kv.items()}
         k_read, v_read = _kv_read(cfg, kv)
-        attn = _masked_attention(cfg, q, k_read, v_read, pos)
-        x = x + torch.einsum("bhk,hkd->bd", attn, lp["wo"])
-        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+        attn = _masked_attention(lcfg, q, k_read, v_read, pos)
+        x = x + col.reduce_from(torch.einsum("bhk,hkd->bd", attn, lp["wo"]),
+                                tp)
+        x = _dense_ffn(x, lp, ffn=cfg.ffn, tp=tp)
     x = _rmsnorm(x, params["final_norm"])
-    logits = torch.einsum("bd,vd->bv", x, params["embed"]).float()
+    logits = _vocab_logits("bd,vd->bv", x, params, mesh)
     new_pos = pos + 1 if rows is None else pos_all.index_put((rows,),
                                                              pos + 1)
     return logits, {**state, "pos": new_pos}
@@ -770,7 +805,7 @@ def verify_steps(cfg: TransformerConfig, params: dict, tokens, state: dict,
 
 
 def prefill(cfg: TransformerConfig, params: dict, tokens,
-            length: int = None, pad_to_max: bool = True) -> tuple:
+            length: int = None, pad_to_max: bool = True, mesh=None) -> tuple:
     """A whole (bucket-padded) prompt tokens [L] in one causal forward
     through ``ops.attention.mha_attention``: returns (state, logits) with
     ``state`` = {``k``, ``v`` [layers, L or max_seq, Hkv, Dh] (int8 with
@@ -781,12 +816,16 @@ def prefill(cfg: TransformerConfig, params: dict, tokens,
     so prefill sees the rows decode will read, as in the reference.
     Rows at and past ``length`` hold padding K/V that decode overwrites
     before attending. ``pad_to_max=False`` returns only the bucket's L
-    rows (the engine writes them into a slot's rows itself)."""
+    rows (the engine writes them into a slot's rows itself). Under
+    ``mesh`` the heads, ffn and vocab split over tp as in ``decode_step``
+    (the state holds this rank's KV heads, the logits are whole)."""
     if cfg.moe:
         raise NotImplementedError(DENSE_ONLY)
+    tp = axis_group(mesh, "tp")
+    lcfg = _tp_local(cfg, mesh)
     l = tokens.shape[0]
     length = l if length is None else length
-    x = params["embed"][tokens.long()]
+    x = _embed_rows(params, tokens, mesh)
     if not cfg.rope:
         x = x + params["pos_embed"][:l]
     x = x.to(cfg.dtype)                                           # [L, d]
@@ -798,7 +837,7 @@ def prefill(cfg: TransformerConfig, params: dict, tokens,
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         y = _rmsnorm(x, lp["ln1"])
-        q, k, v = _qkv_proj(cfg, y, lp, "l")   # q [L,H,Dh], kv [L,Hkv,Dh]
+        q, k, v = _qkv_proj(lcfg, y, lp, "l")  # q [L,H,Dh], kv [L,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
         if cfg.kv_quant:
@@ -812,13 +851,13 @@ def prefill(cfg: TransformerConfig, params: dict, tokens,
         else:
             layers["k"].append(k.to(cfg.dtype))     # unexpanded KV heads
             layers["v"].append(v.to(cfg.dtype))
-        attn = mha_attention(q[None], _expand_kv(cfg, k)[None],
-                             _expand_kv(cfg, v)[None], causal=True)[0]
-        x = x + torch.einsum("lhk,hkd->ld", attn, lp["wo"])
-        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+        attn = mha_attention(q[None], _expand_kv(lcfg, k)[None],
+                             _expand_kv(lcfg, v)[None], causal=True)[0]
+        x = x + col.reduce_from(torch.einsum("lhk,hkd->ld", attn, lp["wo"]),
+                                tp)
+        x = _dense_ffn(x, lp, ffn=cfg.ffn, tp=tp)
     x = _rmsnorm(x, params["final_norm"])
-    logits = torch.einsum("d,vd->v", x[length - 1],
-                          params["embed"]).float()
+    logits = _vocab_logits("d,vd->v", x[length - 1], params, mesh)
     state = {name: torch.stack(arrs) for name, arrs in layers.items()}
     if pad_to_max:
         # [layers, L, ...] -> [layers, max_seq, ...]
@@ -832,7 +871,7 @@ def prefill(cfg: TransformerConfig, params: dict, tokens,
 
 
 def prefill_chunk(cfg: TransformerConfig, params: dict, tokens, cache: dict,
-                  pos0: int, clen: int = None) -> tuple:
+                  pos0: int, clen: int = None, mesh=None) -> tuple:
     """Resumable chunked prefill into one slot's rows: tokens [Lc] (bucket
     padded; ``clen`` real, default Lc; both host ints) consumed at positions
     pos0..pos0+Lc-1 as Lc ``decode_step`` calls would, in one batched
@@ -846,15 +885,18 @@ def prefill_chunk(cfg: TransformerConfig, params: dict, tokens, cache: dict,
     ``clen`` write K/V that the next chunk overwrites before it is
     attended. Returns (slab {name: [layers, Lc, ...]}, views of the rows
     just written, not copies; logits [vocab] f32 after tokens[clen -
-    1])."""
+    1]). Under ``mesh`` as ``decode_step``: this rank's KV heads, the
+    heads, ffn and vocab over tp, the logits whole."""
     if cfg.moe:
         raise NotImplementedError(DENSE_ONLY)
+    tp = axis_group(mesh, "tp")
+    lcfg = _tp_local(cfg, mesh)
     lc = tokens.shape[0]
     clen = lc if clen is None else clen
     start = max(0, min(int(pos0), cache["k"].shape[1] - lc))
     pos_t = int(pos0) + torch.arange(lc, device=tokens.device)
     wrows = start + torch.arange(lc, device=tokens.device)
-    x = params["embed"][tokens.long()]
+    x = _embed_rows(params, tokens, mesh)
     if not cfg.rope:
         x = x + params["pos_embed"][start:start + lc]
     x = x.to(cfg.dtype)                                          # [Lc, d]
@@ -866,16 +908,17 @@ def prefill_chunk(cfg: TransformerConfig, params: dict, tokens, cache: dict,
         lp = layer_params(params, i)
         kv = {name: cache[name][i] for name in names}   # [max_seq, ...]
         y = _rmsnorm(x, lp["ln1"])
-        q, k, v = _qkv_proj(cfg, y, lp, "l")  # q [Lc,H,Dh], kv [Lc,Hkv,Dh]
+        q, k, v = _qkv_proj(lcfg, y, lp, "l")  # q [Lc,H,Dh], kv [Lc,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
         _kv_write(cfg, kv, (wrows,), k, v)
         k_read, v_read = _kv_read(cfg, kv)
-        attn = _masked_attention(cfg, q, k_read, v_read, pos_t)
-        x = x + torch.einsum("thk,hkd->td", attn, lp["wo"])
-        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+        attn = _masked_attention(lcfg, q, k_read, v_read, pos_t)
+        x = x + col.reduce_from(torch.einsum("thk,hkd->td", attn, lp["wo"]),
+                                tp)
+        x = _dense_ffn(x, lp, ffn=cfg.ffn, tp=tp)
     x = _rmsnorm(x, params["final_norm"])
-    logits = torch.einsum("d,vd->v", x[clen - 1], params["embed"]).float()
+    logits = _vocab_logits("d,vd->v", x[clen - 1], params, mesh)
     return {name: cache[name][:, start:start + lc] for name in names}, \
         logits
 
@@ -921,11 +964,13 @@ def prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
 # [i*block_len, (i+1)*block_len)). Block 0 is scratch: table padding and
 # inactive slots write there, and nothing ever attends it.
 
-def init_paged_state(n_slots: int, device=None) -> dict:
+def init_paged_state(n_slots: int, device=None, mesh=None) -> dict:
     """Per-slot device state of a paged engine: the positions only; the KV
     rows live in the pool and the block tables are host cursors. On the
-    card unless ``device`` says otherwise; without CUDA that raises."""
-    return {"pos": torch.zeros((n_slots,), dtype=torch.int32,
+    card unless ``device`` says otherwise; without CUDA that raises.
+    Under ``mesh`` this rank's dp block of the slots, [S/dp]."""
+    return {"pos": torch.zeros((n_slots // axis_size(mesh, "dp"),),
+                               dtype=torch.int32,
                                device=resolve_device(device))}
 
 
@@ -962,7 +1007,8 @@ def _paged_attention_ref(cfg: TransformerConfig, q, pool_l, tables, pos):
 
 
 def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
-                       tables, pool: dict, attention=None) -> tuple:
+                       tables, pool: dict, attention=None,
+                       mesh=None) -> tuple:
     """One decode step for all S slots against the paged block pool.
 
     toks/pos: [S] int32 (``pos`` is the position being written); tables:
@@ -977,7 +1023,17 @@ def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
     ``use_flash = attn_impl == "flash" and not kv_quant`` does: K2 reads
     bf16 or f32 slabs, never int8, and an ``attention`` override raises
     rather than be handed int8 slabs. Returns (logits [S, vocab] f32,
-    pool)."""
+    pool).
+
+    Under ``mesh`` (dp×tp): toks, pos and tables are this rank's dp block
+    of the slots, the pool holds this rank's KV heads (Hkv/tp) of every
+    block, replicated over dp (``kv_cache.init_paged_pool(..., mesh=)``),
+    and params its tp block. The heads, ffn and vocab split over tp as in
+    ``decode_step``, so K2 runs at [S/dp, H/tp, Dh]; each step's fed K/V
+    rows are all-gathered over dp and written into every replica, which
+    keeps the dp replicas equal (a block one dp rank wrote may be
+    attended by a slot of another once the prefix cache shares it). The
+    logits are gathered over tp, [S/dp, vocab]."""
     if cfg.moe:
         raise NotImplementedError(DENSE_ONLY)
     if cfg.kv_quant:
@@ -988,10 +1044,12 @@ def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
                 "is read by the dequantising einsum (attention=None)")
     elif attention is None and cfg.attn_impl == "flash":
         attention = paged_decode_attention
+    tp, dp = axis_group(mesh, "tp"), axis_group(mesh, "dp")
+    lcfg = _tp_local(cfg, mesh)
     b = tables.shape[1]
     bl = pool["k"].shape[2]
     pos_l = pos.long()
-    x = params["embed"][toks.long()]
+    x = _embed_rows(params, toks, mesh)
     if not cfg.rope:
         # an out-of-range position clamps, as the reference's gather does
         # (a slot decoding past its budget inside its last chunk)
@@ -1000,24 +1058,33 @@ def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
     bidx = torch.div(pos_l, bl, rounding_mode="floor").clamp(0, b - 1)
     bids = tables.long().gather(1, bidx[:, None])[:, 0]
     boffs = pos_l % bl
+    if dp is not None:
+        # every replica takes every dp rank's rows (one gather of the
+        # addresses per step, one of the rows per layer)
+        bids, boffs = col.all_gather(torch.stack([bids, boffs]), dp, 1)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         pool_l = {name: arr[i] for name, arr in pool.items()}
         y = _rmsnorm(x, lp["ln1"])
-        q, k, v = _qkv_proj(cfg, y, lp, "b")   # q [S,H,Dh], kv [S,Hkv,Dh]
+        q, k, v = _qkv_proj(lcfg, y, lp, "b")  # q [S,H,Dh], kv [S,Hkv,Dh]
         if cfg.rope:
             cos, sin = _rope_angles(pos, cfg.head_dim, cfg.rope_theta)
             q = _rope_apply(q, cos[:, None], sin[:, None])
             k = _rope_apply(k, cos[:, None], sin[:, None])
-        _paged_write(cfg, pool_l, bids, boffs, k, v)
+        if dp is None:
+            _paged_write(cfg, pool_l, bids, boffs, k, v)
+        else:
+            rows = col.all_gather(torch.stack([k, v]), dp, 1)
+            _paged_write(cfg, pool_l, bids, boffs, rows[0], rows[1])
         if attention is not None:
             attn = attention(q, pool_l["k"], pool_l["v"], tables, pos)
         else:
-            attn = _paged_attention_ref(cfg, q, pool_l, tables, pos)
-        x = x + torch.einsum("bhk,hkd->bd", attn, lp["wo"])
-        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+            attn = _paged_attention_ref(lcfg, q, pool_l, tables, pos)
+        x = x + col.reduce_from(torch.einsum("bhk,hkd->bd", attn, lp["wo"]),
+                                tp)
+        x = _dense_ffn(x, lp, ffn=cfg.ffn, tp=tp)
     x = _rmsnorm(x, params["final_norm"])
-    logits = torch.einsum("bd,vd->bv", x, params["embed"]).float()
+    logits = _vocab_logits("bd,vd->bv", x, params, mesh)
     return logits, pool
 
 
@@ -1083,7 +1150,8 @@ def paged_verify_steps(cfg: TransformerConfig, params: dict, toks, pos0,
 
 
 def paged_prefill_chunk(cfg: TransformerConfig, params: dict, tokens, table,
-                        pos0: int, pool: dict, clen: int = None) -> tuple:
+                        pos0: int, pool: dict, clen: int = None,
+                        mesh=None) -> tuple:
     """``prefill_chunk`` through one slot's block table: tokens [Lc]
     consumed at positions pos0..pos0+Lc-1, their K/V rows written into the
     pool through ``table`` IN PLACE (quantised under ``kv_quant``), and
@@ -1093,16 +1161,21 @@ def paged_prefill_chunk(cfg: TransformerConfig, params: dict, tokens, table,
     entries are block 0) or on the slot's own future rows, which are
     written again before they are attended. Always the einsum attention,
     as in the reference. Returns (pool, logits [vocab] f32 after
-    tokens[clen - 1])."""
+    tokens[clen - 1]). Under ``mesh`` the heads, ffn and vocab split over
+    tp as in ``decode_step`` and the pool holds this rank's KV heads;
+    every dp rank runs the same chunk (a slot's table is the same on
+    each), so each dp replica of the pool takes the same rows."""
     if cfg.moe:
         raise NotImplementedError(DENSE_ONLY)
+    tp = axis_group(mesh, "tp")
+    lcfg = _tp_local(cfg, mesh)
     lc = tokens.shape[0]
     b = table.shape[0]
     bl = pool["k"].shape[2]
     clen = lc if clen is None else clen
     start = max(0, min(int(pos0), cfg.max_seq - lc))   # the slice clamps
     pos_t = int(pos0) + torch.arange(lc, device=tokens.device)   # [Lc]
-    x = params["embed"][tokens.long()]
+    x = _embed_rows(params, tokens, mesh)
     if not cfg.rope:
         x = x + params["pos_embed"][start:start + lc]
     x = x.to(cfg.dtype)                                          # [Lc, d]
@@ -1116,16 +1189,17 @@ def paged_prefill_chunk(cfg: TransformerConfig, params: dict, tokens, table,
         lp = layer_params(params, i)
         pool_l = {name: arr[i] for name, arr in pool.items()}
         y = _rmsnorm(x, lp["ln1"])
-        q, k, v = _qkv_proj(cfg, y, lp, "l")  # q [Lc,H,Dh], kv [Lc,Hkv,Dh]
+        q, k, v = _qkv_proj(lcfg, y, lp, "l")  # q [Lc,H,Dh], kv [Lc,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
         _paged_write(cfg, pool_l, bids, boffs, k, v)
         k_read, v_read = _paged_kv_read(cfg, pool_l, table[None])
-        attn = _masked_attention(cfg, q, k_read[0], v_read[0], pos_t)
-        x = x + torch.einsum("thk,hkd->td", attn, lp["wo"])
-        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+        attn = _masked_attention(lcfg, q, k_read[0], v_read[0], pos_t)
+        x = x + col.reduce_from(torch.einsum("thk,hkd->td", attn, lp["wo"]),
+                                tp)
+        x = _dense_ffn(x, lp, ffn=cfg.ffn, tp=tp)
     x = _rmsnorm(x, params["final_norm"])
-    logits = torch.einsum("d,vd->v", x[clen - 1], params["embed"]).float()
+    logits = _vocab_logits("d,vd->v", x[clen - 1], params, mesh)
     return pool, logits
 
 

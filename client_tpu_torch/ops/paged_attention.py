@@ -18,6 +18,9 @@ strides or ``Dh`` do not allow 16-byte copies take a scalar-load
 instantiation of the same kernel. Its design and its bound on the card are
 noted at the top of the CUDA source.
 
+Under an engine's tp×dp mesh it runs at the rank's block: q [S/dp, H/tp,
+Dh] against pools of Hkv/tp heads, any H a multiple of Hkv.
+
 ``launches`` counts the kernel's launches (and only those), so a run can
 show that its main path went through the kernel.
 """

@@ -6,7 +6,8 @@ collectives. The port runs one process per device in a
 ``torch.distributed`` group (NCCL on the card, gloo on the CPU), a
 ``DeviceMesh`` names its axes (``mesh.py``), and the model calls the
 collectives itself (``collectives.py``); ``pipeline.py`` is the GPipe
-schedule and ``dryrun.py`` the three-step multi-device check.
+schedule, ``spmd.py`` the driver/follower plan channel a sharded model or
+engine runs on, and ``dryrun.py`` the four-step multi-device check.
 """
 
 from client_tpu_torch.parallel.collectives import run_ranks

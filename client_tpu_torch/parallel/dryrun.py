@@ -1,13 +1,13 @@
-"""The multi-device dry run: the port of ``__graft_entry__.dryrun_multichip``
-steps 1-3, one real training step of each on tiny shapes.
+"""The multi-device dry run: the port of ``__graft_entry__.dryrun_multichip``,
+one real step of each on tiny shapes.
 
 1. dp × sp × tp: the transformer's train step with ring attention (when
    sp > 1) and tensor parallelism;
 2. dp × ep: the expert-parallel Switch-MoE train step;
-3. pp: the GPipe pipeline, gradients back through the ring.
-
-Step 4, the sharded continuous-batching engine, is ROADMAP item 9b and
-raises ``NotImplementedError``.
+3. pp: the GPipe pipeline, gradients back through the ring;
+4. dp × tp: the sharded continuous-batching engine (a llama-family config:
+   GQA with one KV head per tp rank, rope, swiglu) streams 5 greedy tokens
+   of one prompt, rank 0 driving and the other ranks following.
 
     python -m client_tpu_torch.parallel.dryrun 8 --device cpu   # 8 gloo ranks
     python -m client_tpu_torch.parallel.dryrun 1                # the card
@@ -28,10 +28,6 @@ from client_tpu_torch.parallel.mesh import (
 )
 from client_tpu_torch.parallel.pipeline import pipeline_forward
 
-ENGINE_STEP = ("dryrun step 4, the sharded continuous-batching engine, is "
-               "not ported yet: ROADMAP item 9b (A15), the engine's mesh")
-
-
 def _tokens(seed: int, shape: tuple, vocab: int, device):
     gen = torch.Generator().manual_seed(seed)
     return torch.randint(0, vocab, shape, generator=gen).to(device)
@@ -49,14 +45,13 @@ def _train_once(cfg, mesh, dp: int, seq: int, seed: int, device) -> float:
     return float(metrics["loss"])
 
 
-def dryrun_steps(n_devices: int, device=None, steps=(1, 2, 3)) -> dict:
-    """Steps 1-3 on every rank of a live process group of ``n_devices``
-    ranks; returns each step's loss (the same on every rank). Raises
-    ``AssertionError`` when a step's loss is not finite."""
+def dryrun_steps(n_devices: int, device=None, steps=(1, 2, 3, 4)) -> dict:
+    """``steps`` on every rank of a live process group of ``n_devices``
+    ranks; returns each training step's loss and the engine step's
+    stream length (the same on every rank). Raises ``AssertionError`` when
+    a loss is not finite or the engine's stream falls short."""
     from client_tpu_torch.models.transformer import TransformerConfig
 
-    if 4 in steps:
-        raise NotImplementedError(ENGINE_STEP)
     dev = resolve_device(device)
     out = {}
     if 1 in steps:
@@ -88,7 +83,48 @@ def dryrun_steps(n_devices: int, device=None, steps=(1, 2, 3)) -> dict:
                          device=dev)
         out["pp"] = pipeline_step(mesh, dev)
         assert math.isfinite(out["pp"]), "pp step diverged"
+    if 4 in steps:
+        out["engine"] = engine_step(n_devices, dev)
+        assert out["engine"] == 5, "sharded decode engine produced no stream"
     return out
+
+
+def engine_step(n_devices: int, device) -> int:
+    """Step 4: the continuous-batching engine over a dp×tp mesh (n_slots
+    2·dp, chunk 4; every rank draws the same weights from seed 4 and keeps
+    its shard) streams 5 tokens of the prompt [3, 1, 2] from rank 0;
+    returns the stream's length, broadcast to every rank."""
+    import torch.distributed as dist
+
+    from client_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+
+    sizes = factor_devices(n_devices, ("dp", "tp"))
+    dp, tp = sizes["dp"], sizes["tp"]
+    mesh = make_mesh({"dp": dp, "tp": tp, "pp": 1, "sp": 1, "ep": 1},
+                     n_devices, device=device)
+    cfg = TransformerConfig(
+        vocab_size=64, d_model=32, n_layers=2, n_heads=2 * tp, head_dim=8,
+        d_ff=16 * tp, max_seq=16, causal=True, dtype=torch.float32,
+        attn_impl="ref", n_kv_heads=tp, rope=True, ffn="swiglu")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    eng = ContinuousBatchingEngine(cfg, init_params(gen, cfg),
+                                   n_slots=2 * dp, chunk=4, mesh=mesh)
+    n = torch.zeros((), dtype=torch.int64, device=device)
+    if dist.get_rank() == 0:
+        eng.start()
+        try:
+            n += len(list(eng.submit([3, 1, 2], 5)))
+        finally:
+            eng.stop()
+    else:
+        eng.start()     # follows rank 0 until it stops
+    dist.broadcast(n, src=0)
+    return int(n)
 
 
 def pipeline_step(mesh, device) -> float:
@@ -112,13 +148,11 @@ def _dryrun_rank(rank: int, world: int, device, steps) -> dict:
     return dryrun_steps(world, device, steps)
 
 
-def dryrun_multichip(n_devices: int, device=None, steps=(1, 2, 3),
+def dryrun_multichip(n_devices: int, device=None, steps=(1, 2, 3, 4),
                      timeout_s: float = 600.0) -> dict:
     """Run ``dryrun_steps`` on ``n_devices`` ranks started by
     ``run_ranks``: NCCL over the cards, or gloo on the CPU with
-    ``device="cpu"``. Returns rank 0's losses."""
-    if 4 in steps:
-        raise NotImplementedError(ENGINE_STEP)
+    ``device="cpu"``. Returns rank 0's results."""
     dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     return run_ranks(_dryrun_rank, n_devices, backend, timeout_s,

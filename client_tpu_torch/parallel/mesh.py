@@ -163,6 +163,60 @@ LOGICAL_RULES = {
 }
 
 
+def shard_tree(tree, specs, mesh, path: str = ""):
+    """This rank's block of every leaf of ``tree`` (nested dicts of
+    tensors): ``specs`` has the tree's structure and gives each leaf a
+    tuple with the mesh axis (or None) of every dim, as ``param_specs``
+    returns them; each dim split over an axis of more than one rank is cut
+    to the rank's contiguous block along it. Raises ``ValueError`` when an
+    axis does not divide its dim."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh, f"{path}{k}.")
+                for k, v in tree.items()}
+    x = tree
+    for dim, axis in enumerate(specs):
+        n = axis_size(mesh, axis) if axis else 1
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"{path.rstrip('.')}: dim {dim} of size "
+                             f"{x.shape[dim]} does not split over "
+                             f"{axis}={n}")
+        w = x.shape[dim] // n
+        x = x.narrow(dim, axis_index(mesh, axis) * w, w)
+    return x.contiguous()
+
+
+def subset_mesh(devices: Sequence):
+    """The reference's ``engine_devices`` rule for a subset of k > 1
+    devices: a k x 1 ``("dp", "tp")`` mesh over exactly that subset. A
+    process here holds one device, so the subset must be the live process
+    group: k ranks whose devices, in rank order, are ``devices``
+    (``torch.device``s). Anything else raises ``ValueError`` saying so.
+    Collective: every rank of the group calls it."""
+    import torch
+    import torch.distributed as dist
+
+    k = len(devices)
+    if not dist.is_initialized() or dist.get_world_size() != k:
+        have = dist.get_world_size() if dist.is_initialized() else 0
+        raise ValueError(
+            f"engine_devices over {k} devices shards one engine over a live "
+            f"process group of {k} ranks, one per device (this process "
+            f"group has {have}); start the ranks with "
+            f"parallel.collectives.run_ranks or init_process_group")
+    kind = devices[0].type
+    mine = (torch.device("cuda", torch.cuda.current_device())
+            if kind == "cuda" else torch.device(kind))
+    held = [None] * k
+    dist.all_gather_object(held, str(mine))
+    if held != [str(d) for d in devices]:
+        raise ValueError(
+            f"engine_devices {[str(d) for d in devices]} must be the ranks' "
+            f"devices in rank order; the live group holds {held}")
+    return make_mesh({"dp": k, "tp": 1}, device=kind, axes=("dp", "tp"))
+
+
 def logical_to_physical(logical_axes: Sequence[Optional[str]],
                         rules: Optional[dict] = None) -> tuple:
     """Map a tuple of logical dim names to the mesh axis each dim is split

@@ -80,12 +80,16 @@ def bert_config(seq: int, attn_impl: str = "flash") -> t.TransformerConfig:
         causal=False, dtype=torch.bfloat16, attn_impl=attn_impl)
 
 
-def encoder_apply(cfg: t.TransformerConfig, params: dict, inputs: dict) -> dict:
+def encoder_apply(cfg: t.TransformerConfig, params: dict, inputs: dict,
+                  mesh=None) -> dict:
     """input_ids [B, L] -> {"embedding": [B, d] f32}: embed + pos_embed,
-    the layers, the final RMSNorm, then a mean over the sequence."""
-    x = t.embed_tokens(cfg, params, inputs["input_ids"])
+    the layers, the final RMSNorm, then a mean over the sequence. Under a
+    mesh: the rank's dp block of the batch and tp block of the weights
+    (the heads, and so K1's, split over tp), the embedding replicated over
+    tp."""
+    x = t.embed_tokens(cfg, params, inputs["input_ids"], mesh)
     for i in range(cfg.n_layers):
-        x, _ = t._layer(cfg, x, t.layer_params(params, i))
+        x, _ = t._layer(cfg, x, t.layer_params(params, i), mesh)
     x = t._rmsnorm(x, params["final_norm"])
     return {"embedding": x.mean(dim=1).float()}
 
@@ -94,9 +98,12 @@ def make_encoder_model(cfg: t.TransformerConfig, params: dict, seq: int,
                        max_batch: int, name: str = "bert_base",
                        pipeline_depth: int = 8,
                        max_queue_delay_us: int = 5000,
-                       device=None) -> TorchModel:
+                       device=None, mesh=None) -> TorchModel:
     """An encoder of any width behind the dynamic batcher with ONE static
-    bucket: every batch pads to ``max_batch`` rows."""
+    bucket: every batch pads to ``max_batch`` rows. With ``mesh`` the
+    model is sharded over it (``TorchModel``'s mesh: the weights by
+    ``param_specs``, the batch over dp; ``max_batch`` must divide by
+    dp); every rank builds it, rank 0 serves it."""
     model_config = ModelConfig(
         name=name,
         max_batch_size=max_batch,
@@ -108,6 +115,13 @@ def make_encoder_model(cfg: t.TransformerConfig, params: dict, seq: int,
             pipeline_depth=pipeline_depth),
         batch_buckets_override=(max_batch,),
     )
+    if mesh is not None:
+        return TorchModel(model_config,
+                          lambda params, inputs, mesh: encoder_apply(
+                              cfg, params, inputs, mesh),
+                          params=params, mesh=mesh,
+                          param_sharding=t.param_specs(cfg),
+                          input_sharding=("dp", None))
     return TorchModel(model_config,
                       lambda params, inputs: encoder_apply(cfg, params, inputs),
                       params=params, device=device)

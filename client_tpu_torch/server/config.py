@@ -10,9 +10,9 @@ router's and its ``autoscale`` and ``canary`` blocks the policy of its
 controller (``server/autoscale.py``); ``response_cache`` turns on the v2
 response cache; ``sequence_batching`` puts a model behind the sequence
 scheduler and ``ensemble_steps`` makes it an ensemble of other served
-models. The reference's sharding block waits for ROADMAP item 9b (A15),
-which shards one engine over several cards. ``platform`` and ``backend`` read ``"pytorch"`` (the reference's
-generator says ``"python"``).
+models. ``sharding`` (``ShardingSpec``) describes the mesh a sharded
+model or engine is laid over. ``platform`` and ``backend`` read
+``"pytorch"`` (the reference's generator says ``"python"``).
 """
 
 from __future__ import annotations
@@ -369,6 +369,24 @@ class CanaryConfig:
 
 
 @dataclass
+class ShardingSpec:
+    """The mesh a model is laid over (the reference's block, field for
+    field): ``mesh_axes``/``mesh_shape`` define the mesh; ``batch_axis``
+    names the axis the batch dimension is sharded over (data-parallel
+    serving); the remaining axes carry tensor parallelism inside the
+    model."""
+
+    mesh_axes: tuple = ("data",)
+    mesh_shape: tuple = ()
+    batch_axis: str = "data"
+
+    def to_json(self):
+        return {"mesh_axes": list(self.mesh_axes),
+                "mesh_shape": list(self.mesh_shape),
+                "batch_axis": self.batch_axis}
+
+
+@dataclass
 class ModelConfig:
     name: str
     platform: str = "pytorch"
@@ -385,6 +403,7 @@ class ModelConfig:
     queue_policy: Optional[QueuePolicy] = None
     instance_count: int = 1
     device_ids: tuple = ()
+    sharding: Optional[ShardingSpec] = None
     parameters: dict = field(default_factory=dict)
     # explicit static batch buckets. Empty => powers of two up to
     # max_batch_size. A single bucket (max_batch_size,) pads every batch
@@ -468,6 +487,8 @@ class ModelConfig:
             j["response_cache"] = {"enable": True}
         if self.queue_policy is not None:
             j["queue_policy"] = self.queue_policy.to_json()
+        if self.sharding is not None:
+            j["sharding"] = self.sharding.to_json()
         if self.prefix_cache is not None:
             j["prefix_cache"] = self.prefix_cache.to_json()
         if self.speculative is not None:

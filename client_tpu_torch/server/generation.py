@@ -157,10 +157,28 @@ signals and flight-record fields.
 Placement: ``engine_devices`` (the reference's explicit-placement knob)
 pins every tensor of the engine to one device, named by a CUDA index or a
 ``torch.device``; a replica fleet (``server/fleet.py``) builds one engine
-per replica and reads ``load_depth`` to route. A subset of more than one
-device, and ``mesh``, shard one engine over devices: they raise
-``NotImplementedError`` naming ROADMAP item 9b (A15). An unknown
-knob raises ``TypeError``; none is silently ignored.
+per replica and reads ``load_depth`` to route. An unknown knob raises
+``TypeError``; none is silently ignored.
+
+The engine's mesh: ``mesh`` (a dp×tp ``DeviceMesh`` from
+``parallel.mesh.make_mesh``; every other axis of size 1), or an
+``engine_devices`` subset of k > 1 devices (a k×1 dp mesh over a live
+group of exactly those ranks, ``parallel.mesh.subset_mesh``), shards one
+engine over one process per device (``parallel/spmd.py``): every rank
+builds the same engine and holds its shard, the slots split over dp, the
+heads, ffn and vocab over tp (``transformer.shard_params``), the paged
+pool's heads over tp with its blocks replicated over dp. Rank 0 drives:
+its engine thread runs every piece of host bookkeeping and, before each
+device op (``_op_*``: a chunk, a prefill or prefill chunk, a prefix
+restore or commit), broadcasts the op and its host arguments as a plan;
+every rank then runs the op on its shard. The chunk's next tokens are
+the argmax (or the stateless per-row draw) over logits gathered over tp,
+the same on every rank of a tp group, so a chunk stays on the device;
+each chunk's ring entry is gathered over dp, so rank 0 fetches the whole
+ring. On a follower ``start()`` follows the plans until rank 0 stops,
+and ``submit`` raises. Speculation, the dedicated prefill lanes, the
+host tier and int8 KV raise ``NotImplementedError`` under a mesh, naming
+ROADMAP item 9c.
 """
 
 from __future__ import annotations
@@ -175,9 +193,13 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from client_tpu_torch.device import resolve_device
 from client_tpu_torch.models import transformer as t
+from client_tpu_torch.parallel import collectives as col
+from client_tpu_torch.parallel import spmd
+from client_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
 from client_tpu_torch.models.sampling import (
     MAX_TOP_K,
     filtered_probs,
@@ -248,11 +270,9 @@ from client_tpu_torch.server.watchdog import (
 
 log = logging.getLogger(__name__)
 
-# the ROADMAP item that shards one engine over devices (``mesh``, an
-# ``engine_devices`` subset of more than one device); the mesh itself, the
-# tensor-parallel layers and training are item 9a
-MESH_REMAINDER = "item 9b (A15), the engine's mesh: sharding one engine " \
-    "over devices"
+# the ROADMAP item of the engine's planes not ported under a mesh
+# (speculation, the dedicated prefill lanes, the host tier, int8 KV)
+MESH_REMAINDER = "item 9c, the engine's optional planes under a mesh"
 
 
 def reject_unknown_knobs(knobs: dict) -> None:
@@ -265,7 +285,7 @@ def reject_unknown_knobs(knobs: dict) -> None:
 
 def _chunk_steps(step, pos, last, ring, ring_cnt, entry: int, feed, rem,
                  active, freeze, seeds, temps, topks, topps,
-                 sample: bool) -> tuple:
+                 sample: bool, dp=None) -> tuple:
     """The C uniform steps both chunk kernels share (the reference's
     ``lax.scan`` body, a Python loop here). ``step(tok, pos)`` feeds one
     token per slot at ``pos`` and returns the logits [S, vocab]. A slot
@@ -274,7 +294,8 @@ def _chunk_steps(step, pos, last, ring, ring_cnt, entry: int, feed, rem,
     and ``last`` once its prompt columns are consumed, and free slots park
     at position 0 (``freeze`` None: no slot is frozen). Writes the
     consumed tokens [S, C] into ring entry ``entry``; returns (new last,
-    new pos)."""
+    new pos). ``dp``: under a mesh the dp group, over which the slots are
+    split: the entry's rows are gathered over it into the whole ring."""
     c = feed.shape[1]
     cols = []
     for i in range(c):
@@ -296,13 +317,17 @@ def _chunk_steps(step, pos, last, ring, ring_cnt, entry: int, feed, rem,
         cols.append(tok)
     toks = torch.stack(cols, dim=1)
     n_emit = torch.where(active, c, 0).to(torch.int32)
+    if dp is not None:
+        both = col.all_gather(torch.cat([toks, n_emit[:, None]], dim=1),
+                              dp, 0)
+        toks, n_emit = both[:, :c], both[:, c]
     t.emit_into_ring(ring, ring_cnt, entry, toks, n_emit)
     return last, pos
 
 
 def chunk_kernel(cfg, params: dict, cache: dict, pos, last, ring, ring_cnt,
                  entry: int, feed, rem, active, reset, freeze, seeds, temps,
-                 topks, topps, sample: bool) -> tuple:
+                 topks, topps, sample: bool, mesh=None) -> tuple:
     """One engine chunk under the slot layout: C uniform steps over all S
     slots (the reference's ``chunk_kernel``), each a batched
     ``transformer.decode_step`` over the slots' own KV rows.
@@ -318,20 +343,23 @@ def chunk_kernel(cfg, params: dict, cache: dict, pos, last, ring, ring_cnt,
     attending); seeds/temps/topks/
     topps [S] per-slot sampling parameters; ``sample`` (host bool) False
     takes the argmax without the sampling machinery. Returns (new last,
-    new pos)."""
+    new pos). Under ``mesh`` the slot inputs and state are this rank's
+    dp block and the ring is whole."""
     pos = torch.where(reset, torch.zeros_like(pos), pos)
 
     def step(tok, p):
-        return t.decode_step(cfg, params, tok, {**cache, "pos": p})[0]
+        return t.decode_step(cfg, params, tok, {**cache, "pos": p},
+                             mesh=mesh)[0]
 
     return _chunk_steps(step, pos, last, ring, ring_cnt, entry, feed, rem,
-                        active, freeze, seeds, temps, topks, topps, sample)
+                        active, freeze, seeds, temps, topks, topps, sample,
+                        axis_group(mesh, "dp"))
 
 
 def paged_chunk_kernel(cfg, params: dict, pool: dict, pos, last, ring,
                        ring_cnt, entry: int, tables, feed, rem, active,
                        reset, reset_to, freeze, seeds, temps, topks, topps,
-                       sample: bool, attention=None) -> tuple:
+                       sample: bool, attention=None, mesh=None) -> tuple:
     """One engine chunk under the paged layout (the reference's
     ``paged_chunk_kernel``): ``chunk_kernel``'s steps with every KV write
     going through the block tables [S, Bw] int32 into the pool, IN PLACE,
@@ -341,15 +369,17 @@ def paged_chunk_kernel(cfg, params: dict, pool: dict, pos, last, ring,
     reset/reset_to [S]: a (re)admitted slot's position is set to reset_to
     first. ``attention`` overrides the attention function (the plain K2,
     for example). Free slots write scratch. Returns (new last, new
-    pos)."""
+    pos). Under ``mesh`` as ``chunk_kernel``; the tables are this rank's
+    slots' and the pool this rank's heads of every block."""
     pos = torch.where(reset, reset_to, pos)
 
     def step(tok, p):
         return t.paged_decode_steps(cfg, params, tok, p, tables, pool,
-                                    attention=attention)[0]
+                                    attention=attention, mesh=mesh)[0]
 
     return _chunk_steps(step, pos, last, ring, ring_cnt, entry, feed, rem,
-                        active, freeze, seeds, temps, topks, topps, sample)
+                        active, freeze, seeds, temps, topks, topps, sample,
+                        axis_group(mesh, "dp"))
 
 
 def _select_first(logits, pos, idx: int, sampling: tuple):
@@ -362,14 +392,15 @@ def _select_first(logits, pos, idx: int, sampling: tuple):
 
 
 def prefill_into_slot(cfg, params: dict, cache: dict, pos, last, idx: int,
-                      toks, plen: int, sampling: tuple) -> None:
+                      toks, plen: int, sampling: tuple, mesh=None) -> None:
     """``prefill_mode="batched"`` admission, one forward: the
     bucket-padded prompt ``toks`` through ``transformer.prefill``, the
     first token selected at ``plen - 1`` into ``last[idx]``, the bucket's
     K/V rows written into slot ``idx`` and its position set to ``plen``,
     all IN PLACE (the reference donates the state). Rows past the bucket
     keep stale K/V that decode overwrites before attending."""
-    st, logits = t.prefill(cfg, params, toks, plen, pad_to_max=False)
+    st, logits = t.prefill(cfg, params, toks, plen, pad_to_max=False,
+                           mesh=mesh)
     bucket = toks.shape[0]
     for name in cache:
         cache[name][idx, :, :bucket] = st[name]
@@ -379,7 +410,8 @@ def prefill_into_slot(cfg, params: dict, cache: dict, pos, last, idx: int,
 
 def prefill_chunk_into_slot(cfg, params: dict, cache: dict, pos, last,
                             idx: int, toks, pos0: int, clen: int,
-                            final: bool, sampling: tuple) -> None:
+                            final: bool, sampling: tuple,
+                            mesh=None) -> None:
     """One chunked-prefill lane dispatch under the slot layout: slot
     ``idx`` resumes its prompt at ``pos0`` with ``clen`` real tokens of the
     bucket-padded chunk ``toks`` (``transformer.prefill_chunk``, writing
@@ -388,21 +420,26 @@ def prefill_chunk_into_slot(cfg, params: dict, cache: dict, pos, last,
     generated token into ``last[idx]``, which the next decode chunk
     consumes."""
     slot_rows = {name: arr[idx] for name, arr in cache.items()}
-    _, logits = t.prefill_chunk(cfg, params, toks, slot_rows, pos0, clen)
+    _, logits = t.prefill_chunk(cfg, params, toks, slot_rows, pos0, clen,
+                                mesh=mesh)
     pos[idx] = pos0 + clen
     if final:
         last[idx] = _select_first(logits, pos, idx, sampling)
 
 
 def paged_prefill_chunk_into_slot(cfg, params: dict, pool: dict, pos, last,
-                                  idx: int, table, toks, pos0: int,
+                                  idx: Optional[int], table, toks, pos0: int,
                                   clen: int, final: bool,
-                                  sampling: tuple) -> None:
+                                  sampling: tuple, mesh=None) -> None:
     """``prefill_chunk_into_slot`` under the paged layout: the chunk's
     rows go through the slot's full-width block table ``table`` [B] into
-    the pool (``transformer.paged_prefill_chunk``)."""
+    the pool (``transformer.paged_prefill_chunk``). ``idx`` None (a dp
+    rank that does not hold the slot, under a mesh) writes the pool rows
+    only: every dp replica of the pool takes them."""
     _, logits = t.paged_prefill_chunk(cfg, params, toks, table, pos0, pool,
-                                      clen)
+                                      clen, mesh=mesh)
+    if idx is None:
+        return
     pos[idx] = pos0 + clen
     if final:
         last[idx] = _select_first(logits, pos, idx, sampling)
@@ -812,7 +849,15 @@ class ContinuousBatchingEngine:
     counters every ``watchdog_interval_s`` and runs the reference's
     detectors with ``watchdog_thresholds`` over the defaults, recording
     into ``incident_store`` (a fresh store when None; the generator
-    passes one store shared across restarts)."""
+    passes one store shared across restarts).
+
+    The mesh: ``mesh`` (or ``engine_devices`` over k > 1 devices) shards
+    the engine over one process per device, as the module docstring
+    sets out. Every rank builds it with the same arguments and the same
+    whole ``params``; rank 0 is the driver (``start``, ``submit``), and
+    on every other rank ``start()`` runs the follower loop until rank 0
+    stops. ``n_slots`` must divide by dp and the KV heads by tp (the
+    reference's errors)."""
 
     PREFILL_MODES = ("token", "batched", "chunked")
     KV_LAYOUTS = ("slot", "paged")
@@ -845,6 +890,11 @@ class ContinuousBatchingEngine:
                  engine_devices=None, mesh=None, **unknown):
         reject_unknown_knobs(unknown)
         pinned = self.resolve_engine_devices(engine_devices, mesh)
+        if pinned is not None and not isinstance(pinned, torch.device):
+            # a subset of k > 1 devices: a k x 1 dp mesh over them
+            mesh, pinned = pinned, None
+        if mesh is not None:
+            self.resolve_mesh(cfg, mesh, n_slots)
         if chunk < 1 or n_slots < 1:
             raise ValueError("n_slots and chunk must be >= 1")
         if fetch_stride < 1:
@@ -949,11 +999,45 @@ class ContinuousBatchingEngine:
             cfg, mode, prefill_slots, prefill_lane_width, prefill_chunk,
             self._kv_layout, prefix_cache, prefix_commit_policy)
         self._lane_on = self._lane_n > 0
+        if mesh is not None:
+            if self._lane_on and self._lane_n % axis_size(mesh, "dp"):
+                raise ValueError(
+                    f"prefill_slots {self._lane_n} must be divisible by "
+                    f"the mesh dp size {axis_size(mesh, 'dp')} (the lane "
+                    f"state shards its slot dim over dp like the decode "
+                    f"pool)")
+            for knob, on in (("speculative_draft", self._spec is not None),
+                             ("prefill_slots", self._lane_on),
+                             ("host_tier_bytes", self._host_tier_bytes > 0),
+                             ("kv_quant", cfg.kv_quant)):
+                if on:
+                    raise NotImplementedError(
+                        f"generation engine knob '{knob}' under a mesh is "
+                        f"not ported yet: ROADMAP {MESH_REMAINDER}")
         self._lane_slots = [_Slot() for _ in range(self._lane_n)]
         self._lane_adm_seq = 0
         self._lane_handoffs = 0
         self._lane_batch = self.resolve_lane_batch(self._lane_n,
                                                    prefill_lane_batch)
+        # the mesh: a private copy of its groups (collectives of this
+        # engine never share a communicator with another object's), the
+        # plan channel, this rank's dp coordinate; the params cut to this
+        # rank's tp block now, so a width that does not split raises here
+        self._mesh = self._chan = None
+        self._dp, self._dp_idx = 1, 0
+        if mesh is not None:
+            dev = spmd.mesh_device(mesh)
+            if device is not None and resolve_device(device).type \
+                    != dev.type:
+                raise ValueError(
+                    f"device {device!r} conflicts with the mesh's device "
+                    f"type {dev.type!r}: a mesh places the engine")
+            self._mesh = spmd.ShardMesh(mesh)
+            self._chan = spmd.PlanChannel(self._mesh.plan_group)
+            self._dp = axis_size(self._mesh, "dp")
+            self._dp_idx = axis_index(self._mesh, "dp")
+            params = t.shard_params(cfg, params, self._mesh)
+            pinned = dev
         self._device = (pinned if pinned is not None
                         else resolve_device(device))
         if self._device.type == "cuda" and self._device.index is None:
@@ -1061,7 +1145,9 @@ class ContinuousBatchingEngine:
         # the MFU pair stays unregistered)
         self.goodput = GoodputTracker(
             sample_every=device_time_sample_every,
-            peak_flops=device_peak_flops(self._device))
+            peak_flops=device_peak_flops(
+                self._device,
+                1 if self._mesh is None else self._mesh.size()))
         self._flop_model = FlopModel(cfg)
         self._draft_flop_model = (FlopModel(speculative_draft.cfg)
                                   if speculative_draft is not None else None)
@@ -1297,20 +1383,17 @@ class ContinuousBatchingEngine:
 
     @staticmethod
     def resolve_engine_devices(engine_devices, mesh=None):
-        """The reference's explicit-placement rule, for one device:
-        ``engine_devices`` is a sequence of CUDA device indices or
-        ``torch.device``s; a one-device subset is the device every tensor
-        of the engine lives on (returned), None the default placement.
-        Loud errors, never silent fallbacks: an index out of range, a
-        device listed twice, an empty subset and a conflict with
-        ``mesh`` raise ``ValueError``; ``mesh`` alone and a subset of more
-        than one device shard one engine over devices, which raises
-        ``NotImplementedError`` naming ROADMAP item 9b (A15)."""
+        """The reference's explicit-placement rule: ``engine_devices`` is a
+        sequence of CUDA device indices or ``torch.device``s; a one-device
+        subset is the device every tensor of the engine lives on
+        (returned), None the default placement (or ``mesh``'s). A subset
+        of k > 1 devices is a k x 1 ``("dp", "tp")`` mesh over exactly
+        those devices, which needs a live process group of k ranks whose
+        devices they are (``parallel.mesh.subset_mesh``; returned). Loud
+        errors, never silent fallbacks: an index out of range, a device
+        listed twice, an empty subset, a conflict with ``mesh`` and a
+        subset with no matching group raise ``ValueError``."""
         if engine_devices is None:
-            if mesh is not None:
-                raise NotImplementedError(
-                    f"generation engine knob 'mesh' is not ported yet: "
-                    f"ROADMAP {MESH_REMAINDER}")
             return None
         if mesh is not None:
             raise ValueError(
@@ -1337,10 +1420,39 @@ class ContinuousBatchingEngine:
                 "engine_devices must name at least one device "
                 "(None = default placement)")
         if len(devs) > 1:
-            raise NotImplementedError(
-                f"engine_devices over {len(devs)} devices shards one "
-                f"engine: not ported yet, ROADMAP {MESH_REMAINDER}")
+            from client_tpu_torch.parallel.mesh import subset_mesh
+
+            return subset_mesh(devs)
         return devs[0]
+
+    @staticmethod
+    def resolve_mesh(cfg, mesh, n_slots: int) -> tuple:
+        """Validate an engine mesh; returns ``(dp, tp)``. It must be a
+        ``DeviceMesh`` (``parallel.mesh.make_mesh``) whose axes other than
+        dp and tp have one rank; ``n_slots`` must divide by dp and the KV
+        heads by tp (the reference's errors)."""
+        names = getattr(mesh, "mesh_dim_names", None)
+        if not names or "dp" not in names:
+            raise TypeError(
+                f"mesh must be a DeviceMesh with a 'dp' axis (and 'tp'), "
+                f"as parallel.mesh.make_mesh builds it; got {mesh!r}")
+        sizes = dict(zip(names, (int(n) for n in mesh.shape)))
+        other = {a: n for a, n in sizes.items()
+                 if a not in ("dp", "tp") and n != 1}
+        if other:
+            raise ValueError(f"the engine shards over dp and tp only; the "
+                             f"mesh also splits {other}")
+        dp, tp = sizes["dp"], sizes.get("tp", 1)
+        if n_slots % dp:
+            raise ValueError(
+                f"n_slots {n_slots} must be divisible by the mesh dp "
+                f"size {dp}")
+        if cfg.kv_heads % tp:
+            raise ValueError(
+                f"KV head count {cfg.kv_heads} must be divisible by "
+                f"the mesh tp size {tp} (the KV cache shards heads "
+                f"over tp)")
+        return dp, tp
 
     # ---------------------------------------------------------- introspection
 
@@ -1883,6 +1995,13 @@ class ContinuousBatchingEngine:
     # ---------------------------------------------------------- lifecycle
 
     def start(self) -> "ContinuousBatchingEngine":
+        """Start the engine thread (rank 0 of a mesh too). On a follower
+        rank of a mesh, run the follower loop here instead: it returns
+        when rank 0 stops, and raises when rank 0 failed or the mesh
+        broke."""
+        if self._chan is not None and not self._chan.is_driver:
+            self._follow()
+            return self
         with self._lock:
             if self._started or self._stopping:
                 return self
@@ -1893,6 +2012,11 @@ class ContinuousBatchingEngine:
         return self
 
     def stop(self) -> None:
+        if self._chan is not None and self._chan.is_driver \
+                and not self._started:
+            # the followers wait in the warm-up's collectives: the thread
+            # meets them, sees the stop and sends them theirs
+            self.start()
         with self._lock:
             already = self._stopping
             self._stopping = True
@@ -1913,6 +2037,30 @@ class ContinuousBatchingEngine:
                     "iteration(s), newest last): %s",
                     self.name, self._n_slots, self._chunk, len(tail),
                     json.dumps(tail, default=str))
+
+    def _follow(self) -> None:
+        """A follower rank's loop: build this rank's shard (the same
+        warm-up launches as rank 0's, whose collectives they meet), then
+        run every plan rank 0 broadcasts until its STOP. Any failure
+        marks the engine dead and raises on this rank."""
+        with self._lock:
+            if self._started:
+                return
+            self._started = True
+        try:
+            with torch.inference_mode():
+                if self._device.type == "cuda":
+                    torch.cuda.set_device(self._device)
+                self._ensure_ready()
+                spmd.follow(self._chan, lambda op, args: getattr(
+                    self, "_op_" + op)(*args))
+            self._mesh.destroy()
+        except Exception as e:
+            self._failed = e
+            raise
+        finally:
+            self._stopping = True
+            self._dev.clear()
 
     def drain(self, timeout: float = 60.0) -> bool:
         """Stop admitting (a later submit gets a 503) and wait until every
@@ -2051,6 +2199,10 @@ class ContinuousBatchingEngine:
         abandoning the returned iterator cancels too. ``trace`` is the
         request's sampled ``Trace`` (None: untraced), which the engine
         stamps with its spans."""
+        if self._chan is not None and not self._chan.is_driver:
+            raise RuntimeError(
+                "this engine is a follower rank of a mesh: it runs rank "
+                "0's plans; submit on rank 0")
         for key, val in (("tenant_id", tenant_id),
                          ("slo_class", slo_class)):
             if not isinstance(val, str) or not TENANT_ID_RE.match(val):
@@ -2236,16 +2388,17 @@ class ContinuousBatchingEngine:
         if "ready" in self._dev:
             return
         cfg, s, c, dev = self._cfg, self._n_slots, self._chunk, self._device
+        mesh = self._mesh
         if self._paged:
             self._dev["pool"] = init_paged_pool(cfg, self._kv_pool_blocks,
-                                                self._kv_block_len, dev)
+                                                self._kv_block_len, dev, mesh)
             self._dev["table_buckets"] = block_count_buckets(
                 cfg.max_seq // self._kv_block_len)
-            self._dev["pos"] = t.init_paged_state(s, dev)["pos"]
+            self._dev["pos"] = t.init_paged_state(s, dev, mesh)["pos"]
         else:
             # the KV tensors (int8 ones with their scale tables under
-            # kv_quant) and the positions
-            state = t.init_decode_state(cfg, s, dev)
+            # kv_quant) and the positions (this rank's block under a mesh)
+            state = t.init_decode_state(cfg, s, dev, mesh)
             self._dev["pos"] = state.pop("pos")
             self._dev["cache"] = state
             if self._prefix_index is not None:
@@ -2254,7 +2407,7 @@ class ContinuousBatchingEngine:
                 # padded to a power-of-two count of them
                 bl = self._prefix_block_len
                 self._dev["prefix_pool"] = init_block_pool(
-                    cfg, self._prefix_blocks, bl, dev)
+                    cfg, self._prefix_blocks, bl, dev, mesh)
                 self._dev["prefix_buckets"] = block_count_buckets(
                     max(1, cfg.max_seq // bl))
         if self._prefill_enabled:
@@ -2276,23 +2429,26 @@ class ContinuousBatchingEngine:
             # the draft's catch-up covers whole prompts
             self._dev["draft_buckets"] = block_count_buckets(cfg.max_seq,
                                                              start=8)
+        # the ring holds every slot (a mesh gathers each entry over dp)
         self._dev["ring"] = torch.zeros(
             (self._ring_entries, s, self._ring_width), dtype=torch.int32,
             device=dev)
         self._dev["ring_cnt"] = torch.zeros((self._ring_entries, s),
                                             dtype=torch.int32, device=dev)
-        self._dev["last"] = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self._dev["last"] = torch.zeros((s // self._dp,), dtype=torch.int32,
+                                        device=dev)
         self._dev["params"] = _to_device(self._params_host, dev)
         # the engine has no reload path: drop the caller's copy
         self._params_host = None
-        zi = torch.zeros((s,), dtype=torch.int32, device=dev)
-        zb = torch.zeros((s,), dtype=torch.bool, device=dev)
-        zf = torch.zeros((s,), dtype=torch.float32, device=dev)
-        tab0 = torch.zeros((s, 1), dtype=torch.int32, device=dev)
-        feed0 = torch.zeros((s, c), dtype=torch.int32, device=dev)
+        zi = np.zeros((s,), np.int32)
+        zb = np.zeros((s,), np.bool_)
+        zf = np.zeros((s,), np.float32)
+        warm = [np.zeros((s, c), np.int32), zi, zb, zb, zb, zi, zf, zi, zf]
+        if self._paged:
+            warm += [np.zeros((s, 1), np.int32), zi]
         for sample in (False, True):
-            self._launch_chunk(0, tab0, feed0, zi, zb, zb, zi, zb, zi, zf,
-                               zi, zf, sample)
+            # every rank of a mesh runs these itself (no plan)
+            self._op_chunk(0, warm, True, sample)
         if self._host_tier_bytes:
             self._attach_tier()
         # the memory ledger: the big device residents this engine placed,
@@ -2376,12 +2532,132 @@ class ContinuousBatchingEngine:
                 self._cfg, dev["params"], dev["pool"], dev["pos"],
                 dev["last"], dev["ring"], dev["ring_cnt"], entry, tables,
                 feed, rem, active, reset, reset_to, freeze, seeds, temps,
-                topks, topps, sample)
+                topks, topps, sample, mesh=self._mesh)
         else:
             dev["last"], dev["pos"] = chunk_kernel(
                 self._cfg, dev["params"], dev["cache"], dev["pos"],
                 dev["last"], dev["ring"], dev["ring_cnt"], entry, feed, rem,
-                active, reset, freeze, seeds, temps, topks, topps, sample)
+                active, reset, freeze, seeds, temps, topks, topps, sample,
+                mesh=self._mesh)
+
+    # ------------------------------------------------ device ops (the mesh)
+    #
+    # Every device dispatch of the mesh path is an ``_op_*`` method of host
+    # arguments only (ints, floats, bools, numpy arrays), so a follower can
+    # run it from rank 0's plan: ``_exec`` broadcasts the plan and runs it
+    # here; without a mesh it only runs it.
+
+    def _exec(self, op: str, *args):
+        """Run device op ``_op_<op>`` on this rank, after broadcasting it
+        to the followers as a plan under a mesh; returns what it returns."""
+        if self._chan is not None:
+            self._chan.send(op, *args)
+        return getattr(self, "_op_" + op)(*args)
+
+    def _mine(self, a: np.ndarray) -> np.ndarray:
+        """This rank's dp block of a per-slot host array (dim 0 = slots)."""
+        if self._dp == 1:
+            return a
+        per = self._n_slots // self._dp
+        return a[self._dp_idx * per:(self._dp_idx + 1) * per]
+
+    def _owner(self, idx: int) -> Optional[int]:
+        """Decode slot ``idx``'s row in this rank's state, or None when
+        another dp rank holds the slot."""
+        if self._dp == 1:
+            return idx
+        per = self._n_slots // self._dp
+        if idx // per != self._dp_idx:
+            return None
+        return idx - self._dp_idx * per
+
+    def _op_chunk(self, entry: int, host: list, frozen: bool,
+                  sample: bool):
+        """One chunk dispatch from its host inputs ``host`` = [feed, rem,
+        active, reset, freeze, seeds, temps, topks, topps] (and, paged,
+        [tables, reset_to]), each cut to this rank's slots; ``frozen``
+        False passes no freeze mask. Returns ``_start_timing()``'s pair,
+        its first event recorded after the upload (as the verify
+        round's), its second after the launch."""
+        (feed, rem, active, reset, freeze, seeds, temps, topks, topps,
+         *paged) = self._upload([self._mine(a) for a in host])
+        tables, reset_to = paged or (None, None)
+        timing = self._start_timing()
+        self._launch_chunk(entry, tables, feed, rem, active, reset, reset_to,
+                           freeze if frozen else None, seeds, temps, topks,
+                           topps, sample)
+        if timing is not None:
+            timing[1].record()
+        return timing
+
+    def _op_prefill(self, idx: int, padded: np.ndarray, plen: int,
+                    ints: np.ndarray, floats: np.ndarray) -> None:
+        """Batched prefill into decode slot ``idx`` (on its dp rank)."""
+        local = self._owner(idx)
+        if local is None:
+            return
+        toks, ints_d, floats_d = self._upload([padded, ints, floats])
+        dev = self._dev
+        prefill_into_slot(self._cfg, dev["params"], dev["cache"], dev["pos"],
+                          dev["last"], local, toks, plen,
+                          (ints_d[0], floats_d[0], ints_d[1], floats_d[1]),
+                          mesh=self._mesh)
+
+    def _op_prefill_chunk(self, idx: int, lane: bool, padded: np.ndarray,
+                          ints: np.ndarray, floats: np.ndarray, table,
+                          pos0: int, clen: int, final: bool) -> None:
+        """One prefill-lane chunk into slot ``idx`` (a dedicated lane
+        slot with ``lane``). Slot layout: on the slot's dp rank. Paged:
+        on every dp rank, since each holds a replica of the pool; only
+        the slot's rank moves its position and first token."""
+        local = idx if lane else self._owner(idx)
+        if local is None and not self._paged:
+            return
+        arrays = [padded, ints, floats] + ([table] if self._paged else [])
+        toks, ints_d, floats_d, *tab = self._upload(arrays)
+        sampling = (ints_d[0], floats_d[0], ints_d[1], floats_d[1])
+        dev = self._dev
+        pos, last = ((dev["lane_pos"], dev["lane_last"]) if lane
+                     else (dev["pos"], dev["last"]))
+        if self._paged:
+            paged_prefill_chunk_into_slot(
+                self._cfg, dev["params"], dev["pool"], pos, last, local,
+                tab[0], toks, pos0, clen, final, sampling, mesh=self._mesh)
+        else:
+            prefill_chunk_into_slot(
+                self._cfg, dev["params"], self._slot_state(lane)[0], pos,
+                last, local, toks, pos0, clen, final, sampling,
+                mesh=self._mesh)
+
+    def _op_restore(self, idx: int, lane: bool, ids: np.ndarray,
+                    n_tok: int) -> None:
+        """``pool_to_slot`` of prefix blocks ``ids`` into slot ``idx``
+        (on its dp rank: the pool is replicated, the slot rows are not)."""
+        local = idx if lane else self._owner(idx)
+        if local is None:
+            return
+        (ids_d,) = self._upload([ids])
+        cache, pos = self._slot_state(lane)
+        pool_to_slot(self._dev["prefix_pool"], cache, pos, local, ids_d,
+                     n_tok)
+
+    def _op_commit(self, idx: int, lane: bool, ids: np.ndarray,
+                   offs: np.ndarray) -> None:
+        """``slot_to_pool`` of slot ``idx``'s rows into prefix blocks
+        ``ids``: under dp > 1 the slot's rank broadcasts the rows and
+        every replica of the pool writes them."""
+        ids_d, offs_d = self._upload([ids, offs])
+        cache = self._slot_state(lane)[0]
+        if self._dp == 1:
+            slot_to_pool(self._dev["prefix_pool"], cache, idx, ids_d, offs_d)
+            return
+        local = self._owner(idx)
+        group = axis_group(self._mesh, "dp")
+        src = dist.get_global_rank(group,
+                                   idx // (self._n_slots // self._dp))
+        slot_to_pool(self._dev["prefix_pool"],
+                     cache if local is not None else None, local, ids_d,
+                     offs_d, group, src)
 
     def _upload(self, arrays: list) -> list:
         """Copy this dispatch's host inputs to the device in ONE transfer:
@@ -2556,12 +2832,11 @@ class ContinuousBatchingEngine:
         req.prefix = handle
         bucket = next(b for b in self._dev["prefix_buckets"]
                       if b >= len(handle.block_ids))
-        (ids,) = self._upload([pad_block_ids(handle.block_ids, bucket)])
-        cache, pos = self._slot_state(lane)
-        pool_to_slot(self._dev["prefix_pool"], cache, pos, idx, ids,
-                     handle.matched_tokens)
+        self._exec("restore", idx, lane,
+                   pad_block_ids(handle.block_ids, bucket),
+                   handle.matched_tokens)
         # pool->slot KV gather: device time, no model FLOPs
-        self._note_dispatch("gather", outputs=pos)
+        self._note_dispatch("gather", outputs=self._slot_state(lane)[1])
         slot.cursor = slot.pos_hi = handle.matched_tokens
         slot.draft_ready = False
         self.gen_stats.record_prefix_hit(handle.matched_tokens)
@@ -2604,9 +2879,7 @@ class ContinuousBatchingEngine:
                       if b >= len(ids))
         offs = np.zeros(bucket, np.int32)  # padding reads rows [0, bl)
         offs[:len(plan)] = [off for _bid, off, _node in plan]
-        ids_d, offs_d = self._upload([pad_block_ids(ids, bucket), offs])
-        slot_to_pool(self._dev["prefix_pool"], self._slot_state(lane)[0],
-                     idx, ids_d, offs_d)
+        self._exec("commit", idx, lane, pad_block_ids(ids, bucket), offs)
         # slot->pool KV scatter: device time, no model FLOPs
         self._note_dispatch("scatter", outputs=self._dev["prefix_pool"])
         self._prefix_index.finish_commit(plan)
@@ -3313,18 +3586,14 @@ class ContinuousBatchingEngine:
         bucket = next(b for b in self._dev["prefill_buckets"] if b >= plen)
         padded = np.zeros(bucket, np.int32)
         padded[:plen] = req.prompt
-        toks, ints, floats = self._upload([padded, *self._sampling(req)])
-        dev = self._dev
-        prefill_into_slot(self._cfg, dev["params"], dev["cache"], dev["pos"],
-                          dev["last"], idx, toks, plen,
-                          (ints[0], floats[0], ints[1], floats[1]))
+        self._exec("prefill", idx, padded, plen, *self._sampling(req))
         slot.cursor = plen
         slot.pos_hi = plen
         fm = self._flop_model
         self._note_dispatch(
             "prefill", fm.span(0, plen, logits=False) + fm.logits,
             {"padding": fm.span(plen, bucket - plen, logits=False)},
-            outputs=dev["last"])
+            outputs=self._dev["last"])
         if req.trace is not None:
             # the forward is enqueued: the host side of the admission ends
             req.trace.event(trace_mod.PREFILL_END)
@@ -3476,27 +3745,16 @@ class ContinuousBatchingEngine:
         padded = np.zeros(bucket, np.int32)
         padded[:clen] = req.prompt[pos0:pos0 + clen]
         final = pos0 + clen >= len(req.prompt)
-        arrays = [padded, *self._sampling(req)]
+        row = None
         if self._paged:
             self._ensure_blocks(slot, req, pos0 + clen)
             row = np.zeros((self._cfg.max_seq // self._kv_block_len,),
                            np.int32)
             row[:len(slot.blocks)] = slot.blocks
             slot.pos_pending = None
-            arrays.append(row)
-        toks, ints, floats, *table = self._upload(arrays)
-        sampling = (ints[0], floats[0], ints[1], floats[1])
-        dev = self._dev
-        pos, last = ((dev["lane_pos"], dev["lane_last"]) if lane
-                     else (dev["pos"], dev["last"]))
-        if self._paged:
-            paged_prefill_chunk_into_slot(
-                self._cfg, dev["params"], dev["pool"], pos, last, idx,
-                table[0], toks, pos0, clen, final, sampling)
-        else:
-            prefill_chunk_into_slot(
-                self._cfg, dev["params"], self._slot_state(lane)[0], pos,
-                last, idx, toks, pos0, clen, final, sampling)
+        self._exec("prefill_chunk", idx, lane, padded, *self._sampling(req),
+                   row, pos0, clen, final)
+        last = self._dev["lane_last" if lane else "last"]
         slot.cursor += clen
         slot.pos_hi = max(slot.pos_hi, slot.cursor)
         self._prefill_chunks_dispatched += 1
@@ -3667,19 +3925,11 @@ class ContinuousBatchingEngine:
                   topps]
         if self._paged:
             arrays += [tables, reset_to]
-        (feed_d, rem_d, active_d, reset_d, freeze_d, seeds_d, temps_d,
-         topks_d, topps_d, *paged) = self._upload(arrays)
-        tab_d, reset_to_d = paged or (None, None)
         seq = self._ring_seq
         self._ring_seq += 1
-        timing = self._start_timing()
         # with no frozen slot the steps skip the freeze masking
-        self._launch_chunk(seq % self._ring_entries, tab_d, feed_d, rem_d,
-                           active_d, reset_d, reset_to_d,
-                           freeze_d if freeze.any() else None, seeds_d,
-                           temps_d, topks_d, topps_d, sample)
-        if timing is not None:
-            timing[1].record()
+        timing = self._exec("chunk", seq % self._ring_entries, arrays,
+                            bool(freeze.any()), sample)
         for i, req in eager_free:
             # the slot layout's commit copy is enqueued behind the chunk
             # above (see _commit_prefix); the paged commit is a donation
@@ -4049,7 +4299,14 @@ class ContinuousBatchingEngine:
                 if self._device.type == "cuda":
                     torch.cuda.set_device(self._device)
                 self._run_loop()
+                if self._chan is not None:
+                    self._chan.send(spmd.STOP)   # the followers return
+                    # a failed engine keeps its groups: a broken
+                    # communicator need not shut down cleanly
+                    self._mesh.destroy()
         except BaseException as e:  # noqa: BLE001 — surface to waiters
+            if self._chan is not None:
+                self._chan.fail(e)               # the followers raise
             self._fail_all(e)
             if not isinstance(e, Exception):
                 raise
@@ -4093,6 +4350,8 @@ class ContinuousBatchingEngine:
                 if self._pending.parked:
                     # a parked head waits for blocks nothing active will
                     # free: retry without blocking on the queue
+                    if self._chan is not None:
+                        self._chan.keepalive()
                     time.sleep(0.001)
                     continue
                 # idle: block until a request (or the stop sentinel); the
@@ -4106,7 +4365,16 @@ class ContinuousBatchingEngine:
                 if self._watchdog is not None:
                     self._watchdog.mark_idle(now_ns(),
                                              self._watchdog_signals())
-                self._held = self._pending.get()
+                if self._chan is None:
+                    self._held = self._pending.get()
+                else:
+                    # an idle driver keeps its followers' wait alive
+                    try:
+                        self._held = self._pending.get(
+                            timeout=spmd.HEARTBEAT_S)
+                    except queue.Empty:
+                        self._chan.keepalive()
+                        continue
                 if self._held is None:
                     break
                 continue

@@ -56,16 +56,19 @@ MFU_WINDOW_S = 10.0
 _EWMA_KEEP = 0.7
 
 
-def device_peak_flops(device=None) -> Optional[float]:
+def device_peak_flops(device=None, n_devices: int = 1) -> Optional[float]:
     """Dense bf16 peak FLOP/s of the engine's card, looked up by the card's
-    name in the port's peak table (``perf/bench_harness.py:CARD_PEAKS``);
-    None on the CPU and for a card the table does not know, and then the
-    MFU pair stays unregistered (advertise only what can move)."""
+    name in the port's peak table (``perf/bench_harness.py:CARD_PEAKS``),
+    times ``n_devices``: an engine over a mesh counts every card of it,
+    as the reference sums its mesh's devices. None on the CPU and for a
+    card the table does not know, and then the MFU pair stays
+    unregistered (advertise only what can move)."""
     if device is None:
         return None
     from client_tpu_torch.perf.bench_harness import device_bf16_peak
 
-    return device_bf16_peak(device)
+    peak = device_bf16_peak(device)
+    return None if peak is None else peak * n_devices
 
 
 def _first_tensor(outputs):

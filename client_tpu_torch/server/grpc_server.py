@@ -307,6 +307,10 @@ class _Handlers:
         ig.kind = "KIND_GPU"
         ig.count = cfg.instance_count
         ig.device_ids.extend(cfg.device_ids)
+        if cfg.sharding is not None:
+            c.sharding.mesh_axes.extend(cfg.sharding.mesh_axes)
+            c.sharding.mesh_shape.extend(cfg.sharding.mesh_shape)
+            c.sharding.batch_axis = cfg.sharding.batch_axis
         for k, v in cfg.parameters.items():
             c.parameters[k] = str(v)
         return out

@@ -599,37 +599,52 @@ class RadixBlockIndex:
 
 # ----------------------------------------------------------- device pools
 
-def _slot_proto(cfg, device) -> dict:
+def _slot_proto(cfg, device, mesh=None) -> dict:
     """Every KV tensor of ``transformer.init_decode_state`` (``pos``
     left out) for zero slots: each ``[0, layers, max_seq] + tail`` in its
-    dtype (k/v 5-D, the int8 scale tables 4-D), which the pools mirror."""
+    dtype (k/v 5-D, the int8 scale tables 4-D), which the pools mirror;
+    under ``mesh`` with this rank's KV heads (Hkv/tp)."""
     from client_tpu_torch.models import transformer as t
 
-    proto = t.init_decode_state(cfg, 0, device)
+    proto = t.init_decode_state(cfg, 0, device, mesh)
     return {name: arr for name, arr in proto.items() if name != "pos"}
 
 
-def init_block_pool(cfg, n_blocks: int, block_len: int, device) -> dict:
+def init_block_pool(cfg, n_blocks: int, block_len: int, device,
+                    mesh=None) -> dict:
     """The slot layout's prefix pool, block-major: every KV tensor of
     ``transformer.init_decode_state`` becomes ``[n_blocks, layers,
     block_len] + tail`` in its dtype (``k``/``v`` 5-D, and under
-    ``kv_quant`` int8 with 4-D f32 scale tables), zeroed on ``device``."""
+    ``kv_quant`` int8 with 4-D f32 scale tables), zeroed on ``device``.
+    Under ``mesh`` the pool's layout is ``init_paged_pool``'s: this
+    rank's KV heads of every block."""
     return {name: torch.zeros((n_blocks, arr.shape[1], block_len)
                               + arr.shape[3:], dtype=arr.dtype,
                               device=device)
-            for name, arr in _slot_proto(cfg, device).items()}
+            for name, arr in _slot_proto(cfg, device, mesh).items()}
 
 
-def init_paged_pool(cfg, n_blocks: int, block_len: int, device) -> dict:
+def init_paged_pool(cfg, n_blocks: int, block_len: int, device,
+                    mesh=None) -> dict:
     """Layer-major pool tensors: every KV tensor of
     ``transformer.init_decode_state`` becomes ``[layers, n_blocks,
     block_len] + tail`` in its dtype (``k``/``v`` 5-D, and under
     ``kv_quant`` int8 with 4-D f32 scale tables), zeroed on ``device``
-    (named explicitly: the engine places it)."""
+    (named explicitly: the engine places it).
+
+    Under an engine ``mesh`` (the port of ``pool_sharding_constraint``)
+    the heads split over tp, as the slot rows' do, so a block copy stays
+    on the rank's own heads; the blocks are REPLICATED over dp, since a
+    pool block must be readable by a slot of any dp rank. The reference
+    lets XLA keep the replicas equal; here every write reaches every
+    replica: a decode step all-gathers its rows over dp
+    (``transformer.paged_decode_steps``), a prefill chunk runs on every
+    dp rank, and a slot-to-pool commit is broadcast from the slot's dp
+    rank (``slot_to_pool``'s ``group``)."""
     return {name: torch.zeros((arr.shape[1], n_blocks, block_len)
                               + arr.shape[3:], dtype=arr.dtype,
                               device=device)
-            for name, arr in _slot_proto(cfg, device).items()}
+            for name, arr in _slot_proto(cfg, device, mesh).items()}
 
 
 def pool_to_slot(pool: dict, cache: dict, pos, idx: int, ids,
@@ -648,20 +663,36 @@ def pool_to_slot(pool: dict, cache: dict, pos, idx: int, ids,
     pos[idx] = n_tok
 
 
-def slot_to_pool(pool: dict, cache: dict, idx: int, ids, offs) -> None:
+def slot_to_pool(pool: dict, cache: Optional[dict], idx: Optional[int],
+                 ids, offs, group=None, src: Optional[int] = None) -> None:
     """For each block ``j`` copy rows ``[offs[j], offs[j] + block_len)`` of
     slot ``idx`` into pool block ``ids[j]`` for every pool tensor, IN
     PLACE (``ids``/``offs`` [B] integer tensors on the pool's device;
     padded entries copy rows from offset 0 into the scratch block).
     Per-block offsets, as the reference's ``slot_to_pool`` copy kernel
     keeps them: one contiguous run padded to the bucket could pass
-    ``max_seq``."""
+    ``max_seq``.
+
+    With ``group``, the pool is replicated over the dp ranks of
+    ``group``: the slot's dp rank (global rank ``src``) passes its
+    ``cache`` and local ``idx``, the others pass None for both; the rows
+    are broadcast from ``src`` and every rank writes its own replica."""
+    import torch.distributed as dist
+
     for name, parr in pool.items():
         bl = parr.shape[2]
-        rows = offs.long()[:, None] + torch.arange(bl, device=offs.device)
-        slot = cache[name][idx]                   # [L, max_seq, Hkv, Dh]
-        blocks = slot[:, rows]                    # [L, B, bl, Hkv, Dh]
-        parr[ids.long()] = blocks.transpose(0, 1).to(parr.dtype)
+        if cache is not None:
+            rows = offs.long()[:, None] + torch.arange(bl, device=offs.device)
+            slot = cache[name][idx]               # [L, max_seq, Hkv, Dh]
+            blocks = slot[:, rows]                # [L, B, bl, Hkv, Dh]
+            blocks = blocks.transpose(0, 1).to(parr.dtype)
+        else:
+            blocks = torch.empty((ids.shape[0],) + tuple(parr.shape[1:]),
+                                 dtype=parr.dtype, device=parr.device)
+        if group is not None:
+            blocks = blocks.contiguous()
+            dist.broadcast(blocks, src=src, group=group)
+        parr[ids.long()] = blocks
 
 
 def block_count_buckets(max_blocks: int, start: int = 1,

@@ -15,6 +15,18 @@ compile set; the reference's CompileWatch waits for the CUDA-graph work
 (ROADMAP "Performance"). ``runtime_observability`` gives the memory half
 of the reference's runtime block: the weights' bytes.
 
+A TorchModel over a ``mesh`` (``parallel.mesh.make_mesh``) is sharded
+over one process per device, PyTorch's tensor-parallel serving idiom
+(``parallel/spmd.py``): every rank builds it with the same arguments,
+``param_sharding`` (a spec tree, ``transformer.param_specs`` for the
+transformer) cuts each rank's block of the weights, and rank 0, the
+driver, serves it behind the core. Each forward on rank 0 broadcasts a
+plan and the whole batch over the model's own process group; every rank
+runs ``apply_fn`` on its dp block (``input_sharding``, e.g. ``("dp",
+None)``) with ``mesh=``, and returns outputs that are whole but for the
+batch dim, which is all-gathered over the input's batch axis. The other
+ranks run ``follow()`` until rank 0 unloads the model.
+
 SequenceModel, a TorchModel, is the stateful model the sequence scheduler
 drives: an explicit state (``init_state()``, ``step(inputs, state) -> (outputs,
 state)``) that stays on the model's device between requests.
@@ -24,6 +36,7 @@ from __future__ import annotations
 
 import inspect
 import threading
+import time
 from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
@@ -192,15 +205,50 @@ class TorchModel(ServedModel):
     apply_fn(params, inputs: dict[str, Tensor]) -> dict[str, Tensor].
     ``params`` is any nesting of dicts of tensors; it moves to ``device``
     at load(). ``device`` defaults to CUDA and raises without it.
+
+    ``mesh`` shards the model over one process per device (the module
+    docstring): ``param_sharding`` is a spec tree of ``params``' structure
+    (each leaf a tuple of the mesh axis, or None, of every dim),
+    ``input_sharding`` one such tuple for every input (or a dict of them
+    by input name) naming the dp axis of the batch dim. Under a mesh the
+    device is the mesh's, and ``apply_fn`` is always called with
+    ``mesh=`` (the model's own copy of the mesh's groups) on the rank's
+    block of the batch; it returns outputs that are whole but for the
+    batch dim (a tp-split output is gathered inside ``apply_fn``), which
+    the model all-gathers over the input's batch axis.
     """
 
     def __init__(self, config: ModelConfig,
                  apply_fn: Callable[[Any, dict], dict],
-                 params: Any = None, device=None):
+                 params: Any = None, device=None, mesh=None,
+                 param_sharding=None, input_sharding=None):
         super().__init__(config)
         self._apply_fn = apply_fn
+        self._mesh = self._chan = None
+        if mesh is None:
+            if (param_sharding, input_sharding) != (None, None):
+                raise ValueError("param_sharding and input_sharding lay a "
+                                 "model over a mesh; pass mesh=")
+            self.device = resolve_device(device)
+        else:
+            from client_tpu_torch.parallel import spmd
+            from client_tpu_torch.parallel.mesh import shard_tree
+
+            self.device = spmd.mesh_device(mesh)
+            if device is not None and \
+                    resolve_device(device).type != self.device.type:
+                raise ValueError(
+                    f"device {device!r} conflicts with the mesh's device "
+                    f"type {self.device.type!r}: a mesh places the model")
+            self._mesh = spmd.ShardMesh(mesh)
+            self._chan = spmd.PlanChannel(self._mesh.plan_group)
+            if param_sharding is not None:
+                params = shard_tree(params, param_sharding, self._mesh)
+            self._mesh_call_lock = threading.Lock()
+            self._followers_stopped = False
+        self._heartbeat = None
+        self._input_sharding = input_sharding
         self._params_host = params
-        self.device = resolve_device(device)
         self._params = None
         self._loaded = False
         self._load_lock = threading.RLock()
@@ -214,11 +262,109 @@ class TorchModel(ServedModel):
                 return
             self._params = _to_device(self._params_host, self.device)
             self._loaded = True
+            if self._chan is not None and self._chan.is_driver \
+                    and self._heartbeat is None:
+                self._heartbeat = threading.Thread(
+                    target=self._keep_followers, daemon=True,
+                    name=f"{self.name}-heartbeat")
+                self._heartbeat.start()
+
+    def _keep_followers(self) -> None:
+        """Rank 0's heartbeat while the model idles: a NOOP plan whenever
+        the channel was silent for ``spmd.HEARTBEAT_S``, so a follower
+        waiting for the next forward never times out, until the unload
+        ends the followers."""
+        from client_tpu_torch.parallel import spmd
+
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while not self._followers_stopped:
+            time.sleep(spmd.HEARTBEAT_S / 2)
+            with self._mesh_call_lock:
+                if not self._followers_stopped:
+                    self._chan.keepalive()
 
     def unload(self) -> None:
         with self._load_lock:
             self._params = None
             self._loaded = False
+        if self._chan is not None and self._chan.is_driver \
+                and not self._followers_stopped:
+            # the followers' loops end with the driver's model
+            from client_tpu_torch.parallel import spmd
+
+            with self._mesh_call_lock:
+                self._followers_stopped = True
+                self._chan.send(spmd.STOP)
+                self._mesh.destroy()
+
+    def follow(self) -> None:
+        """A follower rank's loop (every rank of the mesh but 0): load
+        this rank's shard, then run each forward rank 0 broadcasts until
+        rank 0 unloads the model, then destroy this rank's groups. Raises
+        on this rank when rank 0 failed or the mesh broke."""
+        from client_tpu_torch.parallel import spmd
+
+        if self._chan is None or self._chan.is_driver:
+            raise RuntimeError("follow() runs on the follower ranks of a "
+                               "mesh model; rank 0 serves it")
+        self.load()
+
+        def run(op, args):
+            (meta,) = args
+            tensors = [torch.empty(shape, dtype=getattr(torch, dtype),
+                                   device=self.device)
+                       for _name, shape, dtype in meta]
+            spmd.broadcast_tensors(tensors, self._mesh)
+            self._forward_shard(self._snapshot(), {
+                name: t for (name, _s, _d), t in zip(meta, tensors)})
+
+        with torch.inference_mode():
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            spmd.follow(self._chan, run)
+        self._mesh.destroy()
+
+    def _mesh_forward(self, params, inputs: dict) -> dict:
+        """Rank 0's forward under the mesh: the plan (names, shapes and
+        dtypes), then the whole batch broadcast over the model's group,
+        then this rank's share of the forward; returns whole outputs."""
+        from client_tpu_torch.parallel import spmd
+
+        with self._mesh_call_lock:
+            if self._followers_stopped:
+                raise RuntimeError(
+                    f"model '{self.name}': its follower ranks stopped at "
+                    f"the unload; a mesh model reloads with its ranks")
+            names = list(inputs)
+            tensors = [inputs[n].to(self.device).contiguous() for n in names]
+            self._chan.send("forward", [
+                (n, tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                for n, t in zip(names, tensors)])
+            spmd.broadcast_tensors(tensors, self._mesh)
+            return self._forward_shard(params, dict(zip(names, tensors)))
+
+    def _forward_shard(self, params, inputs: dict) -> dict:
+        """Every rank: this rank's block of each whole input (by
+        ``input_sharding``), ``apply_fn`` on it, and each output's batch
+        dim all-gathered over the input's batch axis."""
+        from client_tpu_torch.parallel import collectives as col
+        from client_tpu_torch.parallel.mesh import axis_group, shard_tree
+
+        def spec_of(specs, name, default=None):
+            if isinstance(specs, dict):
+                return specs.get(name, default)
+            return default if specs is None else specs
+
+        block = {name: shard_tree(x, spec_of(self._input_sharding, name,
+                                             ()), self._mesh)
+                 for name, x in inputs.items()}
+        out = self._apply_fn(params, block, mesh=self._mesh)
+        first = spec_of(self._input_sharding, next(iter(inputs), None), ())
+        if not first or first[0] is None:
+            return out
+        group = axis_group(self._mesh, first[0])
+        return {name: col.all_gather(y, group, 0) for name, y in out.items()}
 
     def runtime_observability(self) -> dict:
         """The runtime block (``GET /v2/debug/runtime``): the weights'
@@ -240,6 +386,8 @@ class TorchModel(ServedModel):
 
     def _run(self, params, inputs: dict) -> dict:
         with torch.inference_mode():
+            if self._mesh is not None:
+                return self._mesh_forward(params, inputs)
             return self._apply_fn(params, inputs)
 
     # -- dynamic-batch paths (inputs already on the device) --

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import queue as queue_mod
 import threading
+import time
 from collections import deque
 from typing import Optional
 
@@ -318,10 +319,12 @@ class FairQueue:
             self._requeued -= 1
         return req
 
-    def get(self, block: bool = True):
+    def get(self, block: bool = True, timeout: Optional[float] = None):
         """Next request in fair order; None once :meth:`close` armed
         the stop sentinel; raises queue.Empty when ``block=False`` and
-        the backlog is empty."""
+        the backlog is empty, or when ``timeout`` seconds pass with
+        nothing queued."""
+        deadline = None if timeout is None else time.monotonic() + timeout
         with self._lock:
             while True:
                 if self._closed:
@@ -331,7 +334,13 @@ class FairQueue:
                     return item
                 if not block:
                     raise queue_mod.Empty
-                self._not_empty.wait()
+                if deadline is None:
+                    self._not_empty.wait()
+                    continue
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise queue_mod.Empty
+                self._not_empty.wait(left)
 
     def get_nowait(self):
         """Non-blocking pop (fair order), ignoring the close sentinel —

@@ -1370,3 +1370,32 @@ def test_a_train_step_refuses_flash_on_the_card(card):
     t, cfg, _, _, _ = _train_pair(card)
     with pytest.raises(ValueError, match="no backward"):
         t.make_train_step(dc.replace(cfg, attn_impl="flash"))
+
+
+@pytest.mark.parametrize("shape", [
+    # S/dp, H/tp, Hkv/tp, Dh, block_len, N, table width: bench.py's
+    # generation model (12 heads, MHA) at tp 2 and 4, at dp 1 and 2, and a
+    # GQA model (32 heads, 8 KV heads, Dh 128) at tp 8: one KV head a rank
+    (16, 6, 6, 64, 16, 193, 12), (16, 3, 3, 64, 16, 193, 12),
+    (8, 3, 3, 64, 16, 193, 12), (8, 4, 1, 128, 16, 97, 12)],
+    ids=["tp2", "tp4", "dp2_tp4", "gqa_tp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_at_tensor_parallel_local_heads(card, dtype, shape):
+    """K2 at the heads one tp rank of a mesh holds (the sharded engine's
+    ``paged_decode_steps``): the layer-major pool's slabs, against its
+    plain version at the path's tolerance."""
+    _k2_check(_paged_case(*shape, dtype=dtype, seed=sum(shape),
+                          layout="layer_major"), dtype)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_layout="paged",
+                                             prefix_cache=True)],
+                         ids=["slot", "paged_prefix"])
+def test_one_rank_nccl_mesh_engine_decodes_as_the_unsharded_one(card, kw):
+    import torch_mesh_ranks
+
+    from client_tpu_torch.parallel.collectives import run_ranks
+
+    (plain, mesh), = run_ranks(torch_mesh_ranks.one_rank_mesh_engine, 1,
+                               "nccl", 300, args=(kw,))
+    assert mesh == plain

@@ -148,7 +148,7 @@ def _port_fleet(tiny, name="fleet_lm", replicas=2, **kw):
      "canary requires autoscale"),
     (dict(engine_devices=(), device="cpu"), ValueError,
      "at least one device"),
-    (dict(mesh=object(), device="cpu"), NotImplementedError, "A15"),
+    (dict(mesh=object(), device="cpu"), TypeError, "DeviceMesh"),
 ])
 def test_generator_fleet_knobs_refuse_loudly(tiny, kw, exc, match):
     _, _, tcfg, tparams = tiny
@@ -179,7 +179,7 @@ def test_replicas_argument_and_fleet_block(tiny):
     ((99,), ValueError, "out of range"),
     (("cpu", "cpu"), ValueError, "twice"),
     ((), ValueError, "at least one device"),
-    (("cpu", "meta"), NotImplementedError, "A15")])
+    (("cpu", "meta"), ValueError, "live process group")])
 def test_engine_devices_refusals(devices, exc, match):
     with pytest.raises(exc, match=match):
         TEngine.resolve_engine_devices(devices)

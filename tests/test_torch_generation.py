@@ -9,8 +9,10 @@ the same seed. On the CPU the port's ``flash`` attention is K2's plain
 version; the kernel itself runs on the card (tests/test_torch_cuda.py).
 """
 
+import dataclasses
 import threading
 import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -196,18 +198,43 @@ def test_concurrent_submitters_stress(model):
     assert occ["free"] == occ["usable"] and occ["reserved"] == 0
 
 
+# a dp2 mesh as the engine's validation reads it: the knobs below are
+# refused before any process group is touched
+_DP2 = types.SimpleNamespace(mesh_dim_names=("dp", "tp"), shape=(2, 1),
+                             device_type="cpu")
+
+
 @pytest.mark.parametrize("knob,value,item", [
-    ("engine_devices", (torch.device("cpu"), torch.device("cuda", 0)),
-     "A15"), ("mesh", object(), "A15")])
+    ("host_tier_bytes", dict(host_tier_bytes=1 << 20, prefix_cache=True),
+     "9c"),
+    ("prefill_slots", dict(prefill_slots=2, prefill_mode="chunked",
+                           kv_layout="paged"), "9c"),
+    ("speculative_draft", dict(speculative_gamma=2), "9c"),
+    ("kv_quant", {}, "9c")])
 def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
                                                         item):
+    """Under a mesh the engine's optional planes raise naming ROADMAP
+    9c; a mesh that is not a DeviceMesh, and a device subset with no
+    process group of its ranks, raise ValueError/TypeError."""
     _, _, tcfg, tparams = model
+    from client_tpu_torch.server.speculation import DraftModel
+
+    kw = dict(value)
+    if knob == "speculative_draft":
+        kw["speculative_draft"] = DraftModel(tcfg, tparams)
+    if knob == "kv_quant":
+        tcfg = dataclasses.replace(tcfg, kv_quant=True)
     with pytest.raises(NotImplementedError, match=item):
-        ContinuousBatchingEngine(tcfg, tparams, device="cpu",
-                                 **{knob: value})
+        ContinuousBatchingEngine(tcfg, tparams, n_slots=2, mesh=_DP2, **kw)
     with pytest.raises(NotImplementedError, match=item):
-        make_continuous_generator(cfg=tcfg, params=tparams, device="cpu",
-                                  **{knob: value})
+        make_continuous_generator(cfg=tcfg, params=tparams, n_slots=2,
+                                  mesh=_DP2, **kw)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        ContinuousBatchingEngine(tcfg, tparams, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="live process group"):
+        ContinuousBatchingEngine(
+            tcfg, tparams, device="cpu",
+            engine_devices=(torch.device("cpu"), torch.device("cuda", 0)))
     with pytest.raises(TypeError, match="unknown"):
         ContinuousBatchingEngine(tcfg, tparams, device="cpu", bogus=1)
 

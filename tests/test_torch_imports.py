@@ -105,7 +105,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.parallel.mesh",
                      "client_tpu_torch.parallel.collectives",
                      "client_tpu_torch.parallel.pipeline",
-                     "client_tpu_torch.parallel.dryrun"):
+                     "client_tpu_torch.parallel.dryrun",
+                     "client_tpu_torch.parallel.spmd"):
         assert expected in result["modules"]
 
 

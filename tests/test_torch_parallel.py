@@ -14,7 +14,8 @@ Four ``run_ranks`` launches, one module-scoped fixture each:
   parameters as ``close_params`` holds them; the ring
   config's forward logits against the reference's ring forward on its
   mesh at 2e-4; ``ring_attention`` causal and not against the
-  reference's at 2e-4; the dry run's steps 1-3 at 8 ranks.
+  reference's at 2e-4; the dry run's steps 1-4 at 8 ranks (step 4: the
+  sharded engine at dp4·tp2 streams its 5 tokens).
 - dp2·ep2, 4 ranks: the dry run's step-2 MoE config, the loss against
   the reference at rtol 1e-4, aux at atol 1e-6, gradients at atol 1e-5;
   pp4: ``pipeline_forward`` against the stages run one after another at
@@ -146,7 +147,7 @@ def test_ring_attention_matches_the_reference(dp_sp_tp, causal):
 def test_the_dry_run_steps_at_eight_ranks(dp_sp_tp):
     got, _ = dp_sp_tp
     for r in got:
-        assert set(r["dryrun"]) == {"dp_sp_tp", "dp_ep", "pp"}
+        assert set(r["dryrun"]) == {"dp_sp_tp", "dp_ep", "pp", "engine"}
         assert all(np.isfinite(v) for v in r["dryrun"].values())
     assert len({r["dryrun"]["dp_sp_tp"] for r in got}) == 1
 
