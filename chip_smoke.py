@@ -425,7 +425,7 @@ each printing one JSON line:
              the model FLOPs per step and MFU against the card's bf16
              peak, with the card's name and power limit; K1 and K2 must
              not launch.
-23. mesh     the engine's mesh (ROADMAP 9b) in a child process through
+23. mesh     the engine's mesh (ROADMAP 9b, 9c) in a child process through
              run_ranks, one NCCL rank (the machine has one card, and NCCL
              takes one rank per card): (a) the BERT-base encoder (seq
              128, bf16, K1 on each rank's tp-local heads) as a TorchModel
@@ -439,9 +439,26 @@ each printing one JSON line:
              mesh beside the unsharded engine, bench.py's 32 jobs all
              greedy: every stream identical, K2 exactly 12 x 16 launches
              per chunk dispatch, tokens/s, host ms per dispatch and plans
-             sent of both arms (the plan channel's cost at world 1); (c)
-             the dry run's steps 1-4 at one rank. The mesh must be NCCL
-             (its plans ride a gloo group, parallel/spmd.py).
+             sent of both arms (the plan channel's cost at world 1);
+             (c)-(g) the engine's optional planes (ROADMAP 9c) at the same
+             width, each over the mesh beside its unsharded twin (the
+             first 8 of (b)'s jobs): (c) speculation on the paged layout
+             with the speculate phase's high-agreement pair at gamma 4,
+             (d) the dedicated lanes (2 lane slots, batched) on both
+             layouts, (e) the host tier (the tier cycle one stream a wave
+             through a pool of MESH_TIER_POOL blocks), (f) int8 KV on both
+             layouts, (g) a supervised paged generator with one injected
+             engine_loop crash mid-run, its refused streams resubmitted:
+             every stream equal to the twin's, verify rounds and tier
+             restores above 0, lane handoffs, one restart with
+             memory_allocated after the drain within half a pool of its
+             value before the crash, K2 exactly 12 x 16 launches per
+             chunk dispatch on the paged non-int8 arms ((g): the dead and
+             the rebuilt engine's, and the rebuilt one's 2 warm-up
+             chunks) and 0 on the int8 arms, tokens/s and host ms per
+             dispatch of both arms; then the dry run's steps 1-4 at one
+             rank. The mesh must be NCCL (its plans ride a gloo group,
+             parallel/spmd.py).
              Phase 4 holds K2 at the tp-local shapes (MESH_K2_CASES).
 
 Then a line of each phase's wall seconds, the kernel table line
@@ -6613,11 +6630,210 @@ def _mesh_engine_arm(cfg, params, jobs: list, mesh, device: str) -> dict:
             "paged_decode_attention_launches": k2, "plans_sent": plans}
 
 
+# the planes' arms (c)-(g): the first 8 of (b)'s jobs on every arm but
+# the tier's; speculation at gamma 4 with the speculate phase's pair; two
+# lane slots, batched; the tier's cycle one stream a wave through a pool
+# that holds one stream's worst case and 12 committed blocks; one crash
+# after 6 loop iterations, with a 50 ms backoff
+MESH_PLANE_JOBS = 8
+MESH_SPEC_GAMMA = 4
+MESH_LANES = dict(prefill_mode="chunked", prefill_chunk=64,
+                  prefill_slots=2, prefill_lane_width=32,
+                  prefill_lane_batch=2)
+MESH_TIER_POOL = GEN_MAX_SEQ // GEN_BLOCK + 12 + 1
+MESH_CRASH_AFTER = 6
+
+
+def _plane_arm(cfg, params, jobs: list, mesh, device: str,
+               sequential: bool = False, **knobs) -> dict:
+    """One arm of (c)-(f): an engine of 16 slots, chunk 16, with
+    ``knobs``, over ``mesh`` or unsharded, warmed on one short stream,
+    then the jobs (submitted together, or one after another with
+    ``sequential``) read to their ends: streams, tokens/s, host ms per
+    dispatch (every kind's), dispatches by kind, K2 launches (counter at
+    0 just before), verify rounds, tier restores and lane handoffs."""
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        cfg, params, n_slots=GEN_SLOTS, chunk=GEN_CHUNK,
+        **({"mesh": mesh} if mesh is not None else {"device": device}),
+        **knobs)
+    try:
+        list(eng.submit(np.zeros(4, np.int32), 2))
+        before = eng.stats()
+        pa.launches = 0
+        t0 = time.perf_counter()
+        if sequential:
+            streams = [list(eng.submit(p, b)) for p, b in jobs]
+        else:
+            its = [eng.submit(p, b) for p, b in jobs]
+            streams = [list(it) for it in its]
+        wall = time.perf_counter() - t0
+        k2 = pa.launches
+        after = eng.stats()
+    finally:
+        eng.stop()
+    by_kind = {k: after["dispatch_by_kind"][k]["dispatches"]
+               - before["dispatch_by_kind"][k]["dispatches"]
+               for k in after["dispatch_by_kind"]}
+    host_s = sum(after["dispatch_by_kind"][k]["host_s"]
+                 - before["dispatch_by_kind"][k]["host_s"] for k in by_kind)
+
+    def delta(block, key):
+        if key not in (after[block] or {}):
+            return None
+        return after[block][key] - before[block][key]
+
+    return {"streams": streams, "wall_s": wall,
+            "tokens_per_s": sum(len(x) for x in streams) / wall,
+            "host_ms_per_dispatch":
+                host_s / max(1, sum(by_kind.values())) * 1e3,
+            "dispatches_by_kind": by_kind,
+            "paged_decode_attention_launches": k2,
+            "spec_rounds": delta("speculation", "rounds"),
+            "tier_restores": delta("kv_tier", "restores"),
+            "tier_spills": delta("kv_tier", "spills"),
+            "lane_handoffs": delta("prefill_lane", "handoffs")}
+
+
+def _resubmitting(model, jobs: list) -> list:
+    """The jobs, one thread each, each resubmitted from its first token
+    on a retryable 503 once its Retry-After has passed (to the live
+    engine: a supervised restart swaps it); any other error fails."""
+    from client_tpu_torch.server.types import ServerError
+
+    tokens: list = [None] * len(jobs)
+    refused = [0] * len(jobs)
+    errors: list = []
+
+    def one(i):
+        prompt, budget = jobs[i]
+        for _attempt in range(20):
+            try:
+                tokens[i] = list(model.engine.submit(prompt, budget))
+                return
+            except ServerError as e:
+                if e.status != 503 or e.retry_after is None:
+                    errors.append(f"job {i}: {e}")
+                    return
+                refused[i] += 1
+                time.sleep(e.retry_after)
+        errors.append(f"job {i}: refused 20 times")
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(jobs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"mesh supervise: {errors[:3]}")
+    return tokens, refused
+
+
+def _supervised_arm(cfg, params, jobs: list, mesh, device: str) -> dict:
+    """Arm (g): a supervised paged generator (K2) over ``mesh`` or
+    unsharded; one injected ``engine_loop`` crash after
+    MESH_CRASH_AFTER loop iterations of the jobs' run, healed by the
+    supervisor, and every refused stream resubmitted. Returns the final
+    streams, the restarts, K2 launches against the dead and the rebuilt
+    engines' chunk dispatches (and the rebuilt engine's warm-up), and
+    ``memory_allocated`` before the crash and after the drain."""
+    from client_tpu_torch.models.decoder_lm import make_continuous_generator
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server import faultinject
+
+    name = "sup_plain" if mesh is None else "sup_mesh"
+    model = make_continuous_generator(
+        name, cfg=cfg, params=params, n_slots=GEN_SLOTS, chunk_size=GEN_CHUNK,
+        kv_layout="paged", kv_block_len=GEN_BLOCK,
+        supervision={"backoff_base_s": 0.05, "max_failures": 3},
+        **({"mesh": mesh} if mesh is not None else {"device": device}))
+    sup = model.engine_supervisor
+    inj = faultinject.get_injector()
+    try:
+        first = model.engine
+        list(first.submit(np.zeros(4, np.int32), 2))
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        c0 = _chunks(first)
+        pa.launches = 0
+        inj.arm([{"point": "engine_loop", "after": MESH_CRASH_AFTER,
+                  "times": 1, "match": {"engine": name}}])
+        t0 = time.perf_counter()
+        streams, refused = _resubmitting(model, jobs)
+        wall = time.perf_counter() - t0
+        inj.clear()
+        rebuilt = model.engine
+        k2 = pa.launches
+        dead, new = _chunks(first) - c0, _chunks(rebuilt)
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        host = rebuilt.stats()["dispatch_by_kind"]
+    finally:
+        inj.clear()
+        model.shutdown()
+    n = sum(v["dispatches"] for v in host.values())
+    return {"streams": streams, "wall_s": wall,
+            "tokens_per_s": sum(len(x) for x in streams) / wall,
+            "host_ms_per_dispatch":
+                sum(v["host_s"] for v in host.values()) / max(1, n) * 1e3,
+            "restarts": sup.restarts, "refused_streams": sum(
+                1 for r in refused if r),
+            "rebuilt": rebuilt is not first,
+            "dead_engine_chunk_dispatches": dead,
+            "rebuilt_engine_chunk_dispatches": new,
+            "paged_decode_attention_launches": k2,
+            "k2_want": LAYERS * GEN_CHUNK * (dead + new + WARM_CHUNKS),
+            "memory_allocated": {"before_crash": mem_before,
+                                 "after_drain": mem_after},
+            "pool_bytes": cfg.n_layers * 2 * GEN_POOL * GEN_BLOCK
+            * cfg.kv_heads * cfg.head_dim * 2}
+
+
+def _mesh_planes(cfg, params, jobs: list, mesh, device: str) -> dict:
+    """(c)-(g), each arm beside its unsharded twin: speculation (paged,
+    the speculate phase's high-agreement pair at gamma 4), the dedicated
+    lanes (both layouts, batched), the host tier (paged), int8 KV (both
+    layouts) and supervision (paged, one crash)."""
+    import dataclasses
+
+    paged = dict(kv_layout="paged", kv_block_len=GEN_BLOCK)
+    cut = jobs[:MESH_PLANE_JOBS]
+    target, draft = _high_agreement_pair(cfg, params)
+    kv8 = dataclasses.replace(cfg, kv_quant=True)
+    tier_jobs = _tier_jobs(cfg.vocab_size)[::TIER_WAVE]
+    arms = {
+        "spec_paged": (cfg, target, cut, False, dict(
+            paged, speculative_draft=draft,
+            speculative_gamma=MESH_SPEC_GAMMA)),
+        "lane_slot": (cfg, params, cut, False, dict(
+            MESH_LANES, prefix_cache=True, prefix_block_len=GEN_BLOCK)),
+        "lane_paged": (cfg, params, cut, False, dict(MESH_LANES, **paged)),
+        "tier_paged": (cfg, params, tier_jobs, True, dict(
+            paged, kv_pool_blocks=MESH_TIER_POOL, prefix_cache=True,
+            prefix_block_len=GEN_BLOCK, prefill_mode="chunked",
+            prefill_chunk=64, host_tier_bytes=TIER_BYTES)),
+        "kv8_slot": (kv8, params, cut, False, {}),
+        "kv8_paged": (kv8, params, cut, False, paged),
+    }
+    out = {}
+    for label, (acfg, aparams, ajobs, seq, knobs) in arms.items():
+        out[label] = {side: _plane_arm(acfg, aparams, ajobs, m, device,
+                                       sequential=seq, **knobs)
+                      for side, m in (("plain", None), ("mesh", mesh))}
+    out["supervise"] = {side: _supervised_arm(cfg, params, cut, m, device)
+                        for side, m in (("plain", None), ("mesh", mesh))}
+    return out
+
+
 def _mesh_rank(rank: int, world: int, layers: int, device: str) -> dict:
     """The mesh phase in a process of its own started by run_ranks (one
     NCCL rank on the card): (a) the sharded encoder, (b) the sharded
-    engine beside the unsharded one, (c) the dry run's steps 1-4 at one
-    rank."""
+    engine beside the unsharded one, (c)-(g) the engine's optional planes
+    sharded beside their unsharded twins (``_mesh_planes``), and the dry
+    run's steps 1-4 at one rank."""
     import dataclasses
 
     import torch.distributed as dist
@@ -6642,6 +6858,7 @@ def _mesh_rank(rank: int, world: int, layers: int, device: str) -> dict:
     out["engine"] = {
         "plain": _mesh_engine_arm(cfg, params, jobs, None, device),
         "mesh": _mesh_engine_arm(cfg, params, jobs, mesh, device)}
+    out["planes"] = _mesh_planes(cfg, params, jobs, mesh, device)
     out["dryrun"] = dryrun_steps(1, device)
     return out
 
@@ -6667,11 +6884,47 @@ def phase_mesh(env: dict) -> dict:
         == LAYERS * GEN_CHUNK * mesh["chunk_dispatches"] > 0,
         "dryrun": set(r["dryrun"]) == {"dp_sp_tp", "dp_ep", "pp", "engine"}
         and r["dryrun"]["engine"] == 5}
+    planes = r["planes"]
+    for label, pair in planes.items():
+        checks[f"{label}_streams_equal"] = (
+            pair["mesh"]["streams"] == pair["plain"]["streams"])
+        for side, arm in pair.items():
+            if label == "supervise":
+                k2_ok = (arm["paged_decode_attention_launches"]
+                         == arm["k2_want"])
+            elif label.startswith("kv8"):
+                k2_ok = arm["paged_decode_attention_launches"] == 0
+            elif label.endswith("paged"):
+                chunks = arm["dispatches_by_kind"]["chunk"]
+                k2_ok = (arm["paged_decode_attention_launches"]
+                         == LAYERS * GEN_CHUNK * chunks > 0)
+            else:
+                k2_ok = arm["paged_decode_attention_launches"] == 0
+            checks[f"{label}_{side}_k2"] = k2_ok
+    for side in ("plain", "mesh"):
+        spec, tier = planes["spec_paged"][side], planes["tier_paged"][side]
+        sup = planes["supervise"][side]
+        mem = sup["memory_allocated"]
+        checks[f"spec_rounds_{side}"] = spec["spec_rounds"] > 0
+        checks[f"tier_restores_{side}"] = tier["tier_restores"] > 0
+        checks[f"lane_handoffs_{side}"] = all(
+            planes[k][side]["lane_handoffs"] > 0
+            for k in ("lane_slot", "lane_paged"))
+        # a leak of the dead engine's state would be about one pool
+        checks[f"supervise_{side}"] = (
+            sup["restarts"] == 1 and sup["rebuilt"]
+            and sup["refused_streams"] > 0
+            and mem["after_drain"] - mem["before_crash"]
+            <= sup["pool_bytes"] // 2)
     for arm in (plain, mesh):
         arm["streamed_tokens"] = sum(len(x) for x in arm.pop("streams"))
+    for pair in planes.values():
+        for arm in pair.values():
+            arm["streamed_tokens"] = sum(len(x) for x in arm.pop("streams"))
     result = {"phase": "mesh", "card": env["nvidia_smi"],
               "backend": r["backend"], "mesh": r["mesh"], "encoder": enc,
-              "engine": arms, "dryrun": r["dryrun"], "checks": checks,
+              "engine": arms, "planes": planes, "dryrun": r["dryrun"],
+              "checks": checks,
               "paged_decode_attention_launches":
                   mesh["paged_decode_attention_launches"],
               "flash_attention_launches": enc["flash_attention_launches"]}
@@ -6791,7 +7044,10 @@ def main() -> int:
                for rep, n in sorted(r[
                    "paged_decode_attention_launches_by_replica"].items())},
             train=train["paged_decode_attention_launches"],
-            mesh=mesh["paged_decode_attention_launches"]),
+            mesh=mesh["paged_decode_attention_launches"],
+            **{f"mesh_{label}_{side}": arm["paged_decode_attention_launches"]
+               for label, pair in mesh["planes"].items()
+               for side, arm in pair.items()}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -419,8 +419,9 @@ class ContinuousModel(PyModel):
     a rebuilt engine after a crash), else the model's own. ``unload``
     stops it and stages a fresh one (a stopped engine stays stopped; under
     supervision ``replace_clean`` also resets the failure window and the
-    breaker); ``shutdown``, the server's terminal stop, stops it, stages
-    nothing and cancels a pending restart; ``warmup`` drives one short
+    breaker; a mesh model's unload stages nothing); ``shutdown``, the
+    server's terminal stop, stops it, stages nothing and cancels a
+    pending restart; ``warmup`` drives one short
     stream through it, so the kernels are built and the device state is
     ready before serving. ``engine_healthy`` gates the model's readiness
     on the engine thread (and on the breaker); ``runtime_stats`` (the
@@ -436,10 +437,11 @@ class ContinuousModel(PyModel):
         self._fresh_engine = fresh_engine
         # an engine over a mesh is built by every rank together: an
         # unload on rank 0 alone ends it (its followers return) and
-        # stages nothing
+        # stages nothing, supervised or not
         self._restage = restage
         self.engine_supervisor: Optional[EngineSupervisor] = (
-            EngineSupervisor(fresh_engine, policy, name=config.name)
+            EngineSupervisor(fresh_engine, policy, name=config.name,
+                             collective=not restage)
             if policy is not None else None)
         self._engine = (fresh_engine() if self.engine_supervisor is None
                         else None)
@@ -456,7 +458,10 @@ class ContinuousModel(PyModel):
 
     def unload(self) -> None:
         if self.engine_supervisor is not None:
-            self.engine_supervisor.replace_clean()
+            if self._restage:
+                self.engine_supervisor.replace_clean()
+            else:
+                self.engine_supervisor.shutdown()
         else:
             self._engine.stop()
             if self._restage:
@@ -729,10 +734,13 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     this with the same arguments; rank 0 registers and serves the model,
     every other rank runs ``model.engine.start()``, which follows rank 0
     until the model is unloaded there (a mesh model stages no fresh
-    engine). The config's ``sharding`` block advertises the mesh. Under a
-    mesh a fleet, ``replica_devices`` entries of more than one device,
-    supervision and the engine's speculation, dedicated lanes, host tier
-    and int8 KV raise ``NotImplementedError`` naming ROADMAP item 9c."""
+    engine). The config's ``sharding`` block advertises the mesh. Every
+    plane of the engine runs under it (speculation, the dedicated lanes,
+    the host tier, int8 KV), and so does ``supervision``: each rank's
+    supervisor rebuilds the engine with rank 0's after a crash
+    (``server/supervision.py``), and an unload shuts the engine down. A
+    fleet under a mesh and ``replica_devices`` entries of more than one
+    device raise ``NotImplementedError`` naming ROADMAP item 9d."""
     reject_unknown_knobs(unknown)
     cfg = cfg or decode_config()
     eff_fleet = resolve_fleet(fleet)
@@ -873,13 +881,18 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
         backoff_mult=sup_cfg.backoff_mult,
         backoff_max_s=sup_cfg.backoff_max_s,
         max_failures=sup_cfg.max_failures, window_s=sup_cfg.window_s)
-    if mesh is not None and policy is not None:
-        raise NotImplementedError(
-            f"make_continuous_generator knob 'supervision' under a mesh is "
-            f"not ported yet: ROADMAP {MESH_REMAINDER}")
     params = _default_params(cfg, params, seed, dev)
 
     def fresh_engine(replica=None):
+        if mesh is not None and dev.type == "cuda":
+            # a supervised rebuild runs on the supervisor's thread, whose
+            # current card is not this rank's: the mesh places the engine
+            # on the current card
+            with torch.cuda.device(dev):
+                return build_engine(replica)
+        return build_engine(replica)
+
+    def build_engine(replica=None):
         devices, ename = engine_devices, name
         if replica is not None:
             ename = f"{name}/r{replica}"

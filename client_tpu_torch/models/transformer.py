@@ -735,7 +735,7 @@ def decode_loop(cfg: TransformerConfig, params: dict, tokens, state: dict,
 
 
 def _slot_slab(cfg: TransformerConfig, params: dict, tokens, cache: dict,
-               pos, rows) -> torch.Tensor:
+               pos, rows, mesh=None) -> torch.Tensor:
     """The forward the slot layout's slab passes share (the reference's
     ``verify_steps`` and ``prefill_chunk_batch``, both ``jax.vmap`` over
     rows): tokens [N, T] consumed at positions pos..pos+T-1 (pos [N]
@@ -744,14 +744,18 @@ def _slot_slab(cfg: TransformerConfig, params: dict, tokens, cache: dict,
     row's T K/V rows are written IN PLACE as one slab, its start clamped
     so the slab fits in max_seq (as ``dynamic_update_slice`` clamps), and
     each query row attends its cache row under its own causal position.
-    Returns the final-normed activations [N, T, d]."""
+    Returns the final-normed activations [N, T, d]. Under ``mesh`` as
+    ``decode_step``: the cache holds this rank's KV heads, and the heads,
+    ffn and vocab split over tp (the rows are this rank's own)."""
+    tp = axis_group(mesh, "tp")
+    lcfg = _tp_local(cfg, mesh)
     n, t_len = tokens.shape
     idx = (torch.arange(n, device=tokens.device) if rows is None else rows)
     steps = torch.arange(t_len, device=tokens.device)
     start = pos.clamp(0, cfg.max_seq - t_len)
     wpos = start[:, None] + steps                                # [N, T]
     qpos = pos[:, None] + steps
-    x = params["embed"][tokens.long()]
+    x = _embed_rows(params, tokens, mesh)
     if not cfg.rope:
         x = x + params["pos_embed"][wpos]
     x = x.to(cfg.dtype)                                          # [N, T, d]
@@ -764,21 +768,22 @@ def _slot_slab(cfg: TransformerConfig, params: dict, tokens, cache: dict,
         lp = layer_params(params, i)
         kv = {name: cache[name][:, i] for name in names}
         y = _rmsnorm(x, lp["ln1"])
-        q, k, v = _qkv_proj(cfg, y, lp, "bt")  # q [N,T,H,Dh], kv [N,T,Hkv,Dh]
+        q, k, v = _qkv_proj(lcfg, y, lp, "bt")  # q [N,T,H,Dh], kv [N,T,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
         _kv_write(cfg, kv, (slot_idx, wpos), k, v)
         if rows is not None:
             kv = {name: arr[rows] for name, arr in kv.items()}
         k_read, v_read = _kv_read(cfg, kv)
-        attn = _masked_attention(cfg, q, k_read, v_read, qpos)
-        x = x + torch.einsum("bthk,hkd->btd", attn, lp["wo"])
-        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+        attn = _masked_attention(lcfg, q, k_read, v_read, qpos)
+        x = x + col.reduce_from(torch.einsum("bthk,hkd->btd", attn, lp["wo"]),
+                                tp)
+        x = _dense_ffn(x, lp, ffn=cfg.ffn, tp=tp)
     return _rmsnorm(x, params["final_norm"])
 
 
 def verify_steps(cfg: TransformerConfig, params: dict, tokens, state: dict,
-                 rows=None) -> tuple:
+                 rows=None, mesh=None) -> tuple:
     """Score T tokens per slot against a slot-layout state in ONE forward:
     the speculative verify pass, the reference's ``verify_steps`` under
     ``jax.vmap``. tokens [S, T] int32 are consumed at positions
@@ -791,14 +796,16 @@ def verify_steps(cfg: TransformerConfig, params: dict, tokens, state: dict,
     verified slots' pos advanced by T). Rollback is the caller's: position
     is data, so rewinding ``pos`` un-attends the rejected rows, and the
     next write overwrites them. Plain torch ops, as the reference's
-    einsums are."""
+    einsums are. Under ``mesh`` the state and ``rows`` are this rank's dp
+    block, the heads, ffn and vocab split over tp as in ``decode_step``,
+    and the logits are gathered over tp."""
     if cfg.moe:
         raise NotImplementedError(DENSE_ONLY)
     t_len = tokens.shape[1]
     pos_all = state["pos"]
     pos = (pos_all if rows is None else pos_all[rows]).long()
-    x = _slot_slab(cfg, params, tokens, state, pos, rows)
-    logits = torch.einsum("btd,vd->btv", x, params["embed"]).float()
+    x = _slot_slab(cfg, params, tokens, state, pos, rows, mesh)
+    logits = _vocab_logits("btd,vd->btv", x, params, mesh)
     new_pos = pos_all + t_len if rows is None else pos_all.index_put(
         (rows,), pos_all[rows] + t_len)
     return logits, {**state, "pos": new_pos}
@@ -932,7 +939,7 @@ def _last_rows(x, clen):
 
 
 def prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
-                        cache: dict, pos0, clen, rows=None):
+                        cache: dict, pos0, clen, rows=None, mesh=None):
     """The dedicated prefill lane's batched chunk (the reference's
     ``prefill_chunk_batch``, ``prefill_chunk`` under ``jax.vmap``): B
     independent bucket-padded chunks tokens [B, Lc], row b consumed at
@@ -945,12 +952,13 @@ def prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
     padding of B) point at a scratch row nobody reads. Per-row numerics
     are ``prefill_chunk``'s einsum shapes with a leading B axis. The
     caller keeps pos0[b] + Lc <= max_seq for every real row. Returns
-    logits [B, vocab] f32 after each row's tokens[clen[b] - 1]."""
+    logits [B, vocab] f32 after each row's tokens[clen[b] - 1]. Under
+    ``mesh`` the cache and rows are this rank's dp block (its lane slots),
+    split over tp as ``verify_steps``."""
     if cfg.moe:
         raise NotImplementedError(DENSE_ONLY)
-    x = _slot_slab(cfg, params, tokens, cache, pos0.long(), rows)
-    return torch.einsum("bd,vd->bv", _last_rows(x, clen),
-                        params["embed"]).float()
+    x = _slot_slab(cfg, params, tokens, cache, pos0.long(), rows, mesh)
+    return _vocab_logits("bd,vd->bv", _last_rows(x, clen), params, mesh)
 
 
 # ---------------------------------------------------------------- paged KV
@@ -1089,7 +1097,8 @@ def paged_decode_steps(cfg: TransformerConfig, params: dict, toks, pos,
 
 
 def _paged_slab(cfg: TransformerConfig, params: dict, toks, pos0, tables,
-                pool: dict, write=None) -> torch.Tensor:
+                pool: dict, write=None, mesh=None,
+                gather_dp: bool = True) -> torch.Tensor:
     """The forward the paged slab passes share (the reference's
     ``paged_verify_steps`` and ``paged_prefill_chunk_batch``): toks [S, T]
     consumed at positions pos0[s]..pos0[s]+T-1, their K/V rows written
@@ -1099,12 +1108,22 @@ def _paged_slab(cfg: TransformerConfig, params: dict, toks, pos0, tables,
     scratch block 0. Positions past B*block_len clamp onto the last table
     entry and ``pos_embed`` rows past max_seq onto its last row, as the
     reference's gathers clamp. Returns the final-normed activations
-    [S, T, d]."""
+    [S, T, d].
+
+    Under ``mesh`` the heads, ffn and vocab split over tp as in
+    ``decode_step`` and the pool holds this rank's KV heads. With
+    ``gather_dp`` the rows are this rank's dp block and every write is
+    all-gathered over dp into each replica of the pool (as
+    ``paged_decode_steps`` writes); without it every dp rank runs the
+    same rows, so each replica takes the same writes already."""
+    tp = axis_group(mesh, "tp")
+    dp = axis_group(mesh, "dp") if gather_dp else None
+    lcfg = _tp_local(cfg, mesh)
     t_len = toks.shape[1]
     b = tables.shape[1]
     bl = pool["k"].shape[2]
     pos_t = pos0.long()[:, None] + torch.arange(t_len, device=toks.device)
-    x = params["embed"][toks.long()]
+    x = _embed_rows(params, toks, mesh)
     if not cfg.rope:
         x = x + params["pos_embed"][pos_t.clamp(max=cfg.max_seq - 1)]
     x = x.to(cfg.dtype)                                          # [S, T, d]
@@ -1116,23 +1135,30 @@ def _paged_slab(cfg: TransformerConfig, params: dict, toks, pos0, tables,
     if write is not None:
         bids = torch.where(write[:, None], bids, 0)              # scratch
     boffs = pos_t % bl
+    if dp is not None:
+        bids, boffs = col.all_gather(torch.stack([bids, boffs]), dp, 1)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         pool_l = {name: arr[i] for name, arr in pool.items()}
         y = _rmsnorm(x, lp["ln1"])
-        q, k, v = _qkv_proj(cfg, y, lp, "bt")  # q [S,T,H,Dh], kv [S,T,Hkv,Dh]
+        q, k, v = _qkv_proj(lcfg, y, lp, "bt")  # q [S,T,H,Dh], kv [S,T,Hkv,Dh]
         if cfg.rope:
             q, k = _rope_apply(q, cos, sin), _rope_apply(k, cos, sin)
-        _paged_write(cfg, pool_l, bids, boffs, k, v)
+        if dp is None:
+            _paged_write(cfg, pool_l, bids, boffs, k, v)
+        else:
+            rows = col.all_gather(torch.stack([k, v]), dp, 1)
+            _paged_write(cfg, pool_l, bids, boffs, rows[0], rows[1])
         k_read, v_read = _paged_kv_read(cfg, pool_l, tables)
-        attn = _masked_attention(cfg, q, k_read, v_read, pos_t)
-        x = x + torch.einsum("bthk,hkd->btd", attn, lp["wo"])
-        x = _dense_ffn(x, lp, ffn=cfg.ffn)
+        attn = _masked_attention(lcfg, q, k_read, v_read, pos_t)
+        x = x + col.reduce_from(torch.einsum("bthk,hkd->btd", attn, lp["wo"]),
+                                tp)
+        x = _dense_ffn(x, lp, ffn=cfg.ffn, tp=tp)
     return _rmsnorm(x, params["final_norm"])
 
 
 def paged_verify_steps(cfg: TransformerConfig, params: dict, toks, pos0,
-                       tables, pool: dict, write=None) -> tuple:
+                       tables, pool: dict, write=None, mesh=None) -> tuple:
     """Score T tokens per slot against the paged pool in ONE forward: the
     reference's ``paged_verify_steps``, ``verify_steps`` through block
     tables (``_paged_slab``). toks [S, T] int32; pos0 [S] the first
@@ -1141,11 +1167,15 @@ def paged_verify_steps(cfg: TransformerConfig, params: dict, toks, pos0,
     are not verifying to scratch block 0, so their pool rows hold.
     Attention gathers each slot's table for the einsum attention, never
     the paged decode kernel, as in the reference. Returns (logits
-    [S, T, vocab] f32, pool); position rollback is the caller's."""
+    [S, T, vocab] f32, pool); position rollback is the caller's. Under
+    ``mesh`` toks, pos0, tables and ``write`` are this rank's dp block of
+    the slots: the gamma + 1 rows each slot writes are all-gathered over
+    dp into every replica of the pool, and the logits gathered over
+    tp."""
     if cfg.moe:
         raise NotImplementedError(DENSE_ONLY)
-    x = _paged_slab(cfg, params, toks, pos0, tables, pool, write)
-    logits = torch.einsum("btd,vd->btv", x, params["embed"]).float()
+    x = _paged_slab(cfg, params, toks, pos0, tables, pool, write, mesh)
+    logits = _vocab_logits("btd,vd->btv", x, params, mesh)
     return logits, pool
 
 
@@ -1204,7 +1234,8 @@ def paged_prefill_chunk(cfg: TransformerConfig, params: dict, tokens, table,
 
 
 def paged_prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
-                              tables, pos0, pool: dict, clen) -> tuple:
+                              tables, pos0, pool: dict, clen,
+                              mesh=None) -> tuple:
     """The dedicated prefill lane's batched chunk under the paged layout
     (the reference's ``paged_prefill_chunk_batch``): B rows' chunks tokens
     [B, Lc] consumed at positions pos0[b]..pos0[b]+Lc-1, their K/V rows
@@ -1214,12 +1245,15 @@ def paged_prefill_chunk_batch(cfg: TransformerConfig, params: dict, tokens,
     slot owns its table); bucket padding rows carry all-zero tables, so
     their writes go to scratch block 0, which nothing attends. Returns
     (pool, logits [B, vocab] f32 after each row's tokens[clen[b] -
-    1])."""
+    1]). Under ``mesh`` every dp rank runs the whole batch (the lane
+    slots' tables are the same on each), so each replica of the pool
+    takes the same rows, as ``paged_prefill_chunk`` does; the heads, ffn
+    and vocab split over tp."""
     if cfg.moe:
         raise NotImplementedError(DENSE_ONLY)
-    x = _paged_slab(cfg, params, tokens, pos0, tables, pool)
-    logits = torch.einsum("bd,vd->bv", _last_rows(x, clen),
-                          params["embed"]).float()
+    x = _paged_slab(cfg, params, tokens, pos0, tables, pool, mesh=mesh,
+                    gather_dp=False)
+    logits = _vocab_logits("bd,vd->bv", _last_rows(x, clen), params, mesh)
     return pool, logits
 
 

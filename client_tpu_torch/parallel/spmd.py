@@ -29,8 +29,11 @@ without waiting for its own queue of kernels, and a plan's wait has the
 same timeout behaviour on the card as on the CPU.
 
 Failure is loud. A driver that fails sends a ``FAIL`` plan (the followers
-raise ``SpmdError``); a follower waiting longer than the groups' timeout
-for a plan raises; an idle driver sends a ``NOOP`` plan every
+raise ``SpmdError``); under supervision it then sends its supervisor's
+verdict on the same channel, ``RESTART`` (every follower builds the same
+fresh object and follows it) or ``STOP`` (the crash-loop breaker
+tripped: the followers return); a follower waiting longer than the
+groups' timeout for a plan raises; an idle driver sends a ``NOOP`` plan every
 ``HEARTBEAT_S``, so an idle follower never reads as a dead driver. A
 compute collective that waits past the timeout raises on the waiting rank
 under gloo (the tested path, ``tests/test_torch_mesh_engine.py``). Under
@@ -56,6 +59,7 @@ HEARTBEAT_S = 5.0
 STOP = "stop"
 NOOP = "noop"
 FAIL = "fail"
+RESTART = "restart"
 
 
 class SpmdError(RuntimeError):
@@ -210,6 +214,17 @@ def follow(channel: PlanChannel, run) -> None:
         if op == NOOP:
             continue
         run(op, args)
+
+
+def await_verdict(channel: PlanChannel) -> bool:
+    """A supervised follower after the driver's ``FAIL``: the driver's
+    verdict on the same channel, True for ``RESTART`` (the driver's
+    supervisor rebuilds the object), False for ``STOP`` (its crash-loop
+    breaker tripped)."""
+    while True:
+        op, _ = channel.recv()
+        if op != NOOP:
+            return op == RESTART
 
 
 def broadcast_tensors(tensors: list, mesh: ShardMesh) -> None:

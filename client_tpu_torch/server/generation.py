@@ -176,14 +176,33 @@ the argmax (or the stateless per-row draw) over logits gathered over tp,
 the same on every rank of a tp group, so a chunk stays on the device;
 each chunk's ring entry is gathered over dp, so rank 0 fetches the whole
 ring. On a follower ``start()`` follows the plans until rank 0 stops,
-and ``submit`` raises. Speculation, the dedicated prefill lanes, the
-host tier and int8 KV raise ``NotImplementedError`` under a mesh, naming
-ROADMAP item 9c.
+and ``submit`` raises.
+
+Every optional plane runs under the mesh, each state cut to the rank's
+block. Speculation: the draft state is the rank's dp block of the slots
+and the draft's params are whole on every rank; a verify round is one
+plan (``_op_spec``) whose ring entry is gathered over dp like a chunk's,
+and on the paged layout its gamma + 1 rows per slot are all-gathered
+over dp into every pool replica. The dedicated lanes: the lane state's
+slots split over dp; a slot-layout lane chunk runs on its slot's rank, a
+paged one (per slot or batched) on every dp rank, and a handoff across
+dp ranks broadcasts the position and token (paged) or commits the rows
+through the replicated pool (slot layout). The host tier: the driver's
+store decides every spill, restore and drop in whole-block bytes, and
+each move is a plan: every rank copies its own heads of the block, a
+follower filing them under the driver's key. int8 KV: the scale tables
+split over tp with the heads (a scale is per row and head, so the cut is
+exact). Supervision: a dead driver sends its supervisor's verdict after
+its ``FAIL`` plan, and each follower's supervisor rebuilds the same
+engine with it or, when the breaker tripped, stops
+(``server/supervision.py``). A replica fleet of sharded engines raises
+``NotImplementedError`` naming ROADMAP item 9d.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import logging
 import queue
@@ -270,9 +289,10 @@ from client_tpu_torch.server.watchdog import (
 
 log = logging.getLogger(__name__)
 
-# the ROADMAP item of the engine's planes not ported under a mesh
-# (speculation, the dedicated prefill lanes, the host tier, int8 KV)
-MESH_REMAINDER = "item 9c, the engine's optional planes under a mesh"
+# the ROADMAP item of what is not ported under a mesh: a replica fleet of
+# sharded engines, and a replica over more than one device
+MESH_REMAINDER = ("item 9d, a fleet and sharded replicas under one process "
+                  "per card")
 
 
 def reject_unknown_knobs(knobs: dict) -> None:
@@ -461,7 +481,8 @@ def _lane_batch_finish(logits, pos, last, rows, pos0s, clens, finals,
 
 
 def lane_batch_kernel(cfg, params: dict, cache: dict, pos, last, rows, toks,
-                      pos0s, clens, finals, sampling: tuple) -> None:
+                      pos0s, clens, finals, sampling: tuple,
+                      mesh=None) -> None:
     """One batched dedicated-lane dispatch under the slot layout (the
     reference's ``lane_batch_kernel``): B lane slots' next chunks toks
     [B, Lc] through ``transformer.prefill_chunk_batch`` into their rows
@@ -471,23 +492,28 @@ def lane_batch_kernel(cfg, params: dict, cache: dict, pos, last, rows, toks,
     carry the lane state's scratch row, whose writes nothing reads (the
     reference drops them with ``mode="drop"``; torch has no dropping
     scatter, and an out-of-range index is a device-side assert on the
-    card)."""
+    card). Under ``mesh`` the lane state and rows are this rank's dp
+    block, split over tp (``transformer.prefill_chunk_batch``)."""
     logits = t.prefill_chunk_batch(cfg, params, toks, cache, pos0s, clens,
-                                   rows)
+                                   rows, mesh=mesh)
     _lane_batch_finish(logits, pos, last, rows, pos0s, clens, finals,
                        sampling)
 
 
 def paged_lane_batch(cfg, params: dict, pool: dict, pos, last, rows, tables,
-                     toks, pos0s, clens, finals, sampling: tuple) -> None:
+                     toks, pos0s, clens, finals, sampling: tuple,
+                     mesh=None) -> None:
     """``lane_batch_kernel`` under the paged layout (the reference's
     ``paged_lane_batch``): the rows' chunks go through their full-width
     block tables [B, b_max] into the shared pool
     (``transformer.paged_prefill_chunk_batch``), IN PLACE. Padding rows
     carry all-zero tables, so their writes land on scratch block 0, and
-    the lane state's scratch entry for their position and token."""
+    the lane state's scratch entry for their position and token. Under
+    ``mesh`` every dp rank runs the whole batch into its replica of the
+    pool (``transformer.paged_prefill_chunk_batch``), and ``rows`` point
+    at its own lane slots or its scratch entry."""
     _, logits = t.paged_prefill_chunk_batch(cfg, params, toks, tables,
-                                            pos0s, pool, clens)
+                                            pos0s, pool, clens, mesh=mesh)
     _lane_batch_finish(logits, pos, last, rows, pos0s, clens, finals,
                        sampling)
 
@@ -570,7 +596,7 @@ def _accept(logits, props, qdist, pos0, sampling: tuple, g: int,
 
 
 def _finish_round(pos, dpos, last, ring, ring_cnt, entry: int, rows, pos0,
-                  toks_in, n_acc, nxt) -> tuple:
+                  toks_in, n_acc, nxt, dp=None) -> tuple:
     """Rollback and emission: the round's slots move to pos0 + 1 + n_acc
     (target and draft alike; the rejected rows beyond are un-attended and
     overwritten before they are read), take ``nxt`` as their pending
@@ -578,7 +604,9 @@ def _finish_round(pos, dpos, last, ring, ring_cnt, entry: int, rows, pos0,
     row with 1 + n_acc tokens counted (0 for the other slots, whose pos,
     last and draft pos are left as they were). Returns (last, pos, draft
     pos), new tensors: none aliases another, since the admission paths
-    write them in place."""
+    write them in place. ``dp``: under a mesh the dp group over which the
+    slots are split: the entry's rows and counts are gathered over it
+    into the whole ring, as a chunk's are."""
     new_pos = (pos0 + 1 + n_acc).to(torch.int32)
     n_out = (1 + n_acc).to(torch.int32)
     if rows is None:
@@ -592,31 +620,46 @@ def _finish_round(pos, dpos, last, ring, ring_cnt, entry: int, rows, pos0,
         pos = pos.index_put((rows,), new_pos)
         dpos = dpos.index_put((rows,), new_pos)
         last = last.index_put((rows,), nxt)
+    if dp is not None:
+        w = toks.shape[1]
+        both = col.all_gather(torch.cat([toks, counts[:, None]], dim=1),
+                              dp, 0)
+        toks, counts = both[:, :w], both[:, w]
     t.emit_into_ring(ring, ring_cnt, entry, toks, counts)
     return last, pos, dpos
 
 
 def _round(verify, dcfg, dparams: dict, pos, dcache: dict, dpos, last,
            ring, ring_cnt, entry: int, rows, sampling: tuple, g: int,
-           sample: bool) -> tuple:
+           sample: bool, dp=None) -> tuple:
     """The round both layouts share: the draft proposes G tokens per slot
     (``_propose``), ``verify(toks [N, G+1], pos0 [N])`` scores the G + 1
     tokens [pending, proposals] in ONE target forward, and ``_accept`` and
-    ``_finish_round`` keep the accepted prefix plus one token."""
+    ``_finish_round`` keep the accepted prefix plus one token. Under a
+    mesh a dp rank that holds none of the round's slots (``rows`` empty)
+    only meets the round's collectives: ``verify`` of no rows and the
+    ring's gather."""
     pos0 = pos if rows is None else pos[rows]
     lst = last if rows is None else last[rows]
+    if rows is not None and rows.shape[0] == 0:
+        toks_in = torch.zeros((0, g + 1), dtype=torch.int32,
+                              device=pos.device)
+        verify(toks_in, pos0)
+        n_acc = torch.zeros((0,), dtype=torch.int64, device=pos.device)
+        return _finish_round(pos, dpos, last, ring, ring_cnt, entry, rows,
+                             pos0, toks_in, n_acc, lst, dp)
     props, qdist = _propose(dcfg, dparams, {**dcache, "pos": dpos}, rows,
                             lst, pos0, sampling, g, sample)
     toks_in = torch.cat([lst[:, None], props[:, :g]], dim=1)
     logits = verify(toks_in, pos0)
     n_acc, nxt = _accept(logits, props, qdist, pos0, sampling, g, sample)
     return _finish_round(pos, dpos, last, ring, ring_cnt, entry, rows, pos0,
-                         toks_in, n_acc, nxt)
+                         toks_in, n_acc, nxt, dp)
 
 
 def spec_round(cfg, dcfg, params: dict, dparams: dict, cache: dict, pos,
                dcache: dict, dpos, last, ring, ring_cnt, entry: int, rows,
-               sampling: tuple, g: int, sample: bool) -> tuple:
+               sampling: tuple, g: int, sample: bool, mesh=None) -> tuple:
     """One speculative round at verify depth ``g`` under the slot layout
     (the reference's ``spec_round``): ``_round`` with the verify
     ``transformer.verify_steps`` against the slots' own rows.
@@ -627,19 +670,26 @@ def spec_round(cfg, dcfg, params: dict, dparams: dict, cache: dict, pos,
     temps, top_ks, top_ps) [N] of the round's slots; ``sample`` (a host
     bool) False takes the greedy rule with no distribution machinery.
     cache/dcache {k, v} and the ring are written IN PLACE. Returns (last,
-    pos, draft pos)."""
+    pos, draft pos). Under ``mesh`` the slot state, ``rows`` and the draft
+    state are this rank's dp block (the draft's params whole, unsharded),
+    the target's heads, ffn and vocab split over tp, and the ring whole;
+    a dp rank with no slot in the round skips the forward (so does the
+    rest of its tp group)."""
     def verify(toks, _pos0):
+        if toks.shape[0] == 0:
+            return None
         return t.verify_steps(cfg, params, toks, {**cache, "pos": pos},
-                              rows)[0]
+                              rows, mesh=mesh)[0]
 
     return _round(verify, dcfg, dparams, pos, dcache, dpos, last, ring,
-                  ring_cnt, entry, rows, sampling, g, sample)
+                  ring_cnt, entry, rows, sampling, g, sample,
+                  axis_group(mesh, "dp"))
 
 
 def paged_spec_round(cfg, dcfg, params: dict, dparams: dict, pool: dict,
                      pos, dcache: dict, dpos, last, ring, ring_cnt,
                      entry: int, tables, rows, sampling: tuple, g: int,
-                     sample: bool) -> tuple:
+                     sample: bool, mesh=None) -> tuple:
     """``spec_round`` under the paged layout (the reference's
     ``paged_spec_round``): the draft is a slot-layout pool as there, and
     the verify is ONE ``transformer.paged_verify_steps`` of ALL S slots
@@ -651,11 +701,15 @@ def paged_spec_round(cfg, dcfg, params: dict, dparams: dict, pool: dict,
     reference's vmapped draft runs them and keeps nothing), so their own
     rows stay bit-unchanged, and a round that runs past its stream's
     reservation reads the scratch rows the reference's reads. Returns
-    (last, pos, draft pos)."""
+    (last, pos, draft pos). Under ``mesh`` as ``spec_round``, with the
+    tables this rank's slots' and every verify write all-gathered over dp
+    into each replica of the pool: a dp rank with no slot in the round
+    still runs its slots' verify, writing scratch only, to meet those
+    gathers."""
     def verify(toks, pos0):
         if rows is None:
             return t.paged_verify_steps(cfg, params, toks, pos0, tables,
-                                        pool)[0]
+                                        pool, mesh=mesh)[0]
         write = torch.zeros_like(pos, dtype=torch.bool)
         write[rows] = True
         # the outside slots in ascending order, with no host sync
@@ -670,10 +724,11 @@ def paged_spec_round(cfg, dcfg, params: dict, dparams: dict, pool: dict,
         full[other] = torch.cat([last[other, None], props[:, :g]], dim=1)
         full[rows] = toks
         return t.paged_verify_steps(cfg, params, full, pos, tables, pool,
-                                    write)[0][rows]
+                                    write, mesh=mesh)[0][rows]
 
     return _round(verify, dcfg, dparams, pos, dcache, dpos, last, ring,
-                  ring_cnt, entry, rows, sampling, g, sample)
+                  ring_cnt, entry, rows, sampling, g, sample,
+                  axis_group(mesh, "dp"))
 
 
 # ---------------------------------------------------------------- host side
@@ -856,8 +911,9 @@ class ContinuousBatchingEngine:
     sets out. Every rank builds it with the same arguments and the same
     whole ``params``; rank 0 is the driver (``start``, ``submit``), and
     on every other rank ``start()`` runs the follower loop until rank 0
-    stops. ``n_slots`` must divide by dp and the KV heads by tp (the
-    reference's errors)."""
+    stops. ``n_slots`` (and ``prefill_slots``) must divide by dp and the
+    KV heads by tp (the reference's errors). Every knob above works under
+    the mesh."""
 
     PREFILL_MODES = ("token", "batched", "chunked")
     KV_LAYOUTS = ("slot", "paged")
@@ -1006,14 +1062,6 @@ class ContinuousBatchingEngine:
                     f"the mesh dp size {axis_size(mesh, 'dp')} (the lane "
                     f"state shards its slot dim over dp like the decode "
                     f"pool)")
-            for knob, on in (("speculative_draft", self._spec is not None),
-                             ("prefill_slots", self._lane_on),
-                             ("host_tier_bytes", self._host_tier_bytes > 0),
-                             ("kv_quant", cfg.kv_quant)):
-                if on:
-                    raise NotImplementedError(
-                        f"generation engine knob '{knob}' under a mesh is "
-                        f"not ported yet: ROADMAP {MESH_REMAINDER}")
         self._lane_slots = [_Slot() for _ in range(self._lane_n)]
         self._lane_adm_seq = 0
         self._lane_handoffs = 0
@@ -1025,6 +1073,9 @@ class ContinuousBatchingEngine:
         # rank's tp block now, so a width that does not split raises here
         self._mesh = self._chan = None
         self._dp, self._dp_idx = 1, 0
+        # a follower's part of the driver's host-tier entries: {key: this
+        # rank's heads of the spilled block}
+        self._tier_rows: dict = {}
         if mesh is not None:
             dev = spmd.mesh_device(mesh)
             if device is not None and resolve_device(device).type \
@@ -1156,8 +1207,10 @@ class ContinuousBatchingEngine:
         # known at the retire, when the accepted counts arrive
         self._spec_gp: dict = {}
         # set by an EngineSupervisor that owns this engine: a dying
-        # engine notifies it last (server/supervision.py)
+        # engine notifies it last (server/supervision.py), and a mesh
+        # driver sends its followers whether it scheduled a restart
         self.supervisor = None
+        self._restart_due = False
         # the watchdog: detectors over the loop's host counters, firing
         # evidence bundles into a store that outlives this engine (the
         # generator hands one store to every engine it builds)
@@ -1998,9 +2051,14 @@ class ContinuousBatchingEngine:
         """Start the engine thread (rank 0 of a mesh too). On a follower
         rank of a mesh, run the follower loop here instead: it returns
         when rank 0 stops, and raises when rank 0 failed or the mesh
-        broke."""
+        broke; under an ``EngineSupervisor`` the supervisor's loop runs
+        (``EngineSupervisor.follow``), which follows rank 0's rebuilt
+        engines until rank 0 stops one or its breaker trips."""
         if self._chan is not None and not self._chan.is_driver:
-            self._follow()
+            if self.supervisor is not None:
+                self.supervisor.follow()
+            else:
+                self._follow()
             return self
         with self._lock:
             if self._started or self._stopping:
@@ -2422,7 +2480,9 @@ class ContinuousBatchingEngine:
         if self._lane_on:
             self._init_lane_state()
         if self._spec is not None:
-            dstate = t.init_decode_state(self._draft.cfg, s, dev)
+            # this rank's dp block of the slots under a mesh; the draft's
+            # params stay whole on every rank (its heads owe tp nothing)
+            dstate = t.init_decode_state(self._draft.cfg, s // self._dp, dev)
             self._dev["dpos"] = dstate.pop("pos")
             self._dev["dcache"] = dstate
             self._dev["dparams"] = _to_device(self._draft.params, dev)
@@ -2449,7 +2509,10 @@ class ContinuousBatchingEngine:
         for sample in (False, True):
             # every rank of a mesh runs these itself (no plan)
             self._op_chunk(0, warm, True, sample)
-        if self._host_tier_bytes:
+        if self._host_tier_bytes and (self._chan is None
+                                      or self._chan.is_driver):
+            # a follower's index never evicts: the driver's plans move
+            # its blocks (_op_tier_*)
             self._attach_tier()
         # the memory ledger: the big device residents this engine placed,
         # by component (the reference's rows; a paged engine has no slot
@@ -2480,21 +2543,32 @@ class ContinuousBatchingEngine:
         tokens (and under the slot layout its own KV rows) for its slots
         plus one scratch row, where the batched lane's padding rows write
         what nothing reads; its chunk ladder of powers of two up to
-        ``prefill_lane_width``, and the batched lane's row-count ladder."""
-        cfg, dev, n = self._cfg, self._device, self._lane_n + 1
+        ``prefill_lane_width``, and the batched lane's row-count ladder.
+        Under a mesh the state is this rank's dp block of the lane slots
+        and its own scratch row (the KV rows at its tp heads)."""
+        cfg, dev, mesh = self._cfg, self._device, self._mesh
+        # a dp block of lane slots plus the scratch row, on every dp rank
+        n = (self._lane_n // self._dp + 1) * self._dp
         if self._paged:
-            self._dev["lane_pos"] = t.init_paged_state(n, dev)["pos"]
+            self._dev["lane_pos"] = t.init_paged_state(n, dev, mesh)["pos"]
         else:
-            state = t.init_decode_state(cfg, n, dev)
+            state = t.init_decode_state(cfg, n, dev, mesh)
             self._dev["lane_pos"] = state.pop("pos")
             self._dev["lane_cache"] = state
-        self._dev["lane_last"] = torch.zeros((n,), dtype=torch.int32,
-                                             device=dev)
+        self._dev["lane_last"] = torch.zeros((n // self._dp,),
+                                             dtype=torch.int32, device=dev)
         self._dev["lane_buckets"] = block_count_buckets(self._lane_width,
                                                         start=8)
         if self._lane_batch:
             self._dev["lane_b_buckets"] = block_count_buckets(
                 self._lane_batch)
+
+    def _tier_pool(self) -> tuple:
+        """(the pool the host tier moves blocks of, whether it is
+        layer-major): the paged pool, or the slot layout's prefix pool."""
+        if self._paged:
+            return self._dev["pool"], True
+        return self._dev["prefix_pool"], False
 
     def _attach_tier(self) -> None:
         """Arm the host tier on the prefix pool (the paged pool, layer-
@@ -2502,20 +2576,41 @@ class ContinuousBatchingEngine:
         block through ``tier_spill`` before its id returns to the free
         list, and restores one through ``tier_restore`` inside the
         ``acquire`` of the admission that reads it, both on the engine's
-        stream; their host time goes to the "tier" phase."""
-        layer_major = self._paged
-        pool = self._dev["pool"] if layer_major else self._dev["prefix_pool"]
-        tier = HostTierStore(self._host_tier_bytes,
-                             pool_block_nbytes(pool, layer_major))
+        stream; their host time goes to the "tier" phase.
+
+        Under a mesh the store is the driver's: its budget and its LRU
+        count each block's whole bytes (this rank's heads times tp), so
+        its spill and drop decisions are the unsharded engine's. An entry
+        is ``(key, rows)``: every move is a plan (``_op_tier_*``), and each
+        follower files its own heads of the block under the key, reads
+        them back at the restore and lets them go when the store drops
+        the entry."""
+        pool, layer_major = self._tier_pool()
+        chan = self._chan
+        block = pool_block_nbytes(pool, layer_major)
+        if chan is None:
+            tier = HostTierStore(self._host_tier_bytes, block)
+        else:
+            tier = HostTierStore(
+                self._host_tier_bytes, block * axis_size(self._mesh, "tp"),
+                on_drop=lambda entry: chan.send("tier_drop", entry[0]))
+        keys = itertools.count()
 
         def spill(bid: int) -> tuple:
             t0 = time.perf_counter()
-            out = tier_spill(pool, bid, layer_major)
+            if chan is not None:
+                key = next(keys)
+                chan.send("tier_spill", key, bid)
+            rows, ready = tier_spill(pool, bid, layer_major)
             self._phase_s["tier"] += time.perf_counter() - t0
-            return out
+            return (rows if chan is None else (key, rows)), ready
 
-        def restore(bid: int, rows: dict) -> None:
+        def restore(bid: int, entry) -> None:
             t0 = time.perf_counter()
+            rows = entry
+            if chan is not None:
+                key, rows = entry
+                chan.send("tier_restore", key, bid)
             tier_restore(pool, bid, rows, layer_major)
             self._phase_s["tier"] += time.perf_counter() - t0
 
@@ -2561,15 +2656,24 @@ class ContinuousBatchingEngine:
         per = self._n_slots // self._dp
         return a[self._dp_idx * per:(self._dp_idx + 1) * per]
 
-    def _owner(self, idx: int) -> Optional[int]:
-        """Decode slot ``idx``'s row in this rank's state, or None when
-        another dp rank holds the slot."""
+    def _owner(self, idx: int, lane: bool = False) -> Optional[int]:
+        """Decode slot ``idx``'s row in this rank's state (a dedicated lane
+        slot's with ``lane``), or None when another dp rank holds the
+        slot."""
         if self._dp == 1:
             return idx
-        per = self._n_slots // self._dp
+        per = (self._lane_n if lane else self._n_slots) // self._dp
         if idx // per != self._dp_idx:
             return None
         return idx - self._dp_idx * per
+
+    def _owner_rank(self, idx: int, lane: bool = False) -> int:
+        """The global rank of this rank's dp group that holds decode slot
+        ``idx`` (lane slot with ``lane``): the source of a broadcast of
+        its rows."""
+        per = (self._lane_n if lane else self._n_slots) // self._dp
+        return dist.get_global_rank(axis_group(self._mesh, "dp"),
+                                    idx // per)
 
     def _op_chunk(self, entry: int, host: list, frozen: bool,
                   sample: bool):
@@ -2610,7 +2714,7 @@ class ContinuousBatchingEngine:
         slot with ``lane``). Slot layout: on the slot's dp rank. Paged:
         on every dp rank, since each holds a replica of the pool; only
         the slot's rank moves its position and first token."""
-        local = idx if lane else self._owner(idx)
+        local = self._owner(idx, lane)
         if local is None and not self._paged:
             return
         arrays = [padded, ints, floats] + ([table] if self._paged else [])
@@ -2633,7 +2737,7 @@ class ContinuousBatchingEngine:
                     n_tok: int) -> None:
         """``pool_to_slot`` of prefix blocks ``ids`` into slot ``idx``
         (on its dp rank: the pool is replicated, the slot rows are not)."""
-        local = idx if lane else self._owner(idx)
+        local = self._owner(idx, lane)
         if local is None:
             return
         (ids_d,) = self._upload([ids])
@@ -2651,13 +2755,129 @@ class ContinuousBatchingEngine:
         if self._dp == 1:
             slot_to_pool(self._dev["prefix_pool"], cache, idx, ids_d, offs_d)
             return
-        local = self._owner(idx)
-        group = axis_group(self._mesh, "dp")
-        src = dist.get_global_rank(group,
-                                   idx // (self._n_slots // self._dp))
+        local = self._owner(idx, lane)
         slot_to_pool(self._dev["prefix_pool"],
                      cache if local is not None else None, local, ids_d,
-                     offs_d, group, src)
+                     offs_d, axis_group(self._mesh, "dp"),
+                     self._owner_rank(idx, lane))
+
+    def _op_draft_prefill(self, idx: int, padded: np.ndarray,
+                          plen: int) -> None:
+        """The draft's catch-up on decode slot ``idx`` (on its dp rank: the
+        draft is unsharded, so no collective)."""
+        local = self._owner(idx)
+        if local is None:
+            return
+        (toks,) = self._upload([padded])
+        dev = self._dev
+        draft_prefill(self._draft.cfg, dev["dparams"], dev["dcache"],
+                      dev["dpos"], local, toks, plen)
+
+    def _op_spec(self, entry: int, rung: int, sample: bool,
+                 mask: np.ndarray, seeds: np.ndarray, temps: np.ndarray,
+                 topks: np.ndarray, topps: np.ndarray, tables) -> tuple:
+        """One verify round at depth ``rung`` over the slots of ``mask``
+        [S] bool, with every slot's sampling arrays [S] and, paged, every
+        slot's tables [S, Bw], each cut to this rank's slots (the round's
+        rows are this rank's slots in ``mask``; with all of them in the
+        round the kernels index nothing). Returns ``_start_timing()``'s
+        pair, as ``_op_chunk``."""
+        local = np.flatnonzero(self._mine(mask)).astype(np.int32)
+        every = len(local) == len(self._mine(mask))
+        arrays = [self._mine(a)[local] for a in (seeds, temps, topks, topps)]
+        if not every:
+            arrays.append(local)
+        if self._paged:
+            arrays.append(np.ascontiguousarray(self._mine(tables)))
+        seeds_d, temps_d, topks_d, topps_d, *rest = self._upload(arrays)
+        rows_d = None if every else rest.pop(0).long()
+        tab_d = rest[0] if self._paged else None
+        timing = self._start_timing()
+        self._launch_spec(entry, tab_d, rows_d,
+                          (seeds_d, temps_d, topks_d, topps_d), rung, sample)
+        if timing is not None:
+            timing[1].record()
+        return timing
+
+    def _op_lane_batch(self, idxs: np.ndarray, toks: np.ndarray,
+                       pos0s: np.ndarray, clens: np.ndarray,
+                       finals: np.ndarray, seeds: np.ndarray,
+                       temps: np.ndarray, topks: np.ndarray,
+                       topps: np.ndarray, tabs) -> None:
+        """One batched dedicated-lane dispatch of the rows' chunks (lane
+        slot ``idxs[b]``, ``prefill_slots`` for a padding row). Under a
+        mesh the slot layout runs the rows of this rank's lane slots only
+        (a dp rank with none skips, and so does its tp group); the paged
+        layout runs every row on every dp rank, so each replica of the
+        pool takes the same writes, and a row of another rank's lane slot
+        moves only this rank's scratch row."""
+        scratch = self._lane_n // self._dp
+        local = [scratch if i == self._lane_n
+                 else self._owner(int(i), lane=True) for i in idxs]
+        if not self._paged:
+            keep = [r for r, row in enumerate(local) if row is not None]
+            if not keep:
+                return
+            local = [local[r] for r in keep]
+            toks, pos0s, clens, finals, seeds, temps, topks, topps = (
+                a[keep] for a in (toks, pos0s, clens, finals, seeds, temps,
+                                  topks, topps))
+        local = np.asarray([scratch if row is None else row
+                            for row in local], np.int32)
+        arrays = [local, toks, pos0s, clens, finals, seeds,
+                  temps, topks, topps] + ([tabs] if self._paged else [])
+        (rows_d, toks_d, pos0s_d, clens_d, finals_d, seeds_d, temps_d,
+         topks_d, topps_d, *tabs_d) = self._upload(arrays)
+        sampling = (seeds_d, temps_d, topks_d, topps_d)
+        dev = self._dev
+        if self._paged:
+            paged_lane_batch(self._cfg, dev["params"], dev["pool"],
+                             dev["lane_pos"], dev["lane_last"],
+                             rows_d.long(), tabs_d[0], toks_d, pos0s_d,
+                             clens_d, finals_d, sampling, mesh=self._mesh)
+        else:
+            lane_batch_kernel(self._cfg, dev["params"], dev["lane_cache"],
+                              dev["lane_pos"], dev["lane_last"],
+                              rows_d.long(), toks_d, pos0s_d, clens_d,
+                              finals_d, sampling, mesh=self._mesh)
+
+    def _op_handoff(self, d_idx: int, l_idx: int) -> None:
+        """The paged handoff's device work: the position and first token
+        of lane slot ``l_idx`` move to decode slot ``d_idx``. When another
+        dp rank holds the lane slot, the pair is broadcast over the dp
+        group from it."""
+        dev = self._dev
+        d, lane = self._owner(d_idx), self._owner(l_idx, lane=True)
+        src = (None if self._dp == 1
+               else self._owner_rank(l_idx, lane=True))
+        if src is None or src == self._owner_rank(d_idx):
+            if d is not None:
+                lane_handoff(dev["pos"], dev["last"], dev["lane_pos"],
+                             dev["lane_last"], d, lane)
+            return
+        pair = (torch.stack([dev["lane_pos"][lane], dev["lane_last"][lane]])
+                if lane is not None else
+                torch.empty((2,), dtype=torch.int32, device=self._device))
+        dist.broadcast(pair, src=src, group=axis_group(self._mesh, "dp"))
+        if d is not None:
+            dev["pos"][d] = pair[0]
+            dev["last"][d] = pair[1]
+
+    def _op_tier_spill(self, key: int, bid: int) -> None:
+        """A follower's part of a spill: this rank's heads of block
+        ``bid`` copied to its host memory under ``key``."""
+        pool, layer_major = self._tier_pool()
+        self._tier_rows[key] = tier_spill(pool, bid, layer_major)[0]
+
+    def _op_tier_restore(self, key: int, bid: int) -> None:
+        """A follower's part of a restore: the rows filed under ``key``
+        copied back into block ``bid``."""
+        pool, layer_major = self._tier_pool()
+        tier_restore(pool, bid, self._tier_rows.pop(key), layer_major)
+
+    def _op_tier_drop(self, key: int) -> None:
+        """The driver's store dropped an entry: let its rows go."""
+        self._tier_rows.pop(key, None)
 
     def _upload(self, arrays: list) -> list:
         """Copy this dispatch's host inputs to the device in ONE transfer:
@@ -3327,7 +3547,13 @@ class ContinuousBatchingEngine:
         restores it into the decode slot; the tail feeds token by token.
         Every copy is enqueued on the engine's stream behind the lane
         chunks that wrote the rows and ahead of any later lane chunk in
-        the lane slot."""
+        the lane slot.
+
+        Under a mesh the lane slot and the decode slot may sit on
+        different dp ranks: the paged move broadcasts the position and the
+        token from the lane slot's rank (``_op_handoff``), and the slot
+        layout's commit broadcasts the rows from it into every replica of
+        the pool, from which the decode slot's rank restores them."""
         t0 = time.perf_counter()
         lane = self._lane_slots[l_idx]
         d = self._slots[d_idx]
@@ -3343,8 +3569,7 @@ class ContinuousBatchingEngine:
             d.n_shared, lane.n_shared = lane.n_shared, 0
             d.reserved_left, lane.reserved_left = lane.reserved_left, 0
             d.cursor = d.pos_hi = lane.cursor
-            lane_handoff(dev["pos"], dev["last"], dev["lane_pos"],
-                         dev["lane_last"], d_idx, l_idx)
+            self._exec("handoff", d_idx, l_idx)
             # a position and token move: device time, no FLOPs
             self._note_dispatch("handoff", outputs=dev["last"])
         else:
@@ -3357,10 +3582,9 @@ class ContinuousBatchingEngine:
                 req.prefix = handle
                 bucket = next(b for b in dev["prefix_buckets"]
                               if b >= len(handle.block_ids))
-                (ids,) = self._upload([pad_block_ids(handle.block_ids,
-                                                     bucket)])
-                pool_to_slot(dev["prefix_pool"], dev["cache"], dev["pos"],
-                             d_idx, ids, handle.matched_tokens)
+                self._exec("restore", d_idx, False,
+                           pad_block_ids(handle.block_ids, bucket),
+                           handle.matched_tokens)
                 # pool->slot KV gather: device time, no model FLOPs
                 self._note_dispatch("gather", outputs=dev["pos"])
                 d.cursor = d.pos_hi = handle.matched_tokens
@@ -3514,29 +3738,16 @@ class ContinuousBatchingEngine:
             temps[r] = req.temperature
             topks[r] = req.top_k
             topps[r] = req.top_p
-        arrays = [idxs, toks, pos0s, clens, finals, seeds, temps, topks,
-                  topps]
+        tabs = None
         if self._paged:
             tabs = np.zeros((bb, self._cfg.max_seq // self._kv_block_len),
                             np.int32)
             for r, (_i, slot, req, pos0, clen, _cap) in enumerate(rows):
                 self._ensure_blocks(slot, req, pos0 + clen)
                 tabs[r, :len(slot.blocks)] = slot.blocks
-            arrays.append(tabs)
-        (idxs_d, toks_d, pos0s_d, clens_d, finals_d, seeds_d, temps_d,
-         topks_d, topps_d, *tabs_d) = self._upload(arrays)
-        sampling = (seeds_d, temps_d, topks_d, topps_d)
+        self._exec("lane_batch", idxs, toks, pos0s, clens, finals, seeds,
+                   temps, topks, topps, tabs)
         dev = self._dev
-        if self._paged:
-            paged_lane_batch(self._cfg, dev["params"], dev["pool"],
-                             dev["lane_pos"], dev["lane_last"],
-                             idxs_d.long(), tabs_d[0], toks_d, pos0s_d,
-                             clens_d, finals_d, sampling)
-        else:
-            lane_batch_kernel(self._cfg, dev["params"], dev["lane_cache"],
-                              dev["lane_pos"], dev["lane_last"],
-                              idxs_d.long(), toks_d, pos0s_d, clens_d,
-                              finals_d, sampling)
         total = 0
         end_ns = now_ns()
         for r, (i, slot, req, pos0, clen, _cap) in enumerate(rows):
@@ -3670,10 +3881,8 @@ class ContinuousBatchingEngine:
         bucket = next(b for b in self._dev["draft_buckets"] if b >= plen)
         padded = np.zeros(bucket, np.int32)
         padded[:plen] = req.prompt
-        (toks,) = self._upload([padded])
+        self._exec("draft_prefill", idx, padded, plen)
         dev = self._dev
-        draft_prefill(self._draft.cfg, dev["dparams"], dev["dcache"],
-                      dev["dpos"], idx, toks, plen)
         dfm = self._draft_flop_model
         self._note_dispatch(
             "draft_prefill", dfm.span(0, plen, logits=False),
@@ -4002,44 +4211,37 @@ class ContinuousBatchingEngine:
         """Launch one verify round (async) at depth ``rung`` over the
         slots in "spec" mode that picked it. Each slot's ``pos_hi`` grows
         by the bound rung + 1, corrected to the real advance at retire.
-        Only these slots' sampling rows go to the device, with every
-        slot's table under the paged layout (its verify runs all S rows);
-        with every slot in the round the kernels index nothing."""
+        The round is a plan of host arrays over every slot (``_op_spec``
+        cuts them to a rank's slots): only the round's sampling rows go
+        to the device, with every slot's table under the paged layout
+        (its verify runs all S rows)."""
         t0 = time.perf_counter()
-        rows, meta = [], []
+        s = self._n_slots
+        mask = np.zeros((s,), np.bool_)
+        seeds = np.zeros((s,), np.int32)
+        temps = np.zeros((s,), np.float32)
+        topks = np.zeros((s,), np.int32)
+        topps = np.zeros((s,), np.float32)
+        meta = []
         gp_part = []   # (slot, pos0): the FLOP ledger for the retire
         for i, slot in enumerate(self._slots):
             req = slot.req
             if req is None or modes[i] != "spec" or rungs[i] != rung:
                 meta.append(None)
                 continue
-            rows.append(i)
+            mask[i] = True
+            seeds[i] = req.seed
+            temps[i] = req.temperature
+            topks[i] = req.top_k
+            topps[i] = req.top_p
             gp_part.append((i, slot.pos_hi))
             slot.pos_hi += rung + 1
             meta.append(req)
-        reqs = [self._slots[i].req for i in rows]
-        seeds = np.asarray([r.seed for r in reqs], np.int32)
-        temps = np.asarray([r.temperature for r in reqs], np.float32)
-        topks = np.asarray([r.top_k for r in reqs], np.int32)
-        topps = np.asarray([r.top_p for r in reqs], np.float32)
-        every = len(rows) == self._n_slots
-        arrays = [seeds, temps, topks, topps]
-        if not every:
-            arrays.append(np.asarray(rows, np.int32))
-        if self._paged:
-            arrays.append(np.ascontiguousarray(tables))
-        seeds_d, temps_d, topks_d, topps_d, *rest = self._upload(arrays)
-        rows_d = None if every else rest.pop(0).long()
-        tab_d = rest[0] if self._paged else None
         sample = bool(temps.max(initial=0.0) > 0)
         seq = self._ring_seq
         self._ring_seq += 1
-        timing = self._start_timing()
-        self._launch_spec(seq % self._ring_entries, tab_d, rows_d,
-                          (seeds_d, temps_d, topks_d, topps_d), rung,
-                          sample)
-        if timing is not None:
-            timing[1].record()
+        timing = self._exec("spec", seq % self._ring_entries, rung, sample,
+                            mask, seeds, temps, topks, topps, tables)
         self._chunks_dispatched += 1
         # timing is noted now; the useful-against-rejected row split waits
         # for the retire, keyed by ring seq. The slots outside the round
@@ -4061,7 +4263,7 @@ class ContinuousBatchingEngine:
     def _launch_spec(self, entry: int, tables, rows, sampling: tuple,
                      rung: int, sample: bool) -> None:
         """Enqueue one verify round of the engine's layout on its device
-        state (``tables`` are the round's slots' rows, paged only)."""
+        state (``tables`` are this rank's slots' rows, paged only)."""
         dev = self._dev
         common = (dev["dcache"], dev["dpos"], dev["last"], dev["ring"],
                   dev["ring_cnt"], entry)
@@ -4069,12 +4271,12 @@ class ContinuousBatchingEngine:
             dev["last"], dev["pos"], dev["dpos"] = paged_spec_round(
                 self._cfg, self._draft.cfg, dev["params"], dev["dparams"],
                 dev["pool"], dev["pos"], *common, tables, rows, sampling,
-                rung, sample)
+                rung, sample, mesh=self._mesh)
         else:
             dev["last"], dev["pos"], dev["dpos"] = spec_round(
                 self._cfg, self._draft.cfg, dev["params"], dev["dparams"],
                 dev["cache"], dev["pos"], *common, rows, sampling, rung,
-                sample)
+                sample, mesh=self._mesh)
 
     def _issue_fetch(self, unfetched: list, forced: bool = False) -> tuple:
         """Start the ring's D2H copy (non-blocking, on the engine's
@@ -4308,6 +4510,14 @@ class ContinuousBatchingEngine:
             if self._chan is not None:
                 self._chan.fail(e)               # the followers raise
             self._fail_all(e)
+            if self._chan is not None and self.supervisor is not None:
+                # supervised followers wait for the verdict: rebuild with
+                # the driver's supervisor, or stop (breaker tripped)
+                try:
+                    self._chan.send(spmd.RESTART if self._restart_due
+                                    else spmd.STOP)
+                except Exception:  # noqa: BLE001 — the channel may be
+                    pass           # what broke; the failure stands
             if not isinstance(e, Exception):
                 raise
 
@@ -4565,7 +4775,7 @@ class ContinuousBatchingEngine:
         if sup is not None:
             # last: the supervisor may swap in a fresh engine the moment
             # this returns, and every waiter above is answered
-            sup.notify_failure(self, err)
+            self._restart_due = sup.notify_failure(self, err)
 
 
 def _to_device(tree, device):

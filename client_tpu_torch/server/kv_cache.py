@@ -66,22 +66,29 @@ SPILLED = -1
 class HostTierStore:
     """Bounded host-RAM store of spilled prefix blocks.
 
-    One entry per spilled trie node: the block's rows as ``{tensor name:
-    host tensor}`` in the layout-free ``[layers, block_len, ...]`` shape
-    (both pool layouts slice to it). A spill's device-to-host copy may
-    still be in flight when its entry arrives: ``put`` takes the copy's
-    CUDA event as ``ready``, and :meth:`drain` (once per engine
-    iteration) retires the events that have completed, without waiting on
-    any: an entry whose event is still pending must not be read on the
-    host. A restore needs no wait: its host-to-device copy is enqueued on
-    the stream that carries the spill's copy. Capacity is
-    ``budget_bytes`` worth of blocks; :meth:`put` makes room by dropping
-    the least recently spilled CHILDLESS, unpinned entries (dropping one
-    that still anchors children would orphan their prefixes) and refuses
-    when it cannot, and the caller then evicts the block outright. The
-    owning index's lock is held by every caller."""
+    One entry per spilled trie node: what the engine's spill mover
+    returned, the block's rows as ``{tensor name: host tensor}`` in the
+    layout-free ``[layers, block_len, ...]`` shape (both pool layouts
+    slice to it), or under a sharded engine ``(key, rows)``, the key its
+    followers file their heads of the block under. A spill's
+    device-to-host copy may still be in flight when its entry arrives:
+    ``put`` takes the copy's CUDA event as ``ready``, and :meth:`drain`
+    (once per engine iteration) retires the events that have completed,
+    without waiting on any: an entry whose event is still pending must
+    not be read on the host. A restore needs no wait: its host-to-device
+    copy is enqueued on the stream that carries the spill's copy.
+    Capacity is ``budget_bytes`` worth of blocks; :meth:`put` makes room
+    by dropping the least recently spilled CHILDLESS, unpinned entries
+    (dropping one that still anchors children would orphan their
+    prefixes) and refuses when it cannot, and the caller then evicts the
+    block outright. The owning index's lock is held by every caller.
 
-    def __init__(self, budget_bytes: int, block_nbytes: int):
+    ``on_drop(arrays)``, when given, is called with every entry that
+    leaves the store other than by :meth:`take`: dropped for room, by
+    :meth:`drop`, or refused by :meth:`put` (a sharded engine's driver
+    tells its followers to let go of their part of the block)."""
+
+    def __init__(self, budget_bytes: int, block_nbytes: int, on_drop=None):
         if budget_bytes < 1:
             raise ValueError("host tier budget must be >= 1 byte")
         if block_nbytes < 1:
@@ -93,6 +100,7 @@ class HostTierStore:
         self._entries: dict = {}      # node -> rows (insertion = LRU)
         self._pending: dict = {}      # node -> event of its copy
         self.dropped = 0              # entries LRU-dropped to make room
+        self._on_drop = on_drop or (lambda arrays: None)
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -116,8 +124,9 @@ class HostTierStore:
                  and n not in protect),
                 None)
             if victim is None:
+                self._on_drop(arrays)
                 return False
-            del self._entries[victim]
+            self._on_drop(self._entries.pop(victim))
             self._pending.pop(victim, None)
             self.dropped += 1
             # the victim's rows are gone from every tier: the caller
@@ -136,7 +145,9 @@ class HostTierStore:
     def drop(self, node) -> None:
         """Discard one entry without restoring it (node deletion)."""
         self._pending.pop(node, None)
-        self._entries.pop(node, None)
+        arrays = self._entries.pop(node, None)
+        if arrays is not None:
+            self._on_drop(arrays)
 
     def drain(self) -> None:
         """Retire the events of the copies that have landed (never

@@ -25,6 +25,15 @@ outage. The supervisor makes engine death a *bounded* event:
    stays false, and the ``client_tpu_engine_crash_looped`` gauge
    flips so the alert fires on "needs a human", not "restarting".
 
+An engine sharded over a mesh (one process per card) is supervised on
+every rank: the driver's supervisor decides, and after the dead
+engine's ``FAIL`` plan it sends its verdict on the same channel
+(``parallel/spmd.py``). Each follower's supervisor (:meth:`follow`)
+then builds the same fresh engine from the same factory, in the same
+order as the driver (``dist.new_group`` is collective over the default
+group), and follows it; a tripped breaker ends the followers with
+``STOP``.
+
 Readiness during the whole sequence is honest: the model's
 ``engine_healthy()`` probe reads the supervisor's *current* engine, so
 ``/v2/health/ready`` is false from the crash until the restarted
@@ -43,6 +52,7 @@ import time
 from collections import deque
 from dataclasses import dataclass
 
+from client_tpu_torch.parallel import spmd
 from client_tpu_torch.server.types import now_ns
 
 log = logging.getLogger(__name__)
@@ -89,11 +99,17 @@ class EngineSupervisor:
     the engine calls :meth:`notify_failure` from ``_fail_all`` when it
     dies on an unexpected error, and :meth:`retry_after_hint` while
     composing the retryable 503 it answers in-flight streams with.
+
+    ``collective``: the factory's engines are built by every rank of a
+    mesh together, so a rebuild the driver abandons (a shutdown during
+    the backoff) is still built and stopped, which releases the
+    followers building it beside the driver.
     """
 
     def __init__(self, factory, policy: RestartPolicy | None = None,
-                 name: str = "generation-engine"):
+                 name: str = "generation-engine", collective: bool = False):
         self._factory = factory
+        self._collective = collective
         self.policy = policy or RestartPolicy()
         self.name = name
         self._lock = threading.Lock()
@@ -170,14 +186,15 @@ class EngineSupervisor:
 
     # -- failure path --
 
-    def notify_failure(self, engine, err: BaseException) -> None:
+    def notify_failure(self, engine, err: BaseException) -> bool:
         """Called by the dying engine thread (after it failed its
         waiters and dumped the flight recorder). Schedules a restart
-        unless stopped, already restarting, or crash-looped."""
+        unless stopped, already restarting, or crash-looped; returns
+        whether it did (a mesh driver's verdict to its followers)."""
         with self._lock:
             if self._stopped or self.crash_looped \
                     or engine is not self.engine or self._restarting:
-                return
+                return False
             self._failure_times.append(time.monotonic())
             self.last_error = str(err)
             failures = self._prune_failures()
@@ -188,7 +205,7 @@ class EngineSupervisor:
                     "supervisor giving up; model stays not-ready until "
                     "an operator reloads it (last error: %s)",
                     self.name, failures, self.policy.window_s, err)
-                return
+                return False
             backoff = self.policy.backoff_for(failures)
             self._restarting = True
             epoch = self._epoch
@@ -198,6 +215,7 @@ class EngineSupervisor:
         threading.Thread(
             target=self._restart, args=(backoff, epoch), daemon=True,
             name=f"engine-supervisor-{self.name}").start()
+        return True
 
     def _stale(self, epoch: int) -> bool:
         """Caller holds the lock. A restart is stale once the server
@@ -210,9 +228,15 @@ class EngineSupervisor:
     def _restart(self, backoff_s: float, epoch: int) -> None:
         time.sleep(backoff_s)
         with self._lock:
-            if self._stale(epoch):
+            stale = self._stale(epoch)
+            if stale:
                 self._restarting = False
-                return
+        if stale:
+            if self._collective:
+                # the followers build this engine with the driver: build
+                # it, and its stop releases them
+                self._factory().stop()
+            return
         try:
             # the factory builds a fresh engine whose device state
             # (slots / KV pool / draft KV / token ring / radix index) is
@@ -260,6 +284,35 @@ class EngineSupervisor:
         # raced a shutdown or an operator reload: the just-built
         # engine must not leak its thread/device state
         engine.stop()
+
+    # -- a follower rank of a mesh --
+
+    def follow(self) -> None:
+        """A follower rank's loop under a mesh: follow the current
+        engine's plans until the driver stops it; when the driver's
+        engine dies (its ``FAIL`` plan), read the driver's verdict and
+        either build the same fresh engine from the factory and follow
+        it, or, when the driver's breaker tripped, return crash-looped.
+        An unsupervised follower raises ``SpmdError`` instead
+        (``ContinuousBatchingEngine.start``)."""
+        while True:
+            engine = self.engine
+            try:
+                engine._follow()
+                return
+            except spmd.SpmdError as e:
+                self.last_error = str(e)
+                if not spmd.await_verdict(engine._chan):
+                    with self._lock:
+                        self.crash_looped = True
+                    return
+            # the driver's supervisor builds its engine now: the same
+            # factory, the same order of process groups
+            fresh = self._attach(self._factory())
+            with self._lock:
+                self.restarts += 1
+                self.last_restart_ns = now_ns()
+                self.engine = fresh
 
     # -- lifecycle (the model's unload/reload path) --
 

@@ -1399,3 +1399,23 @@ def test_one_rank_nccl_mesh_engine_decodes_as_the_unsharded_one(card, kw):
     (plain, mesh), = run_ranks(torch_mesh_ranks.one_rank_mesh_engine, 1,
                                "nccl", 300, args=(kw,))
     assert mesh == plain
+
+
+@pytest.mark.parametrize("plane", ["spec", "int8"])
+@pytest.mark.parametrize("kw", [dict(), dict(kv_layout="paged",
+                                             kv_block_len=8)],
+                         ids=["slot", "paged"])
+def test_one_rank_nccl_mesh_planes_decode_as_the_unsharded_one(card, kw,
+                                                               plane):
+    """Speculation (a self-draft) and int8 KV over a one-rank NCCL mesh at
+    GQA widths: the streams of the unsharded engine, and verify rounds
+    ran."""
+    import torch_mesh_ranks
+
+    from client_tpu_torch.parallel.collectives import run_ranks
+
+    (plain, mesh), = run_ranks(torch_mesh_ranks.one_rank_mesh_planes, 1,
+                               "nccl", 300, args=(kw, plane))
+    assert mesh["streams"] == plain["streams"]
+    if plane == "spec":
+        assert mesh["rounds"] > 0 and mesh["rounds"] == plain["rounds"]

@@ -9,7 +9,6 @@ the same seed. On the CPU the port's ``flash`` attention is K2's plain
 version; the kernel itself runs on the card (tests/test_torch_cuda.py).
 """
 
-import dataclasses
 import threading
 import time
 import types
@@ -26,7 +25,10 @@ from client_tpu.server.generation import (
     ContinuousBatchingEngine as JaxEngine,
 )
 from client_tpu_torch.models import transformer as tt
-from client_tpu_torch.models.decoder_lm import make_continuous_generator
+from client_tpu_torch.models.decoder_lm import (
+    make_continuous_generator,
+    make_replica_fleet,
+)
 from client_tpu_torch.perf import bench_harness as tbh
 from client_tpu_torch.server import TorchInferenceServer
 from client_tpu_torch.server.generation import ContinuousBatchingEngine
@@ -204,31 +206,35 @@ _DP2 = types.SimpleNamespace(mesh_dim_names=("dp", "tp"), shape=(2, 1),
                              device_type="cpu")
 
 
-@pytest.mark.parametrize("knob,value,item", [
-    ("host_tier_bytes", dict(host_tier_bytes=1 << 20, prefix_cache=True),
-     "9c"),
-    ("prefill_slots", dict(prefill_slots=2, prefill_mode="chunked",
-                           kv_layout="paged"), "9c"),
-    ("speculative_draft", dict(speculative_gamma=2), "9c"),
-    ("kv_quant", {}, "9c")])
-def test_unported_knobs_raise_naming_their_roadmap_item(model, knob, value,
-                                                        item):
-    """Under a mesh the engine's optional planes raise naming ROADMAP
-    9c; a mesh that is not a DeviceMesh, and a device subset with no
-    process group of its ranks, raise ValueError/TypeError."""
+@pytest.mark.parametrize("factory,knob,kw", [
+    ("generator", "fleet", dict(fleet=2, mesh=_DP2)),
+    ("replica_fleet", "fleet", dict(replicas=2, mesh=_DP2)),
+    ("generator", "replica_devices", dict(
+        fleet=2, device="cpu",
+        replica_devices=[(torch.device("cpu", 0), torch.device("cpu", 1)),
+                         None])),
+    ("replica_fleet", "replica_devices", dict(
+        replicas=2, device="cpu",
+        replica_devices=[(torch.device("cpu", 0), torch.device("cpu", 1)),
+                         None]))])
+def test_a_sharded_fleet_raises_naming_9d(model, factory, knob, kw):
+    """A fleet under a mesh and a replica over two devices raise naming
+    ROADMAP 9d (a router in one process cannot reach a replica's driver
+    rank), from the generator and from make_replica_fleet, before any
+    process group is touched."""
     _, _, tcfg, tparams = model
-    from client_tpu_torch.server.speculation import DraftModel
+    make = {"generator": make_continuous_generator,
+            "replica_fleet": make_replica_fleet}[factory]
+    with pytest.raises(NotImplementedError, match="9d") as ei:
+        make(cfg=tcfg, params=tparams, n_slots=2, **kw)
+    assert knob in str(ei.value)
 
-    kw = dict(value)
-    if knob == "speculative_draft":
-        kw["speculative_draft"] = DraftModel(tcfg, tparams)
-    if knob == "kv_quant":
-        tcfg = dataclasses.replace(tcfg, kv_quant=True)
-    with pytest.raises(NotImplementedError, match=item):
-        ContinuousBatchingEngine(tcfg, tparams, n_slots=2, mesh=_DP2, **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        make_continuous_generator(cfg=tcfg, params=tparams, n_slots=2,
-                                  mesh=_DP2, **kw)
+
+def test_a_bad_mesh_or_subset_raises(model):
+    """A mesh that is not a DeviceMesh raises TypeError; a device subset
+    with no process group of its ranks raises ValueError; an unknown knob
+    raises TypeError."""
+    _, _, tcfg, tparams = model
     with pytest.raises(TypeError, match="DeviceMesh"):
         ContinuousBatchingEngine(tcfg, tparams, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="live process group"):

@@ -18,9 +18,9 @@ here from the same weights (``params_from_jax``).
 - rank 0 idle for twice the groups' timeout (heartbeats keep the
   followers); a driver stopped before it started;
 - each rank's shard, the follower's refused submit, the reference's
-  divisibility and KV-head errors, the 9c knobs, the driver's death (every
-  follower raises) and a silent follower (the driver's collective times
-  out and the engine dies loudly);
+  divisibility and KV-head errors, the driver's death (every follower of
+  an unsupervised engine raises) and a silent follower (the driver's
+  collective times out and the engine dies loudly);
 - the dry run's steps 1-4 at 4 ranks (8 ranks: tests/test_torch_parallel.py).
 """
 
@@ -173,16 +173,6 @@ def test_the_reference_errors_raise_on_every_rank(mesh_run, case, exc,
     for r in got:
         assert r["errors"][case].startswith(exc), r["errors"][case]
         assert match in r["errors"][case]
-
-
-@pytest.mark.parametrize("knob", ["speculative_draft", "prefill_slots",
-                                  "host_tier_bytes", "kv_quant"])
-def test_the_9c_knobs_raise_naming_9c(mesh_run, knob):
-    got, _ = mesh_run
-    for r in got:
-        err = r["errors"][f"9c_{knob}"]
-        assert err.startswith("NotImplementedError"), err
-        assert "9c" in err and knob in err
 
 
 def test_the_drivers_death_raises_on_every_rank(mesh_run):

@@ -1,5 +1,5 @@
-"""Rank bodies of tests/test_torch_mesh_engine.py and
-tests/test_torch_mesh_serving.py, run by
+"""Rank bodies of tests/test_torch_mesh_engine.py,
+tests/test_torch_mesh_planes.py and tests/test_torch_mesh_serving.py, run by
 ``client_tpu_torch.parallel.collectives.run_ranks`` in spawned gloo
 processes.
 
@@ -24,6 +24,7 @@ from client_tpu_torch.parallel.collectives import all_gather
 from client_tpu_torch.parallel.mesh import axis_group, make_mesh
 from client_tpu_torch.server import faultinject
 from client_tpu_torch.server.generation import ContinuousBatchingEngine
+from client_tpu_torch.server.kv_cache import pool_block_nbytes
 
 
 # a short group timeout, and an idle gap of twice it on rank 0
@@ -213,18 +214,6 @@ def mesh_engine(rank, world, case: dict) -> dict:
             tiny, tparams, n_slots=2, engine_devices=(
                 torch.device("cpu", 0), torch.device("cpu", 1)))),
     }
-    from client_tpu_torch.server.speculation import DraftModel
-
-    for knob, kw, cfg in (
-            ("speculative_draft", dict(
-                speculative_draft=DraftModel(tiny, tparams),
-                speculative_gamma=2), tiny),
-            ("prefill_slots", dict(prefill_mode="chunked", kv_layout="paged",
-                                   prefill_slots=2), tiny),
-            ("host_tier_bytes", dict(prefix_cache=True,
-                                     host_tier_bytes=1 << 20), tiny),
-            ("kv_quant", {}, dataclasses.replace(tiny, kv_quant=True))):
-        errors[f"9c_{knob}"] = _err(lambda: engine(cfg, tparams, **kw))
     out["errors"] = errors
 
     # the failure paths: rank 0's engine dies (an injected loop fault)
@@ -381,4 +370,252 @@ def one_rank_mesh_engine(rank, world, kw: dict) -> list:
             out.append([list(it) for it in its])
         finally:
             eng.stop()
+    return out
+
+
+
+def _handoffs(eng) -> list:
+    """Record each lane handoff's (lane slot, decode slot)."""
+    taken = []
+    handoff = eng._handoff
+
+    def spy(l_idx, d_idx):
+        taken.append((l_idx, d_idx))
+        handoff(l_idx, d_idx)
+
+    eng._handoff = spy
+    return taken
+
+
+def _shard_shapes(eng, names: dict) -> dict:
+    """The shapes of this rank's device state ``names`` ({label: key path
+    into ``eng._dev``}), read at the engine's first chunk (its warm-up,
+    when every state is built), on the driver and the followers alike."""
+    got = {}
+    chunk = eng._op_chunk
+
+    def spy(*args):
+        if not got:
+            for label, path in names.items():
+                node = eng._dev
+                for key in path:
+                    node = node[key]
+                got[label] = tuple(node.shape)
+        return chunk(*args)
+
+    eng._op_chunk = spy
+    return got
+
+
+def _tier_rows(eng) -> list:
+    """Record, on a follower, the shapes of the rows it files under the
+    driver's key at each spill."""
+    shapes = []
+    spill = eng._op_tier_spill
+
+    def spy(key, bid):
+        spill(key, bid)
+        shapes.append({n: tuple(r.shape)
+                       for n, r in eng._tier_rows[key].items()})
+
+    eng._op_tier_spill = spy
+    return shapes
+
+
+def _tier_cycle(eng, case: dict) -> dict:
+    """Family A on decode slot 0 (dp rank 0), B and C after it on the same
+    slot (the small pool spills A's committed blocks to the host tier),
+    then a filler on slot 0 while A again takes slot 1 (dp rank 1): its
+    hit restores the blocks dp rank 0 wrote."""
+    taken = _slots_taken(eng)
+    fams = [np.asarray(f, np.int32) for f in case["families"]]
+    budget = case["family_budget"]
+    first = list(eng.submit(fams[0], budget))
+    for fam in fams[1:]:
+        list(eng.submit(fam, budget))
+    filler = eng.submit(np.asarray(case["filler"], np.int32), 12)
+    second = list(eng.submit(fams[0], budget))
+    list(filler)
+    tier = eng._kv_index.tier_snapshot()
+    pool, layer_major = eng._tier_pool()
+    return {"tokens": [first, second], "slots": taken,
+            "spills": tier["spills"], "restores": tier["restores"],
+            "tier_hits": eng.gen_stats.snapshot()["tier_hits"],
+            "block_nbytes": eng._kv_index.tier.block_nbytes,
+            "shard_block_nbytes": pool_block_nbytes(pool, layer_major)}
+
+
+def _supervised(rank: int, mesh, tiny, tparams, jobs: list) -> dict:
+    """A supervised generator over the mesh: streams, an injected crash of
+    the driver's engine (every rank rebuilds it), the streams again, then
+    a second crash that trips the breaker (max_failures 2), whose STOP
+    ends the followers."""
+    from client_tpu_torch.models.decoder_lm import make_continuous_generator
+
+    model = make_continuous_generator(
+        "sup_lm", cfg=tiny, params=tparams, n_slots=4, chunk_size=4,
+        mesh=mesh, supervision={"backoff_base_s": 0.05, "max_failures": 2,
+                                "window_s": 300.0})
+    sup = model.engine_supervisor
+    if rank != 0:
+        model.engine.start()            # follows every rebuilt engine
+        return {"restarts": sup.restarts, "crash_looped": sup.crash_looped}
+    inj = faultinject.get_injector()
+
+    def crash() -> str:
+        inj.arm([{"point": "engine_loop", "times": 1,
+                  "match": {"engine": "sup_lm"}}])
+        try:
+            return _err(lambda: list(model.engine.submit(
+                np.asarray([1, 2], np.int32), 4)))
+        finally:
+            inj.clear()
+
+    def wait(done) -> None:
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not done():
+            time.sleep(0.02)
+
+    model.engine.start()
+    before = _concurrent(model.engine, jobs)
+    first_crash = crash()
+    wait(lambda: sup.restarts == 1 and model.engine_healthy())
+    after = _concurrent(model.engine, jobs)
+    second_crash = crash()
+    wait(lambda: sup.crash_looped)
+    out = {"before": before, "after": after, "first_crash": first_crash,
+           "second_crash": second_crash, "restarts": sup.restarts,
+           "crash_looped": sup.crash_looped,
+           "healthy": model.engine_healthy()}
+    model.shutdown()
+    return out
+
+
+def mesh_planes(rank, world, case: dict) -> dict:
+    """dp2 x tp2 over 4 gloo ranks: every optional plane of the engine
+    under the mesh (tests/test_torch_mesh_planes.py): speculation, the
+    dedicated lanes (per slot and batched), the host tier and int8 KV on
+    both layouts, with each rank's shard of each plane's state, then
+    supervision and the 9d refusals."""
+    from client_tpu_torch.models.decoder_lm import (
+        make_continuous_generator,
+        make_replica_fleet,
+    )
+    from client_tpu_torch.server.speculation import DraftModel
+
+    mesh = make_mesh({"dp": 2, "tp": 2}, device="cpu")
+    tiny = cfg_of(case["tiny"])
+    tparams = tt.params_from_jax(case["tiny_params"], "cpu", torch.float32)
+    kv8 = dataclasses.replace(tiny, kv_quant=True)
+    jobs, long_jobs = case["jobs"], case["long_jobs"]
+    paged = dict(kv_layout="paged", kv_block_len=8)
+    out, shards = {}, {}
+
+    def engine(cfg, **kw):
+        kw.setdefault("n_slots", 4)
+        kw.setdefault("chunk", 4)
+        return ContinuousBatchingEngine(cfg, tparams, mesh=mesh, **kw)
+
+    # speculation with a self-draft, both layouts
+    for layout, kw in (("slot", {}), ("paged", paged)):
+        eng = engine(tiny, speculative_draft=DraftModel(tiny, tparams),
+                     speculative_gamma=3, **kw)
+        shards[f"spec_{layout}"] = _shard_shapes(eng, {
+            "dcache_k": ("dcache", "k"), "dpos": ("dpos",),
+            "dparams_wqkv": ("dparams", "layers", "wqkv")})
+        out[f"spec_{layout}"] = _run(rank, eng, lambda e: {
+            "tokens": _concurrent(e, jobs),
+            "spec": e.stats()["speculation"]})
+
+    # the dedicated lanes, per slot and batched, both layouts
+    for layout, kw in (("slot", dict(prefix_cache=True, prefix_blocks=32,
+                                     prefix_block_len=4)),
+                       ("paged", paged)):
+        for batch in (0, 2):
+            eng = engine(tiny, prefill_mode="chunked", prefill_chunk=8,
+                         prefill_slots=2, prefill_lane_width=8,
+                         prefill_lane_batch=batch, **kw)
+            taken = _handoffs(eng)
+            lane = {"lane_pos": ("lane_pos",), "lane_last": ("lane_last",)}
+            if layout == "slot":
+                lane["lane_cache_k"] = ("lane_cache", "k")
+            shards[f"lane_{layout}_{batch}"] = _shard_shapes(eng, lane)
+            out[f"lane_{layout}_{batch}"] = _run(rank, eng, lambda e: {
+                "tokens": _concurrent(e, long_jobs),
+                "handoffs": list(taken)})
+
+    # the host tier: a prefix spilled from dp rank 0, restored for dp
+    # rank 1
+    for layout, kw in (("slot", dict(prefix_blocks=11, prefix_block_len=8)),
+                       ("paged", dict(paged, kv_pool_blocks=16,
+                                      prefix_block_len=8,
+                                      prefill_mode="chunked",
+                                      prefill_chunk=16))):
+        eng = engine(tiny, n_slots=2, prefix_cache=True,
+                     host_tier_bytes=1 << 22, **kw)
+        rows = _tier_rows(eng) if rank else []
+        out[f"tier_{layout}"] = _run(rank, eng,
+                                     lambda e: _tier_cycle(e, case))
+        shards[f"tier_{layout}"] = {"rows": rows[:1]}
+
+    # int8 KV, both layouts: the scale tables at this rank's heads
+    for layout, kw in (("slot", {}), ("paged", paged)):
+        eng = engine(kv8, **kw)
+        state = "pool" if kw else "cache"
+        shards[f"int8_{layout}"] = _shard_shapes(eng, {
+            "k": (state, "k"), "k_scale": (state, "k_scale")})
+        out[f"int8_{layout}"] = _run(rank, eng,
+                                     lambda e: _concurrent(e, jobs))
+    out["shards"] = shards
+
+    # the 9d refusals: a fleet under a mesh, a replica over two devices
+    two = (torch.device("cpu", 0), torch.device("cpu", 1))
+    out["errors_9d"] = {
+        "fleet": _err(lambda: make_continuous_generator(
+            cfg=tiny, params=tparams, n_slots=4, mesh=mesh, fleet=2)),
+        "fleet_replica": _err(lambda: make_replica_fleet(
+            cfg=tiny, params=tparams, n_slots=4, mesh=mesh, replicas=2)),
+        "replica_devices": _err(lambda: make_continuous_generator(
+            cfg=tiny, params=tparams, device="cpu", fleet=2,
+            replica_devices=[two, None])),
+        "replica_devices_fleet": _err(lambda: make_replica_fleet(
+            cfg=tiny, params=tparams, device="cpu", replicas=2,
+            replica_devices=[two, None])),
+    }
+    out["supervision"] = _supervised(rank, mesh, tiny, tparams, jobs[:2])
+    return out
+
+
+def one_rank_mesh_planes(rank, world, kw: dict, plane: str) -> list:
+    """A one-rank NCCL mesh engine beside the unsharded one, on the card,
+    at GQA widths (4 heads over 2 KV heads, rope, swiglu, K2 on the paged
+    layout), with ``plane`` on: a self-draft at gamma 3 (``"spec"``) or
+    int8 KV (``"int8"``). Returns each arm's streams of four jobs and its
+    verify rounds (tests/test_torch_cuda.py)."""
+    from client_tpu_torch.server.speculation import DraftModel
+
+    cfg = tt.TransformerConfig(vocab_size=128, d_model=64, n_layers=2,
+                               n_heads=4, n_kv_heads=2, head_dim=16,
+                               d_ff=128, max_seq=64, rope=True, ffn="swiglu",
+                               dtype=torch.bfloat16, attn_impl="flash",
+                               kv_quant=plane == "int8")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tt.init_params(gen, cfg)
+    if plane == "spec":
+        kw = dict(kw, speculative_draft=DraftModel(cfg, params),
+                  speculative_gamma=3)
+    jobs = [(np.arange(1, 9), 6), (np.arange(3, 20), 5), (np.asarray([5]), 7),
+            (np.arange(40, 52), 9)]
+    out = []
+    for mesh in (None, make_mesh({"dp": 1, "tp": 1}, device="cuda")):
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=4, chunk=4,
+                                       mesh=mesh, **kw)
+        try:
+            its = [eng.submit(p, b) for p, b in jobs]
+            streams = [list(it) for it in its]
+            spec = eng.stats()["speculation"]
+        finally:
+            eng.stop()
+        out.append({"streams": streams,
+                    "rounds": None if spec is None else spec["rounds"]})
     return out
