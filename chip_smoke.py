@@ -460,6 +460,24 @@ each printing one JSON line:
              rank. The mesh must be NCCL (its plans ride a gloo group,
              parallel/spmd.py).
              Phase 4 holds K2 at the tp-local shapes (MESH_K2_CASES).
+24. fleet_mesh
+             a replica fleet under the mesh (ROADMAP 9d) in a child
+             process through run_ranks, one NCCL rank: the fleet phase's
+             2-replica arm (bench.py's generation model at full width,
+             paged, K2, the fleet workload behind TorchInferenceServer
+             and the HTTP front end) with every replica over a 1 x 1
+             mesh, its plans and lifecycle on the fleet's one plan
+             channel, beside the unsharded 2-replica fleet in the same
+             call, in turns (plain, mesh, mesh, plain); in each, replica
+             0 drained once 16 tokens have streamed and a third replica
+             attached (warmed) after it: every stream equal to the first
+             arm's, none failed, each replica's K2 launches exactly 12 x
+             4 per chunk dispatch of its engines (a fresh engine's 2
+             warm-up chunks included) and above 0; tokens/s, host ms per
+             dispatch and plans sent of each arm and the mean ratios.
+             Replicas over more than one card need at least two cards
+             (NCCL holds one rank per card): the tests run them on gloo
+             ranks on the CPU.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -5417,11 +5435,15 @@ def _k2_by_thread(tally: dict):
 
 
 def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
-               policy: str, drain: bool = False) -> dict:
+               policy: str, drain: bool = False, mesh=None,
+               attach: bool = False) -> dict:
     """Serve the workload through a replica fleet behind
     TorchInferenceServer.infer (one thread per tenant, its requests one
     after another), the HTTP front end up with the debug endpoints. With
-    ``drain``, replica 0 is drained once 16 tokens have streamed."""
+    ``drain``, replica 0 is drained once 16 tokens have streamed; with
+    ``attach`` a replica is attached (warmed on a short stream) after it.
+    ``mesh`` puts every replica over that mesh (the fleet's plans on its
+    one channel)."""
     from client_tpu_torch.models.decoder_lm import make_replica_fleet
     from client_tpu_torch.ops import paged_attention as pa
     from client_tpu_torch.server import TorchInferenceServer
@@ -5437,7 +5459,9 @@ def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
         name, replicas=replicas,
         fleet={"replicas": replicas, "policy": policy,
                "affinity_block_len": 16, "random_seed": 0},
-        cfg=cfg, params=params, device=LM_DEVICE, **FLEET_KNOBS)
+        cfg=cfg, params=params,
+        **({"device": LM_DEVICE} if mesh is None else {"mesh": mesh}),
+        **FLEET_KNOBS)
     fleet = model.fleet
     core = TorchInferenceServer()
     core.register_model(model, warmup=True)   # one stream per replica
@@ -5508,10 +5532,18 @@ def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
                          f"complete ({ok})")
                 new = fleet.replicas[0].engine
                 seen[id(new)] = new
-                # the fresh engine's first submit readies it with its two
-                # warm chunk launches, which no dispatch counts
-                before[id(new)] = -WARM_CHUNKS
+                # the fresh engine's first submit, if it gets one, readies
+                # it with its two warm chunk launches, which no dispatch
+                # counts (None: counted at the end)
+                before[id(new)] = None
                 owner[id(new)] = 0
+            if attach:
+                idx = fleet.attach_replica(
+                    warm_prompt=np.zeros(4, np.int32))
+                new = fleet.replicas[-1].engine
+                seen[id(new)] = new
+                before[id(new)] = None
+                owner[id(new)] = idx
             for th in threads:
                 th.join(timeout=600)
             wall_s = time.time() - t0
@@ -5519,10 +5551,14 @@ def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
         note_engines()
         chunks = {}
         for key, eng in seen.items():
+            base = before[key]
+            if base is None:
+                base = -WARM_CHUNKS if eng._started else 0
             n = eng.stats()["dispatch_by_kind"]["chunk"]["dispatches"] \
-                - before[key]
+                - base
             chunks[owner[key]] = chunks.get(owner[key], 0) + n
         gen = model.generation_stats()
+        plans_sent = fleet.plans.sent if fleet.plans is not None else 0
         snap = model.fleet_snapshot()
         url = f"http://{srv.url}"
         status, body = _get(f"{url}/v2/debug/fleet")
@@ -5607,6 +5643,9 @@ def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
         "paged_decode_attention_launches": k2,
         "paged_decode_attention_launches_by_replica": by_replica,
         "host_us_per_route": route_us,
+        "host_ms_per_dispatch": gen["phase_seconds"].get("dispatch", 0.0)
+        / max(1, gen["chunks_dispatched"]) * 1e3,
+        "plans_sent": plans_sent,
         "fleet_route_span": route_spans[0][2]["leg"],
         "tokens": {f"{t}/{i}": v[0] for (t, i), v in streams.items()},
         "greedy_streams": [
@@ -6934,6 +6973,78 @@ def phase_mesh(env: dict) -> dict:
     return result
 
 
+def _fleet_mesh_rank(rank: int, world: int, layers: int,
+                     device: str) -> dict:
+    """The fleet_mesh phase in a process of its own started by run_ranks
+    (one NCCL rank on the card): the fleet phase's drained 2-replica arm,
+    with a replica attached after the drain, unsharded and with every
+    replica over a 1 x 1 mesh."""
+    import dataclasses
+
+    from client_tpu_torch.bench import generation_config
+    from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(generation_config(), attn_impl="flash",
+                              n_layers=layers)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = t.init_params(gen, cfg)
+    work = _fleet_workload(cfg.vocab_size)
+    mesh = make_mesh({"dp": 1, "tp": 1}, device=device)
+    out = []
+    # in turns: plain, mesh, mesh, plain
+    for side, m in (("plain", None), ("mesh", mesh), ("mesh", mesh),
+                    ("plain", None)):
+        arm = _fleet_arm(f"fleet_mesh_{side}", cfg, params, work, 2,
+                         "affinity", drain=True, mesh=m, attach=True)
+        arm.pop("greedy_streams")
+        arm["side"] = side
+        out.append(arm)
+    return out
+
+
+def phase_fleet_mesh(env: dict) -> dict:
+    """A replica fleet under the mesh (ROADMAP 9d) on the card, in a
+    run_ranks child with one NCCL rank: see the module docstring."""
+    from client_tpu_torch.parallel.collectives import run_ranks
+
+    backend = "nccl" if MESH_DEVICE == "cuda" else "gloo"
+    (runs,) = run_ranks(_fleet_mesh_rank, 1, backend, MESH_TIMEOUT_S,
+                        args=(LAYERS, MESH_DEVICE))
+    want = runs[0]["tokens"]
+    checks = {}
+    for k, arm in enumerate(runs):
+        by = arm["paged_decode_attention_launches_by_replica"]
+        tag = f"{arm['side']}{k}"
+        checks[f"{tag}_streams_equal"] = arm.pop("tokens") == want
+        checks[f"{tag}_plans_sent"] = (arm["plans_sent"] > 0) == (
+            arm["side"] == "mesh")
+        checks[f"{tag}_no_failed_stream"] = arm["failed_streams"] == 0
+        checks[f"{tag}_drained"] = arm["drains"][0] == 1
+        checks[f"{tag}_attached"] = sorted(arm["routed"]) == [0, 1, 2]
+        # _fleet_arm failed already unless each replica's launches are
+        # 12 x 4 per chunk dispatch of its engines
+        checks[f"{tag}_k2_every_replica"] = sorted(by) == [0, 1, 2] \
+            and all(n > 0 for n in by.values())
+
+    def mean(side, key):
+        vals = [a[key] for a in runs if a["side"] == side]
+        return sum(vals) / len(vals)
+
+    result = {"phase": "fleet_mesh", "card": env["nvidia_smi"],
+              "runs": runs, "checks": checks,
+              "tokens_per_s_ratio": mean("mesh", "tokens_per_s")
+              / mean("plain", "tokens_per_s"),
+              "host_ms_per_dispatch_ratio":
+                  mean("mesh", "host_ms_per_dispatch")
+                  / mean("plain", "host_ms_per_dispatch")}
+    emit(result)
+    if not all(checks.values()):
+        fail(f"fleet_mesh: {checks}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -6976,6 +7087,7 @@ def main() -> int:
     autoscale = timed("autoscale", phase_autoscale, gen_model, env)
     train = timed("train", phase_train, env, peaks)
     mesh = timed("mesh", phase_mesh, env)
+    fleet_mesh = timed("fleet_mesh", phase_fleet_mesh, env)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -7047,7 +7159,11 @@ def main() -> int:
             mesh=mesh["paged_decode_attention_launches"],
             **{f"mesh_{label}_{side}": arm["paged_decode_attention_launches"]
                for label, pair in mesh["planes"].items()
-               for side, arm in pair.items()}),
+               for side, arm in pair.items()},
+            **{f"{arm['run']}{k}_r{rep}": n
+               for k, arm in enumerate(fleet_mesh["runs"])
+               for rep, n in sorted(arm[
+                   "paged_decode_attention_launches_by_replica"].items())}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

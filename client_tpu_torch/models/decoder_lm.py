@@ -51,9 +51,8 @@ from client_tpu_torch.server.autoscale import (
     resolve_canary,
 )
 from client_tpu_torch.server.fleet import ReplicaFleet, resolve_fleet
-from client_tpu_torch.parallel.spmd import mesh_device
+from client_tpu_torch.parallel.spmd import BUILD, FleetChannel, mesh_device
 from client_tpu_torch.server.generation import (
-    MESH_REMAINDER,
     ContinuousBatchingEngine,
     reject_unknown_knobs,
 )
@@ -534,10 +533,12 @@ class FleetModel(PyModel):
     ``fleet_snapshot`` (the ``client_tpu_fleet_*`` families and ``GET
     /v2/debug/fleet``). Readiness holds while any replica is healthy.
     ``unload`` stages a fresh engine on every replica and colds the
-    affinity sketch; ``shutdown`` stops the autoscaler and then every
-    replica for good;
-    ``warmup`` drives one short stream through each replica outside the
-    router."""
+    affinity sketch (a fleet under a mesh shuts down instead: its
+    followers end with it); ``shutdown`` stops the autoscaler and then
+    every replica for good; ``warmup`` drives one short stream through
+    each replica outside the router. On a follower rank of a fleet under
+    a mesh, ``follow()`` runs the rank's part of every replica until rank
+    0 shuts the fleet down."""
 
     def __init__(self, config: ModelConfig, stream_fn, fleet: ReplicaFleet,
                  incidents: Optional[IncidentStore],
@@ -559,7 +560,13 @@ class FleetModel(PyModel):
         for rep in self.fleet.replicas:
             list(rep.engine.submit(np.zeros(4, np.int32), 2))
 
+    def follow(self) -> None:
+        self.fleet.follow()
+
     def unload(self) -> None:
+        if self.fleet.plans is not None:
+            self.shutdown()
+            return
         self.fleet.replace_all()
 
     def shutdown(self) -> None:
@@ -670,8 +677,7 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                               autoscale=None, canary=None,
                               device=None, **unknown) -> PyModel:
     """Continuously batched decoupled generation (the reference's
-    ``make_continuous_generator``, knob for knob; ``mesh`` raises
-    ``NotImplementedError`` naming its ROADMAP item, and an unknown knob
+    ``make_continuous_generator``, knob for knob; an unknown knob raises
     ``TypeError``).
 
     ``cfg`` defaults to the reference's small decode config; ``params``
@@ -728,8 +734,8 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     ``autoscale``) makes its ``rolling_restart`` a judged canary rollout.
 
     ``mesh`` (a dp×tp ``DeviceMesh``), or ``engine_devices`` over k > 1
-    devices (a k×1 dp mesh over a live group of exactly those ranks),
-    shards the engine over one process per device
+    devices (a k×1 dp mesh over the ranks of the live group that hold
+    them), shards the engine over one process per device
     (``server/generation.py``, ``parallel/spmd.py``): every rank calls
     this with the same arguments; rank 0 registers and serves the model,
     every other rank runs ``model.engine.start()``, which follows rank 0
@@ -738,9 +744,22 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     plane of the engine runs under it (speculation, the dedicated lanes,
     the host tier, int8 KV), and so does ``supervision``: each rank's
     supervisor rebuilds the engine with rank 0's after a crash
-    (``server/supervision.py``), and an unload shuts the engine down. A
-    fleet under a mesh and ``replica_devices`` entries of more than one
-    device raise ``NotImplementedError`` naming ROADMAP item 9d."""
+    (``server/supervision.py``), and an unload shuts the engine down.
+
+    A fleet shards too: under ``mesh`` every replica's engine spans the
+    whole mesh (the reference's rule), and a ``replica_devices`` entry of
+    k > 1 devices puts that replica on a k×1 dp mesh over the ranks that
+    hold them, which need not include rank 0 (device index i names rank
+    i's CPU on gloo ranks, card i under NCCL); a replica attached past
+    the declared subsets takes the default placement. Rank 0 routes and
+    keeps every replica's host state, and one plan channel over the
+    world (``spmd.FleetChannel``) carries every replica's plans and the
+    fleet's lifecycle (each replica build, drain, attach, detach,
+    restart and supervised rebuild), so every rank launches the
+    replicas' collectives in one order. Every other rank runs
+    ``model.follow()``, which hands each plan to its shard of that
+    replica until rank 0 shuts the fleet down (an unload shuts it
+    down)."""
     reject_unknown_knobs(unknown)
     cfg = cfg or decode_config()
     eff_fleet = resolve_fleet(fleet)
@@ -760,13 +779,11 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
                 f"replica_devices has {len(replica_devices)} entries "
                 f"for {eff_fleet.replicas} replicas (one device "
                 f"subset per replica)")
-        for devices in replica_devices:
-            if devices is not None and len(devices) > 1:
-                raise NotImplementedError(
-                    f"replica_devices entry {tuple(devices)} spans "
-                    f"{len(devices)} devices: a sharded replica is not "
-                    f"ported yet, ROADMAP {MESH_REMAINDER}")
-            ContinuousBatchingEngine.resolve_engine_devices(devices)
+    # each replica's placement, resolved once (a subset of k > 1 devices
+    # is a k x 1 mesh over the ranks that hold it; one device pins)
+    places = ([ContinuousBatchingEngine.resolve_engine_devices(devices)
+               for devices in replica_devices]
+              if replica_devices is not None else None)
     # the controller's knobs by their own rules
     eff_autoscale = resolve_autoscale(autoscale)
     eff_canary = resolve_canary(canary)
@@ -798,13 +815,16 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     sharding = None
     if mesh is not None:
         dp, tp = ContinuousBatchingEngine.resolve_mesh(cfg, mesh, n_slots)
-        if eff_fleet is not None:
-            raise NotImplementedError(
-                f"make_continuous_generator knob 'fleet' under a mesh is "
-                f"not ported yet: ROADMAP {MESH_REMAINDER}")
         sharding = ShardingSpec(mesh_axes=("dp", "tp"), mesh_shape=(dp, tp),
                                 batch_axis="dp")
         pinned = mesh_device(mesh)
+    # a fleet whose replicas shard over ranks: one plan channel over the
+    # world carries every replica's plans (spmd.FleetChannel)
+    plans = None
+    if eff_fleet is not None and (mesh is not None or any(
+            p is not None and not isinstance(p, torch.device)
+            for p in places or ())):
+        plans = FleetChannel()
     # an indexed device: a supervised rebuild runs on another thread, whose
     # current card need not be the caller's
     dev = (pinned if pinned is not None
@@ -884,23 +904,38 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     params = _default_params(cfg, params, seed, dev)
 
     def fresh_engine(replica=None):
-        if mesh is not None and dev.type == "cuda":
+        if dev.type == "cuda":
             # a supervised rebuild runs on the supervisor's thread, whose
-            # current card is not this rank's: the mesh places the engine
+            # current card is not this rank's: a mesh places the engine
             # on the current card
             with torch.cuda.device(dev):
                 return build_engine(replica)
         return build_engine(replica)
 
+    def replica_engine(replica):
+        if plans is not None and plans.is_driver:
+            # every rank builds the replica's engine, its process groups
+            # in the order of the channel's plans (a follower at the
+            # BUILD plan, in ReplicaFleet.follow)
+            with plans.lock:
+                plans.send(replica, BUILD)
+                return fresh_engine(replica)
+        return fresh_engine(replica)
+
     def build_engine(replica=None):
-        devices, ename = engine_devices, name
+        devices, ename, emesh = engine_devices, name, mesh
         if replica is not None:
             ename = f"{name}/r{replica}"
-            if replica_devices is not None:
+            if places is not None:
                 # replicas attached past the declared subsets take the
                 # default placement
-                devices = (replica_devices[replica]
-                           if replica < len(replica_devices) else None)
+                devices = (places[replica] if replica < len(places)
+                           else None)
+                if devices is not None and not isinstance(devices,
+                                                          torch.device):
+                    emesh, devices = devices, None
+                elif devices is not None:
+                    devices = (devices,)
         return ContinuousBatchingEngine(
             cfg, params, n_slots=n_slots, chunk=chunk_size,
             dispatch_depth=dispatch_depth, queue_depth=queue_depth,
@@ -930,8 +965,10 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
             watchdog_interval_s=watchdog_interval_s,
             watchdog_thresholds=watchdog_thresholds,
             incident_store=incidents,
-            device=dev if mesh is None else None, name=ename,
-            engine_devices=devices, mesh=mesh)
+            device=dev if emesh is None else None, name=ename,
+            engine_devices=devices, mesh=emesh,
+            plans=(plans.for_replica(replica)
+                   if plans is not None and emesh is not None else None))
 
     model = None  # bound below; stream_fn reads it live
 
@@ -1000,17 +1037,19 @@ def make_continuous_generator(name: str = "continuous_lm", cfg=None,
     )
     if eff_fleet is not None:
         fleet_obj = ReplicaFleet(
-            fresh_engine, eff_fleet, supervision=policy, name=name,
-            version_factory=lambda i, v: fresh_engine(i))
+            replica_engine, eff_fleet, supervision=policy, name=name,
+            version_factory=lambda i, v: replica_engine(i), plans=plans)
         ctl = None
         if eff_autoscale is not None:
             # an attached or canary replica warms on a short stream
             # before the router sees it; interval_s 0 leaves step() to
-            # the caller, > 0 starts the control thread now
+            # the caller, > 0 starts the control thread now (on the
+            # driver only under a mesh: the followers act on its plans)
             ctl = FleetController(fleet_obj, eff_autoscale,
                                   canary=eff_canary,
                                   warm_prompt=np.zeros(4, dtype=np.int32))
-            ctl.start()
+            if plans is None or plans.is_driver:
+                ctl.start()
         model = FleetModel(config, stream_fn, fleet_obj, incidents, ctl)
     else:
         model = ContinuousModel(config, stream_fn, fresh_engine, policy,

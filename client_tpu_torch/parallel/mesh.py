@@ -187,34 +187,78 @@ def shard_tree(tree, specs, mesh, path: str = ""):
     return x.contiguous()
 
 
-def subset_mesh(devices: Sequence):
-    """The reference's ``engine_devices`` rule for a subset of k > 1
-    devices: a k x 1 ``("dp", "tp")`` mesh over exactly that subset. A
-    process here holds one device, so the subset must be the live process
-    group: k ranks whose devices, in rank order, are ``devices``
-    (``torch.device``s). Anything else raises ``ValueError`` saying so.
-    Collective: every rank of the group calls it."""
+class RankMesh:
+    """A mesh over named ranks of the live process group that builds no
+    process group of its own: ``mesh`` is the tensor of global ranks (one
+    dim per axis of ``mesh_dim_names``), ``device_type`` their devices'
+    type. It answers what ``axis_size`` and the engine's ``resolve_mesh``
+    read of a ``DeviceMesh``; the object that runs on it builds its groups
+    (``parallel.spmd.ShardMesh``). A rank outside ``mesh`` may hold one:
+    it takes part in building the groups and holds no shard."""
+
+    def __init__(self, ranks, mesh_dim_names: Sequence[str],
+                 device_type: str):
+        import torch
+
+        self.mesh = torch.as_tensor(ranks)
+        self.mesh_dim_names = tuple(mesh_dim_names)
+        self.device_type = device_type
+        self.shape = tuple(int(n) for n in self.mesh.shape)
+
+
+# the device each rank of the live group holds, gathered once per group
+_HELD: list = [None, None]
+
+
+def rank_devices() -> list:
+    """The device each rank of the live process group holds, by rank:
+    ``cuda:<current card>`` under NCCL, ``cpu:<rank>`` under gloo, with
+    or without a card (device index i names rank i there). Collective the
+    first time in a process group (every rank calls it); cached after."""
     import torch
     import torch.distributed as dist
 
+    world = dist.group.WORLD
+    if _HELD[0] is not world:
+        if str(dist.get_backend()).lower() == "nccl":
+            mine = f"cuda:{torch.cuda.current_device()}"
+        else:
+            mine = f"cpu:{dist.get_rank()}"
+        held = [None] * dist.get_world_size()
+        dist.all_gather_object(held, mine)
+        _HELD[0], _HELD[1] = world, held
+    return list(_HELD[1])
+
+
+def subset_mesh(devices: Sequence) -> RankMesh:
+    """The reference's ``engine_devices`` rule for a subset of k > 1
+    devices: a k x 1 ``("dp", "tp")`` mesh over exactly that subset. A
+    process here holds one device, so the mesh is over the ranks that
+    hold ``devices`` (``torch.device``s), in the subset's order: the
+    whole live group or any part of it (``rank_devices``). A subset with
+    a device no rank holds raises ``ValueError`` saying so, and so does a
+    call without a live process group. Collective on its first call in
+    a process group."""
+    import torch.distributed as dist
+
     k = len(devices)
-    if not dist.is_initialized() or dist.get_world_size() != k:
-        have = dist.get_world_size() if dist.is_initialized() else 0
+    if not dist.is_initialized():
         raise ValueError(
-            f"engine_devices over {k} devices shards one engine over a live "
-            f"process group of {k} ranks, one per device (this process "
-            f"group has {have}); start the ranks with "
-            f"parallel.collectives.run_ranks or init_process_group")
-    kind = devices[0].type
-    mine = (torch.device("cuda", torch.cuda.current_device())
-            if kind == "cuda" else torch.device(kind))
-    held = [None] * k
-    dist.all_gather_object(held, str(mine))
-    if held != [str(d) for d in devices]:
-        raise ValueError(
-            f"engine_devices {[str(d) for d in devices]} must be the ranks' "
-            f"devices in rank order; the live group holds {held}")
-    return make_mesh({"dp": k, "tp": 1}, device=kind, axes=("dp", "tp"))
+            f"engine_devices over {k} devices shards one engine over the "
+            f"ranks of a live process group that hold them, one per "
+            f"device (there is no live process group); start the ranks "
+            f"with parallel.collectives.run_ranks or init_process_group")
+    held = rank_devices()
+    ranks = []
+    for d in devices:
+        if str(d) not in held:
+            raise ValueError(
+                f"engine_devices {[str(d) for d in devices]} names "
+                f"{d}, which no rank of the live process group of "
+                f"{len(held)} ranks holds (they hold {held})")
+        ranks.append(held.index(str(d)))
+    return RankMesh([[r] for r in ranks], ("dp", "tp"),
+                    devices[0].type)
 
 
 def logical_to_physical(logical_axes: Sequence[Optional[str]],

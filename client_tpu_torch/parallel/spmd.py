@@ -28,6 +28,17 @@ the CPU. The plans always ride a gloo group over the same ranks
 without waiting for its own queue of kernels, and a plan's wait has the
 same timeout behaviour on the card as on the CPU.
 
+A mesh may be part of the world (``parallel.mesh.subset_mesh``): the
+plans then reach its ranks from rank 0 over a gloo group of rank 0 and
+the mesh, and a rank 0 outside the mesh hears what it would read of its
+own card from the mesh's first rank over a ``ReplyLink``. A replica fleet
+whose replicas shard shares one ``FleetChannel`` over the world among
+them: the driver sends each replica's plans and launches its own part
+under one lock, and each follower reads every plan in one loop, so the
+replicas' collectives run in one order on every rank (two NCCL
+communicators used on one card from two threads in different orders on
+different ranks can deadlock; gloo never shows it).
+
 Failure is loud. A driver that fails sends a ``FAIL`` plan (the followers
 raise ``SpmdError``); under supervision it then sends its supervisor's
 verdict on the same channel, ``RESTART`` (every follower builds the same
@@ -45,7 +56,10 @@ raising: on the card a follower that wedges inside a collective ends rank
 
 from __future__ import annotations
 
+import collections
 import datetime
+import pickle
+import threading
 import time
 
 import torch
@@ -60,6 +74,9 @@ STOP = "stop"
 NOOP = "noop"
 FAIL = "fail"
 RESTART = "restart"
+# a fleet's channel: replica r's engine is built (every rank builds it
+# from the same factory, in this order)
+BUILD = "build"
 
 
 class SpmdError(RuntimeError):
@@ -70,7 +87,11 @@ class ShardMesh:
     """A private copy of a mesh's process groups: one fresh group
     (``dist.new_group``) per line of every axis of more than one rank,
     one over all of the mesh's ranks, and the plan channel's gloo group
-    over them (the same group as the last when the mesh is gloo's). It
+    over them and the driver, global rank 0 (the same group as the
+    all-ranks one when the mesh is gloo's and holds rank 0). A mesh over
+    part of the world (``parallel.mesh.subset_mesh``) that leaves out
+    rank 0 adds a gloo pair of rank 0 and the mesh's first rank, the
+    ``reporter``, which sends the driver what it reads of the card. It
     answers what ``parallel.mesh.axis_size`` / ``axis_index`` /
     ``axis_group`` ask of a ``DeviceMesh`` (``mesh_dim_names``, ``shape``,
     ``get_local_rank``, ``get_group``), so the transformer's functions
@@ -78,9 +99,10 @@ class ShardMesh:
 
     Every rank of the default group must build it, in the same order as
     every other group (``new_group`` is collective over the default
-    group). ``destroy`` is each rank's own."""
+    group), a rank outside the mesh too (``member`` False: it holds none
+    of the groups). ``destroy`` is each rank's own."""
 
-    def __init__(self, mesh, timeout_s: float = None):
+    def __init__(self, mesh, timeout_s: float = None, plans: bool = True):
         import torch.distributed as dist
 
         timeout = datetime.timedelta(
@@ -91,19 +113,38 @@ class ShardMesh:
         self.device_type = mesh.device_type
         me = dist.get_rank()
         every = sorted(ranks.flatten().tolist())
-        self.all_group = dist.new_group(every, timeout=timeout)
-        self.plan_group = (self.all_group if self.device_type == "cpu" else
-                           dist.new_group(every, timeout=timeout,
-                                          backend="gloo"))
+        self.ranks = every
+        self.member = me in every
+
+        def group(members, **kw):
+            g = dist.new_group(members, timeout=timeout, **kw)
+            return g if me in members else None
+
+        self.all_group = group(every)
+        # the plans reach the mesh's ranks from the driver, global rank 0,
+        # which need not hold a shard (one fleet channel carries them
+        # instead with ``plans`` False)
+        planned = sorted({0, *every})
+        self.plan_group = None
+        if plans:
+            self.plan_group = (
+                self.all_group
+                if self.device_type == "cpu" and planned == every
+                else group(planned, backend="gloo"))
+        # a driver without a shard hears back from the mesh's first rank
+        self.reply_group = (group([0, every[0]], backend="gloo")
+                            if 0 not in every else None)
+        self.reporter = self.reply_group is not None and me == every[0]
+        self._destroyed = False
         self._groups, self._local = {}, {}
         for d, name in enumerate(self.mesh_dim_names):
             if self.shape[d] == 1:
                 continue
             lines = ranks.movedim(d, -1).reshape(-1, self.shape[d])
             for line in lines.tolist():
-                group = dist.new_group(line, timeout=timeout)
+                g = group(line)
                 if me in line:
-                    self._groups[name] = group
+                    self._groups[name] = g
                     self._local[name] = line.index(me)
 
     def size(self) -> int:
@@ -124,16 +165,18 @@ class ShardMesh:
         to destroy on a second call."""
         import torch.distributed as dist
 
-        if self.all_group is None:
+        if self._destroyed:
             return
-        if self.device_type == "cuda":
+        self._destroyed = True
+        if self.device_type == "cuda" and self.member:
             torch.cuda.synchronize()
-        groups = [self.all_group, *self._groups.values()]
-        if self.plan_group is not self.all_group:
-            groups.append(self.plan_group)
-        for group in groups:
+        groups = {id(g): g for g in (self.all_group, self.plan_group,
+                                     self.reply_group,
+                                     *self._groups.values())
+                  if g is not None}
+        for group in groups.values():
             dist.destroy_process_group(group)
-        self.all_group = self.plan_group = None
+        self.all_group = self.plan_group = self.reply_group = None
         self._groups.clear()
 
 
@@ -161,6 +204,10 @@ class PlanChannel:
         self.root = dist.get_global_rank(group, 0)
         self._last_send = time.monotonic()
         self.sent = 0
+        # held by the driver across a plan's send and its own launch
+        # (``ContinuousBatchingEngine._exec``); a fleet's channel shares
+        # one among its replicas
+        self.lock = threading.RLock()
 
     @property
     def is_driver(self) -> bool:
@@ -201,6 +248,158 @@ class PlanChannel:
             self.send(FAIL, f"{type(err).__name__}: {err}")
         except Exception:  # noqa: BLE001 — the original failure stands
             pass
+
+
+class FleetChannel:
+    """One plan channel for every replica of a fleet under a mesh: a gloo
+    group over the whole live world (built by every rank, collectively),
+    whose plans are ``(replica, op, args)``. The driver (global rank 0)
+    sends a plan and launches its own part of it under ``lock``, so every
+    rank launches every replica's collectives in one order: two replicas
+    sharing a card's communicators can never wait on each other in
+    different orders on different ranks. Each follower rank reads the
+    plans in one loop (``server/fleet.ReplicaFleet.follow``), hands each
+    to its own shard of that replica, and skips a replica it holds no
+    shard of. A replica's engine talks through ``for_replica(r)``.
+
+    The fleet's lifecycle rides the same channel: ``(r, BUILD)`` before
+    the driver builds replica r's engine, its first replicas' too (every
+    rank builds it then, so the process groups are made in one order),
+    a replica engine's own ``STOP`` and ``FAIL``, and ``(None, STOP)``
+    when the fleet shuts down. ``log``, when a list, records every
+    ``(replica, op)`` sent or read on this rank."""
+
+    def __init__(self, timeout_s: float = None):
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise ValueError(
+                "a fleet whose replicas shard over a mesh runs one process "
+                "per device and needs a live process group (there is "
+                "none); start the ranks with parallel.collectives.run_ranks "
+                "or init_process_group")
+        timeout = datetime.timedelta(
+            seconds=DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s)
+        self.group = dist.new_group(list(range(dist.get_world_size())),
+                                    timeout=timeout, backend="gloo")
+        self.size = dist.get_world_size(self.group)
+        self.is_driver = dist.get_rank() == 0
+        self.lock = threading.RLock()
+        self.sent = 0
+        self.log = None
+        self._last_send = time.monotonic()
+
+    def send(self, replica, op: str, *args) -> None:
+        """Broadcast one plan (the driver only)."""
+        import torch.distributed as dist
+
+        with self.lock:
+            dist.broadcast_object_list([(replica, op, args)], src=0,
+                                       group=self.group)
+            self._last_send = time.monotonic()
+            self.sent += 1
+            if self.log is not None:
+                self.log.append((replica, op))
+
+    def recv(self) -> tuple:
+        """The next plan ``(replica, op, args)`` (a follower only)."""
+        import torch.distributed as dist
+
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        if self.log is not None:
+            self.log.append(box[0][:2])
+        return box[0]
+
+    def keepalive(self) -> None:
+        """The idle driver's heartbeat (``(None, NOOP)``)."""
+        if self.size > 1 and time.monotonic() - self._last_send > HEARTBEAT_S:
+            self.send(None, NOOP)
+
+    def for_replica(self, replica: int) -> "ReplicaChannel":
+        return ReplicaChannel(self, replica)
+
+    def destroy(self) -> None:
+        import torch.distributed as dist
+
+        if self.group is not None:
+            dist.destroy_process_group(self.group)
+            self.group = None
+
+
+class ReplicaChannel:
+    """One replica's view of its fleet's ``FleetChannel``: what an engine
+    asks of a ``PlanChannel`` (``send``, ``keepalive``, ``fail``,
+    ``is_driver``, ``lock``), its plans tagged with the replica."""
+
+    def __init__(self, fleet: FleetChannel, replica: int):
+        self.fleet = fleet
+        self.replica = replica
+        self.lock = fleet.lock
+        self.is_driver = fleet.is_driver
+
+    def send(self, op: str, *args) -> None:
+        self.fleet.send(self.replica, op, *args)
+
+    def keepalive(self) -> None:
+        self.fleet.keepalive()
+
+    def fail(self, err: BaseException) -> None:
+        try:
+            self.send(FAIL, f"{type(err).__name__}: {err}")
+        except Exception:  # noqa: BLE001 — the original failure stands
+            pass
+
+
+class ReplyLink:
+    """The pair of ranks of a ``ShardMesh.reply_group``: the mesh's
+    reporter sends the driver (global rank 0, which holds no shard) what
+    it reads of the card, one pickled ``(kind, object)`` reply at a time,
+    without waiting (``send`` keeps each transfer alive until it
+    completes: the reporter goes on reading plans meanwhile). The driver
+    asks for the next reply of a kind (``recv``): replies of other kinds
+    that arrive first wait in order for their own ``recv`` (a sampled
+    dispatch's ``sync`` reply may follow a fetch's ring the driver has
+    not drained yet)."""
+
+    def __init__(self, group, reporter: int):
+        self.group = group
+        self.reporter = reporter
+        self._inflight: list = []
+        self._early: dict = {}
+
+    def send(self, kind: str, obj) -> None:
+        import torch.distributed as dist
+
+        data = torch.frombuffer(bytearray(pickle.dumps((kind, obj))),
+                                dtype=torch.uint8)
+        size = torch.tensor([data.numel()], dtype=torch.int64)
+        self._inflight = [(w, t) for w, t in self._inflight
+                          if not w.is_completed()]
+        for t in (size, data):
+            self._inflight.append((dist.isend(t, 0, group=self.group), t))
+
+    def recv(self, kind: str):
+        import torch.distributed as dist
+
+        early = self._early.get(kind)
+        if early:
+            return early.popleft()
+        while True:
+            size = torch.zeros(1, dtype=torch.int64)
+            dist.recv(size, self.reporter, group=self.group)
+            data = torch.empty(int(size[0]), dtype=torch.uint8)
+            dist.recv(data, self.reporter, group=self.group)
+            got, obj = pickle.loads(data.numpy().tobytes())
+            if got == kind:
+                return obj
+            self._early.setdefault(got, collections.deque()).append(obj)
+
+    def flush(self) -> None:
+        """Wait until every reply sent has gone out."""
+        for w, _ in self._inflight:
+            w.wait()
+        self._inflight.clear()
 
 
 def follow(channel: PlanChannel, run) -> None:

@@ -51,6 +51,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from client_tpu_torch.parallel import spmd
 from client_tpu_torch.server import trace as trace_mod
 from client_tpu_torch.server.config import FleetConfig, config_from_dict
 from client_tpu_torch.server.goodput import merge_goodput
@@ -194,7 +195,7 @@ class _Replica:
     fleet lock."""
 
     def __init__(self, idx: int, factory: Callable, policy=None,
-                 name: str = "fleet"):
+                 name: str = "fleet", collective: bool = False):
         self.idx = idx
         self.name = f"{name}/r{idx}"
         self._factory = factory
@@ -203,7 +204,8 @@ class _Replica:
         if policy is not None:
             from client_tpu_torch.server.supervision import EngineSupervisor
 
-            self.sup = EngineSupervisor(factory, policy, name=self.name)
+            self.sup = EngineSupervisor(factory, policy, name=self.name,
+                                        collective=collective)
         else:
             self._box = {"engine": factory()}
         self.draining = False
@@ -251,7 +253,7 @@ class ReplicaFleet:
     def __init__(self, factory: Callable, config: FleetConfig,
                  supervision=None, name: str = "fleet",
                  version_factory: Optional[Callable] = None,
-                 model_version: str = "1"):
+                 model_version: str = "1", plans=None):
         cfg = resolve_fleet(config)
         if cfg is None:
             raise ValueError("ReplicaFleet requires a FleetConfig")
@@ -270,6 +272,14 @@ class ReplicaFleet:
         # idx, target version, tenant-hash split %, routed count
         self._canary: Optional[dict] = None
         self._supervision = supervision
+        # under a mesh, the fleet's plan channel (parallel.spmd.
+        # FleetChannel): the driver announces each replica build on it
+        # (the factory's) and the followers run ``follow``, which builds
+        # their part of every replica
+        self.plans = plans
+        # a follower's view of every replica it followed: builds, the
+        # rebuilds after a failure, and whether its breaker tripped
+        self.followed: dict = {}
         self._lock = threading.Lock()
         self._affinity = FleetAffinityIndex(
             cfg.affinity_block_len, cfg.affinity_max_blocks,
@@ -286,8 +296,10 @@ class ReplicaFleet:
         self._lifecycle: collections.deque = collections.deque(
             maxlen=LIFECYCLE_RING_CAP)
         self._replicas = [
-            _Replica(i, self._replica_factory(i), supervision, name)
-            for i in range(cfg.replicas)]
+            _Replica(i, self._replica_factory(i), supervision, name,
+                     collective=plans is not None)
+            for i in range(cfg.replicas)
+            if plans is None or plans.is_driver]
         # scale-up mints indices from here; reserved under the lock so
         # concurrent attaches can never mint duplicate replica ids
         # (the replica metrics label and the drain verb key on them)
@@ -593,7 +605,8 @@ class ReplicaFleet:
             if version is not None:
                 self._versions[idx] = str(version)
         rep = _Replica(idx, self._replica_factory(idx),
-                       self._supervision, self.name)
+                       self._supervision, self.name,
+                       collective=self.plans is not None)
         if warm_prompt is not None:
             list(rep.engine.submit(np.asarray(warm_prompt),
                                    int(warm_tokens)))
@@ -774,9 +787,61 @@ class ReplicaFleet:
             verb=verb, replica=replica))
 
     def shutdown(self) -> None:
-        """Terminal stop (server shutdown): no restarts are staged."""
+        """Terminal stop (server shutdown): no restarts are staged. Under
+        a mesh the followers' loops end with the fleet."""
         for rep in self._replicas:
             rep.shutdown()
+        if self.plans is not None and self.plans.is_driver \
+                and self.plans.group is not None:
+            self.plans.send(None, spmd.STOP)
+            self.plans.destroy()
+
+    def follow(self) -> None:
+        """A follower rank's part of a fleet under a mesh: read every plan
+        of the fleet's channel in order and hand it to this rank's shard
+        of its replica (a replica whose mesh leaves this rank out skips
+        it); build a replica's engine at its ``BUILD`` plan, the first
+        replicas' too, from the same factory as rank 0, and let an engine
+        go at its ``STOP``. A failed replica (its ``FAIL`` plan) waits for
+        rank 0's next build of it; a ``STOP`` after its failure is its
+        breaker's verdict, and stops only that replica. Returns at the
+        fleet's ``STOP``; ``followed`` counts each replica's builds and
+        rebuilds."""
+        import torch
+
+        plans = self.plans
+        engines: dict = {}
+        failed: set = set()
+        try:
+            with torch.inference_mode():
+                while True:
+                    replica, op, args = plans.recv()
+                    if replica is None:
+                        if op == spmd.STOP:
+                            return
+                        continue
+                    row = self.followed.setdefault(replica, {
+                        "builds": 0, "restarts": 0, "crash_looped": False})
+                    if op == spmd.BUILD:
+                        row["builds"] += 1
+                        if replica in failed:
+                            failed.discard(replica)
+                            row["restarts"] += 1
+                        engines[replica] = self._replica_factory(replica)()
+                    elif op == spmd.FAIL:
+                        failed.add(replica)
+                        engines[replica]._failed = spmd.SpmdError(
+                            f"the driver rank failed: {args[0]}")
+                    elif op == spmd.STOP:
+                        eng = engines.pop(replica)
+                        if replica in failed:
+                            row["crash_looped"] = True
+                        else:
+                            eng._finish_following()
+                    elif op not in (spmd.NOOP, spmd.RESTART):
+                        engines[replica].run_plan(op, args)
+        finally:
+            plans.destroy()
 
     def healthy(self) -> bool:
         """The fleet serves while ANY replica is healthy — the router

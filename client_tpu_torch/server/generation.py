@@ -162,8 +162,8 @@ per replica and reads ``load_depth`` to route. An unknown knob raises
 
 The engine's mesh: ``mesh`` (a dp×tp ``DeviceMesh`` from
 ``parallel.mesh.make_mesh``; every other axis of size 1), or an
-``engine_devices`` subset of k > 1 devices (a k×1 dp mesh over a live
-group of exactly those ranks, ``parallel.mesh.subset_mesh``), shards one
+``engine_devices`` subset of k > 1 devices (a k×1 dp mesh over the ranks
+of the live group that hold them, ``parallel.mesh.subset_mesh``), shards one
 engine over one process per device (``parallel/spmd.py``): every rank
 builds the same engine and holds its shard, the slots split over dp, the
 heads, ffn and vocab over tp (``transformer.shard_params``), the paged
@@ -195,8 +195,20 @@ split over tp with the heads (a scale is per row and head, so the cut is
 exact). Supervision: a dead driver sends its supervisor's verdict after
 its ``FAIL`` plan, and each follower's supervisor rebuilds the same
 engine with it or, when the breaker tripped, stops
-(``server/supervision.py``). A replica fleet of sharded engines raises
-``NotImplementedError`` naming ROADMAP item 9d.
+(``server/supervision.py``).
+
+A mesh may hold part of the world (``engine_devices`` over a subset of
+the ranks, ``parallel.mesh.subset_mesh``), rank 0 among them or not. A
+rank 0 outside it drives the engine from its host state alone: its
+``_exec`` only sends the plan, and the mesh's first rank, the reporter,
+sends back over a gloo pair (``spmd.ReplyLink``) what a driver reads of
+its own card: the ring and its counts at each fetch (``_op_fetch``) with
+the stream time of the dispatches it timed, the goodput plane's
+synchronous sample (``_op_sync``), and at readiness the memory ledger
+and a block's bytes for the host tier. A fleet's replicas share one plan
+channel (``plans``, a ``spmd.ReplicaChannel``), so every rank launches
+every replica's collectives in the order of its plans
+(``server/fleet.py``).
 """
 
 from __future__ import annotations
@@ -288,12 +300,6 @@ from client_tpu_torch.server.watchdog import (
 )
 
 log = logging.getLogger(__name__)
-
-# the ROADMAP item of what is not ported under a mesh: a replica fleet of
-# sharded engines, and a replica over more than one device
-MESH_REMAINDER = ("item 9d, a fleet and sharded replicas under one process "
-                  "per card")
-
 
 def reject_unknown_knobs(knobs: dict) -> None:
     """Raise for the first knob of ``knobs``: none is the reference's."""
@@ -943,7 +949,7 @@ class ContinuousBatchingEngine:
                  incident_store: Optional[IncidentStore] = None,
                  device_time_sample_every: int = 0,
                  device=None, name: str = "generation-engine",
-                 engine_devices=None, mesh=None, **unknown):
+                 engine_devices=None, mesh=None, plans=None, **unknown):
         reject_unknown_knobs(unknown)
         pinned = self.resolve_engine_devices(engine_devices, mesh)
         if pinned is not None and not isinstance(pinned, torch.device):
@@ -1027,7 +1033,7 @@ class ContinuousBatchingEngine:
             if self._sched is not None and self._sched.controller
             else None)
         # the host tier's budget (0: none); the store is built with the
-        # pool in _ensure_ready
+        # pool in _op_ready
         self._host_tier_bytes = self.resolve_host_tier(host_tier_bytes,
                                                        prefix_cache)
         if prefill_chunk < 1:
@@ -1069,13 +1075,25 @@ class ContinuousBatchingEngine:
                                                    prefill_lane_batch)
         # the mesh: a private copy of its groups (collectives of this
         # engine never share a communicator with another object's), the
-        # plan channel, this rank's dp coordinate; the params cut to this
-        # rank's tp block now, so a width that does not split raises here
+        # plan channel (a fleet's shared one, ``plans``, or the engine's
+        # own), this rank's dp coordinate; the params cut to this rank's
+        # tp block now, so a width that does not split raises here. A
+        # rank outside a mesh over part of the world holds no shard:
+        # rank 0 drives such an engine from its host state alone, and
+        # every other rank outside it has nothing to run
         self._mesh = self._chan = None
+        self._shard = True
         self._dp, self._dp_idx = 1, 0
-        # a follower's part of the driver's host-tier entries: {key: this
+        # a rank's part of the driver's host-tier entries: {key: this
         # rank's heads of the spilled block}
         self._tier_rows: dict = {}
+        # the driver without a shard and the mesh's reporter: the reply
+        # link between them, the reporter's dispatch timings since its
+        # last fetch, and what the driver reads of the reporter's card
+        self._reply: Optional[spmd.ReplyLink] = None
+        self._reporter = False
+        self._timings: list = []
+        self._remote_tier_block = 0
         if mesh is not None:
             dev = spmd.mesh_device(mesh)
             if device is not None and resolve_device(device).type \
@@ -1083,8 +1101,17 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"device {device!r} conflicts with the mesh's device "
                     f"type {dev.type!r}: a mesh places the engine")
-            self._mesh = spmd.ShardMesh(mesh)
-            self._chan = spmd.PlanChannel(self._mesh.plan_group)
+            self._mesh = spmd.ShardMesh(mesh, plans=plans is None)
+            self._shard = self._mesh.member
+            if plans is not None:
+                self._chan = plans
+            elif self._mesh.plan_group is not None:
+                self._chan = spmd.PlanChannel(self._mesh.plan_group)
+            if self._mesh.reply_group is not None and (
+                    self._mesh.reporter or not self._shard):
+                self._reply = spmd.ReplyLink(self._mesh.reply_group,
+                                             self._mesh.ranks[0])
+                self._reporter = self._mesh.reporter
             self._dp = axis_size(self._mesh, "dp")
             self._dp_idx = axis_index(self._mesh, "dp")
             params = t.shard_params(cfg, params, self._mesh)
@@ -1198,7 +1225,8 @@ class ContinuousBatchingEngine:
             sample_every=device_time_sample_every,
             peak_flops=device_peak_flops(
                 self._device,
-                1 if self._mesh is None else self._mesh.size()))
+                1 if self._mesh is None else self._mesh.size()),
+            block=None if self._shard else self._remote_block)
         self._flop_model = FlopModel(cfg)
         self._draft_flop_model = (FlopModel(speculative_draft.cfg)
                                   if speculative_draft is not None else None)
@@ -1437,31 +1465,40 @@ class ContinuousBatchingEngine:
     @staticmethod
     def resolve_engine_devices(engine_devices, mesh=None):
         """The reference's explicit-placement rule: ``engine_devices`` is a
-        sequence of CUDA device indices or ``torch.device``s; a one-device
-        subset is the device every tensor of the engine lives on
-        (returned), None the default placement (or ``mesh``'s). A subset
-        of k > 1 devices is a k x 1 ``("dp", "tp")`` mesh over exactly
-        those devices, which needs a live process group of k ranks whose
-        devices they are (``parallel.mesh.subset_mesh``; returned). Loud
+        sequence of device indices (CUDA cards; on gloo ranks, with or
+        without a card, index i is rank i's CPU, ``torch.device("cpu",
+        i)``) or
+        ``torch.device``s; a one-device subset is the device every tensor
+        of the engine lives on (returned), None the default placement (or
+        ``mesh``'s). A subset of k > 1 devices is a k x 1 ``("dp", "tp")``
+        mesh over exactly the ranks of the live process group that hold
+        those devices, the whole group or part of it
+        (``parallel.mesh.subset_mesh``; a ``RankMesh`` returned). Loud
         errors, never silent fallbacks: an index out of range, a device
         listed twice, an empty subset, a conflict with ``mesh`` and a
-        subset with no matching group raise ``ValueError``."""
+        subset no ranks hold raise ``ValueError``."""
         if engine_devices is None:
             return None
         if mesh is not None:
             raise ValueError(
                 "engine_devices and mesh are mutually exclusive — an "
                 "explicit mesh already IS a device placement")
-        n_cuda = torch.cuda.device_count()
+        # an index names a card, or, on gloo ranks, the CPU of the rank
+        # of that index (parallel.mesh.rank_devices), whether this
+        # process sees a card or not
+        kind, n_dev = "cuda", torch.cuda.device_count()
+        if dist.is_available() and dist.is_initialized() \
+                and str(dist.get_backend()).lower() == "gloo":
+            kind, n_dev = "cpu", dist.get_world_size()
         devs, seen = [], set()
         for d in engine_devices:
             if isinstance(d, (int, np.integer)):
                 idx = int(d)
-                if not 0 <= idx < n_cuda:
+                if not 0 <= idx < n_dev:
                     raise ValueError(
                         f"engine_devices index {idx} out of range "
-                        f"(backend has {n_cuda} devices)")
-                d = torch.device("cuda", idx)
+                        f"(backend has {n_dev} devices)")
+                d = torch.device(kind, idx)
             else:
                 d = torch.device(d)
             if d in seen:
@@ -2054,6 +2091,8 @@ class ContinuousBatchingEngine:
         broke; under an ``EngineSupervisor`` the supervisor's loop runs
         (``EngineSupervisor.follow``), which follows rank 0's rebuilt
         engines until rank 0 stops one or its breaker trips."""
+        if self._chan is None and not self._shard:
+            return self          # a rank outside the mesh: nothing to run
         if self._chan is not None and not self._chan.is_driver:
             if self.supervisor is not None:
                 self.supervisor.follow()
@@ -2070,11 +2109,17 @@ class ContinuousBatchingEngine:
         return self
 
     def stop(self) -> None:
-        if self._chan is not None and self._chan.is_driver \
-                and not self._started:
-            # the followers wait in the warm-up's collectives: the thread
-            # meets them, sees the stop and sends them theirs
-            self.start()
+        if self._chan is not None and self._chan.is_driver:
+            with self._lock:
+                unstarted = not self._started and not self._stopping
+                if unstarted:
+                    self._stopping = True
+            if unstarted:
+                # the followers wait for the first plan: send them theirs
+                self._chan.send(spmd.STOP)
+                self._mesh.destroy()
+                self._pending.close()
+                return
         with self._lock:
             already = self._stopping
             self._stopping = True
@@ -2097,10 +2142,9 @@ class ContinuousBatchingEngine:
                     json.dumps(tail, default=str))
 
     def _follow(self) -> None:
-        """A follower rank's loop: build this rank's shard (the same
-        warm-up launches as rank 0's, whose collectives they meet), then
-        run every plan rank 0 broadcasts until its STOP. Any failure
-        marks the engine dead and raises on this rank."""
+        """A follower rank's loop: run every plan rank 0 broadcasts (its
+        first builds this rank's shard, ``_op_ready``) until its STOP. Any
+        failure marks the engine dead and raises on this rank."""
         with self._lock:
             if self._started:
                 return
@@ -2109,16 +2153,28 @@ class ContinuousBatchingEngine:
             with torch.inference_mode():
                 if self._device.type == "cuda":
                     torch.cuda.set_device(self._device)
-                self._ensure_ready()
-                spmd.follow(self._chan, lambda op, args: getattr(
-                    self, "_op_" + op)(*args))
-            self._mesh.destroy()
+                spmd.follow(self._chan, self.run_plan)
+            self._finish_following()
         except Exception as e:
             self._failed = e
             raise
         finally:
             self._stopping = True
             self._dev.clear()
+
+    def run_plan(self, op: str, args: tuple) -> None:
+        """A follower's part of one of the driver's plans: device op
+        ``_op_<op>`` on this rank's shard (nothing on a rank that holds
+        none)."""
+        if self._shard:
+            getattr(self, "_op_" + op)(*args)
+
+    def _finish_following(self) -> None:
+        """The driver stopped this engine: its last replies out, its
+        groups destroyed."""
+        if self._reply is not None:
+            self._reply.flush()
+        self._mesh.destroy()
 
     def drain(self, timeout: float = 60.0) -> bool:
         """Stop admitting (a later submit gets a 503) and wait until every
@@ -2436,38 +2492,53 @@ class ContinuousBatchingEngine:
 
     # ---------------------------------------------------------- device side
 
-    def _ensure_ready(self) -> None:
+    def _op_ready(self) -> None:
         """Place the weights, build the KV state (the slot rows or the
         pool), positions and ring on the engine's device, with a draft the
         draft's weights and its own slot-layout state (on both layouts, as
         in the reference), and run one all-inactive chunk of each kernel
         variant (greedy and sampled), so the kernels' libraries are built
-        before the first request. Runs on the engine thread."""
+        before the first request. Runs on the engine thread, and under a
+        mesh on every rank from the driver's plan. A driver that holds no
+        shard builds the host side only (the bucket ladders) and reads the
+        memory ledger and the tier's block size from the mesh's
+        reporter."""
         if "ready" in self._dev:
             return
-        cfg, s, c, dev = self._cfg, self._n_slots, self._chunk, self._device
-        mesh = self._mesh
+        self._ladders()
+        if self._shard:
+            self._build_device_state()
+        if self._reporter:
+            self._reply.send("ready", {
+                "memory": self._mem_attr,
+                "tier_block": (self._tier_block_nbytes()
+                               if self._host_tier_bytes else 0)})
+            # the warm-up's dispatches are no request's
+            self._timings.clear()
+        elif self._reply is not None:
+            got = self._reply.recv("ready")
+            self._mem_attr = got["memory"]
+            self._remote_tier_block = got["tier_block"]
+        if self._host_tier_bytes and (self._chan is None
+                                      or self._chan.is_driver):
+            # a follower's index never evicts: the driver's plans move
+            # its blocks (_op_tier_*)
+            self._attach_tier()
+        self._dev["ready"] = True
+
+    def _ladders(self) -> None:
+        """The host's bucket ladders of every padded shape the engine
+        dispatches: block-table widths, prefix block counts, prefill,
+        lane and draft prompt lengths."""
+        cfg, c = self._cfg, self._chunk
         if self._paged:
-            self._dev["pool"] = init_paged_pool(cfg, self._kv_pool_blocks,
-                                                self._kv_block_len, dev, mesh)
             self._dev["table_buckets"] = block_count_buckets(
                 cfg.max_seq // self._kv_block_len)
-            self._dev["pos"] = t.init_paged_state(s, dev, mesh)["pos"]
-        else:
-            # the KV tensors (int8 ones with their scale tables under
-            # kv_quant) and the positions (this rank's block under a mesh)
-            state = t.init_decode_state(cfg, s, dev, mesh)
-            self._dev["pos"] = state.pop("pos")
-            self._dev["cache"] = state
-            if self._prefix_index is not None:
-                # the slot layout's prefix pool, in front of the slot rows;
-                # a match or commit covers at most max_seq // bl blocks,
-                # padded to a power-of-two count of them
-                bl = self._prefix_block_len
-                self._dev["prefix_pool"] = init_block_pool(
-                    cfg, self._prefix_blocks, bl, dev, mesh)
-                self._dev["prefix_buckets"] = block_count_buckets(
-                    max(1, cfg.max_seq // bl))
+        elif self._prefix_index is not None:
+            # a match or commit covers at most max_seq // bl blocks,
+            # padded to a power-of-two count of them
+            self._dev["prefix_buckets"] = block_count_buckets(
+                max(1, cfg.max_seq // self._prefix_block_len))
         if self._prefill_enabled:
             # prompts of at most one chunk take the token-level path
             self._dev["prefill_buckets"] = block_count_buckets(
@@ -2478,6 +2549,37 @@ class ContinuousBatchingEngine:
             self._dev["pchunk_buckets"] = block_count_buckets(
                 self._prefill_chunk_len, start=8)
         if self._lane_on:
+            self._dev["lane_buckets"] = block_count_buckets(
+                self._lane_width, start=8)
+            if self._lane_batch:
+                self._dev["lane_b_buckets"] = block_count_buckets(
+                    self._lane_batch)
+        if self._spec is not None:
+            # the draft's catch-up covers whole prompts
+            self._dev["draft_buckets"] = block_count_buckets(cfg.max_seq,
+                                                             start=8)
+
+    def _build_device_state(self) -> None:
+        """This rank's device state (``_op_ready``), its warm-up chunks
+        and its memory ledger."""
+        cfg, s, c, dev = self._cfg, self._n_slots, self._chunk, self._device
+        mesh = self._mesh
+        if self._paged:
+            self._dev["pool"] = init_paged_pool(cfg, self._kv_pool_blocks,
+                                                self._kv_block_len, dev, mesh)
+            self._dev["pos"] = t.init_paged_state(s, dev, mesh)["pos"]
+        else:
+            # the KV tensors (int8 ones with their scale tables under
+            # kv_quant) and the positions (this rank's block under a mesh)
+            state = t.init_decode_state(cfg, s, dev, mesh)
+            self._dev["pos"] = state.pop("pos")
+            self._dev["cache"] = state
+            if self._prefix_index is not None:
+                # the slot layout's prefix pool, in front of the slot rows
+                self._dev["prefix_pool"] = init_block_pool(
+                    cfg, self._prefix_blocks, self._prefix_block_len, dev,
+                    mesh)
+        if self._lane_on:
             self._init_lane_state()
         if self._spec is not None:
             # this rank's dp block of the slots under a mesh; the draft's
@@ -2486,9 +2588,6 @@ class ContinuousBatchingEngine:
             self._dev["dpos"] = dstate.pop("pos")
             self._dev["dcache"] = dstate
             self._dev["dparams"] = _to_device(self._draft.params, dev)
-            # the draft's catch-up covers whole prompts
-            self._dev["draft_buckets"] = block_count_buckets(cfg.max_seq,
-                                                             start=8)
         # the ring holds every slot (a mesh gathers each entry over dp)
         self._dev["ring"] = torch.zeros(
             (self._ring_entries, s, self._ring_width), dtype=torch.int32,
@@ -2509,11 +2608,6 @@ class ContinuousBatchingEngine:
         for sample in (False, True):
             # every rank of a mesh runs these itself (no plan)
             self._op_chunk(0, warm, True, sample)
-        if self._host_tier_bytes and (self._chan is None
-                                      or self._chan.is_driver):
-            # a follower's index never evicts: the driver's plans move
-            # its blocks (_op_tier_*)
-            self._attach_tier()
         # the memory ledger: the big device residents this engine placed,
         # by component (the reference's rows; a paged engine has no slot
         # rows, its pool is the one KV residence)
@@ -2536,16 +2630,14 @@ class ContinuousBatchingEngine:
                 (self._dev["dcache"], self._dev["dpos"]))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        self._dev["ready"] = True
 
     def _init_lane_state(self) -> None:
         """The dedicated lane's device state: positions and pending first
         tokens (and under the slot layout its own KV rows) for its slots
         plus one scratch row, where the batched lane's padding rows write
-        what nothing reads; its chunk ladder of powers of two up to
-        ``prefill_lane_width``, and the batched lane's row-count ladder.
-        Under a mesh the state is this rank's dp block of the lane slots
-        and its own scratch row (the KV rows at its tp heads)."""
+        what nothing reads. Under a mesh the state is this rank's dp block
+        of the lane slots and its own scratch row (the KV rows at its tp
+        heads)."""
         cfg, dev, mesh = self._cfg, self._device, self._mesh
         # a dp block of lane slots plus the scratch row, on every dp rank
         n = (self._lane_n // self._dp + 1) * self._dp
@@ -2557,11 +2649,6 @@ class ContinuousBatchingEngine:
             self._dev["lane_cache"] = state
         self._dev["lane_last"] = torch.zeros((n // self._dp,),
                                              dtype=torch.int32, device=dev)
-        self._dev["lane_buckets"] = block_count_buckets(self._lane_width,
-                                                        start=8)
-        if self._lane_batch:
-            self._dev["lane_b_buckets"] = block_count_buckets(
-                self._lane_batch)
 
     def _tier_pool(self) -> tuple:
         """(the pool the host tier moves blocks of, whether it is
@@ -2569,6 +2656,10 @@ class ContinuousBatchingEngine:
         if self._paged:
             return self._dev["pool"], True
         return self._dev["prefix_pool"], False
+
+    def _tier_block_nbytes(self) -> int:
+        """One pool block's bytes at this rank's heads."""
+        return pool_block_nbytes(*self._tier_pool())
 
     def _attach_tier(self) -> None:
         """Arm the host tier on the prefix pool (the paged pool, layer-
@@ -2579,42 +2670,51 @@ class ContinuousBatchingEngine:
         stream; their host time goes to the "tier" phase.
 
         Under a mesh the store is the driver's: its budget and its LRU
-        count each block's whole bytes (this rank's heads times tp), so
-        its spill and drop decisions are the unsharded engine's. An entry
-        is ``(key, rows)``: every move is a plan (``_op_tier_*``), and each
-        follower files its own heads of the block under the key, reads
-        them back at the restore and lets them go when the store drops
-        the entry."""
-        pool, layer_major = self._tier_pool()
-        chan = self._chan
-        block = pool_block_nbytes(pool, layer_major)
-        if chan is None:
-            tier = HostTierStore(self._host_tier_bytes, block)
-        else:
-            tier = HostTierStore(
-                self._host_tier_bytes, block * axis_size(self._mesh, "tp"),
-                on_drop=lambda entry: chan.send("tier_drop", entry[0]))
+        count each block's whole bytes (a shard's heads times tp, the
+        reporter's shard when the driver holds none), so its spill and
+        drop decisions are the unsharded engine's. An entry is a key:
+        every move is a plan (``_op_tier_*``), and each rank of the mesh
+        files its own heads of the block under the key, reads them back
+        at the restore and lets them go when the store drops the
+        entry."""
+        if self._chan is None:
+            pool, layer_major = self._tier_pool()
+            tier = HostTierStore(self._host_tier_bytes,
+                                 pool_block_nbytes(pool, layer_major))
+
+            def spill(bid: int) -> tuple:
+                t0 = time.perf_counter()
+                out = tier_spill(pool, bid, layer_major)
+                self._phase_s["tier"] += time.perf_counter() - t0
+                return out
+
+            def restore(bid: int, rows) -> None:
+                t0 = time.perf_counter()
+                tier_restore(pool, bid, rows, layer_major)
+                self._phase_s["tier"] += time.perf_counter() - t0
+
+            self._kv_index.attach_tier(tier, spill, restore)
+            return
+        block = (self._tier_block_nbytes() if self._shard
+                 else self._remote_tier_block)
+        tier = HostTierStore(
+            self._host_tier_bytes, block * axis_size(self._mesh, "tp"),
+            on_drop=lambda key: self._exec("tier_drop", key))
         keys = itertools.count()
 
-        def spill(bid: int) -> tuple:
+        def spill_key(bid: int) -> tuple:
             t0 = time.perf_counter()
-            if chan is not None:
-                key = next(keys)
-                chan.send("tier_spill", key, bid)
-            rows, ready = tier_spill(pool, bid, layer_major)
+            key = next(keys)
+            ready = self._exec("tier_spill", key, bid)
             self._phase_s["tier"] += time.perf_counter() - t0
-            return (rows if chan is None else (key, rows)), ready
+            return key, ready
 
-        def restore(bid: int, entry) -> None:
+        def restore_key(bid: int, key: int) -> None:
             t0 = time.perf_counter()
-            rows = entry
-            if chan is not None:
-                key, rows = entry
-                chan.send("tier_restore", key, bid)
-            tier_restore(pool, bid, rows, layer_major)
+            self._exec("tier_restore", key, bid)
             self._phase_s["tier"] += time.perf_counter() - t0
 
-        self._kv_index.attach_tier(tier, spill, restore)
+        self._kv_index.attach_tier(tier, spill_key, restore_key)
 
     def _launch_chunk(self, entry: int, tables, feed, rem, active, reset,
                       reset_to, freeze, seeds, temps, topks, topps,
@@ -2644,10 +2744,57 @@ class ContinuousBatchingEngine:
 
     def _exec(self, op: str, *args):
         """Run device op ``_op_<op>`` on this rank, after broadcasting it
-        to the followers as a plan under a mesh; returns what it returns."""
-        if self._chan is not None:
+        to the followers as a plan under a mesh, both under the channel's
+        lock (a fleet's replicas share one: every rank launches their
+        collectives in the plans' order); returns what it returns. A
+        driver that holds no shard only sends the plan (None): the host
+        side of the readiness (``ready``) runs here all the same."""
+        if self._chan is None:
+            return getattr(self, "_op_" + op)(*args)
+        with self._chan.lock:
             self._chan.send(op, *args)
-        return getattr(self, "_op_" + op)(*args)
+            if self._shard or op == "ready":
+                return getattr(self, "_op_" + op)(*args)
+        return None
+
+    def _op_fetch(self) -> None:
+        """The reporter's part of a fetch for a driver without a shard:
+        the ring and its counts copied to the host (waiting for the
+        dispatches before it), with the summed stream time of the
+        dispatches it timed since the previous fetch, sent back over the
+        reply link."""
+        if not self._reporter:
+            return
+        ring, cnt = self._dev["ring"], self._dev["ring_cnt"]
+        host = (finish_host_copies(start_host_copies(
+            {"ring": ring, "cnt": cnt})) if ring.is_cuda
+                else {"ring": ring.numpy().copy(), "cnt": cnt.numpy().copy()})
+        host["ms"] = sum(a.elapsed_time(b) for a, b in self._timings)
+        host["timed"] = len(self._timings)
+        self._timings.clear()
+        self._reply.send("fetch", host)
+
+    def _op_sync(self) -> None:
+        """The reporter's part of a synchronous device-time sample: wait
+        for every dispatch so far, then tell the driver."""
+        if not self._reporter:
+            return
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        self._reply.send("sync", None)
+
+    def _remote_block(self, key: str) -> None:
+        """The goodput plane's synchronous sample on a driver without a
+        shard: a round trip to the mesh's reporter, which answers once
+        its card has run every dispatch so far."""
+        self._exec("sync")
+        self._reply.recv("sync")
+
+    def _outputs(self, key: str):
+        """What the goodput plane's synchronous sample waits on for a
+        dispatch that wrote ``self._dev[key]``: the tensor, or, on a
+        driver without a shard, the key (``_remote_block`` waits)."""
+        return self._dev[key] if self._shard else key
 
     def _mine(self, a: np.ndarray) -> np.ndarray:
         """This rank's dp block of a per-slot host array (dim 0 = slots)."""
@@ -2690,9 +2837,7 @@ class ContinuousBatchingEngine:
         self._launch_chunk(entry, tables, feed, rem, active, reset, reset_to,
                            freeze if frozen else None, seeds, temps, topks,
                            topps, sample)
-        if timing is not None:
-            timing[1].record()
-        return timing
+        return self._end_timing(timing)
 
     def _op_prefill(self, idx: int, padded: np.ndarray, plen: int,
                     ints: np.ndarray, floats: np.ndarray) -> None:
@@ -2795,9 +2940,7 @@ class ContinuousBatchingEngine:
         timing = self._start_timing()
         self._launch_spec(entry, tab_d, rows_d,
                           (seeds_d, temps_d, topks_d, topps_d), rung, sample)
-        if timing is not None:
-            timing[1].record()
-        return timing
+        return self._end_timing(timing)
 
     def _op_lane_batch(self, idxs: np.ndarray, toks: np.ndarray,
                        pos0s: np.ndarray, clens: np.ndarray,
@@ -2863,14 +3006,16 @@ class ContinuousBatchingEngine:
             dev["pos"][d] = pair[0]
             dev["last"][d] = pair[1]
 
-    def _op_tier_spill(self, key: int, bid: int) -> None:
-        """A follower's part of a spill: this rank's heads of block
-        ``bid`` copied to its host memory under ``key``."""
+    def _op_tier_spill(self, key: int, bid: int):
+        """A rank's part of a spill: its heads of block ``bid`` copied to
+        its host memory under ``key``; returns the copy's event (None on
+        the CPU)."""
         pool, layer_major = self._tier_pool()
-        self._tier_rows[key] = tier_spill(pool, bid, layer_major)[0]
+        self._tier_rows[key], ready = tier_spill(pool, bid, layer_major)
+        return ready
 
     def _op_tier_restore(self, key: int, bid: int) -> None:
-        """A follower's part of a restore: the rows filed under ``key``
+        """A rank's part of a restore: the rows filed under ``key``
         copied back into block ``bid``."""
         pool, layer_major = self._tier_pool()
         tier_restore(pool, bid, self._tier_rows.pop(key), layer_major)
@@ -3056,7 +3201,8 @@ class ContinuousBatchingEngine:
                    pad_block_ids(handle.block_ids, bucket),
                    handle.matched_tokens)
         # pool->slot KV gather: device time, no model FLOPs
-        self._note_dispatch("gather", outputs=self._slot_state(lane)[1])
+        self._note_dispatch("gather", outputs=self._outputs(
+            "lane_pos" if lane else "pos"))
         slot.cursor = slot.pos_hi = handle.matched_tokens
         slot.draft_ready = False
         self.gen_stats.record_prefix_hit(handle.matched_tokens)
@@ -3101,7 +3247,7 @@ class ContinuousBatchingEngine:
         offs[:len(plan)] = [off for _bid, off, _node in plan]
         self._exec("commit", idx, lane, pad_block_ids(ids, bucket), offs)
         # slot->pool KV scatter: device time, no model FLOPs
-        self._note_dispatch("scatter", outputs=self._dev["prefix_pool"])
+        self._note_dispatch("scatter", outputs=self._outputs("prefix_pool"))
         self._prefix_index.finish_commit(plan)
 
     # ---------------------------------------------------------- engine loop
@@ -3563,7 +3709,6 @@ class ContinuousBatchingEngine:
         d.draft_ready = False
         d.decode_dispatched = 0
         d.pos_pending = None
-        dev = self._dev
         if self._paged:
             d.blocks, lane.blocks = lane.blocks, []
             d.n_shared, lane.n_shared = lane.n_shared, 0
@@ -3571,7 +3716,7 @@ class ContinuousBatchingEngine:
             d.cursor = d.pos_hi = lane.cursor
             self._exec("handoff", d_idx, l_idx)
             # a position and token move: device time, no FLOPs
-            self._note_dispatch("handoff", outputs=dev["last"])
+            self._note_dispatch("handoff", outputs=self._outputs("last"))
         else:
             self._commit_prefix(l_idx, req, tokens=req.prompt[:lane.cursor],
                                 lane=True)
@@ -3580,13 +3725,13 @@ class ContinuousBatchingEngine:
             d.cursor = d.pos_hi = 0
             if handle is not None:
                 req.prefix = handle
-                bucket = next(b for b in dev["prefix_buckets"]
+                bucket = next(b for b in self._dev["prefix_buckets"]
                               if b >= len(handle.block_ids))
                 self._exec("restore", d_idx, False,
                            pad_block_ids(handle.block_ids, bucket),
                            handle.matched_tokens)
                 # pool->slot KV gather: device time, no model FLOPs
-                self._note_dispatch("gather", outputs=dev["pos"])
+                self._note_dispatch("gather", outputs=self._outputs("pos"))
                 d.cursor = d.pos_hi = handle.matched_tokens
         lane.req = None
         lane.cursor = 0
@@ -3747,7 +3892,6 @@ class ContinuousBatchingEngine:
                 tabs[r, :len(slot.blocks)] = slot.blocks
         self._exec("lane_batch", idxs, toks, pos0s, clens, finals, seeds,
                    temps, topks, topps, tabs)
-        dev = self._dev
         total = 0
         end_ns = now_ns()
         for r, (i, slot, req, pos0, clen, _cap) in enumerate(rows):
@@ -3777,7 +3921,7 @@ class ContinuousBatchingEngine:
                        + (fm.logits if finals[r] else 0))
             w_pad += fm.span(pos0 + clen, bucket - clen, logits=False)
         self._note_dispatch(f"lane_batch{bb}", useful, {"padding": w_pad},
-                            outputs=dev["lane_last"])
+                            outputs=self._outputs("lane_last"))
         self._kind_s["lane_batch"] += time.perf_counter() - t0
         self._kind_n["lane_batch"] += 1
 
@@ -3804,7 +3948,7 @@ class ContinuousBatchingEngine:
         self._note_dispatch(
             "prefill", fm.span(0, plen, logits=False) + fm.logits,
             {"padding": fm.span(plen, bucket - plen, logits=False)},
-            outputs=self._dev["last"])
+            outputs=self._outputs("last"))
         if req.trace is not None:
             # the forward is enqueued: the host side of the admission ends
             req.trace.event(trace_mod.PREFILL_END)
@@ -3882,12 +4026,11 @@ class ContinuousBatchingEngine:
         padded = np.zeros(bucket, np.int32)
         padded[:plen] = req.prompt
         self._exec("draft_prefill", idx, padded, plen)
-        dev = self._dev
         dfm = self._draft_flop_model
         self._note_dispatch(
             "draft_prefill", dfm.span(0, plen, logits=False),
             {"padding": dfm.span(plen, bucket - plen, logits=False)},
-            outputs=dev["dpos"])
+            outputs=self._outputs("dpos"))
         self._kind_s["draft_prefill"] += time.perf_counter() - t0
         self._kind_n["draft_prefill"] += 1
 
@@ -3963,7 +4106,7 @@ class ContinuousBatchingEngine:
             slot.pos_pending = None
         self._exec("prefill_chunk", idx, lane, padded, *self._sampling(req),
                    row, pos0, clen, final)
-        last = self._dev["lane_last" if lane else "last"]
+        last = self._outputs("lane_last" if lane else "last")
         slot.cursor += clen
         slot.pos_hi = max(slot.pos_hi, slot.cursor)
         self._prefill_chunks_dispatched += 1
@@ -4171,7 +4314,7 @@ class ContinuousBatchingEngine:
         self._note_dispatch(
             "paged_decode" if self._paged else "chunk", useful,
             {"padding": w_pad, "frozen": w_frozen, "table_slack": w_slack},
-            outputs=self._dev["ring_cnt"])
+            outputs=self._outputs("ring_cnt"))
         self._kind_s["chunk"] += time.perf_counter() - t0
         self._kind_n["chunk"] += 1
         return ("chunk", seq, meta, timing, 0)
@@ -4204,6 +4347,17 @@ class ContinuousBatchingEngine:
         timing = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
         timing[0].record()
+        return timing
+
+    def _end_timing(self, timing):
+        """Record ``_start_timing()``'s second event after a launch; the
+        reporter of a driver without a shard keeps the pair for its next
+        fetch."""
+        if timing is None:
+            return None
+        timing[1].record()
+        if self._reporter:
+            self._timings.append(timing)
         return timing
 
     def _dispatch_spec(self, modes: list, rungs: list, rung: int,
@@ -4255,7 +4409,7 @@ class ContinuousBatchingEngine:
             gkind, 0,
             {"padding": (self._n_slots - len(gp_part))
              * fm.span(0, rung + 1)},
-            outputs=self._dev["ring_cnt"])
+            outputs=self._outputs("ring_cnt"))
         self._kind_s["spec"] += time.perf_counter() - t0
         self._kind_n["spec"] += 1
         return ("spec", seq, meta, timing, rung)
@@ -4282,7 +4436,13 @@ class ContinuousBatchingEngine:
         """Start the ring's D2H copy (non-blocking, on the engine's
         stream, behind every kernel dispatched so far): one transfer
         delivers every entry in ``unfetched``. On the CPU the ring is
-        cloned, since nothing orders a later in-place write after it."""
+        cloned, since nothing orders a later in-place write after it. A
+        driver without a shard sends the fetch as a plan: the mesh's
+        reporter sends the ring back (``_op_fetch``)."""
+        if not self._shard:
+            self._exec("fetch")
+            self.gen_stats.record_ring_fetch(forced=forced)
+            return (None, list(unfetched))
         ring, cnt = self._dev["ring"], self._dev["ring_cnt"]
         if ring.is_cuda:
             copies = start_host_copies({"ring": ring, "cnt": cnt})
@@ -4301,7 +4461,13 @@ class ContinuousBatchingEngine:
         # fault point: where a deferred device error surfaces, at the
         # blocking collect of the ring's D2H copy
         faultinject.fire_or_raise("ring_fetch", engine=self.name)
-        host = finish_host_copies(copies)
+        if copies is None:
+            # from the reporter, with the stream time of its dispatches
+            host = self._reply.recv("fetch")
+            self._dispatch_event_ms += host["ms"]
+            self._timed_dispatches += host["timed"]
+        else:
+            host = finish_host_copies(copies)
         self._phase_s["retire_fetch"] += time.perf_counter() - t0
         t1 = time.perf_counter()
         arrival = now_ns()
@@ -4522,7 +4688,7 @@ class ContinuousBatchingEngine:
                 raise
 
     def _run_loop(self) -> None:
-        self._ensure_ready()
+        self._exec("ready")
         unfetched, fetches = self._unfetched, self._fetches
         # the occupied-slot count integrated over wall time (slot-busy
         # seconds; over n_slots x a window it is the occupancy)

@@ -41,7 +41,7 @@ import threading
 import time
 from bisect import bisect_right
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -132,13 +132,17 @@ class GoodputTracker:
     lock guards both sides and every critical section is tiny. The
     optional synchronous sample blocks OUTSIDE the lock. ``event_blocks``
     counts the samples that waited on a CUDA event (a CPU sample waits on
-    nothing)."""
+    nothing), or on ``block(outputs)`` when the engine gives one (a
+    sharded engine's driver that holds no shard waits by asking the
+    card's rank)."""
 
     def __init__(self, sample_every: int = 0,
                  peak_flops: Optional[float] = None,
-                 clock=time.monotonic_ns):
+                 clock=time.monotonic_ns,
+                 block: Optional[Callable] = None):
         self._lock = threading.Lock()
         self._clock = clock
+        self._wait = block
         self.sample_every = max(0, int(sample_every))
         self.peak_flops = peak_flops
         self.event_blocks = 0
@@ -200,7 +204,13 @@ class GoodputTracker:
         """Wait until the work that wrote ``outputs`` is done: a CUDA event
         recorded now on the tensor's current stream (the dispatching
         thread's, behind the dispatch's kernels) and waited on. Nothing
-        else on the card is waited for."""
+        else on the card is waited for; the engine's ``block`` instead
+        when it gave one."""
+        if self._wait is not None:
+            self._wait(outputs)
+            with self._lock:
+                self.event_blocks += 1
+            return
         tensor = _first_tensor(outputs)
         if tensor is None or not tensor.is_cuda:
             return

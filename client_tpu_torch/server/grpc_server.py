@@ -551,7 +551,15 @@ class GrpcInferenceServer:
     # expected stream count or the unary RPCs (health, statistics) starve
     def __init__(self, core: TorchInferenceServer, host: str = "127.0.0.1",
                  port: int = 8001, max_workers: int = 48,
+                 ssl_certfile: str | None = None,
+                 ssl_keyfile: str | None = None,
+                 ssl_root_certfile: str | None = None,
                  debug_endpoints: bool = False):
+        """``ssl_certfile`` serves over TLS with that certificate and
+        ``ssl_keyfile`` (omitted: the key is read from the certificate's
+        combined PEM, as the HTTP front end's ``load_cert_chain`` reads
+        it); ``ssl_root_certfile`` also turns on mutual TLS: a client must
+        present a certificate that root signed."""
         self.core = core
         self._server = grpc.server(
             futures.ThreadPoolExecutor(max_workers=max_workers),
@@ -578,7 +586,21 @@ class GrpcInferenceServer:
                 response_serializer=None)
         self._server.add_generic_rpc_handlers(
             (grpc.method_handlers_generic_handler(SERVICE, method_handlers),))
-        self.port = self._server.add_insecure_port(f"{host}:{port}")
+        if ssl_certfile:
+            with open(ssl_keyfile or ssl_certfile, "rb") as f:
+                key = f.read()
+            with open(ssl_certfile, "rb") as f:
+                cert = f.read()
+            root = None
+            if ssl_root_certfile:
+                with open(ssl_root_certfile, "rb") as f:
+                    root = f.read()
+            creds = grpc.ssl_server_credentials(
+                [(key, cert)], root_certificates=root,
+                require_client_auth=bool(root))
+            self.port = self._server.add_secure_port(f"{host}:{port}", creds)
+        else:
+            self.port = self._server.add_insecure_port(f"{host}:{port}")
         self.host = host
 
     @property

@@ -510,13 +510,18 @@ def _response_to_wire(request_header: dict, response) -> tuple:
 
 
 class HttpInferenceServer:
-    """Bind + serve a TorchInferenceServer core over HTTP."""
+    """Bind + serve a TorchInferenceServer core over HTTP(S)."""
 
     def __init__(self, core: TorchInferenceServer, host: str = "127.0.0.1",
                  port: int = 8000, verbose: bool = False,
-                 access_log: bool = False, debug_endpoints: bool = False):
+                 access_log: bool = False, debug_endpoints: bool = False,
+                 ssl_certfile: str | None = None,
+                 ssl_keyfile: str | None = None):
         """``debug_endpoints`` opts into the ``/v2/debug/*`` routes; with
-        the flag off they answer 404 like any unknown path."""
+        the flag off they answer 404 like any unknown path.
+        ``ssl_certfile`` serves HTTPS: the listening socket is wrapped in
+        a TLS server context loaded with that certificate chain and
+        ``ssl_keyfile`` (None: the key is in the certificate's PEM)."""
         self.core = core
 
         # a burst of concurrent clients opens its connections at once;
@@ -530,6 +535,13 @@ class HttpInferenceServer:
         self._httpd.verbose = verbose  # type: ignore[attr-defined]
         self._httpd.access_log = access_log  # type: ignore[attr-defined]
         self._httpd.debug_endpoints = debug_endpoints  # type: ignore[attr-defined]
+        if ssl_certfile:
+            import ssl
+
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(certfile=ssl_certfile, keyfile=ssl_keyfile)
+            self._httpd.socket = ctx.wrap_socket(self._httpd.socket,
+                                                 server_side=True)
         self.host, self.port = self._httpd.server_address[:2]
         self._thread = None
 

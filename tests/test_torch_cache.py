@@ -12,7 +12,6 @@
   output directed into a region is never looked up.
 """
 
-import dataclasses
 import json
 
 import numpy as np
@@ -80,11 +79,12 @@ def test_lookup_insert_evict_match_the_reference(limits, evictions):
 def _core(side: str):
     if side == "ref":
         core = TpuInferenceServer(cache_bytes=64)
-        model = jadd.make_add_sub("add_sub", 4, "INT32")
+        model = jadd.make_add_sub("add_sub", 4, "INT32",
+                                  response_cache=True)
     else:
         core = TorchInferenceServer(cache_bytes=64)
-        model = make_add_sub("add_sub", 4, "INT32", device="cpu")
-    model.config = dataclasses.replace(model.config, response_cache=True)
+        model = make_add_sub("add_sub", 4, "INT32", response_cache=True,
+                             device="cpu")
     core.register_model(model)
     return core
 

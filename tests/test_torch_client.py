@@ -647,8 +647,22 @@ def test_port_client_registers_a_tpu_region_with_the_reference_server(
 
 # ------------------------------------------------------------------- TLS
 
-@pytest.fixture(scope="module")
-def tls_server(tmp_path_factory):
+def _tls_core(side: str):
+    """An add_sub core of ``side``: the reference's or the port's."""
+    if side == "ref":
+        core = TpuInferenceServer()
+        core.register_model(jadd.make_add_sub("add_sub", 16, "INT32"))
+    else:
+        core = TorchInferenceServer()
+        core.register_model(make_add_sub("add_sub", 16, "INT32",
+                                         device="cpu"))
+    return core
+
+
+@pytest.fixture(scope="module", params=["ref", "port"])
+def tls_server(request, tmp_path_factory):
+    """The same add_sub model behind the reference's HTTPS server and
+    behind the port's (``ssl_certfile=``, ``ssl_keyfile=``)."""
     if shutil.which("openssl") is None:
         pytest.skip("openssl is not installed")
     d = tmp_path_factory.mktemp("tls")
@@ -659,10 +673,10 @@ def tls_server(tmp_path_factory):
          "-subj", "/CN=localhost",
          "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
         check=True, capture_output=True)
-    core = TpuInferenceServer()
-    core.register_model(jadd.make_add_sub("add_sub", 16, "INT32"))
-    srv = RefHttp(core, port=0, ssl_certfile=str(crt),
-                  ssl_keyfile=str(key)).start()
+    core = _tls_core(request.param)
+    server = RefHttp if request.param == "ref" else HttpInferenceServer
+    srv = server(core, port=0, ssl_certfile=str(crt),
+                 ssl_keyfile=str(key)).start()
     yield srv, str(crt)
     srv.stop()
     core.stop()
@@ -804,3 +818,51 @@ def test_cross_process_regions_are_never_read_stale(example_server):
     assert [r[2] for r in rows] == [True] * 6
     assert all(after > before for before, after, _ in rows)
     assert kinds[f"xin_{tag}"] == "CrossProcessAttachment"
+
+
+# ---------------------------------------------------------- client timeout
+
+def _timeout_answers(side: str) -> list:
+    """What the port's and the reference's HTTP clients answer against
+    ``side``'s server of an identity model that sleeps 0.3 s: an infer
+    under a 50 ms network timeout, then one without."""
+    if side == "ref":
+        core = TpuInferenceServer()
+        core.register_model(jadd.make_identity("identity_delay", 16,
+                                               "INT32", delay_s=0.3))
+        srv = RefHttp(core, port=0).start()
+    else:
+        core = TorchInferenceServer()
+        core.register_model(make_identity("identity_delay", 16, "INT32",
+                                          delay_s=0.3))
+        srv = HttpInferenceServer(core, port=0).start()
+    a = np.arange(16, dtype=np.int32)
+    out = []
+    try:
+        for mod in (thttp, jhttp):
+            for timeout in (0.05, 60.0):
+                c = mod.InferenceServerClient(f"localhost:{srv.port}",
+                                              network_timeout=timeout)
+                i0 = mod.InferInput("INPUT0", [16], "INT32")
+                i0.set_data_from_numpy(a)
+                try:
+                    r = c.infer("identity_delay", [i0])
+                    out.append(r.as_numpy("OUTPUT0").tolist())
+                except Exception as e:  # noqa: BLE001 — compared below
+                    out.append(type(e).__name__)
+                finally:
+                    c.close()
+    finally:
+        srv.stop()
+        core.stop()
+    return out
+
+
+def test_a_client_timeout_against_a_slow_identity_reads_as_the_reference():
+    """``make_identity(delay_s=0.3)`` is a host model that sleeps: a 50 ms
+    network timeout fails the call, a long one returns the input, from
+    the port's server as from the reference's, with either client."""
+    port = _timeout_answers("port")
+    assert port == _timeout_answers("ref")
+    assert isinstance(port[0], str) and isinstance(port[2], str)
+    assert port[1] == port[3] == list(range(16))

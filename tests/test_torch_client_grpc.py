@@ -42,7 +42,7 @@ from client_tpu.server.grpc_server import (  # noqa: E402
 )
 from client_tpu_torch.client import grpc as tgrpc  # noqa: E402
 from client_tpu_torch.models import decoder_lm as tlm  # noqa: E402
-from client_tpu_torch.models import make_add_sub  # noqa: E402
+from client_tpu_torch.models import make_add_sub, make_identity  # noqa: E402
 from client_tpu_torch.models import transformer as tt  # noqa: E402
 from client_tpu_torch.server import TorchInferenceServer  # noqa: E402
 from client_tpu_torch.server.grpc_server import (  # noqa: E402
@@ -444,8 +444,26 @@ def test_stream_sends_after_stop_raise_the_same(servers):
     assert texts[0] == texts[1]
 
 
+def _tls_core(side: str):
+    """An add_sub core of ``side``: the reference's or the port's."""
+    if side == "ref":
+        core = TpuInferenceServer()
+        core.register_model(jadd.make_add_sub("add_sub", 16, "INT32"))
+    else:
+        core = TorchInferenceServer()
+        core.register_model(make_add_sub("add_sub", 16, "INT32",
+                                         device="cpu"))
+    return core
+
+
+def _server_of(side: str):
+    return RefGrpcServer if side == "ref" else GrpcInferenceServer
+
+
 @pytest.fixture(scope="module")
-def tls_server(tmp_path_factory):
+def tls_files(tmp_path_factory):
+    """A self-signed localhost certificate and its key (it also serves as
+    the mutual-TLS root and the client's certificate)."""
     if shutil.which("openssl") is None:
         pytest.skip("openssl is not installed")
     d = tmp_path_factory.mktemp("tls")
@@ -456,10 +474,17 @@ def tls_server(tmp_path_factory):
          "-subj", "/CN=localhost",
          "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
         check=True, capture_output=True)
-    core = TpuInferenceServer()
-    core.register_model(jadd.make_add_sub("add_sub", 16, "INT32"))
-    srv = RefGrpcServer(core, port=0, ssl_certfile=str(crt),
-                        ssl_keyfile=str(key)).start()
+    return key, crt
+
+
+@pytest.fixture(scope="module", params=["ref", "port"])
+def tls_server(request, tls_files):
+    """The same add_sub model behind the reference's TLS gRPC server and
+    behind the port's (``ssl_certfile=``, ``ssl_keyfile=``)."""
+    key, crt = tls_files
+    core = _tls_core(request.param)
+    srv = _server_of(request.param)(core, port=0, ssl_certfile=str(crt),
+                                    ssl_keyfile=str(key)).start()
     yield srv, crt.read_bytes()
     srv.stop()
     core.stop()
@@ -474,3 +499,90 @@ def test_tls_roundtrip_against_the_reference_server(tls_server):
     np.testing.assert_array_equal(
         c.infer("add_sub", _inputs(tgrpc, a, a)).as_numpy("OUTPUT0"), 2 * a)
     c.close()
+
+
+def _mtls_answers(side: str, tls_files) -> list:
+    """``side``'s server with a combined PEM (no ``ssl_keyfile``) and a
+    root certificate (mutual TLS): the port's client with the client
+    certificate, then without one."""
+    key, crt = tls_files
+    pem = crt.parent / f"combined_{side}.pem"
+    pem.write_bytes(key.read_bytes() + crt.read_bytes())
+    core = _tls_core(side)
+    srv = _server_of(side)(core, port=0, ssl_certfile=str(pem),
+                           ssl_root_certfile=str(crt)).start()
+    a = np.arange(16, dtype=np.int32)
+    out = []
+    try:
+        for client_kw in (dict(private_key=key.read_bytes(),
+                               certificate_chain=crt.read_bytes()), {}):
+            c = tgrpc.InferenceServerClient(
+                f"localhost:{srv.port}", ssl=True,
+                root_certificates=crt.read_bytes(), **client_kw)
+            try:
+                r = c.infer("add_sub", _inputs(tgrpc, a, a))
+                out.append(r.as_numpy("OUTPUT0").tolist())
+            except Exception as e:  # noqa: BLE001 — compared below
+                out.append(type(e).__name__)
+            finally:
+                c.close()
+    finally:
+        srv.stop()
+        core.stop()
+    return out
+
+
+@pytest.mark.parametrize("side", ["ref", "port"])
+def test_mutual_tls_refuses_a_client_without_a_certificate(tls_files, side):
+    """With ``ssl_root_certfile`` the server requires a client
+    certificate: a client that presents one is served, one without is
+    refused, by the port's server as by the reference's."""
+    got = _mtls_answers(side, tls_files)
+    assert got[0] == [2 * x for x in range(16)]
+    assert isinstance(got[1], str)
+    if side == "port":
+        assert got == _mtls_answers("ref", tls_files)
+
+
+def _timeout_answers(side: str) -> list:
+    """What the port's gRPC client answers against ``side``'s server of
+    an identity model that sleeps 0.3 s: the status under a 50 ms
+    deadline, then the output without one."""
+    if side == "ref":
+        core = TpuInferenceServer()
+        core.register_model(jadd.make_identity("identity_delay", 16,
+                                               "INT32", delay_s=0.3))
+    else:
+        core = TorchInferenceServer()
+        core.register_model(make_identity("identity_delay", 16, "INT32",
+                                          delay_s=0.3))
+    srv = _server_of(side)(core, port=0).start()
+    a = np.arange(16, dtype=np.int32)
+    out = []
+    try:
+        c = tgrpc.InferenceServerClient(f"localhost:{srv.port}")
+        try:
+            for timeout in (0.05, None):
+                i0 = tgrpc.InferInput("INPUT0", [16], "INT32")
+                i0.set_data_from_numpy(a)
+                try:
+                    r = c.infer("identity_delay", [i0],
+                                client_timeout=timeout)
+                    out.append(r.as_numpy("OUTPUT0").tolist())
+                except Exception as e:  # noqa: BLE001 — compared below
+                    out.append(e.status())
+        finally:
+            c.close()
+    finally:
+        srv.stop()
+        core.stop()
+    return out
+
+
+def test_a_client_deadline_against_a_slow_identity_reads_as_the_reference():
+    """``make_identity(delay_s=0.3)`` sleeps in a host model: a 50 ms
+    deadline ends the call with DEADLINE_EXCEEDED, and no deadline
+    returns the input, from the port's server as from the reference's."""
+    port = _timeout_answers("port")
+    assert port == _timeout_answers("ref")
+    assert port == ["DEADLINE_EXCEEDED", list(range(16))]

@@ -200,34 +200,33 @@ def test_concurrent_submitters_stress(model):
     assert occ["free"] == occ["usable"] and occ["reserved"] == 0
 
 
-# a dp2 mesh as the engine's validation reads it: the knobs below are
-# refused before any process group is touched
+# a dp2 mesh as the engine's validation reads it
 _DP2 = types.SimpleNamespace(mesh_dim_names=("dp", "tp"), shape=(2, 1),
                              device_type="cpu")
 
 
-@pytest.mark.parametrize("factory,knob,kw", [
-    ("generator", "fleet", dict(fleet=2, mesh=_DP2)),
-    ("replica_fleet", "fleet", dict(replicas=2, mesh=_DP2)),
-    ("generator", "replica_devices", dict(
+@pytest.mark.parametrize("factory,kw", [
+    ("generator", dict(fleet=2, mesh=_DP2)),
+    ("replica_fleet", dict(replicas=2, mesh=_DP2)),
+    ("generator", dict(
         fleet=2, device="cpu",
         replica_devices=[(torch.device("cpu", 0), torch.device("cpu", 1)),
                          None])),
-    ("replica_fleet", "replica_devices", dict(
+    ("replica_fleet", dict(
         replicas=2, device="cpu",
         replica_devices=[(torch.device("cpu", 0), torch.device("cpu", 1)),
-                         None]))])
-def test_a_sharded_fleet_raises_naming_9d(model, factory, knob, kw):
-    """A fleet under a mesh and a replica over two devices raise naming
-    ROADMAP 9d (a router in one process cannot reach a replica's driver
-    rank), from the generator and from make_replica_fleet, before any
-    process group is touched."""
+                         None]))],
+    ids=["generator-mesh", "replica_fleet-mesh", "generator-subset",
+         "replica_fleet-subset"])
+def test_a_sharded_fleet_without_a_process_group_raises(model, factory, kw):
+    """A fleet under a mesh and a replica over two devices run one process
+    per device: without a live process group both raise ``ValueError``
+    saying so, from the generator and from make_replica_fleet."""
     _, _, tcfg, tparams = model
     make = {"generator": make_continuous_generator,
             "replica_fleet": make_replica_fleet}[factory]
-    with pytest.raises(NotImplementedError, match="9d") as ei:
+    with pytest.raises(ValueError, match="live process group"):
         make(cfg=tcfg, params=tparams, n_slots=2, **kw)
-    assert knob in str(ei.value)
 
 
 def test_a_bad_mesh_or_subset_raises(model):

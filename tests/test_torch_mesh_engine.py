@@ -166,7 +166,8 @@ def test_a_follower_refuses_submit(mesh_run):
      "mesh tp size 4"),
     ("prefill_slots", "ValueError", "prefill_slots 3 must be divisible by "
      "the mesh dp size 2"),
-    ("engine_devices", "ValueError", "live process group of 2 ranks")])
+    ("engine_devices", "ValueError", "which no rank of the live process "
+     "group of 4 ranks holds")])
 def test_the_reference_errors_raise_on_every_rank(mesh_run, case, exc,
                                                   match):
     got, _ = mesh_run

@@ -22,9 +22,7 @@ from the same weights (``params_from_jax``).
   that trips the breaker, whose STOP ends every follower;
 - each rank's shard: draft state S/dp with the draft whole, lane state
   S/dp plus a scratch row at Hkv/tp, scale tables at Hkv/tp, a
-  follower's tier rows at Hkv/tp;
-- a fleet under the mesh and a replica over two devices raise naming
-  ROADMAP 9d on every rank.
+  follower's tier rows at Hkv/tp.
 
 Tokens and counters exact (f32 weights).
 """
@@ -272,17 +270,6 @@ def test_the_breaker_stops_every_follower(planes_run):
     assert "breaker tripped" in sup["second_crash"]
     assert sup["healthy"] is False
     assert [r["supervision"]["crash_looped"] for r in got] == [True] * 4
-
-
-@pytest.mark.parametrize("case", ["fleet", "fleet_replica",
-                                  "replica_devices",
-                                  "replica_devices_fleet"])
-def test_a_sharded_fleet_raises_naming_9d_on_every_rank(planes_run, case):
-    got, _ = planes_run
-    for r in got:
-        err = r["errors_9d"][case]
-        assert err.startswith("NotImplementedError"), err
-        assert "9d" in err
 
 
 class _Node:

@@ -212,7 +212,7 @@ def mesh_engine(rank, world, case: dict) -> dict:
             prefill_slots=3)),
         "engine_devices": _err(lambda: ContinuousBatchingEngine(
             tiny, tparams, n_slots=2, engine_devices=(
-                torch.device("cpu", 0), torch.device("cpu", 1)))),
+                torch.device("cpu", 0), torch.device("cpu", 9)))),
     }
     out["errors"] = errors
 
@@ -496,11 +496,7 @@ def mesh_planes(rank, world, case: dict) -> dict:
     under the mesh (tests/test_torch_mesh_planes.py): speculation, the
     dedicated lanes (per slot and batched), the host tier and int8 KV on
     both layouts, with each rank's shard of each plane's state, then
-    supervision and the 9d refusals."""
-    from client_tpu_torch.models.decoder_lm import (
-        make_continuous_generator,
-        make_replica_fleet,
-    )
+    supervision."""
     from client_tpu_torch.server.speculation import DraftModel
 
     mesh = make_mesh({"dp": 2, "tp": 2}, device="cpu")
@@ -568,20 +564,6 @@ def mesh_planes(rank, world, case: dict) -> dict:
                                      lambda e: _concurrent(e, jobs))
     out["shards"] = shards
 
-    # the 9d refusals: a fleet under a mesh, a replica over two devices
-    two = (torch.device("cpu", 0), torch.device("cpu", 1))
-    out["errors_9d"] = {
-        "fleet": _err(lambda: make_continuous_generator(
-            cfg=tiny, params=tparams, n_slots=4, mesh=mesh, fleet=2)),
-        "fleet_replica": _err(lambda: make_replica_fleet(
-            cfg=tiny, params=tparams, n_slots=4, mesh=mesh, replicas=2)),
-        "replica_devices": _err(lambda: make_continuous_generator(
-            cfg=tiny, params=tparams, device="cpu", fleet=2,
-            replica_devices=[two, None])),
-        "replica_devices_fleet": _err(lambda: make_replica_fleet(
-            cfg=tiny, params=tparams, device="cpu", replicas=2,
-            replica_devices=[two, None])),
-    }
     out["supervision"] = _supervised(rank, mesh, tiny, tparams, jobs[:2])
     return out
 
@@ -618,4 +600,255 @@ def one_rank_mesh_planes(rank, world, kw: dict, plane: str) -> list:
             eng.stop()
         out.append({"streams": streams,
                     "rounds": None if spec is None else spec["rounds"]})
+    return out
+
+
+# ------------------------------------------------ replica fleets on ranks
+#
+# Rank bodies of tests/test_torch_fleet_mesh.py: fleets whose replicas
+# shard over the ranks, rank 0 routing and driving every replica through
+# the fleet's one plan channel, the other ranks following.
+
+
+def _fleet_run(rank: int, build, drive) -> dict:
+    """Rank 0 builds the fleet model (``build()``), runs ``drive(model)``
+    and shuts the fleet down; every other rank builds it and follows
+    until then. Each rank returns what it saw: ``drive``'s result (rank
+    0), the (replica, op) plans its channel carried from the first, its
+    followed rows, and each first replica's shard as its first
+    ``_op_ready`` left it."""
+    from client_tpu_torch.parallel.spmd import FleetChannel
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+
+    shards = {}
+    ready, channel = (ContinuousBatchingEngine._op_ready,
+                      FleetChannel.__init__)
+
+    def spy(eng):
+        ready(eng)
+        idx = int(eng.name.rsplit("/r", 1)[1])
+        if idx < first and idx not in shards:
+            shards[idx] = {
+                "member": eng._shard,
+                "pool": ("pool" in eng._dev
+                         and tuple(eng._dev["pool"]["k"].shape)),
+                "pos": "pos" in eng._dev and tuple(eng._dev["pos"].shape),
+                "wqkv": ("params" in eng._dev and tuple(
+                    eng._dev["params"]["layers"]["wqkv"].shape))}
+
+    def logged(chan, *a, **kw):
+        channel(chan, *a, **kw)
+        chan.log = []
+
+    ContinuousBatchingEngine._op_ready = spy
+    FleetChannel.__init__ = logged
+    result = None
+    try:
+        model = build()
+        fleet = model.fleet
+        first = fleet.config.replicas
+        if rank == 0:
+            try:
+                result = drive(model)
+            finally:
+                model.shutdown()
+        else:
+            model.follow()
+    finally:
+        ContinuousBatchingEngine._op_ready = ready
+        FleetChannel.__init__ = channel
+    return {"result": result, "log": list(fleet.plans.log),
+            "followed": dict(fleet.followed), "shards": shards}
+
+
+def _routed(fleet, jobs: list) -> dict:
+    """Each (prompt, budget, tenant) job routed and read to its end before
+    the next (the fleet idle in between): the tokens, the decisions and
+    each replica's counters."""
+    tokens = [list(fleet.submit(np.asarray(p, np.int32), b, tenant_id=t))
+              for p, b, t in jobs]
+    snap = fleet.fleet_snapshot()
+    return {"tokens": tokens,
+            "decisions": [{k: v for k, v in d.items() if k != "ns"}
+                          for d in snap["recent_decisions"]],
+            "counters": [(r["replica"], r["routed"], r["affinity_hits"],
+                          r["rerouted"]) for r in snap["rows"]]}
+
+
+def _subsets(model, case: dict) -> dict:
+    """The routed jobs over replicas on rank pairs, then a replica
+    attached past the declared subsets (the default placement: an
+    unsharded engine on rank 0) and the jobs again."""
+    fleet = model.fleet
+    first = _routed(fleet, case["fleet_jobs"])
+    idx = fleet.attach_replica()
+    eng = fleet.replicas[-1].engine
+    placed = {"idx": idx, "mesh": eng._mesh is not None,
+              "device": str(eng._device)}
+    return {"first": first, "attached": placed,
+            "second": _routed(fleet, case["fleet_jobs"])}
+
+
+def _lifecycle(model, case: dict) -> dict:
+    """Under the mesh, supervised: a drain of the replica a stream is on
+    while it runs, a rolling restart, an attach, an injected crash of
+    replica 1 (rebuilt by its supervisor), then every job once more."""
+    import threading
+
+    fleet = model.fleet
+    prompt, budget, tenant = case["fleet_jobs"][0]
+    failed, tokens = [], {}
+
+    def read(key, it):
+        try:
+            tokens[key] = list(it)
+        except Exception as e:  # noqa: BLE001 — counted as failed
+            failed.append((key, repr(e)))
+
+    it = fleet.submit(np.asarray(prompt, np.int32), 20, tenant_id=tenant)
+    on = fleet.fleet_snapshot()["recent_decisions"][-1]["replica"]
+    reader = threading.Thread(target=read, args=("mid_drain", it))
+    reader.start()
+    drained = fleet.drain(on)
+    reader.join(timeout=120)
+    restarted = fleet.rolling_restart()
+    attached = fleet.attach_replica(warm_prompt=np.zeros(4, np.int32))
+    inj = faultinject.get_injector()
+    inj.arm([{"point": "engine_loop", "times": 1,
+              "match": {"engine": f"{model.config.name}/r1"}}])
+    sup = fleet.replicas[1].sup
+    try:
+        fleet.replicas[1].engine.start()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not (
+                sup.restarts == 1 and sup.healthy()):
+            time.sleep(0.02)
+    finally:
+        inj.clear()
+    after = _routed(fleet, case["fleet_jobs"])
+    return {"mid_drain": tokens.get("mid_drain"), "drained": drained,
+            "on": on, "restarted": restarted, "attached": attached,
+            "failed": failed, "restarts": [
+                r.sup.restarts for r in fleet.replicas],
+            "after": after["tokens"], "replicas": len(fleet.replicas)}
+
+
+def _autoscaled(model, case: dict) -> dict:
+    """One controller step that attaches a replica under a held queue and
+    one that drains and detaches it once idle (the reference's scale 1 ->
+    2 -> 1 scenario)."""
+    import threading
+
+    fleet, ctl = model.fleet, model.autoscaler
+    gate = threading.Event()
+    inner = fleet.replicas[0].engine._dispatch
+
+    def gated(*a, **kw):
+        gate.wait(60)
+        return inner(*a, **kw)
+
+    fleet.replicas[0].engine._dispatch = gated
+    its = [fleet.submit(np.asarray(p, np.int32), b, tenant_id=t)
+           for p, b, t in case["fleet_jobs"][:4]]
+    steps = [ctl.step(), ctl.step()]
+    gate.set()
+    tokens = [list(it) for it in its]
+    end = time.monotonic() + 30
+    while time.monotonic() < end and any(
+            r.engine.load_depth() for r in fleet.replicas):
+        time.sleep(0.01)
+    steps += [ctl.step(), ctl.step()]
+    return {"steps": [[{k: v for k, v in d.items() if k != "ns"}
+                       for d in s] for s in steps],
+            "tokens": tokens, "replicas": [r.idx for r in fleet.replicas]}
+
+
+def _tiered(model, case: dict) -> dict:
+    """The routed jobs over slot-layout replicas with the prefix cache and
+    the host tier, each on a rank pair (replica 0 on ranks 2 and 3: rank
+    0 drives it without a shard), then the tier families one tenant after
+    another (cold prompts of one tenant go to one replica: more blocks
+    than its pool holds, so blocks spill) and the first family again (its
+    blocks come back from the tier), every dispatch's device time sampled
+    synchronously: each replica's tier counters, its store's block size,
+    its memory ledger and its sampled dispatches."""
+    fleet = model.fleet
+    jobs = _routed(fleet, case["fleet_jobs"])["tokens"]
+    fams = [np.asarray(f, np.int32) for f in case["tier_families"]]
+    families = [list(fleet.submit(f, 5, tenant_id="acme"))
+                for f in fams + fams[:1]]
+    reps = []
+    for r in fleet.replicas:
+        idx = r.engine._kv_index
+        tier = idx.tier_snapshot() or {"spills": 0, "restores": 0}
+        gp = r.engine.goodput
+        reps.append({"spills": tier["spills"], "restores": tier["restores"],
+                     "block_nbytes": idx.tier.block_nbytes
+                     if idx.tier is not None else 0,
+                     "memory": r.engine.runtime_snapshot()["memory"],
+                     "sampled": gp.snapshot()["sampled_total"],
+                     "blocks": gp.event_blocks})
+    return {"jobs": jobs, "families": families, "replicas": reps}
+
+
+def _gloo_indices() -> dict:
+    """Integer device indices resolved on gloo ranks while the process
+    sees cards (``torch.cuda.device_count`` stubbed to 2): each subset's
+    ranks and device type, and a one-index subset's device."""
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+
+    resolve = ContinuousBatchingEngine.resolve_engine_devices
+    real = torch.cuda.device_count
+    torch.cuda.device_count = lambda: 2
+    try:
+        out = {}
+        for devs in ((0, 1), (2, 3), (3, 0)):
+            m = resolve(devs)
+            out[str(devs)] = (m.mesh.flatten().tolist(), m.device_type)
+        out["(1,)"] = str(resolve((1,)))
+        return out
+    finally:
+        torch.cuda.device_count = real
+
+
+def mesh_fleet(rank, world, case: dict) -> dict:
+    """4 gloo ranks (tests/test_torch_fleet_mesh.py): a 2-replica fleet
+    under dp2 x tp2, a fleet over the rank pairs (0, 1) and (2, 3) with a
+    replica attached past them, a slot-layout fleet with the host tier
+    over the pairs (2, 3) and (0, 1), a supervised fleet's lifecycle
+    under the mesh, and an autoscaled fleet under the mesh."""
+    from client_tpu_torch.models.decoder_lm import (
+        make_continuous_generator,
+        make_replica_fleet,
+    )
+
+    spmd.HEARTBEAT_S = 0.5
+    tiny = cfg_of(case["tiny"])
+    tparams = tt.params_from_jax(case["tiny_params"], "cpu", torch.float32)
+    knobs = case["fleet_knobs"]
+    mesh = make_mesh({"dp": 2, "tp": 2}, device="cpu")
+    out = {"indices": _gloo_indices()}
+    out["mesh"] = _fleet_run(rank, lambda: make_continuous_generator(
+        "fm_lm", cfg=tiny, params=tparams, mesh=mesh, fleet=2, **knobs),
+        lambda m: _routed(m.fleet, case["fleet_jobs"]))
+    out["subsets"] = _fleet_run(rank, lambda: make_replica_fleet(
+        "fs_lm", replicas=2, cfg=tiny, params=tparams, device="cpu",
+        replica_devices=[(0, 1), (2, 3)], **knobs),
+        lambda m: _subsets(m, case))
+    out["tier"] = _fleet_run(rank, lambda: make_replica_fleet(
+        "ft_lm", replicas=2, cfg=tiny, params=tparams, device="cpu",
+        replica_devices=[(2, 3), (0, 1)], n_slots=2, chunk_size=4,
+        max_new_tokens=6, prefix_cache=True, prefix_blocks=4,
+        prefix_block_len=8, host_tier_bytes=1 << 20,
+        device_time_sample_every=1),
+        lambda m: _tiered(m, case))
+    out["lifecycle"] = _fleet_run(rank, lambda: make_replica_fleet(
+        "fl_lm", replicas=2, cfg=tiny, params=tparams, mesh=mesh,
+        supervision={"backoff_base_s": 0.05, "max_failures": 3,
+                     "window_s": 300.0}, **knobs),
+        lambda m: _lifecycle(m, case))
+    out["autoscale"] = _fleet_run(rank, lambda: make_replica_fleet(
+        "fa_lm", replicas=1, cfg=tiny, params=tparams, mesh=mesh,
+        autoscale=case["autoscale"], **knobs),
+        lambda m: _autoscaled(m, case))
     return out
