@@ -478,6 +478,38 @@ each printing one JSON line:
              Replicas over more than one card need at least two cards
              (NCCL holds one rank per card): the tests run them on gloo
              ranks on the CPU.
+25. native   the port's native C++ stack (ROADMAP 10): (a) prints which
+             of g++, nvcc, protoc, protobuf's headers and library and
+             cmake are here, builds client_tpu_torch/native at first use
+             (client_tpu_torch._native: g++ and nvcc, no cmake) and prints
+             the seconds per target group; without protobuf the gRPC
+             targets are skipped, and a line says so; without g++ or nvcc
+             the phase fails. (b) The DIRECT model library on the card
+             (libdirect_models_cuda.so: H2D, D1's hand-written kernel, D2H)
+             held bit for bit against the CPU library
+             (libdirect_models_cpu.so) and against torch's add/sub/copy on
+             the card, for add_sub, add_sub_fp32 and identity at the 16
+             elements perf_analyzer drives (and at 2^20, timed), its
+             launch counter risen; D1's ``device_ms`` is its kernels' own
+             mean duration over torch.profiler's records of 100 calls in
+             this process (``device_records`` of them kept; null where it
+             keeps none), its ``ms`` the CUDA events the library brackets
+             the kernel with; then ``perf_analyzer -i direct`` on each
+             model, the card's library and the CPU one in turns, each
+             run's infer/s and p50/p99, and D1's launches in the card
+             runs (the library's launch log, zeroed by each new process).
+             (c) The BERT-base encoder (K1) behind TorchInferenceServer and
+             the HTTP front end in this process, driven from a process of
+             its own by the native perf_analyzer over CUDA shm with seeded
+             ids in [0, 127) (--input-data), then by ``python -m
+             client_tpu_torch.perf`` at the same arguments (the client
+             phase's window, concurrency and trials): no failed inference,
+             the server's inferences at least the report's request count
+             and its window count at most 2 x the concurrency above it, every
+             region a CrossProcessAttachment, K1 12 per batch and above 0;
+             each client's infer/s, p50/p99 and host CPU us per inference;
+             then simple_http_cudashm_client (and the gRPC one where
+             protobuf is) against add_sub, exit 0 and PASS.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -4392,7 +4424,7 @@ def _client_process(args: dict) -> int:
 
 
 _PERF_PATTERNS = {
-    "client_infer_per_s": r"Throughput: ([\d.]+) infer/sec",
+    "client_infer_per_s": r"Throughput: ([\d.e+]+) infer/sec",
     "request_count": r"Request count: (\d+)",
     "p50_us": r"p50 latency: (\d+) usec",
     "p99_us": r"p99 latency: (\d+) usec",
@@ -4400,19 +4432,23 @@ _PERF_PATTERNS = {
     "server_execution_count": r"Execution count: (\d+)",
     "server_completions_per_s": r"Inferences/sec: ([\d.]+)",
     "client_rejected": r"Rejected count \(client\): (\d+)",
+    # the native perf_analyzer's report
+    "server_window_inference_count": r"Server inference count: (\d+)",
 }
 
 
-def _perf_cli(core, url: str, extra: list) -> dict:
-    """One ``python -m client_tpu_torch.perf`` run against the encoder
-    over HTTP with CUDA shm regions, in its own process: the report's
-    numbers, the server's inferences and failures over the whole run, and
-    the CLI process's host (CPU) µs per server inference over the whole
-    run, its start (imports, the CUDA context, the regions) included."""
+def _perf_cli(core, url: str, extra: list, prog=None) -> dict:
+    """One ``python -m client_tpu_torch.perf`` run (``prog``: another
+    analyzer's command, the native one's) against the encoder over HTTP
+    with CUDA shm regions, in its own process: the report's numbers, the
+    server's inferences and failures over the whole run, and the CLI
+    process's host (CPU) µs per server inference over the whole run, its
+    start (imports, the CUDA context, the regions) included."""
     import re
     import resource
 
-    cmd = [sys.executable, "-m", "client_tpu_torch.perf", "-m", "bert_base",
+    prog = prog or [sys.executable, "-m", "client_tpu_torch.perf"]
+    cmd = [*prog, "-m", "bert_base",
            "-u", url, "-i", "http", "--shared-memory", "cuda",
            "-p", str(CLIENT_PERF_MS), "-r", str(CLIENT_PERF_TRIALS),
            *(["--device", CLIENT_DEVICE] if CLIENT_DEVICE else []), *extra]
@@ -4426,7 +4462,7 @@ def _perf_cli(core, url: str, extra: list) -> dict:
     s1 = _stats(core, "bert_base")
     if out.returncode != 0:
         fail(f"client: {' '.join(cmd[1:])} exited {out.returncode}: "
-             f"{out.stderr[-2000:]}")
+             f"{out.stdout[-1000:]}{out.stderr[-2000:]}")
     nums = {}
     for key, pat in _PERF_PATTERNS.items():
         m = re.search(pat, out.stdout)
@@ -4437,7 +4473,7 @@ def _perf_cli(core, url: str, extra: list) -> dict:
     failed = (s1["inference_stats"]["fail"]["count"]
               - s0["inference_stats"]["fail"]["count"])
     cpu = (r1.ru_utime + r1.ru_stime) - (r0.ru_utime + r0.ru_stime)
-    return {"args": cmd[4:], **nums,
+    return {"args": cmd[len(prog):], **nums,
             "p50_ms": nums["p50_us"] / 1e3, "p99_ms": nums["p99_us"] / 1e3,
             "mean_batch_size": (nums["server_inference_count"]
                                 / nums["server_execution_count"]
@@ -7045,6 +7081,329 @@ def phase_fleet_mesh(env: dict) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- native
+
+# the DIRECT models' elements as perf_analyzer drives them, and a size that
+# prices D1 against the card's memory rate
+NATIVE_DIRECT_N = 16
+NATIVE_DIRECT_BIG = 1 << 20
+NATIVE_DIRECT_CALLS = 200
+NATIVE_DIRECT_MODELS = ("add_sub", "add_sub_fp32", "identity")
+NATIVE_DIRECT_PERF = ["--concurrency-range", "2", "-p", "500", "-s", "90",
+                      "-r", "3"]
+# float32 outside the tensor cores (the guide's table; it has no int32
+# rate, and int32 add/sub is counted at the same)
+FP32_PEAK = 67e12
+NATIVE_TARGETS = ["perf_analyzer", "libdirect_models_cpu.so",
+                  "libdirect_models_cuda.so", "simple_http_cudashm_client"]
+# D1's kernels as torch.profiler names them, by launch counter
+D1_KERNEL_NAMES = {"add_sub": "AddSubKernel", "copy": "CopyKernel"}
+
+
+def _native_build() -> tuple:
+    """(a): the tools here, then the native targets the phase runs."""
+    from client_tpu_torch import _native
+
+    tools = _native.toolchain()
+    emit({"phase": "native_tools", **{
+        k: tools[k] for k in ("g++", "g++_version", "nvcc", "nvcc_version",
+                              "protoc", "protobuf_missing", "cmake")}})
+    if tools["g++"] is None or tools["nvcc"] is None:
+        fail(f"native: g++ {tools['g++']}, nvcc {tools['nvcc']}: the "
+             "native tree needs both")
+    names = list(NATIVE_TARGETS)
+    if tools["protobuf_missing"]:
+        print("native: the gRPC targets are skipped: protobuf's "
+              + ", ".join(tools["protobuf_missing"]) + " not found",
+              flush=True)
+    else:
+        names.append("simple_grpc_cudashm_client")
+    timings: dict = {}
+    t0 = time.time()
+    paths = _native.build(names, timings=timings)
+    return paths, {"seconds": time.time() - t0, "seconds_by_group": timings,
+                   "dir": str(_native.build_dir()), "targets": names}
+
+
+def _direct_inputs(model: str, n: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(1 if model == "identity" else 2):
+        out[f"INPUT{i}"] = (rng.standard_normal(n).astype(np.float32)
+                            if model == "add_sub_fp32" else
+                            rng.integers(-2**30, 2**30, n).astype(np.int32))
+    return out
+
+
+def _direct_torch(model: str, inputs: dict) -> dict:
+    """The same function through torch on the card."""
+    a = torch.from_numpy(inputs["INPUT0"]).cuda()
+    if model == "identity":
+        return {"OUTPUT0": a.clone().cpu().numpy()}
+    b = torch.from_numpy(inputs["INPUT1"]).cuda()
+    return {"OUTPUT0": (a + b).cpu().numpy(),
+            "OUTPUT1": (a - b).cpu().numpy()}
+
+
+def _d1_device_ms(fn, kernel: str, iters: int = 100) -> tuple:
+    """D1's device time per call of ``fn`` (one DirectModelInfer, one
+    launch of ``kernel``): the mean duration of the kernel records
+    torch.profiler takes of it in this process, the copies around it left
+    out; and the number of records. The profiler may drop some of a
+    window's records (it has beside other launching threads), so the mean
+    is over those it kept; (None, 0) where it kept none in three windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    name = D1_KERNEL_NAMES[kernel]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        records = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in records)
+        if count:
+            return (sum(e.self_device_time_total for e in records)
+                    / count / 1e3, count)
+    return None, 0
+
+
+def _direct_case(cpu, gpu, model: str, n: int, seed: int) -> dict:
+    """One model at ``n`` elements: bit-equality against the CPU library
+    and torch, then NATIVE_DIRECT_CALLS timed calls of each library (the
+    card's kernel time from its CUDA events, its host time per call) and
+    D1's device time from the profiler's kernel records."""
+    inputs = _direct_inputs(model, n, seed)
+    kernel = "copy" if model == "identity" else "add_sub"
+    name = f"{model}:{n}"
+    with cpu.model(name) as c, gpu.model(name) as g:
+        want = c.infer(inputs)
+        before = gpu.launches(kernel)
+        got = g.infer(inputs)
+        rose = gpu.launches(kernel) - before
+        ref = _direct_torch(model, inputs)
+        errs = [float(np.max(np.abs(got[k].astype(np.float64)
+                                    - want[k].astype(np.float64))))
+                for k in want]
+        equal = (set(got) == set(want) == set(ref) and all(
+            got[k].tobytes() == want[k].tobytes() == ref[k].tobytes()
+            for k in want))
+        g0, c0 = g.stats()["inference_stats"], c.stats()["inference_stats"]
+        t0 = time.perf_counter()
+        for _ in range(NATIVE_DIRECT_CALLS):
+            g.infer(inputs)
+        host_us = (time.perf_counter() - t0) / NATIVE_DIRECT_CALLS * 1e6
+        for _ in range(NATIVE_DIRECT_CALLS):
+            c.infer(inputs)
+        g1, c1 = g.stats()["inference_stats"], c.stats()["inference_stats"]
+        device, records = _d1_device_ms(lambda: g.infer(inputs), kernel)
+
+    def per_call_ms(a, b, key):
+        return (b[key]["ns"] - a[key]["ns"]) / NATIVE_DIRECT_CALLS / 1e6
+
+    n_in, n_out = len(inputs), len(want)
+    return {"model": model, "elements": n, "kernel": kernel,
+            "bit_equal": equal, "launches_rose": rose, "max_abs_err":
+            max(errs), "ms": per_call_ms(g0, g1, "compute_infer"),
+            "device_ms": device, "device_records": records,
+            "h2d_ms": per_call_ms(g0, g1, "compute_input"),
+            "d2h_ms": per_call_ms(g0, g1, "compute_output"),
+            "host_us_per_call": host_us,
+            "plain_ms": per_call_ms(c0, c1, "compute_infer"),
+            "bytes": 4 * n * (n_in + n_out),
+            "ops": 0 if model == "identity" else 2 * n}
+
+
+def _direct_perf(paths: dict, log_dir: str) -> list:
+    """perf_analyzer -i direct on each model, the card's library and the
+    CPU one in turns; the card runs' D1 launches from the library's
+    launch log (each process starts at 0)."""
+    import re
+
+    runs = []
+    for model in NATIVE_DIRECT_MODELS:
+        for lib in ("libdirect_models_cuda.so", "libdirect_models_cpu.so"):
+            log = os.path.join(log_dir, f"{model}-{lib}.jsonl")
+            env = dict(os.environ, CLIENT_TPU_TORCH_DIRECT_LAUNCH_LOG=log)
+            args = [str(paths["perf_analyzer"]), "-m", model, "-i", "direct",
+                    *([] if lib.endswith("cuda.so") else
+                      ["-u", str(paths[lib])]), *NATIVE_DIRECT_PERF]
+            out = subprocess.run(args, capture_output=True, text=True,
+                                 timeout=120, env=env)
+            if out.returncode != 0:
+                fail(f"native: {' '.join(args[1:])} exited "
+                     f"{out.returncode}: {out.stdout[-1500:]}"
+                     f"{out.stderr[-1500:]}")
+            nums = {}
+            for key in ("client_infer_per_s", "request_count", "p50_us",
+                        "p99_us", "server_window_inference_count"):
+                m = re.search(_PERF_PATTERNS[key], out.stdout)
+                nums[key] = float(m.group(1)) if m else None
+            launches = {"add_sub": 0, "copy": 0}
+            if os.path.exists(log):
+                with open(log) as f:
+                    for line in f:
+                        for k, v in json.loads(line).items():
+                            launches[k] += v
+            runs.append({"model": model, "library": lib, **nums,
+                         "launches": launches,
+                         "stabilized": "did not stabilize" not in out.stdout})
+    return runs
+
+
+def _native_encoder(paths: dict, tmp: str) -> dict:
+    """(c): the encoder behind this process's server, driven by the native
+    perf_analyzer, then the Python perf CLI, over CUDA shm; then the
+    cudashm examples against add_sub."""
+    from client_tpu_torch.models import make_add_sub
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.perf.bench_harness import build_bert_encoder
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server.http_server import HttpInferenceServer
+
+    seq, bucket = 128, 256
+    model = build_bert_encoder(seq, bucket, attn_impl="flash",
+                               params_cache={}, seed=0)
+    core = TorchInferenceServer()
+    core.register_model(model, warmup=True)
+    core.register_model(make_add_sub(device=CLIENT_DEVICE))
+    kinds: dict = {}
+    register = core.cuda_shm.register
+
+    def recording(name, raw_handle, device_id, byte_size):
+        register(name, raw_handle, device_id, byte_size)
+        kinds[name] = type(core.cuda_shm.try_attachment(name)).__name__
+
+    core.cuda_shm.register = recording
+    data = os.path.join(tmp, "bert_ids.json")
+    rng = np.random.default_rng(CLIENT_SEED)
+    with open(data, "w") as f:
+        json.dump({"data": [{"input_ids": rng.integers(0, 127, seq).tolist()}
+                            for _ in range(16)]}, f)
+    extra = ["--concurrency-range", str(CLIENT_PERF_CONCURRENCY),
+             "--input-data", data]
+    grpc = "simple_grpc_cudashm_client" in paths
+    http = HttpInferenceServer(core, port=0).start()
+    grpc_srv = None
+    if grpc:   # grpcio only where the C++ gRPC example was built
+        from client_tpu_torch.server.grpc_server import GrpcInferenceServer
+        grpc_srv = GrpcInferenceServer(core, port=0).start()
+    runs, examples = [], {}
+    try:
+        for label, prog in (("native", [str(paths["perf_analyzer"])]),
+                            ("python", None)):
+            kinds.clear()
+            e0 = _stats(core, "bert_base")["execution_count"]
+            fa.launches = 0
+            run = _perf_cli(core, http.url, extra, prog=prog)
+            run["flash_attention_launches"] = fa.launches
+            run["batches"] = _stats(core, "bert_base")["execution_count"] - e0
+            run["attachments"] = sorted(set(kinds.values()))
+            run["client"] = label
+            runs.append(run)
+        device = ["--device", CLIENT_DEVICE] if CLIENT_DEVICE else []
+        for proto, url in (("http", http.url),
+                           *((("grpc", f"localhost:{grpc_srv.port}"),)
+                             if grpc else ())):
+            out = subprocess.run(
+                [str(paths[f"simple_{proto}_cudashm_client"]), "-u",
+                 url.split("//")[-1], *device],
+                capture_output=True, text=True, timeout=60)
+            examples[proto] = {"rc": out.returncode,
+                               "pass": "PASS" in out.stdout,
+                               "tail": (out.stdout + out.stderr)[-400:]}
+    finally:
+        http.stop()
+        if grpc_srv is not None:
+            grpc_srv.stop()
+        core.stop()
+    return {"runs": runs, "examples": examples}
+
+
+def phase_native(env: dict, peaks: tuple) -> dict:
+    """The native C++ stack (ROADMAP 10) on the card: see the module
+    docstring."""
+    import tempfile
+
+    from client_tpu_torch._native.direct import DirectLibrary
+
+    paths, build = _native_build()
+    cpu = DirectLibrary(paths["libdirect_models_cpu.so"])
+    gpu = DirectLibrary(paths["libdirect_models_cuda.so"])
+    cases = [_direct_case(cpu, gpu, m, n, seed)
+             for seed, m in enumerate(NATIVE_DIRECT_MODELS)
+             for n in (NATIVE_DIRECT_N, NATIVE_DIRECT_BIG)]
+    for c in cases:
+        c.update(bound(c["bytes"], c["ops"], (peaks[0], FP32_PEAK)))
+        c["bound_share"] = c["bound_ms"] / c["ms"] if c["ms"] else None
+    with tempfile.TemporaryDirectory() as tmp:
+        direct_runs = _direct_perf(paths, tmp)
+        encoder = _native_encoder(paths, tmp)
+    checks = {}
+    for c in cases:
+        tag = f"{c['model']}_{c['elements']}"
+        checks[f"{tag}_bit_equal"] = c["bit_equal"]
+        checks[f"{tag}_launch_counted"] = c["launches_rose"] == 1
+    for r in direct_runs:
+        tag = f"direct_{r['model']}_{r['library'].split('_')[-1][:-3]}"
+        checks[f"{tag}_report"] = bool(r["client_infer_per_s"]) \
+            and r["request_count"] and r["p99_us"] is not None
+        if r["library"].endswith("cuda.so"):
+            kernel = "copy" if r["model"] == "identity" else "add_sub"
+            checks[f"{tag}_launches"] = (
+                r["launches"][kernel] >= r["request_count"] > 0)
+    for run in encoder["runs"]:
+        tag = run["client"]
+        checks[f"{tag}_no_failure"] = (not run["run_failed_requests"]
+                                       and not run["client_rejected"])
+        checks[f"{tag}_served"] = (run["run_server_inferences"]
+                                   >= run["request_count"] > 0)
+        checks[f"{tag}_cross_process"] = run["attachments"] == [
+            "CrossProcessAttachment"]
+        checks[f"{tag}_k1"] = (run["flash_attention_launches"]
+                               == LAYERS * run["batches"] > 0)
+    # the server counts every request it completed between the window's
+    # two snapshots, the report only those wholly inside: at most the
+    # ones in flight across each edge more
+    native = encoder["runs"][0]
+    checks["native_window_count"] = 0 <= (
+        native["server_window_inference_count"] - native["request_count"]) \
+        <= 2 * CLIENT_PERF_CONCURRENCY
+    for proto, ex in encoder["examples"].items():
+        checks[f"example_{proto}"] = ex["rc"] == 0 and ex["pass"]
+    d1 = {}
+    for kernel, model in (("add_sub", "add_sub"), ("copy", "identity")):
+        main = next(c for c in cases if c["model"] == model
+                    and c["elements"] == NATIVE_DIRECT_N)
+        lib_ms = None
+        if kernel == "copy":
+            a = torch.from_numpy(_direct_inputs(model, NATIVE_DIRECT_N, 0)[
+                "INPUT0"]).cuda()
+            dst = torch.empty_like(a)
+            lib_ms = time_ms(lambda: dst.copy_(a), iters=200)
+        d1[kernel] = {
+            "max_abs_err": max(c["max_abs_err"] for c in cases
+                               if c["kernel"] == kernel),
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "host_us_per_call": main["host_us_per_call"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": lib_ms,
+            "launches": sum(r["launches"][kernel] for r in direct_runs)}
+    result = {"phase": "native", "card": env["nvidia_smi"], "build": build,
+              "direct_cases": cases, "direct_perf": direct_runs,
+              "encoder_perf": encoder["runs"],
+              "examples": encoder["examples"], "checks": checks, "d1": d1,
+              "flash_attention_launches": sum(
+                  r["flash_attention_launches"] for r in encoder["runs"])}
+    emit(result)
+    if not all(checks.values()):
+        fail(f"native: {[k for k, v in checks.items() if not v]}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -7088,6 +7447,7 @@ def main() -> int:
     train = timed("train", phase_train, env, peaks)
     mesh = timed("mesh", phase_mesh, env)
     fleet_mesh = timed("fleet_mesh", phase_fleet_mesh, env)
+    native = timed("native", phase_native, env, peaks)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -7114,7 +7474,8 @@ def main() -> int:
                 "flash_attention_launches"],
             client=client["flash_attention_launches"],
             train=train["flash_attention_launches"],
-            mesh=mesh["flash_attention_launches"]),
+            mesh=mesh["flash_attention_launches"],
+            native=native["flash_attention_launches"]),
         row("paged_decode_attention",
             "client_tpu_torch/ops/csrc/paged_attention.cu",
             "client_tpu/ops/paged_attention.py:52",
@@ -7164,6 +7525,14 @@ def main() -> int:
                for k, arm in enumerate(fleet_mesh["runs"])
                for rep, n in sorted(arm[
                    "paged_decode_attention_launches_by_replica"].items())}),
+        # D1: the DIRECT library's kernels, no Pallas port: they stand in
+        # for the StableHLO programs the JAX package's device-backed
+        # library compiles through PJRT
+        *(row(f"direct_{k}",
+              "client_tpu_torch/native/src/direct_models_cuda.cu",
+              "native/src/direct_models_pjrt.cc:207", d["launches"], d,
+              native_direct=d["launches"])
+          for k, d in native["d1"].items()),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

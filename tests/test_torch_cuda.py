@@ -38,7 +38,9 @@ paged engine killed mid-stream and rebuilt on the card serves the same
 tokens through K2, and the dead engine's device state is freed. The
 goodput plane: a sampled dispatch waits on a CUDA event recorded on its
 own stream, never on ``torch.cuda.synchronize()``, and a generator on the
-card registers the MFU pair with the card's peak.
+card registers the MFU pair with the card's peak. The native stack: the
+DIRECT model library's kernels (D1, ``libdirect_models_cuda.so``)
+bit-equal to the CPU library at 1, 16 and 2^20 elements.
 """
 
 import dataclasses
@@ -1419,3 +1421,48 @@ def test_one_rank_nccl_mesh_planes_decode_as_the_unsharded_one(card, kw,
     assert mesh["streams"] == plain["streams"]
     if plane == "spec":
         assert mesh["rounds"] > 0 and mesh["rounds"] == plain["rounds"]
+
+
+@pytest.mark.parametrize("size", [1, 16, 1 << 20])
+@pytest.mark.parametrize("model", ["add_sub", "add_sub_fp32", "identity"])
+def test_direct_cuda_library_bit_equal_to_the_cpu_library(card, model, size):
+    """D1, the card's DIRECT library (libdirect_models_cuda.so: H2D, one
+    hand-written kernel, D2H), gives the CPU library's outputs and plain
+    torch's add, sub and copy on the card bit for bit on the same seeded
+    inputs, and its launch counter counts the kernel's launches."""
+    from client_tpu_torch import _native
+    from client_tpu_torch._native.direct import DirectLibrary
+
+    paths = _native.build(["libdirect_models_cpu.so",
+                           "libdirect_models_cuda.so"])
+    cpu = DirectLibrary(paths["libdirect_models_cpu.so"])
+    gpu = DirectLibrary(paths["libdirect_models_cuda.so"])
+    rng = np.random.default_rng(size)
+    inputs = {}
+    for i in range(1 if model == "identity" else 2):
+        inputs[f"INPUT{i}"] = (
+            rng.standard_normal(size).astype(np.float32)
+            if model == "add_sub_fp32"
+            else rng.integers(-2**31, 2**31, size, dtype=np.int64)
+            .astype(np.int32))   # int32 add/sub wrap on both
+    name = f"{model}:{size}"
+    kernel = "copy" if model == "identity" else "add_sub"
+    with cpu.model(name) as c, gpu.model(name) as g:
+        want = c.infer(inputs)
+        before = gpu.launches(kernel)
+        got = [g.infer(inputs) for _ in range(3)]
+        assert gpu.launches(kernel) == before + 3
+        assert g.stats()["inference_stats"]["compute_infer"]["count"] == 3
+    a = torch.from_numpy(inputs["INPUT0"]).cuda()
+    if model == "identity":
+        plain = {"OUTPUT0": a.clone()}
+    else:
+        b = torch.from_numpy(inputs["INPUT1"]).cuda()
+        plain = {"OUTPUT0": a + b, "OUTPUT1": a - b}
+    plain = {k: v.cpu().numpy() for k, v in plain.items()}
+    assert set(plain) == set(want)
+    for out in got:
+        assert set(out) == set(want)
+        for k in want:
+            assert out[k].tobytes() == want[k].tobytes(), k
+            assert out[k].tobytes() == plain[k].tobytes(), k
