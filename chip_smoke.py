@@ -510,6 +510,39 @@ each printing one JSON line:
              each client's infer/s, p50/p99 and host CPU us per inference;
              then simple_http_cudashm_client (and the gRPC one where
              protobuf is) against add_sub, exit 0 and PASS.
+26. examples the port's example clients (ROADMAP 6b, 6d): grpcio and
+             protobuf must be importable (find_spec printed if not); the
+             port's server on the card over HTTP and gRPC with the models
+             tests/test_examples.py registers and continuous_lm (the
+             generate phase's model, attn_impl="flash", paged layout);
+             every module of client_tpu_torch/examples runs as
+             ``python -m client_tpu_torch.examples.<name>`` in a process
+             of its own, as tests/test_examples.py runs the reference's
+             scripts, four at a time (those that change the server's
+             state, EXAMPLE_SERIAL, one after another at the end): exit 0
+             and PASS (device_hub: its event), seconds each. Then simple_grpc_generate_client ``-m continuous_lm
+             -n 32`` on the first 3 of bench.py's ragged jobs' prompts: 32
+             in-vocab tokens each, teacher-forced through the plain path as
+             in generate (GREEDY_GAP), K2 (counters zeroed just before)
+             12 x 16 per chunk dispatch, K1 0, the engine's TTFT per
+             stream. Where a JDK is, the port's Java tree compiled and
+             SimpleInferClient and SimpleCudaShmClient (a region made here
+             on the card) run against the server; a missing JDK is
+             reported, not failed.
+27. install  client_tpu_torch._native.install() into a temporary prefix
+             from the card's build: the layout; D1 through the installed
+             libraries bit-equal to the CPU library and torch (launch
+             counted), and the installed bin/perf_analyzer's ``-i direct``
+             with no -u (it finds lib/libdirect_models_cuda.so) on each
+             model, D1's launches from the library's log; the BERT-base
+             encoder over CUDA shm driven by the installed perf_analyzer
+             and then the in-tree one at the native phase's settings (no
+             failed request, K1 12 per batch, cross-process regions),
+             infer/s of each; where cmake is, a find_package(ClientTpuTorch)
+             consumer builds the port's simple_http_infer_client.cc
+             against ClientTpuTorch::httpclient_tpu_torch_static and runs
+             it against add_sub on the same server (PASS); whether cmake
+             was found is printed.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -7217,15 +7250,18 @@ def _direct_case(cpu, gpu, model: str, n: int, seed: int) -> dict:
             "ops": 0 if model == "identity" else 2 * n}
 
 
-def _direct_perf(paths: dict, log_dir: str) -> list:
-    """perf_analyzer -i direct on each model, the card's library and the
-    CPU one in turns; the card runs' D1 launches from the library's
-    launch log (each process starts at 0)."""
+def _direct_perf(paths: dict, log_dir: str,
+                 libs=("libdirect_models_cuda.so",
+                       "libdirect_models_cpu.so")) -> list:
+    """perf_analyzer -i direct on each model, the card's library (the
+    analyzer's default: no -u) and the CPU one in turns; the card runs'
+    D1 launches from the library's launch log (each process starts at
+    0)."""
     import re
 
     runs = []
     for model in NATIVE_DIRECT_MODELS:
-        for lib in ("libdirect_models_cuda.so", "libdirect_models_cpu.so"):
+        for lib in libs:
             log = os.path.join(log_dir, f"{model}-{lib}.jsonl")
             env = dict(os.environ, CLIENT_TPU_TORCH_DIRECT_LAUNCH_LOG=log)
             args = [str(paths["perf_analyzer"]), "-m", model, "-i", "direct",
@@ -7254,10 +7290,13 @@ def _direct_perf(paths: dict, log_dir: str) -> list:
     return runs
 
 
-def _native_encoder(paths: dict, tmp: str) -> dict:
+def _native_encoder(paths: dict, tmp: str, clients=None,
+                    examples: bool = True, around=None) -> dict:
     """(c): the encoder behind this process's server, driven by the native
-    perf_analyzer, then the Python perf CLI, over CUDA shm; then the
-    cudashm examples against add_sub."""
+    perf_analyzer, then the Python perf CLI, over CUDA shm (``clients``:
+    other (label, command) pairs, None for the Python CLI); then the
+    cudashm examples against add_sub (unless ``examples`` is False), and
+    ``around(url)`` where given, with the server still up."""
     from client_tpu_torch.models import make_add_sub
     from client_tpu_torch.ops import flash_attention as fa
     from client_tpu_torch.perf.bench_harness import build_bert_encoder
@@ -7291,10 +7330,11 @@ def _native_encoder(paths: dict, tmp: str) -> dict:
     if grpc:   # grpcio only where the C++ gRPC example was built
         from client_tpu_torch.server.grpc_server import GrpcInferenceServer
         grpc_srv = GrpcInferenceServer(core, port=0).start()
-    runs, examples = [], {}
+    runs, ran = [], {}
+    clients = clients or (("native", [str(paths["perf_analyzer"])]),
+                          ("python", None))
     try:
-        for label, prog in (("native", [str(paths["perf_analyzer"])]),
-                            ("python", None)):
+        for label, prog in clients:
             kinds.clear()
             e0 = _stats(core, "bert_base")["execution_count"]
             fa.launches = 0
@@ -7308,19 +7348,22 @@ def _native_encoder(paths: dict, tmp: str) -> dict:
         for proto, url in (("http", http.url),
                            *((("grpc", f"localhost:{grpc_srv.port}"),)
                              if grpc else ())):
+            if not examples:
+                break
             out = subprocess.run(
                 [str(paths[f"simple_{proto}_cudashm_client"]), "-u",
                  url.split("//")[-1], *device],
                 capture_output=True, text=True, timeout=60)
-            examples[proto] = {"rc": out.returncode,
-                               "pass": "PASS" in out.stdout,
-                               "tail": (out.stdout + out.stderr)[-400:]}
+            ran[proto] = {"rc": out.returncode,
+                          "pass": "PASS" in out.stdout,
+                          "tail": (out.stdout + out.stderr)[-400:]}
+        extra_out = around(http.url.split("//")[-1]) if around else None
     finally:
         http.stop()
         if grpc_srv is not None:
             grpc_srv.stop()
         core.stop()
-    return {"runs": runs, "examples": examples}
+    return {"runs": runs, "examples": ran, "around": extra_out}
 
 
 def phase_native(env: dict, peaks: tuple) -> dict:
@@ -7404,6 +7447,370 @@ def phase_native(env: dict, peaks: tuple) -> dict:
     return result
 
 
+# ------------------------------- the example clients (ROADMAP 6b, 6d)
+
+# the port's example modules as tests/test_examples.py runs the
+# reference's scripts: (module, protocol of -u, extra arguments)
+EXAMPLE_RUNS = [
+    *((m, "http", []) for m in (
+        "simple_http_infer_client", "simple_http_explicit_infer_client",
+        "simple_http_async_infer_client", "simple_http_string_infer_client",
+        "simple_http_health_metadata", "simple_http_model_control",
+        "simple_http_sequence_sync_client", "simple_http_shm_client",
+        "simple_http_shm_string_client", "simple_http_cudashm_client",
+        "memory_growth_test", "ensemble_image_client")),
+    *((m, "grpc", []) for m in (
+        "simple_grpc_infer_client", "simple_grpc_async_infer_client",
+        "simple_grpc_string_infer_client", "simple_grpc_health_metadata",
+        "simple_grpc_keepalive_client", "simple_grpc_model_control",
+        "simple_grpc_sequence_sync_client",
+        "simple_grpc_sequence_stream_client",
+        "simple_grpc_custom_repeat_client", "simple_grpc_shm_client",
+        "simple_grpc_shm_string_client", "simple_grpc_cudashm_client",
+        "simple_grpc_generate_client", "grpc_client",
+        "grpc_explicit_int_content_client",
+        "grpc_explicit_int8_content_client",
+        "grpc_explicit_byte_content_client")),
+    ("grpc_image_client", "grpc", ["{img.jpg}"]),
+    ("image_client", "http", ["-c", "3"]),
+    ("image_client", "grpc", ["-i", "grpc"]),
+    ("base64_image_client", "http", ["{img.png}"]),
+    ("infer_classification_client", "http", ["-c", "5"]),
+    ("device_hub", "http", ["--events", "{events.jsonl}"]),
+    ("reuse_infer_objects_client", "http", ["-g", "{grpc}"]),
+]
+# simple_grpc_generate_client on continuous_lm: bench.py's first ragged
+# jobs' prompts, 32 tokens each
+EXAMPLE_GEN_PROMPTS, EXAMPLE_GEN_TOKENS = 3, 32
+# the examples run EXAMPLE_WORKERS at a time, but those that change the
+# server's state (shm regions, unregistering every one; a model's load;
+# the accumulator's sequences) one after another once the rest are done
+EXAMPLE_WORKERS = 4
+EXAMPLE_SERIAL = ("shm", "model_control", "sequence")
+
+
+def _example_inputs(tmp: str) -> dict:
+    """The image and event files the image examples read."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    files = {}
+    for name, size, fmt in (("img.jpg", 64, "JPEG"), ("img.png", 48, "PNG")):
+        files[name] = os.path.join(tmp, name)
+        Image.fromarray(np.zeros((size, size, 3), np.uint8)).save(
+            files[name], format=fmt)
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(buf, format="JPEG")
+    files["events.jsonl"] = os.path.join(tmp, "events.jsonl")
+    with open(files["events.jsonl"], "w") as f:
+        f.write(json.dumps({"device_id": "elevator-7", "image_b64":
+                            base64.b64encode(buf.getvalue()).decode()})
+                + "\n")
+    return files
+
+
+def _run_example(module: str, args: list) -> dict:
+    """``python -m client_tpu_torch.examples.<module> args`` in a process
+    of its own: exit code, PASS, seconds and stdout."""
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", f"client_tpu_torch.examples.{module}", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    ok = out.returncode == 0 and "PASS" in out.stdout
+    if module == "device_hub" and out.returncode == 0:
+        event = json.loads(out.stdout.strip().splitlines()[-1])
+        ok = event.get("device_id") == "elevator-7" and "class" in event
+    return {"module": module, "rc": out.returncode, "ok": ok,
+            "seconds": time.time() - t0, "stdout": out.stdout,
+            "tail": (out.stdout + out.stderr)[-600:]}
+
+
+def _java_examples(http_url: str, tmp: str) -> dict:
+    """Where a JDK is, the port's Java tree compiled and both examples run
+    against the server, SimpleCudaShmClient on a region made here on the
+    card; a missing JDK is reported, not failed (tests/test_java.py)."""
+    import base64
+    import shutil
+
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    javac, java = shutil.which("javac"), shutil.which("java")
+    if javac is None or java is None:
+        return {"jdk": None}
+    src = os.path.join(REPO, "client_tpu_torch", "java", "src")
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(src) for f in fs
+               if f.endswith(".java")]
+    out_dir = os.path.join(tmp, "javac")
+    comp = subprocess.run([javac, "-d", out_dir, *sources],
+                          capture_output=True, text=True, timeout=300)
+    if comp.returncode != 0:
+        fail(f"examples: javac failed: {comp.stderr[-1500:]}")
+    h = cudashm.create_shared_memory_region("java_cudashm_src", 128, 0)
+    try:
+        cudashm.set_shared_memory_region(
+            h, [np.arange(16, dtype=np.int32), np.ones(16, np.int32)])
+        raw = base64.b64encode(cudashm.get_raw_handle(h)).decode()
+        runs = {}
+        for cls, extra in (("SimpleInferClient", []),
+                           ("SimpleCudaShmClient", [raw, str(h.device_id)])):
+            t0 = time.time()
+            r = subprocess.run(
+                [java, "-cp", out_dir, f"torch.client.examples.{cls}",
+                 http_url, *extra], capture_output=True, text=True,
+                timeout=120)
+            runs[cls] = {"rc": r.returncode, "ok": r.returncode == 0
+                         and "PASS" in r.stdout, "seconds": time.time() - t0,
+                         "tail": (r.stdout + r.stderr)[-400:]}
+    finally:
+        cudashm.destroy_shared_memory_region(h)
+    return {"jdk": javac, "runs": runs}
+
+
+def phase_examples(env: dict, gen_model: tuple) -> dict:
+    """The port's example clients (ROADMAP 6b, 6d): see the module
+    docstring."""
+    import dataclasses
+    import importlib.util
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import client_tpu_torch.models as tm
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server.http_server import HttpInferenceServer
+
+    specs = {m: importlib.util.find_spec(m) for m in ("grpc",
+                                                      "google.protobuf")}
+    if not all(specs.values()):
+        print(f"examples: find_spec: {specs}", flush=True)
+        fail("examples: grpcio and protobuf must be importable here")
+    from client_tpu_torch.server.grpc_server import GrpcInferenceServer
+
+    cfg, params, jobs = gen_model
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    core = TorchInferenceServer()
+    for model in (tm.make_add_sub("add_sub", 16, "INT32"),
+                  tm.make_add_sub("add_sub_int8", 16, "INT8"),
+                  tm.make_add_sub_string("add_sub_string", 16),
+                  tm.make_identity("identity", 16, "INT32"),
+                  tm.make_repeat("repeat_int32"),
+                  tm.make_generator("generator_lm"),
+                  tm.make_accumulator("accumulator", 1, "INT32"),
+                  tm.make_preprocess(max_batch_size=4),
+                  tm.make_resnet50(max_batch_size=4, dynamic_batching=False),
+                  tm.make_image_ensemble(max_batch_size=4)):
+        core.register_model(model)
+    lm = tm.make_continuous_generator(
+        "continuous_lm", cfg=cfg, params=params, n_slots=GEN_SLOTS,
+        chunk_size=GEN_CHUNK, dispatch_depth=2, max_new_tokens=128,
+        eos_id=-1, kv_layout="paged", device="cuda")
+    core.register_model(lm, warmup=True)
+    http = HttpInferenceServer(core, port=0).start()
+    grpc_srv = GrpcInferenceServer(core, port=0).start()
+    urls = {"http": http.url, "grpc": f"localhost:{grpc_srv.port}"}
+    gen_runs, checks = [], {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            files = {**_example_inputs(tmp), "grpc": urls["grpc"]}
+
+            def one(entry):
+                module, proto, extra = entry
+                run = _run_example(module, ["-u", urls[proto], *(
+                    files[a[1:-1]] if a.startswith("{") else a
+                    for a in extra)])
+                run["protocol"] = proto
+                return run
+
+            serial = [e for e in EXAMPLE_RUNS
+                      if any(k in e[0] for k in EXAMPLE_SERIAL)]
+            with ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+                runs = list(pool.map(one, [e for e in EXAMPLE_RUNS
+                                           if e not in serial]))
+            runs += [one(e) for e in serial]
+            # the K2 path: the generate example on continuous_lm, the
+            # counters at 0 just before and read just after
+            snap0 = lm.engine.generation_snapshot()
+            pa.launches = fa.launches = 0
+            for prompt, _ in jobs[:EXAMPLE_GEN_PROMPTS]:
+                before = lm.engine.generation_snapshot()["ttft"]
+                run = _run_example("simple_grpc_generate_client", [
+                    "-u", urls["grpc"], "-m", "continuous_lm", "-n",
+                    str(EXAMPLE_GEN_TOKENS), "-p",
+                    ",".join(str(int(x)) for x in prompt)])
+                after = lm.engine.generation_snapshot()["ttft"]
+                run["tokens"] = [int(x) for x in re.findall(
+                    r"token\[\d+\] = (-?\d+)", run["stdout"])]
+                run["prompt_len"] = len(prompt)
+                run["engine_ttft_ms"] = ((after[1] - before[1])
+                                         / max(1, after[2] - before[2])
+                                         / 1e6)
+                gen_runs.append(run)
+            k2, k1 = pa.launches, fa.launches
+            dispatches = (lm.engine.generation_snapshot()["chunks_dispatched"]
+                          - snap0["chunks_dispatched"])
+            java = _java_examples(urls["http"], tmp)
+    finally:
+        http.stop()
+        grpc_srv.stop()
+        core.stop()
+    for run in runs:
+        checks[f"{run['module']}_{run['protocol']}"] = run["ok"]
+    for i, run in enumerate(gen_runs):
+        checks[f"generate_continuous_{i}"] = run["ok"] and (
+            len(run["tokens"]) == EXAMPLE_GEN_TOKENS
+            and all(0 <= x < cfg.vocab_size for x in run["tokens"]))
+    checks["k2_per_chunk_dispatch"] = (
+        k2 == LAYERS * GEN_CHUNK * dispatches and dispatches > 0)
+    checks["k1_not_launched"] = k1 == 0
+    for cls, r in java.get("runs", {}).items():
+        checks[f"java_{cls}"] = r["ok"]
+    if not all(checks.values()):
+        bad = [k for k, v in checks.items() if not v]
+        tails = {f"{r['module']}_{r.get('protocol', 'grpc')}": r["tail"]
+                 for r in runs + gen_runs if not r["ok"]}
+        fail(f"examples: {bad}: {tails}")
+    judged = [{"run": "examples_generate", "greedy_streams": [
+        (np.concatenate([np.asarray(p, np.int32),
+                         np.asarray(r["tokens"], np.int32)]), len(p))
+        for (p, _), r in zip(jobs, gen_runs)]}]
+    _judge_greedy(cfg, params, judged)
+    result = {
+        "phase": "examples", "card": env["nvidia_smi"],
+        "grpc_spec": {m: str(s) for m, s in specs.items()},
+        "seconds_by_example": {f"{r['module']}_{r['protocol']}":
+                               r["seconds"] for r in runs},
+        "generate_continuous": [
+            {k: r[k] for k in ("prompt_len", "tokens", "seconds",
+                               "engine_ttft_ms")} for r in gen_runs],
+        "teacher_forced": judged[0]["teacher_forced"],
+        "chunk_dispatches": dispatches,
+        "paged_decode_attention_launches": k2,
+        "k2_per_chunk_dispatch": k2 / dispatches,
+        "java": {"jdk": java["jdk"], **{
+            cls: {k: r[k] for k in ("ok", "seconds")}
+            for cls, r in java.get("runs", {}).items()}},
+        "checks": checks}
+    emit(result)
+    return result
+
+
+# --------------------------------- the installed native tree (10b)
+
+def phase_install(env: dict) -> dict:
+    """The native tree installed under a prefix (ROADMAP 10b): see the
+    module docstring."""
+    import shutil
+    import tempfile
+
+    from client_tpu_torch import _native
+    from client_tpu_torch._native.direct import DirectLibrary
+
+    tools = _native.toolchain()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "prefix")
+        t0 = time.time()
+        installed = _native.install(prefix)
+        install_s = time.time() - t0
+        perf = os.path.join(prefix, "bin", "perf_analyzer")
+        lib = os.path.join(prefix, "lib")
+        checks = {
+            "layout": all(os.path.isfile(os.path.join(lib, n)) for n in (
+                "libhttpclient_tpu_torch.so", "libhttpclient_tpu_torch.a",
+                "libcshm_tpu_torch.so", "libdirect_models_cpu.so",
+                "libdirect_models_cuda.so")) and os.access(perf, os.X_OK)
+            and os.path.isfile(os.path.join(
+                lib, "cmake", "ClientTpuTorch", "ClientTpuTorchTargets.cmake"))}
+        # D1 through the installed libraries: bit-equal to the CPU library
+        # and torch, then the installed analyzer's -i direct with no -u
+        # (it finds lib/libdirect_models_cuda.so), launches from the log
+        cpu = DirectLibrary(os.path.join(lib, "libdirect_models_cpu.so"))
+        gpu = DirectLibrary(os.path.join(lib, "libdirect_models_cuda.so"))
+        cases = [_direct_case(cpu, gpu, m, NATIVE_DIRECT_N, seed)
+                 for seed, m in enumerate(NATIVE_DIRECT_MODELS)]
+        direct = _direct_perf({"perf_analyzer": perf}, tmp,
+                              libs=("libdirect_models_cuda.so",))
+        consumer = {"cmake": tools["cmake"]}
+
+        def cmake_consumer(url):
+            if tools["cmake"] is None:
+                return None
+            src = os.path.join(tmp, "consumer")
+            os.makedirs(src)
+            shutil.copy2(os.path.join(
+                _native.NATIVE_DIR, "examples",
+                "simple_http_infer_client.cc"), src)
+            with open(os.path.join(src, "CMakeLists.txt"), "w") as f:
+                f.write(
+                    "cmake_minimum_required(VERSION 3.18)\n"
+                    "project(consumer CXX)\nset(CMAKE_CXX_STANDARD 17)\n"
+                    "find_package(ClientTpuTorch 0.1 REQUIRED)\n"
+                    "add_executable(simple_http_infer_client "
+                    "simple_http_infer_client.cc)\n"
+                    "target_link_libraries(simple_http_infer_client "
+                    "ClientTpuTorch::httpclient_tpu_torch_static)\n")
+            steps = []
+            for cmd in ([tools["cmake"], "-S", src, "-B", f"{src}/build",
+                         f"-DCMAKE_PREFIX_PATH={prefix}"],
+                        [tools["cmake"], "--build", f"{src}/build"],
+                        [f"{src}/build/simple_http_infer_client", "-u", url]):
+                r = subprocess.run(cmd, capture_output=True, text=True,
+                                   timeout=300)
+                steps.append(r.returncode)
+                if r.returncode != 0:
+                    return {"rc": steps, "ok": False,
+                            "tail": (r.stdout + r.stderr)[-800:]}
+            return {"rc": steps, "ok": "PASS" in r.stdout}
+
+        # K1 through the installed analyzer, then the in-tree one in the
+        # same call, over CUDA shm; the consumer against add_sub meanwhile
+        paths, _ = _native_build()
+        encoder = _native_encoder(paths, tmp, clients=(
+            ("installed", [perf]),
+            ("in_tree", [str(paths["perf_analyzer"])])), examples=False,
+            around=cmake_consumer)
+        consumer.update(encoder["around"] or {})
+    for c in cases:
+        checks[f"direct_{c['model']}_bit_equal"] = c["bit_equal"]
+        checks[f"direct_{c['model']}_launch_counted"] = c["launches_rose"] == 1
+    for r in direct:
+        kernel = "copy" if r["model"] == "identity" else "add_sub"
+        checks[f"direct_perf_{r['model']}"] = (
+            bool(r["client_infer_per_s"]) and r["p99_us"] is not None
+            and r["launches"][kernel] >= r["request_count"] > 0)
+    for run in encoder["runs"]:
+        tag = run["client"]
+        checks[f"{tag}_no_failure"] = (not run["run_failed_requests"]
+                                       and not run["client_rejected"])
+        checks[f"{tag}_k1"] = (run["flash_attention_launches"]
+                               == LAYERS * run["batches"] > 0)
+        checks[f"{tag}_cross_process"] = run["attachments"] == [
+            "CrossProcessAttachment"]
+    if tools["cmake"] is not None:
+        checks["cmake_consumer"] = consumer.get("ok", False)
+    installed_run = encoder["runs"][0]
+    result = {
+        "phase": "install", "card": env["nvidia_smi"],
+        "install_s": install_s, "installed": sorted(installed),
+        "cmake": consumer, "direct_cases": cases, "direct_perf": direct,
+        "encoder_perf": encoder["runs"],
+        "installed_over_in_tree_infer_per_s": (
+            installed_run["client_infer_per_s"]
+            / encoder["runs"][1]["client_infer_per_s"]),
+        "flash_attention_launches": installed_run["flash_attention_launches"],
+        "d1_launches": {k: sum(r["launches"][k] for r in direct)
+                        for k in ("add_sub", "copy")},
+        "checks": checks}
+    emit(result)
+    if not all(checks.values()):
+        fail(f"install: {[k for k, v in checks.items() if not v]}: "
+             f"{consumer.get('tail', '')}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the smoke test runs on the card only")
@@ -7448,6 +7855,8 @@ def main() -> int:
     mesh = timed("mesh", phase_mesh, env)
     fleet_mesh = timed("fleet_mesh", phase_fleet_mesh, env)
     native = timed("native", phase_native, env, peaks)
+    examples = timed("examples", phase_examples, env, gen_model)
+    install = timed("install", phase_install, env)
     emit({"phase": "seconds", **seconds})
 
     def row(name, source, replaces, launches, t, **paths):
@@ -7475,7 +7884,8 @@ def main() -> int:
             client=client["flash_attention_launches"],
             train=train["flash_attention_launches"],
             mesh=mesh["flash_attention_launches"],
-            native=native["flash_attention_launches"]),
+            native=native["flash_attention_launches"],
+            install=install["flash_attention_launches"]),
         row("paged_decode_attention",
             "client_tpu_torch/ops/csrc/paged_attention.cu",
             "client_tpu/ops/paged_attention.py:52",
@@ -7524,14 +7934,16 @@ def main() -> int:
             **{f"{arm['run']}{k}_r{rep}": n
                for k, arm in enumerate(fleet_mesh["runs"])
                for rep, n in sorted(arm[
-                   "paged_decode_attention_launches_by_replica"].items())}),
+                   "paged_decode_attention_launches_by_replica"].items())},
+            examples=examples["paged_decode_attention_launches"]),
         # D1: the DIRECT library's kernels, no Pallas port: they stand in
         # for the StableHLO programs the JAX package's device-backed
         # library compiles through PJRT
         *(row(f"direct_{k}",
               "client_tpu_torch/native/src/direct_models_cuda.cu",
               "native/src/direct_models_pjrt.cc:207", d["launches"], d,
-              native_direct=d["launches"])
+              native_direct=d["launches"],
+              install_direct=install["d1_launches"][k])
           for k, d in native["d1"].items()),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

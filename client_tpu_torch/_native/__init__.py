@@ -21,9 +21,20 @@ are refused at run time. ``libdirect_models_cuda.so`` needs ``nvcc``
 (``sm_90a``). A failed compile raises with the compiler's output;
 nothing falls back to another build tree.
 
+The client libraries also build as static archives (``ar`` over the
+shared libraries' objects). :func:`install` lays the libraries, the
+headers, ``perf_analyzer`` and a CMake package (``find_package(
+ClientTpuTorch)``) out under a prefix; :func:`bundle` is what the wheel
+build calls to carry the built artifacts in ``_native/bundled/`` beside
+a stamp of the sources they came from. :func:`artifact_path` takes a
+bundled artifact only while its stamp equals the installed sources'
+stamp, and builds otherwise.
+
     from client_tpu_torch import _native
     paths = _native.build(["perf_analyzer", "libdirect_models_cpu.so"])
     _native.run_perf_analyzer(["-m", "add_sub", "-u", "localhost:8000"])
+    _native.install("ctt")   # or: python -m client_tpu_torch._native
+    # install --prefix ctt
 """
 
 from __future__ import annotations
@@ -42,9 +53,15 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
+from client_tpu_torch import __version__
+
 _PKG = Path(__file__).resolve().parent.parent
 NATIVE_DIR = _PKG / "native"
 BUILD_ROOT = _PKG / "_build"
+# the wheel's prebuilt artifacts and the stamp of the sources they came
+# from (setup.py's build step writes both; a source checkout has none)
+BUNDLED_DIR = Path(__file__).resolve().parent / "bundled"
+STAMP_FILE = "STAMP"
 PROTOS = {"kserve": _PKG / "protocol" / "kserve.proto",
           "tfs": _PKG / "perf" / "foreign" / "tfs.proto"}
 
@@ -73,7 +90,9 @@ class Target:
     protobuf: bool = False    # needs protoc + headers + libprotobuf
     cuda: bool = False        # one nvcc call over its one .cu source
     ldscript: Optional[str] = None
-    libs: tuple = SYS_LIBS
+    libs: tuple = SYS_LIBS    # a static archive's: what its user links
+    static: bool = False      # an archive (ar) of the objects
+    ldflags: tuple = ()
 
 
 HTTP_EXAMPLES = ("simple_http_infer_client", "simple_http_health_metadata",
@@ -95,6 +114,7 @@ CC_TESTS = ("cc_client_test", "client_timeout_test", "memory_leak_test",
 TARGETS = {t.name: t for t in (
     Target("libhttpclient_tpu_torch.so", "http", HTTP, shared=True,
            ldscript="libhttpclient.ldscript"),
+    Target("libhttpclient_tpu_torch.a", "http", HTTP, static=True),
     Target("libcshm_tpu_torch.so", "http",
            ("src/cshm.cc", "src/shm_utils.cc"), shared=True,
            libs=("-lrt",)),
@@ -107,6 +127,8 @@ TARGETS = {t.name: t for t in (
             *HTTP)),
     Target("libgrpcclient_tpu_torch.so", "grpc", GRPC, shared=True,
            protobuf=True, ldscript="libgrpcclient.ldscript"),
+    Target("libgrpcclient_tpu_torch.a", "grpc", GRPC, static=True,
+           protobuf=True),
     Target("grpc_smoke", "grpc", ("tests/grpc_smoke.cc", *GRPC),
            protobuf=True),
     *(Target(e, "grpc", (f"examples/{e}.cc", *GRPC), protobuf=True)
@@ -119,12 +141,22 @@ TARGETS = {t.name: t for t in (
     *(Target(e, "grpc", (f"tests/{e}.cc", *GRPC, *HTTP), protobuf=True)
       for e in CC_TESTS),
     # the grpc/tfserve kinds join when protobuf is there (_sources)
-    Target("perf_analyzer", "perf", PERF),
+    # installed in bin/ beside lib/ (install()), it finds its libraries
+    # in the prefix
+    Target("perf_analyzer", "perf", PERF,
+           ldflags=("-Wl,-rpath,$ORIGIN/../lib:$ORIGIN",)),
     Target("libdirect_models_cpu.so", "direct", ("src/direct_models.cc",),
            shared=True, libs=()),
     Target("libdirect_models_cuda.so", "direct_cuda",
            ("src/direct_models_cuda.cu",), shared=True, cuda=True),
 )}
+
+# what install() lays out and the wheel carries, where this machine (or
+# the bundle) has it
+INSTALL_TARGETS = ("libhttpclient_tpu_torch.so", "libhttpclient_tpu_torch.a",
+                   "libcshm_tpu_torch.so", "libgrpcclient_tpu_torch.so",
+                   "libgrpcclient_tpu_torch.a", "perf_analyzer",
+                   "libdirect_models_cpu.so", "libdirect_models_cuda.so")
 
 _lock = threading.Lock()
 _tools: Optional[dict] = None
@@ -206,6 +238,7 @@ def toolchain() -> dict:
                 "protobuf_cflags": pb["cflags"],
                 "protobuf_libs": pb["libs"],
                 "protobuf_missing": pb["missing"],
+                "ar": shutil.which("ar"),
                 "cmake": shutil.which("cmake"),
             }
         return dict(_tools)
@@ -215,21 +248,36 @@ def _has_protobuf(tools: dict) -> bool:
     return not tools["protobuf_missing"]
 
 
-def build_dir() -> Path:
-    """This tree's build directory: ``_build/native-<hash>``."""
-    tools = toolchain()
-    h = hashlib.sha256()
-    for key in ("g++_version", "nvcc_version", "protoc_version",
-                "protobuf_cflags", "protobuf_libs", "protobuf_missing"):
-        h.update(f"{key}={tools[key]}\n".encode())
+def _hash_sources(h) -> None:
     h.update(" ".join((*CXXFLAGS, *NVCC_FLAGS, *SYS_LIBS)).encode())
-    for path in sorted(p for p in NATIVE_DIR.rglob("*") if p.is_file()):
+    for path in sorted(p for p in NATIVE_DIR.rglob("*") if p.is_file()
+                       and p.suffix in (".cc", ".h", ".cu", ".ldscript")):
         h.update(str(path.relative_to(NATIVE_DIR)).encode())
         h.update(path.read_bytes())
     for name, path in sorted(PROTOS.items()):
         h.update(name.encode())
         h.update(path.read_bytes())
-    return BUILD_ROOT / f"native-{h.hexdigest()[:16]}"
+
+
+def stamp() -> str:
+    """The hash of the native sources, the two protos and the flags (not
+    of the compilers' versions): a bundled artifact is used only where
+    its stamp equals this."""
+    h = hashlib.sha256()
+    _hash_sources(h)
+    return h.hexdigest()
+
+
+def build_dir(root: Optional[Path] = None) -> Path:
+    """This tree's build directory: ``_build/native-<hash>`` (under
+    ``root`` when given), the hash also covering the tools' versions."""
+    tools = toolchain()
+    h = hashlib.sha256()
+    for key in ("g++_version", "nvcc_version", "protoc_version",
+                "protobuf_cflags", "protobuf_libs", "protobuf_missing"):
+        h.update(f"{key}={tools[key]}\n".encode())
+    _hash_sources(h)
+    return Path(root or BUILD_ROOT) / f"native-{h.hexdigest()[:16]}"
 
 
 def _sources(target: Target, tools: dict) -> tuple:
@@ -246,6 +294,8 @@ def _object(out: Path, src: str, perf_grpc: bool) -> Path:
 def _check_buildable(target: Target, tools: dict) -> None:
     if tools["g++"] is None:
         raise RuntimeError(f"cannot build {target.name}: g++ not found")
+    if target.static and tools["ar"] is None:
+        raise RuntimeError(f"cannot build {target.name}: ar not found")
     if target.cuda and tools["nvcc"] is None:
         raise RuntimeError(
             f"cannot build {target.name}: nvcc (the CUDA toolkit) not "
@@ -261,6 +311,7 @@ def default_targets() -> list:
     tools = toolchain()
     return [t.name for t in TARGETS.values()
             if tools["g++"] and (not t.cuda or tools["nvcc"])
+            and (not t.static or tools["ar"])
             and (not t.protobuf or _has_protobuf(tools))]
 
 
@@ -297,11 +348,13 @@ def _replace(tmp: Path, path: Path):
     return lambda: os.replace(tmp, path)   # atomic: no half-written file
 
 
-def build(targets=None, timings: Optional[dict] = None) -> dict:
+def build(targets=None, timings: Optional[dict] = None,
+          root: Optional[Path] = None) -> dict:
     """Build ``targets`` (names of :data:`TARGETS`; None: every target the
     tools here can build) unless built already; returns {name: path}.
     ``timings``, when given, receives the seconds from the start of the
-    build to the end of each group's last step."""
+    build to the end of each group's last step. ``root`` puts the build
+    directory elsewhere than ``_build/``."""
     names = default_targets() if targets is None else list(targets)
     unknown = [n for n in names if n not in TARGETS]
     if unknown:
@@ -310,7 +363,7 @@ def build(targets=None, timings: Optional[dict] = None) -> dict:
     tools = toolchain()
     for n in names:
         _check_buildable(TARGETS[n], tools)
-    out = build_dir()
+    out = build_dir(root)
     paths = {n: out / n for n in names}
     if all(p.exists() for p in paths.values()):
         return paths
@@ -392,11 +445,19 @@ def _build_locked(todo: list, tools: dict, out: Path,
         tmp = dst.with_name(f"{dst.name}.{pid}.tmp")
         objs = [str(_object(out, s, perf_grpc and s.startswith("perf/")))
                 for s in _sources(t, tools)]
+        if t.static:
+            # the shared library's objects (-fPIC), archived anew
+            links.append((t.name, [tools["ar"], "rcs", str(tmp), *objs],
+                          _replace(tmp, dst)))
+            note(t.name, t.group)
+            continue
         pb = (tools["protobuf_libs"]
               if any(s.startswith("gen/") for s in _sources(t, tools))
               else [])
         cmd = [tools["g++"], "-pthread", *(["-shared"] if t.shared else []),
-               "-o", str(tmp), *objs, *pb, *t.libs]
+               "-o", str(tmp), *objs, *pb, *t.libs, *t.ldflags]
+        if t.shared:
+            cmd.append(f"-Wl,-soname,{t.name}")
         if t.ldscript:
             cmd.append(f"-Wl,--version-script={NATIVE_DIR / t.ldscript}")
         links.append((t.name, cmd, _replace(tmp, dst)))
@@ -416,10 +477,21 @@ def _gen_done(stage: Path, gen: Path, name: str):
     return move
 
 
+def bundled(name: str) -> Optional[Path]:
+    """The wheel's prebuilt ``name`` where its stamp equals the installed
+    sources' stamp; None otherwise (a stale bundle is never used)."""
+    path = BUNDLED_DIR / name
+    stamp_file = BUNDLED_DIR / STAMP_FILE
+    if not (path.is_file() and stamp_file.is_file()):
+        return None
+    return path if stamp_file.read_text().strip() == stamp() else None
+
+
 def artifact_path(name: str) -> Path:
-    """The path of target ``name``, built at first use (raises when it
-    cannot be built here)."""
-    return build([name])[name]
+    """The path of target ``name``: the wheel's bundled copy where it is
+    current, else built at first use (raises when it cannot be built
+    here)."""
+    return bundled(name) or build([name])[name]
 
 
 def lib_path(name: str) -> Path:
@@ -432,18 +504,166 @@ def perf_analyzer_path() -> Path:
 
 
 def run_perf_analyzer(argv=None) -> int:
-    """Entry point of the ``client-tpu-torch-perf-native`` script: build
-    the native perf analyzer and the DIRECT libraries this machine can
-    build, then exec the analyzer with ``argv``."""
-    tools = toolchain()
-    names = ["perf_analyzer", "libdirect_models_cpu.so"]
-    if tools["nvcc"]:
-        names.append("libdirect_models_cuda.so")
-    try:
-        path = build(names)["perf_analyzer"]
-    except RuntimeError as e:
-        print(f"client-tpu-torch: {e}", file=sys.stderr)
-        return 1
+    """Entry point of the ``client-tpu-torch-perf-native`` script: take
+    the bundled analyzer (beside its bundled DIRECT libraries), or build
+    it and the DIRECT libraries this machine can build, then exec the
+    analyzer with ``argv``."""
+    path = bundled("perf_analyzer")
+    if path is None:
+        names = ["perf_analyzer", "libdirect_models_cpu.so"]
+        if toolchain()["nvcc"]:
+            names.append("libdirect_models_cuda.so")
+        try:
+            path = build(names)["perf_analyzer"]
+        except RuntimeError as e:
+            print(f"client-tpu-torch: {e}", file=sys.stderr)
+            return 1
     args = argv if argv is not None else sys.argv[1:]
     os.execv(path, [str(path), *args])
     return 0  # unreachable
+
+
+# ---------------------------------------------------------------- install
+
+def _available(names) -> list:
+    """The names of ``names`` that are bundled or buildable here."""
+    here = set(default_targets())
+    return [n for n in names if bundled(n) is not None or n in here]
+
+
+def _gen_header(name: str) -> Optional[Path]:
+    """protoc's header ``<name>.pb.h`` that the gRPC client's header
+    includes: the bundle's where its library is bundled, else the
+    build's."""
+    if bundled("libgrpcclient_tpu_torch.so") is not None:
+        return bundled(f"{name}.pb.h")
+    path = build_dir() / "gen" / f"{name}.pb.h"
+    return path if path.is_file() else None
+
+
+def bundle(dest, root: Optional[Path] = None) -> list:
+    """Build :data:`INSTALL_TARGETS` that this machine can build (under
+    ``root``, default ``_build/``) and copy them into ``dest`` with the
+    stamp of their sources (and protoc's ``kserve.pb.h`` beside the gRPC
+    libraries): what the wheel carries as ``_native/bundled/``. Returns
+    the names copied."""
+    here = set(default_targets())
+    names = [n for n in INSTALL_TARGETS if n in here]
+    paths = build(names, root=root)
+    dest = Path(dest)
+    dest.mkdir(parents=True, exist_ok=True)
+    for name, path in paths.items():
+        shutil.copy2(path, dest / name)
+    header = build_dir(root) / "gen" / "kserve.pb.h"
+    if "libgrpcclient_tpu_torch.so" in paths and header.is_file():
+        shutil.copy2(header, dest / header.name)
+    (dest / STAMP_FILE).write_text(stamp() + "\n")
+    return sorted(paths)
+
+
+def _cmake_lib(name: str) -> str:
+    return name[3:].split(".", 1)[0]           # libfoo.so -> foo
+
+
+def _cmake_links(flags) -> str:
+    return ";".join(f[2:] if f.startswith("-l") else f for f in flags)
+
+
+def _targets_cmake(libs: list, protobuf_libs) -> str:
+    lines = ["# IMPORTED targets of the port's native client libraries",
+             "# (written by client_tpu_torch._native.install)",
+             'get_filename_component(_CTT_PREFIX '
+             '"${CMAKE_CURRENT_LIST_DIR}/../../.." ABSOLUTE)']
+    for name in libs:
+        t = TARGETS[name]
+        target = f"ClientTpuTorch::{_cmake_lib(name)}" + \
+            ("_static" if t.static else "")
+        links = [*(protobuf_libs if t.protobuf else ()), *t.libs]
+        kind = "STATIC" if t.static else "SHARED"
+        lines += [
+            f"if(NOT TARGET {target})",
+            f"  add_library({target} {kind} IMPORTED)",
+            f"  set_target_properties({target} PROPERTIES",
+            f'    IMPORTED_LOCATION "${{_CTT_PREFIX}}/lib/{name}"',
+            *([f'    IMPORTED_SONAME "{name}"'] if t.shared else
+              ['    IMPORTED_LINK_INTERFACE_LANGUAGES "CXX"']),
+            '    INTERFACE_INCLUDE_DIRECTORIES "${_CTT_PREFIX}/include"',
+            f'    INTERFACE_LINK_LIBRARIES "{_cmake_links(links)}")',
+            "endif()"]
+    lines.append("unset(_CTT_PREFIX)")
+    return "\n".join(lines) + "\n"
+
+
+_CONFIG_VERSION = """\
+# the package's version, compatible within its major version
+set(PACKAGE_VERSION "{v}")
+string(REGEX MATCH "^[0-9]+" _ctt_major "{v}")
+if(PACKAGE_VERSION VERSION_LESS PACKAGE_FIND_VERSION)
+  set(PACKAGE_VERSION_COMPATIBLE FALSE)
+elseif(PACKAGE_FIND_VERSION_MAJOR STREQUAL _ctt_major)
+  set(PACKAGE_VERSION_COMPATIBLE TRUE)
+  if(PACKAGE_FIND_VERSION STREQUAL PACKAGE_VERSION)
+    set(PACKAGE_VERSION_EXACT TRUE)
+  endif()
+elseif(NOT PACKAGE_FIND_VERSION)
+  set(PACKAGE_VERSION_COMPATIBLE TRUE)
+else()
+  set(PACKAGE_VERSION_COMPATIBLE FALSE)
+endif()
+unset(_ctt_major)
+if(NOT CMAKE_SIZEOF_VOID_P STREQUAL "8")
+  set(PACKAGE_VERSION_UNSUITABLE TRUE)
+endif()
+"""
+
+
+def install(prefix, targets=None) -> dict:
+    """Build what is missing of ``targets`` (default: every one of
+    :data:`INSTALL_TARGETS` that is bundled or buildable here) and lay
+    them out under ``prefix`` as the GNU install dirs: the headers in
+    ``include/client_tpu_torch/``, the libraries (shared, static, the
+    CUDA-shm producer, the DIRECT libraries) in ``lib/``,
+    ``bin/perf_analyzer`` (which finds its DIRECT library in ``lib/``),
+    and ``lib/cmake/ClientTpuTorch/`` for ``find_package(ClientTpuTorch)``
+    with IMPORTED targets ``ClientTpuTorch::httpclient_tpu_torch``,
+    ``..._static``, ``cshm_tpu_torch`` and the gRPC pair where built.
+    The CMake files are written as text: installing needs no cmake.
+    Returns {name: installed path}."""
+    wanted = list(INSTALL_TARGETS if targets is None else targets)
+    unknown = [n for n in wanted if n not in INSTALL_TARGETS]
+    if unknown:
+        raise KeyError(f"not installable: {unknown}; "
+                       f"known: {list(INSTALL_TARGETS)}")
+    names = _available(wanted)
+    missing = [n for n in wanted if n not in names]
+    if targets is not None and missing:
+        raise RuntimeError(f"cannot install {missing}: neither bundled nor "
+                           "buildable here")
+    prefix = Path(prefix)
+    inc, lib, bin_ = prefix / "include", prefix / "lib", prefix / "bin"
+    cmake_dir = lib / "cmake" / "ClientTpuTorch"
+    for d in (inc / "client_tpu_torch", lib, bin_, cmake_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    for header in sorted((NATIVE_DIR / "include" / "client_tpu_torch")
+                         .glob("*.h")):
+        shutil.copy2(header, inc / "client_tpu_torch" / header.name)
+    out = {}
+    for name in names:
+        dst = (bin_ if name == "perf_analyzer" else lib) / name
+        shutil.copy2(artifact_path(name), dst)
+        out[name] = dst
+    if "libgrpcclient_tpu_torch.so" in names \
+            or "libgrpcclient_tpu_torch.a" in names:
+        header = _gen_header("kserve")
+        if header is None:
+            raise RuntimeError("the gRPC client's kserve.pb.h is missing")
+        shutil.copy2(header, inc / header.name)
+    libs = [n for n in names
+            if n.startswith(("libhttpclient", "libgrpcclient", "libcshm"))]
+    (cmake_dir / "ClientTpuTorchTargets.cmake").write_text(
+        _targets_cmake(libs, toolchain()["protobuf_libs"]))
+    (cmake_dir / "ClientTpuTorchConfig.cmake").write_text(
+        'include("${CMAKE_CURRENT_LIST_DIR}/ClientTpuTorchTargets.cmake")\n')
+    (cmake_dir / "ClientTpuTorchConfigVersion.cmake").write_text(
+        _CONFIG_VERSION.format(v=__version__))
+    return out

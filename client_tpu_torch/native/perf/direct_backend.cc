@@ -120,7 +120,8 @@ Error DefaultLibraryPath(std::string* path) {
     return Error::Success();
   }
   // the card's library, next to the running binary (the port's native
-  // build puts both there, and builds the library only where nvcc is)
+  // build puts both there, and builds the library only where nvcc is),
+  // else in ../lib/ (an installed prefix keeps the binary in bin/)
   *path = "libdirect_models_cuda.so";
   char exe[PATH_MAX];
   ssize_t n = readlink("/proc/self/exe", exe, sizeof(exe) - 1);
@@ -128,7 +129,14 @@ Error DefaultLibraryPath(std::string* path) {
     exe[n] = '\0';
     std::string dir(exe);
     auto slash = dir.rfind('/');
-    if (slash != std::string::npos) *path = dir.substr(0, slash + 1) + *path;
+    if (slash != std::string::npos) {
+      dir = dir.substr(0, slash + 1);
+      std::string installed = dir + "../lib/" + *path;
+      *path = dir + *path;
+      if (access(path->c_str(), R_OK) != 0 &&
+          access(installed.c_str(), R_OK) == 0)
+        *path = installed;
+    }
   }
   if (access(path->c_str(), R_OK) != 0) {
     return Error(

@@ -1166,12 +1166,13 @@ def test_real_fleet_scales_up_under_a_queue_and_down_when_idle(
         core.stop()
 
 
-def _rollout(m, version, tenants, streams):
-    """Open a judged rollout, send ``tenants`` one after another and step
-    the controller until it gives a verdict."""
+def _rollout(m, version, tenants, streams, rounds=1):
+    """Open a judged rollout, send ``tenants`` one after another
+    (``rounds`` times over) and step the controller until it gives a
+    verdict."""
     fleet, ctl = m.fleet, m.autoscaler
     cidx = ctl.rolling_restart(version)
-    for i, tenant in enumerate(tenants):
+    for i, tenant in enumerate(tenants * rounds):
         streams.submit((version, i), PROMPTS[i % len(PROMPTS)], tenant)
         streams.threads[-1].join(timeout=120)
     end = time.monotonic() + 60
@@ -1210,7 +1211,13 @@ def test_real_canary_rolls_back_under_a_fault_and_promotes_when_clean(
         assert rb["canary_mfu"] is None and rb["stable_mfu"] is None
         assert [r.idx for r in fleet.replicas] == [0, 1]
         inj.clear()
-        cidx = _rollout(m, "3", tenants, streams)
+        # the clean canary's TTFT equals the stable set's (about 7 ms on
+        # this model, near the 10 ms bucket edge). With five or six
+        # requests a side, each side's p95 is its slowest request, and one
+        # stall of a loaded machine past 25 ms on a canary request put the
+        # canary's p95 at 5x the stable's. Four rounds give each side
+        # about 24 requests: the p95 then lies below the two slowest
+        cidx = _rollout(m, "3", tenants, streams, rounds=4)
         assert cidx == 3 and ctl.promotions == 1
         snap = fleet.fleet_snapshot()
         assert snap["version"] == "3"

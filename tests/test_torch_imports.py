@@ -10,6 +10,11 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# every example module of the port (one per script of examples/)
+EXAMPLES = sorted(
+    f[:-3] for f in os.listdir(os.path.join(REPO, "client_tpu_torch",
+                                            "examples"))
+    if f.endswith(".py") and f != "__init__.py")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -106,7 +111,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "client_tpu_torch.parallel.collectives",
                      "client_tpu_torch.parallel.pipeline",
                      "client_tpu_torch.parallel.dryrun",
-                     "client_tpu_torch.parallel.spmd"):
+                     "client_tpu_torch.parallel.spmd",
+                     "client_tpu_torch._native",
+                     "client_tpu_torch._native.__main__",
+                     *(f"client_tpu_torch.examples.{e}" for e in EXAMPLES)):
         assert expected in result["modules"]
 
 
@@ -183,12 +191,26 @@ def test_the_fleet_and_the_generators_import_no_jax_grpc_or_protobuf():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+# the gRPC library examples and the raw-stub ones (grpc_image_client
+# among them) speak gRPC from their import on
+GRPC_EXAMPLES = ("simple_grpc_infer_client", "simple_grpc_async_infer_client",
+                 "simple_grpc_string_infer_client",
+                 "simple_grpc_health_metadata", "simple_grpc_keepalive_client",
+                 "simple_grpc_model_control",
+                 "simple_grpc_sequence_sync_client",
+                 "simple_grpc_sequence_stream_client",
+                 "simple_grpc_custom_repeat_client", "simple_grpc_shm_client",
+                 "simple_grpc_shm_string_client",
+                 "simple_grpc_generate_client", "simple_grpc_cudashm_client",
+                 "grpc_client", "grpc_explicit_int_content_client",
+                 "grpc_explicit_int8_content_client",
+                 "grpc_explicit_byte_content_client", "grpc_image_client")
 _GRPC_ALLOWED = ("client_tpu_torch.protocol.kserve_pb2",
                  "client_tpu_torch.protocol.grpc_defs",
                  "client_tpu_torch.protocol.grpc_tensors",
                  "client_tpu_torch.server.grpc_server",
                  "client_tpu_torch.client.grpc",
-                 "client_tpu_torch.examples.simple_grpc_cudashm_client",
+                 *(f"client_tpu_torch.examples.{e}" for e in GRPC_EXAMPLES),
                  "client_tpu_torch.perf.foreign.tfs_pb2",
                  "client_tpu_torch.perf.foreign.tfserve")
 

@@ -465,14 +465,18 @@ def test_access_log_records_each_request(caplog):
     try:
         with caplog.at_level(logging.INFO,
                              logger="client_tpu_torch.server.http.access"):
-            _call(srv.url, "/v2/health/live")
-            _call(srv.url, "/v2/models/nope/ready")
-            _call(srv.url, "/v2/models/add_sub/infer", _infer_body())
-            # the handler writes its record once the response is sent, so
-            # the client can return first: wait for it while INFO is on
-            end = time.monotonic() + 10
-            while time.monotonic() < end and len(_access(caplog)) < 3:
-                time.sleep(0.01)
+            calls = (("/v2/health/live", None),
+                     ("/v2/models/nope/ready", None),
+                     ("/v2/models/add_sub/infer", _infer_body()))
+            for k, (path, body) in enumerate(calls, start=1):
+                _call(srv.url, path, body)
+                # the handler writes its record once the response is sent,
+                # so the client can return first, and each call opens its
+                # own connection (its own handler thread): wait for record
+                # k before request k + 1, or two records can swap places
+                end = time.monotonic() + 10
+                while time.monotonic() < end and len(_access(caplog)) < k:
+                    time.sleep(0.01)
     finally:
         srv.stop()
         core.stop()
