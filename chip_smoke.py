@@ -228,7 +228,8 @@ each printing one JSON line:
              the clean run's stream token for token, one restart,
              the engine_death bundle readable at /v2/debug/incidents, K2
              12 x 16 per chunk dispatch of the dead and the rebuilt engine
-             plus the rebuilt engine's two warm chunks, and
+             plus the rebuilt engine's warm chunks (both variants at every
+             table width), and
              memory_allocated after the drain within half a pool of its
              value before the crash; prints the milliseconds from the
              crash (the liveness flip) to healthy and to the first token
@@ -237,7 +238,8 @@ each printing one JSON line:
              the restart counter 2, the breaker gauge 1, engine_up 0, the
              five watchdog families and three engine_death incidents; an
              unload and a load restore readiness. (d) a kernel_delay fault
-             holds one dispatch 5.5 s, past the default stall wall:
+             holds one dispatch 5.5 s (after four paced 80 ms, so the
+             watchdog has a busy sample), past the default stall wall:
              engine_stall fires once, its bundle has a flight tail, and
              every traced stream carries the INCIDENT span. (h) in a
              process of its own (``chip_smoke.py --profile-process``),
@@ -365,8 +367,9 @@ each printing one JSON line:
              stream is teacher-forced and equal, token for token, to the
              one-replica run's; K2 must launch 12 x 4 per chunk dispatch
              on every replica (a tally by engine thread beside the
-             wrapper's count; a drained replica's fresh engine adds its
-             two warm chunks); /v2/debug/fleet and client_tpu_fleet_* on
+             wrapper's count and the graph replays' counts; a drained
+             replica's fresh engine adds its warm chunks);
+             /v2/debug/fleet and client_tpu_fleet_* on
              /metrics must read the fleet's routed counts; a traced stream
              must carry FLEET_ROUTE. Prints each run's tokens/s (the two
              replicas share the card: the number is the router's cost, not
@@ -543,6 +546,33 @@ each printing one JSON line:
              against ClientTpuTorch::httpclient_tpu_torch_static and runs
              it against add_sub on the same server (PASS); whether cmake
              was found is printed.
+28. compile  the runtime compile plane (server/runtime_stats.py), run after
+             generate_slot: (a) serve_shm's encoder (seq 128, bucket 256,
+             bf16, K1) with CUDA graphs and under capture_disabled(), in
+             turns (graphs, eager, eager, graphs): its compile table (one
+             entry per bucket of apply, fused_batch and fused_batch_split,
+             every one in warmup, none after serving), a 256-row batch's
+             embeddings through the graph bit-equal to eager, K1 12 per
+             request, the median ms per 256-row request, the warmup's
+             compile seconds and the memory_allocated its captures
+             added; (b) bench.py's generation model at full width, its 32
+             ragged greedy jobs on the slot layout and the paged one
+             (K2), with graphs and eager in turns: every stream identical
+             to eager, K2 exactly 12 x 16 per chunk dispatch counted from
+             replays, 0 unexpected compiles, tokens/s and host ms per
+             dispatch, and one chunk dispatch of the engine's own watched
+             step profiled: host ms, host-side launches (kernel and
+             graph launches) and device busy ms; (c) on the last encoder
+             arm, a 128-row request after the seal: the counter at 1, the
+             WARNING, a COMPILE span on a trace in scope, and the whole
+             client_tpu_runtime_* set on /metrics, clean under the
+             reference's naming lint.
+
+Every phase is followed by a line of its serving-phase unexpected
+compiles (the CompileWatch count of this process and of its rank
+processes, less the one phase (c) forces), which must be 0. On the card
+every served forward and chunk step runs as a CUDA graph; K1 and K2 are
+counted from the replays.
 
 Then a line of each phase's wall seconds, the kernel table line
 ``{"kernels": [...]}`` and, last, the
@@ -1891,6 +1921,305 @@ def phase_generate_slot(gen_model: tuple) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- compile
+
+# the compile phase: each arm with CUDA graphs and again under
+# capture_disabled(), in turns
+COMPILE_ENCODER_ARMS = ("graphs", "eager", "eager", "graphs")
+COMPILE_ENGINE_ARMS = (("slot", "graphs"), ("slot", "eager"),
+                       ("paged", "eager"), ("paged", "graphs"))
+COMPILE_REQUESTS = 8      # timed 256-row requests per encoder arm
+COMPILE_FORCED_ROWS = 128  # the forced serving-phase compile's batch
+
+
+def _arm_context(arm: str):
+    from client_tpu_torch.server.runtime_stats import capture_disabled
+
+    return capture_disabled() if arm == "eager" else contextlib.nullcontext()
+
+
+def _compile_table(snap: dict) -> dict:
+    """A compile snapshot's counts by (kind, phase), with its totals."""
+    kinds: dict = {}
+    for e in snap["compiles"]:
+        key = f"{e['kind']}/{e['phase']}"
+        kinds[key] = kinds.get(key, 0) + 1
+    return {"sealed": snap["sealed"], "total": snap["total_compiles"],
+            "unexpected": snap["unexpected_compiles"],
+            "warmup_compile_seconds": snap["warmup_compile_seconds"],
+            "by_kind": kinds}
+
+
+def _compile_encoder(arm: str, cache: dict, toks: np.ndarray,
+                     forced: bool) -> dict:
+    """One encoder arm (serve_shm's BERT-base: seq 128, bucket 256, bf16,
+    K1) behind a core: its compile table after the warmup and after
+    COMPILE_REQUESTS timed 256-row requests, the memory the warmup's
+    captures added, K1 per request, the embeddings; with ``forced`` also
+    (c): a 128-row request after the seal captures a novel signature."""
+    import logging
+
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.perf.bench_harness import build_bert_encoder
+    from client_tpu_torch.server import TorchInferenceServer
+    from client_tpu_torch.server import trace as trace_mod
+    from client_tpu_torch.server.metrics import parse_prometheus_text
+
+    with _arm_context(arm):
+        model = build_bert_encoder(128, 256, attn_impl="flash",
+                                   params_cache=cache, seed=0)
+    core = TorchInferenceServer()
+    try:
+        model.load()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.time()
+        core.register_model(model, warmup=True)
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+        mem1 = torch.cuda.memory_allocated()
+        warm = _compile_table(model.compile_watch.snapshot())
+        # the main path: the K1 counter at 0 just before, read just after
+        fa.launches = 0
+        times = []
+        for _ in range(COMPILE_REQUESTS):
+            t1 = time.perf_counter()
+            emb = model.execute({"input_ids": toks})["embedding"]
+            times.append((time.perf_counter() - t1) * 1e3)
+        k1 = fa.launches
+        served = _compile_table(model.compile_watch.snapshot())
+        out = {"arm": arm, "warmup_s": warm_s,
+               "capture_memory_bytes": mem1 - mem0,
+               "graphs": model.compile_watch.captured(),
+               "warmup": warm, "served": served,
+               "flash_attention_launches": k1,
+               "k1_per_request": k1 / COMPILE_REQUESTS,
+               "median_ms_per_request": float(np.median(times)),
+               "ms_per_request": times, "embedding": emb}
+        if forced:
+            records = []
+
+            class Keep(logging.Handler):
+                def emit(self, record):
+                    records.append(record.getMessage())
+
+            handler = Keep(level=logging.WARNING)
+            rs_log = logging.getLogger(
+                "client_tpu_torch.server.runtime_stats")
+            rs_log.addHandler(handler)
+            trace = trace_mod.Trace("compile-probe", model.name, "1")
+            model.compile_watch.current_trace = trace
+            try:
+                model.execute({"input_ids": toks[:COMPILE_FORCED_ROWS]})
+            finally:
+                rs_log.removeHandler(handler)
+                model.compile_watch.current_trace = None
+            text = core.metrics_text()
+            parsed = parse_prometheus_text(text)
+            sys.path.insert(0, os.path.join(REPO, "scripts"))
+            import check_metrics_names
+
+            snap = model.compile_watch.snapshot()
+            spans = [f for name, _ns, f in trace.timestamps
+                     if name == trace_mod.COMPILE]
+            out["forced"] = {
+                "unexpected": snap["unexpected_compiles"],
+                "last": {k: v for k, v in snap["compiles"][-1].items()},
+                "warnings": [m for m in records
+                             if "unexpected serving-phase" in m],
+                "compile_spans": spans,
+                "metrics_unexpected": parse_sample(
+                    parsed, "client_tpu_runtime_unexpected_compiles_total",
+                    model.name),
+                "runtime_families": sorted(
+                    f for f in parsed["families"]
+                    if f.startswith("client_tpu_runtime_")),
+                "lint_errors": check_metrics_names.check(text)}
+    finally:
+        core.stop()
+    return out
+
+
+def parse_sample(parsed: dict, name: str, model: str):
+    for n, labels, value in parsed["samples"]:
+        if n == name and labels.get("model") == model:
+            return value
+    return None
+
+
+def _engine_dispatch_profile(engine) -> dict:
+    """One greedy chunk dispatch through the engine's own watched chunk
+    step (a graph replay with graphs, the eager kernels without), 16
+    active slots from position 96 (the paged layout's tables of 12
+    blocks): its host ms, its stream ms between CUDA events, and by
+    torch.profiler its device busy ms and its host-side launches (kernel
+    and graph launches). Runs on an idle engine after its streams ended."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s, c = GEN_SLOTS, GEN_CHUNK
+    nb = GEN_MAX_SEQ // GEN_BLOCK
+    rng = np.random.default_rng(3)
+    ones = np.ones((s,), np.bool_)
+    zi = np.zeros((s,), np.int32)
+    zf = np.zeros((s,), np.float32)
+    host = [rng.integers(0, 1000, (s, c)).astype(np.int32), zi, ones, ones,
+            ~ones, zi, zf, zi, zf]
+    if engine._kv_layout == "paged":
+        host += [(1 + np.arange(s * nb, dtype=np.int32)).reshape(s, nb),
+                 np.full((s,), 96, np.int32)]
+
+    def dispatch():
+        engine._op_chunk(0, host, False)
+
+    with torch.inference_mode():
+        dispatch()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        dispatch()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        event_ms = start.elapsed_time(end)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dispatch()
+            torch.cuda.synchronize()
+    busy_us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        busy_us += getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0.0))
+        if evt.key.startswith(("cudaLaunchKernel", "cudaGraphLaunch")):
+            launches += evt.count
+    return {"host_ms": host_ms, "event_ms": event_ms,
+            "device_busy_ms": busy_us / 1e3 if busy_us else None,
+            "host_launches": launches}
+
+
+def _compile_engine(layout: str, arm: str, gen_model: tuple) -> dict:
+    """One engine arm: bench.py's generation model at full width, its 32
+    ragged greedy jobs, on ``layout`` (paged: K2), with graphs or under
+    capture_disabled(); its compile table, per-dispatch profile and the
+    run's counters."""
+    import dataclasses
+
+    cfg, params, jobs = gen_model
+    kw = {}
+    if layout == "paged":
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
+        kw = dict(kv_layout="paged", kv_block_len=GEN_BLOCK)
+    box = {}
+
+    def settled(engine):
+        box["table"] = _compile_table(engine.compile_watch.snapshot())
+        box["graphs"] = engine.compile_watch.captured()
+        box["profile"] = _engine_dispatch_profile(engine)
+        box["after_profile"] = _compile_table(
+            engine.compile_watch.snapshot())
+        return {}
+
+    with _arm_context(arm):
+        run = _serve_generation(f"compile_{layout}_{arm}", cfg, params,
+                                jobs, [None] * len(jobs), settled=settled,
+                                **kw)
+    streams = [list(x[0][x[1]:]) for x in run.pop("greedy_streams")]
+    return {"layout": layout, "arm": arm, **box,
+            "tokens_per_s": run["continuous_batching_ragged_tokens_per_s"],
+            "host_ms_per_dispatch": run["host_ms_per_dispatch"],
+            "event_ms_per_dispatch": run["event_ms_per_dispatch"],
+            "chunk_dispatches": run["chunk_dispatches"],
+            "paged_decode_attention_launches":
+                run["paged_decode_attention_launches"],
+            "ttft_mean_ms": run["ttft_mean_ms"],
+            "itl_mean_ms": run["itl_mean_ms"],
+            "register_with_warmup_s": run["register_with_warmup_s"],
+            "streams": streams}
+
+
+def phase_compile(gen_model: tuple) -> dict:
+    """The runtime compile plane on the card: (a) the encoder, (b) the
+    engine on both layouts, each arm with graphs and under
+    capture_disabled() in turns, and (c) a forced serving-phase compile
+    after the seal (module docstring)."""
+    from client_tpu_torch.perf.bench_harness import VOCAB
+
+    cache: dict = {}
+    toks = np.random.default_rng(11).integers(
+        0, VOCAB, size=(256, 128)).astype(np.int32)
+    enc = []
+    for k, arm in enumerate(COMPILE_ENCODER_ARMS):
+        enc.append(_compile_encoder(arm, cache, toks,
+                                    forced=k == len(COMPILE_ENCODER_ARMS) - 1))
+    eng = [_compile_engine(layout, arm, gen_model)
+           for layout, arm in COMPILE_ENGINE_ARMS]
+    want_kinds = {f"{k}/warmup": 1 for k in
+                  ("apply", "fused_batch", "fused_batch_split")}
+    checks = {}
+    ref = enc[1]["embedding"]
+    for k, e in enumerate(enc):
+        tag = f"encoder_{e['arm']}{k}"
+        checks[f"{tag}_bit_equal"] = bool(np.array_equal(e["embedding"],
+                                                         ref))
+        checks[f"{tag}_finite"] = bool(np.isfinite(e["embedding"]).all())
+        checks[f"{tag}_k1_12_per_batch"] = (
+            e["flash_attention_launches"] == LAYERS * COMPILE_REQUESTS)
+        checks[f"{tag}_table"] = (e["warmup"]["by_kind"] == want_kinds
+                                  and e["warmup"]["sealed"])
+        checks[f"{tag}_none_after_serving"] = (
+            e["served"]["total"] == e["warmup"]["total"]
+            and e["served"]["unexpected"] == 0)
+        # apply's graph and the one both fused kinds replay
+        checks[f"{tag}_graphs"] = e["graphs"] == (
+            2 if e["arm"] == "graphs" else 0)
+    forced = enc[-1]["forced"]
+    checks["forced_counter"] = forced["unexpected"] == 1
+    checks["forced_serving_phase"] = (forced["last"]["phase"] == "serving"
+                                      and forced["last"]["kind"] == "apply")
+    checks["forced_warning"] = len(forced["warnings"]) == 1
+    checks["forced_span"] = (len(forced["compile_spans"]) == 1
+                             and forced["compile_spans"][0]["kernel"]
+                             == "apply")
+    checks["forced_metrics"] = forced["metrics_unexpected"] == 1
+    checks["forced_families"] = {
+        "client_tpu_runtime_compile_seconds",
+        "client_tpu_runtime_compiles_total",
+        "client_tpu_runtime_unexpected_compiles_total",
+        "client_tpu_runtime_warmup_compiles_total",
+        "client_tpu_runtime_warmup_compile_seconds_total",
+        "client_tpu_runtime_model_memory_bytes",
+        "client_tpu_runtime_device_memory_bytes"} == set(
+        forced["runtime_families"])
+    checks["forced_lint"] = forced["lint_errors"] == []
+    for layout in ("slot", "paged"):
+        pair = {e["arm"]: e for e in eng if e["layout"] == layout}
+        checks[f"{layout}_streams_equal"] = (pair["graphs"]["streams"]
+                                             == pair["eager"]["streams"])
+        for arm, e in pair.items():
+            tag = f"{layout}_{arm}"
+            want = (LAYERS * GEN_CHUNK * e["chunk_dispatches"]
+                    if layout == "paged" else 0)
+            checks[f"{tag}_k2"] = (e["paged_decode_attention_launches"]
+                                   == want)
+            checks[f"{tag}_sealed"] = e["table"]["sealed"]
+            checks[f"{tag}_no_unexpected"] = (
+                e["table"]["unexpected"] == 0
+                and e["after_profile"]["unexpected"] == 0)
+            checks[f"{tag}_graphs"] = e["graphs"] == (
+                e["table"]["total"] if arm == "graphs" else 0)
+    for e in enc:
+        e["embedding_max_abs"] = float(np.abs(e.pop("embedding")).max())
+    for e in eng:
+        e["streamed_tokens"] = sum(len(x) for x in e.pop("streams"))
+    result = {"phase": "compile", "encoder": enc, "engine": eng,
+              "checks": checks, "forced_unexpected_compiles": 1}
+    emit(result)
+    if not all(checks.values()):
+        fail(f"compile: {[k for k, v in checks.items() if not v]}")
+    return result
+
+
 def _shared_prefix_jobs() -> list:
     """The shared-prefix workload as the port's perf DataLoader builds it,
     PREFIX_REQUESTS (prompt, budget) jobs rotating over its streams."""
@@ -2045,7 +2374,8 @@ def _serve_stream_context(label: str, cfg, params, jobs: list,
     Event their callback sets on their CANCEL_AT-th token, the rest plain.
     The cancelled streams go first; once all of them have a first token,
     the timed streams go with a timeout of TRIP_DISPATCHES dispatches at
-    the engine's pace during that TTFT, then the plain ones. Checks every
+    the engine's pace during that TTFT (at least that TTFT), then the
+    plain ones. Checks every
     stream's ending and the engine's counters, slots, pins and pool after
     the drain; the greedy streams (partial ones included) go to
     ``_judge_greedy``. With ``warm`` every prompt is served
@@ -2151,7 +2481,11 @@ def _serve_stream_context(label: str, cfg, params, jobs: list,
         # round only
         dispatch_ns = (float(np.median(np.diff(window))) if len(window) > 1
                        else ttft_ns)
-        timeout_us = int(TRIP_DISPATCHES * dispatch_ns / 1e3)
+        # no sooner than the cancelled streams' median TTFT: a stream
+        # trips in its slot only if it was admitted before its deadline,
+        # and at graph speed the round that admits a burst of arrivals
+        # can take longer than TRIP_DISPATCHES dispatches at the pace
+        timeout_us = int(max(TRIP_DISPATCHES * dispatch_ns, ttft_ns) / 1e3)
         t_plain = time.monotonic_ns()
         threads += start(timed, timeout_us=timeout_us)
         threads += start(plain)
@@ -3335,14 +3669,26 @@ SUP_DECODING, SUP_ENCODER_REQUESTS, PROFILE_S, PROFILE_TRIES = 8, 24, 1.0, 3
 PROFILE_PROCESS_S = 300
 # the stalled streams' budget: with a prompt of 8 to 63 tokens each takes
 # 8 to 12 chunk dispatches, so each still holds its slot when the delay
-# lands, one or two dispatches after the STALL_AFTER-th (80 ms or more of
-# host time each, past the watchdog's 0.25 s sampling interval)
-STALL_BUDGET, STALL_AFTER = 120, 4
+# lands on the dispatch after the STALL_AFTER-th; those STALL_AFTER are
+# held STALL_PACE_S each (a graph replay takes a few ms of host), so the
+# watchdog's 0.25 s sampling has a busy sample from before the stall
+STALL_BUDGET, STALL_AFTER, STALL_PACE_S = 120, 4, 0.08
 # K2's kernel symbol in ops/csrc/paged_attention.cu, as a profile names it
 K2_KERNEL = "paged_decode_kernel"
-# the rebuilt engine's warm chunks (greedy and sampled, all slots
-# inactive), each 12 x 16 K2 launches, inside the crash run's window
-WARM_CHUNKS = 2
+
+
+def _warm_chunks(engine) -> int:
+    """The all-inactive chunks an engine's readiness runs (both variants
+    at every table-width bucket of the paged layout, once on the slot
+    layout), each 12 x 16 K2 launches on the paged layout: an eager warm
+    launch before each capture."""
+    from client_tpu_torch.server.kv_cache import block_count_buckets
+
+    if engine._kv_layout != "paged":
+        return 2
+    return 2 * len(block_count_buckets(engine._cfg.max_seq
+                                       // engine._kv_block_len))
+
 WATCHDOG_ARMS = ("watchdog_on", "watchdog_off", "watchdog_on",
                  "watchdog_off")
 
@@ -3557,7 +3903,7 @@ def _supervise_serve(gen_model: tuple, tmp: str) -> dict:
         new_chunks = _chunks(rebuilt)
         refused = [r for r in crash["refusals"] if r]
         want_k2 = LAYERS * GEN_CHUNK * (dead_chunks + new_chunks
-                                        + WARM_CHUNKS)
+                                        + _warm_chunks(rebuilt))
         if rebuilt is first or sup.restarts != 1 or len(refused) < \
                 SUP_DECODING or any(s != 503 or h is None
                                     for r in refused for s, h in r) \
@@ -3565,7 +3911,8 @@ def _supervise_serve(gen_model: tuple, tmp: str) -> dict:
                 or crash["k2"] != want_k2 or "healthy" not in marks:
             fail(f"supervise: crash run restarts {sup.restarts}, "
                  f"{len(refused)} refused {refused[:3]}, K2 {crash['k2']} "
-                 f"for {dead_chunks} + {new_chunks} + {WARM_CHUNKS} chunk "
+                 f"for {dead_chunks} + {new_chunks} + "
+                 f"{_warm_chunks(rebuilt)} chunk "
                  f"dispatches, marks {marks}")
         # a resubmitted stream shares its rounds with other streams than
         # in the clean run; a slot's K2 output follows its own blocks
@@ -3682,14 +4029,19 @@ def _supervise_serve(gen_model: tuple, tmp: str) -> dict:
                           "memory_allocated_after_reload":
                               torch.cuda.memory_allocated()}
 
-        # (d) one dispatch held past the stall wall, armed once the
-        # traced streams have run STALL_AFTER dispatches (so the watchdog
-        # holds a busy sample from before the stall)
+        # (d) one dispatch held past the stall wall: the traced streams'
+        # first STALL_AFTER dispatches paced, so the watchdog holds a busy
+        # sample from before the stall, and the next one held
         engine = model.engine
         traces = [trace_mod.Trace(f"stall-{i}", "continuous_lm", "1")
                   for i in range(4)]
         c0 = engine._chunks_dispatched
         stall_errors: list = []
+        on_lm = {"engine": "continuous_lm"}
+        inj.arm([{"point": "kernel_delay", "after": 0, "times": STALL_AFTER,
+                  "delay_s": STALL_PACE_S, "match": on_lm},
+                 {"point": "kernel_delay", "after": 0, "times": 1,
+                  "delay_s": STALL_DELAY_S, "match": on_lm}])
 
         def traced(i):
             try:
@@ -3703,15 +4055,11 @@ def _supervise_serve(gen_model: tuple, tmp: str) -> dict:
         ths = [threading.Thread(target=traced, args=(i,)) for i in range(4)]
         for th in ths:
             th.start()
-        if not _wait_for(lambda: engine._chunks_dispatched
-                         >= c0 + STALL_AFTER, 120):
-            fail("supervise: the stalled streams never dispatched")
-        inj.arm([{"point": "kernel_delay", "after": 0, "times": 1,
-                  "delay_s": STALL_DELAY_S,
-                  "match": {"engine": "continuous_lm"}}])
         for th in ths:
             th.join(timeout=120)
         inj.clear()
+        if engine._chunks_dispatched < c0 + STALL_AFTER + 1:
+            fail("supervise: the stalled streams never reached the stall")
         counts = model.incident_snapshot()["counts"]
         stalls = [i for i in model.incident_snapshot()["incidents"]
                   if i["detector"] == "engine_stall"]
@@ -5479,28 +5827,42 @@ def _fleet_workload(vocab: int, seed: int = 7) -> dict:
 
 @contextlib.contextmanager
 def _k2_by_thread(tally: dict):
-    """Tally K2 calls by the calling thread (each replica's engine runs on
-    its own; keyed by the Thread object, whose identity, unlike an ident,
-    is never reused): the transformer's reference to the wrapper is
-    wrapped for the block, and the wrapper itself still counts every
-    launch."""
+    """Tally K2 launches by the launching thread (each replica's engine
+    runs on its own; keyed by the Thread object, whose identity, unlike an
+    ident, is never reused): the transformer's reference to the wrapper
+    is wrapped for the block (an eager launch; a call inside a CUDA-graph
+    capture launches nothing), and so is the graph replay (its capture's
+    K2 launches); the wrapper's own counter still counts every launch."""
     from client_tpu_torch.models import transformer as t
+    from client_tpu_torch.ops import paged_attention as pa
+    from client_tpu_torch.server import runtime_stats as rs
 
-    real = t.paged_decode_attention
+    real, replay = t.paged_decode_attention, rs._Graph.replay
     lock = threading.Lock()
+
+    def add(n):
+        with lock:
+            key = threading.current_thread()
+            tally[key] = tally.get(key, 0) + n
 
     def counted(*args, **kw):
         out = real(*args, **kw)
-        with lock:
-            key = threading.current_thread()
-            tally[key] = tally.get(key, 0) + 1
+        if not torch.cuda.is_current_stream_capturing():
+            add(1)
+        return out
+
+    def replayed(graph, *args, **kw):
+        out = replay(graph, *args, **kw)
+        add(sum(n for c, n in graph.launches if c is pa._launches))
         return out
 
     t.paged_decode_attention = counted
+    rs._Graph.replay = replayed
     try:
         yield
     finally:
         t.paged_decode_attention = real
+        rs._Graph.replay = replay
 
 
 def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
@@ -5602,7 +5964,7 @@ def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
                 new = fleet.replicas[0].engine
                 seen[id(new)] = new
                 # the fresh engine's first submit, if it gets one, readies
-                # it with its two warm chunk launches, which no dispatch
+                # it with its warm chunks' launches, which no dispatch
                 # counts (None: counted at the end)
                 before[id(new)] = None
                 owner[id(new)] = 0
@@ -5622,7 +5984,7 @@ def _fleet_arm(label: str, cfg, params, work: dict, replicas: int,
         for key, eng in seen.items():
             base = before[key]
             if base is None:
-                base = -WARM_CHUNKS if eng._started else 0
+                base = -_warm_chunks(eng) if eng._started else 0
             n = eng.stats()["dispatch_by_kind"]["chunk"]["dispatches"] \
                 - base
             chunks[owner[key]] = chunks.get(owner[key], 0) + n
@@ -5910,7 +6272,7 @@ class _FleetWatch:
         for r in self.fleet.replicas:
             eng = r.engine
             self.live.setdefault(id(eng), (r.idx, eng))
-            self.base.setdefault(id(eng), -WARM_CHUNKS)
+            self.base.setdefault(id(eng), -_warm_chunks(eng))
             self.routed[r.idx] = r.routed
             th = getattr(eng, "_thread", None)
             if th is not None:
@@ -6222,15 +6584,23 @@ def _verdict(d: dict) -> dict:
 def _autoscale_canary(cfg, params) -> dict:
     """(b) the canary arm: two replicas pinned, a 50 % tenant split; a
     kernel_delay on the next replica's engine must roll back, and the same
-    rollout with the fault cleared must promote."""
+    rollout with the fault cleared must promote. Each rollout's tenants
+    send prompts of their own (a seed per rollout), so the fresh canary
+    and the stable replicas both start it with cold prefix caches: with
+    graph-speed dispatch a prefix hit is most of a TTFT, and a canary
+    judged on its TTFT p95 against stable replicas that cached its
+    workload in the rollout before would read the cold cache as a
+    regression."""
     from client_tpu_torch.ops import paged_attention as pa
     from client_tpu_torch.server import trace as trace_mod
     from client_tpu_torch.server.faultinject import get_injector
 
     canary_tenants, stable_tenants = _split_tenants(
         CANARY_GATES["split_pct"], 4, 4)
-    work = _autoscale_workload(cfg.vocab_size,
-                               canary_tenants + stable_tenants)
+    works = {phase: _autoscale_workload(cfg.vocab_size,
+                                        canary_tenants + stable_tenants,
+                                        seed=7 + k)
+             for k, phase in enumerate(("regressed", "clean"))}
     mem_before = _quiet_allocated()
     torch.cuda.reset_peak_memory_stats()
     model = _autoscale_model("canary_lm", cfg, params, 2, AUTOSCALE_PINNED,
@@ -6240,7 +6610,7 @@ def _autoscale_canary(cfg, params) -> dict:
     streams, errors, tally, rounds = {}, [], {}, []
     phases = {}
     try:
-        _warm_fleet(model, work[canary_tenants[0]][0])
+        _warm_fleet(model, works["regressed"][canary_tenants[0]][0])
         mem_two = _allocated()
         watch = _FleetWatch(fleet)
         with _k2_by_thread(tally):
@@ -6260,7 +6630,8 @@ def _autoscale_canary(cfg, params) -> dict:
                     fail(f"canary: the canary is replica {cidx}, expected "
                          f"{next_idx}, whose engine the fault names")
                 mine, errs = {}, []
-                threads = _tenant_threads(fleet, work, lambda t: "gold",
+                threads = _tenant_threads(fleet, works[phase],
+                                          lambda t: "gold",
                                           mine, errs)
                 for th in threads:
                     th.start()
@@ -6301,7 +6672,8 @@ def _autoscale_canary(cfg, params) -> dict:
     label = "autoscale canary"
     by_replica = _arm_k2(label, watch, tally, k2)
     flat = {(f"{p}:{t}", k): v for (p, t, k), v in streams.items()}
-    flat_work = {f"{p}:{t}": work[t] for p in phases for t in work}
+    flat_work = {f"{p}:{t}": works[p][t] for p in phases
+                 for t in works[p]}
     greedy = _arm_streams(label, flat, errors, flat_work, watch.routed,
                           by_replica)
     acts = [d["action"] for d in ctl_snap["decisions"]]
@@ -6893,7 +7265,8 @@ def _supervised_arm(cfg, params, jobs: list, mesh, device: str) -> dict:
             "dead_engine_chunk_dispatches": dead,
             "rebuilt_engine_chunk_dispatches": new,
             "paged_decode_attention_launches": k2,
-            "k2_want": LAYERS * GEN_CHUNK * (dead + new + WARM_CHUNKS),
+            "k2_want": LAYERS * GEN_CHUNK * (dead + new
+                                             + _warm_chunks(rebuilt)),
             "memory_allocated": {"before_crash": mem_before,
                                  "after_drain": mem_after},
             "pool_bytes": cfg.n_layers * 2 * GEN_POOL * GEN_BLOCK
@@ -6968,7 +7341,16 @@ def _mesh_rank(rank: int, world: int, layers: int, device: str) -> dict:
         "mesh": _mesh_engine_arm(cfg, params, jobs, mesh, device)}
     out["planes"] = _mesh_planes(cfg, params, jobs, mesh, device)
     out["dryrun"] = dryrun_steps(1, device)
+    out["unexpected_compiles"] = _rank_unexpected()
     return out
+
+
+def _rank_unexpected() -> int:
+    """Serving-phase compiles in this process so far (a rank process's own
+    count, which the main process cannot read)."""
+    from client_tpu_torch.server import runtime_stats
+
+    return runtime_stats.unexpected_compiles
 
 
 def phase_mesh(env: dict) -> dict:
@@ -7035,7 +7417,8 @@ def phase_mesh(env: dict) -> dict:
               "checks": checks,
               "paged_decode_attention_launches":
                   mesh["paged_decode_attention_launches"],
-              "flash_attention_launches": enc["flash_attention_launches"]}
+              "flash_attention_launches": enc["flash_attention_launches"],
+              "rank_unexpected_compiles": r["unexpected_compiles"]}
     emit(result)
     if not all(checks.values()):
         fail(f"mesh: {checks}")
@@ -7070,7 +7453,7 @@ def _fleet_mesh_rank(rank: int, world: int, layers: int,
         arm.pop("greedy_streams")
         arm["side"] = side
         out.append(arm)
-    return out
+    return {"runs": out, "unexpected_compiles": _rank_unexpected()}
 
 
 def phase_fleet_mesh(env: dict) -> dict:
@@ -7079,8 +7462,9 @@ def phase_fleet_mesh(env: dict) -> dict:
     from client_tpu_torch.parallel.collectives import run_ranks
 
     backend = "nccl" if MESH_DEVICE == "cuda" else "gloo"
-    (runs,) = run_ranks(_fleet_mesh_rank, 1, backend, MESH_TIMEOUT_S,
+    (rank,) = run_ranks(_fleet_mesh_rank, 1, backend, MESH_TIMEOUT_S,
                         args=(LAYERS, MESH_DEVICE))
+    runs = rank["runs"]
     want = runs[0]["tokens"]
     checks = {}
     for k, arm in enumerate(runs):
@@ -7103,6 +7487,7 @@ def phase_fleet_mesh(env: dict) -> dict:
 
     result = {"phase": "fleet_mesh", "card": env["nvidia_smi"],
               "runs": runs, "checks": checks,
+              "rank_unexpected_compiles": rank["unexpected_compiles"],
               "tokens_per_s_ratio": mean("mesh", "tokens_per_s")
               / mean("plain", "tokens_per_s"),
               "host_ms_per_dispatch_ratio":
@@ -7819,12 +8204,26 @@ def main() -> int:
         fail("client_tpu_torch/ops/csrc is missing beside chip_smoke.py: "
              "run it from a checkout of the repository")
     sys.path.insert(0, REPO)
+    from client_tpu_torch.server import runtime_stats
+
     seconds = {}
 
     def timed(name, fn, *args):
+        """Run a phase; print its serving-phase unexpected compiles (this
+        process's, its rank processes' and none it forced on purpose),
+        which must be 0."""
         t0 = time.time()
+        c0 = runtime_stats.unexpected_compiles
         out = fn(*args)
         seconds[name] = time.time() - t0
+        n = runtime_stats.unexpected_compiles - c0
+        if isinstance(out, dict):
+            n += out.get("rank_unexpected_compiles", 0)
+            n -= out.get("forced_unexpected_compiles", 0)
+        emit({"phase": "compiles", "of": name, "unexpected_compiles": n,
+              "seconds": seconds[name]})
+        if n:
+            fail(f"{name}: {n} serving-phase unexpected compile(s)")
         return out
 
     env = phase_env()
@@ -7837,6 +8236,7 @@ def main() -> int:
     gen_model = timed("generation_model", _generation_model)
     generate = timed("generate", phase_generate, gen_model)
     generate_slot = timed("generate_slot", phase_generate_slot, gen_model)
+    timed("compile", phase_compile, gen_model)
     generate_prefix = timed("generate_prefix", phase_generate_prefix,
                             gen_model)
     stream_context = timed("stream_context", phase_stream_context, gen_model)

@@ -499,8 +499,9 @@ class ContinuousModel(PyModel):
         return self.engine.scheduler_snapshot()
 
     def runtime_observability(self) -> dict:
-        """The runtime block (memory ledger, liveness) for
-        ``GET /v2/debug/runtime``."""
+        """The runtime block (compile table, memory ledger, liveness) for
+        the ``client_tpu_runtime_*`` families and ``GET
+        /v2/debug/runtime``."""
         return self.engine.runtime_snapshot()
 
     def engine_debug(self) -> dict:

@@ -519,17 +519,28 @@ def forward(cfg: TransformerConfig, params: dict, tokens, mesh=None) -> tuple:
 
 # ---------------------------------------------------------------- token ring
 
-def emit_into_ring(ring, counts, entry: int, toks, n_emitted) -> tuple:
+def emit_into_ring(ring, counts, entry, toks, n_emitted) -> tuple:
     """Write one dispatch's emitted tokens into ring entry ``entry`` of the
     device-resident token ring the generation engine fetches from.
 
     ring [E, S, W] int32, counts [E, S] int32, toks [S, w] with w <= W
-    (zero-padded to W), n_emitted [S]. The reference returns new arrays;
-    here the ring is updated IN PLACE and returned. A fetch enqueued on
-    the same stream before a later write still reads the earlier values:
-    stream order is what keeps the two apart (the reference had array
-    immutability for that)."""
+    (zero-padded to W), n_emitted [S]. ``entry`` is a host int or an
+    integer index tensor [1] on the ring's device (the engine's CUDA
+    graphs take the entry as data, not as a baked-in constant). The
+    reference returns new arrays; here the ring is updated IN PLACE and
+    returned. A fetch enqueued on the same stream before a later write
+    still reads the earlier values: stream order is what keeps the two
+    apart (the reference had array immutability for that)."""
     w = toks.shape[-1]
+    if isinstance(entry, torch.Tensor):
+        # device ops only (a host scalar written through a tensor index
+        # is a host copy, which a graph capture refuses)
+        idx = entry.long().reshape(1)
+        row = torch.nn.functional.pad(toks.to(ring.dtype),
+                                      (0, ring.shape[-1] - w))
+        ring.index_copy_(0, idx, row[None])
+        counts.index_copy_(0, idx, n_emitted.to(counts.dtype)[None])
+        return ring, counts
     ring[entry, :, :w] = toks.to(ring.dtype)
     if w < ring.shape[-1]:
         ring[entry, :, w:] = 0

@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -35,6 +36,41 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 _loaded: dict = {}
 _lock = threading.Lock()
+# every kernel module's LaunchCounter, in the order the modules loaded
+COUNTERS: list = []
+
+
+class LaunchCounter:
+    """The launch count of the kernel module ``module``, kept in that
+    module's global ``launches`` (which a run reads and resets).
+    ``count()`` is called where the wrapper launches its kernel, and only
+    there. A launch made while this thread's stream captures a CUDA graph
+    launches nothing: it is recorded (``recorded()``), and each replay of
+    the graph adds what its capture recorded (``add``,
+    server/runtime_stats.py)."""
+
+    def __init__(self, module: str):
+        self.module = module
+        self._lock = threading.Lock()
+        self._recorded = threading.local()
+        COUNTERS.append(self)
+
+    def count(self) -> None:
+        import torch
+
+        if torch.cuda.is_current_stream_capturing():
+            self._recorded.n = self.recorded() + 1
+            return
+        self.add(1)
+
+    def recorded(self) -> int:
+        """Launches this thread recorded into CUDA graph captures."""
+        return getattr(self._recorded, "n", 0)
+
+    def add(self, n: int) -> None:
+        mod = sys.modules[self.module]
+        with self._lock:
+            mod.launches += n
 
 
 def nvcc_path() -> str:

@@ -16,13 +16,14 @@ and gets the same result. f32 runs on the CUDA cores. The design and the
 bound on the card are noted at the top of the CUDA source.
 
 ``launches`` counts the kernel's launches (and only those), so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel. A launch recorded into a
+CUDA graph capture is not one: each replay of the graph adds the launches
+its capture recorded (``_build.LaunchCounter``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -33,7 +34,7 @@ MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
-_count_lock = threading.Lock()
+_launches = _build.LaunchCounter(__name__)
 
 
 def _bind(lib) -> None:
@@ -74,7 +75,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """q/k/v: [B, L, H, D] (self-attention). Returns [B, L, H, D] in q's
     dtype: the CUDA kernel on the card, the plain version on the CPU."""
-    global launches
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal)
@@ -95,8 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err} ({msg})")
-    with _count_lock:
-        launches += 1
+    _launches.count()
     return o
 
 

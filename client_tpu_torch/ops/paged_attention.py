@@ -22,13 +22,14 @@ Under an engine's tp×dp mesh it runs at the rank's block: q [S/dp, H/tp,
 Dh] against pools of Hkv/tp heads, any H a multiple of Hkv.
 
 ``launches`` counts the kernel's launches (and only those), so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel. A launch recorded into a
+CUDA graph capture is not one: each replay of the graph adds the launches
+its capture recorded (``_build.LaunchCounter``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -40,7 +41,7 @@ MASK_VALUE = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
-_count_lock = threading.Lock()
+_launches = _build.LaunchCounter(__name__)
 
 
 def _bind(lib) -> None:
@@ -92,7 +93,6 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     int32, the position each slot attends up to (rows past it are
     masked). Returns [S, H, Dh] in q's dtype: the CUDA kernel on the card,
     the plain version on the CPU."""
-    global launches
     _check(q, k_pool, v_pool, tables, pos)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pool, v_pool, tables,
@@ -123,8 +123,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err} ({msg})")
-    with _count_lock:
-        launches += 1
+    _launches.count()
     return o
 
 

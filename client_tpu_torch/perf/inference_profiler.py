@@ -65,8 +65,8 @@ class ServerSideStats:
 class ServerMetricsStats:
     """Deltas scraped from the server's Prometheus /metrics plane around
     the measurement window. The fleet families are read when the model
-    runs a replica fleet; the fields of the namespace the port does not
-    export yet (the runtime one, with its compile set) stay at their
+    runs a replica fleet, the runtime ones (its compile set) when the
+    server exports them; absent families leave their fields at their
     defaults with their ``*_scraped`` flag False."""
 
     scraped: bool = False
@@ -151,8 +151,9 @@ class ServerMetricsStats:
     spec_rounds: int = 0
     spec_acceptance_gauge: float = 0.0   # rolling EWMA at window end
     # runtime (compile/memory) families (client_tpu_runtime_*): present
-    # when the profiled model carries a compile set (none in the port
-    # yet). Compile deltas over the window must be 0 on a warmed server
+    # when a served model carries a compile set (every TorchModel and
+    # generation engine). Compile deltas over the window must be 0 on a
+    # warmed server
     # — a non-zero count means a mid-serving compile stole wall time
     # per-tenant SLO families (client_tpu_slo_*): present only when
     # the profiled model carries the SLO stats plane. One row per
@@ -371,8 +372,8 @@ class InferenceProfiler:
                  min_goodput: float = 0.0):
         """The window gates, as the reference's (``_window_violation``):
         ``fail_on_window_compiles`` fails a window that saw a
-        serving-phase compile (it cannot fire yet: the port exports no
-        compile counter). ``retire_share_ceiling`` is the largest share
+        serving-phase compile (a CUDA-graph capture after the model
+        sealed its compile set). ``retire_share_ceiling`` is the largest share
         of the generation engine's phase wall the retire phases may take
         in a busy window whose dispatches per ring fetch fell well below
         the configured stride (0 disables). ``prefill_share_ceiling`` is
@@ -1206,9 +1207,8 @@ class InferenceProfiler:
                     out.watchdog_incidents[det] = d
             out.watchdog_ring_depth = self._metric_sum(
                 after, "client_tpu_watchdog_incident_ring_depth")
-        # runtime families: present when the profiled model carries a
-        # compile set (the compiles counter doubles as the signal; the
-        # port exports none yet)
+        # runtime families: present when a served model carries a
+        # compile set (the compiles counter doubles as the signal)
         if any(n == "client_tpu_runtime_compiles_total"
                for n, _l, _v in after.get("samples", [])):
             out.runtime_scraped = True

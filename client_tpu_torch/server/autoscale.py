@@ -570,8 +570,8 @@ class FleetController:
             victim = self._scale_down_pick(sig)
             if victim is not None:
                 # the detached engine's count of unexpected compiles
-                # rides into the decision (the port's eager engines keep
-                # no compile set, so theirs reads 0)
+                # rides into the decision: scale-down must not hide a
+                # replica that compiled during serving
                 compiles = getattr(
                     getattr(victim.engine, "compile_watch", None),
                     "unexpected", 0)

@@ -77,7 +77,10 @@ from client_tpu_torch.server.cache import ResponseCache
 from client_tpu_torch.server.config import ModelConfig
 from client_tpu_torch.server.metrics import render_server_metrics
 from client_tpu_torch.server.model import ServedModel
-from client_tpu_torch.server.runtime_stats import device_memory_stats
+from client_tpu_torch.server.runtime_stats import (
+    device_memory_stats,
+    graph_launches_paused,
+)
 from client_tpu_torch.server.scheduler import Pending, make_scheduler
 from client_tpu_torch.server.shm import CudaShmRegistry, SystemShmRegistry
 from client_tpu_torch.server.stats import ModelStats
@@ -433,7 +436,8 @@ class TorchInferenceServer:
     def debug_runtime(self) -> dict:
         """The runtime plane: the card's memory from the caching
         allocator (empty without CUDA) and, for every model with a
-        runtime block, its memory ledger and engine liveness."""
+        runtime block, its compile table, memory ledger and engine
+        liveness."""
         with self._lock:
             entries = [(name, str(e.version), e)
                        for name, versions in self._models.items()
@@ -604,9 +608,17 @@ class TorchInferenceServer:
                 # ops; the card's kernels are recorded from every thread
                 config = None
             t0 = time.monotonic()
-            with profile(activities=activities, experimental_config=config,
-                         on_trace_ready=tensorboard_trace_handler(log_dir)):
+            prof = profile(activities=activities, experimental_config=config)
+            # CUPTI is turned on and off between CUDA graph launches, and
+            # the trace is written after, with the graphs running again
+            with graph_launches_paused():
+                prof.start()
+            try:
                 time.sleep(duration_s)
+            finally:
+                with graph_launches_paused():
+                    prof.stop()
+            tensorboard_trace_handler(log_dir)(prof)
             return {"log_dir": log_dir,
                     "duration_s": round(time.monotonic() - t0, 3)}
         finally:

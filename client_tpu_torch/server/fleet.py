@@ -36,9 +36,10 @@ families (``server/metrics.py``) and ``GET /v2/debug/fleet``;
 ``generation_snapshot`` and ``runtime_snapshot`` merge the replicas'
 planes so the model-level families read fleet-wide truth; a sampled
 trace carries ``FLEET_ROUTE`` (and one ``FLEET_REROUTE`` per bounce).
-The port's engines have no compile set, so a replica row's
-``unexpected_compiles`` is None and the merged runtime block holds the
-memory ledger, liveness and goodput.
+A replica row carries its engine's count of unexpected compiles, and the
+merged runtime block sums the replicas' compile totals and merges their
+per-kind compile histograms beside the memory ledger, liveness and
+goodput.
 """
 
 from __future__ import annotations
@@ -892,8 +893,7 @@ class ReplicaFleet:
                     "affinity_hits": r.affinity_hits,
                     "drains": r.drains,
                     "sketch_blocks": self._affinity.size(r.idx),
-                    # the port's engines have no compile set
-                    "unexpected_compiles": None,
+                    "unexpected_compiles": eng.compile_watch.unexpected,
                     "restarts": (r.sup.restarts if r.sup is not None
                                  else 0),
                     "crash_looped": (r.sup.crash_looped
@@ -964,15 +964,39 @@ class ReplicaFleet:
         return merged
 
     def runtime_snapshot(self) -> dict:
-        """Fleet-merged runtime plane: the card-memory ledger summed
-        across replicas by component, liveness and the merged goodput
-        block (the port's engines have no compile table to merge)."""
+        """Fleet-merged runtime plane (compile totals and the card-memory
+        ledger summed across replicas; per-kind compile histograms merged
+        bucket-wise), liveness and the merged goodput block. Per-replica
+        compile tables live in each replica's engine debug snapshot."""
         snaps = [r.engine.runtime_snapshot() for r in self._replicas]
+        hist: dict = {}
+        for s in snaps:
+            for kind, (counts, sum_s, count) in (s.get("hist")
+                                                 or {}).items():
+                if kind in hist:
+                    acc = hist[kind]
+                    acc[0] = [a + b for a, b in zip(acc[0], counts)]
+                    acc[1] += sum_s
+                    acc[2] += count
+                else:
+                    hist[kind] = [list(counts), sum_s, count]
         memory: dict = {}
         for s in snaps:
             for component, nbytes in (s.get("memory") or {}).items():
                 memory[component] = memory.get(component, 0) + nbytes
         return {
+            "sealed": all(s.get("sealed", False) for s in snaps),
+            "total_compiles": sum(s.get("total_compiles", 0)
+                                  for s in snaps),
+            "unexpected_compiles": sum(s.get("unexpected_compiles", 0)
+                                       for s in snaps),
+            "warmup_compiles": sum(s.get("warmup_compiles", 0)
+                                   for s in snaps),
+            "warmup_compile_seconds": round(
+                sum(s.get("warmup_compile_seconds", 0.0)
+                    for s in snaps), 6),
+            "compiles": [],
+            "hist": {k: (v[0], v[1], v[2]) for k, v in hist.items()},
             "memory": memory,
             "engine_up": self.healthy(),
             "goodput": merge_goodput([s.get("goodput")

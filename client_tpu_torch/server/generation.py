@@ -140,8 +140,24 @@ loop, ``kernel_delay`` before a dispatch, ``ring_fetch`` at the ring's
 D2H collect and ``queue_full`` at the submit door. A dead engine answers
 a submit with the reference's three 503s (restarting, with
 ``Retry-After``; breaker tripped; unsupervised), and notifies its
-``EngineSupervisor`` (``server/supervision.py``) last. The one signal the
-port cannot read yet is None: ``unexpected_compiles`` (no compile set).
+``EngineSupervisor`` (``server/supervision.py``) last.
+
+Compile plane (``server/runtime_stats.py``): every device entry point is
+watched under the reference's kind name (``chunk_kernel`` and
+``chunk_kernel_greedy`` or their ``paged_`` pair, ``prefill``,
+``prefill_chunk``, ``lane_handoff``, ``lane_batch``, ``pool_to_slot``,
+``slot_to_pool``, ``tier_spill``, ``tier_restore``, ``draft_prefill`` and
+the ``spec_kernel`` rungs), keyed on the shapes that select the
+reference's executables, and the readiness warms every bucket the
+reference warms before it seals the set. On the card without a mesh the
+chunk steps run as CUDA graphs, one per layout variant and table-width
+bucket: the host inputs of a dispatch, packed into one pinned buffer
+with the ring entry as a device index, are copied straight into the
+graph's static input buffer, and the steps write the KV state, the ring,
+the positions and the pending tokens IN PLACE, so no tensor a graph reads
+is ever rebound. The other kinds run eagerly; their first call per
+signature is their recorded compile. ``unexpected_compiles`` is a
+watchdog signal, and a stopped or dead engine frees its graphs.
 
 Goodput plane (``server/goodput.py``): every dispatch site notes its kind
 and its useful and wasted FLOPs (the closed forms of
@@ -214,9 +230,11 @@ every replica's collectives in the order of its plans
 from __future__ import annotations
 
 import collections
+import functools
 import itertools
 import json
 import logging
+import math
 import queue
 import threading
 import time
@@ -264,7 +282,9 @@ from client_tpu_torch.server.model import (
     start_host_copies,
 )
 from client_tpu_torch.server.runtime_stats import (
+    CompileWatch,
     FlightRecorder,
+    GraphCapture,
     pytree_nbytes,
 )
 from client_tpu_torch.server.scheduling import (
@@ -309,7 +329,7 @@ def reject_unknown_knobs(knobs: dict) -> None:
 
 # ---------------------------------------------------------------- device side
 
-def _chunk_steps(step, pos, last, ring, ring_cnt, entry: int, feed, rem,
+def _chunk_steps(step, pos, last, ring, ring_cnt, entry, feed, rem,
                  active, freeze, seeds, temps, topks, topps,
                  sample: bool, dp=None) -> tuple:
     """The C uniform steps both chunk kernels share (the reference's
@@ -319,9 +339,10 @@ def _chunk_steps(step, pos, last, ring, ring_cnt, entry: int, feed, rem,
     feeds a prompt column or is not frozen; a frozen slot holds ``pos``
     and ``last`` once its prompt columns are consumed, and free slots park
     at position 0 (``freeze`` None: no slot is frozen). Writes the
-    consumed tokens [S, C] into ring entry ``entry``; returns (new last,
-    new pos). ``dp``: under a mesh the dp group, over which the slots are
-    split: the entry's rows are gathered over it into the whole ring."""
+    consumed tokens [S, C] into ring entry ``entry`` (a host int, or a
+    device index tensor [1]); returns (new last, new pos). ``dp``: under a
+    mesh the dp group, over which the slots are split: the entry's rows
+    are gathered over it into the whole ring."""
     c = feed.shape[1]
     cols = []
     for i in range(c):
@@ -351,8 +372,17 @@ def _chunk_steps(step, pos, last, ring, ring_cnt, entry: int, feed, rem,
     return last, pos
 
 
+def _write_back(last, pos, new_last, new_pos) -> tuple:
+    """A chunk's new pending tokens and positions written into the state's
+    own tensors, IN PLACE (a CUDA graph of the chunk reads and writes
+    them by identity); returns them."""
+    last.copy_(new_last)
+    pos.copy_(new_pos)
+    return last, pos
+
+
 def chunk_kernel(cfg, params: dict, cache: dict, pos, last, ring, ring_cnt,
-                 entry: int, feed, rem, active, reset, freeze, seeds, temps,
+                 entry, feed, rem, active, reset, freeze, seeds, temps,
                  topks, topps, sample: bool, mesh=None) -> tuple:
     """One engine chunk under the slot layout: C uniform steps over all S
     slots (the reference's ``chunk_kernel``), each a batched
@@ -368,22 +398,22 @@ def chunk_kernel(cfg, params: dict, cache: dict, pos, last, ring, ring_cnt,
     K/V at the held position, which its next lane chunk overwrites before
     attending); seeds/temps/topks/
     topps [S] per-slot sampling parameters; ``sample`` (host bool) False
-    takes the argmax without the sampling machinery. Returns (new last,
-    new pos). Under ``mesh`` the slot inputs and state are this rank's
-    dp block and the ring is whole."""
-    pos = torch.where(reset, torch.zeros_like(pos), pos)
+    takes the argmax without the sampling machinery. ``last`` and
+    ``pos`` are written IN PLACE and returned. Under ``mesh`` the slot
+    inputs and state are this rank's dp block and the ring is whole."""
+    pos0 = torch.where(reset, torch.zeros_like(pos), pos)
 
     def step(tok, p):
         return t.decode_step(cfg, params, tok, {**cache, "pos": p},
                              mesh=mesh)[0]
 
-    return _chunk_steps(step, pos, last, ring, ring_cnt, entry, feed, rem,
-                        active, freeze, seeds, temps, topks, topps, sample,
-                        axis_group(mesh, "dp"))
+    return _write_back(last, pos, *_chunk_steps(
+        step, pos0, last, ring, ring_cnt, entry, feed, rem, active, freeze,
+        seeds, temps, topks, topps, sample, axis_group(mesh, "dp")))
 
 
 def paged_chunk_kernel(cfg, params: dict, pool: dict, pos, last, ring,
-                       ring_cnt, entry: int, tables, feed, rem, active,
+                       ring_cnt, entry, tables, feed, rem, active,
                        reset, reset_to, freeze, seeds, temps, topks, topps,
                        sample: bool, attention=None, mesh=None) -> tuple:
     """One engine chunk under the paged layout (the reference's
@@ -394,18 +424,19 @@ def paged_chunk_kernel(cfg, params: dict, pool: dict, pos, last, ring,
     per step for every slot, frozen or free ones included).
     reset/reset_to [S]: a (re)admitted slot's position is set to reset_to
     first. ``attention`` overrides the attention function (the plain K2,
-    for example). Free slots write scratch. Returns (new last, new
-    pos). Under ``mesh`` as ``chunk_kernel``; the tables are this rank's
-    slots' and the pool this rank's heads of every block."""
-    pos = torch.where(reset, reset_to, pos)
+    for example). Free slots write scratch. ``last`` and ``pos`` are
+    written IN PLACE and returned. Under ``mesh`` as ``chunk_kernel``; the
+    tables are this rank's slots' and the pool this rank's heads of every
+    block."""
+    pos0 = torch.where(reset, reset_to, pos)
 
     def step(tok, p):
         return t.paged_decode_steps(cfg, params, tok, p, tables, pool,
                                     attention=attention, mesh=mesh)[0]
 
-    return _chunk_steps(step, pos, last, ring, ring_cnt, entry, feed, rem,
-                        active, freeze, seeds, temps, topks, topps, sample,
-                        axis_group(mesh, "dp"))
+    return _write_back(last, pos, *_chunk_steps(
+        step, pos0, last, ring, ring_cnt, entry, feed, rem, active, freeze,
+        seeds, temps, topks, topps, sample, axis_group(mesh, "dp")))
 
 
 def _select_first(logits, pos, idx: int, sampling: tuple):
@@ -1216,6 +1247,12 @@ class ContinuousBatchingEngine:
         # engine placed (filled once its state is built)
         self.flight = FlightRecorder()
         self._mem_attr: dict = {}
+        # the compile plane: every device entry point watched (the chunk
+        # steps captured as CUDA graphs on the card without a mesh); the
+        # readiness warms every bucket, then seals the set
+        self.compile_watch = CompileWatch(name)
+        self._kern: dict = {}
+        self._kinds: dict = {}
         # the goodput plane: per-kind device time by the ring-fetch
         # cadence (plus the opt-in synchronous sample every Nth dispatch)
         # and the useful-against-wasted FLOPs of every dispatch; the MFU
@@ -1669,8 +1706,7 @@ class ContinuousBatchingEngine:
         keeps (dict reads and one walk of the slot tables), so a sample
         reads no tensor and adds no synchronisation with the card. Runs
         on the engine thread at an iteration boundary, where the slot
-        tables are consistent. ``unexpected_compiles`` is None: the port
-        has no compile set yet (a None signal never breaches)."""
+        tables are consistent."""
         pool_orphan = None
         if self._paged and self._kv_index is not None:
             # blocks the allocator says live streams own, minus the blocks
@@ -1694,7 +1730,7 @@ class ContinuousBatchingEngine:
             "ring_lag": self._ring_seq - self._retired_seq,
             "pool_orphan_blocks": pool_orphan,
             "max_class_burn": self.slo_stats.max_class_burn(),
-            "unexpected_compiles": None,
+            "unexpected_compiles": self.compile_watch.unexpected,
             "spec_acceptance": (None if spec is None
                                 else spec["acceptance_rate"]),
             "spec_rounds": None if spec is None else spec["rounds"],
@@ -1707,9 +1743,10 @@ class ContinuousBatchingEngine:
     def _incident_evidence(self, detector: str, breach: dict) -> dict:
         """The bundle a firing detector records: the flight-recorder tail
         and the scheduler, goodput, SLO, paged-pool, tier, ring, lane and
-        speculation snapshots — host values only, so a bundle pins no
-        device memory of this engine in the store that outlives it.
-        ``compile`` is None (no compile set)."""
+        speculation snapshots and the compile table's summary — host
+        values only, so a bundle pins no device memory of this engine in
+        the store that outlives it."""
+        cw = self.compile_watch.snapshot()
         return {
             "flight_tail": self.flight.tail(EVIDENCE_FLIGHT_TAIL),
             "scheduler": self.scheduler_snapshot(),
@@ -1720,7 +1757,8 @@ class ContinuousBatchingEngine:
             "ring": self._ring_snapshot(),
             "prefill_lane": self._prefill_lane_snapshot(),
             "speculation": self._speculation_snapshot(),
-            "compile": None,
+            "compile": {k: cw[k] for k in
+                        ("sealed", "total_compiles", "unexpected_compiles")},
         }
 
     def _watchdog_tick(self) -> None:
@@ -1762,12 +1800,13 @@ class ContinuousBatchingEngine:
         return snap
 
     def runtime_snapshot(self) -> dict:
-        """The runtime plane's block (``GET /v2/debug/runtime``): the
+        """The runtime plane's block (the ``client_tpu_runtime_*``
+        families and ``GET /v2/debug/runtime``): the compile table, the
         card-memory ledger of what this engine placed, by component, and
-        liveness. A paged engine's pool
-        row is split at read time into the live-stream, pinned-prefix and
-        free shares of the allocator's occupancy, and the goodput
-        tracker's snapshot. There is no compile table."""
+        liveness. A paged engine's pool row is split at read time into
+        the live-stream, pinned-prefix and free shares of the allocator's
+        occupancy; the goodput tracker's snapshot rides along."""
+        snap = self.compile_watch.snapshot()
         mem = dict(self._mem_attr)
         if self._paged and self._kv_index is not None and "kv_pool" in mem:
             occ = self._kv_index.occupancy()
@@ -1775,8 +1814,10 @@ class ContinuousBatchingEngine:
             mem["kv_pool_live"] = int(per_block * occ["stream"])
             mem["kv_pool_prefix"] = int(per_block * occ["prefix"])
             mem["kv_pool_free"] = int(per_block * occ["free"])
-        return {"memory": mem, "engine_up": self.healthy(),
-                "goodput": self.goodput.snapshot()}
+        snap["memory"] = mem
+        snap["engine_up"] = self.healthy()
+        snap["goodput"] = self.goodput.snapshot()
+        return snap
 
     def debug_snapshot(self, flight_tail: int = 64) -> dict:
         """Live engine introspection (``GET
@@ -2496,13 +2537,14 @@ class ContinuousBatchingEngine:
         """Place the weights, build the KV state (the slot rows or the
         pool), positions and ring on the engine's device, with a draft the
         draft's weights and its own slot-layout state (on both layouts, as
-        in the reference), and run one all-inactive chunk of each kernel
-        variant (greedy and sampled), so the kernels' libraries are built
-        before the first request. Runs on the engine thread, and under a
-        mesh on every rank from the driver's plan. A driver that holds no
+        in the reference), and warm every watched kind at every bucket the
+        reference warms (``_warm_kernels``), so every graph is captured
+        and the kernels' libraries built before the first request. Runs
+        on the engine thread, and under a mesh on every rank from the
+        driver's plan. A driver that holds no
         shard builds the host side only (the bucket ladders) and reads the
         memory ledger and the tier's block size from the mesh's
-        reporter."""
+        reporter. Seals the compile set last."""
         if "ready" in self._dev:
             return
         self._ladders()
@@ -2524,6 +2566,12 @@ class ContinuousBatchingEngine:
             # a follower's index never evicts: the driver's plans move
             # its blocks (_op_tier_*)
             self._attach_tier()
+        # every kind and bucket is warm: the compile set is CLOSED, any
+        # further compile is a serving-phase violation
+        self.compile_watch.seal()
+        # the goodput plane's wall starts with serving, not with the
+        # captures above
+        self.goodput.start_clock()
         self._dev["ready"] = True
 
     def _ladders(self) -> None:
@@ -2562,7 +2610,7 @@ class ContinuousBatchingEngine:
     def _build_device_state(self) -> None:
         """This rank's device state (``_op_ready``), its warm-up chunks
         and its memory ledger."""
-        cfg, s, c, dev = self._cfg, self._n_slots, self._chunk, self._device
+        cfg, s, dev = self._cfg, self._n_slots, self._device
         mesh = self._mesh
         if self._paged:
             self._dev["pool"] = init_paged_pool(cfg, self._kv_pool_blocks,
@@ -2599,15 +2647,9 @@ class ContinuousBatchingEngine:
         self._dev["params"] = _to_device(self._params_host, dev)
         # the engine has no reload path: drop the caller's copy
         self._params_host = None
-        zi = np.zeros((s,), np.int32)
-        zb = np.zeros((s,), np.bool_)
-        zf = np.zeros((s,), np.float32)
-        warm = [np.zeros((s, c), np.int32), zi, zb, zb, zb, zi, zf, zi, zf]
-        if self._paged:
-            warm += [np.zeros((s, 1), np.int32), zi]
-        for sample in (False, True):
-            # every rank of a mesh runs these itself (no plan)
-            self._op_chunk(0, warm, True, sample)
+        self._watch_kernels()
+        # every rank of a mesh runs these itself (no plan)
+        self._warm_kernels()
         # the memory ledger: the big device residents this engine placed,
         # by component (the reference's rows; a paged engine has no slot
         # rows, its pool is the one KV residence)
@@ -2629,7 +2671,150 @@ class ContinuousBatchingEngine:
             self._mem_attr["draft_kv"] = pytree_nbytes(
                 (self._dev["dcache"], self._dev["dpos"]))
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            # this stream, not the whole card: a device-wide wait while
+            # another engine captures a graph would break its capture
+            torch.cuda.current_stream(dev).synchronize()
+
+    def _watch_kernels(self) -> None:
+        """Watch every device entry point under the reference's kind name.
+        The chunk steps (``_chunk_call``) are keyed on their packed inputs'
+        layout, so one signature per variant and table width, and are
+        captured as CUDA graphs on the card without a mesh; every other
+        kind runs eagerly inside ``_note``, keyed on the shapes that
+        select the reference's executable (never on a host int that is
+        data, such as a slot index or a position)."""
+        watch = self.compile_watch.watch
+        pre = "paged_" if self._paged else ""
+        graphs = self._device.type == "cuda" and self._mesh is None
+        for sample in (True, False):
+            fn = functools.partial(self._chunk_call, sample)
+            self._kern[("chunk", sample)] = watch(
+                pre + "chunk_kernel" + ("" if sample else "_greedy"), fn,
+                capture=self._chunk_capture(fn) if graphs else None)
+        kinds = {"prefill": "prefill",
+                 "prefill_chunk": pre + "prefill_chunk",
+                 "handoff": "lane_handoff",
+                 "lane_batch": pre + "lane_batch",
+                 "pool_to_slot": "pool_to_slot",
+                 "slot_to_pool": "slot_to_pool",
+                 "tier_spill": "tier_spill",
+                 "tier_restore": "tier_restore",
+                 "draft_prefill": "draft_prefill"}
+        self._kinds = dict(kinds)
+        for g in self._spec_ladder if self._spec is not None else ():
+            for sample in (True, False):
+                self._kinds[("spec", g, sample)] = (
+                    f"{pre}spec_kernel{'' if sample else '_greedy'}_g{g}")
+
+    def _note(self, name, key):
+        """Run the block as a call of eager kind ``name`` whose executable
+        ``key`` selects (``CompileWatch.note``)."""
+        return self.compile_watch.note(self._kinds[name], key)
+
+    def _chunk_capture(self, fn) -> GraphCapture:
+        """The chunk steps' capture: the graph's static input is one device
+        buffer of the packed layout, and a dispatch's feed is one
+        non-blocking H2D copy of its pinned host buffer into it. The
+        graph reads the KV state, the ring, the positions and the pending
+        tokens by identity: a feed that finds any of them rebound
+        raises."""
+        dev = self._device
+
+        def bind(packed, layout):
+            static = torch.empty(packed.shape, dtype=packed.dtype,
+                                 device=dev)
+            held = self._graph_state()
+
+            def feed(packed_now, _layout):
+                if any(a is not b for a, b in zip(self._graph_state(),
+                                                  held)):
+                    raise RuntimeError(
+                        f"generation engine '{self.name}': a tensor its "
+                        f"chunk graphs read was rebound after capture")
+                static.copy_(packed_now, non_blocking=True)
+
+            return (lambda: fn(static, layout)), feed
+
+        return GraphCapture(bind, dev)
+
+    def _graph_state(self) -> tuple:
+        """The tensors a chunk step reads and writes by identity."""
+        dev = self._dev
+        kv = dev["pool"] if self._paged else dev["cache"]
+        return (dev["params"], *kv.values(), dev["pos"], dev["last"],
+                dev["ring"], dev["ring_cnt"])
+
+    def _warm_kernels(self) -> None:
+        """Run every watched kind at every bucket the reference's warmup
+        runs, in its order, on scratch: all-inactive chunks of both
+        variants at every table width; verify rounds of no slot at every
+        rung (and width); the draft's catch-up, the batched prefill, the
+        piggyback lane's and the dedicated lane's chunks (final False) at
+        every bucket into slot 0, the paged handoff; the batched lane's
+        whole (rows x width) grid of padding rows; the slot layout's
+        prefix copies at every block count; a tier round trip of scratch
+        block 0. Every write lands on rows a real admission resets or
+        overwrites before they are read."""
+        cfg, s, c = self._cfg, self._n_slots, self._chunk
+        zi = np.zeros((s,), np.int32)
+        zb = np.zeros((s,), np.bool_)
+        zf = np.zeros((s,), np.float32)
+        ints, floats = np.zeros(2, np.int32), np.zeros(2, np.float32)
+        chunk = [np.zeros((s, c), np.int32), zi, zb, zb, zb, zi, zf, zi, zf]
+        widths = self._dev["table_buckets"] if self._paged else (None,)
+        for bw in widths:
+            tab = None if bw is None else np.zeros((s, bw), np.int32)
+            host = chunk + ([tab, zi] if self._paged else [])
+            for sample in (True, False):
+                self._op_chunk(0, host, sample)
+        if self._spec is not None:
+            for bw in widths:
+                tab = None if bw is None else np.zeros((s, bw), np.int32)
+                for g in self._spec_ladder:
+                    for sample in (True, False):
+                        self._op_spec(0, g, sample, zb, zi, zf, zi, zf, tab)
+            for b in self._dev["draft_buckets"]:
+                self._op_draft_prefill(0, np.zeros(b, np.int32), 1)
+        if self._prefill_enabled:
+            for b in self._dev["prefill_buckets"]:
+                self._op_prefill(0, np.zeros(b, np.int32), 1, ints, floats)
+        tabfull = (np.zeros((cfg.max_seq // self._kv_block_len,), np.int32)
+                   if self._paged else None)
+        if self._chunked_prefill:
+            for b in self._dev["pchunk_buckets"]:
+                self._op_prefill_chunk(0, False, np.zeros(b, np.int32), ints,
+                                       floats, tabfull, 0, 1, False)
+        if self._lane_on:
+            for b in self._dev["lane_buckets"]:
+                self._op_prefill_chunk(0, True, np.zeros(b, np.int32), ints,
+                                       floats, tabfull, 0, 1, False)
+            if self._paged:
+                self._op_handoff(0, 0)
+            if self._lane_batch:
+                for bb in self._dev["lane_b_buckets"]:
+                    zbi = np.zeros((bb,), np.int32)
+                    zbf = np.zeros((bb,), np.float32)
+                    for b in self._dev["lane_buckets"]:
+                        tabs = (np.zeros((bb, len(tabfull)), np.int32)
+                                if self._paged else None)
+                        self._op_lane_batch(
+                            np.full((bb,), self._lane_n, np.int32),
+                            np.zeros((bb, b), np.int32), zbi,
+                            np.ones((bb,), np.int32),
+                            np.zeros((bb,), np.bool_), zbi, zbf, zbi, zbf,
+                            tabs)
+        if self._prefix_index is not None and not self._paged:
+            for b in self._dev["prefix_buckets"]:
+                ids = np.zeros((b,), np.int32)
+                for lane in (False, True) if self._lane_on else (False,):
+                    self._op_restore(0, lane, ids, 0)
+                    self._op_commit(0, lane, ids, np.zeros((b,), np.int32))
+        if self._host_tier_bytes and self._kv_index is not None:
+            pool, layer_major = self._tier_pool()
+            with self._note("tier_spill", {}):
+                rows, _ready = tier_spill(pool, 0, layer_major)
+            with self._note("tier_restore", {}):
+                tier_restore(pool, 0, rows, layer_major)
 
     def _init_lane_state(self) -> None:
         """The dedicated lane's device state: positions and pending first
@@ -2684,13 +2869,15 @@ class ContinuousBatchingEngine:
 
             def spill(bid: int) -> tuple:
                 t0 = time.perf_counter()
-                out = tier_spill(pool, bid, layer_major)
+                with self._note("tier_spill", {}):
+                    out = tier_spill(pool, bid, layer_major)
                 self._phase_s["tier"] += time.perf_counter() - t0
                 return out
 
             def restore(bid: int, rows) -> None:
                 t0 = time.perf_counter()
-                tier_restore(pool, bid, rows, layer_major)
+                with self._note("tier_restore", {}):
+                    tier_restore(pool, bid, rows, layer_major)
                 self._phase_s["tier"] += time.perf_counter() - t0
 
             self._kv_index.attach_tier(tier, spill, restore)
@@ -2716,20 +2903,34 @@ class ContinuousBatchingEngine:
 
         self._kv_index.attach_tier(tier, spill_key, restore_key)
 
-    def _launch_chunk(self, entry: int, tables, feed, rem, active, reset,
+    def _chunk_call(self, sample: bool, packed, layout) -> None:
+        """One chunk step from its packed inputs (``_pack``): [entry,
+        feed, rem, active, reset, freeze, seeds, temps, topks, topps] and,
+        paged, [tables, reset_to]. ``packed`` is the pinned host buffer,
+        uploaded here, or, inside the chunk's CUDA graph, the graph's
+        static device buffer (the upload is then a no-op)."""
+        (entry, feed, rem, active, reset, freeze, seeds, temps, topks, topps,
+         *paged) = self._unpack(packed.to(self._device, non_blocking=True),
+                                layout)
+        tables, reset_to = paged or (None, None)
+        self._launch_chunk(entry, tables, feed, rem, active, reset, reset_to,
+                           freeze, seeds, temps, topks, topps, sample)
+
+    def _launch_chunk(self, entry, tables, feed, rem, active, reset,
                       reset_to, freeze, seeds, temps, topks, topps,
                       sample: bool) -> None:
         """Enqueue one chunk kernel of the engine's layout on its device
-        state (``tables`` and ``reset_to`` are the paged layout's)."""
+        state, IN PLACE (``tables`` and ``reset_to`` are the paged
+        layout's; ``entry`` the ring entry as a device index)."""
         dev = self._dev
         if self._paged:
-            dev["last"], dev["pos"] = paged_chunk_kernel(
+            paged_chunk_kernel(
                 self._cfg, dev["params"], dev["pool"], dev["pos"],
                 dev["last"], dev["ring"], dev["ring_cnt"], entry, tables,
                 feed, rem, active, reset, reset_to, freeze, seeds, temps,
                 topks, topps, sample, mesh=self._mesh)
         else:
-            dev["last"], dev["pos"] = chunk_kernel(
+            chunk_kernel(
                 self._cfg, dev["params"], dev["cache"], dev["pos"],
                 dev["last"], dev["ring"], dev["ring_cnt"], entry, feed, rem,
                 active, reset, freeze, seeds, temps, topks, topps, sample,
@@ -2780,7 +2981,7 @@ class ContinuousBatchingEngine:
         if not self._reporter:
             return
         if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+            torch.cuda.current_stream(self._device).synchronize()
         self._reply.send("sync", None)
 
     def _remote_block(self, key: str) -> None:
@@ -2822,21 +3023,17 @@ class ContinuousBatchingEngine:
         return dist.get_global_rank(axis_group(self._mesh, "dp"),
                                     idx // per)
 
-    def _op_chunk(self, entry: int, host: list, frozen: bool,
-                  sample: bool):
+    def _op_chunk(self, entry: int, host: list, sample: bool):
         """One chunk dispatch from its host inputs ``host`` = [feed, rem,
         active, reset, freeze, seeds, temps, topks, topps] (and, paged,
-        [tables, reset_to]), each cut to this rank's slots; ``frozen``
-        False passes no freeze mask. Returns ``_start_timing()``'s pair,
-        its first event recorded after the upload (as the verify
-        round's), its second after the launch."""
-        (feed, rem, active, reset, freeze, seeds, temps, topks, topps,
-         *paged) = self._upload([self._mine(a) for a in host])
-        tables, reset_to = paged or (None, None)
+        [tables, reset_to]), each cut to this rank's slots, packed with
+        ring entry ``entry`` into one pinned buffer for the watched chunk
+        (a graph replay on the card). Returns ``_start_timing()``'s pair,
+        its events recorded before the upload and after the launch."""
+        packed, layout = self._pack([np.asarray([entry], np.int32)]
+                                    + [self._mine(a) for a in host])
         timing = self._start_timing()
-        self._launch_chunk(entry, tables, feed, rem, active, reset, reset_to,
-                           freeze if frozen else None, seeds, temps, topks,
-                           topps, sample)
+        self._kern[("chunk", sample)](packed, layout)
         return self._end_timing(timing)
 
     def _op_prefill(self, idx: int, padded: np.ndarray, plen: int,
@@ -2847,10 +3044,12 @@ class ContinuousBatchingEngine:
             return
         toks, ints_d, floats_d = self._upload([padded, ints, floats])
         dev = self._dev
-        prefill_into_slot(self._cfg, dev["params"], dev["cache"], dev["pos"],
-                          dev["last"], local, toks, plen,
-                          (ints_d[0], floats_d[0], ints_d[1], floats_d[1]),
-                          mesh=self._mesh)
+        with self._note("prefill", {"toks": padded}):
+            prefill_into_slot(
+                self._cfg, dev["params"], dev["cache"], dev["pos"],
+                dev["last"], local, toks, plen,
+                (ints_d[0], floats_d[0], ints_d[1], floats_d[1]),
+                mesh=self._mesh)
 
     def _op_prefill_chunk(self, idx: int, lane: bool, padded: np.ndarray,
                           ints: np.ndarray, floats: np.ndarray, table,
@@ -2868,15 +3067,19 @@ class ContinuousBatchingEngine:
         dev = self._dev
         pos, last = ((dev["lane_pos"], dev["lane_last"]) if lane
                      else (dev["pos"], dev["last"]))
-        if self._paged:
-            paged_prefill_chunk_into_slot(
-                self._cfg, dev["params"], dev["pool"], pos, last, local,
-                tab[0], toks, pos0, clen, final, sampling, mesh=self._mesh)
-        else:
-            prefill_chunk_into_slot(
-                self._cfg, dev["params"], self._slot_state(lane)[0], pos,
-                last, local, toks, pos0, clen, final, sampling,
-                mesh=self._mesh)
+        key = {"rows": self._lane_n if lane else self._n_slots,
+               "toks": padded}
+        with self._note("prefill_chunk", key):
+            if self._paged:
+                paged_prefill_chunk_into_slot(
+                    self._cfg, dev["params"], dev["pool"], pos, last, local,
+                    tab[0], toks, pos0, clen, final, sampling,
+                    mesh=self._mesh)
+            else:
+                prefill_chunk_into_slot(
+                    self._cfg, dev["params"], self._slot_state(lane)[0], pos,
+                    last, local, toks, pos0, clen, final, sampling,
+                    mesh=self._mesh)
 
     def _op_restore(self, idx: int, lane: bool, ids: np.ndarray,
                     n_tok: int) -> None:
@@ -2887,8 +3090,10 @@ class ContinuousBatchingEngine:
             return
         (ids_d,) = self._upload([ids])
         cache, pos = self._slot_state(lane)
-        pool_to_slot(self._dev["prefix_pool"], cache, pos, local, ids_d,
-                     n_tok)
+        with self._note("pool_to_slot", {
+                "rows": self._lane_n if lane else self._n_slots, "ids": ids}):
+            pool_to_slot(self._dev["prefix_pool"], cache, pos, local, ids_d,
+                         n_tok)
 
     def _op_commit(self, idx: int, lane: bool, ids: np.ndarray,
                    offs: np.ndarray) -> None:
@@ -2897,14 +3102,18 @@ class ContinuousBatchingEngine:
         every replica of the pool writes them."""
         ids_d, offs_d = self._upload([ids, offs])
         cache = self._slot_state(lane)[0]
+        key = {"rows": self._lane_n if lane else self._n_slots, "ids": ids}
         if self._dp == 1:
-            slot_to_pool(self._dev["prefix_pool"], cache, idx, ids_d, offs_d)
+            with self._note("slot_to_pool", key):
+                slot_to_pool(self._dev["prefix_pool"], cache, idx, ids_d,
+                             offs_d)
             return
         local = self._owner(idx, lane)
-        slot_to_pool(self._dev["prefix_pool"],
-                     cache if local is not None else None, local, ids_d,
-                     offs_d, axis_group(self._mesh, "dp"),
-                     self._owner_rank(idx, lane))
+        with self._note("slot_to_pool", key):
+            slot_to_pool(
+                self._dev["prefix_pool"],
+                cache if local is not None else None, local, ids_d, offs_d,
+                axis_group(self._mesh, "dp"), self._owner_rank(idx, lane))
 
     def _op_draft_prefill(self, idx: int, padded: np.ndarray,
                           plen: int) -> None:
@@ -2915,8 +3124,9 @@ class ContinuousBatchingEngine:
             return
         (toks,) = self._upload([padded])
         dev = self._dev
-        draft_prefill(self._draft.cfg, dev["dparams"], dev["dcache"],
-                      dev["dpos"], local, toks, plen)
+        with self._note("draft_prefill", {"toks": padded}):
+            draft_prefill(self._draft.cfg, dev["dparams"], dev["dcache"],
+                          dev["dpos"], local, toks, plen)
 
     def _op_spec(self, entry: int, rung: int, sample: bool,
                  mask: np.ndarray, seeds: np.ndarray, temps: np.ndarray,
@@ -2938,8 +3148,10 @@ class ContinuousBatchingEngine:
         rows_d = None if every else rest.pop(0).long()
         tab_d = rest[0] if self._paged else None
         timing = self._start_timing()
-        self._launch_spec(entry, tab_d, rows_d,
-                          (seeds_d, temps_d, topks_d, topps_d), rung, sample)
+        with self._note(("spec", rung, sample), {"tables": tables}):
+            self._launch_spec(entry, tab_d, rows_d,
+                              (seeds_d, temps_d, topks_d, topps_d), rung,
+                              sample)
         return self._end_timing(timing)
 
     def _op_lane_batch(self, idxs: np.ndarray, toks: np.ndarray,
@@ -2954,6 +3166,7 @@ class ContinuousBatchingEngine:
         layout runs every row on every dp rank, so each replica of the
         pool takes the same writes, and a row of another rank's lane slot
         moves only this rank's scratch row."""
+        key = {"toks": toks}      # the whole bucket, before any mesh cut
         scratch = self._lane_n // self._dp
         local = [scratch if i == self._lane_n
                  else self._owner(int(i), lane=True) for i in idxs]
@@ -2973,26 +3186,33 @@ class ContinuousBatchingEngine:
          topks_d, topps_d, *tabs_d) = self._upload(arrays)
         sampling = (seeds_d, temps_d, topks_d, topps_d)
         dev = self._dev
-        if self._paged:
-            paged_lane_batch(self._cfg, dev["params"], dev["pool"],
-                             dev["lane_pos"], dev["lane_last"],
-                             rows_d.long(), tabs_d[0], toks_d, pos0s_d,
-                             clens_d, finals_d, sampling, mesh=self._mesh)
-        else:
-            lane_batch_kernel(self._cfg, dev["params"], dev["lane_cache"],
-                              dev["lane_pos"], dev["lane_last"],
-                              rows_d.long(), toks_d, pos0s_d, clens_d,
-                              finals_d, sampling, mesh=self._mesh)
+        with self._note("lane_batch", key):
+            if self._paged:
+                paged_lane_batch(
+                    self._cfg, dev["params"], dev["pool"], dev["lane_pos"],
+                    dev["lane_last"], rows_d.long(), tabs_d[0], toks_d,
+                    pos0s_d, clens_d, finals_d, sampling, mesh=self._mesh)
+            else:
+                lane_batch_kernel(
+                    self._cfg, dev["params"], dev["lane_cache"],
+                    dev["lane_pos"], dev["lane_last"], rows_d.long(), toks_d,
+                    pos0s_d, clens_d, finals_d, sampling, mesh=self._mesh)
 
     def _op_handoff(self, d_idx: int, l_idx: int) -> None:
         """The paged handoff's device work: the position and first token
         of lane slot ``l_idx`` move to decode slot ``d_idx``. When another
         dp rank holds the lane slot, the pair is broadcast over the dp
         group from it."""
-        dev = self._dev
         d, lane = self._owner(d_idx), self._owner(l_idx, lane=True)
         src = (None if self._dp == 1
                else self._owner_rank(l_idx, lane=True))
+        with self._note("handoff", {}):
+            self._handoff_move(src, d, lane, d_idx)
+
+    def _handoff_move(self, src, d, lane, d_idx: int) -> None:
+        """``_op_handoff``'s device work: the pair moved on this rank, or
+        broadcast over the dp group from the lane slot's rank."""
+        dev = self._dev
         if src is None or src == self._owner_rank(d_idx):
             if d is not None:
                 lane_handoff(dev["pos"], dev["last"], dev["lane_pos"],
@@ -3011,28 +3231,39 @@ class ContinuousBatchingEngine:
         its host memory under ``key``; returns the copy's event (None on
         the CPU)."""
         pool, layer_major = self._tier_pool()
-        self._tier_rows[key], ready = tier_spill(pool, bid, layer_major)
+        with self._note("tier_spill", {}):
+            self._tier_rows[key], ready = tier_spill(pool, bid, layer_major)
         return ready
 
     def _op_tier_restore(self, key: int, bid: int) -> None:
         """A rank's part of a restore: the rows filed under ``key``
         copied back into block ``bid``."""
         pool, layer_major = self._tier_pool()
-        tier_restore(pool, bid, self._tier_rows.pop(key), layer_major)
+        rows = self._tier_rows.pop(key)
+        with self._note("tier_restore", {}):
+            tier_restore(pool, bid, rows, layer_major)
 
     def _op_tier_drop(self, key: int) -> None:
         """The driver's store dropped an entry: let its rows go."""
         self._tier_rows.pop(key, None)
 
     def _upload(self, arrays: list) -> list:
-        """Copy this dispatch's host inputs to the device in ONE transfer:
-        packed into one int32 buffer (float32 arrays by their bits), from
-        pinned memory with a non-blocking copy on the engine's stream.
-        PyTorch's pinned allocator does not hand the buffer out again
-        until that copy has run."""
+        """Copy this dispatch's host inputs to the device in ONE transfer
+        (``_pack``), from pinned memory with a non-blocking copy on the
+        engine's stream; returns the device views (``_unpack``)."""
+        host, layout = self._pack(arrays)
+        return self._unpack(host.to(self._device, non_blocking=True), layout)
+
+    def _pack(self, arrays: list) -> tuple:
+        """A dispatch's host arrays packed into ONE int32 buffer (float32
+        arrays by their bits), pinned on the card: returns (buffer,
+        layout), the layout each array's (shape, dtype char). PyTorch's
+        pinned allocator does not hand the buffer out again until the
+        non-blocking copy that reads it has run, however deep the
+        dispatches queue."""
         sizes = [a.size for a in arrays]
-        cuda = self._device.type == "cuda"
-        host = torch.empty(sum(sizes), dtype=torch.int32, pin_memory=cuda)
+        host = torch.empty(sum(sizes), dtype=torch.int32,
+                           pin_memory=self._device.type == "cuda")
         flat = host.numpy()
         off = 0
         for a, n in zip(arrays, sizes):
@@ -3040,13 +3271,19 @@ class ContinuousBatchingEngine:
             flat[off:off + n] = (src.view(np.int32)
                                  if src.dtype == np.float32 else src)
             off += n
-        dev = host.to(self._device, non_blocking=True) if cuda else host
+        return host, tuple((a.shape, a.dtype.char) for a in arrays)
+
+    @staticmethod
+    def _unpack(buf, layout: tuple) -> list:
+        """The arrays of a packed buffer (host or device) as views:
+        float32 by their bits, bool as ``!= 0``."""
         out, off = [], 0
-        for a, n in zip(arrays, sizes):
-            part = dev[off:off + n].view(a.shape)
-            if a.dtype == np.float32:
+        for shape, char in layout:
+            n = math.prod(shape)
+            part = buf[off:off + n].view(shape)
+            if char == "f":
                 part = part.view(torch.float32)
-            elif a.dtype == np.bool_:
+            elif char == "?":
                 part = part != 0
             out.append(part)
             off += n
@@ -4143,6 +4380,12 @@ class ContinuousBatchingEngine:
         occupied slot rides a lane)."""
         # fault point: a slow or wedged kernel in front of the dispatch
         faultinject.fire("kernel_delay", engine=self.name)
+        # a serving-phase compile inside this round's calls is stamped on
+        # the first traced active request (best-effort; the WARNING and
+        # the counter fire regardless)
+        self.compile_watch.current_trace = next(
+            (s.req.trace for s in self._slots + self._lane_slots
+             if s.req is not None and s.req.trace is not None), None)
         if self._chunked_prefill:
             # with a dedicated lane the prompts ingest in its own slots
             # (handed off at the next admission pass)
@@ -4279,9 +4522,7 @@ class ContinuousBatchingEngine:
             arrays += [tables, reset_to]
         seq = self._ring_seq
         self._ring_seq += 1
-        # with no frozen slot the steps skip the freeze masking
-        timing = self._exec("chunk", seq % self._ring_entries, arrays,
-                            bool(freeze.any()), sample)
+        timing = self._exec("chunk", seq % self._ring_entries, arrays, sample)
         for i, req in eager_free:
             # the slot layout's commit copy is enqueued behind the chunk
             # above (see _commit_prefix); the paged commit is a donation
@@ -4417,20 +4658,24 @@ class ContinuousBatchingEngine:
     def _launch_spec(self, entry: int, tables, rows, sampling: tuple,
                      rung: int, sample: bool) -> None:
         """Enqueue one verify round of the engine's layout on its device
-        state (``tables`` are this rank's slots' rows, paged only)."""
+        state, IN PLACE (``tables`` are this rank's slots' rows, paged
+        only)."""
         dev = self._dev
         common = (dev["dcache"], dev["dpos"], dev["last"], dev["ring"],
                   dev["ring_cnt"], entry)
         if self._paged:
-            dev["last"], dev["pos"], dev["dpos"] = paged_spec_round(
+            out = paged_spec_round(
                 self._cfg, self._draft.cfg, dev["params"], dev["dparams"],
                 dev["pool"], dev["pos"], *common, tables, rows, sampling,
                 rung, sample, mesh=self._mesh)
         else:
-            dev["last"], dev["pos"], dev["dpos"] = spec_round(
+            out = spec_round(
                 self._cfg, self._draft.cfg, dev["params"], dev["dparams"],
                 dev["cache"], dev["pos"], *common, rows, sampling, rung,
                 sample, mesh=self._mesh)
+        # into the state's own tensors: the chunk graphs read them
+        for name, new in zip(("last", "pos", "dpos"), out):
+            dev[name].copy_(new)
 
     def _issue_fetch(self, unfetched: list, forced: bool = False) -> tuple:
         """Start the ring's D2H copy (non-blocking, on the engine's
@@ -4892,6 +5137,9 @@ class ContinuousBatchingEngine:
             except queue.Empty:
                 break
             failed += close(req)
+        # nothing replays on a stopped engine: its graphs and their memory
+        # pool go (the compile table stays readable)
+        self.compile_watch.release()
         if expected:
             log.debug("generation engine '%s' stopped; closed %d "
                       "request(s)", self.name, failed)

@@ -33,6 +33,20 @@ row and column counts times the closed-form per-row cost: padding rows
 of lane-batch and chunk buckets, verify rows beyond the accepted count
 (attributed at retire, when the count is known), block-table width slack
 in paged dispatches, frozen chunk riders.
+
+One definition differs from the reference's: where the wall clock
+starts. The reference's tracker starts it when it is made, so an
+engine's warmup compiles count as idle wall in its lifetime rate, its
+device-time share and its idle seconds (and, through a rate window that
+still holds a warmup drain, in its live MFU). The port's engine calls
+:meth:`GoodputTracker.start_clock` when its readiness ends, once every
+CUDA graph is captured, so those seconds do not count. Everything else
+is the reference's: a port tracker whose clock starts at ``t`` gives the
+snapshot of a reference tracker made at ``t`` (tests/
+test_torch_goodput.py holds that). The reason is the autoscaler's canary
+gate, which judges a replica's MFU shortly after its attach: a fresh
+canary's seconds of captures would read as idle serving and roll a clean
+canary back.
 """
 
 from __future__ import annotations
@@ -162,6 +176,17 @@ class GoodputTracker:
         self._rate_window: deque = deque()  # (ns, cumulative useful)
 
     # ------------------------------------------------------ engine side
+
+    def start_clock(self) -> None:
+        """Start the wall clock now and forget the rate window: the engine
+        calls it once its readiness (the state, every warm-up capture) is
+        done, so a fresh engine's lifetime rate and shares count serving
+        wall only. The reference has no such call: its wall starts when
+        the tracker is made (the module docstring says why the port's
+        differs)."""
+        with self._lock:
+            self._start_ns = self._clock()
+            self._rate_window.clear()
 
     def note_dispatch(self, kind: str, useful_flops: int = 0,
                       wasted: Optional[dict] = None,

@@ -9,13 +9,14 @@ replica fleet, and the autoscale and canary families
 the autoscaler (``server/autoscale.py``). The goodput
 families are registered as the reference registers them; their MFU pair
 only where the engine's card has a known peak (the H100; never on the
-CPU). Nor are the runtime families (``client_tpu_runtime_*``): the
-naming contract makes that namespace all or nothing — any of its
-families requires the whole compile set beside the memory gauges — and
-the port, which runs eagerly, has no compile set yet; the memory ledger
-is served at ``GET /v2/debug/runtime`` instead. The shared-memory gauges
-label the device plane ``kind="cuda"`` where the reference says
-``"tpu"``.
+CPU). The runtime families (``client_tpu_runtime_*``) are registered
+wherever a model carries a compile snapshot, the whole set at once (the
+naming contract makes that namespace all or nothing), fed by the
+``CompileWatch`` of every model and engine (``server/runtime_stats.py``,
+where a compile is a CUDA-graph capture on the card); the device-memory
+gauge only where this process holds memory on a card (never on the
+CPU). The shared-memory gauges label the device plane ``kind="cuda"``
+where the reference says ``"tpu"``.
 
 Mirrors Triton's metrics extension (``GET /metrics`` in the Prometheus
 text format 0.0.4): per-model inference counters and duration counters
@@ -41,7 +42,10 @@ import threading
 import time
 from bisect import bisect_right
 
-from client_tpu_torch.server.runtime_stats import COMPILE_BUCKETS_S
+from client_tpu_torch.server.runtime_stats import (
+    COMPILE_BUCKETS_S,
+    device_memory_stats,
+)
 
 # The naming contract, single source of truth for MetricFamily's
 # registration check and the scripts/check_metrics_names.py lint.
@@ -366,12 +370,19 @@ def collect_server_metrics(core) -> MetricsRegistry:
                    for name, versions in core._models.items()
                    for v, e in versions.items()]
     gen_entries = []  # (name, version, generation snapshot)
+    rt_entries = []   # (name, version, runtime-plane snapshot)
     fleet_entries = []  # (name, version, fleet snapshot)
     for name, version, entry in sorted(entries):
         gen = getattr(entry.model, "generation_stats", None)
         if callable(gen):
             try:
                 gen_entries.append((name, version, gen()))
+            except Exception:  # noqa: BLE001 — metrics are best-effort
+                pass
+        rt = getattr(entry.model, "runtime_observability", None)
+        if callable(rt):
+            try:
+                rt_entries.append((name, version, rt()))
             except Exception:  # noqa: BLE001 — metrics are best-effort
                 pass
         fl = getattr(entry.model, "fleet_snapshot", None)
@@ -419,6 +430,12 @@ def collect_server_metrics(core) -> MetricsRegistry:
                       if s.get("watchdog") is not None]
         if wd_entries:
             _collect_watchdog(reg, wd_entries)
+    # only snapshots with a compile table: the runtime namespace is all or
+    # nothing, and a model without a watch has no compile set to report
+    rt_entries = [(n, v, s) for n, v, s in rt_entries
+                  if "total_compiles" in s]
+    if rt_entries:
+        _collect_runtime(reg, rt_entries)
     if fleet_entries:
         _collect_fleet(reg, fleet_entries)
         # the autoscaler's families ride the same hook: its controller
@@ -427,6 +444,21 @@ def collect_server_metrics(core) -> MetricsRegistry:
                       if s.get("autoscale")]
         if as_entries:
             _collect_autoscale(reg, as_entries)
+
+    # device memory gauges: registered only when a card reports stats (a
+    # CPU server has none, and a family of permanent zeros would read as
+    # "no pressure" instead of "not measured"); beside the compile set,
+    # which the naming contract requires with them
+    dev_stats = device_memory_stats() if rt_entries else []
+    if dev_stats:
+        mem = reg.gauge(
+            "client_tpu_runtime_device_memory_bytes",
+            "Per-device memory from PJRT memory_stats() (kind = "
+            "in_use | peak | limit)", ("device", "kind"))
+        for d in dev_stats:
+            mem.labels(d["device"], "in_use").set(d["bytes_in_use"])
+            mem.labels(d["device"], "peak").set(d["peak_bytes_in_use"])
+            mem.labels(d["device"], "limit").set(d["bytes_limit"])
 
     cache = core.cache.stats()
     reg.counter("client_tpu_cache_hits_total",
@@ -457,6 +489,69 @@ def collect_server_metrics(core) -> MetricsRegistry:
               "Seconds since server start").labels() \
         .set(time.time() - core._start_time)
     return reg
+
+
+def _collect_runtime(reg: MetricsRegistry, rt_entries: list) -> None:
+    """Compile + per-model memory families (registered only when at least
+    one model carries a compile snapshot — a PyModel-only server has no
+    compile set to report on), with the reference's names, labels and
+    help text.
+
+    Sources: CompileWatch snapshots (server/runtime_stats.py) around every
+    watched entry point of TorchModel / SequenceModel / the continuous-
+    batching engine (a compile is a CUDA-graph capture on the card, a
+    first eager call per signature elsewhere), plus each engine's memory
+    ledger. The serving invariant these families guard: after warmup
+    seals a model's compile set, the unexpected-compiles counter stays
+    0 — the perf profiler asserts exactly that per measurement window."""
+    ml = ("model", "version")
+    compile_h = reg.histogram(
+        "client_tpu_runtime_compile_seconds",
+        "XLA compile durations per jitted entry point (the kernel "
+        "label names the watched entry point)", ml + ("kernel",),
+        buckets=COMPILE_BUCKETS_S)
+    compiles = reg.counter(
+        "client_tpu_runtime_compiles_total",
+        "XLA compiles observed (warmup + serving phases)", ml)
+    unexpected = reg.counter(
+        "client_tpu_runtime_unexpected_compiles_total",
+        "Serving-phase XLA compiles after warmup declared the compile "
+        "set closed — each one stalled every in-flight stream", ml)
+    warm = reg.counter(
+        "client_tpu_runtime_warmup_compiles_total",
+        "XLA compiles during warmup (before seal): the sealed-set "
+        "size the bucket grids — table widths, lane-batch x chunk "
+        "buckets, the gamma ladder — multiply", ml)
+    warm_s = reg.counter(
+        "client_tpu_runtime_warmup_compile_seconds_total",
+        "Wall seconds spent in warmup-phase XLA compiles (engine "
+        "startup cost paid per build/restart, guarding ladder-grid "
+        "explosion)", ml)
+    mem = reg.gauge(
+        "client_tpu_runtime_model_memory_bytes",
+        "Per-model device-memory attribution (component = weights | "
+        "kv_slots | kv_pool | draft_weights | draft_kv). Components "
+        "are disjoint EXCEPT the paged-layout breakdown rows: paged "
+        "engines drop the dead kv_slots row and export kv_pool_live "
+        "| kv_pool_prefix | kv_pool_free, which subdivide the "
+        "kv_pool total — do not sum them with it",
+        ml + ("component",))
+    for name, version, snap in rt_entries:
+        # the cumulative per-kind histograms, not the capped debug table:
+        # a recompile storm must not freeze the histogram at the table cap
+        # while compiles_total keeps counting
+        for kind, (counts, sum_s, count) in \
+                (snap.get("hist") or {}).items():
+            compile_h.labels(name, version, kind) \
+                .load(counts, sum_s, count)
+        compiles.labels(name, version).set(snap.get("total_compiles", 0))
+        unexpected.labels(name, version) \
+            .set(snap.get("unexpected_compiles", 0))
+        warm.labels(name, version).set(snap.get("warmup_compiles", 0))
+        warm_s.labels(name, version) \
+            .set(snap.get("warmup_compile_seconds", 0.0))
+        for component, nbytes in (snap.get("memory") or {}).items():
+            mem.labels(name, version, component).set(nbytes)
 
 
 def _collect_generation(reg: MetricsRegistry, gen_entries: list) -> None:

@@ -10,10 +10,22 @@ JaxModel): parameters become resident on the model's device at load(),
 inputs are copied in per call (or arrive as device tensors), and outputs
 come back through pinned host memory guarded by a CUDA event, or, on the
 shm-output path (``execute_parts_fused_split``), stay on the device as
-per-row views. PyTorch runs eagerly, so there is no jit and no sealed
-compile set; the reference's CompileWatch waits for the CUDA-graph work
-(ROADMAP "Performance"). ``runtime_observability`` gives the memory half
-of the reference's runtime block: the weights' bytes.
+per-row views of the batch's own output slab.
+
+The compile plane (``server/runtime_stats.py``): the forward's three
+entry points are watched by the reference's names, ``apply``,
+``fused_batch`` and ``fused_batch_split``, and on the card they run as
+CUDA graphs per bucket, captured at their first call (``warmup`` captures
+every bucket, then seals the set; the two fused kinds replay one graph
+per bucket, and each kind's first call is recorded). The dynamic batch's
+parts are concatenated outside the graph, straight into its static input
+slab, and every replay's outputs are copied out of the graph's static
+output slab under the watch's graph lock: the next replay overwrites
+that slab while earlier batches are still in flight. ``execute_parts_ragged`` stays
+unwatched and eager, as the reference's ``_assemble_jit`` stays
+unwatched. Under a mesh, and on the CPU, the entry points are watched and
+run eagerly. ``runtime_observability`` gives the compile snapshot and the
+weights' bytes.
 
 A TorchModel over a ``mesh`` (``parallel.mesh.make_mesh``) is sharded
 over one process per device, PyTorch's tensor-parallel serving idiom
@@ -45,7 +57,13 @@ import torch
 from client_tpu_torch.device import resolve_device
 from client_tpu_torch.protocol.dtypes import wire_to_np_dtype
 from client_tpu_torch.server.config import ModelConfig
-from client_tpu_torch.server.runtime_stats import pytree_nbytes
+from client_tpu_torch.server.runtime_stats import (
+    CompileWatch,
+    GraphCapture,
+    capture_inputs,
+    clone_outputs,
+    pytree_nbytes,
+)
 from client_tpu_torch.server.types import DEFAULT_SLO_CLASS, DEFAULT_TENANT
 
 
@@ -255,12 +273,71 @@ class TorchModel(ServedModel):
         # execute_parts_fused_split calls (one per shm-output batch; the
         # smoke test holds it against the batches the stats count)
         self.fused_split_calls = 0
+        # runtime plane: every entry point below is watched, so a capture
+        # after warmup is counted and logged instead of silently stealing
+        # seconds from the serving path
+        self.compile_watch = CompileWatch(config.name)
+        self._watched = None
+
+    def _watch_entry_points(self) -> dict:
+        """{kind: watched entry point} of ``apply``, ``fused_batch`` and
+        ``fused_batch_split``: CUDA graphs on the card, eager on the CPU;
+        under a mesh rank 0's eager forward, whose fused kinds take the
+        concatenated batch."""
+        watch = self.compile_watch.watch
+        if self._mesh is not None:
+            return {k: watch(k, self._mesh_forward)
+                    for k in ("apply", "fused_batch", "fused_batch_split")}
+        graphs = self.device.type == "cuda"
+        dev = self.device
+
+        def fused_capture():
+            def bind(params, parts, bucket):
+                slab = {name: torch.empty(
+                    (sum(p[name].shape[0] for p in parts),)
+                    + tuple(parts[0][name].shape[1:]),
+                    dtype=parts[0][name].dtype, device=dev)
+                    for name in parts[0]}
+
+                def feed(params_now, parts_now, _bucket):
+                    if params_now is not params:
+                        raise RuntimeError(
+                            f"model '{self.name}': its weights were "
+                            f"replaced under a captured graph")
+                    for name, out in slab.items():
+                        torch.cat([p[name] for p in parts_now], dim=0,
+                                  out=out)
+
+                return (lambda: self._apply_fn(params, slab)), feed
+
+            return GraphCapture(bind, dev, out=clone_outputs)
+
+        # the two fused kinds compute one forward on one slab: they replay
+        # one graph per bucket, and each kind is recorded on its own
+        fused = fused_capture() if graphs else None
+        return {
+            "apply": watch("apply", self._apply_fn,
+                           capture=capture_inputs(self._apply_fn, (1,), dev,
+                                                  out=clone_outputs)
+                           if graphs else None),
+            "fused_batch": watch("fused_batch", self._fused_parts,
+                                 capture=fused, graph="fused"),
+            "fused_batch_split": watch("fused_batch_split",
+                                       self._fused_parts, capture=fused,
+                                       graph="fused")}
+
+    def _fused_parts(self, params, parts: list, bucket: int) -> dict:
+        """The eager fused path: concatenate, then one forward."""
+        batched = {name: torch.cat([p[name] for p in parts], dim=0)
+                   for name in parts[0]}
+        return self._apply_fn(params, batched)
 
     def load(self) -> None:
         with self._load_lock:
             if self._loaded:
                 return
             self._params = _to_device(self._params_host, self.device)
+            self._watched = self._watch_entry_points()
             self._loaded = True
             if self._chan is not None and self._chan.is_driver \
                     and self._heartbeat is None:
@@ -287,7 +364,12 @@ class TorchModel(ServedModel):
     def unload(self) -> None:
         with self._load_lock:
             self._params = None
+            self._watched = None
             self._loaded = False
+            # a reload warms (and seals) again; its warmup compiles must
+            # not count as serving-phase violations, and the graphs read
+            # the weights just dropped
+            self.compile_watch.reset()
         if self._chan is not None and self._chan.is_driver \
                 and not self._followers_stopped:
             # the followers' loops end with the driver's model
@@ -367,52 +449,64 @@ class TorchModel(ServedModel):
         return {name: col.all_gather(y, group, 0) for name, y in out.items()}
 
     def runtime_observability(self) -> dict:
-        """The runtime block (``GET /v2/debug/runtime``): the weights'
-        bytes, resident or not yet loaded, as the reference's
-        ``JaxModel`` reports them, without its compile table; no engine
-        thread (``engine_up`` None)."""
+        """The runtime block (``client_tpu_runtime_*`` and ``GET
+        /v2/debug/runtime``): the compile table plus the weights' bytes,
+        resident or not yet loaded, as the reference's ``JaxModel``
+        reports them; no engine thread (``engine_up`` None)."""
+        snap = self.compile_watch.snapshot()
         params = self._params if self._params is not None \
             else self._params_host
-        return {"memory": {"weights": pytree_nbytes(params)},
-                "engine_up": None}
+        snap["memory"] = {"weights": pytree_nbytes(params)}
+        snap["engine_up"] = None
+        return snap
 
     def _snapshot(self):
         """The params to run with, loading first if needed (an unload()
         racing an in-flight call cannot null them out from under it)."""
+        return self._snapshot_all()[0]
+
+    def _snapshot_all(self) -> tuple:
+        """(params, the watched entry points) as one consistent pair."""
         with self._load_lock:
             if not self._loaded:
                 self.load()
-            return self._params
+            return self._params, self._watched
 
-    def _run(self, params, inputs: dict) -> dict:
+    def _run(self, params, inputs: dict, watched: dict) -> dict:
         with torch.inference_mode():
-            if self._mesh is not None:
-                return self._mesh_forward(params, inputs)
-            return self._apply_fn(params, inputs)
+            return watched["apply"](params, inputs)
 
     # -- dynamic-batch paths (inputs already on the device) --
+
+    def _fused(self, kind: str, parts: list, bucket: int) -> dict:
+        params, watched = self._snapshot_all()
+        if len(parts) < bucket:
+            parts = parts + [parts[0]] * (bucket - len(parts))
+        with torch.inference_mode():
+            if self._mesh is not None:
+                batched = {name: torch.cat([p[name] for p in parts], dim=0)
+                           for name in parts[0]}
+                return watched[kind](params, batched)
+            return watched[kind](params, parts, bucket)
 
     def execute_parts_fused(self, parts: list, bucket: int) -> dict:
         """One forward for a whole dynamic batch of single-row requests.
         The parts list is padded to exactly ``bucket`` entries by
         repeating the first part: padding rows compute values the
-        scheduler never delivers, and every batch runs at one shape."""
-        params = self._snapshot()
-        if len(parts) < bucket:
-            parts = parts + [parts[0]] * (bucket - len(parts))
-        batched = {name: torch.cat([p[name] for p in parts], dim=0)
-                   for name in parts[0]}
-        return self._run(params, batched)
+        scheduler never delivers, and every batch runs at one shape (one
+        graph per bucket, ever)."""
+        return self._fused("fused_batch", parts, bucket)
 
     def execute_parts_fused_split(self, parts: list, bucket: int) -> tuple:
         """Like execute_parts_fused, but the outputs come back PRE-SPLIT:
-        ``({name: bucket single-row views of the output slab}, event)``.
-        Row i belongs to request i; rows beyond the real batch are
-        padding. The views cost no kernel (``split(1)``), and the CUDA
-        event recorded behind the forward is the batch's completion
-        signal: the outputs never leave the device (None on the CPU,
-        where the forward has completed on return)."""
-        out = self.execute_parts_fused(parts, bucket)
+        ``({name: bucket single-row views of the batch's output slab},
+        event)``. Row i belongs to request i; rows beyond the real batch
+        are padding. The slab is this batch's own (a replay's copy-out),
+        the views cost no kernel (``split(1)``), and the CUDA event
+        recorded behind the forward is the batch's completion signal: the
+        outputs never leave the device (None on the CPU, where the
+        forward has completed on return)."""
+        out = self._fused("fused_batch_split", parts, bucket)
         self.fused_split_calls += 1
         split = {name: slab.split(1) for name, slab in out.items()}
         event = None
@@ -423,7 +517,8 @@ class TorchModel(ServedModel):
 
     def execute_parts_ragged(self, parts: list, bucket: int) -> dict:
         """Ragged per-request batch sizes: concatenate on the device, pad
-        with zero rows up to ``bucket``, then one forward."""
+        with zero rows up to ``bucket``, then one eager forward, unwatched
+        (the reference's ragged assembly is an unwatched jit too)."""
         params = self._snapshot()
         batched = {}
         for name in parts[0]:
@@ -433,7 +528,10 @@ class TorchModel(ServedModel):
                                     + tuple(arr.shape[1:]))
                 arr = torch.cat([arr, pad], dim=0)
             batched[name] = arr
-        return self._run(params, batched)
+        with torch.inference_mode():
+            if self._mesh is not None:
+                return self._mesh_forward(params, batched)
+            return self._apply_fn(params, batched)
 
     def device_put_inputs(self, inputs: dict) -> dict:
         """Host -> device copy of every input (tensors already on the
@@ -450,7 +548,8 @@ class TorchModel(ServedModel):
 
     def execute_on_device(self, device_inputs: dict) -> dict:
         """Run the forward; returns device-resident outputs (no sync)."""
-        return self._run(self._snapshot(), device_inputs)
+        params, watched = self._snapshot_all()
+        return self._run(params, device_inputs, watched)
 
     def execute(self, inputs: dict) -> dict:
         dev_out = self.execute_on_device(self.device_put_inputs(inputs))
@@ -470,14 +569,16 @@ class TorchModel(ServedModel):
         return inputs
 
     def warmup(self) -> None:
-        """Run every batch bucket once, then the serving paths, so the
-        allocator's pools and the kernels' libraries are ready before the
-        first request."""
+        """Run every batch bucket once, then the serving paths, so every
+        graph is captured (and the kernels' libraries built) before the
+        first request; then seal the compile set: any further capture is
+        a serving-phase violation the runtime plane counts and logs."""
         for b in self.config.batch_buckets() or (0,):
             inputs = self._zero_inputs(b)
             if inputs is not None:
                 self.execute(inputs)
         self.warmup_serving()
+        self.compile_watch.seal()
 
     def warmup_serving(self) -> None:
         """Run the dynamic-batch fused paths (the slab and the pre-split
@@ -517,8 +618,9 @@ class SequenceModel(TorchModel):
     state)`` runs one request; the sequence scheduler threads the state
     through a sequence, and it stays on the device between requests.
     Inputs move to the device per step; outputs come back as host
-    arrays. A step may write its state in place: the scheduler builds a
-    fresh state at every START, never reusing a state's tensors."""
+    arrays. ``step`` is watched (kind ``step``) and runs eagerly. A step
+    may write its state in place: the scheduler builds a fresh state at
+    every START, never reusing a state's tensors."""
 
     def __init__(self, config: ModelConfig,
                  step_fn: Callable[[Any, dict, Any], tuple],
@@ -528,19 +630,25 @@ class SequenceModel(TorchModel):
         self._step_fn = step_fn
         self._init_state_fn = init_state_fn
 
+    def _watch_entry_points(self):
+        """``step``, watched and eager: watched but never sealed, since a
+        sequence model has no warmup phase (the table records its first
+        calls without flagging them)."""
+        return self.compile_watch.watch("step", self._step_fn)
+
     def warmup(self) -> None:
         """No batch buckets to warm (the reference's SequenceModel warms
-        nothing either)."""
+        nothing either) and no seal."""
 
     def init_state(self):
         with torch.inference_mode():
             return self._init_state_fn()
 
     def step(self, inputs: dict, state):
-        params = self._snapshot()
+        params, step = self._snapshot_all()
         dev_in = self.device_put_inputs(inputs)
         with torch.inference_mode():
-            outputs, new_state = self._step_fn(params, dev_in, state)
+            outputs, new_state = step(params, dev_in, state)
         return finish_host_copies(start_host_copies(outputs)), new_state
 
     def execute(self, inputs: dict) -> dict:

@@ -14,11 +14,15 @@ outage. The supervisor makes engine death a *bounded* event:
    (clients running the opt-in ``RetryPolicy`` resubmit after it);
 2. the supervisor sleeps the backoff, then rebuilds the engine from
    scratch through the same factory the model's unload/reload path
-   uses — fresh device state (slots, KV pool, draft KV, token ring)
-   and a fresh radix index, built on the new engine's own thread
-   (``torch.cuda.set_device`` and inference mode are thread-local, so
-   the factory builds no device state on the supervisor's thread) —
-   and swaps it in once ``start()`` has the engine thread building;
+   uses — fresh device state (slots, KV pool, draft KV, token ring),
+   a fresh radix index and a fresh ``CompileWatch`` (so the restart's
+   warmup captures are sealed again instead of false-flagging as
+   serving-phase violations; the dead engine freed its CUDA graphs and
+   their memory pool with its device state), built on the new engine's
+   own thread (``torch.cuda.set_device`` and inference mode are
+   thread-local, so the factory builds no device state on the
+   supervisor's thread) — and swaps it in once ``start()`` has the
+   engine thread building;
 3. backoff grows exponentially with the number of failures inside a
    sliding window; ``max_failures`` failures within ``window_s``
    trips the crash-loop breaker — the supervisor gives up, readiness

@@ -110,8 +110,7 @@ DEFAULT_THRESHOLDS = {
     "burn_limit": 8.0,
     "burn_samples": 4,
     # compile_violation: any serving-phase unexpected-compile delta
-    # (armed, but the port reads None for the signal: it has no
-    # compile set to seal, so the detector cannot fire)
+    # (a capture after the engine sealed its compile set)
     # acceptance_collapse: speculation acceptance EWMA below the
     # floor for this many samples, once enough rounds ran to trust it
     "acceptance_floor": 0.05,

@@ -1466,3 +1466,293 @@ def test_direct_cuda_library_bit_equal_to_the_cpu_library(card, model, size):
         for k in want:
             assert out[k].tobytes() == want[k].tobytes(), k
             assert out[k].tobytes() == plain[k].tobytes(), k
+
+
+# ---------------------------------------------------------------- CUDA graphs
+#
+# The compile plane's executables (server/runtime_stats.py): a watched
+# entry point captured as a CUDA graph at its first call per signature and
+# replayed after it, with fresh inputs copied into its static buffers.
+
+def _graphed(fn, positions):
+    """``fn`` watched and captured, its arguments at ``positions`` fed per
+    call, its outputs copied out of the graph's static buffers."""
+    from client_tpu_torch.server.runtime_stats import (
+        CompileWatch,
+        capture_inputs,
+        clone_outputs,
+    )
+
+    watch = CompileWatch("graphs")
+    return watch, watch.watch("kernel", fn, capture=capture_inputs(
+        fn, positions, "cuda", out=clone_outputs))
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 12, 64), (3, 100, 4, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_replayed_from_a_graph_is_bit_equal_to_eager(card, dtype, shape):
+    """K1 captured at its first call and replayed with fresh q, k, v copied
+    into the graph's static buffers: every replay bit-equal to an eager
+    launch on the same inputs, and each replay counted as one launch (the
+    capture itself launches nothing)."""
+    watch, run = _graphed(fa.flash_attention, (0, 1, 2))
+    first = [_randn(shape, dtype, 1) for _ in range(3)]
+    before = fa.launches
+    out0 = run(*first)               # eager warm-up + capture
+    assert fa.launches - before == 1 and watch.captured() == 1
+    assert torch.equal(out0, fa.flash_attention(*first))
+    for seed in (2, 3, 4):
+        qkv = [_randn(shape, dtype, seed * 10 + i) for i in range(3)]
+        before = fa.launches
+        got = run(*qkv)
+        assert fa.launches - before == 1
+        want = fa.flash_attention(*qkv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    snap = watch.snapshot()
+    assert snap["total_compiles"] == 1 and watch.captured() == 1
+
+
+@pytest.mark.parametrize("shape", [(16, 12, 12, 64, 16, 193, 12),
+                                   (5, 16, 4, 128, 16, 61, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_replayed_from_a_graph_is_bit_equal_to_eager(card, dtype, shape):
+    """K2 captured and replayed with fresh queries, pools, tables and
+    positions copied in: bit-equal to eager launches, one launch counted
+    per replay."""
+    watch, run = _graphed(pa.paged_decode_attention, (0, 1, 2, 3, 4))
+    first = _paged_case(*shape, dtype=dtype, seed=1)
+    before = pa.launches
+    run(*first)
+    assert pa.launches - before == 1
+    for seed in (2, 3):
+        args = _paged_case(*shape, dtype=dtype, seed=seed)
+        before = pa.launches
+        got = run(*args)
+        assert pa.launches - before == 1
+        want = pa.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert watch.snapshot()["total_compiles"] == 1
+
+
+def test_a_failed_capture_raises_and_never_runs_eagerly(card):
+    """A function that reads a device value on the host cannot be
+    captured: its first call raises, and so does every later call of the
+    signature (no eager fallback)."""
+    def syncs(x):
+        return x * float(x.sum().item())
+
+    watch, run = _graphed(syncs, (0,))
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(Exception):
+        run(x)
+    with pytest.raises(RuntimeError, match="failed to capture"):
+        run(x)
+    assert watch.captured() == 0
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_layout="paged",
+                                             kv_block_len=8)],
+                         ids=["slot", "paged"])
+def test_graph_engine_streams_equal_the_eager_engine(card, kw):
+    """A small engine with its chunk steps as CUDA graphs against the same
+    engine built under ``capture_disabled()``: every greedy and sampled
+    stream token-equal, the same K2 launches per chunk dispatch (counted
+    from replays), graphs captured only by the graph engine, and no
+    serving-phase compile in either."""
+    from client_tpu_torch.perf.bench_harness import (
+        ragged_generation_jobs,
+        run_engine_jobs,
+    )
+    from client_tpu_torch.server.generation import ContinuousBatchingEngine
+    from client_tpu_torch.server.runtime_stats import capture_disabled
+
+    cfg, params = _lane_model()
+    jobs = ragged_generation_jobs(6, 97, 6, (1, 30), (3, 20), 64)
+    got = {}
+    for arm in ("graphs", "eager"):
+        def build():
+            return ContinuousBatchingEngine(cfg, params, n_slots=4, chunk=4,
+                                            device="cuda", **kw).start()
+
+        if arm == "eager":
+            with capture_disabled():
+                eng = build()
+        else:
+            eng = build()
+        try:
+            list(eng.submit(np.zeros(3, np.int32), 2))   # engine ready
+            chunks0, before = eng.stats()["chunks_dispatched"], pa.launches
+            _, _, toks = run_engine_jobs(eng, jobs, collect=True,
+                                         join_timeout_s=300)
+            chunks = eng.stats()["chunks_dispatched"] - chunks0
+            snap = eng.compile_watch.snapshot()
+            got[arm] = (toks, pa.launches - before, chunks,
+                        eng.compile_watch.captured(), snap)
+        finally:
+            eng.stop()
+    (g_toks, g_k2, g_chunks, g_graphs, g_snap) = got["graphs"]
+    (e_toks, e_k2, e_chunks, e_graphs, e_snap) = got["eager"]
+    assert g_toks == e_toks
+    paged = kw.get("kv_layout") == "paged"
+    assert g_k2 == (2 * 4 * g_chunks if paged else 0)
+    assert e_k2 == (2 * 4 * e_chunks if paged else 0)
+    assert g_graphs == g_snap["total_compiles"] and e_graphs == 0
+    for snap in (g_snap, e_snap):
+        assert snap["sealed"] and snap["unexpected_compiles"] == 0
+
+
+def test_graph_encoder_is_bit_equal_to_eager_and_copies_out(card):
+    """A two-layer bf16 encoder TorchModel with K1 (one bucket of 4): the
+    graph model's fused-split rows are bit-equal to the eager model's, and
+    a batch's rows stay its own after the next replays (the copy-out)."""
+    from client_tpu_torch.models.transformer import init_params
+    from client_tpu_torch.perf.bench_harness import make_encoder_model
+    from client_tpu_torch.server.runtime_stats import capture_disabled
+
+    cfg = _encoder_cfg()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    models = {}
+    for arm in ("graphs", "eager"):
+        def build():
+            m = make_encoder_model(cfg, params, 32, 4, device="cuda")
+            m.load()
+            m.warmup()
+            return m
+
+        if arm == "eager":
+            with capture_disabled():
+                models[arm] = build()
+        else:
+            models[arm] = build()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = [{"input_ids": torch.randint(0, 128, (1, 32), generator=gen,
+                                        device="cuda", dtype=torch.int32)}
+            for _ in range(7)]
+    outs = {}
+    for arm, m in models.items():
+        first = m.execute_parts_fused_split(rows[:3], 4)[0]["embedding"]
+        second = m.execute_parts_fused_split(rows[3:], 4)[0]["embedding"]
+        outs[arm] = (first, second)
+    torch.cuda.synchronize()
+    for i in range(4):
+        assert torch.equal(outs["graphs"][0][i], outs["eager"][0][i])
+        assert torch.equal(outs["graphs"][1][i], outs["eager"][1][i])
+    assert not torch.equal(outs["graphs"][0][0], outs["graphs"][1][0])
+    snap = models["graphs"].compile_watch.snapshot()
+    assert snap["sealed"] and snap["unexpected_compiles"] == 0
+    assert snap["total_compiles"] == 3     # apply and both fused kinds
+    # the two fused kinds replay one graph per bucket
+    assert models["graphs"].compile_watch.captured() == 2
+    assert models["eager"].compile_watch.captured() == 0
+
+
+def test_graph_replays_from_three_threads_equal_eager(card):
+    """Three dispatch threads of one graph TorchModel, whose graphs share
+    one memory pool, replay at once: ``fused_batch_split`` at buckets 4
+    and 8 and ``fused_batch`` at bucket 4 (the split kind's graph), with
+    fresh rows every call. Every batch's rows are bit-equal to the eager
+    model's on the same rows. A graph captured later may keep its static
+    outputs where another keeps its intermediates, so a replay queued
+    between another's replay and its copy-out would corrupt that batch."""
+    import threading
+
+    from client_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from client_tpu_torch.perf.bench_harness import encoder_apply
+    from client_tpu_torch.server.config import (
+        DynamicBatchingConfig,
+        ModelConfig,
+        TensorSpec,
+    )
+    from client_tpu_torch.server.model import (
+        TorchModel,
+        finish_host_copies,
+        start_host_copies,
+    )
+    from client_tpu_torch.server.runtime_stats import capture_disabled
+
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=4,
+                            n_heads=4, head_dim=64, d_ff=1024, max_seq=128,
+                            dtype=torch.bfloat16, attn_impl="flash",
+                            causal=False)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    mcfg = ModelConfig(
+        name="threads", max_batch_size=8,
+        inputs=(TensorSpec("input_ids", "INT32", (128,)),),
+        outputs=(TensorSpec("embedding", "FP32", (256,)),),
+        dynamic_batching=DynamicBatchingConfig(preferred_batch_size=(8,)),
+        batch_buckets_override=(4, 8))
+    models = {}
+    for arm in ("graphs", "eager"):
+        def build():
+            m = TorchModel(mcfg, lambda p, x: encoder_apply(cfg, p, x),
+                           params=params, device="cuda")
+            m.load()
+            m.warmup()
+            return m
+
+        if arm == "eager":
+            with capture_disabled():
+                models[arm] = build()
+        else:
+            models[arm] = build()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    pool = [{"input_ids": torch.randint(0, 512, (1, 128), generator=gen,
+                                        device="cuda", dtype=torch.int32)}
+            for _ in range(64)]
+    graphs, n_calls = models["graphs"], 40
+    plans = {"split4": (4, "split"), "split8": (8, "split"),
+             "fused4": (4, "fused")}
+    got = {name: [] for name in plans}
+    errors = []
+    barrier = threading.Barrier(len(plans))
+
+    def dispatch(model, bucket, how, rows):
+        if how == "split":
+            split, event = model.execute_parts_fused_split(rows, bucket)
+            event.synchronize()
+            return torch.cat(split["embedding"], dim=0)
+        return finish_host_copies(start_host_copies(
+            model.execute_parts_fused(rows, bucket)))["embedding"]
+
+    def worker(name, bucket, how):
+        try:
+            barrier.wait()
+            for i in range(n_calls):
+                start = (11 * i + bucket) % 56
+                rows = pool[start:start + bucket]
+                got[name].append((start, dispatch(graphs, bucket, how,
+                                                  rows)))
+        except Exception as exc:  # noqa: BLE001 — raised in the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(name, b, how))
+               for name, (b, how) in plans.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    assert not errors, errors
+    for name, (bucket, how) in plans.items():
+        assert len(got[name]) == n_calls
+        for start, out in got[name]:
+            want = dispatch(models["eager"], bucket, how,
+                            pool[start:start + bucket])
+            assert torch.equal(torch.as_tensor(out), torch.as_tensor(want)), (
+                name, start)
+    snap = graphs.compile_watch.snapshot()
+    assert snap["sealed"] and snap["unexpected_compiles"] == 0
+    assert graphs.compile_watch.captured() == 4   # apply and fused, x2
+
+
+def _encoder_cfg():
+    from client_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(vocab_size=128, d_model=64, n_layers=2,
+                             n_heads=4, head_dim=16, d_ff=128, max_seq=32,
+                             dtype=torch.bfloat16, attn_impl="flash",
+                             causal=False)

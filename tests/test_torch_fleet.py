@@ -633,7 +633,8 @@ def test_snapshot_keys_equal_the_reference(fleet_model):
     ).fleet_snapshot()
     assert set(snap) == set(ref)
     assert set(snap["rows"][0]) == set(ref["rows"][0])
-    assert snap["rows"][0]["unexpected_compiles"] is None
+    assert snap["rows"][0]["unexpected_compiles"] == \
+        ref["rows"][0]["unexpected_compiles"] == 0
     stats = fleet_model.runtime_stats()
     assert stats["fleet"]["replicas"] == 2 and len(stats["fleet"]["rows"]) \
         == 2

@@ -254,6 +254,42 @@ def test_sampling_share_is_bounded_and_a_cpu_block_waits_on_nothing():
         "sampled_total"] == 0
 
 
+def test_the_wall_clock_starts_at_readiness_not_at_construction():
+    """The port's one divergence from the reference's tracker: the engine
+    starts the wall at its readiness (``start_clock``), where the
+    reference starts it when the tracker is made. A port tracker made at
+    0 whose clock starts at 7 s, with a warmup drain before it, gives the
+    snapshot of a reference tracker made at 7 s; without the call it
+    gives the snapshot of a reference tracker made at 0."""
+    warm, ready = 3_000_000_000, 7_000_000_000
+    clk = {"t": 0}
+    port = tgp.GoodputTracker(clock=lambda: clk["t"], peak_flops=1e9)
+    late = tgp.GoodputTracker(clock=lambda: clk["t"], peak_flops=1e9)
+    from_start = jgp.GoodputTracker(clock=lambda: clk["t"], peak_flops=1e9)
+    clk["t"] = warm
+    for tr in (port, late, from_start):
+        tr.note_dispatch("chunk")          # a warmup dispatch: no FLOPs
+        tr.drain_mark()
+    clk["t"] = ready
+    port.start_clock()
+    at_ready = jgp.GoodputTracker(clock=lambda: clk["t"], peak_flops=1e9)
+    for step in range(1, 4):
+        clk["t"] = ready + step * 1_000_000_000
+        for tr in (port, late, at_ready, from_start):
+            tr.note_dispatch("chunk", useful_flops=5_000_000)
+            tr.drain_mark()
+    clk["t"] = ready + 4_000_000_000
+    got, ref = port.snapshot(), at_ready.snapshot()
+    for key in ("wall_seconds", "useful_flops_per_s", "mfu",
+                "useful_flops_total"):
+        assert got[key] == ref[key], key
+    assert got["wall_seconds"] == 4.0
+    assert late.snapshot()["wall_seconds"] == from_start.snapshot()[
+        "wall_seconds"] == 11.0
+    assert late.snapshot()["mfu"] == from_start.snapshot()["mfu"]
+    assert late.snapshot()["mfu"] < got["mfu"]
+
+
 def test_merge_equals_the_reference():
     snaps = {}
     for name, mod in (("ref", jgp), ("port", tgp)):

@@ -9,13 +9,12 @@
   package's core. The reference's naming lint
   (``scripts/check_metrics_names.py:check``, imported, not edited) finds
   nothing in the port's text; the port's family set equals the reference's
-  (the watchdog, the goodput families and, under supervision, the
-  restart families included) less the runtime namespace, which the lint
-  makes all or nothing (the memory gauges need the compile set the port
-  does not have), and which is absent, not zero; and the counters the
+  (the watchdog, the goodput families, the runtime namespace with its
+  compile set and, under supervision, the restart families included; the
+  device-memory gauge is absent on the CPU in both); and the counters the
   parity tests hold equal (tokens, completions, prefix hits and saved
   tokens, handoffs, speculation rounds and accepted tokens, request
-  successes) render equal.
+  successes, the compile counters) render equal.
 - The shared-memory gauges label the device plane ``kind="cuda"``.
 """
 
@@ -47,10 +46,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir,
 import check_metrics_names  # noqa: E402  (the reference's lint)
 
 MODS = {"ref": jm, "port": tm}
-# the families of the plane the port has not ported yet (the runtime
-# namespace, which comes with the compile set)
-ABSENT = ("client_tpu_runtime_",)
+# a card's memory gauge: absent on the CPU, in both packages
+ABSENT = ("client_tpu_runtime_device_memory_bytes",)
 COUNTERS = (
+    "client_tpu_runtime_compiles_total",
+    "client_tpu_runtime_unexpected_compiles_total",
+    "client_tpu_runtime_warmup_compiles_total",
     "client_tpu_generation_tokens_total",
     "client_tpu_generation_requests_total",
     "client_tpu_generation_failures_total",
@@ -266,9 +267,9 @@ def test_metrics_match_the_reference(weights, config):
     parsed = {side: tm.parse_prometheus_text(runs[side][1])
               for side in runs}
     fams = {side: set(p["families"]) for side, p in parsed.items()}
-    assert fams["port"] == {f for f in fams["ref"]
-                            if not f.startswith(ABSENT)}
-    assert not any(f.startswith(ABSENT) for f in fams["port"])
+    assert fams["port"] == fams["ref"]
+    assert "client_tpu_runtime_compiles_total" in fams["port"]
+    assert not any(f.startswith(ABSENT) for f in fams["port"] | fams["ref"])
     counters = {side: sorted((n, sorted(lab.items()), v)
                              for n, lab, v in p["samples"]
                              if n in COUNTERS)

@@ -10,9 +10,9 @@ package, on the CPU.
   and byte counts.
 - The debug routes: every ``/v2/debug/*`` path answers 404 without the
   flag on both HTTP servers; with it, the runtime, engine, incidents and
-  faults JSON carry the reference's keys (the runtime rows less the
-  compile table the port does not have), a bad fault spec is a 400 with
-  the reference's text, the profile capture's input errors are the
+  faults JSON carry the reference's keys (the runtime rows with the
+  compile table, whose counts and kinds equal the reference's), a bad
+  fault spec is a 400 with the reference's text, the profile capture's input errors are the
   reference's (400, 400, 409), and a capture writes a trace.
 - gRPC (``importorskip("grpc")``): an armed ``transport_reset`` aborts
   ``ModelInfer`` with UNAVAILABLE and a ``retry-after`` trailer on both
@@ -52,7 +52,7 @@ from client_tpu_torch.server.types import ServerError
 
 SIDES = ("ref", "port")
 FI = {"ref": jfi, "port": tfi}
-# the reference's compile table, which the port's runtime rows leave out
+# the reference's compile table, which the port's runtime rows carry
 COMPILE_KEYS = {"sealed", "total_compiles", "unexpected_compiles",
                 "warmup_compiles", "warmup_compile_seconds", "compiles",
                 "hist"}
@@ -252,12 +252,16 @@ def test_the_debug_json_has_the_reference_keys(stacks):
             "status": (rt[0], eng[0], inc[0], slo[0], sched[0], none[0]),
             "runtime": sorted(rt[1]),
             "devices": rt[1]["devices"],
-            "runtime_rows": {n: sorted(set(r) - COMPILE_KEYS)
-                             for n, r in rows.items()},
+            "runtime_rows": {n: sorted(r) for n, r in rows.items()},
+            "compile_counts": {n: [r[k] for k in sorted(COMPILE_KEYS - {
+                "compiles", "hist", "warmup_compile_seconds"})]
+                for n, r in rows.items()},
+            "compile_kinds": {n: sorted(e["kind"] for e in r["compiles"])
+                              for n, r in rows.items()},
             "weights": {n: r["memory"]["weights"] for n, r in rows.items()},
             "engine_up": {n: r["engine_up"] for n, r in rows.items()},
             "engine": sorted(eng[1]),
-            "engine_runtime": sorted(set(eng[1]["runtime"]) - COMPILE_KEYS),
+            "engine_runtime": sorted(eng[1]["runtime"]),
             "slots": eng[1]["slots"],
             "flight": bool(eng[1]["flight_recorder"]),
             "timeline": sorted(stacks[side][1].timeline_snapshot()),

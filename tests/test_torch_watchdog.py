@@ -164,7 +164,7 @@ WINDOWS = {
         3, unexpected_compiles=[0, 0, 1])),
     "compile_flat": ("compile_violation", _window(
         3, unexpected_compiles=1)),
-    # the port's engine reads None: the detector is armed and never fires
+    # a None signal (an engine without a compile set) never breaches
     "compile_none": ("compile_violation", _window(
         3, unexpected_compiles=None)),
     "acceptance_cold": ("acceptance_collapse", _window(
